@@ -1,0 +1,4 @@
+"""Hand-written CUDA kernels (``csrc/``, built for ``sm_90a`` by
+:mod:`.build`), their wrappers (:mod:`.edm_update`), their plain PyTorch
+versions (:mod:`.ref`) and the device dispatch (:mod:`.ops`).  Importing
+this package builds nothing: kernels compile at their first CUDA use."""

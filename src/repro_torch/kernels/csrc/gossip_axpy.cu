@@ -1,0 +1,151 @@
+// n-ary gossip combine  out = Σₖ wₖ · operandₖ  over flat buffers.
+//
+// Replaces the Pallas TPU kernel repro/kernels/edm_update.py::_axpy_kernel
+// (called by gossip_axpy_flat).  One operand per gossip term (center /
+// left / right for the paper's ring, more for exp and hierarchical
+// graphs), up to kMaxOperands = 16, which covers every topology the JAX
+// package builds at A ≤ 64.
+//
+// Bound on an H100: device-memory bytes, (n + 1) element reads/writes
+// against 2n flops per element.  As in the EDM kernel the design only
+// streams: four elements per thread per iteration (16 B per f32 operand,
+// 8 B per bf16 operand), coalesced, grid-stride over a grid that fills
+// every SM.
+//
+// Weights are runtime data, as in the TPU kernel (an SMEM operand there):
+// they arrive by value in a kernel-argument struct, so one compiled kernel
+// per (operand dtype, output dtype) serves every topology and weight set.
+// The operand pointers travel the same way.
+//
+// Rounding: accumulation is f32 in term order k = 0 … n−1, starting from
+// w₀·o₀, with every product and sum an explicitly rounded intrinsic (no
+// FMA contraction), and one rounding to the output dtype on store — the
+// plain PyTorch version's exact sequence, so the two agree bit for bit.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kMaxOperands = 16;
+constexpr int kThreads = 256;
+constexpr int kBlocksPerSM = 8;
+
+struct Operands {
+  const void* ptr[kMaxOperands];
+};
+
+struct Weights {
+  float w[kMaxOperands];
+};
+
+// Load four consecutive elements (index i counts groups of four) as f32.
+__device__ __forceinline__ void load4(const float* p, long long i, float v[4]) {
+  const float4 t = reinterpret_cast<const float4*>(p)[i];
+  v[0] = t.x;
+  v[1] = t.y;
+  v[2] = t.z;
+  v[3] = t.w;
+}
+
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, long long i,
+                                      float v[4]) {
+  const uint2 t = reinterpret_cast<const uint2*>(p)[i];
+  const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&t.x);
+  const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&t.y);
+  const float2 a = __bfloat1622float2(lo);
+  const float2 b = __bfloat1622float2(hi);
+  v[0] = a.x;
+  v[1] = a.y;
+  v[2] = b.x;
+  v[3] = b.y;
+}
+
+__device__ __forceinline__ void store4(float* p, long long i,
+                                       const float v[4]) {
+  reinterpret_cast<float4*>(p)[i] = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+__device__ __forceinline__ void store4(__nv_bfloat16* p, long long i,
+                                       const float v[4]) {
+  __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+  __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+  uint2 t;
+  t.x = *reinterpret_cast<const uint32_t*>(&lo);
+  t.y = *reinterpret_cast<const uint32_t*>(&hi);
+  reinterpret_cast<uint2*>(p)[i] = t;
+}
+
+template <typename In, typename Out>
+__global__ void gossip_axpy_kernel(Operands ops, Weights ws, int n_ops,
+                                   Out* out, long long n4) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n4;
+       i += stride) {
+    float acc[4], v[4];
+    load4(static_cast<const In*>(ops.ptr[0]), i, v);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[e] = __fmul_rn(ws.w[0], v[e]);
+#pragma unroll
+    for (int k = 1; k < kMaxOperands; ++k) {
+      if (k < n_ops) {
+        load4(static_cast<const In*>(ops.ptr[k]), i, v);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[e] = __fadd_rn(acc[e], __fmul_rn(ws.w[k], v[e]));
+      }
+    }
+    store4(out, i, acc);
+  }
+}
+
+template <typename In, typename Out>
+cudaError_t launch(const Operands& ops, const Weights& ws, int n_ops,
+                   void* out, long long n4, cudaStream_t stream) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  long long blocks = (n4 + kThreads - 1) / kThreads;
+  const long long cap = (long long)sms * kBlocksPerSM;
+  if (blocks > cap) blocks = cap;
+  gossip_axpy_kernel<In, Out><<<(unsigned)blocks, kThreads, 0, stream>>>(
+      ops, ws, n_ops, static_cast<Out*>(out), n4);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int gossip_axpy_max_operands() { return kMaxOperands; }
+
+// operands: n_ops device pointers, all of one dtype; weights: n_ops f32.
+// dtype codes: 0 = float32, 1 = bfloat16.  n: elements per operand, a
+// multiple of 4; every pointer 16-byte aligned (checked by the wrapper).
+extern "C" int gossip_axpy_launch(const void* const* operands,
+                                  const float* weights, int n_ops,
+                                  int in_dtype, int out_dtype, void* out,
+                                  long long n, void* stream) {
+  if (n_ops < 1 || n_ops > kMaxOperands) return (int)cudaErrorInvalidValue;
+  const long long n4 = n / 4;
+  if (n4 == 0) return (int)cudaSuccess;
+  Operands ops = {};
+  Weights ws = {};
+  for (int k = 0; k < n_ops; ++k) {
+    ops.ptr[k] = operands[k];
+    ws.w[k] = weights[k];
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (in_dtype == 0 && out_dtype == 0)
+    err = launch<float, float>(ops, ws, n_ops, out, n4, s);
+  else if (in_dtype == 1 && out_dtype == 1)
+    err = launch<__nv_bfloat16, __nv_bfloat16>(ops, ws, n_ops, out, n4, s);
+  else if (in_dtype == 1 && out_dtype == 0)
+    err = launch<__nv_bfloat16, float>(ops, ws, n_ops, out, n4, s);
+  else if (in_dtype == 0 && out_dtype == 1)
+    err = launch<float, __nv_bfloat16>(ops, ws, n_ops, out, n4, s);
+  else
+    err = cudaErrorInvalidValue;
+  return (int)err;
+}

@@ -1,0 +1,116 @@
+"""Training launcher of the port: ``python -m repro_torch.launch.train``.
+
+Runs the decentralized EDM trainer with every agent on one GPU, taking the
+reference launcher's flags plus ``--device`` (default ``cuda``; ``cpu`` runs
+the plain PyTorch path and must be asked for):
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch smollm_360m \
+      --steps 5 --agents 4 --agents-per-device 4 --gossip-engine ppermute \
+      --fused-kernel --seq 128
+
+Flags of levers the port does not run yet (``--agents pod``, ``--ckpt``,
+``--resume``, ``--churn``, overlap, wire, groups, schedules) are accepted
+by the parser and rejected with a pointer to ROADMAP.md.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Dict, List, Optional
+
+import torch
+
+from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
+from repro_torch.configs.base import RunConfig
+from repro_torch.data import SyntheticLM
+from repro_torch.device import resolve_device
+from repro_torch.launch.flags import add_run_flags, run_config_overrides
+from repro_torch.models import build_model
+from repro_torch.train import (build_train_step, init_state, make_topology,
+                               resolve_features)
+
+__all__ = ["parser", "main"]
+
+
+def parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.train")
+    ap.add_argument("--arch", required=True, choices=ARCH_IDS)
+    ap.add_argument("--smoke", action="store_true",
+                    help="reduced same-family config (CPU-sized)")
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--agents", default="4",
+                    help="agent count ('pod' agents are not ported yet)")
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--per-agent-batch", type=int, default=1)
+    ap.add_argument("--pods", type=int, default=1,
+                    help="pod count for torus/hier topologies")
+    ap.add_argument("--shards", type=int, default=0,
+                    help="--agents pod only (not ported yet)")
+    ap.add_argument("--fused-kernel", action="store_true",
+                    help="CUDA kernels for the EDM update and the gossip "
+                         "combine")
+    add_run_flags(ap)
+    ap.add_argument("--phi", type=float, default=0.2,
+                    help="Dirichlet heterogeneity of the token streams")
+    ap.add_argument("--ckpt", default="", help="not ported yet")
+    ap.add_argument("--churn", default="", help="not ported yet")
+    ap.add_argument("--resume", default="", help="not ported yet")
+    ap.add_argument("--device", default=None,
+                    help="cuda (default; raises without a GPU) or cpu")
+    return ap
+
+
+def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
+    """Parse ``argv``, train, print one line per logged step, and return
+    ``{"state", "metrics", "step_seconds", "run"}`` — the final
+    train state, per-step metrics as floats and per-step wall times (each
+    step ends in a device synchronisation)."""
+    args = parser().parse_args(argv)
+    for flag, val in (("--agents pod", args.agents == "pod"),
+                      ("--shards", args.shards), ("--ckpt", args.ckpt),
+                      ("--churn", args.churn), ("--resume", args.resume)):
+        if val:
+            raise NotImplementedError(f"{flag} is not ported to repro_torch "
+                                      "yet (see ROADMAP.md)")
+    device = resolve_device(args.device)
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    model = build_model(cfg)
+    n_agents = int(args.agents)
+    run = RunConfig(global_batch=n_agents * args.per_agent_batch,
+                    seq_len=args.seq, agents="data", remat=False,
+                    **run_config_overrides(args))
+    feats = resolve_features(run)
+    topo = make_topology(run, n_agents, pods=args.pods)
+    print(f"arch={cfg.name} ({cfg.n_params()/1e6:.1f}M params) "
+          f"agents={n_agents} topo={args.topology} λ={topo.lam():.4f} "
+          f"alg={args.algorithm} engine={args.gossip_engine}"
+          f"{' +fused' if args.fused_kernel else ''}"
+          f"{' +bus' if feats.packed_bus else ''} device={device}",
+          flush=True)
+
+    data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=args.seq,
+                       n_agents=n_agents, phi=args.phi)
+    state = init_state(model, run, n_agents, seed=0, device=device)
+    step = build_train_step(model, run, topo,
+                            use_fused_kernel=args.fused_kernel,
+                            device=device)
+    gen = torch.Generator(device=device).manual_seed(1)
+    history, seconds = [], []
+    t0 = time.time()
+    for t in range(args.steps):
+        batch = data.sample(gen, args.per_agent_batch)
+        ts = time.perf_counter()
+        state, m = step(state, batch)
+        m = {k: float(v) for k, v in m.items()}   # synchronises the device
+        seconds.append(time.perf_counter() - ts)
+        history.append(m)
+        if t % 5 == 0 or t == args.steps - 1:
+            print(f"step {t:4d} loss={m['loss']:.4f} "
+                  f"consensus={m['consensus']:.2e} "
+                  f"({time.time()-t0:.1f}s)", flush=True)
+    return {"state": state, "metrics": history, "step_seconds": seconds,
+            "run": run}
+
+
+if __name__ == "__main__":
+    main()

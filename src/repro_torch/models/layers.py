@@ -1,0 +1,49 @@
+"""Shared building blocks: the counterpart of ``repro/models/layers.py``.
+
+Plain functions on tensors; the parameters are dicts of tensors keyed as
+in the JAX tree.  Numerics follow the JAX package: RMSNorm scales by
+``(1 + w)`` in f32, RoPE rotates split halves with f32 angles.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+import torch.nn.functional as F
+
+__all__ = ["rms_norm", "rope", "swiglu", "apply_dense_ffn"]
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    dtype = x.dtype
+    x = x.float()
+    var = x.square().mean(dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    return (x * (1.0 + weight.float())).to(dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Rotary embedding.  x: (..., S, H, hd); positions: (..., S)."""
+    hd = x.shape[-1]
+    half = hd // 2
+    freqs = 1.0 / (theta ** (torch.arange(half, dtype=torch.float32,
+                                          device=x.device) / half))
+    angles = positions[..., :, None].float() * freqs       # (..., S, half)
+    cos = torch.cos(angles)[..., :, None, :]                # (..., S, 1, half)
+    sin = torch.sin(angles)[..., :, None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def swiglu(x, w_gate, w_up, w_down):
+    return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+
+
+def apply_dense_ffn(p: Dict[str, torch.Tensor], x: torch.Tensor,
+                    eps: float) -> torch.Tensor:
+    """Pre-norm gated FFN with residual.  (The ungated MLP of the JAX
+    package uses tanh-approximate GELU; it is not ported yet.)"""
+    h = rms_norm(x, p["ln"], eps)
+    return x + swiglu(h, p["w_gate"], p["w_up"], p["w_down"])

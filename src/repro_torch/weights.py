@@ -1,0 +1,82 @@
+"""Carry the JAX package's parameters into the port.
+
+Two sources, one result — the port's parameter dict ``{path: tensor}``
+under the JAX tree's ``|``-joined paths and with its dtypes:
+
+* :func:`params_from_tree` — a nested tree of numpy arrays (dicts, tuples
+  and lists, e.g. ``jax.tree.map(np.asarray, params)`` built by the
+  caller);
+* :func:`params_from_npz` — an ``.npz`` written by the JAX package's
+  ``repro.train.checkpoint.save`` (keys ``params|<path>`` for a saved
+  state, bare ``<path>`` for a saved parameter tree), read with
+  ``np.load`` only.
+
+bf16 leaves arrive as 2-byte numpy values (ml_dtypes ``bfloat16`` in
+memory, ``|V2`` from an npz); their bits are reinterpreted as
+``torch.bfloat16``, so the values carry over exactly.
+:func:`params_to_bus` packs the dict straight into an A-agent bus.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+from repro_torch.core import bus as parambus
+
+__all__ = ["params_from_tree", "params_from_npz", "params_to_bus"]
+
+_SEP = "|"
+
+
+def _tensor(arr: np.ndarray, device) -> torch.Tensor:
+    arr = np.asarray(arr)
+    if arr.dtype.kind == "V" and arr.dtype.itemsize == 2:
+        bits = np.ascontiguousarray(arr).view(np.int16)
+        return torch.from_numpy(bits.copy()).view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.ascontiguousarray(arr).copy()).to(device)
+
+
+def _walk(node: Any, prefix: str, out: Dict[str, np.ndarray]) -> None:
+    if isinstance(node, Mapping):
+        items = ((str(k), v) for k, v in node.items())
+    elif isinstance(node, (tuple, list)):
+        items = ((str(i), v) for i, v in enumerate(node))
+    else:
+        out[prefix] = node
+        return
+    for key, child in items:
+        _walk(child, f"{prefix}{_SEP}{key}" if prefix else key, out)
+
+
+def params_from_tree(tree: Any, device="cpu") -> Dict[str, torch.Tensor]:
+    """Nested dict/tuple/list tree of numpy arrays → ``{path: tensor}``."""
+    flat: Dict[str, np.ndarray] = {}
+    _walk(tree, "", flat)
+    return {p: _tensor(a, device) for p, a in flat.items()}
+
+
+def params_from_npz(path: str, device="cpu") -> Dict[str, torch.Tensor]:
+    """Parameters from an npz of ``repro.train.checkpoint.save``: the
+    ``params|`` entries of a saved state, else every entry."""
+    with np.load(path) as data:
+        keys = list(data.keys())
+        prefix = "params" + _SEP
+        if any(k.startswith(prefix) for k in keys):
+            return {k[len(prefix):]: _tensor(data[k], device)
+                    for k in keys if k.startswith(prefix)}
+        return {k: _tensor(data[k], device) for k in keys}
+
+
+def params_to_bus(layout: parambus.BusLayout,
+                  params: Mapping[str, torch.Tensor],
+                  n_agents: int) -> torch.Tensor:
+    """One agent's parameters, replicated to ``n_agents`` and packed into a
+    new ``(A, rows, 128)`` bus on the parameters' device."""
+    dev = params[layout.paths[0]].device
+    bus = torch.zeros(n_agents, layout.rows, parambus.LANE,
+                      dtype=layout.dtype, device=dev)
+    for a in range(n_agents):
+        parambus.pack_agent(layout, bus, a, params)
+    return bus

@@ -1,0 +1,115 @@
+"""The port stands alone and never falls back.
+
+* ``repro_torch`` and every submodule import with no ``jax*`` and no
+  ``repro.*`` module loaded (checked in a fresh interpreter), and no source
+  of the package or ``chip_smoke.py`` holds such an import.
+* Without a GPU, the entry points raise unless the caller asks for the
+  CPU by name.
+"""
+import os
+import pkgutil
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import repro_torch
+from repro_torch.configs import get_smoke_config
+from repro_torch.configs.base import RunConfig
+from repro_torch.core import ring
+from repro_torch.device import resolve_device
+from repro_torch.models import build_model
+from repro_torch.train import build_train_step, init_state
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+_FORBIDDEN = re.compile(
+    r"^\s*(import\s+(jax|repro)\b(?!_)|from\s+(jax|repro)(\.\S+)?\s+import\b)",
+    re.M)
+
+
+def _modules():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        [str(PKG)], prefix="repro_torch."))
+
+
+def test_every_module_imports_without_jax_or_repro():
+    mods = ["repro_torch"] + _modules()
+    assert "repro_torch.kernels.edm_update" in mods
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m.startswith('jaxlib') or m == 'repro' "
+        "or m.startswith('repro.'))\n"
+        "print('BAD', bad)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+
+
+def test_no_source_imports_jax_or_repro():
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 20
+    for f in files:
+        hits = _FORBIDDEN.findall(f.read_text())
+        assert not hits, (f, hits)
+    assert _FORBIDDEN.search("from repro.core import bus")
+    assert _FORBIDDEN.search("import jax.numpy as jnp")
+    assert not _FORBIDDEN.search("from repro_torch.core import bus")
+
+
+@pytest.fixture
+def no_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour without a GPU")
+
+
+def test_device_resolution(no_gpu):
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device()
+    with pytest.raises(RuntimeError):
+        resolve_device("cuda")
+
+
+def test_entry_points_raise_without_gpu(no_gpu):
+    model = build_model(get_smoke_config("smollm_360m"))
+    run = RunConfig(gossip_engine="ppermute", agents_per_device=4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_train_step(model, run, ring(4), use_fused_kernel=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_state(model, run, 4)
+    # asked for by name, the CPU works
+    build_train_step(model, run, ring(4), use_fused_kernel=True, device="cpu")
+
+
+def test_cli_without_device_raises_without_gpu(no_gpu):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         "smollm_360m", "--smoke", "--steps", "1", "--agents", "4",
+         "--gossip-engine", "ppermute", "--agents-per-device", "4"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert "--device cpu" in out.stderr
+    assert "loss=" not in out.stdout
+
+
+def test_unported_levers_raise():
+    model = build_model(get_smoke_config("smollm_360m"))
+    for kw in (dict(overlap="delayed"), dict(wire="int8"),
+               dict(gossip_groups="moe"), dict(gossip_schedule="round_robin"),
+               dict(gossip_engine="shifts")):
+        run = RunConfig(**{"gossip_engine": "ppermute", **kw})
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            build_train_step(model, run, ring(4), device="cpu")
+
+
+def test_package_docstring_states_device_rule():
+    assert "device=\"cpu\"" in repro_torch.__doc__
