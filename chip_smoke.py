@@ -23,13 +23,33 @@ Phases, in order; any failure raises and the script exits non-zero:
    by kernel;
 6. fused against plain: from one saved state and one gradient bus, one
    optimizer + gossip step with the kernels and one with the plain
-   versions; the three buses must be bit-equal.
+   versions; the three buses must be bit-equal;
+7. serving kernels: paged decode and paged prefill attention against their
+   plain versions on the same pools, at the shapes of both serving runs of
+   phase 8 (f32 within atol 2e-5; bf16 compared in f32 within
+   2e-5 + 2⁻⁷·|want|, one bf16 ulp), and on NaN-poisoned pools bit-equal
+   to the clean pools' output and finite; each timed at the
+   serving shapes of phase 8 beside its plain version, its bound (bytes
+   at 3.35 TB/s or bf16 operations at 989 TFLOP/s) and one
+   ``F.scaled_dot_product_attention`` call over pre-gathered dense K/V
+   (the yardstick: it excludes the gather, and the port never calls it);
+8. serving main path: ``repro_torch.launch.serve`` with chunked
+   continuous batching at full width, then the engine itself at a
+   1024-token context (32 requests, prompts 256–768, chunks of 128), each
+   with the launch counts reset just before and read just after (32
+   paged-attention launches per dispatch, 32 paged-prefill launches per
+   dispatch with a chunk); one mixed and one decode-only dispatch
+   profiled;
+9. exactness: in f32 the kernel engine's greedy tokens equal
+   ``greedy_generate``'s; in bf16 the share of tokens on which the kernel
+   and plain engines agree is printed (bf16 logits tie at vocab 49152).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import statistics
@@ -44,6 +64,7 @@ sys.path.insert(0, str(ROOT / "src"))
 # NVIDIA H100 SXM data sheet, at the 700 W limit
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12
 
 ARCH, AGENTS, SEQ, STEPS = "smollm_360m", 4, 128, 5
 ALPHA, BETA = 0.2, 0.9
@@ -53,6 +74,13 @@ MAIN_ARGS = ["--arch", ARCH, "--agents", str(AGENTS), "--agents-per-device",
              "--steps", str(STEPS), "--alpha", str(ALPHA), "--beta",
              str(BETA), "--device", "cuda"]
 REPS = 20
+
+# serving: the reference CLI's trace sizes, then a 1024-token context
+SERVE_ARGS = ["--arch", ARCH, "--continuous-batching", "--prefill-chunk",
+              "16", "--max-step-tokens", "32", "--prompt-dist", "exact",
+              "--max-slots", "8", "--page-size", "16", "--requests", "16",
+              "--rate", "50", "--attn-impl", "kernel", "--device", "cuda"]
+PAGE, SLOTS, CTX, CHUNK, STEP_TOKENS = 16, 16, 1024, 128, 256
 
 
 def check(cond: bool, msg: str) -> None:
@@ -84,9 +112,10 @@ def time_ms(fn, reps: int = REPS, warmup: int = 2) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
-def bound_ms(n_bytes: float, n_flops: float):
+def bound_ms(n_bytes: float, n_flops: float,
+             flops_per_s: float = F32_FLOPS_PER_S):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_flops / F32_FLOPS_PER_S * 1e3
+    t_ops = n_flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -225,12 +254,394 @@ def fused_vs_plain(model, layout, state, tokens):
             "shape": list(x.shape)}
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the serving kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+# bf16: both sides round one f32 result once, so they differ by at most
+# one bf16 ulp of the reference, ≤ 2⁻⁷·|want|, plus the f32 bound
+SERVE_ATOL, BF16_RTOL = 2e-5, 2.0 ** -7
+
+
+def serve_tol(dtype):
+    """(atol, rtol) of a serving kernel against its plain version, compared
+    in f32: the JAX tests' bound for the Pallas kernels (atol 2e-5), and
+    for bf16 one bf16 ulp of the reference on top."""
+    import torch
+    return SERVE_ATOL, (0.0 if dtype == torch.float32 else BF16_RTOL)
+
+
+def serve_err(got, want, dtype, what: str):
+    """(max |got − want|, max |got − want| / (atol + rtol·|want|)); raises
+    if the second exceeds 1."""
+    atol, rtol = serve_tol(dtype)
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    err = float(diff.max()) if diff.numel() else 0.0
+    ratio = float((diff / (atol + rtol * w.abs())).max()) \
+        if diff.numel() else 0.0
+    check(ratio <= 1.0, f"{what} {dtype}: max abs err {err}, "
+          f"{ratio:.3f} × the tolerance (atol {atol}, rtol {rtol})")
+    return err, ratio
+
+
+def peak_flops(dtype) -> float:
+    import torch
+    return F32_FLOPS_PER_S if dtype == torch.float32 else BF16_FLOPS_PER_S
+
+
+def decode_inputs(B, K, G, hd, page_size, kv_len, seed, dtype):
+    """A ragged slot batch: slot b owns ceil(kv_len[b] / page_size) pages
+    of a shuffled pool; every other page, the null page too, is NaN."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    kv_len = np.asarray(kv_len, np.int32)
+    used = [-(-int(n) // page_size) for n in kv_len]
+    num_pages = 1 + sum(used) + 2
+    phys = rng.permutation(np.arange(1, num_pages))
+    pt = np.zeros((B, max(used)), np.int32)
+    at = 0
+    for b, n in enumerate(used):
+        pt[b, :n] = phys[at:at + n]
+        at += n
+    q = rng.standard_normal((B, K, G, hd), np.float32)
+    kp = rng.standard_normal((num_pages, page_size, K, hd), np.float32)
+    vp = rng.standard_normal((num_pages, page_size, K, hd), np.float32)
+    dead = np.setdiff1d(np.arange(num_pages), phys[:at])
+    kp[dead] = np.nan
+    vp[dead] = np.nan
+    return [torch.from_numpy(a).cuda().to(dtype) for a in (q, kp, vp)] + [
+        torch.from_numpy(pt).cuda(), torch.from_numpy(kv_len).cuda()]
+
+
+def check_decode(case, dtype, timed: bool):
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.paged_attention import paged_attention_flat
+    B, K, G, hd, ps = (case[k] for k in ("B", "K", "G", "hd", "page_size"))
+    q, kp, vp, pt, kv = decode_inputs(B, K, G, hd, ps, case["kv_len"], B,
+                                      dtype)
+    # kernel and plain version on the same pools, dead rows zeroed (the
+    # plain version gathers whole page-table rows, null tail entries at
+    # weight 0); then the kernel on the NaN-poisoned pools must give the
+    # same bits, finite, with a zero tile for the idle slot
+    kc, vc = kp.nan_to_num(), vp.nan_to_num()
+    got = ops.paged_attention(q, kc, vc, pt, kv, page_size=ps)
+    want = ref.paged_attention_ref(q, kc, vc, pt, kv, page_size=ps)
+    err, ratio = serve_err(got, want, dtype,
+                           f"paged_attention {case['name']}")
+    poisoned = ops.paged_attention(q, kp, vp, pt, kv, page_size=ps)
+    idle = kv == 0
+    check(bool(torch.isfinite(poisoned).all())
+          and bool((poisoned[idle] == 0).all())
+          and torch.equal(poisoned, got),
+          f"paged_attention {case['name']}: on poisoned pools a non-finite "
+          "output, a non-zero idle tile, or bits that differ from the "
+          "clean pools'")
+    rec = {"case": case["name"], "dtype": str(dtype)[6:],
+           "shape": [B, K, G, hd], "max_abs_err": err, "err_over_tol": ratio}
+    if timed:
+        out = torch.empty_like(q)
+        rec["ms"] = time_ms(lambda: paged_attention_flat(
+            q, kp, vp, pt, kv, page_size=ps, out=out))
+        rec["plain_ms"] = time_ms(lambda: ref.paged_attention_ref(
+            q, kc, vc, pt, kv, page_size=ps))
+        # yardstick: one SDPA call over K/V gathered beforehand, GQA-shared
+        kd = ref.gather_pages(kc, pt).transpose(1, 2)       # (B, K, L, hd)
+        vd = ref.gather_pages(vc, pt).transpose(1, 2)
+        qd = q.reshape(B, 1, K * G, hd).transpose(1, 2)     # (B, H, 1, hd)
+        mask = (torch.arange(kd.shape[2], device="cuda")[None]
+                < kv[:, None])[:, None, None, :]
+        rec["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
+            qd, kd, vd, attn_mask=mask, enable_gqa=True))
+        rows = int(kv.sum())
+        es = q.element_size()
+        pages = int(((kv + ps - 1) // ps).sum())
+        rec["bytes"] = (2 * rows * K * hd * es + 2 * q.numel() * es
+                        + 4 * (pages + B))
+        rec["flops"] = 4 * rows * K * G * hd
+        rec["bound_ms"], rec["bound_by"] = bound_ms(
+            rec["bytes"], rec["flops"], peak_flops(dtype))
+        rec["kv_rows"] = rows
+    del q, kp, vp, kc, vc, got, want, poisoned
+    return rec
+
+
+def prefill_inputs(window, start, C, K, G, hd, page_size, n_pages,
+                   num_pages, seed, dtype):
+    """One slot's history written into NaN-poisoned pools (the null page a
+    zero write sink), as tests/test_chunked_prefill.py builds them."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    k_hist = rng.standard_normal((start, K, hd), np.float32)
+    v_hist = rng.standard_normal((start, K, hd), np.float32)
+    k_pool = np.full((num_pages, page_size, K, hd), np.nan, np.float32)
+    v_pool = np.full((num_pages, page_size, K, hd), np.nan, np.float32)
+    n_slot = (window // page_size) if window else n_pages
+    pt_row = np.zeros((n_pages,), np.int32)
+    pt_row[:n_slot] = rng.choice(np.arange(1, num_pages), size=n_slot,
+                                 replace=False)
+    k_pool[0] = 0.0
+    v_pool[0] = 0.0
+    for p in range(start):
+        row = p % window if window else p
+        k_pool[pt_row[row // page_size], row % page_size] = k_hist[p]
+        v_pool[pt_row[row // page_size], row % page_size] = v_hist[p]
+    q = rng.standard_normal((1, C, K * G, hd), np.float32)
+    k_c = rng.standard_normal((1, C, K, hd), np.float32)
+    v_c = rng.standard_normal((1, C, K, hd), np.float32)
+    return [torch.from_numpy(a).cuda().to(dtype)
+            for a in (q, k_c, v_c, k_pool, v_pool)] + [
+        torch.from_numpy(pt_row).cuda()]
+
+
+def prefill_mask(window, start, C, clen, n_rows):
+    """(C, n_rows + C) mask of the keys each chunk query may see: the
+    slot's earlier rows (ring-aware positions), then the chunk's own."""
+    import torch
+    from repro_torch.models.attention import prev_page_positions
+    kpos_prev, valid_prev = prev_page_positions(n_rows, start, window,
+                                                device="cuda")
+    qpos = start + torch.arange(C, device="cuda")
+    kpos = torch.cat([kpos_prev.long(), qpos])
+    valid = torch.cat([valid_prev, torch.arange(C, device="cuda") < clen])
+    mask = valid[None] & (kpos[None] <= qpos[:, None])
+    if window:
+        mask &= kpos[None] > qpos[:, None] - window
+    return mask
+
+
+def check_prefill(case, dtype, timed: bool):
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.paged_prefill import paged_prefill_flat
+    window, start, C, clen, K, G, hd, ps, n_pages, num_pages = case
+    q, kc, vc, kp, vp, pt_row = prefill_inputs(
+        window, start, C, K, G, hd, ps, n_pages, num_pages, start + C, dtype)
+    # the plain version zeroes dead rows itself, so both take the poisoned
+    # pools; the kernel must also give the same bits on the clean pools
+    got = ops.paged_prefill_attention(q, kc, vc, kp, vp, pt_row, start,
+                                      clen, page_size=ps, window=window)
+    want = ref.paged_prefill_attention_ref(q, kc, vc, kp, vp, pt_row, start,
+                                           clen, page_size=ps, window=window)
+    clean = ops.paged_prefill_attention(q, kc, vc, kp.nan_to_num(),
+                                        vp.nan_to_num(), pt_row, start, clen,
+                                        page_size=ps, window=window)
+    got, want, clean = got[:, :clen], want[:, :clen], clean[:, :clen]
+    check(bool(torch.isfinite(got).all()) and torch.equal(got, clean),
+          f"paged_prefill {case}: non-finite output or bits that differ "
+          "from the clean pools' (a poisoned row read)")
+    err, ratio = serve_err(got, want, dtype, f"paged_prefill {case}")
+    rec = {"case": list(case), "dtype": str(dtype)[6:], "max_abs_err": err,
+           "err_over_tol": ratio}
+    if timed:
+        H = K * G
+        # the kernel alone, on operands already in its (K, C·G, hd) layout
+        qk = q.reshape(C, K, G, hd).permute(1, 0, 2, 3).reshape(
+            K, C * G, hd).contiguous()
+        kck = kc[0].permute(1, 0, 2).contiguous()
+        vck = vc[0].permute(1, 0, 2).contiguous()
+        out = torch.empty_like(qk)
+        rec["ms"] = time_ms(lambda: paged_prefill_flat(
+            qk, kck, vck, kp, vp, pt_row, start, clen, page_size=ps,
+            window=window, out=out))
+        rec["op_ms"] = time_ms(lambda: ops.paged_prefill_attention(
+            q, kc, vc, kp, vp, pt_row, start, clen, page_size=ps,
+            window=window))
+        rec["plain_ms"] = time_ms(lambda: ref.paged_prefill_attention_ref(
+            q, kc, vc, kp, vp, pt_row, start, clen, page_size=ps,
+            window=window))
+        n_rows = n_pages * ps
+        mask = prefill_mask(window, start, C, clen, n_rows)
+        kd = torch.cat([ref.gather_pages(kp.nan_to_num(), pt_row[None]), kc],
+                       dim=1).transpose(1, 2)              # (1, K, R+C, hd)
+        vd = torch.cat([ref.gather_pages(vp.nan_to_num(), pt_row[None]), vc],
+                       dim=1).transpose(1, 2)
+        qd = q.transpose(1, 2)                               # (1, H, C, hd)
+        rec["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
+            qd, kd, vd, attn_mask=mask[None, None], enable_gqa=True))
+        es = q.element_size()
+        prev = min(start, window) if window else start
+        rec["bytes"] = (2 * prev * K * hd * es + 2 * C * K * hd * es
+                        + 2 * C * H * hd * es + 4 * -(-prev // ps))
+        rec["flops"] = 4 * int(mask.sum()) * K * G * hd
+        rec["bound_ms"], rec["bound_by"] = bound_ms(
+            rec["bytes"], rec["flops"], peak_flops(dtype))
+    return rec
+
+
+# (window, start, C, chunk_len, K, G, hd, page_size, n_pages, num_pages):
+# the 11 KERNEL_CASES of tests/test_chunked_prefill.py; smollm_360m's heads
+# at the serve CLI's shapes (16-token chunks, C·G = 48 so the last 32-row
+# query tile is partial, 4 pages per slot); then 128-token chunks over
+# 16-row pages at context 1024, linear and a 256-row ring
+PREFILL_CASES = [(w, s, C, n, 2, 2, 8, 4, 6, 16) for w, s, C, n in [
+    (0, 0, 4, 4), (0, 4, 4, 4), (0, 9, 4, 3), (0, 20, 4, 1),
+    (8, 0, 4, 4), (8, 4, 4, 4), (8, 7, 4, 4), (8, 8, 4, 4),
+    (8, 13, 4, 3), (8, 37, 4, 2), (8, 37, 8, 8)]] + [
+    (0, s, 16, n, 5, 3, 64, PAGE, 4, 40)
+    for s, n in ((0, 16), (16, 16), (16, 7), (32, 1))] + [
+    (w, s, CHUNK, n, 5, 3, 64, PAGE, CTX // PAGE, 80)
+    for w in (0, 256) for s, n in ((0, 128), (128, 128), (640, 77))]
+# timed: the longest-context chunk of phase 8's trace (prompts ≤ 768)
+PREFILL_TIMED = (0, 640, CHUNK, CHUNK, 5, 3, 64, PAGE, CTX // PAGE, 80)
+DECODE_CASES = [
+    # tests/test_serve.py's ragged batch: idle slot 1, full slot 2
+    dict(name="ragged", B=4, K=2, G=3, hd=16, page_size=8,
+         kv_len=[5, 0, 24, 17]),
+    # smollm_360m's heads at the serve CLI's shapes: 8 slots, 4 pages each
+    dict(name="smollm_360m_cli", B=8, K=5, G=3, hd=64, page_size=PAGE,
+         kv_len=[64, 0, 17, 33, 1, 48, 16, 63]),
+    # smollm_360m's heads, phase 8's 16 slots, contexts up to 1024, 1 idle
+    dict(name="smollm_360m", B=SLOTS, K=5, G=3, hd=64, page_size=PAGE,
+         kv_len=[1024, 0, 1, 17, 255, 256, 511, 640, 700, 129, 33, 1000,
+                 64, 900, 15, 384]),
+]
+
+
+def serving_kernels():
+    """Phase 7: every case in f32 and bf16; the full-width cases timed in
+    bf16 (the serving dtype)."""
+    import torch
+    recs = {"paged_attention": [], "paged_prefill": []}
+    timed = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for case in DECODE_CASES:
+            t = dtype == torch.bfloat16 and case["name"] == "smollm_360m"
+            rec = check_decode(case, dtype, timed=t)
+            recs["paged_attention"].append(rec)
+            if t:
+                timed["paged_attention"] = rec
+        for case in PREFILL_CASES + [PREFILL_TIMED]:
+            t = dtype == torch.bfloat16 and case == PREFILL_TIMED
+            rec = check_prefill(case, dtype, timed=t)
+            recs["paged_prefill"].append(rec)
+            if t:
+                timed["paged_prefill"] = rec
+        free()
+    return recs, timed
+
+
+# ---------------------------------------------------------------------------
+# phases 8 and 9: serving
+# ---------------------------------------------------------------------------
+
+def device_rows(prof):
+    """(device ms, launches, kernel name) of every kernel in a trace."""
+    from torch.autograd import DeviceType
+    rows = [(ev.self_device_time_total / 1e3, ev.count, ev.key)
+            for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA
+            and ev.self_device_time_total > 0]
+    rows.sort(reverse=True)
+    return rows
+
+
+def profile_dispatches(eng, vocab: int):
+    """Time mixed and decode-only dispatches of the 1024-context engine
+    (host clock, each ending in a device sync) and profile the fourth of
+    each kind: device busy ms, launches, idle share against the median."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serve import Request
+    rng = np.random.default_rng(9)
+    eng.reset()
+    for i in range(8):       # 8 slots, 2 chunks of 128 each, then decode
+        check(eng.try_admit(Request(rid=i, tokens=rng.integers(
+            0, vocab, (2 * CHUNK,)).astype(np.int32), max_new=64,
+            arrival=0.0)), "profile request not admitted")
+    times = {"mixed": [], "decode": []}
+    out = {}
+    while len(times["decode"]) < 8:
+        kind = "mixed" if eng._filling else "decode"
+        torch.cuda.synchronize()
+        if len(times[kind]) == 3 and kind not in out:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                eng.step()
+                torch.cuda.synchronize()
+            rows = device_rows(prof)
+            out[kind] = {"device_busy_ms": sum(r[0] for r in rows),
+                         "kernel_launches": sum(r[1] for r in rows),
+                         "buckets": bucket(rows), "top": rows[:8]}
+            continue
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        times[kind].append(time.perf_counter() - t0)
+    for kind, rec in out.items():
+        rec["median_ms"] = statistics.median(times[kind]) * 1e3
+        rec["dispatches_timed"] = len(times[kind])
+        rec["idle_share"] = 1 - rec["device_busy_ms"] / rec["median_ms"]
+    eng.reset()
+    return out
+
+
+def check_serve_counts(counts, metrics, n_layers: int, what: str):
+    check(counts["paged_attention"] == n_layers * metrics["steps"] > 0,
+          f"{what}: paged_attention launched {counts['paged_attention']} "
+          f"times in {metrics['steps']} dispatches of {n_layers} layers")
+    check(counts["paged_prefill"] == n_layers * metrics["mixed_steps"] > 0,
+          f"{what}: paged_prefill launched {counts['paged_prefill']} times "
+          f"in {metrics['mixed_steps']} mixed dispatches of {n_layers} "
+          "layers")
+
+
+def serve_exactness(vocab: int, bf16_model, bf16_params):
+    """Phase 9: f32 kernel engine == greedy_generate token for token; bf16
+    kernel-engine vs plain-engine agreement share."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serve import (ContinuousBatchingEngine,
+                                   PagedCacheConfig, greedy_generate,
+                                   poisson_load)
+    pcfg = PagedCacheConfig(page_size=PAGE, num_pages=1 + 4 * 256 // PAGE,
+                            max_slots=4, max_context=256)
+    reqs = poisson_load(4, rate=1000.0, vocab=vocab, prompt_buckets=(40, 200),
+                        new_token_buckets=(8,), prompt_dist="exact", seed=4)
+
+    def engine_tokens(model, params, attn_impl):
+        eng = ContinuousBatchingEngine(model, params, pcfg,
+                                       attn_impl=attn_impl, prefill_chunk=64,
+                                       max_step_tokens=128, device="cuda")
+        eng.run(reqs)
+        return {r: t.tolist() for r, t in eng.completed.items()}
+
+    model = build_model(dataclasses.replace(get_config(ARCH),
+                                            dtype="float32"))
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    got = engine_tokens(model, params, "kernel")
+    for r in reqs:
+        want = greedy_generate(model, params, {"tokens": torch.from_numpy(
+            r.tokens)[None].cuda()}, n_steps=r.max_new)[0].cpu().tolist()
+        check(got[r.rid] == want, f"f32 kernel engine differs from "
+              f"greedy_generate on request {r.rid}: {got[r.rid]} vs {want}")
+    del model, params
+    free()
+    kern = engine_tokens(bf16_model, bf16_params, "kernel")
+    plain = engine_tokens(bf16_model, bf16_params, "ref")
+    same = sum(a == b for r in kern for a, b in zip(kern[r], plain[r]))
+    total = sum(len(t) for t in kern.values())
+    return {"f32_requests_equal": len(reqs), "f32_tokens": sum(
+        len(t) for t in got.values()), "prompts": [len(r.tokens) for r in reqs],
+        "bf16_agree": same, "bf16_tokens": total,
+        "bf16_agree_share": same / total}
+
+
 # device-time buckets of one train step, by kernel-name substring
 BUCKETS = (("edm_update kernel", ("edm_update_kernel",)),
            ("gossip_axpy kernel", ("gossip_axpy_kernel",)),
+           ("paged_attention kernel", ("paged_attention_kernel",)),
+           ("paged_prefill kernel", ("paged_prefill_kernel",)),
            ("roll (gossip terms)", ("roll_cuda_kernel",)),
            ("matmul", ("gemm", "cutlass", "sm90_", "nvjet", "cublas")),
-           ("copy / cast (bus pack, unpack)", ("copy",)),
+           ("copy / cast", ("copy",)),
            ("reduce (norms, softmax, loss, metrics)", ("reduce", "softmax",
                                                        "logsumexp")))
 
@@ -239,7 +650,6 @@ def profile_step(model, run, state, batch):
     """One fused train step under torch.profiler: device time by kernel
     (kernel events only, so nothing is counted twice) and by bucket."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import ring
     from repro_torch.train import build_train_step
@@ -251,22 +661,21 @@ def profile_step(model, run, state, batch):
             as prof:
         state, _ = step(state, batch)
         torch.cuda.synchronize()
-    rows = [(ev.self_device_time_total / 1e3, ev.count, ev.key)
-            for ev in prof.key_averages()
-            if ev.device_type == DeviceType.CUDA
-            and ev.self_device_time_total > 0]
-    rows.sort(reverse=True)
+    rows = device_rows(prof)
+    return state, {"device_busy_ms": sum(r[0] for r in rows),
+                   "kernel_launches": sum(r[1] for r in rows),
+                   "buckets": bucket(rows), "top": rows[:12]}
+
+
+def bucket(rows):
+    """Device ms by BUCKETS name (first match), the rest elementwise."""
     buckets = {name: 0.0 for name, _ in BUCKETS}
     buckets["other elementwise"] = 0.0
-    launches = 0
-    for ms, count, key in rows:
-        launches += count
+    for ms, _, key in rows:
         name = next((n for n, keys in BUCKETS
                      if any(k in key for k in keys)), "other elementwise")
         buckets[name] += ms
-    return state, {"device_busy_ms": sum(r[0] for r in rows),
-                   "kernel_launches": launches, "buckets": buckets,
-                   "top": rows[:12]}
+    return buckets
 
 
 def main() -> None:
@@ -283,9 +692,13 @@ def main() -> None:
     from repro_torch.train import bus_layout_for
 
     # 1. device
-    kind = torch.cuda.get_device_name(0)
+    # f32 products in full f32 (phase 9 holds f32 tokens exact)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device_kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi()
-    print(f"[device] {kind}; nvidia-smi: {smi}; torch {torch.__version__} "
+    print(f"[device] {device_kind}; nvidia-smi: {smi}; "
+          f"torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
 
     # 2. build
@@ -338,8 +751,10 @@ def main() -> None:
     step_s = statistics.median(result["step_seconds"])
     print(f"[main] median step {step_s * 1e3:.1f} ms over {STEPS} steps",
           flush=True)
-    check(counts == {"edm_update": STEPS, "gossip_axpy": STEPS},
-          f"main path launched {counts}, expected {STEPS} of each kernel")
+    check(counts == {"edm_update": STEPS, "gossip_axpy": STEPS,
+                     "paged_attention": 0, "paged_prefill": 0},
+          f"training launched {counts}, expected {STEPS} of each training "
+          "kernel and no serving kernel")
     state = result["state"]
     check(state["step"] == STEPS, "main path did not take every step")
     check(bool(torch.isfinite(state["params"]).all()), "non-finite x")
@@ -366,8 +781,107 @@ def main() -> None:
     twin = fused_vs_plain(model, layout, state,
                           data.sample(dgen, 1)["tokens"])
     print(f"[fused-vs-plain] {twin}", flush=True)
-    del state
+    del state, model, layout
     free()
+
+    # 7. the serving kernels against their plain versions, on the card
+    serve_recs, serve_timed = serving_kernels()
+    for name, recs in serve_recs.items():
+        for rec in recs:
+            print(f"[serve-kernels] {name} {rec}", flush=True)
+
+    # 8. the serving main path: the CLI, then the engine at context 1024
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.serve import (ContinuousBatchingEngine,
+                                   PagedCacheConfig, poisson_load)
+    n_layers = get_config(ARCH).n_layers
+    ops.reset_launch_counts()
+    cli_metrics = serve_cli.main(SERVE_ARGS)
+    cli_counts = ops.launch_counts()
+    print(f"[serve-cli] launches {cli_counts}", flush=True)
+    check_serve_counts(cli_counts, cli_metrics, n_layers, "serve CLI")
+    check(cli_metrics["requests"] == 16 and cli_metrics["tokens"] > 0,
+          f"serve CLI finished {cli_metrics}")
+    free()
+    smodel = build_model(get_config(ARCH))
+    sparams = smodel.init(torch.Generator(device="cuda").manual_seed(0))
+    vocab = smodel.cfg.vocab_size
+    pcfg = PagedCacheConfig(page_size=PAGE, num_pages=1 + SLOTS * CTX // PAGE,
+                            max_slots=SLOTS, max_context=CTX)
+    eng = ContinuousBatchingEngine(smodel, sparams, pcfg, attn_impl="kernel",
+                                   prefill_chunk=CHUNK,
+                                   max_step_tokens=STEP_TOKENS,
+                                   device="cuda")
+    reqs = poisson_load(32, rate=1000.0, vocab=vocab,
+                        prompt_buckets=(256, 768),
+                        new_token_buckets=(16, 32, 64), prompt_dist="exact",
+                        seed=0)
+    eng.run(poisson_load(2, rate=1000.0, vocab=vocab,
+                         prompt_buckets=(256, 256), new_token_buckets=(4,),
+                         seed=1))                        # warm-up
+    eng.reset()
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    serve_metrics = eng.run(reqs)
+    serve_counts = ops.launch_counts()
+    serve_peak = torch.cuda.max_memory_allocated()
+    check_serve_counts(serve_counts, serve_metrics, n_layers,
+                       f"engine at context {CTX}")
+    check(serve_metrics["requests"] == len(reqs) and all(
+        len(eng.completed[r.rid]) == r.max_new for r in reqs),
+        "the engine did not finish every request with its full budget")
+    pool_gb = sum(t.numel() * t.element_size() for pi in eng.pools
+                  for t in pi.values()) / 1e9
+    print(f"[serve] context {CTX}: launches {serve_counts}; peak memory "
+          f"{serve_peak / 2**30:.2f} GiB (pools {pool_gb:.2f} GB)",
+          flush=True)
+    print(f"[serve] {json.dumps(serve_metrics)}", flush=True)
+    disp = profile_dispatches(eng, vocab)
+    for what, rec in disp.items():
+        print(f"[serve-profile] one {what} dispatch: device busy "
+              f"{rec['device_busy_ms']:.3f} ms in {rec['kernel_launches']} "
+              f"kernel launches; unprofiled median {rec['median_ms']:.2f} ms "
+              f"over {rec['dispatches_timed']} dispatches; device idle "
+              f"{rec['idle_share']:.1%}", flush=True)
+        for name, ms in rec["buckets"].items():
+            if ms:
+                print(f"[serve-profile]   {ms:9.3f} ms  {name}")
+        for ms, count, key in rec["top"]:
+            print(f"[serve-profile]   top {ms:9.3f} ms  x{count:<5d} "
+                  f"{key[:80]}")
+    del eng
+    free()
+
+    # 9. exactness of the kernel engine on the card
+    exact = serve_exactness(vocab, smodel, sparams)
+    print(f"[serve-exact] f32 kernel engine == greedy_generate on "
+          f"{exact['f32_requests_equal']} requests ({exact['f32_tokens']} "
+          f"tokens, prompts {exact['prompts']}); bf16 kernel vs plain engine "
+          f"agree on {exact['bf16_agree']}/{exact['bf16_tokens']} tokens "
+          f"({exact['bf16_agree_share']:.1%})", flush=True)
+    del smodel, sparams
+    free()
+
+    def serve_row(name, replaces):
+        rec = serve_timed[name]
+        errs = [r["max_abs_err"] for r in serve_recs[name]]
+        return {
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": replaces, "launches": cli_counts[name],
+            "max_abs_err": max(errs), "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+            "library": "F.scaled_dot_product_attention over pre-gathered "
+                       "dense K/V (excludes the gather)",
+            "timed_case": rec.get("case") or rec.get("shape"),
+            "dtype": rec["dtype"], "bytes": rec["bytes"],
+            "flops": rec["flops"],
+            "max_abs_err_f32": max(r["max_abs_err"] for r in serve_recs[name]
+                                   if r["dtype"] == "float32"),
+            "max_err_over_tol": max(r["err_over_tol"]
+                                    for r in serve_recs[name]),
+            "launches_ctx1024": serve_counts[name]}
 
     kernels = [
         {"name": "edm_update", "route": "cuda",
@@ -388,12 +902,15 @@ def main() -> None:
          "bound_by": axpy_main["bound_by"], "library_ms": None,
          "bit_equal": all(r["bit_equal"] for r in [axpy_main, *axpy_small]),
          "shape": axpy_main["shape"], "gb_per_s": axpy_main["gb_per_s"]},
+        serve_row("paged_attention", "src/repro/kernels/paged_attention.py:48"),
+        serve_row("paged_prefill", "src/repro/kernels/paged_prefill.py:59"),
     ]
     print(f"[done] {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+        "platform": "gpu", "kind": device_kind,
+        "count": torch.cuda.device_count()}}))
 
 
 if __name__ == "__main__":

@@ -1,0 +1,73 @@
+"""What every kernel wrapper shares: the ctypes entry point of a built
+library, the operand checks made before raw pointers leave Python, the
+launch stream and the CUDA status check.
+
+Each ``csrc/<name>.cu`` exports one plain-C ``<name>_launch(...)`` that
+returns ``cudaGetLastError()``; dtypes cross as ``DTYPE_CODE`` integers.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Sequence
+
+import torch
+
+from . import build
+
+__all__ = ["DTYPE_CODE", "MAX_HEAD_DIM", "check", "check_head",
+           "launcher", "raise_on", "stream"]
+
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+MAX_HEAD_DIM = 256      # the attention kernels' shared-memory tiles
+
+
+def launcher(name: str, argtypes: Sequence):
+    """``<name>_launch`` of the library built from ``csrc/<name>.cu``,
+    with its ctypes signature set (``int`` result)."""
+    fn = getattr(build.library(name), f"{name}_launch")
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = list(argtypes)
+    return fn
+
+
+def check(t: torch.Tensor, name: str, like: torch.Tensor,
+          dtypes=(torch.float32,), shape=None) -> None:
+    """Raise unless ``t`` is a contiguous, 16-byte aligned CUDA tensor on
+    ``like``'s device, of a dtype in ``dtypes`` and of shape ``shape``
+    (default: ``like``'s)."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: the CUDA kernel takes CUDA tensors, got "
+                         f"one on {t.device}")
+    if t.device != like.device:
+        raise ValueError(f"{name} is on {t.device}, expected {like.device}")
+    if t.dtype not in dtypes:
+        raise ValueError(f"{name}: dtype {t.dtype} not in {dtypes}")
+    want = tuple(like.shape if shape is None else shape)
+    if tuple(t.shape) != want:
+        raise ValueError(f"{name}: shape {tuple(t.shape)} != {want}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def check_head(q: torch.Tensor, hd: int) -> None:
+    """Raise unless the attention kernels take ``q``'s dtype and head dim
+    ``hd`` (a multiple of 8 up to :data:`MAX_HEAD_DIM`)."""
+    if q.dtype not in DTYPE_CODE:
+        raise ValueError(f"dtype {q.dtype} not in {tuple(DTYPE_CODE)}")
+    if hd % 8 or not 0 < hd <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {hd} must be a multiple of 8 in "
+                         f"[8, {MAX_HEAD_DIM}]")
+
+
+def stream(t: torch.Tensor) -> ctypes.c_void_p:
+    """PyTorch's current stream on ``t``'s device."""
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def raise_on(err: int, what: str) -> None:
+    if err:
+        raise RuntimeError(f"{what} kernel launch failed with CUDA error "
+                           f"{err}")

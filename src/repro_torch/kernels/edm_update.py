@@ -25,7 +25,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from . import build
+from ._ffi import DTYPE_CODE, check, launcher, raise_on, stream
 
 __all__ = ["BLOCK_ROWS", "LANE", "MAX_OPERANDS", "edm_update_flat",
            "gossip_axpy_flat"]
@@ -51,59 +51,6 @@ def _env_block_rows() -> int:
 BLOCK_ROWS = _env_block_rows()
 LANE = 128
 MAX_OPERANDS = 16
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-
-
-def _check(t: torch.Tensor, name: str, like: torch.Tensor,
-           dtypes=(torch.float32,)) -> None:
-    if t.device.type != "cuda":
-        raise ValueError(f"{name}: the CUDA kernel takes CUDA tensors, got "
-                         f"one on {t.device}")
-    if t.device != like.device:
-        raise ValueError(f"{name} is on {t.device}, expected {like.device}")
-    if t.dtype not in dtypes:
-        raise ValueError(f"{name}: dtype {t.dtype} not in {dtypes}")
-    if t.shape != like.shape:
-        raise ValueError(f"{name}: shape {tuple(t.shape)} != "
-                         f"{tuple(like.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-    if t.data_ptr() % 16:
-        raise ValueError(f"{name} must be 16-byte aligned")
-
-
-def _stream(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
-
-
-def _raise_on(err: int, what: str) -> None:
-    if err:
-        raise RuntimeError(f"{what} kernel launch failed with CUDA error "
-                           f"{err}")
-
-
-def _edm_lib() -> ctypes.CDLL:
-    lib = build.library("edm_update")
-    fn = lib.edm_update_launch
-    if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_longlong]
-                       + [ctypes.c_float] * 3 + [ctypes.c_void_p])
-    return lib
-
-
-def _axpy_lib() -> ctypes.CDLL:
-    lib = build.library("gossip_axpy")
-    fn = lib.gossip_axpy_launch
-    if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.POINTER(ctypes.c_void_p),
-                       ctypes.POINTER(ctypes.c_float), ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                       ctypes.c_longlong, ctypes.c_void_p]
-    return lib
-
-
 def edm_update_flat(x, g, m, psi, *, alpha: float, beta: float,
                     out: Optional[Sequence[torch.Tensor]] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -116,18 +63,19 @@ def edm_update_flat(x, g, m, psi, *, alpha: float, beta: float,
         raise ValueError(f"edm_update_flat takes (rows, {LANE}), got "
                          f"{tuple(x.shape)}")
     for name, t in (("g", g), ("m", m), ("psi", psi), ("x", x)):
-        _check(t, name, x)
+        check(t, name, x)
     out = tuple(torch.empty_like(x) if o is None else o
                 for o in (out or (None,) * 3))
     for name, t in zip(("m_out", "psi_out", "phi_out"), out):
-        _check(t, name, x)
-    lib = _edm_lib()
+        check(t, name, x)
+    fn = launcher("edm_update", [ctypes.c_void_p] * 7 + [ctypes.c_longlong]
+                  + [ctypes.c_float] * 3 + [ctypes.c_void_p])
     with torch.cuda.device(x.device):
-        err = lib.edm_update_launch(
+        err = fn(
             x.data_ptr(), g.data_ptr(), m.data_ptr(), psi.data_ptr(),
             out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
-            x.numel(), alpha, beta, 1.0 - beta, _stream(x))
-    _raise_on(err, "edm_update")
+            x.numel(), alpha, beta, 1.0 - beta, stream(x))
+    raise_on(err, "edm_update")
     edm_update_flat.launches += 1
     return tuple(out)
 
@@ -153,9 +101,9 @@ def gossip_axpy_flat(operands: Sequence[torch.Tensor],
         raise ValueError(f"gossip_axpy_flat takes 1..{MAX_OPERANDS} operands "
                          f"with one weight each, got {n} and {len(weights)}")
     first = operands[0]
-    dtypes = tuple(_DTYPE_CODE)
+    dtypes = tuple(DTYPE_CODE)
     for k, o in enumerate(operands):
-        _check(o, f"operand {k}", first, dtypes=(first.dtype,))
+        check(o, f"operand {k}", first, dtypes=(first.dtype,))
     if first.dtype not in dtypes:
         raise ValueError(f"operand dtype {first.dtype} not in {dtypes}")
     if first.numel() % 4:
@@ -163,15 +111,17 @@ def gossip_axpy_flat(operands: Sequence[torch.Tensor],
     out_dtype = out_dtype or first.dtype
     if out is None:
         out = torch.empty(first.shape, dtype=out_dtype, device=first.device)
-    _check(out, "out", first, dtypes=(out_dtype,))
+    check(out, "out", first, dtypes=(out_dtype,))
     ptrs = (ctypes.c_void_p * n)(*(o.data_ptr() for o in operands))
     ws = (ctypes.c_float * n)(*(float(w) for w in weights))
-    lib = _axpy_lib()
+    fn = launcher("gossip_axpy", [
+        ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_float),
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_void_p])
     with torch.cuda.device(first.device):
-        err = lib.gossip_axpy_launch(ptrs, ws, n, _DTYPE_CODE[first.dtype],
-                                     _DTYPE_CODE[out_dtype], out.data_ptr(),
-                                     first.numel(), _stream(first))
-    _raise_on(err, "gossip_axpy")
+        err = fn(ptrs, ws, n, DTYPE_CODE[first.dtype], DTYPE_CODE[out_dtype],
+                 out.data_ptr(), first.numel(), stream(first))
+    raise_on(err, "gossip_axpy")
     gossip_axpy_flat.launches += 1
     return out
 

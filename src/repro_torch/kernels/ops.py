@@ -16,8 +16,11 @@ import torch
 from . import ref
 from .edm_update import (BLOCK_ROWS, LANE, edm_update_flat,
                          gossip_axpy_flat)
+from .paged_attention import paged_attention_flat
+from .paged_prefill import paged_prefill_flat
 
-__all__ = ["edm_update_bus", "gossip_axpy", "padded_size", "launch_counts",
+__all__ = ["edm_update_bus", "gossip_axpy", "paged_attention",
+           "paged_prefill_attention", "padded_size", "launch_counts",
            "reset_launch_counts"]
 
 
@@ -72,12 +75,56 @@ def gossip_axpy(operands: Sequence[torch.Tensor], weights: Sequence[float],
     return gossip_axpy_flat(operands, weights, out_dtype=out_dtype)
 
 
+def paged_attention(q, k_pool, v_pool, page_table, kv_len, *,
+                    page_size: int) -> torch.Tensor:
+    """Paged decode attention: q (B, K, G, hd) single-token queries grouped
+    by KV head, pools (num_pages, page_size, K, hd), page_table
+    (B, n_pages) int32, kv_len (B,) int32.  Returns (B, K, G, hd); an idle
+    slot (``kv_len == 0``) gets a zero tile.  One kernel launch on the
+    card."""
+    if not _on_card(q):
+        return ref.paged_attention_ref(q, k_pool, v_pool, page_table, kv_len,
+                                       page_size=page_size)
+    return paged_attention_flat(q.contiguous(), k_pool, v_pool, page_table,
+                                kv_len, page_size=page_size)
+
+
+def paged_prefill_attention(q, k_chunk, v_chunk, k_pool, v_pool, pt_row,
+                            chunk_start: int, chunk_len: int, *,
+                            page_size: int, window: int = 0) -> torch.Tensor:
+    """Paged prefill attention of one chunk of one slot, in the model's
+    layout: q (1, C, H, hd), k_chunk / v_chunk (1, C, K, hd) the chunk's
+    keys and values (not yet in the pools), pools (num_pages, page_size,
+    K, hd), pt_row (n_pages,) int32.  Returns (1, C, H, hd).  On the card
+    the queries go to the kernel's ``(K, C·G, hd)`` layout (row
+    ``i·G + g`` = token i, group member g) and back, around one kernel
+    launch; ``chunk_start`` and ``chunk_len`` are kernel arguments."""
+    if not _on_card(q):
+        return ref.paged_prefill_attention_ref(
+            q, k_chunk, v_chunk, k_pool, v_pool, pt_row, chunk_start,
+            chunk_len, page_size=page_size, window=window)
+    _, C, H, hd = q.shape
+    K = k_chunk.shape[2]
+    G = H // K
+    qk = q.reshape(C, K, G, hd).permute(1, 0, 2, 3).reshape(K, C * G, hd)
+    kc = k_chunk[0].permute(1, 0, 2).contiguous()          # (K, C, hd)
+    vc = v_chunk[0].permute(1, 0, 2).contiguous()
+    out = paged_prefill_flat(qk.contiguous(), kc, vc, k_pool, v_pool, pt_row,
+                             chunk_start, chunk_len, page_size=page_size,
+                             window=window)
+    return out.reshape(K, C, G, hd).permute(1, 0, 2, 3).reshape(1, C, H, hd)
+
+
+_COUNTED = {"edm_update": edm_update_flat, "gossip_axpy": gossip_axpy_flat,
+            "paged_attention": paged_attention_flat,
+            "paged_prefill": paged_prefill_flat}
+
+
 def launch_counts() -> Dict[str, int]:
     """Kernel launches since the last :func:`reset_launch_counts`."""
-    return {"edm_update": edm_update_flat.launches,
-            "gossip_axpy": gossip_axpy_flat.launches}
+    return {name: fn.launches for name, fn in _COUNTED.items()}
 
 
 def reset_launch_counts() -> None:
-    edm_update_flat.launches = 0
-    gossip_axpy_flat.launches = 0
+    for fn in _COUNTED.values():
+        fn.launches = 0

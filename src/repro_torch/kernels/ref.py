@@ -1,9 +1,12 @@
 """Plain PyTorch versions of the port's CUDA kernels.
 
-Each repeats its kernel's arithmetic operation for operation, so on the card
-the two agree bit for bit; the CPU tests hold these against the JAX
-package's Pallas kernels (run in interpret mode), and the wrappers in
-:mod:`repro_torch.kernels.ops` use them for tensors that lie on the CPU.
+The EDM update and the combine repeat their kernel's arithmetic operation
+for operation, so on the card the two agree bit for bit.  The paged
+attention versions are the op sequences of ``repro/kernels/ref.py``
+(gather the pages, then a full softmax), which the kernels' online
+softmax matches to a stated tolerance.  The CPU tests hold these against
+the JAX package's Pallas kernels (run in interpret mode), and the wrappers
+in :mod:`repro_torch.kernels.ops` use them for tensors that lie on the CPU.
 """
 from __future__ import annotations
 
@@ -11,7 +14,11 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-__all__ = ["edm_update_ref", "gossip_axpy_ref"]
+from repro_torch.models.attention import (_gather_pages, paged_prefill_sdpa,
+                                          sdpa_ref)
+
+__all__ = ["edm_update_ref", "gossip_axpy_ref", "gather_pages",
+           "paged_attention_ref", "paged_prefill_attention_ref"]
 
 
 def edm_update_ref(x, g, m, psi, *, alpha: float, beta: float,
@@ -44,3 +51,42 @@ def gossip_axpy_ref(operands: Sequence[torch.Tensor],
     for w, o in zip(weights[1:], operands[1:]):
         acc = acc + float(w) * o.float()
     return acc.to(out_dtype or operands[0].dtype)
+
+
+# the dense view of a paged pool, shared with the model's plain path
+gather_pages = _gather_pages
+
+
+def paged_attention_ref(q, k_pool, v_pool, page_table, kv_len, *,
+                        page_size: int) -> torch.Tensor:
+    """Plain paged decode attention: gather each slot's pages into a dense
+    cache and run ``sdpa_ref`` with per-slot ``kv_len`` masking.
+    q: (B, K, G, hd) grouped single-token queries; returns (B, K, G, hd).
+    An idle slot (``kv_len == 0``) gives a zero tile, as the kernel does
+    (the softmax over all-masked rows alone would average its null-page
+    rows)."""
+    B, K, G, hd = q.shape
+    if k_pool.shape[1] != page_size:
+        raise ValueError(f"pool page size {k_pool.shape[1]} != {page_size}")
+    k = gather_pages(k_pool, page_table)
+    v = gather_pages(v_pool, page_table)
+    out = sdpa_ref(q.reshape(B, 1, K * G, hd), k, v, causal=False,
+                   kv_len=kv_len).reshape(B, K, G, hd)
+    live = (torch.as_tensor(kv_len, device=q.device) > 0)[:, None, None, None]
+    return torch.where(live, out, torch.zeros((), dtype=out.dtype,
+                                              device=out.device))
+
+
+def paged_prefill_attention_ref(q, k_chunk, v_chunk, k_pool, v_pool, pt_row,
+                                chunk_start, chunk_len, *, page_size: int,
+                                window: int = 0) -> torch.Tensor:
+    """Plain paged prefill attention: gather the slot's pages, add the
+    in-flight chunk's keys and values, and run the positional SDPA with
+    ring-aware key positions and a per-element window mask.
+    q: (1, C, H, hd); k_chunk, v_chunk: (1, C, K, hd); pt_row:
+    (n_pages,); returns (1, C, H, hd).  The ``attn_impl="ref"`` engine
+    runs this same function."""
+    if k_pool.shape[1] != page_size:
+        raise ValueError(f"pool page size {k_pool.shape[1]} != {page_size}")
+    return paged_prefill_sdpa(q, k_chunk, v_chunk, k_pool, v_pool, pt_row,
+                              chunk_start, chunk_len, window=window)

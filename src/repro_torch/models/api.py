@@ -1,15 +1,21 @@
 """Public model API: the counterpart of ``repro/models/api.py`` for the
-training path of the dense family.
+dense family.
 
-``Model`` bundles ``init`` (a ``torch.Generator`` → parameter dict on the
-generator's device), ``loss`` (``(params, batch) → scalar``) and ``meta``
-(shape-only parameters, for layouts).  Serving entry points come with the
-serving slice (ROADMAP.md).
+``Model`` bundles the training entries ``init`` (a ``torch.Generator`` →
+parameter dict on the generator's device), ``loss`` (``(params, batch) →
+scalar``) and ``meta`` (shape-only parameters, for layouts), and the
+serving entries of the JAX ``Model``: ``prefill``, ``decode_step``,
+``init_cache``, ``decode_window`` and the paged ``decode_step_paged``,
+``prefill_chunk_paged`` and ``decode_step_mixed``.  Caches and pools are
+written in place (see :mod:`repro_torch.models.transformer`).  The paged
+entries take their attention as an argument: the kernels of
+:mod:`repro_torch.kernels.ops` or their plain versions in
+:mod:`repro_torch.kernels.ref`.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Optional
 
 from repro_torch.configs.base import ModelConfig
 from . import transformer as tf
@@ -23,11 +29,61 @@ class Model:
     init: Callable        # generator -> {path: tensor}
     loss: Callable        # (params, batch) -> scalar
     meta: Callable        # () -> {path: meta tensor}
+    prefill: Callable     # (params, batch) -> (logits, caches)
+    decode_step: Callable  # (params, caches, token, pos) -> (logits, caches)
+    init_cache: Callable  # (batch, length, device=None) -> caches
+    decode_window: int = 0  # sliding-window size fixed at build time
+    # (params, pools, token, positions, page_table, kv_len, attn_fn)
+    # -> (logits, pools)
+    decode_step_paged: Optional[Callable] = None
+    # (params, pools, tokens, pt_row, chunk_start, chunk_len, attn_fn)
+    # -> (chunk logits, pools): one prompt chunk of one slot
+    prefill_chunk_paged: Optional[Callable] = None
+    # (params, pools, token, positions, page_table, kv_len, chunk_tokens,
+    #  pt_row, chunk_start, chunk_len, attn_fn, prefill_attn_fn)
+    # -> (decode logits, chunk logits, pools): the mixed serving step
+    decode_step_mixed: Optional[Callable] = None
 
 
-def build_model(cfg: ModelConfig) -> Model:
+def build_model(cfg: ModelConfig, decode_window: int = 0) -> Model:
     tf.param_specs(cfg)   # raises for families not ported yet
+    w = decode_window
+
+    def prefill(params, batch):
+        return tf.lm_prefill(cfg, params, batch["tokens"], window=w)
+
+    def decode_step(params, caches, token, pos):
+        return tf.lm_decode_step(cfg, params, caches, token, pos, window=w)
+
+    def init_cache(batch, length, device=None):
+        return tf.init_lm_cache(cfg, batch, length, device=device)
+
+    def decode_step_paged(params, pools, token, positions, page_table,
+                          kv_len, attn_fn):
+        return tf.lm_decode_step_paged(cfg, params, pools, token, positions,
+                                       page_table, kv_len, window=w,
+                                       attn_fn=attn_fn)
+
+    def prefill_chunk_paged(params, pools, tokens, pt_row, chunk_start,
+                            chunk_len, attn_fn):
+        return tf.lm_prefill_chunk_paged(cfg, params, pools, tokens, pt_row,
+                                         chunk_start, chunk_len, window=w,
+                                         attn_fn=attn_fn)
+
+    def decode_step_mixed(params, pools, token, positions, page_table,
+                          kv_len, chunk_tokens, pt_row, chunk_start,
+                          chunk_len, attn_fn, prefill_attn_fn):
+        return tf.lm_serve_step_mixed(cfg, params, pools, token, positions,
+                                      page_table, kv_len, chunk_tokens,
+                                      pt_row, chunk_start, chunk_len,
+                                      window=w, attn_fn=attn_fn,
+                                      prefill_attn_fn=prefill_attn_fn)
+
     return Model(cfg,
                  lambda generator: tf.init_lm(cfg, generator),
                  lambda params, batch: tf.lm_loss(cfg, params, batch),
-                 lambda: tf.param_meta(cfg))
+                 lambda: tf.param_meta(cfg),
+                 prefill, decode_step, init_cache, decode_window=w,
+                 decode_step_paged=decode_step_paged,
+                 prefill_chunk_paged=prefill_chunk_paged,
+                 decode_step_mixed=decode_step_mixed)

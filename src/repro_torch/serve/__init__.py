@@ -1,0 +1,11 @@
+"""repro_torch.serve: the serving slice of the port — the dense reference
+path (engine), the paged KV cache and the continuous-batching scheduler."""
+from .engine import build_serve_step, greedy_generate, grow_caches  # noqa: F401
+from .paged_cache import (  # noqa: F401
+    NULL_PAGE, PageAllocator, PagedCacheConfig, init_paged_pools,
+    paged_pool_shapes,
+)
+from .scheduler import (  # noqa: F401
+    ContinuousBatchingEngine, Request, build_paged_serve_step, poisson_load,
+    run_fixed_batch, summarize,
+)

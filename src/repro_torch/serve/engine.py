@@ -1,0 +1,74 @@
+"""Dense serving reference: prefill + batched greedy decode with KV caches,
+the counterpart of ``repro/serve/engine.py`` (``build_serve_step``,
+``grow_caches``, ``greedy_generate``).  The continuous-batching engine of
+:mod:`repro_torch.serve.scheduler` is held against this path.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.api import Model
+
+__all__ = ["build_serve_step", "grow_caches", "greedy_generate"]
+
+
+def build_serve_step(model: Model) -> Callable:
+    """``serve_step(params, caches, token, pos) -> (next_token (B, 1),
+    caches)``: one new token per request (greedy head); the caches are
+    written in place."""
+
+    def serve_step(params, caches, token, pos):
+        logits, caches = model.decode_step(params, caches, token, pos)
+        nxt = torch.argmax(logits[:, -1].float(), dim=-1)
+        return nxt.to(torch.int32)[:, None], caches
+
+    return serve_step
+
+
+def grow_caches(model: Model, caches, batch_size: int, target_len: int):
+    """Pad every prefill-cache leaf out to the shape
+    ``model.init_cache(batch_size, target_len)`` would allocate.
+
+    The target shapes come from the model's own cache layout (built on the
+    ``meta`` device, no allocation), and each leaf grows along the one
+    axis that differs, with zeros; leaves already at the target shape
+    (ring caches at ``window``) pass through untouched."""
+    target = model.init_cache(batch_size, target_len, device="meta")
+
+    def grow(c: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        cur, want = tuple(c.shape), tuple(t.shape)
+        if cur == want:
+            return c
+        diff = [i for i, (a, b) in enumerate(zip(cur, want)) if a != b]
+        if len(cur) != len(want) or len(diff) != 1 \
+                or want[diff[0]] < cur[diff[0]]:
+            raise ValueError(f"cache leaf {cur} does not grow to {want} "
+                             "along one axis")
+        ax = diff[0]
+        pad = [0, 0] * (len(cur) - 1 - ax) + [0, want[ax] - cur[ax]]
+        return F.pad(c, pad)
+
+    return tuple({name: grow(c[name], t[name]) for name in c}
+                 for c, t in zip(caches, target))
+
+
+@torch.inference_mode()
+def greedy_generate(model: Model, params, batch: Dict[str, Any],
+                    n_steps: int) -> torch.Tensor:
+    """Prefill the prompt, then greedy-decode: returns (B, n_steps)
+    generated ids (int32), the first from the prefill logits.  This is the
+    dense reference the continuous-batching engine is held against."""
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    logits, caches = model.prefill(params, batch)
+    caches = grow_caches(model, caches, B, model.decode_window or S + n_steps)
+    step = build_serve_step(model)
+    tok = torch.argmax(logits[:, -1].float(), -1).to(torch.int32)[:, None]
+    out = [tok]
+    for i in range(n_steps - 1):
+        tok, caches = step(params, caches, tok, S + i)
+        out.append(tok)
+    return torch.cat(out, dim=1)

@@ -1,9 +1,18 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
-Bit-equality: the kernels round every product and sum as the plain
-versions do (explicitly rounded intrinsics, no FMA contraction).  These
-tests need a CUDA device and nvcc and skip elsewhere; this file imports
-nothing of JAX, so it runs on a machine with the card:
+Bit-equality for the EDM update and the combine: the kernels round every
+product and sum as the plain versions do (explicitly rounded intrinsics,
+no FMA contraction).  The paged attention kernels use an online softmax
+where the plain versions gather and take a full softmax, so they agree to
+a tolerance: f32 at atol 2e-5 (the JAX tests' bound for the Pallas
+kernels); bf16, compared in f32, at atol 2e-5 + 2⁻⁷·|want| (both sides
+round one f32 result to bf16, so they differ by at most one bf16 ulp of
+the reference).  Kernel and plain version see the same pools; on pools
+NaN-poisoned wherever the slot owns no row the kernel must give the same
+bits, finite, so it read none of them.
+
+These tests need a CUDA device and nvcc and skip elsewhere; this file
+imports nothing of JAX, so it runs on a machine with the card:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 """
@@ -93,3 +102,196 @@ def test_cuda_fused_step_bit_equal_to_plain_step(cuda):
     for a, b in zip(*outs):
         assert torch.equal(a, b)
     assert np.isfinite(outs[0][0].cpu().numpy()).all()
+
+
+# ---------------------------------------------------------------------------
+# paged attention kernels (serving)
+# ---------------------------------------------------------------------------
+
+def _tol(dtype):
+    """assert_close's (rtol, atol): |got − want| ≤ atol + rtol·|want|."""
+    return dict(atol=2e-5, rtol=0.0 if dtype == torch.float32 else 2.0 ** -7)
+
+
+def _decode_case(B, K, G, hd, page_size, kv_len, seed, dtype, device):
+    """Ragged slot batch: slot b owns ceil(kv_len[b] / page_size) pages of a
+    shuffled pool; every other page, the null page included, is NaN."""
+    rng = np.random.default_rng(seed)
+    kv_len = np.asarray(kv_len, np.int32)
+    used = [-(-int(n) // page_size) for n in kv_len]
+    n_pages = max(used)
+    num_pages = 1 + sum(used) + 2
+    phys = rng.permutation(np.arange(1, num_pages))
+    pt = np.zeros((B, n_pages), np.int32)
+    at = 0
+    for b, n in enumerate(used):
+        pt[b, :n] = phys[at:at + n]
+        at += n
+    q = rng.standard_normal((B, K, G, hd)).astype(np.float32)
+    kp = rng.standard_normal((num_pages, page_size, K, hd)).astype(np.float32)
+    vp = rng.standard_normal((num_pages, page_size, K, hd)).astype(np.float32)
+    dead = np.setdiff1d(np.arange(num_pages), phys[:at])
+    kp[dead] = np.nan
+    vp[dead] = np.nan
+
+    def t(a):
+        return torch.from_numpy(a).to(device)
+    return (t(q).to(dtype), t(kp).to(dtype), t(vp).to(dtype), t(pt),
+            t(kv_len))
+
+
+DECODE_CASES = [
+    # the ragged batch of tests/test_serve.py: idle slot 1, full slot 2
+    dict(B=4, K=2, G=3, hd=16, page_size=8, kv_len=[5, 0, 24, 17]),
+    # smollm_360m's heads at the serve CLI's shapes: 8 slots, 4 pages each
+    dict(B=8, K=5, G=3, hd=64, page_size=16,
+         kv_len=[64, 0, 17, 33, 1, 48, 16, 63]),
+    # smollm_360m's heads, 16 slots, contexts up to 1024, one idle
+    dict(B=16, K=5, G=3, hd=64, page_size=16,
+         kv_len=[1024, 0, 1, 17, 255, 256, 511, 640, 700, 129, 33, 1000,
+                 64, 900, 15, 384]),
+]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", range(len(DECODE_CASES)))
+def test_cuda_paged_attention_matches_plain(cuda, case, dtype):
+    c = DECODE_CASES[case]
+    q, kp, vp, pt, kv_len = _decode_case(c["B"], c["K"], c["G"], c["hd"],
+                                         c["page_size"], c["kv_len"], case,
+                                         dtype, cuda)
+    kc, vc = kp.nan_to_num(), vp.nan_to_num()     # dead rows zeroed
+    before = ops.launch_counts()["paged_attention"]
+    got = ops.paged_attention(q, kc, vc, pt, kv_len,
+                              page_size=c["page_size"])
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["paged_attention"] == before + 1
+    # the plain version gathers whole page-table rows (null tail entries
+    # at weight 0), so both take the pools with the poison zeroed
+    want = ref.paged_attention_ref(q, kc, vc, pt, kv_len,
+                                   page_size=c["page_size"])
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+    poisoned = ops.paged_attention(q, kp, vp, pt, kv_len,
+                                   page_size=c["page_size"])
+    assert bool(torch.isfinite(poisoned).all())
+    assert bool((poisoned[kv_len == 0] == 0).all())
+    assert torch.equal(poisoned, got), "the kernel read a poisoned row"
+
+
+def _prefill_case(window, start, C, K, G, hd, page_size, n_pages, num_pages,
+                  seed, dtype, device):
+    """One slot's history written into NaN-poisoned pools (the null page is
+    a zero write sink), as tests/test_chunked_prefill.py builds it."""
+    rng = np.random.default_rng(seed)
+    k_hist = rng.standard_normal((start, K, hd)).astype(np.float32)
+    v_hist = rng.standard_normal((start, K, hd)).astype(np.float32)
+    k_pool = np.full((num_pages, page_size, K, hd), np.nan, np.float32)
+    v_pool = np.full((num_pages, page_size, K, hd), np.nan, np.float32)
+    n_slot = (window // page_size) if window else n_pages
+    pt_row = np.zeros((n_pages,), np.int32)
+    pt_row[:n_slot] = rng.choice(np.arange(1, num_pages), size=n_slot,
+                                 replace=False)
+    k_pool[0] = 0.0
+    v_pool[0] = 0.0
+    for p in range(start):
+        row = p % window if window else p
+        k_pool[pt_row[row // page_size], row % page_size] = k_hist[p]
+        v_pool[pt_row[row // page_size], row % page_size] = v_hist[p]
+    q = rng.standard_normal((1, C, K * G, hd)).astype(np.float32)
+    k_c = rng.standard_normal((1, C, K, hd)).astype(np.float32)
+    v_c = rng.standard_normal((1, C, K, hd)).astype(np.float32)
+    return [torch.from_numpy(a).to(device).to(dtype)
+            for a in (q, k_c, v_c, k_pool, v_pool)] + [
+        torch.from_numpy(pt_row).to(device)]
+
+
+# (window, start, C, chunk_len, K, G, hd, page_size, n_pages, num_pages):
+# the 11 KERNEL_CASES of tests/test_chunked_prefill.py; smollm_360m's heads
+# at the serve CLI's shapes (16-token chunks, a partial query tile, 4 pages
+# per slot), then with 128-token chunks, linear and a 256-row ring
+PREFILL_CASES = [(w, s, C, n, 2, 2, 8, 4, 6, 16) for w, s, C, n in [
+    (0, 0, 4, 4), (0, 4, 4, 4), (0, 9, 4, 3), (0, 20, 4, 1),
+    (8, 0, 4, 4), (8, 4, 4, 4), (8, 7, 4, 4), (8, 8, 4, 4),
+    (8, 13, 4, 3), (8, 37, 4, 2), (8, 37, 8, 8)]] + [
+    (0, s, 16, n, 5, 3, 64, 16, 4, 40)
+    for s, n in ((0, 16), (16, 16), (16, 7), (32, 1))] + [
+    (w, s, 128, n, 5, 3, 64, 16, 64, 80)
+    for w in (0, 256) for s, n in ((0, 128), (128, 128), (640, 77))]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", PREFILL_CASES)
+def test_cuda_paged_prefill_matches_plain(cuda, case, dtype):
+    window, start, C, clen, K, G, hd, page_size, n_pages, num_pages = case
+    q, kc, vc, kp, vp, pt_row = _prefill_case(
+        window, start, C, K, G, hd, page_size, n_pages, num_pages, 1, dtype,
+        cuda)
+    before = ops.launch_counts()["paged_prefill"]
+    got = ops.paged_prefill_attention(q, kc, vc, kp, vp, pt_row, start,
+                                      clen, page_size=page_size,
+                                      window=window)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["paged_prefill"] == before + 1
+    want = ref.paged_prefill_attention_ref(q, kc, vc, kp, vp, pt_row, start,
+                                           clen, page_size=page_size,
+                                           window=window)
+    clean = ops.paged_prefill_attention(q, kc, vc, kp.nan_to_num(),
+                                        vp.nan_to_num(), pt_row, start, clen,
+                                        page_size=page_size, window=window)
+    got, want, clean = got[:, :clen], want[:, :clen], clean[:, :clen]
+    assert got.dtype == dtype
+    assert bool(torch.isfinite(got).all()), "the kernel read a poisoned row"
+    assert torch.equal(got, clean), "the kernel read a poisoned row"
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+
+
+@pytest.mark.requires_cuda
+def test_cuda_paged_wrappers_check_their_inputs(cuda):
+    q, kp, vp, pt, kv_len = _decode_case(2, 1, 1, 16, 8, [3, 9], 0,
+                                         torch.float32, cuda)
+    with pytest.raises(ValueError, match="int32"):
+        ops.paged_attention(q, kp, vp, pt.long(), kv_len, page_size=8)
+    with pytest.raises(ValueError, match="dtype"):
+        ops.paged_attention(q, kp.bfloat16(), vp, pt, kv_len, page_size=8)
+    with pytest.raises(ValueError, match="shape"):
+        ops.paged_attention(q, kp, vp, pt, kv_len, page_size=16)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.paged_attention(q, kp.cpu(), vp, pt, kv_len, page_size=8)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("window", [0, 16])
+def test_cuda_kernel_engine_equals_greedy_generate(cuda, window):
+    """The chunked engine on the card, through both kernels, emits exactly
+    the dense ``greedy_generate`` tokens (smoke config, f32)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    from repro_torch.serve import (ContinuousBatchingEngine,
+                                   PagedCacheConfig, greedy_generate,
+                                   poisson_load)
+
+    model = build_model(get_smoke_config("smollm_360m"),
+                        decode_window=window)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    ctx = window or 64
+    pcfg = PagedCacheConfig(page_size=8, num_pages=1 + 4 * (-(-ctx // 8)),
+                            max_slots=4, max_context=ctx, window=window)
+    eng = ContinuousBatchingEngine(model, params, pcfg, attn_impl="kernel",
+                                   prefill_chunk=8, max_step_tokens=10,
+                                   device=cuda)
+    reqs = poisson_load(6, rate=500.0, vocab=model.cfg.vocab_size,
+                        prompt_buckets=(12, 20), new_token_buckets=(4, 9),
+                        prompt_dist="exact", seed=3)
+    before = ops.launch_counts()
+    eng.run(reqs)
+    after = ops.launch_counts()
+    assert after["paged_attention"] > before["paged_attention"]
+    assert after["paged_prefill"] > before["paged_prefill"]
+    for r in reqs:
+        want = greedy_generate(
+            model, params, {"tokens": torch.from_numpy(r.tokens)[None]
+                            .to(cuda)}, n_steps=r.max_new)[0]
+        assert eng.completed[r.rid].tolist() == want.cpu().tolist()

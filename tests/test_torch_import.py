@@ -38,7 +38,12 @@ def _modules():
 
 def test_every_module_imports_without_jax_or_repro():
     mods = ["repro_torch"] + _modules()
-    assert "repro_torch.kernels.edm_update" in mods
+    for m in ("repro_torch.kernels.edm_update",
+              "repro_torch.kernels.paged_attention",
+              "repro_torch.kernels.paged_prefill",
+              "repro_torch.serve.engine", "repro_torch.serve.paged_cache",
+              "repro_torch.serve.scheduler", "repro_torch.launch.serve"):
+        assert m in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -99,6 +104,34 @@ def test_cli_without_device_raises_without_gpu(no_gpu):
     assert out.returncode != 0
     assert "--device cpu" in out.stderr
     assert "loss=" not in out.stdout
+
+
+def test_serving_entry_points_raise_without_gpu(no_gpu):
+    from repro_torch.serve import (ContinuousBatchingEngine,
+                                   PagedCacheConfig, run_fixed_batch)
+    model = build_model(get_smoke_config("smollm_360m"))
+    params = model.init(torch.Generator().manual_seed(0))
+    pcfg = PagedCacheConfig(page_size=8, num_pages=9, max_slots=2,
+                            max_context=16)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ContinuousBatchingEngine(model, params, pcfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_fixed_batch(model, params, [], batch_size=1)
+    # asked for by name, the CPU works
+    ContinuousBatchingEngine(model, params, pcfg, device="cpu")
+
+
+@pytest.mark.parametrize("flags", [
+    ["--continuous-batching", "--prefill-chunk", "8"], []])
+def test_serve_cli_without_device_raises_without_gpu(no_gpu, flags):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         "smollm_360m", "--smoke", "--requests", "2"] + flags,
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert "--device cpu" in out.stderr
+    assert "generated" not in out.stdout
 
 
 def test_unported_levers_raise():
