@@ -14,16 +14,35 @@ Phases, in order; any failure raises and the script exits non-zero:
    the main path's shapes and at small odd ones, bit for bit, with its
    median time over 20 launches (CUDA events), the plain version's time
    and the bound (bytes moved at 3.35 TB/s, or f32 operations at
-   67 TFLOP/s, whichever is larger);
+   67 TFLOP/s, whichever is larger); then the wire kernels the same way:
+   the fused EDM + bf16 / int8 EF update at the full bus (timed, in place
+   as the main path calls it; the plain version one agent at a time to fit
+   the card) and on buses of edge tiles (all zero, NaN, ±Inf beside finite
+   values, ±Inf in an all-zero tile, tiny magnitudes, exact rounding
+   ties), in place and out of place; the int8 dequantize-combine as the
+   ring's 3-ary case at full width (timed) and at arities 1, 2, 5 and 16.
+   "Bit for bit" lets a NaN match any NaN;
 4. main path: ``repro_torch.launch.train`` — smollm_360m at full width,
    4 agents on one device, ring, packed bus, fused kernels, seq 128,
    5 steps — with the kernels' launch counts reset just before and read
-   just after; losses, consensus and grad norms must be finite;
+   just after (5 of each f32 training kernel, none other); losses,
+   consensus and grad norms must be finite;
 5. profile: one more train step under ``torch.profiler``, the device time
    by kernel;
 6. fused against plain: from one saved state and one gradient bus, one
    optimizer + gossip step with the kernels and one with the plain
    versions; the three buses must be bit-equal;
+4w. the wire main path through the same CLI, counts reset before and read
+   after each run: ``--wire int8`` on the ring, 5 steps (5 EF-update and 5
+   q8-combine launches, no f32 training kernel), then ``--wire bf16
+   --topology exp --gossip-schedule round_robin``, 3 steps (3 EF-update
+   and 3 combine launches on the one-peer rounds); metrics finite, step
+   times, peak memory and the modeled wire bytes per gossip round;
+5w. one profiled ``--wire int8`` step, device time by bucket and idle
+   share;
+6w. the fused EF step against the plain EF step (the codec's chain and the
+   combine's plain version on the same rolled payloads), int8 and bf16,
+   at full width: x, m, ψ and e bit-equal;
 7. serving kernels: paged decode and paged prefill attention against their
    plain versions on the same pools, at the shapes of both serving runs of
    phase 8 (f32 within atol 2e-5; bf16 compared in f32 within
@@ -38,13 +57,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    1024-token context (32 requests, prompts 256–768, chunks of 128), each
    with the launch counts reset just before and read just after (32
    paged-attention launches per dispatch, 32 paged-prefill launches per
-   dispatch with a chunk); one mixed and one decode-only dispatch
-   profiled;
+   dispatch with a chunk, no training kernel); one mixed and one
+   decode-only dispatch profiled;
 9. exactness: in f32 the kernel engine's greedy tokens equal
    ``greedy_generate``'s; in bf16 the share of tokens on which the kernel
    and plain engines agree is printed (bf16 logits tie at vocab 49152).
 
-The line before the last is ``{"kernels": [...]}``; the last line is
+The third line from the end is the ``nvidia-smi`` name and power limit,
+the line before the last ``{"kernels": [...]}`` and the last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -67,6 +87,7 @@ F32_FLOPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989e12
 
 ARCH, AGENTS, SEQ, STEPS = "smollm_360m", 4, 128, 5
+WIRE_RR_STEPS = 3                    # bf16 wire on round_robin's rounds
 ALPHA, BETA = 0.2, 0.9
 MAIN_ARGS = ["--arch", ARCH, "--agents", str(AGENTS), "--agents-per-device",
              str(AGENTS), "--gossip-engine", "ppermute", "--topology", "ring",
@@ -119,13 +140,29 @@ def bound_ms(n_bytes: float, n_flops: float,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def same_bits(a, b) -> bool:
+    """Equal dtype, shape and bits, except that a NaN matches any NaN."""
+    import torch
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    ints = torch.int32 if a.element_size() == 4 else torch.int16
+    ia, ib = a.view(ints), b.view(ints)
+    if torch.equal(ia, ib):
+        return True
+    return bool(((ia == ib) | (torch.isnan(a) & torch.isnan(b))).all())
+
+
 def compare(got, want):
-    """(bit-equal, max |got − want|), one agent row block at a time."""
+    """(bit-equal, max |got − want| where the difference is finite), pair
+    by pair; a NaN matches any NaN."""
     equal, err = True, 0.0
     for g, w in zip(got, want):
-        equal &= bool(g.dtype == w.dtype and g.shape == w.shape
-                      and bool((g == w).all()))
-        err = max(err, float((g.float() - w.float()).abs().max()))
+        equal &= same_bits(g, w)
+        if g.shape == w.shape and g.numel():
+            d = g.float() - w.float()
+            err = max(err, float(d.nan_to_num_(0.0, 0.0, 0.0).abs_().max()))
     return equal, err
 
 
@@ -223,6 +260,167 @@ def check_axpy(shape, n_ops, dtype, out_dtype, gen, timed: bool, ring=False):
 
 
 # ---------------------------------------------------------------------------
+# phase 3w: the wire kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def ef_inputs(A, block_rows, n_tiles, gen):
+    """(x, g, m, ψ, e) buses of A agents × n_tiles ≥ 7 tiles whose first 7
+    tiles per agent are random, all zero, NaN, ±Inf beside finite values,
+    ±Inf in an all-zero tile, tiny (~1e-30) and exact ties (absmax 127);
+    x, g, m, ψ are zero on tiles 1, 4, 5, 6, so c = e there."""
+    import torch
+    shape = (A, n_tiles, block_rows * 128)
+    x, g, m, psi, e = (torch.randn(shape, generator=gen, device="cuda")
+                       for _ in range(5))
+    for t in (x, g, m, psi):
+        t[:, [1, 4, 5, 6]] = 0.0
+    e[:, 1] = 0.0
+    e[:, 2, ::97] = float("nan")
+    e[:, 3, 5], e[:, 3, 11] = float("inf"), -float("inf")
+    e[:, 4] = 0.0
+    e[:, 4, 7], e[:, 4, 13] = float("inf"), -float("inf")
+    e[:, 5] *= 1e-30
+    e[:, 6] = torch.randint(-127, 127, shape[2:], generator=gen,
+                            device="cuda").float() + 0.5
+    e[:, 6, 0] = 127.0
+    return [t.reshape(A, n_tiles * block_rows, 128)
+            for t in (x, g, m, psi, e)]
+
+
+def ef_flat(outs, fmt):
+    """(m', ψ', payload, e') → [m', ψ', q(, scale), e']."""
+    m2, p2, pay, e2 = outs
+    return [m2, p2, *(pay if fmt == "int8" else (pay,)), e2]
+
+
+def ef_vs_plain(inputs, fmt, block_rows):
+    """The kernel out of place and in place against the plain version, one
+    agent row block at a time (tiles never straddle agents)."""
+    from repro_torch.kernels import ops, ref
+    x, g, m, psi, e = inputs
+    kw = dict(alpha=ALPHA, beta=BETA, fmt=fmt, block_rows=block_rows)
+
+    def against_plain(got):
+        equal, err = True, 0.0
+        for a in range(x.shape[0]):
+            want = ref.edm_update_ef_ref(x[a], g[a], m[a], psi[a], e[a],
+                                         **kw)
+            pieces = [o[a] for o in got]
+            eq, er = compare(pieces, [w.view(p.shape)
+                                      for w, p in zip(want, pieces)])
+            equal, err = equal and eq, max(err, er)
+            del want
+        return equal, err
+
+    got = ef_flat(ops.edm_update_bus_ef(x, g, m, psi, e, **kw), fmt)
+    equal, err = against_plain(got)
+    del got
+    free()
+    m2, p2, e2 = m.clone(), psi.clone(), e.clone()
+    got = ef_flat(ops.edm_update_bus_ef(x, g, m2, p2, e2, **kw,
+                                        out=(m2, p2, e2)), fmt)
+    check(got[0].data_ptr() == m2.data_ptr()
+          and got[-1].data_ptr() == e2.data_ptr(), "EF update not in place")
+    eq, er = against_plain(got)
+    del got, m2, p2, e2
+    free()
+    return equal and eq, max(err, er)
+
+
+def check_ef(shape, fmt, gen, timed: bool, block_rows: int = 512):
+    """The fused EF update: random buses at ``shape`` (timed at the main
+    path's), or the edge-tile bus of ``shape = (A, n_tiles)``."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    if len(shape) == 2:
+        inputs = ef_inputs(shape[0], block_rows, shape[1], gen)
+        shape = tuple(inputs[0].shape)
+    else:
+        inputs = [torch.randn(shape, generator=gen, device="cuda")
+                  for _ in range(5)]
+    equal, err = ef_vs_plain(inputs, fmt, block_rows)
+    check(equal, f"edm_update_ef {fmt} differs from its plain version at "
+                 f"{shape}, block_rows {block_rows}: max abs err {err}")
+    rec = {"fmt": fmt, "shape": list(shape), "block_rows": block_rows,
+           "bit_equal": equal, "max_abs_err": err}
+    if timed:
+        x, g, m, psi, e = inputs
+        n = x.numel()
+        kw = dict(alpha=ALPHA, beta=BETA, fmt=fmt, block_rows=block_rows)
+        rec["ms"] = time_ms(lambda: ops.edm_update_bus_ef(
+            x, g, m, psi, e, **kw, out=(m, psi, e)))     # the main path's
+        free()
+        rec["plain_ms"] = time_ms(lambda: [ref.edm_update_ef_ref(
+            x[a], g[a], m[a], psi[a], e[a], **kw)
+            for a in range(shape[0])])     # per agent, to fit the card
+        # 5 f32 reads, 3 f32 writes, q: 2 B (bf16) or 1 B + scales (int8)
+        n_tiles = n // (block_rows * 128)
+        rec["bytes"] = (34 * n if fmt == "bf16" else 33 * n + 4 * n_tiles)
+        rec["bound_ms"], rec["bound_by"] = bound_ms(
+            rec["bytes"], (10 if fmt == "bf16" else 16) * n)
+        rec["gb_per_s"] = rec["bytes"] / rec["ms"] / 1e6
+    del inputs
+    free()
+    return rec
+
+
+def check_q8(shape, n_ops, gen, timed: bool, ring=False,
+             block_rows: int = 512):
+    """The int8 dequantize-combine through ops.gossip_axpy_wire: the ring's
+    3-ary case on a payload and its two agent rolls, or n random
+    operands."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    A, rows, _ = shape
+    nb = rows // block_rows
+
+    def payload():
+        q = torch.randint(-127, 127, shape, generator=gen, device="cuda",
+                          dtype=torch.int8)
+        return q, torch.rand((A, nb), generator=gen, device="cuda")
+
+    if ring:
+        q, s = payload()
+        pays = [(q, s), (torch.roll(q, 1, 0), torch.roll(s, 1, 0)),
+                (torch.roll(q, -1, 0), torch.roll(s, -1, 0))]
+        weights = [0.5, 0.25, 0.25]
+    else:
+        pays = [payload() for _ in range(n_ops)]
+        weights = [1.0 / (k + 3) for k in range(n_ops)]
+    qs, scales = zip(*pays)
+    coefs = ref.wire_coefs(weights, scales)
+    got = ops.gossip_axpy_wire(pays, weights, fmt="int8",
+                               block_rows=block_rows)
+    equal, err = True, 0.0
+    for a in range(A):
+        want = ref.gossip_axpy_q8_ref([q[a] for q in qs],
+                                      coefs[:, a * nb:(a + 1) * nb],
+                                      block_rows=block_rows)
+        eq, e = compare([got[a]], [want])
+        equal, err = equal and eq, max(err, e)
+    name = f"{len(pays)}-ary int8→float32"
+    check(equal, f"gossip_axpy_q8 {name} differs from its plain version "
+                 f"at {shape}: max abs err {err}")
+    rec = {"case": name, "shape": list(shape), "bit_equal": equal,
+           "max_abs_err": err}
+    if timed:
+        del got
+        free()
+        n = qs[0].numel()
+        rec["ms"] = time_ms(lambda: ops.gossip_axpy_wire(
+            pays, weights, fmt="int8", block_rows=block_rows))
+        rec["plain_ms"] = time_ms(lambda: ref.gossip_axpy_q8_ref(
+            qs, coefs, block_rows=block_rows))
+        rec["bytes"] = (len(pays) + 4) * n + 4 * coefs.numel()
+        rec["bound_ms"], rec["bound_by"] = bound_ms(rec["bytes"],
+                                                    2 * len(pays) * n)
+        rec["gb_per_s"] = rec["bytes"] / rec["ms"] / 1e6
+    del pays, qs, scales
+    free()
+    return rec
+
+
+# ---------------------------------------------------------------------------
 # phase 6: one fused optimizer + gossip step against its plain twin
 # ---------------------------------------------------------------------------
 
@@ -251,6 +449,62 @@ def fused_vs_plain(model, layout, state, tokens):
             equal, err = equal and eq, max(err, e)
     check(equal, f"fused step differs from the plain step: max abs err {err}")
     return {"bit_equal": equal, "max_abs_err": err,
+            "shape": list(x.shape)}
+
+
+def ef_fused_vs_plain(model, layout, state, tokens, fmt):
+    """Phase 6w: from one state and one gradient bus, one EF optimizer +
+    ring-gossip step with the kernels and one with their plain versions
+    (the codec's EF chain and the combine's plain version on the same
+    rolled payloads); x, m, ψ and e must be bit-equal.  Consumes the
+    state's m, ψ and e."""
+    import torch
+    from repro_torch.core import (build_mixer, make_codec, make_edm_bus_ef,
+                                  ring, wire_terms)
+    from repro_torch.kernels import ref
+    from repro_torch.train import losses_and_grads
+
+    x = state["params"]
+    _, g = losses_and_grads(model, layout, x, tokens)
+    codec = make_codec(fmt, layout.block_rows)
+    topo = ring(AGENTS)
+    weights = [t.weight for t in topo.terms]
+
+    def plain_mix(payload):
+        pays = wire_terms(topo, payload, codec)
+        if fmt == "bf16":
+            return ref.gossip_axpy_ref(pays, weights,
+                                       out_dtype=torch.float32)
+        qs, scales = zip(*pays)
+        return ref.gossip_axpy_q8_ref(qs, ref.wire_coefs(weights, scales),
+                                      block_rows=codec.block_rows)
+
+    fused_mix = build_mixer(topo, mode="static", engine="ppermute",
+                            agents_per_device=AGENTS, use_fused_kernel=True,
+                            wire=codec)
+    keys = ("m", "psi", "e")
+    with torch.no_grad():
+        opt = make_edm_bus_ef(ALPHA, BETA, fused_mix, codec,
+                              use_fused_kernel=True)
+        x_f, st = opt.step(x, g, {k: state["opt"][k].clone() for k in keys})
+        fused = [x_f.cpu()] + [st[k].cpu() for k in keys]   # host copies
+        del x_f, st
+        free()
+        # the plain step writes over the state's own m, ψ, e (no clones:
+        # the plain chain's temporaries need the room)
+        opt = make_edm_bus_ef(ALPHA, BETA, plain_mix, codec,
+                              use_fused_kernel=False)
+        x_p, st = opt.step(x, g, {k: state["opt"][k] for k in keys})
+        equal, err = True, 0.0
+        for host, dev in zip(fused, [x_p] + [st[k] for k in keys]):
+            for a in range(AGENTS):
+                eq, e = compare([host[a].cuda()], [dev[a]])
+                equal, err = equal and eq, max(err, e)
+        del x_p, st, fused, g
+    free()
+    check(equal, f"fused {fmt} EF step differs from the plain EF step: max "
+                 f"abs err {err}")
+    return {"fmt": fmt, "bit_equal": equal, "max_abs_err": err,
             "shape": list(x.shape)}
 
 
@@ -582,7 +836,13 @@ def profile_dispatches(eng, vocab: int):
     return out
 
 
+TRAIN_KERNELS = ("edm_update", "gossip_axpy", "edm_update_ef",
+                 "gossip_axpy_q8")
+
+
 def check_serve_counts(counts, metrics, n_layers: int, what: str):
+    check(all(counts[k] == 0 for k in TRAIN_KERNELS),
+          f"{what}: a training kernel launched while serving: {counts}")
     check(counts["paged_attention"] == n_layers * metrics["steps"] > 0,
           f"{what}: paged_attention launched {counts['paged_attention']} "
           f"times in {metrics['steps']} dispatches of {n_layers} layers")
@@ -636,7 +896,9 @@ def serve_exactness(vocab: int, bf16_model, bf16_params):
 
 # device-time buckets of one train step, by kernel-name substring
 BUCKETS = (("edm_update kernel", ("edm_update_kernel",)),
+           ("edm_update_ef kernel", ("edm_ef_",)),
            ("gossip_axpy kernel", ("gossip_axpy_kernel",)),
+           ("gossip_axpy_q8 kernel", ("gossip_axpy_q8_kernel",)),
            ("paged_attention kernel", ("paged_attention_kernel",)),
            ("paged_prefill kernel", ("paged_prefill_kernel",)),
            ("roll (gossip terms)", ("roll_cuda_kernel",)),
@@ -647,15 +909,15 @@ BUCKETS = (("edm_update kernel", ("edm_update_kernel",)),
 
 
 def profile_step(model, run, state, batch):
-    """One fused train step under torch.profiler: device time by kernel
-    (kernel events only, so nothing is counted twice) and by bucket."""
+    """One fused train step of ``run`` (its schedule and wire) under
+    torch.profiler: device time by kernel (kernel events only, so nothing
+    is counted twice) and by bucket."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.core import ring
-    from repro_torch.train import build_train_step
+    from repro_torch.train import build_train_step, make_gossip_schedule
 
-    step = build_train_step(model, run, ring(AGENTS), use_fused_kernel=True,
-                            device="cuda")
+    step = build_train_step(model, run, make_gossip_schedule(run, AGENTS),
+                            use_fused_kernel=True, device="cuda")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
             as prof:
@@ -732,6 +994,25 @@ def main() -> None:
     for rec in [axpy_main, *axpy_small]:
         print(f"[kernels] gossip_axpy {rec}", flush=True)
 
+    # 3w. the wire kernels against their plain versions, on the card
+    br = layout.block_rows
+    ef_main, ef_small = {}, {}
+    for fmt in ("bf16", "int8"):
+        ef_main[fmt] = check_ef(bus_shape, fmt, gen, timed=True,
+                                block_rows=br)
+        ef_small[fmt] = [check_ef(s, fmt, gen, timed=False, block_rows=b)
+                         for s, b in (((2, 9), 8), ((3, 8), 24), ((1, 7), br),
+                                      ((4, 12), br))]
+        for rec in [ef_main[fmt], *ef_small[fmt]]:
+            print(f"[wire-kernels] edm_update_ef {rec}", flush=True)
+    q8_main = check_q8(bus_shape, 3, gen, timed=True, ring=True,
+                       block_rows=br)
+    q8_small = [check_q8((A, rows, 128), n, gen, timed=False, block_rows=b)
+                for A, rows, b in ((3, 24, 8), (4, 3 * br, br))
+                for n in (1, 2, 5, 16)]
+    for rec in [q8_main, *q8_small]:
+        print(f"[wire-kernels] gossip_axpy_q8 {rec}", flush=True)
+
     # 4. the main path, through the CLI's entry point
     free()
     ops.reset_launch_counts()
@@ -752,9 +1033,10 @@ def main() -> None:
     print(f"[main] median step {step_s * 1e3:.1f} ms over {STEPS} steps",
           flush=True)
     check(counts == {"edm_update": STEPS, "gossip_axpy": STEPS,
+                     "edm_update_ef": 0, "gossip_axpy_q8": 0,
                      "paged_attention": 0, "paged_prefill": 0},
-          f"training launched {counts}, expected {STEPS} of each training "
-          "kernel and no serving kernel")
+          f"training launched {counts}, expected {STEPS} of each f32 "
+          "training kernel, no wire kernel and no serving kernel")
     state = result["state"]
     check(state["step"] == STEPS, "main path did not take every step")
     check(bool(torch.isfinite(state["params"]).all()), "non-finite x")
@@ -781,7 +1063,77 @@ def main() -> None:
     twin = fused_vs_plain(model, layout, state,
                           data.sample(dgen, 1)["tokens"])
     print(f"[fused-vs-plain] {twin}", flush=True)
-    del state, model, layout
+    del state
+    free()
+
+    # 4w. the wire main path through the CLI: int8 on the ring, then bf16
+    # on round_robin's one-peer rounds of the exp graph
+    wire_counts = {}
+    for fmt, extra, steps, want in (
+            ("int8", [], STEPS, {"edm_update_ef": STEPS,
+                                 "gossip_axpy_q8": STEPS}),
+            ("bf16", ["--topology", "exp", "--gossip-schedule",
+                      "round_robin"], WIRE_RR_STEPS,
+             {"edm_update_ef": WIRE_RR_STEPS,
+              "gossip_axpy": WIRE_RR_STEPS})):
+        args = MAIN_ARGS + ["--wire", fmt] + extra
+        args[args.index("--steps") + 1] = str(steps)
+        ops.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        result = cli.main(args)
+        counts_w = ops.launch_counts()
+        wire_counts[fmt] = counts_w
+        peak = torch.cuda.max_memory_allocated()
+        print(f"[wire-main] --wire {fmt} {' '.join(extra)}: launches "
+              f"{counts_w}; peak memory {peak / 2**30:.2f} GiB; modeled "
+              f"wire bytes per gossip round {result['wire_bytes'][0]} on "
+              f"one device, {result['wire_bytes'][1]} with one agent per "
+              "device", flush=True)
+        for t, (m, sec) in enumerate(zip(result["metrics"],
+                                         result["step_seconds"])):
+            print(f"[wire-main] {fmt} step {t} loss={m['loss']:.6f} "
+                  f"consensus={m['consensus']:.6e} "
+                  f"grad_norm={m['grad_norm']:.4f} step_s={sec:.4f}")
+            check(all(math.isfinite(v) for v in m.values()),
+                  f"--wire {fmt}: non-finite metrics at step {t}: {m}")
+        wire_step_s = statistics.median(result["step_seconds"])
+        print(f"[wire-main] {fmt} median step {wire_step_s * 1e3:.1f} ms "
+              f"over {steps} steps", flush=True)
+        full = {k: 0 for k in counts_w}
+        full.update(want)
+        check(counts_w == full, f"--wire {fmt} launched {counts_w}, "
+                                f"expected {full}")
+        state, run = result["state"], result["run"]
+        del result                # the state is consumed by the next step
+        check(state["step"] == steps and set(state["opt"]) == {
+            "m", "psi", "e"}, f"--wire {fmt}: state {state['step']}, "
+            f"{sorted(state['opt'])}")
+        check(bool(torch.isfinite(state["params"]).all()),
+              f"--wire {fmt}: non-finite x")
+        if fmt == "int8":
+            # 5w. one profiled int8 step; 6w. fused EF step == plain EF step
+            state, wprof = profile_step(model, run, state,
+                                        data.sample(dgen, 1))
+            busy = wprof["device_busy_ms"]
+            print(f"[wire-profile] one int8 step: device busy {busy:.3f} ms "
+                  f"in {wprof['kernel_launches']} kernel launches; against "
+                  f"the unprofiled median step of {wire_step_s * 1e3:.1f} ms"
+                  f" the device is idle {1 - busy / (wire_step_s * 1e3):.1%}"
+                  " of the step", flush=True)
+            for name, ms in wprof["buckets"].items():
+                print(f"[wire-profile]   {ms:9.3f} ms  {name}")
+            for ms, count, key in wprof["top"]:
+                print(f"[wire-profile]   top {ms:9.3f} ms  x{count:<5d} "
+                      f"{key[:80]}")
+            free()
+            tokens = data.sample(dgen, 1)["tokens"]
+            ef_twin = [ef_fused_vs_plain(model, layout, state, tokens, f)
+                       for f in ("int8", "bf16")]
+            for rec in ef_twin:
+                print(f"[wire-fused-vs-plain] {rec}", flush=True)
+        del state
+        free()
+    del model, layout
     free()
 
     # 7. the serving kernels against their plain versions, on the card
@@ -905,9 +1257,37 @@ def main() -> None:
         serve_row("paged_attention", "src/repro/kernels/paged_attention.py:48"),
         serve_row("paged_prefill", "src/repro/kernels/paged_prefill.py:59"),
     ]
+    for fmt, line, fmt_counts in (("bf16", 100, wire_counts["bf16"]),
+                                  ("int8", 118, wire_counts["int8"])):
+        rec = ef_main[fmt]
+        kernels.append({
+            "name": f"edm_update_ef_{fmt}", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/edm_update_ef.cu",
+            "replaces": f"src/repro/kernels/edm_update.py:{line}",
+            "launches": fmt_counts["edm_update_ef"],
+            "max_abs_err": max(r["max_abs_err"]
+                               for r in [rec, *ef_small[fmt]]),
+            "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+            "library_ms": None,
+            "bit_equal": all(r["bit_equal"] for r in [rec, *ef_small[fmt]]),
+            "shape": rec["shape"], "bytes": rec["bytes"],
+            "gb_per_s": rec["gb_per_s"]})
+    kernels.append({
+        "name": "gossip_axpy_q8", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/gossip_axpy_q8.cu",
+        "replaces": "src/repro/kernels/edm_update.py:239",
+        "launches": wire_counts["int8"]["gossip_axpy_q8"],
+        "max_abs_err": max(r["max_abs_err"] for r in [q8_main, *q8_small]),
+        "ms": q8_main["ms"], "plain_ms": q8_main["plain_ms"],
+        "bound_ms": q8_main["bound_ms"], "bound_by": q8_main["bound_by"],
+        "library_ms": None,
+        "bit_equal": all(r["bit_equal"] for r in [q8_main, *q8_small]),
+        "shape": q8_main["shape"], "bytes": q8_main["bytes"],
+        "gb_per_s": q8_main["gb_per_s"]})
     print(f"[done] {time.time() - t_start:.1f} s")
-    print(json.dumps({"kernels": kernels}))
     print(smi)
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_kind,
         "count": torch.cuda.device_count()}}))

@@ -13,21 +13,38 @@ every agent on one device (tests assert they agree):
   kernel (``use_fused_kernel=True``) or the plain weighted sum.  Spreading
   agents over more than one device is multi-GPU gossip, not ported yet.
 
+Every engine takes one gossip *round* (a :class:`Topology`); a
+time-varying :class:`~repro_torch.core.schedule.GossipSchedule` gets one
+engine closure per round through :func:`make_schedule_mixer`, dispatched
+by the step in Python.
+
+With a wire codec (``wire=``, :class:`repro_torch.core.wire.WireCodec`)
+the mixer takes the codec's *encoded* payload and returns the decoded f32
+mix.  The ppermute engine rolls every payload component with the same
+plan (the int8 data bus and its ``(A, n_tiles)`` scales together) and
+folds the decode into the combine: the fused ``gossip_axpy_wire`` kernel
+computes ``(w·scale)·q``, the plain path ``Σ w·decode(p)`` = ``w·(q·scale)``
+as the JAX engine's, and the two round differently.  Dense and shifts
+decode first and mix in f32.  Masked (elastic) rounds and the overlap
+mode are not ported yet (ROADMAP.md).
+
 Roll semantics are ``x_new[i] = x[(i − shift) % n]``
 (:meth:`Topology.term_sources`), which ``torch.roll(x, shift, 0)`` gives.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, List, Optional
 
 import torch
 
 from repro_torch.kernels import ops as kops
 
+from .schedule import GossipSchedule, StaticSchedule
 from .topology import ShiftTerm, Topology
+from .wire import WireCodec
 
-__all__ = ["mix_dense", "mix_shifts", "mix_ppermute", "make_mixer",
-           "build_mixer"]
+__all__ = ["mix_dense", "mix_shifts", "mix_ppermute", "wire_terms",
+           "make_mixer", "make_schedule_mixer", "build_mixer"]
 
 _LOW_PRECISION = (torch.bfloat16, torch.float16)
 
@@ -78,10 +95,28 @@ def _local_term(topo: Topology, x: torch.Tensor, t: ShiftTerm) -> torch.Tensor:
     return torch.roll(g, t.shift, 1).reshape(x.shape)
 
 
-def mix_ppermute(topo: Topology, x: torch.Tensor, *,
-                 agents_per_device: int,
-                 use_fused_kernel: bool = False) -> torch.Tensor:
-    """The ``ppermute`` engine with every agent on one device."""
+def _no_f32(wire: Optional[WireCodec]) -> Optional[WireCodec]:
+    """An f32 codec is no codec: the uncompressed wire."""
+    return None if wire is None or wire.fmt == "f32" else wire
+
+
+def wire_terms(topo: Topology, payload, wire: Optional[WireCodec] = None
+               ) -> List:
+    """The one-device ppermute engine's post-roll payloads, one per term:
+    every component of a wire payload rolled with the same plan."""
+    wire = _no_f32(wire)
+    if wire is None:
+        return [_local_term(topo, payload, t) for t in topo.terms]
+    return [wire.map_payload(lambda l, t=t: _local_term(topo, l, t),
+                             payload) for t in topo.terms]
+
+
+def mix_ppermute(topo: Topology, x, *, agents_per_device: int,
+                 use_fused_kernel: bool = False,
+                 wire: Optional[WireCodec] = None) -> torch.Tensor:
+    """The ``ppermute`` engine with every agent on one device.  With a
+    non-f32 ``wire``, ``x`` is the codec's payload and the result is the
+    decoded f32 mix."""
     A = topo.n_agents
     if agents_per_device < 1 or A % agents_per_device:
         raise ValueError(f"agent count {A} must be a multiple of "
@@ -93,9 +128,15 @@ def mix_ppermute(topo: Topology, x: torch.Tensor, *,
             f"{agents_per_device} < {A} agents) is multi-GPU gossip, which "
             "the port does not have yet (ROADMAP.md); pass "
             f"agents_per_device={A} to keep every agent on one device")
-    payloads = [_local_term(topo, x, t) for t in topo.terms]
+    wire = _no_f32(wire)
+    payloads = wire_terms(topo, x, wire)
     weights = [float(t.weight) for t in topo.terms]
-    if use_fused_kernel:
+    if wire is not None:
+        if use_fused_kernel:
+            return kops.gossip_axpy_wire(payloads, weights, fmt=wire.fmt,
+                                         block_rows=wire.block_rows)
+        payloads = [wire.decode(p) for p in payloads]
+    elif use_fused_kernel:
         return kops.gossip_axpy(payloads, weights)
     acc = None
     for w, p in zip(weights, payloads):
@@ -104,39 +145,80 @@ def mix_ppermute(topo: Topology, x: torch.Tensor, *,
     return acc
 
 
+def _check_round(topo) -> None:
+    if not isinstance(topo, Topology):
+        raise NotImplementedError(
+            f"gossip round {type(topo).__name__} is not a Topology: masked "
+            "(elastic) rounds are not ported yet (ROADMAP.md)")
+
+
 def make_mixer(topo: Topology, engine: str = "shifts", *,
-               agents_per_device: int = 1,
-               use_fused_kernel: bool = False) -> Callable:
+               agents_per_device: int = 1, use_fused_kernel: bool = False,
+               wire: Optional[WireCodec] = None) -> Callable:
     """Return ``mix(x) -> x``.  engine ∈ {"dense", "shifts", "ppermute"};
     ``agents_per_device`` and ``use_fused_kernel`` are read by the
-    ppermute engine only, as in the JAX package."""
-    if engine == "dense":
-        return lambda x: mix_dense(topo, x)
-    if engine == "shifts":
-        return lambda x: mix_shifts(topo, x)
+    ppermute engine only, as in the JAX package.  With a non-f32 ``wire``
+    the mixer takes the codec's payload and returns the f32 mix; dense
+    and shifts decode first."""
+    _check_round(topo)
+    wire = _no_f32(wire)
+    if engine in ("dense", "shifts"):
+        base = mix_dense if engine == "dense" else mix_shifts
+        if wire is None:
+            return lambda x: base(topo, x)
+        return lambda payload: base(topo, wire.decode(payload))
     if engine == "ppermute":
         return lambda x: mix_ppermute(topo, x,
                                       agents_per_device=agents_per_device,
-                                      use_fused_kernel=use_fused_kernel)
+                                      use_fused_kernel=use_fused_kernel,
+                                      wire=wire)
     raise ValueError(f"unknown mixing engine: {engine}")
 
 
-def build_mixer(topo: Topology, *, mode: str = "schedule",
-                engine: str = "shifts", agents_per_device: int = 1,
-                use_fused_kernel: bool = False) -> Callable:
-    """Mixer for a static topology: ``mode="static"`` returns ``mix(x)``,
-    ``mode="schedule"`` the step-indexed ``mix(x, step=0)`` the trainer
-    calls (one round, so the step is ignored).  Time-varying schedules and
-    the overlap mode are not ported yet (ROADMAP.md)."""
-    if not isinstance(topo, Topology):
-        raise NotImplementedError(
-            f"gossip schedules other than a static topology are not ported "
-            f"yet (got {type(topo).__name__}; see ROADMAP.md)")
-    mix = make_mixer(topo, engine, agents_per_device=agents_per_device,
-                     use_fused_kernel=use_fused_kernel)
+def make_schedule_mixer(sched: GossipSchedule, engine: str = "shifts", *,
+                        agents_per_device: int = 1,
+                        use_fused_kernel: bool = False,
+                        wire: Optional[WireCodec] = None) -> Callable:
+    """Step-indexed mixer over a schedule: ``mix(x, step=0)`` applies
+    round ``sched.round_index(step)`` through the chosen engine.  Every
+    round has its own engine closure; the step is a Python int, so the
+    round is picked in Python."""
+    mixers = [make_mixer(r, engine, agents_per_device=agents_per_device,
+                         use_fused_kernel=use_fused_kernel, wire=wire)
+              for r in sched.rounds]
+    if len(mixers) == 1:
+        return lambda x, step=0: mixers[0](x)
+    return lambda x, step=0: mixers[int(sched.round_index(int(step)))](x)
+
+
+def build_mixer(sched, *, mode: str = "schedule", engine: str = "shifts",
+                agents_per_device: int = 1, use_fused_kernel: bool = False,
+                wire: Optional[WireCodec] = None) -> Callable:
+    """Single mixer entry point.  ``mode="static"`` takes a
+    :class:`Topology` (or a period-1 schedule) and returns ``mix(x)``;
+    ``mode="schedule"`` takes a
+    :class:`~repro_torch.core.schedule.GossipSchedule` (a bare topology
+    is wrapped static) and returns ``mix(x, step=0)``.  The overlap mode
+    is not ported yet (ROADMAP.md)."""
+    if mode == "overlap":
+        raise NotImplementedError("mixer mode 'overlap' (the overlapped "
+                                  "gossip pipeline) is not ported yet "
+                                  "(ROADMAP.md)")
+    kw = dict(agents_per_device=agents_per_device,
+              use_fused_kernel=use_fused_kernel, wire=wire)
     if mode == "static":
-        return mix
+        topo = sched
+        if isinstance(sched, GossipSchedule):
+            if sched.period != 1:
+                raise ValueError(f"mode='static' needs a topology or a "
+                                 f"period-1 schedule, got period "
+                                 f"{sched.period}")
+            topo = sched.rounds[0]
+        return make_mixer(topo, engine, **kw)
     if mode == "schedule":
-        return lambda x, step=0: mix(x)
-    raise NotImplementedError(f"mixer mode {mode!r} is not ported yet "
-                              "(ROADMAP.md); use 'static' or 'schedule'")
+        if not isinstance(sched, GossipSchedule):
+            _check_round(sched)
+            sched = StaticSchedule(sched)
+        return make_schedule_mixer(sched, engine, **kw)
+    raise ValueError(f"unknown mixer mode: {mode!r} (expected 'static', "
+                     "'schedule' or 'overlap')")

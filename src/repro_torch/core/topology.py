@@ -19,7 +19,21 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 __all__ = ["ShiftTerm", "Topology", "ring", "exp_graph", "torus2d",
-           "fully_connected", "hierarchical", "disconnected"]
+           "fully_connected", "hierarchical", "disconnected", "matrix_lam"]
+
+
+def matrix_lam(W: np.ndarray) -> float:
+    """Second largest eigenvalue *modulus* of a stochastic matrix.
+
+    Unlike :meth:`Topology.lam` this does not assume symmetry: it is the λ
+    of the period products of time-varying schedules
+    (``GossipSchedule.period_product``), which are asymmetric whenever a
+    round is (the one-peer exp rounds are ½I + ½R).
+    """
+    if W.shape[0] <= 1:
+        return 0.0
+    ev = np.sort(np.abs(np.linalg.eigvals(W)))
+    return float(ev[-2])
 
 
 @dataclasses.dataclass(frozen=True)

@@ -14,10 +14,12 @@ import torch
 
 from . import build
 
-__all__ = ["DTYPE_CODE", "MAX_HEAD_DIM", "check", "check_head",
-           "launcher", "raise_on", "stream"]
+__all__ = ["DTYPE_CODE", "FLOAT_DTYPES", "MAX_HEAD_DIM", "check",
+           "check_head", "launcher", "raise_on", "stream"]
 
-DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# dtype codes of the C launchers; int8 is the quantized gossip wire's
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+FLOAT_DTYPES = (torch.float32, torch.bfloat16)
 MAX_HEAD_DIM = 256      # the attention kernels' shared-memory tiles
 
 
@@ -55,8 +57,8 @@ def check(t: torch.Tensor, name: str, like: torch.Tensor,
 def check_head(q: torch.Tensor, hd: int) -> None:
     """Raise unless the attention kernels take ``q``'s dtype and head dim
     ``hd`` (a multiple of 8 up to :data:`MAX_HEAD_DIM`)."""
-    if q.dtype not in DTYPE_CODE:
-        raise ValueError(f"dtype {q.dtype} not in {tuple(DTYPE_CODE)}")
+    if q.dtype not in FLOAT_DTYPES:
+        raise ValueError(f"dtype {q.dtype} not in {FLOAT_DTYPES}")
     if hd % 8 or not 0 < hd <= MAX_HEAD_DIM:
         raise ValueError(f"head dim {hd} must be a multiple of 8 in "
                          f"[8, {MAX_HEAD_DIM}]")

@@ -1,15 +1,20 @@
-"""CUDA kernels of the EDM step: the fused update and the n-ary combine.
+"""CUDA kernels of the EDM step: the fused updates and the n-ary combines.
 
-Two wrappers around the hand-written ``sm_90a`` kernels in ``csrc/``:
+Four wrappers around the hand-written ``sm_90a`` kernels in ``csrc/``,
+each the counterpart of the Pallas kernel of the same name in
+``repro/kernels/edm_update.py``:
 
-* :func:`edm_update_flat` — ``csrc/edm_update.cu``, the counterpart of the
-  Pallas kernel ``repro/kernels/edm_update.py::edm_update_flat``: the whole
-  EDM chain in one pass, 4 reads and 3 writes per element;
-* :func:`gossip_axpy_flat` — ``csrc/gossip_axpy.cu``, the counterpart of
-  ``repro/kernels/edm_update.py::gossip_axpy_flat``: ``Σₖ wₖ·operandₖ`` with
-  f32 accumulation and runtime weights.
+* :func:`edm_update_flat` — ``csrc/edm_update.cu``: the whole EDM chain in
+  one pass, 4 reads and 3 writes per element;
+* :func:`edm_update_ef_flat` — ``csrc/edm_update_ef.cu``: the EDM chain
+  plus the error-feedback quantization of ``c = φ + e`` to the bf16 or
+  int8 gossip wire (one scale per ``(block_rows, 128)`` tile);
+* :func:`gossip_axpy_flat` — ``csrc/gossip_axpy.cu``: ``Σₖ wₖ·operandₖ``
+  with f32 accumulation and runtime weights;
+* :func:`gossip_axpy_q8_flat` — ``csrc/gossip_axpy_q8.cu``: the int8
+  wire's dequantize-and-combine ``Σₖ coef[k, tile]·qₖ``.
 
-Both take CUDA tensors only, check device, dtype, shape, contiguity and
+All take CUDA tensors only, check device, dtype, shape, contiguity and
 alignment before passing raw pointers, launch on PyTorch's current stream
 and raise on a non-zero CUDA status.  Each counts its launches in a plain
 integer attribute (``edm_update_flat.launches``), incremented where the
@@ -25,10 +30,11 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from ._ffi import DTYPE_CODE, check, launcher, raise_on, stream
+from ._ffi import (DTYPE_CODE, FLOAT_DTYPES, check, launcher, raise_on,
+                   stream)
 
 __all__ = ["BLOCK_ROWS", "LANE", "MAX_OPERANDS", "edm_update_flat",
-           "gossip_axpy_flat"]
+           "edm_update_ef_flat", "gossip_axpy_flat", "gossip_axpy_q8_flat"]
 
 
 def _env_block_rows() -> int:
@@ -101,14 +107,14 @@ def gossip_axpy_flat(operands: Sequence[torch.Tensor],
         raise ValueError(f"gossip_axpy_flat takes 1..{MAX_OPERANDS} operands "
                          f"with one weight each, got {n} and {len(weights)}")
     first = operands[0]
-    dtypes = tuple(DTYPE_CODE)
     for k, o in enumerate(operands):
         check(o, f"operand {k}", first, dtypes=(first.dtype,))
-    if first.dtype not in dtypes:
-        raise ValueError(f"operand dtype {first.dtype} not in {dtypes}")
+    out_dtype = out_dtype or first.dtype
+    for what, dt in (("operand", first.dtype), ("output", out_dtype)):
+        if dt not in FLOAT_DTYPES:
+            raise ValueError(f"{what} dtype {dt} not in {FLOAT_DTYPES}")
     if first.numel() % 4:
         raise ValueError("operands need a multiple of 4 elements")
-    out_dtype = out_dtype or first.dtype
     if out is None:
         out = torch.empty(first.shape, dtype=out_dtype, device=first.device)
     check(out, "out", first, dtypes=(out_dtype,))
@@ -127,3 +133,112 @@ def gossip_axpy_flat(operands: Sequence[torch.Tensor],
 
 
 gossip_axpy_flat.launches = 0
+
+
+def _check_tiles(t: torch.Tensor, block_rows: int, what: str) -> int:
+    """Number of whole ``(block_rows, 128)`` tiles in ``(rows, 128)``
+    ``t``; raises if the rows do not split into whole tiles."""
+    if t.dim() != 2 or t.shape[1] != LANE:
+        raise ValueError(f"{what} takes (rows, {LANE}), got "
+                         f"{tuple(t.shape)}")
+    if block_rows <= 0 or block_rows % 8 or t.shape[0] % block_rows:
+        raise ValueError(f"{what}: rows {t.shape[0]} must be a multiple of "
+                         f"block_rows={block_rows} (a positive multiple "
+                         "of 8)")
+    return t.shape[0] // block_rows
+
+
+def edm_update_ef_flat(x, g, m, psi, e, *, alpha: float, beta: float,
+                       fmt: str, block_rows: int = BLOCK_ROWS,
+                       out: Optional[Sequence[torch.Tensor]] = None
+                       ) -> Tuple[torch.Tensor, ...]:
+    """Fused EDM update with error-feedback quantization on the card.
+
+    Inputs: ``(rows, 128)`` f32 CUDA tensors, contiguous, rows a multiple
+    of ``block_rows``.  Returns ``(m', ψ', q, e')`` for ``fmt="bf16"``
+    (``q`` bf16) and ``(m', ψ', q, scale, e')`` for ``fmt="int8"`` (``q``
+    int8, ``scale`` f32 ``(rows // block_rows,)``, one per tile), written
+    into the entries of ``out`` (same order) that are not None; ``m_out``
+    may be ``m``, ``psi_out`` ``psi`` and ``e_out`` ``e`` (in place).
+    Bit-equal to :func:`repro_torch.kernels.ref.edm_update_ef_ref`."""
+    if fmt not in ("bf16", "int8"):
+        raise ValueError(f"edm_update_ef_flat takes fmt bf16 or int8, got "
+                         f"{fmt!r} (f32 has no quantize: edm_update_flat)")
+    n_tiles = _check_tiles(x, block_rows, "edm_update_ef_flat")
+    for name, t in (("g", g), ("m", m), ("psi", psi), ("e", e), ("x", x)):
+        check(t, name, x)
+    qdt = torch.bfloat16 if fmt == "bf16" else torch.int8
+    shapes = [(x.shape, torch.float32), (x.shape, torch.float32),
+              (x.shape, qdt)]
+    if fmt == "int8":
+        shapes.append(((n_tiles,), torch.float32))
+    shapes.append((x.shape, torch.float32))
+    names = ("m_out", "psi_out", "q_out") + (
+        ("scale_out",) if fmt == "int8" else ()) + ("e_out",)
+    out = tuple(out) if out is not None else (None,) * len(shapes)
+    if len(out) != len(shapes):
+        raise ValueError(f"out has {len(out)} entries, {fmt} has "
+                         f"{len(shapes)} outputs")
+    out = tuple(torch.empty(shape, dtype=dt, device=x.device) if o is None
+                else o for o, (shape, dt) in zip(out, shapes))
+    for name, t, (shape, dt) in zip(names, out, shapes):
+        check(t, name, x, dtypes=(dt,), shape=shape)
+    m_out, psi_out, q_out, e_out = out[0], out[1], out[2], out[-1]
+    scale_ptr = out[3].data_ptr() if fmt == "int8" else None
+    fn = launcher("edm_update_ef", [ctypes.c_void_p] * 10
+                  + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
+                  + [ctypes.c_float] * 3 + [ctypes.c_void_p])
+    with torch.cuda.device(x.device):
+        err = fn(
+            x.data_ptr(), g.data_ptr(), m.data_ptr(), psi.data_ptr(),
+            e.data_ptr(), m_out.data_ptr(), psi_out.data_ptr(),
+            q_out.data_ptr(), scale_ptr, e_out.data_ptr(), x.numel(),
+            DTYPE_CODE[qdt], block_rows, alpha, beta, 1.0 - beta, stream(x))
+    raise_on(err, "edm_update_ef")
+    edm_update_ef_flat.launches += 1
+    return out
+
+
+edm_update_ef_flat.launches = 0
+
+
+def gossip_axpy_q8_flat(operands: Sequence[torch.Tensor],
+                        coefs: torch.Tensor, *,
+                        block_rows: int = BLOCK_ROWS,
+                        out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Fused int8 dequantize-and-combine ``Σₖ coef[k, tile]·qₖ`` on the
+    card.
+
+    ``operands``: 1 to 16 int8 CUDA tensors ``(rows, 128)``, contiguous,
+    rows a multiple of ``block_rows``; ``coefs``: an f32 CUDA tensor
+    ``(n, rows // block_rows)`` of per-operand, per-tile ``weight ×
+    scale`` — device data, so every weight and scale set reuses one build.
+    Returns the f32 combine.  Bit-equal to
+    :func:`repro_torch.kernels.ref.gossip_axpy_q8_ref`."""
+    operands = tuple(operands)
+    n = len(operands)
+    if not 1 <= n <= MAX_OPERANDS:
+        raise ValueError(f"gossip_axpy_q8_flat takes 1..{MAX_OPERANDS} "
+                         f"operands, got {n}")
+    first = operands[0]
+    n_tiles = _check_tiles(first, block_rows, "gossip_axpy_q8_flat")
+    for k, o in enumerate(operands):
+        check(o, f"operand {k}", first, dtypes=(torch.int8,))
+    check(coefs, "coefs", first, shape=(n, n_tiles))
+    if out is None:
+        out = torch.empty(first.shape, dtype=torch.float32,
+                          device=first.device)
+    check(out, "out", first, shape=first.shape)
+    ptrs = (ctypes.c_void_p * n)(*(o.data_ptr() for o in operands))
+    fn = launcher("gossip_axpy_q8", [
+        ctypes.POINTER(ctypes.c_void_p), ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p])
+    with torch.cuda.device(first.device):
+        err = fn(ptrs, n, coefs.data_ptr(), block_rows, out.data_ptr(),
+                 first.numel(), stream(first))
+    raise_on(err, "gossip_axpy_q8")
+    gossip_axpy_q8_flat.launches += 1
+    return out
+
+
+gossip_axpy_q8_flat.launches = 0

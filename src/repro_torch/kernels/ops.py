@@ -14,14 +14,15 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 
 from . import ref
-from .edm_update import (BLOCK_ROWS, LANE, edm_update_flat,
-                         gossip_axpy_flat)
+from .edm_update import (BLOCK_ROWS, LANE, edm_update_ef_flat,
+                         edm_update_flat, gossip_axpy_flat,
+                         gossip_axpy_q8_flat)
 from .paged_attention import paged_attention_flat
 from .paged_prefill import paged_prefill_flat
 
-__all__ = ["edm_update_bus", "gossip_axpy", "paged_attention",
-           "paged_prefill_attention", "padded_size", "launch_counts",
-           "reset_launch_counts"]
+__all__ = ["edm_update_bus", "edm_update_bus_ef", "gossip_axpy",
+           "gossip_axpy_wire", "paged_attention", "paged_prefill_attention",
+           "padded_size", "launch_counts", "reset_launch_counts"]
 
 
 def _on_card(t: torch.Tensor) -> bool:
@@ -30,6 +31,13 @@ def _on_card(t: torch.Tensor) -> bool:
     if t.device.type == "cpu":
         return False
     raise ValueError(f"unsupported device {t.device}: expected cuda or cpu")
+
+
+def _bus_flat(b: torch.Tensor, what: str) -> torch.Tensor:
+    """``(A, rows, 128)`` bus → its ``(A·rows, 128)`` view."""
+    if not b.is_contiguous():
+        raise ValueError(f"{what} takes contiguous buses")
+    return b.view(-1, LANE)
 
 
 def padded_size(n: int, block_rows: Optional[int] = None) -> int:
@@ -46,22 +54,61 @@ def edm_update_bus(x, g, m, psi, *, alpha: float, beta: float,
     launch on the card.  Returns ``(m', ψ', φ)`` in bus layout, written
     into the entries of ``out`` that are not None (``out[0]`` may be
     ``m``, ``out[1]`` ``psi``)."""
-    A, rows, lane = x.shape
+    _, _, lane = x.shape
     if lane != LANE:
         raise ValueError(f"bus lane width must be {LANE}, got {x.shape}")
     if not _on_card(x):
         return ref.edm_update_ref(x, g, m, psi, alpha=alpha, beta=beta,
                                   out=out)
+
     def flat(b):
-        if b is None:
-            return None
-        if not b.is_contiguous():
-            raise ValueError("edm_update_bus takes contiguous buses")
-        return b.view(A * rows, LANE)
+        return None if b is None else _bus_flat(b, "edm_update_bus")
 
     outs = edm_update_flat(flat(x), flat(g), flat(m), flat(psi), alpha=alpha,
                            beta=beta, out=[flat(o) for o in out or ()])
     return tuple(o.view(x.shape) for o in outs)
+
+
+def edm_update_bus_ef(x, g, m, psi, e, *, alpha: float, beta: float,
+                      fmt: str, block_rows: Optional[int] = None,
+                      out: Optional[Sequence[torch.Tensor]] = None):
+    """Fused EDM update with error-feedback quantization over the whole
+    ``(A, rows, 128)`` bus: ONE kernel launch on the card.
+
+    Returns ``(m', ψ', payload, e')`` where ``payload`` is the wire codec's
+    (:class:`repro_torch.core.wire.WireCodec`): a bf16 bus for
+    ``fmt="bf16"``, ``(int8 bus, (A, rows // block_rows) f32 scales)``
+    for ``fmt="int8"``.  ``out = (m_out, psi_out, e_out)`` receives m', ψ'
+    and e' where an entry is not None (each may alias its input).  f32 has
+    no quantize to fuse: it raises, as the JAX wrapper has no f32 case."""
+    if fmt not in ("bf16", "int8"):
+        raise ValueError(f"edm_update_bus_ef takes fmt bf16 or int8, got "
+                         f"{fmt!r}; the f32 wire is edm_update_bus")
+    block_rows = block_rows or BLOCK_ROWS
+    A, rows, lane = x.shape
+    if lane != LANE or rows % block_rows:
+        raise ValueError(f"bus {tuple(x.shape)} is not (A, rows, {LANE}) "
+                         f"with rows a multiple of block_rows={block_rows}")
+    m_out, psi_out, e_out = out or (None,) * 3
+    if not _on_card(x):
+        outs = ref.edm_update_ef_ref(
+            x, g, m, psi, e, alpha=alpha, beta=beta, fmt=fmt,
+            block_rows=block_rows,
+            out=(m_out, psi_out, None) + ((None,) if fmt == "int8" else ())
+            + (e_out,))
+    else:
+        def flat(b):
+            return None if b is None else _bus_flat(b, "edm_update_bus_ef")
+
+        outs = edm_update_ef_flat(
+            flat(x), flat(g), flat(m), flat(psi), flat(e), alpha=alpha,
+            beta=beta, fmt=fmt, block_rows=block_rows,
+            out=(flat(m_out), flat(psi_out), None)
+            + ((None,) if fmt == "int8" else ()) + (flat(e_out),))
+    m2, psi2, q = (o.view(x.shape) for o in outs[:3])
+    payload = (q, outs[3].view(A, rows // block_rows)) if fmt == "int8" \
+        else q
+    return m2, psi2, payload, outs[-1].view(x.shape)
 
 
 def gossip_axpy(operands: Sequence[torch.Tensor], weights: Sequence[float],
@@ -73,6 +120,31 @@ def gossip_axpy(operands: Sequence[torch.Tensor], weights: Sequence[float],
     if not _on_card(operands[0]):
         return ref.gossip_axpy_ref(operands, weights, out_dtype=out_dtype)
     return gossip_axpy_flat(operands, weights, out_dtype=out_dtype)
+
+
+def gossip_axpy_wire(payloads: Sequence, weights: Sequence[float], *,
+                     fmt: str, block_rows: Optional[int] = None
+                     ) -> torch.Tensor:
+    """Fused decode-and-combine ``Σₖ wₖ · decode(payloadₖ)`` of wire-coded
+    gossip payloads, f32 out, one kernel launch on the card.
+
+    ``payloads``: post-permute payloads of one format — f32 or bf16 buses
+    (the combine kernel, f32 out: the decode is its widening), or
+    ``(q, scale)`` int8 pairs, whose weight × per-tile scale products
+    become the q8 kernel's ``(n, n_tiles)`` coefficients."""
+    payloads = tuple(payloads)
+    if fmt in ("f32", "bf16"):
+        return gossip_axpy(payloads, weights, out_dtype=torch.float32)
+    if fmt != "int8":
+        raise ValueError(f"unknown wire format {fmt!r}")
+    block_rows = block_rows or BLOCK_ROWS
+    qs, scales = zip(*payloads)
+    coefs = ref.wire_coefs(weights, scales)
+    if not _on_card(qs[0]):
+        return ref.gossip_axpy_q8_ref(qs, coefs, block_rows=block_rows)
+    out = gossip_axpy_q8_flat([_bus_flat(q, "gossip_axpy_wire")
+                               for q in qs], coefs, block_rows=block_rows)
+    return out.view(qs[0].shape)
 
 
 def paged_attention(q, k_pool, v_pool, page_table, kv_len, *,
@@ -116,6 +188,8 @@ def paged_prefill_attention(q, k_chunk, v_chunk, k_pool, v_pool, pt_row,
 
 
 _COUNTED = {"edm_update": edm_update_flat, "gossip_axpy": gossip_axpy_flat,
+            "edm_update_ef": edm_update_ef_flat,
+            "gossip_axpy_q8": gossip_axpy_q8_flat,
             "paged_attention": paged_attention_flat,
             "paged_prefill": paged_prefill_flat}
 

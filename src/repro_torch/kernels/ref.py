@@ -1,7 +1,8 @@
 """Plain PyTorch versions of the port's CUDA kernels.
 
-The EDM update and the combine repeat their kernel's arithmetic operation
-for operation, so on the card the two agree bit for bit.  The paged
+The EDM updates (plain and with the error-feedback wire) and the combines
+repeat their kernel's arithmetic operation for operation, so on the card
+the two agree bit for bit.  The paged
 attention versions are the op sequences of ``repro/kernels/ref.py``
 (gather the pages, then a full softmax), which the kernels' online
 softmax matches to a stated tolerance.  The CPU tests hold these against
@@ -17,8 +18,10 @@ import torch
 from repro_torch.models.attention import (_gather_pages, paged_prefill_sdpa,
                                           sdpa_ref)
 
-__all__ = ["edm_update_ref", "gossip_axpy_ref", "gather_pages",
-           "paged_attention_ref", "paged_prefill_attention_ref"]
+__all__ = ["edm_update_ref", "edm_update_ef_ref", "gossip_axpy_ref",
+           "gossip_axpy_q8_ref", "wire_coefs", "finite_absmax",
+           "int8_scale_inv", "gather_pages", "paged_attention_ref",
+           "paged_prefill_attention_ref"]
 
 
 def edm_update_ref(x, g, m, psi, *, alpha: float, beta: float,
@@ -51,6 +54,104 @@ def gossip_axpy_ref(operands: Sequence[torch.Tensor],
     for w, o in zip(weights[1:], operands[1:]):
         acc = acc + float(w) * o.float()
     return acc.to(out_dtype or operands[0].dtype)
+
+
+def int8_scale_inv(absmax: torch.Tensor):
+    """``(scale, inv)`` of blocks with finite absmax ``absmax``:
+    ``absmax / 127`` and ``127 / max(absmax, 1e-30)`` where ``absmax > 0``,
+    else 0 — the reference's guards, shared by the codec and the fused
+    kernel's plain version.  Both divide tensor by tensor: on CUDA,
+    PyTorch turns a division by a Python scalar into a product with its
+    reciprocal, which rounds differently from the kernel's division."""
+    c127 = torch.full_like(absmax, 127.0)
+    scale = absmax / c127
+    inv = torch.where(absmax > 0.0, c127 / absmax.clamp(min=1e-30),
+                      torch.zeros_like(absmax))
+    return scale, inv
+
+
+def finite_absmax(blocks: torch.Tensor) -> torch.Tensor:
+    """Max |x| over the last axis, non-finite values counted as 0."""
+    mag = blocks.abs()
+    mag.masked_fill_(~torch.isfinite(blocks), 0.0)
+    return mag.amax(-1)
+
+
+
+
+def edm_update_ef_ref(x, g, m, psi, e, *, alpha: float, beta: float,
+                      fmt: str, block_rows: int,
+                      out: Optional[Sequence[torch.Tensor]] = None):
+    """EDM chain plus error-feedback quantization of ``c = φ + e``, as the
+    Pallas kernels ``_edm_ef_bf16_kernel`` / ``_edm_ef_int8_kernel`` do.
+
+    Inputs: f32 tensors of one shape ``(..., 128)``; for int8 the scale
+    tiles are ``block_rows`` consecutive rows of the flattened row axis.
+    Returns ``(m', ψ', q, e')`` for ``fmt="bf16"`` (``q`` bf16) and
+    ``(m', ψ', q, scale, e')`` for ``fmt="int8"`` (``q`` int8, ``scale``
+    f32 of shape ``(n_tiles,)``), written into ``out`` (same order) where
+    an entry is not None; ``m_out``, ``psi_out`` and ``e_out`` may alias
+    ``m``, ``psi`` and ``e``.
+
+    int8, per tile: ``absmax`` over finite ``|c|``; ``scale =
+    absmax / 127``; ``inv = 127 / max(absmax, 1e-30)`` if ``absmax > 0``
+    else 0; ``q = clip(round_half_even(c · inv), ±127)``, 0 where ``c`` is
+    NaN; ``e' = c − q · scale`` with that f32 ``q``.  The int8 store maps a
+    still-NaN ``q`` (±Inf in a tile whose finite values are all 0) to 0,
+    and ``e'`` is NaN there — the Pallas kernel's values, not the codec's
+    (:func:`repro_torch.core.wire.encode_ef` gives ``e' = ±Inf``)."""
+    if fmt not in ("bf16", "int8"):
+        raise ValueError(f"edm_update_ef_ref takes fmt bf16 or int8, got "
+                         f"{fmt!r} (f32 has no quantize: edm_update_ref)")
+    out = tuple(out) if out is not None else (None,) * (4 if fmt == "bf16"
+                                                         else 5)
+    m_new, psi_new, c = edm_update_ref(x, g, m, psi, alpha=alpha, beta=beta,
+                                       out=(out[0], out[1], None))
+    c.add_(e)                                  # e is read before e_out is written
+    if fmt == "bf16":
+        q = c.to(torch.bfloat16)
+        e_new = c.sub_(q.float())
+        vals = (m_new, psi_new, q, e_new)
+    else:
+        blocks = c.view(-1, block_rows * c.shape[-1])
+        scale, inv = int8_scale_inv(finite_absmax(blocks))
+        qf = blocks * inv[:, None]
+        qf.round_().clamp_(-127.0, 127.0)
+        qf.masked_fill_(torch.isnan(blocks), 0.0)
+        e_new = c.sub_((qf * scale[:, None]).view(c.shape))
+        q = qf.masked_fill_(torch.isnan(qf), 0.0).to(torch.int8).view(c.shape)
+        vals = (m_new, psi_new, q, scale, e_new)
+    return tuple(val if dst is None or dst is val else dst.copy_(val)
+                 for dst, val in zip(out, vals))
+
+
+def wire_coefs(weights: Sequence[float],
+               scales: Sequence[torch.Tensor]) -> torch.Tensor:
+    """``(n, n_tiles)`` f32 products ``wₖ · scaleₖ[tile]`` of the int8
+    combine: each operand's scales flattened in tile order (agent-major,
+    since rows is a multiple of block_rows per agent)."""
+    s = torch.stack([t.reshape(-1) for t in scales])
+    w = torch.tensor([float(v) for v in weights], dtype=torch.float32,
+                     device=s.device)
+    return w[:, None] * s
+
+
+def gossip_axpy_q8_ref(operands: Sequence[torch.Tensor], coefs: torch.Tensor,
+                       *, block_rows: int) -> torch.Tensor:
+    """Dequantize-and-combine ``Σₖ coef[k, tile] · f32(qₖ)`` of int8
+    operands of one shape ``(..., 128)``: f32 accumulation in term order,
+    starting from ``coef[0]·q₀``; tile = ``block_rows`` consecutive rows
+    of the flattened row axis."""
+    first = operands[0]
+    width = block_rows * first.shape[-1]
+
+    def term(k):
+        return (coefs[k][:, None] * operands[k].reshape(-1, width).float())
+
+    acc = term(0)
+    for k in range(1, len(operands)):
+        acc = acc + term(k)
+    return acc.view(first.shape)
 
 
 # the dense view of a paged pool, shared with the model's plain path

@@ -8,9 +8,14 @@ the plain PyTorch path and must be asked for):
       --steps 5 --agents 4 --agents-per-device 4 --gossip-engine ppermute \
       --fused-kernel --seq 128
 
-Flags of levers the port does not run yet (``--agents pod``, ``--ckpt``,
-``--resume``, ``--churn``, overlap, wire, groups, schedules) are accepted
-by the parser and rejected with a pointer to ROADMAP.md.
+``--wire {bf16,int8}`` runs the error-feedback compressed gossip wire
+and ``--gossip-schedule {round_robin,alt_hier}`` (with
+``--gossip-period`` / ``--gossip-seed``) the time-varying schedules; the
+header line prints the schedule, its period-product λ, the wire format
+and the modeled wire bytes of one gossip round.  Flags of levers the port
+does not run yet (``--agents pod``, ``--ckpt``, ``--resume``,
+``--churn``, overlap, groups) are accepted by the parser and rejected
+with a pointer to ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -22,12 +27,14 @@ import torch
 
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.configs.base import RunConfig
+from repro_torch.core.schedule import wire_bytes_per_step
+from repro_torch.core.wire import make_codec
 from repro_torch.data import SyntheticLM
 from repro_torch.device import resolve_device
 from repro_torch.launch.flags import add_run_flags, run_config_overrides
 from repro_torch.models import build_model
-from repro_torch.train import (build_train_step, init_state, make_topology,
-                               resolve_features)
+from repro_torch.train import (build_train_step, bus_layout_for, init_state,
+                               make_gossip_schedule, resolve_features)
 
 __all__ = ["parser", "main"]
 
@@ -62,9 +69,10 @@ def parser() -> argparse.ArgumentParser:
 
 def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
     """Parse ``argv``, train, print one line per logged step, and return
-    ``{"state", "metrics", "step_seconds", "run"}`` — the final
-    train state, per-step metrics as floats and per-step wall times (each
-    step ends in a device synchronisation)."""
+    ``{"state", "metrics", "step_seconds", "run", "wire_bytes"}`` — the
+    final train state, per-step metrics as floats, per-step wall times
+    (each step ends in a device synchronisation) and the modeled wire
+    bytes of one gossip round ``[as configured, one agent per device]``."""
     args = parser().parse_args(argv)
     for flag, val in (("--agents pod", args.agents == "pod"),
                       ("--shards", args.shards), ("--ckpt", args.ckpt),
@@ -80,18 +88,31 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
                     seq_len=args.seq, agents="data", remat=False,
                     **run_config_overrides(args))
     feats = resolve_features(run)
-    topo = make_topology(run, n_agents, pods=args.pods)
+    sched = make_gossip_schedule(run, n_agents, pods=args.pods)
+    layout = bus_layout_for(model, n_agents)
+    codec = make_codec(feats.wire, layout.block_rows)
+    # modeled bytes of one gossip round as configured (0 with every agent
+    # on one device) and with one agent per device, as across GPUs
+    wire_bytes = [wire_bytes_per_step(
+        sched, 0, elems_per_agent=layout.padded_elems, agents_per_device=b,
+        engine=args.gossip_engine, codec=codec)
+        for b in (args.agents_per_device, 1)]
+    # --topology only feeds the static schedule; don't print it otherwise
+    topo_str = (f"topo={args.topology} " if args.gossip_schedule == "static"
+                else "")
     print(f"arch={cfg.name} ({cfg.n_params()/1e6:.1f}M params) "
-          f"agents={n_agents} topo={args.topology} λ={topo.lam():.4f} "
+          f"agents={n_agents} {topo_str}schedule={sched.name} "
+          f"period={sched.period} λ_prod={sched.product_lam():.4f} "
           f"alg={args.algorithm} engine={args.gossip_engine}"
           f"{' +fused' if args.fused_kernel else ''}"
-          f"{' +bus' if feats.packed_bus else ''} device={device}",
-          flush=True)
+          f"{' +bus' if feats.packed_bus else ''} wire={feats.wire} "
+          f"wire_bytes/step={wire_bytes[0]} (one agent per device: "
+          f"{wire_bytes[1]}) device={device}", flush=True)
 
     data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=args.seq,
                        n_agents=n_agents, phi=args.phi)
     state = init_state(model, run, n_agents, seed=0, device=device)
-    step = build_train_step(model, run, topo,
+    step = build_train_step(model, run, sched,
                             use_fused_kernel=args.fused_kernel,
                             device=device)
     gen = torch.Generator(device=device).manual_seed(1)
@@ -109,7 +130,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
                   f"consensus={m['consensus']:.2e} "
                   f"({time.time()-t0:.1f}s)", flush=True)
     return {"state": state, "metrics": history, "step_seconds": seconds,
-            "run": run}
+            "run": run, "wire_bytes": wire_bytes}
 
 
 if __name__ == "__main__":

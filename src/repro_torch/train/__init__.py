@@ -1,8 +1,9 @@
 """Trainer of the port (packed-bus EDM)."""
 from .trainer import (Features, build_train_step, bus_layout_for,
                       gossip_round_step, init_state, losses_and_grads,
-                      make_topology, resolve_features)
+                      make_gossip_schedule, make_topology,
+                      resolve_features)
 
 __all__ = ["Features", "build_train_step", "bus_layout_for",
            "gossip_round_step", "init_state", "losses_and_grads",
-           "make_topology", "resolve_features"]
+           "make_gossip_schedule", "make_topology", "resolve_features"]

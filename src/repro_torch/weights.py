@@ -11,6 +11,10 @@ under the JAX tree's ``|``-joined paths and with its dtypes:
   state, bare ``<path>`` for a saved parameter tree), read with
   ``np.load`` only.
 
+:func:`train_state_from_arrays` carries a whole packed-bus train state
+``{params, opt: {m, psi[, e]}, step}`` of numpy arrays (e.g.
+``jax.tree.map(np.asarray, state)``) into the port's train state.
+
 bf16 leaves arrive as 2-byte numpy values (ml_dtypes ``bfloat16`` in
 memory, ``|V2`` from an npz); their bits are reinterpreted as
 ``torch.bfloat16``, so the values carry over exactly.
@@ -25,7 +29,8 @@ import torch
 
 from repro_torch.core import bus as parambus
 
-__all__ = ["params_from_tree", "params_from_npz", "params_to_bus"]
+__all__ = ["params_from_tree", "params_from_npz", "params_to_bus",
+           "train_state_from_arrays"]
 
 _SEP = "|"
 
@@ -80,3 +85,14 @@ def params_to_bus(layout: parambus.BusLayout,
     for a in range(n_agents):
         parambus.pack_agent(layout, bus, a, params)
     return bus
+
+
+def train_state_from_arrays(state: Mapping[str, Any],
+                            device="cpu") -> Dict[str, Any]:
+    """A packed-bus train state of numpy arrays — ``{"params": x bus,
+    "opt": {"m", "psi"[, "e"]}, "step"}`` as the JAX package's
+    ``init_state`` / train step hold it — as the port's train state: f32
+    bus tensors on ``device`` (each its own buffer) and an int step."""
+    return {"params": _tensor(state["params"], device),
+            "opt": {k: _tensor(v, device) for k, v in state["opt"].items()},
+            "step": int(np.asarray(state["step"]))}

@@ -1,8 +1,12 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
-Bit-equality for the EDM update and the combine: the kernels round every
-product and sum as the plain versions do (explicitly rounded intrinsics,
-no FMA contraction).  The paged attention kernels use an online softmax
+Bit-equality for the EDM updates (plain and with the bf16 / int8 EF
+wire) and the combines (f32 / bf16 and the int8 dequantize-combine): the
+kernels round every product, sum and quotient as the plain versions do
+(explicitly rounded intrinsics, no FMA contraction); "bit-equal" lets a
+NaN match any NaN.  The EF inputs hold the wire's edge tiles: all zero,
+NaN, ±Inf beside finite values, ±Inf in an all-zero tile, tiny
+magnitudes and exact rounding ties.  The paged attention kernels use an online softmax
 where the plain versions gather and take a full softmax, so they agree to
 a tolerance: f32 at atol 2e-5 (the JAX tests' bound for the Pallas
 kernels); bf16, compared in f32, at atol 2e-5 + 2⁻⁷·|want| (both sides
@@ -102,6 +106,144 @@ def test_cuda_fused_step_bit_equal_to_plain_step(cuda):
     for a, b in zip(*outs):
         assert torch.equal(a, b)
     assert np.isfinite(outs[0][0].cpu().numpy()).all()
+
+
+# ---------------------------------------------------------------------------
+# the EF wire kernels
+# ---------------------------------------------------------------------------
+
+def same_bits(a, b) -> bool:
+    """Equal dtype, shape and bits, except that a NaN matches any NaN."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    ints = torch.int32 if a.element_size() == 4 else torch.int16
+    ia, ib = a.view(ints), b.view(ints)
+    if torch.equal(ia, ib):
+        return True
+    return bool(((ia == ib) | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+def _ef_inputs(A, block_rows, n_tiles, device, seed):
+    """(x, g, m, ψ, e) buses of A agents × n_tiles tiles.  Per agent the
+    first 7 tiles are random, all zero, NaN, ±Inf beside finite values,
+    ±Inf in an all-zero tile, tiny (~1e-30) and exact ties (absmax 127):
+    x, g, m and ψ are zero on tiles 1, 4, 5 and 6 so that c = e there;
+    the rest random."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    shape = (A, n_tiles, block_rows * 128)
+    x, g, m, psi, e = (torch.randn(shape, generator=gen, device=device)
+                       for _ in range(5))
+    for t in (x, g, m, psi):
+        t[:, [1, 4, 5, 6]] = 0.0
+    e[:, 1] = 0.0
+    e[:, 2, ::97] = float("nan")
+    e[:, 3, 5], e[:, 3, 11] = float("inf"), -float("inf")
+    e[:, 4] = 0.0
+    e[:, 4, 7], e[:, 4, 13] = float("inf"), -float("inf")
+    e[:, 5] *= 1e-30
+    e[:, 6] = torch.randint(-127, 127, shape[2:], generator=gen,
+                            device=device).float() + 0.5
+    e[:, 6, 0] = 127.0
+    return [t.reshape(A, n_tiles * block_rows, 128) for t in (x, g, m, psi,
+                                                               e)]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("fmt", ["bf16", "int8"])
+@pytest.mark.parametrize("A,block_rows,n_tiles", [(2, 8, 9), (3, 24, 8),
+                                                  (1, 512, 7)])
+def test_cuda_edm_update_ef_bit_equal_to_plain(cuda, fmt, A, block_rows,
+                                               n_tiles):
+    x, g, m, psi, e = _ef_inputs(A, block_rows, n_tiles, cuda, seed=A)
+    want = ref.edm_update_ef_ref(x, g, m, psi, e, alpha=ALPHA, beta=BETA,
+                                 fmt=fmt, block_rows=block_rows)
+    before = ops.launch_counts()["edm_update_ef"]
+    got = ops.edm_update_bus_ef(x, g, m, psi, e, alpha=ALPHA, beta=BETA,
+                                fmt=fmt, block_rows=block_rows)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["edm_update_ef"] == before + 1
+    flat = [got[0], got[1], *(got[2] if fmt == "int8" else (got[2],)),
+            got[3]]
+    want = [w.reshape(f.shape) for w, f in zip(want, flat)]
+    for w, o in zip(want, flat):
+        assert same_bits(o, w)
+    if fmt == "int8":     # the edge rules, on the card
+        q, scale = got[2]
+        assert bool((scale[:, 1] == 0).all() and (scale[:, 4] == 0).all())
+        assert bool((q.reshape(A, n_tiles, -1)[:, 4] == 0).all())
+    # in place: m', ψ', e' over m, ψ, e
+    m2, p2, e2 = m.clone(), psi.clone(), e.clone()
+    inplace = ops.edm_update_bus_ef(x, g, m2, p2, e2, alpha=ALPHA,
+                                    beta=BETA, fmt=fmt,
+                                    block_rows=block_rows,
+                                    out=(m2, p2, e2))
+    assert inplace[0].data_ptr() == m2.data_ptr()
+    assert inplace[3].data_ptr() == e2.data_ptr()
+    for a, b in ((inplace[0], got[0]), (inplace[1], got[1]),
+                 (inplace[3], got[3])):
+        assert same_bits(a, b)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("n", [1, 2, 3, 5, 16])
+@pytest.mark.parametrize("block_rows", [8, 512])
+def test_cuda_gossip_axpy_q8_bit_equal_to_plain(cuda, n, block_rows):
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    rows = 3 * block_rows
+    qs = [torch.randint(-127, 128, (2, rows, 128), generator=gen,
+                        device=cuda).to(torch.int8) for _ in range(n)]
+    scales = [torch.rand(2, 3, generator=gen, device=cuda)
+              for _ in range(n)]
+    weights = [1.0 / (k + 3) for k in range(n)]
+    before = ops.launch_counts()["gossip_axpy_q8"]
+    got = ops.gossip_axpy_wire(list(zip(qs, scales)), weights, fmt="int8",
+                               block_rows=block_rows)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["gossip_axpy_q8"] == before + 1
+    want = ref.gossip_axpy_q8_ref(qs, ref.wire_coefs(weights, scales),
+                                  block_rows=block_rows)
+    assert got.dtype == torch.float32 and torch.equal(got, want)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("fmt", ["bf16", "int8"])
+def test_cuda_fused_ef_step_bit_equal_to_plain_ef_step(cuda, fmt):
+    """One EF EDM + ring-gossip step on a small bus: the fused kernels
+    against the plain EF chain (the codec) and the combine's plain
+    version on the same rolled payloads."""
+    from repro_torch.core import (build_mixer, make_codec, make_edm_bus_ef,
+                                  ring, wire_terms)
+
+    x, g, m, psi, e = _ef_inputs(4, 8, 8, cuda, seed=9)
+    e = e.nan_to_num(0.0, 0.0, 0.0)          # finite: the codec's path
+    codec = make_codec(fmt, 8)
+    topo = ring(4)
+    weights = [t.weight for t in topo.terms]
+
+    def plain_mix(payload):
+        pays = wire_terms(topo, payload, codec)
+        if fmt == "bf16":
+            return ref.gossip_axpy_ref(pays, weights,
+                                       out_dtype=torch.float32)
+        qs, scales = zip(*pays)
+        return ref.gossip_axpy_q8_ref(qs, ref.wire_coefs(weights, scales),
+                                      block_rows=8)
+
+    fused_mix = build_mixer(topo, mode="static", engine="ppermute",
+                            agents_per_device=4, use_fused_kernel=True,
+                            wire=codec)
+    outs = []
+    for fused, mix in ((True, fused_mix), (False, plain_mix)):
+        opt = make_edm_bus_ef(ALPHA, BETA, mix, codec,
+                              use_fused_kernel=fused)
+        x2, st = opt.step(x, g, {"m": m.clone(), "psi": psi.clone(),
+                                 "e": e.clone()})
+        outs.append((x2, st["m"], st["psi"], st["e"]))
+    for a, b in zip(*outs):
+        assert same_bits(a, b)
+    assert bool(torch.isfinite(outs[0][0]).all())
 
 
 # ---------------------------------------------------------------------------

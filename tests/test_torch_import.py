@@ -38,7 +38,8 @@ def _modules():
 
 def test_every_module_imports_without_jax_or_repro():
     mods = ["repro_torch"] + _modules()
-    for m in ("repro_torch.kernels.edm_update",
+    for m in ("repro_torch.kernels.edm_update", "repro_torch.core.wire",
+              "repro_torch.core.schedule",
               "repro_torch.kernels.paged_attention",
               "repro_torch.kernels.paged_prefill",
               "repro_torch.serve.engine", "repro_torch.serve.paged_cache",
@@ -136,9 +137,9 @@ def test_serve_cli_without_device_raises_without_gpu(no_gpu, flags):
 
 def test_unported_levers_raise():
     model = build_model(get_smoke_config("smollm_360m"))
-    for kw in (dict(overlap="delayed"), dict(wire="int8"),
-               dict(gossip_groups="moe"), dict(gossip_schedule="round_robin"),
-               dict(gossip_engine="shifts")):
+    for kw in (dict(overlap="delayed"), dict(gossip_groups="moe"),
+               dict(gossip_engine="shifts"), dict(gossip_dtype="bfloat16"),
+               dict(warmup_steps=10)):
         run = RunConfig(**{"gossip_engine": "ppermute", **kw})
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_train_step(model, run, ring(4), device="cpu")
