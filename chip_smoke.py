@@ -61,9 +61,37 @@ Phases, in order; any failure raises and the script exits non-zero:
    decode-only dispatch profiled;
 9. exactness: in f32 the kernel engine's greedy tokens equal
    ``greedy_generate``'s; in bf16 the share of tokens on which the kernel
-   and plain engines agree is printed (bf16 logits tie at vocab 49152).
+   and plain engines agree is printed (bf16 logits tie at vocab 49152);
+3f. flash GQA attention: the kernel against its plain version on the JAX
+   package's attention cases, a window as long as the sequence, and a
+   case whose rows q >= 255 see no key (those rows must be 0), in f32
+   (atol 2e-5) and bf16 (2e-5 + 2⁻⁷·|want|); with NaN in every K/V row a
+   causal query cannot see, the output bit-equal to the clean output;
+   timed at smollm_360m's heads, (a) 4 sequences of 2048 causal and (b)
+   one of 8192 with a 2048 window, in bf16 and f32, beside its plain
+   version, its bound (q, k, v and o once at 3.35 TB/s, or 4·hd flops per
+   live (query, key) pair at the dtype's peak) and one
+   ``F.scaled_dot_product_attention`` call (its backend printed; the port
+   never calls it); then the op driven once at (a) and once at (b), with
+   the launch counts reset just before and read just after (2 launches);
+4t. the tree path through the train CLI: ``--no-packed-bus`` at full
+   width, 2 steps of each of edm, ed, edm_ef, dsgd, dmsgd, dsgt, dsgt_hb,
+   decentlam and qg, counts reset before and read after each: L EDM and L
+   combine launches a step for edm (L = 12 parameter leaves), L combine
+   launches for ed, edm_ef, dsgd, dmsgd, decentlam and qg, 2L for dsgt
+   and dsgt_hb; metrics finite, median step and peak memory;
+5t. one more tree edm step under ``torch.profiler``, the device time by
+   kernel and the idle share;
+6t. one tree EDM step with the kernels (per-leaf pack, EDM kernel,
+   unpack; per-leaf rolls and combine kernel) bit-equal to the same step
+   with the plain versions through the same pack, unpack and rolls, and
+   within four bf16 ulps of the operands' scale of the unfused chain;
+10. the paper on the card: §E.1's quadratic problem, 32 agents on a ring,
+   full gradients, 3000 steps of EDM and DmSGD through ``make_optimizer``:
+   EDM's mean ‖xᵢ − x*‖² below 1e-8, DmSGD's above 1e-3.
 
-The third line from the end is the ``nvidia-smi`` name and power limit,
+Phases run in the order 1–3, 3w, 3f, 4–6, 4w–6w, 4t–6t, 7–10.  The third
+line from the end is the ``nvidia-smi`` name and power limit,
 the line before the last ``{"kernels": [...]}`` and the last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
@@ -836,13 +864,14 @@ def profile_dispatches(eng, vocab: int):
     return out
 
 
-TRAIN_KERNELS = ("edm_update", "gossip_axpy", "edm_update_ef",
-                 "gossip_axpy_q8")
+# kernels that no serving dispatch may launch
+NOT_SERVING = ("edm_update", "gossip_axpy", "edm_update_ef",
+               "gossip_axpy_q8", "flash_attention")
 
 
 def check_serve_counts(counts, metrics, n_layers: int, what: str):
-    check(all(counts[k] == 0 for k in TRAIN_KERNELS),
-          f"{what}: a training kernel launched while serving: {counts}")
+    check(all(counts[k] == 0 for k in NOT_SERVING),
+          f"{what}: a non-serving kernel launched while serving: {counts}")
     check(counts["paged_attention"] == n_layers * metrics["steps"] > 0,
           f"{what}: paged_attention launched {counts['paged_attention']} "
           f"times in {metrics['steps']} dispatches of {n_layers} layers")
@@ -940,6 +969,328 @@ def bucket(rows):
     return buckets
 
 
+# ---------------------------------------------------------------------------
+# phase 3f: flash GQA attention against its plain version
+# ---------------------------------------------------------------------------
+
+# (B, H, K, Sq, Sk, hd, causal, window): the JAX package's ATTN_CASES
+# (tests/test_kernels.py), a window as long as the sequence (equal to no
+# window) and a causal case whose rows q >= 255 see no key
+FLASH_CASES = [
+    (1, 4, 4, 256, 256, 64, True, 0),
+    (2, 8, 2, 256, 256, 64, True, 0),
+    (1, 4, 1, 128, 384, 64, False, 0),
+    (1, 2, 2, 512, 512, 128, True, 256),
+    (1, 15, 5, 128, 128, 64, True, 0),
+    (1, 2, 2, 256, 256, 64, True, 4096),
+    (1, 15, 5, 512, 128, 64, True, 128),
+]
+# smollm_360m's heads: (a) a prefill of four sequences at the model's
+# context, (b) DESIGN §2's long-context sliding window
+FLASH_TIMED = {"a": (4, 15, 5, 2048, 2048, 64, True, 0),
+               "b": (1, 15, 5, 8192, 8192, 64, True, 2048)}
+
+
+def flash_inputs(case, dtype, gen):
+    import torch
+    B, H, K, Sq, Sk, hd, _, _ = case
+    return [torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            for shape in ((B, H, Sq, hd), (B, K, Sk, hd), (B, K, Sk, hd))]
+
+
+def live_keys(Sq, Sk, causal, window):
+    """Live keys of each query row (numpy int64, length Sq)."""
+    import numpy as np
+    q = np.arange(Sq)
+    hi = np.minimum(q, Sk - 1) if causal else np.full(Sq, Sk - 1)
+    lo = np.maximum(q - window + 1, 0) if window else np.zeros(Sq, int)
+    return np.maximum(hi - lo + 1, 0)
+
+
+def check_flash(case, dtype, gen):
+    import torch
+    from repro_torch.kernels import ops, ref
+    q, k, v = flash_inputs(case, dtype, gen)
+    _, _, _, Sq, Sk, _, causal, window = case
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    err, ratio = serve_err(got, want, dtype, f"flash_attention {case}")
+    dead = torch.from_numpy(live_keys(Sq, Sk, causal, window) == 0).cuda()
+    check(torch.count_nonzero(got[:, :, dead]) == 0,
+          f"flash_attention {case} {dtype}: a row with no live key is "
+          "not 0")
+    return {"case": list(case), "dtype": str(dtype)[6:],
+            "max_abs_err": err, "err_over_tol": ratio,
+            "dead_rows": int(dead.sum())}
+
+
+def check_flash_poison(dtype, gen):
+    """Causal, Sk > Sq: keys at positions >= Sq are live for no query; NaN
+    there must leave the output bit-equal to the clean output."""
+    import torch
+    from repro_torch.kernels import ops
+    q, k, v = flash_inputs((2, 15, 5, 256, 512, 64, True, 0), dtype, gen)
+    clean = ops.flash_attention(q, k, v, causal=True)
+    k[:, :, 256:] = float("nan")
+    v[:, :, 256:] = float("nan")
+    poisoned = ops.flash_attention(q, k, v, causal=True)
+    equal = same_bits(clean, poisoned) and bool(
+        torch.isfinite(poisoned).all())
+    check(equal, f"flash_attention {dtype}: NaN in dead keys changed the "
+                 "output")
+    return {"dtype": str(dtype)[6:], "poisoned_bit_equal": equal}
+
+
+def sdpa_timed(q, k, v, causal, window):
+    """One ``F.scaled_dot_product_attention`` call of the same function
+    (GQA through ``enable_gqa``; the window as an explicit boolean mask):
+    (ms, backend) of the first backend that takes it."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    Sq, Sk = q.shape[2], k.shape[2]
+    kw = dict(enable_gqa=True)
+    if window:
+        qp = torch.arange(Sq, device="cuda")[:, None]
+        kp = torch.arange(Sk, device="cuda")[None, :]
+        kw["attn_mask"] = (kp > qp - window) & ((kp <= qp) if causal
+                                                 else True)
+    else:
+        kw["is_causal"] = causal
+    for backend in (SDPBackend.CUDNN_ATTENTION, SDPBackend.FLASH_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel([backend]):
+                fn = lambda: F.scaled_dot_product_attention(q, k, v, **kw)  # noqa: E731
+                fn()
+                torch.cuda.synchronize()
+                return time_ms(fn, reps=10), backend.name
+        except RuntimeError:
+            continue
+    raise RuntimeError("no SDPA backend ran")
+
+
+def time_flash(name, dtype, gen):
+    import torch
+    from repro_torch.kernels import ops, ref
+    case = FLASH_TIMED[name]
+    B, H, K, Sq, Sk, hd, causal, window = case
+    q, k, v = flash_inputs(case, dtype, gen)
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    rec = {"case": name, "shape": list(case), "dtype": str(dtype)[6:]}
+    rec["ms"] = time_ms(lambda: ops.flash_attention(
+        q, k, v, causal=causal, window=window), reps=10)
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    rec["max_abs_err"], rec["err_over_tol"] = serve_err(
+        got, want, dtype, f"flash_attention timed {name}")
+    del got, want
+    free()
+    rec["plain_ms"] = time_ms(lambda: ref.flash_attention_ref(
+        q, k, v, causal=causal, window=window), reps=5)
+    free()
+    rec["library_ms"], rec["library_backend"] = sdpa_timed(q, k, v, causal,
+                                                          window)
+    pairs = int(live_keys(Sq, Sk, causal, window).sum())
+    rec["bytes"] = (2 * B * H * Sq + 2 * B * K * Sk) * hd * q.element_size()
+    rec["flops"] = 4 * hd * pairs * B * H
+    rec["bound_ms"], rec["bound_by"] = bound_ms(rec["bytes"], rec["flops"],
+                                                peak_flops(dtype))
+    rec["tflops"] = rec["flops"] / rec["ms"] / 1e9
+    del q, k, v
+    free()
+    return rec
+
+
+def flash_phase():
+    """Phase 3f: every case in f32 and bf16, the poisoned check, the
+    timed shapes, then the op driven once at (a) and (b) with the counts
+    reset just before and read just after."""
+    import torch
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    recs, poison, timed = [], [], {}
+    for dtype in (torch.float32, torch.bfloat16):
+        recs += [check_flash(c, dtype, gen) for c in FLASH_CASES]
+        poison.append(check_flash_poison(dtype, gen))
+        for name in FLASH_TIMED:
+            timed[(name, str(dtype)[6:])] = time_flash(name, dtype, gen)
+    inputs = {n: flash_inputs(c, torch.bfloat16, gen)
+              for n, c in FLASH_TIMED.items()}
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    for name, (q, k, v) in inputs.items():
+        _, _, _, _, _, _, causal, window = FLASH_TIMED[name]
+        out = ops.flash_attention(q, k, v, causal=causal, window=window)
+        check(bool(torch.isfinite(out).all()), f"flash {name}: non-finite")
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    want = {k: 0 for k in counts}
+    want["flash_attention"] = len(inputs)
+    check(counts == want, f"the flash op launched {counts}, expected "
+                          f"{want}")
+    del inputs
+    free()
+    return recs, poison, timed, counts
+
+
+# ---------------------------------------------------------------------------
+# phases 4t and 6t: the tree-resident train path
+# ---------------------------------------------------------------------------
+
+# edm last: its final state feeds phase 6t and is held through no other run
+TREE_ALGS = ("ed", "edm_ef", "dsgd", "dmsgd", "dsgt", "dsgt_hb",
+             "decentlam", "qg", "edm")
+TREE_STEPS = 2
+
+
+def tree_expected(alg: str, n_leaves: int, steps: int):
+    """Exact launches of a tree run: L EDM launches a step for edm only
+    (the JAX trainer passes ``use_fused_kernel`` to edm alone), L combine
+    launches a step, 2L for the gradient-tracking methods (mix(y) and the
+    step's own mix)."""
+    mixes = 2 if alg in ("dsgt", "dsgt_hb") else 1
+    return {"edm_update": n_leaves * steps if alg == "edm" else 0,
+            "gossip_axpy": mixes * n_leaves * steps}
+
+
+def tree_main(cli, n_leaves: int):
+    """Phase 4t: every algorithm through the CLI on the tree path; returns
+    the records and the edm run's final state and run config (for 5t and
+    6t)."""
+    import torch
+    from repro_torch.kernels import ops
+    recs, edm_state, edm_run = {}, None, None
+    for alg in TREE_ALGS:
+        args = MAIN_ARGS + ["--no-packed-bus", "--algorithm", alg]
+        args[args.index("--steps") + 1] = str(TREE_STEPS)
+        free()
+        ops.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        result = cli.main(args)
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        want = {k: 0 for k in counts}
+        want.update(tree_expected(alg, n_leaves, TREE_STEPS))
+        check(counts == want, f"tree {alg}: launched {counts}, expected "
+                              f"{want}")
+        for t, m in enumerate(result["metrics"]):
+            check(all(math.isfinite(v) for v in m.values()),
+                  f"tree {alg}: non-finite metrics at step {t}: {m}")
+        state = result["state"]
+        check(state["step"] == TREE_STEPS and all(
+            bool(torch.isfinite(v).all()) for v in state["params"].values()),
+            f"tree {alg}: state at step {state['step']} or non-finite x")
+        recs[alg] = {"launches": counts, "peak_gib": peak / 2**30,
+                     "median_step_ms": statistics.median(
+                         result["step_seconds"]) * 1e3,
+                     "step_ms": [s * 1e3 for s in result["step_seconds"]],
+                     "metrics": result["metrics"],
+                     "opt_slots": sorted(state["opt"])}
+        if alg == "edm":
+            edm_state, edm_run = state, result["run"]
+        del result, state
+    free()
+    return recs, edm_state, edm_run
+
+
+def tree_fused_vs_plain(model, state, tokens):
+    """Phase 6t: one tree EDM + ring-gossip step with the kernels against
+    the plain versions through the same per-leaf pack, unpack and rolls
+    (bit-equal), and against the unfused chain (within 2⁻⁵·s, four bf16
+    ulps of the operands' scale s: s_m = β|m| + (1−β)|g|, s_ψ = |x| + α s_m,
+    s_x = W(s_ψ + |x| + |ψ|), since the chain rounds after every
+    operation and the fused path once from f32)."""
+    import torch
+    from repro_torch.core import (make_mixer, make_optimizer, mix_shifts,
+                                  ring, wire_terms)
+    from repro_torch.kernels import ops, ref
+    from repro_torch.train import tree_losses_and_grads
+
+    x, m, psi = state["params"], state["opt"]["m"], state["opt"]["psi"]
+    _, g = tree_losses_and_grads(model, x, tokens)
+    topo = ring(AGENTS)
+    weights = [t.weight for t in topo.terms]
+
+    def step(fused):
+        mix = make_mixer(topo, "ppermute", agents_per_device=AGENTS,
+                         use_fused_kernel=fused)
+        opt = make_optimizer("edm", alpha=ALPHA, beta=BETA, mix=mix,
+                             use_fused_kernel=fused)
+        x2, st = opt.step(x, g, {"m": m, "psi": psi})
+        return {p: [x2[p].cpu(), st["m"][p].cpu(), st["psi"][p].cpu()]
+                for p in x}
+
+    with torch.no_grad():
+        fused = step(True)                 # host copies
+        free()
+        equal, err_plain = True, 0.0
+        for p in x:
+            packed = [ops.pack_leaf(t) for t in (x[p], g[p], m[p], psi[p])]
+            m_p, psi_p, phi_p = ref.edm_update_ref(
+                *packed, alpha=ALPHA, beta=BETA,
+                out=(packed[2], packed[3], None))
+            shape, dt = x[p].shape, x[p].dtype
+            phi = ops.unpack_leaf(phi_p, shape, dt)
+            plain = [ref.gossip_axpy_ref(wire_terms(topo, phi), weights),
+                     ops.unpack_leaf(m_p, shape, m[p].dtype),
+                     ops.unpack_leaf(psi_p, shape, psi[p].dtype)]
+            eq, e = compare([f.cuda() for f in fused[p]], plain)
+            equal, err_plain = equal and eq, max(err_plain, e)
+            del packed, m_p, psi_p, phi_p, phi, plain
+        free()
+        chain = step(False)
+        ratio = 0.0
+        for p in x:
+            xf, mf, pf = (t.cuda().float() for t in fused[p])
+            xc, mc, pc = (t.cuda().float() for t in chain[p])
+            s_m = BETA * m[p].float().abs() + (1 - BETA) * g[p].float().abs()
+            s_psi = x[p].float().abs() + ALPHA * s_m
+            s_x = mix_shifts(topo, s_psi + x[p].float().abs()
+                             + psi[p].float().abs())
+            for f, c, sc in ((mf, mc, s_m), (pf, pc, s_psi), (xf, xc, s_x)):
+                r = float(((f - c).abs() / (2.0 ** -5 * sc + 1e-30)).max())
+                ratio = max(ratio, r)
+            del xf, mf, pf, xc, mc, pc, s_m, s_psi, s_x
+        del fused, chain, g
+    free()
+    check(equal, f"tree fused step differs from its plain twin: max abs "
+                 f"err {err_plain}")
+    check(ratio <= 1.0, f"tree fused step vs the unfused chain: "
+                        f"{ratio:.3f} × the tolerance")
+    return {"bit_equal_plain": equal, "max_abs_err_plain": err_plain,
+            "chain_err_over_tol": ratio,
+            "leaves": len(x), "dtype": str(next(iter(x.values())).dtype)}
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the paper on the card
+# ---------------------------------------------------------------------------
+
+def paper_phase():
+    """§E.1's quadratic problem (32 agents, ring, σ = 0, c = 1): EDM
+    reaches the optimum, DmSGD stalls at the heterogeneity floor."""
+    from repro_torch.core import make_mixer, make_optimizer, ring
+    from repro_torch.data import quadratic_problem
+    import torch
+    n, steps = 32, 3000
+    _, full, x_opt, zeta2 = quadratic_problem(n, c=1.0, sigma=0.0, seed=0,
+                                              device="cuda")
+    out = {"zeta2": zeta2, "steps": steps}
+    for alg in ("edm", "dmsgd"):
+        opt = make_optimizer(alg, alpha=0.05, beta=0.9,
+                             mix=make_mixer(ring(n)))
+        x = torch.zeros(n, x_opt.shape[0], device="cuda")
+        state = opt.init(x)
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            x, state = opt.step(x, full(x), state)
+        out[alg] = float(((x - x_opt[None]) ** 2).sum(-1).mean())
+        out[f"{alg}_s"] = time.perf_counter() - t0
+    check(out["edm"] < 1e-8, f"EDM did not reach the optimum: {out}")
+    check(out["dmsgd"] > 1e-3, f"DmSGD did not stall: {out}")
+    return out
+
+
 def main() -> None:
     t_start = time.time()
     import torch
@@ -1013,6 +1364,16 @@ def main() -> None:
     for rec in [q8_main, *q8_small]:
         print(f"[wire-kernels] gossip_axpy_q8 {rec}", flush=True)
 
+    # 3f. flash GQA attention against its plain version, timed, driven
+    free()
+    flash_recs, flash_poison, flash_timed, flash_counts = flash_phase()
+    for rec in flash_recs + flash_poison:
+        print(f"[flash] {rec}", flush=True)
+    for rec in flash_timed.values():
+        print(f"[flash-timed] {rec}", flush=True)
+    print(f"[flash] the op at (a) and (b): launches {flash_counts}",
+          flush=True)
+
     # 4. the main path, through the CLI's entry point
     free()
     ops.reset_launch_counts()
@@ -1034,7 +1395,8 @@ def main() -> None:
           flush=True)
     check(counts == {"edm_update": STEPS, "gossip_axpy": STEPS,
                      "edm_update_ef": 0, "gossip_axpy_q8": 0,
-                     "paged_attention": 0, "paged_prefill": 0},
+                     "flash_attention": 0, "paged_attention": 0,
+                     "paged_prefill": 0},
           f"training launched {counts}, expected {STEPS} of each f32 "
           "training kernel, no wire kernel and no serving kernel")
     state = result["state"]
@@ -1133,7 +1495,33 @@ def main() -> None:
                 print(f"[wire-fused-vs-plain] {rec}", flush=True)
         del state
         free()
-    del model, layout
+    # 4t. the tree path through the CLI, every algorithm; 6t. fused tree
+    # step == its plain twin, and close to the unfused chain
+    n_leaves = len(model.meta())
+    tree_recs, edm_state, edm_run = tree_main(cli, n_leaves)
+    for alg, rec in tree_recs.items():
+        print(f"[tree-main] {alg}: launches {rec['launches']}; median step "
+              f"{rec['median_step_ms']:.1f} ms (steps {rec['step_ms']}); "
+              f"peak memory {rec['peak_gib']:.2f} GiB; opt {rec['opt_slots']}"
+              f"; metrics {rec['metrics']}", flush=True)
+    # 5t. one profiled tree edm step
+    edm_state, tprof = profile_step(model, edm_run, edm_state,
+                                    data.sample(dgen, 1))
+    tree_ms = tree_recs["edm"]["median_step_ms"]
+    print(f"[tree-profile] one tree edm step: device busy "
+          f"{tprof['device_busy_ms']:.3f} ms in {tprof['kernel_launches']} "
+          f"kernel launches; against the unprofiled median step of "
+          f"{tree_ms:.1f} ms the device is idle "
+          f"{1 - tprof['device_busy_ms'] / tree_ms:.1%} of the step",
+          flush=True)
+    for name, ms in tprof["buckets"].items():
+        print(f"[tree-profile]   {ms:9.3f} ms  {name}")
+    for ms, count, key in tprof["top"]:
+        print(f"[tree-profile]   top {ms:9.3f} ms  x{count:<5d} {key[:80]}")
+    tree_twin = tree_fused_vs_plain(model, edm_state,
+                                    data.sample(dgen, 1)["tokens"])
+    print(f"[tree-fused-vs-plain] {tree_twin}", flush=True)
+    del edm_state, model, layout
     free()
 
     # 7. the serving kernels against their plain versions, on the card
@@ -1214,6 +1602,13 @@ def main() -> None:
     del smodel, sparams
     free()
 
+    # 10. the paper on the card
+    paper = paper_phase()
+    print(f"[paper] quadratic §E.1, ring(32), 3000 steps: EDM mean "
+          f"‖x_i − x*‖² = {paper['edm']:.3e} ({paper['edm_s']:.1f} s), DmSGD "
+          f"{paper['dmsgd']:.3e} ({paper['dmsgd_s']:.1f} s); ζ² = "
+          f"{paper['zeta2']:.2f}", flush=True)
+
     def serve_row(name, replaces):
         rec = serve_timed[name]
         errs = [r["max_abs_err"] for r in serve_recs[name]]
@@ -1285,6 +1680,29 @@ def main() -> None:
         "bit_equal": all(r["bit_equal"] for r in [q8_main, *q8_small]),
         "shape": q8_main["shape"], "bytes": q8_main["bytes"],
         "gb_per_s": q8_main["gb_per_s"]})
+    fa, fb = flash_timed[("a", "bfloat16")], flash_timed[("b", "bfloat16")]
+    kernels.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:32",
+        "launches": flash_counts["flash_attention"],
+        "max_abs_err": max(r["max_abs_err"] for r in flash_recs),
+        "ms": fa["ms"], "plain_ms": fa["plain_ms"],
+        "bound_ms": fa["bound_ms"], "bound_by": fa["bound_by"],
+        "library_ms": fa["library_ms"],
+        "library": f"F.scaled_dot_product_attention is_causal, enable_gqa "
+                   f"({fa['library_backend']})",
+        "timed_case": "a: B 4, H 15, K 5, S 2048, hd 64, causal, bf16",
+        "flops": fa["flops"], "bytes": fa["bytes"],
+        "max_err_over_tol": max(r["err_over_tol"] for r in flash_recs),
+        "poisoned_bit_equal": all(r["poisoned_bit_equal"]
+                                  for r in flash_poison),
+        "window_b": {k: fb[k] for k in ("ms", "plain_ms", "bound_ms",
+                                        "bound_by", "library_ms",
+                                        "library_backend", "flops")},
+        "f32": {n: {k: flash_timed[(n, "float32")][k]
+                    for k in ("ms", "plain_ms", "bound_ms", "library_ms",
+                              "library_backend")} for n in FLASH_TIMED}})
     print(f"[done] {time.time() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

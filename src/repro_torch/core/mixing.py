@@ -1,4 +1,5 @@
-"""Mixing engines: apply W to a tensor whose leading axis is the agent axis.
+"""Mixing engines: apply W over the leading agent axis of a tensor or of
+every leaf of a tree (a ``{path: tensor}`` dict), leaf by leaf.
 
 The counterpart of ``repro/core/mixing.py`` for the engines that run with
 every agent on one device (tests assert they agree):
@@ -12,6 +13,11 @@ every agent on one device (tests assert they agree):
   agent axis; the weighted combine is then ONE fused ``gossip_axpy``
   kernel (``use_fused_kernel=True``) or the plain weighted sum.  Spreading
   agents over more than one device is multi-GPU gossip, not ported yet.
+  On a tree the combine is one ``gossip_axpy`` launch per leaf.
+
+:func:`accumulate_f32` wraps a tree op so that sub-f32 leaves go up to
+f32 and come back once on the way out: the dense engine's bf16 path and
+the trainer's ``gossip_dtype`` payload cast.
 
 Every engine takes one gossip *round* (a :class:`Topology`); a
 time-varying :class:`~repro_torch.core.schedule.GossipSchedule` gets one
@@ -33,7 +39,7 @@ Roll semantics are ``x_new[i] = x[(i − shift) % n]``
 """
 from __future__ import annotations
 
-from typing import Callable, List, Optional
+from typing import Callable, List, Mapping, Optional
 
 import torch
 
@@ -44,24 +50,56 @@ from .topology import ShiftTerm, Topology
 from .wire import WireCodec
 
 __all__ = ["mix_dense", "mix_shifts", "mix_ppermute", "wire_terms",
-           "make_mixer", "make_schedule_mixer", "build_mixer"]
+           "make_mixer", "make_schedule_mixer", "build_mixer",
+           "accumulate_f32", "tree_map"]
 
 _LOW_PRECISION = (torch.bfloat16, torch.float16)
 
 
-def mix_dense(topo: Topology, x: torch.Tensor) -> torch.Tensor:
-    """Oracle engine: dense W matmul over the agent axis; sub-f32 inputs
-    accumulate in f32 and round once on the way out."""
+def tree_map(fn: Callable, tree):
+    """``fn`` on every leaf of a ``{path: tensor}`` dict, or on a tensor."""
+    if isinstance(tree, Mapping):
+        return {k: fn(v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def accumulate_f32(fn: Callable) -> Callable:
+    """Wrap a tree → tree op so that sub-f32 leaves go up to f32, ``fn``
+    runs, and each result is cast back to its input leaf's dtype: the
+    precision is lost once, on the way out."""
+
+    def wrapped(tree):
+        up = tree_map(lambda x: x.float() if x.dtype in _LOW_PRECISION
+                      else x, tree)
+        out = fn(up)
+        if isinstance(tree, Mapping):
+            return {k: out[k].to(tree[k].dtype) for k in tree}
+        return out.to(tree.dtype)
+
+    return wrapped
+
+
+def _mix_leaf_dense(topo: Topology, x: torch.Tensor) -> torch.Tensor:
     W = torch.as_tensor(topo.dense_matrix(), dtype=torch.float32,
                         device=x.device)
     flat = x.reshape(x.shape[0], -1)
-    if x.dtype in _LOW_PRECISION:
-        flat = flat.float()
-    return (W.to(flat.dtype) @ flat).reshape(x.shape).to(x.dtype)
+    return (W.to(flat.dtype) @ flat).reshape(x.shape)
 
 
-def mix_shifts(topo: Topology, x: torch.Tensor) -> torch.Tensor:
-    """W as a weighted sum of agent-axis rolls, accumulated in x's dtype."""
+def mix_dense(topo: Topology, x):
+    """Oracle engine: dense W matmul over the agent axis; sub-f32 inputs
+    accumulate in f32 and round once on the way out."""
+    return accumulate_f32(lambda t: tree_map(
+        lambda leaf: _mix_leaf_dense(topo, leaf), t))(x)
+
+
+def mix_shifts(topo: Topology, x):
+    """W as a weighted sum of agent-axis rolls, accumulated in each
+    leaf's dtype."""
+    return tree_map(lambda leaf: _mix_leaf_shifts(topo, leaf), x)
+
+
+def _mix_leaf_shifts(topo: Topology, x: torch.Tensor) -> torch.Tensor:
     A = x.shape[0]
     assert A == topo.n_agents, (A, topo.n_agents)
     P, D = topo.grid_shape()
@@ -113,10 +151,11 @@ def wire_terms(topo: Topology, payload, wire: Optional[WireCodec] = None
 
 def mix_ppermute(topo: Topology, x, *, agents_per_device: int,
                  use_fused_kernel: bool = False,
-                 wire: Optional[WireCodec] = None) -> torch.Tensor:
-    """The ``ppermute`` engine with every agent on one device.  With a
-    non-f32 ``wire``, ``x`` is the codec's payload and the result is the
-    decoded f32 mix."""
+                 wire: Optional[WireCodec] = None):
+    """The ``ppermute`` engine with every agent on one device, on a tensor
+    or leaf by leaf on a tree (one combine per leaf).  With a non-f32
+    ``wire``, ``x`` is the codec's payload of the bus and the result is
+    the decoded f32 mix."""
     A = topo.n_agents
     if agents_per_device < 1 or A % agents_per_device:
         raise ValueError(f"agent count {A} must be a multiple of "
@@ -129,14 +168,21 @@ def mix_ppermute(topo: Topology, x, *, agents_per_device: int,
             "the port does not have yet (ROADMAP.md); pass "
             f"agents_per_device={A} to keep every agent on one device")
     wire = _no_f32(wire)
-    payloads = wire_terms(topo, x, wire)
     weights = [float(t.weight) for t in topo.terms]
-    if wire is not None:
-        if use_fused_kernel:
-            return kops.gossip_axpy_wire(payloads, weights, fmt=wire.fmt,
-                                         block_rows=wire.block_rows)
-        payloads = [wire.decode(p) for p in payloads]
-    elif use_fused_kernel:
+    if wire is None:
+        return tree_map(lambda leaf: _combine(
+            wire_terms(topo, leaf), weights, use_fused_kernel), x)
+    payloads = wire_terms(topo, x, wire)
+    if use_fused_kernel:
+        return kops.gossip_axpy_wire(payloads, weights, fmt=wire.fmt,
+                                     block_rows=wire.block_rows)
+    return _combine([wire.decode(p) for p in payloads], weights, False)
+
+
+def _combine(payloads, weights, use_fused_kernel: bool) -> torch.Tensor:
+    """``Σ w·p``: one ``gossip_axpy`` launch, or the plain weighted sum
+    in the payloads' dtype."""
+    if use_fused_kernel:
         return kops.gossip_axpy(payloads, weights)
     acc = None
     for w, p in zip(weights, payloads):

@@ -1,4 +1,6 @@
 """Data pipelines of the port."""
-from .synthetic import SyntheticLM
+from .synthetic import (SyntheticLM, dirichlet_partition, logistic_problem,
+                        quadratic_problem)
 
-__all__ = ["SyntheticLM"]
+__all__ = ["SyntheticLM", "dirichlet_partition", "quadratic_problem",
+           "logistic_problem"]

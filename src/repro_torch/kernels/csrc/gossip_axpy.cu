@@ -17,6 +17,10 @@
 // per (operand dtype, output dtype) serves every topology and weight set.
 // The operand pointers travel the same way.
 //
+// Any element count: the float4 / 8-byte body covers the first n − n % 4
+// elements and up to three tail elements go one per thread, so a
+// parameter leaf of any shape combines in place of the bus.
+//
 // Rounding: accumulation is f32 in term order k = 0 … n−1, starting from
 // w₀·o₀, with every product and sum an explicitly rounded intrinsic (no
 // FMA contraction), and one rounding to the output dtype on store — the
@@ -76,12 +80,39 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, long long i,
   reinterpret_cast<uint2*>(p)[i] = t;
 }
 
+__device__ __forceinline__ float load1(const float* p, long long i) {
+  return p[i];
+}
+__device__ __forceinline__ float load1(const __nv_bfloat16* p, long long i) {
+  return __bfloat162float(p[i]);
+}
+__device__ __forceinline__ void store1(float* p, long long i, float v) {
+  p[i] = v;
+}
+__device__ __forceinline__ void store1(__nv_bfloat16* p, long long i,
+                                       float v) {
+  p[i] = __float2bfloat16_rn(v);
+}
+
 template <typename In, typename Out>
 __global__ void gossip_axpy_kernel(Operands ops, Weights ws, int n_ops,
-                                   Out* out, long long n4) {
+                                   Out* out, long long n) {
+  const long long n4 = n / 4;
+  const long long first = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long tail = n4 * 4 + first;
+  if (tail < n) {   // the last n % 4 elements, one per thread, same order
+    float acc = __fmul_rn(ws.w[0], load1(static_cast<const In*>(ops.ptr[0]),
+                                         tail));
+#pragma unroll
+    for (int k = 1; k < kMaxOperands; ++k) {   // static indices: no stack
+      if (k < n_ops)
+        acc = __fadd_rn(acc, __fmul_rn(ws.w[k], load1(
+            static_cast<const In*>(ops.ptr[k]), tail)));
+    }
+    store1(out, tail, acc);
+  }
   const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n4;
-       i += stride) {
+  for (long long i = first; i < n4; i += stride) {
     float acc[4], v[4];
     load4(static_cast<const In*>(ops.ptr[0]), i, v);
 #pragma unroll
@@ -101,7 +132,8 @@ __global__ void gossip_axpy_kernel(Operands ops, Weights ws, int n_ops,
 
 template <typename In, typename Out>
 cudaError_t launch(const Operands& ops, const Weights& ws, int n_ops,
-                   void* out, long long n4, cudaStream_t stream) {
+                   void* out, long long n, cudaStream_t stream) {
+  const long long n4 = n / 4 > 0 ? n / 4 : 1;
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -111,7 +143,7 @@ cudaError_t launch(const Operands& ops, const Weights& ws, int n_ops,
   const long long cap = (long long)sms * kBlocksPerSM;
   if (blocks > cap) blocks = cap;
   gossip_axpy_kernel<In, Out><<<(unsigned)blocks, kThreads, 0, stream>>>(
-      ops, ws, n_ops, static_cast<Out*>(out), n4);
+      ops, ws, n_ops, static_cast<Out*>(out), n);
   return cudaGetLastError();
 }
 
@@ -120,15 +152,14 @@ cudaError_t launch(const Operands& ops, const Weights& ws, int n_ops,
 extern "C" int gossip_axpy_max_operands() { return kMaxOperands; }
 
 // operands: n_ops device pointers, all of one dtype; weights: n_ops f32.
-// dtype codes: 0 = float32, 1 = bfloat16.  n: elements per operand, a
-// multiple of 4; every pointer 16-byte aligned (checked by the wrapper).
+// dtype codes: 0 = float32, 1 = bfloat16.  n: elements per operand, any
+// count; every pointer 16-byte aligned (checked by the wrapper).
 extern "C" int gossip_axpy_launch(const void* const* operands,
                                   const float* weights, int n_ops,
                                   int in_dtype, int out_dtype, void* out,
                                   long long n, void* stream) {
   if (n_ops < 1 || n_ops > kMaxOperands) return (int)cudaErrorInvalidValue;
-  const long long n4 = n / 4;
-  if (n4 == 0) return (int)cudaSuccess;
+  if (n <= 0) return (int)cudaSuccess;
   Operands ops = {};
   Weights ws = {};
   for (int k = 0; k < n_ops; ++k) {
@@ -138,13 +169,13 @@ extern "C" int gossip_axpy_launch(const void* const* operands,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (in_dtype == 0 && out_dtype == 0)
-    err = launch<float, float>(ops, ws, n_ops, out, n4, s);
+    err = launch<float, float>(ops, ws, n_ops, out, n, s);
   else if (in_dtype == 1 && out_dtype == 1)
-    err = launch<__nv_bfloat16, __nv_bfloat16>(ops, ws, n_ops, out, n4, s);
+    err = launch<__nv_bfloat16, __nv_bfloat16>(ops, ws, n_ops, out, n, s);
   else if (in_dtype == 1 && out_dtype == 0)
-    err = launch<__nv_bfloat16, float>(ops, ws, n_ops, out, n4, s);
+    err = launch<__nv_bfloat16, float>(ops, ws, n_ops, out, n, s);
   else if (in_dtype == 0 && out_dtype == 1)
-    err = launch<float, __nv_bfloat16>(ops, ws, n_ops, out, n4, s);
+    err = launch<float, __nv_bfloat16>(ops, ws, n_ops, out, n, s);
   else
     err = cudaErrorInvalidValue;
   return (int)err;

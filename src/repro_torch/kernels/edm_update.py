@@ -96,7 +96,8 @@ def gossip_axpy_flat(operands: Sequence[torch.Tensor],
     """Fused n-ary combine ``Σₖ wₖ·operandₖ`` on the card.
 
     ``operands``: 1 to 16 CUDA tensors of one shape and dtype (f32 or
-    bf16), contiguous, with a multiple of 4 elements; ``weights``: one
+    bf16), contiguous, of any element count (a parameter leaf as well as
+    the bus); ``weights``: one
     float each — runtime kernel arguments, so every weight set reuses one
     compiled kernel.  Accumulates in f32 and rounds once to ``out_dtype``
     (default: the operands' dtype).  Bit-equal to
@@ -113,8 +114,6 @@ def gossip_axpy_flat(operands: Sequence[torch.Tensor],
     for what, dt in (("operand", first.dtype), ("output", out_dtype)):
         if dt not in FLOAT_DTYPES:
             raise ValueError(f"{what} dtype {dt} not in {FLOAT_DTYPES}")
-    if first.numel() % 4:
-        raise ValueError("operands need a multiple of 4 elements")
     if out is None:
         out = torch.empty(first.shape, dtype=out_dtype, device=first.device)
     check(out, "out", first, dtypes=(out_dtype,))

@@ -9,7 +9,7 @@ version.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 
@@ -17,12 +17,15 @@ from . import ref
 from .edm_update import (BLOCK_ROWS, LANE, edm_update_ef_flat,
                          edm_update_flat, gossip_axpy_flat,
                          gossip_axpy_q8_flat)
+from .flash_attention import flash_attention_flat
 from .paged_attention import paged_attention_flat
 from .paged_prefill import paged_prefill_flat
 
-__all__ = ["edm_update_bus", "edm_update_bus_ef", "gossip_axpy",
-           "gossip_axpy_wire", "paged_attention", "paged_prefill_attention",
-           "padded_size", "launch_counts", "reset_launch_counts"]
+__all__ = ["edm_update", "edm_update_tree", "edm_update_bus",
+           "edm_update_bus_ef", "gossip_axpy", "gossip_axpy_wire",
+           "flash_attention", "paged_attention", "paged_prefill_attention",
+           "padded_size", "pack_leaf", "unpack_leaf", "launch_counts",
+           "reset_launch_counts"]
 
 
 def _on_card(t: torch.Tensor) -> bool:
@@ -45,6 +48,66 @@ def padded_size(n: int, block_rows: Optional[int] = None) -> int:
     ``(block_rows, 128)`` tiles, as the JAX wrappers pad per leaf."""
     tile = (block_rows or BLOCK_ROWS) * LANE
     return -(-n // tile) * tile
+
+
+def pack_leaf(t: torch.Tensor, block_rows: Optional[int] = None
+              ) -> torch.Tensor:
+    """Any-shape array → a new zero-padded ``(rows, 128)`` f32 buffer of
+    :func:`padded_size` elements, as the JAX wrappers pack a leaf."""
+    n = t.numel()
+    flat = torch.zeros(padded_size(n, block_rows), dtype=torch.float32,
+                       device=t.device)
+    flat[:n] = t.reshape(-1)
+    return flat.view(-1, LANE)
+
+
+def unpack_leaf(packed: torch.Tensor, shape, dtype: torch.dtype
+                ) -> torch.Tensor:
+    """Inverse of :func:`pack_leaf`: the first ``prod(shape)`` elements,
+    reshaped and cast to ``dtype``."""
+    n = 1
+    for d in shape:
+        n *= d
+    return packed.reshape(-1)[:n].view(shape).to(dtype)
+
+
+def edm_update(x, g, m, psi, *, alpha: float, beta: float,
+               block_rows: Optional[int] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Array-level fused EDM update, any shape: each input is packed to
+    a padded ``(rows, 128)`` f32 buffer (:func:`pack_leaf`), updated by ONE
+    kernel launch on the card (the plain chain on the CPU), and unpacked
+    to its own dtype.  Returns ``(m', ψ', φ)`` in the dtypes of m, ψ and
+    x."""
+    xp, gp, mp, pp = (pack_leaf(t, block_rows) for t in (x, g, m, psi))
+    update = edm_update_flat if _on_card(x) else ref.edm_update_ref
+    # m' and ψ' over the packed temporaries: one f32 copy fewer at peak
+    m2, psi2, phi = update(xp, gp, mp, pp, alpha=alpha, beta=beta,
+                           out=(mp, pp, None))
+    del xp, gp
+    return (unpack_leaf(m2, m.shape, m.dtype),
+            unpack_leaf(psi2, psi.shape, psi.dtype),
+            unpack_leaf(phi, x.shape, x.dtype))
+
+
+def edm_update_tree(params: Mapping[str, torch.Tensor],
+                    grads: Mapping[str, torch.Tensor],
+                    m: Mapping[str, torch.Tensor],
+                    psi: Mapping[str, torch.Tensor], *, alpha: float,
+                    beta: float):
+    """Tree-level fused update over ``{path: tensor}`` dicts: one
+    :func:`edm_update` (one kernel launch on the card) per leaf.  Returns
+    ``(m', φ, ψ')`` dicts, the optimizer's order, as the JAX
+    ``edm_update_tree`` does.  A bare tensor is a one-leaf tree."""
+    if not isinstance(params, Mapping):
+        m_new, psi_new, phi = edm_update(params, grads, m, psi, alpha=alpha,
+                                         beta=beta)
+        return m_new, phi, psi_new
+    m_new, phi, psi_new = {}, {}, {}
+    for p in params:
+        m_new[p], psi_new[p], phi[p] = edm_update(
+            params[p], grads[p], m[p], psi[p], alpha=alpha, beta=beta)
+    return m_new, phi, psi_new
 
 
 def edm_update_bus(x, g, m, psi, *, alpha: float, beta: float,
@@ -147,6 +210,27 @@ def gossip_axpy_wire(payloads: Sequence, weights: Sequence[float], *,
     return out.view(qs[0].shape)
 
 
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    blk_q: int = 128, blk_k: int = 128) -> torch.Tensor:
+    """Flash GQA attention in the ``(B, H, S, hd)`` layout: q
+    ``(B, H, Sq, hd)``, k, v ``(B, K, Sk, hd)``.  ``blk_q`` / ``blk_k``
+    keep the JAX op's shape contract (``Sq % blk_q == 0``,
+    ``Sk % blk_k == 0``); they do not choose the CUDA kernel's tiles.
+    One kernel launch on the card; the plain version on the CPU."""
+    B, H, Sq, hd = q.shape
+    K, Sk = k.shape[1], k.shape[2]
+    if K == 0 or H % K:
+        raise ValueError(f"{H} query heads are not a multiple of {K} KV "
+                         "heads")
+    if blk_q <= 0 or blk_k <= 0 or Sq % blk_q or Sk % blk_k:
+        raise ValueError(f"Sq={Sq} and Sk={Sk} must be multiples of "
+                         f"blk_q={blk_q} and blk_k={blk_k}")
+    if not _on_card(q):
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    return flash_attention_flat(q.contiguous(), k.contiguous(),
+                                v.contiguous(), causal=causal, window=window)
+
+
 def paged_attention(q, k_pool, v_pool, page_table, kv_len, *,
                     page_size: int) -> torch.Tensor:
     """Paged decode attention: q (B, K, G, hd) single-token queries grouped
@@ -190,6 +274,7 @@ def paged_prefill_attention(q, k_chunk, v_chunk, k_pool, v_pool, pt_row,
 _COUNTED = {"edm_update": edm_update_flat, "gossip_axpy": gossip_axpy_flat,
             "edm_update_ef": edm_update_ef_flat,
             "gossip_axpy_q8": gossip_axpy_q8_flat,
+            "flash_attention": flash_attention_flat,
             "paged_attention": paged_attention_flat,
             "paged_prefill": paged_prefill_flat}
 

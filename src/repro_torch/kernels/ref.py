@@ -20,8 +20,8 @@ from repro_torch.models.attention import (_gather_pages, paged_prefill_sdpa,
 
 __all__ = ["edm_update_ref", "edm_update_ef_ref", "gossip_axpy_ref",
            "gossip_axpy_q8_ref", "wire_coefs", "finite_absmax",
-           "int8_scale_inv", "gather_pages", "paged_attention_ref",
-           "paged_prefill_attention_ref"]
+           "int8_scale_inv", "flash_attention_ref", "gather_pages",
+           "paged_attention_ref", "paged_prefill_attention_ref"]
 
 
 def edm_update_ref(x, g, m, psi, *, alpha: float, beta: float,
@@ -152,6 +152,38 @@ def gossip_axpy_q8_ref(operands: Sequence[torch.Tensor], coefs: torch.Tensor,
     for k in range(1, len(operands)):
         acc = acc + term(k)
     return acc.view(first.shape)
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True,
+                        window: int = 0) -> torch.Tensor:
+    """Plain flash GQA attention, the Pallas kernel's function.
+    q: (B, H, Sq, hd); k, v: (B, K, Sk, hd); query head h reads KV head
+    ``h // (H/K)``.  Scores ``(q·hd^-0.5)·k`` in f32 on absolute positions
+    from 0 on both axes; key j is live for query i iff (not causal or
+    j <= i) and (``window == 0`` or j > i − window).  A row with no live
+    key outputs 0, as the Pallas kernel's does (the JAX package's
+    ``ref.flash_attention_ref`` returns the mean of v there instead).
+    One rounding to q's dtype."""
+    B, H, Sq, hd = q.shape
+    K, Sk = k.shape[1], k.shape[2]
+    G = H // K
+    kf = k.float().repeat_interleave(G, dim=1)
+    vf = v.float().repeat_interleave(G, dim=1)
+    s = (q.float() * hd ** -0.5) @ kf.transpose(-1, -2)     # (B, H, Sq, Sk)
+    qp = torch.arange(Sq, device=q.device)[:, None]
+    kp = torch.arange(Sk, device=q.device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kp <= qp
+    if window:
+        mask &= kp > qp - window
+    s = s.masked_fill(~mask, float("-inf"))
+    m = s.amax(dim=-1, keepdim=True)
+    live = mask.any(dim=-1, keepdim=True)
+    p = torch.where(live, torch.exp(s - m), 0.0)
+    del s
+    out = (p @ vf) / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    return out.to(q.dtype)
 
 
 # the dense view of a paged pool, shared with the model's plain path

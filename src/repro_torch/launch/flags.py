@@ -2,8 +2,9 @@
 
 A copy of ``repro/launch/flags.py``: the same table of launcher flags, so
 ``python -m repro_torch.launch.train`` takes the reference launcher's
-flags.  Levers the port does not run yet parse as usual and are rejected
-by :func:`repro_torch.train.trainer.resolve_features`.
+flags: ``--algorithm`` any name of ``ALGORITHMS``, ``--no-packed-bus``
+the tree path.  Levers the port does not run yet parse as usual and are
+rejected by :func:`repro_torch.train.trainer.resolve_features`.
 """
 from __future__ import annotations
 

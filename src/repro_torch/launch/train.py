@@ -1,6 +1,6 @@
 """Training launcher of the port: ``python -m repro_torch.launch.train``.
 
-Runs the decentralized EDM trainer with every agent on one GPU, taking the
+Runs the decentralized trainer with every agent on one GPU, taking the
 reference launcher's flags plus ``--device`` (default ``cuda``; ``cpu`` runs
 the plain PyTorch path and must be asked for):
 
@@ -8,14 +8,18 @@ the plain PyTorch path and must be asked for):
       --steps 5 --agents 4 --agents-per-device 4 --gossip-engine ppermute \
       --fused-kernel --seq 128
 
+``--algorithm`` takes every name of ``ALGORITHMS`` (edm, ed, edm_ef,
+dsgd, dmsgd, dsgt, dsgt_hb, decentlam, qg); every algorithm but EDM, and
+EDM with ``--no-packed-bus``, trains on the tree path (one EDM and one
+combine launch per parameter leaf with ``--fused-kernel``).
 ``--wire {bf16,int8}`` runs the error-feedback compressed gossip wire
 and ``--gossip-schedule {round_robin,alt_hier}`` (with
 ``--gossip-period`` / ``--gossip-seed``) the time-varying schedules; the
 header line prints the schedule, its period-product λ, the wire format
-and the modeled wire bytes of one gossip round.  Flags of levers the port
-does not run yet (``--agents pod``, ``--ckpt``, ``--resume``,
-``--churn``, overlap, groups) are accepted by the parser and rejected
-with a pointer to ROADMAP.md.
+and, on the bus, the modeled wire bytes of one gossip round.  Flags of
+levers the port does not run yet (``--agents pod``, ``--ckpt``,
+``--resume``, ``--churn``, overlap, groups) are accepted by the parser
+and rejected with a pointer to ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -72,7 +76,8 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
     ``{"state", "metrics", "step_seconds", "run", "wire_bytes"}`` — the
     final train state, per-step metrics as floats, per-step wall times
     (each step ends in a device synchronisation) and the modeled wire
-    bytes of one gossip round ``[as configured, one agent per device]``."""
+    bytes of one gossip round ``[as configured, one agent per device]``
+    on the bus (None on the tree path)."""
     args = parser().parse_args(argv)
     for flag, val in (("--agents pod", args.agents == "pod"),
                       ("--shards", args.shards), ("--ckpt", args.ckpt),
@@ -89,14 +94,20 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
                     **run_config_overrides(args))
     feats = resolve_features(run)
     sched = make_gossip_schedule(run, n_agents, pods=args.pods)
-    layout = bus_layout_for(model, n_agents)
-    codec = make_codec(feats.wire, layout.block_rows)
-    # modeled bytes of one gossip round as configured (0 with every agent
-    # on one device) and with one agent per device, as across GPUs
-    wire_bytes = [wire_bytes_per_step(
-        sched, 0, elems_per_agent=layout.padded_elems, agents_per_device=b,
-        engine=args.gossip_engine, codec=codec)
-        for b in (args.agents_per_device, 1)]
+    wire_bytes = None
+    if feats.packed_bus:
+        layout = bus_layout_for(model, n_agents)
+        codec = make_codec(feats.wire, layout.block_rows)
+        # modeled bytes of one gossip round as configured (0 with every
+        # agent on one device) and with one agent per device, as across
+        # GPUs
+        wire_bytes = [wire_bytes_per_step(
+            sched, 0, elems_per_agent=layout.padded_elems,
+            agents_per_device=b, engine=args.gossip_engine, codec=codec)
+            for b in (args.agents_per_device, 1)]
+    bytes_str = ("" if wire_bytes is None else
+                 f" wire_bytes/step={wire_bytes[0]} (one agent per device: "
+                 f"{wire_bytes[1]})")
     # --topology only feeds the static schedule; don't print it otherwise
     topo_str = (f"topo={args.topology} " if args.gossip_schedule == "static"
                 else "")
@@ -105,9 +116,8 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
           f"period={sched.period} λ_prod={sched.product_lam():.4f} "
           f"alg={args.algorithm} engine={args.gossip_engine}"
           f"{' +fused' if args.fused_kernel else ''}"
-          f"{' +bus' if feats.packed_bus else ''} wire={feats.wire} "
-          f"wire_bytes/step={wire_bytes[0]} (one agent per device: "
-          f"{wire_bytes[1]}) device={device}", flush=True)
+          f"{' +bus' if feats.packed_bus else ' +tree'} wire={feats.wire}"
+          f"{bytes_str} device={device}", flush=True)
 
     data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=args.seq,
                        n_agents=n_agents, phi=args.phi)

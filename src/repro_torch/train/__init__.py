@@ -1,9 +1,10 @@
-"""Trainer of the port (packed-bus EDM)."""
+"""Trainer of the port (the packed-bus EDM path and the tree path)."""
 from .trainer import (Features, build_train_step, bus_layout_for,
                       gossip_round_step, init_state, losses_and_grads,
                       make_gossip_schedule, make_topology,
-                      resolve_features)
+                      resolve_features, tree_losses_and_grads)
 
 __all__ = ["Features", "build_train_step", "bus_layout_for",
            "gossip_round_step", "init_state", "losses_and_grads",
-           "make_gossip_schedule", "make_topology", "resolve_features"]
+           "make_gossip_schedule", "make_topology", "resolve_features",
+           "tree_losses_and_grads"]

@@ -1,26 +1,35 @@
-"""Decentralized trainer of the port: the packed-bus EDM path of
-``repro/train/trainer.py``.
+"""Decentralized trainer of the port: the counterpart of
+``repro/train/trainer.py`` with every agent on one device.
 
-The train state carries all A agents::
+The train state carries all A agents, in one of two layouts:
 
-    params : (A, rows, 128) f32 bus — x
-    opt    : {"m": bus, "psi": bus}  (+ "e": bus, the wire's EF residual)
-    step   : int
+* the packed bus (EDM only; the default for ``algorithm="edm"`` with the
+  ``ppermute`` engine)::
 
-A step unpacks each agent's parameters from the bus, takes the gradient of
-THAT agent's loss (the JAX step's ``vmap(value_and_grad)``: each agent gets
-the gradient of its own loss, the logged loss is the mean), packs the
-gradients into one f32 bus, runs the EDM update as one fused kernel and the
-gossip as one combine (``use_fused_kernel=True``), and reports the mean
-loss, the consensus distance and the gradient norm.
+      params : (A, rows, 128) f32 bus — x
+      opt    : {"m": bus, "psi": bus}  (+ "e": bus, the wire's EF residual)
+      step   : int
 
-Ported: the packed bus, static topologies and the time-varying schedules
-(``round_robin``, ``alt_hier``), the dense/shifts/one-device ppermute
-engines, ``gossip_every > 1`` and the error-feedback gossip wire
-(``wire`` bf16 / int8: the fused EDM + quantize kernel and the
-dequantize-combine).  The tree-resident path, other algorithms, elastic
-rounds, overlap, policy groups, LR schedules and multi-device gossip are
-listed in ROADMAP.md.
+* the tree (every algorithm of ``ALGORITHMS``; ``packed_bus=False`` or
+  any algorithm but EDM)::
+
+      params : {path: (A, *shape)} in the leaves' dtypes
+      opt    : the algorithm's state trees (m, psi, e, y, g_prev)
+      step   : int
+
+A step takes the gradient of each agent's OWN loss (the JAX step's
+``vmap(value_and_grad)``: the logged loss is the mean), scales it by the
+LR schedule (``warmup_steps`` / ``total_steps``: ``warmup_cosine`` as
+gradient scaling), runs the optimizer and the gossip, and reports the mean
+loss, the consensus distance and the gradient norm.  On the bus the EDM
+update is one fused kernel and the gossip one combine
+(``use_fused_kernel=True``); on the tree, one of each per leaf.
+
+Ported: both layouts, static topologies and the time-varying schedules,
+the dense/shifts/one-device ppermute engines, ``gossip_every > 1``,
+``gossip_dtype`` (a cast gossip payload) and the error-feedback gossip
+wire (bus only).  Elastic rounds, overlap, policy groups and multi-device
+gossip are listed in ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -31,21 +40,24 @@ import torch
 
 from repro_torch.configs.base import RunConfig
 from repro_torch.core import bus as parambus
-from repro_torch.core.metrics import bus_consensus, bus_grad_norm
-from repro_torch.core.mixing import build_mixer
+from repro_torch.core.metrics import (bus_consensus, bus_grad_norm,
+                                      consensus_distance, tree_sqnorm)
+from repro_torch.core.mixing import accumulate_f32, build_mixer, tree_map
 from repro_torch.core.optimizers import (DecOptimizer, make_edm_bus,
-                                         make_edm_bus_ef)
+                                         make_edm_bus_ef, make_optimizer)
 from repro_torch.core.schedule import GossipSchedule, make_schedule
 from repro_torch.core.topology import (Topology, exp_graph, fully_connected,
                                        hierarchical, ring, torus2d)
 from repro_torch.core.wire import WIRE_FORMATS, make_codec
 from repro_torch.device import resolve_device
 from repro_torch.models.api import Model
+from repro_torch.optim import scale_grads, warmup_cosine
 from repro_torch.weights import params_to_bus
 
 __all__ = ["Features", "resolve_features", "make_topology",
-           "make_gossip_schedule", "gossip_round_step", "bus_layout_for", "init_state",
-           "losses_and_grads", "build_train_step"]
+           "make_gossip_schedule", "gossip_round_step", "bus_layout_for",
+           "init_state", "losses_and_grads", "tree_losses_and_grads",
+           "build_train_step"]
 
 TrainState = Dict[str, object]
 
@@ -86,9 +98,10 @@ def gossip_round_step(step: int, gossip_every: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class Features:
-    """What the train step runs (the packed-bus part of the JAX
-    package's feature matrix).  ``wire``: the error-feedback gossip wire
-    format ("f32" = the uncompressed wire)."""
+    """What the train step runs (the JAX package's feature matrix, without
+    overlap and groups).  ``packed_bus``: the bus-resident EDM step, else
+    the tree.  ``wire``: the error-feedback gossip wire format ("f32" = the
+    uncompressed wire)."""
 
     packed_bus: bool
     wire: str = "f32"
@@ -99,10 +112,16 @@ def _not_ported(what: str):
                               "(see ROADMAP.md)")
 
 
+def _is_f32(gossip_dtype) -> bool:
+    return gossip_dtype in ("float32", "", None)
+
+
 def resolve_features(run: RunConfig) -> Features:
-    """Resolve ``run`` to its :class:`Features`, as the JAX package does
-    for the packed bus (explicit ``packed_bus`` wins; ``None`` turns it on
-    for ``algorithm="edm"`` + ``gossip_engine="ppermute"``), and raise for
+    """Resolve ``run`` to its :class:`Features` with the JAX package's
+    rules: an explicit ``packed_bus`` wins (True needs
+    ``algorithm="edm"``); ``None`` turns the bus on for
+    ``algorithm="edm"`` + ``gossip_engine="ppermute"``.  A wire other than
+    f32 needs the bus and excludes a ``gossip_dtype`` cast.  Raises for
     every lever the port does not run yet."""
     if run.packed_bus is not None:
         packed = bool(run.packed_bus)
@@ -126,25 +145,14 @@ def resolve_features(run: RunConfig) -> Features:
                 "wire != 'f32' needs the packed bus (DESIGN §9): the codec "
                 "and the bus-resident residual operate on the (A, rows, "
                 "128) superbuffer")
-        if run.gossip_dtype not in ("float32", "", None):
+        if not _is_f32(run.gossip_dtype):
             raise ValueError(
                 "wire != 'f32' is mutually exclusive with gossip_dtype != "
                 "float32 (the error-feedback codec replaces the "
                 "cast-on-wire lever)")
     if run.gossip_groups:
         _not_ported("gossip_groups")
-    if run.gossip_dtype not in ("float32", "", None):
-        _not_ported(f"gossip_dtype={run.gossip_dtype!r}")
-    if run.warmup_steps or run.total_steps:
-        _not_ported("the warmup_cosine LR schedule")
     return Features(packed, fmt)
-
-
-def _require_bus(feats: Features) -> None:
-    if not feats.packed_bus:
-        _not_ported("the tree-resident (unpacked) train state: run "
-                    "algorithm='edm' with gossip_engine='ppermute' or "
-                    "packed_bus=True")
 
 
 def bus_layout_for(model: Model, n_agents: int) -> parambus.BusLayout:
@@ -159,16 +167,23 @@ def bus_layout_for(model: Model, n_agents: int) -> parambus.BusLayout:
 def init_state(model: Model, run: RunConfig, n_agents: int, *,
                seed: int = 0, params: Optional[Dict[str, torch.Tensor]] = None,
                device=None) -> TrainState:
-    """All agents start from the same x(0) (the paper's initialization),
-    packed ONCE into the bus.  ``params`` (one agent's parameter dict, e.g.
-    from :mod:`repro_torch.weights`) replaces the random init from
-    ``seed``.  ``device`` defaults to ``cuda`` and raises without one."""
+    """All agents start from the same x(0) (the paper's initialization):
+    packed ONCE into the bus, or replicated into ``(A, *shape)`` leaves
+    with the algorithm's state ``opt.init(params)``.  ``params`` (one
+    agent's parameter dict, e.g. from :mod:`repro_torch.weights`) replaces
+    the random init from ``seed``.  ``device`` defaults to ``cuda`` and
+    raises without one."""
     dev = resolve_device(device)
     feats = resolve_features(run)
-    _require_bus(feats)
     if params is None:
         params = model.init(torch.Generator(device=dev).manual_seed(seed))
     params = {p: v.to(dev) for p, v in params.items()}
+    if not feats.packed_bus:
+        tree = {p: v.unsqueeze(0).repeat((n_agents,) + (1,) * v.dim())
+                for p, v in params.items()}
+        opt = make_optimizer(run.algorithm, alpha=run.alpha, beta=run.beta,
+                             mix=lambda t: t)
+        return {"params": tree, "opt": opt.init(tree), "step": 0}
     x_bus = params_to_bus(bus_layout_for(model, n_agents), params, n_agents)
     opt_state = make_edm_bus(run.alpha, run.beta, mix=lambda t: t).init(x_bus)
     if feats.wire != "f32":
@@ -177,24 +192,64 @@ def init_state(model: Model, run: RunConfig, n_agents: int, *,
     return {"params": x_bus, "opt": opt_state, "step": 0}
 
 
+GradMap = Optional[Callable[[Dict[str, torch.Tensor]],
+                            Dict[str, torch.Tensor]]]
+
+
 def losses_and_grads(model: Model, layout: parambus.BusLayout,
-                     x_bus: torch.Tensor, tokens: torch.Tensor
+                     x_bus: torch.Tensor, tokens: torch.Tensor,
+                     grad_map: GradMap = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-agent losses ``(A,)`` and the f32 gradient bus: agent ``a``'s
     parameters are unpacked from row block ``a`` of ``x_bus`` (cast to
     their own dtypes), and the gradient of agent ``a``'s OWN loss on
-    ``tokens[a]`` is packed into row block ``a`` of the gradient bus —
-    the JAX step's ``vmap(value_and_grad(loss))``, one agent at a time."""
+    ``tokens[a]`` — through ``grad_map`` (the LR schedule's scaling), in
+    the leaves' dtypes — is packed into row block ``a`` of the gradient
+    bus: the JAX step's ``vmap(value_and_grad(loss))``, one agent at a
+    time."""
     g_bus = torch.zeros_like(x_bus)
     losses = []
     for a in range(x_bus.shape[0]):
         leaves = {p: v.detach().requires_grad_()
                   for p, v in parambus.unpack_agent(layout, x_bus, a).items()}
         loss = model.loss(leaves, {"tokens": tokens[a]})
-        grads = torch.autograd.grad(loss, [leaves[p] for p in layout.paths])
-        parambus.pack_agent(layout, g_bus, a, dict(zip(layout.paths, grads)))
+        grads = dict(zip(layout.paths, torch.autograd.grad(
+            loss, [leaves[p] for p in layout.paths])))
+        if grad_map is not None:
+            grads = grad_map(grads)
+        parambus.pack_agent(layout, g_bus, a, grads)
         losses.append(loss.detach())
     return torch.stack(losses), g_bus
+
+
+def tree_losses_and_grads(model: Model, params: Dict[str, torch.Tensor],
+                          tokens: torch.Tensor
+                          ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The tree version of :func:`losses_and_grads`: per-agent losses
+    ``(A,)`` and ``{path: (A, *shape)}`` gradients in the leaves' dtypes,
+    row ``a`` the gradient of agent ``a``'s own loss at its own
+    parameters ``params[path][a]``."""
+    grads = {p: torch.empty_like(v) for p, v in params.items()}
+    losses = []
+    for a in range(tokens.shape[0]):
+        leaves = {p: v[a].detach().requires_grad_()
+                  for p, v in params.items()}
+        loss = model.loss(leaves, {"tokens": tokens[a]})
+        for p, g in zip(leaves, torch.autograd.grad(loss,
+                                                    list(leaves.values()))):
+            grads[p][a].copy_(g)
+        losses.append(loss.detach())
+    return torch.stack(losses), grads
+
+
+def _cast_mixer(mix: Callable, dtype: Optional[str]) -> Callable:
+    """Gossip a payload cast to ``dtype`` (the ``gossip_dtype`` lever);
+    :func:`accumulate_f32` restores the leaves' dtypes on the way out."""
+    if _is_f32(dtype):
+        return mix
+    dt = getattr(torch, dtype)
+    return accumulate_f32(lambda tree: mix(tree_map(lambda x: x.to(dt),
+                                                    tree)))
 
 
 def build_train_step(model: Model, run: RunConfig, topo,
@@ -209,28 +264,42 @@ def build_train_step(model: Model, run: RunConfig, topo,
     ``run.gossip_engine`` selects the mixer (the ``ppermute`` engine needs
     ``run.agents_per_device = A``: one device).  ``use_fused_kernel``
     routes the EDM update and the ppermute engine's combine through the
-    CUDA kernels, one launch each per step.  With ``run.wire`` bf16 or
-    int8 a gossip step runs :func:`make_edm_bus_ef` (the fused EDM +
-    quantize kernel, then the decode-combine); a step that
-    ``gossip_every > 1`` skips runs the plain EDM recursion and carries
-    the residual ``e`` untouched.  The step consumes its input state: the
-    new m, ψ (and e) are written over the old buffers.  ``device``
-    defaults to ``cuda`` and raises without one; the state must live
-    there.
+    CUDA kernels: one launch of each per step on the bus, one per leaf on
+    the tree (the fused EDM update for ``algorithm="edm"`` only, as in the
+    JAX package).  With ``run.wire`` bf16 or int8 a gossip step runs
+    :func:`make_edm_bus_ef` (the fused EDM + quantize kernel, then the
+    decode-combine); a step that ``gossip_every > 1`` skips runs the
+    algorithm with the identity mixer (on the bus the plain EDM recursion,
+    carrying the residual ``e`` untouched).  ``run.gossip_dtype`` casts
+    the gossip payload; ``run.warmup_steps`` / ``run.total_steps`` turn on
+    ``warmup_cosine`` as gradient scaling.  The bus step consumes its
+    input state: the new m, ψ (and e) are written over the old buffers.
+    ``device`` defaults to ``cuda`` and raises without one; the state must
+    live there.
     """
     dev = resolve_device(device)
     feats = resolve_features(run)
-    _require_bus(feats)
     A = topo.n_agents
-    layout = bus_layout_for(model, A)
+    layout = bus_layout_for(model, A) if feats.packed_bus else None
     codec = (make_codec(feats.wire, layout.block_rows)
              if feats.wire != "f32" else None)
     mix = build_mixer(topo, mode="schedule", engine=run.gossip_engine,
                       agents_per_device=run.agents_per_device,
                       use_fused_kernel=use_fused_kernel, wire=codec)
     every = run.gossip_every
+    kw = (dict(use_fused_kernel=use_fused_kernel)
+          if run.algorithm == "edm" else {})
+    lr_sched = None
+    if run.warmup_steps or run.total_steps:
+        lr_sched = warmup_cosine(run.warmup_steps or 1,
+                                 run.total_steps or 10**9)
 
-    def opt_at(g_step: int, gossip: bool) -> DecOptimizer:
+    def grad_map(step: int) -> GradMap:
+        if lr_sched is None:
+            return None
+        return lambda grads: scale_grads(grads, step, lr_sched)
+
+    def bus_opt(g_step: int, gossip: bool) -> DecOptimizer:
         if not gossip:
             # local-EDM step: identity mixer; nothing goes on the wire, so
             # nothing is quantized and e carries to the next gossip step
@@ -244,28 +313,51 @@ def build_train_step(model: Model, run: RunConfig, topo,
                 return x2, {**sub, "e": st["e"]}
 
             return DecOptimizer("edm_bus_local", inner.init, local_step)
-        step_mix = lambda t: mix(t, step=g_step)
         if codec is None:
-            return make_edm_bus(run.alpha, run.beta, step_mix,
-                                use_fused_kernel=use_fused_kernel)
-        return make_edm_bus_ef(run.alpha, run.beta, step_mix, codec,
+            return make_edm_bus(
+                run.alpha, run.beta,
+                _cast_mixer(lambda t: mix(t, step=g_step), run.gossip_dtype),
+                use_fused_kernel=use_fused_kernel)
+        return make_edm_bus_ef(run.alpha, run.beta,
+                               lambda t: mix(t, step=g_step), codec,
                                use_fused_kernel=use_fused_kernel)
 
+    def tree_opt(g_step: int, gossip: bool) -> DecOptimizer:
+        step_mix = (_cast_mixer(lambda t: mix(t, step=g_step),
+                                run.gossip_dtype)
+                    if gossip else (lambda t: t))
+        return make_optimizer(run.algorithm, alpha=run.alpha, beta=run.beta,
+                              mix=step_mix, **kw)
+
     def train_step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
-        x_bus = state["params"]
-        if x_bus.device.type != dev.type:
-            raise ValueError(f"train state is on {x_bus.device}, the step "
+        params = state["params"]
+        first = (params if feats.packed_bus
+                 else next(iter(params.values())))
+        if first.device.type != dev.type:
+            raise ValueError(f"train state is on {first.device}, the step "
                              f"was built for {dev}")
-        losses, g_bus = losses_and_grads(model, layout, x_bus,
-                                         batch["tokens"])
         step = int(state["step"])
         gossip = every <= 1 or step % every == every - 1
+        g_step = gossip_round_step(step, every)
+        if feats.packed_bus:
+            losses, grads = losses_and_grads(model, layout, params,
+                                             batch["tokens"], grad_map(step))
+        else:
+            losses, grads = tree_losses_and_grads(model, params,
+                                                  batch["tokens"])
+            if lr_sched is not None:
+                grads = scale_grads(grads, step, lr_sched)
         with torch.no_grad():
-            opt = opt_at(gossip_round_step(step, every), gossip)
-            new_x, new_opt = opt.step(x_bus, g_bus, state["opt"])
-            metrics = {"loss": losses.mean(),
-                       "consensus": bus_consensus(new_x),
-                       "grad_norm": bus_grad_norm(g_bus)}
+            opt = (bus_opt if feats.packed_bus else tree_opt)(g_step, gossip)
+            new_x, new_opt = opt.step(params, grads, state["opt"])
+            if feats.packed_bus:
+                consensus, grad_norm = bus_consensus(new_x), \
+                    bus_grad_norm(grads)
+            else:
+                consensus = consensus_distance(new_x)
+                grad_norm = tree_sqnorm(grads).sqrt()
+            metrics = {"loss": losses.mean(), "consensus": consensus,
+                       "grad_norm": grad_norm}
         return {"params": new_x, "opt": new_opt, "step": step + 1}, metrics
 
     return train_step

@@ -11,9 +11,11 @@ under the JAX tree's ``|``-joined paths and with its dtypes:
   state, bare ``<path>`` for a saved parameter tree), read with
   ``np.load`` only.
 
-:func:`train_state_from_arrays` carries a whole packed-bus train state
-``{params, opt: {m, psi[, e]}, step}`` of numpy arrays (e.g.
-``jax.tree.map(np.asarray, state)``) into the port's train state.
+:func:`train_state_from_arrays` carries a whole train state of numpy
+arrays (e.g. ``jax.tree.map(np.asarray, state)``) into the port's: the
+packed-bus state ``{params, opt: {m, psi[, e]}, step}`` or the tree state
+``{params: tree, opt: {m, psi, e, y, g_prev}: trees, step}``, each
+parameter tree flattened to ``{path: tensor}``.
 
 bf16 leaves arrive as 2-byte numpy values (ml_dtypes ``bfloat16`` in
 memory, ``|V2`` from an npz); their bits are reinterpreted as
@@ -89,10 +91,16 @@ def params_to_bus(layout: parambus.BusLayout,
 
 def train_state_from_arrays(state: Mapping[str, Any],
                             device="cpu") -> Dict[str, Any]:
-    """A packed-bus train state of numpy arrays — ``{"params": x bus,
-    "opt": {"m", "psi"[, "e"]}, "step"}`` as the JAX package's
-    ``init_state`` / train step hold it — as the port's train state: f32
-    bus tensors on ``device`` (each its own buffer) and an int step."""
-    return {"params": _tensor(state["params"], device),
-            "opt": {k: _tensor(v, device) for k, v in state["opt"].items()},
+    """A train state of numpy arrays, as the JAX package's ``init_state``
+    / train step hold it, as the port's train state on ``device`` (each
+    array its own buffer, bf16 bits exact) with an int step.  A bus state
+    keeps its ``(A, rows, 128)`` buffers; in a tree state the parameters
+    and every optimizer slot (``m``, ``psi``, ``e``, ``y``, ``g_prev``)
+    become ``{path: tensor}`` dicts."""
+    if isinstance(state["params"], Mapping):
+        carry = params_from_tree
+    else:
+        carry = _tensor
+    return {"params": carry(state["params"], device),
+            "opt": {k: carry(v, device) for k, v in state["opt"].items()},
             "step": int(np.asarray(state["step"]))}

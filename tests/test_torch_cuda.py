@@ -437,3 +437,156 @@ def test_cuda_kernel_engine_equals_greedy_generate(cuda, window):
             model, params, {"tokens": torch.from_numpy(r.tokens)[None]
                             .to(cuda)}, n_steps=r.max_new)[0]
         assert eng.completed[r.rid].tolist() == want.cpu().tolist()
+
+
+# ---------------------------------------------------------------------------
+# flash GQA attention
+# ---------------------------------------------------------------------------
+
+# (B, H, K, Sq, Sk, hd, causal, window): the JAX package's ATTN_CASES, a
+# window as long as the sequence, a case whose rows q >= 255 see no key,
+# smollm_360m's heads, and odd head dims and groups
+FLASH_CASES = [
+    (1, 4, 4, 256, 256, 64, True, 0),
+    (2, 8, 2, 256, 256, 64, True, 0),
+    (1, 4, 1, 128, 384, 64, False, 0),
+    (1, 2, 2, 512, 512, 128, True, 256),
+    (1, 15, 5, 128, 128, 64, True, 0),
+    (1, 2, 2, 256, 256, 64, True, 4096),
+    (1, 15, 5, 512, 128, 64, True, 128),
+    (2, 15, 5, 256, 256, 64, False, 100),
+    (1, 6, 2, 128, 256, 8, True, 0),
+    (1, 64, 1, 128, 128, 256, True, 0),
+]
+
+
+def _flash_inputs(B, H, K, Sq, Sk, hd, dtype, device, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return [torch.randn(shape, generator=gen, device=device).to(dtype)
+            for shape in ((B, H, Sq, hd), (B, K, Sk, hd), (B, K, Sk, hd))]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_cuda_flash_attention_matches_plain(cuda, case, dtype):
+    """Kernel against its plain version on the same inputs (f32 atol 2e-5;
+    bf16 one bf16 ulp of the plain result on top); fully masked rows 0."""
+    B, H, K, Sq, Sk, hd, causal, window = case
+    q, k, v = _flash_inputs(B, H, K, Sq, Sk, hd, dtype, cuda, seed=Sq + hd)
+    before = ops.launch_counts()["flash_attention"]
+    got = ops.flash_attention(q, k, v, causal=causal, window=window,
+                              blk_q=128, blk_k=128)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == before + 1
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+    if causal and window and Sq > Sk:
+        dead = torch.arange(Sq, device=cuda) >= Sk - 1 + window
+        assert torch.count_nonzero(got[:, :, dead]) == 0
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_attention_never_reads_dead_keys(cuda, dtype):
+    """Causal with Sk > Sq: keys at positions >= Sq are visible to no
+    query.  NaN there must leave the output bit-equal to the clean one."""
+    q, k, v = _flash_inputs(2, 15, 5, 256, 512, 64, dtype, cuda, seed=7)
+    clean = ops.flash_attention(q, k, v, causal=True)
+    k[:, :, 256:] = float("nan")
+    v[:, :, 256:] = float("nan")
+    poisoned = ops.flash_attention(q, k, v, causal=True)
+    assert torch.equal(clean, poisoned)
+    assert bool(torch.isfinite(poisoned).all())
+
+
+@pytest.mark.requires_cuda
+def test_cuda_flash_attention_checks_its_inputs(cuda):
+    q, k, v = _flash_inputs(1, 4, 2, 128, 128, 64, torch.float32, cuda, 0)
+    with pytest.raises(ValueError, match="dtype"):
+        ops.flash_attention(q, k.bfloat16(), v)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.flash_attention(q, k.cpu(), v)
+    with pytest.raises(ValueError, match="multiples"):
+        ops.flash_attention(q[:, :, :100], k, v)
+
+
+# ---------------------------------------------------------------------------
+# the EDM update and the combine on parameter leaves (the tree path)
+# ---------------------------------------------------------------------------
+
+LEAF_SHAPES = [(4, 960), (3, 7), (4, 32, 960), (3, 5, 3), (1, 1), (4, 3, 37)]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", LEAF_SHAPES)
+def test_cuda_leaf_edm_update_bit_equal_to_plain(cuda, shape, dtype):
+    """``ops.edm_update`` packs a leaf of any shape, launches once and
+    unpacks to the leaf's dtype: bit-equal to the plain chain through the
+    same pack and unpack."""
+    x, g, m, psi = (t.to(dtype) for t in _edm_inputs(shape, cuda, seed=11))
+    before = ops.launch_counts()["edm_update"]
+    got = ops.edm_update(x, g, m, psi, alpha=ALPHA, beta=BETA)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["edm_update"] == before + 1
+    packed = [ops.pack_leaf(t) for t in (x, g, m, psi)]
+    want = ref.edm_update_ref(*packed, alpha=ALPHA, beta=BETA)
+    for o, w, like in zip(got, want, (m, psi, x)):
+        assert o.dtype == dtype and o.shape == like.shape
+        assert torch.equal(o, ops.unpack_leaf(w, like.shape, dtype))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("n", [1, 3, 5])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", LEAF_SHAPES)
+def test_cuda_leaf_gossip_axpy_bit_equal_to_plain(cuda, shape, dtype, n):
+    """The combine takes a leaf as it is, any element count (a ragged
+    tail of up to 3 elements): bit-equal to its plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(len(shape) * 10 + n)
+    operands = [torch.randn(shape, generator=gen, device=cuda).to(dtype)
+                for _ in range(n)]
+    weights = [1.0 / (k + 3) for k in range(n)]
+    got = ops.gossip_axpy(operands, weights)
+    want = ref.gossip_axpy_ref(operands, weights)
+    assert got.dtype == dtype and torch.equal(got, want)
+
+
+@pytest.mark.requires_cuda
+def test_cuda_fused_tree_step_bit_equal_to_plain(cuda):
+    """One tree EDM + ring-gossip step with the kernels (one EDM and one
+    combine launch per leaf) against the plain versions through the same
+    per-leaf pack, unpack and rolls."""
+    from repro_torch.core import make_mixer, make_optimizer, ring, wire_terms
+
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    tree = lambda: {f"l{i}": torch.randn(s, generator=gen, device=cuda)  # noqa: E731
+                    .bfloat16() for i, s in enumerate(LEAF_SHAPES)
+                    if s[0] == 4}
+    x, g, m = tree(), tree(), tree()
+    topo = ring(4)
+    mix = make_mixer(topo, "ppermute", agents_per_device=4,
+                     use_fused_kernel=True)
+    opt = make_optimizer("edm", alpha=ALPHA, beta=BETA, mix=mix,
+                         use_fused_kernel=True)
+    state = {"m": m, "psi": {p: v.clone() for p, v in x.items()}}
+    before = ops.launch_counts()
+    x2, st = opt.step(x, g, state)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    assert after["edm_update"] - before["edm_update"] == len(x)
+    assert after["gossip_axpy"] - before["gossip_axpy"] == len(x)
+    weights = [t.weight for t in topo.terms]
+    for p in x:
+        packed = [ops.pack_leaf(t) for t in (x[p], g[p], m[p], x[p])]
+        m_p, psi_p, phi_p = ref.edm_update_ref(*packed, alpha=ALPHA,
+                                               beta=BETA)
+        phi = ops.unpack_leaf(phi_p, x[p].shape, x[p].dtype)
+        assert torch.equal(st["m"][p], ops.unpack_leaf(m_p, x[p].shape,
+                                                       torch.bfloat16))
+        assert torch.equal(st["psi"][p], ops.unpack_leaf(
+            psi_p, x[p].shape, torch.bfloat16))
+        assert torch.equal(x2[p], ref.gossip_axpy_ref(
+            wire_terms(topo, phi), weights))

@@ -43,7 +43,10 @@ def test_every_module_imports_without_jax_or_repro():
               "repro_torch.kernels.paged_attention",
               "repro_torch.kernels.paged_prefill",
               "repro_torch.serve.engine", "repro_torch.serve.paged_cache",
-              "repro_torch.serve.scheduler", "repro_torch.launch.serve"):
+              "repro_torch.serve.scheduler", "repro_torch.launch.serve",
+              "repro_torch.kernels.flash_attention", "repro_torch.optim",
+              "repro_torch.optim.schedules", "repro_torch.core.metrics",
+              "repro_torch.data.synthetic"):
         assert m in mods
     code = (
         "import importlib, sys\n"
@@ -138,11 +141,17 @@ def test_serve_cli_without_device_raises_without_gpu(no_gpu, flags):
 def test_unported_levers_raise():
     model = build_model(get_smoke_config("smollm_360m"))
     for kw in (dict(overlap="delayed"), dict(gossip_groups="moe"),
-               dict(gossip_engine="shifts"), dict(gossip_dtype="bfloat16"),
-               dict(warmup_steps=10)):
+               dict(agents="pod")):
         run = RunConfig(**{"gossip_engine": "ppermute", **kw})
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_train_step(model, run, ring(4), device="cpu")
+    # ported since: the tree path (shifts engine), the gossip_dtype cast
+    # and the LR schedule build
+    for kw in (dict(gossip_engine="shifts"), dict(gossip_dtype="bfloat16"),
+               dict(warmup_steps=10), dict(algorithm="qg")):
+        run = RunConfig(**{"gossip_engine": "ppermute",
+                           "agents_per_device": 4, **kw})
+        build_train_step(model, run, ring(4), device="cpu")
 
 
 def test_package_docstring_states_device_rule():
