@@ -9,10 +9,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    device is an error;
 2. build: compiles the port's CUDA kernels from
    ``src/repro_torch/kernels/csrc`` for ``sm_90a`` (one ``nvcc`` per
-   source, in parallel);
+   source, in parallel) and prints each kernel's registers, spills and
+   static shared memory (``-Xptxas -v``), and the redesigned attention
+   kernels' dynamic shared memory a block;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the main path's shapes and at small odd ones, bit for bit, with its
-   median time over 20 launches (CUDA events), the plain version's time
+   median device time over 20 launches (CUDA events; every timed run of
+   launches is queued behind a device-side spin, so a kernel faster than
+   its Python launch path is not timed at the host's pace), the plain
+   version's time
    and the bound (bytes moved at 3.35 TB/s, or f32 operations at
    67 TFLOP/s, whichever is larger); then the wire kernels the same way:
    the fused EDM + bf16 / int8 EF update at the full bus (timed, in place
@@ -48,7 +53,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    phase 8 (f32 within atol 2e-5; bf16 compared in f32 within
    2e-5 + 2⁻⁷·|want|, one bf16 ulp), and on NaN-poisoned pools bit-equal
    to the clean pools' output and finite; each timed at the
-   serving shapes of phase 8 beside its plain version, its bound (bytes
+   serving shapes of phase 8 (paged prefill also its host time a call)
+   beside its plain version, its bound (bytes
    at 3.35 TB/s or bf16 operations at 989 TFLOP/s) and one
    ``F.scaled_dot_product_attention`` call over pre-gathered dense K/V
    (the yardstick: it excludes the gather, and the port never calls it);
@@ -58,7 +64,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    with the launch counts reset just before and read just after (32
    paged-attention launches per dispatch, 32 paged-prefill launches per
    dispatch with a chunk, no training kernel); one mixed and one
-   decode-only dispatch profiled;
+   decode-only dispatch profiled, the paged prefill kernel's share of
+   the mixed dispatch's device time printed;
 9. exactness: in f32 the kernel engine's greedy tokens equal
    ``greedy_generate``'s; in bf16 the share of tokens on which the kernel
    and plain engines agree is printed (bf16 logits tie at vocab 49152);
@@ -100,6 +107,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -144,11 +152,22 @@ def nvidia_smi() -> str:
     return out.stdout.strip()
 
 
+# a device-side spin of ~10 ms at the H100's clock: the host queues every
+# timed call behind it, so a kernel faster than its Python launch path is
+# timed on the device, not at the pace of the host
+QUEUE_CYCLES = 20_000_000
+TIMING = ("device time per call: median of 20 (flash: 10) CUDA-event pairs, "
+          "the calls queued behind a device-side spin")
+
+
 def time_ms(fn, reps: int = REPS, warmup: int = 2) -> float:
-    """Median device time of ``fn`` over ``reps`` calls (CUDA events)."""
+    """Median device time of ``fn`` over ``reps`` calls (CUDA events around
+    each call), the calls queued behind a device-side spin."""
     import torch
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(QUEUE_CYCLES)
     pairs = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
@@ -159,6 +178,63 @@ def time_ms(fn, reps: int = REPS, warmup: int = 2) -> float:
         pairs.append((start, end))
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def host_ms(fn, reps: int = REPS) -> float:
+    """Wall time per call of ``fn`` called back to back, ending in a device
+    sync: what the host's launch path costs where it, not the device, is
+    the slower of the two."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def ptxas_report(log: str):
+    """(kernel, "N registers, spill stores / loads, static smem") of every
+    kernel in an ``nvcc -Xptxas -v`` log, template arguments decoded."""
+    out, kernel, spill = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            mangled, kernel = m.group(1), m.group(1)
+            for part in re.finditer(r"(?=(\d+)([a-z_]\w*?_kernel))", mangled):
+                ident = part.group(2)
+                if int(part.group(1)) == len(ident):
+                    rest = mangled[part.end(2):]
+                    targs = rest[:rest.find("EE") + 1] \
+                        if rest.startswith("I") else ""
+                    args = [n or ("float" if f else "bf16") for n, f, _ in
+                            re.findall(r"Li(\d+)E|(f)(?=[LE])"
+                                       r"|(13__nv_bfloat16)", targs)]
+                    kernel = ident + (f"<{', '.join(args)}>" if args else "")
+                    break
+        elif kernel and "spill" in line:
+            spill = line.strip()
+        elif kernel and "Used" in line and "registers" in line:
+            used = line.split("Used", 1)[1].strip()
+            out.append((kernel, f"{used}; {spill}"))
+            kernel, spill = None, ""
+    return out
+
+
+def attention_smem_report():
+    """The redesigned attention kernels' dynamic shared memory a block at
+    each head dim (the C launchers' own sizes; ptxas reports static
+    shared memory only)."""
+    from repro_torch.kernels import build
+    flash = build.library("flash_attention")
+    prefill = build.library("paged_prefill")
+    return [f"dynamic smem at hd {hd}: flash_wgmma_kernel "
+            f"{flash.flash_attention_smem_bytes(hd)} B; "
+            f"paged_prefill_mma_kernel "
+            f"{prefill.paged_prefill_smem_bytes(hd, 128, PAGE, 6)} B "
+            f"(split_keys 128, page {PAGE}, 6 splits)"
+            for hd in (8, 64, 128, 192, 256)]
 
 
 def bound_ms(n_bytes: float, n_flops: float,
@@ -731,6 +807,9 @@ def check_prefill(case, dtype, timed: bool):
         rec["ms"] = time_ms(lambda: paged_prefill_flat(
             qk, kck, vck, kp, vp, pt_row, start, clen, page_size=ps,
             window=window, out=out))
+        rec["host_ms"] = host_ms(lambda: paged_prefill_flat(
+            qk, kck, vck, kp, vp, pt_row, start, clen, page_size=ps,
+            window=window, out=out))
         rec["op_ms"] = time_ms(lambda: ops.paged_prefill_attention(
             q, kc, vc, kp, vp, pt_row, start, clen, page_size=ps,
             window=window))
@@ -929,7 +1008,8 @@ BUCKETS = (("edm_update kernel", ("edm_update_kernel",)),
            ("gossip_axpy kernel", ("gossip_axpy_kernel",)),
            ("gossip_axpy_q8 kernel", ("gossip_axpy_q8_kernel",)),
            ("paged_attention kernel", ("paged_attention_kernel",)),
-           ("paged_prefill kernel", ("paged_prefill_kernel",)),
+           ("paged_prefill kernel", ("paged_prefill_kernel",
+                                     "paged_prefill_mma_kernel")),
            ("roll (gossip terms)", ("roll_cuda_kernel",)),
            ("matmul", ("gemm", "cutlass", "sm90_", "nvjet", "cublas")),
            ("copy / cast", ("copy",)),
@@ -1320,9 +1400,10 @@ def main() -> None:
     print(f"[build] {time.time() - t0:.2f} s", flush=True)
     for name, path in libs.items():
         print(f"[build] {name}: {path.relative_to(ROOT)}")
-        for line in build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build]   {line.strip()}")
+        for kernel, report in ptxas_report(build.build_log(name)):
+            print(f"[build]   {kernel}: {report}")
+    for line in attention_smem_report():
+        print(f"[build] {line}")
 
     # 3. kernels against their plain versions, on the card
     model = build_model(get_config(ARCH))
@@ -1589,6 +1670,13 @@ def main() -> None:
         for ms, count, key in rec["top"]:
             print(f"[serve-profile]   top {ms:9.3f} ms  x{count:<5d} "
                   f"{key[:80]}")
+    mixed = disp["mixed"]
+    prefill_share = mixed["buckets"]["paged_prefill kernel"] / mixed[
+        "device_busy_ms"]
+    print(f"[serve-profile] mixed dispatch: paged_prefill kernel "
+          f"{mixed['buckets']['paged_prefill kernel']:.3f} ms of "
+          f"{mixed['device_busy_ms']:.3f} ms device busy "
+          f"({prefill_share:.1%}); {smi}", flush=True)
     del eng
     free()
 
@@ -1628,7 +1716,8 @@ def main() -> None:
                                    if r["dtype"] == "float32"),
             "max_err_over_tol": max(r["err_over_tol"]
                                     for r in serve_recs[name]),
-            "launches_ctx1024": serve_counts[name]}
+            "launches_ctx1024": serve_counts[name],
+            "timing": TIMING}
 
     kernels = [
         {"name": "edm_update", "route": "cuda",
@@ -1652,6 +1741,10 @@ def main() -> None:
         serve_row("paged_attention", "src/repro/kernels/paged_attention.py:48"),
         serve_row("paged_prefill", "src/repro/kernels/paged_prefill.py:59"),
     ]
+    kernels[-1].update(
+        host_ms=serve_timed["paged_prefill"]["host_ms"],
+        mixed_dispatch_busy_ms=mixed["device_busy_ms"],
+        mixed_dispatch_prefill_ms=mixed["buckets"]["paged_prefill kernel"])
     for fmt, line, fmt_counts in (("bf16", 100, wire_counts["bf16"]),
                                   ("int8", 118, wire_counts["int8"])):
         rec = ef_main[fmt]
@@ -1700,6 +1793,7 @@ def main() -> None:
         "window_b": {k: fb[k] for k in ("ms", "plain_ms", "bound_ms",
                                         "bound_by", "library_ms",
                                         "library_backend", "flops")},
+        "timing": TIMING,
         "f32": {n: {k: flash_timed[(n, "float32")][k]
                     for k in ("ms", "plain_ms", "bound_ms", "library_ms",
                               "library_backend")} for n in FLASH_TIMED}})

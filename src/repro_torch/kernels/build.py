@@ -8,8 +8,9 @@ interface, into one shared library::
 
 and is loaded with :mod:`ctypes`; no PyTorch headers, no ninja.  The
 libraries live in ``build/repro_torch_ext/`` at the repository root (listed
-in ``.gitignore``), named by a hash of the source and the flags so an edit
-rebuilds.  All sources compile in parallel, one ``nvcc`` each, at the first
+in ``.gitignore``), named by a hash of the source, every shared header
+``csrc/*.cuh`` (any source may include any of them) and the flags, so an
+edit of either rebuilds.  All sources compile in parallel, one ``nvcc`` each, at the first
 CUDA use — never at import.  A failed build raises; nothing falls back.
 """
 from __future__ import annotations
@@ -25,7 +26,7 @@ from pathlib import Path
 from typing import Dict
 
 __all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "build_all", "library",
-           "build_log"]
+           "build_log", "targets"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_ext"
@@ -50,10 +51,19 @@ def _nvcc() -> str:
     return found
 
 
-def _target(src: Path) -> Path:
-    digest = hashlib.sha256(src.read_bytes()
+def _target(src: Path, headers: bytes) -> Path:
+    digest = hashlib.sha256(src.read_bytes() + headers
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{src.stem}_{digest}.so"
+
+
+def targets(csrc: Path = CSRC) -> Dict[str, Path]:
+    """``{name: shared object}`` of every ``csrc/*.cu``, named by the
+    source's, the headers' and the flags' hash."""
+    headers = b"".join(h.name.encode() + b"\0" + h.read_bytes()
+                       for h in sorted(csrc.glob("*.cuh")))
+    return {src.stem: _target(src, headers)
+            for src in sorted(csrc.glob("*.cu"))}
 
 
 def build_all() -> Dict[str, Path]:
@@ -61,12 +71,12 @@ def build_all() -> Dict[str, Path]:
     started together) and return ``{name: shared object}``.  Raises with
     the compiler's output if any build fails."""
     sources = sorted(CSRC.glob("*.cu"))
-    targets = {src.stem: _target(src) for src in sources}
+    libs = targets()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = None
     procs = []
     for src in sources:
-        dst = targets[src.stem]
+        dst = libs[src.stem]
         if dst.is_file():
             continue
         nvcc = nvcc or _nvcc()
@@ -84,10 +94,11 @@ def build_all() -> Dict[str, Path]:
             os.unlink(tmp)
             failures.append(f"{src.name} (exit {proc.returncode}):\n{out}")
         else:
+            dst.with_suffix(".log").write_text(out)
             os.replace(tmp, dst)   # atomic: a concurrent build sees whole files
     if failures:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
-    return targets
+    return libs
 
 
 def library(name: str) -> ctypes.CDLL:
@@ -103,6 +114,9 @@ def library(name: str) -> ctypes.CDLL:
 
 
 def build_log(name: str) -> str:
-    """nvcc's output (``-Xptxas -v`` register and spill report) from this
-    process's build of ``csrc/<name>.cu``; empty if it was already built."""
-    return _logs.get(name, "")
+    """nvcc's output (``-Xptxas -v`` register and spill report) of the
+    build of ``csrc/<name>.cu``, kept beside the library; empty if none."""
+    if name in _logs:
+        return _logs[name]
+    log = targets()[name].with_suffix(".log")
+    return log.read_text() if log.is_file() else ""

@@ -8,9 +8,12 @@ against k, v ``(B, K, Sk, hd)``, query head h reading KV head
 0 on both axes, an online softmax in f32 and one rounding to q's dtype; a
 row with no live key outputs 0.
 
-It takes CUDA tensors only, checks them through
-:func:`repro_torch.kernels._ffi.check`, launches on PyTorch's current
-stream and raises on a non-zero CUDA status.
+In bf16 it runs a tensor-core kernel (wgmma fed by TMA, one block per
+128 query positions of one query head); in f32 a SIMT kernel, one block
+per query tile of a KV head's G query heads.  It takes CUDA tensors
+only, checks them through :func:`repro_torch.kernels._ffi.check`,
+launches on PyTorch's current stream and raises on a non-zero CUDA
+status.
 ``flash_attention_flat.launches`` counts its launches, incremented where
 the kernel is launched and nowhere else.  The plain version is
 :func:`repro_torch.kernels.ref.flash_attention_ref`; the device dispatch
@@ -28,7 +31,7 @@ from ._ffi import DTYPE_CODE, check, check_head, launcher, raise_on, stream
 
 __all__ = ["MAX_GROUP", "flash_attention_flat"]
 
-MAX_GROUP = 64      # query heads per KV head: one block's query rows
+MAX_GROUP = 64      # query heads per KV head: the f32 kernel's block rows
 
 
 def flash_attention_flat(q, k, v, *, causal: bool, window: int = 0,

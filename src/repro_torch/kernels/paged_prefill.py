@@ -7,9 +7,13 @@ one slot, ``(K, C·G, hd)`` queries, over the slot's earlier pages (linear
 or ring key positions, per-element window mask) and causally over the
 chunk's own ``(K, C, hd)`` keys.
 
-It takes CUDA tensors only, checks them as
-:func:`~repro_torch.kernels.paged_attention.paged_attention_flat` does,
-launches on PyTorch's current stream and raises on a non-zero CUDA
+In bf16 the kernel splits the slot's keys across blocks by
+:func:`split_plan` and merges the splits' partials inside the same launch;
+the wrapper allocates their scratch, and keeps one zeroed ticket buffer a
+device that the kernel leaves zeroed (so two launches on one device must
+not overlap in time: the engine launches on one stream).  It takes CUDA tensors only, checks
+them as :func:`~repro_torch.kernels.paged_attention.paged_attention_flat`
+does, launches on PyTorch's current stream and raises on a non-zero CUDA
 status.  ``paged_prefill_flat.launches`` counts its launches, incremented
 where the kernel is launched and nowhere else.  The plain version is
 :func:`repro_torch.kernels.ref.paged_prefill_attention_ref`; the device
@@ -19,13 +23,59 @@ dispatch and the model-layout transform are
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from ._ffi import DTYPE_CODE, check, check_head, launcher, raise_on, stream
 
-__all__ = ["paged_prefill_flat"]
+__all__ = ["KEY_TILE", "MAX_SPLITS", "Q_TILE", "paged_prefill_flat",
+           "split_plan"]
+
+Q_TILE = 64       # query rows per block of the bf16 kernel
+KEY_TILE = 64     # keys per tile; a split holds a whole number of tiles
+MAX_SPLITS = 64   # the merge's weights fit the block's shared memory
+
+_tickets: Dict[torch.device, torch.Tensor] = {}
+_sm_counts: Dict[torch.device, int] = {}
+
+
+def split_plan(prev: int, n_chunk: int, q_rows: int, n_kv_heads: int, *,
+               sms: int) -> Tuple[int, int]:
+    """``(n_split, split_keys)``: how the bf16 kernel cuts a slot's keys —
+    its ``prev`` earlier pool rows, then the chunk's ``n_chunk`` keys, one
+    index range — into ``n_split`` ranges of ``split_keys`` keys (a
+    multiple of :data:`KEY_TILE`; the last range ends at the last key).
+    Split s covers ``[s·split_keys, min((s+1)·split_keys, prev + n_chunk))``.
+    The splits are as long as they can be while the grid of
+    ``ceil(q_rows / Q_TILE) · n_kv_heads · n_split`` blocks still reaches
+    ``sms`` blocks, one key tile each at the shortest and at most
+    :data:`MAX_SPLITS` of them; no split is empty."""
+    total = prev + n_chunk
+    if total <= 0:
+        return 1, KEY_TILE
+    n_tiles = -(-total // KEY_TILE)
+    blocks = -(-q_rows // Q_TILE) * n_kv_heads
+    per = max(1, n_tiles * blocks // sms, -(-n_tiles // MAX_SPLITS))
+    per = min(n_tiles, per)
+    return -(-n_tiles // per), per * KEY_TILE
+
+
+def _sms(device: torch.device) -> int:
+    if device not in _sm_counts:
+        _sm_counts[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _sm_counts[device]
+
+
+def _ticket_buffer(device: torch.device, n: int) -> torch.Tensor:
+    """At least ``n`` int32 tickets on ``device``, zero: the kernel's last
+    block of a query tile resets the ticket it took."""
+    buf = _tickets.get(device)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _tickets[device] = buf
+    return buf
 
 
 def paged_prefill_flat(q, k_chunk, v_chunk, k_pool, v_pool, pt_row,
@@ -61,14 +111,29 @@ def paged_prefill_flat(q, k_chunk, v_chunk, k_pool, v_pool, pt_row,
     if out is None:
         out = torch.empty_like(q)
     check(out, "out", q, dtypes=(q.dtype,))
-    fn = launcher("paged_prefill", [ctypes.c_void_p] * 7
-                  + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p])
+    n_split, split_keys, o_part, ml_part, tickets = 1, KEY_TILE, q, q, q
+    if q.dtype == torch.bfloat16:
+        prev = min(start, window) if window else start
+        prev = max(0, min(prev, n_pages * page_size))
+        n_split, split_keys = split_plan(prev, clen, CG, K,
+                                         sms=_sms(q.device))
+        if n_split > 1:
+            o_part = torch.empty((n_split, K, CG, hd), dtype=torch.float32,
+                                 device=q.device)
+            ml_part = torch.empty((n_split, K, CG, 2), dtype=torch.float32,
+                                  device=q.device)
+            tickets = _ticket_buffer(q.device, K * -(-CG // Q_TILE))
+    fn = launcher("paged_prefill", [ctypes.c_void_p] * 10
+                  + [ctypes.c_int] * 10
+                  + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                     ctypes.c_void_p])
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k_chunk.data_ptr(), v_chunk.data_ptr(),
                  k_pool.data_ptr(), v_pool.data_ptr(), pt_row.data_ptr(),
-                 out.data_ptr(), DTYPE_CODE[q.dtype], K, C, G, hd,
+                 out.data_ptr(), o_part.data_ptr(), ml_part.data_ptr(),
+                 tickets.data_ptr(), DTYPE_CODE[q.dtype], K, C, G, hd,
                  page_size, n_pages, start, clen, int(window), hd ** -0.5,
-                 stream(q))
+                 split_keys, n_split, stream(q))
     raise_on(err, "paged_prefill")
     paged_prefill_flat.launches += 1
     return out

@@ -13,7 +13,10 @@ kernels); bf16, compared in f32, at atol 2e-5 + 2⁻⁷·|want| (both sides
 round one f32 result to bf16, so they differ by at most one bf16 ulp of
 the reference).  Kernel and plain version see the same pools; on pools
 NaN-poisoned wherever the slot owns no row the kernel must give the same
-bits, finite, so it read none of them.
+bits, finite, so it read none of them.  The bf16 flash and prefill
+kernels run on the tensor cores; their tile edges (head dims, groups,
+partial query and key tiles, windows, the prefill's key splits) have
+cases of their own, under the same gates.
 
 These tests need a CUDA device and nvcc and skip elsewhere; this file
 imports nothing of JAX, so it runs on a machine with the card:
@@ -361,11 +364,23 @@ PREFILL_CASES = [(w, s, C, n, 2, 2, 8, 4, 6, 16) for w, s, C, n in [
     for s, n in ((0, 16), (16, 16), (16, 7), (32, 1))] + [
     (w, s, 128, n, 5, 3, 64, 16, 64, 80)
     for w in (0, 256) for s, n in ((0, 128), (128, 128), (640, 77))]
+# the edges of the bf16 kernel's tiles and splits: 100 earlier rows (not
+# a multiple of the 64-key tile or of a split), a 1-token chunk after 700
+# rows, a 256-row ring with the chunk past the window, a 96-row ring at
+# G 4 and hd 128, hd 256 at G 8 with 32-row pages, hd 16 at G 1
+PREFILL_EDGE_CASES = [
+    (0, 100, 128, 128, 5, 3, 64, 16, 64, 80),
+    (0, 700, 128, 1, 5, 3, 64, 16, 64, 80),
+    (256, 1000, 128, 128, 5, 3, 64, 16, 64, 80),
+    (96, 77, 32, 20, 2, 4, 128, 16, 8, 12),
+    (0, 300, 64, 64, 1, 8, 256, 32, 10, 12),
+    (0, 45, 16, 9, 3, 1, 16, 8, 8, 10),
+]
 
 
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", PREFILL_CASES)
+@pytest.mark.parametrize("case", PREFILL_CASES + PREFILL_EDGE_CASES)
 def test_cuda_paged_prefill_matches_plain(cuda, case, dtype):
     window, start, C, clen, K, G, hd, page_size, n_pages, num_pages = case
     q, kc, vc, kp, vp, pt_row = _prefill_case(
@@ -388,6 +403,7 @@ def test_cuda_paged_prefill_matches_plain(cuda, case, dtype):
     assert bool(torch.isfinite(got).all()), "the kernel read a poisoned row"
     assert torch.equal(got, clean), "the kernel read a poisoned row"
     torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+
 
 
 @pytest.mark.requires_cuda
@@ -497,6 +513,74 @@ def test_cuda_flash_attention_never_reads_dead_keys(cuda, dtype):
     k[:, :, 256:] = float("nan")
     v[:, :, 256:] = float("nan")
     poisoned = ops.flash_attention(q, k, v, causal=True)
+    assert torch.equal(clean, poisoned)
+    assert bool(torch.isfinite(poisoned).all())
+
+
+# (B, H, K, Sq, Sk, hd, causal, window) past the op's shape contract,
+# through the kernel's own entry point: the bf16 kernel's tiles are 128
+# query rows and 128 keys (64 for hd > 128), hd padded to a multiple of
+# 64.  Head dims 8, 16, 128, 256 (and 72, 192); groups 1, 3, 4, 8; Sq != Sk
+# both ways; windows that are not a multiple of the key tile; Sq not a
+# multiple of 128.
+FLASH_EDGE_CASES = [
+    (1, 6, 2, 200, 200, 8, True, 0),
+    (2, 3, 3, 130, 70, 16, True, 37),
+    (1, 8, 2, 136, 300, 128, False, 0),
+    (1, 8, 1, 250, 250, 256, True, 100),
+    (1, 12, 3, 300, 200, 64, True, 50),
+    (2, 15, 5, 333, 333, 64, False, 129),
+    (1, 4, 1, 96, 500, 72, False, 65),
+    (1, 8, 1, 190, 190, 192, True, 0),
+    (1, 16, 2, 1, 257, 64, False, 0),
+]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_EDGE_CASES)
+def test_cuda_flash_attention_edges_match_plain(cuda, case, dtype):
+    """The kernel's tile edges against its plain version (same gates as
+    above); rows with no live key are 0; one launch."""
+    from repro_torch.kernels.flash_attention import flash_attention_flat
+
+    B, H, K, Sq, Sk, hd, causal, window = case
+    q, k, v = _flash_inputs(B, H, K, Sq, Sk, hd, dtype, cuda, seed=Sq + hd)
+    before = ops.launch_counts()["flash_attention"]
+    got = flash_attention_flat(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == before + 1
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+    qp = torch.arange(Sq, device=cuda)[:, None]
+    kp = torch.arange(Sk, device=cuda)[None, :]
+    live = torch.ones((Sq, Sk), dtype=torch.bool, device=cuda)
+    if causal:
+        live &= kp <= qp
+    if window:
+        live &= kp > qp - window
+    dead = ~live.any(dim=1)
+    assert torch.count_nonzero(got[:, :, dead]) == 0
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Sq,hd,G", [(200, 64, 3), (77, 128, 4),
+                                     (130, 256, 1), (100, 16, 8)])
+def test_cuda_flash_attention_partial_tile_never_reads_dead_keys(
+        cuda, dtype, Sq, hd, G):
+    """Causal with Sk > Sq, Sq not a multiple of the key tile: the block's
+    last key tile ends inside real keys that no query sees.  NaN there
+    must leave the output bit-equal to the clean one."""
+    from repro_torch.kernels.flash_attention import flash_attention_flat
+
+    K = 2
+    q, k, v = _flash_inputs(1, G * K, K, Sq, 512, hd, dtype, cuda, seed=Sq)
+    clean = flash_attention_flat(q, k, v, causal=True)
+    k[:, :, Sq:] = float("nan")
+    v[:, :, Sq:] = float("nan")
+    poisoned = flash_attention_flat(q, k, v, causal=True)
     assert torch.equal(clean, poisoned)
     assert bool(torch.isfinite(poisoned).all())
 

@@ -149,9 +149,9 @@ def test_padded_size_matches_reference():
 def test_build_names_libraries_by_source_hash(tmp_path, monkeypatch):
     src = tmp_path / "k.cu"
     src.write_text("// one\n")
-    first = build._target(src)
+    first = build._target(src, b"")
     src.write_text("// two\n")
-    assert build._target(src) != first
+    assert build._target(src, b"") != first
     assert first.name.startswith("libk_") and first.suffix == ".so"
     assert {p.stem for p in build.CSRC.glob("*.cu")} == {
         "edm_update", "edm_update_ef", "flash_attention", "gossip_axpy",
