@@ -10,8 +10,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. build: compiles the port's CUDA kernels from
    ``src/repro_torch/kernels/csrc`` for ``sm_90a`` (one ``nvcc`` per
    source, in parallel) and prints each kernel's registers, spills and
-   static shared memory (``-Xptxas -v``), and the redesigned attention
-   kernels' dynamic shared memory a block;
+   static shared memory (``-Xptxas -v``), the redesigned attention
+   kernels' dynamic shared memory a block, and the paged decode kernel's
+   cluster (blocks a cluster, keys a block) at phase 7's timed shape;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the main path's shapes and at small odd ones, bit for bit, with its
    median device time over 20 launches (CUDA events; every timed run of
@@ -58,6 +59,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    at 3.35 TB/s or bf16 operations at 989 TFLOP/s) and one
    ``F.scaled_dot_product_attention`` call over pre-gathered dense K/V
    (the yardstick: it excludes the gather, and the port never calls it);
+   paged decode's share of its bound printed;
 8. serving main path: ``repro_torch.launch.serve`` with chunked
    continuous batching at full width, then the engine itself at a
    1024-token context (32 requests, prompts 256–768, chunks of 128), each
@@ -95,9 +97,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    within four bf16 ulps of the operands' scale of the unfused chain;
 10. the paper on the card: §E.1's quadratic problem, 32 agents on a ring,
    full gradients, 3000 steps of EDM and DmSGD through ``make_optimizer``:
-   EDM's mean ‖xᵢ − x*‖² below 1e-8, DmSGD's above 1e-3.
+   EDM's mean ‖xᵢ − x*‖² below 1e-8, DmSGD's above 1e-3;
+11. hand-off: 2 bus steps at full width through the train CLI (2 EDM and
+   2 combine launches), the parameters saved with the port's
+   ``checkpoint.save`` (``params|`` leaves, the bus unpacked), their
+   consensus exported with the port's ``export_consensus`` and served by
+   ``repro_torch.launch.serve --ckpt`` in bf16 (4 requests; counts reset
+   before and read after: 32 paged-attention launches a dispatch); the
+   served parameters' digest equal to the export's, the exported model's
+   logits finite; then at the smoke config on the card a run resumed
+   through ``--ckpt`` / ``--resume`` bit-equal to the uninterrupted one.
+   The files go to ``build/handoff/`` and are deleted after use.
 
-Phases run in the order 1–3, 3w, 3f, 4–6, 4w–6w, 4t–6t, 7–10.  The third
+Phases run in the order 1–3, 3w, 3f, 4–6, 4w–6w, 4t–6t, 7–11.  The third
 line from the end is the ``nvidia-smi`` name and power limit,
 the line before the last ``{"kernels": [...]}`` and the last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -225,16 +237,32 @@ def ptxas_report(log: str):
 def attention_smem_report():
     """The redesigned attention kernels' dynamic shared memory a block at
     each head dim (the C launchers' own sizes; ptxas reports static
-    shared memory only)."""
+    shared memory only), and the paged decode kernel's cluster at phase
+    7's timed shape."""
+    import torch
     from repro_torch.kernels import build
+    from repro_torch.kernels._ffi import sm_count
+    from repro_torch.kernels.paged_attention import split_plan
     flash = build.library("flash_attention")
     prefill = build.library("paged_prefill")
-    return [f"dynamic smem at hd {hd}: flash_wgmma_kernel "
-            f"{flash.flash_attention_smem_bytes(hd)} B; "
-            f"paged_prefill_mma_kernel "
-            f"{prefill.paged_prefill_smem_bytes(hd, 128, PAGE, 6)} B "
-            f"(split_keys 128, page {PAGE}, 6 splits)"
-            for hd in (8, 64, 128, 192, 256)]
+    decode = build.library("paged_attention")
+    lines = [f"dynamic smem at hd {hd}: flash_wgmma_kernel "
+             f"{flash.flash_attention_smem_bytes(hd)} B; "
+             f"paged_prefill_mma_kernel "
+             f"{prefill.paged_prefill_smem_bytes(hd, 128, PAGE, 6)} B "
+             f"(split_keys 128, page {PAGE}, 6 splits); "
+             f"paged_decode_mma_kernel (bf16) "
+             f"{decode.paged_attention_smem_bytes(3, hd, 1)} B, "
+             f"paged_decode_simt_kernel (f32) "
+             f"{decode.paged_attention_smem_bytes(3, hd, 0)} B (G 3)"
+             for hd in (8, 64, 128, 192, 256)]
+    sms = sm_count(torch.device("cuda"))
+    n_split, split_keys = split_plan(SLOTS, 5, CTX, PAGE, sms=sms)
+    lines.append(f"paged_decode at the timed shape ({SLOTS} slots, 5 KV "
+                 f"heads, {CTX}-row tables): clusters of {n_split} blocks, "
+                 f"{split_keys} keys a block, {SLOTS * 5 * n_split} blocks "
+                 f"on {sms} SMs")
+    return lines
 
 
 def bound_ms(n_bytes: float, n_flops: float,
@@ -677,7 +705,9 @@ def check_decode(case, dtype, timed: bool):
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.paged_attention import paged_attention_flat
+    from repro_torch.kernels._ffi import sm_count
+    from repro_torch.kernels.paged_attention import (paged_attention_flat,
+                                                     split_plan)
     B, K, G, hd, ps = (case[k] for k in ("B", "K", "G", "hd", "page_size"))
     q, kp, vp, pt, kv = decode_inputs(B, K, G, hd, ps, case["kv_len"], B,
                                       dtype)
@@ -722,7 +752,10 @@ def check_decode(case, dtype, timed: bool):
         rec["flops"] = 4 * rows * K * G * hd
         rec["bound_ms"], rec["bound_by"] = bound_ms(
             rec["bytes"], rec["flops"], peak_flops(dtype))
+        rec["bound_fraction"] = rec["bound_ms"] / rec["ms"]
         rec["kv_rows"] = rows
+        rec["n_split"], rec["split_keys"] = split_plan(
+            B, K, pt.shape[1] * ps, ps, sms=sm_count(q.device))
     del q, kp, vp, kc, vc, got, want, poisoned
     return rec
 
@@ -1007,7 +1040,8 @@ BUCKETS = (("edm_update kernel", ("edm_update_kernel",)),
            ("edm_update_ef kernel", ("edm_ef_",)),
            ("gossip_axpy kernel", ("gossip_axpy_kernel",)),
            ("gossip_axpy_q8 kernel", ("gossip_axpy_q8_kernel",)),
-           ("paged_attention kernel", ("paged_attention_kernel",)),
+           ("paged_attention kernel", ("paged_decode_mma_kernel",
+                                       "paged_decode_simt_kernel")),
            ("paged_prefill kernel", ("paged_prefill_kernel",
                                      "paged_prefill_mma_kernel")),
            ("roll (gossip terms)", ("roll_cuda_kernel",)),
@@ -1371,6 +1405,117 @@ def paper_phase():
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the train → export → serve hand-off
+# ---------------------------------------------------------------------------
+
+HANDOFF_DIR = ROOT / "build" / "handoff"
+HANDOFF_STEPS = 2
+# the serve CLI on the export: 4 requests of the CLI trace's sizes, bf16
+HANDOFF_SERVE = ["--arch", ARCH, "--continuous-batching", "--prefill-chunk",
+                 "16", "--max-step-tokens", "32", "--prompt-dist", "exact",
+                 "--max-slots", "4", "--page-size", "16", "--requests", "4",
+                 "--rate", "50", "--attn-impl", "kernel", "--device", "cuda"]
+SMOKE_RESUME = ["--arch", ARCH, "--smoke", "--agents", str(AGENTS),
+                "--agents-per-device", str(AGENTS), "--gossip-engine",
+                "ppermute", "--fused-kernel", "--seq", "16", "--device",
+                "cuda"]
+
+
+def handoff_phase(n_layers: int):
+    """Phase 11: train 2 bus steps at full width through the train CLI,
+    save the parameters (``params|`` leaves, the bus unpacked) with the
+    port's ``checkpoint.save``, export their consensus with the port's
+    ``export_consensus`` and serve 4 requests from it through the serve
+    CLI's ``--ckpt`` in bf16: 32 decode launches a dispatch, the served
+    parameters the export's bits, finite logits.  Then, at the smoke
+    config on the card, ``--ckpt`` / ``--resume`` (``save_state`` /
+    ``load_state``) resumed bit for bit."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.launch import train as cli
+    from repro_torch.models import build_model
+    from repro_torch.train import bus_layout_for, checkpoint
+    from repro_torch.weights import params_digest, params_from_npz
+    HANDOFF_DIR.mkdir(parents=True, exist_ok=True)
+    params_path = HANDOFF_DIR / "params.npz"
+    export_path = HANDOFF_DIR / "consensus.npz"
+    rec = {}
+    args = MAIN_ARGS.copy()
+    args[args.index("--steps") + 1] = str(HANDOFF_STEPS)
+    ops.reset_launch_counts()
+    result = cli.main(args)
+    train_counts = ops.launch_counts()
+    check(train_counts["edm_update"] == HANDOFF_STEPS
+          and train_counts["gossip_axpy"] == HANDOFF_STEPS,
+          f"hand-off training launched {train_counts}")
+    check(all(math.isfinite(v) for m in result["metrics"]
+              for v in m.values()), "hand-off training: non-finite metrics")
+    model = build_model(get_config(ARCH))
+    layout = bus_layout_for(model, AGENTS)
+    t0 = time.perf_counter()
+    checkpoint.save(str(params_path), {"params": result["state"]["params"]},
+                    layout=layout)
+    rec["save_s"] = time.perf_counter() - t0
+    rec["params_file_gb"] = params_path.stat().st_size / 1e9
+    del result
+    free()
+    t0 = time.perf_counter()
+    checkpoint.export_consensus(str(params_path), str(export_path))
+    rec["export_s"] = time.perf_counter() - t0
+    rec["export_file_gb"] = export_path.stat().st_size / 1e9
+    with np.load(params_path) as f:
+        check(all(k.startswith("params|") for k in f.files)
+              and len(f.files) == len(layout.paths),
+              "the saved file is not the params leaves")
+    exported = params_from_npz(str(export_path))
+    want = params_digest(exported)
+    check(set(exported) == set(layout.paths) and all(
+        exported[p].dtype == torch.bfloat16 for p in exported),
+        "the export is not one bf16 replica of every leaf")
+    params_path.unlink()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    metrics = serve_cli.main(HANDOFF_SERVE + ["--ckpt", str(export_path)])
+    rec["serve_s"] = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    check_serve_counts(counts, metrics, n_layers, "hand-off serve CLI")
+    check(metrics["params_sha256"] == want,
+          "the served parameters are not the export's bits")
+    check(metrics["requests"] == 4 and metrics["tokens"] > 0,
+          f"hand-off serve CLI finished {metrics}")
+    served = {p: t.cuda() for p, t in exported.items()}
+    tokens = torch.randint(0, model.cfg.vocab_size, (2, 32), device="cuda",
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(11))
+    logits = model.prefill(served, {"tokens": tokens})[0]
+    check(bool(torch.isfinite(logits).all()),
+          "the exported model gives non-finite logits")
+    del served, exported, logits
+    export_path.unlink()
+    free()
+    rec.update(serve_counts=counts, serve_metrics=metrics,
+               params_sha256=want)
+    # save_state / load_state on the card: a resumed run is the
+    # uninterrupted one, bit for bit
+    ck = HANDOFF_DIR / "smoke_state.npz"
+    full = cli.main(SMOKE_RESUME + ["--steps", "4"])["state"]
+    cli.main(SMOKE_RESUME + ["--steps", "2", "--ckpt", str(ck)])
+    resumed = cli.main(SMOKE_RESUME + ["--steps", "2", "--resume",
+                                       str(ck)])["state"]
+    ck.unlink()
+    check(resumed["step"] == full["step"] == 4
+          and same_bits(resumed["params"], full["params"])
+          and all(same_bits(resumed["opt"][k], full["opt"][k])
+                  for k in full["opt"]),
+          "the resumed smoke run differs from the uninterrupted one")
+    rec["resume_bit_equal"] = True
+    return rec
+
+
 def main() -> None:
     t_start = time.time()
     import torch
@@ -1610,6 +1755,13 @@ def main() -> None:
     for name, recs in serve_recs.items():
         for rec in recs:
             print(f"[serve-kernels] {name} {rec}", flush=True)
+    dt = serve_timed["paged_attention"]
+    print(f"[serve-kernels] paged_attention timed ({dt['dtype']}, q "
+          f"{dt['shape']}, {dt['kv_rows']} KV rows): {dt['ms']:.5f} ms; "
+          f"plain {dt['plain_ms']:.4f} ms; SDPA {dt['library_ms']:.5f} ms; "
+          f"bound {dt['bound_ms']:.5f} ms ({dt['bound_by']}), "
+          f"{dt['bound_fraction']:.1%} of it; clusters of {dt['n_split']} "
+          f"blocks, {dt['split_keys']} keys a block; {smi}", flush=True)
 
     # 8. the serving main path: the CLI, then the engine at context 1024
     from repro_torch.launch import serve as serve_cli
@@ -1677,6 +1829,11 @@ def main() -> None:
           f"{mixed['buckets']['paged_prefill kernel']:.3f} ms of "
           f"{mixed['device_busy_ms']:.3f} ms device busy "
           f"({prefill_share:.1%}); {smi}", flush=True)
+    for what, rec in disp.items():
+        ms = rec["buckets"]["paged_attention kernel"]
+        print(f"[serve-profile] {what} dispatch: paged_attention kernel "
+              f"{ms:.3f} ms of {rec['device_busy_ms']:.3f} ms device busy "
+              f"({ms / rec['device_busy_ms']:.1%})", flush=True)
     del eng
     free()
 
@@ -1696,6 +1853,20 @@ def main() -> None:
           f"‖x_i − x*‖² = {paper['edm']:.3e} ({paper['edm_s']:.1f} s), DmSGD "
           f"{paper['dmsgd']:.3e} ({paper['dmsgd_s']:.1f} s); ζ² = "
           f"{paper['zeta2']:.2f}", flush=True)
+
+    # 11. the train → export → serve hand-off, at full width and depth
+    handoff = handoff_phase(n_layers)
+    hm = handoff["serve_metrics"]
+    print(f"[handoff] {HANDOFF_STEPS} bus steps → checkpoint.save "
+          f"{handoff['params_file_gb']:.2f} GB in {handoff['save_s']:.1f} s "
+          f"→ export_consensus {handoff['export_file_gb']:.2f} GB in "
+          f"{handoff['export_s']:.1f} s → serve CLI --ckpt: "
+          f"{hm['requests']} requests, {hm['tokens']} tokens in "
+          f"{hm['steps']} dispatches ({handoff['serve_s']:.1f} s), launches "
+          f"{handoff['serve_counts']}; served params sha256 "
+          f"{handoff['params_sha256'][:16]}… == the export's; smoke "
+          f"--ckpt/--resume bit-equal: {handoff['resume_bit_equal']}",
+          flush=True)
 
     def serve_row(name, replaces):
         rec = serve_timed[name]
@@ -1717,6 +1888,7 @@ def main() -> None:
             "max_err_over_tol": max(r["err_over_tol"]
                                     for r in serve_recs[name]),
             "launches_ctx1024": serve_counts[name],
+            "launches_handoff": handoff["serve_counts"][name],
             "timing": TIMING}
 
     kernels = [
@@ -1741,6 +1913,9 @@ def main() -> None:
         serve_row("paged_attention", "src/repro/kernels/paged_attention.py:48"),
         serve_row("paged_prefill", "src/repro/kernels/paged_prefill.py:59"),
     ]
+    decode = serve_timed["paged_attention"]
+    kernels[2].update({k: decode[k] for k in ("bound_fraction", "n_split",
+                                              "split_keys")})
     kernels[-1].update(
         host_ms=serve_timed["paged_prefill"]["host_ms"],
         mixed_dispatch_busy_ms=mixed["device_busy_ms"],

@@ -8,19 +8,21 @@ returns ``cudaGetLastError()``; dtypes cross as ``DTYPE_CODE`` integers.
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence
+from typing import Dict, Sequence
 
 import torch
 
 from . import build
 
 __all__ = ["DTYPE_CODE", "FLOAT_DTYPES", "MAX_HEAD_DIM", "check",
-           "check_head", "launcher", "raise_on", "stream"]
+           "check_head", "launcher", "raise_on", "sm_count", "stream"]
 
 # dtype codes of the C launchers; int8 is the quantized gossip wire's
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 FLOAT_DTYPES = (torch.float32, torch.bfloat16)
 MAX_HEAD_DIM = 256      # the attention kernels' shared-memory tiles
+
+_sm_counts: Dict[torch.device, int] = {}
 
 
 def launcher(name: str, argtypes: Sequence):
@@ -62,6 +64,15 @@ def check_head(q: torch.Tensor, hd: int) -> None:
     if hd % 8 or not 0 < hd <= MAX_HEAD_DIM:
         raise ValueError(f"head dim {hd} must be a multiple of 8 in "
                          f"[8, {MAX_HEAD_DIM}]")
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of ``device`` (read once, then cached):
+    what the attention kernels' split plans fill."""
+    if device not in _sm_counts:
+        _sm_counts[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _sm_counts[device]
 
 
 def stream(t: torch.Tensor) -> ctypes.c_void_p:

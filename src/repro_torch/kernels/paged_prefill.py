@@ -9,9 +9,10 @@ chunk's own ``(K, C, hd)`` keys.
 
 In bf16 the kernel splits the slot's keys across blocks by
 :func:`split_plan` and merges the splits' partials inside the same launch;
-the wrapper allocates their scratch, and keeps one zeroed ticket buffer a
-device that the kernel leaves zeroed (so two launches on one device must
-not overlap in time: the engine launches on one stream).  It takes CUDA tensors only, checks
+the wrapper allocates their scratch, and keeps one zeroed ticket buffer
+per (device, stream) that the kernel leaves zeroed: launches on one stream
+run in order, and launches on two streams never share a ticket, so they
+may overlap in time.  It takes CUDA tensors only, checks
 them as :func:`~repro_torch.kernels.paged_attention.paged_attention_flat`
 does, launches on PyTorch's current stream and raises on a non-zero CUDA
 status.  ``paged_prefill_flat.launches`` counts its launches, incremented
@@ -27,7 +28,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from ._ffi import DTYPE_CODE, check, check_head, launcher, raise_on, stream
+from ._ffi import (DTYPE_CODE, check, check_head, launcher, raise_on,
+                   sm_count, stream)
 
 __all__ = ["KEY_TILE", "MAX_SPLITS", "Q_TILE", "paged_prefill_flat",
            "split_plan"]
@@ -36,8 +38,7 @@ Q_TILE = 64       # query rows per block of the bf16 kernel
 KEY_TILE = 64     # keys per tile; a split holds a whole number of tiles
 MAX_SPLITS = 64   # the merge's weights fit the block's shared memory
 
-_tickets: Dict[torch.device, torch.Tensor] = {}
-_sm_counts: Dict[torch.device, int] = {}
+_tickets: Dict[Tuple[torch.device, int], torch.Tensor] = {}
 
 
 def split_plan(prev: int, n_chunk: int, q_rows: int, n_kv_heads: int, *,
@@ -61,20 +62,17 @@ def split_plan(prev: int, n_chunk: int, q_rows: int, n_kv_heads: int, *,
     return -(-n_tiles // per), per * KEY_TILE
 
 
-def _sms(device: torch.device) -> int:
-    if device not in _sm_counts:
-        _sm_counts[device] = torch.cuda.get_device_properties(
-            device).multi_processor_count
-    return _sm_counts[device]
-
-
 def _ticket_buffer(device: torch.device, n: int) -> torch.Tensor:
-    """At least ``n`` int32 tickets on ``device``, zero: the kernel's last
-    block of a query tile resets the ticket it took."""
-    buf = _tickets.get(device)
+    """At least ``n`` int32 tickets of ``device``'s current stream, zero:
+    the kernel's last block of a query tile resets the ticket it took, and
+    a launch on another stream takes tickets of its own.  A new buffer is
+    zeroed on that stream, so it is ready before the launch that uses
+    it."""
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    buf = _tickets.get(key)
     if buf is None or buf.numel() < n:
         buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
-        _tickets[device] = buf
+        _tickets[key] = buf
     return buf
 
 
@@ -116,7 +114,7 @@ def paged_prefill_flat(q, k_chunk, v_chunk, k_pool, v_pool, pt_row,
         prev = min(start, window) if window else start
         prev = max(0, min(prev, n_pages * page_size))
         n_split, split_keys = split_plan(prev, clen, CG, K,
-                                         sms=_sms(q.device))
+                                         sms=sm_count(q.device))
         if n_split > 1:
             o_part = torch.empty((n_split, K, CG, hd), dtype=torch.float32,
                                  device=q.device)

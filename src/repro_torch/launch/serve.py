@@ -17,9 +17,13 @@ the card, their plain versions on the CPU), where the reference's takes
       --continuous-batching --prefill-chunk 16 --max-step-tokens 32 \
       --prompt-dist exact --max-slots 8 --page-size 16 --requests 16
 
-``--ckpt`` loads a consensus export of the reference's training
-(``repro.train.checkpoint.export_consensus``, an npz of the bare-path
-parameter tree) through :func:`repro_torch.weights.params_from_npz`.
+``--ckpt`` loads a consensus export — the port's
+(``repro_torch.train.checkpoint.export_consensus``) or the reference's,
+an npz of the bare-path parameter tree — through
+:func:`repro_torch.weights.params_from_npz`, and prints the parameters'
+SHA-256 (:func:`repro_torch.weights.params_digest`), which the returned
+metrics carry as ``params_sha256``: the train → export → serve hand-off
+can check that the served weights are the exported bits.
 """
 from __future__ import annotations
 
@@ -36,7 +40,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import build_model
 from repro_torch.serve import (ContinuousBatchingEngine, PagedCacheConfig,
                                greedy_generate, poisson_load)
-from repro_torch.weights import params_from_npz
+from repro_torch.weights import params_digest, params_from_npz
 
 __all__ = ["parser", "main"]
 
@@ -58,7 +62,8 @@ def parser() -> argparse.ArgumentParser:
                     help="sliding-window KV cache size (0 = full)")
     ap.add_argument("--ckpt", default=None,
                     help="consensus-exported params .npz "
-                         "(repro.train.checkpoint.export_consensus)")
+                         "(repro_torch.train.checkpoint.export_consensus, "
+                         "or the JAX package's)")
     ap.add_argument("--continuous-batching", action="store_true",
                     help="serve a Poisson request trace through the paged "
                          "continuous-batching engine instead of one fixed "
@@ -94,15 +99,18 @@ def parser() -> argparse.ArgumentParser:
 def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     """Parse ``argv``, serve, print the metrics, and return them: the
     engine's :func:`~repro_torch.serve.scheduler.summarize` dict with
-    ``--continuous-batching``, else ``{"tokens": (B, new_tokens) ids,
-    "seconds": s}``."""
+    ``--continuous-batching`` (plus ``params_sha256`` with ``--ckpt``),
+    else ``{"tokens": (B, new_tokens) ids, "seconds": s,
+    "params_sha256": digest or None}``."""
     args = parser().parse_args(argv)
     device = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     model = build_model(cfg, decode_window=args.window)
+    digest = None
     if args.ckpt:
         params = params_from_npz(args.ckpt, device=device)
-        print(f"loaded consensus params from {args.ckpt}")
+        digest = params_digest(params)
+        print(f"loaded consensus params from {args.ckpt} (sha256 {digest})")
     else:
         params = model.init(torch.Generator(device=device).manual_seed(0))
 
@@ -122,6 +130,8 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
                             new_token_buckets=(4, 8, 16, MAX_NEW),
                             prompt_dist=args.prompt_dist, seed=1)
         metrics = eng.run(reqs)
+        if digest is not None:
+            metrics["params_sha256"] = digest
         pf = (f"chunked(C={args.prefill_chunk})"
               if args.prefill_chunk else "per-request")
         print(f"arch={cfg.name} engine=continuous slots={args.max_slots} "
@@ -147,7 +157,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
           f"({args.batch * args.new_tokens / dt:.1f} tok/s)")
     for i in range(min(args.batch, 4)):
         print(f"  req{i}: {out[i].tolist()}")
-    return {"tokens": out, "seconds": dt}
+    return {"tokens": out, "seconds": dt, "params_sha256": digest}
 
 
 if __name__ == "__main__":

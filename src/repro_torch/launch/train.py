@@ -16,10 +16,18 @@ combine launch per parameter leaf with ``--fused-kernel``).
 and ``--gossip-schedule {round_robin,alt_hier}`` (with
 ``--gossip-period`` / ``--gossip-seed``) the time-varying schedules; the
 header line prints the schedule, its period-product λ, the wire format
-and, on the bus, the modeled wire bytes of one gossip round.  Flags of
-levers the port does not run yet (``--agents pod``, ``--ckpt``,
-``--resume``, ``--churn``, overlap, groups) are accepted by the parser
-and rejected with a pointer to ROADMAP.md.
+and, on the bus, the modeled wire bytes of one gossip round.
+
+``--ckpt PATH`` writes the full train state after the last step
+(:func:`repro_torch.train.checkpoint.save_state`: the logical npz of the
+JAX package, bus unpacked to leaves) and ``--resume PATH`` restores one
+before the first step (:func:`~repro_torch.train.checkpoint.
+load_state_resized`: a file of either package, at any agent count).  The
+token stream is drawn per global step, so a run resumed at step t takes
+the batches the uninterrupted run takes from step t on.  Flags of levers
+the port does not run yet (``--agents pod``, ``--churn``, overlap,
+groups) are accepted by the parser and rejected with a pointer to
+ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -37,8 +45,9 @@ from repro_torch.data import SyntheticLM
 from repro_torch.device import resolve_device
 from repro_torch.launch.flags import add_run_flags, run_config_overrides
 from repro_torch.models import build_model
-from repro_torch.train import (build_train_step, bus_layout_for, init_state,
-                               make_gossip_schedule, resolve_features)
+from repro_torch.train import (build_train_step, bus_layout_for, checkpoint,
+                               init_state, make_gossip_schedule,
+                               resolve_features)
 
 __all__ = ["parser", "main"]
 
@@ -63,9 +72,12 @@ def parser() -> argparse.ArgumentParser:
     add_run_flags(ap)
     ap.add_argument("--phi", type=float, default=0.2,
                     help="Dirichlet heterogeneity of the token streams")
-    ap.add_argument("--ckpt", default="", help="not ported yet")
+    ap.add_argument("--ckpt", default="",
+                    help="write the train state here after the last step")
     ap.add_argument("--churn", default="", help="not ported yet")
-    ap.add_argument("--resume", default="", help="not ported yet")
+    ap.add_argument("--resume", default="",
+                    help="restore a train state saved by --ckpt (either "
+                         "package; another agent count is resized)")
     ap.add_argument("--device", default=None,
                     help="cuda (default; raises without a GPU) or cpu")
     return ap
@@ -80,8 +92,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
     on the bus (None on the tree path)."""
     args = parser().parse_args(argv)
     for flag, val in (("--agents pod", args.agents == "pod"),
-                      ("--shards", args.shards), ("--ckpt", args.ckpt),
-                      ("--churn", args.churn), ("--resume", args.resume)):
+                      ("--shards", args.shards), ("--churn", args.churn)):
         if val:
             raise NotImplementedError(f"{flag} is not ported to repro_torch "
                                       "yet (see ROADMAP.md)")
@@ -94,7 +105,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
                     **run_config_overrides(args))
     feats = resolve_features(run)
     sched = make_gossip_schedule(run, n_agents, pods=args.pods)
-    wire_bytes = None
+    wire_bytes, layout = None, None
     if feats.packed_bus:
         layout = bus_layout_for(model, n_agents)
         codec = make_codec(feats.wire, layout.block_rows)
@@ -122,10 +133,16 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
     data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=args.seq,
                        n_agents=n_agents, phi=args.phi)
     state = init_state(model, run, n_agents, seed=0, device=device)
+    if args.resume:
+        state = checkpoint.load_state_resized(args.resume, state,
+                                              layout=layout)
+        print(f"resumed <- {args.resume} @ step {state['step']}")
     step = build_train_step(model, run, sched,
                             use_fused_kernel=args.fused_kernel,
                             device=device)
     gen = torch.Generator(device=device).manual_seed(1)
+    for _ in range(state["step"]):       # the batches of the steps taken
+        data.sample(gen, args.per_agent_batch)
     history, seconds = [], []
     t0 = time.time()
     for t in range(args.steps):
@@ -139,6 +156,9 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
             print(f"step {t:4d} loss={m['loss']:.4f} "
                   f"consensus={m['consensus']:.2e} "
                   f"({time.time()-t0:.1f}s)", flush=True)
+    if args.ckpt:
+        checkpoint.save_state(args.ckpt, state, layout=layout)
+        print(f"checkpoint -> {args.ckpt}")
     return {"state": state, "metrics": history, "step_seconds": seconds,
             "run": run, "wire_bytes": wire_bytes}
 

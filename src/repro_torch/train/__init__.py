@@ -1,10 +1,12 @@
-"""Trainer of the port (the packed-bus EDM path and the tree path)."""
+"""Trainer of the port (the packed-bus EDM path and the tree path) and
+its checkpoints."""
+from . import checkpoint
 from .trainer import (Features, build_train_step, bus_layout_for,
                       gossip_round_step, init_state, losses_and_grads,
                       make_gossip_schedule, make_topology,
                       resolve_features, tree_losses_and_grads)
 
-__all__ = ["Features", "build_train_step", "bus_layout_for",
+__all__ = ["Features", "checkpoint", "build_train_step", "bus_layout_for",
            "gossip_round_step", "init_state", "losses_and_grads",
            "make_gossip_schedule", "make_topology", "resolve_features",
            "tree_losses_and_grads"]

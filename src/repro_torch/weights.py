@@ -19,11 +19,14 @@ parameter tree flattened to ``{path: tensor}``.
 
 bf16 leaves arrive as 2-byte numpy values (ml_dtypes ``bfloat16`` in
 memory, ``|V2`` from an npz); their bits are reinterpreted as
-``torch.bfloat16``, so the values carry over exactly.
+``torch.bfloat16``, so the values carry over exactly
+(:func:`array_to_tensor`); :func:`tensor_to_array` is the way back, bf16
+as ``|V2`` bits, which is what the JAX package's npz files hold.
 :func:`params_to_bus` packs the dict straight into an A-agent bus.
 """
 from __future__ import annotations
 
+import hashlib
 from typing import Any, Dict, Mapping
 
 import numpy as np
@@ -31,18 +34,30 @@ import torch
 
 from repro_torch.core import bus as parambus
 
-__all__ = ["params_from_tree", "params_from_npz", "params_to_bus",
+__all__ = ["array_to_tensor", "tensor_to_array", "params_from_tree",
+           "params_from_npz", "params_digest", "params_to_bus",
            "train_state_from_arrays"]
 
 _SEP = "|"
 
 
-def _tensor(arr: np.ndarray, device) -> torch.Tensor:
+def array_to_tensor(arr: np.ndarray, device) -> torch.Tensor:
+    """A numpy array as a tensor of its own on ``device``; a 2-byte void or
+    ml_dtypes bf16 array becomes ``torch.bfloat16`` with the same bits."""
     arr = np.asarray(arr)
     if arr.dtype.kind == "V" and arr.dtype.itemsize == 2:
         bits = np.ascontiguousarray(arr).view(np.int16)
         return torch.from_numpy(bits.copy()).view(torch.bfloat16).to(device)
     return torch.from_numpy(np.ascontiguousarray(arr).copy()).to(device)
+
+
+def tensor_to_array(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a numpy array on the host; ``torch.bfloat16`` becomes
+    ``|V2`` values of the same bits (numpy has no bf16 of its own)."""
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view("V2")
+    return t.numpy()
 
 
 def _walk(node: Any, prefix: str, out: Dict[str, np.ndarray]) -> None:
@@ -61,7 +76,7 @@ def params_from_tree(tree: Any, device="cpu") -> Dict[str, torch.Tensor]:
     """Nested dict/tuple/list tree of numpy arrays → ``{path: tensor}``."""
     flat: Dict[str, np.ndarray] = {}
     _walk(tree, "", flat)
-    return {p: _tensor(a, device) for p, a in flat.items()}
+    return {p: array_to_tensor(a, device) for p, a in flat.items()}
 
 
 def params_from_npz(path: str, device="cpu") -> Dict[str, torch.Tensor]:
@@ -71,9 +86,21 @@ def params_from_npz(path: str, device="cpu") -> Dict[str, torch.Tensor]:
         keys = list(data.keys())
         prefix = "params" + _SEP
         if any(k.startswith(prefix) for k in keys):
-            return {k[len(prefix):]: _tensor(data[k], device)
+            return {k[len(prefix):]: array_to_tensor(data[k], device)
                     for k in keys if k.startswith(prefix)}
-        return {k: _tensor(data[k], device) for k in keys}
+        return {k: array_to_tensor(data[k], device) for k in keys}
+
+
+def params_digest(params: Mapping[str, torch.Tensor]) -> str:
+    """SHA-256 of a parameter dict: each path (sorted), dtype, shape and
+    the leaf's bytes.  Equal digests mean equal bits, wherever the tensors
+    lie (they are read on the host)."""
+    h = hashlib.sha256()
+    for path in sorted(params):
+        arr = tensor_to_array(params[path])
+        h.update(f"{path}|{arr.dtype.str}|{arr.shape}\n".encode())
+        h.update(np.ascontiguousarray(arr).tobytes())
+    return h.hexdigest()
 
 
 def params_to_bus(layout: parambus.BusLayout,
@@ -100,7 +127,7 @@ def train_state_from_arrays(state: Mapping[str, Any],
     if isinstance(state["params"], Mapping):
         carry = params_from_tree
     else:
-        carry = _tensor
+        carry = array_to_tensor
     return {"params": carry(state["params"], device),
             "opt": {k: carry(v, device) for k, v in state["opt"].items()},
             "step": int(np.asarray(state["step"]))}

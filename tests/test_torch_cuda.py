@@ -258,13 +258,16 @@ def _tol(dtype):
     return dict(atol=2e-5, rtol=0.0 if dtype == torch.float32 else 2.0 ** -7)
 
 
-def _decode_case(B, K, G, hd, page_size, kv_len, seed, dtype, device):
+def _decode_case(B, K, G, hd, page_size, kv_len, seed, dtype, device,
+                 n_pages=0):
     """Ragged slot batch: slot b owns ceil(kv_len[b] / page_size) pages of a
-    shuffled pool; every other page, the null page included, is NaN."""
+    shuffled pool; every other page, the null page included, is NaN.  The
+    page table has as many pages as the longest slot needs, or
+    ``n_pages`` if more (the tail entries are the null page)."""
     rng = np.random.default_rng(seed)
     kv_len = np.asarray(kv_len, np.int32)
     used = [-(-int(n) // page_size) for n in kv_len]
-    n_pages = max(used)
+    n_pages = max(max(used), n_pages)
     num_pages = 1 + sum(used) + 2
     phys = rng.permutation(np.arange(1, num_pages))
     pt = np.zeros((B, n_pages), np.int32)
@@ -298,14 +301,30 @@ DECODE_CASES = [
 ]
 
 
-@pytest.mark.requires_cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", range(len(DECODE_CASES)))
-def test_cuda_paged_attention_matches_plain(cuda, case, dtype):
-    c = DECODE_CASES[case]
+# the edges of the cluster-split kernel (splits of 128 or 256 keys with 8
+# blocks a cluster, one block on short tables): one key, a slot exactly one
+# split long (and one key either side), exactly a page, full tables, every
+# slot idle, head dims 8 / 24 (lanes past hd/8) / 128 / 256, groups 1 / 4 /
+# 8 / 9 (two blocks a head), pages of 8 and 32 rows
+DECODE_EDGE_CASES = [
+    dict(B=2, K=2, G=3, hd=64, page_size=16, kv_len=[1, 1024]),
+    dict(B=4, K=2, G=3, hd=64, page_size=16, kv_len=[128, 129, 127, 1024]),
+    dict(B=3, K=2, G=3, hd=64, page_size=16, kv_len=[16, 32, 1024]),
+    dict(B=3, K=2, G=3, hd=64, page_size=16, kv_len=[1024, 1024, 1024]),
+    dict(B=3, K=2, G=3, hd=64, page_size=16, kv_len=[0, 0, 0], n_pages=8),
+    dict(B=3, K=2, G=3, hd=8, page_size=8, kv_len=[700, 5, 64]),
+    dict(B=2, K=2, G=4, hd=128, page_size=16, kv_len=[513, 300]),
+    dict(B=2, K=1, G=8, hd=256, page_size=32, kv_len=[1000, 31]),
+    dict(B=4, K=3, G=1, hd=64, page_size=8, kv_len=[0, 9, 400, 64]),
+    dict(B=2, K=2, G=9, hd=24, page_size=8, kv_len=[77, 300]),
+    dict(B=1, K=1, G=2, hd=16, page_size=32, kv_len=[2048]),
+]
+
+
+def _check_decode(c, seed, dtype, device):
     q, kp, vp, pt, kv_len = _decode_case(c["B"], c["K"], c["G"], c["hd"],
-                                         c["page_size"], c["kv_len"], case,
-                                         dtype, cuda)
+                                         c["page_size"], c["kv_len"], seed,
+                                         dtype, device, c.get("n_pages", 0))
     kc, vc = kp.nan_to_num(), vp.nan_to_num()     # dead rows zeroed
     before = ops.launch_counts()["paged_attention"]
     got = ops.paged_attention(q, kc, vc, pt, kv_len,
@@ -323,6 +342,20 @@ def test_cuda_paged_attention_matches_plain(cuda, case, dtype):
     assert bool(torch.isfinite(poisoned).all())
     assert bool((poisoned[kv_len == 0] == 0).all())
     assert torch.equal(poisoned, got), "the kernel read a poisoned row"
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", range(len(DECODE_CASES)))
+def test_cuda_paged_attention_matches_plain(cuda, case, dtype):
+    _check_decode(DECODE_CASES[case], case, dtype, cuda)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", range(len(DECODE_EDGE_CASES)))
+def test_cuda_paged_attention_edges_match_plain(cuda, case, dtype):
+    _check_decode(DECODE_EDGE_CASES[case], 100 + case, dtype, cuda)
 
 
 def _prefill_case(window, start, C, K, G, hd, page_size, n_pages, num_pages,
@@ -404,6 +437,38 @@ def test_cuda_paged_prefill_matches_plain(cuda, case, dtype):
     assert torch.equal(got, clean), "the kernel read a poisoned row"
     torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
 
+
+
+@pytest.mark.requires_cuda
+def test_cuda_paged_prefill_on_two_streams_equals_in_sequence(cuda):
+    """Two bf16 prefill launches with split keys, on two streams at once,
+    give the bits of the same launches in sequence: each stream merges
+    its splits through tickets of its own."""
+    cases = [(0, 640, 128, 128, 5, 3, 64, 16, 64, 80),
+             (256, 1000, 128, 128, 5, 3, 64, 16, 64, 80)]
+    inputs = [_prefill_case(w, s, C, K, G, hd, ps, n, num, 7 + i,
+                            torch.bfloat16, cuda)
+              for i, (w, s, C, _, K, G, hd, ps, n, num) in enumerate(cases)]
+
+    def run(i):
+        window, start, _, clen, *_, ps, _, _ = cases[i]
+        q, kc, vc, kp, vp, pt_row = inputs[i]
+        return ops.paged_prefill_attention(q, kc, vc, kp, vp, pt_row, start,
+                                           clen, page_size=ps,
+                                           window=window)
+
+    want = [run(0), run(1)]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for _ in range(20):
+        outs = [None, None]
+        for i, st in enumerate(streams):
+            st.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(st):
+                outs[i] = run(i)
+        torch.cuda.synchronize()
+        for i in range(2):
+            assert torch.equal(outs[i], want[i]), f"stream {i} differs"
 
 
 @pytest.mark.requires_cuda

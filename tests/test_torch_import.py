@@ -1,8 +1,9 @@
 """The port stands alone and never falls back.
 
-* ``repro_torch`` and every submodule import with no ``jax*`` and no
-  ``repro.*`` module loaded (checked in a fresh interpreter), and no source
-  of the package or ``chip_smoke.py`` holds such an import.
+* ``repro_torch`` and every submodule import with no ``jax*``, no
+  ``repro.*`` and no ``ml_dtypes`` module loaded (checked in a fresh
+  interpreter; the machine with the card may not have ml_dtypes), and no
+  source of the package or ``chip_smoke.py`` holds such an import.
 * Without a GPU, the entry points raise unless the caller asks for the
   CPU by name.
 """
@@ -27,7 +28,8 @@ from repro_torch.train import build_train_step, init_state
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
 _FORBIDDEN = re.compile(
-    r"^\s*(import\s+(jax|repro)\b(?!_)|from\s+(jax|repro)(\.\S+)?\s+import\b)",
+    r"^\s*(import\s+(jax|repro|ml_dtypes)\b(?!_)"
+    r"|from\s+(jax|repro|ml_dtypes)(\.\S+)?\s+import\b)",
     re.M)
 
 
@@ -46,14 +48,14 @@ def test_every_module_imports_without_jax_or_repro():
               "repro_torch.serve.scheduler", "repro_torch.launch.serve",
               "repro_torch.kernels.flash_attention", "repro_torch.optim",
               "repro_torch.optim.schedules", "repro_torch.core.metrics",
-              "repro_torch.data.synthetic"):
+              "repro_torch.data.synthetic", "repro_torch.train.checkpoint"):
         assert m in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m.startswith('jaxlib') or m == 'repro' "
-        "or m.startswith('repro.'))\n"
+        "or m.startswith('repro.') or m.startswith('ml_dtypes'))\n"
         "print('BAD', bad)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
@@ -70,6 +72,7 @@ def test_no_source_imports_jax_or_repro():
         assert not hits, (f, hits)
     assert _FORBIDDEN.search("from repro.core import bus")
     assert _FORBIDDEN.search("import jax.numpy as jnp")
+    assert _FORBIDDEN.search("import ml_dtypes")
     assert not _FORBIDDEN.search("from repro_torch.core import bus")
 
 

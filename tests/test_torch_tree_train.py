@@ -23,10 +23,14 @@ per step at rtol 1e-5, the final parameters and optimizer state at atol
 matmuls and softmax).
 
 With ``gossip_dtype="bfloat16"`` the payload is rounded to bf16 and the
-consensus of the first steps is mostly that rounding, so the case runs
-the fused combine on both sides (f32 accumulation, one rounding): the
+consensus of the first steps is mostly that rounding, so the case here
+runs the fused combine on both sides (f32 accumulation, one rounding): the
 plain bf16 sum rounds after every operation in eager PyTorch, while XLA
-keeps the jitted chain in f32 (29 % apart in consensus at step 0).  An
+by default keeps parts of the jitted chain in f32 (its excess precision;
+29 % apart in consensus at step 0).  The plain case,
+``"edm-gossip-bf16"``, agrees once XLA's excess precision is off: it runs
+in ``test_torch_tree_gossip_bf16.py``, its JAX side in a process started
+with that flag.  An
 element whose f32 value lies within the reduction-order slack of a bf16
 rounding boundary still rounds one bf16 ulp apart, and over 3 steps a
 flipped payload feeds the next ψ: consensus is held at rtol 1e-3 and the
@@ -78,8 +82,9 @@ CASES = {
                                 total_steps=4),
     "edm-fused-gossip-bf16": dict(algorithm="edm", fused=True,
                                   gossip_dtype="bfloat16"),
+    "edm-gossip-bf16": dict(algorithm="edm", gossip_dtype="bfloat16"),
 }
-CAST_CASES = ("edm-fused-gossip-bf16",)
+CAST_CASES = ("edm-fused-gossip-bf16", "edm-gossip-bf16")
 
 
 def run_kw(case):
@@ -125,9 +130,11 @@ def jax_trajectory(case):
     return init, batches, metrics, jax.tree.map(np.asarray, state)
 
 
-def check_trajectory(case):
-    """Run ``case`` on both sides and assert agreement as stated above."""
-    init, batches, jmetrics, jfinal = jax_trajectory(case)
+def check_trajectory(case, reference=None):
+    """Run ``case`` on both sides and assert agreement as stated above;
+    ``reference`` is the JAX side's :func:`jax_trajectory`, when it was
+    run elsewhere (in a process with other XLA flags)."""
+    init, batches, jmetrics, jfinal = reference or jax_trajectory(case)
     model = build_model(tget_smoke_config("smollm_360m"))
     state = weights.train_state_from_arrays(init)
     step = build_train_step(model, RunConfig(**run_kw(case)), ring(A),
