@@ -28,24 +28,57 @@ Phases, in order; any failure raises and the script exits non-zero:
    ties), in place and out of place; the int8 dequantize-combine as the
    ring's 3-ary case at full width (timed) and at arities 1, 2, 5 and 16.
    "Bit for bit" lets a NaN match any NaN;
+3r. the ring combine (the rolls fused in, kernel 8's counterpart)
+   against its plain version (the rolls, then the weighted sum), bit for
+   bit: at the full bus, timed beside the plain version, its bound (one
+   read and one write of the bus at 3.35 TB/s) and one
+   ``torch.matmul(W, x.view(A, -1))`` (the same function as one library
+   call; the port never calls it); at the full bus with NaN and ±Inf; at
+   A ∈ {1, 2, 3, 8, 32} with odd row counts, plain and with NaN / ±Inf;
+   each also written into ``out=``;
 4. main path: ``repro_torch.launch.train`` — smollm_360m at full width,
    4 agents on one device, ring, packed bus, fused kernels, seq 128,
-   5 steps — with the kernels' launch counts reset just before and read
-   just after (5 of each f32 training kernel, none other); losses,
+   5 steps, the bus step replayed from CUDA graphs (the CLI's default on
+   the card; step 0 runs eagerly and is captured, steps 1–4 replay) and
+   the ring gossiped through the ring kernel (the ``"auto"`` transport) —
+   with the kernels' launch counts reset just before and read just after:
+   the wrappers count the kernels they run, so 1 ``edm_update`` and 1
+   ``ring_combine`` (step 0), none other, and 4 replays; losses,
    consensus and grad norms must be finite;
-5. profile: one more train step under ``torch.profiler``, the device time
-   by kernel;
-6. fused against plain: from one saved state and one gradient bus, one
-   optimizer + gossip step with the kernels and one with the plain
-   versions; the three buses must be bit-equal;
-4w. the wire main path through the same CLI, counts reset before and read
-   after each run: ``--wire int8`` on the ring, 5 steps (5 EF-update and 5
-   q8-combine launches, no f32 training kernel), then ``--wire bf16
-   --topology exp --gossip-schedule round_robin``, 3 steps (3 EF-update
-   and 3 combine launches on the one-peer rounds); metrics finite, step
+5. profile: one more eager train step under ``torch.profiler``, the
+   device time by kernel (no roll left, the ring kernel's time); then one
+   graph replay profiled and between CUDA events, its idle share against
+   phase 4's median; the replay's device trace must hold what the eager
+   step's holds, one ``edm_update`` and one ``ring_combine`` kernel;
+6. fused against plain through the rolls: from one saved state and one
+   gradient bus, one optimizer + gossip step with the rolls and the
+   ``gossip_axpy`` kernel and one with the rolls and the plain combine;
+   the three buses must be bit-equal;
+4r. the main path with ``--eager``, counts read around it (5
+   ``ring_combine`` and 5 ``edm_update`` launches, no ``gossip_axpy``);
+   metrics finite; step times, tokens/s, peak memory, busy time and idle
+   share of the graphed and the eager run on one line each;
+6r. from one state and one gradient bus, one fused EDM step gossiping
+   through the ring kernel against one plain step gossiping through the
+   rolls and the plain combine: x, m and ψ bit-equal;
+4g. under ``torch.use_deterministic_algorithms(True)``: two eager runs
+   bit-equal, then the graphed bus step against the eager one from one
+   state and one token stream, 3 timed steps and one profiled, on the
+   ring, round_robin on the exp graph (two graphs) under
+   ``warmup_cosine``, and ``--wire int8``: metrics of every step and every bus bit-equal;
+   the wrappers counted each eager step and nothing of the replays, and
+   the profiled replay's device trace holds the eager step's kernels;
+   median step, tokens/s, busy time, idle share and peak memory of both;
+4w. the wire main path through the same CLI (graphed), counts reset
+   before and read after each run: ``--wire int8`` on the ring, 5 steps
+   (1 EF-update and 1 q8-combine launch in the eager step 0, 4 replays,
+   no f32 training kernel), then ``--wire bf16 --topology exp
+   --gossip-schedule round_robin``, 3 steps (2 EF-update and 2 combine
+   launches, one eager step a round, 1 replay); metrics finite, step
    times, peak memory and the modeled wire bytes per gossip round;
-5w. one profiled ``--wire int8`` step, device time by bucket and idle
-   share;
+5w. one profiled eager ``--wire int8`` step, device time by bucket, and
+   one graph replay profiled, its idle share; the replay's device trace
+   holds the eager step's EF-update and q8-combine kernels;
 6w. the fused EF step against the plain EF step (the codec's chain and the
    combine's plain version on the same rolled payloads), int8 and bf16,
    at full width: x, m, ψ and e bit-equal;
@@ -98,8 +131,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 10. the paper on the card: §E.1's quadratic problem, 32 agents on a ring,
    full gradients, 3000 steps of EDM and DmSGD through ``make_optimizer``:
    EDM's mean ‖xᵢ − x*‖² below 1e-8, DmSGD's above 1e-3;
-11. hand-off: 2 bus steps at full width through the train CLI (2 EDM and
-   2 combine launches), the parameters saved with the port's
+11. hand-off: 2 bus steps at full width through the train CLI (step 0
+   eager: 1 EDM and 1 ring-combine launch; step 1 replayed), the parameters saved with the port's
    ``checkpoint.save`` (``params|`` leaves, the bus unpacked), their
    consensus exported with the port's ``export_consensus`` and served by
    ``repro_torch.launch.serve --ckpt`` in bf16 (4 requests; counts reset
@@ -109,7 +142,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    through ``--ckpt`` / ``--resume`` bit-equal to the uninterrupted one.
    The files go to ``build/handoff/`` and are deleted after use.
 
-Phases run in the order 1–3, 3w, 3f, 4–6, 4w–6w, 4t–6t, 7–11.  The third
+Phases run in the order 1–3, 3w, 3r, 3f, 4–6, 4r, 6r, 4g, 4w–6w,
+4t–6t, 7–11.  The third
 line from the end is the ``nvidia-smi`` name and power limit,
 the line before the last ``{"kernels": [...]}`` and the last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -557,6 +591,9 @@ def check_q8(shape, n_ops, gen, timed: bool, ring=False,
 # ---------------------------------------------------------------------------
 
 def fused_vs_plain(model, layout, state, tokens):
+    """Phase 6: one fused EDM step gossiping through the rolls and the
+    gossip_axpy kernel against one plain step through the rolls and the
+    plain combine (the ring transport's twin is phase 6r)."""
     import torch
     from repro_torch.core import build_mixer, make_edm_bus, ring
     from repro_torch.train import losses_and_grads
@@ -566,7 +603,8 @@ def fused_vs_plain(model, layout, state, tokens):
 
     def opt(fused):
         mix = build_mixer(ring(AGENTS), mode="static", engine="ppermute",
-                          agents_per_device=AGENTS, use_fused_kernel=fused)
+                          agents_per_device=AGENTS, use_fused_kernel=fused,
+                          transport="ppermute")
         return make_edm_bus(ALPHA, BETA, mix, use_fused_kernel=fused)
 
     with torch.no_grad():
@@ -638,6 +676,323 @@ def ef_fused_vs_plain(model, layout, state, tokens, fmt):
                  f"abs err {err}")
     return {"fmt": fmt, "bit_equal": equal, "max_abs_err": err,
             "shape": list(x.shape)}
+
+
+# ---------------------------------------------------------------------------
+# phase 3r: the ring combine (the rolls fused in) against its plain version
+# ---------------------------------------------------------------------------
+
+# (A, rows): one agent (one term), two (both neighbours the same agent),
+# three, a longer ring and a 32-agent ring, at odd row counts
+RING_CASES = ((1, 9), (2, 17), (3, 24), (8, 3), (32, 5))
+
+
+def ring_edges(x):
+    """NaN and ±Inf in every agent's block, at different places."""
+    A, rows, _ = x.shape
+    for a in range(A):
+        x[a, a % rows, 3] = float("nan")
+        x[a, (a + 5) % rows, 7] = float("inf")
+        x[a, (a + 9) % rows, 11] = -float("inf")
+    return x
+
+
+def check_ring(shape, gen, timed: bool, edges: bool = False):
+    """The ring kernel against ``ring_combine_ref`` (the rolls, then the
+    weighted sum) on one bus, out of place and into ``out=``; timed at the
+    full bus beside the plain version, the bound and one
+    ``torch.matmul(W, x.view(A, -1))`` (the same function as one library
+    call; the port never calls it)."""
+    import torch
+    from repro_torch.core import ring
+    from repro_torch.kernels import ops, ref
+    A = shape[0]
+    x = torch.randn(shape, generator=gen, device="cuda")
+    if edges:
+        ring_edges(x)
+    terms = [(t.shift, float(t.weight)) for t in ring(A).terms]
+    got = ops.ring_combine(x, terms)
+    want = ref.ring_combine_ref(x, terms)
+    equal, err = compare([got], [want])
+    got.fill_(7.0)                    # out=: every element written again
+    into = ops.ring_combine(x, terms, out=got)
+    check(into.data_ptr() == got.data_ptr(), "ring out= not written in place")
+    eq, e = compare([got], [want])
+    equal, err = equal and eq, max(err, e)
+    del want
+    check(equal, f"ring_combine differs from its plain version at {shape} "
+                 f"(edges {edges}): max abs err {err}")
+    rec = {"shape": list(shape), "edges": edges, "bit_equal": equal,
+           "max_abs_err": err, "terms": len(terms)}
+    if timed:
+        free()
+        n = x.numel()
+        rec["ms"] = time_ms(lambda: ops.ring_combine(x, terms, out=got))
+        rec["plain_ms"] = time_ms(lambda: ref.ring_combine_ref(x, terms))
+        free()
+        W = torch.tensor(ring(A).dense_matrix(), dtype=torch.float32,
+                         device="cuda")
+        lib = torch.matmul(W, x.view(A, -1))
+        rec["library_max_abs_diff"] = float(
+            (lib.view(shape) - got).abs().max())
+        del lib
+        free()
+        rec["library_ms"] = time_ms(lambda: torch.matmul(W, x.view(A, -1)))
+        rec["bytes"] = 2 * 4 * n              # one f32 read, one f32 write
+        rec["bound_ms"], rec["bound_by"] = bound_ms(
+            rec["bytes"], (2 * len(terms) - 1) * n)
+        rec["gb_per_s"] = rec["bytes"] / rec["ms"] / 1e6
+    del x, got
+    free()
+    return rec
+
+
+def ring_vs_plain(model, layout, state, tokens):
+    """Phase 6r: from one state and one gradient bus, one fused EDM step
+    gossiping through the ring kernel and one plain EDM step gossiping
+    through the rolls and the plain combine; x, m and ψ bit-equal."""
+    import torch
+    from repro_torch.core import build_mixer, make_edm_bus, ring
+    from repro_torch.train import losses_and_grads
+
+    x, m, psi = state["params"], state["opt"]["m"], state["opt"]["psi"]
+    _, g = losses_and_grads(model, layout, x, tokens)
+    with torch.no_grad():
+        mix = build_mixer(ring(AGENTS), mode="static", engine="ppermute",
+                          agents_per_device=AGENTS, use_fused_kernel=True,
+                          transport="ring_dma")
+        x_f, st = make_edm_bus(ALPHA, BETA, mix, use_fused_kernel=True).step(
+            x, g, {"m": m.clone(), "psi": psi.clone()})
+        fused = [x_f.cpu(), st["m"].cpu(), st["psi"].cpu()]   # host copies
+        del x_f, st
+        free()
+        mix = build_mixer(ring(AGENTS), mode="static", engine="ppermute",
+                          agents_per_device=AGENTS, use_fused_kernel=False,
+                          transport="ppermute")
+        x_p, st = make_edm_bus(ALPHA, BETA, mix, use_fused_kernel=False).step(
+            x, g, {"m": m, "psi": psi})
+        equal, err = True, 0.0
+        for host, dev in zip(fused, (x_p, st["m"], st["psi"])):
+            for a in range(AGENTS):
+                eq, e = compare([host[a].cuda()], [dev[a]])
+                equal, err = equal and eq, max(err, e)
+        del x_p, st, fused, g
+    free()
+    check(equal, f"the ring step differs from the rolled plain step: max "
+                 f"abs err {err}")
+    return {"bit_equal": equal, "max_abs_err": err, "shape": list(x.shape)}
+
+
+# ---------------------------------------------------------------------------
+# phases 5 and 4g: the graphed bus step
+# ---------------------------------------------------------------------------
+
+def bus_run(**kw):
+    """The main path's RunConfig (ring, one-device ppermute, 4 agents),
+    with ``kw`` over it."""
+    from repro_torch.configs.base import RunConfig
+    cfg = dict(global_batch=AGENTS, seq_len=SEQ, algorithm="edm",
+               alpha=ALPHA, beta=BETA, topology="ring",
+               gossip_engine="ppermute", agents_per_device=AGENTS,
+               remat=False)
+    cfg.update(kw)
+    return RunConfig(**cfg)
+
+
+def profile_graph_replay(model, run, state, batch):
+    """Capture the bus step of ``run`` over ``state`` (one eager step, then
+    the capture), then one replay under torch.profiler (device time and
+    the training kernels' launches by kernel) and one between CUDA events
+    (the graph's device span)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.train import build_train_step, make_gossip_schedule
+    from repro_torch.train.graphs import graph_train_step
+
+    step = graph_train_step(build_train_step(
+        model, run, make_gossip_schedule(run, AGENTS), use_fused_kernel=True,
+        device="cuda"), state, batch)
+    state, _ = step(state, batch)                   # eager, then captured
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
+            as prof:
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+    rows = device_rows(prof)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    state, _ = step(state, batch)
+    end.record()
+    torch.cuda.synchronize()
+    host_ms_ = (time.perf_counter() - t0) * 1e3
+    return state, {"device_busy_ms": sum(r[0] for r in rows),
+                   "kernel_launches": sum(r[1] for r in rows),
+                   "traced": traced_launches(rows),
+                   "buckets": bucket(rows), "top": rows[:8],
+                   "graph_span_ms": start.elapsed_time(end),
+                   "host_ms": host_ms_}
+
+
+def check_replay(tag: str, eprof, gprof, want) -> None:
+    """One profiled eager step and one profiled graph replay ran the same
+    training kernels, ``want`` (counter name → launches, the rest 0)."""
+    full = dict.fromkeys(eprof["traced"], 0)
+    full.update(want)
+    check(eprof["traced"] == full and gprof["traced"] == full,
+          f"{tag}: device traces hold {eprof['traced']} (eager step) and "
+          f"{gprof['traced']} (graph replay), expected {full}")
+
+
+def print_graph_profile(tag: str, median_ms: float, gprof) -> None:
+    """One graphed replay's device busy time (profiler, kernels only) and
+    span (CUDA events) against the CLI's median graphed step."""
+    busy = gprof["device_busy_ms"]
+    print(f"[{tag}] one graphed step: device busy {busy:.3f} ms in "
+          f"{gprof['kernel_launches']} kernel launches (profiler), device "
+          f"span {gprof['graph_span_ms']:.3f} ms (CUDA events), host "
+          f"{gprof['host_ms']:.3f} ms; against the CLI's median graphed "
+          f"step of {median_ms:.1f} ms the device is idle "
+          f"{1 - busy / median_ms:.1%}", flush=True)
+    for ms, count, key in gprof["top"]:
+        print(f"[{tag}]   graphed top {ms:9.3f} ms  x{count:<5d} {key[:80]}")
+
+
+GRAPH_STEPS = 3
+# (name, RunConfig fields): the ring (the ring kernel); round_robin on the
+# exp graph (a ring round and a rolled round: two graphs) under
+# warmup_cosine (the LR scale a device scalar written before each
+# replay); the int8 wire
+GRAPH_CASES = (("f32 ring", {}),
+               ("exp round_robin, warmup_cosine",
+                dict(topology="exp", gossip_schedule="round_robin",
+                     warmup_steps=2, total_steps=6)),
+               ("int8 wire", dict(wire="int8")))
+
+
+def graph_trajectory(model, run, batches, graphed: bool):
+    """``GRAPH_STEPS`` timed bus steps from the seed-0 state, eager or
+    graphed, then one more under torch.profiler (a replay when graphed):
+    a record of host copies of the buses after the timed steps
+    (``host``), the metrics of every step, step seconds, the wrappers'
+    launch counts over the timed steps, graph replays, peak allocated
+    and reserved GiB, and the profiled step's device busy ms and
+    training-kernel launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import ops
+    from repro_torch.train import (build_train_step, init_state,
+                                   make_gossip_schedule)
+    from repro_torch.train.graphs import graph_train_step
+
+    free()
+    torch.cuda.reset_peak_memory_stats()
+    state = init_state(model, run, AGENTS, seed=0, device="cuda")
+    step = build_train_step(model, run, make_gossip_schedule(run, AGENTS),
+                            use_fused_kernel=True, device="cuda")
+    if graphed:
+        step = graph_train_step(step, state, batches[0])
+    ops.reset_launch_counts()
+    metrics, seconds = [], []
+    for b in batches[:-1]:
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        m = {k: float(v) for k, v in m.items()}       # synchronises
+        seconds.append(time.perf_counter() - t0)
+        metrics.append(m)
+    rec = {"launches": ops.launch_counts(),
+           "replays": getattr(step, "replays", 0),
+           "peak": (torch.cuda.max_memory_allocated() / 2**30,
+                    torch.cuda.max_memory_reserved() / 2**30)}
+    bufs = [state["params"]] + [state["opt"][k] for k in sorted(state["opt"])]
+    rec["host"] = [b.cpu() for b in bufs]
+    del bufs
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        state, m = step(state, batches[-1])
+        torch.cuda.synchronize()
+    metrics.append({k: float(v) for k, v in m.items()})
+    rows = device_rows(prof)
+    rec.update(metrics=metrics, seconds=seconds,
+               busy_ms=sum(r[0] for r in rows), traced=traced_launches(rows))
+    del state, step
+    free()
+    return rec
+
+
+def same_state(a, b):
+    """Host copies of two states' buses: bit-equal, NaN matching NaN (one
+    agent's block on the card at a time)."""
+    return len(a) == len(b) and all(
+        same_bits(x[i].cuda(), y[i].cuda()) for x, y in zip(a, b)
+        for i in range(x.shape[0]))
+
+
+def graph_phase(model, data, dgen):
+    """Phase 4g: under deterministic algorithms, eager against eager, then
+    the graphed bus step against the eager one from one state and one
+    token stream, for each of GRAPH_CASES: the metrics of ``GRAPH_STEPS``
+    + 1 steps and the buses after ``GRAPH_STEPS`` bit-equal; the wrappers
+    counted the eager first step of each graph key and nothing else, and
+    the profiled last step's device trace holds the same training kernels
+    in the replay as in the eager step."""
+    import torch
+    batches = [data.sample(dgen, 1) for _ in range(GRAPH_STEPS + 1)]
+    recs = []
+    torch.use_deterministic_algorithms(True)
+    try:
+        for name, kw in GRAPH_CASES:
+            run = bus_run(**kw)
+            eager = graph_trajectory(model, run, batches, False)
+            rec = {"case": name}
+            if name == "f32 ring":
+                again = graph_trajectory(model, run, batches, False)
+                rec["eager_eq_eager"] = (
+                    same_state(again["host"], eager["host"])
+                    and again["metrics"] == eager["metrics"])
+                check(rec["eager_eq_eager"], "under deterministic "
+                      "algorithms two eager runs differ")
+                del again
+            graph = graph_trajectory(model, run, batches, True)
+            rec["graph_eq_eager"] = (
+                same_state(graph["host"], eager["host"])
+                and graph["metrics"] == eager["metrics"])
+            # one EDM and one combine launch a step: the wrappers count
+            # every eager step, and the graphed run's eager first step of
+            # each key; a replay runs the eager step's kernels
+            eager_steps = GRAPH_STEPS - graph["replays"]
+            rec["launches_measured"] = (
+                graph["replays"] >= 1
+                and sum(eager["launches"].values()) == 2 * GRAPH_STEPS
+                and sum(graph["launches"].values()) == 2 * eager_steps
+                and graph["traced"] == eager["traced"]
+                and sum(eager["traced"].values()) == 2)
+            for what, res in (("eager", eager), ("graphed", graph)):
+                # the steps after each key's first (eager, captured) step
+                first = GRAPH_STEPS - res["replays"] if res["replays"] else 1
+                med = statistics.median(res["seconds"][first:]) * 1e3
+                rec[what] = {
+                    "step_ms": [round(t * 1e3, 2) for t in res["seconds"]],
+                    "median_ms": med,
+                    "tokens_per_s": AGENTS * SEQ / med * 1e3,
+                    "busy_ms": res["busy_ms"],
+                    "idle_share": 1 - res["busy_ms"] / med,
+                    "launches": {k: v for k, v in res["launches"].items()
+                                 if v},
+                    "replays": res["replays"],
+                    "traced_last_step": {k: v for k, v in
+                                         res["traced"].items() if v},
+                    "peak_allocated_gib": res["peak"][0],
+                    "peak_reserved_gib": res["peak"][1]}
+            check(rec["graph_eq_eager"] and rec["launches_measured"],
+                  f"{name}: the graphed step differs from the eager step: "
+                  f"{rec}")
+            recs.append(rec)
+            del eager, graph
+            free()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return recs
 
 
 # ---------------------------------------------------------------------------
@@ -935,6 +1290,21 @@ def device_rows(prof):
     return rows
 
 
+# the training kernels' launch counters and their names in a device trace
+TRACED = (("edm_update", "edm_update_kernel"), ("edm_update_ef", "edm_ef_"),
+          ("gossip_axpy", "gossip_axpy_kernel"),
+          ("gossip_axpy_q8", "gossip_axpy_q8_kernel"),
+          ("ring_combine", "ring_combine_kernel"))
+
+
+def traced_launches(rows):
+    """Launches of the port's training kernels in a device trace, by
+    counter name: kernels as the device ran them, a CUDA graph's replay
+    included (no wrapper counts a replay)."""
+    return {name: sum(n for _, n, key in rows if kernel in key)
+            for name, kernel in TRACED}
+
+
 def profile_dispatches(eng, vocab: int):
     """Time mixed and decode-only dispatches of the 1024-context engine
     (host clock, each ending in a device sync) and profile the fourth of
@@ -978,7 +1348,7 @@ def profile_dispatches(eng, vocab: int):
 
 # kernels that no serving dispatch may launch
 NOT_SERVING = ("edm_update", "gossip_axpy", "edm_update_ef",
-               "gossip_axpy_q8", "flash_attention")
+               "gossip_axpy_q8", "flash_attention", "ring_combine")
 
 
 def check_serve_counts(counts, metrics, n_layers: int, what: str):
@@ -1040,6 +1410,7 @@ BUCKETS = (("edm_update kernel", ("edm_update_kernel",)),
            ("edm_update_ef kernel", ("edm_ef_",)),
            ("gossip_axpy kernel", ("gossip_axpy_kernel",)),
            ("gossip_axpy_q8 kernel", ("gossip_axpy_q8_kernel",)),
+           ("ring_combine kernel", ("ring_combine_kernel",)),
            ("paged_attention kernel", ("paged_decode_mma_kernel",
                                        "paged_decode_simt_kernel")),
            ("paged_prefill kernel", ("paged_prefill_kernel",
@@ -1069,6 +1440,7 @@ def profile_step(model, run, state, batch):
     rows = device_rows(prof)
     return state, {"device_busy_ms": sum(r[0] for r in rows),
                    "kernel_launches": sum(r[1] for r in rows),
+                   "traced": traced_launches(rows),
                    "buckets": bucket(rows), "top": rows[:12]}
 
 
@@ -1449,9 +1821,13 @@ def handoff_phase(n_layers: int):
     ops.reset_launch_counts()
     result = cli.main(args)
     train_counts = ops.launch_counts()
-    check(train_counts["edm_update"] == HANDOFF_STEPS
-          and train_counts["gossip_axpy"] == HANDOFF_STEPS,
-          f"hand-off training launched {train_counts}")
+    # graphed: the wrappers ran step 0, the later steps replayed
+    check(train_counts["edm_update"] == 1
+          and train_counts["ring_combine"] == 1
+          and train_counts["gossip_axpy"] == 0
+          and result["graph_replays"] == HANDOFF_STEPS - 1,
+          f"hand-off training launched {train_counts} and replayed "
+          f"{result['graph_replays']} steps")
     check(all(math.isfinite(v) for m in result["metrics"]
               for v in m.values()), "hand-off training: non-finite metrics")
     model = build_model(get_config(ARCH))
@@ -1590,6 +1966,23 @@ def main() -> None:
     for rec in [q8_main, *q8_small]:
         print(f"[wire-kernels] gossip_axpy_q8 {rec}", flush=True)
 
+    # 3r. the ring combine (kernel 8's counterpart) against its plain
+    # version: the full bus timed, then with NaN / ±Inf, then every ring
+    # shape at odd row counts
+    ring_main = check_ring(bus_shape, gen, timed=True)
+    ring_small = [check_ring(bus_shape, gen, timed=False, edges=True)] + [
+        check_ring((A, rows, 128), gen, timed=False, edges=e)
+        for A, rows in RING_CASES for e in (False, True)]
+    for rec in [ring_main, *ring_small]:
+        print(f"[ring-kernels] ring_combine {rec}", flush=True)
+    print(f"[ring-kernels] ring_combine at {bus_shape}: "
+          f"{ring_main['ms']:.4f} ms ({ring_main['gb_per_s']:.0f} GB/s); "
+          f"plain (2 rolls + combine) {ring_main['plain_ms']:.4f} ms; "
+          f"bound {ring_main['bound_ms']:.4f} ms ({ring_main['bound_by']}), "
+          f"{ring_main['bound_ms'] / ring_main['ms']:.1%} of it; "
+          f"torch.matmul(W, x.view(A, -1)) {ring_main['library_ms']:.4f} ms;"
+          f" {smi}", flush=True)
+
     # 3f. flash GQA attention against its plain version, timed, driven
     free()
     flash_recs, flash_poison, flash_timed, flash_counts = flash_phase()
@@ -1616,37 +2009,65 @@ def main() -> None:
               f" step_s={s:.4f}")
         check(all(math.isfinite(v) for v in m.values()),
               f"non-finite metrics at step {t}: {m}")
-    step_s = statistics.median(result["step_seconds"])
-    print(f"[main] median step {step_s * 1e3:.1f} ms over {STEPS} steps",
-          flush=True)
-    check(counts == {"edm_update": STEPS, "gossip_axpy": STEPS,
-                     "edm_update_ef": 0, "gossip_axpy_q8": 0,
-                     "flash_attention": 0, "paged_attention": 0,
-                     "paged_prefill": 0},
-          f"training launched {counts}, expected {STEPS} of each f32 "
-          "training kernel, no wire kernel and no serving kernel")
+    # graphed: step 0 runs eagerly and captures, steps 1.. replay
+    step_s = statistics.median(result["step_seconds"][1:])
+    print(f"[main] median step {step_s * 1e3:.1f} ms over steps 1–"
+          f"{STEPS - 1} (CUDA graph replays; step 0, eager and captured, "
+          f"{result['step_seconds'][0] * 1e3:.1f} ms); "
+          f"{AGENTS * SEQ / step_s:.0f} tokens/s; peak reserved "
+          f"{torch.cuda.max_memory_reserved() / 2**30:.2f} GiB", flush=True)
+    # the wrappers ran step 0 (eager); steps 1.. replayed, which the
+    # device traces of phase 5 read
+    want = {k: 0 for k in counts}
+    want.update(edm_update=1, ring_combine=1)
+    check(counts == want and result["graph_replays"] == STEPS - 1,
+          f"training launched {counts} and replayed "
+          f"{result['graph_replays']} steps, expected {want} (the eager "
+          f"step 0: one EDM and one ring combine, no roll, no wire or "
+          f"serving kernel) and {STEPS - 1} replays")
     state = result["state"]
     check(state["step"] == STEPS, "main path did not take every step")
     check(bool(torch.isfinite(state["params"]).all()), "non-finite x")
 
-    # 5. where one step's device time goes
+    ring_runs = {"graphed": {
+        "launches": {k: v for k, v in counts.items() if v},
+        "graph_replays": result["graph_replays"],
+        "step_ms": [round(t * 1e3, 2) for t in result["step_seconds"]],
+        "median_ms": step_s * 1e3, "tokens_per_s": AGENTS * SEQ / step_s,
+        "peak_allocated_gib": peak / 2**30,
+        "peak_reserved_gib": torch.cuda.max_memory_reserved() / 2**30,
+        "loss": [m["loss"] for m in result["metrics"]]}}
+
+    # 5. where one step's device time goes: one eager step profiled (the
+    # ring kernel, no roll left), then one graph replay profiled (the same
+    # training kernels in its device trace) and between CUDA events
     data = SyntheticLM(vocab_size=model.cfg.vocab_size, seq_len=SEQ,
                        n_agents=AGENTS, phi=0.2)
     dgen = torch.Generator(device="cuda").manual_seed(2)
     state, prof = profile_step(model, result["run"], state,
                                data.sample(dgen, 1))
     busy = prof["device_busy_ms"]
-    print(f"[profile] one step: device busy {busy:.3f} ms in "
-          f"{prof['kernel_launches']} kernel launches; against the "
-          f"unprofiled median step of {step_s * 1e3:.1f} ms the device is "
-          f"idle {1 - busy / (step_s * 1e3):.1%} of the step", flush=True)
+    print(f"[profile] one eager step: device busy {busy:.3f} ms in "
+          f"{prof['kernel_launches']} kernel launches", flush=True)
     for name, ms in prof["buckets"].items():
         print(f"[profile]   {ms:9.3f} ms  {name}")
     for ms, count, key in prof["top"]:
         print(f"[profile]   top {ms:9.3f} ms  x{count:<5d} {key[:80]}")
+    check(prof["buckets"]["roll (gossip terms)"] == 0
+          and prof["buckets"]["ring_combine kernel"] > 0,
+          f"the ring step still rolls or never ran the ring kernel: "
+          f"{prof['buckets']}")
+    free()
+    state, gprof_main = profile_graph_replay(model, result["run"], state,
+                                             data.sample(dgen, 1))
+    print_graph_profile("profile", step_s * 1e3, gprof_main)
+    check_replay("main path", prof, gprof_main,
+                 {"edm_update": 1, "ring_combine": 1})
     del result
 
-    # 6. fused step against plain step, full size, same state and grads
+    # 6. fused against plain through the rolls: one step with the rolls and
+    # the gossip_axpy kernel against one with the rolls and the plain
+    # combine, from one state and one gradient bus
     free()
     twin = fused_vs_plain(model, layout, state,
                           data.sample(dgen, 1)["tokens"])
@@ -1654,16 +2075,75 @@ def main() -> None:
     del state
     free()
 
+    # 4r. the main path eager (--eager): every launch counted where the
+    # wrapper makes it (5 ring_combine, 5 edm_update, no gossip_axpy)
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    res = cli.main(MAIN_ARGS + ["--eager"])
+    c = ops.launch_counts()
+    want = {k: 0 for k in c}
+    want.update(edm_update=STEPS, ring_combine=STEPS)
+    check(c == want and res["graph_replays"] == 0,
+          f"the eager main path launched {c}, expected {want}")
+    for t, m in enumerate(res["metrics"]):
+        check(all(math.isfinite(v) for v in m.values()),
+              f"eager main path: non-finite metrics at step {t}: {m}")
+    steady = statistics.median(res["step_seconds"][1:]) * 1e3
+    ring_runs["eager"] = {
+        "launches": {k: v for k, v in c.items() if v},
+        "step_ms": [round(t * 1e3, 2) for t in res["step_seconds"]],
+        "median_ms": steady, "tokens_per_s": AGENTS * SEQ / steady * 1e3,
+        "peak_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "peak_reserved_gib": torch.cuda.max_memory_reserved() / 2**30,
+        "loss": [m["loss"] for m in res["metrics"]]}
+    state = res["state"]
+    del res
+    for mode in ("graphed", "eager"):
+        print(f"[ring-main] {mode}: {json.dumps(ring_runs[mode])}",
+              flush=True)
+    for mode, prof_ in (("eager", prof), ("graphed", gprof_main)):
+        med = ring_runs[mode]["median_ms"]
+        busy = prof_["device_busy_ms"]
+        print(f"[ring-profile] {mode}: one step device busy {busy:.3f} ms in "
+              f"{prof_['kernel_launches']} kernel launches (training kernels "
+              f"{ {k: v for k, v in prof_['traced'].items() if v} }); median "
+              f"step {med:.1f} ms (steps 1–{STEPS - 1}), "
+              f"{AGENTS * SEQ / med * 1e3:.0f} tokens/s, idle "
+              f"{1 - busy / med:.1%}; peak allocated "
+              f"{ring_runs[mode]['peak_allocated_gib']:.2f} GiB, reserved "
+              f"{ring_runs[mode]['peak_reserved_gib']:.2f} GiB; wrapper "
+              f"launches {ring_runs[mode]['launches']}", flush=True)
+    print(f"[ring-profile] graphed: one replay's device span (CUDA events) "
+          f"{gprof_main['graph_span_ms']:.3f} ms, host "
+          f"{gprof_main['host_ms']:.3f} ms; ring_combine kernel "
+          f"{prof['buckets']['ring_combine kernel']:.3f} ms of the eager "
+          f"step; {smi}", flush=True)
+
+    # 6r. one fused step through the ring kernel == one plain step through
+    # the rolls and the plain combine, from one state and gradient bus
+    free()
+    ring_twin = ring_vs_plain(model, layout, state,
+                              data.sample(dgen, 1)["tokens"])
+    print(f"[ring-vs-plain] {ring_twin}", flush=True)
+    del state
+    free()
+
+    # 4g. the graphed bus step against the eager one, bit for bit, under
+    # deterministic algorithms (eager against eager first)
+    graph_recs = graph_phase(model, data, dgen)
+    for rec in graph_recs:
+        print(f"[graph] {json.dumps(rec)}", flush=True)
+
     # 4w. the wire main path through the CLI: int8 on the ring, then bf16
-    # on round_robin's one-peer rounds of the exp graph
-    wire_counts = {}
+    # on round_robin's one-peer rounds of the exp graph; graphed, so the
+    # wrappers count the eager first step of each graph key (one on the
+    # ring, one a round on round_robin) and the rest replay
+    wire_counts, wire_replays = {}, {}
     for fmt, extra, steps, want in (
-            ("int8", [], STEPS, {"edm_update_ef": STEPS,
-                                 "gossip_axpy_q8": STEPS}),
+            ("int8", [], STEPS, {"edm_update_ef": 1, "gossip_axpy_q8": 1}),
             ("bf16", ["--topology", "exp", "--gossip-schedule",
                       "round_robin"], WIRE_RR_STEPS,
-             {"edm_update_ef": WIRE_RR_STEPS,
-              "gossip_axpy": WIRE_RR_STEPS})):
+             {"edm_update_ef": 2, "gossip_axpy": 2})):
         args = MAIN_ARGS + ["--wire", fmt] + extra
         args[args.index("--steps") + 1] = str(steps)
         ops.reset_launch_counts()
@@ -1671,6 +2151,7 @@ def main() -> None:
         result = cli.main(args)
         counts_w = ops.launch_counts()
         wire_counts[fmt] = counts_w
+        wire_replays[fmt] = result["graph_replays"]
         peak = torch.cuda.max_memory_allocated()
         print(f"[wire-main] --wire {fmt} {' '.join(extra)}: launches "
               f"{counts_w}; peak memory {peak / 2**30:.2f} GiB; modeled "
@@ -1684,13 +2165,20 @@ def main() -> None:
                   f"grad_norm={m['grad_norm']:.4f} step_s={sec:.4f}")
             check(all(math.isfinite(v) for v in m.values()),
                   f"--wire {fmt}: non-finite metrics at step {t}: {m}")
-        wire_step_s = statistics.median(result["step_seconds"])
+        # the replayed steps: those after each round's eager first step
+        n_eager = want["edm_update_ef"]
+        wire_step_s = statistics.median(result["step_seconds"][n_eager:])
         print(f"[wire-main] {fmt} median step {wire_step_s * 1e3:.1f} ms "
-              f"over {steps} steps", flush=True)
+              f"over steps {n_eager}–{steps - 1} ({result['graph_replays']} "
+              f"graph replays; eager and captured steps "
+              f"{[round(t * 1e3, 1) for t in result['step_seconds'][:n_eager]]}"
+              " ms)", flush=True)
         full = {k: 0 for k in counts_w}
         full.update(want)
-        check(counts_w == full, f"--wire {fmt} launched {counts_w}, "
-                                f"expected {full}")
+        check(counts_w == full and result["graph_replays"] == steps - n_eager,
+              f"--wire {fmt} launched {counts_w} and replayed "
+              f"{result['graph_replays']} steps, expected {full} and "
+              f"{steps - n_eager}")
         state, run = result["state"], result["run"]
         del result                # the state is consumed by the next step
         check(state["step"] == steps and set(state["opt"]) == {
@@ -1703,16 +2191,21 @@ def main() -> None:
             state, wprof = profile_step(model, run, state,
                                         data.sample(dgen, 1))
             busy = wprof["device_busy_ms"]
-            print(f"[wire-profile] one int8 step: device busy {busy:.3f} ms "
-                  f"in {wprof['kernel_launches']} kernel launches; against "
-                  f"the unprofiled median step of {wire_step_s * 1e3:.1f} ms"
-                  f" the device is idle {1 - busy / (wire_step_s * 1e3):.1%}"
-                  " of the step", flush=True)
+            print(f"[wire-profile] one eager int8 step: device busy "
+                  f"{busy:.3f} ms in {wprof['kernel_launches']} kernel "
+                  "launches", flush=True)
             for name, ms in wprof["buckets"].items():
                 print(f"[wire-profile]   {ms:9.3f} ms  {name}")
             for ms, count, key in wprof["top"]:
                 print(f"[wire-profile]   top {ms:9.3f} ms  x{count:<5d} "
                       f"{key[:80]}")
+            free()
+            state, gprof_wire = profile_graph_replay(model, run, state,
+                                                     data.sample(dgen, 1))
+            print_graph_profile("wire-profile", wire_step_s * 1e3,
+                                gprof_wire)
+            check_replay("--wire int8", wprof, gprof_wire,
+                         {"edm_update_ef": 1, "gossip_axpy_q8": 1})
             free()
             tokens = data.sample(dgen, 1)["tokens"]
             ef_twin = [ef_fused_vs_plain(model, layout, state, tokens, f)
@@ -1889,13 +2382,22 @@ def main() -> None:
                                     for r in serve_recs[name]),
             "launches_ctx1024": serve_counts[name],
             "launches_handoff": handoff["serve_counts"][name],
+            "bit_equal": True,
+            "bit_equal_of": "the kernel's output on NaN-poisoned pools "
+                            "against its output on the clean pools, every "
+                            "case (against the plain version: within "
+                            "max_err_over_tol of the tolerance)",
             "timing": TIMING}
 
     kernels = [
         {"name": "edm_update", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/edm_update.cu",
          "replaces": "src/repro/kernels/edm_update.py:67",
-         "launches": counts["edm_update"],
+         "launches": ring_runs["eager"]["launches"]["edm_update"],
+         "launches_of": "the main path with --eager (phase 4r)",
+         "launches_graphed": counts["edm_update"],
+         "graph_replays": ring_runs["graphed"]["graph_replays"],
+         "replay_trace": gprof_main["traced"]["edm_update"],
          "max_abs_err": edm_main["max_abs_err"], "ms": edm_main["ms"],
          "plain_ms": edm_main["plain_ms"], "bound_ms": edm_main["bound_ms"],
          "bound_by": edm_main["bound_by"], "library_ms": None,
@@ -1904,7 +2406,8 @@ def main() -> None:
         {"name": "gossip_axpy", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/gossip_axpy.cu",
          "replaces": "src/repro/kernels/edm_update.py:187",
-         "launches": counts["gossip_axpy"],
+         "launches": tree_recs["edm"]["launches"]["gossip_axpy"],
+         "launches_of": "the tree path, edm (phase 4t, eager)",
          "max_abs_err": axpy_main["max_abs_err"], "ms": axpy_main["ms"],
          "plain_ms": axpy_main["plain_ms"], "bound_ms": axpy_main["bound_ms"],
          "bound_by": axpy_main["bound_by"], "library_ms": None,
@@ -1928,6 +2431,7 @@ def main() -> None:
             "source": "src/repro_torch/kernels/csrc/edm_update_ef.cu",
             "replaces": f"src/repro/kernels/edm_update.py:{line}",
             "launches": fmt_counts["edm_update_ef"],
+            "graph_replays": wire_replays[fmt],
             "max_abs_err": max(r["max_abs_err"]
                                for r in [rec, *ef_small[fmt]]),
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
@@ -1941,6 +2445,8 @@ def main() -> None:
         "source": "src/repro_torch/kernels/csrc/gossip_axpy_q8.cu",
         "replaces": "src/repro/kernels/edm_update.py:239",
         "launches": wire_counts["int8"]["gossip_axpy_q8"],
+        "graph_replays": wire_replays["int8"],
+        "replay_trace": gprof_wire["traced"]["gossip_axpy_q8"],
         "max_abs_err": max(r["max_abs_err"] for r in [q8_main, *q8_small]),
         "ms": q8_main["ms"], "plain_ms": q8_main["plain_ms"],
         "bound_ms": q8_main["bound_ms"], "bound_by": q8_main["bound_by"],
@@ -1965,6 +2471,11 @@ def main() -> None:
         "max_err_over_tol": max(r["err_over_tol"] for r in flash_recs),
         "poisoned_bit_equal": all(r["poisoned_bit_equal"]
                                   for r in flash_poison),
+        "bit_equal": all(r["poisoned_bit_equal"] for r in flash_poison),
+        "bit_equal_of": "the kernel's output with NaN in every K/V row a "
+                        "causal query cannot see against its clean output "
+                        "(against the plain version: within "
+                        "max_err_over_tol of the tolerance)",
         "window_b": {k: fb[k] for k in ("ms", "plain_ms", "bound_ms",
                                         "bound_by", "library_ms",
                                         "library_backend", "flops")},
@@ -1972,6 +2483,26 @@ def main() -> None:
         "f32": {n: {k: flash_timed[(n, "float32")][k]
                     for k in ("ms", "plain_ms", "bound_ms", "library_ms",
                               "library_backend")} for n in FLASH_TIMED}})
+    kernels.append({
+        "name": "ring_combine", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ring_combine.cu",
+        "replaces": "src/repro/kernels/ring_dma.py:121",
+        "launches": ring_runs["eager"]["launches"]["ring_combine"],
+        "launches_of": "the main path with --eager (phase 4r)",
+        "launches_graphed": ring_runs["graphed"]["launches"]["ring_combine"],
+        "graph_replays": ring_runs["graphed"]["graph_replays"],
+        "replay_trace": gprof_main["traced"]["ring_combine"],
+        "max_abs_err": max(r["max_abs_err"] for r in [ring_main,
+                                                      *ring_small]),
+        "ms": ring_main["ms"], "plain_ms": ring_main["plain_ms"],
+        "bound_ms": ring_main["bound_ms"], "bound_by": ring_main["bound_by"],
+        "library_ms": ring_main["library_ms"],
+        "library": "torch.matmul(W, x.view(A, -1)), f32 (cuBLAS; TF32 off)",
+        "library_max_abs_diff": ring_main["library_max_abs_diff"],
+        "bit_equal": all(r["bit_equal"] for r in [ring_main, *ring_small])
+        and ring_twin["bit_equal"],
+        "shape": ring_main["shape"], "bytes": ring_main["bytes"],
+        "gb_per_s": ring_main["gb_per_s"], "timing": TIMING})
     print(f"[done] {time.time() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -84,3 +84,12 @@ def raise_on(err: int, what: str) -> None:
     if err:
         raise RuntimeError(f"{what} kernel launch failed with CUDA error "
                            f"{err}")
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches`` for a kernel the wrapper ran.  Under
+    CUDA graph capture a launch only records the kernel into the graph,
+    and the graph's replays run it with no wrapper call, so neither is
+    counted here: a replay's launches are read from a device trace."""
+    if not torch.cuda.is_current_stream_capturing():
+        wrapper.launches += 1

@@ -30,8 +30,8 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from ._ffi import (DTYPE_CODE, FLOAT_DTYPES, check, launcher, raise_on,
-                   stream)
+from ._ffi import (DTYPE_CODE, FLOAT_DTYPES, check, count_launch, launcher,
+                   raise_on, stream)
 
 __all__ = ["BLOCK_ROWS", "LANE", "MAX_OPERANDS", "edm_update_flat",
            "edm_update_ef_flat", "gossip_axpy_flat", "gossip_axpy_q8_flat"]
@@ -82,7 +82,7 @@ def edm_update_flat(x, g, m, psi, *, alpha: float, beta: float,
             out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
             x.numel(), alpha, beta, 1.0 - beta, stream(x))
     raise_on(err, "edm_update")
-    edm_update_flat.launches += 1
+    count_launch(edm_update_flat)
     return tuple(out)
 
 
@@ -127,7 +127,7 @@ def gossip_axpy_flat(operands: Sequence[torch.Tensor],
         err = fn(ptrs, ws, n, DTYPE_CODE[first.dtype], DTYPE_CODE[out_dtype],
                  out.data_ptr(), first.numel(), stream(first))
     raise_on(err, "gossip_axpy")
-    gossip_axpy_flat.launches += 1
+    count_launch(gossip_axpy_flat)
     return out
 
 
@@ -194,7 +194,7 @@ def edm_update_ef_flat(x, g, m, psi, e, *, alpha: float, beta: float,
             q_out.data_ptr(), scale_ptr, e_out.data_ptr(), x.numel(),
             DTYPE_CODE[qdt], block_rows, alpha, beta, 1.0 - beta, stream(x))
     raise_on(err, "edm_update_ef")
-    edm_update_ef_flat.launches += 1
+    count_launch(edm_update_ef_flat)
     return out
 
 
@@ -236,7 +236,7 @@ def gossip_axpy_q8_flat(operands: Sequence[torch.Tensor],
         err = fn(ptrs, n, coefs.data_ptr(), block_rows, out.data_ptr(),
                  first.numel(), stream(first))
     raise_on(err, "gossip_axpy_q8")
-    gossip_axpy_q8_flat.launches += 1
+    count_launch(gossip_axpy_q8_flat)
     return out
 
 

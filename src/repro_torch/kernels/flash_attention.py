@@ -27,7 +27,8 @@ from typing import Optional
 
 import torch
 
-from ._ffi import DTYPE_CODE, check, check_head, launcher, raise_on, stream
+from ._ffi import (DTYPE_CODE, check, check_head, count_launch, launcher,
+                   raise_on, stream)
 
 __all__ = ["MAX_GROUP", "flash_attention_flat"]
 
@@ -63,7 +64,7 @@ def flash_attention_flat(q, k, v, *, causal: bool, window: int = 0,
                  DTYPE_CODE[q.dtype], B, H, K, Sq, Sk, hd, int(bool(causal)),
                  int(window), hd ** -0.5, stream(q))
     raise_on(err, "flash_attention")
-    flash_attention_flat.launches += 1
+    count_launch(flash_attention_flat)
     return out
 
 

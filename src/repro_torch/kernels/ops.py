@@ -20,12 +20,13 @@ from .edm_update import (BLOCK_ROWS, LANE, edm_update_ef_flat,
 from .flash_attention import flash_attention_flat
 from .paged_attention import paged_attention_flat
 from .paged_prefill import paged_prefill_flat
+from .ring_dma import ring_combine_flat, ring_operands
 
 __all__ = ["edm_update", "edm_update_tree", "edm_update_bus",
            "edm_update_bus_ef", "gossip_axpy", "gossip_axpy_wire",
-           "flash_attention", "paged_attention", "paged_prefill_attention",
-           "padded_size", "pack_leaf", "unpack_leaf", "launch_counts",
-           "reset_launch_counts"]
+           "ring_combine", "flash_attention", "paged_attention",
+           "paged_prefill_attention", "padded_size", "pack_leaf",
+           "unpack_leaf", "launch_counts", "reset_launch_counts"]
 
 
 def _on_card(t: torch.Tensor) -> bool:
@@ -175,21 +176,25 @@ def edm_update_bus_ef(x, g, m, psi, e, *, alpha: float, beta: float,
 
 
 def gossip_axpy(operands: Sequence[torch.Tensor], weights: Sequence[float],
-                *, out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                *, out_dtype: Optional[torch.dtype] = None,
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """n-ary combine ``Σₖ wₖ·operandₖ`` for same-shape operands (f32 or
     bf16), f32 accumulation, one rounding to ``out_dtype`` (default: the
-    operands' dtype).  One kernel launch on the card."""
+    operands' dtype), written into ``out`` when given (it may alias no
+    operand).  One kernel launch on the card."""
     operands = tuple(operands)
     if not _on_card(operands[0]):
-        return ref.gossip_axpy_ref(operands, weights, out_dtype=out_dtype)
-    return gossip_axpy_flat(operands, weights, out_dtype=out_dtype)
+        val = ref.gossip_axpy_ref(operands, weights, out_dtype=out_dtype)
+        return val if out is None else out.copy_(val)
+    return gossip_axpy_flat(operands, weights, out_dtype=out_dtype, out=out)
 
 
 def gossip_axpy_wire(payloads: Sequence, weights: Sequence[float], *,
-                     fmt: str, block_rows: Optional[int] = None
-                     ) -> torch.Tensor:
+                     fmt: str, block_rows: Optional[int] = None,
+                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Fused decode-and-combine ``Σₖ wₖ · decode(payloadₖ)`` of wire-coded
-    gossip payloads, f32 out, one kernel launch on the card.
+    gossip payloads, f32 out (into ``out`` when given), one kernel launch
+    on the card.
 
     ``payloads``: post-permute payloads of one format — f32 or bf16 buses
     (the combine kernel, f32 out: the decode is its widening), or
@@ -197,17 +202,35 @@ def gossip_axpy_wire(payloads: Sequence, weights: Sequence[float], *,
     become the q8 kernel's ``(n, n_tiles)`` coefficients."""
     payloads = tuple(payloads)
     if fmt in ("f32", "bf16"):
-        return gossip_axpy(payloads, weights, out_dtype=torch.float32)
+        return gossip_axpy(payloads, weights, out_dtype=torch.float32,
+                           out=out)
     if fmt != "int8":
         raise ValueError(f"unknown wire format {fmt!r}")
     block_rows = block_rows or BLOCK_ROWS
     qs, scales = zip(*payloads)
     coefs = ref.wire_coefs(weights, scales)
     if not _on_card(qs[0]):
-        return ref.gossip_axpy_q8_ref(qs, coefs, block_rows=block_rows)
-    out = gossip_axpy_q8_flat([_bus_flat(q, "gossip_axpy_wire")
-                               for q in qs], coefs, block_rows=block_rows)
-    return out.view(qs[0].shape)
+        val = ref.gossip_axpy_q8_ref(qs, coefs, block_rows=block_rows)
+        return val if out is None else out.copy_(val)
+    flat_out = None if out is None else _bus_flat(out, "gossip_axpy_wire")
+    res = gossip_axpy_q8_flat([_bus_flat(q, "gossip_axpy_wire")
+                               for q in qs], coefs, block_rows=block_rows,
+                              out=flat_out)
+    return res.view(qs[0].shape)
+
+
+def ring_combine(x: torch.Tensor, terms: Sequence[Tuple[int, float]], *,
+                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The ring transport's combine ``out[a] = Σₖ wₖ · x[(a − shiftₖ) mod
+    A]`` over an ``(A, rows, 128)`` f32 bus, ``terms`` the ring's
+    ``(shift, weight)`` pairs in topology order: one kernel launch on the
+    card (the rolls fused in), the rolls plus the plain combine on the
+    CPU.  ``out`` may alias no byte of ``x``."""
+    ring_operands(x, terms, out)        # the card's checks, on every device
+    if not _on_card(x):
+        val = ref.ring_combine_ref(x, terms)
+        return val if out is None else out.copy_(val)
+    return ring_combine_flat(x, terms, out=out)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
@@ -276,11 +299,14 @@ _COUNTED = {"edm_update": edm_update_flat, "gossip_axpy": gossip_axpy_flat,
             "gossip_axpy_q8": gossip_axpy_q8_flat,
             "flash_attention": flash_attention_flat,
             "paged_attention": paged_attention_flat,
-            "paged_prefill": paged_prefill_flat}
+            "paged_prefill": paged_prefill_flat,
+            "ring_combine": ring_combine_flat}
 
 
 def launch_counts() -> Dict[str, int]:
-    """Kernel launches since the last :func:`reset_launch_counts`."""
+    """Kernels the wrappers ran since the last :func:`reset_launch_counts`
+    (a CUDA graph's capture and replays are not among them:
+    :func:`repro_torch.kernels._ffi.count_launch`)."""
     return {name: fn.launches for name, fn in _COUNTED.items()}
 
 

@@ -31,8 +31,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from ._ffi import (DTYPE_CODE, MAX_HEAD_DIM, check, check_head, launcher,
-                   raise_on, sm_count, stream)
+from ._ffi import (DTYPE_CODE, MAX_HEAD_DIM, check, check_head, count_launch,
+                   launcher, raise_on, sm_count, stream)
 
 __all__ = ["MAX_HEAD_DIM", "MAX_SPLITS", "MIN_SPLIT_KEYS",
            "paged_attention_flat", "split_plan"]
@@ -101,7 +101,7 @@ def paged_attention_flat(q, k_pool, v_pool, page_table, kv_len, *,
                  DTYPE_CODE[q.dtype], B, K, G, hd, page_size, n_pages,
                  hd ** -0.5, split_keys, n_split, stream(q))
     raise_on(err, "paged_attention")
-    paged_attention_flat.launches += 1
+    count_launch(paged_attention_flat)
     return out
 
 

@@ -28,8 +28,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from ._ffi import (DTYPE_CODE, check, check_head, launcher, raise_on,
-                   sm_count, stream)
+from ._ffi import (DTYPE_CODE, check, check_head, count_launch, launcher,
+                   raise_on, sm_count, stream)
 
 __all__ = ["KEY_TILE", "MAX_SPLITS", "Q_TILE", "paged_prefill_flat",
            "split_plan"]
@@ -133,7 +133,7 @@ def paged_prefill_flat(q, k_chunk, v_chunk, k_pool, v_pool, pt_row,
                  page_size, n_pages, start, clen, int(window), hd ** -0.5,
                  split_keys, n_split, stream(q))
     raise_on(err, "paged_prefill")
-    paged_prefill_flat.launches += 1
+    count_launch(paged_prefill_flat)
     return out
 
 

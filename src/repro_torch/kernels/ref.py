@@ -19,9 +19,10 @@ from repro_torch.models.attention import (_gather_pages, paged_prefill_sdpa,
                                           sdpa_ref)
 
 __all__ = ["edm_update_ref", "edm_update_ef_ref", "gossip_axpy_ref",
-           "gossip_axpy_q8_ref", "wire_coefs", "finite_absmax",
-           "int8_scale_inv", "flash_attention_ref", "gather_pages",
-           "paged_attention_ref", "paged_prefill_attention_ref"]
+           "ring_combine_ref", "gossip_axpy_q8_ref", "wire_coefs",
+           "finite_absmax", "int8_scale_inv", "flash_attention_ref",
+           "gather_pages", "paged_attention_ref",
+           "paged_prefill_attention_ref"]
 
 
 def edm_update_ref(x, g, m, psi, *, alpha: float, beta: float,
@@ -54,6 +55,18 @@ def gossip_axpy_ref(operands: Sequence[torch.Tensor],
     for w, o in zip(weights[1:], operands[1:]):
         acc = acc + float(w) * o.float()
     return acc.to(out_dtype or operands[0].dtype)
+
+
+def ring_combine_ref(x: torch.Tensor, terms: Sequence[Tuple[int, float]]
+                     ) -> torch.Tensor:
+    """The ring combine as the one-device ppermute engine runs it: each
+    ``(shift, weight)`` term's payload is ``torch.roll(x, shift, 0)`` (``x``
+    itself for shift 0 or one agent), then :func:`gossip_axpy_ref` over
+    them in term order."""
+    A = x.shape[0]
+    payloads = [x if A == 1 or s % A == 0 else torch.roll(x, s, 0)
+                for s, _ in terms]
+    return gossip_axpy_ref(payloads, [w for _, w in terms])
 
 
 def int8_scale_inv(absmax: torch.Tensor):
@@ -130,10 +143,11 @@ def wire_coefs(weights: Sequence[float],
     """``(n, n_tiles)`` f32 products ``wₖ · scaleₖ[tile]`` of the int8
     combine: each operand's scales flattened in tile order (agent-major,
     since rows is a multiple of block_rows per agent)."""
-    s = torch.stack([t.reshape(-1) for t in scales])
-    w = torch.tensor([float(v) for v in weights], dtype=torch.float32,
-                     device=s.device)
-    return w[:, None] * s
+    # a Python weight times an f32 tensor rounds the weight to f32 first:
+    # the product of two f32 values, with no host-to-device copy (which a
+    # CUDA graph capture would refuse)
+    return torch.stack([t.reshape(-1) * float(w)
+                        for w, t in zip(weights, scales)])
 
 
 def gossip_axpy_q8_ref(operands: Sequence[torch.Tensor], coefs: torch.Tensor,

@@ -28,6 +28,16 @@ the batches the uninterrupted run takes from step t on.  Flags of levers
 the port does not run yet (``--agents pod``, ``--churn``, overlap,
 groups) are accepted by the parser and rejected with a pointer to
 ROADMAP.md.
+
+On a CUDA device the bus path runs as CUDA graphs
+(:func:`repro_torch.train.graphs.graph_train_step`: the first step of each
+schedule round runs eagerly and is captured, later ones replay);
+``--eager`` keeps the eager step, the oracle and the debugging path.  The
+tree path and CPU runs are eager.  The header line says which runs.
+``--topology ring --gossip-engine ppermute --agents-per-device A
+--fused-kernel`` gossips the bus through the ring kernel (the rolls fused
+into the combine).  The result's ``graph_replays`` counts the steps that
+replayed a graph (0 when eager).
 """
 from __future__ import annotations
 
@@ -48,6 +58,7 @@ from repro_torch.models import build_model
 from repro_torch.train import (build_train_step, bus_layout_for, checkpoint,
                                init_state, make_gossip_schedule,
                                resolve_features)
+from repro_torch.train.graphs import graph_train_step
 
 __all__ = ["parser", "main"]
 
@@ -80,6 +91,9 @@ def parser() -> argparse.ArgumentParser:
                          "package; another agent count is resized)")
     ap.add_argument("--device", default=None,
                     help="cuda (default; raises without a GPU) or cpu")
+    ap.add_argument("--eager", action="store_true",
+                    help="run the bus step eagerly on the card instead of "
+                         "replaying it from CUDA graphs")
     return ap
 
 
@@ -119,6 +133,11 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
     bytes_str = ("" if wire_bytes is None else
                  f" wire_bytes/step={wire_bytes[0]} (one agent per device: "
                  f"{wire_bytes[1]})")
+    graphed = (feats.packed_bus and device.type == "cuda"
+               and not args.eager)
+    mode = ("cuda-graph" if graphed else "eager (--eager)" if args.eager
+            else "eager (CPU)" if device.type != "cuda"
+            else "eager (tree path)")
     # --topology only feeds the static schedule; don't print it otherwise
     topo_str = (f"topo={args.topology} " if args.gossip_schedule == "static"
                 else "")
@@ -128,7 +147,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
           f"alg={args.algorithm} engine={args.gossip_engine}"
           f"{' +fused' if args.fused_kernel else ''}"
           f"{' +bus' if feats.packed_bus else ' +tree'} wire={feats.wire}"
-          f"{bytes_str} device={device}", flush=True)
+          f"{bytes_str} device={device} step={mode}", flush=True)
 
     data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=args.seq,
                        n_agents=n_agents, phi=args.phi)
@@ -147,6 +166,8 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
     t0 = time.time()
     for t in range(args.steps):
         batch = data.sample(gen, args.per_agent_batch)
+        if graphed and t == 0:
+            step = graph_train_step(step, state, batch)
         ts = time.perf_counter()
         state, m = step(state, batch)
         m = {k: float(v) for k, v in m.items()}   # synchronises the device
@@ -160,7 +181,8 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
         checkpoint.save_state(args.ckpt, state, layout=layout)
         print(f"checkpoint -> {args.ckpt}")
     return {"state": state, "metrics": history, "step_seconds": seconds,
-            "run": run, "wire_bytes": wire_bytes}
+            "run": run, "wire_bytes": wire_bytes,
+            "graph_replays": getattr(step, "replays", 0)}
 
 
 if __name__ == "__main__":

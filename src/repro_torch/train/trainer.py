@@ -34,6 +34,7 @@ gossip are listed in ROADMAP.md.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -54,7 +55,7 @@ from repro_torch.models.api import Model
 from repro_torch.optim import scale_grads, warmup_cosine
 from repro_torch.weights import params_to_bus
 
-__all__ = ["Features", "resolve_features", "make_topology",
+__all__ = ["Features", "StaticBusStep", "resolve_features", "make_topology",
            "make_gossip_schedule", "gossip_round_step", "bus_layout_for",
            "init_state", "losses_and_grads", "tree_losses_and_grads",
            "build_train_step"]
@@ -252,6 +253,27 @@ def _cast_mixer(mix: Callable, dtype: Optional[str]) -> Callable:
                                                     tree)))
 
 
+@dataclasses.dataclass(frozen=True)
+class StaticBusStep:
+    """The bus step over a static state: what a CUDA graph captures
+    (:func:`repro_torch.train.graphs.graph_train_step`).
+
+    ``run(state, tokens, lr_scale)`` takes ``state["step"]``'s step,
+    writes x', m', ψ' (and e') over the state's own buffers — a fused
+    combine writes the new x into x's buffer, which is dead once φ exists;
+    any other mix is copied there at the end — and
+    returns the metrics as device tensors; ``state["step"]`` is left for
+    the caller to advance.  ``lr_scale`` is a 0-d f32 tensor on the
+    state's device holding ``lr_schedule(step)`` (None without a
+    schedule), so the step reads the scale from device memory rather than
+    from the host.  ``key(step)`` is what else the step depends on: the
+    schedule round and whether it gossips."""
+
+    run: Callable
+    key: Callable[[int], Tuple[int, bool]]
+    lr_schedule: Optional[Callable]
+
+
 def build_train_step(model: Model, run: RunConfig, topo,
                      use_fused_kernel: bool = False, *,
                      device=None) -> Callable:
@@ -266,7 +288,8 @@ def build_train_step(model: Model, run: RunConfig, topo,
     routes the EDM update and the ppermute engine's combine through the
     CUDA kernels: one launch of each per step on the bus, one per leaf on
     the tree (the fused EDM update for ``algorithm="edm"`` only, as in the
-    JAX package).  With ``run.wire`` bf16 or int8 a gossip step runs
+    JAX package).  The mixer's transport is ``"auto"``, as in the JAX
+    trainer: a flat ring's fused combine on the bus runs the ring kernel.  With ``run.wire`` bf16 or int8 a gossip step runs
     :func:`make_edm_bus_ef` (the fused EDM + quantize kernel, then the
     decode-combine); a step that ``gossip_every > 1`` skips runs the
     algorithm with the identity mixer (on the bus the plain EDM recursion,
@@ -276,6 +299,10 @@ def build_train_step(model: Model, run: RunConfig, topo,
     input state: the new m, ψ (and e) are written over the old buffers.
     ``device`` defaults to ``cuda`` and raises without one; the state must
     live there.
+
+    On the bus the returned step carries ``train_step.static``, the same
+    step over a static state (:class:`StaticBusStep`); on the tree it is
+    None.
     """
     dev = resolve_device(device)
     feats = resolve_features(run)
@@ -294,12 +321,15 @@ def build_train_step(model: Model, run: RunConfig, topo,
         lr_sched = warmup_cosine(run.warmup_steps or 1,
                                  run.total_steps or 10**9)
 
-    def grad_map(step: int) -> GradMap:
+    def grad_map(step: int, lr_scale=None) -> GradMap:
         if lr_sched is None:
             return None
-        return lambda grads: scale_grads(grads, step, lr_sched)
+        sched = lr_sched if lr_scale is None else (lambda _: lr_scale)
+        return lambda grads: scale_grads(grads, step, sched)
 
-    def bus_opt(g_step: int, gossip: bool) -> DecOptimizer:
+    def bus_opt(g_step: int, gossip: bool, out=None) -> DecOptimizer:
+        """The step's bus optimizer; a fused combine writes its mix into
+        ``out`` when given (the static state's x)."""
         if not gossip:
             # local-EDM step: identity mixer; nothing goes on the wire, so
             # nothing is quantized and e carries to the next gossip step
@@ -314,13 +344,15 @@ def build_train_step(model: Model, run: RunConfig, topo,
 
             return DecOptimizer("edm_bus_local", inner.init, local_step)
         if codec is None:
-            return make_edm_bus(
-                run.alpha, run.beta,
-                _cast_mixer(lambda t: mix(t, step=g_step), run.gossip_dtype),
-                use_fused_kernel=use_fused_kernel)
+            step_mix = (functools.partial(mix, step=g_step, out=out)
+                        if _is_f32(run.gossip_dtype) else _cast_mixer(
+                            functools.partial(mix, step=g_step),
+                            run.gossip_dtype))
+            return make_edm_bus(run.alpha, run.beta, step_mix,
+                                use_fused_kernel=use_fused_kernel)
         return make_edm_bus_ef(run.alpha, run.beta,
-                               lambda t: mix(t, step=g_step), codec,
-                               use_fused_kernel=use_fused_kernel)
+                               functools.partial(mix, step=g_step, out=out),
+                               codec, use_fused_kernel=use_fused_kernel)
 
     def tree_opt(g_step: int, gossip: bool) -> DecOptimizer:
         step_mix = (_cast_mixer(lambda t: mix(t, step=g_step),
@@ -328,6 +360,42 @@ def build_train_step(model: Model, run: RunConfig, topo,
                     if gossip else (lambda t: t))
         return make_optimizer(run.algorithm, alpha=run.alpha, beta=run.beta,
                               mix=step_mix, **kw)
+
+    def gossips(step: int) -> bool:
+        return every <= 1 or step % every == every - 1
+
+    def step_key(step: int) -> Tuple[int, bool]:
+        rnd = (int(topo.round_index(gossip_round_step(step, every)))
+               if isinstance(topo, GossipSchedule) else 0)
+        return rnd, gossips(step)
+
+    def bus_step(x, opt_state, tokens, step: int, out=None, lr_scale=None):
+        """One bus step: ``(x', opt', metrics)``, x' written into ``out``
+        when given."""
+        losses, grads = losses_and_grads(model, layout, x, tokens,
+                                         grad_map(step, lr_scale))
+        with torch.no_grad():
+            opt = bus_opt(gossip_round_step(step, every), gossips(step), out)
+            new_x, new_opt = opt.step(x, grads, opt_state)
+            metrics = {"loss": losses.mean(),
+                       "consensus": bus_consensus(new_x),
+                       "grad_norm": bus_grad_norm(grads)}
+        return new_x, new_opt, metrics
+
+    def static_run(state: TrainState, tokens, lr_scale=None) -> Dict:
+        x, opt_state = state["params"], state["opt"]
+        if (lr_sched is None) != (lr_scale is None):
+            raise ValueError("lr_scale is the LR schedule's device scalar: "
+                             "pass one exactly when the run has a schedule")
+        new_x, new_opt, metrics = bus_step(x, opt_state, tokens,
+                                           int(state["step"]), out=x,
+                                           lr_scale=lr_scale)
+        if new_x.data_ptr() != x.data_ptr():     # the mix was not fused
+            x.copy_(new_x)
+        if any(new_opt[k].data_ptr() != v.data_ptr()
+               for k, v in opt_state.items()):
+            raise RuntimeError("the static bus step left its state buffers")
+        return metrics
 
     def train_step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
         params = state["params"]
@@ -337,27 +405,22 @@ def build_train_step(model: Model, run: RunConfig, topo,
             raise ValueError(f"train state is on {first.device}, the step "
                              f"was built for {dev}")
         step = int(state["step"])
-        gossip = every <= 1 or step % every == every - 1
-        g_step = gossip_round_step(step, every)
         if feats.packed_bus:
-            losses, grads = losses_and_grads(model, layout, params,
-                                             batch["tokens"], grad_map(step))
-        else:
-            losses, grads = tree_losses_and_grads(model, params,
-                                                  batch["tokens"])
-            if lr_sched is not None:
-                grads = scale_grads(grads, step, lr_sched)
+            new_x, new_opt, metrics = bus_step(params, state["opt"],
+                                               batch["tokens"], step)
+            return {"params": new_x, "opt": new_opt, "step": step + 1}, \
+                metrics
+        losses, grads = tree_losses_and_grads(model, params, batch["tokens"])
+        if lr_sched is not None:
+            grads = scale_grads(grads, step, lr_sched)
         with torch.no_grad():
-            opt = (bus_opt if feats.packed_bus else tree_opt)(g_step, gossip)
+            opt = tree_opt(gossip_round_step(step, every), gossips(step))
             new_x, new_opt = opt.step(params, grads, state["opt"])
-            if feats.packed_bus:
-                consensus, grad_norm = bus_consensus(new_x), \
-                    bus_grad_norm(grads)
-            else:
-                consensus = consensus_distance(new_x)
-                grad_norm = tree_sqnorm(grads).sqrt()
-            metrics = {"loss": losses.mean(), "consensus": consensus,
-                       "grad_norm": grad_norm}
+            metrics = {"loss": losses.mean(),
+                       "consensus": consensus_distance(new_x),
+                       "grad_norm": tree_sqnorm(grads).sqrt()}
         return {"params": new_x, "opt": new_opt, "step": step + 1}, metrics
 
+    train_step.static = (StaticBusStep(static_run, step_key, lr_sched)
+                         if feats.packed_bus else None)
     return train_step

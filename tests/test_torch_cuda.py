@@ -739,3 +739,161 @@ def test_cuda_fused_tree_step_bit_equal_to_plain(cuda):
             psi_p, x[p].shape, torch.bfloat16))
         assert torch.equal(x2[p], ref.gossip_axpy_ref(
             wire_terms(topo, phi), weights))
+
+
+# ---------------------------------------------------------------------------
+# the ring combine (the rolls fused in) and the graphed bus step
+# ---------------------------------------------------------------------------
+
+def _ring_bus(A, rows, device, seed, edges):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((A, rows, 128), generator=gen, device=device)
+    if edges:   # NaN and ±Inf in every agent's block, at different places
+        for a in range(A):
+            x[a, a % rows, 3] = float("nan")
+            x[a, (a + 5) % rows, 7] = float("inf")
+            x[a, (a + 9) % rows, 11] = -float("inf")
+    return x
+
+
+def _same_bits(a, b):
+    """Equal shape and bits, a NaN matching any NaN."""
+    assert a.shape == b.shape and a.dtype == b.dtype
+    ia, ib = a.view(torch.int32), b.view(torch.int32)
+    return bool(((ia == ib) | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("edges", [False, True])
+@pytest.mark.parametrize("A,rows", [(1, 8), (2, 9), (3, 24), (4, 1024),
+                                    (8, 17), (32, 3)])
+def test_cuda_ring_combine_bit_equal_to_plain(cuda, A, rows, edges):
+    """The ring kernel against the rolls plus the plain combine, every A
+    (ring(2)'s two terms name the same neighbour, ring(1) has one), odd
+    row counts, NaN and ±Inf; out of place and into ``out=``."""
+    from repro_torch.core import ring
+    x = _ring_bus(A, rows, cuda, seed=A * 100 + rows, edges=edges)
+    terms = [(t.shift, float(t.weight)) for t in ring(A).terms]
+    want = ref.ring_combine_ref(x, terms)
+    before = ops.launch_counts()["ring_combine"]
+    got = ops.ring_combine(x, terms)
+    out = torch.full_like(x, 7.0)
+    into = ops.ring_combine(x, terms, out=out)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["ring_combine"] == before + 2
+    assert into is out
+    assert _same_bits(got, want) and _same_bits(out, want)
+
+
+@pytest.mark.requires_cuda
+def test_cuda_ring_combine_checks_its_inputs(cuda):
+    from repro_torch.kernels.ring_dma import ring_combine_flat
+    x = torch.zeros(4, 8, 128, device=cuda)
+    terms = [(0, 0.5), (1, 0.25), (-1, 0.25)]
+    with pytest.raises(ValueError, match="overlaps"):
+        ring_combine_flat(x, terms, out=x)
+    with pytest.raises(ValueError, match="f32"):
+        ring_combine_flat(x.bfloat16(), terms)
+    with pytest.raises(ValueError, match="shift 2"):
+        ring_combine_flat(x, [(0, 0.5), (2, 0.5)])
+    with pytest.raises(ValueError, match="CUDA"):
+        ring_combine_flat(x.cpu(), terms)
+
+
+# the port's bus kernels as a device trace names them
+TRACE_NAMES = {"edm_update": "edm_update_kernel",
+               "gossip_axpy": "gossip_axpy_kernel",
+               "ring_combine": "ring_combine_kernel"}
+GRAPH_CASES = {"ring": {},
+               "round_robin": dict(topology="exp",
+                                   gossip_schedule="round_robin"),
+               "warmup_cosine": dict(warmup_steps=2, total_steps=6)}
+
+
+def _traced_launches(fn):
+    """Run ``fn`` under torch.profiler: launches of each TRACE_NAMES
+    kernel on the device."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    counts = dict.fromkeys(TRACE_NAMES, 0)
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA:
+            for name, kernel in TRACE_NAMES.items():
+                if kernel in ev.key:
+                    counts[name] += ev.count
+    return counts
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("case", list(GRAPH_CASES))
+def test_cuda_graphed_bus_step_bit_equal_to_eager(cuda, case, monkeypatch):
+    """4 smoke steps replayed from CUDA graphs against 4 eager steps from
+    one state and one token stream, deterministic algorithms on: metrics
+    and the state buses bit-equal.  The wrappers count the eager steps
+    only (one a graph key, then replays); the last step runs under the
+    profiler, and the replay's device trace holds the eager step's
+    kernels.  The ring (the ring kernel), round_robin on the exp graph
+    (a ring round and a rolled round: two graphs) and warmup_cosine (the
+    LR scale a device scalar written before each replay)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.models import build_model
+    from repro_torch.train import (build_train_step, init_state,
+                                   make_gossip_schedule)
+    from repro_torch.train.graphs import graph_train_step
+
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    model = build_model(get_smoke_config("smollm_360m"))
+    run = RunConfig(global_batch=4, seq_len=16, algorithm="edm", alpha=0.2,
+                    beta=0.9, gossip_engine="ppermute", agents_per_device=4,
+                    remat=False, **GRAPH_CASES[case])
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    batches = [{"tokens": torch.randint(0, model.cfg.vocab_size, (4, 1, 16),
+                                        generator=gen, device=cuda)}
+               for _ in range(4)]
+
+    def trajectory(graphed):
+        step = build_train_step(model, run, make_gossip_schedule(run, 4),
+                                use_fused_kernel=True, device=cuda)
+        state = init_state(model, run, 4, seed=0, device=cuda)
+        if graphed:
+            step = graph_train_step(step, state, batches[0])
+        ops.reset_launch_counts()
+        history = []
+        for b in batches[:-1]:
+            state, metrics = step(state, b)
+            history.append({k: v.clone() for k, v in metrics.items()})
+
+        def last():
+            nonlocal state
+            state, metrics = step(state, batches[-1])
+            history.append({k: v.clone() for k, v in metrics.items()})
+
+        traced = _traced_launches(last)
+        return state, history, ops.launch_counts(), traced, step
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        eager, h_eager, c_eager, t_eager, _ = trajectory(False)
+        graph, h_graph, c_graph, t_graph, g_step = trajectory(True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    n_keys = 2 if case == "round_robin" else 1
+    assert g_step.replays == 4 - n_keys
+    assert c_eager["edm_update"] == 4 and c_graph["edm_update"] == n_keys
+    combines = ("ring_combine", "gossip_axpy")
+    assert sum(c_eager[k] for k in combines) == 4
+    assert sum(c_graph[k] for k in combines) == n_keys
+    assert c_eager["ring_combine"] == (2 if case == "round_robin" else 4)
+    # the replayed step ran the eager step's kernels, one of each
+    assert t_graph == t_eager and t_eager["edm_update"] == 1
+    assert sum(t_eager[k] for k in combines) == 1
+    for a, b in zip(h_graph, h_eager):
+        for k in a:
+            assert torch.equal(a[k], b[k]), k
+    assert torch.equal(graph["params"], eager["params"])
+    for k in ("m", "psi"):
+        assert torch.equal(graph["opt"][k], eager["opt"][k])

@@ -48,7 +48,8 @@ def test_every_module_imports_without_jax_or_repro():
               "repro_torch.serve.scheduler", "repro_torch.launch.serve",
               "repro_torch.kernels.flash_attention", "repro_torch.optim",
               "repro_torch.optim.schedules", "repro_torch.core.metrics",
-              "repro_torch.data.synthetic", "repro_torch.train.checkpoint"):
+              "repro_torch.data.synthetic", "repro_torch.train.checkpoint",
+              "repro_torch.kernels.ring_dma", "repro_torch.train.graphs"):
         assert m in mods
     code = (
         "import importlib, sys\n"
