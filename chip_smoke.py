@@ -36,6 +36,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    call; the port never calls it); at the full bus with NaN and ±Inf; at
    A ∈ {1, 2, 3, 8, 32} with odd row counts, plain and with NaN / ±Inf;
    each also written into ``out=``;
+3m. the source-table combine (masked rounds, late slots, weight-0 pad
+   slots; kernel 2's per-agent form) against its plain version (the
+   table's gathers, then the weighted sum), bit for bit, at the full bus
+   on a degraded ring-4 round with agent 3 dead (timed beside the plain
+   version, its bound — one read and one write of the bus at 3.35 TB/s —
+   and one ``torch.matmul(W_eff, x.view(A, -1))``), a late-slot table
+   and a K = 3 table with a weight-0 pad; each again with NaN / ±Inf; on
+   a bf16 bus with f32 out; and poisoned: agent 2's block NaN under the
+   late table with both neighbour slots late, every other output finite;
 4. main path: ``repro_torch.launch.train`` — smollm_360m at full width,
    4 agents on one device, ring, packed bus, fused kernels, seq 128,
    5 steps, the bus step replayed from CUDA graphs (the CLI's default on
@@ -142,8 +151,25 @@ Phases, in order; any failure raises and the script exits non-zero:
    through ``--ckpt`` / ``--resume`` bit-equal to the uninterrupted one.
    The files go to ``build/handoff/`` and are deleted after use.
 
-Phases run in the order 1–3, 3w, 3r, 3f, 4–6, 4r, 6r, 4g, 4w–6w,
-4t–6t, 7–11.  The third
+12. churn: the main cell plus ``--churn`` (agent 3 down for steps 2–3 of
+   6), graphed, counts reset before and read after (3 EDM, 2 ring and 1
+   table launch — the eager first step of each epoch's graph — and 3
+   replays); each epoch's λ and modeled wire bytes, the median replayed
+   step, idle share and peak; one replay of the degraded epoch and one of
+   the last epoch profiled (the table kernel in the first, the ring
+   kernel in the second); then, at the smoke config, a 4-agent churn run
+   saved at the drop and resumed at 3 agents, bit-equal on the survivors
+   (the table kernel against the ring kernel), and grown back to 4;
+13. the overlapped pipeline: the main cell plus ``--overlap delayed``, on
+   the f32 ring and with ``--wire int8``, graphed, counts reset before
+   and read after (2 eager steps — one per parity — and 3 replays);
+   graphed == eager under deterministic algorithms (their profiled
+   replay gives the idle share); step 0 == the synchronous step; a
+   ``StragglerPlan`` with slot 1 late at step 1 (the table kernel, 1
+   launch) bit-equal to its plain twin.
+
+Phases run in the order 1–3, 3w, 3r, 3m, 3f, 4–6, 4r, 6r, 4g, 4w–6w,
+12, 13, 4t–6t, 7–11.  The third
 line from the end is the ``nvidia-smi`` name and power limit,
 the line before the last ``{"kernels": [...]}`` and the last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -784,6 +810,121 @@ def ring_vs_plain(model, layout, state, tokens):
 
 
 # ---------------------------------------------------------------------------
+# phase 3m: the source-table combine against its plain version
+# ---------------------------------------------------------------------------
+
+def table_cases():
+    """Phase 3m's tables on the main path's 4 agents: ``(name, src, w)``
+    numpy tables of a degraded ring-4 round with agent 3 dead, of the ring
+    with slot 1 late (its source the agent itself, its weight kept), and
+    of a one-peer round padded to K = 3 with a weight-0 self slot."""
+    import numpy as np
+    from repro_torch.core import RoundRobinExp, ring
+    from repro_torch.core.elastic import degrade_round
+    from repro_torch.core.mixing import round_tables
+    src, w = round_tables(ring(AGENTS))
+    late = src.copy()
+    late[1] = np.arange(AGENTS)
+    return (("degraded ring, agent 3 dead",)
+            + round_tables(degrade_round(ring(AGENTS), [1, 1, 1, 0])),
+            ("ring, slot 1 late", late, w),
+            ("one peer, weight-0 pad slot",)
+            + round_tables(RoundRobinExp(AGENTS).rounds[0], 3))
+
+
+def dense_of(src, w, A: int):
+    """The table's W_eff: ``W[a, src[k, a]] += w[k, a]``."""
+    import numpy as np
+    W = np.zeros((A, A), np.float32)
+    for k in range(src.shape[0]):
+        W[np.arange(A), src[k]] += w[k]
+    return W
+
+
+def check_table(x, name, src_np, w_np, timed: bool, out_dtype=None):
+    """The table kernel against ``table_combine_ref`` on one bus, out of
+    place and into ``out=``; timed beside the plain version, the bound
+    (one read of x, one write of the output) and one
+    ``torch.matmul(W_eff, x.view(A, -1))`` (the same function as one
+    library call; the port never calls it)."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    src = torch.from_numpy(src_np).cuda()
+    w = torch.from_numpy(w_np).cuda()
+    got = ops.table_combine(x, src, w, out_dtype=out_dtype)
+    want = ref.table_combine_ref(x, src, w, out_dtype=out_dtype)
+    equal, err = compare([got], [want])
+    got.fill_(7.0)
+    into = ops.table_combine(x, src, w, out_dtype=out_dtype, out=got)
+    check(into.data_ptr() == got.data_ptr(), "table out= not in place")
+    eq, e = compare([got], [want])
+    equal, err = equal and eq, max(err, e)
+    finite_rows = [a for a in range(x.shape[0])
+                   if bool(torch.isfinite(got[a]).all())]
+    del want
+    check(equal, f"table_combine differs from its plain version ({name}, "
+                 f"{x.dtype}): max abs err {err}")
+    rec = {"case": name, "shape": list(x.shape), "dtype": str(x.dtype),
+           "terms": int(src_np.shape[0]), "bit_equal": equal,
+           "max_abs_err": err, "finite_rows": finite_rows}
+    if timed:
+        free()
+        A, n = x.shape[0], x.numel()
+        rec["ms"] = time_ms(lambda: ops.table_combine(x, src, w, out=got))
+        rec["plain_ms"] = time_ms(lambda: ref.table_combine_ref(x, src, w))
+        free()
+        W = torch.from_numpy(dense_of(src_np, w_np, A)).cuda()
+        lib = torch.matmul(W, x.view(A, -1))
+        rec["library_max_abs_diff"] = float((lib.view(x.shape) - got).abs()
+                                            .max())
+        del lib
+        free()
+        rec["library_ms"] = time_ms(lambda: torch.matmul(W, x.view(A, -1)))
+        rec["bytes"] = 2 * 4 * n              # one f32 read, one f32 write
+        rec["bound_ms"], rec["bound_by"] = bound_ms(
+            rec["bytes"], (2 * src_np.shape[0] - 1) * n)
+        rec["gb_per_s"] = rec["bytes"] / rec["ms"] / 1e6
+    del got
+    free()
+    return rec
+
+
+def table_phase(bus_shape, gen):
+    """Phase 3m: every table of ``table_cases`` at the full bus, clean
+    (the degraded round timed) and with NaN / ±Inf in every agent's block
+    (a weight-0 slot reading an Inf gives NaN, as the stack does); the
+    degraded round on a bf16 bus with f32 out (the bf16 wire); and the
+    poisoned run: agent 2's whole block NaN under the late table with both
+    neighbour slots late, so only agent 2's own output may be NaN."""
+    import torch
+    recs = []
+    x = torch.randn(bus_shape, generator=gen, device="cuda")
+    cases = table_cases()
+    for i, (name, src, w) in enumerate(cases):
+        recs.append(check_table(x, name, src, w, timed=i == 0))
+    ring_edges(x)
+    for name, src, w in cases:
+        recs.append(check_table(x, name + ", NaN / ±Inf", src, w, False))
+    xb = x.to(torch.bfloat16)
+    recs.append(check_table(xb, cases[0][0] + ", bf16 → f32", cases[0][1],
+                            cases[0][2], False, out_dtype=torch.float32))
+    del xb
+    x.normal_(generator=gen)
+    x[2] = float("nan")
+    name, src, w = cases[1]
+    src = src.copy()
+    src[2] = src[0]                           # slots 1 and 2 late
+    rec = check_table(x, "poisoned: agent 2 NaN, both neighbour slots late",
+                      src, w, False)
+    check(rec["finite_rows"] == [0, 1, 3], f"a late slot read agent 2's "
+          f"NaN block: finite outputs {rec['finite_rows']}")
+    recs.append(rec)
+    del x
+    free()
+    return recs
+
+
+# ---------------------------------------------------------------------------
 # phases 5 and 4g: the graphed bus step
 # ---------------------------------------------------------------------------
 
@@ -871,11 +1012,13 @@ GRAPH_CASES = (("f32 ring", {}),
                ("int8 wire", dict(wire="int8")))
 
 
-def graph_trajectory(model, run, batches, graphed: bool):
+def graph_trajectory(model, run, batches, graphed: bool, against=None):
     """``GRAPH_STEPS`` timed bus steps from the seed-0 state, eager or
     graphed, then one more under torch.profiler (a replay when graphed):
     a record of host copies of the buses after the timed steps
-    (``host``), the metrics of every step, step seconds, the wrappers'
+    (``host``) — or, given ``against`` (another run's ``host``), whether
+    the buses equal those bit for bit (``same``; no second copy is held
+    on the host) — the metrics of every step, step seconds, the wrappers'
     launch counts over the timed steps, graph replays, peak allocated
     and reserved GiB, and the profiled step's device busy ms and
     training-kernel launches."""
@@ -906,7 +1049,13 @@ def graph_trajectory(model, run, batches, graphed: bool):
            "peak": (torch.cuda.max_memory_allocated() / 2**30,
                     torch.cuda.max_memory_reserved() / 2**30)}
     bufs = [state["params"]] + [state["opt"][k] for k in sorted(state["opt"])]
-    rec["host"] = [b.cpu() for b in bufs]
+    if "pipeline" in state:       # the live slot (the spare is dead)
+        pipe = state["pipeline"]
+        bufs.append(pipe["slot"][pipe["parity"]])
+    if against is None:
+        rec["host"] = [b.cpu() for b in bufs]
+    else:
+        rec["same"] = same_state(bufs, against)
     del bufs
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         state, m = step(state, batches[-1])
@@ -921,14 +1070,15 @@ def graph_trajectory(model, run, batches, graphed: bool):
 
 
 def same_state(a, b):
-    """Host copies of two states' buses: bit-equal, NaN matching NaN (one
-    agent's block on the card at a time)."""
+    """Two states' buses (host copies, or the live buses for ``a``):
+    bit-equal, NaN matching NaN (one agent's block on the card at a
+    time)."""
     return len(a) == len(b) and all(
         same_bits(x[i].cuda(), y[i].cuda()) for x, y in zip(a, b)
         for i in range(x.shape[0]))
 
 
-def graph_phase(model, data, dgen):
+def graph_phase(model, data, dgen, cases=GRAPH_CASES):
     """Phase 4g: under deterministic algorithms, eager against eager, then
     the graphed bus step against the eager one from one state and one
     token stream, for each of GRAPH_CASES: the metrics of ``GRAPH_STEPS``
@@ -941,22 +1091,22 @@ def graph_phase(model, data, dgen):
     recs = []
     torch.use_deterministic_algorithms(True)
     try:
-        for name, kw in GRAPH_CASES:
+        for name, kw in cases:
             run = bus_run(**kw)
             eager = graph_trajectory(model, run, batches, False)
             rec = {"case": name}
             if name == "f32 ring":
-                again = graph_trajectory(model, run, batches, False)
+                again = graph_trajectory(model, run, batches, False,
+                                         against=eager["host"])
                 rec["eager_eq_eager"] = (
-                    same_state(again["host"], eager["host"])
-                    and again["metrics"] == eager["metrics"])
+                    again["same"] and again["metrics"] == eager["metrics"])
                 check(rec["eager_eq_eager"], "under deterministic "
                       "algorithms two eager runs differ")
                 del again
-            graph = graph_trajectory(model, run, batches, True)
+            graph = graph_trajectory(model, run, batches, True,
+                                     against=eager["host"])
             rec["graph_eq_eager"] = (
-                same_state(graph["host"], eager["host"])
-                and graph["metrics"] == eager["metrics"])
+                graph["same"] and graph["metrics"] == eager["metrics"])
             # one EDM and one combine launch a step: the wrappers count
             # every eager step, and the graphed run's eager first step of
             # each key; a replay runs the eager step's kernels
@@ -990,6 +1140,338 @@ def graph_phase(model, data, dgen):
             recs.append(rec)
             del eager, graph
             free()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return recs
+
+
+# ---------------------------------------------------------------------------
+# phase 12: churn at full width
+# ---------------------------------------------------------------------------
+
+CHURN_STEPS = 6
+# agent 3 drops at step 2 and rejoins at step 4
+CHURN = {"n_agents": AGENTS, "epochs": [{"start": 0, "down": []},
+                                        {"start": 2, "down": [3]},
+                                        {"start": 4, "down": []}]}
+
+
+def profiled(fn):
+    """Run ``fn`` under torch.profiler (the card only): its device rows."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return device_rows(prof)
+
+
+def churn_traces(model, run, data, dgen):
+    """The graphed churn run through the API, steps 3 (a replay of the
+    degraded epoch's graph) and 5 (a replay of the last epoch's ring
+    graph) profiled: the training kernels in each replay's device trace
+    and the degraded replay's busy time."""
+    import torch
+    from repro_torch.train import (build_train_step, init_state,
+                                   make_gossip_schedule)
+    from repro_torch.train.graphs import graph_train_step
+    sched = make_gossip_schedule(run, AGENTS, churn=json.dumps(CHURN))
+    batches = [data.sample(dgen, 1) for _ in range(CHURN_STEPS)]
+    state = init_state(model, run, AGENTS, seed=0, device="cuda")
+    step = graph_train_step(build_train_step(
+        model, run, sched, use_fused_kernel=True, device="cuda"), state,
+        batches[0])
+    rows = {}
+    for t, b in enumerate(batches):
+        def one():
+            nonlocal state
+            state, m = step(state, b)
+            float(m["loss"])
+        if t in (3, 5):
+            rows[t] = profiled(one)
+        else:
+            one()
+    rec = {"replays": step.replays,
+           "degraded_replay": traced_launches(rows[3]),
+           "ring_replay": traced_launches(rows[5]),
+           "degraded_busy_ms": sum(r[0] for r in rows[3]),
+           "ring_busy_ms": sum(r[0] for r in rows[5])}
+    del state, step
+    free()
+    return rec
+
+
+def resize_phase():
+    """Phase 12's resize at the smoke config on the card (full-width leaves
+    are bf16, so a file rounds the f32 bus's m and ψ: survivors could not
+    match an uninterrupted f32 run there).  A 4-agent run whose agent 3
+    drops at step 2 for good, saved at step 2 and resumed at 3 agents
+    (ring(4) degraded to its 3 survivors is ring(3): the table kernel
+    against the ring kernel), bit-equal on the survivors at step 4; then
+    saved at 3 and resumed at 4: the survivors' rows as saved, the joiner
+    at the survivors' mean with ψ := x and m = 0, and one more step
+    finite."""
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.elastic import DropPlan
+    from repro_torch.models import build_model
+    from repro_torch.train import (build_train_step, bus_layout_for,
+                                   checkpoint, init_state,
+                                   make_gossip_schedule)
+    smoke = build_model(get_smoke_config(ARCH))
+    layout = bus_layout_for(smoke, AGENTS)
+    run4 = bus_run(seq_len=16)
+    run3 = bus_run(seq_len=16, global_batch=3, agents_per_device=3)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    tokens = [torch.randint(0, smoke.cfg.vocab_size, (AGENTS, 1, 16),
+                            generator=gen, device="cuda") for _ in range(5)]
+
+    def steps(state, run, sched, n_agents, toks):
+        step = build_train_step(smoke, run, sched, use_fused_kernel=True,
+                                device="cuda")
+        for tok in toks:
+            state, m = step(state, {"tokens": tok[:n_agents]})
+            check(all(math.isfinite(float(v)) for v in m.values()),
+                  f"resize phase: non-finite metrics {m}")
+        return state
+
+    HANDOFF_DIR.mkdir(parents=True, exist_ok=True)
+    path, path3 = HANDOFF_DIR / "churn4.npz", HANDOFF_DIR / "churn3.npz"
+    sched4 = make_gossip_schedule(run4, AGENTS, churn=DropPlan.from_events(
+        AGENTS, [(0, []), (2, [3])]))
+    full = steps(init_state(smoke, run4, AGENTS, seed=0, device="cuda"),
+                 run4, sched4, AGENTS, tokens[:2])
+    checkpoint.save_state(str(path), full, layout=layout)
+    full = steps(full, run4, sched4, AGENTS, tokens[2:4])
+    res = checkpoint.load_state_resized(
+        str(path), init_state(smoke, run3, 3, device="cuda"), layout=layout)
+    res = steps(res, run3, make_gossip_schedule(run3, 3), 3, tokens[2:4])
+    shrink = same_bits(res["params"], full["params"][:3]) and all(
+        same_bits(res["opt"][k], full["opt"][k][:3]) for k in ("m", "psi"))
+    checkpoint.save_state(str(path3), res, layout=layout)
+    grown = checkpoint.load_state_resized(
+        str(path3), init_state(smoke, run4, AGENTS, device="cuda"),
+        layout=layout)
+    path.unlink()
+    path3.unlink()
+    mean = res["params"].sum(0) * torch.tensor(1 / 3, device="cuda")
+    grow = (same_bits(grown["params"][:3], res["params"])
+            and all(same_bits(grown["opt"][k][:3], res["opt"][k])
+                    for k in ("m", "psi"))
+            and same_bits(grown["opt"]["psi"][3], grown["params"][3])
+            and not bool(grown["opt"]["m"][3].any())
+            and bool(torch.allclose(grown["params"][3], mean, atol=1e-6)))
+    steps(grown, run4, make_gossip_schedule(run4, AGENTS), AGENTS,
+          tokens[4:])
+    check(shrink and grow, f"resize: survivors bit-equal after the shrink "
+          f"{shrink}, the grow's rows {grow}")
+    return {"config": "smoke", "shrink_4_to_3_survivors_bit_equal": shrink,
+            "grow_3_to_4_rows_as_saved": grow}
+
+
+def churn_phase(model, data, dgen):
+    """Phase 12: the main cell plus ``--churn CHURN``, graphed, through the
+    CLI (counts reset before and read after: an eager step a graph key —
+    3 EDM, 2 ring (epochs 0 and 2) and 1 table launch (the degraded epoch)
+    — and 3 replays); each epoch's λ and wire bytes; the replays' device
+    traces (table kernel in the degraded epoch, ring kernel outside it);
+    the resize at the smoke config."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as cli
+    args = MAIN_ARGS + ["--churn", json.dumps(CHURN)]
+    args[args.index("--steps") + 1] = str(CHURN_STEPS)
+    free()
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    res = cli.main(args)
+    counts = ops.launch_counts()
+    want = dict.fromkeys(counts, 0)
+    want.update(edm_update=3, ring_combine=2, table_combine=1)
+    check(counts == want and res["graph_replays"] == 3,
+          f"churn launched {counts} and replayed {res['graph_replays']}, "
+          f"expected {want} and 3")
+    for t, m in enumerate(res["metrics"]):
+        check(all(math.isfinite(v) for v in m.values()),
+              f"churn: non-finite metrics at step {t}: {m}")
+    rec = {"launches": {k: v for k, v in counts.items() if v},
+           "graph_replays": res["graph_replays"],
+           "epochs": res["epochs"],
+           "step_ms": [round(t * 1e3, 2) for t in res["step_seconds"]],
+           # the replays: steps 1, 3 and 5
+           "median_ms": statistics.median(res["step_seconds"][1::2]) * 1e3,
+           "peak_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "loss": [m["loss"] for m in res["metrics"]]}
+    run = res["run"]
+    del res
+    free()
+    rec["traces"] = churn_traces(model, run, data, dgen)
+    tr = rec["traces"]
+    full = dict.fromkeys(tr["ring_replay"], 0)
+    check(tr["degraded_replay"] == {**full, "edm_update": 1,
+                                    "table_combine": 1}
+          and tr["ring_replay"] == {**full, "edm_update": 1,
+                                    "ring_combine": 1},
+          f"churn replays traced {tr}")
+    rec["idle_share"] = 1 - tr["degraded_busy_ms"] / rec["median_ms"]
+    rec["resize"] = resize_phase()
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the overlapped pipeline at full width
+# ---------------------------------------------------------------------------
+
+OVERLAP_GRAPH_CASES = (("overlap f32 ring", dict(overlap="delayed")),
+                       ("overlap int8 wire", dict(overlap="delayed",
+                                                  wire="int8")))
+STRAGGLER_LATE = ((1, (1,)),)                 # slot 1 late at step 1
+
+
+def overlap_step0(model, data, dgen):
+    """Step 0 of the delayed pipeline against the synchronous step, from
+    one state and one batch, deterministic algorithms on: the same loss,
+    m and ψ bit-equal, and the ring's mix of the new live payload equal to
+    the synchronous step's x(1)."""
+    import torch
+    from repro_torch.core import ring
+    from repro_torch.kernels import ops
+    from repro_torch.train import (build_train_step, init_state,
+                                   make_gossip_schedule)
+    batch = data.sample(dgen, 1)
+    host, losses, equal = None, {}, False
+    for name, run in (("sync", bus_run()), ("delayed",
+                                             bus_run(overlap="delayed"))):
+        state = init_state(model, run, AGENTS, seed=0, device="cuda")
+        step = build_train_step(model, run, make_gossip_schedule(run, AGENTS),
+                                use_fused_kernel=True, device="cuda")
+        state, m = step(state, batch)
+        losses[name] = float(m["loss"])
+        x = state["params"]
+        if name == "delayed":
+            terms = [(t.shift, float(t.weight)) for t in ring(AGENTS).terms]
+            x = ops.ring_combine(state["pipeline"]["slot"][
+                state["pipeline"]["parity"]], terms)
+        bufs = [x, state["opt"]["m"], state["opt"]["psi"]]
+        if host is None:          # the synchronous step, on the host
+            host = [b.cpu() for b in bufs]
+        else:
+            equal = (losses["sync"] == losses["delayed"]
+                     and same_state(bufs, host))
+        del state, step, x, bufs
+        free()
+    check(equal, f"delayed step 0 differs from the synchronous step: "
+                 f"losses {losses}")
+    return {"bit_equal": equal, "loss": losses["sync"]}
+
+
+def straggler_vs_plain(model, data, dgen):
+    """A StragglerPlan with slot 1 late at step 1, through the API: 2
+    delayed steps with the kernels (step 0 the ring kernel, step 1 the
+    table kernel, counted) against the same 2 steps with the plain
+    versions, deterministic algorithms on: x, m, ψ and the live payload
+    bit-equal."""
+    from repro_torch.core.elastic import StragglerPlan
+    from repro_torch.kernels import ops
+    from repro_torch.train import (build_train_step, init_state,
+                                   make_gossip_schedule)
+    run = bus_run(overlap="delayed")
+    plan = StragglerPlan(3, STRAGGLER_LATE)
+    batches = [data.sample(dgen, 1) for _ in range(2)]
+    host, counts, equal = None, None, False
+    for fused in (True, False):
+        state = init_state(model, run, AGENTS, seed=0, device="cuda")
+        step = build_train_step(model, run, make_gossip_schedule(run, AGENTS),
+                                use_fused_kernel=fused, straggler_plan=plan,
+                                device="cuda")
+        ops.reset_launch_counts()
+        for b in batches:
+            state, m = step(state, b)
+            check(all(math.isfinite(float(v)) for v in m.values()),
+                  f"straggler run: non-finite metrics {m}")
+        if fused:
+            counts = {k: v for k, v in ops.launch_counts().items() if v}
+        pipe = state["pipeline"]
+        bufs = [state["params"], state["opt"]["m"], state["opt"]["psi"],
+                pipe["slot"][pipe["parity"]]]
+        if host is None:          # the kernels' run, on the host
+            host = [b.cpu() for b in bufs]
+        else:
+            equal = same_state(bufs, host)
+        del state, step, pipe, bufs
+        free()
+    check(equal and counts == {"edm_update": 2, "ring_combine": 1,
+                               "table_combine": 1},
+          f"straggler: fused == plain {equal}, launches {counts}")
+    return {"bit_equal": equal, "launches": counts,
+            "late": [[s, list(ks)] for s, ks in STRAGGLER_LATE]}
+
+
+def overlap_phase(model, data, dgen):
+    """Phase 13: the main cell plus ``--overlap delayed`` through the CLI,
+    graphed, on the f32 ring and with ``--wire int8`` (counts reset before
+    and read after: the eager first step of each parity's graph, 3
+    replays); graphed == eager under deterministic algorithms, whose
+    profiled replay gives the training kernels, busy time and idle share
+    against the CLI's median step; step 0 == the synchronous step; the
+    straggler plan against its plain twin."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as cli
+    recs = {}
+    for fmt, extra, want in (
+            ("f32", [], {"edm_update": 2, "ring_combine": 2}),
+            ("int8", ["--wire", "int8"],
+             {"edm_update": 2, "gossip_axpy_q8": 2})):
+        free()
+        ops.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        res = cli.main(MAIN_ARGS + ["--overlap", "delayed"] + extra)
+        counts = ops.launch_counts()
+        full = dict.fromkeys(counts, 0)
+        full.update(want)
+        check(counts == full and res["graph_replays"] == STEPS - 2,
+              f"--overlap delayed {fmt} launched {counts} and replayed "
+              f"{res['graph_replays']}, expected {full} and {STEPS - 2}")
+        for t, m in enumerate(res["metrics"]):
+            check(all(math.isfinite(v) for v in m.values()),
+                  f"overlap {fmt}: non-finite metrics at step {t}: {m}")
+        med = statistics.median(res["step_seconds"][2:]) * 1e3
+        rec = {"launches": {k: v for k, v in counts.items() if v},
+               "graph_replays": res["graph_replays"],
+               "step_ms": [round(t * 1e3, 2) for t in res["step_seconds"]],
+               "median_ms": med, "tokens_per_s": AGENTS * SEQ / med * 1e3,
+               "peak_allocated_gib":
+                   torch.cuda.max_memory_allocated() / 2**30,
+               "loss": [m["loss"] for m in res["metrics"]]}
+        state = res["state"]
+        del res
+        check(state["pipeline"]["parity"] == STEPS % 2
+              and bool(torch.isfinite(state["params"]).all()),
+              f"overlap {fmt}: final state")
+        recs[fmt] = rec
+        del state
+        free()
+        print(f"[time] phase 13 {fmt} CLI done", flush=True)
+    recs["graph"] = graph_phase(model, data, dgen, OVERLAP_GRAPH_CASES)
+    for fmt, g in zip(("f32", "int8"), recs["graph"]):
+        # the profiled replay of 4g's graphed trajectory (deterministic)
+        want = recs[fmt]["launches"]
+        check(g["graphed"]["traced_last_step"] == {k: 1 for k in want},
+              f"overlap {fmt}: a replay traced "
+              f"{g['graphed']['traced_last_step']}, expected one of each "
+              f"of {sorted(want)}")
+        recs[fmt].update(busy_ms=g["graphed"]["busy_ms"],
+                         idle_share=1 - g["graphed"]["busy_ms"]
+                         / recs[fmt]["median_ms"],
+                         replay_trace=g["graphed"]["traced_last_step"])
+    print("[time] phase 13 graph == eager done", flush=True)
+    torch.use_deterministic_algorithms(True)
+    try:
+        recs["step0"] = overlap_step0(model, data, dgen)
+        print("[time] phase 13 step 0 done", flush=True)
+        recs["straggler"] = straggler_vs_plain(model, data, dgen)
     finally:
         torch.use_deterministic_algorithms(False)
     return recs
@@ -1294,7 +1776,8 @@ def device_rows(prof):
 TRACED = (("edm_update", "edm_update_kernel"), ("edm_update_ef", "edm_ef_"),
           ("gossip_axpy", "gossip_axpy_kernel"),
           ("gossip_axpy_q8", "gossip_axpy_q8_kernel"),
-          ("ring_combine", "ring_combine_kernel"))
+          ("ring_combine", "ring_combine_kernel"),
+          ("table_combine", "table_combine_kernel"))
 
 
 def traced_launches(rows):
@@ -1411,6 +1894,7 @@ BUCKETS = (("edm_update kernel", ("edm_update_kernel",)),
            ("gossip_axpy kernel", ("gossip_axpy_kernel",)),
            ("gossip_axpy_q8 kernel", ("gossip_axpy_q8_kernel",)),
            ("ring_combine kernel", ("ring_combine_kernel",)),
+           ("table_combine kernel", ("table_combine_kernel",)),
            ("paged_attention kernel", ("paged_decode_mma_kernel",
                                        "paged_decode_simt_kernel")),
            ("paged_prefill kernel", ("paged_prefill_kernel",
@@ -1926,6 +2410,7 @@ def main() -> None:
     for line in attention_smem_report():
         print(f"[build] {line}")
 
+    print(f"[time] {time.time() - t_start:.1f} s before phase 3", flush=True)
     # 3. kernels against their plain versions, on the card
     model = build_model(get_config(ARCH))
     layout = bus_layout_for(model, AGENTS)
@@ -1947,6 +2432,7 @@ def main() -> None:
     for rec in [axpy_main, *axpy_small]:
         print(f"[kernels] gossip_axpy {rec}", flush=True)
 
+    print(f"[time] {time.time() - t_start:.1f} s before phase 3w", flush=True)
     # 3w. the wire kernels against their plain versions, on the card
     br = layout.block_rows
     ef_main, ef_small = {}, {}
@@ -1966,6 +2452,7 @@ def main() -> None:
     for rec in [q8_main, *q8_small]:
         print(f"[wire-kernels] gossip_axpy_q8 {rec}", flush=True)
 
+    print(f"[time] {time.time() - t_start:.1f} s before phase 3r", flush=True)
     # 3r. the ring combine (kernel 8's counterpart) against its plain
     # version: the full bus timed, then with NaN / ±Inf, then every ring
     # shape at odd row counts
@@ -1983,6 +2470,24 @@ def main() -> None:
           f"torch.matmul(W, x.view(A, -1)) {ring_main['library_ms']:.4f} ms;"
           f" {smi}", flush=True)
 
+    print(f"[time] {time.time() - t_start:.1f} s before phase 3m", flush=True)
+    # 3m. the source-table combine against its plain version: masked,
+    # late and weight-0-pad tables at the full bus, NaN / ±Inf, bf16, and
+    # a late slot's NaN row reaching no other agent
+    free()
+    table_recs = table_phase(bus_shape, gen)
+    for rec in table_recs:
+        print(f"[table-kernels] table_combine {rec}", flush=True)
+    tm = table_recs[0]
+    print(f"[table-kernels] table_combine at {bus_shape} ({tm['case']}): "
+          f"{tm['ms']:.4f} ms ({tm['gb_per_s']:.0f} GB/s); plain "
+          f"(gathers + combine) {tm['plain_ms']:.4f} ms; bound "
+          f"{tm['bound_ms']:.4f} ms ({tm['bound_by']}), "
+          f"{tm['bound_ms'] / tm['ms']:.1%} of it; "
+          f"torch.matmul(W_eff, x.view(A, -1)) {tm['library_ms']:.4f} ms; "
+          f"{smi}", flush=True)
+
+    print(f"[time] {time.time() - t_start:.1f} s before phase 3f", flush=True)
     # 3f. flash GQA attention against its plain version, timed, driven
     free()
     flash_recs, flash_poison, flash_timed, flash_counts = flash_phase()
@@ -1993,6 +2498,7 @@ def main() -> None:
     print(f"[flash] the op at (a) and (b): launches {flash_counts}",
           flush=True)
 
+    print(f"[time] {time.time() - t_start:.1f} s before phase 4", flush=True)
     # 4. the main path, through the CLI's entry point
     free()
     ops.reset_launch_counts()
@@ -2038,6 +2544,7 @@ def main() -> None:
         "peak_reserved_gib": torch.cuda.max_memory_reserved() / 2**30,
         "loss": [m["loss"] for m in result["metrics"]]}}
 
+    print(f"[time] {time.time() - t_start:.1f} s before phase 5", flush=True)
     # 5. where one step's device time goes: one eager step profiled (the
     # ring kernel, no roll left), then one graph replay profiled (the same
     # training kernels in its device trace) and between CUDA events
@@ -2065,6 +2572,7 @@ def main() -> None:
                  {"edm_update": 1, "ring_combine": 1})
     del result
 
+    print(f"[time] {time.time() - t_start:.1f} s before phase 6", flush=True)
     # 6. fused against plain through the rolls: one step with the rolls and
     # the gossip_axpy kernel against one with the rolls and the plain
     # combine, from one state and one gradient bus
@@ -2075,6 +2583,7 @@ def main() -> None:
     del state
     free()
 
+    print(f"[time] {time.time() - t_start:.1f} s before phase 4r", flush=True)
     # 4r. the main path eager (--eager): every launch counted where the
     # wrapper makes it (5 ring_combine, 5 edm_update, no gossip_axpy)
     ops.reset_launch_counts()
@@ -2119,6 +2628,7 @@ def main() -> None:
           f"{prof['buckets']['ring_combine kernel']:.3f} ms of the eager "
           f"step; {smi}", flush=True)
 
+    print(f"[time] {time.time() - t_start:.1f} s before phase 6r", flush=True)
     # 6r. one fused step through the ring kernel == one plain step through
     # the rolls and the plain combine, from one state and gradient bus
     free()
@@ -2128,12 +2638,14 @@ def main() -> None:
     del state
     free()
 
+    print(f"[time] {time.time() - t_start:.1f} s before phase 4g", flush=True)
     # 4g. the graphed bus step against the eager one, bit for bit, under
     # deterministic algorithms (eager against eager first)
     graph_recs = graph_phase(model, data, dgen)
     for rec in graph_recs:
         print(f"[graph] {json.dumps(rec)}", flush=True)
 
+    print(f"[time] {time.time() - t_start:.1f} s before phase 4w", flush=True)
     # 4w. the wire main path through the CLI: int8 on the ring, then bf16
     # on round_robin's one-peer rounds of the exp graph; graphed, so the
     # wrappers count the eager first step of each graph key (one on the
@@ -2214,6 +2726,44 @@ def main() -> None:
                 print(f"[wire-fused-vs-plain] {rec}", flush=True)
         del state
         free()
+    print(f"[time] {time.time() - t_start:.1f} s before phase 12", flush=True)
+    # 12. churn at full width: the main cell with agent 3 down for steps
+    # 2–3, graphed; replay traces; the resize at the smoke config
+    churn = churn_phase(model, data, dgen)
+    for ep in churn["epochs"]:
+        print(f"[churn] epoch {ep['epoch']} @ step {ep['start']}: "
+              f"{ep['alive']}/{AGENTS} alive, λ = {ep['lambda']:.4f}, "
+              f"modeled wire bytes per round {ep['wire_bytes'][0]} on one "
+              f"device, {ep['wire_bytes'][1]} with one agent per device",
+              flush=True)
+    print(f"[churn] {json.dumps({k: v for k, v in churn.items() if k != 'epochs'})}",
+          flush=True)
+    print(f"[churn] median replayed step {churn['median_ms']:.1f} ms "
+          f"(steps 1, 3, 5), degraded replay busy "
+          f"{churn['traces']['degraded_busy_ms']:.2f} ms, idle "
+          f"{churn['idle_share']:.1%}; peak allocated "
+          f"{churn['peak_allocated_gib']:.2f} GiB; launches "
+          f"{churn['launches']}; {smi}", flush=True)
+
+    print(f"[time] {time.time() - t_start:.1f} s before phase 13", flush=True)
+    # 13. the overlapped pipeline at full width: f32 ring and int8 wire
+    # through the CLI, graphed == eager, step 0 == synchronous, straggler
+    overlap = overlap_phase(model, data, dgen)
+    for fmt in ("f32", "int8"):
+        rec = overlap[fmt]
+        print(f"[overlap] --overlap delayed {fmt}: {json.dumps(rec)}",
+              flush=True)
+        print(f"[overlap] {fmt}: median replayed step {rec['median_ms']:.1f}"
+              f" ms (steps 2–{STEPS - 1}), {rec['tokens_per_s']:.0f} "
+              f"tokens/s, replay busy {rec['busy_ms']:.2f} ms, idle "
+              f"{rec['idle_share']:.1%}; peak allocated "
+              f"{rec['peak_allocated_gib']:.2f} GiB; {smi}", flush=True)
+    for rec in overlap["graph"]:
+        print(f"[overlap-graph] {json.dumps(rec)}", flush=True)
+    print(f"[overlap] step 0 == synchronous step: {overlap['step0']}; "
+          f"straggler == plain twin: {overlap['straggler']}", flush=True)
+
+    print(f"[time] {time.time() - t_start:.1f} s before phase 4t", flush=True)
     # 4t. the tree path through the CLI, every algorithm; 6t. fused tree
     # step == its plain twin, and close to the unfused chain
     n_leaves = len(model.meta())
@@ -2223,6 +2773,7 @@ def main() -> None:
               f"{rec['median_step_ms']:.1f} ms (steps {rec['step_ms']}); "
               f"peak memory {rec['peak_gib']:.2f} GiB; opt {rec['opt_slots']}"
               f"; metrics {rec['metrics']}", flush=True)
+    print(f"[time] {time.time() - t_start:.1f} s before phase 5t", flush=True)
     # 5t. one profiled tree edm step
     edm_state, tprof = profile_step(model, edm_run, edm_state,
                                     data.sample(dgen, 1))
@@ -2243,6 +2794,7 @@ def main() -> None:
     del edm_state, model, layout
     free()
 
+    print(f"[time] {time.time() - t_start:.1f} s before phase 7", flush=True)
     # 7. the serving kernels against their plain versions, on the card
     serve_recs, serve_timed = serving_kernels()
     for name, recs in serve_recs.items():
@@ -2256,6 +2808,7 @@ def main() -> None:
           f"{dt['bound_fraction']:.1%} of it; clusters of {dt['n_split']} "
           f"blocks, {dt['split_keys']} keys a block; {smi}", flush=True)
 
+    print(f"[time] {time.time() - t_start:.1f} s before phase 8", flush=True)
     # 8. the serving main path: the CLI, then the engine at context 1024
     from repro_torch.launch import serve as serve_cli
     from repro_torch.serve import (ContinuousBatchingEngine,
@@ -2330,6 +2883,7 @@ def main() -> None:
     del eng
     free()
 
+    print(f"[time] {time.time() - t_start:.1f} s before phase 9", flush=True)
     # 9. exactness of the kernel engine on the card
     exact = serve_exactness(vocab, smodel, sparams)
     print(f"[serve-exact] f32 kernel engine == greedy_generate on "
@@ -2340,6 +2894,7 @@ def main() -> None:
     del smodel, sparams
     free()
 
+    print(f"[time] {time.time() - t_start:.1f} s before phase 10", flush=True)
     # 10. the paper on the card
     paper = paper_phase()
     print(f"[paper] quadratic §E.1, ring(32), 3000 steps: EDM mean "
@@ -2347,6 +2902,7 @@ def main() -> None:
           f"{paper['dmsgd']:.3e} ({paper['dmsgd_s']:.1f} s); ζ² = "
           f"{paper['zeta2']:.2f}", flush=True)
 
+    print(f"[time] {time.time() - t_start:.1f} s before phase 11", flush=True)
     # 11. the train → export → serve hand-off, at full width and depth
     handoff = handoff_phase(n_layers)
     hm = handoff["serve_metrics"]
@@ -2503,6 +3059,27 @@ def main() -> None:
         and ring_twin["bit_equal"],
         "shape": ring_main["shape"], "bytes": ring_main["bytes"],
         "gb_per_s": ring_main["gb_per_s"], "timing": TIMING})
+    kernels.append({
+        "name": "table_combine", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/table_combine.cu",
+        "replaces": "src/repro/kernels/edm_update.py:187",
+        "launches": churn["launches"]["table_combine"],
+        "launches_of": "the churn cell, graphed (phase 12: the degraded "
+                       "epoch's eager first step)",
+        "graph_replays": churn["graph_replays"],
+        "replay_trace": churn["traces"]["degraded_replay"]["table_combine"],
+        "launches_straggler": overlap["straggler"]["launches"][
+            "table_combine"],
+        "max_abs_err": max(r["max_abs_err"] for r in table_recs),
+        "ms": tm["ms"], "plain_ms": tm["plain_ms"],
+        "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
+        "library_ms": tm["library_ms"],
+        "library": "torch.matmul(W_eff, x.view(A, -1)), f32 (cuBLAS; TF32 "
+                   "off)",
+        "library_max_abs_diff": tm["library_max_abs_diff"],
+        "bit_equal": all(r["bit_equal"] for r in table_recs),
+        "timed_case": tm["case"], "shape": tm["shape"],
+        "bytes": tm["bytes"], "gb_per_s": tm["gb_per_s"], "timing": TIMING})
     print(f"[done] {time.time() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,5 +1,6 @@
 """Decentralized-optimization core of the port: topologies, gossip
-schedules, the packed bus, the gossip wire codec, mixing engines, the
+schedules and their elastic (liveness-masked) form, the packed bus and its
+overlap pipeline, the gossip wire codec, mixing engines, the
 decentralized optimizers (every algorithm of ``ALGORITHMS`` on trees, EDM
 on the bus) and the metrics."""
 from .topology import (ShiftTerm, Topology, disconnected, exp_graph,
@@ -8,10 +9,13 @@ from .topology import (ShiftTerm, Topology, disconnected, exp_graph,
 from .schedule import (SCHEDULES, AlternatingHierarchical, GossipSchedule,
                        RoundRobinExp, StaticSchedule, make_schedule,
                        term_wire_rows, wire_bytes_per_step)
+from .elastic import (DropPlan, ElasticSchedule, LivenessMask,
+                      MaskedTopology, StragglerPlan, degrade_round)
 from .wire import WIRE_FORMATS, WireCodec, encode_ef, make_codec
 from .mixing import (accumulate_f32, build_mixer, make_mixer,
-                     make_schedule_mixer, mix_dense, mix_ppermute, mix_shifts,
-                     tree_map, wire_terms)
+                     make_overlap_mixer, make_schedule_mixer, mix_dense,
+                     mix_ppermute, mix_shifts, round_tables, tree_map,
+                     wire_terms)
 from .optimizers import (ALGORITHMS, DecOptimizer, make_edm_bus,
                          make_edm_bus_ef, make_optimizer)
 from .metrics import (agent_mean, bus_consensus, bus_grad_norm,
@@ -22,10 +26,13 @@ __all__ = ["ShiftTerm", "Topology", "disconnected", "exp_graph",
            "torus2d", "SCHEDULES", "AlternatingHierarchical",
            "GossipSchedule", "RoundRobinExp", "StaticSchedule",
            "make_schedule", "term_wire_rows", "wire_bytes_per_step",
+           "DropPlan", "ElasticSchedule", "LivenessMask", "MaskedTopology",
+           "StragglerPlan", "degrade_round",
            "WIRE_FORMATS", "WireCodec", "encode_ef", "make_codec",
            "accumulate_f32", "build_mixer", "make_mixer",
-           "make_schedule_mixer", "mix_dense", "mix_ppermute", "mix_shifts",
-           "tree_map", "wire_terms", "ALGORITHMS", "DecOptimizer",
+           "make_overlap_mixer", "make_schedule_mixer", "mix_dense",
+           "mix_ppermute", "mix_shifts", "round_tables", "tree_map",
+           "wire_terms", "ALGORITHMS", "DecOptimizer",
            "make_edm_bus", "make_edm_bus_ef", "make_optimizer", "agent_mean",
            "bus_consensus", "bus_grad_norm", "consensus_distance",
            "tree_sqnorm"]

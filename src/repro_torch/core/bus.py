@@ -1,6 +1,7 @@
 """ParamBus: the packed ``(A, rows, 128)`` buffer of the per-agent parameters.
 
-The counterpart of ``repro/core/bus.py`` (ungrouped layouts).  Parameters,
+The counterpart of ``repro/core/bus.py`` (ungrouped layouts), with the
+overlap pipeline's double-buffered slots (:func:`make_pipeline`).  Parameters,
 gradients and the EDM state ``m``/``ψ`` of all A agents each live in ONE
 buffer under a static layout, so the optimizer step is one fused kernel
 launch over the whole bus and the gossip is one combine.
@@ -30,7 +31,8 @@ from repro_torch.kernels.edm_update import BLOCK_ROWS, LANE
 
 __all__ = ["LANE", "BLOCK_ROWS", "LeafSlot", "BusLayout", "padded_rows",
            "leaf_paths", "make_layout", "pack_tree", "unpack_tree",
-           "pack_agent", "unpack_agent"]
+           "pack_agent", "unpack_agent", "leaf_views", "make_pipeline",
+           "pipeline_payload", "pipeline_spare", "pipeline_advance"]
 
 _SUBLANE = 8
 
@@ -172,3 +174,58 @@ def unpack_agent(layout: BusLayout, bus: torch.Tensor, agent: int
                  ) -> Dict[str, torch.Tensor]:
     """One agent's leaves (no agent axis) from row block ``agent``."""
     return _views(layout, bus[agent].view(layout.padded_elems), ())
+
+
+def leaf_views(layout: BusLayout, bus: torch.Tensor
+               ) -> Dict[str, torch.Tensor]:
+    """``{path: (A, *shape)}`` views of the bus in the bus dtype (no cast
+    back to the leaf's dtype): per-leaf diagnostics without an unpack."""
+    A, rows, lane = bus.shape
+    if rows != layout.rows or lane != LANE:
+        raise ValueError(f"bus {tuple(bus.shape)} does not match layout rows "
+                         f"{layout.rows}")
+    flat = bus.view(A, rows * LANE)
+    return {path: flat[:, s.row * LANE:s.row * LANE + s.size].view(
+        (A,) + s.shape) for path, s in zip(layout.paths, layout.slots)}
+
+
+# ---------------------------------------------------------------------------
+# double-buffered pipeline slots (DESIGN §6)
+# ---------------------------------------------------------------------------
+#
+# The overlapped gossip pipeline carries its in-flight payload in the train
+# state: ``slot`` is a (2, A, rows, 128) stack of two buses and ``parity``
+# (a Python int) picks the LIVE one.  Step t gossips slot[parity], writes
+# the new payload φ' into slot[1 − parity] and flips the parity, so the
+# buffer the combine reads is never the one the EDM update writes.
+
+def make_pipeline(bus: torch.Tensor) -> dict:
+    """Initial pipeline state: ``bus`` (φ(0) = x(0)) in the live slot,
+    zeros in the spare, parity 0."""
+    if bus.dim() != 3 or bus.shape[-1] != LANE:
+        raise ValueError(f"the pipeline holds (A, rows, {LANE}) buses, got "
+                         f"{tuple(bus.shape)}")
+    slot = torch.zeros((2,) + tuple(bus.shape), dtype=bus.dtype,
+                       device=bus.device)
+    slot[0].copy_(bus)
+    return {"slot": slot, "parity": 0}
+
+
+def pipeline_payload(pipe: dict) -> torch.Tensor:
+    """The live in-flight payload ``slot[parity]`` (a view)."""
+    return pipe["slot"][int(pipe["parity"])]
+
+
+def pipeline_spare(pipe: dict) -> torch.Tensor:
+    """The spare slot ``slot[1 − parity]`` (a view): where the step's new
+    payload goes."""
+    return pipe["slot"][1 - int(pipe["parity"])]
+
+
+def pipeline_advance(pipe: dict, phi_new: torch.Tensor) -> dict:
+    """Write the next payload into the spare slot (nothing to copy when it
+    is that slot already) and flip the parity."""
+    spare = pipeline_spare(pipe)
+    if phi_new.data_ptr() != spare.data_ptr():
+        spare.copy_(phi_new)
+    return {"slot": pipe["slot"], "parity": 1 - int(pipe["parity"])}

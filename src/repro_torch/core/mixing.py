@@ -31,18 +31,29 @@ plan (the int8 data bus and its ``(A, n_tiles)`` scales together) and
 folds the decode into the combine: the fused ``gossip_axpy_wire`` kernel
 computes ``(w·scale)·q``, the plain path ``Σ w·decode(p)`` = ``w·(q·scale)``
 as the JAX engine's, and the two round differently.  Dense and shifts
-decode first and mix in f32.  Masked (elastic) rounds and the overlap
-mode are not ported yet (ROADMAP.md).
+decode first and mix in f32.
+
+A liveness-masked round (:class:`~repro_torch.core.elastic.MaskedTopology`,
+DESIGN §8) has per-agent sources and weights.  ``dense`` applies its
+``dense_matrix()``; ``shifts`` and the plain ppermute combine take the
+reference's gather route (``x[src_k] · w_k``, accumulated in the leaf's
+dtype); the fused ppermute combine runs the source-table kernel
+(:func:`repro_torch.kernels.ops.table_combine`, one launch per leaf, the
+``(K, A)`` tables in device memory); with a wire it is the table kernel on
+the bf16 bus, or the int8 rows and scales gathered by the table into the
+q8 combine (:func:`~repro_torch.kernels.ops.table_combine_wire`).
+:func:`make_overlap_mixer` is the overlapped pipeline's phase-split mixer
+(DESIGN §6), late slots included.
 
 The ppermute engine's ``transport`` (as in the JAX engine) picks how a
 flat ±1 ring's neighbours reach the combine: ``"ppermute"`` rolls the
 agent axis and combines the rolled copies; ``"ring_dma"`` runs the ring
 kernel (:mod:`repro_torch.kernels.ring_dma`), which reads the neighbours'
 row blocks in place, and raises ``ValueError`` on a payload it cannot
-carry (not a ±1 ring, a wire payload, anything but an ``(A, rows, 128)``
-f32 bus, agents spread over devices); ``"auto"`` takes the ring kernel
-whenever the payload is eligible and the fused combine was asked for,
-and rolls otherwise.  The JAX package guards its ring kernel behind
+carry (not a ±1 ring, a masked round, a wire payload, anything but an
+``(A, rows, 128)`` f32 bus, agents spread over devices); ``"auto"``
+takes the ring kernel whenever the payload is eligible and the fused
+combine was asked for, and rolls otherwise.  The JAX package guards its ring kernel behind
 ``REPRO_RING_DMA=1``: there it is a multi-device kernel with other
 arithmetic, here it is bit-equal to the rolls plus ``gossip_axpy``, so
 it needs no opt-in.  On CPU tensors the ring transport runs the rolls
@@ -59,20 +70,23 @@ Roll semantics are ``x_new[i] = x[(i − shift) % n]``
 """
 from __future__ import annotations
 
-from typing import Callable, List, Mapping, Optional
+from typing import Callable, Dict, List, Mapping, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import ref as kref
 from repro_torch.kernels import ring_dma
 
+from .elastic import is_masked
 from .schedule import GossipSchedule, StaticSchedule
 from .topology import ShiftTerm, Topology
 from .wire import WireCodec
 
 __all__ = ["TRANSPORTS", "mix_dense", "mix_shifts", "mix_ppermute",
-           "wire_terms", "make_mixer", "make_schedule_mixer", "build_mixer",
-           "accumulate_f32", "tree_map"]
+           "wire_terms", "round_tables", "make_mixer", "make_schedule_mixer",
+           "make_overlap_mixer", "build_mixer", "accumulate_f32", "tree_map"]
 
 _LOW_PRECISION = (torch.bfloat16, torch.float16)
 TRANSPORTS = ("auto", "ppermute", "ring_dma")
@@ -101,24 +115,145 @@ def accumulate_f32(fn: Callable) -> Callable:
     return wrapped
 
 
-def _mix_leaf_dense(topo: Topology, x: torch.Tensor) -> torch.Tensor:
-    W = torch.as_tensor(topo.dense_matrix(), dtype=torch.float32,
-                        device=x.device)
+def _mix_leaf_dense(W, x: torch.Tensor) -> torch.Tensor:
+    W = torch.as_tensor(W, dtype=torch.float32, device=x.device)
     flat = x.reshape(x.shape[0], -1)
     return (W.to(flat.dtype) @ flat).reshape(x.shape)
 
 
-def mix_dense(topo: Topology, x):
-    """Oracle engine: dense W matmul over the agent axis; sub-f32 inputs
+def _dense_with(W, x):
+    """``W @ x`` over the agent axis of a tensor or tree; sub-f32 inputs
     accumulate in f32 and round once on the way out."""
     return accumulate_f32(lambda t: tree_map(
-        lambda leaf: _mix_leaf_dense(topo, leaf), t))(x)
+        lambda leaf: _mix_leaf_dense(W, leaf), t))(x)
+
+
+def mix_dense(topo: Topology, x):
+    """Oracle engine: dense W matmul over the agent axis (a masked round's
+    ``dense_matrix()`` too); sub-f32 inputs accumulate in f32 and round
+    once on the way out."""
+    return _dense_with(topo.dense_matrix(), x)
 
 
 def mix_shifts(topo: Topology, x):
     """W as a weighted sum of agent-axis rolls, accumulated in each
-    leaf's dtype."""
+    leaf's dtype (a masked round: the gather route)."""
+    if is_masked(topo):
+        return _masked_mixer(topo, "shifts", 1, False, None)(x)
     return tree_map(lambda leaf: _mix_leaf_shifts(topo, leaf), x)
+
+
+def round_tables(topo: Topology, n_slots: int = 0
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+    """A round as a source table: ``(src, w)``, int32 and f32 ``(K, A)``
+    arrays with ``src[k, a]`` the agent whose payload term k brings to
+    agent a and ``w[k, a]`` its weight — a masked round's per-agent
+    columns, else the term's weight for every agent.  ``n_slots`` > K pads
+    with self slots of weight 0 (the overlap stack's arity)."""
+    A = topo.n_agents
+    K = max(n_slots, len(topo.terms))
+    src = np.tile(np.arange(A, dtype=np.int32), (K, 1))
+    w = np.zeros((K, A), np.float32)
+    for k, t in enumerate(topo.terms):
+        src[k] = topo.term_sources(t)
+        w[k] = topo.term_weights(t) if is_masked(topo) else t.weight
+    return src, w
+
+
+def _capturing(device: torch.device) -> bool:
+    """Is a CUDA graph being captured on ``device``'s current stream?"""
+    return device.type == "cuda" and torch.cuda.is_current_stream_capturing()
+
+
+class _DeviceTables:
+    """A mixer's source tables on a device: one ``(K, A)`` int32 / f32
+    buffer pair per round (:func:`round_tables`), holding the round's
+    table with the step's late slots (if any) swapped for the agent
+    itself.  The buffers are made at the first eager call; eager calls
+    write the table they need, while a captured CUDA graph reads the
+    buffers as they are, so before a replay the step's table is written
+    by :meth:`prepare` (outside the capture)."""
+
+    def __init__(self, tables):
+        self.host = tables                 # [(src, w)] per round, numpy
+        self.bufs: Dict[tuple, list] = {}  # (round, device) -> [src, w, late]
+
+    def table(self, r: int, late) -> Tuple[np.ndarray, np.ndarray]:
+        src, w = self.host[r]
+        if late is not None and late.any():
+            src = src.copy()
+            src[late] = np.arange(src.shape[1], dtype=np.int32)
+        return src, w
+
+    def prepare(self, r: int, late, device) -> Tuple[torch.Tensor,
+                                                    torch.Tensor]:
+        key = None if late is None or not late.any() else tuple(late)
+        buf = self.bufs.get((r, device))
+        if buf is not None and buf[2] == key:
+            return buf[0], buf[1]
+        if _capturing(device):
+            raise RuntimeError(
+                f"round {r}: the tables for late slots {key} are not in "
+                "the device buffers; write them before the capture or "
+                "replay (complete.prepare)")
+        src, w = (torch.from_numpy(a) for a in self.table(r, late))
+        if buf is None:     # buffers of their own: later steps write them
+            buf = [torch.empty_like(src, device=device).copy_(src),
+                   torch.empty_like(w, device=device).copy_(w), key]
+            self.bufs[(r, device)] = buf
+        else:
+            buf[0].copy_(src)
+            buf[1].copy_(w)
+            buf[2] = key
+        return buf[0], buf[1]
+
+
+def _gather(src: torch.Tensor, w: torch.Tensor, x: torch.Tensor
+            ) -> torch.Tensor:
+    """The reference's gather route for a masked round: ``Σₖ x[src_k] ·
+    w_k`` agent by agent, the weights cast to the leaf's dtype and the sum
+    accumulated in it."""
+    bshape = (x.shape[0],) + (1,) * (x.dim() - 1)
+    acc = None
+    for s_k, w_k in zip(src.long(), w.to(x.dtype)):
+        term = x.index_select(0, s_k) * w_k.view(bshape)
+        acc = term if acc is None else acc + term
+    return acc
+
+
+def _masked_mixer(topo: Topology, engine: str, agents_per_device: int,
+                  use_fused_kernel: bool, wire: Optional[WireCodec]
+                  ) -> Callable:
+    """``mix(x, out=None)`` of a masked round on one device, with the
+    round's tables of its own (:class:`_DeviceTables`).  ``shifts`` and
+    the plain ppermute combine take the reference's gather route (decoded
+    first under a wire); the fused ppermute combine is the source-table
+    kernel, one launch per leaf (a wire payload through
+    :func:`~repro_torch.kernels.ops.table_combine_wire`), writing into
+    ``out`` when given."""
+    if engine == "ppermute":
+        _one_device(topo.n_agents, agents_per_device)
+    fused = engine == "ppermute" and use_fused_kernel
+    tables = _DeviceTables([round_tables(topo)])
+
+    def tabs(t: torch.Tensor):
+        return tables.prepare(0, None, t.device)
+
+    def mix(x, out=None):
+        if wire is not None:
+            if not fused:
+                dec = wire.decode(x)
+                return _gather(*tabs(dec), dec)
+            return kops.table_combine_wire(
+                x, *tabs(wire.payload_leaves(x)[0]), fmt=wire.fmt,
+                block_rows=wire.block_rows, out=out)
+        if not fused:
+            return tree_map(lambda leaf: _gather(*tabs(leaf), leaf), x)
+        if isinstance(x, Mapping):
+            return {k: kops.table_combine(v, *tabs(v)) for k, v in x.items()}
+        return kops.table_combine(x, *tabs(x), out=out)
+
+    return mix
 
 
 def _mix_leaf_shifts(topo: Topology, x: torch.Tensor) -> torch.Tensor:
@@ -181,7 +316,10 @@ def _ring_unfit(topo: Topology, x, agents_per_device: int,
                 wire: Optional[WireCodec]) -> str:
     """Why the ring transport cannot carry this gossip, or '':
     :func:`repro_torch.kernels.ring_dma.ring_unfit` on an f32 payload
-    (``x`` None checks the topology only)."""
+    (``x`` None checks the topology only).  A masked round has per-agent
+    sources, as in the reference (``mix_ppermute``'s ``not masked``)."""
+    if is_masked(topo):
+        return f"takes unmasked rings, got the masked round {topo.name}"
     if wire is not None:
         return (f"takes f32 payloads; a {wire.fmt} wire payload goes "
                 "through the decode-combine")
@@ -206,17 +344,9 @@ def _use_ring(topo: Topology, x, agents_per_device: int,
     return use_fused_kernel and not why
 
 
-def mix_ppermute(topo: Topology, x, *, agents_per_device: int,
-                 use_fused_kernel: bool = False,
-                 wire: Optional[WireCodec] = None, transport: str = "auto",
-                 out: Optional[torch.Tensor] = None):
-    """The ``ppermute`` engine with every agent on one device, on a tensor
-    or leaf by leaf on a tree (one combine per leaf).  With a non-f32
-    ``wire``, ``x`` is the codec's payload of the bus and the result is
-    the decoded f32 mix.  ``transport`` picks the rolls or the ring
-    kernel; a fused combine of a tensor writes into ``out`` (module
-    docstring)."""
-    A = topo.n_agents
+def _one_device(A: int, agents_per_device: int) -> None:
+    """Raise unless ``agents_per_device`` puts all A agents on one device:
+    more devices is multi-GPU gossip."""
     if agents_per_device < 1 or A % agents_per_device:
         raise ValueError(f"agent count {A} must be a multiple of "
                          f"agents_per_device={agents_per_device}")
@@ -227,7 +357,23 @@ def mix_ppermute(topo: Topology, x, *, agents_per_device: int,
             f"{agents_per_device} < {A} agents) is multi-GPU gossip, which "
             "the port does not have yet (ROADMAP.md); pass "
             f"agents_per_device={A} to keep every agent on one device")
+
+
+def mix_ppermute(topo: Topology, x, *, agents_per_device: int,
+                 use_fused_kernel: bool = False,
+                 wire: Optional[WireCodec] = None, transport: str = "auto",
+                 out: Optional[torch.Tensor] = None):
+    """The ``ppermute`` engine with every agent on one device, on a tensor
+    or leaf by leaf on a tree (one combine per leaf).  With a non-f32
+    ``wire``, ``x`` is the codec's payload of the bus and the result is
+    the decoded f32 mix.  ``transport`` picks the rolls or the ring
+    kernel; a fused combine of a tensor writes into ``out`` (module
+    docstring)."""
+    _one_device(topo.n_agents, agents_per_device)
     wire = _no_f32(wire)
+    if is_masked(topo):
+        return _masked_mixer(topo, "ppermute", agents_per_device,
+                             use_fused_kernel, wire)(x, out=out)
     if _use_ring(topo, x, agents_per_device, use_fused_kernel, wire,
                  transport):
         terms = [(t.shift, float(t.weight)) for t in topo.terms]
@@ -263,9 +409,9 @@ def _combine(payloads, weights, use_fused_kernel: bool,
 
 def _check_round(topo) -> None:
     if not isinstance(topo, Topology):
-        raise NotImplementedError(
-            f"gossip round {type(topo).__name__} is not a Topology: masked "
-            "(elastic) rounds are not ported yet (ROADMAP.md)")
+        raise TypeError(f"gossip round {type(topo).__name__} is not a "
+                        "repro_torch Topology (a masked round is its "
+                        "MaskedTopology subclass)")
 
 
 def make_mixer(topo: Topology, engine: str = "shifts", *,
@@ -288,6 +434,9 @@ def make_mixer(topo: Topology, engine: str = "shifts", *,
                else _ring_unfit(topo, None, agents_per_device, wire))
         if why:
             raise ValueError(f"transport='ring_dma' {why}")
+    if is_masked(topo) and engine in ("shifts", "ppermute"):
+        return _masked_mixer(topo, engine, agents_per_device,
+                             use_fused_kernel, wire)
     if engine in ("dense", "shifts"):
         base = mix_dense if engine == "dense" else mix_shifts
         if wire is None:
@@ -320,6 +469,163 @@ def make_schedule_mixer(sched: GossipSchedule, engine: str = "shifts", *,
         int(sched.round_index(int(step)))](x, out=out)
 
 
+def _late_mask(late, K: int) -> Optional[np.ndarray]:
+    """A ``(K,)`` late mask (numpy, a tensor or a sequence) as numpy bools,
+    or None."""
+    if late is None:
+        return None
+    if isinstance(late, torch.Tensor):
+        late = late.detach().cpu().numpy()
+    late = np.asarray(late, dtype=bool).reshape(-1)
+    if late.shape != (K,):
+        raise ValueError(f"late mask of {late.shape[0]} slots, the payload "
+                         f"stack has K = {K}")
+    return late
+
+
+def make_overlap_mixer(sched, engine: str = "ppermute", *,
+                       agents_per_device: int = 1,
+                       use_fused_kernel: bool = False,
+                       wire: Optional[WireCodec] = None,
+                       transport: str = "auto"):
+    """Phase-split schedule mixer of the overlapped gossip pipeline
+    (DESIGN §6): returns ``(issue, complete)`` with ``complete(issue(x,
+    step), step)`` equal to the synchronous ``make_schedule_mixer(...)(x,
+    step)`` on one payload ``x`` (the packed bus, or the codec's payload of
+    it with ``wire``; the result is then the decoded f32 mix).
+
+    K is the largest arity of any round; ``complete.n_terms`` is K and
+    ``complete.self_index[r]`` the slot of round r's self payload (its
+    shift-0 term, or the first weight-0 pad slot).
+    ``complete(payloads, step, late=None, out=None)`` takes an optional
+    ``(K,)`` late mask (:meth:`~repro_torch.core.elastic.StragglerPlan.
+    late_at`): each late slot takes the round's self payload under the
+    slot's own weight, ``W_eff = Σ_{k∉late} w_k P_k + (Σ_{k∈late} w_k) I``,
+    so the late buffer is never multiplied.
+
+    * ``dense`` / ``shifts``: no separable wire phase — ``issue`` is the
+      identity and ``complete`` the full mix.  ``dense`` takes ``late``
+      through the per-term W_eff oracle; ``shifts`` rejects it.
+    * ``ppermute`` with every agent on one device: nothing ships, so
+      ``issue`` hands on the live payload itself and ``complete`` runs the
+      combine over it.  In the JAX package ``issue`` stacks the K
+      permuted payloads, ``(K, A, ...)``, slot k of agent a holding
+      agent ``src[k, a]``'s payload (the agent's own for a pad slot), and
+      ``complete`` sums ``w[k, a] · stack[k, a]`` in slot order from
+      ``w₀·o₀``.  Here slot k of agent a *is* row block ``src[k, a]`` of
+      the payload, unchanged between the two calls, so reading it in
+      place through the source table computes the same terms in the same
+      order with the same roundings, and a late slot is a table entry
+      (source: the agent itself).  The fused combine is the ring kernel
+      for an unmasked ±1 ring round with no late slot (the pad slots as
+      weight-0 self terms), else the source-table kernel (its tables in
+      device buffers, :class:`_DeviceTables`; an int8 payload is gathered
+      by the table into the q8 combine); the plain combine is the
+      table's plain version on the decoded payload.  ``out=`` receives a
+      fused combine's mix.  ``complete.prepare(step, late, device)``
+      writes the step's tables into the device buffers, which a CUDA
+      graph replay needs first (:mod:`repro_torch.train.graphs`).
+    """
+    wire = _no_f32(wire)
+    _check_transport(transport)
+    if transport == "ring_dma":
+        raise ValueError("the overlap mixer takes transport 'auto' or "
+                         "'ppermute' (the ring kernel is auto's choice)")
+    if not isinstance(sched, GossipSchedule):
+        _check_round(sched)
+        sched = StaticSchedule(sched)
+    for r in sched.rounds:
+        _check_round(r)
+    R = len(sched.rounds)
+    K = max(len(r.terms) for r in sched.rounds)
+    A = sched.n_agents
+
+    def self_index(topo) -> int:
+        si = next((k for k, t in enumerate(topo.terms) if t.shift == 0),
+                  len(topo.terms))
+        if si >= K:
+            raise ValueError(f"{topo.name}: no self term and no pad slot to "
+                             "degrade onto")
+        return si
+
+    selves = tuple(self_index(r) for r in sched.rounds)
+
+    if engine != "ppermute":
+        mix = make_schedule_mixer(sched, engine,
+                                  agents_per_device=agents_per_device,
+                                  use_fused_kernel=use_fused_kernel,
+                                  wire=wire)
+        Wk = Ik = None
+        if engine == "dense":
+            # per-term dense stacks: Wk = diag(wcol_k) P_k, Ik = diag(wcol_k)
+            Wk = np.zeros((R, K, A, A), np.float32)
+            Ik = np.zeros((R, K, A, A), np.float32)
+            idx = np.arange(A)
+            for r, topo in enumerate(sched.rounds):
+                src, w = round_tables(topo)
+                for k in range(len(topo.terms)):
+                    Wk[r, k, idx, src[k]] = w[k]
+                    Ik[r, k, idx, idx] = w[k]
+
+        def complete(x, step=0, late=None, out=None):
+            late = _late_mask(late, K)
+            if late is None:
+                return mix(x, step=step)
+            if engine != "dense":
+                raise ValueError("straggler degradation needs the ppermute "
+                                 "or dense engine")
+            if wire is not None:
+                x = wire.decode(x)
+            r = int(sched.round_index(int(step)))
+            W_eff = np.where(late.reshape(K, 1, 1), Ik[r], Wk[r]).sum(
+                axis=0, dtype=np.float32)
+            return _dense_with(W_eff, x)
+
+        complete.n_terms = K
+        complete.self_index = selves
+        complete.prepare = lambda step, late, device: None
+        return (lambda x, step=0: x), complete
+
+    _one_device(A, agents_per_device)
+    tables = _DeviceTables([round_tables(r, K) for r in sched.rounds])
+    pads = [[(int(t.shift), float(t.weight)) for t in r.terms]
+            + [(0, 0.0)] * (K - len(r.terms)) for r in sched.rounds]
+
+    def issue(x, step=0):
+        return x
+
+    def complete(payload, step=0, late=None, out=None):
+        r = int(sched.round_index(int(step)))
+        topo = sched.rounds[r]
+        late = _late_mask(late, K)
+        first = payload if wire is None else wire.payload_leaves(payload)[0]
+        if not use_fused_kernel:        # the plain stack-and-combine
+            x = payload if wire is None else wire.decode(payload)
+            return kref.table_combine_ref(
+                x, *tables.prepare(r, late, first.device))
+        no_late = late is None or not late.any()
+        if no_late and transport == "auto" and len(pads[r]) <= \
+                ring_dma.MAX_TERMS and not _ring_unfit(
+                    topo, payload, agents_per_device, wire):
+            return kops.ring_combine(payload, pads[r], out=out)
+        src, w = tables.prepare(r, late, first.device)
+        if wire is None:
+            return kops.table_combine(payload, src, w, out=out)
+        return kops.table_combine_wire(payload, src, w, fmt=wire.fmt,
+                                       block_rows=wire.block_rows, out=out)
+
+    def prepare(step, late, device):
+        """Write the tables of ``step`` (its round, ``late`` swapped in)
+        into the device buffers the fused combine reads."""
+        tables.prepare(int(sched.round_index(int(step))), _late_mask(late, K),
+                       torch.device(device))
+
+    complete.n_terms = K
+    complete.self_index = selves
+    complete.prepare = prepare
+    return issue, complete
+
+
 def build_mixer(sched, *, mode: str = "schedule", engine: str = "shifts",
                 agents_per_device: int = 1, use_fused_kernel: bool = False,
                 wire: Optional[WireCodec] = None,
@@ -329,11 +635,8 @@ def build_mixer(sched, *, mode: str = "schedule", engine: str = "shifts",
     ``mode="schedule"`` takes a
     :class:`~repro_torch.core.schedule.GossipSchedule` (a bare topology
     is wrapped static) and returns ``mix(x, step=0)``; both take
-    ``out=``.  The overlap mode is not ported yet (ROADMAP.md)."""
-    if mode == "overlap":
-        raise NotImplementedError("mixer mode 'overlap' (the overlapped "
-                                  "gossip pipeline) is not ported yet "
-                                  "(ROADMAP.md)")
+    ``out=``; ``mode="overlap"`` returns the ``(issue, complete)`` pair of
+    :func:`make_overlap_mixer`."""
     kw = dict(agents_per_device=agents_per_device,
               use_fused_kernel=use_fused_kernel, wire=wire,
               transport=transport)
@@ -346,10 +649,12 @@ def build_mixer(sched, *, mode: str = "schedule", engine: str = "shifts",
                                  f"{sched.period}")
             topo = sched.rounds[0]
         return make_mixer(topo, engine, **kw)
+    if not isinstance(sched, GossipSchedule):
+        _check_round(sched)
+        sched = StaticSchedule(sched)
     if mode == "schedule":
-        if not isinstance(sched, GossipSchedule):
-            _check_round(sched)
-            sched = StaticSchedule(sched)
         return make_schedule_mixer(sched, engine, **kw)
+    if mode == "overlap":
+        return make_overlap_mixer(sched, engine, **kw)
     raise ValueError(f"unknown mixer mode: {mode!r} (expected 'static', "
                      "'schedule' or 'overlap')")

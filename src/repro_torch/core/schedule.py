@@ -289,6 +289,11 @@ def wire_bytes_per_step(sched: GossipSchedule, step: int, *,
     n_dev = A // B
     bytes_per_agent = (codec.payload_bytes(elems_per_agent)
                        if codec is not None else elems_per_agent * itemsize)
+    wire_rows = getattr(topo, "wire_rows", None)
+    if wire_rows is not None:
+        # liveness-masked rounds (core.elastic.MaskedTopology) carry their
+        # own per-agent source maps and count their own rows
+        return wire_rows(B, engine) * bytes_per_agent
     if engine == "dense":
         rows = (A - B) * n_dev          # every device gathers all remote rows
     elif engine == "shifts":

@@ -21,10 +21,12 @@ from .flash_attention import flash_attention_flat
 from .paged_attention import paged_attention_flat
 from .paged_prefill import paged_prefill_flat
 from .ring_dma import ring_combine_flat, ring_operands
+from .table_combine import table_combine_flat, table_operands
 
 __all__ = ["edm_update", "edm_update_tree", "edm_update_bus",
            "edm_update_bus_ef", "gossip_axpy", "gossip_axpy_wire",
-           "ring_combine", "flash_attention", "paged_attention",
+           "ring_combine", "table_combine", "table_combine_wire",
+           "flash_attention", "paged_attention",
            "paged_prefill_attention", "padded_size", "pack_leaf",
            "unpack_leaf", "launch_counts", "reset_launch_counts"]
 
@@ -233,6 +235,54 @@ def ring_combine(x: torch.Tensor, terms: Sequence[Tuple[int, float]], *,
     return ring_combine_flat(x, terms, out=out)
 
 
+def table_combine(x: torch.Tensor, src: torch.Tensor, w: torch.Tensor, *,
+                  out_dtype: Optional[torch.dtype] = None,
+                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The source-table combine ``out[a] = Σₖ w[k, a] · x[src[k, a]]`` over
+    an ``(A, ...)`` f32 or bf16 tensor, ``src`` / ``w`` ``(K, A)`` int32 /
+    f32 tables on x's device: one kernel launch on the card (the tables
+    read from device memory), the gather route on the CPU.  f32
+    accumulation, one rounding to ``out_dtype`` (default: x's), into
+    ``out`` when given (it may alias no byte of ``x``)."""
+    table_operands(x, src, w, out_dtype, out)   # the card's checks, everywhere
+    if not _on_card(x):
+        val = ref.table_combine_ref(x, src, w, out_dtype=out_dtype)
+        return val if out is None else out.copy_(val)
+    return table_combine_flat(x.contiguous(), src, w, out_dtype=out_dtype,
+                              out=out)
+
+
+def table_combine_wire(payload, src: torch.Tensor, w: torch.Tensor, *,
+                       fmt: str, block_rows: Optional[int] = None,
+                       out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The source-table combine of a wire-coded ``(A, rows, 128)`` bus
+    payload, decode folded in, f32 out: a bf16 bus goes through the table
+    kernel with f32 out; an int8 ``(q, scale)`` pair is gathered by the
+    table (``q`` rows and their per-tile scales) into the q8 combine,
+    whose per-tile coefficients ``w[k, a] · scale`` carry the per-agent
+    weights (the tiles are agent-major)."""
+    if fmt in ("f32", "bf16"):
+        return table_combine(payload, src, w, out_dtype=torch.float32,
+                             out=out)
+    if fmt != "int8":
+        raise ValueError(f"unknown wire format {fmt!r}")
+    q, scale = payload
+    idx = src.long()
+    qs = [q.index_select(0, idx[k]) for k in range(idx.shape[0])]
+    coefs = torch.stack([(scale.index_select(0, idx[k])
+                          * w[k].view(-1, 1)).reshape(-1)
+                         for k in range(idx.shape[0])])
+    block_rows = block_rows or BLOCK_ROWS
+    if not _on_card(q):
+        val = ref.gossip_axpy_q8_ref(qs, coefs, block_rows=block_rows)
+        return val if out is None else out.copy_(val)
+    flat_out = None if out is None else _bus_flat(out, "table_combine_wire")
+    res = gossip_axpy_q8_flat([_bus_flat(t, "table_combine_wire")
+                               for t in qs], coefs, block_rows=block_rows,
+                              out=flat_out)
+    return res.view(q.shape)
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     blk_q: int = 128, blk_k: int = 128) -> torch.Tensor:
     """Flash GQA attention in the ``(B, H, S, hd)`` layout: q
@@ -300,7 +350,8 @@ _COUNTED = {"edm_update": edm_update_flat, "gossip_axpy": gossip_axpy_flat,
             "flash_attention": flash_attention_flat,
             "paged_attention": paged_attention_flat,
             "paged_prefill": paged_prefill_flat,
-            "ring_combine": ring_combine_flat}
+            "ring_combine": ring_combine_flat,
+            "table_combine": table_combine_flat}
 
 
 def launch_counts() -> Dict[str, int]:

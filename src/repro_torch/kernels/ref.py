@@ -19,7 +19,7 @@ from repro_torch.models.attention import (_gather_pages, paged_prefill_sdpa,
                                           sdpa_ref)
 
 __all__ = ["edm_update_ref", "edm_update_ef_ref", "gossip_axpy_ref",
-           "ring_combine_ref", "gossip_axpy_q8_ref", "wire_coefs",
+           "ring_combine_ref", "table_combine_ref", "gossip_axpy_q8_ref", "wire_coefs",
            "finite_absmax", "int8_scale_inv", "flash_attention_ref",
            "gather_pages", "paged_attention_ref",
            "paged_prefill_attention_ref"]
@@ -34,14 +34,21 @@ def edm_update_ref(x, g, m, psi, *, alpha: float, beta: float,
     double rounded once to f32, as in the JAX kernel.  ``out`` =
     ``(m_out, psi_out, phi_out)`` receives the results where an entry is
     not None (``m_out`` may be ``m`` and ``psi_out`` may be ``psi``: all
-    three are computed first)."""
-    m_new = beta * m + (1.0 - beta) * g
-    psi_new = x - alpha * m_new
-    phi = psi_new + x - psi
+    three are computed first; ``phi_out`` may alias no input).  The chain
+    accumulates in place where that changes no rounding (a sum's operands
+    commute exactly), so a bus-sized call holds few temporaries."""
+    m_new = beta * m
+    m_new.add_((1.0 - beta) * g)
+    psi_new = alpha * m_new
+    torch.sub(x, psi_new, out=psi_new)
+    phi_out = None if out is None else out[2]
+    phi = torch.add(psi_new, x, out=phi_out) if phi_out is not None \
+        else psi_new + x
+    phi.sub_(psi)
     vals = (m_new, psi_new, phi)
     if out is None:
         return vals
-    return tuple(val if dst is None else dst.copy_(val)
+    return tuple(val if dst is None or dst is val else dst.copy_(val)
                  for dst, val in zip(out, vals))
 
 
@@ -67,6 +74,28 @@ def ring_combine_ref(x: torch.Tensor, terms: Sequence[Tuple[int, float]]
     payloads = [x if A == 1 or s % A == 0 else torch.roll(x, s, 0)
                 for s, _ in terms]
     return gossip_axpy_ref(payloads, [w for _, w in terms])
+
+
+def table_combine_ref(x: torch.Tensor, src, w,
+                      out_dtype: Optional[torch.dtype] = None
+                      ) -> torch.Tensor:
+    """The source-table combine ``out[a] = Σₖ w[k, a] · x[src[k, a]]``: term
+    k's operand is x gathered by row ``src[k]``, weighted agent by agent by
+    ``w[k]`` (f32), accumulated in f32 in slot order from ``w₀·o₀`` and
+    rounded once to ``out_dtype`` (default: x's) — the gather route of the
+    JAX package's masked engines with :func:`gossip_axpy_ref`'s rounding.
+    Weight-0 slots are computed (0·Inf is NaN, as in the stack)."""
+    src = torch.as_tensor(src, device=x.device).long()
+    w = torch.as_tensor(w, dtype=torch.float32, device=x.device)
+    bshape = (x.shape[0],) + (1,) * (x.dim() - 1)
+
+    def term(k):       # a gathered copy of its own, weighted in place
+        return x.index_select(0, src[k]).float().mul_(w[k].view(bshape))
+
+    acc = term(0)
+    for k in range(1, src.shape[0]):
+        acc.add_(term(k))
+    return acc.to(out_dtype or x.dtype)
 
 
 def int8_scale_inv(absmax: torch.Tensor):

@@ -18,16 +18,25 @@ and ``--gossip-schedule {round_robin,alt_hier}`` (with
 header line prints the schedule, its period-product λ, the wire format
 and, on the bus, the modeled wire bytes of one gossip round.
 
+``--churn PLAN`` (a path or inline JSON
+:class:`~repro_torch.core.elastic.DropPlan`) gossips over the schedule
+degraded per liveness epoch (the header's schedule reads
+``elastic(...)``, ``λ_prod`` is the worst epoch's, and one line per epoch
+gives its survivors, λ and modeled wire bytes);
+``--overlap delayed`` runs the overlapped gossip pipeline (header
+``+overlap``), with or without ``--wire``.
+
 ``--ckpt PATH`` writes the full train state after the last step
 (:func:`repro_torch.train.checkpoint.save_state`: the logical npz of the
-JAX package, bus unpacked to leaves) and ``--resume PATH`` restores one
-before the first step (:func:`~repro_torch.train.checkpoint.
-load_state_resized`: a file of either package, at any agent count).  The
-token stream is drawn per global step, so a run resumed at step t takes
-the batches the uninterrupted run takes from step t on.  Flags of levers
-the port does not run yet (``--agents pod``, ``--churn``, overlap,
-groups) are accepted by the parser and rejected with a pointer to
-ROADMAP.md.
+JAX package, bus unpacked to leaves, the pipeline as its live payload)
+and ``--resume PATH`` restores one before the first step
+(:func:`~repro_torch.train.checkpoint.load_state_resized`: a file of
+either package, at any agent count: survivors restore bit for bit,
+joining agents take the consensus mean with ψ := x).  The token stream
+is drawn per global step, so a run resumed at step t takes the batches
+the uninterrupted run takes from step t on.  Flags of levers the port
+does not run yet (``--agents pod``, ``--shards``, groups) are accepted by
+the parser and rejected with a pointer to ROADMAP.md.
 
 On a CUDA device the bus path runs as CUDA graphs
 (:func:`repro_torch.train.graphs.graph_train_step`: the first step of each
@@ -85,7 +94,10 @@ def parser() -> argparse.ArgumentParser:
                     help="Dirichlet heterogeneity of the token streams")
     ap.add_argument("--ckpt", default="",
                     help="write the train state here after the last step")
-    ap.add_argument("--churn", default="", help="not ported yet")
+    ap.add_argument("--churn", default="",
+                    help="DropPlan (path or inline JSON): gossip over the "
+                         "schedule degraded per liveness epoch, re-checked "
+                         "against Assumption 1 per epoch")
     ap.add_argument("--resume", default="",
                     help="restore a train state saved by --ckpt (either "
                          "package; another agent count is resized)")
@@ -99,14 +111,16 @@ def parser() -> argparse.ArgumentParser:
 
 def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
     """Parse ``argv``, train, print one line per logged step, and return
-    ``{"state", "metrics", "step_seconds", "run", "wire_bytes"}`` — the
-    final train state, per-step metrics as floats, per-step wall times
-    (each step ends in a device synchronisation) and the modeled wire
-    bytes of one gossip round ``[as configured, one agent per device]``
-    on the bus (None on the tree path)."""
+    ``{"state", "metrics", "step_seconds", "run", "wire_bytes", "epochs",
+    "graph_replays"}`` — the final train state, per-step metrics as
+    floats, per-step wall times (each step ends in a device
+    synchronisation), the modeled wire bytes of one gossip round ``[as
+    configured, one agent per device]`` on the bus (None on the tree
+    path) and, under ``--churn``, each liveness epoch's start, survivors,
+    λ and wire bytes (else None)."""
     args = parser().parse_args(argv)
     for flag, val in (("--agents pod", args.agents == "pod"),
-                      ("--shards", args.shards), ("--churn", args.churn)):
+                      ("--shards", args.shards)):
         if val:
             raise NotImplementedError(f"{flag} is not ported to repro_torch "
                                       "yet (see ROADMAP.md)")
@@ -118,18 +132,23 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
                     seq_len=args.seq, agents="data", remat=False,
                     **run_config_overrides(args))
     feats = resolve_features(run)
-    sched = make_gossip_schedule(run, n_agents, pods=args.pods)
+    sched = make_gossip_schedule(run, n_agents, pods=args.pods,
+                                 churn=args.churn or None)
     wire_bytes, layout = None, None
-    if feats.packed_bus:
-        layout = bus_layout_for(model, n_agents)
-        codec = make_codec(feats.wire, layout.block_rows)
+
+    def round_bytes(step: int):
         # modeled bytes of one gossip round as configured (0 with every
         # agent on one device) and with one agent per device, as across
         # GPUs
-        wire_bytes = [wire_bytes_per_step(
-            sched, 0, elems_per_agent=layout.padded_elems,
+        return [wire_bytes_per_step(
+            sched, step, elems_per_agent=layout.padded_elems,
             agents_per_device=b, engine=args.gossip_engine, codec=codec)
             for b in (args.agents_per_device, 1)]
+
+    if feats.packed_bus:
+        layout = bus_layout_for(model, n_agents)
+        codec = make_codec(feats.wire, layout.block_rows)
+        wire_bytes = round_bytes(0)
     bytes_str = ("" if wire_bytes is None else
                  f" wire_bytes/step={wire_bytes[0]} (one agent per device: "
                  f"{wire_bytes[1]})")
@@ -143,11 +162,24 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
                 else "")
     print(f"arch={cfg.name} ({cfg.n_params()/1e6:.1f}M params) "
           f"agents={n_agents} {topo_str}schedule={sched.name} "
-          f"period={sched.period} λ_prod={sched.product_lam():.4f} "
+          f"period={sched.period} "
+          f"λ_prod={sched.product_spectral_stats()['lambda']:.4f} "
           f"alg={args.algorithm} engine={args.gossip_engine}"
           f"{' +fused' if args.fused_kernel else ''}"
-          f"{' +bus' if feats.packed_bus else ' +tree'} wire={feats.wire}"
+          f"{' +bus' if feats.packed_bus else ' +tree'}"
+          f"{' +overlap' if feats.overlap else ''} wire={feats.wire}"
           f"{bytes_str} device={device} step={mode}", flush=True)
+    epochs = None
+    if args.churn:
+        epochs = sched.epoch_stats()
+        for ep in epochs:
+            if feats.packed_bus:
+                ep["wire_bytes"] = round_bytes(ep["start"])
+            print(f"epoch {ep['epoch']} @ step {ep['start']}: "
+                  f"{ep['alive']}/{n_agents} alive λ={ep['lambda']:.4f}"
+                  + (f" wire_bytes/step={ep['wire_bytes'][0]} (one agent "
+                     f"per device: {ep['wire_bytes'][1]})"
+                     if feats.packed_bus else ""), flush=True)
 
     data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=args.seq,
                        n_agents=n_agents, phi=args.phi)
@@ -181,7 +213,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
         checkpoint.save_state(args.ckpt, state, layout=layout)
         print(f"checkpoint -> {args.ckpt}")
     return {"state": state, "metrics": history, "step_seconds": seconds,
-            "run": run, "wire_bytes": wire_bytes,
+            "run": run, "wire_bytes": wire_bytes, "epochs": epochs,
             "graph_replays": getattr(step, "replays", 0)}
 
 

@@ -20,8 +20,10 @@ parameters — the model a serving user loads (``launch/serve.py
 stored dtype as numpy's ``astype`` rounds (bf16 through torch, which
 gives ml_dtypes' bits).  :func:`resize_state` and
 :func:`load_state_resized` carry a state across agent counts with the
-reference's join rule.  The overlap pipeline's state and grouped bus
-layouts are not ported (ROADMAP.md).
+reference's join rule.  The overlap pipeline's state is stored as the
+reference stores it: its live payload ``pipeline|phi|<path>`` (the bus
+unpacked, the spare slot never written) and ``pipeline|parity``.  Grouped
+bus layouts are not ported (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -153,12 +155,15 @@ def load(path: str, like: Any, layout: Optional[BusLayout] = None,
 def save_state(path: str, state: Mapping[str, Any],
                layout: Optional[BusLayout] = None) -> None:
     """Checkpoint a trainer state ``{params, opt, step}``; bus buffers are
-    written as their logical leaves."""
-    if "pipeline" in state:
-        raise NotImplementedError("the overlap pipeline's state is not "
-                                  "ported to repro_torch yet (see "
-                                  "ROADMAP.md)")
-    save(path, state, layout=layout)
+    written as their logical leaves.  The overlap ``pipeline`` is written
+    as ``{"phi": live payload, "parity": bit}``: the spare slot is dead by
+    construction and never reaches the file."""
+    tree = dict(state)
+    pipe = tree.pop("pipeline", None)
+    if pipe is not None:
+        parity = int(pipe["parity"])
+        tree["pipeline"] = {"parity": parity, "phi": pipe["slot"][parity]}
+    save(path, tree, layout=layout)
 
 
 def load_state(path: str, like: Mapping[str, Any],
@@ -170,7 +175,12 @@ def load_state(path: str, like: Mapping[str, Any],
     A checkpoint of an f32-wire run has no ``opt|e`` residual: resumed
     under ``wire`` bf16 / int8 the residual starts at zero, the
     error-feedback cold start e(0) = 0 (the reference's rule).  A residual
-    in the file that the new state does not ask for is ignored."""
+    in the file that the new state does not ask for is ignored.
+
+    A pipeline checkpoint carries only the live payload: the restored
+    ``slot`` holds φ(t) in both slots, so ``slot[parity]`` is right for
+    either stored parity and the first resumed step overwrites the spare
+    as the uninterrupted run would."""
     like2 = dict(like)
     e_like = None
     opt_like = like2.get("opt")
@@ -181,7 +191,23 @@ def load_state(path: str, like: Mapping[str, Any],
             opt_like = dict(opt_like)
             e_like = opt_like.pop("e")
             like2["opt"] = opt_like
-    state = load(path, like2, layout=layout, device=device)
+    pipe_like = like2.pop("pipeline", None)
+    if pipe_like is not None:
+        slot = pipe_like["slot"]
+        like2["pipeline"] = {"parity": 0, "phi": torch.empty(
+            tuple(slot.shape[1:]), dtype=slot.dtype, device="meta")}
+    state = load(path, like2, layout=layout,
+                 device=device if device is not None or pipe_like is None
+                 else pipe_like["slot"].device)
+    if pipe_like is not None:
+        pp = state.pop("pipeline")
+        phi = pp["phi"]
+        slot = torch.empty((2,) + tuple(phi.shape), dtype=phi.dtype,
+                           device=phi.device)
+        slot[0].copy_(phi)
+        slot[1].copy_(phi)
+        state["pipeline"] = {"slot": slot, "parity": int(pp["parity"])}
+        del phi, pp
     if e_like is not None:
         state["opt"]["e"] = tree_map(lambda l: torch.zeros(
             l.shape, dtype=l.dtype,
@@ -259,8 +285,9 @@ def resize_state(state: Mapping[str, Any], survivors: Sequence[int],
     exact.  Agents appended past them join with the reference's rule:
     ``params`` the survivors' mean, ``opt["psi"]`` the new agent's own x
     row (so φ collapses to ψ′ at its first step, as at step 0), every
-    other optimizer slot zero.  Bus buffers and tree leaves resize alike,
-    along axis 0."""
+    other optimizer slot zero; the overlap pipeline's slots the new x row
+    in both buffers.  Bus buffers and tree leaves resize alike, along axis
+    0 (axis 1 of the pipeline's ``slot``)."""
     surv = list(survivors)
     m = len(surv)
     if not 0 < m <= n_agents:
@@ -291,6 +318,16 @@ def resize_state(state: Mapping[str, Any], survivors: Sequence[int],
                 lambda l: grow(keep(l), torch.zeros_like(l[:1])), sub)
     out = dict(state)
     out["params"], out["opt"] = params, opt
+    pipe = state.get("pipeline")
+    if pipe is not None:
+        # both slots of a joining agent hold its new x row: φ(0) = x(0), the
+        # seeding init_state uses
+        slot = pipe["slot"]
+        kept = slot[:, torch.as_tensor(surv, device=slot.device)]
+        if pad:
+            kept = torch.cat([kept, params[m:].unsqueeze(0).expand(
+                (slot.shape[0],) + tuple(params[m:].shape))], dim=1)
+        out["pipeline"] = {"slot": kept, "parity": pipe["parity"]}
     return out
 
 
@@ -328,6 +365,11 @@ def load_state_resized(path: str, like: Mapping[str, Any],
     like_old = dict(like)
     like_old["params"] = at_old(like["params"])
     like_old["opt"] = {k: at_old(v) for k, v in like["opt"].items()}
+    if "pipeline" in like:
+        slot = like["pipeline"]["slot"]
+        like_old["pipeline"] = {"slot": torch.empty(
+            (slot.shape[0], a_old) + tuple(slot.shape[2:]), dtype=slot.dtype,
+            device="meta"), "parity": 0}
     old = load_state(path, like_old, layout=layout, device=device)
     surv = (list(survivors) if survivors is not None
             else list(range(min(a_old, a_new))))

@@ -21,6 +21,16 @@ the batch's tokens into a static buffer and replays a graph of
   capture reuses another's outputs, and they are copied out after every
   replay.  The ``warmup_cosine`` scale lives in a device scalar written
   before each replay.
+* **Churn** (an :class:`~repro_torch.core.elastic.ElasticSchedule`) is
+  more rounds: each (epoch, base round) is a round index of its own, so
+  a degraded round has its own graph, whose source-table kernel reads
+  the round's tables from device buffers made at its eager first step.
+* **Overlap.**  The pipeline's ``slot`` is part of the static state and
+  its parity keys the graphs too (one graph per parity: the live and the
+  spare slot trade places every step).  Under a straggler plan the key
+  also says whether a slot is late, and before every replay the step's
+  source table, late slots swapped in, is written into the device
+  buffers the captured combine reads (``StaticBusStep.prepare``).
 * **The first step of a key runs eagerly**, on the capture's side stream:
   it is the warm-up every capture needs (library handles, the autograd
   engine, the kernels' first load) and a real step of the run.  Then the
@@ -55,6 +65,8 @@ class GraphedTrainStep:
     def __init__(self, static, state: Dict, batch: Dict):
         x = state["params"]
         self.static, self.x, self.opt = static, x, dict(state["opt"])
+        pipe = state.get("pipeline")
+        self.slot = None if pipe is None else pipe["slot"]
         self.tokens = torch.empty_like(batch["tokens"])
         self.lr_scale = (torch.zeros((), dtype=torch.float32,
                                      device=x.device)
@@ -77,22 +89,29 @@ class GraphedTrainStep:
             with torch.cuda.graph(graph, pool=self.pool, stream=side):
                 captured = run(st, self.tokens, self.lr_scale)
         except RuntimeError as err:
-            raise RuntimeError(f"capturing the bus train step (round "
-                               f"{key[0]}, gossip {key[1]}) failed: {err}"
+            raise RuntimeError(f"capturing the bus train step (key {key}: "
+                               f"round, gossip, ...) failed: {err}"
                                ) from err
         self.graphs[key] = (graph, captured)
         return metrics
 
     def __call__(self, st: Dict, batch: Dict) -> Tuple[Dict, Dict]:
+        pipe = st.get("pipeline")
         if st["params"] is not self.x or any(
-                st["opt"][k] is not v for k, v in self.opt.items()):
+                st["opt"][k] is not v for k, v in self.opt.items()) or (
+                    (pipe is None) != (self.slot is None)) or (
+                    pipe is not None and pipe["slot"] is not self.slot):
             raise ValueError("a graphed step runs on its static state: pass "
                              "the state the previous call returned")
         t = int(st["step"])
         self.tokens.copy_(batch["tokens"])
         if self.lr_scale is not None:
             self.lr_scale.copy_(self.static.lr_schedule(t))
+        if self.static.prepare is not None:
+            self.static.prepare(t, self.x.device)
         key = self.static.key(t)
+        if pipe is not None:
+            key = key + (int(pipe["parity"]),)
         if key not in self.graphs:
             metrics = self._capture(st, key)
         else:
@@ -100,7 +119,11 @@ class GraphedTrainStep:
             graph.replay()
             self.replays += 1
             metrics = {k: v.clone() for k, v in captured.items()}
-        return {"params": self.x, "opt": self.opt, "step": t + 1}, metrics
+        out = {"params": self.x, "opt": self.opt, "step": t + 1}
+        if pipe is not None:
+            out["pipeline"] = {"slot": self.slot,
+                               "parity": 1 - int(pipe["parity"])}
+        return out, metrics
 
 
 def graph_train_step(step: Callable, state: Dict,

@@ -9,6 +9,7 @@ The train state carries all A agents, in one of two layouts:
       params : (A, rows, 128) f32 bus — x
       opt    : {"m": bus, "psi": bus}  (+ "e": bus, the wire's EF residual)
       step   : int
+      pipeline : {"slot": (2, A, rows, 128), "parity": int}  (overlap only)
 
 * the tree (every algorithm of ``ALGORITHMS``; ``packed_bus=False`` or
   any algorithm but EDM)::
@@ -25,11 +26,13 @@ loss, the consensus distance and the gradient norm.  On the bus the EDM
 update is one fused kernel and the gossip one combine
 (``use_fused_kernel=True``); on the tree, one of each per leaf.
 
-Ported: both layouts, static topologies and the time-varying schedules,
-the dense/shifts/one-device ppermute engines, ``gossip_every > 1``,
-``gossip_dtype`` (a cast gossip payload) and the error-feedback gossip
-wire (bus only).  Elastic rounds, overlap, policy groups and multi-device
-gossip are listed in ROADMAP.md.
+Ported: both layouts, static topologies, the time-varying schedules and
+churn (an :class:`~repro_torch.core.elastic.ElasticSchedule`: liveness-
+masked rounds, on the bus and on the tree), the dense/shifts/one-device
+ppermute engines, ``gossip_every > 1``, ``gossip_dtype`` (a cast gossip
+payload), the error-feedback gossip wire (bus only) and the overlapped
+gossip pipeline (``overlap="delayed"``, bus only) with straggler plans.
+Policy groups and multi-device gossip are listed in ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -43,14 +46,17 @@ from repro_torch.configs.base import RunConfig
 from repro_torch.core import bus as parambus
 from repro_torch.core.metrics import (bus_consensus, bus_grad_norm,
                                       consensus_distance, tree_sqnorm)
+from repro_torch.core.elastic import DropPlan, ElasticSchedule, StragglerPlan
 from repro_torch.core.mixing import accumulate_f32, build_mixer, tree_map
 from repro_torch.core.optimizers import (DecOptimizer, make_edm_bus,
                                          make_edm_bus_ef, make_optimizer)
 from repro_torch.core.schedule import GossipSchedule, make_schedule
 from repro_torch.core.topology import (Topology, exp_graph, fully_connected,
                                        hierarchical, ring, torus2d)
-from repro_torch.core.wire import WIRE_FORMATS, make_codec
+from repro_torch.core.wire import WIRE_FORMATS, WireCodec, make_codec
 from repro_torch.device import resolve_device
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels.ref import edm_update_ref
 from repro_torch.models.api import Model
 from repro_torch.optim import scale_grads, warmup_cosine
 from repro_torch.weights import params_to_bus
@@ -78,17 +84,30 @@ def make_topology(run: RunConfig, n_agents: int, pods: int = 1) -> Topology:
     raise ValueError(run.topology)
 
 
-def make_gossip_schedule(run: RunConfig, n_agents: int,
-                         pods: int = 1) -> GossipSchedule:
+def make_gossip_schedule(run: RunConfig, n_agents: int, pods: int = 1,
+                         churn=None) -> GossipSchedule:
     """``RunConfig`` → step-indexed gossip schedule: ``"static"`` wraps
     :func:`make_topology`'s W, ``"round_robin"`` / ``"alt_hier"`` build
     the time-varying schedules (``gossip_period`` / ``gossip_seed`` are
-    their knobs).  Churn (elastic rounds) is not ported yet."""
+    their knobs).
+
+    ``churn`` (DESIGN §8) wraps the result in an
+    :class:`~repro_torch.core.elastic.ElasticSchedule`: a
+    :class:`~repro_torch.core.elastic.DropPlan`, or what
+    ``DropPlan.from_json`` takes (a path, inline JSON, a dict).  The
+    degraded schedule is checked against Assumption 1 per liveness epoch
+    here, so a plan that breaks mixing fails at build time."""
     topo = (make_topology(run, n_agents, pods)
             if run.gossip_schedule in ("static", "", None) else None)
-    return make_schedule(run.gossip_schedule, n_agents, topo=topo,
-                         pods=pods, period=run.gossip_period,
-                         seed=run.gossip_seed)
+    sched = make_schedule(run.gossip_schedule, n_agents, topo=topo,
+                          pods=pods, period=run.gossip_period,
+                          seed=run.gossip_seed)
+    if churn is not None:
+        plan = churn if isinstance(churn, DropPlan) \
+            else DropPlan.from_json(churn)
+        sched = ElasticSchedule(sched, plan)
+        sched.check_assumption1()
+    return sched
 
 
 def gossip_round_step(step: int, gossip_every: int) -> int:
@@ -100,11 +119,12 @@ def gossip_round_step(step: int, gossip_every: int) -> int:
 @dataclasses.dataclass(frozen=True)
 class Features:
     """What the train step runs (the JAX package's feature matrix, without
-    overlap and groups).  ``packed_bus``: the bus-resident EDM step, else
-    the tree.  ``wire``: the error-feedback gossip wire format ("f32" = the
-    uncompressed wire)."""
+    groups).  ``packed_bus``: the bus-resident EDM step, else the tree.
+    ``overlap``: the delayed gossip pipeline.  ``wire``: the
+    error-feedback gossip wire format ("f32" = the uncompressed wire)."""
 
     packed_bus: bool
+    overlap: bool = False
     wire: str = "f32"
 
 
@@ -121,9 +141,12 @@ def resolve_features(run: RunConfig) -> Features:
     """Resolve ``run`` to its :class:`Features` with the JAX package's
     rules: an explicit ``packed_bus`` wins (True needs
     ``algorithm="edm"``); ``None`` turns the bus on for
-    ``algorithm="edm"`` + ``gossip_engine="ppermute"``.  A wire other than
-    f32 needs the bus and excludes a ``gossip_dtype`` cast.  Raises for
-    every lever the port does not run yet."""
+    ``algorithm="edm"`` + ``gossip_engine="ppermute"``.
+    ``overlap="delayed"`` (DESIGN §6) needs the bus (one in-flight
+    buffer), ``gossip_every == 1`` (a payload in flight every step) and no
+    ``gossip_dtype`` cast (the wire codec composes instead).  A wire other
+    than f32 needs the bus and excludes a ``gossip_dtype`` cast.  Raises
+    for every lever the port does not run yet."""
     if run.packed_bus is not None:
         packed = bool(run.packed_bus)
         if packed and run.algorithm != "edm":
@@ -134,8 +157,26 @@ def resolve_features(run: RunConfig) -> Features:
                   and run.agents in ("data", "pod"))
     if run.agents != "data":
         _not_ported(f"agents={run.agents!r} (shard-resident pod agents)")
-    if run.overlap not in ("off", "", None):
-        _not_ported(f"overlap={run.overlap!r}")
+    overlap = run.overlap not in ("off", "", None)
+    if overlap:
+        if run.overlap != "delayed":
+            raise ValueError(f"RunConfig.overlap must be 'off' or "
+                             f"'delayed', got {run.overlap!r}")
+        if not packed:
+            raise ValueError(
+                "overlap='delayed' needs the packed bus (DESIGN §6): the "
+                "in-flight payload is one (A, rows, 128) buffer, not a leaf "
+                "set — use algorithm='edm' with gossip_engine='ppermute' or "
+                "packed_bus=True")
+        if run.gossip_every != 1:
+            raise ValueError("overlap='delayed' composes with gossip_every=1 "
+                             "only (the pipeline keeps a payload in flight "
+                             "every step)")
+        if not _is_f32(run.gossip_dtype):
+            raise ValueError(
+                "overlap='delayed' rejects the gossip_dtype cast lever (use "
+                "the error-feedback wire codec RunConfig.wire instead, which "
+                "composes)")
     fmt = run.wire or "f32"
     if fmt not in WIRE_FORMATS:
         raise ValueError(f"RunConfig.wire must be one of {WIRE_FORMATS}, "
@@ -153,7 +194,7 @@ def resolve_features(run: RunConfig) -> Features:
                 "cast-on-wire lever)")
     if run.gossip_groups:
         _not_ported("gossip_groups")
-    return Features(packed, fmt)
+    return Features(packed, overlap, fmt)
 
 
 def bus_layout_for(model: Model, n_agents: int) -> parambus.BusLayout:
@@ -172,7 +213,9 @@ def init_state(model: Model, run: RunConfig, n_agents: int, *,
     packed ONCE into the bus, or replicated into ``(A, *shape)`` leaves
     with the algorithm's state ``opt.init(params)``.  ``params`` (one
     agent's parameter dict, e.g. from :mod:`repro_torch.weights`) replaces
-    the random init from ``seed``.  ``device`` defaults to ``cuda`` and
+    the random init from ``seed``.  Under ``overlap="delayed"`` the state
+    also carries the pipeline (:func:`repro_torch.core.bus.make_pipeline`:
+    x(0) in the live slot).  ``device`` defaults to ``cuda`` and
     raises without one."""
     dev = resolve_device(device)
     feats = resolve_features(run)
@@ -190,7 +233,12 @@ def init_state(model: Model, run: RunConfig, n_agents: int, *,
     if feats.wire != "f32":
         # the EF residual, e(0) = 0: step 0 sends Q(φ(0))
         opt_state["e"] = torch.zeros_like(x_bus)
-    return {"params": x_bus, "opt": opt_state, "step": 0}
+    state = {"params": x_bus, "opt": opt_state, "step": 0}
+    if feats.overlap:
+        # φ(0) = x(0) in the live slot: step 0 is then the synchronous step
+        # (W x(0) = x(0) at a replicated init)
+        state["pipeline"] = parambus.make_pipeline(x_bus)
+    return state
 
 
 GradMap = Optional[Callable[[Dict[str, torch.Tensor]],
@@ -259,37 +307,77 @@ class StaticBusStep:
     (:func:`repro_torch.train.graphs.graph_train_step`).
 
     ``run(state, tokens, lr_scale)`` takes ``state["step"]``'s step,
-    writes x', m', ψ' (and e') over the state's own buffers — a fused
-    combine writes the new x into x's buffer, which is dead once φ exists;
-    any other mix is copied there at the end — and
-    returns the metrics as device tensors; ``state["step"]`` is left for
-    the caller to advance.  ``lr_scale`` is a 0-d f32 tensor on the
-    state's device holding ``lr_schedule(step)`` (None without a
-    schedule), so the step reads the scale from device memory rather than
-    from the host.  ``key(step)`` is what else the step depends on: the
-    schedule round and whether it gossips."""
+    writes x', m', ψ' (and e', and under overlap the new payload into the
+    pipeline's spare slot) over the state's own buffers — a fused combine
+    writes the new x into x's buffer, which is dead once φ exists (under
+    overlap x is not read at all); any other mix is copied there at the
+    end — and returns the metrics as device tensors; ``state["step"]`` and
+    the pipeline's parity are left for the caller to advance.
+    ``lr_scale`` is a 0-d f32 tensor on the state's device holding
+    ``lr_schedule(step)`` (None without a schedule), so the step reads the
+    scale from device memory rather than from the host.  ``key(step)`` is
+    what else the step depends on: the schedule round, whether it gossips
+    and, under a straggler plan, whether a slot is late (the pipeline's
+    parity is the state's).  ``prepare(step, device)``, where not None,
+    writes what the step reads from device tables — the overlap
+    combine's source table with the step's late slots — and is called
+    before every replay."""
 
     run: Callable
-    key: Callable[[int], Tuple[int, bool]]
+    key: Callable[[int], Tuple]
     lr_schedule: Optional[Callable]
+    prepare: Optional[Callable] = None
+
+
+def _encode_ef_agents(codec: WireCodec, phi: torch.Tensor,
+                      e: torch.Tensor):
+    """The overlap pipeline's issue-time error-feedback encode of ``c = φ +
+    e`` (the reference's ``encode_ef(codec, φ + e)``), one agent's row
+    block at a time so that the codec's temporaries stay one block large
+    (the scale tiles lie within a block, so the values are the whole bus's).
+    The residual ``c − decode(payload)`` is written over ``e``; returns the
+    payload, a bf16 bus or an int8 bus with its ``(A, n_tiles)`` scales."""
+    A, rows, lane = phi.shape
+    if codec.fmt == "bf16":
+        q = torch.empty(phi.shape, dtype=torch.bfloat16, device=phi.device)
+        scale = None
+    else:
+        q = torch.empty(phi.shape, dtype=torch.int8, device=phi.device)
+        scale = torch.empty((A, rows // codec.block_rows),
+                            dtype=torch.float32, device=phi.device)
+    for a in range(A):
+        c = phi[a] + e[a]
+        pay = codec.encode(c)
+        e[a].copy_(c.sub_(codec.decode(pay)))
+        if scale is None:
+            q[a].copy_(pay)
+        else:
+            q[a].copy_(pay[0])
+            scale[a].copy_(pay[1])
+    return q if scale is None else (q, scale)
 
 
 def build_train_step(model: Model, run: RunConfig, topo,
                      use_fused_kernel: bool = False, *,
+                     straggler_plan: Optional[StragglerPlan] = None,
                      device=None) -> Callable:
     """Returns ``train_step(state, batch) -> (state, metrics)``; batch
     tokens are ``(A, per_agent_batch, S)``.
 
     ``topo`` is a :class:`Topology` or a
     :class:`~repro_torch.core.schedule.GossipSchedule` (one round per
-    gossip, on the round clock :func:`gossip_round_step`).
+    gossip, on the round clock :func:`gossip_round_step`); churn comes in
+    as an :class:`~repro_torch.core.elastic.ElasticSchedule`, whose rounds
+    of a degraded epoch are masked.
     ``run.gossip_engine`` selects the mixer (the ``ppermute`` engine needs
     ``run.agents_per_device = A``: one device).  ``use_fused_kernel``
     routes the EDM update and the ppermute engine's combine through the
     CUDA kernels: one launch of each per step on the bus, one per leaf on
     the tree (the fused EDM update for ``algorithm="edm"`` only, as in the
-    JAX package).  The mixer's transport is ``"auto"``, as in the JAX
-    trainer: a flat ring's fused combine on the bus runs the ring kernel.  With ``run.wire`` bf16 or int8 a gossip step runs
+    JAX package); a masked round's combine is the source-table kernel.
+    The mixer's transport is ``"auto"``, as in the JAX trainer: a flat
+    ring's fused combine on the bus runs the ring kernel.  With
+    ``run.wire`` bf16 or int8 a gossip step runs
     :func:`make_edm_bus_ef` (the fused EDM + quantize kernel, then the
     decode-combine); a step that ``gossip_every > 1`` skips runs the
     algorithm with the identity mixer (on the bus the plain EDM recursion,
@@ -297,12 +385,21 @@ def build_train_step(model: Model, run: RunConfig, topo,
     the gossip payload; ``run.warmup_steps`` / ``run.total_steps`` turn on
     ``warmup_cosine`` as gradient scaling.  The bus step consumes its
     input state: the new m, ψ (and e) are written over the old buffers.
-    ``device`` defaults to ``cuda`` and raises without one; the state must
-    live there.
 
-    On the bus the returned step carries ``train_step.static``, the same
-    step over a static state (:class:`StaticBusStep`); on the tree it is
-    None.
+    With ``run.overlap="delayed"`` (DESIGN §6) the step is issue →
+    compute → complete: the live pipeline payload φ(t) (with a wire, its
+    EF encode ``φ(t) + e(t)``, the residual split off) is issued, the
+    gradients are taken at φ(t), then the combine ``x(t) = W(t) φ̃(t)``
+    (:func:`~repro_torch.core.mixing.make_overlap_mixer`) and the local
+    EDM update on x(t), whose φ(t+1) goes into the pipeline's spare slot.
+    ``straggler_plan`` (a :class:`~repro_torch.core.elastic.StragglerPlan`)
+    composes with the overlap only: each step's late slots degrade to
+    self-weight.
+
+    ``device`` defaults to ``cuda`` and raises without one; the state must
+    live there.  On the bus the returned step carries
+    ``train_step.static``, the same step over a static state
+    (:class:`StaticBusStep`); on the tree it is None.
     """
     dev = resolve_device(device)
     feats = resolve_features(run)
@@ -310,9 +407,22 @@ def build_train_step(model: Model, run: RunConfig, topo,
     layout = bus_layout_for(model, A) if feats.packed_bus else None
     codec = (make_codec(feats.wire, layout.block_rows)
              if feats.wire != "f32" else None)
-    mix = build_mixer(topo, mode="schedule", engine=run.gossip_engine,
-                      agents_per_device=run.agents_per_device,
-                      use_fused_kernel=use_fused_kernel, wire=codec)
+    if straggler_plan is not None and not feats.overlap:
+        raise ValueError("straggler_plan composes with overlap='delayed' "
+                         "only (the synchronous step has no payload stack to "
+                         "degrade)")
+    mix_kw = dict(engine=run.gossip_engine,
+                  agents_per_device=run.agents_per_device,
+                  use_fused_kernel=use_fused_kernel, wire=codec)
+    if feats.overlap:
+        issue, complete = build_mixer(topo, mode="overlap", **mix_kw)
+        if straggler_plan is not None and \
+                straggler_plan.n_terms != complete.n_terms:
+            raise ValueError(f"StragglerPlan.n_terms={straggler_plan.n_terms}"
+                             f" must match the overlap payload stack arity "
+                             f"K={complete.n_terms}")
+    else:
+        mix = build_mixer(topo, mode="schedule", **mix_kw)
     every = run.gossip_every
     kw = (dict(use_fused_kernel=use_fused_kernel)
           if run.algorithm == "edm" else {})
@@ -364,10 +474,16 @@ def build_train_step(model: Model, run: RunConfig, topo,
     def gossips(step: int) -> bool:
         return every <= 1 or step % every == every - 1
 
-    def step_key(step: int) -> Tuple[int, bool]:
+    def late_at(step: int):
+        return (None if straggler_plan is None
+                else straggler_plan.late_at(step))
+
+    def step_key(step: int) -> Tuple:
         rnd = (int(topo.round_index(gossip_round_step(step, every)))
                if isinstance(topo, GossipSchedule) else 0)
-        return rnd, gossips(step)
+        if straggler_plan is None:
+            return rnd, gossips(step)
+        return rnd, gossips(step), bool(late_at(step).any())
 
     def bus_step(x, opt_state, tokens, step: int, out=None, lr_scale=None):
         """One bus step: ``(x', opt', metrics)``, x' written into ``out``
@@ -382,20 +498,61 @@ def build_train_step(model: Model, run: RunConfig, topo,
                        "grad_norm": bus_grad_norm(grads)}
         return new_x, new_opt, metrics
 
+    def overlap_step(pipe, opt_state, tokens, step: int, out=None,
+                     lr_scale=None):
+        """One delayed-pipeline step: ``(x(t), opt', metrics)``, φ(t+1)
+        written into the pipeline's spare slot, x(t) into ``out`` when
+        the combine is fused and ``out`` is given; the parity is the
+        caller's to flip."""
+        phi = parambus.pipeline_payload(pipe)
+        m, psi = opt_state["m"], opt_state["psi"]
+        with torch.no_grad():
+            # ISSUE: the live payload (with a wire its EF encode, residual
+            # split off into e) — on one card nothing ships
+            payload = (phi if codec is None
+                       else _encode_ef_agents(codec, phi, opt_state["e"]))
+            payloads = issue(payload, step)
+        # COMPUTE: gradients at the pre-mix local iterate φ(t)
+        losses, grads = losses_and_grads(model, layout, phi, tokens,
+                                         grad_map(step, lr_scale))
+        with torch.no_grad():
+            # COMPLETE: the combine x(t) = W(t) φ̃(t), late slots at
+            # self-weight; then the local EDM update, φ(t+1) into the spare
+            x_mixed = complete(payloads, step, late=late_at(step), out=out)
+            del payloads, payload
+            update = kops.edm_update_bus if use_fused_kernel \
+                else edm_update_ref
+            m_new, psi_new, _ = update(
+                x_mixed, grads, m, psi, alpha=run.alpha, beta=run.beta,
+                out=(m, psi, parambus.pipeline_spare(pipe)))
+            metrics = {"loss": losses.mean(),
+                       "consensus": bus_consensus(x_mixed),
+                       "grad_norm": bus_grad_norm(grads)}
+        new_opt = {**opt_state, "m": m_new, "psi": psi_new}
+        return x_mixed, new_opt, metrics
+
     def static_run(state: TrainState, tokens, lr_scale=None) -> Dict:
         x, opt_state = state["params"], state["opt"]
         if (lr_sched is None) != (lr_scale is None):
             raise ValueError("lr_scale is the LR schedule's device scalar: "
                              "pass one exactly when the run has a schedule")
-        new_x, new_opt, metrics = bus_step(x, opt_state, tokens,
-                                           int(state["step"]), out=x,
-                                           lr_scale=lr_scale)
+        step = int(state["step"])
+        if feats.overlap:
+            new_x, new_opt, metrics = overlap_step(
+                state["pipeline"], opt_state, tokens, step, out=x,
+                lr_scale=lr_scale)
+        else:
+            new_x, new_opt, metrics = bus_step(x, opt_state, tokens, step,
+                                               out=x, lr_scale=lr_scale)
         if new_x.data_ptr() != x.data_ptr():     # the mix was not fused
             x.copy_(new_x)
         if any(new_opt[k].data_ptr() != v.data_ptr()
                for k, v in opt_state.items()):
             raise RuntimeError("the static bus step left its state buffers")
         return metrics
+
+    def static_prepare(step: int, device) -> None:
+        complete.prepare(step, late_at(step), device)
 
     def train_step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
         params = state["params"]
@@ -405,6 +562,14 @@ def build_train_step(model: Model, run: RunConfig, topo,
             raise ValueError(f"train state is on {first.device}, the step "
                              f"was built for {dev}")
         step = int(state["step"])
+        if feats.overlap:
+            pipe = state["pipeline"]
+            new_x, new_opt, metrics = overlap_step(pipe, state["opt"],
+                                                   batch["tokens"], step)
+            return {"params": new_x, "opt": new_opt,
+                    "pipeline": {"slot": pipe["slot"],
+                                 "parity": 1 - int(pipe["parity"])},
+                    "step": step + 1}, metrics
         if feats.packed_bus:
             new_x, new_opt, metrics = bus_step(params, state["opt"],
                                                batch["tokens"], step)
@@ -421,6 +586,8 @@ def build_train_step(model: Model, run: RunConfig, topo,
                        "grad_norm": tree_sqnorm(grads).sqrt()}
         return {"params": new_x, "opt": new_opt, "step": step + 1}, metrics
 
-    train_step.static = (StaticBusStep(static_run, step_key, lr_sched)
-                         if feats.packed_bus else None)
+    train_step.static = (StaticBusStep(
+        static_run, step_key, lr_sched,
+        static_prepare if feats.overlap else None)
+        if feats.packed_bus else None)
     return train_step

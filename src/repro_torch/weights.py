@@ -123,11 +123,17 @@ def train_state_from_arrays(state: Mapping[str, Any],
     array its own buffer, bf16 bits exact) with an int step.  A bus state
     keeps its ``(A, rows, 128)`` buffers; in a tree state the parameters
     and every optimizer slot (``m``, ``psi``, ``e``, ``y``, ``g_prev``)
-    become ``{path: tensor}`` dicts."""
+    become ``{path: tensor}`` dicts.  An overlap pipeline ``{"slot",
+    "parity"}`` comes over as its slot tensor and an int parity."""
     if isinstance(state["params"], Mapping):
         carry = params_from_tree
     else:
         carry = array_to_tensor
-    return {"params": carry(state["params"], device),
-            "opt": {k: carry(v, device) for k, v in state["opt"].items()},
-            "step": int(np.asarray(state["step"]))}
+    out = {"params": carry(state["params"], device),
+           "opt": {k: carry(v, device) for k, v in state["opt"].items()},
+           "step": int(np.asarray(state["step"]))}
+    if "pipeline" in state:
+        pipe = state["pipeline"]
+        out["pipeline"] = {"slot": array_to_tensor(pipe["slot"], device),
+                           "parity": int(np.asarray(pipe["parity"]))}
+    return out

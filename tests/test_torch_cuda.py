@@ -759,7 +759,8 @@ def _ring_bus(A, rows, device, seed, edges):
 def _same_bits(a, b):
     """Equal shape and bits, a NaN matching any NaN."""
     assert a.shape == b.shape and a.dtype == b.dtype
-    ia, ib = a.view(torch.int32), b.view(torch.int32)
+    ints = torch.int32 if a.element_size() == 4 else torch.int16
+    ia, ib = a.view(ints), b.view(ints)
     return bool(((ia == ib) | (torch.isnan(a) & torch.isnan(b))).all())
 
 
@@ -800,10 +801,75 @@ def test_cuda_ring_combine_checks_its_inputs(cuda):
         ring_combine_flat(x.cpu(), terms)
 
 
+# (A, per-agent shape): one agent; the register path (A ≤ 8) and the
+# memory path (A > 8); element counts that are and are not multiples of 4
+TABLE_SHAPES = [(1, (8, 128)), (3, (24, 128)), (4, (1024, 128)),
+                (4, (5, 3)), (8, (7,)), (12, (9, 128)), (12, (33,))]
+
+
+def _table(K, A, gen):
+    src = torch.randint(0, A, (K, A), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    w = torch.rand(K, A, generator=gen, device="cuda")
+    w[K // 2] = 0.0                               # a weight-0 (pad) slot
+    return src, w
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("K", [1, 3, 16])
+@pytest.mark.parametrize("dtype,out_dtype", [
+    (torch.float32, None), (torch.bfloat16, None),
+    (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16)])
+@pytest.mark.parametrize("A,shape", TABLE_SHAPES)
+def test_cuda_table_combine_bit_equal_to_plain(cuda, A, shape, dtype,
+                                               out_dtype, K):
+    """The source-table combine against its plain version, NaN and ±Inf
+    in the payload (read through weight-0 slots too), out of place and
+    into ``out=``."""
+    gen = torch.Generator(device=cuda).manual_seed(A * 100 + K)
+    x = torch.randn((A,) + shape, generator=gen, device=cuda)
+    flat = x.view(A, -1)
+    flat[0, 0], flat[-1, -1] = float("nan"), float("inf")
+    flat[A // 2, flat.shape[1] // 2] = -float("inf")
+    x = x.to(dtype)
+    src, w = _table(K, A, gen)
+    want = ref.table_combine_ref(x, src, w, out_dtype=out_dtype)
+    before = ops.launch_counts()["table_combine"]
+    got = ops.table_combine(x, src, w, out_dtype=out_dtype)
+    out = torch.full_like(want, 7.0)
+    into = ops.table_combine(x, src, w, out_dtype=out_dtype, out=out)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["table_combine"] == before + 2
+    assert into is out and got.dtype == want.dtype == (out_dtype or dtype)
+    assert _same_bits(got, want) and _same_bits(out, want)
+
+
+@pytest.mark.requires_cuda
+def test_cuda_table_combine_checks_its_inputs(cuda):
+    from repro_torch.kernels.table_combine import table_combine_flat
+    x = torch.zeros(4, 8, 128, device=cuda)
+    src = torch.zeros(3, 4, dtype=torch.int32, device=cuda)
+    w = torch.zeros(3, 4, device=cuda)
+    with pytest.raises(ValueError, match="overlaps"):
+        table_combine_flat(x, src, w, out=x)
+    with pytest.raises(ValueError, match="src"):
+        table_combine_flat(x, src[:, :3], w[:, :3])
+    with pytest.raises(ValueError, match="src"):
+        table_combine_flat(x, torch.zeros(17, 4, dtype=torch.int32,
+                                          device=cuda), torch.zeros(17, 4,
+                                                                    device=cuda))
+    with pytest.raises(ValueError, match="w must be f32"):
+        table_combine_flat(x, src, w.double())
+    with pytest.raises(ValueError, match="on cpu"):
+        table_combine_flat(x, src.cpu(), w)
+
+
 # the port's bus kernels as a device trace names them
 TRACE_NAMES = {"edm_update": "edm_update_kernel",
                "gossip_axpy": "gossip_axpy_kernel",
-               "ring_combine": "ring_combine_kernel"}
+               "gossip_axpy_q8": "gossip_axpy_q8_kernel",
+               "ring_combine": "ring_combine_kernel",
+               "table_combine": "table_combine_kernel"}
 GRAPH_CASES = {"ring": {},
                "round_robin": dict(topology="exp",
                                    gossip_schedule="round_robin"),
@@ -897,3 +963,83 @@ def test_cuda_graphed_bus_step_bit_equal_to_eager(cuda, case, monkeypatch):
     assert torch.equal(graph["params"], eager["params"])
     for k in ("m", "psi"):
         assert torch.equal(graph["opt"][k], eager["opt"][k])
+
+
+# (RunConfig fields, straggler late slots, churn events): the delayed
+# pipeline on the ring (the ring kernel), with the int8 wire (the q8
+# combine), with a straggler (the table kernel on late steps), and churn
+# (the table kernel in the degraded epoch, the ring kernel outside it)
+PIPE_CASES = {
+    "overlap": (dict(overlap="delayed"), None, None),
+    "overlap_int8": (dict(overlap="delayed", wire="int8"), None, None),
+    "straggler": (dict(overlap="delayed"), ((1, (1,)), (3, (2,))), None),
+    "churn": ({}, None, [(0, []), (1, [3]), (3, [])]),
+}
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("case", list(PIPE_CASES))
+def test_cuda_graphed_overlap_and_churn_steps_bit_equal_to_eager(
+        cuda, case, monkeypatch):
+    """5 smoke steps replayed from CUDA graphs against 5 eager steps, from
+    one state and one token stream, deterministic algorithms on: metrics,
+    the buses and the pipeline bit-equal; the replays' device trace holds
+    the eager steps' kernels."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.core.elastic import DropPlan, StragglerPlan
+    from repro_torch.models import build_model
+    from repro_torch.train import (build_train_step, init_state,
+                                   make_gossip_schedule)
+    from repro_torch.train.graphs import graph_train_step
+
+    fields, late, churn = PIPE_CASES[case]
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    model = build_model(get_smoke_config("smollm_360m"))
+    run = RunConfig(global_batch=4, seq_len=16, algorithm="edm", alpha=0.2,
+                    beta=0.9, gossip_engine="ppermute", agents_per_device=4,
+                    remat=False, **fields)
+    sched = make_gossip_schedule(
+        run, 4, churn=None if churn is None else DropPlan.from_events(
+            4, churn))
+    plan = None if late is None else StragglerPlan(3, late)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    batches = [{"tokens": torch.randint(0, model.cfg.vocab_size, (4, 1, 16),
+                                        generator=gen, device=cuda)}
+               for _ in range(5)]
+
+    def trajectory(graphed):
+        step = build_train_step(model, run, sched, use_fused_kernel=True,
+                                straggler_plan=plan, device=cuda)
+        state = init_state(model, run, 4, seed=0, device=cuda)
+        if graphed:
+            step = graph_train_step(step, state, batches[0])
+        history, traced = [], dict.fromkeys(TRACE_NAMES, 0)
+        for b in batches:
+            def one():
+                nonlocal state
+                state, metrics = step(state, b)
+                history.append({k: v.clone() for k, v in metrics.items()})
+            for k, v in _traced_launches(one).items():
+                traced[k] += v
+        return state, history, traced
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        eager, h_eager, t_eager = trajectory(False)
+        graph, h_graph, t_graph = trajectory(True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert t_graph == t_eager and t_eager["edm_update"] == 5
+    if case in ("straggler", "churn"):
+        assert t_eager["table_combine"] == 2 and t_eager["ring_combine"] == 3
+    for a, b in zip(h_graph, h_eager):
+        for k in a:
+            assert torch.equal(a[k], b[k]), k
+    assert torch.equal(graph["params"], eager["params"])
+    for k in eager["opt"]:
+        assert torch.equal(graph["opt"][k], eager["opt"][k]), k
+    if "pipeline" in eager:
+        assert graph["pipeline"]["parity"] == eager["pipeline"]["parity"]
+        assert torch.equal(graph["pipeline"]["slot"],
+                           eager["pipeline"]["slot"])

@@ -144,15 +144,15 @@ def test_serve_cli_without_device_raises_without_gpu(no_gpu, flags):
 
 def test_unported_levers_raise():
     model = build_model(get_smoke_config("smollm_360m"))
-    for kw in (dict(overlap="delayed"), dict(gossip_groups="moe"),
-               dict(agents="pod")):
+    for kw in (dict(gossip_groups="moe"), dict(agents="pod")):
         run = RunConfig(**{"gossip_engine": "ppermute", **kw})
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_train_step(model, run, ring(4), device="cpu")
-    # ported since: the tree path (shifts engine), the gossip_dtype cast
-    # and the LR schedule build
+    # ported since: the tree path (shifts engine), the gossip_dtype cast,
+    # the LR schedule and the overlap pipeline build
     for kw in (dict(gossip_engine="shifts"), dict(gossip_dtype="bfloat16"),
-               dict(warmup_steps=10), dict(algorithm="qg")):
+               dict(warmup_steps=10), dict(algorithm="qg"),
+               dict(overlap="delayed")):
         run = RunConfig(**{"gossip_engine": "ppermute",
                            "agents_per_device": 4, **kw})
         build_train_step(model, run, ring(4), device="cpu")

@@ -121,5 +121,7 @@ def test_build_mixer_static_and_schedule_modes():
     assert torch.equal(tmix.build_mixer(tt, mode="static")(tx), want)
     assert torch.equal(tmix.build_mixer(tt, mode="schedule")(tx, step=5),
                        want)
-    with pytest.raises(NotImplementedError):
-        tmix.build_mixer(tt, mode="overlap")
+    # the overlap mode's (issue, complete) pair mixes as the schedule does
+    issue, complete = tmix.build_mixer(tt, mode="overlap")
+    assert torch.equal(complete(issue(tx, 5), 5), want)
+    assert complete.n_terms == len(tt.terms)

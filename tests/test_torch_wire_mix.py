@@ -82,7 +82,8 @@ def test_f32_wire_is_the_uncompressed_engine():
 def test_schedule_mixer_dispatches_rounds(fmt):
     """build_mixer(sched, mode="schedule") applies round step % period;
     each round equals make_mixer on that round; mode="static" takes
-    period-1 schedules only; masked rounds and overlap raise."""
+    period-1 schedules only; the overlap mode's complete(issue(x)) is the
+    schedule mixer's mix; a round that is not the port's Topology raises."""
     sched = tsched.RoundRobinExp(8)
     x, _, tc, _, tpay = _payloads(fmt, seed=4)
     mix = tmix.build_mixer(sched, mode="schedule", engine="ppermute",
@@ -100,8 +101,12 @@ def test_schedule_mixer_dispatches_rounds(fmt):
                                                      wire=tc)(tpay))
     with pytest.raises(ValueError, match="period-1"):
         tmix.build_mixer(sched, mode="static")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmix.build_mixer(sched, mode="overlap")
-    masked = jtopo.ring(8)           # any round that is not the port's own
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmix.build_mixer(masked, mode="schedule")
+    issue, complete = tmix.build_mixer(
+        sched, mode="overlap", engine="ppermute", agents_per_device=8,
+        use_fused_kernel=True, wire=tc)
+    for step in range(sched.period):
+        assert torch.equal(complete(issue(tpay, step), step),
+                           mix(tpay, step=step))
+    foreign = jtopo.ring(8)          # any round that is not the port's own
+    with pytest.raises(TypeError, match="Topology"):
+        tmix.build_mixer(foreign, mode="schedule")
