@@ -27,7 +27,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    values, ±Inf in an all-zero tile, tiny magnitudes, exact rounding
    ties), in place and out of place; the int8 dequantize-combine as the
    ring's 3-ary case at full width (timed) and at arities 1, 2, 5 and 16.
-   "Bit for bit" lets a NaN match any NaN;
+   "Bit for bit" lets a NaN match any NaN.  Each combine (here the 3-ary
+   f32 combine and the q8 combine, in 3r the ring kernel, in 3m the table
+   kernel) also runs on a policy group's rows of the full bus — phase
+   14's attention rows, at a nonzero offset, the rest of the bus NaN —
+   read and written in place (an agent stride): bit-equal to its plain
+   version on the same view, no other output row written, equal to the
+   same call on contiguous copies of the rows, both timed;
 3r. the ring combine (the rolls fused in, kernel 8's counterpart)
    against its plain version (the rolls, then the weighted sum), bit for
    bit: at the full bus, timed beside the plain version, its bound (one
@@ -167,9 +173,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    replay gives the idle share); step 0 == the synchronous step; a
    ``StragglerPlan`` with slot 1 late at step 1 (the table kernel, 1
    launch) bit-equal to its plain twin.
+14. policy groups: the main cell plus ``--gossip-groups`` (embeddings
+   opt out, attention on the ring every step, the MLPs int8 every other
+   step, the final norm bf16 on round_robin's rounds), 6 steps, graphed,
+   counts reset before and read after (2 graphs: the eager first step of
+   each key — 2 EDM, 2 ring, 2 bf16 combine, 1 q8 launch — and 4
+   replays); each group's rows and modeled wire bytes; median even and
+   odd step, peak allocated and reserved; one even and one odd replay
+   profiled (busy, idle share; EDM + ring + combine, plus q8 when odd);
+   the 2-group all-gossip f32 ring (3 steps, graphed) bit-equal to the
+   ungrouped ring on every leaf; graphed == eager for the 4-group policy
+   (4 steps, deterministic), the opt-out rows of x equal to φ's after
+   every step.
 
 Phases run in the order 1–3, 3w, 3r, 3m, 3f, 4–6, 4r, 6r, 4g, 4w–6w,
-12, 13, 4t–6t, 7–11.  The third
+12, 13, 14, 4t–6t, 7–11.  The third
 line from the end is the ``nvidia-smi`` name and power limit,
 the line before the last ``{"kernels": [...]}`` and the last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -280,9 +298,11 @@ def ptxas_report(log: str):
                     rest = mangled[part.end(2):]
                     targs = rest[:rest.find("EE") + 1] \
                         if rest.startswith("I") else ""
-                    args = [n or ("float" if f else "bf16") for n, f, _ in
-                            re.findall(r"Li(\d+)E|(f)(?=[LE])"
-                                       r"|(13__nv_bfloat16)", targs)]
+                    args = [n or ({"0": "false", "1": "true"}[b] if b
+                                  else "float" if f else "bf16")
+                            for n, b, f, _ in re.findall(
+                                r"Li(\d+)E|Lb(\d)E|(f)(?=[LE])"
+                                r"|(13__nv_bfloat16)", targs)]
                     kernel = ident + (f"<{', '.join(args)}>" if args else "")
                     break
         elif kernel and "spill" in line:
@@ -925,6 +945,116 @@ def table_phase(bus_shape, gen):
 
 
 # ---------------------------------------------------------------------------
+# phases 3, 3w, 3r, 3m: the combines on a policy group's rows, in place
+# ---------------------------------------------------------------------------
+
+def group_rows(model):
+    """Rows ``[r0, r1)`` of the grouped cell's attention group (phase 14's
+    layout: a nonzero offset, after the embedding group)."""
+    from repro_torch.train import bus_layout_for, resolve_features
+    layout = bus_layout_for(model, AGENTS, resolve_features(bus_run(
+        gossip_groups=GROUP_POLICY)).groups)
+    g = next(g for g in layout.groups if g.name == "attn")
+    return g.row, g.row + g.rows
+
+
+def check_strided(kind: str, bus_shape, rows, gen, block_rows: int):
+    """One combine on the group rows ``x = bus[:, r0:r1]`` of a full bus
+    whose other rows are NaN, written into the same rows of a second bus
+    (its other rows 7.0): the kernel reads and writes the rows in place.
+    Bit-equal to its plain version on the same view, the second bus's
+    other rows untouched, and the same call on contiguous copies of the
+    rows (the unstrided call) bit-equal; both timed.  ``kind``: the ring
+    kernel, the table kernel (the degraded round), the 3-ary combine (the
+    self term read in place, the rolled neighbours fresh) or the q8
+    combine (fresh int8 payloads, the output strided)."""
+    import torch
+    from repro_torch.core import ring
+    from repro_torch.kernels import ops, ref
+    r0, r1 = rows
+    bus = torch.full(bus_shape, float("nan"), device="cuda")
+    x = bus[:, r0:r1]
+    x.normal_(generator=gen)
+    dst_bus = torch.full(bus_shape, 7.0, device="cuda")
+    dst = dst_bus[:, r0:r1]
+    terms = [(t.shift, float(t.weight)) for t in ring(AGENTS).terms]
+    ws = [w for _, w in terms]
+    if kind == "ring_combine":
+        def run(v, out):
+            return ops.ring_combine(v, terms, out=out)
+
+        def plain(v):
+            return ref.ring_combine_ref(v, terms)
+    elif kind == "table_combine":
+        _, src_np, w_np = table_cases()[0]
+        src = torch.from_numpy(src_np).cuda()
+        w = torch.from_numpy(w_np).cuda()
+
+        def run(v, out):
+            return ops.table_combine(v, src, w, out=out)
+
+        def plain(v):
+            return ref.table_combine_ref(v, src, w)
+    elif kind == "gossip_axpy":
+        nbrs = [torch.roll(x, 1, 0), torch.roll(x, -1, 0)]
+
+        def run(v, out):
+            return ops.gossip_axpy([v] + nbrs, ws, out=out)
+
+        def plain(v):
+            return ref.gossip_axpy_ref([v] + nbrs, ws)
+    else:
+        nb = (r1 - r0) // block_rows
+        q = torch.randint(-127, 128, x.shape, generator=gen, device="cuda",
+                          dtype=torch.int8)
+        sc = torch.rand((AGENTS, nb), generator=gen, device="cuda")
+        pays = [(q, sc), (torch.roll(q, 1, 0), torch.roll(sc, 1, 0)),
+                (torch.roll(q, -1, 0), torch.roll(sc, -1, 0))]
+        coefs = ref.wire_coefs(ws, [p[1] for p in pays])
+
+        def run(v, out):
+            return ops.gossip_axpy_wire(pays, ws, fmt="int8",
+                                        block_rows=block_rows, out=out)
+
+        def plain(v):
+            return ref.gossip_axpy_q8_ref([p[0] for p in pays], coefs,
+                                          block_rows=block_rows)
+    got = run(x, dst)
+    check(got.data_ptr() == dst.data_ptr(), f"{kind}: out= not written in "
+          "place on the group rows")
+    want = plain(x)
+    equal, err = compare([dst], [want])
+    untouched = bool((dst_bus[:, :r0] == 7.0).all()
+                     and (dst_bus[:, r1:] == 7.0).all())
+    del want, dst_bus
+    free()
+    xc = x.contiguous()
+    oc = torch.empty(x.shape, device="cuda")
+    run(xc, oc)
+    dense_equal = same_bits(oc, dst)
+    check(equal and untouched and dense_equal,
+          f"{kind} on the group rows {rows} of {bus_shape}: bit-equal to "
+          f"plain {equal} (max abs err {err}), other rows untouched "
+          f"{untouched}, equal to the unstrided call {dense_equal}")
+    rec = {"kernel": kind, "bus": list(bus_shape), "rows": [r0, r1],
+           "bit_equal": equal, "max_abs_err": err,
+           "other_rows_untouched": untouched,
+           "unstrided_bit_equal": dense_equal,
+           "strided_ms": time_ms(lambda: run(x, dst)),
+           "unstrided_ms": time_ms(lambda: run(xc, oc))}
+    del bus, x, dst, xc, oc, got
+    free()
+    return rec
+
+
+def print_strided(tag: str, rec, smi: str) -> None:
+    print(f"[{tag}] {rec['kernel']} on the group rows {rec['rows']} of "
+          f"{tuple(rec['bus'])} in place: {rec['strided_ms']:.4f} ms; the "
+          f"same rows contiguous (unstrided): {rec['unstrided_ms']:.4f} ms; "
+          f"bit-equal to plain {rec['bit_equal']}; {smi}", flush=True)
+
+
+# ---------------------------------------------------------------------------
 # phases 5 and 4g: the graphed bus step
 # ---------------------------------------------------------------------------
 
@@ -958,7 +1088,7 @@ def profile_graph_replay(model, run, state, batch):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
             as prof:
         state, _ = step(state, batch)
-        torch.cuda.synchronize()
+        settle()
     rows = device_rows(prof)
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     torch.cuda.synchronize()
@@ -1059,7 +1189,7 @@ def graph_trajectory(model, run, batches, graphed: bool, against=None):
     del bufs
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         state, m = step(state, batches[-1])
-        torch.cuda.synchronize()
+        settle()
     metrics.append({k: float(v) for k, v in m.items()})
     rows = device_rows(prof)
     rec.update(metrics=metrics, seconds=seconds,
@@ -1163,7 +1293,7 @@ def profiled(fn):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
-        torch.cuda.synchronize()
+        settle()
     return device_rows(prof)
 
 
@@ -1478,6 +1608,247 @@ def overlap_phase(model, data, dgen):
 
 
 # ---------------------------------------------------------------------------
+# phase 14: policy groups at full width
+# ---------------------------------------------------------------------------
+
+GROUP_STEPS = 6
+# a user who keeps the embeddings local, gossips attention every step and
+# sends the MLPs compressed every other step; the final norm on
+# round_robin's rounds in bf16.  Every leaf matches: the trailing "dense"
+# group is empty
+GROUP_POLICY = json.dumps([
+    {"name": "embed", "match": ["embed", "lm_head"], "gossip_every": 0},
+    {"name": "attn", "match": ["|attn|"]},
+    {"name": "ffn", "match": ["|ffn|"], "gossip_every": 2, "wire": "int8"},
+    {"name": "norm", "match": ["final_ln"], "wire": "bf16",
+     "schedule": "round_robin"}])
+# the 2-group all-gossip f32 layout: attention apart from the rest
+TWO_GROUPS = json.dumps([{"name": "attn", "match": ["|attn|"]}])
+# a replay's training kernels: every step the EDM update, the attention
+# group's ring kernel and the norm group's bf16 → f32 combine; odd steps
+# also the MLP group's q8 combine
+GROUP_TRACE = {"even": {"edm_update": 1, "ring_combine": 1,
+                        "gossip_axpy": 1},
+               "odd": {"edm_update": 1, "ring_combine": 1, "gossip_axpy": 1,
+                       "gossip_axpy_q8": 1}}
+
+
+def group_replays(model, run, state, batches):
+    """Graph the grouped step over ``state`` (at an even step): two steps
+    run eagerly and are captured (one a graph key); then one even and one
+    odd replay under torch.profiler, and one of each between CUDA events.
+    Returns the state and, per parity, the replay's device busy ms,
+    launches, training kernels and span."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.train import build_train_step, make_gossip_schedule
+    from repro_torch.train.graphs import graph_train_step
+
+    step = graph_train_step(build_train_step(
+        model, run, make_gossip_schedule(run, AGENTS), use_fused_kernel=True,
+        device="cuda"), state, batches[0])
+    for b in batches[:2]:
+        state, _ = step(state, b)                   # eager, then captured
+    recs = {}
+    for b in batches[2:4]:
+        parity = "odd" if int(state["step"]) % 2 else "even"
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            state, _ = step(state, b)
+            settle()
+        rows = device_rows(prof)
+        traced = {k: v for k, v in traced_launches(rows).items() if v}
+        check(traced == GROUP_TRACE[parity], f"a grouped {parity} replay "
+              f"traced {traced}, expected {GROUP_TRACE[parity]}")
+        recs[parity] = {"busy_ms": sum(r[0] for r in rows),
+                        "kernel_launches": sum(r[1] for r in rows),
+                        "traced": traced, "top": rows[:6]}
+    for b in batches[4:6]:
+        parity = "odd" if int(state["step"]) % 2 else "even"
+        start, end = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+        start.record()
+        state, _ = step(state, b)
+        end.record()
+        torch.cuda.synchronize()
+        recs[parity]["span_ms"] = start.elapsed_time(end)
+    check(len(step.graphs) == 2 and step.replays == 4,
+          f"{len(step.graphs)} graphs and {step.replays} replays, expected "
+          "2 and 4")
+    return state, recs
+
+
+def bus_leaves(layout, state):
+    """``((bus, path), view)`` of every leaf of x, m and ψ in the bus dtype
+    (f32): a layout-free view of a bus state."""
+    from repro_torch.core import bus as parambus
+    for k, b in (("x", state["params"]), ("m", state["opt"]["m"]),
+                 ("psi", state["opt"]["psi"])):
+        for path, v in parambus.leaf_views(layout, b).items():
+            yield (k, path), v
+
+
+def grouped_vs_ungrouped(model, batches):
+    """The 2-group all-gossip f32 ring (two ring launches a step, each on
+    its group's rows in place) against the ungrouped ring step, both
+    graphed, ``GRAPH_STEPS`` steps from the seed-0 state: every leaf of
+    x, m and ψ bit-equal (the ungrouped leaves held on the host, compared
+    on the card one at a time)."""
+    from repro_torch.kernels import ops
+    from repro_torch.train import (build_train_step, bus_layout_for,
+                                   init_state, make_gossip_schedule,
+                                   resolve_features)
+    from repro_torch.train.graphs import graph_train_step
+    host, equal, n = {}, True, 0
+    for groups in ("", TWO_GROUPS):
+        free()
+        run = bus_run(gossip_groups=groups)
+        layout = bus_layout_for(model, AGENTS, resolve_features(run).groups)
+        state = init_state(model, run, AGENTS, seed=0, device="cuda")
+        step = graph_train_step(build_train_step(
+            model, run, make_gossip_schedule(run, AGENTS),
+            use_fused_kernel=True, device="cuda"), state, batches[0])
+        ops.reset_launch_counts()
+        for b in batches[:GRAPH_STEPS]:
+            state, _ = step(state, b)
+        counts = {k: v for k, v in ops.launch_counts().items() if v}
+        want = {"edm_update": 1, "ring_combine": 2 if groups else 1}
+        check(counts == want and step.replays == GRAPH_STEPS - 1,
+              f"groups {groups or 'none'}: launched {counts}, replayed "
+              f"{step.replays}; expected {want} and {GRAPH_STEPS - 1}")
+        for key, v in bus_leaves(layout, state):
+            if not groups:
+                host[key] = v.cpu()
+            else:
+                equal &= same_bits(v, host.pop(key).cuda())
+                n += 1
+        del state, step
+    equal &= not host
+    check(equal, "the 2-group f32 ring trajectory differs from the "
+                 "ungrouped one")
+    free()
+    return {"bit_equal": equal, "steps": GRAPH_STEPS, "leaves": n}
+
+
+def grouped_graph_vs_eager(model, batches):
+    """The 4-group policy, ``GRAPH_STEPS`` + 1 steps eager and graphed from
+    the seed-0 state under deterministic algorithms: the metrics of every
+    step and the buses bit-equal; after every step the opt-out group's
+    rows of x equal the EDM kernel's φ rows, ``(ψ' + x) − ψ``."""
+    import torch
+    from repro_torch.train import (build_train_step, bus_layout_for,
+                                   init_state, make_gossip_schedule,
+                                   resolve_features)
+    from repro_torch.train.graphs import graph_train_step
+    run = bus_run(gossip_groups=GROUP_POLICY)
+    layout = bus_layout_for(model, AGENTS, resolve_features(run).groups)
+    g = next(g for g in layout.groups if g.name == "embed")
+    rows = slice(g.row, g.row + g.rows)
+    out = {}
+    for graphed in (False, True):
+        free()
+        state = init_state(model, run, AGENTS, seed=0, device="cuda")
+        step = build_train_step(model, run, make_gossip_schedule(
+            run, AGENTS), use_fused_kernel=True, device="cuda")
+        if graphed:
+            step = graph_train_step(step, state, batches[0])
+        metrics, opt_out_phi = [], True
+        for b in batches[:GRAPH_STEPS + 1]:
+            x0 = state["params"][:, rows].clone()
+            psi0 = state["opt"]["psi"][:, rows].clone()
+            state, m = step(state, b)
+            metrics.append({k: float(v) for k, v in m.items()})
+            phi = (state["opt"]["psi"][:, rows] + x0) - psi0
+            opt_out_phi &= same_bits(state["params"][:, rows], phi)
+            del x0, psi0, phi
+        bufs = [state["params"], state["opt"]["m"], state["opt"]["psi"]]
+        if graphed:
+            same = same_state(bufs, out["eager"]["host"])
+            out["graphed"] = {"metrics": metrics, "same": same,
+                              "opt_out_phi": opt_out_phi,
+                              "graphs": len(step.graphs),
+                              "replays": step.replays}
+        else:
+            out["eager"] = {"metrics": metrics, "opt_out_phi": opt_out_phi,
+                            "host": [b.cpu() for b in bufs]}
+        del state, step, bufs
+    e, gr = out["eager"], out["graphed"]
+    rec = {"graph_eq_eager": gr["same"] and gr["metrics"] == e["metrics"],
+           "opt_out_rows_eq_phi": e["opt_out_phi"] and gr["opt_out_phi"],
+           "graphs": gr["graphs"], "replays": gr["replays"],
+           "steps": GRAPH_STEPS + 1}
+    check(rec["graph_eq_eager"] and rec["opt_out_rows_eq_phi"]
+          and rec["graphs"] == 2, f"the grouped graphed step: {rec}")
+    del out
+    free()
+    return rec
+
+
+def group_phase(model, data, dgen):
+    """Phase 14: the main cell plus ``--gossip-groups`` (GROUP_POLICY)
+    through the CLI, graphed, 6 steps, counts reset before and read after
+    (the eager first step of each of the 2 graph keys: 2 EDM, 2 ring, 2
+    bf16 combine and 1 q8 launch; 4 replays); each group's rows and
+    modeled wire bytes; median even (no MLP gossip) and odd step; one
+    even and one odd replay profiled (busy, idle, the kernels); then the
+    2-group f32 ring == the ungrouped ring and graphed == eager."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as cli
+    free()
+    args = MAIN_ARGS + ["--gossip-groups", GROUP_POLICY]
+    args[args.index("--steps") + 1] = str(GROUP_STEPS)
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    res = cli.main(args)
+    counts = ops.launch_counts()
+    want = dict.fromkeys(counts, 0)
+    want.update(edm_update=2, ring_combine=2, gossip_axpy=2,
+                gossip_axpy_q8=1)
+    check(counts == want and res["graph_replays"] == GROUP_STEPS - 2
+          and res["graphs"] == 2,
+          f"the grouped cell launched {counts}, replayed "
+          f"{res['graph_replays']} steps in {res['graphs']} graphs; "
+          f"expected {want}, {GROUP_STEPS - 2} and 2")
+    for t, m in enumerate(res["metrics"]):
+        check(all(math.isfinite(v) for v in m.values()),
+              f"grouped cell: non-finite metrics at step {t}: {m}")
+    secs = res["step_seconds"]
+    rec = {"launches": {k: v for k, v in counts.items() if v},
+           "graph_replays": res["graph_replays"], "graphs": res["graphs"],
+           "step_ms": [round(t * 1e3, 2) for t in secs],
+           "even_ms": statistics.median(secs[2::2]) * 1e3,
+           "odd_ms": statistics.median(secs[3::2]) * 1e3,
+           "peak_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "peak_reserved_gib": torch.cuda.max_memory_reserved() / 2**30,
+           "groups": res["groups"],
+           "loss": [m["loss"] for m in res["metrics"]]}
+    state, run = res["state"], res["run"]
+    del res
+    check(state["step"] == GROUP_STEPS
+          and bool(torch.isfinite(state["params"]).all()),
+          "grouped cell: final state")
+    print("[time] phase 14 CLI done", flush=True)
+    batches = [data.sample(dgen, 1) for _ in range(6)]
+    state, rec["replays"] = group_replays(model, run, state, batches)
+    for parity in ("even", "odd"):
+        r = rec["replays"][parity]
+        r["idle_share"] = 1 - r["busy_ms"] / rec[f"{parity}_ms"]
+    del state
+    free()
+    print("[time] phase 14 replays done", flush=True)
+    batches = [data.sample(dgen, 1) for _ in range(GRAPH_STEPS + 1)]
+    rec["two_groups_eq_ungrouped"] = grouped_vs_ungrouped(model, batches)
+    print("[time] phase 14 grouped == ungrouped done", flush=True)
+    torch.use_deterministic_algorithms(True)
+    try:
+        rec["graph_eq_eager"] = grouped_graph_vs_eager(model, batches)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return rec
+
+
+# ---------------------------------------------------------------------------
 # phase 7: the serving kernels against their plain versions
 # ---------------------------------------------------------------------------
 
@@ -1761,6 +2132,24 @@ def serving_kernels():
 # phases 8 and 9: serving
 # ---------------------------------------------------------------------------
 
+# torch.profiler keeps the device records that fall inside its window on
+# the host's clock, and a region closed the moment the device drains has
+# lost the records of its last kernels (27–35 ms of kernels at the end of a
+# full-width eager step, the EDM update and the combine among them; the
+# driven runs counted them).  So every profiled region ends by holding the
+# window open past them: tools/profile_loss.py counts, with and without the
+# settle, the launches whose device record is missing.
+PROFILE_SETTLE_S = 0.2
+
+
+def settle() -> None:
+    """The last statement of a profiled region: the device drained, then
+    the profiler's window held open ``PROFILE_SETTLE_S`` more."""
+    import torch
+    torch.cuda.synchronize()
+    time.sleep(PROFILE_SETTLE_S)
+
+
 def device_rows(prof):
     """(device ms, launches, kernel name) of every kernel in a trace."""
     from torch.autograd import DeviceType
@@ -1811,7 +2200,7 @@ def profile_dispatches(eng, vocab: int):
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
                 eng.step()
-                torch.cuda.synchronize()
+                settle()
             rows = device_rows(prof)
             out[kind] = {"device_busy_ms": sum(r[0] for r in rows),
                          "kernel_launches": sum(r[1] for r in rows),
@@ -1920,7 +2309,7 @@ def profile_step(model, run, state, batch):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
             as prof:
         state, _ = step(state, batch)
-        torch.cuda.synchronize()
+        settle()
     rows = device_rows(prof)
     return state, {"device_busy_ms": sum(r[0] for r in rows),
                    "kernel_launches": sum(r[1] for r in rows),
@@ -2431,6 +2820,12 @@ def main() -> None:
         print(f"[kernels] edm_update {rec}", flush=True)
     for rec in [axpy_main, *axpy_small]:
         print(f"[kernels] gossip_axpy {rec}", flush=True)
+    # the combines on the grouped cell's attention rows of the full bus, in
+    # place (phase 14's layout): bit-equal, timed beside the unstrided call
+    grows = group_rows(model)
+    strided = {"gossip_axpy": check_strided("gossip_axpy", bus_shape, grows,
+                                            gen, layout.block_rows)}
+    print_strided("kernels", strided["gossip_axpy"], smi)
 
     print(f"[time] {time.time() - t_start:.1f} s before phase 3w", flush=True)
     # 3w. the wire kernels against their plain versions, on the card
@@ -2451,6 +2846,9 @@ def main() -> None:
                 for n in (1, 2, 5, 16)]
     for rec in [q8_main, *q8_small]:
         print(f"[wire-kernels] gossip_axpy_q8 {rec}", flush=True)
+    strided["gossip_axpy_q8"] = check_strided("gossip_axpy_q8", bus_shape,
+                                              grows, gen, br)
+    print_strided("wire-kernels", strided["gossip_axpy_q8"], smi)
 
     print(f"[time] {time.time() - t_start:.1f} s before phase 3r", flush=True)
     # 3r. the ring combine (kernel 8's counterpart) against its plain
@@ -2462,6 +2860,9 @@ def main() -> None:
         for A, rows in RING_CASES for e in (False, True)]
     for rec in [ring_main, *ring_small]:
         print(f"[ring-kernels] ring_combine {rec}", flush=True)
+    strided["ring_combine"] = check_strided("ring_combine", bus_shape, grows,
+                                            gen, br)
+    print_strided("ring-kernels", strided["ring_combine"], smi)
     print(f"[ring-kernels] ring_combine at {bus_shape}: "
           f"{ring_main['ms']:.4f} ms ({ring_main['gb_per_s']:.0f} GB/s); "
           f"plain (2 rolls + combine) {ring_main['plain_ms']:.4f} ms; "
@@ -2478,6 +2879,9 @@ def main() -> None:
     table_recs = table_phase(bus_shape, gen)
     for rec in table_recs:
         print(f"[table-kernels] table_combine {rec}", flush=True)
+    strided["table_combine"] = check_strided("table_combine", bus_shape,
+                                             grows, gen, br)
+    print_strided("table-kernels", strided["table_combine"], smi)
     tm = table_recs[0]
     print(f"[table-kernels] table_combine at {bus_shape} ({tm['case']}): "
           f"{tm['ms']:.4f} ms ({tm['gb_per_s']:.0f} GB/s); plain "
@@ -2762,6 +3166,33 @@ def main() -> None:
         print(f"[overlap-graph] {json.dumps(rec)}", flush=True)
     print(f"[overlap] step 0 == synchronous step: {overlap['step0']}; "
           f"straggler == plain twin: {overlap['straggler']}", flush=True)
+
+    print(f"[time] {time.time() - t_start:.1f} s before phase 14", flush=True)
+    # 14. policy groups at full width: the 4-group policy through the CLI,
+    # graphed; replay traces; 2-group f32 ring == ungrouped; graphed ==
+    # eager with the opt-out rows equal to φ's
+    groups = group_phase(model, data, dgen)
+    for g in groups["groups"]:
+        print(f"[groups] group {g['name']}: rows {g['rows']}, gossip_every "
+              f"{g['gossip_every']}, wire {g['wire']}, schedule "
+              f"{g['schedule']}; modeled wire bytes on a gossiping step "
+              f"(one agent per device) {g['wire_bytes']}, "
+              f"{g['gossip_steps']} of {GROUP_STEPS} steps gossip",
+              flush=True)
+    print("[groups] " + json.dumps(
+        {k: v for k, v in groups.items() if k != "groups"}), flush=True)
+    for parity in ("even", "odd"):
+        r = groups["replays"][parity]
+        print(f"[groups] {parity} steps: median {groups[parity + '_ms']:.1f}"
+              f" ms; one replay busy {r['busy_ms']:.2f} ms in "
+              f"{r['kernel_launches']} launches (span {r['span_ms']:.2f} ms),"
+              f" idle {r['idle_share']:.1%}; training kernels "
+              f"{r['traced']}", flush=True)
+    print(f"[groups] graphs {groups['graphs']}, replays "
+          f"{groups['graph_replays']}; peak allocated "
+          f"{groups['peak_allocated_gib']:.2f} GiB, reserved "
+          f"{groups['peak_reserved_gib']:.2f} GiB; launches "
+          f"{groups['launches']}; {smi}", flush=True)
 
     print(f"[time] {time.time() - t_start:.1f} s before phase 4t", flush=True)
     # 4t. the tree path through the CLI, every algorithm; 6t. fused tree
@@ -3080,6 +3511,18 @@ def main() -> None:
         "bit_equal": all(r["bit_equal"] for r in table_recs),
         "timed_case": tm["case"], "shape": tm["shape"],
         "bytes": tm["bytes"], "gb_per_s": tm["gb_per_s"], "timing": TIMING})
+    for rec in kernels:
+        name = rec["name"]
+        if name in ("edm_update", "gossip_axpy", "gossip_axpy_q8",
+                    "ring_combine"):
+            # the grouped cell (phase 14): the eager first step of each
+            # graph key, and one even and one odd replay's device trace
+            rec["launches_grouped"] = groups["launches"].get(name, 0)
+            rec["replay_trace_grouped"] = {
+                p: groups["replays"][p]["traced"].get(name, 0)
+                for p in ("even", "odd")}
+        if name in strided:
+            rec["strided"] = strided[name]
     print(f"[done] {time.time() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -8,11 +8,14 @@ from .topology import (ShiftTerm, Topology, disconnected, exp_graph,
                        torus2d)
 from .schedule import (SCHEDULES, AlternatingHierarchical, GossipSchedule,
                        RoundRobinExp, StaticSchedule, make_schedule,
-                       term_wire_rows, wire_bytes_per_step)
+                       group_wire_bytes_per_step, term_wire_rows,
+                       wire_bytes_per_step)
 from .elastic import (DropPlan, ElasticSchedule, LivenessMask,
                       MaskedTopology, StragglerPlan, degrade_round)
+from .bus import BusGroup, GroupSpec, group_specs_from_json
 from .wire import WIRE_FORMATS, WireCodec, encode_ef, make_codec
-from .mixing import (accumulate_f32, build_mixer, make_mixer,
+from .mixing import (GroupPlan, accumulate_f32, build_mixer,
+                     make_group_mixer, make_mixer,
                      make_overlap_mixer, make_schedule_mixer, mix_dense,
                      mix_ppermute, mix_shifts, round_tables, tree_map,
                      wire_terms)
@@ -26,6 +29,8 @@ __all__ = ["ShiftTerm", "Topology", "disconnected", "exp_graph",
            "torus2d", "SCHEDULES", "AlternatingHierarchical",
            "GossipSchedule", "RoundRobinExp", "StaticSchedule",
            "make_schedule", "term_wire_rows", "wire_bytes_per_step",
+           "group_wire_bytes_per_step", "GroupSpec", "BusGroup",
+           "group_specs_from_json", "GroupPlan", "make_group_mixer",
            "DropPlan", "ElasticSchedule", "LivenessMask", "MaskedTopology",
            "StragglerPlan", "degrade_round",
            "WIRE_FORMATS", "WireCodec", "encode_ef", "make_codec",

@@ -1,10 +1,10 @@
 """ParamBus: the packed ``(A, rows, 128)`` buffer of the per-agent parameters.
 
-The counterpart of ``repro/core/bus.py`` (ungrouped layouts), with the
-overlap pipeline's double-buffered slots (:func:`make_pipeline`).  Parameters,
-gradients and the EDM state ``m``/``ψ`` of all A agents each live in ONE
-buffer under a static layout, so the optimizer step is one fused kernel
-launch over the whole bus and the gossip is one combine.
+The counterpart of ``repro/core/bus.py``: layouts with policy groups, and
+the overlap pipeline's double-buffered slots (:func:`make_pipeline`).
+Parameters, gradients and the EDM state ``m``/``ψ`` of all A agents each
+live in ONE buffer under a static layout, so the optimizer step is one
+fused kernel launch over the whole bus and the gossip is one combine.
 
 Layout contract (identical to the JAX package's, so buses are byte-equal):
 
@@ -19,17 +19,28 @@ Layout contract (identical to the JAX package's, so buses are byte-equal):
   stochastic mix (both map 0 → 0);
 * the bus dtype is f32; leaves are cast on pack and restored to their own
   dtype on unpack (bf16 leaves round-trip exactly).
+
+Policy groups (DESIGN §12): the bus is a few named **groups**, each a
+contiguous row range rounded up to ``block_rows`` on its own, with its own
+gossip policy (:class:`GroupSpec`: cadence ``gossip_every``, 0 opting the
+group out of gossip; wire format; schedule).  A leaf joins the first spec
+whose pattern matches its ``|``-joined path; leaves no spec matches fall
+into a trailing ``"dense"`` group.  Slots are then in group order, not path
+order: every function here places a leaf by its ``slot.row``.  The default
+(no specs) is one ``"dense"`` group over the whole bus, whose slots and
+rows are those of the ungrouped layout.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Mapping, Optional, Tuple
+from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple, Union
 
 import torch
 
 from repro_torch.kernels.edm_update import BLOCK_ROWS, LANE
 
-__all__ = ["LANE", "BLOCK_ROWS", "LeafSlot", "BusLayout", "padded_rows",
+__all__ = ["LANE", "BLOCK_ROWS", "LeafSlot", "GroupSpec", "BusGroup",
+           "BusLayout", "padded_rows", "group_specs_from_json",
            "leaf_paths", "make_layout", "pack_tree", "unpack_tree",
            "pack_agent", "unpack_agent", "leaf_views", "make_pipeline",
            "pipeline_payload", "pipeline_spare", "pipeline_advance"]
@@ -57,14 +68,112 @@ class LeafSlot:
 
 
 @dataclasses.dataclass(frozen=True)
+class GroupSpec:
+    """The gossip policy of one set of leaves (DESIGN §12).
+
+    ``match``: substring patterns tested against each leaf's ``|``-joined
+    path (``("|ffn|",)`` matches every block's MLP); an empty tuple is a
+    catch-all; a callable ``path -> bool`` is accepted too.
+    ``gossip_every``: 1 gossips every step, k > 1 on the steps with
+    ``step % k == k − 1`` (on the group's own round clock ``step // k``),
+    0 never (the rows stay local and ship nothing).  ``wire``: the group's
+    payload format, ``"f32"``, ``"bf16"`` or ``"int8"`` (stateless: no
+    error-feedback residual).  ``schedule``: a gossip-schedule name that
+    overrides the run's (``""`` inherits it)."""
+
+    name: str
+    match: Union[Tuple[str, ...], Callable[[str], bool]] = ()
+    gossip_every: int = 1
+    wire: str = "f32"
+    schedule: str = ""
+
+    def __post_init__(self):
+        if self.gossip_every < 0:
+            raise ValueError(f"group {self.name!r}: gossip_every must be "
+                             f">= 0, got {self.gossip_every}")
+        if self.wire not in ("f32", "bf16", "int8"):
+            raise ValueError(f"group {self.name!r}: wire must be f32, bf16 "
+                             f"or int8, got {self.wire!r}")
+        if not callable(self.match):
+            object.__setattr__(self, "match", tuple(self.match))
+
+    def matches(self, path: str) -> bool:
+        if callable(self.match):
+            return bool(self.match(path))
+        return any(p in path for p in self.match) if self.match else True
+
+    @property
+    def catch_all(self) -> bool:
+        return not callable(self.match) and not self.match
+
+
+@dataclasses.dataclass(frozen=True)
+class BusGroup:
+    """A resolved policy group: rows ``[row, row + rows)`` of the bus
+    holding the slots ``slots`` (indices into ``layout.slots``), under one
+    policy.  ``rows`` is a multiple of ``block_rows`` (0 when no leaf
+    matched), so every group is a whole number of kernel tiles."""
+
+    name: str
+    row: int
+    rows: int
+    slots: Tuple[int, ...]
+    gossip_every: int = 1
+    wire: str = "f32"
+    schedule: str = ""
+
+    @property
+    def elems(self) -> int:
+        """Padded elements the group ships per agent per permute."""
+        return self.rows * LANE
+
+
+def group_specs_from_json(obj: Any) -> Tuple[GroupSpec, ...]:
+    """Group specs from a parsed ``--gossip-groups`` JSON list:
+    ``[{"name": ..., "match": [...], "gossip_every": ..., "wire": ...,
+    "schedule": ...}, ...]``; ``match`` may be one pattern or a list."""
+    if not isinstance(obj, (list, tuple)):
+        raise ValueError(f"gossip groups must be a JSON list of specs, got "
+                         f"{type(obj).__name__}")
+    specs = []
+    for d in obj:
+        if not isinstance(d, dict) or "name" not in d:
+            raise ValueError(f"a group spec is an object with a 'name', got "
+                             f"{d!r}")
+        match = d.get("match", ())
+        if isinstance(match, str):
+            match = (match,)
+        specs.append(GroupSpec(
+            name=str(d["name"]), match=tuple(match),
+            gossip_every=int(d.get("gossip_every", 1)),
+            wire=str(d.get("wire", "f32")),
+            schedule=str(d.get("schedule", ""))))
+    return tuple(specs)
+
+
+@dataclasses.dataclass(frozen=True)
 class BusLayout:
-    """Static bus layout: ``slots[i]`` places the leaf at ``paths[i]``."""
+    """Static bus layout: ``slots[i]`` places the leaf at ``paths[i]``;
+    ``groups`` are the policy groups, contiguous in row order."""
 
     paths: Tuple[str, ...]
     slots: Tuple[LeafSlot, ...]
     rows: int                  # incl. tail pad; rows % block_rows == 0
     block_rows: int
     dtype: torch.dtype = torch.float32
+    groups: Tuple[BusGroup, ...] = ()
+
+    @property
+    def is_grouped(self) -> bool:
+        """True when the layout carries a policy other than the default:
+        more than one populated group, or one group whose cadence, wire or
+        schedule is not the default.  Other layouts take the ungrouped
+        mixing path."""
+        live = [g for g in self.groups if g.rows]
+        if len(live) > 1:
+            return True
+        return any(g.gossip_every != 1 or g.wire != "f32" or g.schedule
+                   for g in live)
 
     @property
     def logical_elems(self) -> int:
@@ -89,11 +198,25 @@ def leaf_paths(tree: Mapping[str, object]) -> List[str]:
     return sorted(tree, key=_path_key)
 
 
+_LAYOUT_CACHE: Dict[tuple, BusLayout] = {}
+
+
 def make_layout(tree: Mapping[str, torch.Tensor], *,
-                block_rows: Optional[int] = None) -> BusLayout:
-    """Layout for ``tree``, whose leaves are shaped ``(A, *leaf_shape)``
-    (anything with ``.shape`` and ``.dtype``: ``meta`` tensors build a
-    layout without allocating).  The agent axis is stripped."""
+                block_rows: Optional[int] = None,
+                groups: Optional[Tuple[GroupSpec, ...]] = None
+                ) -> BusLayout:
+    """Layout for ``tree`` (built once, then taken from a cache keyed on
+    the leaves' shapes and dtypes, ``block_rows`` and the specs), whose
+    leaves are shaped ``(A, *leaf_shape)`` (anything with ``.shape`` and
+    ``.dtype``: ``meta`` tensors build a layout without allocating).  The
+    agent axis is stripped, so trees that differ only in A share a layout.
+
+    ``groups``: policy-group specs.  Each leaf joins the first spec that
+    matches its path; without a catch-all spec a trailing ``"dense"``
+    group takes the rest.  Groups occupy contiguous row ranges in spec
+    order, each rounded up to ``block_rows`` on its own.  ``None`` (or one
+    catch-all spec) gives the ungrouped layout: one group, and the slots
+    and rows of the path-order packing."""
     block_rows = block_rows or BLOCK_ROWS
     if block_rows <= 0 or block_rows % _SUBLANE:
         raise ValueError(f"block_rows must be a positive multiple of "
@@ -101,23 +224,48 @@ def make_layout(tree: Mapping[str, torch.Tensor], *,
     paths = leaf_paths(tree)
     if not paths:
         raise ValueError("cannot build a bus layout for an empty tree")
-    slots = []
-    row = 0
-    for path in paths:
-        leaf = tree[path]
-        if leaf.dim() < 1 or not leaf.dtype.is_floating_point:
-            raise ValueError(f"{path}: bus leaves are floating and carry a "
-                             f"leading agent axis, got {leaf.dtype} "
-                             f"{tuple(leaf.shape)}")
-        shape = tuple(leaf.shape[1:])
-        size = 1
-        for s in shape:
-            size *= s
-        rows = padded_rows(size)
-        slots.append(LeafSlot(row, rows, shape, leaf.dtype, size))
-        row += rows
-    total = -(-row // block_rows) * block_rows
-    return BusLayout(tuple(paths), tuple(slots), total, block_rows)
+    specs = tuple(groups) if groups else (GroupSpec("dense"),)
+    if not any(s.catch_all for s in specs):
+        specs = specs + (GroupSpec("dense"),)
+    names = [s.name for s in specs]
+    if len(set(names)) != len(names):
+        raise ValueError(f"duplicate group names: {names}")
+    key = (tuple((p, tuple(tree[p].shape[1:]), tree[p].dtype)
+                 for p in paths), block_rows, specs)
+    hit = _LAYOUT_CACHE.get(key)
+    if hit is not None:
+        return hit
+    members: List[List[int]] = [[] for _ in specs]
+    for i, path in enumerate(paths):
+        gi = next((gi for gi, spec in enumerate(specs)
+                   if spec.matches(path)), None)
+        members[gi].append(i)
+    slots: List[Optional[LeafSlot]] = [None] * len(paths)
+    resolved = []
+    base = 0
+    for spec, idxs in zip(specs, members):
+        row = base
+        for i in idxs:
+            leaf = tree[paths[i]]
+            if leaf.dim() < 1 or not leaf.dtype.is_floating_point:
+                raise ValueError(f"{paths[i]}: bus leaves are floating and "
+                                 f"carry a leading agent axis, got "
+                                 f"{leaf.dtype} {tuple(leaf.shape)}")
+            shape = tuple(leaf.shape[1:])
+            size = 1
+            for s in shape:
+                size *= s
+            rows = padded_rows(size)
+            slots[i] = LeafSlot(row, rows, shape, leaf.dtype, size)
+            row += rows
+        grows = -(-(row - base) // block_rows) * block_rows
+        resolved.append(BusGroup(spec.name, base, grows, tuple(idxs),
+                                 spec.gossip_every, spec.wire, spec.schedule))
+        base += grows
+    layout = BusLayout(tuple(paths), tuple(slots), base, block_rows,
+                       groups=tuple(resolved))
+    _LAYOUT_CACHE[key] = layout
+    return layout
 
 
 def _copy_in(layout: BusLayout, flat: torch.Tensor, tree, lead: tuple):

@@ -67,10 +67,17 @@ elsewhere (the static train step writes the new x over the old one so).
 
 Roll semantics are ``x_new[i] = x[(i − shift) % n]``
 (:meth:`Topology.term_sources`), which ``torch.roll(x, shift, 0)`` gives.
+
+:func:`make_group_mixer` mixes a policy-group bus (DESIGN §12): each
+gossiping group runs these engines unchanged on its rows ``bus[:, r0:r1]``
+with its own schedule, cadence and stateless wire codec, and the fused
+combines read those rows and write the group's mix into ``out``'s rows in
+place (agent-strided kernels); rows that do not mix on a step are copied.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Mapping, Optional, Tuple
+import dataclasses
+from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -86,7 +93,8 @@ from .wire import WireCodec
 
 __all__ = ["TRANSPORTS", "mix_dense", "mix_shifts", "mix_ppermute",
            "wire_terms", "round_tables", "make_mixer", "make_schedule_mixer",
-           "make_overlap_mixer", "build_mixer", "accumulate_f32", "tree_map"]
+           "make_overlap_mixer", "build_mixer", "GroupPlan", "encode_rows",
+           "make_group_mixer", "accumulate_f32", "tree_map"]
 
 _LOW_PRECISION = (torch.bfloat16, torch.float16)
 TRANSPORTS = ("auto", "ppermute", "ring_dma")
@@ -658,3 +666,103 @@ def build_mixer(sched, *, mode: str = "schedule", engine: str = "shifts",
         return make_overlap_mixer(sched, engine, **kw)
     raise ValueError(f"unknown mixer mode: {mode!r} (expected 'static', "
                      "'schedule' or 'overlap')")
+
+
+@dataclasses.dataclass(frozen=True)
+class GroupPlan:
+    """One policy group's mixing plan: the layout's
+    :class:`~repro_torch.core.bus.BusGroup` (rows and cadence), its own
+    :class:`~repro_torch.core.schedule.GossipSchedule` (None: the group
+    opts out of gossip) and its stateless wire codec (None: f32)."""
+
+    group: Any
+    sched: Optional[GossipSchedule] = None
+    wire: Optional[WireCodec] = None
+
+
+def encode_rows(wire: WireCodec, seg: torch.Tensor):
+    """A group's stateless wire payload of its rows ``seg`` (an ``(A,
+    rows, 128)`` view of the bus): the codec's encode (no residual).  bf16
+    is one cast (the payload itself); int8 encodes one agent's block at a
+    time into the payload's buffers, so that the codec's temporaries stay
+    one block large (the scale tiles lie within a block, so the payload is
+    the whole group's encode)."""
+    if wire.fmt == "bf16":
+        return seg.to(torch.bfloat16)
+    A, rows, _ = seg.shape
+    q = torch.empty(seg.shape, dtype=torch.int8, device=seg.device)
+    scale = torch.empty((A, rows // wire.block_rows), dtype=torch.float32,
+                        device=seg.device)
+    for a in range(A):
+        qa, sa = wire.encode(seg[a])
+        q[a].copy_(qa)
+        scale[a].copy_(sa)
+    return q, scale
+
+
+def make_group_mixer(plans, *, engine: str = "ppermute",
+                     agents_per_device: int = 1,
+                     use_fused_kernel: bool = False) -> Callable:
+    """Mixer of a policy-group bus (DESIGN §12): ``mix(bus, step=0,
+    out=None) -> out``, the twin of the JAX package's
+    ``make_group_mixer``.
+
+    ``plans`` (:class:`GroupPlan`) cover the ``(A, rows, 128)`` bus with
+    contiguous row ranges.  Per step:
+
+    * an opt-out group (``gossip_every == 0`` or no schedule) builds no
+      mixer: its rows are copied from ``bus`` into ``out``;
+    * a ``gossip_every = k > 1`` group mixes on the steps with
+      ``step % k == k − 1``, at round ``step // k`` of its schedule, and
+      is copied on the others;
+    * an every-step group mixes at round ``step``.
+
+    A mixing group runs the unmodified one-device engines
+    (:func:`make_schedule_mixer`) on its rows — the view ``bus[:, r0:r1]``,
+    or with a bf16 / int8 wire that view's stateless payload
+    (:func:`encode_rows`) — and they write its mix into ``out[:, r0:r1]``
+    (the ring, table and combine kernels read and write the rows in place;
+    any other result is copied there).  ``out`` (default: a new bus) may
+    alias no byte of ``bus``; no step concatenates a bus."""
+    plans = sorted(plans, key=lambda p: p.group.row)
+    segments = []       # (row, rows, mixer or None, wire, cadence)
+    cursor = 0
+    for plan in plans:
+        g = plan.group
+        if g.row != cursor:
+            raise ValueError(f"group {g.name!r} starts at row {g.row}, "
+                             f"expected {cursor}: the plans must cover the "
+                             "bus in contiguous row ranges")
+        cursor = g.row + g.rows
+        if g.rows == 0:
+            continue
+        if g.gossip_every == 0 or plan.sched is None:
+            segments.append((g.row, g.rows, None, None, 0))
+            continue
+        wire = _no_f32(plan.wire)
+        inner = make_schedule_mixer(plan.sched, engine,
+                                    agents_per_device=agents_per_device,
+                                    use_fused_kernel=use_fused_kernel,
+                                    wire=wire)
+        segments.append((g.row, g.rows, inner, wire, g.gossip_every))
+
+    def mix(bus: torch.Tensor, step: int = 0,
+            out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if bus.dim() != 3 or bus.shape[1] != cursor:
+            raise ValueError(f"the group mixer takes (A, {cursor}, 128) "
+                             f"buses, got {tuple(bus.shape)}")
+        if out is None:
+            out = torch.empty_like(bus)
+        step = int(step)
+        for row, rows, inner, wire, k in segments:
+            seg, dst = bus[:, row:row + rows], out[:, row:row + rows]
+            if inner is None or (k > 1 and step % k != k - 1):
+                dst.copy_(seg)
+                continue
+            payload = seg if wire is None else encode_rows(wire, seg)
+            res = inner(payload, step=step // k if k > 1 else step, out=dst)
+            if res is not dst:
+                dst.copy_(res)
+        return out
+
+    return mix

@@ -19,8 +19,8 @@ Assumption-1 transfer: every round is doubly stochastic with a positive
 diagonal, and the **period product** ``W(p-1) ... W(0)`` has a spectral
 gap > 0, which :meth:`GossipSchedule.check_assumption1` checks.
 :func:`wire_bytes_per_step` models the bytes one gossip round puts on the
-wire, per engine and wire codec.  The per-group byte model waits for
-policy groups (ROADMAP.md).
+wire, per engine and wire codec; :func:`group_wire_bytes_per_step` the
+bytes of each policy group of a grouped bus (DESIGN §12).
 """
 from __future__ import annotations
 
@@ -34,7 +34,7 @@ from .topology import (ShiftTerm, Topology, exp_graph, matrix_lam, ring)
 __all__ = [
     "GossipSchedule", "StaticSchedule", "RoundRobinExp",
     "AlternatingHierarchical", "make_schedule", "SCHEDULES",
-    "term_wire_rows", "wire_bytes_per_step",
+    "term_wire_rows", "wire_bytes_per_step", "group_wire_bytes_per_step",
 ]
 
 
@@ -301,3 +301,34 @@ def wire_bytes_per_step(sched: GossipSchedule, step: int, *,
     else:
         rows = sum(term_wire_rows(topo, t, B) for t in topo.terms) * n_dev
     return rows * bytes_per_agent
+
+
+def group_wire_bytes_per_step(groups, scheds, step: int, *,
+                              itemsize: int = 4, agents_per_device: int = 1,
+                              engine: str = "ppermute", codecs=None) -> dict:
+    """Per-group wire bytes of a policy-group bus at ``step`` (DESIGN §12).
+
+    ``groups``: :class:`repro_torch.core.bus.BusGroup` objects (anything with
+    ``name`` / ``rows`` / ``elems`` / ``gossip_every``); ``scheds`` maps a
+    group's name to its :class:`GossipSchedule` (opt-out groups need
+    none); ``codecs`` optionally maps a name to its
+    :class:`repro_torch.core.wire.WireCodec`.  A group ships only on its
+    own gossip steps: never with ``gossip_every == 0``, else on the steps
+    with ``step % k == k − 1``, on its round clock ``step // k``.  Returns
+    ``{name: bytes, ..., "total": bytes}``."""
+    out = {}
+    total = 0
+    for g in groups:
+        k = g.gossip_every
+        if k == 0 or g.rows == 0 or (k > 1 and step % k != k - 1):
+            out[g.name] = 0
+            continue
+        gstep = step // k if k > 1 else step
+        b = wire_bytes_per_step(
+            scheds[g.name], gstep, elems_per_agent=g.elems,
+            itemsize=itemsize, agents_per_device=agents_per_device,
+            engine=engine, codec=(codecs or {}).get(g.name))
+        out[g.name] = b
+        total += b
+    out["total"] = total
+    return out

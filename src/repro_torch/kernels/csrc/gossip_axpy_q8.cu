@@ -23,6 +23,13 @@
 // one build; the operand pointers arrive by value in a kernel-argument
 // struct.
 //
+// Output agent stride: the operands are fresh encoded payloads, dense
+// (n_agents blocks of n elements each); the output's block a starts
+// a · out_stride elements in, so the mix lands in a policy group's rows
+// x'[:, r0:r1, :] of a larger bus in place (DESIGN §12).  Grid y is the
+// agent; a dense call is one block of all elements.  The coefficients stay
+// per tile of the flat operands, agent-major.
+//
 // Rounding: f32 accumulation in term order k = 0 … n−1, starting from
 // coef₀·q₀, every product and sum an explicitly rounded intrinsic (no FMA
 // contraction); int8 → f32 is exact.  The plain PyTorch version does the
@@ -51,13 +58,19 @@ __device__ __forceinline__ void widen16(int4 w, float v[16]) {
   }
 }
 
+// n16: 16-element groups per agent; agent a (blockIdx.y) reads its
+// operands from group a · n16 and writes its output from float4
+// a · out_stride4 (a dense call: one agent, no offset).
 __global__ void gossip_axpy_q8_kernel(Operands ops, int n_ops,
                                       const float* coefs, long long n_tiles,
                                       long long tile16, float4* out,
-                                      long long n16) {
+                                      long long out_stride4, long long n16) {
   const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n16;
-       i += stride) {
+  const long long base = blockIdx.y * n16;
+  out += blockIdx.y * out_stride4;
+  for (long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x; j < n16;
+       j += stride) {
+    const long long i = base + j;
     const long long tile = i / tile16;
     float acc[16], v[16];
     widen16(ops.ptr[0][i], v);
@@ -75,9 +88,9 @@ __global__ void gossip_axpy_q8_kernel(Operands ops, int n_ops,
       }
     }
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      out[4 * i + j] = make_float4(acc[4 * j], acc[4 * j + 1],
-                                   acc[4 * j + 2], acc[4 * j + 3]);
+    for (int e4 = 0; e4 < 4; ++e4)
+      out[4 * j + e4] = make_float4(acc[4 * e4], acc[4 * e4 + 1],
+                                    acc[4 * e4 + 2], acc[4 * e4 + 3]);
   }
 }
 
@@ -85,14 +98,18 @@ __global__ void gossip_axpy_q8_kernel(Operands ops, int n_ops,
 
 extern "C" int gossip_axpy_q8_max_operands() { return kMaxOperands; }
 
-// operands: n_ops device pointers to n int8 each; coefs: device pointer to
-// (n_ops, n / (block_rows·128)) f32; out: n f32.  n is a multiple of
-// block_rows·128 and every pointer 16-byte aligned (checked by the
-// wrapper).
+// operands: n_ops device pointers to n_agents · n int8 each (dense);
+// coefs: device pointer to (n_ops, n_agents · n / (block_rows·128)) f32;
+// out: n_agents blocks of n f32, out_stride elements apart (≥ n, a
+// multiple of 4).  n is a multiple of block_rows·128 and every pointer
+// 16-byte aligned (checked by the wrapper).  A dense call passes
+// n_agents = 1.
 extern "C" int gossip_axpy_q8_launch(const void* const* operands, int n_ops,
                                      const void* coefs, int block_rows,
-                                     void* out, long long n, void* stream) {
-  if (n_ops < 1 || n_ops > kMaxOperands || block_rows <= 0)
+                                     void* out, long long out_stride,
+                                     int n_agents, long long n, void* stream) {
+  if (n_ops < 1 || n_ops > kMaxOperands || block_rows <= 0 || n_agents < 1 ||
+      n_agents > 65535 || out_stride < n || out_stride % 4)
     return (int)cudaErrorInvalidValue;
   const long long tile = (long long)block_rows * 128;
   if (n % tile) return (int)cudaErrorInvalidValue;
@@ -107,11 +124,14 @@ extern "C" int gossip_axpy_q8_launch(const void* const* operands, int n_ops,
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
   long long blocks = (n16 + kThreads - 1) / kThreads;
-  const long long cap = (long long)sms * kBlocksPerSM;
+  // the grid fills the card over all agents' blocks together
+  long long cap = (long long)sms * kBlocksPerSM / n_agents;
+  if (cap < 1) cap = 1;
   if (blocks > cap) blocks = cap;
-  gossip_axpy_q8_kernel<<<(unsigned)blocks, kThreads, 0,
+  const dim3 grid((unsigned)blocks, (unsigned)n_agents);
+  gossip_axpy_q8_kernel<<<grid, kThreads, 0,
                           static_cast<cudaStream_t>(stream)>>>(
-      ops, n_ops, static_cast<const float*>(coefs), n / tile, tile / 16,
-      static_cast<float4*>(out), n16);
+      ops, n_ops, static_cast<const float*>(coefs), n_agents * (n / tile),
+      tile / 16, static_cast<float4*>(out), out_stride / 4, n16);
   return (int)cudaGetLastError();
 }

@@ -32,6 +32,12 @@
 // Bound on an H100: device-memory bytes, 2 × 4 B per element (one read,
 // one write) against 2n − 1 flops per element for n terms.
 //
+// Agent strides: agent a's row block starts a · x_stride4 float4 into x and
+// a · out_stride4 into out, so the kernel reads and writes a policy group's
+// rows bus[:, r0:r1, :] of a larger bus in place (DESIGN §12).  The
+// ungrouped bus passes n4 for both: the arithmetic and the bits are those
+// of the dense walk.
+//
 // Rounding: terms are taken in topology order, starting from w₀·o₀, every
 // product and sum an explicitly rounded intrinsic (no FMA contraction) —
 // the sequence of csrc/gossip_axpy.cu and of the plain version (rolls,
@@ -70,12 +76,14 @@ __device__ __forceinline__ float4 axpy4(const float4& acc, float w,
                      __fadd_rn(acc.w, __fmul_rn(w, v.w)));
 }
 
-// x, out: A row blocks of n4 float4 each; out aliases no byte of x.
+// x, out: A row blocks of n4 float4 each, block a at a · xs (x) and a · os
+// (out) float4 (n4 for a dense bus); out aliases no byte of x.
 __global__ void ring_combine_kernel(const float4* __restrict__ x,
                                     float4* __restrict__ out, Terms terms,
-                                    int n_terms, int n_agents, long long n4) {
+                                    int n_terms, int n_agents, long long n4,
+                                    long long xs, long long os) {
   const long long stride = (long long)gridDim.x * blockDim.x;
-  const long long last_block = (long long)(n_agents - 1) * n4;
+  const long long last_block = (long long)(n_agents - 1) * xs;
   for (long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        j < n4; j += stride) {
     const float4 first = __ldcs(x + j);
@@ -88,14 +96,14 @@ __global__ void ring_combine_kernel(const float4* __restrict__ x,
       else if (a + 2 == n_agents)
         next = last;
       else
-        next = __ldcs(x + (long long)(a + 1) * n4 + j);
+        next = __ldcs(x + (long long)(a + 1) * xs + j);
       float4 acc = scale4(terms.w[0], pick(terms.src[0], prev, cur, next));
 #pragma unroll
       for (int k = 1; k < kMaxTerms; ++k) {   // static indices: no stack
         if (k < n_terms)
           acc = axpy4(acc, terms.w[k], pick(terms.src[k], prev, cur, next));
       }
-      __stcs(out + (long long)a * n4 + j, acc);
+      __stcs(out + (long long)a * os + j, acc);
       prev = cur;
       cur = next;
     }
@@ -105,13 +113,17 @@ __global__ void ring_combine_kernel(const float4* __restrict__ x,
 }  // namespace
 
 // x, out: (n_agents, rows, 128) f32 buses, 16-byte aligned, not
-// overlapping (the wrapper checks); n4 = rows · 32 float4 per agent.
-// src / weights: n_terms entries (src codes as in Terms).  Launches on
-// `stream` and returns cudaGetLastError().
+// overlapping (the wrapper checks); n4 = rows · 32 float4 per agent;
+// x_stride4 / out_stride4: float4 from one agent's block to the next (n4
+// for a dense bus, ≥ n4).  src / weights: n_terms entries (src codes as in
+// Terms).  Launches on `stream` and returns cudaGetLastError().
 extern "C" int ring_combine_launch(const void* x, void* out, const int* src,
                                    const float* weights, int n_terms,
-                                   int n_agents, long long n4, void* stream) {
-  if (n_terms < 1 || n_terms > kMaxTerms || n_agents < 1)
+                                   int n_agents, long long n4,
+                                   long long x_stride4, long long out_stride4,
+                                   void* stream) {
+  if (n_terms < 1 || n_terms > kMaxTerms || n_agents < 1 || x_stride4 < n4 ||
+      out_stride4 < n4)
     return (int)cudaErrorInvalidValue;
   if (n4 <= 0) return (int)cudaSuccess;
   Terms terms = {};
@@ -134,6 +146,6 @@ extern "C" int ring_combine_launch(const void* x, void* out, const int* src,
   ring_combine_kernel<<<(unsigned)blocks, kThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float4*>(x), static_cast<float4*>(out), terms,
-      n_terms, n_agents, n4);
+      n_terms, n_agents, n4, x_stride4, out_stride4);
   return (int)cudaGetLastError();
 }

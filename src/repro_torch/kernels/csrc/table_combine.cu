@@ -4,7 +4,10 @@
 //
 // where x and out are (A, n) — the agent-stacked bus or a parameter leaf,
 // agent a's n elements a contiguous row block — and src (int32) and w
-// (f32) are (K, A) tables in device memory.
+// (f32) are (K, A) tables in device memory.  Agent a's block starts
+// a · x_stride elements into x and a · out_stride into out: a policy
+// group's rows bus[:, r0:r1, :] of a larger bus are read and written in
+// place (DESIGN §12); a dense tensor passes n for both.
 //
 // Replaces, with per-agent sources and weights, the Pallas TPU kernel
 // repro/kernels/edm_update.py::_axpy_kernel where the JAX package reaches it
@@ -25,14 +28,15 @@
 // copies them into shared memory once.
 //
 // Design: one thread owns a column — four consecutive elements of every
-// agent's row block (one element where n is not a multiple of four, since
-// the row blocks are then not 16-byte aligned) — and walks the agents.  For
-// A ≤ kRegAgents the whole column of every agent is loaded into registers
-// first, so each source row is read once per column however many terms and
-// agents read it, and the terms pick their operand from registers.  Larger A
-// reads each term's operand from memory (repeated rows then hit L1).  Each
-// output element is written once.  A grid-stride loop over the columns, the
-// grid sized by the occupancy calculator so every block is resident at once.
+// agent's row block (one element where n or a stride is not a multiple of
+// four, since the row blocks are then not 16-byte aligned) — and walks the
+// agents.  For A ≤ kRegAgents the whole column of every agent is loaded into
+// registers first, so each source row is read once per column however many
+// terms and agents read it, and the terms pick their operand from registers.
+// Larger A reads each term's operand from memory (repeated rows then hit L1).
+// Each output element is written once.  A grid-stride loop over the columns,
+// the grid sized by the occupancy calculator so every block is resident at
+// once.
 //
 // Bound on an H100: device-memory bytes — each x element read once and each
 // out element written once (2 × 4 B per element in f32) against 2K − 1
@@ -141,15 +145,17 @@ __device__ __forceinline__ Vec<V> pick(const Vec<V> (&col)[kRegAgents],
   return r;
 }
 
-// x, out: n_agents row blocks of n elements; V elements a thread (V = 4
-// needs n % 4 == 0); cols = n / V.  src, w: (n_terms, n_agents) tables.
-// REG: the whole column held in registers (n_agents ≤ kRegAgents).
+// x, out: n_agents row blocks of n elements, block a at a · xs (x) and
+// a · os (out) V-element groups; V elements a thread (V = 4 needs n and
+// both strides multiples of 4); cols = n / V.  src, w: (n_terms, n_agents)
+// tables.  REG: the whole column held in registers (n_agents ≤ kRegAgents).
 template <typename In, typename Out, int V, bool REG>
 __global__ void table_combine_kernel(const In* __restrict__ x,
                                      Out* __restrict__ out,
                                      const int* __restrict__ src,
                                      const float* __restrict__ w,
-                                     int n_terms, int n_agents, long long cols) {
+                                     int n_terms, int n_agents, long long cols,
+                                     long long xs, long long os) {
   extern __shared__ unsigned char smem[];
   const int n_tab = n_terms * n_agents;
   int* s_src = reinterpret_cast<int*>(smem);
@@ -167,7 +173,7 @@ __global__ void table_combine_kernel(const In* __restrict__ x,
       Vec<V> col[kRegAgents];
 #pragma unroll
       for (int i = 0; i < kRegAgents; ++i)
-        if (i < n_agents) load(x, (long long)i * cols + j, col[i]);
+        if (i < n_agents) load(x, (long long)i * xs + j, col[i]);
       for (int a = 0; a < n_agents; ++a) {
         Vec<V> acc;
         first_term(acc, s_w[a], pick(col, s_src[a]));
@@ -177,21 +183,21 @@ __global__ void table_combine_kernel(const In* __restrict__ x,
             add_term(acc, s_w[k * n_agents + a],
                      pick(col, s_src[k * n_agents + a]));
         }
-        store(out, (long long)a * cols + j, acc);
+        store(out, (long long)a * os + j, acc);
       }
     } else {
       for (int a = 0; a < n_agents; ++a) {
         Vec<V> acc, o;
-        load(x, (long long)s_src[a] * cols + j, o);
+        load(x, (long long)s_src[a] * xs + j, o);
         first_term(acc, s_w[a], o);
 #pragma unroll
         for (int k = 1; k < kMaxTerms; ++k) {
           if (k < n_terms) {
-            load(x, (long long)s_src[k * n_agents + a] * cols + j, o);
+            load(x, (long long)s_src[k * n_agents + a] * xs + j, o);
             add_term(acc, s_w[k * n_agents + a], o);
           }
         }
-        store(out, (long long)a * cols + j, acc);
+        store(out, (long long)a * os + j, acc);
       }
     }
   }
@@ -199,8 +205,8 @@ __global__ void table_combine_kernel(const In* __restrict__ x,
 
 template <typename In, typename Out, int V, bool REG>
 cudaError_t launch_v(const void* x, void* out, const int* src, const float* w,
-                     int n_terms, int n_agents, long long n,
-                     cudaStream_t stream) {
+                     int n_terms, int n_agents, long long n, long long xs,
+                     long long os, cudaStream_t stream) {
   auto kernel = table_combine_kernel<In, Out, V, REG>;
   const long long cols = n / V;
   const size_t smem = (size_t)n_terms * n_agents * (sizeof(int) + sizeof(float));
@@ -224,24 +230,24 @@ cudaError_t launch_v(const void* x, void* out, const int* src, const float* w,
   if (blocks < 1) blocks = 1;
   kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(
       static_cast<const In*>(x), static_cast<Out*>(out), src, w, n_terms,
-      n_agents, cols);
+      n_agents, cols, xs / V, os / V);
   return cudaGetLastError();
 }
 
 template <typename In, typename Out>
 cudaError_t launch(const void* x, void* out, const int* src, const float* w,
-                   int n_terms, int n_agents, long long n,
-                   cudaStream_t stream) {
+                   int n_terms, int n_agents, long long n, long long xs,
+                   long long os, cudaStream_t stream) {
   const bool reg = n_agents <= kRegAgents;
-  if (n % 4 == 0)
+  if (n % 4 == 0 && xs % 4 == 0 && os % 4 == 0)
     return reg ? launch_v<In, Out, 4, true>(x, out, src, w, n_terms, n_agents,
-                                            n, stream)
+                                            n, xs, os, stream)
                : launch_v<In, Out, 4, false>(x, out, src, w, n_terms,
-                                             n_agents, n, stream);
+                                             n_agents, n, xs, os, stream);
   return reg ? launch_v<In, Out, 1, true>(x, out, src, w, n_terms, n_agents, n,
-                                          stream)
+                                          xs, os, stream)
              : launch_v<In, Out, 1, false>(x, out, src, w, n_terms, n_agents,
-                                           n, stream);
+                                           n, xs, os, stream);
 }
 
 }  // namespace
@@ -249,32 +255,37 @@ cudaError_t launch(const void* x, void* out, const int* src, const float* w,
 extern "C" int table_combine_max_terms() { return kMaxTerms; }
 extern "C" int table_combine_max_agents() { return kMaxAgents; }
 
-// x: (n_agents, n) of in_dtype; out: (n_agents, n) of out_dtype, aliasing no
-// byte of x (the wrapper checks); src: (n_terms, n_agents) int32 agent
-// indices in [0, n_agents); w: (n_terms, n_agents) f32; all device pointers,
-// 16-byte aligned.  dtype codes: 0 = float32, 1 = bfloat16.  Launches on
-// `stream` and returns cudaGetLastError().
+// x: (n_agents, n) of in_dtype, agent a's n elements at a · x_stride;
+// out: (n_agents, n) of out_dtype at a · out_stride, aliasing no byte of x
+// (the wrapper checks); strides ≥ n (n for a dense tensor); src:
+// (n_terms, n_agents) int32 agent indices in [0, n_agents); w: (n_terms,
+// n_agents) f32; all device pointers, 16-byte aligned.  dtype codes: 0 =
+// float32, 1 = bfloat16.  Launches on `stream` and returns
+// cudaGetLastError().
 extern "C" int table_combine_launch(const void* x, void* out, const int* src,
                                     const float* w, int n_terms, int n_agents,
-                                    long long n, int in_dtype, int out_dtype,
-                                    void* stream) {
+                                    long long n, long long x_stride,
+                                    long long out_stride, int in_dtype,
+                                    int out_dtype, void* stream) {
   if (n_terms < 1 || n_terms > kMaxTerms || n_agents < 1 ||
-      n_agents > kMaxAgents)
+      n_agents > kMaxAgents || x_stride < n || out_stride < n)
     return (int)cudaErrorInvalidValue;
   if (n <= 0) return (int)cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
+  const long long xs = x_stride, os = out_stride;
   if (in_dtype == 0 && out_dtype == 0)
-    err = launch<float, float>(x, out, src, w, n_terms, n_agents, n, s);
+    err = launch<float, float>(x, out, src, w, n_terms, n_agents, n, xs, os,
+                               s);
   else if (in_dtype == 1 && out_dtype == 1)
     err = launch<__nv_bfloat16, __nv_bfloat16>(x, out, src, w, n_terms,
-                                               n_agents, n, s);
+                                               n_agents, n, xs, os, s);
   else if (in_dtype == 1 && out_dtype == 0)
     err = launch<__nv_bfloat16, float>(x, out, src, w, n_terms, n_agents, n,
-                                       s);
+                                       xs, os, s);
   else if (in_dtype == 0 && out_dtype == 1)
     err = launch<float, __nv_bfloat16>(x, out, src, w, n_terms, n_agents, n,
-                                       s);
+                                       xs, os, s);
   else
     err = cudaErrorInvalidValue;
   return (int)err;

@@ -15,7 +15,9 @@ each the counterpart of the Pallas kernel of the same name in
   wire's dequantize-and-combine ``Σₖ coef[k, tile]·qₖ``.
 
 All take CUDA tensors only, check device, dtype, shape, contiguity and
-alignment before passing raw pointers, launch on PyTorch's current stream
+alignment before passing raw pointers (the combines also take the agent
+blocks of a policy group's rows ``bus[:, r0:r1]`` of a larger bus in place:
+:func:`repro_torch.kernels._ffi.check`), launch on PyTorch's current stream
 and raise on a non-zero CUDA status.  Each counts its launches in a plain
 integer attribute (``edm_update_flat.launches``), incremented where the
 kernel is launched and nowhere else.  The plain versions are in
@@ -30,8 +32,8 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from ._ffi import (DTYPE_CODE, FLOAT_DTYPES, check, count_launch, launcher,
-                   raise_on, stream)
+from ._ffi import (DTYPE_CODE, FLOAT_DTYPES, agent_blocks, check,
+                   count_launch, launcher, raise_on, stream)
 
 __all__ = ["BLOCK_ROWS", "LANE", "MAX_OPERANDS", "edm_update_flat",
            "edm_update_ef_flat", "gossip_axpy_flat", "gossip_axpy_q8_flat"]
@@ -96,11 +98,13 @@ def gossip_axpy_flat(operands: Sequence[torch.Tensor],
     """Fused n-ary combine ``Σₖ wₖ·operandₖ`` on the card.
 
     ``operands``: 1 to 16 CUDA tensors of one shape and dtype (f32 or
-    bf16), contiguous, of any element count (a parameter leaf as well as
-    the bus); ``weights``: one
-    float each — runtime kernel arguments, so every weight set reuses one
-    compiled kernel.  Accumulates in f32 and rounds once to ``out_dtype``
-    (default: the operands' dtype).  Bit-equal to
+    bf16), of any element count (a parameter leaf as well as the bus);
+    contiguous, or ``(A, ...)`` with each agent block dense and the blocks
+    a 16-byte multiple apart, as a policy group's rows ``bus[:, r0:r1]``
+    are (the output too).  ``weights``: one float each — runtime kernel
+    arguments, so every weight set reuses one compiled kernel.
+    Accumulates in f32 and rounds once to ``out_dtype`` (default: the
+    operands' dtype).  Bit-equal to
     :func:`repro_torch.kernels.ref.gossip_axpy_ref`."""
     operands = tuple(operands)
     n = len(operands)
@@ -109,23 +113,28 @@ def gossip_axpy_flat(operands: Sequence[torch.Tensor],
                          f"with one weight each, got {n} and {len(weights)}")
     first = operands[0]
     for k, o in enumerate(operands):
-        check(o, f"operand {k}", first, dtypes=(first.dtype,))
+        check(o, f"operand {k}", first, dtypes=(first.dtype,),
+              agent_strided=True)
     out_dtype = out_dtype or first.dtype
     for what, dt in (("operand", first.dtype), ("output", out_dtype)):
         if dt not in FLOAT_DTYPES:
             raise ValueError(f"{what} dtype {dt} not in {FLOAT_DTYPES}")
     if out is None:
         out = torch.empty(first.shape, dtype=out_dtype, device=first.device)
-    check(out, "out", first, dtypes=(out_dtype,))
+    check(out, "out", first, dtypes=(out_dtype,), agent_strided=True)
+    n_agents, size, strides = agent_blocks(operands + (out,))
+    out_stride = strides.pop()
     ptrs = (ctypes.c_void_p * n)(*(o.data_ptr() for o in operands))
     ws = (ctypes.c_float * n)(*(float(w) for w in weights))
     fn = launcher("gossip_axpy", [
-        ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_float),
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_longlong),
+        ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
         ctypes.c_longlong, ctypes.c_void_p])
     with torch.cuda.device(first.device):
-        err = fn(ptrs, ws, n, DTYPE_CODE[first.dtype], DTYPE_CODE[out_dtype],
-                 out.data_ptr(), first.numel(), stream(first))
+        err = fn(ptrs, (ctypes.c_longlong * n)(*strides), ws, n,
+                 DTYPE_CODE[first.dtype], DTYPE_CODE[out_dtype],
+                 out.data_ptr(), out_stride, n_agents, size, stream(first))
     raise_on(err, "gossip_axpy")
     count_launch(gossip_axpy_flat)
     return out
@@ -208,33 +217,46 @@ def gossip_axpy_q8_flat(operands: Sequence[torch.Tensor],
     """Fused int8 dequantize-and-combine ``Σₖ coef[k, tile]·qₖ`` on the
     card.
 
-    ``operands``: 1 to 16 int8 CUDA tensors ``(rows, 128)``, contiguous,
-    rows a multiple of ``block_rows``; ``coefs``: an f32 CUDA tensor
-    ``(n, rows // block_rows)`` of per-operand, per-tile ``weight ×
-    scale`` — device data, so every weight and scale set reuses one build.
-    Returns the f32 combine.  Bit-equal to
-    :func:`repro_torch.kernels.ref.gossip_axpy_q8_ref`."""
+    ``operands``: 1 to 16 int8 CUDA tensors of one shape, contiguous,
+    ``(rows, 128)`` or ``(A, rows, 128)``, rows a multiple of
+    ``block_rows``; ``coefs``: an f32 CUDA tensor ``(n, n_tiles)`` of
+    per-operand, per-tile ``weight × scale`` over the flattened rows
+    (agent-major) — device data, so every weight and scale set reuses one
+    build.  Returns the f32 combine, written into ``out`` when given: of
+    the operands' shape, contiguous or (3-D) with each agent block dense,
+    as a policy group's rows ``x[:, r0:r1]`` of a larger bus are.
+    Bit-equal to :func:`repro_torch.kernels.ref.gossip_axpy_q8_ref`."""
     operands = tuple(operands)
     n = len(operands)
     if not 1 <= n <= MAX_OPERANDS:
         raise ValueError(f"gossip_axpy_q8_flat takes 1..{MAX_OPERANDS} "
                          f"operands, got {n}")
     first = operands[0]
-    n_tiles = _check_tiles(first, block_rows, "gossip_axpy_q8_flat")
+    if first.dim() not in (2, 3):
+        raise ValueError(f"gossip_axpy_q8_flat takes (rows, {LANE}) or (A, "
+                         f"rows, {LANE}) operands, got {tuple(first.shape)}")
+    n_tiles = _check_tiles(first.reshape(-1, first.shape[-1]), block_rows,
+                           "gossip_axpy_q8_flat")
     for k, o in enumerate(operands):
         check(o, f"operand {k}", first, dtypes=(torch.int8,))
     check(coefs, "coefs", first, shape=(n, n_tiles))
     if out is None:
         out = torch.empty(first.shape, dtype=torch.float32,
                           device=first.device)
-    check(out, "out", first, shape=first.shape)
+    check(out, "out", first, shape=first.shape,
+          agent_strided=first.dim() == 3)
+    n_agents, size, (out_stride,) = agent_blocks((out,))
+    if n_agents > 1:
+        _check_tiles(first[0], block_rows, "gossip_axpy_q8_flat into an "
+                     "agent-strided out")
     ptrs = (ctypes.c_void_p * n)(*(o.data_ptr() for o in operands))
     fn = launcher("gossip_axpy_q8", [
         ctypes.POINTER(ctypes.c_void_p), ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p])
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_longlong, ctypes.c_void_p])
     with torch.cuda.device(first.device):
         err = fn(ptrs, n, coefs.data_ptr(), block_rows, out.data_ptr(),
-                 first.numel(), stream(first))
+                 out_stride, n_agents, size, stream(first))
     raise_on(err, "gossip_axpy_q8")
     count_launch(gossip_axpy_q8_flat)
     return out

@@ -6,6 +6,12 @@ build or launch failure raises), on ``cpu`` — which the caller chose
 explicitly, see :func:`repro_torch.device.resolve_device` — it runs the
 plain PyTorch version.  Nothing turns a kernel failure into the plain
 version.
+
+The combines (``gossip_axpy``, ``gossip_axpy_wire``, ``ring_combine``,
+``table_combine``, ``table_combine_wire``) take a policy group's rows
+``bus[:, r0:r1]`` of a larger bus as their bus operand and ``out=``
+where their kernels read or write it in place (an agent stride, no
+copy); their plain versions take the same views.
 """
 from __future__ import annotations
 
@@ -214,11 +220,7 @@ def gossip_axpy_wire(payloads: Sequence, weights: Sequence[float], *,
     if not _on_card(qs[0]):
         val = ref.gossip_axpy_q8_ref(qs, coefs, block_rows=block_rows)
         return val if out is None else out.copy_(val)
-    flat_out = None if out is None else _bus_flat(out, "gossip_axpy_wire")
-    res = gossip_axpy_q8_flat([_bus_flat(q, "gossip_axpy_wire")
-                               for q in qs], coefs, block_rows=block_rows,
-                              out=flat_out)
-    return res.view(qs[0].shape)
+    return gossip_axpy_q8_flat(qs, coefs, block_rows=block_rows, out=out)
 
 
 def ring_combine(x: torch.Tensor, terms: Sequence[Tuple[int, float]], *,
@@ -248,8 +250,7 @@ def table_combine(x: torch.Tensor, src: torch.Tensor, w: torch.Tensor, *,
     if not _on_card(x):
         val = ref.table_combine_ref(x, src, w, out_dtype=out_dtype)
         return val if out is None else out.copy_(val)
-    return table_combine_flat(x.contiguous(), src, w, out_dtype=out_dtype,
-                              out=out)
+    return table_combine_flat(x, src, w, out_dtype=out_dtype, out=out)
 
 
 def table_combine_wire(payload, src: torch.Tensor, w: torch.Tensor, *,
@@ -276,11 +277,7 @@ def table_combine_wire(payload, src: torch.Tensor, w: torch.Tensor, *,
     if not _on_card(q):
         val = ref.gossip_axpy_q8_ref(qs, coefs, block_rows=block_rows)
         return val if out is None else out.copy_(val)
-    flat_out = None if out is None else _bus_flat(out, "table_combine_wire")
-    res = gossip_axpy_q8_flat([_bus_flat(t, "table_combine_wire")
-                               for t in qs], coefs, block_rows=block_rows,
-                              out=flat_out)
-    return res.view(q.shape)
+    return gossip_axpy_q8_flat(qs, coefs, block_rows=block_rows, out=out)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,

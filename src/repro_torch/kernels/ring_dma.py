@@ -32,7 +32,8 @@ from typing import List, Mapping, Optional, Sequence, Tuple
 
 import torch
 
-from ._ffi import check, count_launch, launcher, raise_on, stream
+from ._ffi import (agent_stride, check, count_launch, launcher, overlaps,
+                   raise_on, stream)
 from .edm_update import LANE
 
 __all__ = ["MAX_TERMS", "ring_plan", "ring_unfit", "ring_dma_supported",
@@ -139,8 +140,9 @@ def ring_operands(x: torch.Tensor, terms: Sequence[Tuple[int, float]],
                   out: Optional[torch.Tensor] = None) -> List[int]:
     """Check a ring combine's operands on any device and return the terms'
     operand codes (:func:`ring_sources`): ``x`` an ``(A, rows, 128)`` f32
-    bus, ``±1`` ring terms, ``out`` (if given) like ``x`` and overlapping
-    no byte of it — every output row block reads its neighbours'."""
+    bus (or a group's rows of one), ``±1`` ring terms, ``out`` (if given)
+    like ``x`` and its agent blocks' span apart from x's — every output
+    row block reads its neighbours'."""
     if x.dim() != 3 or not bus_payload(x, x.shape[0]):
         raise ValueError(f"the ring combine takes (A, rows, {LANE}) f32 "
                          f"buses, got {x.dtype} {tuple(x.shape)}")
@@ -150,8 +152,7 @@ def ring_operands(x: torch.Tensor, terms: Sequence[Tuple[int, float]],
                 or out.device != x.device):
             raise ValueError(f"out is {out.dtype} {tuple(out.shape)} on "
                              f"{out.device}, expected x's")
-        x0, o0, n = x.data_ptr(), out.data_ptr(), x.numel() * 4
-        if x0 < o0 + out.numel() * 4 and o0 < x0 + n:
+        if overlaps(x, out):
             raise ValueError("out overlaps x: the ring combine reads "
                              "neighbour row blocks, so it cannot run in "
                              "place")
@@ -162,25 +163,29 @@ def ring_combine_flat(x: torch.Tensor, terms: Sequence[Tuple[int, float]],
                       *, out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``out[a] = Σₖ wₖ · x[(a − shiftₖ) mod A]`` on the card, one launch.
 
-    ``x``: an ``(A, rows, 128)`` f32 CUDA bus, contiguous; ``terms``:
+    ``x``: an ``(A, rows, 128)`` f32 CUDA bus, contiguous or a policy
+    group's rows ``bus[:, r0:r1]`` of a larger one (read in place: each
+    agent block dense, the blocks a 16-byte multiple apart); ``terms``:
     ``(shift, weight)`` pairs of a ±1 ring in topology order (weights are
-    runtime arguments).  ``out`` (default: a new bus) may alias no byte of
-    ``x`` (:func:`ring_operands`).  Bit-equal to
+    runtime arguments).  ``out`` (default: a new bus; strided as ``x`` may
+    be) may alias no byte of ``x`` (:func:`ring_operands`).  Bit-equal to
     :func:`repro_torch.kernels.ref.ring_combine_ref`."""
     src = ring_operands(x, terms, out)
-    check(x, "x", x)
+    check(x, "x", x, agent_strided=True)
     if out is None:
-        out = torch.empty_like(x)
-    check(out, "out", x)
+        out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    check(out, "out", x, agent_strided=True)
     n = len(src)
     fn = launcher("ring_combine", [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int),
         ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_int,
-        ctypes.c_longlong, ctypes.c_void_p])
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
+        ctypes.c_void_p])
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), out.data_ptr(), (ctypes.c_int * n)(*src),
                  (ctypes.c_float * n)(*(float(w) for _, w in terms)), n,
-                 x.shape[0], x[0].numel() // 4, stream(x))
+                 x.shape[0], x[0].numel() // 4, agent_stride(x) // 4,
+                 agent_stride(out) // 4, stream(x))
     raise_on(err, "ring_combine")
     count_launch(ring_combine_flat)
     return out

@@ -27,8 +27,8 @@ from typing import Optional
 
 import torch
 
-from ._ffi import (DTYPE_CODE, FLOAT_DTYPES, check, count_launch, launcher,
-                   raise_on, stream)
+from ._ffi import (DTYPE_CODE, FLOAT_DTYPES, agent_stride, check,
+                   count_launch, launcher, overlaps, raise_on, stream)
 
 __all__ = ["MAX_TERMS", "MAX_AGENTS", "table_operands",
            "table_combine_flat"]
@@ -44,8 +44,8 @@ def table_operands(x: torch.Tensor, src: torch.Tensor, w: torch.Tensor,
     dtype: ``x`` an ``(A, ...)`` f32 or bf16 tensor, ``src`` an integer
     ``(K, A)`` table of agent indices and ``w`` an f32 ``(K, A)`` table,
     both on ``x``'s device, 1 ≤ K ≤ 16; ``out`` (if given) of ``x``'s shape
-    and the output dtype, overlapping no byte of ``x`` (every output row
-    block reads other agents' blocks)."""
+    and the output dtype, the span of its agent blocks apart from x's
+    (every output row block reads other agents' blocks)."""
     if x.dim() < 1 or x.dtype not in FLOAT_DTYPES:
         raise ValueError(f"the table combine takes (A, ...) tensors of "
                          f"{FLOAT_DTYPES}, got {x.dtype} {tuple(x.shape)}")
@@ -71,9 +71,7 @@ def table_operands(x: torch.Tensor, src: torch.Tensor, w: torch.Tensor,
             raise ValueError(f"out is {out.dtype} {tuple(out.shape)} on "
                              f"{out.device}, expected {out_dtype} "
                              f"{tuple(x.shape)} on {x.device}")
-        x0, o0 = x.data_ptr(), out.data_ptr()
-        if x0 < o0 + out.numel() * out.element_size() and \
-                o0 < x0 + x.numel() * x.element_size():
+        if overlaps(x, out):
             raise ValueError("out overlaps x: the table combine reads other "
                              "agents' row blocks, so it cannot run in place")
     return out_dtype
@@ -84,28 +82,32 @@ def table_combine_flat(x: torch.Tensor, src: torch.Tensor, w: torch.Tensor,
                        out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``out[a] = Σₖ w[k, a] · x[src[k, a]]`` on the card, one launch.
 
-    ``x``: an ``(A, ...)`` f32 or bf16 CUDA tensor, contiguous, any element
-    count per agent; ``src``: an int32 ``(K, A)`` CUDA tensor of agent
-    indices in ``[0, A)``; ``w``: an f32 ``(K, A)`` CUDA tensor.  Terms are
-    taken in slot order k = 0 … K−1 with f32 accumulation and one rounding
-    to ``out_dtype`` (default: x's); weight-0 slots are computed.  ``out``
+    ``x``: an ``(A, ...)`` f32 or bf16 CUDA tensor, any element count per
+    agent, contiguous or a policy group's rows ``bus[:, r0:r1]`` of a
+    larger bus (read in place; ``out`` may be strided so too); ``src``: an
+    int32 ``(K, A)`` CUDA tensor of agent indices in ``[0, A)``; ``w``: an
+    f32 ``(K, A)`` CUDA tensor.  Terms are taken in slot order k = 0 … K−1
+    with f32 accumulation and one rounding to ``out_dtype`` (default:
+    x's); weight-0 slots are computed.  ``out``
     (default: a new tensor) may alias no byte of ``x``.  Bit-equal to
     :func:`repro_torch.kernels.ref.table_combine_ref`."""
     out_dtype = table_operands(x, src, w, out_dtype, out)
-    check(x, "x", x, dtypes=FLOAT_DTYPES)
+    check(x, "x", x, dtypes=FLOAT_DTYPES, agent_strided=True)
     check(src, "src", x, dtypes=(torch.int32,), shape=src.shape)
     check(w, "w", x, shape=w.shape)
     if out is None:
         out = torch.empty(x.shape, dtype=out_dtype, device=x.device)
-    check(out, "out", x, dtypes=(out_dtype,))
+    check(out, "out", x, dtypes=(out_dtype,), agent_strided=True)
     K, A = src.shape
+    n = x[0].numel() if A else 0
     fn = launcher("table_combine", [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p])
+        ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), out.data_ptr(), src.data_ptr(), w.data_ptr(),
-                 K, A, x[0].numel() if A else 0, DTYPE_CODE[x.dtype],
+                 K, A, n, agent_stride(x) if A else 0,
+                 agent_stride(out) if A else 0, DTYPE_CODE[x.dtype],
                  DTYPE_CODE[out_dtype], stream(x))
     raise_on(err, "table_combine")
     count_launch(table_combine_flat)

@@ -25,6 +25,13 @@ degraded per liveness epoch (the header's schedule reads
 gives its survivors, λ and modeled wire bytes);
 ``--overlap delayed`` runs the overlapped gossip pipeline (header
 ``+overlap``), with or without ``--wire``.
+``--gossip-groups SPEC`` (a JSON list of group specs, or ``@file.json``)
+lays the bus out in policy groups, each gossiping on its own cadence,
+schedule and wire (DESIGN §12): the header's ``wire_bytes/step`` is the
+first step's total and ``groups=`` lists each group's name, rows and
+policy; one line per group gives its modeled wire bytes on a gossiping
+step and how many of the run's steps gossip.  The ``moe`` / ``ssm``
+presets raise (those model families are not ported).
 
 ``--ckpt PATH`` writes the full train state after the last step
 (:func:`repro_torch.train.checkpoint.save_state`: the logical npz of the
@@ -35,8 +42,8 @@ either package, at any agent count: survivors restore bit for bit,
 joining agents take the consensus mean with ψ := x).  The token stream
 is drawn per global step, so a run resumed at step t takes the batches
 the uninterrupted run takes from step t on.  Flags of levers the port
-does not run yet (``--agents pod``, ``--shards``, groups) are accepted by
-the parser and rejected with a pointer to ROADMAP.md.
+does not run yet (``--agents pod``, ``--shards``) are accepted by the
+parser and rejected with a pointer to ROADMAP.md.
 
 On a CUDA device the bus path runs as CUDA graphs
 (:func:`repro_torch.train.graphs.graph_train_step`: the first step of each
@@ -46,7 +53,7 @@ tree path and CPU runs are eager.  The header line says which runs.
 ``--topology ring --gossip-engine ppermute --agents-per-device A
 --fused-kernel`` gossips the bus through the ring kernel (the rolls fused
 into the combine).  The result's ``graph_replays`` counts the steps that
-replayed a graph (0 when eager).
+replayed a graph (0 when eager) and ``graphs`` the graphs captured.
 """
 from __future__ import annotations
 
@@ -58,7 +65,8 @@ import torch
 
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.configs.base import RunConfig
-from repro_torch.core.schedule import wire_bytes_per_step
+from repro_torch.core.schedule import (group_wire_bytes_per_step,
+                                       wire_bytes_per_step)
 from repro_torch.core.wire import make_codec
 from repro_torch.data import SyntheticLM
 from repro_torch.device import resolve_device
@@ -112,12 +120,15 @@ def parser() -> argparse.ArgumentParser:
 def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
     """Parse ``argv``, train, print one line per logged step, and return
     ``{"state", "metrics", "step_seconds", "run", "wire_bytes", "epochs",
-    "graph_replays"}`` — the final train state, per-step metrics as
-    floats, per-step wall times (each step ends in a device
-    synchronisation), the modeled wire bytes of one gossip round ``[as
-    configured, one agent per device]`` on the bus (None on the tree
-    path) and, under ``--churn``, each liveness epoch's start, survivors,
-    λ and wire bytes (else None)."""
+    "groups", "graph_replays", "graphs"}`` — the final train state,
+    per-step metrics as floats, per-step wall times (each step ends in a
+    device synchronisation), the modeled wire bytes of one gossip round
+    ``[as configured, one agent per device]`` on the bus (None on the tree
+    path; on a grouped bus the first step's total), under ``--churn``
+    each liveness epoch's start, survivors, λ and wire bytes (else None),
+    and on a grouped bus each group's name, rows, policy, modeled wire
+    bytes on a gossiping step and gossiping steps of the run (else
+    None)."""
     args = parser().parse_args(argv)
     for flag, val in (("--agents pod", args.agents == "pod"),
                       ("--shards", args.shards)):
@@ -134,20 +145,49 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
     feats = resolve_features(run)
     sched = make_gossip_schedule(run, n_agents, pods=args.pods,
                                  churn=args.churn or None)
-    wire_bytes, layout = None, None
+    wire_bytes, layout, groups, group_bytes = None, None, None, None
 
     def round_bytes(step: int):
         # modeled bytes of one gossip round as configured (0 with every
         # agent on one device) and with one agent per device, as across
-        # GPUs
+        # GPUs; on a grouped bus the groups' total at this step
+        if group_bytes is not None:
+            return [group_bytes(step, b)["total"]
+                    for b in (args.agents_per_device, 1)]
         return [wire_bytes_per_step(
             sched, step, elems_per_agent=layout.padded_elems,
             agents_per_device=b, engine=args.gossip_engine, codec=codec)
             for b in (args.agents_per_device, 1)]
 
     if feats.packed_bus:
-        layout = bus_layout_for(model, n_agents)
+        layout = bus_layout_for(model, n_agents, feats.groups)
         codec = make_codec(feats.wire, layout.block_rows)
+    step = build_train_step(model, run, sched,
+                            use_fused_kernel=args.fused_kernel,
+                            pods=args.pods, device=device)
+    if step.group_plans is not None:
+        plans = step.group_plans
+        scheds = {p.group.name: p.sched for p in plans if p.sched}
+        codecs = {p.group.name: p.wire for p in plans if p.wire}
+
+        def group_bytes(t: int, b: int) -> dict:
+            return group_wire_bytes_per_step(
+                layout.groups, scheds, t, agents_per_device=b,
+                engine=args.gossip_engine, codecs=codecs)
+
+        # a group of cadence k gossips on the steps t with t % k == k − 1:
+        # its bytes on the first of them (one agent per device), and how
+        # many of the run's steps they are
+        groups = [{"name": g.name, "rows": g.rows,
+                   "gossip_every": g.gossip_every, "wire": g.wire,
+                   "schedule": scheds[g.name].name if g.name in scheds
+                   else "-",
+                   "wire_bytes": (group_bytes(g.gossip_every - 1, 1)[g.name]
+                                  if g.name in scheds else 0),
+                   "gossip_steps": (args.steps // g.gossip_every
+                                    if g.name in scheds else 0)}
+                  for g in layout.groups]
+    if layout is not None:
         wire_bytes = round_bytes(0)
     bytes_str = ("" if wire_bytes is None else
                  f" wire_bytes/step={wire_bytes[0]} (one agent per device: "
@@ -168,7 +208,17 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
           f"{' +fused' if args.fused_kernel else ''}"
           f"{' +bus' if feats.packed_bus else ' +tree'}"
           f"{' +overlap' if feats.overlap else ''} wire={feats.wire}"
-          f"{bytes_str} device={device} step={mode}", flush=True)
+          f"{bytes_str} device={device} step={mode}"
+          + ("" if groups is None else " groups=" + ",".join(
+              f"{g['name']}:{g['rows']}r/k{g['gossip_every']}/{g['wire']}"
+              f"/{g['schedule']}" for g in groups)), flush=True)
+    for g in groups or ():
+        print(f"group {g['name']}: rows {g['rows']} gossip_every "
+              f"{g['gossip_every']} wire {g['wire']} schedule "
+              f"{g['schedule']}: wire_bytes on a gossiping step "
+              f"{g['wire_bytes']} (one agent per device), "
+              f"{g['gossip_steps']} of {args.steps} steps gossip",
+              flush=True)
     epochs = None
     if args.churn:
         epochs = sched.epoch_stats()
@@ -188,9 +238,6 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
         state = checkpoint.load_state_resized(args.resume, state,
                                               layout=layout)
         print(f"resumed <- {args.resume} @ step {state['step']}")
-    step = build_train_step(model, run, sched,
-                            use_fused_kernel=args.fused_kernel,
-                            device=device)
     gen = torch.Generator(device=device).manual_seed(1)
     for _ in range(state["step"]):       # the batches of the steps taken
         data.sample(gen, args.per_agent_batch)
@@ -212,9 +259,13 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
     if args.ckpt:
         checkpoint.save_state(args.ckpt, state, layout=layout)
         print(f"checkpoint -> {args.ckpt}")
+    if graphed:
+        print(f"graphs captured: {len(step.graphs)} (replays "
+              f"{step.replays})", flush=True)
     return {"state": state, "metrics": history, "step_seconds": seconds,
             "run": run, "wire_bytes": wire_bytes, "epochs": epochs,
-            "graph_replays": getattr(step, "replays", 0)}
+            "groups": groups, "graph_replays": getattr(step, "replays", 0),
+            "graphs": len(getattr(step, "graphs", ()))}
 
 
 if __name__ == "__main__":

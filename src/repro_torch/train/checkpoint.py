@@ -22,8 +22,10 @@ gives ml_dtypes' bits).  :func:`resize_state` and
 :func:`load_state_resized` carry a state across agent counts with the
 reference's join rule.  The overlap pipeline's state is stored as the
 reference stores it: its live payload ``pipeline|phi|<path>`` (the bus
-unpacked, the spare slot never written) and ``pipeline|parity``.  Grouped
-bus layouts are not ported (ROADMAP.md).
+unpacked, the spare slot never written) and ``pipeline|parity``.  A
+policy-group layout (DESIGN §12) places leaves by ``slot.row`` like any
+other, so files stay leaf-keyed: a state saved under one layout loads bit
+for bit under another (grouped or not) and into the tree path.
 """
 from __future__ import annotations
 

@@ -16,11 +16,18 @@ the batch's tokens into a static buffer and replays a graph of
   The returned state holds the same buffers.
 * **What changes between steps** is not recaptured.  The schedule's round
   and whether the step gossips key one graph each (at most 2 × period
-  graphs), captured the first time their key comes up, all in one shared
-  memory pool; each graph's metrics stay allocated in the pool, so no
-  capture reuses another's outputs, and they are copied out after every
-  replay.  The ``warmup_cosine`` scale lives in a device scalar written
-  before each replay.
+  graphs without groups), captured the first time their key comes up,
+  all in one shared memory pool; each graph's metrics stay allocated in
+  the pool, so no capture reuses another's outputs, and they are copied
+  out after every replay.  The ``warmup_cosine`` scale lives in a device
+  scalar written before each replay.
+* **Policy groups** (DESIGN §12): a grouped step's key is every
+  gossiping group's (mixes this step, round) pair, so the graphs number
+  at most the product over those groups of period × cadence (the train
+  CLI prints how many it captured; nothing caps them).  Each graph holds
+  the combines of the groups that mix on its key, writing into x's rows
+  in place, and the copies of the rest; an int8 group's stateless encode
+  runs inside the graph.
 * **Churn** (an :class:`~repro_torch.core.elastic.ElasticSchedule`) is
   more rounds: each (epoch, base round) is a round index of its own, so
   a degraded round has its own graph, whose source-table kernel reads
@@ -73,7 +80,7 @@ class GraphedTrainStep:
                          if static.lr_schedule is not None else None)
         self.pool = torch.cuda.graph_pool_handle()
         self.side = torch.cuda.Stream(device=x.device)
-        self.graphs: Dict[Tuple[int, bool], tuple] = {}
+        self.graphs: Dict[Tuple, tuple] = {}
         self.replays = 0
 
     def _capture(self, st: Dict, key) -> Dict:

@@ -31,14 +31,17 @@ churn (an :class:`~repro_torch.core.elastic.ElasticSchedule`: liveness-
 masked rounds, on the bus and on the tree), the dense/shifts/one-device
 ppermute engines, ``gossip_every > 1``, ``gossip_dtype`` (a cast gossip
 payload), the error-feedback gossip wire (bus only) and the overlapped
-gossip pipeline (``overlap="delayed"``, bus only) with straggler plans.
-Policy groups and multi-device gossip are listed in ROADMAP.md.
+gossip pipeline (``overlap="delayed"``, bus only) with straggler plans,
+and policy groups (``gossip_groups``, bus only: per-group cadence,
+schedule and stateless wire over one bus, DESIGN §12).  Multi-device
+gossip is listed in ROADMAP.md.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Callable, Dict, Optional, Tuple
+import json
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -47,10 +50,12 @@ from repro_torch.core import bus as parambus
 from repro_torch.core.metrics import (bus_consensus, bus_grad_norm,
                                       consensus_distance, tree_sqnorm)
 from repro_torch.core.elastic import DropPlan, ElasticSchedule, StragglerPlan
-from repro_torch.core.mixing import accumulate_f32, build_mixer, tree_map
+from repro_torch.core.mixing import (GroupPlan, accumulate_f32, build_mixer,
+                                     make_group_mixer, tree_map)
 from repro_torch.core.optimizers import (DecOptimizer, make_edm_bus,
                                          make_edm_bus_ef, make_optimizer)
-from repro_torch.core.schedule import GossipSchedule, make_schedule
+from repro_torch.core.schedule import (GossipSchedule, StaticSchedule,
+                                       make_schedule)
 from repro_torch.core.topology import (Topology, exp_graph, fully_connected,
                                        hierarchical, ring, torus2d)
 from repro_torch.core.wire import WIRE_FORMATS, WireCodec, make_codec
@@ -61,8 +66,9 @@ from repro_torch.models.api import Model
 from repro_torch.optim import scale_grads, warmup_cosine
 from repro_torch.weights import params_to_bus
 
-__all__ = ["Features", "StaticBusStep", "resolve_features", "make_topology",
-           "make_gossip_schedule", "gossip_round_step", "bus_layout_for",
+__all__ = ["Features", "StaticBusStep", "resolve_features",
+           "resolve_group_specs", "make_topology", "make_gossip_schedule",
+           "gossip_round_step", "bus_layout_for", "make_group_plans",
            "init_state", "losses_and_grads", "tree_losses_and_grads",
            "build_train_step"]
 
@@ -118,14 +124,17 @@ def gossip_round_step(step: int, gossip_every: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class Features:
-    """What the train step runs (the JAX package's feature matrix, without
-    groups).  ``packed_bus``: the bus-resident EDM step, else the tree.
+    """What the train step runs (the JAX package's feature matrix).
+    ``packed_bus``: the bus-resident EDM step, else the tree.
     ``overlap``: the delayed gossip pipeline.  ``wire``: the
-    error-feedback gossip wire format ("f32" = the uncompressed wire)."""
+    error-feedback gossip wire format ("f32" = the uncompressed wire).
+    ``groups``: the policy-group specs (empty: one default group, the
+    ungrouped bus)."""
 
     packed_bus: bool
     overlap: bool = False
     wire: str = "f32"
+    groups: Tuple[parambus.GroupSpec, ...] = ()
 
 
 def _not_ported(what: str):
@@ -192,18 +201,108 @@ def resolve_features(run: RunConfig) -> Features:
                 "wire != 'f32' is mutually exclusive with gossip_dtype != "
                 "float32 (the error-feedback codec replaces the "
                 "cast-on-wire lever)")
-    if run.gossip_groups:
-        _not_ported("gossip_groups")
-    return Features(packed, overlap, fmt)
+    groups = resolve_group_specs(run)
+    if groups:
+        if not packed:
+            raise ValueError(
+                "gossip_groups need the packed bus (DESIGN §12): policy "
+                "groups are row ranges of the (A, rows, 128) superbuffer — "
+                "use algorithm='edm' with gossip_engine='ppermute' or "
+                "packed_bus=True")
+        if run.gossip_every != 1:
+            raise ValueError(
+                "gossip_groups replace the run-level gossip_every: set "
+                "gossip_every=1 and put the cadence on each group's "
+                "gossip_every instead (DESIGN §12)")
+        if overlap:
+            raise ValueError(
+                "gossip_groups do not compose with overlap='delayed' (the "
+                "pipeline carries one whole-bus payload) — run "
+                "overlap='off'")
+        if fmt != "f32":
+            raise ValueError(
+                "gossip_groups exclude the run-level error-feedback wire "
+                "(the EF residual is whole-bus); set per-group wire formats "
+                "in the group specs instead (stateless quantization)")
+        if not _is_f32(run.gossip_dtype):
+            raise ValueError(
+                "gossip_groups exclude the gossip_dtype cast lever; set "
+                "per-group wire formats in the group specs instead")
+    return Features(packed, overlap, fmt, groups)
 
 
-def bus_layout_for(model: Model, n_agents: int) -> parambus.BusLayout:
+_PRESET_FAMILY = {"moe": "mixture-of-experts expert", "ssm": "conv/SSM state"}
+
+
+def resolve_group_specs(run: RunConfig) -> Tuple[parambus.GroupSpec, ...]:
+    """``RunConfig.gossip_groups`` → group specs, as the JAX package reads
+    it: ``""`` (no groups: the ungrouped bus), a JSON list of specs (the
+    ``--gossip-groups`` payload,
+    :func:`repro_torch.core.bus.group_specs_from_json`), or
+    comma-separated presets ``moe[:k]`` / ``ssm[:k]``.  The presets select
+    leaves of model families the port does not have yet and raise
+    ``NotImplementedError`` (ROADMAP.md §1 item 4); any other preset name
+    raises ``ValueError``."""
+    spec = (run.gossip_groups or "").strip()
+    if not spec:
+        return ()
+    if spec.startswith("["):
+        return parambus.group_specs_from_json(json.loads(spec))
+    name = spec.split(",")[0].partition(":")[0].strip()
+    if name in _PRESET_FAMILY:
+        raise NotImplementedError(
+            f"the gossip-groups preset {name!r} selects "
+            f"{_PRESET_FAMILY[name]} leaves, and the port has no such model "
+            "family yet (ROADMAP.md §1 item 4); give the groups as a JSON "
+            "list of specs instead")
+    raise ValueError(
+        f"unknown gossip-groups preset {name!r}: expected 'moe[:k]', "
+        "'ssm[:k]', or a JSON list of group specs ([{\"name\": ..., "
+        "\"match\": [...], \"gossip_every\": ..., \"wire\": ...}, ...])")
+
+
+def bus_layout_for(model: Model, n_agents: int,
+                   groups: Tuple[parambus.GroupSpec, ...] = ()
+                   ) -> parambus.BusLayout:
     """Bus layout of ``model``'s parameters with a leading agent axis,
-    built from ``meta`` tensors (no allocation)."""
+    built from ``meta`` tensors (no allocation) and cached; ``groups``
+    are the policy-group specs (usually ``resolve_features(run).groups``;
+    empty: the ungrouped layout)."""
     lifted = {p: torch.empty((n_agents,) + tuple(t.shape), dtype=t.dtype,
                              device="meta")
               for p, t in model.meta().items()}
-    return parambus.make_layout(lifted)
+    return parambus.make_layout(lifted, groups=tuple(groups))
+
+
+def make_group_plans(run: RunConfig, layout: parambus.BusLayout,
+                     sched: GossipSchedule, pods: int = 1
+                     ) -> List[GroupPlan]:
+    """A grouped layout's plans (:class:`~repro_torch.core.mixing.GroupPlan`).
+
+    Every gossiping group gets a schedule — ``sched`` unless the group
+    names its own, which is built by :func:`make_gossip_schedule` *without*
+    churn, as the reference builds it (``repro/train/trainer.py:314``):
+    under an :class:`~repro_torch.core.elastic.ElasticSchedule` the
+    override group keeps mixing its full rounds while the others mix the
+    degraded ones (ROADMAP.md §3).  Assumption 1 is re-checked for each
+    group's schedule, so a policy that breaks mixing for any group fails
+    here.  Opt-out groups get no schedule and no codec; a bf16 / int8
+    group a stateless codec on the layout's ``block_rows``."""
+    plans = []
+    for g in layout.groups:
+        if g.gossip_every == 0 or g.rows == 0:
+            plans.append(GroupPlan(g))
+            continue
+        gsched = sched
+        if g.schedule:
+            gsched = make_gossip_schedule(
+                dataclasses.replace(run, gossip_schedule=g.schedule),
+                sched.n_agents, pods)
+        gsched.check_assumption1()
+        codec = (make_codec(g.wire, layout.block_rows)
+                 if g.wire != "f32" else None)
+        plans.append(GroupPlan(g, gsched, codec))
+    return plans
 
 
 def init_state(model: Model, run: RunConfig, n_agents: int, *,
@@ -228,7 +327,8 @@ def init_state(model: Model, run: RunConfig, n_agents: int, *,
         opt = make_optimizer(run.algorithm, alpha=run.alpha, beta=run.beta,
                              mix=lambda t: t)
         return {"params": tree, "opt": opt.init(tree), "step": 0}
-    x_bus = params_to_bus(bus_layout_for(model, n_agents), params, n_agents)
+    x_bus = params_to_bus(bus_layout_for(model, n_agents, feats.groups),
+                          params, n_agents)
     opt_state = make_edm_bus(run.alpha, run.beta, mix=lambda t: t).init(x_bus)
     if feats.wire != "f32":
         # the EF residual, e(0) = 0: step 0 sends Q(φ(0))
@@ -360,7 +460,7 @@ def _encode_ef_agents(codec: WireCodec, phi: torch.Tensor,
 def build_train_step(model: Model, run: RunConfig, topo,
                      use_fused_kernel: bool = False, *,
                      straggler_plan: Optional[StragglerPlan] = None,
-                     device=None) -> Callable:
+                     pods: int = 1, device=None) -> Callable:
     """Returns ``train_step(state, batch) -> (state, metrics)``; batch
     tokens are ``(A, per_agent_batch, S)``.
 
@@ -396,15 +496,27 @@ def build_train_step(model: Model, run: RunConfig, topo,
     composes with the overlap only: each step's late slots degrade to
     self-weight.
 
+    With ``run.gossip_groups`` (DESIGN §12) the bus is laid out in policy
+    groups and the gossip is :func:`~repro_torch.core.mixing.
+    make_group_mixer` over :func:`make_group_plans` (``pods`` builds a
+    group's own schedule): each gossiping group mixes its rows on its own
+    cadence, schedule and stateless wire, the fused combines writing
+    straight into x's rows; opt-out and off-cadence rows are copied from
+    φ.  A step's graph key is then every gossiping group's (mixes,
+    round) pair.
+
     ``device`` defaults to ``cuda`` and raises without one; the state must
     live there.  On the bus the returned step carries
     ``train_step.static``, the same step over a static state
-    (:class:`StaticBusStep`); on the tree it is None.
+    (:class:`StaticBusStep`); on the tree it is None.  On a grouped bus
+    ``train_step.group_plans`` holds the step's plans (else None).
     """
     dev = resolve_device(device)
     feats = resolve_features(run)
     A = topo.n_agents
-    layout = bus_layout_for(model, A) if feats.packed_bus else None
+    layout = (bus_layout_for(model, A, groups=feats.groups)
+              if feats.packed_bus else None)
+    grouped = layout is not None and layout.is_grouped
     codec = (make_codec(feats.wire, layout.block_rows)
              if feats.wire != "f32" else None)
     if straggler_plan is not None and not feats.overlap:
@@ -421,6 +533,14 @@ def build_train_step(model: Model, run: RunConfig, topo,
             raise ValueError(f"StragglerPlan.n_terms={straggler_plan.n_terms}"
                              f" must match the overlap payload stack arity "
                              f"K={complete.n_terms}")
+    elif grouped:
+        plans = make_group_plans(
+            run, layout, topo if isinstance(topo, GossipSchedule)
+            else StaticSchedule(topo), pods)
+        mix = make_group_mixer(plans, engine=run.gossip_engine,
+                               agents_per_device=run.agents_per_device,
+                               use_fused_kernel=use_fused_kernel)
+        gossiping = [p for p in plans if p.sched is not None]
     else:
         mix = build_mixer(topo, mode="schedule", **mix_kw)
     every = run.gossip_every
@@ -478,7 +598,15 @@ def build_train_step(model: Model, run: RunConfig, topo,
         return (None if straggler_plan is None
                 else straggler_plan.late_at(step))
 
+    def group_key(plan: GroupPlan, step: int) -> Tuple[bool, int]:
+        k = plan.group.gossip_every
+        if k > 1 and step % k != k - 1:
+            return False, -1
+        return True, int(plan.sched.round_index(gossip_round_step(step, k)))
+
     def step_key(step: int) -> Tuple:
+        if grouped:
+            return tuple(group_key(p, step) for p in gossiping)
         rnd = (int(topo.round_index(gossip_round_step(step, every)))
                if isinstance(topo, GossipSchedule) else 0)
         if straggler_plan is None:
@@ -590,4 +718,5 @@ def build_train_step(model: Model, run: RunConfig, topo,
         static_run, step_key, lr_sched,
         static_prepare if feats.overlap else None)
         if feats.packed_bus else None)
+    train_step.group_plans = plans if grouped else None
     return train_step

@@ -1043,3 +1043,240 @@ def test_cuda_graphed_overlap_and_churn_steps_bit_equal_to_eager(
         assert graph["pipeline"]["parity"] == eager["pipeline"]["parity"]
         assert torch.equal(graph["pipeline"]["slot"],
                            eager["pipeline"]["slot"])
+
+
+# ---------------------------------------------------------------------------
+# policy groups: the combines on a group's rows in place, the grouped step
+# ---------------------------------------------------------------------------
+
+# a bus of 4 agents and 96 rows, the group its rows [32, 72): a nonzero
+# offset, rows a multiple of the q8 tile (8 rows here)
+GROUP_BUS, GROUP_ROWS, GROUP_BR = (4, 96, 128), (32, 72), 8
+
+
+def _group_bus(cuda, seed, dtype=torch.float32):
+    """A bus whose group rows hold values with NaN / ±Inf, every other row
+    (the neighbouring groups) NaN: a kernel that reads outside the group
+    turns its output NaN where the plain version's is not."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    bus = torch.full(GROUP_BUS, float("nan"), device=cuda)
+    r0, r1 = GROUP_ROWS
+    bus[:, r0:r1] = torch.randn((4, r1 - r0, 128), generator=gen,
+                                device=cuda)
+    bus[0, r0, 5], bus[1, r0 + 3, 9] = float("inf"), -float("inf")
+    bus[2, r1 - 1, 100] = float("nan")
+    return bus.to(dtype)
+
+
+def _strided_call(kind, x, out, dtype):
+    """One combine on a group slice ``x`` (of a bus), into ``out``: the
+    kernel op and its plain version's value."""
+    from repro_torch.core import ring
+    terms = [(t.shift, float(t.weight)) for t in ring(4).terms]
+    if kind == "ring":
+        return ops.ring_combine(x, terms, out=out), \
+            ref.ring_combine_ref(x, terms)
+    if kind == "table":
+        src = torch.tensor([[0, 1, 2, 3], [3, 0, 1, 2], [0, 1, 2, 3]],
+                           dtype=torch.int32, device=x.device)
+        w = torch.tensor([[0.5] * 4, [0.25] * 4, [0.0, 0.25, 0.25, 0.25]],
+                         device=x.device)
+        return ops.table_combine(x, src, w, out_dtype=out.dtype, out=out), \
+            ref.table_combine_ref(x, src, w, out_dtype=out.dtype)
+    if kind == "axpy":
+        # the self term read in place, the rolled neighbours fresh
+        ops_ = [x, torch.roll(x, 1, 0), torch.roll(x, -1, 0)]
+        ws = [0.5, 0.25, 0.25]
+        return ops.gossip_axpy(ops_, ws, out_dtype=out.dtype, out=out), \
+            ref.gossip_axpy_ref(ops_, ws, out_dtype=out.dtype)
+    gen = torch.Generator(device=x.device).manual_seed(9)
+    q = torch.randint(-127, 128, x.shape, generator=gen, device=x.device,
+                      dtype=torch.int8)
+    s = torch.rand((4, x.shape[1] // GROUP_BR), generator=gen,
+                   device=x.device)
+    pays = [(q, s), (torch.roll(q, 1, 0), torch.roll(s, 1, 0))]
+    coefs = ref.wire_coefs([0.75, 0.25], [s, pays[1][1]])
+    return (ops.gossip_axpy_wire(pays, [0.75, 0.25], fmt="int8",
+                                 block_rows=GROUP_BR, out=out),
+            ref.gossip_axpy_q8_ref([q, pays[1][0]], coefs,
+                                   block_rows=GROUP_BR))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("kind,dtype", [
+    ("ring", torch.float32), ("table", torch.float32),
+    ("table", torch.bfloat16), ("axpy", torch.float32),
+    ("axpy", torch.bfloat16), ("q8", torch.float32)])
+def test_cuda_combines_on_a_group_slice_bit_equal_to_plain(cuda, kind,
+                                                           dtype):
+    """Each combine reads a group's rows ``bus[:, 32:72]`` in place (the
+    rest of the bus NaN) and writes ``out[:, 32:72]`` of another bus in
+    place: bit-equal to its plain version, and no other row of ``out``
+    written.  The same values in a dense bus give the same bits."""
+    r0, r1 = GROUP_ROWS
+    bus = _group_bus(cuda, seed=11, dtype=dtype)
+    x = bus[:, r0:r1]
+    assert not x.is_contiguous()
+    out_dtype = torch.float32 if kind in ("table", "axpy", "q8") \
+        and dtype == torch.bfloat16 else dtype
+    if kind == "q8":
+        out_dtype = torch.float32
+    dst = torch.full(GROUP_BUS, 7.0, device=cuda, dtype=out_dtype)
+    name = {"ring": "ring_combine", "table": "table_combine",
+            "axpy": "gossip_axpy", "q8": "gossip_axpy_q8"}[kind]
+    before = ops.launch_counts()[name]
+    got, want = _strided_call(kind, x, dst[:, r0:r1], dtype)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()[name] == before + 1
+    assert got.data_ptr() == dst[:, r0:r1].data_ptr()
+    assert _same_bits(dst[:, r0:r1], want)
+    assert bool((dst[:, :r0] == 7.0).all() and (dst[:, r1:] == 7.0).all())
+    # the unstrided call on the same values: the same bits
+    dense, want2 = _strided_call(kind, x.contiguous(), torch.empty_like(
+        dst[:, r0:r1]), dtype)
+    torch.cuda.synchronize()
+    assert _same_bits(dense, want2) and _same_bits(dense, dst[:, r0:r1])
+
+
+@pytest.mark.requires_cuda
+def test_cuda_strided_combines_check_their_inputs(cuda):
+    from repro_torch.kernels.ring_dma import ring_combine_flat
+    from repro_torch.kernels.table_combine import table_combine_flat
+    bus = torch.zeros(GROUP_BUS, device=cuda)
+    terms = [(0, 0.5), (1, 0.25), (-1, 0.25)]
+    # two groups of one bus interleave: their spans meet
+    with pytest.raises(ValueError, match="overlaps"):
+        ring_combine_flat(bus[:, :32], terms, out=bus[:, 32:64])
+    src = torch.zeros(1, 4, dtype=torch.int32, device=cuda)
+    w = torch.ones(1, 4, device=cuda)
+    with pytest.raises(ValueError, match="overlaps"):
+        table_combine_flat(bus[:, :32], src, w, out=bus[:, 32:64])
+    # an agent block that is not dense, and a stride off 16 bytes
+    with pytest.raises(ValueError, match="dense"):
+        table_combine_flat(bus[:, :, :64], src, w)
+    odd = torch.zeros(4, 8 * 128 + 1, device=cuda)[:, :8 * 128]
+    with pytest.raises(ValueError, match="16 bytes"):
+        ring_combine_flat(odd.view(4, 8, 128), terms)
+
+
+def _grouped_run(groups, **kw):
+    from repro_torch.configs.base import RunConfig
+    return RunConfig(global_batch=4, seq_len=16, algorithm="edm", alpha=0.2,
+                     beta=0.9, gossip_engine="ppermute", agents_per_device=4,
+                     topology="ring", gossip_groups=groups, remat=False, **kw)
+
+
+GROUP_POLICY = (
+    '[{"name": "embed", "match": ["embed", "lm_head"], "gossip_every": 0},'
+    ' {"name": "attn", "match": ["|attn|"]},'
+    ' {"name": "ffn", "match": ["|ffn|"], "gossip_every": 2, "wire": "int8"},'
+    ' {"name": "norm", "match": ["final_ln"], "wire": "bf16",'
+    ' "schedule": "round_robin"}]')
+
+
+@pytest.mark.requires_cuda
+def test_cuda_graphed_grouped_step_bit_equal_to_eager(cuda, monkeypatch):
+    """The 4-group policy (opt-out, f32 ring, int8 every other step, bf16
+    on round_robin) at the smoke config: 4 steps replayed from CUDA graphs
+    (2 graph keys) against 4 eager steps, deterministic: metrics and buses
+    bit-equal; the opt-out rows of x equal the EDM kernel's φ rows; the
+    replays' device traces hold the eager steps' kernels (EDM and ring
+    every step, the bf16 combine every step, q8 on odd steps)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    from repro_torch.train import (build_train_step, bus_layout_for,
+                                   init_state, make_gossip_schedule,
+                                   resolve_features)
+    from repro_torch.train.graphs import graph_train_step
+
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    model = build_model(get_smoke_config("smollm_360m"))
+    run = _grouped_run(GROUP_POLICY)
+    layout = bus_layout_for(model, 4, resolve_features(run).groups)
+    embed = next(g for g in layout.groups if g.name == "embed")
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    batches = [{"tokens": torch.randint(0, model.cfg.vocab_size, (4, 1, 16),
+                                        generator=gen, device=cuda)}
+               for _ in range(4)]
+
+    def trajectory(graphed):
+        step = build_train_step(model, run, make_gossip_schedule(run, 4),
+                                use_fused_kernel=True, device=cuda)
+        state = init_state(model, run, 4, seed=0, device=cuda)
+        if graphed:
+            step = graph_train_step(step, state, batches[0])
+        history, traced = [], []
+        rows = slice(embed.row, embed.row + embed.rows)
+        for b in batches:
+            x0 = state["params"][:, rows].clone()
+            psi0 = state["opt"]["psi"][:, rows].clone()
+
+            def one():
+                nonlocal state
+                state, metrics = step(state, b)
+                history.append({k: v.clone() for k, v in metrics.items()})
+            traced.append(_traced_launches(one))
+            # the opt-out rows of x' are φ's: (ψ' + x) − ψ, as the kernel
+            # rounds it
+            phi = (state["opt"]["psi"][:, rows] + x0) - psi0
+            history[-1]["x_rows"] = state["params"][:, rows].clone()
+            assert torch.equal(history[-1]["x_rows"], phi)
+            assert not torch.equal(phi, x0)
+        return state, history, traced, step
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        eager, h_eager, t_eager, _ = trajectory(False)
+        graph, h_graph, t_graph, g_step = trajectory(True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert len(g_step.graphs) == 2 and g_step.replays == 2
+    assert t_graph == t_eager
+    for t, tr in enumerate(t_eager):
+        assert tr["edm_update"] == 1 and tr["ring_combine"] == 1, (t, tr)
+        assert tr["gossip_axpy"] == 1, (t, tr)            # bf16 → f32
+        assert tr["gossip_axpy_q8"] == t % 2, (t, tr)
+    for a, b in zip(h_graph, h_eager):
+        for k in ("loss", "consensus", "grad_norm"):
+            assert torch.equal(a[k], b[k]), k
+        assert torch.equal(a["x_rows"], b["x_rows"])
+    assert torch.equal(graph["params"], eager["params"])
+    for k in ("m", "psi"):
+        assert torch.equal(graph["opt"][k], eager["opt"][k]), k
+    assert bool(torch.isfinite(eager["params"]).all())
+
+
+@pytest.mark.requires_cuda
+def test_cuda_two_group_f32_ring_equals_ungrouped(cuda):
+    """The 2-group all-gossip f32 layout on the ring (two ring launches a
+    step, each on its group's rows in place) against the ungrouped ring
+    step: 3 steps, every unpacked leaf bit-equal."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import bus as tbus
+    from repro_torch.models import build_model
+    from repro_torch.train import (build_train_step, bus_layout_for,
+                                   init_state, make_gossip_schedule,
+                                   resolve_features)
+    model = build_model(get_smoke_config("smollm_360m"))
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    batches = [{"tokens": torch.randint(0, model.cfg.vocab_size, (4, 1, 16),
+                                        generator=gen, device=cuda)}
+               for _ in range(3)]
+    leaves = []
+    for groups in ("", '[{"name": "attn", "match": ["|attn|"]}]'):
+        run = _grouped_run(groups)
+        layout = bus_layout_for(model, 4, resolve_features(run).groups)
+        step = build_train_step(model, run, make_gossip_schedule(run, 4),
+                                use_fused_kernel=True, device=cuda)
+        state = init_state(model, run, 4, seed=0, device=cuda)
+        before = ops.launch_counts()["ring_combine"]
+        for b in batches:
+            state, _ = step(state, b)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["ring_combine"] - before == \
+            3 * (2 if groups else 1)
+        leaves.append([tbus.unpack_tree(layout, t) for t in (
+            state["params"], state["opt"]["m"], state["opt"]["psi"])])
+    for a, b in zip(*leaves):
+        for p in a:
+            assert torch.equal(a[p], b[p]), p
