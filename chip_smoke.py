@@ -99,10 +99,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    at full width: x, m, ψ and e bit-equal;
 7. serving kernels: paged decode and paged prefill attention against their
    plain versions on the same pools, at the shapes of both serving runs of
-   phase 8 (f32 within atol 2e-5; bf16 compared in f32 within
+   phase 8 and at head dim 128 (deepseek_moe_16b's heads, K 16 and G 1,
+   which phase 15 serves; qwen3_moe_235b_a22b's, K 4 and G 16) (f32
+   within atol 2e-5; bf16 compared in f32 within
    2e-5 + 2⁻⁷·|want|, one bf16 ulp), and on NaN-poisoned pools bit-equal
    to the clean pools' output and finite; each timed at the
-   serving shapes of phase 8 (paged prefill also its host time a call)
+   serving shapes of phase 8 and at deepseek_moe_16b's (paged prefill
+   also its host time a call)
    beside its plain version, its bound (bytes
    at 3.35 TB/s or bf16 operations at 989 TFLOP/s) and one
    ``F.scaled_dot_product_attention`` call over pre-gathered dense K/V
@@ -185,9 +188,30 @@ Phases, in order; any failure raises and the script exits non-zero:
    ungrouped ring on every leaf; graphed == eager for the 4-group policy
    (4 steps, deterministic), the opt-out rows of x equal to φ's after
    every step.
+15. MoE serving: deepseek_moe_16b at full width and depth (28 layers, 64
+   experts of width 1408, top-6, 2 shared experts, vocab 102400, bf16,
+   16.88 B parameters from seed 0): the serve CLI at phase 8's trace
+   sizes, then the engine at context 1024 (16 slots, 32 requests, prompts
+   256–768, chunks of 128), counts reset just before and read just after
+   each (28 paged-attention launches a dispatch, 28 paged-prefill
+   launches a mixed dispatch); init time and its peak, one prefill's
+   logits finite, tokens/s, TTFT and per-token p50/p99, peak allocated
+   and reserved; one mixed and one decode-only dispatch profiled (busy,
+   host, idle share, launches); then at the smoke config in f32 on the
+   card: dropless, the kernel engine's tokens equal the plain engine's
+   and ``greedy_generate``'s; at capacity 1.25 (capacity can bind), the
+   kernel engine's equal the plain engine's;
+16. MoE training: deepseek_moe_16b at full width with its depth cut to 1
+   layer (1.007 B parameters), 2 agents on the ring, packed f32 bus,
+   fused kernels, seq 128, under deterministic algorithms: with
+   ``gossip_groups="moe"`` (the experts opt out) and ungrouped, 3 steps
+   + 1 profiled, eager and graphed from one state: graphed == eager bit
+   for bit, losses finite, each replay's device trace holding 1 EDM and
+   1 ring kernel, under ``moe`` the expert rows of x equal to φ's after
+   every step; median replayed step, busy, idle share and peak.
 
 Phases run in the order 1–3, 3w, 3r, 3m, 3f, 4–6, 4r, 6r, 4g, 4w–6w,
-12, 13, 14, 4t–6t, 7–11.  The third
+12, 13, 14, 4t–6t, 7–11, 15, 16.  The third
 line from the end is the ``nvidia-smi`` name and power limit,
 the line before the last ``{"kernels": [...]}`` and the last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -228,6 +252,12 @@ SERVE_ARGS = ["--arch", ARCH, "--continuous-batching", "--prefill-chunk",
               "--max-slots", "8", "--page-size", "16", "--requests", "16",
               "--rate", "50", "--attn-impl", "kernel", "--device", "cuda"]
 PAGE, SLOTS, CTX, CHUNK, STEP_TOKENS = 16, 16, 1024, 128, 256
+
+# the MoE family: deepseek_moe_16b served at full width and depth (phase
+# 15), trained at full width with the depth cut to one layer on two agents
+# (phase 16)
+MOE_ARCH, MOE_TRAIN_LAYERS, MOE_AGENTS = "deepseek_moe_16b", 1, 2
+MOE_SERVE_ARGS = [MOE_ARCH if a == ARCH else a for a in SERVE_ARGS]
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1142,16 +1172,20 @@ GRAPH_CASES = (("f32 ring", {}),
                ("int8 wire", dict(wire="int8")))
 
 
-def graph_trajectory(model, run, batches, graphed: bool, against=None):
-    """``GRAPH_STEPS`` timed bus steps from the seed-0 state, eager or
-    graphed, then one more under torch.profiler (a replay when graphed):
-    a record of host copies of the buses after the timed steps
-    (``host``) — or, given ``against`` (another run's ``host``), whether
-    the buses equal those bit for bit (``same``; no second copy is held
-    on the host) — the metrics of every step, step seconds, the wrappers'
-    launch counts over the timed steps, graph replays, peak allocated
-    and reserved GiB, and the profiled step's device busy ms and
-    training-kernel launches."""
+def graph_trajectory(model, run, batches, graphed: bool, against=None,
+                     n_agents: int = AGENTS, phi_rows=None):
+    """``GRAPH_STEPS`` timed bus steps of ``n_agents`` agents from the
+    seed-0 state, eager or graphed, then one more under torch.profiler (a
+    replay when graphed): a record of host copies of the buses after the
+    timed steps (``host``) — or, given ``against`` (another run's
+    ``host``), whether the buses equal those bit for bit (``same``; no
+    second copy is held on the host) — the metrics of every step, step
+    seconds, the wrappers' launch counts over the timed steps, graph
+    replays, peak allocated and reserved GiB, and the profiled step's
+    device busy ms and training-kernel launches.  With ``phi_rows`` (an
+    opt-out group's rows) also whether after every timed step those rows
+    of x equal the EDM update's φ rows, ``(ψ' + x) − ψ`` (``opt_out_phi``;
+    the copies are made outside the timed span)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import ops
@@ -1161,20 +1195,27 @@ def graph_trajectory(model, run, batches, graphed: bool, against=None):
 
     free()
     torch.cuda.reset_peak_memory_stats()
-    state = init_state(model, run, AGENTS, seed=0, device="cuda")
-    step = build_train_step(model, run, make_gossip_schedule(run, AGENTS),
+    state = init_state(model, run, n_agents, seed=0, device="cuda")
+    step = build_train_step(model, run, make_gossip_schedule(run, n_agents),
                             use_fused_kernel=True, device="cuda")
     if graphed:
         step = graph_train_step(step, state, batches[0])
     ops.reset_launch_counts()
-    metrics, seconds = [], []
+    metrics, seconds, phi_ok = [], [], True
     for b in batches[:-1]:
+        if phi_rows is not None:
+            x0 = state["params"][:, phi_rows].clone()
+            psi0 = state["opt"]["psi"][:, phi_rows].clone()
         t0 = time.perf_counter()
         state, m = step(state, b)
         m = {k: float(v) for k, v in m.items()}       # synchronises
         seconds.append(time.perf_counter() - t0)
         metrics.append(m)
-    rec = {"launches": ops.launch_counts(),
+        if phi_rows is not None:
+            phi = (state["opt"]["psi"][:, phi_rows] + x0) - psi0
+            phi_ok &= same_bits(state["params"][:, phi_rows], phi)
+            del x0, psi0, phi
+    rec = {"launches": ops.launch_counts(), "opt_out_phi": phi_ok,
            "replays": getattr(step, "replays", 0),
            "peak": (torch.cuda.max_memory_allocated() / 2**30,
                     torch.cuda.max_memory_reserved() / 2**30)}
@@ -2091,6 +2132,15 @@ PREFILL_CASES = [(w, s, C, n, 2, 2, 8, 4, 6, 16) for w, s, C, n in [
     for w in (0, 256) for s, n in ((0, 128), (128, 128), (640, 77))]
 # timed: the longest-context chunk of phase 8's trace (prompts ≤ 768)
 PREFILL_TIMED = (0, 640, CHUNK, CHUNK, 5, 3, 64, PAGE, CTX // PAGE, 80)
+# head dim 128: deepseek_moe_16b's heads (K 16, G 1; timed, phase 15's
+# longest-context chunk) and qwen3_moe_235b_a22b's (K 4, G 16)
+PREFILL_TIMED_HD128 = (0, 640, CHUNK, CHUNK, 16, 1, 128, PAGE, CTX // PAGE,
+                       80)
+PREFILL_CASES += [(w, s, CHUNK, n, K, G, 128, PAGE, CTX // PAGE, 80)
+                  for K, G in ((16, 1), (4, 16))
+                  for w, s, n in ((0, 0, 128), (0, 640, 77),
+                                  (256, 640, 128))] + [
+    (0, 640, CHUNK, CHUNK, 4, 16, 128, PAGE, CTX // PAGE, 80)]
 DECODE_CASES = [
     # tests/test_serve.py's ragged batch: idle slot 1, full slot 2
     dict(name="ragged", B=4, K=2, G=3, hd=16, page_size=8,
@@ -2102,28 +2152,45 @@ DECODE_CASES = [
     dict(name="smollm_360m", B=SLOTS, K=5, G=3, hd=64, page_size=PAGE,
          kv_len=[1024, 0, 1, 17, 255, 256, 511, 640, 700, 129, 33, 1000,
                  64, 900, 15, 384]),
+    # head dim 128 at the same slots and contexts: deepseek_moe_16b's
+    # heads (MHA, G 1; phase 15 serves them) and qwen3_moe_235b_a22b's
+    # (G 16: two blocks a KV head)
+    dict(name="deepseek_moe_16b", B=SLOTS, K=16, G=1, hd=128,
+         page_size=PAGE, kv_len=[1024, 0, 1, 17, 255, 256, 511, 640, 700,
+                                 129, 33, 1000, 64, 900, 15, 384]),
+    dict(name="qwen3_moe_235b_a22b", B=SLOTS, K=4, G=16, hd=128,
+         page_size=PAGE, kv_len=[1024, 0, 1, 17, 255, 256, 511, 640, 700,
+                                 129, 33, 1000, 64, 900, 15, 384]),
 ]
+# timed in bf16: smollm_360m's heads (phase 8) and deepseek_moe_16b's
+# (phase 15)
+DECODE_TIMED = {"smollm_360m": "paged_attention",
+                "deepseek_moe_16b": "paged_attention_hd128"}
 
 
 def serving_kernels():
-    """Phase 7: every case in f32 and bf16; the full-width cases timed in
-    bf16 (the serving dtype)."""
+    """Phase 7: every case in f32 and bf16; the full-width cases of
+    smollm_360m (hd 64) and deepseek_moe_16b (hd 128) timed in bf16 (the
+    serving dtype)."""
     import torch
     recs = {"paged_attention": [], "paged_prefill": []}
     timed = {}
+    prefill_timed = {PREFILL_TIMED: "paged_prefill",
+                     PREFILL_TIMED_HD128: "paged_prefill_hd128"}
     for dtype in (torch.float32, torch.bfloat16):
+        bf16 = dtype == torch.bfloat16
         for case in DECODE_CASES:
-            t = dtype == torch.bfloat16 and case["name"] == "smollm_360m"
-            rec = check_decode(case, dtype, timed=t)
+            key = DECODE_TIMED.get(case["name"]) if bf16 else None
+            rec = check_decode(case, dtype, timed=key is not None)
             recs["paged_attention"].append(rec)
-            if t:
-                timed["paged_attention"] = rec
-        for case in PREFILL_CASES + [PREFILL_TIMED]:
-            t = dtype == torch.bfloat16 and case == PREFILL_TIMED
-            rec = check_prefill(case, dtype, timed=t)
+            if key:
+                timed[key] = rec
+        for case in PREFILL_CASES + list(prefill_timed):
+            key = prefill_timed.get(case) if bf16 else None
+            rec = check_prefill(case, dtype, timed=key is not None)
             recs["paged_prefill"].append(rec)
-            if t:
-                timed["paged_prefill"] = rec
+            if key:
+                timed[key] = rec
         free()
     return recs, timed
 
@@ -2765,6 +2832,232 @@ def handoff_phase(n_layers: int):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 15: deepseek_moe_16b served at full width and depth
+# ---------------------------------------------------------------------------
+
+def moe_serve_exactness():
+    """At deepseek_moe_16b's smoke config in f32 on the card: dropless
+    (the config's capacity 8.0) the kernel engine's tokens equal the plain
+    engine's and ``greedy_generate``'s; at capacity 1.25 (where capacity
+    can bind: the decode batch's idle slots and the chunks' padding rows
+    are routed too) the kernel engine's equal the plain engine's."""
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    from repro_torch.serve import (ContinuousBatchingEngine,
+                                   PagedCacheConfig, greedy_generate,
+                                   poisson_load)
+    cfg = get_smoke_config(MOE_ARCH)
+    pcfg = PagedCacheConfig(page_size=PAGE, num_pages=1 + 4 * 256 // PAGE,
+                            max_slots=4, max_context=256)
+    reqs = poisson_load(4, rate=1000.0, vocab=cfg.vocab_size,
+                        prompt_buckets=(40, 200), new_token_buckets=(8,),
+                        prompt_dist="exact", seed=4)
+    out = {}
+    for cf in (cfg.capacity_factor, 1.25):
+        model = build_model(dataclasses.replace(cfg, capacity_factor=cf))
+        params = model.init(torch.Generator(device="cuda").manual_seed(0))
+        toks = {}
+        for impl in ("kernel", "ref"):
+            eng = ContinuousBatchingEngine(model, params, pcfg,
+                                           attn_impl=impl, prefill_chunk=64,
+                                           max_step_tokens=128,
+                                           device="cuda")
+            eng.run(reqs)
+            toks[impl] = {r: t.tolist() for r, t in eng.completed.items()}
+            del eng
+        check(toks["kernel"] == toks["ref"], f"MoE smoke, capacity {cf}: "
+              f"the kernel engine's tokens {toks['kernel']} differ from the "
+              f"plain engine's {toks['ref']}")
+        rec = {"requests_equal": len(reqs), "tokens": sum(
+            len(t) for t in toks["kernel"].values())}
+        if cf == cfg.capacity_factor:
+            for r in reqs:
+                want = greedy_generate(model, params, {
+                    "tokens": torch.from_numpy(r.tokens)[None].cuda()},
+                    n_steps=r.max_new)[0].cpu().tolist()
+                check(toks["kernel"][r.rid] == want, f"MoE smoke: the "
+                      f"kernel engine differs from greedy_generate on "
+                      f"request {r.rid}: {toks['kernel'][r.rid]} vs {want}")
+            rec["greedy_generate_equal"] = True
+        out[f"capacity_{cf}"] = rec
+        del model, params
+        free()
+    return out
+
+
+def moe_serve_phase():
+    """Phase 15: deepseek_moe_16b at full width and depth in bf16, random
+    weights from seed 0: the serve CLI at the reference CLI's trace sizes,
+    then the engine at context 1024 (16 slots, 32 requests, prompts
+    256–768, chunks of 128), counts reset just before and read just after
+    each (28 paged-attention launches a dispatch, 28 paged-prefill
+    launches a mixed dispatch); init time and peak, logits of one prefill
+    finite, serving peak; one mixed and one decode-only dispatch
+    profiled; then the smoke config's exactness on the card."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models import build_model
+    from repro_torch.serve import (ContinuousBatchingEngine,
+                                   PagedCacheConfig, poisson_load)
+    cfg = get_config(MOE_ARCH)
+    n_layers = cfg.n_layers
+    rec = {}
+    free()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    cli_metrics = serve_cli.main(MOE_SERVE_ARGS)
+    rec["cli_s"] = time.perf_counter() - t0
+    rec["cli_counts"] = ops.launch_counts()
+    rec["cli_metrics"] = cli_metrics
+    check_serve_counts(rec["cli_counts"], cli_metrics, n_layers,
+                       "MoE serve CLI")
+    check(cli_metrics["requests"] == 16 and cli_metrics["tokens"] > 0,
+          f"MoE serve CLI finished {cli_metrics}")
+    free()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    rec["init_s"] = time.perf_counter() - t0
+    rec["init_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    rec["params"] = sum(t.numel() for t in params.values())
+    rec["param_gb"] = sum(t.numel() * t.element_size()
+                          for t in params.values()) / 1e9
+    vocab = cfg.vocab_size
+    with torch.inference_mode():
+        tok = torch.randint(0, vocab, (1, 64), device="cuda",
+                            generator=torch.Generator(
+                                device="cuda").manual_seed(3))
+        logits, _ = model.prefill(params, {"tokens": tok})
+        rec["prefill_logits_finite"] = bool(torch.isfinite(logits).all())
+        del logits, tok
+    check(rec["prefill_logits_finite"], "MoE prefill logits not finite")
+    pcfg = PagedCacheConfig(page_size=PAGE, num_pages=1 + SLOTS * CTX // PAGE,
+                            max_slots=SLOTS, max_context=CTX)
+    eng = ContinuousBatchingEngine(model, params, pcfg, attn_impl="kernel",
+                                   prefill_chunk=CHUNK,
+                                   max_step_tokens=STEP_TOKENS,
+                                   device="cuda")
+    reqs = poisson_load(32, rate=1000.0, vocab=vocab,
+                        prompt_buckets=(256, 768),
+                        new_token_buckets=(16, 32, 64), prompt_dist="exact",
+                        seed=0)
+    eng.run(poisson_load(2, rate=1000.0, vocab=vocab,
+                         prompt_buckets=(256, 256), new_token_buckets=(4,),
+                         seed=1))                        # warm-up
+    eng.reset()
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    metrics = eng.run(reqs)
+    rec["counts"] = ops.launch_counts()
+    rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    rec["reserved_gib"] = torch.cuda.max_memory_reserved() / 2**30
+    rec["metrics"] = metrics
+    check_serve_counts(rec["counts"], metrics, n_layers,
+                       f"MoE engine at context {CTX}")
+    check(metrics["requests"] == len(reqs) and all(
+        len(eng.completed[r.rid]) == r.max_new for r in reqs),
+        "the MoE engine did not finish every request with its full budget")
+    rec["pool_gb"] = sum(t.numel() * t.element_size() for pi in eng.pools
+                         for t in pi.values()) / 1e9
+    rec["dispatches"] = profile_dispatches(eng, vocab)
+    del eng, params, model
+    free()
+    rec["smoke"] = moe_serve_exactness()
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 16: MoE training at full width, depth cut
+# ---------------------------------------------------------------------------
+
+def moe_train_phase():
+    """Phase 16: deepseek_moe_16b at full width with its depth cut to
+    ``MOE_TRAIN_LAYERS`` layer, ``MOE_AGENTS`` agents on the ring, packed
+    f32 bus, fused kernels, seq 128, per-agent batch 1, under
+    deterministic algorithms: for ``gossip_groups="moe"`` (the experts opt
+    out) and the ungrouped bus, ``GRAPH_STEPS`` + 1 steps eager and
+    graphed from one state and one token stream: metrics and buses
+    bit-equal, losses finite, each replay's device trace holding one EDM
+    and one ring kernel; under ``moe`` the expert rows of x equal φ's
+    after every step."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import build_model
+    from repro_torch.train import bus_layout_for, resolve_features
+    model = build_model(dataclasses.replace(get_config(MOE_ARCH),
+                                            n_layers=MOE_TRAIN_LAYERS))
+    data = SyntheticLM(vocab_size=model.cfg.vocab_size, seq_len=SEQ,
+                       n_agents=MOE_AGENTS, phi=0.2)
+    dgen = torch.Generator(device="cuda").manual_seed(5)
+    batches = [data.sample(dgen, 1) for _ in range(GRAPH_STEPS + 1)]
+    out = {"params": sum(t.numel() for t in model.meta().values())}
+    want = {n: 0 for n, _ in TRACED}
+    want.update(edm_update=1, ring_combine=1)
+    torch.use_deterministic_algorithms(True)
+    try:
+        for name, groups in (("moe", "moe"), ("ungrouped", "")):
+            run = bus_run(global_batch=MOE_AGENTS,
+                          agents_per_device=MOE_AGENTS, gossip_groups=groups)
+            layout = bus_layout_for(model, MOE_AGENTS,
+                                    resolve_features(run).groups)
+            rows = None
+            rec = {"bus": [MOE_AGENTS, layout.rows, 128]}
+            if groups:
+                g = next(g for g in layout.groups if g.name == "experts")
+                rows = slice(g.row, g.row + g.rows)
+                rec["expert_rows"] = [g.row, g.row + g.rows]
+            kw = dict(n_agents=MOE_AGENTS, phi_rows=rows)
+            eager = graph_trajectory(model, run, batches, False, **kw)
+            graph = graph_trajectory(model, run, batches, True,
+                                     against=eager["host"], **kw)
+            del eager["host"]
+            med = statistics.median(graph["seconds"][1:]) * 1e3
+            rec.update(
+                graph_eq_eager=graph["same"]
+                and graph["metrics"] == eager["metrics"],
+                opt_out_rows_eq_phi=(eager["opt_out_phi"]
+                                     and graph["opt_out_phi"])
+                if rows is not None else None,
+                loss=[m["loss"] for m in graph["metrics"]],
+                step_ms=[round(t * 1e3, 2) for t in graph["seconds"]],
+                median_ms=med, busy_ms=graph["busy_ms"],
+                idle_share=1 - graph["busy_ms"] / med,
+                tokens_per_s=MOE_AGENTS * SEQ / med * 1e3,
+                eager_median_ms=statistics.median(eager["seconds"]) * 1e3,
+                replays=graph["replays"],
+                launches={k: v for k, v in graph["launches"].items() if v},
+                traced_replay={k: v for k, v in graph["traced"].items()
+                               if v},
+                peak_allocated_gib=graph["peak"][0],
+                peak_reserved_gib=graph["peak"][1],
+                eager_peak_allocated_gib=eager["peak"][0])
+            check(rec["graph_eq_eager"], f"MoE {name}: the graphed step "
+                  f"differs from the eager step: {rec}")
+            check(rows is None or rec["opt_out_rows_eq_phi"],
+                  f"MoE {name}: the expert rows of x are not φ's: {rec}")
+            check(all(math.isfinite(v) for m in graph["metrics"]
+                      for v in m.values()),
+                  f"MoE {name}: non-finite metrics {graph['metrics']}")
+            check(graph["traced"] == want and eager["traced"] == want
+                  and graph["replays"] == GRAPH_STEPS - 1,
+                  f"MoE {name}: replay traced {graph['traced']}, eager "
+                  f"step {eager['traced']}, replays {graph['replays']}; "
+                  f"expected {want} and {GRAPH_STEPS - 1} replays")
+            out[name] = rec
+            del eager, graph
+            free()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return out
+
+
 def main() -> None:
     t_start = time.time()
     import torch
@@ -3238,6 +3531,21 @@ def main() -> None:
           f"bound {dt['bound_ms']:.5f} ms ({dt['bound_by']}), "
           f"{dt['bound_fraction']:.1%} of it; clusters of {dt['n_split']} "
           f"blocks, {dt['split_keys']} keys a block; {smi}", flush=True)
+    dt = serve_timed["paged_attention_hd128"]
+    print(f"[serve-kernels] paged_attention hd 128 timed ({dt['dtype']}, q "
+          f"{dt['shape']}, {dt['kv_rows']} KV rows): {dt['ms']:.5f} ms; "
+          f"plain {dt['plain_ms']:.4f} ms; SDPA {dt['library_ms']:.5f} ms; "
+          f"bound {dt['bound_ms']:.5f} ms ({dt['bound_by']}), "
+          f"{dt['bound_fraction']:.1%} of it; clusters of {dt['n_split']} "
+          f"blocks, {dt['split_keys']} keys a block; {smi}", flush=True)
+    for key in ("paged_prefill", "paged_prefill_hd128"):
+        pt = serve_timed[key]
+        print(f"[serve-kernels] {key} timed ({pt['dtype']}, case "
+              f"{pt['case']}): {pt['ms']:.5f} ms (host {pt['host_ms']:.4f} "
+              f"ms a call); op {pt['op_ms']:.5f} ms; plain "
+              f"{pt['plain_ms']:.4f} ms; SDPA {pt['library_ms']:.5f} ms; "
+              f"bound {pt['bound_ms']:.5f} ms ({pt['bound_by']}), "
+              f"{pt['bound_ms'] / pt['ms']:.1%} of it; {smi}", flush=True)
 
     print(f"[time] {time.time() - t_start:.1f} s before phase 8", flush=True)
     # 8. the serving main path: the CLI, then the engine at context 1024
@@ -3348,6 +3656,57 @@ def main() -> None:
           f"--ckpt/--resume bit-equal: {handoff['resume_bit_equal']}",
           flush=True)
 
+    print(f"[time] {time.time() - t_start:.1f} s before phase 15",
+          flush=True)
+    # 15. deepseek_moe_16b served at full width and depth
+    moe_serve = moe_serve_phase()
+    ms = moe_serve
+    print(f"[moe-serve] {MOE_ARCH}: {ms['params'] / 1e9:.3f} B parameters, "
+          f"{ms['param_gb']:.2f} GB; init {ms['init_s']:.1f} s, peak during "
+          f"init {ms['init_peak_gib']:.2f} GiB; prefill logits finite", flush=True)
+    print(f"[moe-serve] CLI ({ms['cli_s']:.1f} s): launches "
+          f"{ms['cli_counts']}; {json.dumps(ms['cli_metrics'])}", flush=True)
+    print(f"[moe-serve] context {CTX}: launches {ms['counts']}; peak "
+          f"allocated {ms['peak_gib']:.2f} GiB, reserved "
+          f"{ms['reserved_gib']:.2f} GiB (pools {ms['pool_gb']:.2f} GB); "
+          f"{smi}", flush=True)
+    print(f"[moe-serve] {json.dumps(ms['metrics'])}", flush=True)
+    for what, rec in ms["dispatches"].items():
+        print(f"[moe-serve-profile] one {what} dispatch: device busy "
+              f"{rec['device_busy_ms']:.3f} ms in {rec['kernel_launches']} "
+              f"kernel launches; host (unprofiled median) "
+              f"{rec['median_ms']:.2f} ms over {rec['dispatches_timed']} "
+              f"dispatches; device idle {rec['idle_share']:.1%}", flush=True)
+        for name, bms in rec["buckets"].items():
+            if bms:
+                print(f"[moe-serve-profile]   {bms:9.3f} ms  {name}")
+        for bms, count, key in rec["top"]:
+            print(f"[moe-serve-profile]   top {bms:9.3f} ms  x{count:<5d} "
+                  f"{key[:80]}")
+    print(f"[moe-serve-exact] smoke config, f32: {json.dumps(ms['smoke'])}",
+          flush=True)
+
+    print(f"[time] {time.time() - t_start:.1f} s before phase 16",
+          flush=True)
+    # 16. MoE training at full width, depth cut to one layer, 2 agents
+    moe_train = moe_train_phase()
+    print(f"[moe-train] {MOE_ARCH} at full width, {MOE_TRAIN_LAYERS} layer "
+          f"({moe_train['params'] / 1e9:.3f} B parameters), {MOE_AGENTS} "
+          f"agents, ring, seq {SEQ}; {smi}", flush=True)
+    for name in ("moe", "ungrouped"):
+        rec = moe_train[name]
+        print(f"[moe-train] {name}: bus {rec['bus']}; graphed == eager "
+              f"{rec['graph_eq_eager']}; expert rows == φ "
+              f"{rec['opt_out_rows_eq_phi']}; median replayed step "
+              f"{rec['median_ms']:.1f} ms ({rec['tokens_per_s']:.0f} "
+              f"tokens/s; eager {rec['eager_median_ms']:.1f} ms); replay "
+              f"busy {rec['busy_ms']:.3f} ms, idle {rec['idle_share']:.1%}; "
+              f"replay trace {rec['traced_replay']}; launches "
+              f"{rec['launches']}; peak allocated "
+              f"{rec['peak_allocated_gib']:.2f} GiB, reserved "
+              f"{rec['peak_reserved_gib']:.2f}; losses {rec['loss']}; steps "
+              f"{rec['step_ms']} ms", flush=True)
+
     def serve_row(name, replaces):
         rec = serve_timed[name]
         errs = [r["max_abs_err"] for r in serve_recs[name]]
@@ -3369,6 +3728,12 @@ def main() -> None:
                                     for r in serve_recs[name]),
             "launches_ctx1024": serve_counts[name],
             "launches_handoff": handoff["serve_counts"][name],
+            "launches_moe_cli": moe_serve["cli_counts"][name],
+            "launches_moe_ctx1024": moe_serve["counts"][name],
+            "hd128": {k: serve_timed[f"{name}_hd128"].get(k) for k in (
+                "case", "shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "bytes", "flops", "host_ms", "bound_fraction",
+                "n_split", "split_keys")},
             "bit_equal": True,
             "bit_equal_of": "the kernel's output on NaN-poisoned pools "
                             "against its output on the clean pools, every "
@@ -3523,6 +3888,15 @@ def main() -> None:
                 for p in ("even", "odd")}
         if name in strided:
             rec["strided"] = strided[name]
+        if name in ("edm_update", "ring_combine"):
+            # phase 16: the eager first step of each graphed MoE run, and
+            # one replay's device trace
+            rec["launches_moe_train"] = {
+                g: moe_train[g]["launches"].get(name, 0)
+                for g in ("moe", "ungrouped")}
+            rec["replay_trace_moe_train"] = {
+                g: moe_train[g]["traced_replay"].get(name, 0)
+                for g in ("moe", "ungrouped")}
     print(f"[done] {time.time() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

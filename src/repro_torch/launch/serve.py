@@ -51,8 +51,8 @@ MAX_PROMPT, MAX_NEW = 32, 32
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
     ap.add_argument("--arch", required=True,
-                    help="architecture (the port has smollm_360m; others "
-                         "raise NotImplementedError)")
+                    help="architecture (the port's ARCH_IDS: the dense and "
+                         "MoE families; others raise NotImplementedError)")
     ap.add_argument("--smoke", action="store_true",
                     help="reduced same-family config (CPU-sized)")
     ap.add_argument("--batch", type=int, default=4)

@@ -1,5 +1,5 @@
 """Public model API: the counterpart of ``repro/models/api.py`` for the
-dense family.
+dense and MoE families.
 
 ``Model`` bundles the training entries ``init`` (a ``torch.Generator`` →
 parameter dict on the generator's device), ``loss`` (``(params, batch) →

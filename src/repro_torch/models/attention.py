@@ -164,11 +164,19 @@ def paged_prefill_sdpa(q, k_chunk, v_chunk, k_pool, v_pool, pt_row,
 
 
 def _qkv(p: Dict[str, torch.Tensor], cfg, x, positions):
+    """Projections (plus the QKV bias, before the head reshape), the
+    per-head QK RMS norm, then RoPE — in the reference's order."""
     B, S, _ = x.shape
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = (x @ p["wq"]).reshape(B, S, H, hd)
-    k = (x @ p["wk"]).reshape(B, S, K, hd)
-    v = (x @ p["wv"]).reshape(B, S, K, hd)
+    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    if "bq" in p:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(B, S, H, hd)
+    k = k.reshape(B, S, K, hd)
+    v = v.reshape(B, S, K, hd)
+    if "q_norm" in p:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
     if cfg.pos_emb == "rope":
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)

@@ -11,7 +11,7 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
-__all__ = ["rms_norm", "rope", "swiglu", "apply_dense_ffn"]
+__all__ = ["rms_norm", "rope", "swiglu", "gelu_mlp", "apply_dense_ffn"]
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
@@ -41,9 +41,16 @@ def swiglu(x, w_gate, w_up, w_down):
     return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
 
 
+def gelu_mlp(x, w_up, w_down):
+    # jax.nn.gelu defaults to the tanh approximation
+    return F.gelu(x @ w_up, approximate="tanh") @ w_down
+
+
 def apply_dense_ffn(p: Dict[str, torch.Tensor], x: torch.Tensor,
                     eps: float) -> torch.Tensor:
-    """Pre-norm gated FFN with residual.  (The ungated MLP of the JAX
-    package uses tanh-approximate GELU; it is not ported yet.)"""
+    """Pre-norm FFN with residual: SwiGLU when the layer has ``w_gate``,
+    else the ungated GELU MLP."""
     h = rms_norm(x, p["ln"], eps)
-    return x + swiglu(h, p["w_gate"], p["w_up"], p["w_down"])
+    if "w_gate" in p:
+        return x + swiglu(h, p["w_gate"], p["w_up"], p["w_down"])
+    return x + gelu_mlp(h, p["w_up"], p["w_down"])

@@ -63,6 +63,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import edm_update_ref
 from repro_torch.models.api import Model
+from repro_torch.models.moe import expert_group_spec
 from repro_torch.optim import scale_grads, warmup_cosine
 from repro_torch.weights import params_to_bus
 
@@ -231,34 +232,40 @@ def resolve_features(run: RunConfig) -> Features:
     return Features(packed, overlap, fmt, groups)
 
 
-_PRESET_FAMILY = {"moe": "mixture-of-experts expert", "ssm": "conv/SSM state"}
-
-
 def resolve_group_specs(run: RunConfig) -> Tuple[parambus.GroupSpec, ...]:
     """``RunConfig.gossip_groups`` → group specs, as the JAX package reads
     it: ``""`` (no groups: the ungrouped bus), a JSON list of specs (the
     ``--gossip-groups`` payload,
     :func:`repro_torch.core.bus.group_specs_from_json`), or
-    comma-separated presets ``moe[:k]`` / ``ssm[:k]``.  The presets select
-    leaves of model families the port does not have yet and raise
-    ``NotImplementedError`` (ROADMAP.md §1 item 4); any other preset name
-    raises ``ValueError``."""
+    comma-separated presets: ``moe[:k]`` puts the expert leaves in their
+    own group (:func:`repro_torch.models.moe.expert_group_spec`; ``k`` is
+    its ``gossip_every``, 0 by default: never gossip).  ``ssm[:k]``
+    selects the leaves of a family the port does not have yet and raises
+    ``NotImplementedError`` (ROADMAP.md), wherever it stands in the list;
+    any other preset name raises ``ValueError``."""
     spec = (run.gossip_groups or "").strip()
     if not spec:
         return ()
     if spec.startswith("["):
         return parambus.group_specs_from_json(json.loads(spec))
-    name = spec.split(",")[0].partition(":")[0].strip()
-    if name in _PRESET_FAMILY:
-        raise NotImplementedError(
-            f"the gossip-groups preset {name!r} selects "
-            f"{_PRESET_FAMILY[name]} leaves, and the port has no such model "
-            "family yet (ROADMAP.md §1 item 4); give the groups as a JSON "
-            "list of specs instead")
-    raise ValueError(
-        f"unknown gossip-groups preset {name!r}: expected 'moe[:k]', "
-        "'ssm[:k]', or a JSON list of group specs ([{\"name\": ..., "
-        "\"match\": [...], \"gossip_every\": ..., \"wire\": ...}, ...])")
+    specs = []
+    for tok in spec.split(","):
+        name, _, every = tok.strip().partition(":")
+        k = int(every) if every else 0
+        if name == "moe":
+            specs.append(expert_group_spec(gossip_every=k))
+        elif name == "ssm":
+            raise NotImplementedError(
+                "the gossip-groups preset 'ssm' selects conv/SSM state "
+                "leaves, and the port has no SSM family yet (ROADMAP.md §1 "
+                "item 4); give the groups as a JSON list of specs instead")
+        else:
+            raise ValueError(
+                f"unknown gossip-groups preset {name!r}: expected "
+                "'moe[:k]', 'ssm[:k]', or a JSON list of group specs "
+                '([{"name": ..., "match": [...], "gossip_every": ..., '
+                '"wire": ...}, ...])')
+    return tuple(specs)
 
 
 def bus_layout_for(model: Model, n_agents: int,

@@ -298,6 +298,14 @@ DECODE_CASES = [
     dict(B=16, K=5, G=3, hd=64, page_size=16,
          kv_len=[1024, 0, 1, 17, 255, 256, 511, 640, 700, 129, 33, 1000,
                  64, 900, 15, 384]),
+    # head dim 128 at the same 16 slots: deepseek_moe_16b's heads (MHA,
+    # G 1) and qwen3_moe_235b_a22b's (G 16: two blocks a KV head)
+    dict(B=16, K=16, G=1, hd=128, page_size=16,
+         kv_len=[1024, 0, 1, 17, 255, 256, 511, 640, 700, 129, 33, 1000,
+                 64, 900, 15, 384]),
+    dict(B=16, K=4, G=16, hd=128, page_size=16,
+         kv_len=[1024, 0, 1, 17, 255, 256, 511, 640, 700, 129, 33, 1000,
+                 64, 900, 15, 384]),
 ]
 
 
@@ -396,7 +404,13 @@ PREFILL_CASES = [(w, s, C, n, 2, 2, 8, 4, 6, 16) for w, s, C, n in [
     (0, s, 16, n, 5, 3, 64, 16, 4, 40)
     for s, n in ((0, 16), (16, 16), (16, 7), (32, 1))] + [
     (w, s, 128, n, 5, 3, 64, 16, 64, 80)
-    for w in (0, 256) for s, n in ((0, 128), (128, 128), (640, 77))]
+    for w in (0, 256) for s, n in ((0, 128), (128, 128), (640, 77))] + [
+    # head dim 128: deepseek_moe_16b's heads (K 16, G 1) and
+    # qwen3_moe_235b_a22b's (K 4, G 16), 128-token chunks at context 1024
+    (w, s, 128, n, K, G, 128, 16, 64, 80)
+    for K, G in ((16, 1), (4, 16))
+    for w, s, n in ((0, 0, 128), (0, 640, 128), (0, 640, 77),
+                    (256, 640, 128))]
 # the edges of the bf16 kernel's tiles and splits: 100 earlier rows (not
 # a multiple of the 64-key tile or of a split), a 1-token chunk after 700
 # rows, a 256-row ring with the chunk past the window, a 96-row ring at

@@ -144,7 +144,7 @@ def test_serve_cli_without_device_raises_without_gpu(no_gpu, flags):
 
 def test_unported_levers_raise():
     model = build_model(get_smoke_config("smollm_360m"))
-    for kw in (dict(gossip_groups="moe"), dict(agents="pod")):
+    for kw in (dict(gossip_groups="ssm"), dict(agents="pod")):
         run = RunConfig(**{"gossip_engine": "ppermute", **kw})
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_train_step(model, run, ring(4), device="cpu")

@@ -446,7 +446,8 @@ def test_serve_cli_main_returns_metrics_and_rejects_unported_archs():
                       "3"])
     assert tuple(out["tokens"].shape) == (2, 3)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serve.main(["--device", "cpu", "--arch", "qwen3_14b", "--smoke"])
+        serve.main(["--device", "cpu", "--arch", "falcon_mamba_7b",
+                    "--smoke"])
 
 
 def test_run_fixed_batch_counts_match_jax():
