@@ -76,7 +76,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 6r. from one state and one gradient bus, one fused EDM step gossiping
    through the ring kernel against one plain step gossiping through the
    rolls and the plain combine: x, m and ψ bit-equal;
-4g. under ``torch.use_deterministic_algorithms(True)``: two eager runs
+4g. under ``torch.use_deterministic_algorithms(True)``, at full width
+   with the depth cut to 8 layers: two eager runs
    bit-equal, then the graphed bus step against the eager one from one
    state and one token stream, 3 timed steps and one profiled, on the
    ring, round_robin on the exp graph (two graphs) under
@@ -209,9 +210,32 @@ Phases, in order; any failure raises and the script exits non-zero:
    for bit, losses finite, each replay's device trace holding 1 EDM and
    1 ring kernel, under ``moe`` the expert rows of x equal to φ's after
    every step; median replayed step, busy, idle share and peak.
+17. SSM serving: falcon_mamba_7b at full width and depth (64 Mamba-1
+   layers, d 4096, d_inner 8192, state 16, conv 4, dt_rank 256, vocab
+   65024, bf16, 7,272,665,088 parameters from seed 0): the serve CLI's
+   fixed batch at phase 8's sizes (8 requests, prompt 32, 32 new tokens;
+   counts reset just before and read just after: the SSM path launches
+   none of the port's kernels), then a batch of 4 with prompt 512 (two
+   scan chunks of 256) and 64 new tokens through ``greedy_generate``:
+   init time and peak, prefill ms, tokens/s, ms a token, peak allocated
+   and reserved; one decode step profiled (busy, host, launches, idle
+   share); then at the smoke config in f32 on the card: prefill + one
+   decode step equal to the full forward (rtol 1e-3 / atol 1e-4), and
+   ``greedy_generate``'s tokens equal to a token-by-token decode replay;
+18. SSM training: falcon_mamba_7b at full width with its depth cut to 2
+   layers (743,305,216 parameters), 4 agents on the ring, packed f32 bus,
+   fused kernels, seq 128, under deterministic algorithms: with
+   ``gossip_groups="ssm"`` (the conv / state leaves opt out) and
+   ungrouped, 3 steps + 1 profiled, eager and graphed from one state:
+   graphed == eager bit for bit, losses finite, each replay's device
+   trace holding 1 EDM and 1 ring kernel, under ``ssm`` the state rows of
+   x equal to φ's after every step; median replayed step, busy, idle
+   share and peak; at x(0) the gradients with ``remat`` "full" and "dots"
+   bit-equal to ``remat=False``, each one's peak; the EDM and ring
+   kernels timed on this bus beside their bounds.
 
 Phases run in the order 1–3, 3w, 3r, 3m, 3f, 4–6, 4r, 6r, 4g, 4w–6w,
-12, 13, 14, 4t–6t, 7–11, 15, 16.  The third
+12, 13, 14, 4t–6t, 7–11, 15, 16, 17, 18.  The third
 line from the end is the ``nvidia-smi`` name and power limit,
 the line before the last ``{"kernels": [...]}`` and the last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -258,6 +282,17 @@ PAGE, SLOTS, CTX, CHUNK, STEP_TOKENS = 16, 16, 1024, 128, 256
 # (phase 16)
 MOE_ARCH, MOE_TRAIN_LAYERS, MOE_AGENTS = "deepseek_moe_16b", 1, 2
 MOE_SERVE_ARGS = [MOE_ARCH if a == ARCH else a for a in SERVE_ARGS]
+
+# the SSM family: falcon_mamba_7b served at full width and depth (phase
+# 17: the serve CLI's fixed batch at phase 8's sizes — 8 requests, its
+# slots, of its longest prompt and budget, 32 and 32 — then a batch of 4
+# with prompt 512, two scan chunks of 256, and 64 new tokens), trained at
+# full width with the depth cut to two layers on the main cell's four
+# agents (phase 18)
+SSM_ARCH, SSM_TRAIN_LAYERS, SSM_PARAMS = "falcon_mamba_7b", 2, 7272665088
+SSM_SERVE_ARGS = ["--arch", SSM_ARCH, "--batch", "8", "--prompt-len", "32",
+                  "--new-tokens", "32", "--device", "cuda"]
+SSM_BATCH, SSM_PROMPT, SSM_NEW = 4, 512, 64
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1161,6 +1196,10 @@ def print_graph_profile(tag: str, median_ms: float, gprof) -> None:
 
 
 GRAPH_STEPS = 3
+# phase 4g runs the main model at full width with its depth cut 32 → 8:
+# graphed == eager holds layer by layer, and the cut keeps the whole
+# script inside its time (PR 21)
+GRAPH_LAYERS = 8
 # (name, RunConfig fields): the ring (the ring kernel); round_robin on the
 # exp graph (a ring round and a rolled round: two graphs) under
 # warmup_cosine (the LR scale a device scalar written before each
@@ -1234,7 +1273,8 @@ def graph_trajectory(model, run, batches, graphed: bool, against=None,
     metrics.append({k: float(v) for k, v in m.items()})
     rows = device_rows(prof)
     rec.update(metrics=metrics, seconds=seconds,
-               busy_ms=sum(r[0] for r in rows), traced=traced_launches(rows))
+               busy_ms=sum(r[0] for r in rows), traced=traced_launches(rows),
+               buckets=bucket(rows), top=rows[:6])
     del state, step
     free()
     return rec
@@ -3058,6 +3098,406 @@ def moe_train_phase():
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 17: falcon_mamba_7b served at full width and depth
+# ---------------------------------------------------------------------------
+
+def ssm_serve_exactness():
+    """At falcon_mamba_7b's smoke config in f32 on the card: the prefill of
+    S − 1 tokens then one decode step gives the logits of the prefill of
+    all S (the full forward; S = 512, two scan chunks of 256, against one
+    chunk of 511 and the one-step recurrence) within the serving tests'
+    bound, rtol 1e-3 / atol 1e-4; ``greedy_generate``'s tokens equal a
+    replay that feeds the prompt token by token through ``decode_step``
+    from zero caches, then decodes greedily."""
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    from repro_torch.serve import greedy_generate
+    cfg = get_smoke_config(SSM_ARCH)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    B, S, n_new = 2, SSM_PROMPT, 16
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), device="cuda",
+                           generator=torch.Generator(
+                               device="cuda").manual_seed(7))
+    with torch.inference_mode():
+        full, _ = model.prefill(params, {"tokens": tokens})
+        _, caches = model.prefill(params, {"tokens": tokens[:, :-1]})
+        step, _ = model.decode_step(params, caches, tokens[:, -1:], S - 1)
+        err = float((step - full).abs().max())
+        check(bool(torch.allclose(step, full, rtol=1e-3, atol=1e-4)),
+              f"SSM smoke: prefill + decode differs from the full forward "
+              f"by {err}")
+        want = greedy_generate(model, params, {"tokens": tokens},
+                               n_steps=n_new)
+        caches = model.init_cache(B, S + n_new, device="cuda")
+        for t in range(S):
+            logits, caches = model.decode_step(params, caches,
+                                               tokens[:, t:t + 1], t)
+        out = []
+        for i in range(n_new):
+            tok = torch.argmax(logits[:, -1].float(), -1).to(
+                torch.int32)[:, None]
+            out.append(tok)
+            if i < n_new - 1:
+                logits, caches = model.decode_step(params, caches, tok, S + i)
+        replay = torch.cat(out, dim=1)
+    check(torch.equal(replay, want), f"SSM smoke: greedy_generate "
+          f"{want.tolist()} differs from the decode replay "
+          f"{replay.tolist()}")
+    del model, params, caches
+    free()
+    return {"prefill_decode_max_abs_err": err, "prompt": S,
+            "greedy_equal_replay": True, "tokens": B * n_new}
+
+
+def ssm_serve_phase():
+    """Phase 17: falcon_mamba_7b at full width and depth in bf16, random
+    weights from seed 0: the serve CLI's fixed batch at phase 8's sizes,
+    counts reset just before and read just after (the SSM path launches
+    none of the port's kernels: it has no attention); then a fixed batch
+    of ``SSM_BATCH`` with prompt ``SSM_PROMPT`` (two scan chunks) and
+    ``SSM_NEW`` new tokens through ``greedy_generate``: init time and
+    peak, prefill ms, tokens/s and per-token ms, peak allocated and
+    reserved; one decode step's host ms (median) and device busy ms,
+    launches and idle share (profiler); then the smoke config's
+    exactness."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models import build_model
+    from repro_torch.serve import greedy_generate, grow_caches
+    cfg = get_config(SSM_ARCH)
+    rec = {}
+    free()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    cli = serve_cli.main(SSM_SERVE_ARGS)
+    rec["cli_s"] = time.perf_counter() - t0
+    rec["cli_counts"] = ops.launch_counts()
+    check(not any(rec["cli_counts"].values()), f"SSM serve CLI launched "
+          f"{rec['cli_counts']}: the SSM path has no kernel of the port")
+    b, new = int(SSM_SERVE_ARGS[3]), int(SSM_SERVE_ARGS[7])
+    check(tuple(cli["tokens"].shape) == (b, new)
+          and bool(((cli["tokens"] >= 0)
+                    & (cli["tokens"] < cfg.vocab_size)).all()),
+          f"SSM serve CLI tokens {cli['tokens']}")
+    rec["cli_tokens_per_s"] = b * new / cli["seconds"]
+    rec["cli_seconds"] = cli["seconds"]
+    del cli
+    free()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    rec["init_s"] = time.perf_counter() - t0
+    rec["init_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    rec["params"] = sum(t.numel() for t in params.values())
+    rec["param_gb"] = sum(t.numel() * t.element_size()
+                          for t in params.values()) / 1e9
+    check(rec["params"] == SSM_PARAMS, f"falcon_mamba_7b has "
+          f"{rec['params']} parameters, expected {SSM_PARAMS}")
+    B, S, n_new = SSM_BATCH, SSM_PROMPT, SSM_NEW
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S), device="cuda",
+                                     generator=torch.Generator(
+                                         device="cuda").manual_seed(3))}
+    with torch.inference_mode():
+        model.prefill(params, {"tokens": batch["tokens"][:, :16]})  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        logits, caches = model.prefill(params, batch)
+        torch.cuda.synchronize()
+        rec["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+        rec["prefill_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        check(bool(torch.isfinite(logits).all()),
+              "SSM prefill logits not finite")
+        rec["state_mb"] = sum(t.numel() * t.element_size()
+                              for c in caches for t in c.values()) / 1e6
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = greedy_generate(model, params, batch, n_steps=n_new).cpu()
+        total_s = time.perf_counter() - t0
+        rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        rec["reserved_gib"] = torch.cuda.max_memory_reserved() / 2**30
+        check(tuple(out.shape) == (B, n_new) and bool(
+            ((out >= 0) & (out < cfg.vocab_size)).all()),
+            f"SSM greedy tokens {out}")
+        rec["generate_s"] = total_s
+        rec["tokens_per_s"] = B * n_new / total_s
+        rec["per_token_ms"] = (total_s * 1e3 - rec["prefill_ms"]) / (
+            n_new - 1)
+        # one decode step at context S: host time, then one profiled
+        caches = grow_caches(model, caches, B, S + n_new)
+        tok = torch.argmax(logits[:, -1].float(), -1).to(
+            torch.int32)[:, None]
+        times = []
+        for i in range(8):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, caches = model.decode_step(params, caches, tok, S + i)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        check(bool(torch.isfinite(logits).all()),
+              "SSM decode logits not finite")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            model.decode_step(params, caches, tok, S + 8)
+            settle()
+        rows = device_rows(prof)
+        host = statistics.median(times[2:]) * 1e3
+        busy = sum(r[0] for r in rows)
+        rec["decode"] = {"host_ms": host, "device_busy_ms": busy,
+                         "kernel_launches": sum(r[1] for r in rows),
+                         "idle_share": 1 - busy / host,
+                         "buckets": bucket(rows), "top": rows[:8]}
+        del logits, caches, out
+    del params, model
+    free()
+    rec["smoke"] = ssm_serve_exactness()
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 18: SSM training at full width, depth cut
+# ---------------------------------------------------------------------------
+
+def ssm_remat_check(model, batch):
+    """At x(0) of the ungrouped bus: every agent's loss and gradient with
+    ``remat`` off, "full" and "dots" — the gradient buses bit-equal — and
+    the peak allocated above the state in each case."""
+    import torch
+    from repro_torch.train import (bus_layout_for, init_state,
+                                   losses_and_grads)
+    run = bus_run(remat=False)
+    layout = bus_layout_for(model, AGENTS)
+    x = init_state(model, run, AGENTS, seed=0, device="cuda")["params"]
+    rec, want = {}, None
+    for label, kw in (("off", dict(remat=False)),
+                      ("full", dict(remat=True, remat_policy="full")),
+                      ("dots", dict(remat=True, remat_policy="dots"))):
+        free()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        losses, g = losses_and_grads(model, layout, x, batch["tokens"], **kw)
+        torch.cuda.synchronize()
+        r = {"peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+             "above_base_gib": (torch.cuda.max_memory_allocated() - base)
+             / 2**30}
+        if want is None:
+            want = (losses, g)
+        else:
+            r["bit_equal"] = (same_bits(losses, want[0])
+                              and same_bits(g, want[1]))
+            check(r["bit_equal"], f"SSM remat {label}: gradients differ "
+                  "from remat=False")
+            del g
+        rec[label] = r
+    del want, x
+    free()
+    return rec
+
+
+def ssm_bus_kernels(bus_shape):
+    """The EDM and ring kernels on the phase's bus (in place: m' and ψ'
+    over m and ψ, φ and the ring's output into their own buffers): the
+    first call of each held bit for bit against its plain version on the
+    last agent's block, whose element offsets all lie past 2³¹ on this
+    bus; then timed beside their byte bounds."""
+    import torch
+    from repro_torch.core import ring
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    x, g, m, psi = (torch.randn(bus_shape, generator=gen, device="cuda")
+                    for _ in range(4))
+    phi = torch.empty_like(x)
+    A = bus_shape[0]
+    n, last = x.numel(), A - 1
+    rec = {"shape": list(bus_shape), "checked_agent": last,
+           "checked_first_element": last * (n // A)}
+
+    def edm():
+        return ops.edm_update_bus(x, g, m, psi, alpha=ALPHA, beta=BETA,
+                                  out=(m, psi, phi))
+    want = ref.edm_update_ref(x[last], g[last], m[last], psi[last],
+                              alpha=ALPHA, beta=BETA)
+    edm()
+    rec["edm_update_bit_equal"], rec["edm_update_max_abs_err"] = compare(
+        [m[last], psi[last], phi[last]], want)
+    del want
+    check(rec["edm_update_bit_equal"], f"edm_update differs from its plain "
+          f"version on agent {last} of the {bus_shape} bus: max abs err "
+          f"{rec['edm_update_max_abs_err']}")
+    edm_ms = time_ms(edm)
+    del g, m, psi
+    terms = [(t.shift, float(t.weight)) for t in ring(A).terms]
+    want = ref.gossip_axpy_ref([phi[(last - s) % A] for s, _ in terms],
+                               [w for _, w in terms])
+    ops.ring_combine(phi, terms, out=x)
+    rec["ring_combine_bit_equal"], rec["ring_combine_max_abs_err"] = \
+        compare([x[last]], [want])
+    del want
+    check(rec["ring_combine_bit_equal"], f"ring_combine differs from its "
+          f"plain version on agent {last} of the {bus_shape} bus: max abs "
+          f"err {rec['ring_combine_max_abs_err']}")
+    ring_ms = time_ms(lambda: ops.ring_combine(phi, terms, out=x))
+    for name, ms, nbytes, flops in (("edm_update", edm_ms, 28 * n, 7 * n),
+                                    ("ring_combine", ring_ms, 8 * n,
+                                     (2 * len(terms) - 1) * n)):
+        b, by = bound_ms(nbytes, flops)
+        rec[name] = {"ms": ms, "bound_ms": b, "bound_by": by,
+                     "bytes": nbytes, "bound_fraction": b / ms}
+    del x, phi
+    free()
+    return rec
+
+
+def ssm_scan_timing():
+    """The chunked scan alone (``models.mamba._chunked_scan``, the
+    reference's order) at its two shapes on the card: the prefill's (B 4,
+    S 512 in two chunks of 256, d_inner 8192, state 16; forward, no
+    grad) and a training agent's (B 1, S 128; forward and backward): the
+    time a call by CUDA events (``ms``; the training shape's hundreds of
+    small launches are host-paced) and its device busy time by the
+    profiler (``busy_ms``: what a graph replay pays), beside the bytes a
+    fused scan must move (a, b and h0 read once, hs written once;
+    backward: the gradient of hs read, those of a and b written) at
+    3.35 TB/s."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models.mamba import _chunked_scan
+    from repro_torch.configs import get_config
+    cfg = get_config(SSM_ARCH)
+    di, st = cfg.d_inner, cfg.ssm_state
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    out = {}
+    for name, (B, S, grad) in (("prefill", (SSM_BATCH, SSM_PROMPT, False)),
+                               ("train", (1, SEQ, True))):
+        a = torch.rand((B, S, di, st), generator=gen, device="cuda")
+        b = torch.randn((B, S, di, st), generator=gen, device="cuda")
+        h0 = torch.zeros((B, di, st), device="cuda")
+        n = a.numel()
+        if grad:
+            a.requires_grad_()
+            b.requires_grad_()
+            g = torch.randn((B, S, di, st), generator=gen, device="cuda")
+
+            def fn():
+                hs, _ = _chunked_scan(a, b, h0, 256)
+                torch.autograd.grad(hs, (a, b), g)
+            nbytes = 4 * (3 * n + n + 3 * n)      # fwd: a, b, hs; bwd
+        else:
+            def fn():
+                with torch.inference_mode():
+                    _chunked_scan(a, b, h0, 256)
+            nbytes = 4 * 3 * n
+        ms = time_ms(fn, reps=5)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            settle()
+        rows = device_rows(prof)
+        busy = sum(r[0] for r in rows)
+        bms, _ = bound_ms(nbytes, 0)
+        out[name] = {"shape": [B, S, di, st], "ms": ms, "busy_ms": busy,
+                     "launches": sum(r[1] for r in rows), "bound_ms": bms,
+                     "bytes": nbytes, "bound_fraction": bms / busy}
+        del a, b, h0
+        free()
+    return out
+
+
+def ssm_train_phase():
+    """Phase 18: falcon_mamba_7b at full width with its depth cut to
+    ``SSM_TRAIN_LAYERS`` layers, ``AGENTS`` agents on the ring, packed f32
+    bus, fused kernels, seq 128, per-agent batch 1, under deterministic
+    algorithms: for ``gossip_groups="ssm"`` (the conv / state leaves opt
+    out) and the ungrouped bus, ``GRAPH_STEPS`` + 1 steps eager and
+    graphed from one state and one token stream: metrics and buses
+    bit-equal, losses finite, each replay's device trace holding one EDM
+    and one ring kernel; under ``ssm`` the state rows of x equal φ's
+    after every step.  Then ``remat`` "full" and "dots" against off
+    (gradients bit-equal, peaks), and the EDM and ring kernels timed on
+    this bus."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import build_model
+    from repro_torch.train import bus_layout_for, resolve_features
+    model = build_model(dataclasses.replace(get_config(SSM_ARCH),
+                                            n_layers=SSM_TRAIN_LAYERS))
+    data = SyntheticLM(vocab_size=model.cfg.vocab_size, seq_len=SEQ,
+                       n_agents=AGENTS, phi=0.2)
+    dgen = torch.Generator(device="cuda").manual_seed(5)
+    batches = [data.sample(dgen, 1) for _ in range(GRAPH_STEPS + 1)]
+    out = {"params": sum(t.numel() for t in model.meta().values()),
+           "layers": SSM_TRAIN_LAYERS}
+    want = {n: 0 for n, _ in TRACED}
+    want.update(edm_update=1, ring_combine=1)
+    torch.use_deterministic_algorithms(True)
+    try:
+        for name, groups in (("ssm", "ssm"), ("ungrouped", "")):
+            run = bus_run(gossip_groups=groups)
+            layout = bus_layout_for(model, AGENTS,
+                                    resolve_features(run).groups)
+            rows = None
+            rec = {"bus": [AGENTS, layout.rows, 128]}
+            if groups:
+                g = next(g for g in layout.groups if g.name == "ssm_state")
+                rows = slice(g.row, g.row + g.rows)
+                rec["state_rows"] = [g.row, g.row + g.rows]
+            kw = dict(n_agents=AGENTS, phi_rows=rows)
+            eager = graph_trajectory(model, run, batches, False, **kw)
+            graph = graph_trajectory(model, run, batches, True,
+                                     against=eager["host"], **kw)
+            del eager["host"]
+            med = statistics.median(graph["seconds"][1:]) * 1e3
+            rec.update(
+                graph_eq_eager=graph["same"]
+                and graph["metrics"] == eager["metrics"],
+                opt_out_rows_eq_phi=(eager["opt_out_phi"]
+                                     and graph["opt_out_phi"])
+                if rows is not None else None,
+                loss=[m["loss"] for m in graph["metrics"]],
+                step_ms=[round(t * 1e3, 2) for t in graph["seconds"]],
+                median_ms=med, busy_ms=graph["busy_ms"],
+                idle_share=1 - graph["busy_ms"] / med,
+                tokens_per_s=AGENTS * SEQ / med * 1e3,
+                eager_median_ms=statistics.median(eager["seconds"]) * 1e3,
+                replays=graph["replays"],
+                launches={k: v for k, v in graph["launches"].items() if v},
+                traced_replay={k: v for k, v in graph["traced"].items()
+                               if v},
+                peak_allocated_gib=graph["peak"][0],
+                peak_reserved_gib=graph["peak"][1],
+                eager_peak_allocated_gib=eager["peak"][0],
+                buckets=graph["buckets"], top=graph["top"])
+            check(rec["graph_eq_eager"], f"SSM {name}: the graphed step "
+                  f"differs from the eager step: {rec}")
+            check(rows is None or rec["opt_out_rows_eq_phi"],
+                  f"SSM {name}: the state rows of x are not φ's: {rec}")
+            check(all(math.isfinite(v) for m in graph["metrics"]
+                      for v in m.values()),
+                  f"SSM {name}: non-finite metrics {graph['metrics']}")
+            check(graph["traced"] == want and eager["traced"] == want
+                  and graph["replays"] == GRAPH_STEPS - 1,
+                  f"SSM {name}: replay traced {graph['traced']}, eager "
+                  f"step {eager['traced']}, replays {graph['replays']}; "
+                  f"expected {want} and {GRAPH_STEPS - 1} replays")
+            out[name] = rec
+            del eager, graph
+            free()
+        out["remat"] = ssm_remat_check(model, batches[0])
+    finally:
+        torch.use_deterministic_algorithms(False)
+    out["kernels"] = ssm_bus_kernels(tuple(out["ungrouped"]["bus"]))
+    out["scan"] = ssm_scan_timing()
+    return out
+
+
 def main() -> None:
     t_start = time.time()
     import torch
@@ -3337,10 +3777,15 @@ def main() -> None:
 
     print(f"[time] {time.time() - t_start:.1f} s before phase 4g", flush=True)
     # 4g. the graphed bus step against the eager one, bit for bit, under
-    # deterministic algorithms (eager against eager first)
-    graph_recs = graph_phase(model, data, dgen)
+    # deterministic algorithms (eager against eager first), at full width
+    # with the depth cut to GRAPH_LAYERS
+    graph_model = build_model(dataclasses.replace(get_config(ARCH),
+                                                  n_layers=GRAPH_LAYERS))
+    graph_recs = graph_phase(graph_model, data, dgen)
     for rec in graph_recs:
-        print(f"[graph] {json.dumps(rec)}", flush=True)
+        print(f"[graph] {GRAPH_LAYERS} layers: {json.dumps(rec)}",
+              flush=True)
+    del graph_model
 
     print(f"[time] {time.time() - t_start:.1f} s before phase 4w", flush=True)
     # 4w. the wire main path through the CLI: int8 on the ring, then bf16
@@ -3707,6 +4152,85 @@ def main() -> None:
               f"{rec['peak_reserved_gib']:.2f}; losses {rec['loss']}; steps "
               f"{rec['step_ms']} ms", flush=True)
 
+    print(f"[time] {time.time() - t_start:.1f} s before phase 17",
+          flush=True)
+    # 17. falcon_mamba_7b served at full width and depth
+    ssm_serve = ssm_serve_phase()
+    ss = ssm_serve
+    print(f"[ssm-serve] {SSM_ARCH}: {ss['params']:,} parameters, "
+          f"{ss['param_gb']:.2f} GB; init {ss['init_s']:.1f} s, peak during "
+          f"init {ss['init_peak_gib']:.2f} GiB; {smi}", flush=True)
+    print(f"[ssm-serve] CLI {' '.join(SSM_SERVE_ARGS)} ({ss['cli_s']:.1f} "
+          f"s): {ss['cli_tokens_per_s']:.1f} tokens/s; launches "
+          f"{ss['cli_counts']}", flush=True)
+    print(f"[ssm-serve] batch {SSM_BATCH}, prompt {SSM_PROMPT}, "
+          f"{SSM_NEW} new: prefill {ss['prefill_ms']:.1f} ms (peak "
+          f"{ss['prefill_peak_gib']:.2f} GiB), greedy_generate "
+          f"{ss['generate_s']:.2f} s = {ss['tokens_per_s']:.1f} tokens/s, "
+          f"{ss['per_token_ms']:.2f} ms a token; peak allocated "
+          f"{ss['peak_gib']:.2f} GiB, reserved {ss['reserved_gib']:.2f}; "
+          f"state {ss['state_mb']:.1f} MB", flush=True)
+    dec = ss["decode"]
+    print(f"[ssm-serve-profile] one decode step (batch {SSM_BATCH}): device "
+          f"busy {dec['device_busy_ms']:.3f} ms in {dec['kernel_launches']} "
+          f"kernel launches; host (median) {dec['host_ms']:.2f} ms; device "
+          f"idle {dec['idle_share']:.1%}", flush=True)
+    for name, bms in dec["buckets"].items():
+        if bms:
+            print(f"[ssm-serve-profile]   {bms:9.3f} ms  {name}")
+    for bms, count, key in dec["top"]:
+        print(f"[ssm-serve-profile]   top {bms:9.3f} ms  x{count:<5d} "
+              f"{key[:80]}")
+    print(f"[ssm-serve-exact] smoke config, f32: {json.dumps(ss['smoke'])}",
+          flush=True)
+
+    print(f"[time] {time.time() - t_start:.1f} s before phase 18",
+          flush=True)
+    # 18. SSM training at full width, depth cut to two layers, 4 agents
+    ssm_train = ssm_train_phase()
+    print(f"[ssm-train] {SSM_ARCH} at full width, {SSM_TRAIN_LAYERS} layers "
+          f"({ssm_train['params']:,} parameters), {AGENTS} agents, ring, "
+          f"seq {SEQ}; {smi}", flush=True)
+    for name in ("ssm", "ungrouped"):
+        rec = ssm_train[name]
+        print(f"[ssm-train] {name}: bus {rec['bus']}; graphed == eager "
+              f"{rec['graph_eq_eager']}; state rows == φ "
+              f"{rec['opt_out_rows_eq_phi']}; median replayed step "
+              f"{rec['median_ms']:.1f} ms ({rec['tokens_per_s']:.0f} "
+              f"tokens/s; eager {rec['eager_median_ms']:.1f} ms); replay "
+              f"busy {rec['busy_ms']:.3f} ms, idle {rec['idle_share']:.1%}; "
+              f"replay trace {rec['traced_replay']}; launches "
+              f"{rec['launches']}; peak allocated "
+              f"{rec['peak_allocated_gib']:.2f} GiB, reserved "
+              f"{rec['peak_reserved_gib']:.2f}; losses {rec['loss']}; steps "
+              f"{rec['step_ms']} ms", flush=True)
+    print(f"[ssm-train] remat (gradients at x(0), bit-equal to off): "
+          f"{json.dumps(ssm_train['remat'])}", flush=True)
+    print(f"[ssm-train] kernels on this bus: "
+          f"{json.dumps(ssm_train['kernels'])}", flush=True)
+    for name in ("ssm", "ungrouped"):
+        rec = ssm_train[name]
+        busy = {k: round(v, 3) for k, v in rec["buckets"].items() if v}
+        print(f"[ssm-train-profile] {name} replay, device ms by bucket: "
+              f"{json.dumps(busy)}", flush=True)
+        for bms, count, key in rec["top"]:
+            print(f"[ssm-train-profile]   top {bms:9.3f} ms  x{count:<5d} "
+                  f"{key[:80]}")
+    sc, n_ssm = ssm_train["scan"], get_config(SSM_ARCH).n_layers
+    pf, tr = sc["prefill"], sc["train"]
+    print(f"[ssm-scan] the chunked scan alone: prefill shape {pf['shape']} "
+          f"{pf['ms']:.3f} ms a layer, device busy {pf['busy_ms']:.3f} ms in "
+          f"{pf['launches']} launches (x {n_ssm} layers = "
+          f"{pf['busy_ms'] * n_ssm:.1f} ms of the "
+          f"{ssm_serve['prefill_ms']:.1f} ms prefill; bound "
+          f"{pf['bound_ms']:.3f} ms); train shape {tr['shape']} forward + "
+          f"backward {tr['ms']:.3f} ms a call, device busy "
+          f"{tr['busy_ms']:.3f} ms in {tr['launches']} launches (x "
+          f"{SSM_TRAIN_LAYERS} layers x {AGENTS} agents = "
+          f"{tr['busy_ms'] * SSM_TRAIN_LAYERS * AGENTS:.1f} ms of the "
+          f"{ssm_train['ungrouped']['busy_ms']:.1f} ms replay busy; bound "
+          f"{tr['bound_ms']:.3f} ms); {smi}", flush=True)
+
     def serve_row(name, replaces):
         rec = serve_timed[name]
         errs = [r["max_abs_err"] for r in serve_recs[name]]
@@ -3897,6 +4421,15 @@ def main() -> None:
             rec["replay_trace_moe_train"] = {
                 g: moe_train[g]["traced_replay"].get(name, 0)
                 for g in ("moe", "ungrouped")}
+            # phase 18: the same for the SSM runs, and the kernel timed
+            # on their bus
+            rec["launches_ssm_train"] = {
+                g: ssm_train[g]["launches"].get(name, 0)
+                for g in ("ssm", "ungrouped")}
+            rec["replay_trace_ssm_train"] = {
+                g: ssm_train[g]["traced_replay"].get(name, 0)
+                for g in ("ssm", "ungrouped")}
+            rec["ssm_bus"] = ssm_train["kernels"][name]
     print(f"[done] {time.time() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

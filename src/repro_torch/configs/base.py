@@ -201,8 +201,7 @@ class RunConfig:
     # own group (k = that group's gossip_every, 0 = full opt-out); a JSON
     # list gives explicit specs: [{"name": ..., "match": [...],
     # "gossip_every": ..., "wire": ..., "schedule": ...}, ...].
-    # Parsed by repro_torch.train.trainer.resolve_group_specs (the ssm
-    # preset raises: that family is not ported).
+    # Parsed by repro_torch.train.trainer.resolve_group_specs.
     gossip_groups: str = ""
     moe_sharding: bool = False       # explicit MoE dispatch constraints (§Perf)
     moe_impl: str = "gspmd"          # gspmd | shard_map  (§Perf serving path)

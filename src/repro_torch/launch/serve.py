@@ -8,7 +8,8 @@ softmax) or ``kernel`` (the default: the CUDA paged-attention kernels on
 the card, their plain versions on the CPU), where the reference's takes
 ``ref`` / ``pallas``.
 
-  # dense reference path
+  # dense reference path (the SSM family serves this way only: its
+  # decode state is fixed-size, not paged)
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm_360m \
       --smoke --device cpu --batch 4 --prompt-len 32 --new-tokens 16
 
@@ -51,8 +52,10 @@ MAX_PROMPT, MAX_NEW = 32, 32
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
     ap.add_argument("--arch", required=True,
-                    help="architecture (the port's ARCH_IDS: the dense and "
-                         "MoE families; others raise NotImplementedError)")
+                    help="architecture (the port's ARCH_IDS: the dense, "
+                         "MoE and SSM families; others raise "
+                         "NotImplementedError; an SSM model serves the "
+                         "fixed batch only, without --continuous-batching)")
     ap.add_argument("--smoke", action="store_true",
                     help="reduced same-family config (CPU-sized)")
     ap.add_argument("--batch", type=int, default=4)

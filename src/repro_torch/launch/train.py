@@ -31,9 +31,9 @@ schedule and wire (DESIGN §12): the header's ``wire_bytes/step`` is the
 first step's total and ``groups=`` lists each group's name, rows and
 policy; one line per group gives its modeled wire bytes on a gossiping
 step and how many of the run's steps gossip.  The ``moe[:k]`` preset
-puts an MoE model's expert weights in their own group (k = its cadence,
-0 by default: they stay local); the ``ssm`` preset raises (that family is
-not ported).
+puts an MoE model's expert weights in their own group, the ``ssm[:k]``
+preset an SSM model's conv / state leaves (``--arch falcon_mamba_7b``);
+k is the group's cadence, 0 by default: they stay local.
 
 ``--ckpt PATH`` writes the full train state after the last step
 (:func:`repro_torch.train.checkpoint.save_state`: the logical npz of the

@@ -1,4 +1,4 @@
-"""Models of the port (dense decoder LM)."""
+"""Models of the port (decoder LMs: dense, MoE and SSM families)."""
 from .api import Model, build_model
 
 __all__ = ["Model", "build_model"]

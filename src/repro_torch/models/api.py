@@ -1,13 +1,15 @@
 """Public model API: the counterpart of ``repro/models/api.py`` for the
-dense and MoE families.
+dense, MoE and SSM families.
 
 ``Model`` bundles the training entries ``init`` (a ``torch.Generator`` →
-parameter dict on the generator's device), ``loss`` (``(params, batch) →
-scalar``) and ``meta`` (shape-only parameters, for layouts), and the
+parameter dict on the generator's device), ``loss`` (``(params, batch,
+remat=True, remat_policy="full") → scalar``, as the reference's) and
+``meta`` (shape-only parameters, for layouts), and the
 serving entries of the JAX ``Model``: ``prefill``, ``decode_step``,
 ``init_cache``, ``decode_window`` and the paged ``decode_step_paged``,
-``prefill_chunk_paged`` and ``decode_step_mixed``.  Caches and pools are
-written in place (see :mod:`repro_torch.models.transformer`).  The paged
+``prefill_chunk_paged`` and ``decode_step_mixed`` (attention families
+only: they raise for an SSM model).  Caches and pools are written in
+place (see :mod:`repro_torch.models.transformer`).  The paged
 entries take their attention as an argument: the kernels of
 :mod:`repro_torch.kernels.ops` or their plain versions in
 :mod:`repro_torch.kernels.ref`.
@@ -27,7 +29,7 @@ __all__ = ["Model", "build_model"]
 class Model:
     cfg: ModelConfig
     init: Callable        # generator -> {path: tensor}
-    loss: Callable        # (params, batch) -> scalar
+    loss: Callable        # (params, batch, remat, remat_policy) -> scalar
     meta: Callable        # () -> {path: meta tensor}
     prefill: Callable     # (params, batch) -> (logits, caches)
     decode_step: Callable  # (params, caches, token, pos) -> (logits, caches)
@@ -79,9 +81,13 @@ def build_model(cfg: ModelConfig, decode_window: int = 0) -> Model:
                                       window=w, attn_fn=attn_fn,
                                       prefill_attn_fn=prefill_attn_fn)
 
+    def loss(params, batch, remat=True, remat_policy="full"):
+        return tf.lm_loss(cfg, params, batch, remat=remat,
+                          remat_policy=remat_policy)
+
     return Model(cfg,
                  lambda generator: tf.init_lm(cfg, generator),
-                 lambda params, batch: tf.lm_loss(cfg, params, batch),
+                 loss,
                  lambda: tf.param_meta(cfg),
                  prefill, decode_step, init_cache, decode_window=w,
                  decode_step_paged=decode_step_paged,

@@ -6,12 +6,38 @@ in the JAX tree.  Numerics follow the JAX package: RMSNorm scales by
 """
 from __future__ import annotations
 
+import math
 from typing import Dict
 
 import torch
 import torch.nn.functional as F
 
-__all__ = ["rms_norm", "rope", "swiglu", "gelu_mlp", "apply_dense_ffn"]
+__all__ = ["rms_norm", "rope", "swiglu", "gelu_mlp", "apply_dense_ffn",
+           "trunc_normal", "init_leaf"]
+
+# Φ(±2) of the standard normal: the truncation bounds of the JAX init
+_LO = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
+_HI = 0.5 * (1.0 + math.erf(2.0 / math.sqrt(2.0)))
+
+
+def trunc_normal(shape, generator: torch.Generator) -> torch.Tensor:
+    """Standard normal truncated to [-2, 2] (inverse-CDF sampling)."""
+    u = torch.empty(shape, dtype=torch.float32, device=generator.device)
+    u.uniform_(2.0 * _LO - 1.0, 2.0 * _HI - 1.0, generator=generator)
+    return (torch.erfinv(u) * math.sqrt(2.0)).clamp_(-2.0, 2.0)
+
+
+def init_leaf(shape, dtype: torch.dtype, init, generator: torch.Generator
+              ) -> torch.Tensor:
+    """One parameter leaf by its spec's ``init``: an int is the fan-in of
+    the truncated-normal init (std = 1/√fan_in), None zeros, a callable
+    ``(shape, device) → f32 tensor`` a constant init."""
+    if init is None:
+        return torch.zeros(shape, dtype=dtype, device=generator.device)
+    if callable(init):
+        return init(shape, generator.device).to(dtype)
+    std = 1.0 / math.sqrt(init)
+    return (trunc_normal(shape, generator) * std).to(dtype)
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,

@@ -1,4 +1,4 @@
-"""Decoder LM of the dense and MoE families: the counterpart of
+"""Decoder LM of the dense, MoE and SSM families: the counterpart of
 ``repro/models/transformer.py`` (``init_lm``, ``lm_loss``).
 
 Parameters are a flat dict keyed by the JAX tree's ``|``-joined paths.  As
@@ -7,27 +7,35 @@ leaves of leading dim ``n_blocks`` (``blocks|<pi>|attn|wq`` is
 ``(n_blocks, d, H·hd)``, ``blocks|<pi>|moe|shared|w_gate`` is
 ``(n_blocks, d, n_shared·ff)``); the forward pass walks the stack in a
 Python loop where JAX scans it.  Each layer is attention then a dense FFN
-(``ffn``) or an MoE FFN (``moe``), as ``layer_kinds`` says; the MoE
-router's leaf is f32 inside a bf16 model, as in the reference.  The SSM,
+(``ffn``) or an MoE FFN (``moe``), or a Mamba block (``ssm``) with no FFN,
+as ``layer_kinds`` says; the MoE router's leaf and the Mamba block's
+``dt_proj``, ``dt_bias``, ``A_log`` and ``D`` are f32 inside a bf16 model,
+as in the reference.  ``lm_loss`` recomputes each layer in the backward
+pass when asked (``remat``), as the reference's scan body does.  The
 hybrid, encoder-decoder and VLM families are not ported yet (ROADMAP.md).
 
 Serving (the counterparts of ``lm_prefill``, ``lm_decode_step`` and the
 paged entries): caches and page pools keep the JAX layout, a tuple over
 period positions of ``{"k", "v"}`` leaves with leading ``n_blocks``
 (``pools[pi]["k"][b]`` is layer ``b·period + pi``'s
-``(num_pages, page_size, K, hd)`` pool), and are written in place.
+``(num_pages, page_size, K, hd)`` pool), and are written in place.  An
+SSM position's cache is ``{"h", "conv"}``, the fixed-size decode state;
+the paged entries cover attention mixers only, as the reference's.
 """
 from __future__ import annotations
 
-import math
+import functools
 from typing import Callable, Dict, List, Tuple
 
 import torch
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig, block_period, layer_kinds
 from .attention import (apply_attn, apply_attn_paged,
                         apply_attn_paged_prefill, init_kv_cache)
-from .layers import apply_dense_ffn, rms_norm
+from .layers import apply_dense_ffn, init_leaf, rms_norm
+from .mamba import apply_mamba, init_ssm_cache, ssm_specs
 from .moe import apply_moe
 
 __all__ = ["param_specs", "param_meta", "init_lm", "lm_loss",
@@ -35,22 +43,31 @@ __all__ = ["param_specs", "param_meta", "init_lm", "lm_loss",
            "lm_decode_step_paged", "lm_prefill_chunk_paged",
            "lm_serve_step_mixed"]
 
-# (shape, dtype, fan_in); fan_in None marks a zero-initialised leaf (norm
-# weights, QKV biases)
+# (shape, dtype, init): init is the truncated-normal fan-in (an int),
+# None for a zero-initialised leaf (norm weights, QKV biases), or a
+# constant init (the Mamba block's A_log, dt_bias, D); layers.init_leaf
 Spec = Tuple[Tuple[int, ...], torch.dtype, object]
 
-# the layer kinds of the dense and MoE families, which the port runs
-_PORTED_KINDS = (("attn", "dense"), ("attn", "moe"))
+# the layer kinds of the dense, MoE and SSM families, which the port runs
+_PORTED_KINDS = (("attn", "dense"), ("attn", "moe"), ("ssm", "none"))
 
 
 def _check_family(cfg: ModelConfig):
     kinds = layer_kinds(cfg)[:block_period(cfg)]
-    if cfg.family not in ("dense", "moe") or any(
+    if cfg.family not in ("dense", "moe", "ssm") or any(
             k not in _PORTED_KINDS for k in kinds):
         raise NotImplementedError(
             f"model family {cfg.family!r} is not ported yet; the port runs "
-            "the dense and MoE families (ROADMAP.md)")
+            "the dense, MoE and SSM families (ROADMAP.md; the hybrid "
+            "family is §1 item 4.2)")
     return kinds
+
+
+def _check_attn_only(cfg: ModelConfig):
+    if any(mixer != "attn" for mixer, _ in _check_family(cfg)):
+        raise NotImplementedError(
+            "paged serving covers attention mixers only (an SSM layer's "
+            "state is fixed-size: serve it through greedy_generate)")
 
 
 def _attn_specs(cfg: ModelConfig, nb: int) -> Dict[str, Spec]:
@@ -109,11 +126,12 @@ def param_specs(cfg: ModelConfig) -> Dict[str, Spec]:
         "final_ln": ((d,), dt, None),
         "lm_head": ((d, cfg.vocab_size), dt, d),
     }
-    for pi, (_, ffn) in enumerate(kinds):
-        subs = {"attn": _attn_specs(cfg, nb)}
+    for pi, (mixer, ffn) in enumerate(kinds):
+        subs = ({"ssm": ssm_specs(cfg, nb)} if mixer == "ssm"
+                else {"attn": _attn_specs(cfg, nb)})
         if ffn == "moe":
             subs["moe"] = _moe_specs(cfg, nb)
-        else:
+        elif ffn == "dense":
             subs["ffn"] = _ffn_specs(cfg, nb)
         for sub, sp in subs.items():
             specs.update({f"blocks|{pi}|{sub}|{name}": v
@@ -127,43 +145,27 @@ def param_meta(cfg: ModelConfig) -> Dict[str, torch.Tensor]:
             for p, (s, dt, _) in param_specs(cfg).items()}
 
 
-# Φ(±2) of the standard normal: the truncation bounds of the JAX init
-_LO = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
-_HI = 0.5 * (1.0 + math.erf(2.0 / math.sqrt(2.0)))
-
-
-def _trunc_normal(shape, generator: torch.Generator) -> torch.Tensor:
-    """Standard normal truncated to [-2, 2] (inverse-CDF sampling)."""
-    u = torch.empty(shape, dtype=torch.float32, device=generator.device)
-    u.uniform_(2.0 * _LO - 1.0, 2.0 * _HI - 1.0, generator=generator)
-    return (torch.erfinv(u) * math.sqrt(2.0)).clamp_(-2.0, 2.0)
-
-
 def init_lm(cfg: ModelConfig, generator: torch.Generator
             ) -> Dict[str, torch.Tensor]:
     """Random parameters on ``generator.device``: truncated-normal fan-in
     init (std = 1/√fan_in) for matrices, zeros for norm weights and
-    biases — the JAX package's scheme, drawn from a ``torch.Generator``
-    (so the values differ from ``jax.random``'s; tests carry weights
-    across instead).  A stacked leaf (``blocks|...``) is drawn one
-    leading-index slice at a time into the allocated leaf, so the f32
-    temporaries are one layer's, not the stack's."""
+    biases, the Mamba block's constants (S4D-real ``A_log``, ``dt_bias``
+    −4.6, ``D`` 1) — the JAX package's scheme, drawn from a
+    ``torch.Generator`` (so the values differ from ``jax.random``'s; tests
+    carry weights across instead).  A stacked leaf (``blocks|...``) is
+    drawn one leading-index slice at a time into the allocated leaf, so
+    the f32 temporaries are one layer's, not the stack's."""
     params = {}
     specs = param_specs(cfg)
-    dev = generator.device
     for path in sorted(specs):
-        shape, dt, fan_in = specs[path]
-        if fan_in is None:
-            params[path] = torch.zeros(shape, dtype=dt, device=dev)
-            continue
-        std = 1.0 / math.sqrt(fan_in)
+        shape, dt, init = specs[path]
         if path.startswith("blocks|"):
-            leaf = torch.empty(shape, dtype=dt, device=dev)
+            leaf = torch.empty(shape, dtype=dt, device=generator.device)
             for b in range(shape[0]):
-                leaf[b] = _trunc_normal(shape[1:], generator) * std
+                leaf[b] = init_leaf(shape[1:], dt, init, generator)
             params[path] = leaf
         else:
-            params[path] = (_trunc_normal(shape, generator) * std).to(dt)
+            params[path] = init_leaf(shape, dt, init, generator)
     return params
 
 
@@ -190,29 +192,70 @@ def _layers(cfg: ModelConfig, params: Dict[str, torch.Tensor]
     return layers
 
 
-def _ffn(cfg: ModelConfig, lp: Dict, x: torch.Tensor, aux=None):
-    """The layer's FFN with residual: (x, aux), ``aux`` plus the MoE
-    layer's ``router_aux_coef · aux`` (None stays None for dense layers)."""
+def _ffn(cfg: ModelConfig, lp: Dict, x: torch.Tensor):
+    """The layer's FFN with residual: (x, the MoE layer's
+    ``router_aux_coef · aux``, or None for a dense layer).  A Mamba layer
+    has no FFN: x passes through."""
     if "moe" in lp:
-        x, a = apply_moe(lp["moe"], cfg, x, cfg.norm_eps)
-        return x, (a if aux is None else aux + a)
-    return apply_dense_ffn(lp["ffn"], x, cfg.norm_eps), aux
+        return apply_moe(lp["moe"], cfg, x, cfg.norm_eps)
+    if "ffn" in lp:
+        return apply_dense_ffn(lp["ffn"], x, cfg.norm_eps), None
+    return x, None
+
+
+def _train_layer(cfg: ModelConfig, lp: Dict, x: torch.Tensor,
+                 positions: torch.Tensor):
+    """One layer of the training forward: (x, the MoE aux loss or None)."""
+    if "ssm" in lp:
+        x, _ = apply_mamba(lp["ssm"], cfg, x)
+    else:
+        x = apply_attn(lp["attn"], cfg, x, positions)
+    return _ffn(cfg, lp, x)
+
+
+# "dots" keeps what jax.checkpoint_policies.dots_saveable keeps: the
+# matmul outputs; the rest of the layer is recomputed in the backward pass
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default)
+
+
+def _remat_context(remat_policy: str):
+    if remat_policy == "full":
+        return None
+    if remat_policy == "dots":
+        return functools.partial(create_selective_checkpoint_contexts,
+                                 list(_DOTS))
+    raise ValueError(f"remat_policy must be 'full' or 'dots', got "
+                     f"{remat_policy!r}")
 
 
 def lm_loss(cfg: ModelConfig, params: Dict[str, torch.Tensor],
-            batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+            batch: Dict[str, torch.Tensor], *, remat: bool = True,
+            remat_policy: str = "full") -> torch.Tensor:
     """Next-token cross entropy of one agent, plus the MoE layers'
     load-balance losses.  batch: {tokens (B, S)}; the loss predicts
-    tokens[1:] from the prefix, f32 logits through ``logsumexp``."""
+    tokens[1:] from the prefix, f32 logits through ``logsumexp``.
+    ``remat`` recomputes each layer in the backward pass
+    (``torch.utils.checkpoint``): ``remat_policy="full"`` keeps only the
+    layer's input, ``"dots"`` also its matmul outputs.  The gradients are
+    those of ``remat=False``."""
     _check_family(cfg)
+    ctx = _remat_context(remat_policy)
     tokens = batch["tokens"].long()
     x = params["embed"][tokens]
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device).expand(B, S)
     aux = None
     for lp in _layers(cfg, params):
-        x = apply_attn(lp["attn"], cfg, x, positions)
-        x, aux = _ffn(cfg, lp, x, aux)
+        if remat:
+            kw = {} if ctx is None else {"context_fn": ctx}
+            x, a = checkpoint(_train_layer, cfg, lp, x, positions,
+                              use_reentrant=False, preserve_rng_state=False,
+                              **kw)
+        else:
+            x, a = _train_layer(cfg, lp, x, positions)
+        if a is not None:
+            aux = a if aux is None else aux + a
     h = rms_norm(x, params["final_ln"], cfg.norm_eps)
     logits = (h @ params["lm_head"]).float()
     pred = logits[:, :-1]
@@ -239,23 +282,27 @@ def _stack_index(cfg: ModelConfig):
 
 def init_lm_cache(cfg: ModelConfig, batch: int, length: int, *,
                   device=None) -> Tuple[Dict[str, torch.Tensor], ...]:
-    """Zero KV caches: a tuple over period positions of stacked
-    ``(n_blocks, batch, length, K, hd)`` leaves (``device="meta"`` gives
-    the shapes without allocating)."""
-    _check_family(cfg)
-    nb = cfg.n_layers // block_period(cfg)
+    """Zero caches, a tuple over period positions of stacked leaves:
+    ``(n_blocks, batch, length, K, hd)`` ``k`` / ``v`` for attention, and
+    for an SSM position the fixed-size state, ``h`` ``(n_blocks, batch,
+    d_inner, d_state)`` f32 and ``conv`` ``(n_blocks, batch, conv − 1,
+    d_inner)`` (``device="meta"`` gives the shapes without allocating)."""
+    kinds = _check_family(cfg)
+    nb = cfg.n_layers // len(kinds)
     out = []
-    for _ in range(block_period(cfg)):
-        one = init_kv_cache(cfg, batch, length, device=device)
+    for mixer, _ in kinds:
+        one = (init_ssm_cache(cfg, batch, device=device) if mixer == "ssm"
+               else init_kv_cache(cfg, batch, length, device=device))
         out.append({k: v[None].expand(nb, *v.shape).contiguous()
                     for k, v in one.items()})
     return tuple(out)
 
 
 def lm_prefill(cfg: ModelConfig, params, tokens, *, window: int = 0):
-    """Full-sequence forward returning (last-token logits (B, 1, V), kv
-    caches); with ``window`` each cache holds the last ``window`` rows in
-    ring order."""
+    """Full-sequence forward returning (last-token logits (B, 1, V),
+    caches); with ``window`` each KV cache holds the last ``window`` rows
+    in ring order.  An SSM layer scans from a zero state, as the
+    reference's prefill does, and its cache is the final state."""
     _check_family(cfg)
     tokens = tokens.long()
     x = params["embed"][tokens]
@@ -263,14 +310,19 @@ def lm_prefill(cfg: ModelConfig, params, tokens, *, window: int = 0):
     positions = torch.arange(S, device=tokens.device).expand(B, S)
     per_layer = []
     for lp in _layers(cfg, params):
-        x, cache = apply_attn(lp["attn"], cfg, x, positions, mode="prefill",
-                              window=window)
+        if "ssm" in lp:
+            x, cache = apply_mamba(
+                lp["ssm"], cfg, x,
+                cache=init_ssm_cache(cfg, B, device=tokens.device))
+        else:
+            x, cache = apply_attn(lp["attn"], cfg, x, positions,
+                                  mode="prefill", window=window)
         x, _ = _ffn(cfg, lp, x)
         per_layer.append(cache)
     period = block_period(cfg)
     caches = tuple(
         {name: torch.stack([c[name] for c in per_layer[pi::period]])
-         for name in ("k", "v")}
+         for name in per_layer[pi]}
         for pi in range(period))
     return _logits(cfg, params, x[:, -1:]), caches
 
@@ -278,17 +330,23 @@ def lm_prefill(cfg: ModelConfig, params, tokens, *, window: int = 0):
 def lm_decode_step(cfg: ModelConfig, params, caches, token, pos, *,
                    window: int = 0):
     """One decode step.  token: (B, 1); pos: the absolute position, the
-    same for every row.  The caches are written in place.  Returns
-    (logits (B, 1, V), caches)."""
+    same for every row.  The caches are written in place (an SSM layer's
+    new state over its old).  Returns (logits (B, 1, V), caches)."""
     token = token.long()
     x = params["embed"][token]
     B = token.shape[0]
     positions = torch.full((B, 1), int(pos), dtype=torch.long,
                            device=token.device)
     for (_, b, pi), lp in zip(_stack_index(cfg), _layers(cfg, params)):
-        layer_cache = {name: caches[pi][name][b] for name in ("k", "v")}
-        x, _ = apply_attn(lp["attn"], cfg, x, positions, mode="decode",
-                          cache=layer_cache, window=window)
+        layer_cache = {name: c[b] for name, c in caches[pi].items()}
+        if "ssm" in lp:
+            x, new = apply_mamba(lp["ssm"], cfg, x, mode="decode",
+                                 cache=layer_cache)
+            for name, c in new.items():
+                layer_cache[name].copy_(c)
+        else:
+            x, _ = apply_attn(lp["attn"], cfg, x, positions, mode="decode",
+                              cache=layer_cache, window=window)
         x, _ = _ffn(cfg, lp, x)
     return _logits(cfg, params, x), caches
 
@@ -307,7 +365,7 @@ def lm_decode_step_paged(cfg: ModelConfig, params, pools, token, positions,
     :func:`~repro_torch.models.attention.apply_attn_paged` (the kernel or
     its plain version).  The pools
     are written in place.  Returns (logits (B, 1, V), pools)."""
-    _check_family(cfg)
+    _check_attn_only(cfg)
     token = token.long()
     x = params["embed"][token]
     pos2 = positions.reshape(token.shape[0], 1).long()
@@ -327,7 +385,7 @@ def lm_prefill_chunk_paged(cfg: ModelConfig, params, pools, tokens, pt_row,
     prompt (padded to C) attends to the slot's earlier pages and is
     written into them.  tokens: (1, C); pt_row: (n_pages,).  Returns
     (logits (1, C, V), pools); logits rows ≥ chunk_len are padding."""
-    _check_family(cfg)
+    _check_attn_only(cfg)
     x = params["embed"][tokens.long()]
     for (_, b, pi), lp in zip(_stack_index(cfg), _layers(cfg, params)):
         x, _ = apply_attn_paged_prefill(
@@ -353,7 +411,7 @@ def lm_serve_step_mixed(cfg: ModelConfig, params, pools, token, positions,
     (padding included) in two separate calls, as the reference does, so
     each call's capacity is its own.
     Returns (decode logits (B, 1, V), chunk logits (1, C, V), pools)."""
-    _check_family(cfg)
+    _check_attn_only(cfg)
     token = token.long()
     xd = params["embed"][token]
     xc = params["embed"][chunk_tokens.long()]

@@ -63,6 +63,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import edm_update_ref
 from repro_torch.models.api import Model
+from repro_torch.models.mamba import ssm_state_group_spec
 from repro_torch.models.moe import expert_group_spec
 from repro_torch.optim import scale_grads, warmup_cosine
 from repro_torch.weights import params_to_bus
@@ -237,12 +238,12 @@ def resolve_group_specs(run: RunConfig) -> Tuple[parambus.GroupSpec, ...]:
     it: ``""`` (no groups: the ungrouped bus), a JSON list of specs (the
     ``--gossip-groups`` payload,
     :func:`repro_torch.core.bus.group_specs_from_json`), or
-    comma-separated presets: ``moe[:k]`` puts the expert leaves in their
-    own group (:func:`repro_torch.models.moe.expert_group_spec`; ``k`` is
-    its ``gossip_every``, 0 by default: never gossip).  ``ssm[:k]``
-    selects the leaves of a family the port does not have yet and raises
-    ``NotImplementedError`` (ROADMAP.md), wherever it stands in the list;
-    any other preset name raises ``ValueError``."""
+    comma-separated presets, one group each in the order given:
+    ``moe[:k]`` puts the expert leaves in their own group
+    (:func:`repro_torch.models.moe.expert_group_spec`), ``ssm[:k]`` the
+    conv / SSM state leaves (:func:`repro_torch.models.mamba.
+    ssm_state_group_spec`); ``k`` is the group's ``gossip_every``, 0 by
+    default: never gossip.  Any other preset name raises ``ValueError``."""
     spec = (run.gossip_groups or "").strip()
     if not spec:
         return ()
@@ -255,10 +256,7 @@ def resolve_group_specs(run: RunConfig) -> Tuple[parambus.GroupSpec, ...]:
         if name == "moe":
             specs.append(expert_group_spec(gossip_every=k))
         elif name == "ssm":
-            raise NotImplementedError(
-                "the gossip-groups preset 'ssm' selects conv/SSM state "
-                "leaves, and the port has no SSM family yet (ROADMAP.md §1 "
-                "item 4); give the groups as a JSON list of specs instead")
+            specs.append(ssm_state_group_spec(gossip_every=k))
         else:
             raise ValueError(
                 f"unknown gossip-groups preset {name!r}: expected "
@@ -354,7 +352,8 @@ GradMap = Optional[Callable[[Dict[str, torch.Tensor]],
 
 def losses_and_grads(model: Model, layout: parambus.BusLayout,
                      x_bus: torch.Tensor, tokens: torch.Tensor,
-                     grad_map: GradMap = None
+                     grad_map: GradMap = None, *, remat: bool = True,
+                     remat_policy: str = "full"
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-agent losses ``(A,)`` and the f32 gradient bus: agent ``a``'s
     parameters are unpacked from row block ``a`` of ``x_bus`` (cast to
@@ -362,13 +361,15 @@ def losses_and_grads(model: Model, layout: parambus.BusLayout,
     ``tokens[a]`` — through ``grad_map`` (the LR schedule's scaling), in
     the leaves' dtypes — is packed into row block ``a`` of the gradient
     bus: the JAX step's ``vmap(value_and_grad(loss))``, one agent at a
-    time."""
+    time.  ``remat`` / ``remat_policy`` go to ``model.loss`` (the run's
+    ``RunConfig.remat`` / ``remat_policy``)."""
     g_bus = torch.zeros_like(x_bus)
     losses = []
     for a in range(x_bus.shape[0]):
         leaves = {p: v.detach().requires_grad_()
                   for p, v in parambus.unpack_agent(layout, x_bus, a).items()}
-        loss = model.loss(leaves, {"tokens": tokens[a]})
+        loss = model.loss(leaves, {"tokens": tokens[a]}, remat=remat,
+                          remat_policy=remat_policy)
         grads = dict(zip(layout.paths, torch.autograd.grad(
             loss, [leaves[p] for p in layout.paths])))
         if grad_map is not None:
@@ -379,7 +380,8 @@ def losses_and_grads(model: Model, layout: parambus.BusLayout,
 
 
 def tree_losses_and_grads(model: Model, params: Dict[str, torch.Tensor],
-                          tokens: torch.Tensor
+                          tokens: torch.Tensor, *, remat: bool = True,
+                          remat_policy: str = "full"
                           ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The tree version of :func:`losses_and_grads`: per-agent losses
     ``(A,)`` and ``{path: (A, *shape)}`` gradients in the leaves' dtypes,
@@ -390,7 +392,8 @@ def tree_losses_and_grads(model: Model, params: Dict[str, torch.Tensor],
     for a in range(tokens.shape[0]):
         leaves = {p: v[a].detach().requires_grad_()
                   for p, v in params.items()}
-        loss = model.loss(leaves, {"tokens": tokens[a]})
+        loss = model.loss(leaves, {"tokens": tokens[a]}, remat=remat,
+                          remat_policy=remat_policy)
         for p, g in zip(leaves, torch.autograd.grad(loss,
                                                     list(leaves.values()))):
             grads[p][a].copy_(g)
@@ -490,7 +493,10 @@ def build_train_step(model: Model, run: RunConfig, topo,
     algorithm with the identity mixer (on the bus the plain EDM recursion,
     carrying the residual ``e`` untouched).  ``run.gossip_dtype`` casts
     the gossip payload; ``run.warmup_steps`` / ``run.total_steps`` turn on
-    ``warmup_cosine`` as gradient scaling.  The bus step consumes its
+    ``warmup_cosine`` as gradient scaling; ``run.remat`` /
+    ``run.remat_policy`` recompute each layer of an agent's loss in the
+    backward pass (:func:`~repro_torch.models.transformer.lm_loss`).  The
+    bus step consumes its
     input state: the new m, ψ (and e) are written over the old buffers.
 
     With ``run.overlap="delayed"`` (DESIGN §6) the step is issue →
@@ -553,6 +559,9 @@ def build_train_step(model: Model, run: RunConfig, topo,
     every = run.gossip_every
     kw = (dict(use_fused_kernel=use_fused_kernel)
           if run.algorithm == "edm" else {})
+    # each agent's loss recomputes its layers in the backward pass as the
+    # run asks, as the reference's agent_loss does
+    remat = dict(remat=run.remat, remat_policy=run.remat_policy)
     lr_sched = None
     if run.warmup_steps or run.total_steps:
         lr_sched = warmup_cosine(run.warmup_steps or 1,
@@ -624,7 +633,7 @@ def build_train_step(model: Model, run: RunConfig, topo,
         """One bus step: ``(x', opt', metrics)``, x' written into ``out``
         when given."""
         losses, grads = losses_and_grads(model, layout, x, tokens,
-                                         grad_map(step, lr_scale))
+                                         grad_map(step, lr_scale), **remat)
         with torch.no_grad():
             opt = bus_opt(gossip_round_step(step, every), gossips(step), out)
             new_x, new_opt = opt.step(x, grads, opt_state)
@@ -649,7 +658,7 @@ def build_train_step(model: Model, run: RunConfig, topo,
             payloads = issue(payload, step)
         # COMPUTE: gradients at the pre-mix local iterate φ(t)
         losses, grads = losses_and_grads(model, layout, phi, tokens,
-                                         grad_map(step, lr_scale))
+                                         grad_map(step, lr_scale), **remat)
         with torch.no_grad():
             # COMPLETE: the combine x(t) = W(t) φ̃(t), late slots at
             # self-weight; then the local EDM update, φ(t+1) into the spare
@@ -710,7 +719,8 @@ def build_train_step(model: Model, run: RunConfig, topo,
                                                batch["tokens"], step)
             return {"params": new_x, "opt": new_opt, "step": step + 1}, \
                 metrics
-        losses, grads = tree_losses_and_grads(model, params, batch["tokens"])
+        losses, grads = tree_losses_and_grads(model, params, batch["tokens"],
+                                              **remat)
         if lr_sched is not None:
             grads = scale_grads(grads, step, lr_sched)
         with torch.no_grad():

@@ -5,8 +5,11 @@ these tests only name targets, on a copy of ``csrc`` in ``tmp_path``."""
 import shutil
 
 import pytest
+import torch
 
 from repro_torch.kernels import build
+
+torch.set_num_threads(1)  # xdist workers share the cores
 
 SOURCES = sorted(p.name for p in build.CSRC.glob("*.cu"))
 HEADERS = sorted(p.name for p in build.CSRC.glob("*.cuh"))

@@ -19,6 +19,8 @@ from repro_torch.core import make_edm_bus, make_mixer, ring
 from repro_torch.models import build_model
 from repro_torch.train import bus_layout_for
 
+torch.set_num_threads(1)  # xdist workers share the cores
+
 ARCH = "smollm_360m"
 A = 3
 

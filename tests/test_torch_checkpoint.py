@@ -51,6 +51,8 @@ from repro_torch.launch import train as tcli
 from repro_torch.models import build_model
 from repro_torch.train import bus_layout_for, checkpoint, init_state
 
+torch.set_num_threads(1)  # xdist workers share the cores
+
 ROOT = Path(__file__).resolve().parents[1]
 A = 4
 
@@ -329,7 +331,8 @@ def test_handoff_train_export_serve_on_cpu(tmp_path):
     tcli.main(CLI + ["--steps", "2", "--ckpt", ck])
     checkpoint.export_consensus(ck, ex)
     want = weights.params_digest(weights.params_from_npz(ex))
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cpu",
          "--arch", "smollm_360m", "--smoke", "--continuous-batching",

@@ -29,6 +29,8 @@ import torch
 
 from repro_torch.kernels import ops, ref
 
+torch.set_num_threads(1)  # xdist workers share the cores
+
 ALPHA, BETA = 0.2, 0.9
 
 
@@ -1294,3 +1296,136 @@ def test_cuda_two_group_f32_ring_equals_ungrouped(cuda):
     for a, b in zip(*leaves):
         for p in a:
             assert torch.equal(a[p], b[p]), p
+
+
+def _mamba_inputs(cfg, seed):
+    from repro_torch.models import mamba
+    gen = torch.Generator().manual_seed(seed)
+    p = mamba.init_mamba(cfg, gen)
+    for name in ("ln", "conv_b"):
+        p[name] = 0.1 * torch.randn(p[name].shape, generator=gen)
+    x = torch.randn((2, 24, cfg.d_model), generator=gen)
+    cache = {"h": torch.randn((2, cfg.d_inner, cfg.ssm_state),
+                              generator=gen),
+             "conv": torch.randn((2, cfg.ssm_conv - 1, cfg.d_inner),
+                                 generator=gen)}
+    return p, x, cache
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("mode", ["train", "decode"])
+def test_cuda_mamba_block_matches_cpu(cuda, mode):
+    """The Mamba block (the chunked scan in two chunks, or one decode
+    step) and its gradients on the card against the same f32 inputs on
+    the CPU: the same ops, reduction order and ``exp`` aside, so each
+    output within a normwise relative error of 1e-5 (f32 against an f64
+    run of the block is 0.4–1e-6; elementwise bounds trip on the
+    gradients' cancelling sums)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import mamba
+    cfg = get_smoke_config("falcon_mamba_7b")
+    p, x, cache = _mamba_inputs(cfg, seed=11)
+    if mode == "decode":
+        x = x[:, :1]
+
+    def run(device):
+        leaves = {k: v.to(device).requires_grad_() for k, v in p.items()}
+        c = ({k: v.to(device) for k, v in cache.items()}
+             if mode == "decode" else None)
+        y, new = mamba.apply_mamba(leaves, cfg, x.to(device), mode=mode,
+                                   cache=c, chunk=12)
+        grads = torch.autograd.grad(y.square().sum(), list(leaves.values()))
+        outs = [y] + ([new["h"], new["conv"]] if new else []) + list(grads)
+        return [t.detach().cpu() for t in outs]
+
+    for i, (got, want) in enumerate(zip(run(cuda), run("cpu"))):
+        rel = float((got - want).norm() / want.norm())
+        assert rel <= 1e-5, (i, rel)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("arch", ["smollm_360m", "falcon_mamba_7b"])
+def test_cuda_remat_gradients_bit_equal(cuda, arch, monkeypatch):
+    """``remat`` "full" and "dots" against ``remat=False`` on the card,
+    deterministic algorithms on: loss and every gradient bit-equal."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    model = build_model(get_smoke_config(arch))
+    params = model.init(torch.Generator(device=cuda).manual_seed(1))
+    tokens = torch.randint(0, model.cfg.vocab_size, (2, 24), device=cuda,
+                           generator=torch.Generator(device=cuda)
+                           .manual_seed(2))
+
+    def grads(**kw):
+        leaves = {k: v.detach().clone().requires_grad_()
+                  for k, v in params.items()}
+        loss = model.loss(leaves, {"tokens": tokens}, **kw)
+        return [loss.detach()] + list(torch.autograd.grad(
+            loss, list(leaves.values())))
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        want = grads(remat=False)
+        for policy in ("full", "dots"):
+            for g, w in zip(grads(remat=True, remat_policy=policy), want):
+                assert torch.equal(g, w), policy
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("groups,remat", [("", False), ("ssm", True)])
+def test_cuda_graphed_ssm_step_bit_equal_to_eager(cuda, groups, remat,
+                                                  monkeypatch):
+    """The SSM smoke model on the ring bus, ungrouped and under ``ssm``
+    (the state rows opt out) with ``remat`` on: 3 steps replayed from a
+    CUDA graph against 3 eager steps, deterministic: metrics and buses
+    bit-equal; the replays' traces hold one EDM and one ring kernel."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.models import build_model
+    from repro_torch.train import (build_train_step, init_state,
+                                   make_gossip_schedule)
+    from repro_torch.train.graphs import graph_train_step
+
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    model = build_model(get_smoke_config("falcon_mamba_7b"))
+    run = RunConfig(global_batch=4, seq_len=16, algorithm="edm", alpha=0.2,
+                    beta=0.9, gossip_engine="ppermute", agents_per_device=4,
+                    gossip_groups=groups, remat=remat)
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    batches = [{"tokens": torch.randint(0, model.cfg.vocab_size, (4, 1, 16),
+                                        generator=gen, device=cuda)}
+               for _ in range(3)]
+
+    def trajectory(graphed):
+        step = build_train_step(model, run, make_gossip_schedule(run, 4),
+                                use_fused_kernel=True, device=cuda)
+        state = init_state(model, run, 4, seed=0, device=cuda)
+        if graphed:
+            step = graph_train_step(step, state, batches[0])
+        history, traced = [], []
+        for b in batches:
+            def one(b=b):
+                nonlocal state
+                state, metrics = step(state, b)
+                history.append({k: v.clone() for k, v in metrics.items()})
+            traced.append(_traced_launches(one))
+        return state, history, traced
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        eager, h_eager, t_eager = trajectory(False)
+        graph, h_graph, t_graph = trajectory(True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert t_graph == t_eager
+    for tr in t_eager:
+        assert tr["edm_update"] == 1 and tr["ring_combine"] == 1, tr
+    for a, b in zip(h_graph, h_eager):
+        for k in a:
+            assert torch.equal(a[k], b[k]), k
+    assert torch.equal(graph["params"], eager["params"])
+    for k in ("m", "psi"):
+        assert torch.equal(graph["opt"][k], eager["opt"][k]), k

@@ -8,10 +8,13 @@ boundary, a cluster holds at most 8 blocks, the plan reads shapes only
 timed shape (16 slots, smollm_360m's 5 KV heads, 1024-row tables) the
 grid gives an H100's 132 SMs at least one block each."""
 import pytest
+import torch
 
 from repro_torch.kernels.paged_attention import (MAX_SPLITS,
                                                  MIN_SPLIT_KEYS, split_plan)
 from test_torch_cuda import DECODE_CASES, DECODE_EDGE_CASES
+
+torch.set_num_threads(1)  # xdist workers share the cores
 
 H100_SMS = 132
 # chip_smoke.py's timed decode shape: (B, K, page_size, n_pages)

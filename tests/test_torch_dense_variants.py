@@ -33,6 +33,8 @@ from test_torch_moe import carried, seeded_norms
 from test_torch_moe_serve import (check_decode_paged, check_mixed,
                                   check_prefill_paged, models)
 
+torch.set_num_threads(1)  # xdist workers share the cores
+
 RTOL, ATOL = 1e-4, 1e-5
 VARIANTS = ["qwen3_14b", "qwen1_5_110b", "starcoder2_7b"]
 

@@ -71,6 +71,8 @@ from repro_torch.models import build_model
 from repro_torch.train import (build_train_step, bus_layout_for, checkpoint,
                                init_state, make_gossip_schedule)
 
+torch.set_num_threads(1)  # xdist workers share the cores
+
 
 def _pair(name, *args):
     return getattr(ttopo, name)(*args), getattr(jtopo, name)(*args)

@@ -20,6 +20,8 @@ from repro.kernels import ref as jref
 
 from repro_torch.kernels import ops, ref
 
+torch.set_num_threads(1)  # xdist workers share the cores
+
 # the JAX package's ATTN_CASES: (B, H, K, Sq, Sk, hd, causal, window)
 ATTN_CASES = [
     (1, 4, 4, 256, 256, 64, True, 0),      # MHA causal

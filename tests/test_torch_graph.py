@@ -28,6 +28,8 @@ from repro_torch.train import (build_train_step, init_state,
                                make_gossip_schedule)
 from repro_torch.train.graphs import graph_train_step
 
+torch.set_num_threads(1)  # xdist workers share the cores
+
 A, SEQ, STEPS = 4, 16, 3
 
 CASES = {

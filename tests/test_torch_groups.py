@@ -7,10 +7,9 @@
   ``unpack_agent`` round-trip with slots out of path order; the default
   layout is the ungrouped one; the cache is keyed on the specs.
 * Specs and rules: ``group_specs_from_json`` and ``resolve_group_specs``
-  agree with the reference on JSON lists and on the ``moe[:k]`` presets;
-  the ``ssm`` preset raises ``NotImplementedError`` (ROADMAP §1 item 4)
-  and an unknown one ``ValueError``; each of the five composition rules
-  raises.
+  agree with the reference on JSON lists and on the ``moe[:k]`` and
+  ``ssm[:k]`` presets; an unknown preset raises ``ValueError``; each of
+  the five composition rules raises.
 * Mixer: ``make_group_mixer`` within rtol 1e-6 / atol 1e-6 of the
   reference's over steps 0–5 on a 4-group policy (opt-out; f32 ring
   every step; int8 every other step; bf16 on a ``round_robin`` override),
@@ -62,6 +61,8 @@ from repro_torch.models import build_model
 from repro_torch.train import (bus_layout_for, checkpoint, init_state,
                                make_gossip_schedule, make_group_plans,
                                resolve_features, resolve_group_specs)
+
+torch.set_num_threads(1)  # xdist workers share the cores
 
 ARCH = "smollm_360m"
 A = 4
@@ -241,13 +242,9 @@ def dataclass_tuple(s):
 
 @pytest.mark.parametrize("preset", ["moe", "ssm", "moe:2", "ssm:0,moe"])
 def test_family_presets_are_not_ported(preset):
-    """Only the SSM family is still unported: a preset list that holds
-    ``ssm`` raises; ``moe[:k]`` resolves as the reference's does."""
+    """Both family presets are ported now: ``moe[:k]`` and ``ssm[:k]``,
+    alone or in a list, resolve as the reference's do."""
     run = RunConfig(**_run_kw(preset))
-    if "ssm" in preset:
-        with pytest.raises(NotImplementedError, match=r"ROADMAP.md §1 item 4"):
-            resolve_group_specs(run)
-        return
     want = jresolve_group_specs(JRunConfig(**_run_kw(preset)))
     assert [dataclass_tuple(s) for s in resolve_group_specs(run)] == \
         [dataclass_tuple(s) for s in want]

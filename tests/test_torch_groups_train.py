@@ -52,6 +52,8 @@ from repro_torch.train import (build_train_step, bus_layout_for, init_state,
 from test_torch_groups import A, ARCH, CATCH_ALL, POLICY, TWO_GROUPS, _run_kw
 from test_torch_wire_trajectory import FLIP_SHARE, QUANTA, _quantum
 
+torch.set_num_threads(1)  # xdist workers share the cores
+
 SEQ, STEPS = 16, 3
 
 

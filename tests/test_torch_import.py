@@ -25,6 +25,8 @@ from repro_torch.device import resolve_device
 from repro_torch.models import build_model
 from repro_torch.train import build_train_step, init_state
 
+torch.set_num_threads(1)  # xdist workers share the cores
+
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
 _FORBIDDEN = re.compile(
@@ -58,7 +60,8 @@ def test_every_module_imports_without_jax_or_repro():
         "m.startswith('jax.') or m.startswith('jaxlib') or m == 'repro' "
         "or m.startswith('repro.') or m.startswith('ml_dtypes'))\n"
         "print('BAD', bad)\n")
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
@@ -103,7 +106,8 @@ def test_entry_points_raise_without_gpu(no_gpu):
 
 
 def test_cli_without_device_raises_without_gpu(no_gpu):
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.train", "--arch",
          "smollm_360m", "--smoke", "--steps", "1", "--agents", "4",
@@ -132,7 +136,8 @@ def test_serving_entry_points_raise_without_gpu(no_gpu):
 @pytest.mark.parametrize("flags", [
     ["--continuous-batching", "--prefill-chunk", "8"], []])
 def test_serve_cli_without_device_raises_without_gpu(no_gpu, flags):
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
          "smollm_360m", "--smoke", "--requests", "2"] + flags,
@@ -144,7 +149,9 @@ def test_serve_cli_without_device_raises_without_gpu(no_gpu, flags):
 
 def test_unported_levers_raise():
     model = build_model(get_smoke_config("smollm_360m"))
-    for kw in (dict(gossip_groups="ssm"), dict(agents="pod")):
+    # the overlapped pipeline across two devices is multi-GPU gossip
+    for kw in (dict(overlap="delayed", agents_per_device=2),
+               dict(agents="pod")):
         run = RunConfig(**{"gossip_engine": "ppermute", **kw})
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_train_step(model, run, ring(4), device="cpu")

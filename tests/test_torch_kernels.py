@@ -26,6 +26,8 @@ from repro.kernels.edm_update import gossip_axpy_flat as j_gossip_axpy_flat
 from repro_torch.kernels import build, ops, ref
 from repro_torch.kernels.edm_update import edm_update_flat, gossip_axpy_flat
 
+torch.set_num_threads(1)  # xdist workers share the cores
+
 ALPHA, BETA = 0.2, 0.9
 
 

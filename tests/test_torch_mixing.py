@@ -21,6 +21,8 @@ from repro.launch.mesh import gossip_agent_axes, make_gossip_mesh
 from repro_torch.core import mixing as tmix
 from repro_torch.core import topology as ttopo
 
+torch.set_num_threads(1)  # xdist workers share the cores
+
 
 def _constructors():
     cases = []

@@ -28,6 +28,8 @@ from repro_torch.models import build_model as tbuild_model
 from repro_torch.models import layers as tlayers
 from repro_torch.models.attention import sdpa_ref as t_sdpa_ref
 
+torch.set_num_threads(1)  # xdist workers share the cores
+
 RTOL, ATOL = 1e-4, 1e-5
 ARCH = "smollm_360m"
 

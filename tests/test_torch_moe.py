@@ -44,6 +44,8 @@ from repro_torch.core import bus as tbus
 from repro_torch.models import build_model as tbuild_model
 from repro_torch.models import moe as tmoe
 
+torch.set_num_threads(1)  # xdist workers share the cores
+
 RTOL, ATOL = 1e-4, 1e-5
 NEW_ARCHS = ["deepseek_moe_16b", "qwen3_moe_235b_a22b", "qwen3_14b",
              "qwen1_5_110b", "starcoder2_7b"]

@@ -46,6 +46,8 @@ from repro_torch.serve import (ContinuousBatchingEngine, PageAllocator,
 
 from test_torch_moe import count_drops, drop_counter, seeded_norms  # noqa: F401,E501
 
+torch.set_num_threads(1)  # xdist workers share the cores
+
 RTOL, ATOL = 1e-3, 1e-4
 ARCH = "deepseek_moe_16b"
 CAPACITIES = [8.0, 1.25]

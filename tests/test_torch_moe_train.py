@@ -54,6 +54,8 @@ from repro_torch.train import (build_train_step, bus_layout_for, checkpoint,
 
 from test_torch_moe import count_drops, seeded_norms  # noqa: F401
 
+torch.set_num_threads(1)  # xdist workers share the cores
+
 ARCH = "deepseek_moe_16b"
 A, SEQ, STEPS = 4, 32, 3
 

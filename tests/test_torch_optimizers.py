@@ -40,6 +40,8 @@ from repro_torch.core import (ALGORITHMS, consensus_distance, make_mixer,
 from repro_torch.kernels import ops
 from repro_torch.optim import scale_grads, warmup_cosine
 
+torch.set_num_threads(1)  # xdist workers share the cores
+
 A, STEPS = 4, 20
 SHAPES = {"a": (5,), "b": (2, 3), "c": (7, 1, 3)}
 

@@ -73,6 +73,8 @@ from repro_torch.train import (build_train_step, bus_layout_for, checkpoint,
 
 from test_torch_wire_trajectory import FLIP_SHARE, QUANTA, _quantum
 
+torch.set_num_threads(1)  # xdist workers share the cores
+
 
 def test_pipeline_slot_semantics():
     x = torch.arange(2 * 8 * 128, dtype=torch.float32).view(2, 8, 128)

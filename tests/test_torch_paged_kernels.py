@@ -24,6 +24,8 @@ from repro_torch.kernels.paged_attention import paged_attention_flat
 from repro_torch.kernels.paged_prefill import paged_prefill_flat
 from repro_torch.serve.paged_cache import NULL_PAGE
 
+torch.set_num_threads(1)  # xdist workers share the cores
+
 ATOL = 2e-5
 
 # (B, K, G, hd, page_size, num_pages, kv_len, {slot: pages}): the ragged

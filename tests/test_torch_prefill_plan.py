@@ -7,10 +7,13 @@ tiles, and at ``chip_smoke.py``'s timed shape (smollm_360m's heads, a
 128-token chunk after 640 earlier rows) the grid fills an H100's 132
 SMs."""
 import pytest
+import torch
 
 from repro_torch.kernels.paged_prefill import (KEY_TILE, MAX_SPLITS,
                                                Q_TILE, split_plan)
 from test_torch_cuda import PREFILL_CASES, PREFILL_EDGE_CASES
+
+torch.set_num_threads(1)  # xdist workers share the cores
 
 H100_SMS = 132
 # chip_smoke.py's PREFILL_TIMED: (window, start, C, chunk_len, K, G, hd,

@@ -14,9 +14,12 @@ from pathlib import Path
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro.core import make_mixer, make_optimizer, ring
 from repro.data import quadratic_problem
+
+torch.set_num_threads(1)  # xdist workers share the cores
 
 ROOT = Path(__file__).resolve().parents[1]
 STEPS, EVERY = 301, 100
@@ -59,8 +62,8 @@ def test_quickstart_twin_matches_reference(alg):
 
 
 def test_quickstart_twin_needs_a_device_or_cpu():
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
-               CUDA_VISIBLE_DEVICES="")
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
     cmd = [sys.executable, str(ROOT / "examples" / "quickstart_torch.py")]
     out = subprocess.run(cmd + ["--steps", "3"], env=env,
                          capture_output=True, text=True, timeout=120)

@@ -41,6 +41,8 @@ from repro_torch.kernels import ops, ref, ring_dma
 from repro_torch.models import build_model
 from repro_torch.train import build_train_step, init_state
 
+torch.set_num_threads(1)  # xdist workers share the cores
+
 ROOT = Path(__file__).resolve().parents[1]
 ATOL = 1e-6
 

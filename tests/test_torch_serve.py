@@ -46,6 +46,8 @@ from repro_torch.serve import (NULL_PAGE, ContinuousBatchingEngine,
                                greedy_generate, init_paged_pools,
                                poisson_load)
 
+torch.set_num_threads(1)  # xdist workers share the cores
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RTOL, ATOL = 1e-3, 1e-4
 VARIANTS = ("dense", "gqa", "window")
@@ -422,7 +424,8 @@ def test_serve_cli_on_cpu_loads_a_jax_checkpoint(tmp_path):
     _, jparams, _, _ = _models("dense")
     ckpt = str(tmp_path / "consensus.npz")
     checkpoint.save(ckpt, jparams)
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=os.path.join(ROOT, "src"))
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cpu",
          "--arch", "smollm_360m", "--smoke", "--continuous-batching",
@@ -446,8 +449,13 @@ def test_serve_cli_main_returns_metrics_and_rejects_unported_archs():
                       "3"])
     assert tuple(out["tokens"].shape) == (2, 3)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serve.main(["--device", "cpu", "--arch", "falcon_mamba_7b",
+        serve.main(["--device", "cpu", "--arch", "jamba_1_5_large_398b",
                     "--smoke"])
+    # the SSM family serves through greedy_generate only, as in the
+    # reference: its state is fixed-size, not paged
+    with pytest.raises(NotImplementedError, match="attention mixers only"):
+        serve.main(["--device", "cpu", "--arch", "falcon_mamba_7b",
+                    "--smoke", "--continuous-batching"])
 
 
 def test_run_fixed_batch_counts_match_jax():

@@ -37,6 +37,8 @@ from repro_torch.core import ring
 from repro_torch.models import build_model
 from repro_torch.train import build_train_step, bus_layout_for, init_state
 
+torch.set_num_threads(1)  # xdist workers share the cores
+
 ROOT = Path(__file__).resolve().parents[1]
 A, SEQ, STEPS = 4, 16, 3
 
@@ -122,7 +124,8 @@ def test_init_state_from_reference_weights_is_byte_equal():
 
 
 def test_cli_runs_on_cpu():
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.train", "--device", "cpu",
          "--arch", "smollm_360m", "--smoke", "--steps", "2", "--agents", "4",

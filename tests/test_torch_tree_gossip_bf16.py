@@ -20,7 +20,11 @@ import subprocess
 import sys
 from pathlib import Path
 
+import torch
+
 from test_torch_tree_train import check_trajectory
+
+torch.set_num_threads(1)  # xdist workers share the cores
 
 ROOT = Path(__file__).resolve().parents[1]
 CASE = "edm-gossip-bf16"

@@ -8,8 +8,11 @@ and atol 1e-5 on the final state, except the bf16 payload's consensus
 reduction-order slack of a rounding boundary rounds one ulp apart.
 """
 import pytest
+import torch
 
 from test_torch_tree_train import check_trajectory
+
+torch.set_num_threads(1)  # xdist workers share the cores
 
 
 @pytest.mark.parametrize("case", ["edm-fused-every2", "dmsgd-warmup-cosine",

@@ -68,6 +68,8 @@ from repro_torch.data import (dirichlet_partition, logistic_problem,
 from repro_torch.models import build_model
 from repro_torch.train import build_train_step, init_state
 
+torch.set_num_threads(1)  # xdist workers share the cores
+
 ROOT = Path(__file__).resolve().parents[1]
 A, SEQ, STEPS = 4, 16, 3
 
@@ -252,7 +254,8 @@ def test_problem_tables_match_reference():
 
 
 def test_tree_cli_runs_on_cpu():
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.train", "--device", "cpu",
          "--arch", "smollm_360m", "--smoke", "--no-packed-bus",

@@ -38,6 +38,8 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels.edm_update import (edm_update_ef_flat,
                                             gossip_axpy_q8_flat)
 
+torch.set_num_threads(1)  # xdist workers share the cores
+
 BR = 8                              # block_rows: 8 × 128 = 1024-element tiles
 FMTS = ("f32", "bf16", "int8")
 Q_FLIP_SHARE = 1e-4

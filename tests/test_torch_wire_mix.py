@@ -24,6 +24,8 @@ from repro_torch.core import schedule as tsched
 from repro_torch.core import topology as ttopo
 from repro_torch.core import wire as twire
 
+torch.set_num_threads(1)  # xdist workers share the cores
+
 BR = 8
 
 TOPOS = [("ring", (8,)), ("exp_graph", (8,)), ("hierarchical", (2, 4)),

@@ -41,6 +41,8 @@ from repro_torch.core import wire as twire
 from repro_torch.core.optimizers import make_edm_bus_ef
 from repro_torch.train import resolve_features
 
+torch.set_num_threads(1)  # xdist workers share the cores
+
 ROOT = Path(__file__).resolve().parents[1]
 BR = 8
 
@@ -254,7 +256,8 @@ def test_resolve_features_rejects_what_the_reference_rejects():
 
 
 def test_cli_int8_round_robin_runs_on_cpu():
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.train", "--device", "cpu",
          "--smoke", "--arch", "smollm_360m", "--wire", "int8",

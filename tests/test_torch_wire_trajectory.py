@@ -45,6 +45,8 @@ from repro_torch.kernels.edm_update import BLOCK_ROWS
 from repro_torch.models import build_model
 from repro_torch.train import build_train_step, make_gossip_schedule
 
+torch.set_num_threads(1)  # xdist workers share the cores
+
 A, SEQ, STEPS = 4, 16, 3
 QUANTA = 4
 FLIP_SHARE = 1e-3
