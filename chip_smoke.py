@@ -101,12 +101,13 @@ Phases, in order; any failure raises and the script exits non-zero:
 7. serving kernels: paged decode and paged prefill attention against their
    plain versions on the same pools, at the shapes of both serving runs of
    phase 8 and at head dim 128 (deepseek_moe_16b's heads, K 16 and G 1,
-   which phase 15 serves; qwen3_moe_235b_a22b's, K 4 and G 16) (f32
+   which phase 15 serves; qwen3_moe_235b_a22b's, K 4 and G 16;
+   pixtral_12b's, K 8 and G 4, which phase 19 serves) (f32
    within atol 2e-5; bf16 compared in f32 within
    2e-5 + 2⁻⁷·|want|, one bf16 ulp), and on NaN-poisoned pools bit-equal
    to the clean pools' output and finite; each timed at the
-   serving shapes of phase 8 and at deepseek_moe_16b's (paged prefill
-   also its host time a call)
+   serving shapes of phase 8, at deepseek_moe_16b's and at
+   pixtral_12b's (paged prefill also its host time a call)
    beside its plain version, its bound (bytes
    at 3.35 TB/s or bf16 operations at 989 TFLOP/s) and one
    ``F.scaled_dot_product_attention`` call over pre-gathered dense K/V
@@ -173,8 +174,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 13. the overlapped pipeline: the main cell plus ``--overlap delayed``, on
    the f32 ring and with ``--wire int8``, graphed, counts reset before
    and read after (2 eager steps — one per parity — and 3 replays);
-   graphed == eager under deterministic algorithms (their profiled
-   replay gives the idle share); step 0 == the synchronous step; a
+   graphed == eager under deterministic algorithms at the depth 4g runs
+   (their profiled replay gives the idle share at that depth); step 0 == the synchronous step; a
    ``StragglerPlan`` with slot 1 late at step 1 (the table kernel, 1
    launch) bit-equal to its plain twin.
 14. policy groups: the main cell plus ``--gossip-groups`` (embeddings
@@ -233,9 +234,41 @@ Phases, in order; any failure raises and the script exits non-zero:
    share and peak; at x(0) the gradients with ``remat`` "full" and "dots"
    bit-equal to ``remat=False``, each one's peak; the EDM and ring
    kernels timed on this bus beside their bounds.
+19. VLM serving: pixtral_12b at full width and depth (40 layers, d 5120,
+   32 / 8 heads at hd 128 — G 4 —, d_ff 14336, vocab 131072, bf16,
+   12,247,782,400 parameters from seed 0): the serve CLI's fixed batch at
+   phase 8's sizes with 256 seeded frontend embeddings a request
+   (``greedy_generate``: no kernel of the port), then as phase 15 the
+   serve CLI's continuous engine and the engine at context 1024,
+   text-only as the reference's scheduler (40 paged-attention launches a
+   dispatch, 40 paged-prefill launches a mixed dispatch), one mixed and
+   one decode-only dispatch profiled; then at the smoke config in f32
+   with G 4 (``n_kv_heads`` 1 under 4 heads) on the card: the kernel
+   engine's tokens equal ``greedy_generate``'s, and ``greedy_generate``
+   with a frontend equals a token-by-token decode replay after it;
+20. VLM training: pixtral_12b at full width with its depth cut to 1 layer
+   (1,614,822,400 parameters), 2 agents on the ring, seq 128 after 256
+   frontend positions, as phase 16 (ungrouped): graphed == eager bit for
+   bit with a new frontend every step (step 1 repeating step 0's tokens,
+   so a stale frontend buffer would show);
+21. hybrid serving: jamba_1_5_large_398b at full width (d 8192, 64 / 8
+   heads at hd 128, 16 experts of 24576 top-2, dense d_ff 24576, d_inner
+   16384, state 16, vocab 65536, bf16) with its depth cut 72 → 5, the
+   smallest whose period holds (ssm, dense), (ssm, moe) and (attn, dense)
+   (24,045,707,264 parameters from seed 0), as phase 17: the serve CLI's
+   fixed batch (``--n-layers 5``), 4 × prompt 512 × 64 new through
+   ``greedy_generate``, one decode step profiled, the 8-layer smoke
+   config's exactness in f32;
+22. hybrid training: jamba_1_5_large_398b at one whole period of depth (8
+   layers) with its width cut d_model 8192 → 1024 and d_ff = dense_d_ff
+   24576 → 2048 (627,657,728 parameters), 4 agents on the ring, seq 128,
+   as phase 18 under ``gossip_groups="ssm:0,moe"`` (the conv / state
+   leaves and the experts opt out) and ungrouped; ``remat`` gradients
+   bit-equal; the EDM and ring kernels on its 2.51 G-element bus,
+   bit-equal on agent 3's block (which spans element 2³¹) and timed.
 
 Phases run in the order 1–3, 3w, 3r, 3m, 3f, 4–6, 4r, 6r, 4g, 4w–6w,
-12, 13, 14, 4t–6t, 7–11, 15, 16, 17, 18.  The third
+12, 13, 14, 4t–6t, 7–11, 15–22.  The third
 line from the end is the ``nvidia-smi`` name and power limit,
 the line before the last ``{"kernels": [...]}`` and the last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -293,6 +326,30 @@ SSM_ARCH, SSM_TRAIN_LAYERS, SSM_PARAMS = "falcon_mamba_7b", 2, 7272665088
 SSM_SERVE_ARGS = ["--arch", SSM_ARCH, "--batch", "8", "--prompt-len", "32",
                   "--new-tokens", "32", "--device", "cuda"]
 SSM_BATCH, SSM_PROMPT, SSM_NEW = 4, 512, 64
+
+# the VLM family: pixtral_12b served at full width and depth (phase 19:
+# the serve CLI's fixed batch at phase 8's sizes with 256 frontend
+# embeddings a request, its continuous engine at phase 8's trace, then
+# the engine at context 1024, text-only), trained at full width with the
+# depth cut to one layer on two agents (phase 20)
+VLM_ARCH, VLM_PARAMS = "pixtral_12b", 12247782400
+VLM_TRAIN_LAYERS, VLM_AGENTS = 1, 2
+VLM_CLI_ARGS = ["--arch", VLM_ARCH] + SSM_SERVE_ARGS[2:]
+VLM_SERVE_ARGS = [VLM_ARCH if a == ARCH else a for a in SERVE_ARGS]
+
+# the hybrid family: jamba_1_5_large_398b served at full width with its
+# depth cut 72 → 5, the smallest depth whose period holds (ssm, dense),
+# (ssm, moe) and (attn, dense) (phase 21: the fixed batch, as phase 17);
+# trained at one whole period of depth (8 layers) with its width cut
+# d_model 8192 → 1024 and d_ff = dense_d_ff 24576 → 2048 on four agents
+# (phase 22: one full-width MoE layer is 9.66 B parameters, a 38.6 GB f32
+# bus an agent)
+HYBRID_ARCH, HYBRID_SERVE_LAYERS, HYBRID_PARAMS = (
+    "jamba_1_5_large_398b", 5, 24045707264)
+HYBRID_CLI_ARGS = ["--arch", HYBRID_ARCH, "--n-layers",
+                   str(HYBRID_SERVE_LAYERS)] + SSM_SERVE_ARGS[2:]
+HYBRID_TRAIN = dict(n_layers=8, d_model=1024, d_ff=2048, dense_d_ff=2048)
+HYBRID_TRAIN_PARAMS, HYBRID_GROUPS = 627657728, "ssm:0,moe"
 
 
 def check(cond: bool, msg: str) -> None:
@@ -710,7 +767,7 @@ def fused_vs_plain(model, layout, state, tokens):
     from repro_torch.train import losses_and_grads
 
     x, m, psi = state["params"], state["opt"]["m"], state["opt"]["psi"]
-    _, g = losses_and_grads(model, layout, x, tokens)
+    _, g = losses_and_grads(model, layout, x, {"tokens": tokens})
 
     def opt(fused):
         mix = build_mixer(ring(AGENTS), mode="static", engine="ppermute",
@@ -746,7 +803,7 @@ def ef_fused_vs_plain(model, layout, state, tokens, fmt):
     from repro_torch.train import losses_and_grads
 
     x = state["params"]
-    _, g = losses_and_grads(model, layout, x, tokens)
+    _, g = losses_and_grads(model, layout, x, {"tokens": tokens})
     codec = make_codec(fmt, layout.block_rows)
     topo = ring(AGENTS)
     weights = [t.weight for t in topo.terms]
@@ -867,7 +924,7 @@ def ring_vs_plain(model, layout, state, tokens):
     from repro_torch.train import losses_and_grads
 
     x, m, psi = state["params"], state["opt"]["m"], state["opt"]["psi"]
-    _, g = losses_and_grads(model, layout, x, tokens)
+    _, g = losses_and_grads(model, layout, x, {"tokens": tokens})
     with torch.no_grad():
         mix = build_mixer(ring(AGENTS), mode="static", engine="ppermute",
                           agents_per_device=AGENTS, use_fused_kernel=True,
@@ -1216,9 +1273,10 @@ def graph_trajectory(model, run, batches, graphed: bool, against=None,
     """``GRAPH_STEPS`` timed bus steps of ``n_agents`` agents from the
     seed-0 state, eager or graphed, then one more under torch.profiler (a
     replay when graphed): a record of host copies of the buses after the
-    timed steps (``host``) — or, given ``against`` (another run's
+    last step (``host``) — or, given ``against`` (another run's
     ``host``), whether the buses equal those bit for bit (``same``; no
-    second copy is held on the host) — the metrics of every step, step
+    second copy is held on the host; the step and its graphs' memory are
+    released first) — the metrics of every step, step
     seconds, the wrappers' launch counts over the timed steps, graph
     replays, peak allocated and reserved GiB, and the profiled step's
     device busy ms and training-kernel launches.  With ``phi_rows`` (an
@@ -1251,22 +1309,17 @@ def graph_trajectory(model, run, batches, graphed: bool, against=None,
         seconds.append(time.perf_counter() - t0)
         metrics.append(m)
         if phi_rows is not None:
-            phi = (state["opt"]["psi"][:, phi_rows] + x0) - psi0
+            # φ = (ψ' + x) − ψ formed in x0's buffer (the sum commutes
+            # exactly): the opt-out rows are 64 % of the hybrid bus, and
+            # no third copy of them fits beside a graph's pool
+            phi = x0.add_(state["opt"]["psi"][:, phi_rows]).sub_(psi0)
+            del psi0
             phi_ok &= same_bits(state["params"][:, phi_rows], phi)
-            del x0, psi0, phi
+            del x0, phi
     rec = {"launches": ops.launch_counts(), "opt_out_phi": phi_ok,
            "replays": getattr(step, "replays", 0),
            "peak": (torch.cuda.max_memory_allocated() / 2**30,
                     torch.cuda.max_memory_reserved() / 2**30)}
-    bufs = [state["params"]] + [state["opt"][k] for k in sorted(state["opt"])]
-    if "pipeline" in state:       # the live slot (the spare is dead)
-        pipe = state["pipeline"]
-        bufs.append(pipe["slot"][pipe["parity"]])
-    if against is None:
-        rec["host"] = [b.cpu() for b in bufs]
-    else:
-        rec["same"] = same_state(bufs, against)
-    del bufs
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         state, m = step(state, batches[-1])
         settle()
@@ -1275,7 +1328,17 @@ def graph_trajectory(model, run, batches, graphed: bool, against=None,
     rec.update(metrics=metrics, seconds=seconds,
                busy_ms=sum(r[0] for r in rows), traced=traced_launches(rows),
                buckets=bucket(rows), top=rows[:6])
-    del state, step
+    del step, m
+    free()
+    bufs = [state["params"]] + [state["opt"][k] for k in sorted(state["opt"])]
+    if "pipeline" in state:       # the live slot (the spare is dead)
+        pipe = state["pipeline"]
+        bufs.append(pipe["slot"][pipe["parity"]])
+    if against is None:
+        rec["host"] = [b.cpu() for b in bufs]
+    else:
+        rec["same"] = same_state(bufs, against)
+    del bufs, state
     free()
     return rec
 
@@ -1293,7 +1356,7 @@ def graph_phase(model, data, dgen, cases=GRAPH_CASES):
     """Phase 4g: under deterministic algorithms, eager against eager, then
     the graphed bus step against the eager one from one state and one
     token stream, for each of GRAPH_CASES: the metrics of ``GRAPH_STEPS``
-    + 1 steps and the buses after ``GRAPH_STEPS`` bit-equal; the wrappers
+    + 1 steps and the buses after them bit-equal; the wrappers
     counted the eager first step of each graph key and nothing else, and
     the profiled last step's device trace holds the same training kernels
     in the replay as in the eager step."""
@@ -1623,10 +1686,11 @@ def overlap_phase(model, data, dgen):
     """Phase 13: the main cell plus ``--overlap delayed`` through the CLI,
     graphed, on the f32 ring and with ``--wire int8`` (counts reset before
     and read after: the eager first step of each parity's graph, 3
-    replays); graphed == eager under deterministic algorithms, whose
-    profiled replay gives the training kernels, busy time and idle share
-    against the CLI's median step; step 0 == the synchronous step; the
-    straggler plan against its plain twin."""
+    replays); graphed == eager under deterministic algorithms at full
+    width with the depth cut to ``GRAPH_LAYERS``, as 4g (PR 22: the
+    script's time), whose profiled replay gives the training kernels,
+    busy time and idle share against its own median step; step 0 == the
+    synchronous step; the straggler plan against its plain twin."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.launch import train as cli
@@ -1665,7 +1729,12 @@ def overlap_phase(model, data, dgen):
         del state
         free()
         print(f"[time] phase 13 {fmt} CLI done", flush=True)
-    recs["graph"] = graph_phase(model, data, dgen, OVERLAP_GRAPH_CASES)
+    from repro_torch.models import build_model
+    graph_model = build_model(dataclasses.replace(model.cfg,
+                                                  n_layers=GRAPH_LAYERS))
+    recs["graph"] = graph_phase(graph_model, data, dgen,
+                                OVERLAP_GRAPH_CASES)
+    del graph_model
     for fmt, g in zip(("f32", "int8"), recs["graph"]):
         # the profiled replay of 4g's graphed trajectory (deterministic)
         want = recs[fmt]["launches"]
@@ -1673,9 +1742,9 @@ def overlap_phase(model, data, dgen):
               f"overlap {fmt}: a replay traced "
               f"{g['graphed']['traced_last_step']}, expected one of each "
               f"of {sorted(want)}")
-        recs[fmt].update(busy_ms=g["graphed"]["busy_ms"],
-                         idle_share=1 - g["graphed"]["busy_ms"]
-                         / recs[fmt]["median_ms"],
+        recs[fmt].update(graph_layers=GRAPH_LAYERS,
+                         busy_ms=g["graphed"]["busy_ms"],
+                         idle_share=g["graphed"]["idle_share"],
                          replay_trace=g["graphed"]["traced_last_step"])
     print("[time] phase 13 graph == eager done", flush=True)
     torch.use_deterministic_algorithms(True)
@@ -2173,11 +2242,14 @@ PREFILL_CASES = [(w, s, C, n, 2, 2, 8, 4, 6, 16) for w, s, C, n in [
 # timed: the longest-context chunk of phase 8's trace (prompts ≤ 768)
 PREFILL_TIMED = (0, 640, CHUNK, CHUNK, 5, 3, 64, PAGE, CTX // PAGE, 80)
 # head dim 128: deepseek_moe_16b's heads (K 16, G 1; timed, phase 15's
-# longest-context chunk) and qwen3_moe_235b_a22b's (K 4, G 16)
+# longest-context chunk), qwen3_moe_235b_a22b's (K 4, G 16) and
+# pixtral_12b's (K 8, G 4; timed, phase 19's longest-context chunk; 77
+# rows a partial query tile)
 PREFILL_TIMED_HD128 = (0, 640, CHUNK, CHUNK, 16, 1, 128, PAGE, CTX // PAGE,
                        80)
+PREFILL_TIMED_G4 = (0, 640, CHUNK, CHUNK, 8, 4, 128, PAGE, CTX // PAGE, 80)
 PREFILL_CASES += [(w, s, CHUNK, n, K, G, 128, PAGE, CTX // PAGE, 80)
-                  for K, G in ((16, 1), (4, 16))
+                  for K, G in ((16, 1), (4, 16), (8, 4))
                   for w, s, n in ((0, 0, 128), (0, 640, 77),
                                   (256, 640, 128))] + [
     (0, 640, CHUNK, CHUNK, 4, 16, 128, PAGE, CTX // PAGE, 80)]
@@ -2201,22 +2273,28 @@ DECODE_CASES = [
     dict(name="qwen3_moe_235b_a22b", B=SLOTS, K=4, G=16, hd=128,
          page_size=PAGE, kv_len=[1024, 0, 1, 17, 255, 256, 511, 640, 700,
                                  129, 33, 1000, 64, 900, 15, 384]),
+    # pixtral_12b's heads (K 8, G 4; phase 19 serves them)
+    dict(name="pixtral_12b", B=SLOTS, K=8, G=4, hd=128,
+         page_size=PAGE, kv_len=[1024, 0, 1, 17, 255, 256, 511, 640, 700,
+                                 129, 33, 1000, 64, 900, 15, 384]),
 ]
-# timed in bf16: smollm_360m's heads (phase 8) and deepseek_moe_16b's
-# (phase 15)
+# timed in bf16: smollm_360m's heads (phase 8), deepseek_moe_16b's (phase
+# 15) and pixtral_12b's (phase 19)
 DECODE_TIMED = {"smollm_360m": "paged_attention",
-                "deepseek_moe_16b": "paged_attention_hd128"}
+                "deepseek_moe_16b": "paged_attention_hd128",
+                "pixtral_12b": "paged_attention_g4"}
 
 
 def serving_kernels():
     """Phase 7: every case in f32 and bf16; the full-width cases of
-    smollm_360m (hd 64) and deepseek_moe_16b (hd 128) timed in bf16 (the
-    serving dtype)."""
+    smollm_360m (hd 64), deepseek_moe_16b (hd 128, G 1) and pixtral_12b
+    (hd 128, G 4) timed in bf16 (the serving dtype)."""
     import torch
     recs = {"paged_attention": [], "paged_prefill": []}
     timed = {}
     prefill_timed = {PREFILL_TIMED: "paged_prefill",
-                     PREFILL_TIMED_HD128: "paged_prefill_hd128"}
+                     PREFILL_TIMED_HD128: "paged_prefill_hd128",
+                     PREFILL_TIMED_G4: "paged_prefill_g4"}
     for dtype in (torch.float32, torch.bfloat16):
         bf16 = dtype == torch.bfloat16
         for case in DECODE_CASES:
@@ -2673,7 +2751,7 @@ def tree_fused_vs_plain(model, state, tokens):
     from repro_torch.train import tree_losses_and_grads
 
     x, m, psi = state["params"], state["opt"]["m"], state["opt"]["psi"]
-    _, g = tree_losses_and_grads(model, x, tokens)
+    _, g = tree_losses_and_grads(model, x, {"tokens": tokens})
     topo = ring(AGENTS)
     weights = [t.weight for t in topo.terms]
 
@@ -2928,14 +3006,24 @@ def moe_serve_exactness():
 
 
 def moe_serve_phase():
-    """Phase 15: deepseek_moe_16b at full width and depth in bf16, random
-    weights from seed 0: the serve CLI at the reference CLI's trace sizes,
-    then the engine at context 1024 (16 slots, 32 requests, prompts
+    """Phase 15: deepseek_moe_16b at full width and depth through
+    :func:`engine_serve_phase` (28 paged-attention launches a dispatch,
+    28 paged-prefill launches a mixed dispatch), then the smoke config's
+    exactness."""
+    rec = engine_serve_phase(MOE_ARCH, MOE_SERVE_ARGS, "MoE")
+    rec["smoke"] = moe_serve_exactness()
+    return rec
+
+
+def engine_serve_phase(arch: str, serve_args, tag: str):
+    """``arch`` at full width and depth in bf16, random weights from seed
+    0: the serve CLI's continuous engine at the reference CLI's trace
+    sizes, then the engine at context 1024 (16 slots, 32 requests, prompts
     256–768, chunks of 128), counts reset just before and read just after
-    each (28 paged-attention launches a dispatch, 28 paged-prefill
-    launches a mixed dispatch); init time and peak, logits of one prefill
-    finite, serving peak; one mixed and one decode-only dispatch
-    profiled; then the smoke config's exactness on the card."""
+    each (n_layers paged-attention launches a dispatch, n_layers
+    paged-prefill launches a mixed dispatch); init time and peak, logits
+    of one prefill finite (after a frontend for a VLM), serving peak; one
+    mixed and one decode-only dispatch profiled."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
@@ -2943,20 +3031,20 @@ def moe_serve_phase():
     from repro_torch.models import build_model
     from repro_torch.serve import (ContinuousBatchingEngine,
                                    PagedCacheConfig, poisson_load)
-    cfg = get_config(MOE_ARCH)
+    cfg = get_config(arch)
     n_layers = cfg.n_layers
     rec = {}
     free()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    cli_metrics = serve_cli.main(MOE_SERVE_ARGS)
+    cli_metrics = serve_cli.main(serve_args)
     rec["cli_s"] = time.perf_counter() - t0
     rec["cli_counts"] = ops.launch_counts()
     rec["cli_metrics"] = cli_metrics
     check_serve_counts(rec["cli_counts"], cli_metrics, n_layers,
-                       "MoE serve CLI")
+                       f"{tag} serve CLI")
     check(cli_metrics["requests"] == 16 and cli_metrics["tokens"] > 0,
-          f"MoE serve CLI finished {cli_metrics}")
+          f"{tag} serve CLI finished {cli_metrics}")
     free()
     torch.cuda.reset_peak_memory_stats()
     model = build_model(cfg)
@@ -2970,13 +3058,17 @@ def moe_serve_phase():
                           for t in params.values()) / 1e9
     vocab = cfg.vocab_size
     with torch.inference_mode():
-        tok = torch.randint(0, vocab, (1, 64), device="cuda",
-                            generator=torch.Generator(
-                                device="cuda").manual_seed(3))
-        logits, _ = model.prefill(params, {"tokens": tok})
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        batch = {"tokens": torch.randint(0, vocab, (1, 64), device="cuda",
+                                         generator=gen)}
+        if cfg.family == "vlm":
+            batch["frontend"] = torch.randn(
+                (1, cfg.n_frontend_tokens, cfg.d_model), generator=gen,
+                device="cuda").to(getattr(torch, cfg.dtype))
+        logits, _ = model.prefill(params, batch)
         rec["prefill_logits_finite"] = bool(torch.isfinite(logits).all())
-        del logits, tok
-    check(rec["prefill_logits_finite"], "MoE prefill logits not finite")
+        del logits, batch
+    check(rec["prefill_logits_finite"], f"{tag} prefill logits not finite")
     pcfg = PagedCacheConfig(page_size=PAGE, num_pages=1 + SLOTS * CTX // PAGE,
                             max_slots=SLOTS, max_context=CTX)
     eng = ContinuousBatchingEngine(model, params, pcfg, attn_impl="kernel",
@@ -2999,16 +3091,16 @@ def moe_serve_phase():
     rec["reserved_gib"] = torch.cuda.max_memory_reserved() / 2**30
     rec["metrics"] = metrics
     check_serve_counts(rec["counts"], metrics, n_layers,
-                       f"MoE engine at context {CTX}")
+                       f"{tag} engine at context {CTX}")
     check(metrics["requests"] == len(reqs) and all(
         len(eng.completed[r.rid]) == r.max_new for r in reqs),
-        "the MoE engine did not finish every request with its full budget")
+        f"the {tag} engine did not finish every request with its full "
+        "budget")
     rec["pool_gb"] = sum(t.numel() * t.element_size() for pi in eng.pools
                          for t in pi.values()) / 1e9
     rec["dispatches"] = profile_dispatches(eng, vocab)
     del eng, params, model
     free()
-    rec["smoke"] = moe_serve_exactness()
     return rec
 
 
@@ -3016,44 +3108,40 @@ def moe_serve_phase():
 # phase 16: MoE training at full width, depth cut
 # ---------------------------------------------------------------------------
 
-def moe_train_phase():
-    """Phase 16: deepseek_moe_16b at full width with its depth cut to
-    ``MOE_TRAIN_LAYERS`` layer, ``MOE_AGENTS`` agents on the ring, packed
-    f32 bus, fused kernels, seq 128, per-agent batch 1, under
-    deterministic algorithms: for ``gossip_groups="moe"`` (the experts opt
-    out) and the ungrouped bus, ``GRAPH_STEPS`` + 1 steps eager and
-    graphed from one state and one token stream: metrics and buses
-    bit-equal, losses finite, each replay's device trace holding one EDM
-    and one ring kernel; under ``moe`` the expert rows of x equal φ's
-    after every step."""
+def graphed_runs(model, n_agents: int, batches, cases, tag: str):
+    """For each ``(name, gossip_groups)`` of ``cases``: ``n_agents`` agents
+    on the ring, packed f32 bus, fused kernels, under deterministic
+    algorithms, ``GRAPH_STEPS`` + 1 steps eager and graphed from one state
+    and one batch stream: metrics and buses bit-equal, losses finite,
+    each replay's device trace holding one EDM and one ring kernel; where
+    groups opt out (``gossip_every`` 0; their rows are one contiguous
+    range) those rows of x equal φ's after every step.  Returns a record
+    a case: bus, opt-out rows, median replayed step, busy, idle share,
+    launches, replay trace, peaks, losses, device ms by bucket."""
     import torch
-    from repro_torch.configs import get_config
-    from repro_torch.data import SyntheticLM
-    from repro_torch.models import build_model
     from repro_torch.train import bus_layout_for, resolve_features
-    model = build_model(dataclasses.replace(get_config(MOE_ARCH),
-                                            n_layers=MOE_TRAIN_LAYERS))
-    data = SyntheticLM(vocab_size=model.cfg.vocab_size, seq_len=SEQ,
-                       n_agents=MOE_AGENTS, phi=0.2)
-    dgen = torch.Generator(device="cuda").manual_seed(5)
-    batches = [data.sample(dgen, 1) for _ in range(GRAPH_STEPS + 1)]
-    out = {"params": sum(t.numel() for t in model.meta().values())}
     want = {n: 0 for n, _ in TRACED}
     want.update(edm_update=1, ring_combine=1)
+    seq = batches[0]["tokens"].shape[-1]
+    out = {}
     torch.use_deterministic_algorithms(True)
     try:
-        for name, groups in (("moe", "moe"), ("ungrouped", "")):
-            run = bus_run(global_batch=MOE_AGENTS,
-                          agents_per_device=MOE_AGENTS, gossip_groups=groups)
-            layout = bus_layout_for(model, MOE_AGENTS,
+        for name, groups in cases:
+            run = bus_run(global_batch=n_agents, agents_per_device=n_agents,
+                          gossip_groups=groups)
+            layout = bus_layout_for(model, n_agents,
                                     resolve_features(run).groups)
+            rec = {"bus": [n_agents, layout.rows, 128]}
+            off = [g for g in layout.groups if g.gossip_every == 0]
             rows = None
-            rec = {"bus": [MOE_AGENTS, layout.rows, 128]}
-            if groups:
-                g = next(g for g in layout.groups if g.name == "experts")
-                rows = slice(g.row, g.row + g.rows)
-                rec["expert_rows"] = [g.row, g.row + g.rows]
-            kw = dict(n_agents=MOE_AGENTS, phi_rows=rows)
+            if off:
+                lo, hi = off[0].row, off[-1].row + off[-1].rows
+                check(sum(g.rows for g in off) == hi - lo,
+                      f"{tag} {name}: the opt-out groups are not one range")
+                rows = slice(lo, hi)
+                rec["opt_out_rows"] = {g.name: [g.row, g.row + g.rows]
+                                       for g in off}
+            kw = dict(n_agents=n_agents, phi_rows=rows)
             eager = graph_trajectory(model, run, batches, False, **kw)
             graph = graph_trajectory(model, run, batches, True,
                                      against=eager["host"], **kw)
@@ -3069,7 +3157,7 @@ def moe_train_phase():
                 step_ms=[round(t * 1e3, 2) for t in graph["seconds"]],
                 median_ms=med, busy_ms=graph["busy_ms"],
                 idle_share=1 - graph["busy_ms"] / med,
-                tokens_per_s=MOE_AGENTS * SEQ / med * 1e3,
+                tokens_per_s=n_agents * seq / med * 1e3,
                 eager_median_ms=statistics.median(eager["seconds"]) * 1e3,
                 replays=graph["replays"],
                 launches={k: v for k, v in graph["launches"].items() if v},
@@ -3077,17 +3165,18 @@ def moe_train_phase():
                                if v},
                 peak_allocated_gib=graph["peak"][0],
                 peak_reserved_gib=graph["peak"][1],
-                eager_peak_allocated_gib=eager["peak"][0])
-            check(rec["graph_eq_eager"], f"MoE {name}: the graphed step "
+                eager_peak_allocated_gib=eager["peak"][0],
+                buckets=graph["buckets"], top=graph["top"])
+            check(rec["graph_eq_eager"], f"{tag} {name}: the graphed step "
                   f"differs from the eager step: {rec}")
             check(rows is None or rec["opt_out_rows_eq_phi"],
-                  f"MoE {name}: the expert rows of x are not φ's: {rec}")
+                  f"{tag} {name}: the opt-out rows of x are not φ's: {rec}")
             check(all(math.isfinite(v) for m in graph["metrics"]
                       for v in m.values()),
-                  f"MoE {name}: non-finite metrics {graph['metrics']}")
+                  f"{tag} {name}: non-finite metrics {graph['metrics']}")
             check(graph["traced"] == want and eager["traced"] == want
                   and graph["replays"] == GRAPH_STEPS - 1,
-                  f"MoE {name}: replay traced {graph['traced']}, eager "
+                  f"{tag} {name}: replay traced {graph['traced']}, eager "
                   f"step {eager['traced']}, replays {graph['replays']}; "
                   f"expected {want} and {GRAPH_STEPS - 1} replays")
             out[name] = rec
@@ -3098,12 +3187,34 @@ def moe_train_phase():
     return out
 
 
+def moe_train_phase():
+    """Phase 16: deepseek_moe_16b at full width with its depth cut to
+    ``MOE_TRAIN_LAYERS`` layer, ``MOE_AGENTS`` agents, seq 128, per-agent
+    batch 1, through :func:`graphed_runs` for ``gossip_groups="moe"`` (the
+    experts opt out) and the ungrouped bus."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import build_model
+    model = build_model(dataclasses.replace(get_config(MOE_ARCH),
+                                            n_layers=MOE_TRAIN_LAYERS))
+    data = SyntheticLM(vocab_size=model.cfg.vocab_size, seq_len=SEQ,
+                       n_agents=MOE_AGENTS, phi=0.2)
+    dgen = torch.Generator(device="cuda").manual_seed(5)
+    batches = [data.sample(dgen, 1) for _ in range(GRAPH_STEPS + 1)]
+    out = {"params": sum(t.numel() for t in model.meta().values())}
+    out.update(graphed_runs(model, MOE_AGENTS, batches,
+                            (("moe", "moe"), ("ungrouped", "")), "MoE"))
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 17: falcon_mamba_7b served at full width and depth
 # ---------------------------------------------------------------------------
 
-def ssm_serve_exactness():
-    """At falcon_mamba_7b's smoke config in f32 on the card: the prefill of
+def fixed_batch_exactness(arch: str, tag: str):
+    """At ``arch``'s smoke config in f32 on the card (falcon_mamba_7b's 2
+    Mamba layers, jamba_1_5_large_398b's 8-layer period): the prefill of
     S − 1 tokens then one decode step gives the logits of the prefill of
     all S (the full forward; S = 512, two scan chunks of 256, against one
     chunk of 511 and the one-step recurrence) within the serving tests'
@@ -3113,8 +3224,8 @@ def ssm_serve_exactness():
     import torch
     from repro_torch.configs import get_smoke_config
     from repro_torch.models import build_model
-    from repro_torch.serve import greedy_generate
-    cfg = get_smoke_config(SSM_ARCH)
+    from repro_torch.serve import greedy_generate, grow_caches
+    cfg = get_smoke_config(arch)
     model = build_model(cfg)
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
     B, S, n_new = 2, SSM_PROMPT, 16
@@ -3124,10 +3235,12 @@ def ssm_serve_exactness():
     with torch.inference_mode():
         full, _ = model.prefill(params, {"tokens": tokens})
         _, caches = model.prefill(params, {"tokens": tokens[:, :-1]})
+        # an attention layer's cache grows to hold position S − 1
+        caches = grow_caches(model, caches, B, S)
         step, _ = model.decode_step(params, caches, tokens[:, -1:], S - 1)
         err = float((step - full).abs().max())
         check(bool(torch.allclose(step, full, rtol=1e-3, atol=1e-4)),
-              f"SSM smoke: prefill + decode differs from the full forward "
+              f"{tag} smoke: prefill + decode differs from the full forward "
               f"by {err}")
         want = greedy_generate(model, params, {"tokens": tokens},
                                n_steps=n_new)
@@ -3143,7 +3256,7 @@ def ssm_serve_exactness():
             if i < n_new - 1:
                 logits, caches = model.decode_step(params, caches, tok, S + i)
         replay = torch.cat(out, dim=1)
-    check(torch.equal(replay, want), f"SSM smoke: greedy_generate "
+    check(torch.equal(replay, want), f"{tag} smoke: greedy_generate "
           f"{want.tolist()} differs from the decode replay "
           f"{replay.tolist()}")
     del model, params, caches
@@ -3152,12 +3265,14 @@ def ssm_serve_exactness():
             "greedy_equal_replay": True, "tokens": B * n_new}
 
 
-def ssm_serve_phase():
-    """Phase 17: falcon_mamba_7b at full width and depth in bf16, random
-    weights from seed 0: the serve CLI's fixed batch at phase 8's sizes,
-    counts reset just before and read just after (the SSM path launches
-    none of the port's kernels: it has no attention); then a fixed batch
-    of ``SSM_BATCH`` with prompt ``SSM_PROMPT`` (two scan chunks) and
+def fixed_batch_serve_phase(arch: str, cli_args, n_params: int,
+                            n_layers: int = 0, tag: str = "SSM"):
+    """Phases 17 and 21: ``arch`` at full width (depth cut to ``n_layers``
+    when given) in bf16, random weights from seed 0: the serve CLI's
+    fixed batch at phase 8's sizes, counts reset just before and read just
+    after (the path launches none of the port's kernels: its attention,
+    where it has any, runs on dense caches); then a fixed batch of
+    ``SSM_BATCH`` with prompt ``SSM_PROMPT`` (two scan chunks) and
     ``SSM_NEW`` new tokens through ``greedy_generate``: init time and
     peak, prefill ms, tokens/s and per-token ms, peak allocated and
     reserved; one decode step's host ms (median) and device busy ms,
@@ -3170,21 +3285,24 @@ def ssm_serve_phase():
     from repro_torch.launch import serve as serve_cli
     from repro_torch.models import build_model
     from repro_torch.serve import greedy_generate, grow_caches
-    cfg = get_config(SSM_ARCH)
+    cfg = get_config(arch)
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     rec = {}
     free()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    cli = serve_cli.main(SSM_SERVE_ARGS)
+    cli = serve_cli.main(cli_args)
     rec["cli_s"] = time.perf_counter() - t0
     rec["cli_counts"] = ops.launch_counts()
-    check(not any(rec["cli_counts"].values()), f"SSM serve CLI launched "
-          f"{rec['cli_counts']}: the SSM path has no kernel of the port")
-    b, new = int(SSM_SERVE_ARGS[3]), int(SSM_SERVE_ARGS[7])
+    check(not any(rec["cli_counts"].values()), f"{tag} serve CLI launched "
+          f"{rec['cli_counts']}: the fixed batch has no kernel of the port")
+    b = int(cli_args[cli_args.index("--batch") + 1])
+    new = int(cli_args[cli_args.index("--new-tokens") + 1])
     check(tuple(cli["tokens"].shape) == (b, new)
           and bool(((cli["tokens"] >= 0)
                     & (cli["tokens"] < cfg.vocab_size)).all()),
-          f"SSM serve CLI tokens {cli['tokens']}")
+          f"{tag} serve CLI tokens {cli['tokens']}")
     rec["cli_tokens_per_s"] = b * new / cli["seconds"]
     rec["cli_seconds"] = cli["seconds"]
     del cli
@@ -3199,8 +3317,8 @@ def ssm_serve_phase():
     rec["params"] = sum(t.numel() for t in params.values())
     rec["param_gb"] = sum(t.numel() * t.element_size()
                           for t in params.values()) / 1e9
-    check(rec["params"] == SSM_PARAMS, f"falcon_mamba_7b has "
-          f"{rec['params']} parameters, expected {SSM_PARAMS}")
+    check(rec["params"] == n_params, f"{arch} has {rec['params']} "
+          f"parameters, expected {n_params}")
     B, S, n_new = SSM_BATCH, SSM_PROMPT, SSM_NEW
     batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S), device="cuda",
                                      generator=torch.Generator(
@@ -3215,7 +3333,7 @@ def ssm_serve_phase():
         rec["prefill_ms"] = (time.perf_counter() - t0) * 1e3
         rec["prefill_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
         check(bool(torch.isfinite(logits).all()),
-              "SSM prefill logits not finite")
+              f"{tag} prefill logits not finite")
         rec["state_mb"] = sum(t.numel() * t.element_size()
                               for c in caches for t in c.values()) / 1e6
         torch.cuda.reset_peak_memory_stats()
@@ -3226,7 +3344,7 @@ def ssm_serve_phase():
         rec["reserved_gib"] = torch.cuda.max_memory_reserved() / 2**30
         check(tuple(out.shape) == (B, n_new) and bool(
             ((out >= 0) & (out < cfg.vocab_size)).all()),
-            f"SSM greedy tokens {out}")
+            f"{tag} greedy tokens {out}")
         rec["generate_s"] = total_s
         rec["tokens_per_s"] = B * n_new / total_s
         rec["per_token_ms"] = (total_s * 1e3 - rec["prefill_ms"]) / (
@@ -3243,7 +3361,7 @@ def ssm_serve_phase():
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
         check(bool(torch.isfinite(logits).all()),
-              "SSM decode logits not finite")
+              f"{tag} decode logits not finite")
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             model.decode_step(params, caches, tok, S + 8)
@@ -3258,7 +3376,7 @@ def ssm_serve_phase():
         del logits, caches, out
     del params, model
     free()
-    rec["smoke"] = ssm_serve_exactness()
+    rec["smoke"] = fixed_batch_exactness(arch, tag)
     return rec
 
 
@@ -3266,8 +3384,9 @@ def ssm_serve_phase():
 # phase 18: SSM training at full width, depth cut
 # ---------------------------------------------------------------------------
 
-def ssm_remat_check(model, batch):
-    """At x(0) of the ungrouped bus: every agent's loss and gradient with
+def remat_check(model, batch, tag: str):
+    """At x(0) of the ungrouped bus of ``AGENTS`` agents, under
+    deterministic algorithms: every agent's loss and gradient with
     ``remat`` off, "full" and "dots" — the gradient buses bit-equal — and
     the peak allocated above the state in each case."""
     import torch
@@ -3277,37 +3396,41 @@ def ssm_remat_check(model, batch):
     layout = bus_layout_for(model, AGENTS)
     x = init_state(model, run, AGENTS, seed=0, device="cuda")["params"]
     rec, want = {}, None
-    for label, kw in (("off", dict(remat=False)),
-                      ("full", dict(remat=True, remat_policy="full")),
-                      ("dots", dict(remat=True, remat_policy="dots"))):
-        free()
-        base = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        losses, g = losses_and_grads(model, layout, x, batch["tokens"], **kw)
-        torch.cuda.synchronize()
-        r = {"peak_gib": torch.cuda.max_memory_allocated() / 2**30,
-             "above_base_gib": (torch.cuda.max_memory_allocated() - base)
-             / 2**30}
-        if want is None:
-            want = (losses, g)
-        else:
-            r["bit_equal"] = (same_bits(losses, want[0])
-                              and same_bits(g, want[1]))
-            check(r["bit_equal"], f"SSM remat {label}: gradients differ "
-                  "from remat=False")
-            del g
-        rec[label] = r
+    torch.use_deterministic_algorithms(True)
+    try:
+        for label, kw in (("off", dict(remat=False)),
+                          ("full", dict(remat=True, remat_policy="full")),
+                          ("dots", dict(remat=True, remat_policy="dots"))):
+            free()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            losses, g = losses_and_grads(model, layout, x, batch, **kw)
+            torch.cuda.synchronize()
+            r = {"peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                 "above_base_gib": (torch.cuda.max_memory_allocated()
+                                    - base) / 2**30}
+            if want is None:
+                want = (losses, g)
+            else:
+                r["bit_equal"] = (same_bits(losses, want[0])
+                                  and same_bits(g, want[1]))
+                check(r["bit_equal"], f"{tag} remat {label}: gradients "
+                      "differ from remat=False")
+                del g
+            rec[label] = r
+    finally:
+        torch.use_deterministic_algorithms(False)
     del want, x
     free()
     return rec
 
 
-def ssm_bus_kernels(bus_shape):
-    """The EDM and ring kernels on the phase's bus (in place: m' and ψ'
-    over m and ψ, φ and the ring's output into their own buffers): the
-    first call of each held bit for bit against its plain version on the
-    last agent's block, whose element offsets all lie past 2³¹ on this
-    bus; then timed beside their byte bounds."""
+def bus_kernels(bus_shape):
+    """The EDM and ring kernels on a training phase's bus (in place: m'
+    and ψ' over m and ψ, φ and the ring's output into their own buffers):
+    the first call of each held bit for bit against its plain version on
+    the last agent's block, whose element offsets lie past 2³¹ (phase 18)
+    or across it (phase 22); then timed beside their byte bounds."""
     import torch
     from repro_torch.core import ring
     from repro_torch.kernels import ops, ref
@@ -3412,21 +3535,15 @@ def ssm_scan_timing():
 
 def ssm_train_phase():
     """Phase 18: falcon_mamba_7b at full width with its depth cut to
-    ``SSM_TRAIN_LAYERS`` layers, ``AGENTS`` agents on the ring, packed f32
-    bus, fused kernels, seq 128, per-agent batch 1, under deterministic
-    algorithms: for ``gossip_groups="ssm"`` (the conv / state leaves opt
-    out) and the ungrouped bus, ``GRAPH_STEPS`` + 1 steps eager and
-    graphed from one state and one token stream: metrics and buses
-    bit-equal, losses finite, each replay's device trace holding one EDM
-    and one ring kernel; under ``ssm`` the state rows of x equal φ's
-    after every step.  Then ``remat`` "full" and "dots" against off
-    (gradients bit-equal, peaks), and the EDM and ring kernels timed on
-    this bus."""
+    ``SSM_TRAIN_LAYERS`` layers, ``AGENTS`` agents, seq 128, per-agent
+    batch 1, through :func:`graphed_runs` for ``gossip_groups="ssm"`` (the
+    conv / state leaves opt out) and the ungrouped bus.  Then ``remat``
+    "full" and "dots" against off (gradients bit-equal, peaks), the EDM
+    and ring kernels on this bus, and the scan timed alone."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data import SyntheticLM
     from repro_torch.models import build_model
-    from repro_torch.train import bus_layout_for, resolve_features
     model = build_model(dataclasses.replace(get_config(SSM_ARCH),
                                             n_layers=SSM_TRAIN_LAYERS))
     data = SyntheticLM(vocab_size=model.cfg.vocab_size, seq_len=SEQ,
@@ -3435,67 +3552,281 @@ def ssm_train_phase():
     batches = [data.sample(dgen, 1) for _ in range(GRAPH_STEPS + 1)]
     out = {"params": sum(t.numel() for t in model.meta().values()),
            "layers": SSM_TRAIN_LAYERS}
-    want = {n: 0 for n, _ in TRACED}
-    want.update(edm_update=1, ring_combine=1)
-    torch.use_deterministic_algorithms(True)
-    try:
-        for name, groups in (("ssm", "ssm"), ("ungrouped", "")):
-            run = bus_run(gossip_groups=groups)
-            layout = bus_layout_for(model, AGENTS,
-                                    resolve_features(run).groups)
-            rows = None
-            rec = {"bus": [AGENTS, layout.rows, 128]}
-            if groups:
-                g = next(g for g in layout.groups if g.name == "ssm_state")
-                rows = slice(g.row, g.row + g.rows)
-                rec["state_rows"] = [g.row, g.row + g.rows]
-            kw = dict(n_agents=AGENTS, phi_rows=rows)
-            eager = graph_trajectory(model, run, batches, False, **kw)
-            graph = graph_trajectory(model, run, batches, True,
-                                     against=eager["host"], **kw)
-            del eager["host"]
-            med = statistics.median(graph["seconds"][1:]) * 1e3
-            rec.update(
-                graph_eq_eager=graph["same"]
-                and graph["metrics"] == eager["metrics"],
-                opt_out_rows_eq_phi=(eager["opt_out_phi"]
-                                     and graph["opt_out_phi"])
-                if rows is not None else None,
-                loss=[m["loss"] for m in graph["metrics"]],
-                step_ms=[round(t * 1e3, 2) for t in graph["seconds"]],
-                median_ms=med, busy_ms=graph["busy_ms"],
-                idle_share=1 - graph["busy_ms"] / med,
-                tokens_per_s=AGENTS * SEQ / med * 1e3,
-                eager_median_ms=statistics.median(eager["seconds"]) * 1e3,
-                replays=graph["replays"],
-                launches={k: v for k, v in graph["launches"].items() if v},
-                traced_replay={k: v for k, v in graph["traced"].items()
-                               if v},
-                peak_allocated_gib=graph["peak"][0],
-                peak_reserved_gib=graph["peak"][1],
-                eager_peak_allocated_gib=eager["peak"][0],
-                buckets=graph["buckets"], top=graph["top"])
-            check(rec["graph_eq_eager"], f"SSM {name}: the graphed step "
-                  f"differs from the eager step: {rec}")
-            check(rows is None or rec["opt_out_rows_eq_phi"],
-                  f"SSM {name}: the state rows of x are not φ's: {rec}")
-            check(all(math.isfinite(v) for m in graph["metrics"]
-                      for v in m.values()),
-                  f"SSM {name}: non-finite metrics {graph['metrics']}")
-            check(graph["traced"] == want and eager["traced"] == want
-                  and graph["replays"] == GRAPH_STEPS - 1,
-                  f"SSM {name}: replay traced {graph['traced']}, eager "
-                  f"step {eager['traced']}, replays {graph['replays']}; "
-                  f"expected {want} and {GRAPH_STEPS - 1} replays")
-            out[name] = rec
-            del eager, graph
-            free()
-        out["remat"] = ssm_remat_check(model, batches[0])
-    finally:
-        torch.use_deterministic_algorithms(False)
-    out["kernels"] = ssm_bus_kernels(tuple(out["ungrouped"]["bus"]))
+    out.update(graphed_runs(model, AGENTS, batches,
+                            (("ssm", "ssm"), ("ungrouped", "")), "SSM"))
+    out["remat"] = remat_check(model, batches[0], "SSM")
+    out["kernels"] = bus_kernels(tuple(out["ungrouped"]["bus"]))
     out["scan"] = ssm_scan_timing()
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 19: pixtral_12b served at full width and depth
+# ---------------------------------------------------------------------------
+
+def vlm_serve_exactness():
+    """At pixtral_12b's smoke config in f32 on the card, its heads grouped
+    as Pixtral's (G 4: ``n_kv_heads`` 1 under 4 heads): the kernel
+    engine's tokens (text-only, as the reference's scheduler) equal
+    ``greedy_generate``'s; ``greedy_generate`` with a frontend equals a
+    replay that prefills the frontend and the first prompt token, feeds
+    the rest of the prompt token by token through ``decode_step`` (at
+    positions after the frontend's), then decodes greedily."""
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    from repro_torch.serve import (ContinuousBatchingEngine,
+                                   PagedCacheConfig, greedy_generate,
+                                   grow_caches, poisson_load)
+    cfg = dataclasses.replace(get_smoke_config(VLM_ARCH), n_kv_heads=1)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    pcfg = PagedCacheConfig(page_size=PAGE, num_pages=1 + 4 * 256 // PAGE,
+                            max_slots=4, max_context=256)
+    reqs = poisson_load(4, rate=1000.0, vocab=cfg.vocab_size,
+                        prompt_buckets=(40, 200), new_token_buckets=(8,),
+                        prompt_dist="exact", seed=4)
+    eng = ContinuousBatchingEngine(model, params, pcfg, attn_impl="kernel",
+                                   prefill_chunk=64, max_step_tokens=128,
+                                   device="cuda")
+    eng.run(reqs)
+    got = {r: t.tolist() for r, t in eng.completed.items()}
+    del eng
+    for r in reqs:
+        want = greedy_generate(model, params, {
+            "tokens": torch.from_numpy(r.tokens)[None].cuda()},
+            n_steps=r.max_new)[0].cpu().tolist()
+        check(got[r.rid] == want, f"VLM smoke (G 4): the kernel engine "
+              f"differs from greedy_generate on request {r.rid}: "
+              f"{got[r.rid]} vs {want}")
+    B, S, n_new, P = 2, 64, 16, cfg.n_frontend_tokens
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S),
+                                     device="cuda", generator=gen),
+             "frontend": torch.randn((B, P, cfg.d_model), device="cuda",
+                                     generator=gen)}
+    tokens = batch["tokens"]
+    with torch.inference_mode():
+        want = greedy_generate(model, params, batch, n_steps=n_new)
+        logits, caches = model.prefill(params, {
+            "tokens": tokens[:, :1], "frontend": batch["frontend"]})
+        caches = grow_caches(model, caches, B, P + S + n_new)
+        for t in range(1, S):
+            logits, caches = model.decode_step(params, caches,
+                                               tokens[:, t:t + 1], P + t)
+        out = []
+        for i in range(n_new):
+            tok = torch.argmax(logits[:, -1].float(), -1).to(
+                torch.int32)[:, None]
+            out.append(tok)
+            if i < n_new - 1:
+                logits, caches = model.decode_step(params, caches, tok,
+                                                   P + S + i)
+        replay = torch.cat(out, dim=1)
+    check(torch.equal(replay, want), f"VLM smoke: greedy_generate with a "
+          f"frontend {want.tolist()} differs from the decode replay "
+          f"{replay.tolist()}")
+    del model, params, caches
+    free()
+    return {"g4_engine_requests_equal": len(reqs),
+            "g4_engine_tokens": sum(len(t) for t in got.values()),
+            "frontend_greedy_equal_replay": True, "frontend": P,
+            "prompt": S, "tokens": B * n_new}
+
+
+def vlm_serve_phase():
+    """Phase 19: pixtral_12b at full width and depth in bf16, random
+    weights from seed 0: the serve CLI's fixed batch at phase 8's sizes
+    with ``n_frontend_tokens`` (256) frontend embeddings a request, counts
+    reset before and read after (``greedy_generate`` on dense caches: no
+    kernel of the port), then :func:`engine_serve_phase` — the engine,
+    text-only as the reference's scheduler, through the paged kernels at
+    hd 128 and G 4, 40 launches of each a mixed dispatch — then the smoke
+    config's exactness at G 4."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as serve_cli
+    cfg = get_config(VLM_ARCH)
+    rec = {}
+    free()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    cli = serve_cli.main(VLM_CLI_ARGS)
+    rec["fixed_cli_s"] = time.perf_counter() - t0
+    rec["fixed_cli_counts"] = ops.launch_counts()
+    check(not any(rec["fixed_cli_counts"].values()), f"VLM fixed batch "
+          f"launched {rec['fixed_cli_counts']}: greedy_generate runs no "
+          "kernel of the port")
+    b = int(VLM_CLI_ARGS[VLM_CLI_ARGS.index("--batch") + 1])
+    new = int(VLM_CLI_ARGS[VLM_CLI_ARGS.index("--new-tokens") + 1])
+    check(tuple(cli["tokens"].shape) == (b, new)
+          and bool(((cli["tokens"] >= 0)
+                    & (cli["tokens"] < cfg.vocab_size)).all()),
+          f"VLM fixed-batch tokens {cli['tokens']}")
+    rec["fixed_cli_tokens_per_s"] = b * new / cli["seconds"]
+    rec["fixed_cli_seconds"] = cli["seconds"]
+    del cli
+    rec.update(engine_serve_phase(VLM_ARCH, VLM_SERVE_ARGS, "VLM"))
+    check(rec["params"] == VLM_PARAMS, f"{VLM_ARCH} has {rec['params']} "
+          f"parameters, expected {VLM_PARAMS}")
+    rec["smoke"] = vlm_serve_exactness()
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 20: VLM training at full width, depth cut
+# ---------------------------------------------------------------------------
+
+def vlm_train_phase():
+    """Phase 20: pixtral_12b at full width with its depth cut to
+    ``VLM_TRAIN_LAYERS`` layer, ``VLM_AGENTS`` agents, seq 128 after 256
+    frontend positions, per-agent batch 1, through :func:`graphed_runs`
+    (ungrouped).  The frontend changes every step and step 1 repeats step
+    0's tokens, so a replay that read a stale frontend buffer would part
+    from the eager step."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import build_model
+    model = build_model(dataclasses.replace(get_config(VLM_ARCH),
+                                            n_layers=VLM_TRAIN_LAYERS))
+    cfg = model.cfg
+    data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=SEQ,
+                       n_agents=VLM_AGENTS, phi=0.2)
+    dgen = torch.Generator(device="cuda").manual_seed(5)
+    batches = []
+    for t in range(GRAPH_STEPS + 1):
+        b = data.sample(dgen, 1)
+        if t == 1:
+            b["tokens"] = batches[0]["tokens"]
+        b["frontend"] = torch.randn(
+            (VLM_AGENTS, 1, cfg.n_frontend_tokens, cfg.d_model),
+            generator=dgen, device="cuda").to(torch.bfloat16)
+        batches.append(b)
+    out = {"params": sum(t.numel() for t in model.meta().values()),
+           "layers": VLM_TRAIN_LAYERS}
+    out.update(graphed_runs(model, VLM_AGENTS, batches,
+                            (("ungrouped", ""),), "VLM"))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phases 21 and 22: the hybrid family
+# ---------------------------------------------------------------------------
+
+def hybrid_train_phase():
+    """Phase 22: jamba_1_5_large_398b cut in width (``HYBRID_TRAIN``: d_model
+    1024, d_ff = dense_d_ff 2048) at one whole period of depth (8 layers,
+    every kind in its place), ``AGENTS`` agents, seq 128, per-agent batch
+    1, through :func:`graphed_runs` for ``gossip_groups="ssm:0,moe"`` (the
+    conv / state leaves and the experts opt out) and the ungrouped bus;
+    then ``remat`` against off, and the EDM and ring kernels on this bus
+    (2.51 G elements: agent 3's block spans element 2³¹)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import build_model
+    model = build_model(dataclasses.replace(get_config(HYBRID_ARCH),
+                                            **HYBRID_TRAIN))
+    out = {"params": sum(t.numel() for t in model.meta().values()),
+           "layers": model.cfg.n_layers}
+    check(out["params"] == HYBRID_TRAIN_PARAMS, f"the hybrid training cut "
+          f"has {out['params']} parameters, expected {HYBRID_TRAIN_PARAMS}")
+    data = SyntheticLM(vocab_size=model.cfg.vocab_size, seq_len=SEQ,
+                       n_agents=AGENTS, phi=0.2)
+    dgen = torch.Generator(device="cuda").manual_seed(5)
+    batches = [data.sample(dgen, 1) for _ in range(GRAPH_STEPS + 1)]
+    out.update(graphed_runs(model, AGENTS, batches,
+                            ((HYBRID_GROUPS, HYBRID_GROUPS),
+                             ("ungrouped", "")), "hybrid"))
+    out["remat"] = remat_check(model, batches[0], "hybrid")
+    out["kernels"] = bus_kernels(tuple(out["ungrouped"]["bus"]))
+    return out
+
+
+def print_fixed_batch(tag: str, arch: str, cli_args, rec, smi: str):
+    """Phases 17 and 21's lines."""
+    print(f"[{tag}] {arch}: {rec['params']:,} parameters, "
+          f"{rec['param_gb']:.2f} GB; init {rec['init_s']:.1f} s, peak "
+          f"during init {rec['init_peak_gib']:.2f} GiB; {smi}", flush=True)
+    print(f"[{tag}] CLI {' '.join(cli_args)} ({rec['cli_s']:.1f} s): "
+          f"{rec['cli_tokens_per_s']:.1f} tokens/s; launches "
+          f"{rec['cli_counts']}", flush=True)
+    print(f"[{tag}] batch {SSM_BATCH}, prompt {SSM_PROMPT}, {SSM_NEW} new: "
+          f"prefill {rec['prefill_ms']:.1f} ms (peak "
+          f"{rec['prefill_peak_gib']:.2f} GiB), greedy_generate "
+          f"{rec['generate_s']:.2f} s = {rec['tokens_per_s']:.1f} tokens/s, "
+          f"{rec['per_token_ms']:.2f} ms a token; peak allocated "
+          f"{rec['peak_gib']:.2f} GiB, reserved {rec['reserved_gib']:.2f}; "
+          f"state {rec['state_mb']:.1f} MB", flush=True)
+    dec = rec["decode"]
+    print(f"[{tag}-profile] one decode step (batch {SSM_BATCH}): device "
+          f"busy {dec['device_busy_ms']:.3f} ms in {dec['kernel_launches']} "
+          f"kernel launches; host (median) {dec['host_ms']:.2f} ms; device "
+          f"idle {dec['idle_share']:.1%}", flush=True)
+    print_buckets(f"{tag}-profile", dec)
+    print(f"[{tag}-exact] smoke config, f32: {json.dumps(rec['smoke'])}",
+          flush=True)
+
+
+def print_engine(tag: str, arch: str, rec, smi: str):
+    """Phases 15 and 19's lines."""
+    print(f"[{tag}] {arch}: {rec['params'] / 1e9:.3f} B parameters, "
+          f"{rec['param_gb']:.2f} GB; init {rec['init_s']:.1f} s, peak "
+          f"during init {rec['init_peak_gib']:.2f} GiB; prefill logits "
+          "finite", flush=True)
+    print(f"[{tag}] CLI ({rec['cli_s']:.1f} s): launches "
+          f"{rec['cli_counts']}; {json.dumps(rec['cli_metrics'])}",
+          flush=True)
+    print(f"[{tag}] context {CTX}: launches {rec['counts']}; peak "
+          f"allocated {rec['peak_gib']:.2f} GiB, reserved "
+          f"{rec['reserved_gib']:.2f} GiB (pools {rec['pool_gb']:.2f} GB); "
+          f"{smi}", flush=True)
+    print(f"[{tag}] {json.dumps(rec['metrics'])}", flush=True)
+    for what, d in rec["dispatches"].items():
+        print(f"[{tag}-profile] one {what} dispatch: device busy "
+              f"{d['device_busy_ms']:.3f} ms in {d['kernel_launches']} "
+              f"kernel launches; host (unprofiled median) "
+              f"{d['median_ms']:.2f} ms over {d['dispatches_timed']} "
+              f"dispatches; device idle {d['idle_share']:.1%}", flush=True)
+        print_buckets(f"{tag}-profile", d)
+    print(f"[{tag}-exact] smoke config, f32: {json.dumps(rec['smoke'])}",
+          flush=True)
+
+
+def print_buckets(tag: str, rec):
+    for name, bms in rec["buckets"].items():
+        if bms:
+            print(f"[{tag}]   {bms:9.3f} ms  {name}")
+    for bms, count, key in rec["top"]:
+        print(f"[{tag}]   top {bms:9.3f} ms  x{count:<5d} {key[:80]}")
+
+
+def print_train_runs(tag: str, arch: str, what: str, rec, smi: str):
+    """Phases 16, 18, 20 and 22's lines: one a run of
+    :func:`graphed_runs`."""
+    print(f"[{tag}] {arch} {what} ({rec['params']:,} parameters), seq "
+          f"{SEQ}; {smi}", flush=True)
+    for name, r in rec.items():
+        if not isinstance(r, dict) or "graph_eq_eager" not in r:
+            continue
+        print(f"[{tag}] {name}: bus {r['bus']}; graphed == eager "
+              f"{r['graph_eq_eager']}; opt-out rows "
+              f"{r.get('opt_out_rows')} == φ {r['opt_out_rows_eq_phi']}; "
+              f"median replayed step {r['median_ms']:.1f} ms "
+              f"({r['tokens_per_s']:.0f} tokens/s; eager "
+              f"{r['eager_median_ms']:.1f} ms); replay busy "
+              f"{r['busy_ms']:.3f} ms, idle {r['idle_share']:.1%}; replay "
+              f"trace {r['traced_replay']}; launches {r['launches']}; peak "
+              f"allocated {r['peak_allocated_gib']:.2f} GiB, reserved "
+              f"{r['peak_reserved_gib']:.2f}; losses {r['loss']}; steps "
+              f"{r['step_ms']} ms", flush=True)
+        busy = {k: round(v, 3) for k, v in r["buckets"].items() if v}
+        print(f"[{tag}-profile] {name} replay, device ms by bucket: "
+              f"{json.dumps(busy)}", flush=True)
+        for bms, count, key in r["top"]:
+            print(f"[{tag}-profile]   top {bms:9.3f} ms  x{count:<5d} "
+                  f"{key[:80]}")
 
 
 def main() -> None:
@@ -3897,9 +4228,10 @@ def main() -> None:
               flush=True)
         print(f"[overlap] {fmt}: median replayed step {rec['median_ms']:.1f}"
               f" ms (steps 2–{STEPS - 1}), {rec['tokens_per_s']:.0f} "
-              f"tokens/s, replay busy {rec['busy_ms']:.2f} ms, idle "
-              f"{rec['idle_share']:.1%}; peak allocated "
-              f"{rec['peak_allocated_gib']:.2f} GiB; {smi}", flush=True)
+              f"tokens/s; peak allocated {rec['peak_allocated_gib']:.2f} "
+              f"GiB; at {GRAPH_LAYERS} layers a replay busy "
+              f"{rec['busy_ms']:.2f} ms, idle {rec['idle_share']:.1%} of "
+              f"that run's median; {smi}", flush=True)
     for rec in overlap["graph"]:
         print(f"[overlap-graph] {json.dumps(rec)}", flush=True)
     print(f"[overlap] step 0 == synchronous step: {overlap['step0']}; "
@@ -3976,14 +4308,17 @@ def main() -> None:
           f"bound {dt['bound_ms']:.5f} ms ({dt['bound_by']}), "
           f"{dt['bound_fraction']:.1%} of it; clusters of {dt['n_split']} "
           f"blocks, {dt['split_keys']} keys a block; {smi}", flush=True)
-    dt = serve_timed["paged_attention_hd128"]
-    print(f"[serve-kernels] paged_attention hd 128 timed ({dt['dtype']}, q "
-          f"{dt['shape']}, {dt['kv_rows']} KV rows): {dt['ms']:.5f} ms; "
-          f"plain {dt['plain_ms']:.4f} ms; SDPA {dt['library_ms']:.5f} ms; "
-          f"bound {dt['bound_ms']:.5f} ms ({dt['bound_by']}), "
-          f"{dt['bound_fraction']:.1%} of it; clusters of {dt['n_split']} "
-          f"blocks, {dt['split_keys']} keys a block; {smi}", flush=True)
-    for key in ("paged_prefill", "paged_prefill_hd128"):
+    for key, what in (("paged_attention_hd128", "hd 128 G 1"),
+                      ("paged_attention_g4", "hd 128 G 4")):
+        dt = serve_timed[key]
+        print(f"[serve-kernels] paged_attention {what} timed ({dt['dtype']}, "
+              f"q {dt['shape']}, {dt['kv_rows']} KV rows): {dt['ms']:.5f} "
+              f"ms; plain {dt['plain_ms']:.4f} ms; SDPA "
+              f"{dt['library_ms']:.5f} ms; bound {dt['bound_ms']:.5f} ms "
+              f"({dt['bound_by']}), {dt['bound_fraction']:.1%} of it; "
+              f"clusters of {dt['n_split']} blocks, {dt['split_keys']} keys "
+              f"a block; {smi}", flush=True)
+    for key in ("paged_prefill", "paged_prefill_hd128", "paged_prefill_g4"):
         pt = serve_timed[key]
         print(f"[serve-kernels] {key} timed ({pt['dtype']}, case "
               f"{pt['case']}): {pt['ms']:.5f} ms (host {pt['host_ms']:.4f} "
@@ -4105,117 +4440,34 @@ def main() -> None:
           flush=True)
     # 15. deepseek_moe_16b served at full width and depth
     moe_serve = moe_serve_phase()
-    ms = moe_serve
-    print(f"[moe-serve] {MOE_ARCH}: {ms['params'] / 1e9:.3f} B parameters, "
-          f"{ms['param_gb']:.2f} GB; init {ms['init_s']:.1f} s, peak during "
-          f"init {ms['init_peak_gib']:.2f} GiB; prefill logits finite", flush=True)
-    print(f"[moe-serve] CLI ({ms['cli_s']:.1f} s): launches "
-          f"{ms['cli_counts']}; {json.dumps(ms['cli_metrics'])}", flush=True)
-    print(f"[moe-serve] context {CTX}: launches {ms['counts']}; peak "
-          f"allocated {ms['peak_gib']:.2f} GiB, reserved "
-          f"{ms['reserved_gib']:.2f} GiB (pools {ms['pool_gb']:.2f} GB); "
-          f"{smi}", flush=True)
-    print(f"[moe-serve] {json.dumps(ms['metrics'])}", flush=True)
-    for what, rec in ms["dispatches"].items():
-        print(f"[moe-serve-profile] one {what} dispatch: device busy "
-              f"{rec['device_busy_ms']:.3f} ms in {rec['kernel_launches']} "
-              f"kernel launches; host (unprofiled median) "
-              f"{rec['median_ms']:.2f} ms over {rec['dispatches_timed']} "
-              f"dispatches; device idle {rec['idle_share']:.1%}", flush=True)
-        for name, bms in rec["buckets"].items():
-            if bms:
-                print(f"[moe-serve-profile]   {bms:9.3f} ms  {name}")
-        for bms, count, key in rec["top"]:
-            print(f"[moe-serve-profile]   top {bms:9.3f} ms  x{count:<5d} "
-                  f"{key[:80]}")
-    print(f"[moe-serve-exact] smoke config, f32: {json.dumps(ms['smoke'])}",
-          flush=True)
+    print_engine("moe-serve", MOE_ARCH, moe_serve, smi)
 
     print(f"[time] {time.time() - t_start:.1f} s before phase 16",
           flush=True)
     # 16. MoE training at full width, depth cut to one layer, 2 agents
     moe_train = moe_train_phase()
-    print(f"[moe-train] {MOE_ARCH} at full width, {MOE_TRAIN_LAYERS} layer "
-          f"({moe_train['params'] / 1e9:.3f} B parameters), {MOE_AGENTS} "
-          f"agents, ring, seq {SEQ}; {smi}", flush=True)
-    for name in ("moe", "ungrouped"):
-        rec = moe_train[name]
-        print(f"[moe-train] {name}: bus {rec['bus']}; graphed == eager "
-              f"{rec['graph_eq_eager']}; expert rows == φ "
-              f"{rec['opt_out_rows_eq_phi']}; median replayed step "
-              f"{rec['median_ms']:.1f} ms ({rec['tokens_per_s']:.0f} "
-              f"tokens/s; eager {rec['eager_median_ms']:.1f} ms); replay "
-              f"busy {rec['busy_ms']:.3f} ms, idle {rec['idle_share']:.1%}; "
-              f"replay trace {rec['traced_replay']}; launches "
-              f"{rec['launches']}; peak allocated "
-              f"{rec['peak_allocated_gib']:.2f} GiB, reserved "
-              f"{rec['peak_reserved_gib']:.2f}; losses {rec['loss']}; steps "
-              f"{rec['step_ms']} ms", flush=True)
+    print_train_runs("moe-train", MOE_ARCH, f"at full width, "
+                     f"{MOE_TRAIN_LAYERS} layer, {MOE_AGENTS} agents, ring",
+                     moe_train, smi)
 
     print(f"[time] {time.time() - t_start:.1f} s before phase 17",
           flush=True)
     # 17. falcon_mamba_7b served at full width and depth
-    ssm_serve = ssm_serve_phase()
-    ss = ssm_serve
-    print(f"[ssm-serve] {SSM_ARCH}: {ss['params']:,} parameters, "
-          f"{ss['param_gb']:.2f} GB; init {ss['init_s']:.1f} s, peak during "
-          f"init {ss['init_peak_gib']:.2f} GiB; {smi}", flush=True)
-    print(f"[ssm-serve] CLI {' '.join(SSM_SERVE_ARGS)} ({ss['cli_s']:.1f} "
-          f"s): {ss['cli_tokens_per_s']:.1f} tokens/s; launches "
-          f"{ss['cli_counts']}", flush=True)
-    print(f"[ssm-serve] batch {SSM_BATCH}, prompt {SSM_PROMPT}, "
-          f"{SSM_NEW} new: prefill {ss['prefill_ms']:.1f} ms (peak "
-          f"{ss['prefill_peak_gib']:.2f} GiB), greedy_generate "
-          f"{ss['generate_s']:.2f} s = {ss['tokens_per_s']:.1f} tokens/s, "
-          f"{ss['per_token_ms']:.2f} ms a token; peak allocated "
-          f"{ss['peak_gib']:.2f} GiB, reserved {ss['reserved_gib']:.2f}; "
-          f"state {ss['state_mb']:.1f} MB", flush=True)
-    dec = ss["decode"]
-    print(f"[ssm-serve-profile] one decode step (batch {SSM_BATCH}): device "
-          f"busy {dec['device_busy_ms']:.3f} ms in {dec['kernel_launches']} "
-          f"kernel launches; host (median) {dec['host_ms']:.2f} ms; device "
-          f"idle {dec['idle_share']:.1%}", flush=True)
-    for name, bms in dec["buckets"].items():
-        if bms:
-            print(f"[ssm-serve-profile]   {bms:9.3f} ms  {name}")
-    for bms, count, key in dec["top"]:
-        print(f"[ssm-serve-profile]   top {bms:9.3f} ms  x{count:<5d} "
-              f"{key[:80]}")
-    print(f"[ssm-serve-exact] smoke config, f32: {json.dumps(ss['smoke'])}",
-          flush=True)
+    ssm_serve = fixed_batch_serve_phase(SSM_ARCH, SSM_SERVE_ARGS,
+                                        SSM_PARAMS)
+    print_fixed_batch("ssm-serve", SSM_ARCH, SSM_SERVE_ARGS, ssm_serve, smi)
 
     print(f"[time] {time.time() - t_start:.1f} s before phase 18",
           flush=True)
     # 18. SSM training at full width, depth cut to two layers, 4 agents
     ssm_train = ssm_train_phase()
-    print(f"[ssm-train] {SSM_ARCH} at full width, {SSM_TRAIN_LAYERS} layers "
-          f"({ssm_train['params']:,} parameters), {AGENTS} agents, ring, "
-          f"seq {SEQ}; {smi}", flush=True)
-    for name in ("ssm", "ungrouped"):
-        rec = ssm_train[name]
-        print(f"[ssm-train] {name}: bus {rec['bus']}; graphed == eager "
-              f"{rec['graph_eq_eager']}; state rows == φ "
-              f"{rec['opt_out_rows_eq_phi']}; median replayed step "
-              f"{rec['median_ms']:.1f} ms ({rec['tokens_per_s']:.0f} "
-              f"tokens/s; eager {rec['eager_median_ms']:.1f} ms); replay "
-              f"busy {rec['busy_ms']:.3f} ms, idle {rec['idle_share']:.1%}; "
-              f"replay trace {rec['traced_replay']}; launches "
-              f"{rec['launches']}; peak allocated "
-              f"{rec['peak_allocated_gib']:.2f} GiB, reserved "
-              f"{rec['peak_reserved_gib']:.2f}; losses {rec['loss']}; steps "
-              f"{rec['step_ms']} ms", flush=True)
+    print_train_runs("ssm-train", SSM_ARCH, f"at full width, "
+                     f"{SSM_TRAIN_LAYERS} layers, {AGENTS} agents, ring",
+                     ssm_train, smi)
     print(f"[ssm-train] remat (gradients at x(0), bit-equal to off): "
           f"{json.dumps(ssm_train['remat'])}", flush=True)
     print(f"[ssm-train] kernels on this bus: "
           f"{json.dumps(ssm_train['kernels'])}", flush=True)
-    for name in ("ssm", "ungrouped"):
-        rec = ssm_train[name]
-        busy = {k: round(v, 3) for k, v in rec["buckets"].items() if v}
-        print(f"[ssm-train-profile] {name} replay, device ms by bucket: "
-              f"{json.dumps(busy)}", flush=True)
-        for bms, count, key in rec["top"]:
-            print(f"[ssm-train-profile]   top {bms:9.3f} ms  x{count:<5d} "
-                  f"{key[:80]}")
     sc, n_ssm = ssm_train["scan"], get_config(SSM_ARCH).n_layers
     pf, tr = sc["prefill"], sc["train"]
     print(f"[ssm-scan] the chunked scan alone: prefill shape {pf['shape']} "
@@ -4230,6 +4482,48 @@ def main() -> None:
           f"{tr['busy_ms'] * SSM_TRAIN_LAYERS * AGENTS:.1f} ms of the "
           f"{ssm_train['ungrouped']['busy_ms']:.1f} ms replay busy; bound "
           f"{tr['bound_ms']:.3f} ms); {smi}", flush=True)
+
+    print(f"[time] {time.time() - t_start:.1f} s before phase 19",
+          flush=True)
+    # 19. pixtral_12b served at full width and depth (paged kernels, G 4)
+    vlm_serve = vlm_serve_phase()
+    print(f"[vlm-serve] fixed batch {' '.join(VLM_CLI_ARGS)} (frontend "
+          f"{get_config(VLM_ARCH).n_frontend_tokens} a request; "
+          f"{vlm_serve['fixed_cli_s']:.1f} s): "
+          f"{vlm_serve['fixed_cli_tokens_per_s']:.1f} tokens/s; launches "
+          f"{vlm_serve['fixed_cli_counts']}", flush=True)
+    print_engine("vlm-serve", VLM_ARCH, vlm_serve, smi)
+
+    print(f"[time] {time.time() - t_start:.1f} s before phase 20",
+          flush=True)
+    # 20. VLM training at full width, depth cut to one layer, 2 agents
+    vlm_train = vlm_train_phase()
+    print_train_runs("vlm-train", VLM_ARCH, f"at full width, "
+                     f"{VLM_TRAIN_LAYERS} layer, {VLM_AGENTS} agents, ring, "
+                     f"{get_config(VLM_ARCH).n_frontend_tokens} frontend "
+                     "positions", vlm_train, smi)
+
+    print(f"[time] {time.time() - t_start:.1f} s before phase 21",
+          flush=True)
+    # 21. jamba_1_5_large_398b served at full width, depth cut to 5
+    hybrid_serve = fixed_batch_serve_phase(
+        HYBRID_ARCH, HYBRID_CLI_ARGS, HYBRID_PARAMS,
+        n_layers=HYBRID_SERVE_LAYERS, tag="hybrid")
+    print_fixed_batch("hybrid-serve", HYBRID_ARCH, HYBRID_CLI_ARGS,
+                      hybrid_serve, smi)
+
+    print(f"[time] {time.time() - t_start:.1f} s before phase 22",
+          flush=True)
+    # 22. Jamba training at a width cut, one period deep, 4 agents
+    hybrid_train = hybrid_train_phase()
+    print_train_runs("hybrid-train", HYBRID_ARCH, f"d_model "
+                     f"{HYBRID_TRAIN['d_model']}, d_ff "
+                     f"{HYBRID_TRAIN['d_ff']}, {HYBRID_TRAIN['n_layers']} "
+                     f"layers, {AGENTS} agents, ring", hybrid_train, smi)
+    print(f"[hybrid-train] remat (gradients at x(0), bit-equal to off): "
+          f"{json.dumps(hybrid_train['remat'])}", flush=True)
+    print(f"[hybrid-train] kernels on this bus: "
+          f"{json.dumps(hybrid_train['kernels'])}", flush=True)
 
     def serve_row(name, replaces):
         rec = serve_timed[name]
@@ -4254,10 +4548,12 @@ def main() -> None:
             "launches_handoff": handoff["serve_counts"][name],
             "launches_moe_cli": moe_serve["cli_counts"][name],
             "launches_moe_ctx1024": moe_serve["counts"][name],
-            "hd128": {k: serve_timed[f"{name}_hd128"].get(k) for k in (
+            "launches_vlm_cli": vlm_serve["cli_counts"][name],
+            "launches_vlm_ctx1024": vlm_serve["counts"][name],
+            **{key: {k: serve_timed[f"{name}_{key}"].get(k) for k in (
                 "case", "shape", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "bytes", "flops", "host_ms", "bound_fraction",
-                "n_split", "split_keys")},
+                "n_split", "split_keys")} for key in ("hd128", "g4")},
             "bit_equal": True,
             "bit_equal_of": "the kernel's output on NaN-poisoned pools "
                             "against its output on the clean pools, every "
@@ -4430,6 +4726,19 @@ def main() -> None:
                 g: ssm_train[g]["traced_replay"].get(name, 0)
                 for g in ("ssm", "ungrouped")}
             rec["ssm_bus"] = ssm_train["kernels"][name]
+            # phases 20 and 22: the VLM and hybrid runs, and the kernel
+            # timed on the hybrid bus
+            rec["launches_vlm_train"] = vlm_train["ungrouped"][
+                "launches"].get(name, 0)
+            rec["replay_trace_vlm_train"] = vlm_train["ungrouped"][
+                "traced_replay"].get(name, 0)
+            rec["launches_hybrid_train"] = {
+                g: hybrid_train[g]["launches"].get(name, 0)
+                for g in (HYBRID_GROUPS, "ungrouped")}
+            rec["replay_trace_hybrid_train"] = {
+                g: hybrid_train[g]["traced_replay"].get(name, 0)
+                for g in (HYBRID_GROUPS, "ungrouped")}
+            rec["hybrid_bus"] = hybrid_train["kernels"][name]
     print(f"[done] {time.time() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

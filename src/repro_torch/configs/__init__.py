@@ -3,10 +3,13 @@
 The port covers the dense family (``smollm_360m``, and the variants
 ``qwen3_14b`` with QK norm, ``qwen1_5_110b`` with QKV bias,
 ``starcoder2_7b`` with QKV bias and an ungated GELU MLP), the MoE family
-(``deepseek_moe_16b``, ``qwen3_moe_235b_a22b``) and the SSM family
-(``falcon_mamba_7b``, Mamba-1).  The other architectures of
-``repro.configs`` (``jamba_1_5_large_398b``, ``whisper_small``,
-``pixtral_12b``) are listed in ``ROADMAP.md`` as still to be ported.
+(``deepseek_moe_16b``, ``qwen3_moe_235b_a22b``), the SSM family
+(``falcon_mamba_7b``, Mamba-1), the hybrid family
+(``jamba_1_5_large_398b``: Mamba, attention and MoE layers in one block
+period) and the VLM family (``pixtral_12b``: frontend embeddings before
+the tokens of a dense decoder).  The last architecture of
+``repro.configs``, ``whisper_small`` (encoder-decoder), is listed in
+``ROADMAP.md`` (§1 item 4.4) as still to be ported.
 ``get_config(name)`` returns the full-size config, ``get_smoke_config(name)``
 the reduced same-family variant the CPU tests use (2 layers, d_model 256,
 vocab 512, f32).
@@ -22,13 +25,16 @@ from .base import (  # noqa: F401
 
 ARCH_IDS: List[str] = ["smollm_360m", "qwen3_14b", "qwen1_5_110b",
                        "starcoder2_7b", "deepseek_moe_16b",
-                       "qwen3_moe_235b_a22b", "falcon_mamba_7b"]
+                       "qwen3_moe_235b_a22b", "falcon_mamba_7b",
+                       "jamba_1_5_large_398b", "pixtral_12b"]
 
 _ALIASES = {"smollm-360m": "smollm_360m", "qwen3-14b": "qwen3_14b",
             "qwen1.5-110b": "qwen1_5_110b", "starcoder2-7b": "starcoder2_7b",
             "deepseek-moe-16b": "deepseek_moe_16b",
             "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
-            "falcon-mamba-7b": "falcon_mamba_7b"}
+            "falcon-mamba-7b": "falcon_mamba_7b",
+            "jamba-1.5-large-398b": "jamba_1_5_large_398b",
+            "pixtral-12b": "pixtral_12b"}
 
 
 def get_config(name: str) -> ModelConfig:
@@ -36,7 +42,7 @@ def get_config(name: str) -> ModelConfig:
     if mod_name not in ARCH_IDS:
         raise NotImplementedError(
             f"architecture {name!r} is not ported yet (ported: {ARCH_IDS}; "
-            "see ROADMAP.md)")
+            "see ROADMAP.md §1 item 4.4)")
     return importlib.import_module(f"repro_torch.configs.{mod_name}").CONFIG
 
 

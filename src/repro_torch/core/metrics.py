@@ -4,8 +4,11 @@ Tree metrics reduce in f32 with ``sum``, one leaf at a time (a tree is a
 ``{path: tensor}`` dict or one tensor; leaves carry the agent axis).  The
 bus metrics use that the bus pads are zero, so one reduction over the
 ``(A, rows, 128)`` buffer equals the per-leaf reduction over the tree;
-they reduce one agent's row block at a time, so that the f32 temporaries
-stay at one agent's size on a multi-gigabyte bus.
+they reduce at most ``_ROWS`` rows of the bus at a time, one agent's part
+of them at a time, so that the f32 temporaries stay under ~1.5 GiB
+whatever the bus (an agent's block of Pixtral-12B's one-layer bus is
+6 GiB, and ``bus_consensus`` held three such temporaries).  A bus of at
+most ``_ROWS`` rows reduces as one range, as before.
 """
 from __future__ import annotations
 
@@ -41,16 +44,28 @@ def consensus_distance(tree) -> torch.Tensor:
                for leaf in _leaves(tree))
 
 
+# rows of the bus reduced at a time (512 MiB of f32 an agent)
+_ROWS = 1 << 20
+
+
+def _row_ranges(bus: torch.Tensor):
+    """``(A, ≤ _ROWS, 128)`` views of the bus, in row order."""
+    return (bus[:, r:r + _ROWS] for r in range(0, bus.shape[1], _ROWS))
+
+
 def _sq_sum(rows) -> torch.Tensor:
     return sum(r.float().square().sum() for r in rows)
 
 
 def bus_consensus(bus: torch.Tensor) -> torch.Tensor:
     """‖X − X̄‖²_F over the agent axis, in f32."""
-    mean = bus.float().mean(dim=0)
-    return _sq_sum(b.float() - mean for b in bus)
+    total = 0
+    for blk in _row_ranges(bus):
+        mean = blk.float().mean(dim=0)
+        total = total + _sq_sum(b.float() - mean for b in blk)
+    return total
 
 
 def bus_grad_norm(g_bus: torch.Tensor) -> torch.Tensor:
     """Global gradient norm over a packed gradient bus, in f32."""
-    return _sq_sum(g_bus).sqrt()
+    return sum(_sq_sum(blk) for blk in _row_ranges(g_bus)).sqrt()

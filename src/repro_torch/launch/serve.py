@@ -8,15 +8,24 @@ softmax) or ``kernel`` (the default: the CUDA paged-attention kernels on
 the card, their plain versions on the CPU), where the reference's takes
 ``ref`` / ``pallas``.
 
-  # dense reference path (the SSM family serves this way only: its
-  # decode state is fixed-size, not paged)
+  # dense reference path (the SSM and hybrid families serve this way
+  # only: an SSM layer's decode state is fixed-size, not paged; a VLM's
+  # fixed batch carries seeded frontend embeddings before its prompts)
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm_360m \
       --smoke --device cpu --batch 4 --prompt-len 32 --new-tokens 16
+
+  # Jamba-1.5-Large (398 B parameters) does not fit one card: serve its
+  # full width at the 5 layers that hold every layer kind of its period
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch jamba_1_5_large_398b --n-layers 5 --batch 8 --prompt-len 32
 
   # chunked prefill fused into the decode dispatch
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm_360m \
       --continuous-batching --prefill-chunk 16 --max-step-tokens 32 \
       --prompt-dist exact --max-slots 8 --page-size 16 --requests 16
+
+The continuous engine serves a VLM (``--arch pixtral_12b``) text-only,
+as the reference's scheduler does: it has no frontend path.
 
 ``--ckpt`` loads a consensus export — the port's
 (``repro_torch.train.checkpoint.export_consensus``) or the reference's,
@@ -29,6 +38,7 @@ can check that the served weights are the exported bits.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 from typing import Any, Dict, List, Optional
@@ -53,11 +63,17 @@ def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
     ap.add_argument("--arch", required=True,
                     help="architecture (the port's ARCH_IDS: the dense, "
-                         "MoE and SSM families; others raise "
-                         "NotImplementedError; an SSM model serves the "
-                         "fixed batch only, without --continuous-batching)")
+                         "MoE, SSM, hybrid and VLM families; others raise "
+                         "NotImplementedError; an SSM or hybrid model "
+                         "serves the fixed batch only, without "
+                         "--continuous-batching; a VLM's continuous "
+                         "engine is text-only)")
     ap.add_argument("--smoke", action="store_true",
                     help="reduced same-family config (CPU-sized)")
+    ap.add_argument("--n-layers", type=int, default=0,
+                    help="cut the depth to this many layers at full width "
+                         "(0 = the config's depth): a model too large for "
+                         "the card, served on random weights")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--new-tokens", type=int, default=16)
@@ -108,6 +124,8 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     args = parser().parse_args(argv)
     device = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if args.n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.n_layers)
     model = build_model(cfg, decode_window=args.window)
     digest = None
     if args.ckpt:
@@ -150,12 +168,20 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     rng = np.random.default_rng(1)
     prompts = rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len))
     batch = {"tokens": torch.from_numpy(prompts.astype(np.int32)).to(device)}
+    if cfg.family == "vlm":
+        # the frontend stub's embeddings, n_frontend_tokens a request
+        gen = torch.Generator(device=device).manual_seed(2)
+        batch["frontend"] = torch.randn(
+            (args.batch, cfg.n_frontend_tokens, cfg.d_model), generator=gen,
+            device=device).to(getattr(torch, cfg.dtype))
     t0 = time.perf_counter()
     out = greedy_generate(model, params, batch, n_steps=args.new_tokens)
     out = out.cpu()                       # waits for the device
     dt = time.perf_counter() - t0
-    print(f"arch={cfg.name} batch={args.batch} prompt={args.prompt_len} "
-          f"window={args.window or 'full'} device={device}")
+    front = (f" frontend={cfg.n_frontend_tokens}" if "frontend" in batch
+             else "")
+    print(f"arch={cfg.name} batch={args.batch} prompt={args.prompt_len}"
+          f"{front} window={args.window or 'full'} device={device}")
     print(f"generated {args.new_tokens} tokens/request in {dt:.2f}s "
           f"({args.batch * args.new_tokens / dt:.1f} tok/s)")
     for i in range(min(args.batch, 4)):

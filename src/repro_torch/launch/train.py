@@ -32,7 +32,8 @@ first step's total and ``groups=`` lists each group's name, rows and
 policy; one line per group gives its modeled wire bytes on a gossiping
 step and how many of the run's steps gossip.  The ``moe[:k]`` preset
 puts an MoE model's expert weights in their own group, the ``ssm[:k]``
-preset an SSM model's conv / state leaves (``--arch falcon_mamba_7b``);
+preset an SSM model's conv / state leaves (``--arch falcon_mamba_7b``;
+``ssm:0,moe`` makes both groups on the hybrid ``jamba_1_5_large_398b``);
 k is the group's cadence, 0 by default: they stay local.
 
 ``--ckpt PATH`` writes the full train state after the last step
@@ -42,8 +43,9 @@ and ``--resume PATH`` restores one before the first step
 (:func:`~repro_torch.train.checkpoint.load_state_resized`: a file of
 either package, at any agent count: survivors restore bit for bit,
 joining agents take the consensus mean with ψ := x).  The token stream
-is drawn per global step, so a run resumed at step t takes the batches
-the uninterrupted run takes from step t on.  Flags of levers the port
+(and a VLM's frontend embeddings, ``--arch pixtral_12b``) is drawn per
+global step, so a run resumed at step t takes the batches the
+uninterrupted run takes from step t on.  Flags of levers the port
 does not run yet (``--agents pod``, ``--shards``) are accepted by the
 parser and rejected with a pointer to ROADMAP.md.
 
@@ -241,12 +243,24 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
                                               layout=layout)
         print(f"resumed <- {args.resume} @ step {state['step']}")
     gen = torch.Generator(device=device).manual_seed(1)
+
+    def sample() -> Dict[str, torch.Tensor]:
+        # one global step's batch; a VLM's frontend embeddings are drawn
+        # right after its tokens from the same generator
+        b = data.sample(gen, args.per_agent_batch)
+        if cfg.family == "vlm":
+            b["frontend"] = torch.randn(
+                (n_agents, args.per_agent_batch, cfg.n_frontend_tokens,
+                 cfg.d_model), generator=gen, device=device).to(
+                     getattr(torch, cfg.dtype))
+        return b
+
     for _ in range(state["step"]):       # the batches of the steps taken
-        data.sample(gen, args.per_agent_batch)
+        sample()
     history, seconds = [], []
     t0 = time.time()
     for t in range(args.steps):
-        batch = data.sample(gen, args.per_agent_batch)
+        batch = sample()
         if graphed and t == 0:
             step = graph_train_step(step, state, batch)
         ts = time.perf_counter()

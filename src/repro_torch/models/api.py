@@ -1,5 +1,5 @@
 """Public model API: the counterpart of ``repro/models/api.py`` for the
-dense, MoE and SSM families.
+dense, MoE, SSM, hybrid and VLM families.
 
 ``Model`` bundles the training entries ``init`` (a ``torch.Generator`` →
 parameter dict on the generator's device), ``loss`` (``(params, batch,
@@ -7,10 +7,12 @@ remat=True, remat_policy="full") → scalar``, as the reference's) and
 ``meta`` (shape-only parameters, for layouts), and the
 serving entries of the JAX ``Model``: ``prefill``, ``decode_step``,
 ``init_cache``, ``decode_window`` and the paged ``decode_step_paged``,
-``prefill_chunk_paged`` and ``decode_step_mixed`` (attention families
-only: they raise for an SSM model).  Caches and pools are written in
-place (see :mod:`repro_torch.models.transformer`).  The paged
-entries take their attention as an argument: the kernels of
+``prefill_chunk_paged`` and ``decode_step_mixed`` (attention mixers
+only: they raise for an SSM or hybrid model).  A VLM batch carries its
+``frontend`` embeddings beside the tokens, to ``loss`` and ``prefill``.
+Caches and pools are written in place (see
+:mod:`repro_torch.models.transformer`).  The paged entries take their
+attention as an argument: the kernels of
 :mod:`repro_torch.kernels.ops` or their plain versions in
 :mod:`repro_torch.kernels.ref`.
 """
@@ -52,7 +54,8 @@ def build_model(cfg: ModelConfig, decode_window: int = 0) -> Model:
     w = decode_window
 
     def prefill(params, batch):
-        return tf.lm_prefill(cfg, params, batch["tokens"], window=w)
+        return tf.lm_prefill(cfg, params, batch["tokens"],
+                             frontend=batch.get("frontend"), window=w)
 
     def decode_step(params, caches, token, pos):
         return tf.lm_decode_step(cfg, params, caches, token, pos, window=w)

@@ -21,10 +21,12 @@ _HI = 0.5 * (1.0 + math.erf(2.0 / math.sqrt(2.0)))
 
 
 def trunc_normal(shape, generator: torch.Generator) -> torch.Tensor:
-    """Standard normal truncated to [-2, 2] (inverse-CDF sampling)."""
+    """Standard normal truncated to [-2, 2] (inverse-CDF sampling), in
+    one f32 buffer: a 3.2 G-element MoE leaf slice takes 12.9 GB, not
+    three times that."""
     u = torch.empty(shape, dtype=torch.float32, device=generator.device)
     u.uniform_(2.0 * _LO - 1.0, 2.0 * _HI - 1.0, generator=generator)
-    return (torch.erfinv(u) * math.sqrt(2.0)).clamp_(-2.0, 2.0)
+    return u.erfinv_().mul_(math.sqrt(2.0)).clamp_(-2.0, 2.0)
 
 
 def init_leaf(shape, dtype: torch.dtype, init, generator: torch.Generator
@@ -37,7 +39,7 @@ def init_leaf(shape, dtype: torch.dtype, init, generator: torch.Generator
     if callable(init):
         return init(shape, generator.device).to(dtype)
     std = 1.0 / math.sqrt(init)
-    return (trunc_normal(shape, generator) * std).to(dtype)
+    return trunc_normal(shape, generator).mul_(std).to(dtype)
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,

@@ -1,26 +1,33 @@
-"""Decoder LM of the dense, MoE and SSM families: the counterpart of
-``repro/models/transformer.py`` (``init_lm``, ``lm_loss``).
+"""Decoder LM of the dense, MoE, SSM, hybrid and VLM families: the
+counterpart of ``repro/models/transformer.py`` (``init_lm``, ``lm_loss``).
 
 Parameters are a flat dict keyed by the JAX tree's ``|``-joined paths.  As
 in JAX, the layers at one position of the block period share stacked
 leaves of leading dim ``n_blocks`` (``blocks|<pi>|attn|wq`` is
 ``(n_blocks, d, H·hd)``, ``blocks|<pi>|moe|shared|w_gate`` is
 ``(n_blocks, d, n_shared·ff)``); the forward pass walks the stack in a
-Python loop where JAX scans it.  Each layer is attention then a dense FFN
-(``ffn``) or an MoE FFN (``moe``), or a Mamba block (``ssm``) with no FFN,
-as ``layer_kinds`` says; the MoE router's leaf and the Mamba block's
-``dt_proj``, ``dt_bias``, ``A_log`` and ``D`` are f32 inside a bf16 model,
-as in the reference.  ``lm_loss`` recomputes each layer in the backward
-pass when asked (``remat``), as the reference's scan body does.  The
-hybrid, encoder-decoder and VLM families are not ported yet (ROADMAP.md).
+Python loop where JAX scans it.  Each layer is a mixer — attention
+(``attn``) or a Mamba block (``ssm``) — then a dense FFN (``ffn``), an MoE
+FFN (``moe``) or none, as ``layer_kinds`` says: the SSM family's layers
+are Mamba blocks with no FFN, the hybrid family's period mixes
+``(ssm, dense)``, ``(ssm, moe)`` and ``(attn, dense)`` layers.  The MoE
+router's leaf and the Mamba block's ``dt_proj``, ``dt_bias``, ``A_log``
+and ``D`` are f32 inside a bf16 model, as in the reference.  A VLM's
+``frontend`` embeddings ``(B, P, d)`` (the stub of its vision encoder)
+are cast to the embedding's dtype and run before the tokens; in the loss
+their positions predict nothing.  ``lm_loss`` recomputes each layer in
+the backward pass when asked (``remat``), as the reference's scan body
+does.  The encoder-decoder family is not ported yet (ROADMAP.md §1 item
+4.4).
 
 Serving (the counterparts of ``lm_prefill``, ``lm_decode_step`` and the
 paged entries): caches and page pools keep the JAX layout, a tuple over
 period positions of ``{"k", "v"}`` leaves with leading ``n_blocks``
 (``pools[pi]["k"][b]`` is layer ``b·period + pi``'s
 ``(num_pages, page_size, K, hd)`` pool), and are written in place.  An
-SSM position's cache is ``{"h", "conv"}``, the fixed-size decode state;
-the paged entries cover attention mixers only, as the reference's.
+SSM position's cache is ``{"h", "conv"}``, the fixed-size decode state,
+so a hybrid model's caches are a tuple of both kinds; the paged entries
+cover attention mixers only, as the reference's.
 """
 from __future__ import annotations
 
@@ -48,18 +55,21 @@ __all__ = ["param_specs", "param_meta", "init_lm", "lm_loss",
 # constant init (the Mamba block's A_log, dt_bias, D); layers.init_leaf
 Spec = Tuple[Tuple[int, ...], torch.dtype, object]
 
-# the layer kinds of the dense, MoE and SSM families, which the port runs
-_PORTED_KINDS = (("attn", "dense"), ("attn", "moe"), ("ssm", "none"))
+# the decoder families the port runs, and the (mixer, ffn) layer kinds of
+# their block periods
+_PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
+_PORTED_KINDS = (("attn", "dense"), ("attn", "moe"), ("ssm", "none"),
+                 ("ssm", "dense"), ("ssm", "moe"))
 
 
 def _check_family(cfg: ModelConfig):
     kinds = layer_kinds(cfg)[:block_period(cfg)]
-    if cfg.family not in ("dense", "moe", "ssm") or any(
+    if cfg.family not in _PORTED_FAMILIES or any(
             k not in _PORTED_KINDS for k in kinds):
         raise NotImplementedError(
             f"model family {cfg.family!r} is not ported yet; the port runs "
-            "the dense, MoE and SSM families (ROADMAP.md; the hybrid "
-            "family is §1 item 4.2)")
+            "the dense, MoE, SSM, hybrid and VLM families (ROADMAP.md; the "
+            "encoder-decoder family is §1 item 4.4)")
     return kinds
 
 
@@ -229,12 +239,23 @@ def _remat_context(remat_policy: str):
                      f"{remat_policy!r}")
 
 
+def _embed_inputs(params: Dict[str, torch.Tensor], tokens: torch.Tensor,
+                  frontend) -> torch.Tensor:
+    """The token embeddings, after the frontend embeddings when given
+    (cast to the embedding's dtype): ``(B, P + S, d)``."""
+    x = params["embed"][tokens.long()]
+    if frontend is not None:
+        x = torch.cat([frontend.to(x.dtype), x], dim=1)
+    return x
+
+
 def lm_loss(cfg: ModelConfig, params: Dict[str, torch.Tensor],
             batch: Dict[str, torch.Tensor], *, remat: bool = True,
             remat_policy: str = "full") -> torch.Tensor:
     """Next-token cross entropy of one agent, plus the MoE layers'
-    load-balance losses.  batch: {tokens (B, S)}; the loss predicts
-    tokens[1:] from the prefix, f32 logits through ``logsumexp``.
+    load-balance losses.  batch: {tokens (B, S), [frontend (B, P, d)]};
+    the loss predicts tokens[1:] from the prefix (the frontend positions
+    predict nothing), f32 logits through ``logsumexp``.
     ``remat`` recomputes each layer in the backward pass
     (``torch.utils.checkpoint``): ``remat_policy="full"`` keeps only the
     layer's input, ``"dots"`` also its matmul outputs.  The gradients are
@@ -242,8 +263,9 @@ def lm_loss(cfg: ModelConfig, params: Dict[str, torch.Tensor],
     _check_family(cfg)
     ctx = _remat_context(remat_policy)
     tokens = batch["tokens"].long()
-    x = params["embed"][tokens]
-    B, S = tokens.shape
+    fe = batch.get("frontend")
+    x = _embed_inputs(params, tokens, fe)
+    B, S = x.shape[:2]
     positions = torch.arange(S, device=tokens.device).expand(B, S)
     aux = None
     for lp in _layers(cfg, params):
@@ -258,7 +280,8 @@ def lm_loss(cfg: ModelConfig, params: Dict[str, torch.Tensor],
             aux = a if aux is None else aux + a
     h = rms_norm(x, params["final_ln"], cfg.norm_eps)
     logits = (h @ params["lm_head"]).float()
-    pred = logits[:, :-1]
+    n_front = 0 if fe is None else fe.shape[1]
+    pred = logits[:, n_front:-1]
     tgt = tokens[:, 1:]
     logz = torch.logsumexp(pred, dim=-1)
     gold = pred.gather(-1, tgt[..., None])[..., 0]
@@ -298,15 +321,17 @@ def init_lm_cache(cfg: ModelConfig, batch: int, length: int, *,
     return tuple(out)
 
 
-def lm_prefill(cfg: ModelConfig, params, tokens, *, window: int = 0):
+def lm_prefill(cfg: ModelConfig, params, tokens, *, frontend=None,
+               window: int = 0):
     """Full-sequence forward returning (last-token logits (B, 1, V),
     caches); with ``window`` each KV cache holds the last ``window`` rows
-    in ring order.  An SSM layer scans from a zero state, as the
-    reference's prefill does, and its cache is the final state."""
+    in ring order.  ``frontend`` embeddings ``(B, P, d)`` run before the
+    tokens, so the caches hold ``P + S`` positions.  An SSM layer scans
+    from a zero state, as the reference's prefill does, and its cache is
+    the final state."""
     _check_family(cfg)
-    tokens = tokens.long()
-    x = params["embed"][tokens]
-    B, S = tokens.shape
+    x = _embed_inputs(params, tokens, frontend)
+    B, S = x.shape[:2]
     positions = torch.arange(S, device=tokens.device).expand(B, S)
     per_layer = []
     for lp in _layers(cfg, params):

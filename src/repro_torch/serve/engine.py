@@ -60,15 +60,22 @@ def greedy_generate(model: Model, params, batch: Dict[str, Any],
                     n_steps: int) -> torch.Tensor:
     """Prefill the prompt, then greedy-decode: returns (B, n_steps)
     generated ids (int32), the first from the prefill logits.  This is the
-    dense reference the continuous-batching engine is held against."""
+    dense reference the continuous-batching engine is held against.  A
+    VLM batch's ``frontend`` embeddings (B, n_front, d) occupy the first
+    positions of the stream, so the caches grow to ``S + n_front +
+    n_steps`` and decoding starts at position ``S + n_front``; an SSM
+    layer's fixed-size state passes through ``grow_caches`` untouched."""
     tokens = batch["tokens"]
     B, S = tokens.shape
+    fe = batch.get("frontend")
+    n_front = 0 if fe is None else fe.shape[1]
     logits, caches = model.prefill(params, batch)
-    caches = grow_caches(model, caches, B, model.decode_window or S + n_steps)
+    L0 = S + n_front
+    caches = grow_caches(model, caches, B, model.decode_window or L0 + n_steps)
     step = build_serve_step(model)
     tok = torch.argmax(logits[:, -1].float(), -1).to(torch.int32)[:, None]
     out = [tok]
     for i in range(n_steps - 1):
-        tok, caches = step(params, caches, tok, S + i)
+        tok, caches = step(params, caches, tok, L0 + i)
         out.append(tok)
     return torch.cat(out, dim=1)

@@ -6,7 +6,8 @@ takes several times the device's time to issue them.  A captured step is
 one ``cudaGraphLaunch``.  :func:`graph_train_step` wraps the eager step
 built by :func:`repro_torch.train.build_train_step` into a callable with
 its signature, ``(state, batch) -> (state, metrics)``, whose body copies
-the batch's tokens into a static buffer and replays a graph of
+each of the batch's tensors (the tokens and, for a VLM, the frontend
+embeddings) into a static buffer of its own and replays a graph of
 :class:`~repro_torch.train.trainer.StaticBusStep`:
 
 * **One static state.**  The captured step writes x', m', ψ' (and e') over
@@ -74,7 +75,7 @@ class GraphedTrainStep:
         self.static, self.x, self.opt = static, x, dict(state["opt"])
         pipe = state.get("pipeline")
         self.slot = None if pipe is None else pipe["slot"]
-        self.tokens = torch.empty_like(batch["tokens"])
+        self.batch = {k: torch.empty_like(v) for k, v in batch.items()}
         self.lr_scale = (torch.zeros((), dtype=torch.float32,
                                      device=x.device)
                          if static.lr_schedule is not None else None)
@@ -89,12 +90,12 @@ class GraphedTrainStep:
         run, side, dev = self.static.run, self.side, self.x.device
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
-            metrics = run(st, self.tokens, self.lr_scale)
+            metrics = run(st, self.batch, self.lr_scale)
         torch.cuda.current_stream(dev).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         try:
             with torch.cuda.graph(graph, pool=self.pool, stream=side):
-                captured = run(st, self.tokens, self.lr_scale)
+                captured = run(st, self.batch, self.lr_scale)
         except RuntimeError as err:
             raise RuntimeError(f"capturing the bus train step (key {key}: "
                                f"round, gossip, ...) failed: {err}"
@@ -111,7 +112,12 @@ class GraphedTrainStep:
             raise ValueError("a graphed step runs on its static state: pass "
                              "the state the previous call returned")
         t = int(st["step"])
-        self.tokens.copy_(batch["tokens"])
+        if batch.keys() != self.batch.keys():
+            raise ValueError(f"a graphed step takes the batch keys it was "
+                             f"built with, {sorted(self.batch)}; got "
+                             f"{sorted(batch)}")
+        for k, buf in self.batch.items():
+            buf.copy_(batch[k])
         if self.lr_scale is not None:
             self.lr_scale.copy_(self.static.lr_schedule(t))
         if self.static.prepare is not None:
@@ -138,8 +144,8 @@ def graph_train_step(step: Callable, state: Dict,
     """The bus step ``step`` (from ``build_train_step``) replayed from CUDA
     graphs over ``state``'s buffers, which become the static state: every
     later call must pass the state the previous call returned.  ``batch``
-    gives the token buffer's shape and dtype.  Raises for the tree path
-    and for a state that is not on a CUDA device."""
+    gives the static batch buffers' keys, shapes and dtypes.  Raises for
+    the tree path and for a state that is not on a CUDA device."""
     static = getattr(step, "static", None)
     if static is None:
         raise ValueError("graph_train_step captures the packed-bus step; the "

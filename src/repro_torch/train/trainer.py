@@ -350,16 +350,24 @@ GradMap = Optional[Callable[[Dict[str, torch.Tensor]],
                             Dict[str, torch.Tensor]]]
 
 
+def _agent_batch(batch: Dict[str, torch.Tensor], a: int
+                 ) -> Dict[str, torch.Tensor]:
+    """Agent ``a``'s slice of an agent-stacked batch (every key)."""
+    return {k: v[a] for k, v in batch.items()}
+
+
 def losses_and_grads(model: Model, layout: parambus.BusLayout,
-                     x_bus: torch.Tensor, tokens: torch.Tensor,
+                     x_bus: torch.Tensor, batch: Dict[str, torch.Tensor],
                      grad_map: GradMap = None, *, remat: bool = True,
                      remat_policy: str = "full"
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-agent losses ``(A,)`` and the f32 gradient bus: agent ``a``'s
     parameters are unpacked from row block ``a`` of ``x_bus`` (cast to
-    their own dtypes), and the gradient of agent ``a``'s OWN loss on
-    ``tokens[a]`` — through ``grad_map`` (the LR schedule's scaling), in
-    the leaves' dtypes — is packed into row block ``a`` of the gradient
+    their own dtypes), and the gradient of agent ``a``'s OWN loss on its
+    slice of ``batch`` (``tokens`` ``(A, b, S)`` and, for a VLM,
+    ``frontend`` ``(A, b, P, d)``) — through ``grad_map`` (the LR
+    schedule's scaling), in the leaves' dtypes — is packed into row block
+    ``a`` of the gradient
     bus: the JAX step's ``vmap(value_and_grad(loss))``, one agent at a
     time.  ``remat`` / ``remat_policy`` go to ``model.loss`` (the run's
     ``RunConfig.remat`` / ``remat_policy``)."""
@@ -368,7 +376,7 @@ def losses_and_grads(model: Model, layout: parambus.BusLayout,
     for a in range(x_bus.shape[0]):
         leaves = {p: v.detach().requires_grad_()
                   for p, v in parambus.unpack_agent(layout, x_bus, a).items()}
-        loss = model.loss(leaves, {"tokens": tokens[a]}, remat=remat,
+        loss = model.loss(leaves, _agent_batch(batch, a), remat=remat,
                           remat_policy=remat_policy)
         grads = dict(zip(layout.paths, torch.autograd.grad(
             loss, [leaves[p] for p in layout.paths])))
@@ -380,7 +388,8 @@ def losses_and_grads(model: Model, layout: parambus.BusLayout,
 
 
 def tree_losses_and_grads(model: Model, params: Dict[str, torch.Tensor],
-                          tokens: torch.Tensor, *, remat: bool = True,
+                          batch: Dict[str, torch.Tensor], *,
+                          remat: bool = True,
                           remat_policy: str = "full"
                           ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The tree version of :func:`losses_and_grads`: per-agent losses
@@ -389,10 +398,10 @@ def tree_losses_and_grads(model: Model, params: Dict[str, torch.Tensor],
     parameters ``params[path][a]``."""
     grads = {p: torch.empty_like(v) for p, v in params.items()}
     losses = []
-    for a in range(tokens.shape[0]):
+    for a in range(batch["tokens"].shape[0]):
         leaves = {p: v[a].detach().requires_grad_()
                   for p, v in params.items()}
-        loss = model.loss(leaves, {"tokens": tokens[a]}, remat=remat,
+        loss = model.loss(leaves, _agent_batch(batch, a), remat=remat,
                           remat_policy=remat_policy)
         for p, g in zip(leaves, torch.autograd.grad(loss,
                                                     list(leaves.values()))):
@@ -416,7 +425,7 @@ class StaticBusStep:
     """The bus step over a static state: what a CUDA graph captures
     (:func:`repro_torch.train.graphs.graph_train_step`).
 
-    ``run(state, tokens, lr_scale)`` takes ``state["step"]``'s step,
+    ``run(state, batch, lr_scale)`` takes ``state["step"]``'s step,
     writes x', m', ψ' (and e', and under overlap the new payload into the
     pipeline's spare slot) over the state's own buffers — a fused combine
     writes the new x into x's buffer, which is dead once φ exists (under
@@ -472,7 +481,8 @@ def build_train_step(model: Model, run: RunConfig, topo,
                      straggler_plan: Optional[StragglerPlan] = None,
                      pods: int = 1, device=None) -> Callable:
     """Returns ``train_step(state, batch) -> (state, metrics)``; batch
-    tokens are ``(A, per_agent_batch, S)``.
+    tokens are ``(A, per_agent_batch, S)`` (a VLM's batch also carries
+    ``frontend`` ``(A, per_agent_batch, n_frontend_tokens, d_model)``).
 
     ``topo`` is a :class:`Topology` or a
     :class:`~repro_torch.core.schedule.GossipSchedule` (one round per
@@ -629,10 +639,10 @@ def build_train_step(model: Model, run: RunConfig, topo,
             return rnd, gossips(step)
         return rnd, gossips(step), bool(late_at(step).any())
 
-    def bus_step(x, opt_state, tokens, step: int, out=None, lr_scale=None):
+    def bus_step(x, opt_state, batch, step: int, out=None, lr_scale=None):
         """One bus step: ``(x', opt', metrics)``, x' written into ``out``
         when given."""
-        losses, grads = losses_and_grads(model, layout, x, tokens,
+        losses, grads = losses_and_grads(model, layout, x, batch,
                                          grad_map(step, lr_scale), **remat)
         with torch.no_grad():
             opt = bus_opt(gossip_round_step(step, every), gossips(step), out)
@@ -642,7 +652,7 @@ def build_train_step(model: Model, run: RunConfig, topo,
                        "grad_norm": bus_grad_norm(grads)}
         return new_x, new_opt, metrics
 
-    def overlap_step(pipe, opt_state, tokens, step: int, out=None,
+    def overlap_step(pipe, opt_state, batch, step: int, out=None,
                      lr_scale=None):
         """One delayed-pipeline step: ``(x(t), opt', metrics)``, φ(t+1)
         written into the pipeline's spare slot, x(t) into ``out`` when
@@ -657,7 +667,7 @@ def build_train_step(model: Model, run: RunConfig, topo,
                        else _encode_ef_agents(codec, phi, opt_state["e"]))
             payloads = issue(payload, step)
         # COMPUTE: gradients at the pre-mix local iterate φ(t)
-        losses, grads = losses_and_grads(model, layout, phi, tokens,
+        losses, grads = losses_and_grads(model, layout, phi, batch,
                                          grad_map(step, lr_scale), **remat)
         with torch.no_grad():
             # COMPLETE: the combine x(t) = W(t) φ̃(t), late slots at
@@ -675,7 +685,7 @@ def build_train_step(model: Model, run: RunConfig, topo,
         new_opt = {**opt_state, "m": m_new, "psi": psi_new}
         return x_mixed, new_opt, metrics
 
-    def static_run(state: TrainState, tokens, lr_scale=None) -> Dict:
+    def static_run(state: TrainState, batch, lr_scale=None) -> Dict:
         x, opt_state = state["params"], state["opt"]
         if (lr_sched is None) != (lr_scale is None):
             raise ValueError("lr_scale is the LR schedule's device scalar: "
@@ -683,10 +693,10 @@ def build_train_step(model: Model, run: RunConfig, topo,
         step = int(state["step"])
         if feats.overlap:
             new_x, new_opt, metrics = overlap_step(
-                state["pipeline"], opt_state, tokens, step, out=x,
+                state["pipeline"], opt_state, batch, step, out=x,
                 lr_scale=lr_scale)
         else:
-            new_x, new_opt, metrics = bus_step(x, opt_state, tokens, step,
+            new_x, new_opt, metrics = bus_step(x, opt_state, batch, step,
                                                out=x, lr_scale=lr_scale)
         if new_x.data_ptr() != x.data_ptr():     # the mix was not fused
             x.copy_(new_x)
@@ -709,17 +719,17 @@ def build_train_step(model: Model, run: RunConfig, topo,
         if feats.overlap:
             pipe = state["pipeline"]
             new_x, new_opt, metrics = overlap_step(pipe, state["opt"],
-                                                   batch["tokens"], step)
+                                                   batch, step)
             return {"params": new_x, "opt": new_opt,
                     "pipeline": {"slot": pipe["slot"],
                                  "parity": 1 - int(pipe["parity"])},
                     "step": step + 1}, metrics
         if feats.packed_bus:
             new_x, new_opt, metrics = bus_step(params, state["opt"],
-                                               batch["tokens"], step)
+                                               batch, step)
             return {"params": new_x, "opt": new_opt, "step": step + 1}, \
                 metrics
-        losses, grads = tree_losses_and_grads(model, params, batch["tokens"],
+        losses, grads = tree_losses_and_grads(model, params, batch,
                                               **remat)
         if lr_sched is not None:
             grads = scale_grads(grads, step, lr_sched)

@@ -301,11 +301,15 @@ DECODE_CASES = [
          kv_len=[1024, 0, 1, 17, 255, 256, 511, 640, 700, 129, 33, 1000,
                  64, 900, 15, 384]),
     # head dim 128 at the same 16 slots: deepseek_moe_16b's heads (MHA,
-    # G 1) and qwen3_moe_235b_a22b's (G 16: two blocks a KV head)
+    # G 1), qwen3_moe_235b_a22b's (G 16: two blocks a KV head) and
+    # pixtral_12b's (K 8, G 4)
     dict(B=16, K=16, G=1, hd=128, page_size=16,
          kv_len=[1024, 0, 1, 17, 255, 256, 511, 640, 700, 129, 33, 1000,
                  64, 900, 15, 384]),
     dict(B=16, K=4, G=16, hd=128, page_size=16,
+         kv_len=[1024, 0, 1, 17, 255, 256, 511, 640, 700, 129, 33, 1000,
+                 64, 900, 15, 384]),
+    dict(B=16, K=8, G=4, hd=128, page_size=16,
          kv_len=[1024, 0, 1, 17, 255, 256, 511, 640, 700, 129, 33, 1000,
                  64, 900, 15, 384]),
 ]
@@ -407,10 +411,11 @@ PREFILL_CASES = [(w, s, C, n, 2, 2, 8, 4, 6, 16) for w, s, C, n in [
     for s, n in ((0, 16), (16, 16), (16, 7), (32, 1))] + [
     (w, s, 128, n, 5, 3, 64, 16, 64, 80)
     for w in (0, 256) for s, n in ((0, 128), (128, 128), (640, 77))] + [
-    # head dim 128: deepseek_moe_16b's heads (K 16, G 1) and
-    # qwen3_moe_235b_a22b's (K 4, G 16), 128-token chunks at context 1024
+    # head dim 128: deepseek_moe_16b's heads (K 16, G 1),
+    # qwen3_moe_235b_a22b's (K 4, G 16) and pixtral_12b's (K 8, G 4),
+    # 128-token chunks at context 1024 (77 rows: a partial query tile)
     (w, s, 128, n, K, G, 128, 16, 64, 80)
-    for K, G in ((16, 1), (4, 16))
+    for K, G in ((16, 1), (4, 16), (8, 4))
     for w, s, n in ((0, 0, 128), (0, 640, 128), (0, 640, 77),
                     (256, 640, 128))]
 # the edges of the bf16 kernel's tiles and splits: 100 earlier rows (not
@@ -894,12 +899,17 @@ GRAPH_CASES = {"ring": {},
 
 def _traced_launches(fn):
     """Run ``fn`` under torch.profiler: launches of each TRACE_NAMES
-    kernel on the device."""
+    kernel on the device.  The profiler's window is held open 0.2 s past
+    the device's drain (``chip_smoke.PROFILE_SETTLE_S``): a region closed
+    at the drain can lose the records of its last kernels, the EDM update
+    and the combine among them."""
+    import time
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+        time.sleep(0.2)
     counts = dict.fromkeys(TRACE_NAMES, 0)
     for ev in prof.key_averages():
         if ev.device_type == DeviceType.CUDA:
@@ -1429,3 +1439,132 @@ def test_cuda_graphed_ssm_step_bit_equal_to_eager(cuda, groups, remat,
     assert torch.equal(graph["params"], eager["params"])
     for k in ("m", "psi"):
         assert torch.equal(graph["opt"][k], eager["opt"][k]), k
+
+
+def _graphed_against_eager(cuda, model, run, batches):
+    """3 bus steps replayed from a CUDA graph against 3 eager steps from
+    one state, deterministic algorithms on: (graphed state, eager state,
+    graphed metrics, eager metrics, graphed traces, eager traces)."""
+    from repro_torch.train import (build_train_step, init_state,
+                                   make_gossip_schedule)
+    from repro_torch.train.graphs import graph_train_step
+    A = run.global_batch
+
+    def trajectory(graphed):
+        step = build_train_step(model, run, make_gossip_schedule(run, A),
+                                use_fused_kernel=True, device=cuda)
+        state = init_state(model, run, A, seed=0, device=cuda)
+        if graphed:
+            step = graph_train_step(step, state, batches[0])
+        history, traced = [], []
+        for b in batches:
+            def one(b=b):
+                nonlocal state
+                state, metrics = step(state, b)
+                history.append({k: v.clone() for k, v in metrics.items()})
+            traced.append(_traced_launches(one))
+        return state, history, traced
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        eager, h_eager, t_eager = trajectory(False)
+        graph, h_graph, t_graph = trajectory(True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return graph, eager, h_graph, h_eager, t_graph, t_eager
+
+
+def _assert_same_run(graph, eager, h_graph, h_eager, t_graph, t_eager):
+    assert t_graph == t_eager
+    for tr in t_eager:
+        assert tr["edm_update"] == 1 and tr["ring_combine"] == 1, tr
+    for a, b in zip(h_graph, h_eager):
+        for k in a:
+            assert torch.equal(a[k], b[k]), k
+    assert torch.equal(graph["params"], eager["params"])
+    for k in ("m", "psi"):
+        assert torch.equal(graph["opt"][k], eager["opt"][k]), k
+
+
+def _bus_run(**kw):
+    from repro_torch.configs.base import RunConfig
+    return RunConfig(**dict(dict(
+        global_batch=4, seq_len=16, algorithm="edm", alpha=0.2, beta=0.9,
+        gossip_engine="ppermute", agents_per_device=4, remat=False), **kw))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("arch", ["jamba_1_5_large_398b", "pixtral_12b"])
+def test_cuda_hybrid_and_vlm_loss_match_cpu(cuda, arch):
+    """The hybrid smoke model's layer stack (Mamba, attention and MoE
+    layers, the aux loss) and the VLM smoke model's loss with a frontend,
+    with their gradients, on the card against the same f32 weights and
+    inputs on the CPU: normwise relative error within 1e-5 (the Mamba
+    block's card bound)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    model = build_model(get_smoke_config(arch))
+    cfg = model.cfg
+    params = model.init(torch.Generator().manual_seed(3))
+    gen = torch.Generator().manual_seed(4)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 24),
+                                     generator=gen)}
+    if cfg.family == "vlm":
+        batch["frontend"] = torch.randn((2, cfg.n_frontend_tokens,
+                                         cfg.d_model), generator=gen)
+
+    def run(device):
+        leaves = {k: v.to(device).requires_grad_() for k, v in params.items()}
+        loss = model.loss(leaves, {k: v.to(device) for k, v in batch.items()},
+                          remat=False)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        return [t.detach().cpu() for t in [loss, *grads]]
+
+    for i, (got, want) in enumerate(zip(run(cuda), run("cpu"))):
+        rel = float((got - want).norm() / want.norm())
+        assert rel <= 1e-5, (i, rel)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("groups", ["", "ssm:0,moe"])
+def test_cuda_graphed_hybrid_step_bit_equal_to_eager(cuda, groups,
+                                                     monkeypatch):
+    """The hybrid smoke model on the ring bus (the MoE's gather dispatch
+    and the Mamba scan in one graph), ungrouped and under ``ssm:0,moe``
+    (state and expert rows opt out): 3 replayed steps against 3 eager
+    steps, metrics and buses bit-equal, one EDM and one ring kernel in
+    each step's trace."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    model = build_model(get_smoke_config("jamba_1_5_large_398b"))
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    batches = [{"tokens": torch.randint(0, model.cfg.vocab_size, (4, 1, 16),
+                                        generator=gen, device=cuda)}
+               for _ in range(3)]
+    _assert_same_run(*_graphed_against_eager(
+        cuda, model, _bus_run(gossip_groups=groups), batches))
+
+
+@pytest.mark.requires_cuda
+def test_cuda_graphed_vlm_step_refreshes_the_frontend(cuda, monkeypatch):
+    """The VLM smoke model's graphed step copies every step's frontend
+    into its static buffer: 3 steps (the first eager and captured, two
+    replays), each with a new frontend — step 1 repeats step 0's tokens,
+    so a replay that read a stale frontend would part from the eager
+    step — bit-equal to 3 eager steps."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    model = build_model(get_smoke_config("pixtral_12b"))
+    cfg = model.cfg
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 1, 16), generator=gen,
+                           device=cuda)
+    batches = [{"tokens": tokens if t < 2 else tokens.flip(-1),
+                "frontend": torch.randn((4, 1, cfg.n_frontend_tokens,
+                                         cfg.d_model), generator=gen,
+                                        device=cuda)}
+               for t in range(3)]
+    _assert_same_run(*_graphed_against_eager(cuda, model, _bus_run(),
+                                             batches))

@@ -90,3 +90,15 @@ def test_split_plan_long_and_degenerate_tables(B, K, rows, page_size):
     n_split, split_keys = split_plan(B, K, rows, page_size, sms=H100_SMS)
     assert 1 <= n_split <= MAX_SPLITS and split_keys % page_size == 0
     assert n_split * split_keys >= rows
+
+
+# pixtral_12b's engine at context 1024 (chip_smoke.py phase 19): 16 slots,
+# 8 KV heads, 64 pages of 16 rows; its G 4 and head dim 128 do not enter
+# the plan
+DECODE_PIXTRAL = (16, 8, 16, 64)
+
+
+def test_split_plan_fills_the_card_at_the_g4_engine_shape():
+    n_split, split_keys = _check_plan(*DECODE_PIXTRAL)
+    assert 16 * 8 * n_split >= H100_SMS
+    assert (n_split, split_keys) == (8, 128)

@@ -84,7 +84,7 @@ def test_static_step_bit_equal_to_functional_step(case):
     for t, tok in enumerate(tokens):
         if lr_scale is not None:
             lr_scale.copy_(static.lr_schedule(t))
-        metrics = static.run(state, tok, lr_scale)
+        metrics = static.run(state, {"tokens": tok}, lr_scale)
         state["step"] += 1
         keys.add(static.key(t))
         for k, v in want_metrics[t].items():
@@ -101,11 +101,11 @@ def test_static_step_refuses_a_missing_or_stray_lr_scale():
     model, run, step, tokens = _setup("warmup_cosine")
     state = init_state(model, run, A, seed=0, device="cpu")
     with pytest.raises(ValueError, match="lr_scale"):
-        step.static.run(state, tokens[0], None)
+        step.static.run(state, {"tokens": tokens[0]}, None)
     model, run, step, tokens = _setup("ring")
     state = init_state(model, run, A, seed=0, device="cpu")
     with pytest.raises(ValueError, match="lr_scale"):
-        step.static.run(state, tokens[0], torch.ones(()))
+        step.static.run(state, {"tokens": tokens[0]}, torch.ones(()))
 
 
 def test_graph_train_step_raises_on_cpu_and_on_the_tree_path():

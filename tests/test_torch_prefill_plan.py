@@ -61,3 +61,14 @@ def test_split_plan_long_and_degenerate_slots(prev, n_chunk, q_rows, K):
     """A context far longer than the card is wide stays within the
     merge's MAX_SPLITS; one key, or no chunk key, still gets a plan."""
     _check_plan(prev, n_chunk, q_rows, K)
+
+
+# pixtral_12b's longest-context chunk (chip_smoke.py phase 19): 128
+# tokens after 640 rows, 8 KV heads, G 4 (512 query rows a KV head)
+PREFILL_PIXTRAL = (0, 640, 128, 128, 8, 4, 128, 16, 64, 80)
+
+
+def test_split_plan_fills_the_card_at_the_g4_chunk():
+    prev, n_chunk = _slot_keys(PREFILL_PIXTRAL)
+    blocks = _check_plan(prev, n_chunk, 128 * 4, 8)
+    assert blocks >= H100_SMS
