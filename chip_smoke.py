@@ -65,10 +65,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    graph replay profiled and between CUDA events, its idle share against
    phase 4's median; the replay's device trace must hold what the eager
    step's holds, one ``edm_update`` and one ``ring_combine`` kernel;
-6. fused against plain through the rolls: from one saved state and one
-   gradient bus, one optimizer + gossip step with the rolls and the
-   ``gossip_axpy`` kernel and one with the rolls and the plain combine;
-   the three buses must be bit-equal;
+6. fused against plain through the rolls: from one state (one eager
+   step past the init) and one gradient bus, one optimizer + gossip step
+   with the rolls and the ``gossip_axpy`` kernel and one with the rolls
+   and the plain combine; the three buses must be bit-equal — at full
+   width with the depth cut to 8 layers, as 6r, 6w and 4g (the kernels
+   themselves are held on the full bus in phase 3);
 4r. the main path with ``--eager``, counts read around it (5
    ``ring_combine`` and 5 ``edm_update`` launches, no ``gossip_axpy``);
    metrics finite; step times, tokens/s, peak memory, busy time and idle
@@ -97,7 +99,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    holds the eager step's EF-update and q8-combine kernels;
 6w. the fused EF step against the plain EF step (the codec's chain and the
    combine's plain version on the same rolled payloads), int8 and bf16,
-   at full width: x, m, ψ and e bit-equal;
+   at full width, 8 layers: x, m, ψ and e bit-equal;
 7. serving kernels: paged decode and paged prefill attention against their
    plain versions on the same pools, at the shapes of both serving runs of
    phase 8 and at head dim 128 (deepseek_moe_16b's heads, K 16 and G 1,
@@ -147,7 +149,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 6t. one tree EDM step with the kernels (per-leaf pack, EDM kernel,
    unpack; per-leaf rolls and combine kernel) bit-equal to the same step
    with the plain versions through the same pack, unpack and rolls, and
-   within four bf16 ulps of the operands' scale of the unfused chain;
+   within four bf16 ulps of the operands' scale of the unfused chain (at
+   full width, 8 layers, as phase 6);
 10. the paper on the card: §E.1's quadratic problem, 32 agents on a ring,
    full gradients, 3000 steps of EDM and DmSGD through ``make_optimizer``:
    EDM's mean ‖xᵢ − x*‖² below 1e-8, DmSGD's above 1e-3;
@@ -175,9 +178,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    the f32 ring and with ``--wire int8``, graphed, counts reset before
    and read after (2 eager steps — one per parity — and 3 replays);
    graphed == eager under deterministic algorithms at the depth 4g runs
-   (their profiled replay gives the idle share at that depth); step 0 == the synchronous step; a
-   ``StragglerPlan`` with slot 1 late at step 1 (the table kernel, 1
-   launch) bit-equal to its plain twin.
+   (their profiled replay gives the idle share at that depth); at that
+   depth too, step 0 == the synchronous step, and a ``StragglerPlan``
+   with slot 1 late at step 1 (the table kernel, 1 launch) bit-equal to
+   its plain twin.
 14. policy groups: the main cell plus ``--gossip-groups`` (embeddings
    opt out, attention on the ring every step, the MLPs int8 every other
    step, the final norm bf16 on round_robin's rounds), 6 steps, graphed,
@@ -185,11 +189,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    each key — 2 EDM, 2 ring, 2 bf16 combine, 1 q8 launch — and 4
    replays); each group's rows and modeled wire bytes; median even and
    odd step, peak allocated and reserved; one even and one odd replay
-   profiled (busy, idle share; EDM + ring + combine, plus q8 when odd);
-   the 2-group all-gossip f32 ring (3 steps, graphed) bit-equal to the
-   ungrouped ring on every leaf; graphed == eager for the 4-group policy
-   (4 steps, deterministic), the opt-out rows of x equal to φ's after
-   every step.
+   profiled (busy, host, idle share; EDM + ring + combine, plus q8 when
+   odd); the 2-group all-gossip f32 ring (3 steps, graphed) bit-equal to
+   the ungrouped ring on every leaf; graphed == eager for the 4-group
+   policy (4 steps, deterministic), the opt-out rows of x equal to φ's
+   after every step — the replays and both comparisons at full width
+   with the depth cut to 8 layers, as 4g and 13 (the CLI run at full
+   depth).
 15. MoE serving: deepseek_moe_16b at full width and depth (28 layers, 64
    experts of width 1408, top-6, 2 shared experts, vocab 102400, bf16,
    16.88 B parameters from seed 0): the serve CLI at phase 8's trace
@@ -266,9 +272,31 @@ Phases, in order; any failure raises and the script exits non-zero:
    leaves and the experts opt out) and ungrouped; ``remat`` gradients
    bit-equal; the EDM and ring kernels on its 2.51 G-element bus,
    bit-equal on agent 3's block (which spans element 2³¹) and timed.
+23. encoder-decoder serving: whisper_small at full width and depth (12
+   encoder + 12 decoder layers, d 768, 12 heads at hd 64, d_ff 3072,
+   vocab 51865, bf16, 277,893,120 parameters from seed 0): the serve
+   CLI's fixed batch at phase 8's sizes (8 requests, prompt 32, 32 new
+   tokens) with 1500 seeded frames a request, counts reset just before
+   and read just after (no kernel of the port: no paged path, as in the
+   reference), then the same batch through ``greedy_generate``: prefill
+   ms (the encoder plus the prompt), ms a token, one decode step
+   profiled (busy, host, launches, idle share), the peak; then at the
+   smoke config in f32 on the card: prefill + one decode step equal to
+   the full prefill (rtol 1e-3 / atol 1e-4), ``greedy_generate`` equal
+   to a token-by-token decode replay whose cross caches come from the
+   prefill;
+24. encoder-decoder training: whisper_small at full width and depth, 4
+   agents on the ring, bus ``(4, 2171392, 128)`` f32, seq 128 after the
+   encoder's 1500 frames, new frames every step (step 1 repeating step
+   0's tokens), as phase 20 (ungrouped): graphed == eager bit for bit,
+   1 EDM and 1 ring kernel in each replay's trace; then 2 steps through
+   the train CLI (1 EDM and 1 ring launch, 1 replay), the parameters
+   saved, their consensus exported and served by the serve CLI's fixed
+   batch ``--ckpt``: the served digest equal to the export's.
 
 Phases run in the order 1–3, 3w, 3r, 3m, 3f, 4–6, 4r, 6r, 4g, 4w–6w,
-12, 13, 14, 4t–6t, 7–11, 15–22.  The third
+12, 13, 14, 4t–6t, 7–11, 15–24; a ``[time]`` line before each gives the
+seconds since the start and those of the phase before.  The third
 line from the end is the ``nvidia-smi`` name and power limit,
 the line before the last ``{"kernels": [...]}`` and the last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -276,6 +304,7 @@ the line before the last ``{"kernels": [...]}`` and the last
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
 import re
@@ -350,6 +379,15 @@ HYBRID_CLI_ARGS = ["--arch", HYBRID_ARCH, "--n-layers",
                    str(HYBRID_SERVE_LAYERS)] + SSM_SERVE_ARGS[2:]
 HYBRID_TRAIN = dict(n_layers=8, d_model=1024, d_ff=2048, dense_d_ff=2048)
 HYBRID_TRAIN_PARAMS, HYBRID_GROUPS = 627657728, "ssm:0,moe"
+
+# the encoder-decoder family: whisper_small at full width and depth (12 +
+# 12 layers, 277,893,120 parameters) served (phase 23: the serve CLI's
+# fixed batch at phase 8's sizes, 1500 seeded frames a request) and
+# trained on the main cell's four agents (phase 24), bus (4, 2171392, 128)
+WHISPER_ARCH, WHISPER_PARAMS = "whisper_small", 277893120
+WHISPER_CLI_ARGS = ["--arch", WHISPER_ARCH] + SSM_SERVE_ARGS[2:]
+WHISPER_SHAPE = (8, 32, 32)         # the CLI's batch, prompt, new tokens
+WHISPER_BUS = (AGENTS, 2171392, 128)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1228,6 +1266,20 @@ def profile_graph_replay(model, run, state, batch):
                    "host_ms": host_ms_}
 
 
+def stepped_state(model, run, batch):
+    """A state of ``model`` (the bus, or the tree with ``packed_bus``
+    off) one eager step past the seed-0 init (m and ψ nonzero, with a
+    wire its residual too): where the twin checks of phases 6, 6r, 6w and
+    6t start."""
+    from repro_torch.train import (build_train_step, init_state,
+                                   make_gossip_schedule)
+    state = init_state(model, run, AGENTS, seed=0, device="cuda")
+    step = build_train_step(model, run, make_gossip_schedule(run, AGENTS),
+                            use_fused_kernel=True, device="cuda")
+    state, _ = step(state, batch)
+    return state
+
+
 def check_replay(tag: str, eprof, gprof, want) -> None:
     """One profiled eager step and one profiled graph replay ran the same
     training kernels, ``want`` (counter name → launches, the rest 0)."""
@@ -1734,7 +1786,6 @@ def overlap_phase(model, data, dgen):
                                                   n_layers=GRAPH_LAYERS))
     recs["graph"] = graph_phase(graph_model, data, dgen,
                                 OVERLAP_GRAPH_CASES)
-    del graph_model
     for fmt, g in zip(("f32", "int8"), recs["graph"]):
         # the profiled replay of 4g's graphed trajectory (deterministic)
         want = recs[fmt]["launches"]
@@ -1749,11 +1800,12 @@ def overlap_phase(model, data, dgen):
     print("[time] phase 13 graph == eager done", flush=True)
     torch.use_deterministic_algorithms(True)
     try:
-        recs["step0"] = overlap_step0(model, data, dgen)
+        recs["step0"] = overlap_step0(graph_model, data, dgen)
         print("[time] phase 13 step 0 done", flush=True)
-        recs["straggler"] = straggler_vs_plain(model, data, dgen)
+        recs["straggler"] = straggler_vs_plain(graph_model, data, dgen)
     finally:
         torch.use_deterministic_algorithms(False)
+    del graph_model
     return recs
 
 
@@ -1786,9 +1838,10 @@ GROUP_TRACE = {"even": {"edm_update": 1, "ring_combine": 1,
 def group_replays(model, run, state, batches):
     """Graph the grouped step over ``state`` (at an even step): two steps
     run eagerly and are captured (one a graph key); then one even and one
-    odd replay under torch.profiler, and one of each between CUDA events.
-    Returns the state and, per parity, the replay's device busy ms,
-    launches, training kernels and span."""
+    odd replay under torch.profiler, and one of each between CUDA events
+    and on the host's clock (ending in a device sync).  Returns the state
+    and, per parity, the replay's device busy ms, launches, training
+    kernels, span, host ms and idle share (1 − busy / host)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.train import build_train_step, make_gossip_schedule
@@ -1817,11 +1870,16 @@ def group_replays(model, run, state, batches):
         parity = "odd" if int(state["step"]) % 2 else "even"
         start, end = (torch.cuda.Event(enable_timing=True)
                       for _ in range(2))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         start.record()
         state, _ = step(state, b)
         end.record()
         torch.cuda.synchronize()
-        recs[parity]["span_ms"] = start.elapsed_time(end)
+        r = recs[parity]
+        r["host_ms"] = (time.perf_counter() - t0) * 1e3
+        r["span_ms"] = start.elapsed_time(end)
+        r["idle_share"] = 1 - r["busy_ms"] / r["host_ms"]
     check(len(step.graphs) == 2 and step.replays == 4,
           f"{len(step.graphs)} graphs and {step.replays} replays, expected "
           "2 and 4")
@@ -1936,15 +1994,20 @@ def grouped_graph_vs_eager(model, batches):
 
 def group_phase(model, data, dgen):
     """Phase 14: the main cell plus ``--gossip-groups`` (GROUP_POLICY)
-    through the CLI, graphed, 6 steps, counts reset before and read after
-    (the eager first step of each of the 2 graph keys: 2 EDM, 2 ring, 2
-    bf16 combine and 1 q8 launch; 4 replays); each group's rows and
-    modeled wire bytes; median even (no MLP gossip) and odd step; one
-    even and one odd replay profiled (busy, idle, the kernels); then the
-    2-group f32 ring == the ungrouped ring and graphed == eager."""
+    through the CLI at full depth, graphed, 6 steps, counts reset before
+    and read after (the eager first step of each of the 2 graph keys: 2
+    EDM, 2 ring, 2 bf16 combine and 1 q8 launch; 4 replays); each group's
+    rows and modeled wire bytes; median even (no MLP gossip) and odd
+    step.  Then, at full width with the depth cut to ``GRAPH_LAYERS`` as
+    4g and phase 13 (for the script's time): one even and one odd
+    replay profiled from the seed-0 state (busy, host, idle, the
+    kernels), the 2-group f32 ring == the ungrouped ring and graphed ==
+    eager."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.launch import train as cli
+    from repro_torch.models import build_model
+    from repro_torch.train import init_state
     free()
     args = MAIN_ARGS + ["--gossip-groups", GROUP_POLICY]
     args[args.index("--steps") + 1] = str(GROUP_STEPS)
@@ -1978,23 +2041,28 @@ def group_phase(model, data, dgen):
     check(state["step"] == GROUP_STEPS
           and bool(torch.isfinite(state["params"]).all()),
           "grouped cell: final state")
+    del state
+    free()
     print("[time] phase 14 CLI done", flush=True)
+    graph_model = build_model(dataclasses.replace(model.cfg,
+                                                  n_layers=GRAPH_LAYERS))
+    rec["graph_layers"] = GRAPH_LAYERS
     batches = [data.sample(dgen, 1) for _ in range(6)]
-    state, rec["replays"] = group_replays(model, run, state, batches)
-    for parity in ("even", "odd"):
-        r = rec["replays"][parity]
-        r["idle_share"] = 1 - r["busy_ms"] / rec[f"{parity}_ms"]
+    state = init_state(graph_model, run, AGENTS, seed=0, device="cuda")
+    state, rec["replays"] = group_replays(graph_model, run, state, batches)
     del state
     free()
     print("[time] phase 14 replays done", flush=True)
     batches = [data.sample(dgen, 1) for _ in range(GRAPH_STEPS + 1)]
-    rec["two_groups_eq_ungrouped"] = grouped_vs_ungrouped(model, batches)
+    rec["two_groups_eq_ungrouped"] = grouped_vs_ungrouped(graph_model,
+                                                          batches)
     print("[time] phase 14 grouped == ungrouped done", flush=True)
     torch.use_deterministic_algorithms(True)
     try:
-        rec["graph_eq_eager"] = grouped_graph_vs_eager(model, batches)
+        rec["graph_eq_eager"] = grouped_graph_vs_eager(graph_model, batches)
     finally:
         torch.use_deterministic_algorithms(False)
+    del graph_model
     return rec
 
 
@@ -2852,44 +2920,44 @@ SMOKE_RESUME = ["--arch", ARCH, "--smoke", "--agents", str(AGENTS),
                 "cuda"]
 
 
-def handoff_phase(n_layers: int):
-    """Phase 11: train 2 bus steps at full width through the train CLI,
-    save the parameters (``params|`` leaves, the bus unpacked) with the
-    port's ``checkpoint.save``, export their consensus with the port's
-    ``export_consensus`` and serve 4 requests from it through the serve
-    CLI's ``--ckpt`` in bf16: 32 decode launches a dispatch, the served
-    parameters the export's bits, finite logits.  Then, at the smoke
-    config on the card, ``--ckpt`` / ``--resume`` (``save_state`` /
-    ``load_state``) resumed bit for bit."""
+def train_and_export(arch: str, stem: str):
+    """The hand-off's first half (phases 11 and 24): ``HANDOFF_STEPS`` bus
+    steps of ``arch`` at full size through the train CLI (graphed: 1 EDM
+    and 1 ring launch in step 0, the later steps replayed), the
+    parameters saved with the port's ``checkpoint.save`` (``params|``
+    leaves, the bus unpacked), their consensus exported with the port's
+    ``export_consensus`` into ``HANDOFF_DIR / f"{stem}_consensus.npz"``,
+    one bf16 replica of every leaf.  Returns a record, the export's path,
+    its parameters and their digest."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
-    from repro_torch.launch import serve as serve_cli
     from repro_torch.launch import train as cli
     from repro_torch.models import build_model
     from repro_torch.train import bus_layout_for, checkpoint
     from repro_torch.weights import params_digest, params_from_npz
     HANDOFF_DIR.mkdir(parents=True, exist_ok=True)
-    params_path = HANDOFF_DIR / "params.npz"
-    export_path = HANDOFF_DIR / "consensus.npz"
+    params_path = HANDOFF_DIR / f"{stem}_params.npz"
+    export_path = HANDOFF_DIR / f"{stem}_consensus.npz"
     rec = {}
-    args = MAIN_ARGS.copy()
+    args = [arch if a == ARCH else a for a in MAIN_ARGS]
     args[args.index("--steps") + 1] = str(HANDOFF_STEPS)
+    free()
     ops.reset_launch_counts()
+    t0 = time.perf_counter()
     result = cli.main(args)
-    train_counts = ops.launch_counts()
-    # graphed: the wrappers ran step 0, the later steps replayed
-    check(train_counts["edm_update"] == 1
-          and train_counts["ring_combine"] == 1
-          and train_counts["gossip_axpy"] == 0
+    rec["train_s"] = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    rec["train_counts"] = {k: v for k, v in counts.items() if v}
+    check(rec["train_counts"] == {"edm_update": 1, "ring_combine": 1}
           and result["graph_replays"] == HANDOFF_STEPS - 1,
-          f"hand-off training launched {train_counts} and replayed "
+          f"{arch} hand-off training launched {counts} and replayed "
           f"{result['graph_replays']} steps")
     check(all(math.isfinite(v) for m in result["metrics"]
-              for v in m.values()), "hand-off training: non-finite metrics")
-    model = build_model(get_config(ARCH))
-    layout = bus_layout_for(model, AGENTS)
+              for v in m.values()), f"{arch} hand-off: non-finite metrics")
+    rec["train_loss"] = [m["loss"] for m in result["metrics"]]
+    layout = bus_layout_for(build_model(get_config(arch)), AGENTS)
     t0 = time.perf_counter()
     checkpoint.save(str(params_path), {"params": result["state"]["params"]},
                     layout=layout)
@@ -2904,13 +2972,29 @@ def handoff_phase(n_layers: int):
     with np.load(params_path) as f:
         check(all(k.startswith("params|") for k in f.files)
               and len(f.files) == len(layout.paths),
-              "the saved file is not the params leaves")
-    exported = params_from_npz(str(export_path))
-    want = params_digest(exported)
-    check(set(exported) == set(layout.paths) and all(
-        exported[p].dtype == torch.bfloat16 for p in exported),
-        "the export is not one bf16 replica of every leaf")
+              f"the saved {arch} file is not the params leaves")
     params_path.unlink()
+    exported = params_from_npz(str(export_path))
+    check(set(exported) == set(layout.paths) and all(
+        t.dtype == torch.bfloat16 for t in exported.values()),
+        f"the {arch} export is not one bf16 replica of every leaf")
+    return rec, export_path, exported, params_digest(exported)
+
+
+def handoff_phase(n_layers: int):
+    """Phase 11: :func:`train_and_export` at full width, then 4 requests
+    served from the export through the serve CLI's ``--ckpt`` in bf16: 32
+    decode launches a dispatch, the served parameters the export's bits,
+    finite logits.  Then, at the smoke config on the card, ``--ckpt`` /
+    ``--resume`` (``save_state`` / ``load_state``) resumed bit for bit."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.launch import train as cli
+    from repro_torch.models import build_model
+    rec, export_path, exported, want = train_and_export(ARCH, "smollm")
+    model = build_model(get_config(ARCH))
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     metrics = serve_cli.main(HANDOFF_SERVE + ["--ckpt", str(export_path)])
@@ -3266,18 +3350,23 @@ def fixed_batch_exactness(arch: str, tag: str):
 
 
 def fixed_batch_serve_phase(arch: str, cli_args, n_params: int,
-                            n_layers: int = 0, tag: str = "SSM"):
-    """Phases 17 and 21: ``arch`` at full width (depth cut to ``n_layers``
-    when given) in bf16, random weights from seed 0: the serve CLI's
-    fixed batch at phase 8's sizes, counts reset just before and read just
-    after (the path launches none of the port's kernels: its attention,
-    where it has any, runs on dense caches); then a fixed batch of
+                            n_layers: int = 0, tag: str = "SSM",
+                            shape=(SSM_BATCH, SSM_PROMPT, SSM_NEW),
+                            exactness=None):
+    """Phases 17, 21 and 23: ``arch`` at full width (depth cut to
+    ``n_layers`` when given) in bf16, random weights from seed 0: the
+    serve CLI's fixed batch at phase 8's sizes, counts reset just before
+    and read just after (the path launches none of the port's kernels:
+    its attention, where it has any, runs on dense caches); then a fixed
+    batch of ``shape`` = (batch, prompt, new tokens) — by default
     ``SSM_BATCH`` with prompt ``SSM_PROMPT`` (two scan chunks) and
-    ``SSM_NEW`` new tokens through ``greedy_generate``: init time and
-    peak, prefill ms, tokens/s and per-token ms, peak allocated and
-    reserved; one decode step's host ms (median) and device busy ms,
-    launches and idle share (profiler); then the smoke config's
-    exactness."""
+    ``SSM_NEW`` new tokens; an encoder-decoder batch with
+    ``n_frontend_tokens`` seeded frames a request — through
+    ``greedy_generate``: init time and peak, prefill ms (with the
+    encoder's), tokens/s and per-token ms, peak allocated and reserved;
+    one decode step's host ms (median) and device busy ms, launches and
+    idle share (profiler); then the smoke config's exactness
+    (``exactness()``, by default :func:`fixed_batch_exactness`)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
@@ -3319,12 +3408,19 @@ def fixed_batch_serve_phase(arch: str, cli_args, n_params: int,
                           for t in params.values()) / 1e9
     check(rec["params"] == n_params, f"{arch} has {rec['params']} "
           f"parameters, expected {n_params}")
-    B, S, n_new = SSM_BATCH, SSM_PROMPT, SSM_NEW
+    B, S, n_new = shape
+    rec["shape"] = list(shape)
+    gen = torch.Generator(device="cuda").manual_seed(3)
     batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S), device="cuda",
-                                     generator=torch.Generator(
-                                         device="cuda").manual_seed(3))}
+                                     generator=gen)}
+    rec["frames"] = cfg.n_frontend_tokens if cfg.family == "encdec" else 0
+    if rec["frames"]:
+        batch["frontend"] = torch.randn(
+            (B, rec["frames"], cfg.d_model), device="cuda",
+            generator=gen).to(torch.bfloat16)
     with torch.inference_mode():
-        model.prefill(params, {"tokens": batch["tokens"][:, :16]})  # warm-up
+        # warm-up
+        model.prefill(params, {**batch, "tokens": batch["tokens"][:, :16]})
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -3376,7 +3472,8 @@ def fixed_batch_serve_phase(arch: str, cli_args, n_params: int,
         del logits, caches, out
     del params, model
     free()
-    rec["smoke"] = fixed_batch_exactness(arch, tag)
+    rec["smoke"] = (exactness or functools.partial(fixed_batch_exactness,
+                                                    arch, tag))()
     return rec
 
 
@@ -3744,15 +3841,145 @@ def hybrid_train_phase():
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 23 and 24: the encoder-decoder family
+# ---------------------------------------------------------------------------
+
+def whisper_serve_exactness():
+    """At whisper_small's smoke config in f32 on the card (2 + 2 layers,
+    16 frames): the prefill of S − 1 tokens, its self-attention caches
+    grown by one row, then one decode step gives the full prefill's
+    logits (rtol 1e-3 / atol 1e-4); ``greedy_generate``'s tokens equal a
+    replay that prefills the frames and the first prompt token (the cross
+    caches come from this prefill), feeds the rest of the prompt token by
+    token through ``decode_step`` from position 1, then decodes
+    greedily."""
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    from repro_torch.serve import greedy_generate, grow_caches
+    cfg = get_smoke_config(WHISPER_ARCH)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    B, S, n_new = 2, 64, 16
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), device="cuda",
+                           generator=gen)
+    frames = torch.randn((B, cfg.n_frontend_tokens, cfg.d_model),
+                         device="cuda", generator=gen)
+    with torch.inference_mode():
+        full, _ = model.prefill(params, {"tokens": tokens,
+                                         "frontend": frames})
+        _, caches = model.prefill(params, {"tokens": tokens[:, :-1],
+                                           "frontend": frames})
+        caches = grow_caches(model, caches, B, S)
+        step, _ = model.decode_step(params, caches, tokens[:, -1:], S - 1)
+        err = float((step - full).abs().max())
+        check(bool(torch.allclose(step, full, rtol=1e-3, atol=1e-4)),
+              f"whisper smoke: prefill + decode differs from the full "
+              f"prefill by {err}")
+        want = greedy_generate(model, params, {"tokens": tokens,
+                                               "frontend": frames},
+                               n_steps=n_new)
+        logits, caches = model.prefill(params, {"tokens": tokens[:, :1],
+                                                "frontend": frames})
+        caches = grow_caches(model, caches, B, S + n_new)
+        for t in range(1, S):
+            logits, caches = model.decode_step(params, caches,
+                                               tokens[:, t:t + 1], t)
+        out = []
+        for i in range(n_new):
+            tok = torch.argmax(logits[:, -1].float(), -1).to(
+                torch.int32)[:, None]
+            out.append(tok)
+            if i < n_new - 1:
+                logits, caches = model.decode_step(params, caches, tok, S + i)
+        replay = torch.cat(out, dim=1)
+    check(torch.equal(replay, want), f"whisper smoke: greedy_generate "
+          f"{want.tolist()} differs from the decode replay {replay.tolist()}")
+    del model, params, caches
+    free()
+    return {"prefill_decode_max_abs_err": err, "prompt": S,
+            "frames": cfg.n_frontend_tokens, "greedy_equal_replay": True,
+            "tokens": B * n_new}
+
+
+def whisper_handoff():
+    """Phase 24's hand-off: :func:`train_and_export` of whisper_small at
+    full size (the train CLI draws the frames every step), then the serve
+    CLI's fixed batch ``--ckpt`` (1500 frames a request, no kernel of the
+    port): the served parameters' digest equal to the export's."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as serve_cli
+    rec, export_path, exported, want = train_and_export(WHISPER_ARCH,
+                                                        "whisper")
+    del exported
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    served = serve_cli.main(WHISPER_CLI_ARGS + ["--ckpt", str(export_path)])
+    rec["serve_s"] = time.perf_counter() - t0
+    export_path.unlink()
+    counts = ops.launch_counts()
+    check(not any(counts.values()), f"whisper hand-off serving launched "
+          f"{counts}")
+    check(served["params_sha256"] == want,
+          "the served whisper parameters are not the export's bits")
+    rec["params_sha256"] = want
+    rec["served_tokens"] = list(served["tokens"].shape)
+    free()
+    return rec
+
+
+def whisper_train_phase():
+    """Phase 24: whisper_small at full width and depth, ``AGENTS`` agents
+    on the ring, seq 128 after the encoder's 1500 frames, per-agent batch
+    1, through :func:`graphed_runs` (ungrouped) on its ``(4, 2171392,
+    128)`` f32 bus.  New frames every step and step 1 repeats step 0's
+    tokens, so a replay that read a stale frame buffer would part from the
+    eager step.  Then the hand-off (:func:`whisper_handoff`)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import build_model
+    model = build_model(get_config(WHISPER_ARCH))
+    cfg = model.cfg
+    out = {"params": sum(t.numel() for t in model.meta().values()),
+           "layers": [cfg.n_enc_layers, cfg.n_layers]}
+    check(out["params"] == WHISPER_PARAMS, f"{WHISPER_ARCH} has "
+          f"{out['params']} parameters, expected {WHISPER_PARAMS}")
+    data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=SEQ,
+                       n_agents=AGENTS, phi=0.2)
+    dgen = torch.Generator(device="cuda").manual_seed(5)
+    batches = []
+    for t in range(GRAPH_STEPS + 1):
+        b = data.sample(dgen, 1)
+        if t == 1:
+            b["tokens"] = batches[0]["tokens"]
+        b["frontend"] = torch.randn(
+            (AGENTS, 1, cfg.n_frontend_tokens, cfg.d_model),
+            generator=dgen, device="cuda").to(torch.bfloat16)
+        batches.append(b)
+    out.update(graphed_runs(model, AGENTS, batches, (("ungrouped", ""),),
+                            "whisper"))
+    check(out["ungrouped"]["bus"] == list(WHISPER_BUS),
+          f"whisper bus {out['ungrouped']['bus']}, expected {WHISPER_BUS}")
+    del batches
+    free()
+    out["handoff"] = whisper_handoff()
+    return out
+
+
 def print_fixed_batch(tag: str, arch: str, cli_args, rec, smi: str):
-    """Phases 17 and 21's lines."""
+    """Phases 17, 21 and 23's lines."""
     print(f"[{tag}] {arch}: {rec['params']:,} parameters, "
           f"{rec['param_gb']:.2f} GB; init {rec['init_s']:.1f} s, peak "
           f"during init {rec['init_peak_gib']:.2f} GiB; {smi}", flush=True)
     print(f"[{tag}] CLI {' '.join(cli_args)} ({rec['cli_s']:.1f} s): "
           f"{rec['cli_tokens_per_s']:.1f} tokens/s; launches "
           f"{rec['cli_counts']}", flush=True)
-    print(f"[{tag}] batch {SSM_BATCH}, prompt {SSM_PROMPT}, {SSM_NEW} new: "
+    B, S, n_new = rec["shape"]
+    frames = f"{rec['frames']} frames, " if rec["frames"] else ""
+    print(f"[{tag}] batch {B}, {frames}prompt {S}, {n_new} new: "
           f"prefill {rec['prefill_ms']:.1f} ms (peak "
           f"{rec['prefill_peak_gib']:.2f} GiB), greedy_generate "
           f"{rec['generate_s']:.2f} s = {rec['tokens_per_s']:.1f} tokens/s, "
@@ -3760,7 +3987,7 @@ def print_fixed_batch(tag: str, arch: str, cli_args, rec, smi: str):
           f"{rec['peak_gib']:.2f} GiB, reserved {rec['reserved_gib']:.2f}; "
           f"state {rec['state_mb']:.1f} MB", flush=True)
     dec = rec["decode"]
-    print(f"[{tag}-profile] one decode step (batch {SSM_BATCH}): device "
+    print(f"[{tag}-profile] one decode step (batch {B}): device "
           f"busy {dec['device_busy_ms']:.3f} ms in {dec['kernel_launches']} "
           f"kernel launches; host (median) {dec['host_ms']:.2f} ms; device "
           f"idle {dec['idle_share']:.1%}", flush=True)
@@ -3829,8 +4056,23 @@ def print_train_runs(tag: str, arch: str, what: str, rec, smi: str):
                   f"{key[:80]}")
 
 
+def phase_clock(t_start: float):
+    """``clock(phase)`` prints a ``[time]`` line: the seconds since the
+    start and those of the phase that just ended."""
+    last = {"name": "1-2", "t": t_start}
+
+    def clock(phase: str) -> None:
+        now = time.time()
+        print(f"[time] {now - t_start:.1f} s before phase {phase}; phase "
+              f"{last['name']} took {now - last['t']:.1f} s", flush=True)
+        last.update(name=phase, t=now)
+
+    return clock
+
+
 def main() -> None:
     t_start = time.time()
+    clock = phase_clock(t_start)
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none is "
@@ -3863,7 +4105,7 @@ def main() -> None:
     for line in attention_smem_report():
         print(f"[build] {line}")
 
-    print(f"[time] {time.time() - t_start:.1f} s before phase 3", flush=True)
+    clock("3")
     # 3. kernels against their plain versions, on the card
     model = build_model(get_config(ARCH))
     layout = bus_layout_for(model, AGENTS)
@@ -3891,7 +4133,7 @@ def main() -> None:
                                             gen, layout.block_rows)}
     print_strided("kernels", strided["gossip_axpy"], smi)
 
-    print(f"[time] {time.time() - t_start:.1f} s before phase 3w", flush=True)
+    clock("3w")
     # 3w. the wire kernels against their plain versions, on the card
     br = layout.block_rows
     ef_main, ef_small = {}, {}
@@ -3914,7 +4156,7 @@ def main() -> None:
                                               grows, gen, br)
     print_strided("wire-kernels", strided["gossip_axpy_q8"], smi)
 
-    print(f"[time] {time.time() - t_start:.1f} s before phase 3r", flush=True)
+    clock("3r")
     # 3r. the ring combine (kernel 8's counterpart) against its plain
     # version: the full bus timed, then with NaN / ±Inf, then every ring
     # shape at odd row counts
@@ -3935,7 +4177,7 @@ def main() -> None:
           f"torch.matmul(W, x.view(A, -1)) {ring_main['library_ms']:.4f} ms;"
           f" {smi}", flush=True)
 
-    print(f"[time] {time.time() - t_start:.1f} s before phase 3m", flush=True)
+    clock("3m")
     # 3m. the source-table combine against its plain version: masked,
     # late and weight-0-pad tables at the full bus, NaN / ±Inf, bf16, and
     # a late slot's NaN row reaching no other agent
@@ -3955,7 +4197,7 @@ def main() -> None:
           f"torch.matmul(W_eff, x.view(A, -1)) {tm['library_ms']:.4f} ms; "
           f"{smi}", flush=True)
 
-    print(f"[time] {time.time() - t_start:.1f} s before phase 3f", flush=True)
+    clock("3f")
     # 3f. flash GQA attention against its plain version, timed, driven
     free()
     flash_recs, flash_poison, flash_timed, flash_counts = flash_phase()
@@ -3966,7 +4208,7 @@ def main() -> None:
     print(f"[flash] the op at (a) and (b): launches {flash_counts}",
           flush=True)
 
-    print(f"[time] {time.time() - t_start:.1f} s before phase 4", flush=True)
+    clock("4")
     # 4. the main path, through the CLI's entry point
     free()
     ops.reset_launch_counts()
@@ -4012,7 +4254,7 @@ def main() -> None:
         "peak_reserved_gib": torch.cuda.max_memory_reserved() / 2**30,
         "loss": [m["loss"] for m in result["metrics"]]}}
 
-    print(f"[time] {time.time() - t_start:.1f} s before phase 5", flush=True)
+    clock("5")
     # 5. where one step's device time goes: one eager step profiled (the
     # ring kernel, no roll left), then one graph replay profiled (the same
     # training kernels in its device trace) and between CUDA events
@@ -4040,18 +4282,24 @@ def main() -> None:
                  {"edm_update": 1, "ring_combine": 1})
     del result
 
-    print(f"[time] {time.time() - t_start:.1f} s before phase 6", flush=True)
+    clock("6")
     # 6. fused against plain through the rolls: one step with the rolls and
     # the gossip_axpy kernel against one with the rolls and the plain
-    # combine, from one state and one gradient bus
-    free()
-    twin = fused_vs_plain(model, layout, state,
-                          data.sample(dgen, 1)["tokens"])
-    print(f"[fused-vs-plain] {twin}", flush=True)
+    # combine, from one state and one gradient bus; the twin checks (6, 6r,
+    # 6w) and 4g run at full width with the depth cut to GRAPH_LAYERS (the
+    # script's time: each copies whole buses to the host)
     del state
     free()
+    cut = build_model(dataclasses.replace(get_config(ARCH),
+                                          n_layers=GRAPH_LAYERS))
+    cut_layout = bus_layout_for(cut, AGENTS)
+    twin = fused_vs_plain(cut, cut_layout,
+                          stepped_state(cut, bus_run(), data.sample(dgen, 1)),
+                          data.sample(dgen, 1)["tokens"])
+    print(f"[fused-vs-plain] {GRAPH_LAYERS} layers: {twin}", flush=True)
+    free()
 
-    print(f"[time] {time.time() - t_start:.1f} s before phase 4r", flush=True)
+    clock("4r")
     # 4r. the main path eager (--eager): every launch counted where the
     # wrapper makes it (5 ring_combine, 5 edm_update, no gossip_axpy)
     ops.reset_launch_counts()
@@ -4096,29 +4344,28 @@ def main() -> None:
           f"{prof['buckets']['ring_combine kernel']:.3f} ms of the eager "
           f"step; {smi}", flush=True)
 
-    print(f"[time] {time.time() - t_start:.1f} s before phase 6r", flush=True)
+    clock("6r")
     # 6r. one fused step through the ring kernel == one plain step through
     # the rolls and the plain combine, from one state and gradient bus
-    free()
-    ring_twin = ring_vs_plain(model, layout, state,
-                              data.sample(dgen, 1)["tokens"])
-    print(f"[ring-vs-plain] {ring_twin}", flush=True)
     del state
     free()
+    ring_twin = ring_vs_plain(cut, cut_layout,
+                              stepped_state(cut, bus_run(),
+                                            data.sample(dgen, 1)),
+                              data.sample(dgen, 1)["tokens"])
+    print(f"[ring-vs-plain] {GRAPH_LAYERS} layers: {ring_twin}", flush=True)
+    free()
 
-    print(f"[time] {time.time() - t_start:.1f} s before phase 4g", flush=True)
+    clock("4g")
     # 4g. the graphed bus step against the eager one, bit for bit, under
     # deterministic algorithms (eager against eager first), at full width
     # with the depth cut to GRAPH_LAYERS
-    graph_model = build_model(dataclasses.replace(get_config(ARCH),
-                                                  n_layers=GRAPH_LAYERS))
-    graph_recs = graph_phase(graph_model, data, dgen)
+    graph_recs = graph_phase(cut, data, dgen)
     for rec in graph_recs:
         print(f"[graph] {GRAPH_LAYERS} layers: {json.dumps(rec)}",
               flush=True)
-    del graph_model
 
-    print(f"[time] {time.time() - t_start:.1f} s before phase 4w", flush=True)
+    clock("4w")
     # 4w. the wire main path through the CLI: int8 on the ring, then bf16
     # on round_robin's one-peer rounds of the exp graph; graphed, so the
     # wrappers count the eager first step of each graph key (one on the
@@ -4191,15 +4438,24 @@ def main() -> None:
                                 gprof_wire)
             check_replay("--wire int8", wprof, gprof_wire,
                          {"edm_update_ef": 1, "gossip_axpy_q8": 1})
+            del state
             free()
+            print("[time] phase 5w done", flush=True)
             tokens = data.sample(dgen, 1)["tokens"]
-            ef_twin = [ef_fused_vs_plain(model, layout, state, tokens, f)
-                       for f in ("int8", "bf16")]
+            ef_twin = []
+            for f in ("int8", "bf16"):
+                ef_twin.append(ef_fused_vs_plain(
+                    cut, cut_layout, stepped_state(
+                        cut, bus_run(wire="int8"), data.sample(dgen, 1)),
+                    tokens, f))
+                free()
             for rec in ef_twin:
-                print(f"[wire-fused-vs-plain] {rec}", flush=True)
-        del state
+                print(f"[wire-fused-vs-plain] {GRAPH_LAYERS} layers: {rec}",
+                      flush=True)
+        else:
+            del state
         free()
-    print(f"[time] {time.time() - t_start:.1f} s before phase 12", flush=True)
+    clock("12")
     # 12. churn at full width: the main cell with agent 3 down for steps
     # 2–3, graphed; replay traces; the resize at the smoke config
     churn = churn_phase(model, data, dgen)
@@ -4218,7 +4474,7 @@ def main() -> None:
           f"{churn['peak_allocated_gib']:.2f} GiB; launches "
           f"{churn['launches']}; {smi}", flush=True)
 
-    print(f"[time] {time.time() - t_start:.1f} s before phase 13", flush=True)
+    clock("13")
     # 13. the overlapped pipeline at full width: f32 ring and int8 wire
     # through the CLI, graphed == eager, step 0 == synchronous, straggler
     overlap = overlap_phase(model, data, dgen)
@@ -4237,7 +4493,7 @@ def main() -> None:
     print(f"[overlap] step 0 == synchronous step: {overlap['step0']}; "
           f"straggler == plain twin: {overlap['straggler']}", flush=True)
 
-    print(f"[time] {time.time() - t_start:.1f} s before phase 14", flush=True)
+    clock("14")
     # 14. policy groups at full width: the 4-group policy through the CLI,
     # graphed; replay traces; 2-group f32 ring == ungrouped; graphed ==
     # eager with the opt-out rows equal to φ's
@@ -4254,17 +4510,18 @@ def main() -> None:
     for parity in ("even", "odd"):
         r = groups["replays"][parity]
         print(f"[groups] {parity} steps: median {groups[parity + '_ms']:.1f}"
-              f" ms; one replay busy {r['busy_ms']:.2f} ms in "
-              f"{r['kernel_launches']} launches (span {r['span_ms']:.2f} ms),"
-              f" idle {r['idle_share']:.1%}; training kernels "
-              f"{r['traced']}", flush=True)
+              f" ms (the CLI, full depth); at {GRAPH_LAYERS} layers one "
+              f"replay busy {r['busy_ms']:.2f} ms in {r['kernel_launches']} "
+              f"launches (span {r['span_ms']:.2f} ms, host "
+              f"{r['host_ms']:.2f} ms), idle {r['idle_share']:.1%}; "
+              f"training kernels {r['traced']}", flush=True)
     print(f"[groups] graphs {groups['graphs']}, replays "
           f"{groups['graph_replays']}; peak allocated "
           f"{groups['peak_allocated_gib']:.2f} GiB, reserved "
           f"{groups['peak_reserved_gib']:.2f} GiB; launches "
           f"{groups['launches']}; {smi}", flush=True)
 
-    print(f"[time] {time.time() - t_start:.1f} s before phase 4t", flush=True)
+    clock("4t")
     # 4t. the tree path through the CLI, every algorithm; 6t. fused tree
     # step == its plain twin, and close to the unfused chain
     n_leaves = len(model.meta())
@@ -4274,7 +4531,7 @@ def main() -> None:
               f"{rec['median_step_ms']:.1f} ms (steps {rec['step_ms']}); "
               f"peak memory {rec['peak_gib']:.2f} GiB; opt {rec['opt_slots']}"
               f"; metrics {rec['metrics']}", flush=True)
-    print(f"[time] {time.time() - t_start:.1f} s before phase 5t", flush=True)
+    clock("5t")
     # 5t. one profiled tree edm step
     edm_state, tprof = profile_step(model, edm_run, edm_state,
                                     data.sample(dgen, 1))
@@ -4289,13 +4546,18 @@ def main() -> None:
         print(f"[tree-profile]   {ms:9.3f} ms  {name}")
     for ms, count, key in tprof["top"]:
         print(f"[tree-profile]   top {ms:9.3f} ms  x{count:<5d} {key[:80]}")
-    tree_twin = tree_fused_vs_plain(model, edm_state,
-                                    data.sample(dgen, 1)["tokens"])
-    print(f"[tree-fused-vs-plain] {tree_twin}", flush=True)
-    del edm_state, model, layout
+    del edm_state
+    free()
+    print("[time] phase 5t profile done", flush=True)
+    tree_twin = tree_fused_vs_plain(
+        cut, stepped_state(cut, edm_run, data.sample(dgen, 1)),
+        data.sample(dgen, 1)["tokens"])
+    print(f"[tree-fused-vs-plain] {GRAPH_LAYERS} layers: {tree_twin}",
+          flush=True)
+    del model, layout, cut, cut_layout
     free()
 
-    print(f"[time] {time.time() - t_start:.1f} s before phase 7", flush=True)
+    clock("7")
     # 7. the serving kernels against their plain versions, on the card
     serve_recs, serve_timed = serving_kernels()
     for name, recs in serve_recs.items():
@@ -4327,7 +4589,7 @@ def main() -> None:
               f"bound {pt['bound_ms']:.5f} ms ({pt['bound_by']}), "
               f"{pt['bound_ms'] / pt['ms']:.1%} of it; {smi}", flush=True)
 
-    print(f"[time] {time.time() - t_start:.1f} s before phase 8", flush=True)
+    clock("8")
     # 8. the serving main path: the CLI, then the engine at context 1024
     from repro_torch.launch import serve as serve_cli
     from repro_torch.serve import (ContinuousBatchingEngine,
@@ -4402,7 +4664,7 @@ def main() -> None:
     del eng
     free()
 
-    print(f"[time] {time.time() - t_start:.1f} s before phase 9", flush=True)
+    clock("9")
     # 9. exactness of the kernel engine on the card
     exact = serve_exactness(vocab, smodel, sparams)
     print(f"[serve-exact] f32 kernel engine == greedy_generate on "
@@ -4413,7 +4675,7 @@ def main() -> None:
     del smodel, sparams
     free()
 
-    print(f"[time] {time.time() - t_start:.1f} s before phase 10", flush=True)
+    clock("10")
     # 10. the paper on the card
     paper = paper_phase()
     print(f"[paper] quadratic §E.1, ring(32), 3000 steps: EDM mean "
@@ -4421,7 +4683,7 @@ def main() -> None:
           f"{paper['dmsgd']:.3e} ({paper['dmsgd_s']:.1f} s); ζ² = "
           f"{paper['zeta2']:.2f}", flush=True)
 
-    print(f"[time] {time.time() - t_start:.1f} s before phase 11", flush=True)
+    clock("11")
     # 11. the train → export → serve hand-off, at full width and depth
     handoff = handoff_phase(n_layers)
     hm = handoff["serve_metrics"]
@@ -4436,29 +4698,25 @@ def main() -> None:
           f"--ckpt/--resume bit-equal: {handoff['resume_bit_equal']}",
           flush=True)
 
-    print(f"[time] {time.time() - t_start:.1f} s before phase 15",
-          flush=True)
+    clock("15")
     # 15. deepseek_moe_16b served at full width and depth
     moe_serve = moe_serve_phase()
     print_engine("moe-serve", MOE_ARCH, moe_serve, smi)
 
-    print(f"[time] {time.time() - t_start:.1f} s before phase 16",
-          flush=True)
+    clock("16")
     # 16. MoE training at full width, depth cut to one layer, 2 agents
     moe_train = moe_train_phase()
     print_train_runs("moe-train", MOE_ARCH, f"at full width, "
                      f"{MOE_TRAIN_LAYERS} layer, {MOE_AGENTS} agents, ring",
                      moe_train, smi)
 
-    print(f"[time] {time.time() - t_start:.1f} s before phase 17",
-          flush=True)
+    clock("17")
     # 17. falcon_mamba_7b served at full width and depth
     ssm_serve = fixed_batch_serve_phase(SSM_ARCH, SSM_SERVE_ARGS,
                                         SSM_PARAMS)
     print_fixed_batch("ssm-serve", SSM_ARCH, SSM_SERVE_ARGS, ssm_serve, smi)
 
-    print(f"[time] {time.time() - t_start:.1f} s before phase 18",
-          flush=True)
+    clock("18")
     # 18. SSM training at full width, depth cut to two layers, 4 agents
     ssm_train = ssm_train_phase()
     print_train_runs("ssm-train", SSM_ARCH, f"at full width, "
@@ -4483,8 +4741,7 @@ def main() -> None:
           f"{ssm_train['ungrouped']['busy_ms']:.1f} ms replay busy; bound "
           f"{tr['bound_ms']:.3f} ms); {smi}", flush=True)
 
-    print(f"[time] {time.time() - t_start:.1f} s before phase 19",
-          flush=True)
+    clock("19")
     # 19. pixtral_12b served at full width and depth (paged kernels, G 4)
     vlm_serve = vlm_serve_phase()
     print(f"[vlm-serve] fixed batch {' '.join(VLM_CLI_ARGS)} (frontend "
@@ -4494,8 +4751,7 @@ def main() -> None:
           f"{vlm_serve['fixed_cli_counts']}", flush=True)
     print_engine("vlm-serve", VLM_ARCH, vlm_serve, smi)
 
-    print(f"[time] {time.time() - t_start:.1f} s before phase 20",
-          flush=True)
+    clock("20")
     # 20. VLM training at full width, depth cut to one layer, 2 agents
     vlm_train = vlm_train_phase()
     print_train_runs("vlm-train", VLM_ARCH, f"at full width, "
@@ -4503,8 +4759,7 @@ def main() -> None:
                      f"{get_config(VLM_ARCH).n_frontend_tokens} frontend "
                      "positions", vlm_train, smi)
 
-    print(f"[time] {time.time() - t_start:.1f} s before phase 21",
-          flush=True)
+    clock("21")
     # 21. jamba_1_5_large_398b served at full width, depth cut to 5
     hybrid_serve = fixed_batch_serve_phase(
         HYBRID_ARCH, HYBRID_CLI_ARGS, HYBRID_PARAMS,
@@ -4512,8 +4767,7 @@ def main() -> None:
     print_fixed_batch("hybrid-serve", HYBRID_ARCH, HYBRID_CLI_ARGS,
                       hybrid_serve, smi)
 
-    print(f"[time] {time.time() - t_start:.1f} s before phase 22",
-          flush=True)
+    clock("22")
     # 22. Jamba training at a width cut, one period deep, 4 agents
     hybrid_train = hybrid_train_phase()
     print_train_runs("hybrid-train", HYBRID_ARCH, f"d_model "
@@ -4524,6 +4778,32 @@ def main() -> None:
           f"{json.dumps(hybrid_train['remat'])}", flush=True)
     print(f"[hybrid-train] kernels on this bus: "
           f"{json.dumps(hybrid_train['kernels'])}", flush=True)
+
+    clock("23")
+    # 23. whisper_small served at full width and depth (fixed batch)
+    whisper_serve = fixed_batch_serve_phase(
+        WHISPER_ARCH, WHISPER_CLI_ARGS, WHISPER_PARAMS, tag="whisper",
+        shape=WHISPER_SHAPE, exactness=whisper_serve_exactness)
+    print_fixed_batch("whisper-serve", WHISPER_ARCH, WHISPER_CLI_ARGS,
+                      whisper_serve, smi)
+
+    clock("24")
+    # 24. whisper_small trained at full width and depth, 4 agents; the
+    # consensus of a CLI run exported and served
+    whisper_train = whisper_train_phase()
+    print_train_runs("whisper-train", WHISPER_ARCH, f"at full width and "
+                     f"depth, {AGENTS} agents, ring, 1500 frames",
+                     whisper_train, smi)
+    wh = whisper_train["handoff"]
+    print(f"[whisper-handoff] train CLI {HANDOFF_STEPS} steps "
+          f"({wh['train_s']:.1f} s, launches {wh['train_counts']}, losses "
+          f"{wh['train_loss']}) → checkpoint.save {wh['params_file_gb']:.2f} "
+          f"GB in {wh['save_s']:.1f} s → export_consensus "
+          f"{wh['export_file_gb']:.2f} GB in {wh['export_s']:.1f} s → serve "
+          f"CLI --ckpt ({wh['serve_s']:.1f} s, tokens {wh['served_tokens']}):"
+          f" served params sha256 {wh['params_sha256'][:16]}… == the "
+          "export's", flush=True)
+    clock("end")
 
     def serve_row(name, replaces):
         rec = serve_timed[name]
@@ -4739,6 +5019,13 @@ def main() -> None:
                 g: hybrid_train[g]["traced_replay"].get(name, 0)
                 for g in (HYBRID_GROUPS, "ungrouped")}
             rec["hybrid_bus"] = hybrid_train["kernels"][name]
+            # phase 24: the whisper run and its hand-off's CLI run
+            rec["launches_whisper_train"] = whisper_train["ungrouped"][
+                "launches"].get(name, 0)
+            rec["replay_trace_whisper_train"] = whisper_train["ungrouped"][
+                "traced_replay"].get(name, 0)
+            rec["launches_whisper_handoff"] = whisper_train["handoff"][
+                "train_counts"].get(name, 0)
     print(f"[done] {time.time() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

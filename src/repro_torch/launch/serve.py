@@ -25,7 +25,11 @@ the card, their plain versions on the CPU), where the reference's takes
       --prompt-dist exact --max-slots 8 --page-size 16 --requests 16
 
 The continuous engine serves a VLM (``--arch pixtral_12b``) text-only,
-as the reference's scheduler does: it has no frontend path.
+as the reference's scheduler does: it has no frontend path.  The
+encoder-decoder family (``--arch whisper_small``) serves the fixed batch
+only, each request with ``n_frontend_tokens`` (1500) seeded frame
+embeddings for its encoder; it has no paged path, so
+``--continuous-batching`` raises, as in the reference.
 
 ``--ckpt`` loads a consensus export — the port's
 (``repro_torch.train.checkpoint.export_consensus``) or the reference's,
@@ -63,9 +67,9 @@ def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
     ap.add_argument("--arch", required=True,
                     help="architecture (the port's ARCH_IDS: the dense, "
-                         "MoE, SSM, hybrid and VLM families; others raise "
-                         "NotImplementedError; an SSM or hybrid model "
-                         "serves the fixed batch only, without "
+                         "MoE, SSM, hybrid, VLM and encoder-decoder "
+                         "families; an SSM, hybrid or encoder-decoder "
+                         "model serves the fixed batch only, without "
                          "--continuous-batching; a VLM's continuous "
                          "engine is text-only)")
     ap.add_argument("--smoke", action="store_true",
@@ -168,8 +172,9 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     rng = np.random.default_rng(1)
     prompts = rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len))
     batch = {"tokens": torch.from_numpy(prompts.astype(np.int32)).to(device)}
-    if cfg.family == "vlm":
-        # the frontend stub's embeddings, n_frontend_tokens a request
+    if cfg.family in ("vlm", "encdec"):
+        # the frontend stub's embeddings (a VLM's image positions, an
+        # encoder-decoder's frames), n_frontend_tokens a request
         gen = torch.Generator(device=device).manual_seed(2)
         batch["frontend"] = torch.randn(
             (args.batch, cfg.n_frontend_tokens, cfg.d_model), generator=gen,

@@ -43,9 +43,10 @@ and ``--resume PATH`` restores one before the first step
 (:func:`~repro_torch.train.checkpoint.load_state_resized`: a file of
 either package, at any agent count: survivors restore bit for bit,
 joining agents take the consensus mean with ψ := x).  The token stream
-(and a VLM's frontend embeddings, ``--arch pixtral_12b``) is drawn per
-global step, so a run resumed at step t takes the batches the
-uninterrupted run takes from step t on.  Flags of levers the port
+(and the frontend embeddings of a VLM, ``--arch pixtral_12b``, or the
+encoder's frames of ``--arch whisper_small``) is drawn per global step,
+so a run resumed at step t takes the batches the uninterrupted run takes
+from step t on.  Flags of levers the port
 does not run yet (``--agents pod``, ``--shards``) are accepted by the
 parser and rejected with a pointer to ROADMAP.md.
 
@@ -204,7 +205,8 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
     # --topology only feeds the static schedule; don't print it otherwise
     topo_str = (f"topo={args.topology} " if args.gossip_schedule == "static"
                 else "")
-    print(f"arch={cfg.name} ({cfg.n_params()/1e6:.1f}M params) "
+    n_params = sum(t.numel() for t in model.meta().values())
+    print(f"arch={cfg.name} ({n_params/1e6:.1f}M params) "
           f"agents={n_agents} {topo_str}schedule={sched.name} "
           f"period={sched.period} "
           f"λ_prod={sched.product_spectral_stats()['lambda']:.4f} "
@@ -245,10 +247,11 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
     gen = torch.Generator(device=device).manual_seed(1)
 
     def sample() -> Dict[str, torch.Tensor]:
-        # one global step's batch; a VLM's frontend embeddings are drawn
-        # right after its tokens from the same generator
+        # one global step's batch; a VLM's frontend embeddings (an
+        # encoder-decoder's frames) are drawn right after its tokens from
+        # the same generator
         b = data.sample(gen, args.per_agent_batch)
-        if cfg.family == "vlm":
+        if cfg.family in ("vlm", "encdec"):
             b["frontend"] = torch.randn(
                 (n_agents, args.per_agent_batch, cfg.n_frontend_tokens,
                  cfg.d_model), generator=gen, device=device).to(

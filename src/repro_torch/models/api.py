@@ -1,5 +1,5 @@
-"""Public model API: the counterpart of ``repro/models/api.py`` for the
-dense, MoE, SSM, hybrid and VLM families.
+"""Public model API: the counterpart of ``repro/models/api.py`` for every
+family: dense, MoE, SSM, hybrid, VLM and encoder-decoder.
 
 ``Model`` bundles the training entries ``init`` (a ``torch.Generator`` →
 parameter dict on the generator's device), ``loss`` (``(params, batch,
@@ -8,8 +8,12 @@ remat=True, remat_policy="full") → scalar``, as the reference's) and
 serving entries of the JAX ``Model``: ``prefill``, ``decode_step``,
 ``init_cache``, ``decode_window`` and the paged ``decode_step_paged``,
 ``prefill_chunk_paged`` and ``decode_step_mixed`` (attention mixers
-only: they raise for an SSM or hybrid model).  A VLM batch carries its
-``frontend`` embeddings beside the tokens, to ``loss`` and ``prefill``.
+only: they raise for an SSM or hybrid model, and are None for an
+encoder-decoder model, as in the reference).  A VLM batch carries its
+``frontend`` embeddings beside the tokens, to ``loss`` and ``prefill``;
+an encoder-decoder batch its encoder's frames under the same key
+(:mod:`repro_torch.models.encdec`; its ``loss`` takes ``remat`` and
+``remat_policy`` and ignores both, as the reference's).
 Caches and pools are written in place (see
 :mod:`repro_torch.models.transformer`).  The paged entries take their
 attention as an argument: the kernels of
@@ -22,6 +26,7 @@ import dataclasses
 from typing import Callable, Optional
 
 from repro_torch.configs.base import ModelConfig
+from . import encdec as ed
 from . import transformer as tf
 
 __all__ = ["Model", "build_model"]
@@ -49,9 +54,32 @@ class Model:
     decode_step_mixed: Optional[Callable] = None
 
 
+def _build_encdec(cfg: ModelConfig, w: int) -> Model:
+    def loss(params, batch, remat=True, remat_policy="full"):
+        return ed.encdec_loss(cfg, params, batch, remat=remat,
+                              remat_policy=remat_policy)
+
+    def prefill(params, batch):
+        return ed.encdec_prefill(cfg, params, batch["tokens"],
+                                 batch["frontend"], window=w)
+
+    def decode_step(params, caches, token, pos):
+        return ed.encdec_decode_step(cfg, params, caches, token, pos,
+                                     window=w)
+
+    def init_cache(batch, length, device=None):
+        return ed.init_encdec_cache(cfg, batch, length, device=device)
+
+    return Model(cfg, lambda generator: ed.init_encdec(cfg, generator), loss,
+                 lambda: tf.meta_from_specs(ed.encdec_param_specs(cfg)),
+                 prefill, decode_step, init_cache, decode_window=w)
+
+
 def build_model(cfg: ModelConfig, decode_window: int = 0) -> Model:
-    tf.param_specs(cfg)   # raises for families not ported yet
     w = decode_window
+    if cfg.family == "encdec":
+        return _build_encdec(cfg, w)
+    tf.param_specs(cfg)   # raises for a family this module does not run
 
     def prefill(params, batch):
         return tf.lm_prefill(cfg, params, batch["tokens"],

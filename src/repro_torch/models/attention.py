@@ -1,10 +1,11 @@
-"""GQA self-attention: the counterpart of ``repro/models/attention.py`` for
-training, cached decode and the paged serving paths.
+"""GQA attention: the counterpart of ``repro/models/attention.py`` for
+training, cached decode, the encoder-decoder's cross attention and the
+paged serving paths.
 
 Plain einsum and matmul, as the JAX path is plain jnp (it trains on
 ``sdpa_ref``, not on the Pallas flash kernel).  Logits and softmax are f32,
 masked entries take ``-1e30``, and the output is cast back to the query
-dtype.  Cross attention is not ported (ROADMAP.md).
+dtype.
 
 Caches and page pools are updated IN PLACE (``index_put_`` / slice writes
 on the per-layer views), where the JAX ``.at[].set`` and
@@ -193,8 +194,10 @@ def init_kv_cache(cfg, batch: int, length: int, *, dtype=None,
 
 def apply_attn(p: Dict[str, torch.Tensor], cfg, x, positions, *,
                mode: str = "train", cache: Optional[Dict] = None,
-               window: int = 0, cur_len=None):
-    """Pre-norm causal (or sliding-window) self-attention with residual.
+               window: int = 0, cur_len=None,
+               xattn_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+    """Pre-norm causal (or sliding-window) self-attention with residual,
+    or the encoder-decoder's cross attention.
 
     mode:
       "train"   — returns y;
@@ -203,11 +206,19 @@ def apply_attn(p: Dict[str, torch.Tensor], cfg, x, positions, *,
                   sits at ring row p % window);
       "decode"  — one new token (Sq = 1) written into ``cache`` in place
                   (ring row ``pos % window`` or linear row ``cur_len`` /
-                  ``pos``), then attention over it; returns ``(y, cache)``.
+                  ``pos``), then attention over it; returns ``(y, cache)``;
+      "cross"   — ``q = h @ wq`` over the encoder's ``xattn_kv = (k, v)``
+                  (``(B, T, K, hd)``, every row valid: no mask), as the
+                  reference's; returns ``(y, cache)``, ``cache`` untouched.
     """
     h = rms_norm(x, p["ln"], cfg.norm_eps)
     win = window or cfg.sliding_window
     B, S = h.shape[:2]
+    if mode == "cross":
+        q = (h @ p["wq"]).reshape(B, S, cfg.n_heads, cfg.hd)
+        k, v = xattn_kv
+        out = sdpa_ref(q, k, v, causal=False)
+        return x + out.reshape(B, S, cfg.n_heads * cfg.hd) @ p["wo"], cache
     if mode in ("train", "prefill"):
         q, k, v = _qkv(p, cfg, h, positions)
         out = sdpa_ref(q, k, v, causal=True, window=win)
@@ -224,8 +235,8 @@ def apply_attn(p: Dict[str, torch.Tensor], cfg, x, positions, *,
             cache = {"k": k, "v": v}
         return y, cache
     if mode != "decode" or cache is None:
-        raise ValueError(f"attention mode {mode!r} is not ported (cross "
-                         "attention: ROADMAP.md) or has no cache")
+        raise ValueError(f"attention mode {mode!r} is not one of train, "
+                         "prefill, decode (with a cache) or cross")
     # one new token; positions: (B, 1), the same absolute position per row
     q, k_new, v_new = _qkv(p, cfg, h, positions)
     pos = int(positions[0, 0])

@@ -17,8 +17,8 @@ and ``D`` are f32 inside a bf16 model, as in the reference.  A VLM's
 are cast to the embedding's dtype and run before the tokens; in the loss
 their positions predict nothing.  ``lm_loss`` recomputes each layer in
 the backward pass when asked (``remat``), as the reference's scan body
-does.  The encoder-decoder family is not ported yet (ROADMAP.md §1 item
-4.4).
+does.  The encoder-decoder family is :mod:`repro_torch.models.encdec`,
+built on this module's specs and layers.
 
 Serving (the counterparts of ``lm_prefill``, ``lm_decode_step`` and the
 paged entries): caches and page pools keep the JAX layout, a tuple over
@@ -45,10 +45,10 @@ from .layers import apply_dense_ffn, init_leaf, rms_norm
 from .mamba import apply_mamba, init_ssm_cache, ssm_specs
 from .moe import apply_moe
 
-__all__ = ["param_specs", "param_meta", "init_lm", "lm_loss",
-           "init_lm_cache", "lm_prefill", "lm_decode_step",
-           "lm_decode_step_paged", "lm_prefill_chunk_paged",
-           "lm_serve_step_mixed"]
+__all__ = ["param_specs", "param_meta", "meta_from_specs", "init_lm",
+           "init_from_specs", "lm_loss", "init_lm_cache", "lm_prefill",
+           "lm_decode_step", "lm_decode_step_paged",
+           "lm_prefill_chunk_paged", "lm_serve_step_mixed"]
 
 # (shape, dtype, init): init is the truncated-normal fan-in (an int),
 # None for a zero-initialised leaf (norm weights, QKV biases), or a
@@ -67,9 +67,10 @@ def _check_family(cfg: ModelConfig):
     if cfg.family not in _PORTED_FAMILIES or any(
             k not in _PORTED_KINDS for k in kinds):
         raise NotImplementedError(
-            f"model family {cfg.family!r} is not ported yet; the port runs "
-            "the dense, MoE, SSM, hybrid and VLM families (ROADMAP.md; the "
-            "encoder-decoder family is §1 item 4.4)")
+            f"model family {cfg.family!r} is not a decoder LM: this module "
+            "runs the dense, MoE, SSM, hybrid and VLM families (the "
+            "encoder-decoder family is repro_torch.models.encdec, which "
+            "build_model picks for it)")
     return kinds
 
 
@@ -151,8 +152,13 @@ def param_specs(cfg: ModelConfig) -> Dict[str, Spec]:
 
 def param_meta(cfg: ModelConfig) -> Dict[str, torch.Tensor]:
     """Shape-only (``meta`` device) parameter dict: no allocation."""
+    return meta_from_specs(param_specs(cfg))
+
+
+def meta_from_specs(specs: Dict[str, Spec]) -> Dict[str, torch.Tensor]:
+    """``specs``' leaves as ``meta`` tensors of their shapes and dtypes."""
     return {p: torch.empty(s, dtype=dt, device="meta")
-            for p, (s, dt, _) in param_specs(cfg).items()}
+            for p, (s, dt, _) in specs.items()}
 
 
 def init_lm(cfg: ModelConfig, generator: torch.Generator
@@ -165,11 +171,18 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator
     carry weights across instead).  A stacked leaf (``blocks|...``) is
     drawn one leading-index slice at a time into the allocated leaf, so
     the f32 temporaries are one layer's, not the stack's."""
+    return init_from_specs(param_specs(cfg), generator)
+
+
+def init_from_specs(specs: Dict[str, Spec], generator: torch.Generator
+                    ) -> Dict[str, torch.Tensor]:
+    """Every leaf of ``specs`` drawn in sorted path order (see
+    :func:`init_lm`); a stacked leaf — one whose first path component
+    ends in ``blocks`` — one leading-index slice at a time."""
     params = {}
-    specs = param_specs(cfg)
     for path in sorted(specs):
         shape, dt, init = specs[path]
-        if path.startswith("blocks|"):
+        if path.split("|", 1)[0].endswith("blocks"):
             leaf = torch.empty(shape, dtype=dt, device=generator.device)
             for b in range(shape[0]):
                 leaf[b] = init_leaf(shape[1:], dt, init, generator)

@@ -64,11 +64,18 @@ def greedy_generate(model: Model, params, batch: Dict[str, Any],
     VLM batch's ``frontend`` embeddings (B, n_front, d) occupy the first
     positions of the stream, so the caches grow to ``S + n_front +
     n_steps`` and decoding starts at position ``S + n_front``; an SSM
-    layer's fixed-size state passes through ``grow_caches`` untouched."""
+    layer's fixed-size state passes through ``grow_caches`` untouched.
+    An encoder-decoder batch's ``frontend`` is the encoder's frames, not
+    positions of the decoder's stream (``n_front`` 0, as the reference
+    checks the family): only ``k`` / ``v`` grow, and ``xk`` / ``xv`` pass
+    through when the frames have ``n_frontend_tokens`` rows (other counts
+    are padded with zero rows that cross attention does not mask, as in
+    the reference)."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     fe = batch.get("frontend")
-    n_front = 0 if fe is None else fe.shape[1]
+    n_front = (0 if fe is None or model.cfg.family == "encdec"
+               else fe.shape[1])
     logits, caches = model.prefill(params, batch)
     L0 = S + n_front
     caches = grow_caches(model, caches, B, model.decode_window or L0 + n_steps)

@@ -188,6 +188,12 @@ class ContinuousBatchingEngine:
     def __init__(self, model: Model, params, pcfg: PagedCacheConfig, *,
                  attn_impl: str = "ref", prefill_chunk: Optional[int] = None,
                  max_step_tokens: Optional[int] = None, device=None):
+        if model.decode_step_paged is None:
+            raise NotImplementedError(
+                f"the {model.cfg.family} family has no paged decode path, "
+                "as in the reference: serve its fixed batch through "
+                "greedy_generate (the serve CLI without "
+                "--continuous-batching)")
         if model.decode_window != pcfg.window:
             raise ValueError(f"model window {model.decode_window} != cache "
                              f"window {pcfg.window}")

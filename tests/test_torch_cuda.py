@@ -1494,13 +1494,14 @@ def _bus_run(**kw):
 
 
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("arch", ["jamba_1_5_large_398b", "pixtral_12b"])
+@pytest.mark.parametrize("arch", ["jamba_1_5_large_398b", "pixtral_12b",
+                                  "whisper_small"])
 def test_cuda_hybrid_and_vlm_loss_match_cpu(cuda, arch):
     """The hybrid smoke model's layer stack (Mamba, attention and MoE
-    layers, the aux loss) and the VLM smoke model's loss with a frontend,
-    with their gradients, on the card against the same f32 weights and
-    inputs on the CPU: normwise relative error within 1e-5 (the Mamba
-    block's card bound)."""
+    layers, the aux loss), the VLM smoke model's loss with a frontend and
+    the encoder-decoder's with its frames, with their gradients, on the
+    card against the same f32 weights and inputs on the CPU: normwise
+    relative error within 1e-5 (the Mamba block's card bound)."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.models import build_model
     model = build_model(get_smoke_config(arch))
@@ -1509,7 +1510,7 @@ def test_cuda_hybrid_and_vlm_loss_match_cpu(cuda, arch):
     gen = torch.Generator().manual_seed(4)
     batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 24),
                                      generator=gen)}
-    if cfg.family == "vlm":
+    if cfg.family in ("vlm", "encdec"):
         batch["frontend"] = torch.randn((2, cfg.n_frontend_tokens,
                                          cfg.d_model), generator=gen)
 
@@ -1557,6 +1558,30 @@ def test_cuda_graphed_vlm_step_refreshes_the_frontend(cuda, monkeypatch):
     from repro_torch.models import build_model
     monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     model = build_model(get_smoke_config("pixtral_12b"))
+    cfg = model.cfg
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 1, 16), generator=gen,
+                           device=cuda)
+    batches = [{"tokens": tokens if t < 2 else tokens.flip(-1),
+                "frontend": torch.randn((4, 1, cfg.n_frontend_tokens,
+                                         cfg.d_model), generator=gen,
+                                        device=cuda)}
+               for t in range(3)]
+    _assert_same_run(*_graphed_against_eager(cuda, model, _bus_run(),
+                                             batches))
+
+
+@pytest.mark.requires_cuda
+def test_cuda_graphed_encdec_step_refreshes_the_frames(cuda, monkeypatch):
+    """The encoder-decoder smoke model's graphed step copies every step's
+    frames into its static buffer: 3 steps (the first eager and captured,
+    two replays), each with new frames — step 1 repeats step 0's tokens —
+    bit-equal to 3 eager steps, one EDM and one ring kernel in each
+    step's trace."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    model = build_model(get_smoke_config("whisper_small"))
     cfg = model.cfg
     gen = torch.Generator(device=cuda).manual_seed(9)
     tokens = torch.randint(0, cfg.vocab_size, (4, 1, 16), generator=gen,

@@ -3,7 +3,8 @@
 * ``repro_torch`` and every submodule import with no ``jax*``, no
   ``repro.*`` and no ``ml_dtypes`` module loaded (checked in a fresh
   interpreter; the machine with the card may not have ml_dtypes), and no
-  source of the package or ``chip_smoke.py`` holds such an import.
+  source of the package, ``chip_smoke.py`` or an example twin
+  (``examples/*_torch.py``) holds such an import.
 * Without a GPU, the entry points raise unless the caller asks for the
   CPU by name.
 """
@@ -51,7 +52,8 @@ def test_every_module_imports_without_jax_or_repro():
               "repro_torch.kernels.flash_attention", "repro_torch.optim",
               "repro_torch.optim.schedules", "repro_torch.core.metrics",
               "repro_torch.data.synthetic", "repro_torch.train.checkpoint",
-              "repro_torch.kernels.ring_dma", "repro_torch.train.graphs"):
+              "repro_torch.kernels.ring_dma", "repro_torch.train.graphs",
+              "repro_torch.models.encdec"):
         assert m in mods
     code = (
         "import importlib, sys\n"
@@ -69,7 +71,9 @@ def test_every_module_imports_without_jax_or_repro():
 
 
 def test_no_source_imports_jax_or_repro():
-    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    twins = sorted((ROOT / "examples").glob("*_torch.py"))
+    assert len(twins) == 4
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"] + twins
     assert len(files) > 20
     for f in files:
         hits = _FORBIDDEN.findall(f.read_text())

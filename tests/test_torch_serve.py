@@ -448,9 +448,16 @@ def test_serve_cli_main_returns_metrics_and_rejects_unported_archs():
                       "--batch", "2", "--prompt-len", "8", "--new-tokens",
                       "3"])
     assert tuple(out["tokens"].shape) == (2, 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # the encoder-decoder family serves its fixed batch (frames for the
+    # encoder, n_frontend_tokens a request); it has no paged path, as in
+    # the reference
+    out = serve.main(["--device", "cpu", "--arch", "whisper_small",
+                      "--smoke", "--batch", "2", "--prompt-len", "8",
+                      "--new-tokens", "3"])
+    assert tuple(out["tokens"].shape) == (2, 3)
+    with pytest.raises(NotImplementedError, match="no paged decode path"):
         serve.main(["--device", "cpu", "--arch", "whisper_small",
-                    "--smoke"])
+                    "--smoke", "--continuous-batching"])
     # the SSM family serves through greedy_generate only, as in the
     # reference: its state is fixed-size, not paged
     with pytest.raises(NotImplementedError, match="attention mixers only"):
