@@ -292,10 +292,28 @@ Phases, in order; any failure raises and the script exits non-zero:
    1 EDM and 1 ring kernel in each replay's trace; then 2 steps through
    the train CLI (1 EDM and 1 ring launch, 1 replay), the parameters
    saved, their consensus exported and served by the serve CLI's fixed
-   batch ``--ckpt``: the served digest equal to the export's.
+   batch ``--ckpt``: the served digest equal to the export's;
+25. multi-rank gossip: 4 spawned ranks share the card (``torch.
+   distributed`` over gloo, a ``file://`` store; NCCL refuses two ranks
+   on one card), each one agent of smollm_360m at full width and depth
+   (bus ``(1, 3195392, 128)`` a rank), ring, fused kernels, seq 128,
+   per-agent batch 1, 3 steps of the multi-rank bus step
+   (``build_train_step(mesh=)``) whose gossip is the peer-pointer ring
+   kernel (``csrc/ring_peer.cu``: the neighbours' payloads read through
+   CUDA IPC, epoch flags with bounded waits): per-agent losses and the
+   final x and ψ bit-equal to a one-process 4-agent eager run of the
+   same steps (its buses shared with the ranks through CUDA IPC), the
+   kernel bit-equal to its plain version on each rank's final payloads,
+   timed one rank at a time beside the plain version and one
+   ``torch.matmul``, its bound; one ``ring_peer`` and one ``edm_update``
+   launch a rank a step, rank 0's profiled step holding one of each and
+   no roll; no flag wait timed out.  The pod mode and the blocked and
+   split plans are not run on one card (the CPU tests hold them over
+   gloo); the NCCL path has run nowhere (gloo on the CPU runs the same
+   permute plan).
 
 Phases run in the order 1–3, 3w, 3r, 3m, 3f, 4–6, 4r, 6r, 4g, 4w–6w,
-12, 13, 14, 4t–6t, 7–11, 15–24; a ``[time]`` line before each gives the
+12, 13, 14, 4t–6t, 7–11, 15–25; a ``[time]`` line before each gives the
 seconds since the start and those of the phase before.  The third
 line from the end is the ``nvidia-smi`` name and power limit,
 the line before the last ``{"kernels": [...]}`` and the last
@@ -2419,6 +2437,7 @@ TRACED = (("edm_update", "edm_update_kernel"), ("edm_update_ef", "edm_ef_"),
           ("gossip_axpy", "gossip_axpy_kernel"),
           ("gossip_axpy_q8", "gossip_axpy_q8_kernel"),
           ("ring_combine", "ring_combine_kernel"),
+          ("ring_peer", "ring_peer_kernel"),
           ("table_combine", "table_combine_kernel"))
 
 
@@ -2536,6 +2555,8 @@ BUCKETS = (("edm_update kernel", ("edm_update_kernel",)),
            ("gossip_axpy kernel", ("gossip_axpy_kernel",)),
            ("gossip_axpy_q8 kernel", ("gossip_axpy_q8_kernel",)),
            ("ring_combine kernel", ("ring_combine_kernel",)),
+           ("ring_peer kernel", ("ring_peer_kernel",)),
+           ("peer flags", ("flag_wait_kernel", "flag_signal_kernel")),
            ("table_combine kernel", ("table_combine_kernel",)),
            ("paged_attention kernel", ("paged_decode_mma_kernel",
                                        "paged_decode_simt_kernel")),
@@ -3969,6 +3990,262 @@ def whisper_train_phase():
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 25: multi-rank gossip — 4 ranks on the one card, peer-pointer ring
+# ---------------------------------------------------------------------------
+
+PEER_RANKS = 4
+PEER_STEPS = 3
+PEER_STORE = ROOT / "build" / "peer_phase"
+
+
+def peer_reference(model, batches):
+    """The one-process 4-agent run phase 25's ranks are held against: the
+    main path's configuration (ring, fused kernels, the one-card ring
+    kernel), eager, under deterministic algorithms, ``PEER_STEPS`` steps
+    from the seed-0 state.  Returns the per-step per-agent losses (read
+    off the trainer's ``losses_and_grads``), the final x and ψ buses (on
+    the card, shared with the ranks) and the step seconds."""
+    import torch
+    from repro_torch.train import (build_train_step, init_state,
+                                   make_gossip_schedule)
+    from repro_torch.train import trainer
+    run = bus_run()
+    seen = []
+    inner = trainer.losses_and_grads
+
+    def spy(*a, **k):
+        losses, g = inner(*a, **k)
+        seen.append(losses.tolist())
+        return losses, g
+
+    state = init_state(model, run, AGENTS, seed=0, device="cuda")
+    step = build_train_step(model, run, make_gossip_schedule(run, AGENTS),
+                            use_fused_kernel=True, device="cuda")
+    secs = []
+    trainer.losses_and_grads = spy
+    torch.use_deterministic_algorithms(True)
+    try:
+        for b in batches:
+            t0 = time.perf_counter()
+            state, m = step(state, {k: v.cuda() for k, v in b.items()})
+            float(m["loss"])
+            secs.append(time.perf_counter() - t0)
+    finally:
+        trainer.losses_and_grads = inner
+        torch.use_deterministic_algorithms(False)
+    x, psi = state["params"], state["opt"]["psi"]
+    del state, step
+    free()
+    return {"losses": seen, "x": x, "psi": psi, "seconds": secs}
+
+
+def peer_rank(rank: int, world: int, batches, want_x, want_psi, out_dir):
+    """Phase 25's rank (a spawned process; the one card for every rank):
+    one agent of the main path's model, ring, fused kernels, through the
+    multi-rank bus step (``build_train_step(mesh=)``) for ``PEER_STEPS``
+    steps — the peer-pointer ring kernel carries the gossip.  Then its
+    losses, x and ψ against the one-process run's (``want_*``: the
+    parent's buses, shared through CUDA IPC), the kernel against its plain
+    version on the final payloads (the neighbours' copied through the peer
+    pointers), each rank's kernel timed while the others wait, and the
+    last step profiled (rank 0).  Writes ``rank<r>.json`` to ``out_dir``."""
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.mesh import init_distributed, make_gossip_mesh
+    from repro_torch.models import build_model
+    from repro_torch.train import (build_train_step, init_state,
+                                   make_gossip_schedule)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init_distributed("cuda", init_method=f"file://{out_dir}/store",
+                     rank=rank, world_size=world, timeout_s=600)
+    mesh = make_gossip_mesh(world, agents_per_device=1)
+    model = build_model(get_config(ARCH))
+    run = bus_run(agents_per_device=1)
+    sched = make_gossip_schedule(run, world)
+    step = build_train_step(model, run, sched, use_fused_kernel=True,
+                            mesh=mesh)
+    state = init_state(model, run, world, seed=0, mesh=mesh)
+    rec = {"rank": rank, "device": str(mesh.device), "shared": mesh.shared,
+           "bus": list(state["params"].shape)}
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    torch.use_deterministic_algorithms(True)
+    losses, secs, prof_rows = [], [], None
+    for t, b in enumerate(batches):
+        b = {k: v.cuda() for k, v in b.items()}
+        dist.barrier(group=mesh.control)
+        t0 = time.perf_counter()
+        if t == len(batches) - 1 and rank == 0:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                state, m = step(state, b)
+                settle()
+            prof_rows = device_rows(prof)
+        else:
+            state, m = step(state, b)
+        losses.append(m["agent_losses"].tolist())
+        rec.setdefault("loss", []).append(float(m["loss"]))
+        rec.setdefault("consensus", []).append(float(m["consensus"]))
+        secs.append(time.perf_counter() - t0)
+    torch.use_deterministic_algorithms(False)
+    rec["launches"] = {k: v for k, v in ops.launch_counts().items() if v}
+    rec["step_ms"] = [round(t * 1e3, 2) for t in secs]
+    rec["peak_allocated_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    rec["peak_reserved_gib"] = torch.cuda.max_memory_reserved() / 2**30
+    rec["agent_losses"] = losses
+    rec["x_equal"] = same_bits(state["params"][0], want_x[rank])
+    rec["psi_equal"] = same_bits(state["opt"]["psi"][0], want_psi[rank])
+    del want_x, want_psi        # the parent's buses, shared through IPC
+    if prof_rows is not None:
+        rec["traced"] = traced_launches(prof_rows)
+        rec["buckets"] = bucket(prof_rows)
+        rec["busy_ms"] = sum(r[0] for r in prof_rows)
+    # the kernel on the final payloads (static now: every rank is done),
+    # one rank at a time: the copies and the library's stack take ~13 GB
+    ring = step.peer_ring()
+    terms = [(t.shift, float(t.weight)) for t in sched.rounds[0].terms]
+    ring.raise_on_timeout()
+    rec["epochs"] = ring.epoch
+    del state, m
+    free()
+    for r in range(world):
+        dist.barrier(group=mesh.control)
+        if r != rank:
+            continue
+        left, right = ring.left.clone(), ring.right.clone()
+        got = ops.ring_peer(ring.payload, ring.left, ring.right, terms,
+                            world)
+        want = ref.ring_peer_ref(ring.payload, left, right, terms, world)
+        rec["bit_equal"], rec["max_abs_err"] = compare([got], [want])
+        n = ring.payload.numel()
+        rec["bytes"] = 4 * n * 4        # three payloads read, one written
+        rec["bound_ms"], rec["bound_by"] = bound_ms(
+            rec["bytes"], (2 * len(terms) - 1) * n)
+        rec["ms"] = time_ms(lambda: ops.ring_peer(
+            ring.payload, ring.left, ring.right, terms, world, out=got))
+        rec["plain_ms"] = time_ms(lambda: ref.ring_peer_ref(
+            ring.payload, ring.left, ring.right, terms, world))
+        codes = ops.peer_operands(ring.payload, left, right, terms, world)
+        stack = torch.stack([(ring.payload, left, right)[c][0]
+                             for c in codes]).view(len(terms), -1)
+        del left, right
+        w = torch.tensor([[wt for _, wt in terms]], device=got.device)
+        lib = torch.matmul(w, stack).view_as(got)
+        rec["library_max_abs_diff"] = float(
+            (lib - want).nan_to_num_(0.0, 0.0, 0.0).abs_().max())
+        del lib, want
+        rec["library_ms"] = time_ms(lambda: torch.matmul(w, stack))
+        del got, stack
+        free()
+    torch.cuda.synchronize()
+    dist.barrier(group=mesh.control)
+    ring.close()
+    Path(out_dir, f"rank{rank}.json").write_text(json.dumps(rec))
+    dist.destroy_process_group()
+
+
+def peer_phase():
+    """Phase 25: ``PEER_RANKS`` ranks on the one card, each one agent of
+    ``smollm_360m`` at full width and depth (bus ``(1, 3195392, 128)`` a
+    rank), ring, fused kernels, seq 128, per-agent batch 1, α 0.2, β 0.9,
+    ``PEER_STEPS`` steps through the multi-rank bus step; the gossip runs
+    through the peer-pointer ring kernel (CUDA IPC).  Gates: per-agent
+    losses and the final x and ψ bit-equal to the one-process eager run;
+    the kernel bit-equal to its plain version on every rank; no flag wait
+    timed out; one ring launch a rank a step, no one-card ring or combine
+    launch, and the traced step holds no roll.  The pod mode and the
+    blocked and split plans are not run here (one card; the CPU tests hold
+    them over gloo); the NCCL path has run nowhere (gloo on the CPU runs
+    the same permute plan)."""
+    import shutil
+    import torch
+    import torch.multiprocessing as mp
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import build_model
+    free()
+    model = build_model(get_config(ARCH))
+    data = SyntheticLM(vocab_size=model.cfg.vocab_size, seq_len=SEQ,
+                       n_agents=AGENTS, phi=0.2)
+    dgen = torch.Generator(device="cuda").manual_seed(7)
+    batches = [{k: v.cpu() for k, v in data.sample(dgen, 1).items()}
+               for _ in range(PEER_STEPS)]
+    t0 = time.time()
+    refrun = peer_reference(model, batches)
+    out = {"reference_s": time.time() - t0,
+           "reference_step_ms": [round(t * 1e3, 2)
+                                 for t in refrun["seconds"]]}
+    del model
+    free()
+    shutil.rmtree(PEER_STORE, ignore_errors=True)
+    PEER_STORE.mkdir(parents=True)
+    t0 = time.time()
+    mp.spawn(peer_rank, args=(PEER_RANKS, batches, refrun["x"],
+                              refrun["psi"], str(PEER_STORE)),
+             nprocs=PEER_RANKS, join=True)
+    out["ranks_s"] = time.time() - t0
+    ranks = [json.loads((PEER_STORE / f"rank{r}.json").read_text())
+             for r in range(PEER_RANKS)]
+    del refrun["x"], refrun["psi"]
+    torch.cuda.ipc_collect()
+    free()
+    out["ranks"] = ranks
+    want_losses = refrun["losses"]
+    for r in ranks:
+        tag = f"peer rank {r['rank']}"
+        check(r["agent_losses"] == want_losses, f"{tag}: per-agent losses "
+              f"{r['agent_losses']} != the one-process run's {want_losses}")
+        check(r["x_equal"] and r["psi_equal"], f"{tag}: final x / ψ differ "
+              "from the one-process run's")
+        check(r["bit_equal"], f"{tag}: the peer ring kernel differs from "
+              f"its plain version (max |err| {r['max_abs_err']})")
+        check(r["launches"] == {"edm_update": PEER_STEPS,
+                                "ring_peer": PEER_STEPS},
+              f"{tag}: launches {r['launches']}, expected {PEER_STEPS} "
+              "edm_update and ring_peer")
+        check(r["epochs"] == PEER_STEPS, f"{tag}: {r['epochs']} ring epochs")
+        check(r["shared"], f"{tag}: the ranks do not share the card")
+    tr = ranks[0]["traced"]
+    check(tr["ring_peer"] == 1 and tr["edm_update"] == 1
+          and tr["ring_combine"] == 0 and tr["gossip_axpy"] == 0
+          and ranks[0]["buckets"]["roll (gossip terms)"] == 0,
+          f"peer rank 0's traced step: {tr}, roll bucket "
+          f"{ranks[0]['buckets']['roll (gossip terms)']}")
+    return out
+
+
+def print_peer(rec, smi: str) -> None:
+    """Phase 25's lines."""
+    for r in rec["ranks"]:
+        print(f"[peer] rank {r['rank']} on {r['device']} (shared card "
+              f"{r['shared']}), bus {r['bus']}: step ms {r['step_ms']}, "
+              f"loss {r['loss']}, consensus {r['consensus']}, launches "
+              f"{r['launches']}, peak {r['peak_allocated_gib']:.2f} / "
+              f"{r['peak_reserved_gib']:.2f} GiB; ring_peer {r['ms']:.4f} "
+              f"ms (plain {r['plain_ms']:.3f}, library "
+              f"{r['library_ms']:.3f}, bound {r['bound_ms']:.4f} ms "
+              f"{r['bound_by']}), bit-equal {r['bit_equal']}; {smi}",
+              flush=True)
+    r0 = rec["ranks"][0]
+    print(f"[peer] {PEER_RANKS} ranks × {PEER_STEPS} steps in "
+          f"{rec['ranks_s']:.1f} s (the one-process run "
+          f"{rec['reference_s']:.1f} s, step ms "
+          f"{rec['reference_step_ms']}); per-agent losses, x and ψ bit-equal "
+          f"to it; rank 0's profiled step: busy {r0['busy_ms']:.2f} ms, "
+          f"traced {json.dumps({k: v for k, v in r0['traced'].items() if v})}"
+          f", buckets {json.dumps({k: round(v, 3) for k, v in r0['buckets'].items() if v})}",
+          flush=True)
+    print("[peer] not run on this card: the pod mode (row shards) and the "
+          "blocked and split permute plans (the CPU tests hold them over "
+          "gloo against the JAX package); NCCL: not run anywhere (one card: "
+          "NCCL refuses two ranks on it; gloo on the CPU runs the same "
+          "permute plan)", flush=True)
+
+
 def print_fixed_batch(tag: str, arch: str, cli_args, rec, smi: str):
     """Phases 17, 21 and 23's lines."""
     print(f"[{tag}] {arch}: {rec['params']:,} parameters, "
@@ -4803,6 +5080,11 @@ def main() -> None:
           f"CLI --ckpt ({wh['serve_s']:.1f} s, tokens {wh['served_tokens']}):"
           f" served params sha256 {wh['params_sha256'][:16]}… == the "
           "export's", flush=True)
+
+    clock("25")
+    # 25. multi-rank gossip: 4 ranks on the one card, the peer-pointer ring
+    peer = peer_phase()
+    print_peer(peer, smi)
     clock("end")
 
     def serve_row(name, replaces):
@@ -4976,6 +5258,29 @@ def main() -> None:
         "bit_equal": all(r["bit_equal"] for r in table_recs),
         "timed_case": tm["case"], "shape": tm["shape"],
         "bytes": tm["bytes"], "gb_per_s": tm["gb_per_s"], "timing": TIMING})
+    pr = peer["ranks"]
+    kernels.append({
+        "name": "ring_peer", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ring_peer.cu",
+        "replaces": "src/repro/kernels/ring_dma.py:121",
+        "launches": sum(r["launches"]["ring_peer"] for r in pr),
+        "launches_of": f"phase 25: {PEER_RANKS} ranks × {PEER_STEPS} steps "
+                       "of the multi-rank bus step (each rank's count)",
+        "launches_per_rank": [r["launches"]["ring_peer"] for r in pr],
+        "max_abs_err": max(r["max_abs_err"] for r in pr),
+        "ms": statistics.median(r["ms"] for r in pr),
+        "ms_per_rank": [r["ms"] for r in pr],
+        "plain_ms": statistics.median(r["plain_ms"] for r in pr),
+        "bound_ms": pr[0]["bound_ms"], "bound_by": pr[0]["bound_by"],
+        "library_ms": statistics.median(r["library_ms"] for r in pr),
+        "library": "torch.matmul(w, stack of the three payloads), f32 "
+                   "(cuBLAS; TF32 off; the neighbours' payloads copied "
+                   "first)",
+        "library_max_abs_diff": max(r["library_max_abs_diff"] for r in pr),
+        "bit_equal": all(r["bit_equal"] for r in pr),
+        "shape": pr[0]["bus"], "bytes": pr[0]["bytes"],
+        "traced_in_rank0_profiled_step": pr[0]["traced"]["ring_peer"],
+        "timing": TIMING + "; one rank timed at a time, the others idle"})
     for rec in kernels:
         name = rec["name"]
         if name in ("edm_update", "gossip_axpy", "gossip_axpy_q8",

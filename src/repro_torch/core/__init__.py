@@ -17,8 +17,8 @@ from .wire import WIRE_FORMATS, WireCodec, encode_ef, make_codec
 from .mixing import (GroupPlan, accumulate_f32, build_mixer,
                      make_group_mixer, make_mixer,
                      make_overlap_mixer, make_schedule_mixer, mix_dense,
-                     mix_ppermute, mix_shifts, round_tables, tree_map,
-                     wire_terms)
+                     mix_dense_sharded, mix_ppermute, mix_ranks, mix_shifts,
+                     round_tables, tree_map, wire_terms)
 from .optimizers import (ALGORITHMS, DecOptimizer, make_edm_bus,
                          make_edm_bus_ef, make_optimizer)
 from .metrics import (agent_mean, bus_consensus, bus_grad_norm,
@@ -36,7 +36,7 @@ __all__ = ["ShiftTerm", "Topology", "disconnected", "exp_graph",
            "WIRE_FORMATS", "WireCodec", "encode_ef", "make_codec",
            "accumulate_f32", "build_mixer", "make_mixer",
            "make_overlap_mixer", "make_schedule_mixer", "mix_dense",
-           "mix_ppermute", "mix_shifts", "round_tables", "tree_map",
+           "mix_dense_sharded", "mix_ppermute", "mix_ranks", "mix_shifts", "round_tables", "tree_map",
            "wire_terms", "ALGORITHMS", "DecOptimizer",
            "make_edm_bus", "make_edm_bus_ef", "make_optimizer", "agent_mean",
            "bus_consensus", "bus_grad_norm", "consensus_distance",

@@ -158,10 +158,17 @@ class BusLayout:
 
     paths: Tuple[str, ...]
     slots: Tuple[LeafSlot, ...]
-    rows: int                  # incl. tail pad; rows % block_rows == 0
+    rows: int                  # incl. tail pad; % (block_rows · shards) == 0
     block_rows: int
     dtype: torch.dtype = torch.float32
     groups: Tuple[BusGroup, ...] = ()
+    shards: int = 1            # row shards of the shard-resident mode
+
+    @property
+    def shard_rows(self) -> int:
+        """Rows each row shard owns (``rows / shards``): a whole number of
+        ``block_rows`` tiles by construction (DESIGN §7)."""
+        return self.rows // self.shards
 
     @property
     def is_grouped(self) -> bool:
@@ -203,8 +210,8 @@ _LAYOUT_CACHE: Dict[tuple, BusLayout] = {}
 
 def make_layout(tree: Mapping[str, torch.Tensor], *,
                 block_rows: Optional[int] = None,
-                groups: Optional[Tuple[GroupSpec, ...]] = None
-                ) -> BusLayout:
+                groups: Optional[Tuple[GroupSpec, ...]] = None,
+                shards: int = 1) -> BusLayout:
     """Layout for ``tree`` (built once, then taken from a cache keyed on
     the leaves' shapes and dtypes, ``block_rows`` and the specs), whose
     leaves are shaped ``(A, *leaf_shape)`` (anything with ``.shape`` and
@@ -216,11 +223,18 @@ def make_layout(tree: Mapping[str, torch.Tensor], *,
     group takes the rest.  Groups occupy contiguous row ranges in spec
     order, each rounded up to ``block_rows`` on its own.  ``None`` (or one
     catch-all spec) gives the ungrouped layout: one group, and the slots
-    and rows of the path-order packing."""
+    and rows of the path-order packing.
+
+    ``shards`` (the shard-resident mode, DESIGN §7) rounds each group up to
+    ``block_rows · shards`` rows instead, as the reference does, so that
+    the row axis splits into ``shards`` blocks that are whole kernel tiles
+    (``shard_rows``); ``shards=1`` is the layout above, byte for byte."""
     block_rows = block_rows or BLOCK_ROWS
     if block_rows <= 0 or block_rows % _SUBLANE:
         raise ValueError(f"block_rows must be a positive multiple of "
                          f"{_SUBLANE}, got {block_rows}")
+    if shards < 1:
+        raise ValueError(f"shards must be >= 1, got {shards}")
     paths = leaf_paths(tree)
     if not paths:
         raise ValueError("cannot build a bus layout for an empty tree")
@@ -231,10 +245,11 @@ def make_layout(tree: Mapping[str, torch.Tensor], *,
     if len(set(names)) != len(names):
         raise ValueError(f"duplicate group names: {names}")
     key = (tuple((p, tuple(tree[p].shape[1:]), tree[p].dtype)
-                 for p in paths), block_rows, specs)
+                 for p in paths), block_rows, specs, shards)
     hit = _LAYOUT_CACHE.get(key)
     if hit is not None:
         return hit
+    quantum = block_rows * shards
     members: List[List[int]] = [[] for _ in specs]
     for i, path in enumerate(paths):
         gi = next((gi for gi, spec in enumerate(specs)
@@ -258,12 +273,12 @@ def make_layout(tree: Mapping[str, torch.Tensor], *,
             rows = padded_rows(size)
             slots[i] = LeafSlot(row, rows, shape, leaf.dtype, size)
             row += rows
-        grows = -(-(row - base) // block_rows) * block_rows
+        grows = -(-(row - base) // quantum) * quantum
         resolved.append(BusGroup(spec.name, base, grows, tuple(idxs),
                                  spec.gossip_every, spec.wire, spec.schedule))
         base += grows
     layout = BusLayout(tuple(paths), tuple(slots), base, block_rows,
-                       groups=tuple(resolved))
+                       groups=tuple(resolved), shards=shards)
     _LAYOUT_CACHE[key] = layout
     return layout
 

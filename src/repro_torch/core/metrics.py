@@ -19,7 +19,8 @@ import torch
 from .mixing import tree_map
 
 __all__ = ["tree_sqnorm", "agent_mean", "consensus_distance",
-           "bus_consensus", "bus_grad_norm"]
+           "bus_consensus", "bus_grad_norm", "bus_consensus_ranks",
+           "bus_grad_norm_ranks"]
 
 
 def _leaves(tree):
@@ -69,3 +70,26 @@ def bus_consensus(bus: torch.Tensor) -> torch.Tensor:
 def bus_grad_norm(g_bus: torch.Tensor) -> torch.Tensor:
     """Global gradient norm over a packed gradient bus, in f32."""
     return sum(_sq_sum(blk) for blk in _row_ranges(g_bus)).sqrt()
+
+
+def bus_consensus_ranks(bus: torch.Tensor, n_agents: int, agent_sum,
+                        total_sum) -> torch.Tensor:
+    """:func:`bus_consensus` of a bus spread over ranks: ``bus`` is this
+    rank's block (its agents' rows, or a row shard of them);
+    ``agent_sum(t)`` sums ``t`` over the ranks that hold the other agents
+    of these rows and ``total_sum(t)`` a scalar over every rank.  The mean
+    is the agents' sum over ``n_agents``, so the value equals the
+    one-process one up to the order of the sums."""
+    total = torch.zeros((), dtype=torch.float32, device=bus.device)
+    for blk in _row_ranges(bus):
+        mean = agent_sum(blk.float().sum(dim=0)) / n_agents
+        total = total + _sq_sum(b.float() - mean for b in blk)
+    return total_sum(total)
+
+
+def bus_grad_norm_ranks(g_bus: torch.Tensor, total_sum) -> torch.Tensor:
+    """:func:`bus_grad_norm` of a gradient bus spread over ranks
+    (``total_sum`` sums a scalar over every rank)."""
+    sq = sum(_sq_sum(blk) for blk in _row_ranges(g_bus))
+    return total_sum(torch.as_tensor(sq, dtype=torch.float32,
+                                     device=g_bus.device)).sqrt()

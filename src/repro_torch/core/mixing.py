@@ -11,9 +11,18 @@ every agent on one device (tests assert they agree):
   with all A agents on one device (``agents_per_device = A``, M = 1), every
   term's blocked roll needs no permute and reduces to a local roll of the
   agent axis; the weighted combine is then ONE fused ``gossip_axpy``
-  kernel (``use_fused_kernel=True``) or the plain weighted sum.  Spreading
-  agents over more than one device is multi-GPU gossip, not ported yet.
+  kernel (``use_fused_kernel=True``) or the plain weighted sum.
   On a tree the combine is one ``gossip_axpy`` launch per leaf.
+* :func:`mix_ranks` — the ``ppermute`` engine across ``torch.distributed``
+  ranks (a :class:`~repro_torch.core.comm.GossipMesh`, ``mesh=`` of the
+  factories): this rank's agent block, one permute round a gossip term
+  (the reference's wire plan, :func:`_make_permute_term`: literal
+  source → target pairs, hierarchical terms on the ``pod`` / ``data``
+  axis, blocked rolls of B > 1 agents a rank, row shards), the same
+  combine kernels, so a multi-rank run is bit-equal to the one-process
+  run; a flat ±1 ring on the card runs the peer-pointer ring kernel
+  (:mod:`repro_torch.kernels.ring_peer`).  :func:`mix_dense_sharded` is
+  the shard-resident dense oracle.
 
 :func:`accumulate_f32` wraps a tree op so that sub-f32 leaves go up to
 f32 and come back once on the way out: the dense engine's bf16 path and
@@ -81,17 +90,22 @@ from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels import ring_dma
+from repro_torch.kernels.ring_peer import PeerRing
 
+from . import comm as coll
+from .comm import axes_group, gossip_agent_axes
 from .elastic import is_masked
 from .schedule import GossipSchedule, StaticSchedule
 from .topology import ShiftTerm, Topology
 from .wire import WireCodec
 
 __all__ = ["TRANSPORTS", "mix_dense", "mix_shifts", "mix_ppermute",
+           "mix_ranks", "mix_dense_sharded",
            "wire_terms", "round_tables", "make_mixer", "make_schedule_mixer",
            "make_overlap_mixer", "build_mixer", "GroupPlan", "encode_rows",
            "make_group_mixer", "accumulate_f32", "tree_map"]
@@ -354,17 +368,18 @@ def _use_ring(topo: Topology, x, agents_per_device: int,
 
 def _one_device(A: int, agents_per_device: int) -> None:
     """Raise unless ``agents_per_device`` puts all A agents on one device:
-    more devices is multi-GPU gossip."""
+    agents spread over ranks need a mesh (:func:`mix_ranks`)."""
     if agents_per_device < 1 or A % agents_per_device:
         raise ValueError(f"agent count {A} must be a multiple of "
                          f"agents_per_device={agents_per_device}")
     n_devices = A // agents_per_device
     if n_devices != 1:
-        raise NotImplementedError(
+        raise ValueError(
             f"ppermute gossip over {n_devices} devices (agents_per_device="
-            f"{agents_per_device} < {A} agents) is multi-GPU gossip, which "
-            "the port does not have yet (ROADMAP.md); pass "
-            f"agents_per_device={A} to keep every agent on one device")
+            f"{agents_per_device} < {A} agents) runs one rank per device: "
+            "pass mesh= (repro_torch.launch.mesh.make_gossip_mesh) and this "
+            f"rank's agent block, or agents_per_device={A} to keep every "
+            "agent on one device")
 
 
 def mix_ppermute(topo: Topology, x, *, agents_per_device: int,
@@ -415,6 +430,303 @@ def _combine(payloads, weights, use_fused_kernel: bool,
     return acc
 
 
+# ---------------------------------------------------------------------------
+# multi-rank gossip: one agent block per rank (DESIGN §3–4, §7)
+# ---------------------------------------------------------------------------
+
+
+def _agent_axis_info(topo: Topology, mesh, agent_axes):
+    """Resolve ``agent_axes`` against the mesh, as the reference's: returns
+    ``(names, sizes, split, B)`` — B agents per rank (blocked when > 1:
+    contiguous blocks of B on M = A / B ranks); ``split`` when the
+    topology's (P, D) grid maps 1:1 onto two mesh axes, so that inter and
+    intra terms permute along one axis each."""
+    names = (tuple(agent_axes) if isinstance(agent_axes, (tuple, list))
+             else (agent_axes,))
+    sizes = tuple(mesh.axis_size(n) for n in names)
+    M = int(np.prod(sizes))
+    if topo.n_agents % M:
+        raise ValueError(f"agent count {topo.n_agents} must be a multiple of "
+                         f"the mesh agent extent {M} (axes {names})")
+    B = topo.n_agents // M
+    if B != 1 and len(names) != 1:
+        raise ValueError("blocked gossip (agents > ranks) needs a single "
+                         "flat agent axis")
+    split = (B == 1 and len(names) == 2 and topo.grid is not None
+             and sizes == topo.grid_shape())
+    return names, sizes, split, B
+
+
+def _flat_index(mesh, names, sizes) -> int:
+    """This rank's flat index along the agent axes (mixed radix)."""
+    idx = 0
+    for n, size in zip(names, sizes):
+        idx = idx * size + mesh.axis_index(n)
+    return idx
+
+
+def _blocked_roll(x, shift: int, bloc: int, n_ring: int, n_dev: int,
+                  permute: Callable):
+    """Blocked circulant roll, as the reference's: this rank's block of
+    ``roll(x_global, shift)`` where each of ``n_ring`` consecutive ranks
+    holds ``bloc`` consecutive elements of one ring (rings tile the
+    ``n_dev`` ranks).  shift = q·bloc + r: rows ``[0, bloc − r)`` come from
+    q hops back, the r boundary rows from q + 1 — at most two permutes; a
+    part whose hop count is ≡ 0 (mod the ring) stays local, so a sub-block
+    shift ships only its r boundary rows."""
+    n_elems = bloc * n_ring
+    s = shift % n_elems
+    if s == 0:
+        return x
+    q, r = divmod(s, bloc)
+
+    def perm(hops):
+        hops %= n_ring
+        return [(g * n_ring + (c - hops) % n_ring, d)
+                for d in range(n_dev) for g, c in [divmod(d, n_ring)]]
+
+    p1 = x[:bloc - r] if r else x
+    if q % n_ring:
+        p1 = permute(p1, perm(q))
+    if not r:
+        return p1
+    p2 = x[bloc - r:]
+    if (q + 1) % n_ring:
+        p2 = permute(p2, perm(q + 1))
+    return torch.cat([p2, p1], 0)
+
+
+def _make_permute_term(topo: Topology, mesh, names, sizes, split: bool,
+                       B: int) -> Callable:
+    """The per-term wire plan of the multi-rank engine: ``permute_term(x,
+    t)`` for this rank's agent block — the one closure every multi-rank
+    engine uses, as in the reference, so the engines cannot drift in what
+    they put on the wire.  Each permute is one
+    :func:`repro_torch.core.comm.ppermute` round with literal
+    source → target pairs."""
+    A = topo.n_agents
+    M = A // B
+    Pn, Dn = topo.grid_shape()
+    ranks, group = axes_group(mesh, names)
+
+    def flat(x, pairs):
+        return coll.ppermute(x, pairs, ranks, group)
+
+    def permute_term_blocked(x, t):
+        if t.level == "flat":
+            return _blocked_roll(x, t.shift, B, M, M, flat)
+        if t.level == "inter":
+            # an inter roll by s pods is the flat roll by s·D agents
+            return _blocked_roll(x, t.shift * Dn, B, M, M, flat)
+        if B % Dn == 0:          # whole pods per rank: a local roll
+            g = x.reshape((B // Dn, Dn) + tuple(x.shape[1:]))
+            return torch.roll(g, t.shift, 1).reshape(x.shape)
+        if Dn % B:
+            raise ValueError(f"blocked intra gossip needs pod size {Dn} and "
+                             f"block {B} aligned")
+        return _blocked_roll(x, t.shift, B, Dn // B, M, flat)
+
+    def permute_term(x, t):
+        if t.shift == 0 or A == 1:
+            return x
+        if B > 1:
+            return permute_term_blocked(x, t)
+        if split and t.level != "flat":
+            ax, size = ((names[0], Pn) if t.level == "inter"
+                        else (names[1], Dn))
+            if size == 1:
+                return x
+            pairs = [((i - t.shift) % size, i) for i in range(size)]
+            return coll.ppermute(x, pairs, mesh.ranks(ax), mesh.group(ax))
+        src = topo.term_sources(t)
+        return flat(x, [(int(s_), d) for d, s_ in enumerate(src)])
+
+    return permute_term
+
+
+def _peer_unfit(topo: Topology, mesh, x, names, B: int, shard_axes,
+                wire: Optional[WireCodec]) -> str:
+    """Why the peer-pointer ring cannot carry this rank's gossip, or '' —
+    the reference's ``ring_dma_supported`` across devices: a flat ±1 ring,
+    one agent per rank on one agent axis, every rank of it on this host
+    (CUDA IPC opens no handle of another host), no row shards, no wire, an
+    unmasked round, a ``(1, rows, 128)`` f32 payload (``x`` None checks the
+    rest)."""
+    if is_masked(topo):
+        return f"takes unmasked rings, got the masked round {topo.name}"
+    if wire is not None:
+        return f"takes f32 payloads, not the {wire.fmt} wire"
+    if ring_dma.ring_plan(topo) is None:
+        return f"needs a flat ±1 ring, got the {topo.name} topology"
+    if B != 1 or len(names) != 1:
+        return (f"needs one agent a rank on one agent axis, got {B} on "
+                f"{names}")
+    ranks, _ = axes_group(mesh, names)
+    if not mesh.one_host(ranks):
+        return (f"needs every rank of the ring on one host, got hosts "
+                f"{sorted({mesh.hosts[r] for r in ranks})}")
+    if shard_axes is not None:
+        return "does not compose with row shards (shard_axes)"
+    if x is not None and not ring_dma.bus_payload(x, 1):
+        return (f"needs a (1, rows, 128) f32 payload, got "
+                f"{getattr(x, 'dtype', type(x).__name__)} "
+                f"{tuple(getattr(x, 'shape', ()))}")
+    return ""
+
+
+class _PeerSlot:
+    """The peer ring a schedule mixer's ring rounds share (made at the
+    first call, collectively, with the payload's shape: the ring's ranks
+    exchange their IPC handles over the mesh's control group)."""
+
+    def __init__(self, mesh, names, B: int):
+        self.mesh, self.names, self.B, self.ring = mesh, names, B, None
+
+    def get(self, like: torch.Tensor):
+        if self.ring is None:
+            ranks, _ = axes_group(self.mesh, self.names)
+            ring = PeerRing(tuple(like.shape), like.device,
+                            ranks.index(dist.get_rank()), len(ranks))
+            handles = [None] * len(ranks)
+            dist.all_gather_object(handles, ring.handle,
+                                   group=self.mesh.control)
+            ring.open(handles)
+            self.ring = ring
+        elif self.ring.shape != tuple(like.shape):
+            raise ValueError(f"the peer ring holds {self.ring.shape} "
+                             f"payloads, got {tuple(like.shape)}")
+        return self.ring
+
+    def close(self) -> None:
+        """Free the ring once every rank of it is done (collective)."""
+        if self.ring is not None:
+            torch.cuda.synchronize(self.ring.device)
+            dist.barrier(group=self.mesh.control)
+            self.ring.close()
+            self.ring = None
+
+
+def mix_ranks(topo: Topology, mesh, x, *, agent_axes=None,
+              use_fused_kernel: bool = False,
+              wire: Optional[WireCodec] = None, transport: str = "auto",
+              shard_axes: Optional[str] = None,
+              out: Optional[torch.Tensor] = None, _peer=None):
+    """The ``ppermute`` engine across ranks: the twin of the reference's
+    ``mix_ppermute`` under a mesh.  ``x`` is this rank's agent block
+    (``(B, ...)``, a tensor or a tree; with ``shard_axes`` its ``(1,
+    rows/S, ...)`` row block; with a non-f32 ``wire`` the codec's payload of
+    it).  ``agent_axes`` default to :func:`~repro_torch.core.comm.
+    gossip_agent_axes` of the mesh.
+
+    * B = 1: each term is one permute straight from
+      :meth:`Topology.term_sources`; a hierarchical topology whose grid is
+      the mesh's permutes along the ``pod`` or ``data`` axis (split), else
+      along the flattened axes.  Blocked (B > 1): the blocked-roll plan
+      (:func:`_blocked_roll`).  Row shards: the same permutes, each on the
+      shard's own rows (no gather).
+    * The combine is the one-device engine's (:func:`_combine`: one
+      ``gossip_axpy`` launch when fused, the plain weighted sum else) on
+      the permuted payloads in term order — so a multi-rank run is bit-equal
+      to the one-process run.  A wire payload permutes component by
+      component and decodes in the combine (``gossip_axpy_wire``).
+    * A masked round at B = 1 permutes from its source maps and combines
+      with this rank's weight column; at B > 1 its payload (each component)
+      is all-gathered along the agent axes and the one-device masked mixer
+      runs on it, keeping this rank's block (the reference's
+      gather-and-index fallback).
+    * ``transport``: on CUDA, a flat ±1 ring with one agent a rank and an
+      f32 payload, every rank of the ring on one host, runs the
+      peer-pointer ring kernel (:class:`repro_torch.kernels.ring_peer.
+      PeerRing`) when forced (``"ring_dma"``) or fused under ``"auto"``;
+      on the CPU that transport is the permutes plus the plain combine.
+      Ranks that share one card have no NCCL: any other gossip raises
+      there."""
+    _check_transport(transport)
+    if agent_axes is None:
+        agent_axes = gossip_agent_axes(mesh, sharded=shard_axes is not None)
+    names, sizes, split, B = _agent_axis_info(topo, mesh, agent_axes)
+    if shard_axes is not None:
+        if shard_axes in names:
+            raise ValueError(f"shard axis {shard_axes!r} is an agent axis")
+        if B != 1:
+            raise ValueError("shard-resident gossip needs one agent per mesh "
+                             "slice")
+    wire = _no_f32(wire)
+    masked = is_masked(topo)
+    first = (next(iter(x.values())) if isinstance(x, Mapping)
+             else x if wire is None else wire.payload_leaves(x)[0])
+    why = _peer_unfit(topo, mesh, x if wire is None else None, names, B,
+                      shard_axes, wire)
+    if transport == "ring_dma" and why:
+        raise ValueError(f"transport='ring_dma' {why}")
+    on_card = first.device.type == "cuda"
+    if on_card and not why and (transport == "ring_dma" or (
+            transport == "auto" and use_fused_kernel)):
+        peer = (_peer or _PeerSlot(mesh, names, B)).get(x)
+        terms = [(t.shift, float(t.weight)) for t in topo.terms]
+        return peer.combine(terms, out=out, payload=x)
+    if on_card and mesh.shared:
+        raise ValueError(
+            f"ranks share one card here ({first.device}), so there is no "
+            f"NCCL: only the fused peer-pointer ring carries their gossip, "
+            f"and it {why or 'needs use_fused_kernel=True'}")
+    permute_term = _make_permute_term(topo, mesh, names, sizes, split, B)
+    weights = [float(t.weight) for t in topo.terms]
+    if masked and B > 1:
+        ranks, group = axes_group(mesh, names)
+        glob = _masked_mixer(topo, "ppermute", topo.n_agents,
+                             use_fused_kernel, wire)
+        i = _flat_index(mesh, names, sizes)
+
+        def gather(leaf):
+            return coll.all_gather(leaf, group, len(ranks))
+
+        full = (wire.map_payload(gather, x) if wire is not None
+                else tree_map(gather, x))
+        return tree_map(lambda v: v[i * B:(i + 1) * B], glob(full))
+    if masked:
+        # B = 1: the permutes come from the masked source maps (the generic
+        # term_sources branch); the weights are this rank's column
+        i = _flat_index(mesh, names, sizes)
+        weights = [float(w) for w in round_tables(topo)[1][:, i]]
+    if wire is not None:
+        pays = [wire.map_payload(lambda l, t=t: permute_term(l, t), x)
+                for t in topo.terms]
+        if use_fused_kernel:
+            return kops.gossip_axpy_wire(pays, weights, fmt=wire.fmt,
+                                         block_rows=wire.block_rows, out=out)
+        return _combine([wire.decode(p) for p in pays], weights, False)
+    if isinstance(x, Mapping):
+        return tree_map(lambda leaf: _combine(
+            [permute_term(leaf, t) for t in topo.terms], weights,
+            use_fused_kernel), x)
+    return _combine([permute_term(x, t) for t in topo.terms], weights,
+                    use_fused_kernel, out=out)
+
+
+def mix_dense_sharded(topo: Topology, mesh, agent_axes, shard_axes, x):
+    """Shard-resident dense oracle (DESIGN §7), the reference's: each rank
+    all-gathers its own row block along the agent axes only (never the
+    shard axis), applies the dense W to the gathered ``(A, rows/S, ...)``
+    stack and keeps its own agent — row-sharded end to end.  ``x``: this
+    rank's ``(1, rows/S, ...)`` block, or a tree of them."""
+    names, sizes, _, B = _agent_axis_info(topo, mesh, agent_axes)
+    if B != 1:
+        raise ValueError("the shard-resident dense oracle needs one agent "
+                         "per slice")
+    if shard_axes is not None and shard_axes in names:
+        raise ValueError(f"shard axis {shard_axes!r} is an agent axis")
+    ranks, group = axes_group(mesh, names)
+    i = _flat_index(mesh, names, sizes)
+    W = topo.dense_matrix()
+
+    def leaf(v):
+        gathered = coll.all_gather(v, group, len(ranks))   # (A, rows/S, ...)
+        return _dense_with(W, gathered)[i:i + 1]
+
+    return tree_map(leaf, x)
+
+
 def _check_round(topo) -> None:
     if not isinstance(topo, Topology):
         raise TypeError(f"gossip round {type(topo).__name__} is not a "
@@ -422,19 +734,51 @@ def _check_round(topo) -> None:
                         "MaskedTopology subclass)")
 
 
+def _rank_mixer(topo: Topology, engine: str, mesh, shard_axes,
+                use_fused_kernel: bool, wire: Optional[WireCodec],
+                transport: str, peer: Optional[_PeerSlot]) -> Callable:
+    """``mix(x, out=None)`` of one round across ranks (:func:`mix_ranks`);
+    only the ppermute engine runs on ranks."""
+    if engine != "ppermute":
+        raise ValueError(f"gossip across ranks runs the ppermute engine, not "
+                         f"{engine!r} (the dense oracle across ranks is "
+                         "mix_dense_sharded)")
+    axes = gossip_agent_axes(mesh, sharded=shard_axes is not None)
+    names, _, _, B = _agent_axis_info(topo, mesh, axes)
+    if transport == "ring_dma":
+        why = _peer_unfit(topo, mesh, None, names, B, shard_axes,
+                          _no_f32(wire))
+        if why:
+            raise ValueError(f"transport='ring_dma' {why}")
+    peer = peer or _PeerSlot(mesh, names, B)
+    return lambda x, out=None: mix_ranks(
+        topo, mesh, x, agent_axes=axes, use_fused_kernel=use_fused_kernel,
+        wire=wire, transport=transport, shard_axes=shard_axes, out=out,
+        _peer=peer)
+
+
 def make_mixer(topo: Topology, engine: str = "shifts", *,
                agents_per_device: int = 1, use_fused_kernel: bool = False,
                wire: Optional[WireCodec] = None,
-               transport: str = "auto") -> Callable:
+               transport: str = "auto", mesh=None,
+               shard_axes: Optional[str] = None) -> Callable:
     """Return ``mix(x, out=None) -> x``.  engine ∈ {"dense", "shifts",
     "ppermute"}; ``agents_per_device``, ``use_fused_kernel`` and
     ``transport`` are read by the ppermute engine only, as in the JAX
     package (a forced ``"ring_dma"`` on another engine, a wire or a
     topology that is not a ±1 ring raises here).  With a non-f32 ``wire``
     the mixer takes the codec's payload and returns the f32 mix; dense
-    and shifts decode first."""
+    and shifts decode first.
+
+    ``mesh`` (a :class:`~repro_torch.core.comm.GossipMesh`, in place of
+    the reference's ``mesh, agent_axes``) runs the round across ranks on
+    this rank's agent block (:func:`mix_ranks`; the agent axes are the
+    mesh's, ``shard_axes`` names its row-shard axis)."""
     _check_round(topo)
     _check_transport(transport)
+    if mesh is not None:
+        return _rank_mixer(topo, engine, mesh, shard_axes, use_fused_kernel,
+                           wire, transport, None)
     wire = _no_f32(wire)
     if transport == "ring_dma":
         why = (f"runs on the ppermute engine, not {engine!r}"
@@ -462,19 +806,51 @@ def make_schedule_mixer(sched: GossipSchedule, engine: str = "shifts", *,
                         agents_per_device: int = 1,
                         use_fused_kernel: bool = False,
                         wire: Optional[WireCodec] = None,
-                        transport: str = "auto") -> Callable:
+                        transport: str = "auto", mesh=None,
+                        shard_axes: Optional[str] = None) -> Callable:
     """Step-indexed mixer over a schedule: ``mix(x, step=0, out=None)``
     applies round ``sched.round_index(step)`` through the chosen engine.
     Every round has its own engine closure; the step is a Python int, so
-    the round is picked in Python."""
-    mixers = [make_mixer(r, engine, agents_per_device=agents_per_device,
-                         use_fused_kernel=use_fused_kernel, wire=wire,
-                         transport=transport)
-              for r in sched.rounds]
+    the round is picked in Python.  Across ranks (``mesh``) the ring rounds
+    share one peer ring, and ``mix.payload_for_write(step, like)`` gives
+    the buffer a step's payload should be written into (the peer ring's,
+    once its neighbours have read the last; None when that step's round
+    does not run the peer ring on this device)."""
+    peer = None
+    if mesh is not None:
+        if engine != "ppermute":
+            raise ValueError(f"gossip across ranks runs the ppermute engine, "
+                             f"not {engine!r}")
+        axes = gossip_agent_axes(mesh, sharded=shard_axes is not None)
+        names, _, _, B = _agent_axis_info(sched.rounds[0], mesh, axes)
+        peer = _PeerSlot(mesh, names, B)
+        mixers = [_rank_mixer(r, engine, mesh, shard_axes, use_fused_kernel,
+                              wire, transport, peer) for r in sched.rounds]
+    else:
+        mixers = [make_mixer(r, engine, agents_per_device=agents_per_device,
+                             use_fused_kernel=use_fused_kernel, wire=wire,
+                             transport=transport)
+                  for r in sched.rounds]
     if len(mixers) == 1:
-        return lambda x, step=0, out=None: mixers[0](x, out=out)
-    return lambda x, step=0, out=None: mixers[
-        int(sched.round_index(int(step)))](x, out=out)
+        mix = lambda x, step=0, out=None: mixers[0](x, out=out)  # noqa: E731
+    else:
+        mix = lambda x, step=0, out=None: mixers[  # noqa: E731
+            int(sched.round_index(int(step)))](x, out=out)
+
+    def payload_for_write(step: int, like: torch.Tensor):
+        if peer is None or like.device.type != "cuda" or not (
+                transport == "ring_dma"
+                or (transport == "auto" and use_fused_kernel)):
+            return None
+        topo = sched.rounds[int(sched.round_index(int(step)))]
+        if _peer_unfit(topo, mesh, like, peer.names, peer.B, shard_axes,
+                       _no_f32(wire)):
+            return None
+        return peer.get(like).payload_for_write()
+
+    mix.payload_for_write = payload_for_write
+    mix.peer = peer
+    return mix
 
 
 def _late_mask(late, K: int) -> Optional[np.ndarray]:
@@ -594,6 +970,11 @@ def make_overlap_mixer(sched, engine: str = "ppermute", *,
         complete.prepare = lambda step, late, device: None
         return (lambda x, step=0: x), complete
 
+    if 1 <= agents_per_device < A and A % agents_per_device == 0:
+        raise NotImplementedError(
+            "the overlapped gossip pipeline across ranks (agents_per_device="
+            f"{agents_per_device} < {A} agents) is not ported yet "
+            "(ROADMAP.md §1 item 5)")
     _one_device(A, agents_per_device)
     tables = _DeviceTables([round_tables(r, K) for r in sched.rounds])
     pads = [[(int(t.shift), float(t.weight)) for t in r.terms]
@@ -637,17 +1018,22 @@ def make_overlap_mixer(sched, engine: str = "ppermute", *,
 def build_mixer(sched, *, mode: str = "schedule", engine: str = "shifts",
                 agents_per_device: int = 1, use_fused_kernel: bool = False,
                 wire: Optional[WireCodec] = None,
-                transport: str = "auto") -> Callable:
+                transport: str = "auto", mesh=None,
+                shard_axes: Optional[str] = None) -> Callable:
     """Single mixer entry point.  ``mode="static"`` takes a
     :class:`Topology` (or a period-1 schedule) and returns ``mix(x)``;
     ``mode="schedule"`` takes a
     :class:`~repro_torch.core.schedule.GossipSchedule` (a bare topology
     is wrapped static) and returns ``mix(x, step=0)``; both take
     ``out=``; ``mode="overlap"`` returns the ``(issue, complete)`` pair of
-    :func:`make_overlap_mixer`."""
+    :func:`make_overlap_mixer`.  ``mesh`` / ``shard_axes`` run the static
+    and schedule modes across ranks (:func:`mix_ranks`); the overlap mode
+    across ranks is not ported yet."""
     kw = dict(agents_per_device=agents_per_device,
               use_fused_kernel=use_fused_kernel, wire=wire,
               transport=transport)
+    rank_kw = dict(mesh=mesh, shard_axes=shard_axes) if mesh is not None \
+        else {}
     if mode == "static":
         topo = sched
         if isinstance(sched, GossipSchedule):
@@ -656,13 +1042,17 @@ def build_mixer(sched, *, mode: str = "schedule", engine: str = "shifts",
                                  f"period-1 schedule, got period "
                                  f"{sched.period}")
             topo = sched.rounds[0]
-        return make_mixer(topo, engine, **kw)
+        return make_mixer(topo, engine, **kw, **rank_kw)
     if not isinstance(sched, GossipSchedule):
         _check_round(sched)
         sched = StaticSchedule(sched)
     if mode == "schedule":
-        return make_schedule_mixer(sched, engine, **kw)
+        return make_schedule_mixer(sched, engine, **kw, **rank_kw)
     if mode == "overlap":
+        if mesh is not None and mesh.size > 1:
+            raise NotImplementedError(
+                "the overlapped gossip pipeline across ranks is not ported "
+                "yet (ROADMAP.md §1 item 5)")
         return make_overlap_mixer(sched, engine, **kw)
     raise ValueError(f"unknown mixer mode: {mode!r} (expected 'static', "
                      "'schedule' or 'overlap')")

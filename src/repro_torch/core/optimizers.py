@@ -47,7 +47,7 @@ error-feedback-compressed gossip wire (bf16 / int8): it sends
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Mapping
+from typing import Any, Callable, Dict, Mapping, Optional
 
 import torch
 
@@ -297,7 +297,8 @@ def make_optimizer(name: str, alpha: float, mix: Mixer, beta: float = 0.9,
 
 
 def make_edm_bus(alpha: float, beta: float, mix: Callable, *,
-                 use_fused_kernel: bool = False) -> DecOptimizer:
+                 use_fused_kernel: bool = False,
+                 phi_out: Optional[Callable] = None) -> DecOptimizer:
     """Bus-resident EDM.  ``init(x_bus)`` → ``{"m": 0, "psi": x}``;
     ``step(x_bus, g_bus, state)`` → ``(mix(φ), {"m": m', "psi": ψ'})``.
 
@@ -305,7 +306,9 @@ def make_edm_bus(alpha: float, beta: float, mix: Callable, *,
     buffers (each element is read before it is written, so this is exact);
     it consumes its state as the JAX step donates it, which keeps one bus
     copy of each off the peak memory at full width.  Zero-preservation
-    keeps the layout's pad region zero."""
+    keeps the layout's pad region zero.  ``phi_out(x_bus)``, when given,
+    returns the buffer φ is written into (None: a new one) — the peer
+    ring's shared payload across ranks."""
 
     def init(x_bus: torch.Tensor) -> State:
         # ψ(0) = x(0) as a DISTINCT buffer: ψ is updated in place.
@@ -313,7 +316,7 @@ def make_edm_bus(alpha: float, beta: float, mix: Callable, *,
 
     def step(x_bus, g_bus, state: State):
         m, psi = state["m"], state["psi"]
-        out = (m, psi, None)
+        out = (m, psi, None if phi_out is None else phi_out(x_bus))
         if use_fused_kernel:
             m_new, psi_new, phi = kops.edm_update_bus(
                 x_bus, g_bus, m, psi, alpha=alpha, beta=beta, out=out)

@@ -16,10 +16,10 @@
 // never written out.  The unfused path rolls the bus twice (two full
 // copies) and then reads three buses in the combine; this kernel reads
 // every element of the bus once and writes every output element once.
-// A multi-GPU version would read the neighbours' shards through peer
-// pointers over NVLink (cudaIpc / symmetric allocations) and replace the
-// barrier semaphore by an entry and an exit flag per neighbour, so that no
-// card reads a shard its owner is still writing or frees it early.
+// The multi-rank form, one agent a rank, is csrc/ring_peer.cu: it reads
+// the neighbours' payloads through peer pointers (CUDA IPC) and replaces
+// the barrier semaphore by epoch flags, so that no rank reads a payload its
+// owner is still writing or overwrites one a neighbour still reads.
 //
 // Design: one thread owns a float4 column position j of an agent's row
 // block and walks the agents a = 0 … A−1 with x[a−1], x[a], x[a+1] in

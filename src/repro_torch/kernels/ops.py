@@ -27,11 +27,12 @@ from .flash_attention import flash_attention_flat
 from .paged_attention import paged_attention_flat
 from .paged_prefill import paged_prefill_flat
 from .ring_dma import ring_combine_flat, ring_operands
+from .ring_peer import peer_operands, ring_peer_flat
 from .table_combine import table_combine_flat, table_operands
 
 __all__ = ["edm_update", "edm_update_tree", "edm_update_bus",
            "edm_update_bus_ef", "gossip_axpy", "gossip_axpy_wire",
-           "ring_combine", "table_combine", "table_combine_wire",
+           "ring_combine", "ring_peer", "table_combine", "table_combine_wire",
            "flash_attention", "paged_attention",
            "paged_prefill_attention", "padded_size", "pack_leaf",
            "unpack_leaf", "launch_counts", "reset_launch_counts"]
@@ -237,6 +238,22 @@ def ring_combine(x: torch.Tensor, terms: Sequence[Tuple[int, float]], *,
     return ring_combine_flat(x, terms, out=out)
 
 
+def ring_peer(x_self: torch.Tensor, x_left: torch.Tensor,
+              x_right: torch.Tensor, terms: Sequence[Tuple[int, float]],
+              n_ranks: int, *, out: Optional[torch.Tensor] = None
+              ) -> torch.Tensor:
+    """The multi-rank ring combine ``Σₖ wₖ · x_srcₖ`` over this rank's
+    payload and its neighbours' (``terms`` the ring's ``(shift, weight)``
+    pairs over ``n_ranks`` ranks): one kernel launch on the card, reading
+    peer views in place (:class:`repro_torch.kernels.ring_peer.PeerRing`),
+    the plain combine on the CPU."""
+    peer_operands(x_self, x_left, x_right, terms, n_ranks, out)
+    if not _on_card(x_self):
+        val = ref.ring_peer_ref(x_self, x_left, x_right, terms, n_ranks)
+        return val if out is None else out.copy_(val)
+    return ring_peer_flat(x_self, x_left, x_right, terms, n_ranks, out=out)
+
+
 def table_combine(x: torch.Tensor, src: torch.Tensor, w: torch.Tensor, *,
                   out_dtype: Optional[torch.dtype] = None,
                   out: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -348,6 +365,7 @@ _COUNTED = {"edm_update": edm_update_flat, "gossip_axpy": gossip_axpy_flat,
             "paged_attention": paged_attention_flat,
             "paged_prefill": paged_prefill_flat,
             "ring_combine": ring_combine_flat,
+            "ring_peer": ring_peer_flat,
             "table_combine": table_combine_flat}
 
 

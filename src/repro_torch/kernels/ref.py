@@ -76,6 +76,22 @@ def ring_combine_ref(x: torch.Tensor, terms: Sequence[Tuple[int, float]]
     return gossip_axpy_ref(payloads, [w for _, w in terms])
 
 
+def ring_peer_ref(x_self: torch.Tensor, x_left: torch.Tensor,
+                  x_right: torch.Tensor, terms: Sequence[Tuple[int, float]],
+                  n_ranks: int) -> torch.Tensor:
+    """The multi-rank ring combine on three given payloads: each ``(shift,
+    weight)`` term's operand is ``x_self`` (shift ≡ 0 mod ``n_ranks``, or
+    one rank), ``x_left`` (+1: agent a − 1's payload) or ``x_right`` (−1),
+    then :func:`gossip_axpy_ref` over them in term order — what the
+    multi-rank ppermute engine computes from its permuted copies."""
+    ops = []
+    for s, _ in terms:
+        s %= n_ranks
+        ops.append(x_self if n_ranks == 1 or s == 0
+                   else x_left if s == 1 else x_right)
+    return gossip_axpy_ref(ops, [w for _, w in terms])
+
+
 def table_combine_ref(x: torch.Tensor, src, w,
                       out_dtype: Optional[torch.dtype] = None
                       ) -> torch.Tensor:

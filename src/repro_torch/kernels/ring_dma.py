@@ -80,8 +80,8 @@ def ring_unfit(topo, *, agents_per_device: int,
                payload=None) -> str:
     """Why the ring transport cannot carry ``topo``'s gossip, or '' when
     it can: a flat ±1 ring (:func:`ring_plan`), every agent on this one
-    device (``agents_per_device == A``; with one agent per device the
-    ring is multi-GPU gossip, which the port does not have yet) and, where
+    device (``agents_per_device == A``; one agent a rank is the multi-rank
+    form, :mod:`repro_torch.kernels.ring_peer`) and, where
     ``payload`` (a tensor or a tree of them) is given, ``(A, rows, 128)``
     f32 buses.  The device is no condition: on the card the kernel runs,
     on the CPU its plain version, as for every op of the port."""

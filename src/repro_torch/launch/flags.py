@@ -27,8 +27,8 @@ RUN_FLAGS: Tuple[Tuple[str, str, Dict[str, Any]], ...] = (
     ("--topology", "topology", dict(default="ring")),
     ("--gossip-engine", "gossip_engine", dict(
         default="shifts", choices=["dense", "shifts", "ppermute"],
-        help="mixing engine; in the port ppermute keeps every agent on "
-             "one device (--agents-per-device = --agents)")),
+        help="mixing engine; ppermute with --agents-per-device below "
+             "--agents runs across ranks (under torchrun)")),
     ("--gossip-schedule", "gossip_schedule", dict(
         default="static", choices=["static", "round_robin", "alt_hier"],
         help="time-varying gossip schedule (DESIGN §4): round_robin = one "

@@ -46,9 +46,27 @@ joining agents take the consensus mean with ψ := x).  The token stream
 (and the frontend embeddings of a VLM, ``--arch pixtral_12b``, or the
 encoder's frames of ``--arch whisper_small``) is drawn per global step,
 so a run resumed at step t takes the batches the uninterrupted run takes
-from step t on.  Flags of levers the port
-does not run yet (``--agents pod``, ``--shards``) are accepted by the
-parser and rejected with a pointer to ROADMAP.md.
+from step t on.
+
+Across ranks (one process per rank, under ``torchrun``): ``--gossip-engine
+ppermute`` with ``--agents-per-device B`` below ``--agents A`` spreads the
+agents over A / B ranks, and ``--agents pod --pods P --shards S`` runs P
+agents, each over a pod of S row shards (the shard-resident mode)::
+
+  torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \
+      --arch smollm_360m --smoke --agents 4 --agents-per-device 1 \
+      --gossip-engine ppermute --fused-kernel --steps 2 --device cpu
+  torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \
+      --arch smollm_360m --smoke --agents pod --pods 2 --shards 2 \
+      --gossip-engine ppermute --steps 2 --device cpu
+
+(``python -m torch.distributed.run`` is the same launcher.)  gloo on the
+CPU, NCCL on cards; ranks that share one card (more ranks than cards)
+gossip only through the peer-pointer ring kernel (``--topology ring
+--fused-kernel``).  Rank 0 prints; the header names the rank grid and says
+when ranks share a card.  ``--ckpt`` gathers the state to rank 0, which
+writes the one-process file; ``--resume`` gives every rank its block of a
+file of either package.  The multi-rank step is eager.
 
 On a CUDA device the bus path runs as CUDA graphs
 (:func:`repro_torch.train.graphs.graph_train_step`: the first step of each
@@ -63,10 +81,12 @@ replayed a graph (0 when eager) and ``graphs`` the graphs captured.
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from typing import Dict, List, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.configs.base import RunConfig
@@ -76,6 +96,7 @@ from repro_torch.core.wire import make_codec
 from repro_torch.data import SyntheticLM
 from repro_torch.device import resolve_device
 from repro_torch.launch.flags import add_run_flags, run_config_overrides
+from repro_torch.launch.mesh import init_distributed, make_gossip_mesh
 from repro_torch.models import build_model
 from repro_torch.train import (build_train_step, bus_layout_for, checkpoint,
                                init_state, make_gossip_schedule,
@@ -92,13 +113,15 @@ def parser() -> argparse.ArgumentParser:
                     help="reduced same-family config (CPU-sized)")
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--agents", default="4",
-                    help="agent count ('pod' agents are not ported yet)")
+                    help="agent count, or 'pod': --pods agents, each over "
+                         "--shards row shards (one rank each)")
     ap.add_argument("--seq", type=int, default=64)
     ap.add_argument("--per-agent-batch", type=int, default=1)
     ap.add_argument("--pods", type=int, default=1,
                     help="pod count for torus/hier topologies")
     ap.add_argument("--shards", type=int, default=0,
-                    help="--agents pod only (not ported yet)")
+                    help="--agents pod: row shards an agent (default: the "
+                         "world size / --pods)")
     ap.add_argument("--fused-kernel", action="store_true",
                     help="CUDA kernels for the EDM update and the gossip "
                          "combine")
@@ -135,20 +158,48 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
     bytes on a gossiping step and gossiping steps of the run (else
     None)."""
     args = parser().parse_args(argv)
-    for flag, val in (("--agents pod", args.agents == "pod"),
-                      ("--shards", args.shards)):
-        if val:
-            raise NotImplementedError(f"{flag} is not ported to repro_torch "
-                                      "yet (see ROADMAP.md)")
-    device = resolve_device(args.device)
+    pod = args.agents == "pod"
+    if args.shards and not pod:
+        raise ValueError("--shards goes with --agents pod")
+    n_agents = args.pods if pod else int(args.agents)
+    ranked = pod or (args.gossip_engine == "ppermute"
+                     and args.agents_per_device < n_agents)
+    mesh = shard_axes = None
+    say = print
+    owned = False
+    if ranked:
+        if "WORLD_SIZE" not in os.environ and not dist.is_initialized():
+            raise ValueError(
+                f"{'--agents pod' if pod else '--agents-per-device < --agents'}"
+                " runs one process per rank: launch it under torchrun "
+                "--standalone --nproc-per-node M (M ranks)")
+        if args.gossip_engine != "ppermute":
+            raise ValueError("--agents pod rides the shard-resident ppermute "
+                             "path (set --gossip-engine ppermute)")
+        owned = not dist.is_initialized()
+        device = init_distributed(args.device or "cuda")
+        shards = (args.shards or max(dist.get_world_size() // n_agents, 1)
+                  if pod else 1)
+        mesh = make_gossip_mesh(
+            n_agents, pods=n_agents if pod else args.pods,
+            agents_per_device=1 if pod else args.agents_per_device,
+            shards=shards, device=device)
+        shard_axes = "data" if pod else None
+        if not mesh.member:
+            raise ValueError(f"rank {mesh.rank} is outside the {mesh.shape} "
+                             f"grid: run {mesh.size} ranks")
+        if mesh.rank:
+            say = lambda *a, **k: None  # noqa: E731
+    else:
+        device = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     model = build_model(cfg)
-    n_agents = int(args.agents)
     run = RunConfig(global_batch=n_agents * args.per_agent_batch,
-                    seq_len=args.seq, agents="data", remat=False,
-                    **run_config_overrides(args))
+                    seq_len=args.seq, agents="pod" if pod else "data",
+                    remat=False, **run_config_overrides(args))
     feats = resolve_features(run)
-    sched = make_gossip_schedule(run, n_agents, pods=args.pods,
+    sched = make_gossip_schedule(run, n_agents,
+                                 pods=1 if pod else args.pods,
                                  churn=args.churn or None)
     wire_bytes, layout, groups, group_bytes = None, None, None, None
 
@@ -165,11 +216,13 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
             for b in (args.agents_per_device, 1)]
 
     if feats.packed_bus:
-        layout = bus_layout_for(model, n_agents, feats.groups)
+        layout = bus_layout_for(model, n_agents, feats.groups,
+                                mesh.shards if mesh is not None else 1)
         codec = make_codec(feats.wire, layout.block_rows)
     step = build_train_step(model, run, sched,
                             use_fused_kernel=args.fused_kernel,
-                            pods=args.pods, device=device)
+                            pods=1 if pod else args.pods, device=device,
+                            mesh=mesh, shard_axes=shard_axes)
     if step.group_plans is not None:
         plans = step.group_plans
         scheds = {p.group.name: p.sched for p in plans if p.sched}
@@ -198,28 +251,37 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
                  f" wire_bytes/step={wire_bytes[0]} (one agent per device: "
                  f"{wire_bytes[1]})")
     graphed = (feats.packed_bus and device.type == "cuda"
-               and not args.eager)
+               and not args.eager and mesh is None)
     mode = ("cuda-graph" if graphed else "eager (--eager)" if args.eager
             else "eager (CPU)" if device.type != "cuda"
+            else "eager (ranks)" if mesh is not None
             else "eager (tree path)")
+    grid_str = ""
+    if mesh is not None:
+        grid_str = (f" ranks={mesh.size} grid={mesh.shape} "
+                    f"axes={','.join(mesh.axis_names)} "
+                    f"agents_per_rank={mesh.agents_per_device} "
+                    f"shards={mesh.shards} backend={mesh.backend}"
+                    + (f" (ranks share {device})" if mesh.shared else ""))
     # --topology only feeds the static schedule; don't print it otherwise
     topo_str = (f"topo={args.topology} " if args.gossip_schedule == "static"
                 else "")
     n_params = sum(t.numel() for t in model.meta().values())
-    print(f"arch={cfg.name} ({n_params/1e6:.1f}M params) "
-          f"agents={n_agents} {topo_str}schedule={sched.name} "
+    say(f"arch={cfg.name} ({n_params/1e6:.1f}M params) "
+          f"agents={n_agents}{f'x{mesh.shards}shards' if pod else ''} "
+          f"{topo_str}schedule={sched.name} "
           f"period={sched.period} "
           f"λ_prod={sched.product_spectral_stats()['lambda']:.4f} "
           f"alg={args.algorithm} engine={args.gossip_engine}"
           f"{' +fused' if args.fused_kernel else ''}"
           f"{' +bus' if feats.packed_bus else ' +tree'}"
           f"{' +overlap' if feats.overlap else ''} wire={feats.wire}"
-          f"{bytes_str} device={device} step={mode}"
+          f"{bytes_str} device={device} step={mode}{grid_str}"
           + ("" if groups is None else " groups=" + ",".join(
               f"{g['name']}:{g['rows']}r/k{g['gossip_every']}/{g['wire']}"
               f"/{g['schedule']}" for g in groups)), flush=True)
     for g in groups or ():
-        print(f"group {g['name']}: rows {g['rows']} gossip_every "
+        say(f"group {g['name']}: rows {g['rows']} gossip_every "
               f"{g['gossip_every']} wire {g['wire']} schedule "
               f"{g['schedule']}: wire_bytes on a gossiping step "
               f"{g['wire_bytes']} (one agent per device), "
@@ -231,7 +293,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
         for ep in epochs:
             if feats.packed_bus:
                 ep["wire_bytes"] = round_bytes(ep["start"])
-            print(f"epoch {ep['epoch']} @ step {ep['start']}: "
+            say(f"epoch {ep['epoch']} @ step {ep['start']}: "
                   f"{ep['alive']}/{n_agents} alive λ={ep['lambda']:.4f}"
                   + (f" wire_bytes/step={ep['wire_bytes'][0]} (one agent "
                      f"per device: {ep['wire_bytes'][1]})"
@@ -239,8 +301,13 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
 
     data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=args.seq,
                        n_agents=n_agents, phi=args.phi)
-    state = init_state(model, run, n_agents, seed=0, device=device)
-    if args.resume:
+    state = init_state(model, run, n_agents, seed=0, device=device,
+                       mesh=mesh, shard_axes=shard_axes)
+    if args.resume and mesh is not None:
+        state = checkpoint.load_state_ranks(args.resume, state, layout, mesh,
+                                            n_agents, shard_axes)
+        say(f"resumed <- {args.resume} @ step {state['step']}")
+    elif args.resume:
         state = checkpoint.load_state_resized(args.resume, state,
                                               layout=layout)
         print(f"resumed <- {args.resume} @ step {state['step']}")
@@ -268,23 +335,30 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
             step = graph_train_step(step, state, batch)
         ts = time.perf_counter()
         state, m = step(state, batch)
-        m = {k: float(v) for k, v in m.items()}   # synchronises the device
+        # to the host: synchronises the device (agent_losses: a list)
+        m = {k: v.tolist() if v.dim() else float(v) for k, v in m.items()}
         seconds.append(time.perf_counter() - ts)
         history.append(m)
         if t % 5 == 0 or t == args.steps - 1:
-            print(f"step {t:4d} loss={m['loss']:.4f} "
+            say(f"step {t:4d} loss={m['loss']:.4f} "
                   f"consensus={m['consensus']:.2e} "
                   f"({time.time()-t0:.1f}s)", flush=True)
-    if args.ckpt:
+    if args.ckpt and mesh is not None:
+        checkpoint.save_state_ranks(args.ckpt, state, layout, mesh, n_agents)
+        say(f"checkpoint -> {args.ckpt}")
+    elif args.ckpt:
         checkpoint.save_state(args.ckpt, state, layout=layout)
         print(f"checkpoint -> {args.ckpt}")
     if graphed:
         print(f"graphs captured: {len(step.graphs)} (replays "
               f"{step.replays})", flush=True)
+    if owned:
+        dist.barrier()
+        dist.destroy_process_group()
     return {"state": state, "metrics": history, "step_seconds": seconds,
             "run": run, "wire_bytes": wire_bytes, "epochs": epochs,
             "groups": groups, "graph_replays": getattr(step, "replays", 0),
-            "graphs": len(getattr(step, "graphs", ()))}
+            "graphs": len(getattr(step, "graphs", ())), "mesh": mesh}
 
 
 if __name__ == "__main__":

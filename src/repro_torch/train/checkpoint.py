@@ -6,6 +6,10 @@ format, so that a file written by either package loads in the other:
 * the **logical** tree, never the packed bus: an ``(A, rows, 128)`` bus
   leaf is unpacked to its parameter leaves on save and repacked on load
   (``layout=``), so bus and tree states read each other's files;
+* a multi-rank state (:func:`save_state_ranks`) is gathered to rank 0
+  and written as the one-process state would be, so a file does not say
+  how many ranks or row shards wrote it; :func:`load_state_ranks` gives
+  each rank its block of a file of either package;
 * keys ``<top>|<path>``: the ``|``-joined path of each leaf as
   ``jax.tree_util.tree_flatten_with_path`` prints it (``params|blocks|0|
   attn|wq``, ``opt|m|...``, ``step``).  The port's parameter dicts are
@@ -36,11 +40,13 @@ import numpy as np
 import torch
 
 from repro_torch.core.bus import LANE, BusLayout
+from repro_torch.core.comm import rank_block
 from repro_torch.core.mixing import tree_map
-from repro_torch.weights import array_to_tensor, tensor_to_array
+from repro_torch.weights import array_to_tensor, rank_slice, tensor_to_array
 
 __all__ = ["save", "load", "save_state", "load_state", "resize_state",
-           "load_state_resized", "export_consensus", "load_consensus"]
+           "load_state_resized", "export_consensus", "load_consensus",
+           "save_state_ranks", "load_state_ranks"]
 
 _SEP = "|"
 
@@ -215,6 +221,63 @@ def load_state(path: str, like: Mapping[str, Any],
             l.shape, dtype=l.dtype,
             device=device if device is not None else l.device), e_like)
     return state
+
+
+# ---------------------------------------------------------------------------
+# multi-rank states: gathered to rank 0, sliced per rank
+# ---------------------------------------------------------------------------
+
+def _gather_bus(local: torch.Tensor, mesh, n_agents: int):
+    """Every grid rank's block of one bus, on rank 0 (in rank order: the
+    agents' blocks, each agent's row shards in order), as the ``(A, rows,
+    128)`` bus on the host; None on the other ranks."""
+    import torch.distributed as dist
+    blk = local.detach().cpu().contiguous()
+    parts = ([torch.empty_like(blk) for _ in range(mesh.size)]
+             if mesh.rank == 0 else None)
+    dist.gather(blk, parts, dst=0, group=mesh.control)
+    if parts is None:
+        return None
+    return torch.cat(parts, 0).view(n_agents, -1, blk.shape[-1])
+
+
+def save_state_ranks(path: str, state: Mapping[str, Any], layout: BusLayout,
+                     mesh, n_agents: int) -> None:
+    """Save a multi-rank bus state (each rank its block, as
+    :func:`repro_torch.train.init_state` ``mesh=`` makes it): every bus is
+    gathered to rank 0, which writes the logical npz of the one-process
+    state (:func:`save_state`).  Collective over the mesh's ranks."""
+    if "pipeline" in state:
+        raise ValueError("the overlap pipeline does not run across ranks")
+    full = {"params": _gather_bus(state["params"], mesh, n_agents),
+            "opt": {k: _gather_bus(v, mesh, n_agents)
+                    for k, v in state["opt"].items()},
+            "step": int(state["step"])}
+    if mesh.rank == 0:
+        save_state(path, full, layout=layout)
+
+
+def load_state_ranks(path: str, like: Mapping[str, Any], layout: BusLayout,
+                     mesh, n_agents: int, shard_axes: Optional[str] = None,
+                     device=None) -> Dict[str, Any]:
+    """This rank's block of a saved state (a file of either package, from
+    any number of ranks or row shards: the file is logical), into the
+    structure of ``like`` (this rank's state, on ``device`` or like's)."""
+    a0, B, shard, S = rank_block(mesh, n_agents, shard_axes)
+    dev = device if device is not None else like["params"].device
+    meta = lambda t: torch.empty((n_agents, layout.rows, LANE),  # noqa: E731
+                                 dtype=t.dtype, device="meta")
+    full_like = {"params": meta(like["params"]),
+                 "opt": {k: meta(v) for k, v in like["opt"].items()},
+                 "step": 0}
+    full = load_state(path, full_like, layout=layout, device="cpu")
+
+    def mine(bus):
+        return rank_slice(bus, a0, B, shard, S).contiguous().to(dev)
+
+    return {"params": mine(full["params"]),
+            "opt": {k: mine(v) for k, v in full["opt"].items()},
+            "step": int(full["step"])}
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,7 @@
 """Decentralized trainer of the port: the counterpart of
-``repro/train/trainer.py`` with every agent on one device.
+``repro/train/trainer.py``, with every agent on one device or, on the bus,
+a block of agents (or one agent's row shard) on each ``torch.distributed``
+rank (``build_train_step(mesh=)``).
 
 The train state carries all A agents, in one of two layouts:
 
@@ -33,8 +35,11 @@ ppermute engines, ``gossip_every > 1``, ``gossip_dtype`` (a cast gossip
 payload), the error-feedback gossip wire (bus only) and the overlapped
 gossip pipeline (``overlap="delayed"``, bus only) with straggler plans,
 and policy groups (``gossip_groups``, bus only: per-group cadence,
-schedule and stateless wire over one bus, DESIGN §12).  Multi-device
-gossip is listed in ROADMAP.md.
+schedule and stateless wire over one bus, DESIGN §12).  Across ranks: the
+synchronous bus step with any schedule, churn, the EF wire and
+``gossip_every``, one agent or a block of agents a rank, or
+``agents="pod"`` with row shards; the overlapped pipeline, policy groups
+and the tree path across ranks are listed in ROADMAP.md §1 item 5.
 """
 from __future__ import annotations
 
@@ -47,7 +52,8 @@ import torch
 
 from repro_torch.configs.base import RunConfig
 from repro_torch.core import bus as parambus
-from repro_torch.core.metrics import (bus_consensus, bus_grad_norm,
+from repro_torch.core.metrics import (bus_consensus, bus_consensus_ranks,
+                                      bus_grad_norm, bus_grad_norm_ranks,
                                       consensus_distance, tree_sqnorm)
 from repro_torch.core.elastic import DropPlan, ElasticSchedule, StragglerPlan
 from repro_torch.core.mixing import (GroupPlan, accumulate_f32, build_mixer,
@@ -62,6 +68,8 @@ from repro_torch.core.wire import WIRE_FORMATS, WireCodec, make_codec
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import edm_update_ref
+from repro_torch.core import comm as coll
+from repro_torch.core.comm import axes_group, gossip_agent_axes, rank_block
 from repro_torch.models.api import Model
 from repro_torch.models.mamba import ssm_state_group_spec
 from repro_torch.models.moe import expert_group_spec
@@ -141,7 +149,7 @@ class Features:
 
 def _not_ported(what: str):
     raise NotImplementedError(f"{what} is not ported to repro_torch yet "
-                              "(see ROADMAP.md)")
+                              "(ROADMAP.md §1 item 5)")
 
 
 def _is_f32(gossip_dtype) -> bool:
@@ -166,8 +174,9 @@ def resolve_features(run: RunConfig) -> Features:
     else:
         packed = (run.algorithm == "edm" and run.gossip_engine == "ppermute"
                   and run.agents in ("data", "pod"))
-    if run.agents != "data":
-        _not_ported(f"agents={run.agents!r} (shard-resident pod agents)")
+    if run.agents not in ("data", "pod"):
+        raise ValueError(f"RunConfig.agents must be 'data' or 'pod', got "
+                         f"{run.agents!r}")
     overlap = run.overlap not in ("off", "", None)
     if overlap:
         if run.overlap != "delayed":
@@ -267,16 +276,17 @@ def resolve_group_specs(run: RunConfig) -> Tuple[parambus.GroupSpec, ...]:
 
 
 def bus_layout_for(model: Model, n_agents: int,
-                   groups: Tuple[parambus.GroupSpec, ...] = ()
-                   ) -> parambus.BusLayout:
+                   groups: Tuple[parambus.GroupSpec, ...] = (),
+                   shards: int = 1) -> parambus.BusLayout:
     """Bus layout of ``model``'s parameters with a leading agent axis,
     built from ``meta`` tensors (no allocation) and cached; ``groups``
     are the policy-group specs (usually ``resolve_features(run).groups``;
-    empty: the ungrouped layout)."""
+    empty: the ungrouped layout); ``shards`` the row shards of the
+    shard-resident mode (``agents="pod"``, DESIGN §7)."""
     lifted = {p: torch.empty((n_agents,) + tuple(t.shape), dtype=t.dtype,
                              device="meta")
               for p, t in model.meta().items()}
-    return parambus.make_layout(lifted, groups=tuple(groups))
+    return parambus.make_layout(lifted, groups=tuple(groups), shards=shards)
 
 
 def make_group_plans(run: RunConfig, layout: parambus.BusLayout,
@@ -312,7 +322,8 @@ def make_group_plans(run: RunConfig, layout: parambus.BusLayout,
 
 def init_state(model: Model, run: RunConfig, n_agents: int, *,
                seed: int = 0, params: Optional[Dict[str, torch.Tensor]] = None,
-               device=None) -> TrainState:
+               device=None, mesh=None,
+               shard_axes: Optional[str] = None) -> TrainState:
     """All agents start from the same x(0) (the paper's initialization):
     packed ONCE into the bus, or replicated into ``(A, *shape)`` leaves
     with the algorithm's state ``opt.init(params)``.  ``params`` (one
@@ -320,7 +331,17 @@ def init_state(model: Model, run: RunConfig, n_agents: int, *,
     the random init from ``seed``.  Under ``overlap="delayed"`` the state
     also carries the pipeline (:func:`repro_torch.core.bus.make_pipeline`:
     x(0) in the live slot).  ``device`` defaults to ``cuda`` and
-    raises without one."""
+    raises without one.
+
+    With ``mesh`` (a :class:`~repro_torch.core.comm.GossipMesh`) the
+    state is this rank's: its ``(B, rows, 128)`` agent block of each bus,
+    or with ``shard_axes`` its ``(1, rows / S, 128)`` row block (S the
+    shard axis's size), on the mesh's device unless ``device`` says
+    otherwise — the blocks of the one-process state, bit for bit."""
+    if mesh is not None:
+        return _rank_state(model, run, n_agents, seed, params,
+                           device if device is not None else mesh.device,
+                           mesh, shard_axes)
     dev = resolve_device(device)
     feats = resolve_features(run)
     if params is None:
@@ -344,6 +365,43 @@ def init_state(model: Model, run: RunConfig, n_agents: int, *,
         # (W x(0) = x(0) at a replicated init)
         state["pipeline"] = parambus.make_pipeline(x_bus)
     return state
+
+
+def _rank_state(model: Model, run: RunConfig, n_agents: int, seed: int,
+                params, device, mesh, shard_axes) -> TrainState:
+    """This rank's block of :func:`init_state`'s bus state."""
+    feats = resolve_features(run)
+    _check_rank_features(feats, run, mesh)
+    dev = resolve_device(device)
+    _, B, s, S = rank_block(mesh, n_agents, shard_axes)
+    layout = bus_layout_for(model, n_agents, feats.groups, S)
+    if params is None:
+        params = model.init(torch.Generator(device=dev).manual_seed(seed))
+    params = {p: v.to(dev) for p, v in params.items()}
+    x = params_to_bus(layout, params, B)
+    if S > 1:
+        x = x[:, s * layout.shard_rows:(s + 1) * layout.shard_rows].clone()
+    opt_state = make_edm_bus(run.alpha, run.beta, mix=lambda t: t).init(x)
+    if feats.wire != "f32":
+        opt_state["e"] = torch.zeros_like(x)
+    return {"params": x, "opt": opt_state, "step": 0}
+
+
+def _check_rank_features(feats: Features, run: RunConfig, mesh) -> None:
+    """Raise for what the multi-rank step does not run (yet)."""
+    if not feats.packed_bus:
+        _not_ported("the tree path across ranks (packed_bus=False or an "
+                    "algorithm other than edm)")
+    if feats.overlap:
+        _not_ported("the overlapped gossip pipeline across ranks")
+    if feats.groups:
+        _not_ported("policy groups across ranks (gossip_groups)")
+    if run.gossip_engine != "ppermute":
+        raise ValueError(f"gossip across ranks runs the ppermute engine, "
+                         f"got gossip_engine={run.gossip_engine!r}")
+    if not mesh.member:
+        raise ValueError(f"rank {mesh.rank} is outside the {mesh.shape} "
+                         "mesh")
 
 
 GradMap = Optional[Callable[[Dict[str, torch.Tensor]],
@@ -479,7 +537,8 @@ def _encode_ef_agents(codec: WireCodec, phi: torch.Tensor,
 def build_train_step(model: Model, run: RunConfig, topo,
                      use_fused_kernel: bool = False, *,
                      straggler_plan: Optional[StragglerPlan] = None,
-                     pods: int = 1, device=None) -> Callable:
+                     pods: int = 1, device=None, mesh=None,
+                     shard_axes: Optional[str] = None) -> Callable:
     """Returns ``train_step(state, batch) -> (state, metrics)``; batch
     tokens are ``(A, per_agent_batch, S)`` (a VLM's batch also carries
     ``frontend`` ``(A, per_agent_batch, n_frontend_tokens, d_model)``).
@@ -532,12 +591,48 @@ def build_train_step(model: Model, run: RunConfig, topo,
     live there.  On the bus the returned step carries
     ``train_step.static``, the same step over a static state
     (:class:`StaticBusStep`); on the tree it is None.  On a grouped bus
-    ``train_step.group_plans`` holds the step's plans (else None).
+    ``train_step.group_plans`` holds the step's plans (else None);
+    ``train_step.peer_ring()`` is the multi-rank step's peer-pointer ring
+    (:class:`~repro_torch.kernels.ring_peer.PeerRing`) once a step made
+    it, else None.
+
+    With ``mesh`` (a :class:`~repro_torch.core.comm.GossipMesh`, the
+    twin of the reference's ``mesh=, agent_axes=``) the step runs this
+    rank's share of the bus step (DESIGN §3–4, §7): the state is its
+    :func:`init_state` ``mesh=`` block, the batch the global ``(A, b,
+    ...)`` one, of which it takes its agents' rows; the per-agent loss and
+    gradient, the EDM (and EF) update run on the local block, and the
+    gossip is :func:`~repro_torch.core.mixing.mix_ranks` (a ring with
+    fused kernels on the card: the peer-pointer ring kernel, φ written
+    straight into its shared payload).  ``shard_axes`` (``agents="pod"``)
+    names the mesh's row-shard axis: each rank holds ``(1, rows / S, 128)``
+    of its agent's bus, the forward and backward run on the agent's bus
+    all-gathered along that axis, and each shard keeps its own rows of the
+    gradient.  The metrics are all-reduced (loss, consensus, gradient
+    norm); ``agent_losses`` holds every agent's loss.  The multi-rank step
+    is eager (``train_step.static`` is None); the overlapped pipeline,
+    policy groups and the tree path across ranks raise
+    ``NotImplementedError``.
     """
     dev = resolve_device(device)
     feats = resolve_features(run)
     A = topo.n_agents
-    layout = (bus_layout_for(model, A, groups=feats.groups)
+    a0, B, shard, S = 0, A, 0, 1
+    if mesh is not None:
+        _check_rank_features(feats, run, mesh)
+        if (run.agents == "pod") != (shard_axes is not None):
+            raise ValueError("agents='pod' runs with shard_axes= (the mesh's "
+                             "row-shard axis) and agents='data' without")
+        if straggler_plan is not None:
+            _not_ported("straggler plans across ranks")
+        a0, B, shard, S = rank_block(mesh, A, shard_axes)
+        agent_comm = axes_group(mesh, gossip_agent_axes(
+            mesh, sharded=shard_axes is not None))
+    elif run.agents == "pod":
+        raise ValueError("agents='pod' runs across ranks: pass mesh= and "
+                         "shard_axes= (repro_torch.launch.mesh."
+                         "make_gossip_mesh(A, pods=A, shards=S))")
+    layout = (bus_layout_for(model, A, groups=feats.groups, shards=S)
               if feats.packed_bus else None)
     grouped = layout is not None and layout.is_grouped
     codec = (make_codec(feats.wire, layout.block_rows)
@@ -549,6 +644,8 @@ def build_train_step(model: Model, run: RunConfig, topo,
     mix_kw = dict(engine=run.gossip_engine,
                   agents_per_device=run.agents_per_device,
                   use_fused_kernel=use_fused_kernel, wire=codec)
+    if mesh is not None:
+        mix_kw.update(mesh=mesh, shard_axes=shard_axes)
     if feats.overlap:
         issue, complete = build_mixer(topo, mode="overlap", **mix_kw)
         if straggler_plan is not None and \
@@ -604,8 +701,14 @@ def build_train_step(model: Model, run: RunConfig, topo,
                         if _is_f32(run.gossip_dtype) else _cast_mixer(
                             functools.partial(mix, step=g_step),
                             run.gossip_dtype))
+            phi_out = None
+            if mesh is not None and _is_f32(run.gossip_dtype):
+                # the peer ring's shared payload, once read (None: not
+                # this step's transport)
+                phi_out = functools.partial(mix.payload_for_write, g_step)
             return make_edm_bus(run.alpha, run.beta, step_mix,
-                                use_fused_kernel=use_fused_kernel)
+                                use_fused_kernel=use_fused_kernel,
+                                phi_out=phi_out)
         return make_edm_bus_ef(run.alpha, run.beta,
                                functools.partial(mix, step=g_step, out=out),
                                codec, use_fused_kernel=use_fused_kernel)
@@ -639,17 +742,51 @@ def build_train_step(model: Model, run: RunConfig, topo,
             return rnd, gossips(step)
         return rnd, gossips(step), bool(late_at(step).any())
 
+    def grads_at(x, batch, step: int, lr_scale=None):
+        """Per-agent losses and the gradient bus at ``x`` (this rank's
+        agents across ranks; a shard's own rows of its agent's gradient,
+        taken on the bus all-gathered along the shard axis)."""
+        gmap = grad_map(step, lr_scale)
+        if mesh is None:
+            return losses_and_grads(model, layout, x, batch, gmap, **remat)
+        local = {k: v[a0:a0 + B] for k, v in batch.items()}
+        if S == 1:
+            return losses_and_grads(model, layout, x, local, gmap, **remat)
+        full = coll.all_gather(x, mesh.group(shard_axes), S, tag="forward")
+        losses, g = losses_and_grads(model, layout,
+                                     full.view(1, layout.rows, x.shape[-1]),
+                                     local, gmap, **remat)
+        del full
+        rows = layout.shard_rows
+        return losses, g[:, shard * rows:(shard + 1) * rows].clone()
+
+    def step_metrics(losses, new_x, grads) -> Dict:
+        if mesh is None:
+            return {"loss": losses.mean(),
+                    "consensus": bus_consensus(new_x),
+                    "grad_norm": bus_grad_norm(grads)}
+        ranks, group = agent_comm
+        agent_losses = coll.all_gather(losses, group, len(ranks),
+                                       tag="metrics")
+
+        def total(t):
+            return coll.all_reduce(t, mesh.world_group, mesh.size)
+
+        return {"loss": agent_losses.mean(),
+                "consensus": bus_consensus_ranks(
+                    new_x, A, lambda t: coll.all_reduce(t, group, len(ranks)),
+                    total),
+                "grad_norm": bus_grad_norm_ranks(grads, total),
+                "agent_losses": agent_losses}
+
     def bus_step(x, opt_state, batch, step: int, out=None, lr_scale=None):
         """One bus step: ``(x', opt', metrics)``, x' written into ``out``
         when given."""
-        losses, grads = losses_and_grads(model, layout, x, batch,
-                                         grad_map(step, lr_scale), **remat)
+        losses, grads = grads_at(x, batch, step, lr_scale)
         with torch.no_grad():
             opt = bus_opt(gossip_round_step(step, every), gossips(step), out)
             new_x, new_opt = opt.step(x, grads, opt_state)
-            metrics = {"loss": losses.mean(),
-                       "consensus": bus_consensus(new_x),
-                       "grad_norm": bus_grad_norm(grads)}
+            metrics = step_metrics(losses, new_x, grads)
         return new_x, new_opt, metrics
 
     def overlap_step(pipe, opt_state, batch, step: int, out=None,
@@ -744,6 +881,8 @@ def build_train_step(model: Model, run: RunConfig, topo,
     train_step.static = (StaticBusStep(
         static_run, step_key, lr_sched,
         static_prepare if feats.overlap else None)
-        if feats.packed_bus else None)
+        if feats.packed_bus and mesh is None else None)
     train_step.group_plans = plans if grouped else None
+    peer = mix.peer if mesh is not None else None
+    train_step.peer_ring = lambda: None if peer is None else peer.ring
     return train_step

@@ -36,7 +36,8 @@ from repro_torch.core import bus as parambus
 
 __all__ = ["array_to_tensor", "tensor_to_array", "params_from_tree",
            "params_from_npz", "params_digest", "params_to_bus",
-           "train_state_from_arrays"]
+           "train_state_from_arrays", "rank_slice",
+           "rank_state_from_arrays"]
 
 _SEP = "|"
 
@@ -137,3 +138,29 @@ def train_state_from_arrays(state: Mapping[str, Any],
         out["pipeline"] = {"slot": array_to_tensor(pipe["slot"], device),
                            "parity": int(np.asarray(pipe["parity"]))}
     return out
+
+
+def rank_slice(arr, a0: int, B: int, shard: int = 0, shards: int = 1):
+    """A rank's block of an ``(A, rows, 128)`` bus (numpy array or tensor):
+    agents ``[a0, a0 + B)`` and row shard ``shard`` of ``shards``."""
+    rows = arr.shape[1] // shards
+    return arr[a0:a0 + B, shard * rows:(shard + 1) * rows]
+
+
+def rank_state_from_arrays(state: Mapping[str, Any], a0: int, B: int,
+                           shard: int = 0, shards: int = 1,
+                           device="cpu") -> Dict[str, Any]:
+    """A bus train state of numpy arrays (the JAX package's ``init_state``
+    or train step, at ``shards`` 1 or S) sliced to one rank's block
+    (:func:`rank_slice`: agents ``[a0, a0 + B)``, row shard ``shard``) and
+    carried as :func:`train_state_from_arrays` carries a whole state: the
+    state a multi-rank step of the port takes on that rank."""
+    if isinstance(state["params"], Mapping) or "pipeline" in state:
+        raise ValueError("a rank's block is taken of a bus state without a "
+                         "pipeline")
+    return train_state_from_arrays(
+        {"params": rank_slice(np.asarray(state["params"]), a0, B, shard,
+                              shards),
+         "opt": {k: rank_slice(np.asarray(v), a0, B, shard, shards)
+                 for k, v in state["opt"].items()},
+         "step": state["step"]}, device)

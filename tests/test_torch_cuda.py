@@ -1593,3 +1593,138 @@ def test_cuda_graphed_encdec_step_refreshes_the_frames(cuda, monkeypatch):
                for t in range(3)]
     _assert_same_run(*_graphed_against_eager(cuda, model, _bus_run(),
                                              batches))
+
+
+# ---------------------------------------------------------------------------
+# the peer-pointer ring (kernel 8's multi-rank form): ranks on one card
+# ---------------------------------------------------------------------------
+
+RING_W = ((0, 1 / 3), (1, 1 / 3), (-1, 1 / 3))   # ring(n)'s terms
+PEER_EDGE_ROWS = 4096
+
+
+def _peer_payload_at(start, stop, rank, epoch, device, specials):
+    """Elements [start, stop) of rank ``rank``'s payload at ``epoch``: a
+    hash of (element, rank, epoch), so a rank computes its neighbours'
+    payloads without reading them (the check is independent of the
+    protocol it tests); NaN and ±Inf at fixed elements when ``specials``."""
+    idx = torch.arange(start, stop, dtype=torch.int64, device=device)
+    h = (idx * 2654435761 + rank * 97 + epoch * 7919) % 1000003
+    vals = h.to(torch.float32) / 1000003.0 - 0.5
+    if specials:
+        for pos, v in ((5, float("nan")), (17, float("inf")),
+                       (33, float("-inf"))):
+            p = pos + 64 * rank
+            if start <= p < stop:
+                vals[p - start] = v
+    return vals
+
+
+def _peer_fill(x, rank, epoch, specials, chunk=1 << 28):
+    flat = x.view(-1)
+    for s in range(0, flat.numel(), chunk):
+        e = min(s + chunk, flat.numel())
+        flat[s:e] = _peer_payload_at(s, e, rank, epoch, x.device, specials)
+
+
+def _peer_rank(rank, world, rows, epochs, timeout, timeout_case, d):
+    """One rank of :func:`_ring_peer_check` (a spawned process): a
+    ``PeerRing`` on the card, its handle exchanged over gloo, the step
+    protocol for ``epochs`` epochs, its output against the plain version
+    on its own and its neighbours' payloads (every element, bit for bit,
+    a NaN matching a NaN; past element 2³¹ the first and last 4096 rows).
+    ``timeout_case``: rank 1 never publishes, rank 0's wait must time out
+    and raise.  Writes ``rank<r>.json`` to ``d``."""
+    import json
+    from pathlib import Path
+    import torch.distributed as dist
+    from repro_torch.kernels.ring_peer import PeerRing
+    from repro_torch.launch.mesh import init_distributed
+    dev = init_distributed("cuda", init_method=f"file://{d}/store",
+                           rank=rank, world_size=world, timeout_s=300)
+    shape = (1, rows, 128)
+    ring = PeerRing(shape, dev, rank, world, timeout_s=timeout)
+    handles = [None] * world
+    dist.all_gather_object(handles, ring.handle)
+    ring.open(handles)
+    left, right = (rank - 1) % world, (rank + 1) % world
+    rec = {"rank": rank, "ok": True}
+    specials = rows * 128 < (1 << 31)
+    if timeout_case:
+        if rank == 0:
+            _peer_fill(ring.payload_for_write(), rank, 0, specials)
+            try:
+                ring.combine(RING_W)
+                rec.update(ok=False, error="no timeout")
+            except RuntimeError as err:
+                rec["raised"] = str(err)
+                rec["ok"] = "waited more than" in str(err)
+    else:
+        out = torch.empty(shape, device=dev)
+        spans = ([(0, rows)] if specials else
+                 [(0, PEER_EDGE_ROWS), (rows - PEER_EDGE_ROWS, rows)])
+        for epoch in range(epochs):
+            _peer_fill(ring.payload_for_write(), rank, epoch, specials)
+            ring.combine(RING_W, out=out)
+            for r0, r1 in spans:
+                s, e = r0 * 128, r1 * 128
+                want = ref.ring_peer_ref(*(
+                    _peer_payload_at(s, e, r, epoch, dev,
+                                     specials).view(1, -1, 128)
+                    for r in (rank, left, right)), RING_W, world)
+                got = out[:, r0:r1]
+                same = bool(((got.view(torch.int32) == want.view(torch.int32))
+                             | (torch.isnan(got) & torch.isnan(want))).all())
+                rec["ok"] &= same
+        rec["epochs"] = ring.epoch
+        rec["launches"] = ops.launch_counts()["ring_peer"]
+    torch.cuda.synchronize()
+    dist.barrier()
+    ring.close()
+    Path(d, f"rank{rank}.json").write_text(json.dumps(rec))
+    dist.destroy_process_group()
+
+
+def _ring_peer_check(tmp_path, ranks, rows=2048, epochs=3, timeout=60.0,
+                     timeout_case=False):
+    """``ranks`` spawned processes on the card, one peer ring: each rank's
+    record (:func:`_peer_rank`)."""
+    import json
+    import torch.multiprocessing as mp
+    from repro_torch.kernels import build
+    build.build_all()
+    mp.spawn(_peer_rank, args=(ranks, rows, epochs, timeout, timeout_case,
+                               str(tmp_path)), nprocs=ranks, join=True)
+    return [json.loads((tmp_path / f"rank{r}.json").read_text())
+            for r in range(ranks)]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("ranks", [2, 4])
+def test_cuda_ring_peer_bit_equal_to_plain(cuda, tmp_path, ranks):
+    """The flags and the combine over 3 epochs, each rank's output against
+    the plain version on its own and its neighbours' payloads (NaN, ±Inf
+    among them), bit for bit; one launch a rank an epoch."""
+    recs = _ring_peer_check(tmp_path, ranks, epochs=3)
+    assert len(recs) == ranks
+    for r in recs:
+        assert r["ok"], r
+        assert r["epochs"] == r["launches"] == 3, r
+
+
+@pytest.mark.requires_cuda
+def test_cuda_ring_peer_past_element_2_31(cuda, tmp_path):
+    """A payload of 2³¹ + 2¹⁸ elements a rank: the first and last 4096
+    rows bit-equal to the plain version."""
+    for r in _ring_peer_check(tmp_path, 2, rows=16779264, epochs=2):
+        assert r["ok"], r
+        assert r["epochs"] == r["launches"] == 2, r
+
+
+@pytest.mark.requires_cuda
+def test_cuda_ring_peer_flag_timeout_raises(cuda, tmp_path):
+    """A rank that never publishes its payload: its neighbour's bounded
+    wait times out and the combine raises instead of hanging."""
+    recs = _ring_peer_check(tmp_path, 2, timeout=2.0, timeout_case=True)
+    assert recs[0]["ok"], recs[0]
+    assert "waited more than 2 s" in recs[0]["raised"]

@@ -53,7 +53,9 @@ def test_every_module_imports_without_jax_or_repro():
               "repro_torch.optim.schedules", "repro_torch.core.metrics",
               "repro_torch.data.synthetic", "repro_torch.train.checkpoint",
               "repro_torch.kernels.ring_dma", "repro_torch.train.graphs",
-              "repro_torch.models.encdec"):
+              "repro_torch.models.encdec", "repro_torch.launch.mesh",
+              "repro_torch.launch.collectives", "repro_torch.core.comm",
+              "repro_torch.kernels.ring_peer"):
         assert m in mods
     code = (
         "import importlib, sys\n"
@@ -154,11 +156,14 @@ def test_serve_cli_without_device_raises_without_gpu(no_gpu, flags):
 def test_unported_levers_raise():
     model = build_model(get_smoke_config("smollm_360m"))
     # the overlapped pipeline across two devices is multi-GPU gossip
-    for kw in (dict(overlap="delayed", agents_per_device=2),
-               dict(agents="pod")):
+    for kw in (dict(overlap="delayed", agents_per_device=2),):
         run = RunConfig(**{"gossip_engine": "ppermute", **kw})
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_train_step(model, run, ring(4), device="cpu")
+    # pod agents are ported: they run across ranks, so they need a mesh
+    run = RunConfig(gossip_engine="ppermute", agents="pod")
+    with pytest.raises(ValueError, match="mesh="):
+        build_train_step(model, run, ring(4), device="cpu")
     # ported since: the tree path (shifts engine), the gossip_dtype cast,
     # the LR schedule and the overlap pipeline build
     for kw in (dict(gossip_engine="shifts"), dict(gossip_dtype="bfloat16"),

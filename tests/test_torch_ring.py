@@ -196,8 +196,8 @@ def test_forced_ring_dma_raises_on_what_it_cannot_carry():
         tmix.mix_ppermute(ttopo.ring(8), torch.zeros(8, 16, 128),
                           agents_per_device=8, wire=make_codec("bf16", 8),
                           transport="ring_dma")
-    # one agent per device stays multi-GPU gossip, not ported
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # one agent per device is gossip across ranks: it needs a mesh
+    with pytest.raises(ValueError, match="mesh="):
         tmix.mix_ppermute(ttopo.ring(4), torch.zeros(4, 8, 128),
                           agents_per_device=1, transport="ring_dma")
     # the op's own checks, the card's on every device: ±1 ring terms, an
