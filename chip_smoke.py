@@ -311,10 +311,34 @@ Phases, in order; any failure raises and the script exits non-zero:
    split plans are not run on one card (the CPU tests hold them over
    gloo); the NCCL path has run nowhere (gloo on the CPU runs the same
    permute plan).
+26. the overlapped pipeline, the peer table and policy groups across
+   ranks, in phase 25's ranks once it is done: (a) 3 steps of the delayed
+   pipeline (``overlap="delayed"``) on the ring with the ring's slot 1
+   late at step 1 (a ``StragglerPlan``): each rank publishes φ(t) into
+   the double-buffered peer table (``csrc/table_peer.cu``'s allocation)
+   before its forward and backward pass and combines after it — the ring
+   kernel on the table's slots on steps 0 and 2, the table kernel on the
+   late step; (c) the table kernel on the ranks' final payloads (rank 0's
+   poisoned with NaN) for a ring round, an exponential hop, a late round
+   and a masked round, bit-equal to its plain version, the late round
+   finite wherever rank 0 is not read, the ring round timed one rank at a
+   time beside the plain version and one ``torch.matmul``, its bound; (b)
+   4 steps of the policy groups (the embeddings opt out, attention every
+   step on the ring, the rest every other step on ``round_robin`` over
+   ``exp``: its offset-1 round through the peer ring, its offset-2 round
+   through the peer table).  (a) and (b): per-agent losses and the
+   digests of x, m, ψ (and the pipeline's live slot) bit-equal to
+   one-process 4-agent eager runs of the same steps; launches a rank
+   exactly (a) 3 EDM + 2 ring + 1 table, (b) 4 EDM + 5 ring + 1 table (no
+   gossip launch for the embeddings' rows); the recorder's marks put the
+   publish before each step's forward and backward pass and the combine
+   after; no flag wait timed out.  The bf16 / int8 wires across ranks are
+   not run on one card (the CPU tests hold them over gloo).
 
-Phases run in the order 1–3, 3w, 3r, 3m, 3f, 4–6, 4r, 6r, 4g, 4w–6w,
-12, 13, 14, 4t–6t, 7–11, 15–25; a ``[time]`` line before each gives the
-seconds since the start and those of the phase before.  The third
+Phases run in the order 1–3, 3w, 3r, 3m, 3f, 25–26 (26 in 25's ranks),
+4–6, 4r, 6r, 4g, 4w–6w, 12, 13, 14, 4t–6t, 7–11, 15–24; a ``[time]``
+line before each gives the seconds since the start and those of the
+phase before, and the memory this process still holds on the card.  The third
 line from the end is the ``nvidia-smi`` name and power limit,
 the line before the last ``{"kernels": [...]}`` and the last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -644,6 +668,22 @@ def check_axpy(shape, n_ops, dtype, out_dtype, gen, timed: bool, ring=False):
         rec["bound_ms"], rec["bound_by"] = bound_ms(rec["bytes"],
                                                     2 * len(operands) * n)
         rec["gb_per_s"] = rec["bytes"] / rec["ms"] / 1e6
+        if ring:
+            # the same function as one library call: the ring's W over
+            # the agent axis (the port never calls it)
+            A = shape[0]
+            W = torch.zeros((A, A), device="cuda")
+            for a in range(A):
+                for src, w in ((a, 0.5), ((a - 1) % A, 0.25),
+                               ((a + 1) % A, 0.25)):
+                    W[a, src] += w
+            flat = phi.view(A, -1)
+            lib = torch.matmul(W, flat)
+            got = ops.gossip_axpy(operands, weights, out_dtype=out_dtype)
+            rec["library_max_abs_diff"] = float(
+                (lib - got.view(A, -1)).abs_().max())
+            del lib, got
+            rec["library_ms"] = time_ms(lambda: torch.matmul(W, flat))
     del operands
     free()
     return rec
@@ -3991,26 +4031,69 @@ def whisper_train_phase():
 
 
 # ---------------------------------------------------------------------------
-# phase 25: multi-rank gossip — 4 ranks on the one card, peer-pointer ring
+# phases 25 and 26: multi-rank gossip — 4 ranks on the one card, the
+# peer-pointer kernels
 # ---------------------------------------------------------------------------
 
 PEER_RANKS = 4
 PEER_STEPS = 3
 PEER_STORE = ROOT / "build" / "peer_phase"
+# phase 26 (a): the delayed pipeline on the ring, ring slot 1 (the left
+# neighbour's payload) late at step 1; (b) policy groups over 4 steps (the
+# every-other-step group gossips at steps 1 and 3: round_robin's offset-1
+# round through the peer ring, its offset-2 round through the peer table)
+OVERLAP_LATE = {"late": [[1, [1]]]}
+GROUP_STEPS = 4
+RANK_GROUPS = json.dumps([
+    {"name": "embed", "match": ["embed", "lm_head"], "gossip_every": 0},
+    {"name": "attn", "match": ["|attn|"]},
+    {"name": "rest", "gossip_every": 2, "schedule": "round_robin"}])
+# phase 26 (c): the rounds the peer table kernel is held and timed on
+TABLE_CASES = ("ring", "exp", "late", "masked")
 
 
-def peer_reference(model, batches):
-    """The one-process 4-agent run phase 25's ranks are held against: the
-    main path's configuration (ring, fused kernels, the one-card ring
-    kernel), eager, under deterministic algorithms, ``PEER_STEPS`` steps
-    from the seed-0 state.  Returns the per-step per-agent losses (read
-    off the trainer's ``losses_and_grads``), the final x and ψ buses (on
-    the card, shared with the ranks) and the step seconds."""
+def bus_digest(t) -> list:
+    """Two 64-bit digests of a bus's bits: the sum of its int32 words, and
+    their sum weighted by an odd hash of each word's position (wrapping,
+    so the order of the additions does not matter) — what phase 26 holds
+    a rank's bus to, so that no full one-process bus need stay on the card
+    beside the four ranks."""
     import torch
+    flat = t.detach().reshape(-1).view(torch.int32)
+    s1 = s2 = 0
+    chunk = 1 << 24
+    for i in range(0, flat.numel(), chunk):
+        w = flat[i:i + chunk].to(torch.int64)
+        pos = torch.arange(i, i + w.numel(), dtype=torch.int64,
+                           device=w.device)
+        h = (pos * 2654435761) % (1 << 31) * 2 + 1
+        s1 += int(w.sum())
+        s2 = (s2 + int((w * h).sum())) % (1 << 64)
+    return [s1, s2]
+
+
+def rank_bufs(state) -> dict:
+    """The buses phase 26 compares: x, m, ψ and, under the overlap, the
+    pipeline's live slot."""
+    out = {"x": state["params"], "m": state["opt"]["m"],
+           "psi": state["opt"]["psi"]}
+    pipe = state.get("pipeline")
+    if pipe is not None:
+        out["phi"] = pipe["slot"][int(pipe["parity"])]
+    return out
+
+
+def one_process_run(model, run, batches, plan=None, digests=False):
+    """A one-process 4-agent eager run of ``run`` on the card under
+    deterministic algorithms, the references of phases 25 and 26: the
+    per-step per-agent losses (read off the trainer's ``losses_and_grads``),
+    the step seconds, the launches, and the final buses (phase 25: x and
+    ψ, kept on the card for the ranks) or their per-agent digests."""
+    import torch
+    from repro_torch.kernels import ops
     from repro_torch.train import (build_train_step, init_state,
                                    make_gossip_schedule)
     from repro_torch.train import trainer
-    run = bus_run()
     seen = []
     inner = trainer.losses_and_grads
 
@@ -4021,9 +4104,11 @@ def peer_reference(model, batches):
 
     state = init_state(model, run, AGENTS, seed=0, device="cuda")
     step = build_train_step(model, run, make_gossip_schedule(run, AGENTS),
-                            use_fused_kernel=True, device="cuda")
+                            use_fused_kernel=True, device="cuda",
+                            straggler_plan=plan)
     secs = []
     trainer.losses_and_grads = spy
+    ops.reset_launch_counts()
     torch.use_deterministic_algorithms(True)
     try:
         for b in batches:
@@ -4034,26 +4119,152 @@ def peer_reference(model, batches):
     finally:
         trainer.losses_and_grads = inner
         torch.use_deterministic_algorithms(False)
-    x, psi = state["params"], state["opt"]["psi"]
+    out = {"losses": seen, "seconds": secs,
+           "launches": {k: v for k, v in ops.launch_counts().items() if v}}
+    if digests:
+        out["digests"] = {k: [bus_digest(v[a]) for a in range(AGENTS)]
+                          for k, v in rank_bufs(state).items()}
+    else:
+        out["x"], out["psi"] = state["params"], state["opt"]["psi"]
     del state, step
     free()
-    return {"losses": seen, "x": x, "psi": psi, "seconds": secs}
+    return out
 
 
-def peer_rank(rank: int, world: int, batches, want_x, want_psi, out_dir):
-    """Phase 25's rank (a spawned process; the one card for every rank):
-    one agent of the main path's model, ring, fused kernels, through the
-    multi-rank bus step (``build_train_step(mesh=)``) for ``PEER_STEPS``
-    steps — the peer-pointer ring kernel carries the gossip.  Then its
-    losses, x and ψ against the one-process run's (``want_*``: the
-    parent's buses, shared through CUDA IPC), the kernel against its plain
-    version on the final payloads (the neighbours' copied through the peer
-    pointers), each rank's kernel timed while the others wait, and the
-    last step profiled (rank 0).  Writes ``rank<r>.json`` to ``out_dir``."""
+def table_round(case, rank, world):
+    """Rank ``rank``'s ``(src, weights)`` column of a round phase 26 (c)
+    holds the peer table kernel on: the ±1 ring, an exponential hop (rank
+    − 2), the ring with every term that reads rank 0 late (set to the
+    reader), the ring with rank ``world − 1`` down (masked)."""
+    left, right = (rank - 1) % world, (rank + 1) % world
+    w = [1 / 3, 1 / 3, 1 / 3]
+    if case == "ring":
+        return [rank, left, right], w
+    if case == "exp":
+        return [rank, (rank - 2) % world], [0.5, 0.5]
+    if case == "late":
+        return [rank if s == 0 and rank != 0 else s
+                for s in (rank, left, right)], w
+    dead = world - 1
+    if rank == dead:
+        return [rank], [1.0]
+    return [rank if s == dead else s for s in (rank, left, right)], w
+
+
+def rank_steps(step, state, batches, mesh, rec, tag):
+    """Phase 26's driven run on one rank: the launch counts set to 0, the
+    steps (the recorder's marks each step: the peer publish before the
+    forward and backward pass, the combine after), the counts read."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import comm
+    from repro_torch.kernels import ops
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    torch.use_deterministic_algorithms(True)
+    losses, secs, order = [], [], []
+    for b in batches:
+        b = {k: v.cuda() for k, v in b.items()}
+        dist.barrier(group=mesh.control)
+        t0 = time.perf_counter()
+        with comm.recording() as log:
+            state, m = step(state, b)
+        losses.append(m["agent_losses"].tolist())
+        rec.setdefault(f"{tag}_loss", []).append(float(m["loss"]))
+        secs.append(time.perf_counter() - t0)
+        order.append([n for n, _ in sorted(log.marks, key=lambda t: t[1])])
+    torch.use_deterministic_algorithms(False)
+    rec[f"{tag}_launches"] = {k: v for k, v in ops.launch_counts().items()
+                              if v}
+    rec[f"{tag}_step_ms"] = [round(t * 1e3, 2) for t in secs]
+    rec[f"{tag}_peak_allocated_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    rec[f"{tag}_peak_reserved_gib"] = torch.cuda.max_memory_reserved() / 2**30
+    rec[f"{tag}_agent_losses"] = losses
+    rec[f"{tag}_marks"] = order
+    rec[f"{tag}_digests"] = {k: bus_digest(v)
+                             for k, v in rank_bufs(state).items()}
+    return state
+
+
+def table_checks(table, rank, world, mesh, rec):
+    """Phase 26 (c) on one rank: the peer table kernel on the ranks' final
+    payloads (the overlap's last epoch, static now; rank 0's payload
+    poisoned with NaN first, so that the late round, whose terms that read
+    rank 0 read the reader instead, must come out finite on the other
+    ranks) for each of ``TABLE_CASES``, bit-equal to its plain version;
+    then, one rank at a time, the ring round timed through the table kernel
+    beside the plain version and one ``torch.matmul(w, stack)``."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import ops, ref
+    views = table.views()
+    if rank == 0:
+        views[0].fill_(float("nan"))
+    torch.cuda.synchronize()
+    rec["table_cases"] = {}
+    for r in range(world):
+        dist.barrier(group=mesh.control)
+        if r != rank:
+            continue
+        for case in TABLE_CASES:
+            src, w = table_round(case, rank, world)
+            copies = [v.clone() if j in src else v
+                      for j, v in enumerate(views)]
+            got = ops.table_peer(views, src, w)
+            want = ref.table_peer_ref(copies, src, w)
+            equal, err = compare([got], [want])
+            rec["table_cases"][case] = {"bit_equal": equal,
+                                        "max_abs_err": err,
+                                        "finite": bool(torch.isfinite(
+                                            got).all())}
+            del copies, got, want
+        src, w = table_round("ring", rank, world)
+        n = views[rank].numel()
+        rec["table_bytes"] = 4 * n * (len(set(src)) + 1)
+        rec["table_bound_ms"], rec["table_bound_by"] = bound_ms(
+            rec["table_bytes"], (2 * len(src) - 1) * n)
+        out = torch.empty_like(views[rank])
+        rec["table_ms"] = time_ms(lambda: ops.table_peer(views, src, w,
+                                                         out=out))
+        rec["table_plain_ms"] = time_ms(lambda: ref.table_peer_ref(
+            views, src, w))
+        stack = torch.stack([views[j][0].clone() for j in src]).view(
+            len(src), -1)
+        wt = torch.tensor([w], device=stack.device)
+        lib = torch.matmul(wt, stack).view_as(out)
+        rec["table_library_max_abs_diff"] = float(
+            (lib - out).nan_to_num_(0.0, 0.0, 0.0).abs_().max())
+        del lib
+        rec["table_library_ms"] = time_ms(lambda: torch.matmul(wt, stack))
+        del stack, out
+        free()
+
+
+def peer_rank(rank: int, world: int, batches, held, want26, out_dir):
+    """Phases 25 and 26's rank (a spawned process; the one card for every
+    rank), one agent of the main path's model each.
+
+    Phase 25: ring, fused kernels, ``PEER_STEPS`` steps of the multi-rank
+    bus step — the peer-pointer ring kernel carries the gossip.  Its
+    losses, x and ψ against the one-process run's (``held``: the parent's
+    buses, shared through CUDA IPC, dropped as soon as they are compared),
+    the kernel against its plain version on the final payloads (the
+    neighbours' copied through the peer pointers), each rank's kernel
+    timed while the others wait, the last step profiled (rank 0).
+
+    Phase 26, once the parent has freed its phase-25 buses: (a) the
+    delayed pipeline (``overlap="delayed"``) on the ring with the straggler
+    plan ``OVERLAP_LATE``, ``PEER_STEPS`` steps: the peer table carries the
+    gossip, the ring kernel on its slots on the steps with no late slot,
+    the table kernel on the late one; (c) the table kernel on the final
+    payloads (:func:`table_checks`); (b) ``GROUP_STEPS`` grouped steps of
+    ``RANK_GROUPS``.  (a) and (b) against the one-process runs' per-agent
+    losses and bus digests (``want26``).  Writes ``rank<r>.json``."""
     import torch
     import torch.distributed as dist
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
+    from repro_torch.core.elastic import StragglerPlan
     from repro_torch.kernels import ops, ref
     from repro_torch.launch.mesh import init_distributed, make_gossip_mesh
     from repro_torch.models import build_model
@@ -4076,11 +4287,11 @@ def peer_rank(rank: int, world: int, batches, want_x, want_psi, out_dir):
     ops.reset_launch_counts()
     torch.use_deterministic_algorithms(True)
     losses, secs, prof_rows = [], [], None
-    for t, b in enumerate(batches):
+    for t, b in enumerate(batches[:PEER_STEPS]):
         b = {k: v.cuda() for k, v in b.items()}
         dist.barrier(group=mesh.control)
         t0 = time.perf_counter()
-        if t == len(batches) - 1 and rank == 0:
+        if t == PEER_STEPS - 1 and rank == 0:
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 state, m = step(state, b)
                 settle()
@@ -4097,9 +4308,13 @@ def peer_rank(rank: int, world: int, batches, want_x, want_psi, out_dir):
     rec["peak_allocated_gib"] = torch.cuda.max_memory_allocated() / 2**30
     rec["peak_reserved_gib"] = torch.cuda.max_memory_reserved() / 2**30
     rec["agent_losses"] = losses
+    want_x, want_psi = held
     rec["x_equal"] = same_bits(state["params"][0], want_x[rank])
     rec["psi_equal"] = same_bits(state["opt"]["psi"][0], want_psi[rank])
-    del want_x, want_psi        # the parent's buses, shared through IPC
+    # the parent's buses, shared through IPC: the list is the spawn's own
+    # argument, so emptying it is what drops this rank's references
+    held.clear()
+    del want_x, want_psi
     if prof_rows is not None:
         rec["traced"] = traced_launches(prof_rows)
         rec["buckets"] = bucket(prof_rows)
@@ -4143,56 +4358,152 @@ def peer_rank(rank: int, world: int, batches, want_x, want_psi, out_dir):
         free()
     torch.cuda.synchronize()
     dist.barrier(group=mesh.control)
-    ring.close()
+    step.close()
+    del step
+    free()
+    # hand over to phase 26 once the parent has dropped phase 25's buses
+    Path(out_dir, f"rank{rank}.p25").write_text("done")
+    freed = Path(out_dir, "p25.freed")
+    t_wait = time.time()
+    while not freed.exists():
+        check(time.time() - t_wait < 300, "the parent did not free phase "
+              "25's buses in 300 s")
+        time.sleep(0.1)
+    dist.barrier(group=mesh.control)
+    rec["card_free_gib_26"] = torch.cuda.mem_get_info()[0] / 2**30
+
+    # 26 (a): the delayed pipeline with a straggler across ranks
+    orun = bus_run(agents_per_device=1, overlap="delayed")
+    osched = make_gossip_schedule(orun, world)
+    plan = StragglerPlan.from_json(OVERLAP_LATE, max(
+        len(r.terms) for r in osched.rounds))
+    step = build_train_step(model, orun, osched, use_fused_kernel=True,
+                            mesh=mesh, straggler_plan=plan)
+    state = init_state(model, orun, world, seed=0, mesh=mesh)
+    state = rank_steps(step, state, batches[:PEER_STEPS], mesh, rec,
+                       "overlap")
+    table = step.transports()[0]
+    table.raise_on_timeout()
+    rec["overlap_epochs"], rec["overlap_waits"] = table.epoch, table.waits
+    del state
+    free()
+    # 26 (c): the table kernel on the overlap's final payloads
+    table_checks(table, rank, world, mesh, rec)
+    torch.cuda.synchronize()
+    dist.barrier(group=mesh.control)
+    step.close()
+    del step, table
+    free()
+    # 26 (b): policy groups across ranks
+    grun = bus_run(agents_per_device=1, gossip_groups=RANK_GROUPS)
+    step = build_train_step(model, grun, make_gossip_schedule(grun, world),
+                            use_fused_kernel=True, mesh=mesh)
+    state = init_state(model, grun, world, seed=0, mesh=mesh)
+    state = rank_steps(step, state, batches[:GROUP_STEPS], mesh, rec,
+                       "groups")
+    rec["groups_waits"] = sum(getattr(t, "waits", 0)
+                              for t in step.transports())
+    for t in step.transports():
+        t.raise_on_timeout()
+    del state
+    free()
+    torch.cuda.synchronize()
+    dist.barrier(group=mesh.control)
+    step.close()
+    for tag in ("overlap", "groups"):
+        rec[f"{tag}_equal"] = all(
+            rec[f"{tag}_digests"][k] == want26[tag]["digests"][k][rank]
+            for k in want26[tag]["digests"])
     Path(out_dir, f"rank{rank}.json").write_text(json.dumps(rec))
     dist.destroy_process_group()
 
 
 def peer_phase():
-    """Phase 25: ``PEER_RANKS`` ranks on the one card, each one agent of
-    ``smollm_360m`` at full width and depth (bus ``(1, 3195392, 128)`` a
-    rank), ring, fused kernels, seq 128, per-agent batch 1, α 0.2, β 0.9,
-    ``PEER_STEPS`` steps through the multi-rank bus step; the gossip runs
-    through the peer-pointer ring kernel (CUDA IPC).  Gates: per-agent
-    losses and the final x and ψ bit-equal to the one-process eager run;
-    the kernel bit-equal to its plain version on every rank; no flag wait
-    timed out; one ring launch a rank a step, no one-card ring or combine
-    launch, and the traced step holds no roll.  The pod mode and the
-    blocked and split plans are not run here (one card; the CPU tests hold
-    them over gloo); the NCCL path has run nowhere (gloo on the CPU runs
-    the same permute plan)."""
+    """Phases 25 and 26: ``PEER_RANKS`` ranks on the one card, each one
+    agent of ``smollm_360m`` at full width and depth (bus ``(1, 3195392,
+    128)`` a rank), fused kernels, seq 128, per-agent batch 1, α 0.2, β
+    0.9, spawned once for both phases.
+
+    Phase 25: ``PEER_STEPS`` steps of the multi-rank bus step on the ring;
+    the gossip runs through the peer-pointer ring kernel (CUDA IPC).
+    Gates: per-agent losses and the final x and ψ bit-equal to the
+    one-process eager run; the kernel bit-equal to its plain version on
+    every rank; no flag wait timed out; one ring launch a rank a step, no
+    one-card ring or combine launch, and the traced step holds no roll.
+
+    Phase 26: (a) ``PEER_STEPS`` steps of the delayed pipeline on the
+    ring with slot 1 late at step 1, (b) ``GROUP_STEPS`` steps of the
+    ``RANK_GROUPS`` policy.  Gates: per-agent losses and the digests of x,
+    m, ψ (and the pipeline's live slot) bit-equal to the one-process eager
+    runs'; (a) 2 ring and 1 table launches a rank, the peer publish before
+    each step's forward and backward pass and the combine after; (b) 5
+    ring launches (attention every step, the rest's offset-1 round) and 1
+    table launch (its offset-2 round) a rank, none for the embeddings; (c)
+    the table kernel bit-equal to its plain version on every rank's final
+    payloads for each of ``TABLE_CASES`` (the late round's output finite
+    where rank 0's late payload is not read); no flag wait timed out.
+    The pod mode and the blocked and split plans, and the bf16 / int8
+    wires across ranks, are not run here (one card; the CPU tests hold
+    them over gloo); the NCCL path has run nowhere."""
     import shutil
     import torch
     import torch.multiprocessing as mp
     from repro_torch.configs import get_config
+    from repro_torch.core.elastic import StragglerPlan
     from repro_torch.data import SyntheticLM
     from repro_torch.models import build_model
+    from repro_torch.train import make_gossip_schedule
     free()
     model = build_model(get_config(ARCH))
     data = SyntheticLM(vocab_size=model.cfg.vocab_size, seq_len=SEQ,
                        n_agents=AGENTS, phi=0.2)
     dgen = torch.Generator(device="cuda").manual_seed(7)
     batches = [{k: v.cpu() for k, v in data.sample(dgen, 1).items()}
-               for _ in range(PEER_STEPS)]
+               for _ in range(max(PEER_STEPS, GROUP_STEPS))]
     t0 = time.time()
-    refrun = peer_reference(model, batches)
-    out = {"reference_s": time.time() - t0,
-           "reference_step_ms": [round(t * 1e3, 2)
-                                 for t in refrun["seconds"]]}
+    orun = bus_run(overlap="delayed")
+    plan = StragglerPlan.from_json(OVERLAP_LATE, max(
+        len(r.terms) for r in make_gossip_schedule(orun, AGENTS).rounds))
+    want26 = {"overlap": one_process_run(model, orun, batches[:PEER_STEPS],
+                                         plan, digests=True),
+              "groups": one_process_run(
+                  model, bus_run(gossip_groups=RANK_GROUPS),
+                  batches[:GROUP_STEPS], digests=True)}
+    out = {"reference26_s": time.time() - t0,
+           "reference26": {k: {"step_ms": [round(t * 1e3, 2)
+                                           for t in v["seconds"]],
+                               "launches": v["launches"]}
+                           for k, v in want26.items()}}
+    t0 = time.time()
+    refrun = one_process_run(model, bus_run(), batches[:PEER_STEPS])
+    out.update(reference_s=time.time() - t0,
+               reference_step_ms=[round(t * 1e3, 2)
+                                  for t in refrun["seconds"]])
     del model
     free()
     shutil.rmtree(PEER_STORE, ignore_errors=True)
     PEER_STORE.mkdir(parents=True)
+    held = [refrun.pop("x"), refrun.pop("psi")]
     t0 = time.time()
-    mp.spawn(peer_rank, args=(PEER_RANKS, batches, refrun["x"],
-                              refrun["psi"], str(PEER_STORE)),
-             nprocs=PEER_RANKS, join=True)
+    ctx = mp.spawn(peer_rank, args=(PEER_RANKS, batches, held, want26,
+                                    str(PEER_STORE)),
+                   nprocs=PEER_RANKS, join=False)
+    handed = False
+    while not ctx.join(timeout=0.5):
+        if not handed and all((PEER_STORE / f"rank{r}.p25").exists()
+                              for r in range(PEER_RANKS)):
+            # every rank compared and dropped its views: free the buses
+            held.clear()
+            torch.cuda.ipc_collect()
+            free()
+            out["parent_reserved_gib_26"] = (torch.cuda.memory_reserved()
+                                             / 2**30)
+            out["ranks25_s"] = time.time() - t0
+            (PEER_STORE / "p25.freed").write_text("freed")
+            handed = True
     out["ranks_s"] = time.time() - t0
     ranks = [json.loads((PEER_STORE / f"rank{r}.json").read_text())
              for r in range(PEER_RANKS)]
-    del refrun["x"], refrun["psi"]
-    torch.cuda.ipc_collect()
-    free()
     out["ranks"] = ranks
     want_losses = refrun["losses"]
     for r in ranks:
@@ -4209,6 +4520,33 @@ def peer_phase():
               "edm_update and ring_peer")
         check(r["epochs"] == PEER_STEPS, f"{tag}: {r['epochs']} ring epochs")
         check(r["shared"], f"{tag}: the ranks do not share the card")
+        # phase 26
+        for what in ("overlap", "groups"):
+            check(r[f"{what}_agent_losses"] == want26[what]["losses"],
+                  f"{tag}: {what} per-agent losses "
+                  f"{r[f'{what}_agent_losses']} != the one-process run's "
+                  f"{want26[what]['losses']}")
+            check(r[f"{what}_equal"], f"{tag}: {what} final buses differ "
+                  f"from the one-process run's ({r[f'{what}_digests']})")
+        check(r["overlap_launches"] == {"edm_update": PEER_STEPS,
+                                        "ring_peer": PEER_STEPS - 1,
+                                        "table_peer": 1},
+              f"{tag}: overlap launches {r['overlap_launches']}")
+        check(all(m == ["peer publish", "backward", "backward done",
+                        "peer combine"] for m in r["overlap_marks"]),
+              f"{tag}: overlap step order {r['overlap_marks']}")
+        check(r["overlap_epochs"] == PEER_STEPS,
+              f"{tag}: {r['overlap_epochs']} table epochs")
+        check(r["groups_launches"] == {"edm_update": GROUP_STEPS,
+                                       "ring_peer": GROUP_STEPS + 1,
+                                       "table_peer": 1},
+              f"{tag}: groups launches {r['groups_launches']}")
+        for case, c in r["table_cases"].items():
+            check(c["bit_equal"], f"{tag}: the peer table kernel differs "
+                  f"from its plain version on the {case} round "
+                  f"(max |err| {c['max_abs_err']})")
+        check(r["rank"] == 0 or r["table_cases"]["late"]["finite"],
+              f"{tag}: the late round's output is not finite")
     tr = ranks[0]["traced"]
     check(tr["ring_peer"] == 1 and tr["edm_update"] == 1
           and tr["ring_combine"] == 0 and tr["gossip_axpy"] == 0
@@ -4219,7 +4557,7 @@ def peer_phase():
 
 
 def print_peer(rec, smi: str) -> None:
-    """Phase 25's lines."""
+    """Phases 25 and 26's lines."""
     for r in rec["ranks"]:
         print(f"[peer] rank {r['rank']} on {r['device']} (shared card "
               f"{r['shared']}), bus {r['bus']}: step ms {r['step_ms']}, "
@@ -4232,18 +4570,46 @@ def print_peer(rec, smi: str) -> None:
               flush=True)
     r0 = rec["ranks"][0]
     print(f"[peer] {PEER_RANKS} ranks × {PEER_STEPS} steps in "
-          f"{rec['ranks_s']:.1f} s (the one-process run "
+          f"{rec['ranks25_s']:.1f} s (the one-process run "
           f"{rec['reference_s']:.1f} s, step ms "
           f"{rec['reference_step_ms']}); per-agent losses, x and ψ bit-equal "
           f"to it; rank 0's profiled step: busy {r0['busy_ms']:.2f} ms, "
           f"traced {json.dumps({k: v for k, v in r0['traced'].items() if v})}"
           f", buckets {json.dumps({k: round(v, 3) for k, v in r0['buckets'].items() if v})}",
           flush=True)
-    print("[peer] not run on this card: the pod mode (row shards) and the "
-          "blocked and split permute plans (the CPU tests hold them over "
-          "gloo against the JAX package); NCCL: not run anywhere (one card: "
-          "NCCL refuses two ranks on it; gloo on the CPU runs the same "
-          "permute plan)", flush=True)
+    for r in rec["ranks"]:
+        for tag in ("overlap", "groups"):
+            print(f"[peer26] rank {r['rank']} {tag}: step ms "
+                  f"{r[f'{tag}_step_ms']}, loss {r[f'{tag}_loss']}, launches "
+                  f"{r[f'{tag}_launches']} "
+                  f"({ {k: v / len(r[f'{tag}_step_ms']) for k, v in r[f'{tag}_launches'].items()} } a step), "
+                  f"peak {r[f'{tag}_peak_allocated_gib']:.2f} / "
+                  f"{r[f'{tag}_peak_reserved_gib']:.2f} GiB, flag waits "
+                  f"{r[f'{tag}_waits']} (none timed out), bit-equal to the "
+                  f"one-process run {r[f'{tag}_equal']}; {smi}", flush=True)
+        cases = {k: v["bit_equal"] for k, v in r["table_cases"].items()}
+        print(f"[peer26] rank {r['rank']} table_peer {r['table_ms']:.4f} ms "
+              f"(plain {r['table_plain_ms']:.3f}, library "
+              f"{r['table_library_ms']:.3f}, bound {r['table_bound_ms']:.4f} "
+              f"ms {r['table_bound_by']}) on the ring round; bit-equal "
+              f"{cases}; {smi}", flush=True)
+    ref26 = rec["reference26"]
+    print(f"[peer26] the one-process references ({rec['reference26_s']:.1f} "
+          f"s): overlap step ms {ref26['overlap']['step_ms']} launches "
+          f"{ref26['overlap']['launches']}; groups step ms "
+          f"{ref26['groups']['step_ms']} launches "
+          f"{ref26['groups']['launches']}; phase 26 on the ranks "
+          f"{rec['ranks_s'] - rec['ranks25_s']:.1f} s (the card's free "
+          f"memory at its start {[round(r['card_free_gib_26'], 2) for r in rec['ranks']]}"
+          f" GiB, the parent's reserve {rec['parent_reserved_gib_26']:.2f} "
+          "GiB); the publish precedes each rank's forward and backward pass, "
+          "the combine follows it", flush=True)
+    print("[peer] not run on this card: the pod mode (row shards), the "
+          "blocked and split permute plans and the bf16 / int8 wires across "
+          "ranks (the CPU tests hold them over gloo against the JAX "
+          "package); NCCL: not run anywhere (one card: NCCL refuses two "
+          "ranks on it; gloo on the CPU runs the same permute plan)",
+          flush=True)
 
 
 def print_fixed_batch(tag: str, arch: str, cli_args, rec, smi: str):
@@ -4335,13 +4701,19 @@ def print_train_runs(tag: str, arch: str, what: str, rec, smi: str):
 
 def phase_clock(t_start: float):
     """``clock(phase)`` prints a ``[time]`` line: the seconds since the
-    start and those of the phase that just ended."""
+    start and those of the phase that just ended, and the memory torch
+    still holds on the card going into the phase (allocated / reserved
+    GiB, after the cache is emptied)."""
+    import torch
     last = {"name": "1-2", "t": t_start}
 
     def clock(phase: str) -> None:
         now = time.time()
+        free()
         print(f"[time] {now - t_start:.1f} s before phase {phase}; phase "
-              f"{last['name']} took {now - last['t']:.1f} s", flush=True)
+              f"{last['name']} took {now - last['t']:.1f} s; held "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} / "
+              f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB", flush=True)
         last.update(name=phase, t=now)
 
     return clock
@@ -4370,6 +4742,12 @@ def main() -> None:
     print(f"[device] {device_kind}; nvidia-smi: {smi}; "
           f"torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
+    # the default stream's cuBLAS workspace lives as long as the process:
+    # take it now, from an empty cache, so that it pins no bus-sized cached
+    # block of a later phase (a first matmul in phase 3 once held a 6.1 GiB
+    # segment so, and phases 20 and 26 ran out of memory)
+    torch.matmul(torch.ones((8, 8), device="cuda"),
+                 torch.ones((8, 8), device="cuda"))
 
     # 2. build
     t0 = time.time()
@@ -4484,6 +4862,15 @@ def main() -> None:
         print(f"[flash-timed] {rec}", flush=True)
     print(f"[flash] the op at (a) and (b): launches {flash_counts}",
           flush=True)
+
+    clock("25")
+    # 25–26. multi-rank gossip: 4 ranks on the one card, the peer-pointer
+    # ring (25); the delayed pipeline with a straggler, the peer table
+    # kernel and policy groups across ranks (26).  They run here, while
+    # this process holds next to nothing on the card: the four ranks and
+    # their peer buffers take most of it
+    peer = peer_phase()
+    print_peer(peer, smi)
 
     clock("4")
     # 4. the main path, through the CLI's entry point
@@ -5081,10 +5468,6 @@ def main() -> None:
           f" served params sha256 {wh['params_sha256'][:16]}… == the "
           "export's", flush=True)
 
-    clock("25")
-    # 25. multi-rank gossip: 4 ranks on the one card, the peer-pointer ring
-    peer = peer_phase()
-    print_peer(peer, smi)
     clock("end")
 
     def serve_row(name, replaces):
@@ -5144,7 +5527,10 @@ def main() -> None:
          "launches_of": "the tree path, edm (phase 4t, eager)",
          "max_abs_err": axpy_main["max_abs_err"], "ms": axpy_main["ms"],
          "plain_ms": axpy_main["plain_ms"], "bound_ms": axpy_main["bound_ms"],
-         "bound_by": axpy_main["bound_by"], "library_ms": None,
+         "bound_by": axpy_main["bound_by"],
+         "library_ms": axpy_main["library_ms"],
+         "library": "torch.matmul(W, x.view(A, -1)), f32 (cuBLAS; TF32 off)",
+         "library_max_abs_diff": axpy_main["library_max_abs_diff"],
          "bit_equal": all(r["bit_equal"] for r in [axpy_main, *axpy_small]),
          "shape": axpy_main["shape"], "gb_per_s": axpy_main["gb_per_s"]},
         serve_row("paged_attention", "src/repro/kernels/paged_attention.py:48"),
@@ -5280,6 +5666,38 @@ def main() -> None:
         "bit_equal": all(r["bit_equal"] for r in pr),
         "shape": pr[0]["bus"], "bytes": pr[0]["bytes"],
         "traced_in_rank0_profiled_step": pr[0]["traced"]["ring_peer"],
+        "launches_phase26": {
+            t: [r[f"{t}_launches"].get("ring_peer", 0) for r in pr]
+            for t in ("overlap", "groups")},
+        "timing": TIMING + "; one rank timed at a time, the others idle"})
+    kernels.append({
+        "name": "table_peer", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/table_peer.cu",
+        "replaces": "src/repro/kernels/edm_update.py:187",
+        "launches": sum(r[f"{t}_launches"].get("table_peer", 0)
+                        for r in pr for t in ("overlap", "groups")),
+        "launches_of": f"phase 26: {PEER_RANKS} ranks × ({PEER_STEPS} "
+                       f"delayed steps, a slot late at step 1; "
+                       f"{GROUP_STEPS} grouped steps)",
+        "launches_per_rank": {
+            t: [r[f"{t}_launches"].get("table_peer", 0) for r in pr]
+            for t in ("overlap", "groups")},
+        "max_abs_err": max(c["max_abs_err"] for r in pr
+                           for c in r["table_cases"].values()),
+        "ms": statistics.median(r["table_ms"] for r in pr),
+        "ms_per_rank": [r["table_ms"] for r in pr],
+        "plain_ms": statistics.median(r["table_plain_ms"] for r in pr),
+        "bound_ms": pr[0]["table_bound_ms"],
+        "bound_by": pr[0]["table_bound_by"],
+        "library_ms": statistics.median(r["table_library_ms"] for r in pr),
+        "library": "torch.matmul(w, stack of the read payloads), f32 "
+                   "(cuBLAS; TF32 off; the payloads copied first)",
+        "library_max_abs_diff": max(r["table_library_max_abs_diff"]
+                                    for r in pr),
+        "bit_equal": all(c["bit_equal"] for r in pr
+                         for c in r["table_cases"].values()),
+        "cases": list(TABLE_CASES), "timed_case": "ring",
+        "shape": pr[0]["bus"], "bytes": pr[0]["table_bytes"],
         "timing": TIMING + "; one rank timed at a time, the others idle"})
     for rec in kernels:
         name = rec["name"]

@@ -11,7 +11,11 @@ trainer and the checkpoints share (the JAX package's counterpart is a
   :func:`rank_block` read it.
 * The collectives: :func:`ppermute` — one ``jax.lax.ppermute``: a
   permutation of one axis's ranks, as ``(source, target)`` pairs of axis
-  indices, run as one ``torch.distributed.batch_isend_irecv`` round;
+  indices, run as one ``torch.distributed.batch_isend_irecv`` round —
+  :func:`ppermute_start` starts that round and returns it
+  :class:`Pending`, whose :meth:`Pending.wait` gives the received buffer
+  (the overlapped pipeline starts a step's permutes before its backward
+  pass and waits on them after it; ``ppermute`` is the two back to back);
   :func:`all_gather` — the tiled all-gather along one axis's ranks;
   :func:`all_reduce` — a sum over the grid's (or an axis's) ranks.
 
@@ -23,6 +27,11 @@ all-gather's result (``from_gather``: what the reference's HLO pin rules
 out for shard-resident gossip).  A permute a rank makes to itself moves
 nothing and is not recorded.  :mod:`repro_torch.launch.collectives`
 counts such a record as the reference's ``hlo_analysis`` counts HLO.
+The record keeps a clock: each collective notes the tick it was made at
+(``started``) and, for a permute, the tick it was waited on at
+(``waited``); :func:`mark` puts a named tick into the record
+(``Recording.marks``), so a test can place a step's permutes against its
+backward pass, as the reference's latency-hiding window does.
 
 On a CUDA tensor a collective runs on the group's own backend (NCCL);
 under gloo a CUDA operand is staged through the host (the control plane
@@ -40,7 +49,8 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["GossipMesh", "gossip_agent_axes", "axes_group", "rank_block",
-           "KINDS", "Collective", "recording", "ppermute", "all_gather",
+           "KINDS", "Collective", "Recording", "recording", "mark",
+           "Pending", "ppermute_start", "ppermute", "all_gather",
            "all_reduce"]
 
 
@@ -158,15 +168,17 @@ def rank_block(mesh: GossipMesh, n_agents: int,
 KINDS = ("collective-permute", "all-gather", "all-reduce")
 
 
-@dataclasses.dataclass(frozen=True)
+@dataclasses.dataclass
 class Collective:
     """One collective a rank made: its HLO kind, operand shape and dtype,
     the size of its group, the bytes it moved from this rank (a permute
     ships its operand; an all-gather ``(g − 1) / g`` of its result; an
     all-reduce ``2 (g − 1) / g`` of its operand: the reference's factors),
     a tag naming its caller's purpose (``gossip``, ``forward``,
-    ``metrics``, ``checkpoint``) and, for a permute, whether the operand
-    came out of an all-gather."""
+    ``metrics``, ``checkpoint``), for a permute whether the operand came
+    out of an all-gather, and the record's ticks when it was made
+    (``started``) and waited on (``waited``: the same tick for a
+    collective that returns done)."""
 
     kind: str
     shape: Tuple[int, ...]
@@ -175,20 +187,36 @@ class Collective:
     nbytes: int
     tag: str = ""
     from_gather: bool = False
+    started: int = -1
+    waited: int = -1
 
 
-_REC: List[Optional[list]] = [None]
+class Recording(list):
+    """The collectives of a :func:`recording` block, in the order they were
+    made, and ``marks``: ``(name, tick)`` pairs put in by :func:`mark`."""
+
+    def __init__(self):
+        super().__init__()
+        self.marks: List[Tuple[str, int]] = []
+        self.clock = 0
+
+    def tick(self) -> int:
+        self.clock += 1
+        return self.clock
+
+
+_REC: List[Optional[Recording]] = [None]
 # all-gather results while recording (weak: a view keeps its base alive,
 # so a live entry is a gathered tensor some tensor may still read)
 _GATHERED: List[weakref.ref] = []
 
 
 @contextlib.contextmanager
-def recording() -> Iterator[List[Collective]]:
-    """Record this rank's collectives while the block runs; yields the list
-    they are appended to."""
+def recording() -> Iterator[Recording]:
+    """Record this rank's collectives while the block runs; yields the
+    :class:`Recording` they are appended to."""
     prev, prev_g = _REC[0], list(_GATHERED)
-    _REC[0] = []
+    _REC[0] = Recording()
     _GATHERED.clear()
     try:
         yield _REC[0]
@@ -197,10 +225,19 @@ def recording() -> Iterator[List[Collective]]:
         _GATHERED[:] = prev_g
 
 
+def mark(name: str) -> None:
+    """Put the tick ``name`` into the record (nothing outside
+    :func:`recording`)."""
+    if _REC[0] is not None:
+        _REC[0].marks.append((name, _REC[0].tick()))
+
+
 def _record(kind: str, t: torch.Tensor, group_size: int, tag: str,
-            from_gather: bool = False) -> None:
-    if _REC[0] is None:
-        return
+            from_gather: bool = False, pending: bool = False
+            ) -> Optional[Collective]:
+    rec = _REC[0]
+    if rec is None:
+        return None
     b = t.numel() * t.element_size()
     if kind == "all-gather":
         nbytes = b * (group_size - 1) // group_size
@@ -208,8 +245,11 @@ def _record(kind: str, t: torch.Tensor, group_size: int, tag: str,
         nbytes = 2 * b * (group_size - 1) // group_size
     else:
         nbytes = b
-    _REC[0].append(Collective(kind, tuple(t.shape), t.dtype, group_size,
-                              nbytes, tag, from_gather))
+    tick = rec.tick()
+    c = Collective(kind, tuple(t.shape), t.dtype, group_size, nbytes, tag,
+                   from_gather, tick, -1 if pending else tick)
+    rec.append(c)
+    return c
 
 
 def _storage(t: torch.Tensor) -> int:
@@ -228,35 +268,67 @@ def _staged(t: torch.Tensor, group) -> bool:
     return t.device.type == "cuda" and dist.get_backend(group) == "gloo"
 
 
-def ppermute(x: torch.Tensor, pairs: Sequence[Tuple[int, int]],
-             ranks: Sequence[int], group, tag: str = "gossip"
-             ) -> torch.Tensor:
-    """``jax.lax.ppermute`` along one axis: ``pairs`` are ``(source,
+class Pending:
+    """A started permute: :meth:`wait` finishes its send and receive and
+    returns the received buffer (``value`` itself when nothing ships)."""
+
+    def __init__(self, value: torch.Tensor, reqs=(),
+                 record: Optional[Collective] = None):
+        self.value, self._reqs, self._record = value, list(reqs), record
+
+    def wait(self) -> torch.Tensor:
+        for req in self._reqs:
+            req.wait()
+        self._reqs = []
+        if self._record is not None and self._record.waited < 0:
+            rec = _REC[0]
+            self._record.waited = rec.tick() if rec is not None else 0
+        return self.value
+
+
+def ppermute_start(x: torch.Tensor, pairs: Sequence[Tuple[int, int]],
+                   ranks: Sequence[int], group, tag: str = "gossip",
+                   p2p_tag: int = 0) -> Pending:
+    """Start ``jax.lax.ppermute`` along one axis: ``pairs`` are ``(source,
     target)`` axis indices of a permutation, ``ranks`` the axis's global
-    ranks in axis order and ``group`` their process group.  This rank
-    sends ``x`` to its target and returns what its source sent (zeros
-    when it is no target, as in JAX)."""
+    ranks in axis order and ``group`` their process group.  This rank's
+    send of ``x`` to its target and receive from its source are issued;
+    the returned :class:`Pending` waits on them and gives what the source
+    sent (zeros when this rank is no target, as in JAX).  Permutes in
+    flight together between the same two ranks take distinct ``p2p_tag``
+    values (the same on both sides), so that each receive matches its
+    send."""
     me = ranks.index(dist.get_rank())
     dst = next((d for s, d in pairs if s == me), None)
     src = next((s for s, d in pairs if d == me), None)
     if dst == me and src == me:
-        return x
+        return Pending(x)
     if _staged(x, group):
         raise RuntimeError(
             "a permute of CUDA tensors needs NCCL, and ranks that share one "
-            "card run gloo: only the peer-pointer ring carries their gossip "
-            "(repro_torch.kernels.ring_peer)")
+            "card run gloo: only the peer-pointer kernels carry their "
+            "gossip (repro_torch.kernels.ring_peer, table_peer)")
     x = x.contiguous()
     out = torch.zeros_like(x)
-    ops = []
+    ops, record = [], None
     if dst is not None:
-        _record("collective-permute", x, len(ranks), tag, _from_gather(x))
-        ops.append(dist.P2POp(dist.isend, x, ranks[dst], group=group))
+        record = _record("collective-permute", x, len(ranks), tag,
+                         _from_gather(x), pending=True)
+        ops.append(dist.P2POp(dist.isend, x, ranks[dst], group=group,
+                              tag=p2p_tag))
     if src is not None:
-        ops.append(dist.P2POp(dist.irecv, out, ranks[src], group=group))
-    for req in dist.batch_isend_irecv(ops):
-        req.wait()
-    return out
+        ops.append(dist.P2POp(dist.irecv, out, ranks[src], group=group,
+                              tag=p2p_tag))
+    return Pending(out, dist.batch_isend_irecv(ops), record)
+
+
+def ppermute(x: torch.Tensor, pairs: Sequence[Tuple[int, int]],
+             ranks: Sequence[int], group, tag: str = "gossip"
+             ) -> torch.Tensor:
+    """:func:`ppermute_start` and its wait, back to back: this rank sends
+    ``x`` to its target and returns what its source sent (zeros when it is
+    no target, as in JAX)."""
+    return ppermute_start(x, pairs, ranks, group, tag).wait()
 
 
 def all_gather(x: torch.Tensor, group, group_size: int,

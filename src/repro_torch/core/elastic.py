@@ -481,6 +481,23 @@ class StragglerPlan:
             tab[step, list(ks)] = True
         return tab
 
+    @classmethod
+    def from_json(cls, spec: Any, n_terms: int) -> "StragglerPlan":
+        """A dict, an inline JSON string, or the path of a JSON file:
+        ``{"late": [[step, [slot, ...]], ...]}`` (an ``n_terms`` key, if
+        present, must equal ``n_terms``, the overlap stack's arity K)."""
+        if isinstance(spec, str):
+            if spec.lstrip().startswith("{"):
+                spec = json.loads(spec)
+            else:
+                with open(spec) as f:
+                    spec = json.load(f)
+        if int(spec.get("n_terms", n_terms)) != n_terms:
+            raise ValueError(f"straggler plan for {spec['n_terms']} slots, "
+                             f"the overlap stack has K = {n_terms}")
+        return cls(n_terms, tuple((int(step), tuple(int(k) for k in ks))
+                                  for step, ks in spec["late"]))
+
     def late_at(self, step: int, device=None):
         """(K,) bool late mask of ``step``: a numpy array, or a bool tensor
         on ``device`` when one is given."""

@@ -96,6 +96,7 @@ from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels import ring_dma
 from repro_torch.kernels.ring_peer import PeerRing
+from repro_torch.kernels.table_peer import MAX_SOURCES, PeerTable
 
 from . import comm as coll
 from .comm import axes_group, gossip_agent_axes
@@ -107,7 +108,8 @@ from .wire import WireCodec
 __all__ = ["TRANSPORTS", "mix_dense", "mix_shifts", "mix_ppermute",
            "mix_ranks", "mix_dense_sharded",
            "wire_terms", "round_tables", "make_mixer", "make_schedule_mixer",
-           "make_overlap_mixer", "build_mixer", "GroupPlan", "encode_rows",
+           "make_overlap_mixer", "build_mixer", "rank_routes", "GroupPlan",
+           "encode_rows",
            "make_group_mixer", "accumulate_f32", "tree_map"]
 
 _LOW_PRECISION = (torch.bfloat16, torch.float16)
@@ -465,6 +467,17 @@ def _flat_index(mesh, names, sizes) -> int:
     return idx
 
 
+class _Joined:
+    """The pending parts of one term's payload, joined along the agent axis
+    when waited on (a blocked roll's boundary rows before its body)."""
+
+    def __init__(self, parts):
+        self.parts = parts
+
+    def wait(self) -> torch.Tensor:
+        return torch.cat([p.wait() for p in self.parts], 0)
+
+
 def _blocked_roll(x, shift: int, bloc: int, n_ring: int, n_dev: int,
                   permute: Callable):
     """Blocked circulant roll, as the reference's: this rank's block of
@@ -473,11 +486,12 @@ def _blocked_roll(x, shift: int, bloc: int, n_ring: int, n_dev: int,
     ``n_dev`` ranks).  shift = q·bloc + r: rows ``[0, bloc − r)`` come from
     q hops back, the r boundary rows from q + 1 — at most two permutes; a
     part whose hop count is ≡ 0 (mod the ring) stays local, so a sub-block
-    shift ships only its r boundary rows."""
+    shift ships only its r boundary rows.  ``permute(part, pairs, i)``
+    starts part i's permute; returns the roll pending (``wait()``)."""
     n_elems = bloc * n_ring
     s = shift % n_elems
     if s == 0:
-        return x
+        return coll.Pending(x)
     q, r = divmod(s, bloc)
 
     def perm(hops):
@@ -486,62 +500,76 @@ def _blocked_roll(x, shift: int, bloc: int, n_ring: int, n_dev: int,
                 for d in range(n_dev) for g, c in [divmod(d, n_ring)]]
 
     p1 = x[:bloc - r] if r else x
-    if q % n_ring:
-        p1 = permute(p1, perm(q))
+    p1 = permute(p1, perm(q), 0) if q % n_ring else coll.Pending(p1)
     if not r:
         return p1
     p2 = x[bloc - r:]
-    if (q + 1) % n_ring:
-        p2 = permute(p2, perm(q + 1))
-    return torch.cat([p2, p1], 0)
+    p2 = permute(p2, perm(q + 1), 1) if (q + 1) % n_ring \
+        else coll.Pending(p2)
+    return _Joined([p2, p1])
 
 
-def _make_permute_term(topo: Topology, mesh, names, sizes, split: bool,
-                       B: int) -> Callable:
-    """The per-term wire plan of the multi-rank engine: ``permute_term(x,
-    t)`` for this rank's agent block — the one closure every multi-rank
-    engine uses, as in the reference, so the engines cannot drift in what
-    they put on the wire.  Each permute is one
-    :func:`repro_torch.core.comm.ppermute` round with literal
-    source → target pairs."""
+def _make_permute_start(topo: Topology, mesh, names, sizes, split: bool,
+                        B: int) -> Callable:
+    """The per-term wire plan of the multi-rank engine: ``start(x, t, tag)``
+    starts term ``t``'s permutes of this rank's agent block and returns
+    them pending (``wait()`` gives the term's payload) — the one plan every
+    multi-rank engine uses, as in the reference, so the engines cannot
+    drift in what they put on the wire.  Each permute is one
+    :func:`repro_torch.core.comm.ppermute_start` round with literal
+    source → target pairs; ``tag`` tells apart the permutes a caller keeps
+    in flight together (one a term and payload component)."""
     A = topo.n_agents
     M = A // B
     Pn, Dn = topo.grid_shape()
     ranks, group = axes_group(mesh, names)
 
-    def flat(x, pairs):
-        return coll.ppermute(x, pairs, ranks, group)
+    def flat(x, pairs, tag):
+        return coll.ppermute_start(x, pairs, ranks, group, p2p_tag=tag)
 
-    def permute_term_blocked(x, t):
+    def start_blocked(x, t, tag):
+        def part(p, pairs, i):
+            return flat(p, pairs, 2 * tag + i)
+
         if t.level == "flat":
-            return _blocked_roll(x, t.shift, B, M, M, flat)
+            return _blocked_roll(x, t.shift, B, M, M, part)
         if t.level == "inter":
             # an inter roll by s pods is the flat roll by s·D agents
-            return _blocked_roll(x, t.shift * Dn, B, M, M, flat)
+            return _blocked_roll(x, t.shift * Dn, B, M, M, part)
         if B % Dn == 0:          # whole pods per rank: a local roll
             g = x.reshape((B // Dn, Dn) + tuple(x.shape[1:]))
-            return torch.roll(g, t.shift, 1).reshape(x.shape)
+            return coll.Pending(torch.roll(g, t.shift, 1).reshape(x.shape))
         if Dn % B:
             raise ValueError(f"blocked intra gossip needs pod size {Dn} and "
                              f"block {B} aligned")
-        return _blocked_roll(x, t.shift, B, Dn // B, M, flat)
+        return _blocked_roll(x, t.shift, B, Dn // B, M, part)
 
-    def permute_term(x, t):
+    def start(x, t, tag: int = 0):
         if t.shift == 0 or A == 1:
-            return x
+            return coll.Pending(x)
         if B > 1:
-            return permute_term_blocked(x, t)
+            return start_blocked(x, t, tag)
         if split and t.level != "flat":
             ax, size = ((names[0], Pn) if t.level == "inter"
                         else (names[1], Dn))
             if size == 1:
-                return x
+                return coll.Pending(x)
             pairs = [((i - t.shift) % size, i) for i in range(size)]
-            return coll.ppermute(x, pairs, mesh.ranks(ax), mesh.group(ax))
+            return coll.ppermute_start(x, pairs, mesh.ranks(ax),
+                                       mesh.group(ax), p2p_tag=2 * tag)
         src = topo.term_sources(t)
-        return flat(x, [(int(s_), d) for d, s_ in enumerate(src)])
+        return flat(x, [(int(s_), d) for d, s_ in enumerate(src)], 2 * tag)
 
-    return permute_term
+    return start
+
+
+def _make_permute_term(topo: Topology, mesh, names, sizes, split: bool,
+                       B: int) -> Callable:
+    """``permute_term(x, t)``: term ``t``'s payload of this rank's agent
+    block, its permutes (:func:`_make_permute_start`) started and waited
+    on."""
+    start = _make_permute_start(topo, mesh, names, sizes, split, B)
+    return lambda x, t: start(x, t).wait()
 
 
 def _peer_unfit(topo: Topology, mesh, x, names, B: int, shard_axes,
@@ -574,6 +602,16 @@ def _peer_unfit(topo: Topology, mesh, x, names, B: int, shard_axes,
     return ""
 
 
+def _exchange(mesh, ranks, handle: bytes):
+    """Every rank of ``ranks``' IPC handle, in that order (a collective over
+    the mesh's control group)."""
+    got = [None] * dist.get_world_size(group=mesh.control)
+    dist.all_gather_object(got, (dist.get_rank(), handle),
+                           group=mesh.control)
+    by_rank = dict(got)
+    return [by_rank[r] for r in ranks]
+
+
 class _PeerSlot:
     """The peer ring a schedule mixer's ring rounds share (made at the
     first call, collectively, with the payload's shape: the ring's ranks
@@ -587,10 +625,7 @@ class _PeerSlot:
             ranks, _ = axes_group(self.mesh, self.names)
             ring = PeerRing(tuple(like.shape), like.device,
                             ranks.index(dist.get_rank()), len(ranks))
-            handles = [None] * len(ranks)
-            dist.all_gather_object(handles, ring.handle,
-                                   group=self.mesh.control)
-            ring.open(handles)
+            ring.open(_exchange(self.mesh, ranks, ring.handle))
             self.ring = ring
         elif self.ring.shape != tuple(like.shape):
             raise ValueError(f"the peer ring holds {self.ring.shape} "
@@ -606,11 +641,75 @@ class _PeerSlot:
             self.ring = None
 
 
+class _TableSlot:
+    """The peer table a mixer's table rounds share (made at the first call,
+    collectively, as :class:`_PeerSlot`; every rank of the agent axes maps
+    every other's payloads)."""
+
+    def __init__(self, mesh, names):
+        self.mesh, self.names, self.table = mesh, names, None
+
+    def get(self, like: torch.Tensor) -> PeerTable:
+        if self.table is None:
+            ranks, _ = axes_group(self.mesh, self.names)
+            sizes = tuple(self.mesh.axis_size(n) for n in self.names)
+            table = PeerTable(tuple(like.shape), like.device,
+                              _flat_index(self.mesh, self.names, sizes),
+                              len(ranks))
+            table.open(_exchange(self.mesh, ranks, table.handle))
+            self.table = table
+        elif self.table.shape != tuple(like.shape):
+            raise ValueError(f"the peer table holds {self.table.shape} "
+                             f"payloads, got {tuple(like.shape)}")
+        return self.table
+
+    def close(self) -> None:
+        """Free the table once every rank of it is done (collective)."""
+        if self.table is not None:
+            torch.cuda.synchronize(self.table.device)
+            dist.barrier(group=self.mesh.control)
+            self.table.close()
+            self.table = None
+
+
+def _table_unfit(mesh, x, names, B: int, shard_axes,
+                 wire: Optional[WireCodec]) -> str:
+    """Why the peer table (:class:`repro_torch.kernels.table_peer.
+    PeerTable`) cannot carry this rank's gossip, or '': one agent a rank,
+    every rank of the agent axes on this host (at most 16), no row shards,
+    no wire, a ``(1, rows, 128)`` f32 payload (``x`` None checks the
+    rest).  Any round fits: a ±1 ring, an exponential hop, a masked
+    round, late slots."""
+    if wire is not None:
+        return f"takes f32 payloads, not the {wire.fmt} wire"
+    if B != 1:
+        return f"needs one agent a rank, got {B}"
+    if shard_axes is not None:
+        return "does not compose with row shards (shard_axes)"
+    ranks, _ = axes_group(mesh, names)
+    if len(ranks) > MAX_SOURCES:
+        return f"maps at most {MAX_SOURCES} ranks, got {len(ranks)}"
+    if not mesh.one_host(ranks):
+        return (f"needs every rank of the agent axes on one host, got hosts "
+                f"{sorted({mesh.hosts[r] for r in ranks})}")
+    if x is not None and not ring_dma.bus_payload(x, 1):
+        return (f"needs a (1, rows, 128) f32 payload, got "
+                f"{getattr(x, 'dtype', type(x).__name__)} "
+                f"{tuple(getattr(x, 'shape', ()))}")
+    return ""
+
+
+def _readers(src: np.ndarray, i: int) -> List[int]:
+    """The ranks whose column of the ``(K, n)`` source table reads rank
+    ``i`` (itself left out)."""
+    return [j for j in range(src.shape[1]) if j != i and (src[:, j] == i).any()]
+
+
 def mix_ranks(topo: Topology, mesh, x, *, agent_axes=None,
               use_fused_kernel: bool = False,
               wire: Optional[WireCodec] = None, transport: str = "auto",
               shard_axes: Optional[str] = None,
-              out: Optional[torch.Tensor] = None, _peer=None):
+              out: Optional[torch.Tensor] = None, _peer=None, _table=None):
     """The ``ppermute`` engine across ranks: the twin of the reference's
     ``mix_ppermute`` under a mesh.  ``x`` is this rank's agent block
     (``(B, ...)``, a tensor or a tree; with ``shard_axes`` its ``(1,
@@ -638,9 +737,12 @@ def mix_ranks(topo: Topology, mesh, x, *, agent_axes=None,
       f32 payload, every rank of the ring on one host, runs the
       peer-pointer ring kernel (:class:`repro_torch.kernels.ring_peer.
       PeerRing`) when forced (``"ring_dma"``) or fused under ``"auto"``;
-      on the CPU that transport is the permutes plus the plain combine.
-      Ranks that share one card have no NCCL: any other gossip raises
-      there."""
+      any other round of one agent a rank on one host in f32 (an
+      exponential hop, a masked round) fused under ``"auto"`` runs the
+      peer table kernel (:class:`repro_torch.kernels.table_peer.
+      PeerTable`: this rank's column of the round's source table).  On the
+      CPU those transports are the permutes plus the plain combine.  Ranks
+      that share one card have no NCCL: any other gossip raises there."""
     _check_transport(transport)
     if agent_axes is None:
         agent_axes = gossip_agent_axes(mesh, sharded=shard_axes is not None)
@@ -665,11 +767,21 @@ def mix_ranks(topo: Topology, mesh, x, *, agent_axes=None,
         peer = (_peer or _PeerSlot(mesh, names, B)).get(x)
         terms = [(t.shift, float(t.weight)) for t in topo.terms]
         return peer.combine(terms, out=out, payload=x)
+    why_t = _table_unfit(mesh, x if wire is None else None, names, B,
+                         shard_axes, wire)
+    if on_card and not why_t and transport == "auto" and use_fused_kernel:
+        table = (_table or _TableSlot(mesh, names)).get(x)
+        src, w = round_tables(topo)
+        i = table.me
+        table.publish(x, _readers(src, i))
+        return table.combine([int(v) for v in src[:, i]],
+                             [float(v) for v in w[:, i]], out=out)
     if on_card and mesh.shared:
         raise ValueError(
             f"ranks share one card here ({first.device}), so there is no "
-            f"NCCL: only the fused peer-pointer ring carries their gossip, "
-            f"and it {why or 'needs use_fused_kernel=True'}")
+            f"NCCL: only the fused peer-pointer kernels carry their gossip; "
+            f"the ring {why or 'needs use_fused_kernel=True'}, the table "
+            f"{why_t or 'needs use_fused_kernel=True'}")
     permute_term = _make_permute_term(topo, mesh, names, sizes, split, B)
     weights = [float(t.weight) for t in topo.terms]
     if masked and B > 1:
@@ -736,7 +848,8 @@ def _check_round(topo) -> None:
 
 def _rank_mixer(topo: Topology, engine: str, mesh, shard_axes,
                 use_fused_kernel: bool, wire: Optional[WireCodec],
-                transport: str, peer: Optional[_PeerSlot]) -> Callable:
+                transport: str, peer: Optional[_PeerSlot],
+                table: Optional[_TableSlot] = None) -> Callable:
     """``mix(x, out=None)`` of one round across ranks (:func:`mix_ranks`);
     only the ppermute engine runs on ranks."""
     if engine != "ppermute":
@@ -751,10 +864,11 @@ def _rank_mixer(topo: Topology, engine: str, mesh, shard_axes,
         if why:
             raise ValueError(f"transport='ring_dma' {why}")
     peer = peer or _PeerSlot(mesh, names, B)
+    table = table or _TableSlot(mesh, names)
     return lambda x, out=None: mix_ranks(
         topo, mesh, x, agent_axes=axes, use_fused_kernel=use_fused_kernel,
         wire=wire, transport=transport, shard_axes=shard_axes, out=out,
-        _peer=peer)
+        _peer=peer, _table=table)
 
 
 def make_mixer(topo: Topology, engine: str = "shifts", *,
@@ -815,8 +929,10 @@ def make_schedule_mixer(sched: GossipSchedule, engine: str = "shifts", *,
     share one peer ring, and ``mix.payload_for_write(step, like)`` gives
     the buffer a step's payload should be written into (the peer ring's,
     once its neighbours have read the last; None when that step's round
-    does not run the peer ring on this device)."""
-    peer = None
+    does not run the peer ring on this device); its other rounds on the
+    card share one peer table.  ``mix.transports()`` lists the peer
+    transports made so far, ``mix.close()`` frees them (collective)."""
+    peer = table = None
     if mesh is not None:
         if engine != "ppermute":
             raise ValueError(f"gossip across ranks runs the ppermute engine, "
@@ -824,8 +940,10 @@ def make_schedule_mixer(sched: GossipSchedule, engine: str = "shifts", *,
         axes = gossip_agent_axes(mesh, sharded=shard_axes is not None)
         names, _, _, B = _agent_axis_info(sched.rounds[0], mesh, axes)
         peer = _PeerSlot(mesh, names, B)
+        table = _TableSlot(mesh, names)
         mixers = [_rank_mixer(r, engine, mesh, shard_axes, use_fused_kernel,
-                              wire, transport, peer) for r in sched.rounds]
+                              wire, transport, peer, table)
+                  for r in sched.rounds]
     else:
         mixers = [make_mixer(r, engine, agents_per_device=agents_per_device,
                              use_fused_kernel=use_fused_kernel, wire=wire,
@@ -850,6 +968,9 @@ def make_schedule_mixer(sched: GossipSchedule, engine: str = "shifts", *,
 
     mix.payload_for_write = payload_for_write
     mix.peer = peer
+    mix.transports = lambda: [t for t in (peer and peer.ring,
+                                          table and table.table) if t]
+    mix.close = lambda: [sl.close() for sl in (peer, table) if sl]
     return mix
 
 
@@ -871,7 +992,8 @@ def make_overlap_mixer(sched, engine: str = "ppermute", *,
                        agents_per_device: int = 1,
                        use_fused_kernel: bool = False,
                        wire: Optional[WireCodec] = None,
-                       transport: str = "auto"):
+                       transport: str = "auto", mesh=None,
+                       shard_axes: Optional[str] = None):
     """Phase-split schedule mixer of the overlapped gossip pipeline
     (DESIGN §6): returns ``(issue, complete)`` with ``complete(issue(x,
     step), step)`` equal to the synchronous ``make_schedule_mixer(...)(x,
@@ -909,6 +1031,18 @@ def make_overlap_mixer(sched, engine: str = "ppermute", *,
       fused combine's mix.  ``complete.prepare(step, late, device)``
       writes the step's tables into the device buffers, which a CUDA
       graph replay needs first (:mod:`repro_torch.train.graphs`).
+    * ``ppermute`` across ranks (``mesh``, the reference's ppermute
+      branch; :func:`_rank_overlap_mixer`): ``issue`` starts the round's
+      permutes of this rank's block, one a term and payload component
+      (:func:`_make_permute_start`), and returns them in flight; the
+      caller's backward pass runs while they travel; ``complete`` waits
+      on them, swaps each late slot for the self payload and combines
+      with this rank's weight column (``gossip_axpy`` or its q8 twin).
+      Ranks of one host on the card, f32, one agent a rank: ``issue``
+      publishes the payload into the peer table
+      (:class:`repro_torch.kernels.table_peer.PeerTable`, double
+      buffered) and ``complete`` waits for its sources and runs the ring
+      kernel (a ±1 ring round with no late slot) or the table kernel.
     """
     wire = _no_f32(wire)
     _check_transport(transport)
@@ -935,6 +1069,9 @@ def make_overlap_mixer(sched, engine: str = "ppermute", *,
     selves = tuple(self_index(r) for r in sched.rounds)
 
     if engine != "ppermute":
+        if mesh is not None:
+            raise ValueError(f"gossip across ranks runs the ppermute engine, "
+                             f"not {engine!r}")
         mix = make_schedule_mixer(sched, engine,
                                   agents_per_device=agents_per_device,
                                   use_fused_kernel=use_fused_kernel,
@@ -970,11 +1107,9 @@ def make_overlap_mixer(sched, engine: str = "ppermute", *,
         complete.prepare = lambda step, late, device: None
         return (lambda x, step=0: x), complete
 
-    if 1 <= agents_per_device < A and A % agents_per_device == 0:
-        raise NotImplementedError(
-            "the overlapped gossip pipeline across ranks (agents_per_device="
-            f"{agents_per_device} < {A} agents) is not ported yet "
-            "(ROADMAP.md §1 item 5)")
+    if mesh is not None:
+        return _rank_overlap_mixer(sched, K, selves, mesh, shard_axes,
+                                   use_fused_kernel, wire, transport)
     _one_device(A, agents_per_device)
     tables = _DeviceTables([round_tables(r, K) for r in sched.rounds])
     pads = [[(int(t.shift), float(t.weight)) for t in r.terms]
@@ -1015,6 +1150,138 @@ def make_overlap_mixer(sched, engine: str = "ppermute", *,
     return issue, complete
 
 
+@dataclasses.dataclass
+class _Issued:
+    """A round's payloads in flight across ranks: ``pending[k][c]`` is
+    slot k's payload component c (a weight-0 pad slot: the unpermuted
+    payload), or, with ``pending`` None, the payload published into the
+    peer table."""
+
+    round: int
+    pending: Optional[list] = None
+
+
+def _rank_overlap_mixer(sched: GossipSchedule, K: int, selves, mesh,
+                        shard_axes, use_fused_kernel: bool,
+                        wire: Optional[WireCodec], transport: str):
+    """:func:`make_overlap_mixer`'s ``(issue, complete)`` across ranks."""
+    axes = gossip_agent_axes(mesh, sharded=shard_axes is not None)
+    infos = [_agent_axis_info(r, mesh, axes) for r in sched.rounds]
+    names, sizes, _, B = infos[0]
+    if shard_axes is not None:
+        if shard_axes in names:
+            raise ValueError(f"shard axis {shard_axes!r} is an agent axis")
+        if B != 1:
+            raise ValueError("shard-resident gossip needs one agent per mesh "
+                             "slice")
+    if B != 1 and any(is_masked(r) for r in sched.rounds):
+        raise ValueError("masked overlap gossip needs one agent per rank "
+                         "(B = 1), as the reference's")
+    starts = [_make_permute_start(r, mesh, *info)
+              for r, info in zip(sched.rounds, infos)]
+    i = _flat_index(mesh, names, sizes)
+    tabs = [round_tables(r, K) for r in sched.rounds]
+    # this rank's weight column (the first agent's of its block: an
+    # unmasked round weighs every agent alike); pad slots weigh 0
+    cols = [[float(v) for v in w[:, i * B]] for _, w in tabs]
+    ring_terms = [[(int(t.shift), float(t.weight)) for t in r.terms]
+                  + [(0, 0.0)] * (K - len(r.terms)) for r in sched.rounds]
+    ringed = [not is_masked(r) and ring_dma.ring_plan(r) is not None
+              and K <= ring_dma.MAX_TERMS for r in sched.rounds]
+    table = _TableSlot(mesh, names)
+
+    def round_of(step) -> int:
+        return int(sched.round_index(int(step)))
+
+    def issue(x, step=0):
+        r = round_of(step)
+        first = x if wire is None else wire.payload_leaves(x)[0]
+        if first.device.type == "cuda":
+            why = _table_unfit(mesh, x if wire is None else None, names, B,
+                               shard_axes, wire)
+            if not why and transport == "auto" and use_fused_kernel:
+                table.get(x).publish(x, _readers(tabs[r][0], i))
+                coll.mark("peer publish")
+                return _Issued(r)
+            if mesh.shared:
+                raise ValueError(
+                    f"ranks share one card here ({first.device}), so there "
+                    "is no NCCL: only the fused peer-pointer kernels carry "
+                    f"their gossip, and the peer table "
+                    f"{why or 'needs use_fused_kernel=True'}")
+        comps = (x,) if wire is None else wire.payload_leaves(x)
+        nc = len(comps)
+        terms = sched.rounds[r].terms
+        pending = [[starts[r](c, t, k * nc + ci) for ci, c in enumerate(comps)]
+                   for k, t in enumerate(terms)]
+        pending += [[coll.Pending(c) for c in comps]
+                    for _ in range(K - len(terms))]
+        return _Issued(r, pending)
+
+    def complete(payloads: _Issued, step=0, late=None, out=None):
+        r = round_of(step)
+        if payloads.round != r:
+            raise ValueError(f"complete at round {r} of payloads issued at "
+                             f"round {payloads.round}")
+        late = _late_mask(late, K)
+        no_late = late is None or not late.any()
+        if payloads.pending is None:        # the peer table
+            src = tabs[r][0][:, i].copy()
+            if not no_late:
+                src[late] = i               # a late source is never read
+            coll.mark("peer combine")
+            return table.table.combine(
+                [int(v) for v in src], cols[r], out=out,
+                ring_terms=ring_terms[r] if ringed[r] and no_late else None)
+        slots = [[p.wait() for p in comp] for comp in payloads.pending]
+        if not no_late:
+            # the late slots take the round's self payload BEFORE the
+            # combine, under their own weights (the reference's order)
+            slots = [slots[selves[r]] if late[k] else sl
+                     for k, sl in enumerate(slots)]
+        if wire is None:
+            return _combine([sl[0] for sl in slots], cols[r],
+                            use_fused_kernel, out=out)
+        pays = [wire.payload_from_leaves(sl) for sl in slots]
+        if use_fused_kernel:
+            return kops.gossip_axpy_wire(pays, cols[r], fmt=wire.fmt,
+                                         block_rows=wire.block_rows, out=out)
+        return _combine([wire.decode(p) for p in pays], cols[r], False)
+
+    complete.n_terms = K
+    complete.self_index = selves
+    complete.transports = lambda: [t for t in (table.table,) if t]
+    complete.close = table.close
+    return issue, complete
+
+
+def rank_routes(sched: GossipSchedule, mesh, device, *,
+                use_fused_kernel: bool, wire: Optional[WireCodec] = None,
+                shard_axes: Optional[str] = None,
+                overlap: bool = False) -> List[str]:
+    """The gossip each round of ``sched`` takes across ranks on ``device``
+    (transport ``"auto"``): ``"ring_peer"`` (the peer ring kernel),
+    ``"table_peer"`` (the peer table kernel) or ``"permutes"`` (gloo on
+    the CPU, NCCL across cards; ranks that share one card raise there).
+    Under ``overlap`` a ring round's ring kernel runs on the peer table's
+    slots, and a round with a late slot takes the table kernel."""
+    wire = _no_f32(wire)
+    axes = gossip_agent_axes(mesh, sharded=shard_axes is not None)
+    out = []
+    for r in sched.rounds:
+        names, _, _, B = _agent_axis_info(r, mesh, axes)
+        table_ok = not _table_unfit(mesh, None, names, B, shard_axes, wire)
+        if torch.device(device).type != "cuda" or not use_fused_kernel:
+            out.append("permutes")
+        elif (table_ok and not is_masked(r) and ring_dma.ring_plan(r)
+              is not None) if overlap else not _peer_unfit(
+                  r, mesh, None, names, B, shard_axes, wire):
+            out.append("ring_peer")
+        else:
+            out.append("table_peer" if table_ok else "permutes")
+    return out
+
+
 def build_mixer(sched, *, mode: str = "schedule", engine: str = "shifts",
                 agents_per_device: int = 1, use_fused_kernel: bool = False,
                 wire: Optional[WireCodec] = None,
@@ -1026,9 +1293,8 @@ def build_mixer(sched, *, mode: str = "schedule", engine: str = "shifts",
     :class:`~repro_torch.core.schedule.GossipSchedule` (a bare topology
     is wrapped static) and returns ``mix(x, step=0)``; both take
     ``out=``; ``mode="overlap"`` returns the ``(issue, complete)`` pair of
-    :func:`make_overlap_mixer`.  ``mesh`` / ``shard_axes`` run the static
-    and schedule modes across ranks (:func:`mix_ranks`); the overlap mode
-    across ranks is not ported yet."""
+    :func:`make_overlap_mixer`.  ``mesh`` / ``shard_axes`` run every mode
+    across ranks (:func:`mix_ranks`, :func:`_rank_overlap_mixer`)."""
     kw = dict(agents_per_device=agents_per_device,
               use_fused_kernel=use_fused_kernel, wire=wire,
               transport=transport)
@@ -1049,11 +1315,7 @@ def build_mixer(sched, *, mode: str = "schedule", engine: str = "shifts",
     if mode == "schedule":
         return make_schedule_mixer(sched, engine, **kw, **rank_kw)
     if mode == "overlap":
-        if mesh is not None and mesh.size > 1:
-            raise NotImplementedError(
-                "the overlapped gossip pipeline across ranks is not ported "
-                "yet (ROADMAP.md §1 item 5)")
-        return make_overlap_mixer(sched, engine, **kw)
+        return make_overlap_mixer(sched, engine, **kw, **rank_kw)
     raise ValueError(f"unknown mixer mode: {mode!r} (expected 'static', "
                      "'schedule' or 'overlap')")
 
@@ -1092,7 +1354,8 @@ def encode_rows(wire: WireCodec, seg: torch.Tensor):
 
 def make_group_mixer(plans, *, engine: str = "ppermute",
                      agents_per_device: int = 1,
-                     use_fused_kernel: bool = False) -> Callable:
+                     use_fused_kernel: bool = False, mesh=None,
+                     shard_axes: Optional[str] = None) -> Callable:
     """Mixer of a policy-group bus (DESIGN §12): ``mix(bus, step=0,
     out=None) -> out``, the twin of the JAX package's
     ``make_group_mixer``.
@@ -1101,21 +1364,30 @@ def make_group_mixer(plans, *, engine: str = "ppermute",
     contiguous row ranges.  Per step:
 
     * an opt-out group (``gossip_every == 0`` or no schedule) builds no
-      mixer: its rows are copied from ``bus`` into ``out``;
+      mixer: its rows are copied from ``bus`` into ``out`` (across ranks it
+      makes no collective);
     * a ``gossip_every = k > 1`` group mixes on the steps with
       ``step % k == k − 1``, at round ``step // k`` of its schedule, and
-      is copied on the others;
+      is copied on the others (shipping nothing);
     * an every-step group mixes at round ``step``.
 
-    A mixing group runs the unmodified one-device engines
-    (:func:`make_schedule_mixer`) on its rows — the view ``bus[:, r0:r1]``,
-    or with a bf16 / int8 wire that view's stateless payload
-    (:func:`encode_rows`) — and they write its mix into ``out[:, r0:r1]``
-    (the ring, table and combine kernels read and write the rows in place;
-    any other result is copied there).  ``out`` (default: a new bus) may
-    alias no byte of ``bus``; no step concatenates a bus."""
+    A mixing group runs the unmodified engines (:func:`make_schedule_mixer`)
+    on its rows — the view ``bus[:, r0:r1]``, or with a bf16 / int8 wire
+    that view's stateless payload (:func:`encode_rows`) — and they write
+    its mix into ``out[:, r0:r1]`` (the ring, table and combine kernels
+    read and write the rows in place; any other result is copied there).
+    ``out`` (default: a new bus) may alias no byte of ``bus``; no step
+    concatenates a bus.
+
+    ``mesh`` / ``shard_axes`` run each group's schedule mixer across ranks
+    (:func:`mix_ranks`) on this rank's block: ``bus`` is the rank's ``(B,
+    rows, 128)`` agent block, or with ``shard_axes`` its row shard, whose
+    rows of each group (the group's range met with the shard's) mix as the
+    whole group's would — the gossip is row by row.  ``mix.transports()``
+    lists the peer transports the groups made, ``mix.close()`` frees them
+    (collective)."""
     plans = sorted(plans, key=lambda p: p.group.row)
-    segments = []       # (row, rows, mixer or None, wire, cadence)
+    groups = []         # (row, rows, mixer or None, wire, cadence)
     cursor = 0
     for plan in plans:
         g = plan.group
@@ -1127,19 +1399,29 @@ def make_group_mixer(plans, *, engine: str = "ppermute",
         if g.rows == 0:
             continue
         if g.gossip_every == 0 or plan.sched is None:
-            segments.append((g.row, g.rows, None, None, 0))
+            groups.append((g.row, g.rows, None, None, 0))
             continue
         wire = _no_f32(plan.wire)
         inner = make_schedule_mixer(plan.sched, engine,
                                     agents_per_device=agents_per_device,
                                     use_fused_kernel=use_fused_kernel,
-                                    wire=wire)
-        segments.append((g.row, g.rows, inner, wire, g.gossip_every))
+                                    wire=wire, mesh=mesh,
+                                    shard_axes=shard_axes)
+        groups.append((g.row, g.rows, inner, wire, g.gossip_every))
+    lo, total = 0, cursor
+    if mesh is not None and shard_axes is not None:
+        total = cursor // mesh.axis_size(shard_axes)
+        lo = mesh.axis_index(shard_axes) * total
+    segments = []       # the groups' rows of this block, block-relative
+    for row, rows, inner, wire, k in groups:
+        r0, r1 = max(row, lo), min(row + rows, lo + total)
+        if r1 > r0:
+            segments.append((r0 - lo, r1 - r0, inner, wire, k))
 
     def mix(bus: torch.Tensor, step: int = 0,
             out: Optional[torch.Tensor] = None) -> torch.Tensor:
-        if bus.dim() != 3 or bus.shape[1] != cursor:
-            raise ValueError(f"the group mixer takes (A, {cursor}, 128) "
+        if bus.dim() != 3 or bus.shape[1] != total:
+            raise ValueError(f"the group mixer takes (A, {total}, 128) "
                              f"buses, got {tuple(bus.shape)}")
         if out is None:
             out = torch.empty_like(bus)
@@ -1155,4 +1437,8 @@ def make_group_mixer(plans, *, engine: str = "ppermute",
                 dst.copy_(res)
         return out
 
+    inners = [g[2] for g in groups if g[2] is not None]
+    mix.transports = lambda: [t for m in inners
+                              for t in getattr(m, "transports", list)()]
+    mix.close = lambda: [m.close() for m in inners if hasattr(m, "close")]
     return mix

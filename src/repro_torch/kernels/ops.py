@@ -29,10 +29,12 @@ from .paged_prefill import paged_prefill_flat
 from .ring_dma import ring_combine_flat, ring_operands
 from .ring_peer import peer_operands, ring_peer_flat
 from .table_combine import table_combine_flat, table_operands
+from .table_peer import table_peer_flat, table_peer_operands
 
 __all__ = ["edm_update", "edm_update_tree", "edm_update_bus",
            "edm_update_bus_ef", "gossip_axpy", "gossip_axpy_wire",
            "ring_combine", "ring_peer", "table_combine", "table_combine_wire",
+           "table_peer",
            "flash_attention", "paged_attention",
            "paged_prefill_attention", "padded_size", "pack_leaf",
            "unpack_leaf", "launch_counts", "reset_launch_counts"]
@@ -254,6 +256,21 @@ def ring_peer(x_self: torch.Tensor, x_left: torch.Tensor,
     return ring_peer_flat(x_self, x_left, x_right, terms, n_ranks, out=out)
 
 
+def table_peer(payloads: Sequence[torch.Tensor], src: Sequence[int],
+               weights: Sequence[float], *,
+               out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The multi-rank source-table combine ``Σₖ wₖ · payloads[srcₖ]`` over
+    the payloads of the ranks of one host (``payloads[j]`` rank j's, peer
+    views in place: :class:`repro_torch.kernels.table_peer.PeerTable`):
+    one kernel launch on the card, the plain combine on the CPU; only the
+    payloads the table names are read."""
+    distinct, _ = table_peer_operands(payloads, src, weights, out)
+    if not _on_card(payloads[distinct[0]]):
+        val = ref.table_peer_ref(payloads, src, weights)
+        return val if out is None else out.copy_(val)
+    return table_peer_flat(payloads, src, weights, out=out)
+
+
 def table_combine(x: torch.Tensor, src: torch.Tensor, w: torch.Tensor, *,
                   out_dtype: Optional[torch.dtype] = None,
                   out: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -366,7 +383,8 @@ _COUNTED = {"edm_update": edm_update_flat, "gossip_axpy": gossip_axpy_flat,
             "paged_prefill": paged_prefill_flat,
             "ring_combine": ring_combine_flat,
             "ring_peer": ring_peer_flat,
-            "table_combine": table_combine_flat}
+            "table_combine": table_combine_flat,
+            "table_peer": table_peer_flat}
 
 
 def launch_counts() -> Dict[str, int]:

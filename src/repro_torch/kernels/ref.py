@@ -19,7 +19,8 @@ from repro_torch.models.attention import (_gather_pages, paged_prefill_sdpa,
                                           sdpa_ref)
 
 __all__ = ["edm_update_ref", "edm_update_ef_ref", "gossip_axpy_ref",
-           "ring_combine_ref", "table_combine_ref", "gossip_axpy_q8_ref", "wire_coefs",
+           "ring_combine_ref", "ring_peer_ref", "table_combine_ref",
+           "table_peer_ref", "gossip_axpy_q8_ref", "wire_coefs",
            "finite_absmax", "int8_scale_inv", "flash_attention_ref",
            "gather_pages", "paged_attention_ref",
            "paged_prefill_attention_ref"]
@@ -90,6 +91,18 @@ def ring_peer_ref(x_self: torch.Tensor, x_left: torch.Tensor,
         ops.append(x_self if n_ranks == 1 or s == 0
                    else x_left if s == 1 else x_right)
     return gossip_axpy_ref(ops, [w for _, w in terms])
+
+
+def table_peer_ref(payloads: Sequence[torch.Tensor], src: Sequence[int],
+                   weights: Sequence[float]) -> torch.Tensor:
+    """The multi-rank source-table combine on given payloads: term k's
+    operand is ``payloads[src[k]]`` (rank ``src[k]``'s payload; a late or
+    masked-out slot names the rank itself), then :func:`gossip_axpy_ref`
+    over them in table order — what the multi-rank ppermute engine
+    computes from its permuted copies.  Only the payloads the table names
+    are read."""
+    return gossip_axpy_ref([payloads[int(s)] for s in src],
+                           [float(w) for w in weights])
 
 
 def table_combine_ref(x: torch.Tensor, src, w,

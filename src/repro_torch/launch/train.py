@@ -24,7 +24,11 @@ degraded per liveness epoch (the header's schedule reads
 ``elastic(...)``, ``λ_prod`` is the worst epoch's, and one line per epoch
 gives its survivors, λ and modeled wire bytes);
 ``--overlap delayed`` runs the overlapped gossip pipeline (header
-``+overlap``), with or without ``--wire``.
+``+overlap``), with or without ``--wire``; ``--straggler PLAN`` (a path
+or inline JSON ``{"late": [[step, [slot, ...]], ...]}``, a
+:class:`~repro_torch.core.elastic.StragglerPlan` over the pipeline's
+payload slots) makes those slots late at those steps (header
+``straggler=``).
 ``--gossip-groups SPEC`` (a JSON list of group specs, or ``@file.json``)
 lays the bus out in policy groups, each gossiping on its own cadence,
 schedule and wire (DESIGN §12): the header's ``wire_bytes/step`` is the
@@ -60,11 +64,15 @@ agents, each over a pod of S row shards (the shard-resident mode)::
       --arch smollm_360m --smoke --agents pod --pods 2 --shards 2 \
       --gossip-engine ppermute --steps 2 --device cpu
 
-(``python -m torch.distributed.run`` is the same launcher.)  gloo on the
-CPU, NCCL on cards; ranks that share one card (more ranks than cards)
-gossip only through the peer-pointer ring kernel (``--topology ring
---fused-kernel``).  Rank 0 prints; the header names the rank grid and says
-when ranks share a card.  ``--ckpt`` gathers the state to rank 0, which
+(``python -m torch.distributed.run`` is the same launcher; ``--overlap
+delayed`` with ``--straggler``, and ``--gossip-groups``, run so too.)
+gloo on the CPU, NCCL on cards; ranks that share one card (more ranks than
+cards) gossip only through the peer-pointer kernels (``--fused-kernel``,
+one agent a rank, f32): the ring kernel on a ±1 ring round, the peer table
+kernel on any other round (an exponential hop, a masked or a late slot).
+Rank 0 prints; the header names the rank grid, says when ranks share a
+card, and which gossip the ranks take (``gossip=ring_peer``,
+``table_peer``, ``permutes``).  ``--ckpt`` gathers the state to rank 0, which
 writes the one-process file; ``--resume`` gives every rank its block of a
 file of either package.  The multi-rank step is eager.
 
@@ -90,6 +98,8 @@ import torch.distributed as dist
 
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.configs.base import RunConfig
+from repro_torch.core.elastic import StragglerPlan
+from repro_torch.core.mixing import rank_routes
 from repro_torch.core.schedule import (group_wire_bytes_per_step,
                                        wire_bytes_per_step)
 from repro_torch.core.wire import make_codec
@@ -134,6 +144,10 @@ def parser() -> argparse.ArgumentParser:
                     help="DropPlan (path or inline JSON): gossip over the "
                          "schedule degraded per liveness epoch, re-checked "
                          "against Assumption 1 per epoch")
+    ap.add_argument("--straggler", default="",
+                    help="--overlap delayed: late payload slots (path or "
+                         "inline JSON {\"late\": [[step, [slot, ...]], "
+                         "...]}), each degraded to self-weight")
     ap.add_argument("--resume", default="",
                     help="restore a train state saved by --ckpt (either "
                          "package; another agent count is resized)")
@@ -219,8 +233,15 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
         layout = bus_layout_for(model, n_agents, feats.groups,
                                 mesh.shards if mesh is not None else 1)
         codec = make_codec(feats.wire, layout.block_rows)
+    straggler = None
+    if args.straggler:
+        if not feats.overlap:
+            raise ValueError("--straggler goes with --overlap delayed")
+        straggler = StragglerPlan.from_json(
+            args.straggler, max(len(r.terms) for r in sched.rounds))
     step = build_train_step(model, run, sched,
                             use_fused_kernel=args.fused_kernel,
+                            straggler_plan=straggler,
                             pods=1 if pod else args.pods, device=device,
                             mesh=mesh, shard_axes=shard_axes)
     if step.group_plans is not None:
@@ -258,11 +279,18 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
             else "eager (tree path)")
     grid_str = ""
     if mesh is not None:
+        gossiping = ([(p.sched, p.wire) for p in step.group_plans
+                      if p.sched] if step.group_plans is not None
+                     else [(sched, codec if feats.packed_bus else None)])
+        routes = sorted({r for sc, wire in gossiping for r in rank_routes(
+            sc, mesh, device, use_fused_kernel=args.fused_kernel, wire=wire,
+            shard_axes=shard_axes, overlap=feats.overlap)})
         grid_str = (f" ranks={mesh.size} grid={mesh.shape} "
                     f"axes={','.join(mesh.axis_names)} "
                     f"agents_per_rank={mesh.agents_per_device} "
                     f"shards={mesh.shards} backend={mesh.backend}"
-                    + (f" (ranks share {device})" if mesh.shared else ""))
+                    + (f" (ranks share {device})" if mesh.shared else "")
+                    + f" gossip={'+'.join(routes)}")
     # --topology only feeds the static schedule; don't print it otherwise
     topo_str = (f"topo={args.topology} " if args.gossip_schedule == "static"
                 else "")
@@ -275,7 +303,9 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
           f"alg={args.algorithm} engine={args.gossip_engine}"
           f"{' +fused' if args.fused_kernel else ''}"
           f"{' +bus' if feats.packed_bus else ' +tree'}"
-          f"{' +overlap' if feats.overlap else ''} wire={feats.wire}"
+          f"{' +overlap' if feats.overlap else ''}"
+          f"{f' straggler={args.straggler}' if straggler else ''}"
+          f" wire={feats.wire}"
           f"{bytes_str} device={device} step={mode}{grid_str}"
           + ("" if groups is None else " groups=" + ",".join(
               f"{g['name']}:{g['rows']}r/k{g['gossip_every']}/{g['wire']}"

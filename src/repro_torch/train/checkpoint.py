@@ -246,15 +246,21 @@ def save_state_ranks(path: str, state: Mapping[str, Any], layout: BusLayout,
     """Save a multi-rank bus state (each rank its block, as
     :func:`repro_torch.train.init_state` ``mesh=`` makes it): every bus is
     gathered to rank 0, which writes the logical npz of the one-process
-    state (:func:`save_state`).  Collective over the mesh's ranks."""
-    if "pipeline" in state:
-        raise ValueError("the overlap pipeline does not run across ranks")
+    state (:func:`save_state`; an overlap pipeline as ``pipeline|phi|…``,
+    its live payload gathered, and ``pipeline|parity``).  Collective over
+    the mesh's ranks."""
     full = {"params": _gather_bus(state["params"], mesh, n_agents),
             "opt": {k: _gather_bus(v, mesh, n_agents)
                     for k, v in state["opt"].items()},
             "step": int(state["step"])}
+    pipe = state.get("pipeline")
+    if pipe is not None:
+        parity = int(pipe["parity"])
+        full["pipeline"] = {"parity": parity, "phi": _gather_bus(
+            pipe["slot"][parity], mesh, n_agents)}
     if mesh.rank == 0:
-        save_state(path, full, layout=layout)
+        # the live payload alone, as save_state writes a pipeline
+        save(path, full, layout=layout)
 
 
 def load_state_ranks(path: str, like: Mapping[str, Any], layout: BusLayout,
@@ -262,7 +268,9 @@ def load_state_ranks(path: str, like: Mapping[str, Any], layout: BusLayout,
                      device=None) -> Dict[str, Any]:
     """This rank's block of a saved state (a file of either package, from
     any number of ranks or row shards: the file is logical), into the
-    structure of ``like`` (this rank's state, on ``device`` or like's)."""
+    structure of ``like`` (this rank's state, on ``device`` or like's).
+    A pipeline comes back as :func:`load_state` restores one: the live
+    payload's block in both slots, the stored parity."""
     a0, B, shard, S = rank_block(mesh, n_agents, shard_axes)
     dev = device if device is not None else like["params"].device
     meta = lambda t: torch.empty((n_agents, layout.rows, LANE),  # noqa: E731
@@ -270,14 +278,23 @@ def load_state_ranks(path: str, like: Mapping[str, Any], layout: BusLayout,
     full_like = {"params": meta(like["params"]),
                  "opt": {k: meta(v) for k, v in like["opt"].items()},
                  "step": 0}
+    if "pipeline" in like:
+        full_like["pipeline"] = {"slot": torch.empty(
+            (1, n_agents, layout.rows, LANE), dtype=like["params"].dtype,
+            device="meta"), "parity": 0}
     full = load_state(path, full_like, layout=layout, device="cpu")
 
     def mine(bus):
         return rank_slice(bus, a0, B, shard, S).contiguous().to(dev)
 
-    return {"params": mine(full["params"]),
-            "opt": {k: mine(v) for k, v in full["opt"].items()},
-            "step": int(full["step"])}
+    out = {"params": mine(full["params"]),
+           "opt": {k: mine(v) for k, v in full["opt"].items()},
+           "step": int(full["step"])}
+    if "pipeline" in full:
+        phi = mine(full["pipeline"]["slot"][0])
+        out["pipeline"] = {"slot": torch.stack([phi, phi]),
+                           "parity": full["pipeline"]["parity"]}
+    return out
 
 
 # ---------------------------------------------------------------------------

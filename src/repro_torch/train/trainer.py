@@ -36,10 +36,10 @@ payload), the error-feedback gossip wire (bus only) and the overlapped
 gossip pipeline (``overlap="delayed"``, bus only) with straggler plans,
 and policy groups (``gossip_groups``, bus only: per-group cadence,
 schedule and stateless wire over one bus, DESIGN §12).  Across ranks: the
-synchronous bus step with any schedule, churn, the EF wire and
-``gossip_every``, one agent or a block of agents a rank, or
-``agents="pod"`` with row shards; the overlapped pipeline, policy groups
-and the tree path across ranks are listed in ROADMAP.md §1 item 5.
+bus step with any schedule, churn, the EF wire and ``gossip_every``, the
+overlapped pipeline with straggler plans, and policy groups, one agent or
+a block of agents a rank, or ``agents="pod"`` with row shards; the tree
+path across ranks is listed in ROADMAP.md §1 item 5.
 """
 from __future__ import annotations
 
@@ -384,7 +384,10 @@ def _rank_state(model: Model, run: RunConfig, n_agents: int, seed: int,
     opt_state = make_edm_bus(run.alpha, run.beta, mix=lambda t: t).init(x)
     if feats.wire != "f32":
         opt_state["e"] = torch.zeros_like(x)
-    return {"params": x, "opt": opt_state, "step": 0}
+    state = {"params": x, "opt": opt_state, "step": 0}
+    if feats.overlap:
+        state["pipeline"] = parambus.make_pipeline(x)
+    return state
 
 
 def _check_rank_features(feats: Features, run: RunConfig, mesh) -> None:
@@ -392,10 +395,6 @@ def _check_rank_features(feats: Features, run: RunConfig, mesh) -> None:
     if not feats.packed_bus:
         _not_ported("the tree path across ranks (packed_bus=False or an "
                     "algorithm other than edm)")
-    if feats.overlap:
-        _not_ported("the overlapped gossip pipeline across ranks")
-    if feats.groups:
-        _not_ported("policy groups across ranks (gossip_groups)")
     if run.gossip_engine != "ppermute":
         raise ValueError(f"gossip across ranks runs the ppermute engine, "
                          f"got gossip_engine={run.gossip_engine!r}")
@@ -609,10 +608,17 @@ def build_train_step(model: Model, run: RunConfig, topo,
     of its agent's bus, the forward and backward run on the agent's bus
     all-gathered along that axis, and each shard keeps its own rows of the
     gradient.  The metrics are all-reduced (loss, consensus, gradient
-    norm); ``agent_losses`` holds every agent's loss.  The multi-rank step
-    is eager (``train_step.static`` is None); the overlapped pipeline,
-    policy groups and the tree path across ranks raise
-    ``NotImplementedError``.
+    norm); ``agent_losses`` holds every agent's loss.  The overlapped
+    pipeline across ranks starts the round's permutes (or publishes into
+    the peer table, on the card) before the rank's forward and backward
+    pass and waits on them after it (the recorder's ``backward`` /
+    ``backward done`` marks bracket the pass); a straggler plan's late
+    slots degrade to self-weight on every rank.  Policy groups run each
+    group's schedule mixer across ranks on the rank's rows of the group.
+    The multi-rank step is eager (``train_step.static`` is None);
+    ``train_step.transports()`` lists the peer transports its mixers made
+    and ``train_step.close()`` frees them (collective).  The tree path
+    across ranks raises ``NotImplementedError``.
     """
     dev = resolve_device(device)
     feats = resolve_features(run)
@@ -623,8 +629,6 @@ def build_train_step(model: Model, run: RunConfig, topo,
         if (run.agents == "pod") != (shard_axes is not None):
             raise ValueError("agents='pod' runs with shard_axes= (the mesh's "
                              "row-shard axis) and agents='data' without")
-        if straggler_plan is not None:
-            _not_ported("straggler plans across ranks")
         a0, B, shard, S = rank_block(mesh, A, shard_axes)
         agent_comm = axes_group(mesh, gossip_agent_axes(
             mesh, sharded=shard_axes is not None))
@@ -659,7 +663,8 @@ def build_train_step(model: Model, run: RunConfig, topo,
             else StaticSchedule(topo), pods)
         mix = make_group_mixer(plans, engine=run.gossip_engine,
                                agents_per_device=run.agents_per_device,
-                               use_fused_kernel=use_fused_kernel)
+                               use_fused_kernel=use_fused_kernel,
+                               mesh=mesh, shard_axes=shard_axes)
         gossiping = [p for p in plans if p.sched is not None]
     else:
         mix = build_mixer(topo, mode="schedule", **mix_kw)
@@ -702,7 +707,8 @@ def build_train_step(model: Model, run: RunConfig, topo,
                             functools.partial(mix, step=g_step),
                             run.gossip_dtype))
             phi_out = None
-            if mesh is not None and _is_f32(run.gossip_dtype):
+            if mesh is not None and _is_f32(run.gossip_dtype) \
+                    and not grouped:
                 # the peer ring's shared payload, once read (None: not
                 # this step's transport)
                 phi_out = functools.partial(mix.payload_for_write, g_step)
@@ -803,9 +809,11 @@ def build_train_step(model: Model, run: RunConfig, topo,
             payload = (phi if codec is None
                        else _encode_ef_agents(codec, phi, opt_state["e"]))
             payloads = issue(payload, step)
-        # COMPUTE: gradients at the pre-mix local iterate φ(t)
-        losses, grads = losses_and_grads(model, layout, phi, batch,
-                                         grad_map(step, lr_scale), **remat)
+        # COMPUTE: gradients at the pre-mix local iterate φ(t), while the
+        # payloads travel (the recorder's marks bracket the pass)
+        coll.mark("backward")
+        losses, grads = grads_at(phi, batch, step, lr_scale)
+        coll.mark("backward done")
         with torch.no_grad():
             # COMPLETE: the combine x(t) = W(t) φ̃(t), late slots at
             # self-weight; then the local EDM update, φ(t+1) into the spare
@@ -816,9 +824,7 @@ def build_train_step(model: Model, run: RunConfig, topo,
             m_new, psi_new, _ = update(
                 x_mixed, grads, m, psi, alpha=run.alpha, beta=run.beta,
                 out=(m, psi, parambus.pipeline_spare(pipe)))
-            metrics = {"loss": losses.mean(),
-                       "consensus": bus_consensus(x_mixed),
-                       "grad_norm": bus_grad_norm(grads)}
+            metrics = step_metrics(losses, x_mixed, grads)
         new_opt = {**opt_state, "m": m_new, "psi": psi_new}
         return x_mixed, new_opt, metrics
 
@@ -883,6 +889,9 @@ def build_train_step(model: Model, run: RunConfig, topo,
         static_prepare if feats.overlap else None)
         if feats.packed_bus and mesh is None else None)
     train_step.group_plans = plans if grouped else None
-    peer = mix.peer if mesh is not None else None
+    mixer = complete if feats.overlap else mix
+    peer = getattr(mixer, "peer", None) if mesh is not None else None
     train_step.peer_ring = lambda: None if peer is None else peer.ring
+    train_step.transports = getattr(mixer, "transports", list)
+    train_step.close = getattr(mixer, "close", lambda: None)
     return train_step

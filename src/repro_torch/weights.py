@@ -152,15 +152,21 @@ def rank_state_from_arrays(state: Mapping[str, Any], a0: int, B: int,
                            device="cpu") -> Dict[str, Any]:
     """A bus train state of numpy arrays (the JAX package's ``init_state``
     or train step, at ``shards`` 1 or S) sliced to one rank's block
-    (:func:`rank_slice`: agents ``[a0, a0 + B)``, row shard ``shard``) and
-    carried as :func:`train_state_from_arrays` carries a whole state: the
-    state a multi-rank step of the port takes on that rank."""
-    if isinstance(state["params"], Mapping) or "pipeline" in state:
-        raise ValueError("a rank's block is taken of a bus state without a "
-                         "pipeline")
-    return train_state_from_arrays(
-        {"params": rank_slice(np.asarray(state["params"]), a0, B, shard,
-                              shards),
-         "opt": {k: rank_slice(np.asarray(v), a0, B, shard, shards)
-                 for k, v in state["opt"].items()},
-         "step": state["step"]}, device)
+    (:func:`rank_slice`: agents ``[a0, a0 + B)``, row shard ``shard``; an
+    overlap pipeline's slots each so) and carried as
+    :func:`train_state_from_arrays` carries a whole state: the state a
+    multi-rank step of the port takes on that rank."""
+    if isinstance(state["params"], Mapping):
+        raise ValueError("a rank's block is taken of a bus state")
+    out = {"params": rank_slice(np.asarray(state["params"]), a0, B, shard,
+                                shards),
+           "opt": {k: rank_slice(np.asarray(v), a0, B, shard, shards)
+                   for k, v in state["opt"].items()},
+           "step": state["step"]}
+    if "pipeline" in state:
+        slot = np.asarray(state["pipeline"]["slot"])
+        out["pipeline"] = {
+            "slot": np.stack([rank_slice(s, a0, B, shard, shards)
+                              for s in slot]),
+            "parity": state["pipeline"]["parity"]}
+    return train_state_from_arrays(out, device)

@@ -1728,3 +1728,152 @@ def test_cuda_ring_peer_flag_timeout_raises(cuda, tmp_path):
     recs = _ring_peer_check(tmp_path, 2, timeout=2.0, timeout_case=True)
     assert recs[0]["ok"], recs[0]
     assert "waited more than 2 s" in recs[0]["raised"]
+
+
+# ---------------------------------------------------------------------------
+# the peer-pointer source table (kernel 2's multi-rank table form)
+# ---------------------------------------------------------------------------
+
+TABLE_CASES = ("ring", "exp", "late", "masked")
+
+
+def _table_round(case, rank, world):
+    """Rank ``rank``'s ``(src, weights)`` column of a round, and the ring
+    kernel's terms when it runs that round: a ±1 ring (the ring kernel), an
+    exponential hop, the ring with every term that reads rank 0 late (its
+    source set to the rank itself; rank 0's payload is NaN that epoch), the
+    ring with rank ``world − 1`` down (masked: its terms and its
+    neighbours' terms that read it point at the reader)."""
+    left, right = (rank - 1) % world, (rank + 1) % world
+    w = [1 / 3, 1 / 3, 1 / 3]
+    if case == "ring":
+        return [rank, left, right], w, list(RING_W)
+    if case == "exp":
+        return [rank, (rank - 2) % world, rank], [0.5, 0.5, 0.0], None
+    if case == "late":
+        src = [rank if s == 0 and rank != 0 else s
+               for s in (rank, left, right)]
+        return src, w, None
+    dead = world - 1
+    if rank == dead:
+        return [rank], [1.0], None
+    return [rank if s == dead else s for s in (rank, left, right)], w, None
+
+
+def _table_rank(rank, world, rows, timeout, timeout_case, d):
+    """One rank of :func:`_table_peer_check` (a spawned process): a
+    ``PeerTable`` on the card, handles exchanged over gloo, one epoch of
+    each of ``TABLE_CASES`` (publish, then combine), its output against the
+    plain version on the payloads it names, bit for bit (a NaN matching a
+    NaN; past element 2³¹ the first and last 4096 rows); in the ``late``
+    epoch rank 0's payload is all NaN and no other rank may read it (their
+    outputs finite).  ``timeout_case``: rank 1 never publishes, rank 0's
+    wait must time out and raise."""
+    import json
+    from pathlib import Path
+    import torch.distributed as dist
+    from repro_torch.kernels.table_peer import PeerTable
+    from repro_torch.launch.mesh import init_distributed
+    dev = init_distributed("cuda", init_method=f"file://{d}/store",
+                           rank=rank, world_size=world, timeout_s=300)
+    shape = (1, rows, 128)
+    table = PeerTable(shape, dev, rank, world, timeout_s=timeout)
+    handles = [None] * world
+    dist.all_gather_object(handles, table.handle)
+    table.open(handles)
+    rec = {"rank": rank, "ok": True, "finite": True}
+    specials = rows * 128 < (1 << 31)
+    if timeout_case:
+        if rank == 0:
+            src, w, _ = _table_round("ring", rank, world)
+            _peer_fill(table.slot_for_write(range(world)), rank, 0, specials)
+            table.publish(None, range(world))
+            try:
+                table.combine(src, w)
+                rec.update(ok=False, error="no timeout")
+            except RuntimeError as err:
+                rec["raised"] = str(err)
+                rec["ok"] = "waited more than" in str(err)
+    else:
+        out = torch.empty(shape, device=dev)
+        spans = ([(0, rows)] if specials else
+                 [(0, PEER_EDGE_ROWS), (rows - PEER_EDGE_ROWS, rows)])
+        for epoch, case in enumerate(TABLE_CASES):
+            poisoned = case == "late"
+            slot = table.slot_for_write(range(world))
+            if poisoned and rank == 0:
+                slot.fill_(float("nan"))
+            else:
+                _peer_fill(slot, rank, epoch, specials)
+            table.publish(None, range(world))
+            src, w, ring_terms = _table_round(case, rank, world)
+            table.combine(src, w, out=out, ring_terms=ring_terms)
+            for r0, r1 in spans:
+                s, e = r0 * 128, r1 * 128
+                pays = [torch.full((1, (e - s) // 128, 128), float("nan"),
+                                   device=dev) if poisoned and r == 0
+                        else _peer_payload_at(s, e, r, epoch, dev,
+                                              specials).view(1, -1, 128)
+                        for r in range(world)]
+                want = ref.table_peer_ref(pays, src, w)
+                got = out[:, r0:r1]
+                same = bool(((got.view(torch.int32) == want.view(torch.int32))
+                             | (torch.isnan(got) & torch.isnan(want))).all())
+                rec["ok"] &= same
+                if poisoned and rank != 0:
+                    rec["finite"] &= not bool(torch.isnan(got).all(-1).any())
+        rec["epochs"] = table.epoch
+        counts = ops.launch_counts()
+        rec["launches"] = [counts["table_peer"], counts["ring_peer"]]
+    torch.cuda.synchronize()
+    dist.barrier()
+    table.close()
+    Path(d, f"rank{rank}.json").write_text(json.dumps(rec))
+    dist.destroy_process_group()
+
+
+def _table_peer_check(tmp_path, ranks, rows=2048, timeout=60.0,
+                      timeout_case=False):
+    """``ranks`` spawned processes on the card, one peer table: each rank's
+    record (:func:`_table_rank`)."""
+    import json
+    import torch.multiprocessing as mp
+    from repro_torch.kernels import build
+    build.build_all()
+    mp.spawn(_table_rank, args=(ranks, rows, timeout, timeout_case,
+                                str(tmp_path)), nprocs=ranks, join=True)
+    return [json.loads((tmp_path / f"rank{r}.json").read_text())
+            for r in range(ranks)]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("ranks", [2, 4])
+def test_cuda_table_peer_bit_equal_to_plain(cuda, tmp_path, ranks):
+    """A ring round (the ring kernel on the table's slots), an exponential
+    hop, a late round and a masked round, each rank's output against the
+    plain version on the payloads it names (NaN, ±Inf among them), bit for
+    bit; a late source's NaN payload is never read; one launch a rank an
+    epoch."""
+    recs = _table_peer_check(tmp_path, ranks)
+    assert len(recs) == ranks
+    for r in recs:
+        assert r["ok"] and r["finite"], r
+        assert r["epochs"] == len(TABLE_CASES), r
+        assert r["launches"] == [len(TABLE_CASES) - 1, 1], r
+
+
+@pytest.mark.requires_cuda
+def test_cuda_table_peer_past_element_2_31(cuda, tmp_path):
+    """A payload of 2³¹ + 2¹⁸ elements a rank: the first and last 4096
+    rows of every round bit-equal to the plain version."""
+    for r in _table_peer_check(tmp_path, 2, rows=16779264):
+        assert r["ok"] and r["finite"], r
+
+
+@pytest.mark.requires_cuda
+def test_cuda_table_peer_flag_timeout_raises(cuda, tmp_path):
+    """A rank that never publishes its payload: a reader's bounded wait
+    times out and the combine raises instead of hanging."""
+    recs = _table_peer_check(tmp_path, 2, timeout=2.0, timeout_case=True)
+    assert recs[0]["ok"], recs[0]
+    assert "waited more than 2 s" in recs[0]["raised"]

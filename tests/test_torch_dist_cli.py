@@ -1,9 +1,10 @@
 """The train CLI across ranks under ``torchrun --standalone`` on the CPU
-(gloo): ``--agents 4 --agents-per-device 1`` and ``--agents pod --pods 2
---shards 2``.  Each run's ``--ckpt`` (gathered to rank 0) equals, array by
-array, the one-process CLI run's of the same agents, steps and tokens; a
-multi-rank ``--resume`` of the one-process file continues as the
-one-process resume does.  The JAX side of these paths is held in
+(gloo): ``--agents 4 --agents-per-device 1``, ``--agents pod --pods 2
+--shards 2`` and ``--overlap delayed`` with a ``--straggler`` plan.  Each
+run's ``--ckpt`` (gathered to rank 0; the overlap's with its pipeline)
+equals, array by array, the one-process CLI run's of the same agents,
+steps and tokens; a multi-rank ``--resume`` of the one-process file
+continues as the one-process resume does.  The JAX side of these paths is held in
 ``tests/test_torch_dist_train.py``."""
 import os
 import subprocess
@@ -21,6 +22,9 @@ torch.set_num_threads(1)  # xdist workers share the cores
 ROOT = Path(__file__).resolve().parents[1]
 BASE = ["--arch", "smollm_360m", "--smoke", "--gossip-engine", "ppermute",
         "--fused-kernel", "--seq", "16", "--device", "cpu"]
+# the overlap run: ring slot 1 late at step 1 (K = 3: self, left, right)
+OVERLAP = ["--agents", "4", "--overlap", "delayed", "--straggler",
+           '{"late": [[1, [1]]]}', "--steps", "2"]
 
 
 def _torchrun(args, n=4):
@@ -51,6 +55,8 @@ def one_process(tmp_path_factory):
     tcli.main(BASE + ["--agents", "4", "--agents-per-device", "4",
                       "--steps", "1", "--resume", str(d / "one4.npz"),
                       "--ckpt", str(d / "one4_resumed.npz")])
+    tcli.main(BASE + OVERLAP + ["--agents-per-device", "4",
+                                "--ckpt", str(d / "one_overlap.npz")])
     return d
 
 
@@ -74,6 +80,18 @@ def test_cli_pod_agents_equal_one_process(one_process):
                      "--steps", "2", "--ckpt", str(d / "pod.npz")])
     assert "agents=2x2shards" in out and "grid=(2, 2) axes=pod,data" in out
     _same_files(d / "pod.npz", d / "one2.npz")
+
+
+def test_cli_overlap_with_straggler_four_ranks_equals_one_process(
+        one_process):
+    d = one_process
+    out = _torchrun(OVERLAP + ["--agents-per-device", "1",
+                               "--ckpt", str(d / "ranks_overlap.npz")])
+    assert "+overlap straggler=" in out and "gossip=permutes" in out
+    assert out.count("step ") == 2
+    _same_files(d / "ranks_overlap.npz", d / "one_overlap.npz")
+    with np.load(d / "ranks_overlap.npz") as f:
+        assert int(f["pipeline|parity"]) == 0
 
 
 def test_cli_ranked_run_needs_torchrun():

@@ -372,11 +372,12 @@ def test_every_case_ran_on_its_ranks(results):
 
 def test_rank_mixer_refuses_what_ranks_do_not_run():
     # the dense and shifts engines do not run across ranks; a mesh-less
-    # ppermute engine with agents spread over devices points at mesh=
+    # ppermute engine (the overlap mixer too) with agents spread over
+    # devices points at mesh=
     with pytest.raises(ValueError, match="mesh="):
         tmix.mix_ppermute(ttopo.ring(4), torch.zeros(4, 8, 128),
                           agents_per_device=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="mesh="):
         tmix.make_overlap_mixer(ttopo.ring(4), "ppermute",
                                 agents_per_device=2)
 

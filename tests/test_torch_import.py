@@ -154,16 +154,24 @@ def test_serve_cli_without_device_raises_without_gpu(no_gpu, flags):
 
 
 def test_unported_levers_raise():
+    from repro_torch.core.comm import GossipMesh
     model = build_model(get_smoke_config("smollm_360m"))
-    # the overlapped pipeline across two devices is multi-GPU gossip
-    for kw in (dict(overlap="delayed", agents_per_device=2),):
+    # the tree path across ranks is not ported (a hand-built grid: the
+    # refusal comes before any collective)
+    grid = GossipMesh((4,), ("data",), 4, 1, 1, 0, (0,), ((0, 1, 2, 3),),
+                      (None,), None, None, torch.device("cpu"), "gloo",
+                      False, ("h0",) * 4)
+    run = RunConfig(gossip_engine="ppermute", agents_per_device=1,
+                    packed_bus=False)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_train_step(model, run, ring(4), device="cpu", mesh=grid)
+    # pod agents and the overlapped pipeline over two devices are ported:
+    # they run across ranks, so they need a mesh
+    for kw in (dict(agents="pod"),
+               dict(overlap="delayed", agents_per_device=2)):
         run = RunConfig(**{"gossip_engine": "ppermute", **kw})
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match="mesh="):
             build_train_step(model, run, ring(4), device="cpu")
-    # pod agents are ported: they run across ranks, so they need a mesh
-    run = RunConfig(gossip_engine="ppermute", agents="pod")
-    with pytest.raises(ValueError, match="mesh="):
-        build_train_step(model, run, ring(4), device="cpu")
     # ported since: the tree path (shifts engine), the gossip_dtype cast,
     # the LR schedule and the overlap pipeline build
     for kw in (dict(gossip_engine="shifts"), dict(gossip_dtype="bfloat16"),
