@@ -334,8 +334,26 @@ Phases, in order; any failure raises and the script exits non-zero:
    publish before each step's forward and backward pass and the combine
    after; no flag wait timed out.  The bf16 / int8 wires across ranks are
    not run on one card (the CPU tests hold them over gloo).
+27. the tree path across ranks, in phase 25's ranks after 26: one agent
+   of ``smollm_360m`` a rank at full width and depth (its 12 bf16 tree
+   leaves), ``packed_bus=False``, fused kernels, eager, (a) 2 EDM steps on
+   the ring: the rank's leaves packed into one f32 payload
+   (``core/mixing.py::TreePayload``) through the peer ring; (b) 2 DSGT
+   steps on ``round_robin`` over ``exp`` (two mixes a step, y and x): the
+   offset-1 round through the peer ring, the offset-2 round through the
+   peer table.  Gates: per-agent losses and the per-agent digests of
+   every leaf of x and of every optimizer slot bit-equal to one-process
+   4-agent fused eager tree runs of the same steps (one ``gossip_axpy``
+   a leaf there); consensus and gradient norm within rtol 1e-5 of them
+   (the sums run in another order); launches a rank a step exactly (a)
+   12 ``edm_update`` + 1 ``ring_peer``, (b) 2 ``ring_peer`` at step 0 and
+   2 ``table_peer`` at step 1, no ``edm_update``; rank 0's profiled last
+   step of each holds no roll; no flag wait timed out.  B > 1 a rank and
+   the wires across ranks are not run on one card (the CPU tests hold
+   them over gloo).
 
-Phases run in the order 1–3, 3w, 3r, 3m, 3f, 25–26 (26 in 25's ranks),
+Phases run in the order 1–3, 3w, 3r, 3m, 3f, 25–27 (26 and 27 in 25's
+ranks),
 4–6, 4r, 6r, 4g, 4w–6w, 12, 13, 14, 4t–6t, 7–11, 15–24; a ``[time]``
 line before each gives the seconds since the start and those of the
 phase before, and the memory this process still holds on the card.  The third
@@ -4050,16 +4068,25 @@ RANK_GROUPS = json.dumps([
     {"name": "rest", "gossip_every": 2, "schedule": "round_robin"}])
 # phase 26 (c): the rounds the peer table kernel is held and timed on
 TABLE_CASES = ("ring", "exp", "late", "masked")
+# phase 27: the tree path across ranks, (a) EDM on the ring, (b) DSGT on
+# round_robin over exp (its offset-1 round through the peer ring, its
+# offset-2 round through the peer table), TREE_STEPS steps each
+TREE_STEPS = 2
+TREE_RUNS = {"edm": dict(packed_bus=False),
+             "dsgt": dict(algorithm="dsgt", packed_bus=False,
+                          topology="exp", gossip_schedule="round_robin")}
 
 
 def bus_digest(t) -> list:
-    """Two 64-bit digests of a bus's bits: the sum of its int32 words, and
-    their sum weighted by an odd hash of each word's position (wrapping,
-    so the order of the additions does not matter) — what phase 26 holds
-    a rank's bus to, so that no full one-process bus need stay on the card
+    """Two 64-bit digests of a bus's (or a tree leaf's) bits: the sum of
+    its words (int32, or int16 for a 2-byte dtype), and their sum weighted
+    by an odd hash of each word's position (wrapping, so the order of the
+    additions does not matter) — what phases 26 and 27 hold a rank's
+    buffers to, so that no full one-process state need stay on the card
     beside the four ranks."""
     import torch
-    flat = t.detach().reshape(-1).view(torch.int32)
+    flat = t.detach().reshape(-1).view(
+        torch.int16 if t.element_size() == 2 else torch.int32)
     s1 = s2 = 0
     chunk = 1 << 24
     for i in range(0, flat.numel(), chunk):
@@ -4073,8 +4100,14 @@ def bus_digest(t) -> list:
 
 
 def rank_bufs(state) -> dict:
-    """The buses phase 26 compares: x, m, ψ and, under the overlap, the
-    pipeline's live slot."""
+    """The buffers phases 26 and 27 compare: on the bus x, m, ψ and, under
+    the overlap, the pipeline's live slot; on the tree every leaf of x and
+    of every optimizer slot (``x|<path>``, ``<slot>|<path>``)."""
+    if isinstance(state["params"], dict):
+        out = {f"x|{p}": v for p, v in state["params"].items()}
+        for slot, tree in state["opt"].items():
+            out.update({f"{slot}|{p}": v for p, v in tree.items()})
+        return out
     out = {"x": state["params"], "m": state["opt"]["m"],
            "psi": state["opt"]["psi"]}
     pipe = state.get("pipeline")
@@ -4085,41 +4118,50 @@ def rank_bufs(state) -> dict:
 
 def one_process_run(model, run, batches, plan=None, digests=False):
     """A one-process 4-agent eager run of ``run`` on the card under
-    deterministic algorithms, the references of phases 25 and 26: the
-    per-step per-agent losses (read off the trainer's ``losses_and_grads``),
-    the step seconds, the launches, and the final buses (phase 25: x and
-    ψ, kept on the card for the ranks) or their per-agent digests."""
+    deterministic algorithms, the references of phases 25–27: the
+    per-step per-agent losses (read off the trainer's ``losses_and_grads``
+    or, on the tree, ``tree_losses_and_grads``), the metrics, the step
+    seconds, the launches, and the final buses (phase 25: x and ψ, kept on
+    the card for the ranks) or the per-agent digests of every buffer
+    (:func:`rank_bufs`)."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.train import (build_train_step, init_state,
                                    make_gossip_schedule)
     from repro_torch.train import trainer
     seen = []
-    inner = trainer.losses_and_grads
+    inner, tinner = trainer.losses_and_grads, trainer.tree_losses_and_grads
 
-    def spy(*a, **k):
-        losses, g = inner(*a, **k)
-        seen.append(losses.tolist())
-        return losses, g
+    def spy_of(fn):
+        def spy(*a, **k):
+            losses, g = fn(*a, **k)
+            seen.append(losses.tolist())
+            return losses, g
+        return spy
 
     state = init_state(model, run, AGENTS, seed=0, device="cuda")
     step = build_train_step(model, run, make_gossip_schedule(run, AGENTS),
                             use_fused_kernel=True, device="cuda",
                             straggler_plan=plan)
-    secs = []
-    trainer.losses_and_grads = spy
+    secs, metrics = [], []
+    trainer.losses_and_grads = spy_of(inner)
+    trainer.tree_losses_and_grads = spy_of(tinner)
     ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
     torch.use_deterministic_algorithms(True)
     try:
         for b in batches:
             t0 = time.perf_counter()
             state, m = step(state, {k: v.cuda() for k, v in b.items()})
-            float(m["loss"])
+            metrics.append({k: float(m[k]) for k in ("loss", "consensus",
+                                                     "grad_norm")})
             secs.append(time.perf_counter() - t0)
     finally:
         trainer.losses_and_grads = inner
+        trainer.tree_losses_and_grads = tinner
         torch.use_deterministic_algorithms(False)
-    out = {"losses": seen, "seconds": secs,
+    out = {"losses": seen, "seconds": secs, "metrics": metrics,
+           "peak_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
            "launches": {k: v for k, v in ops.launch_counts().items() if v}}
     if digests:
         out["digests"] = {k: [bus_digest(v[a]) for a in range(AGENTS)]
@@ -4151,31 +4193,51 @@ def table_round(case, rank, world):
     return [rank if s == dead else s for s in (rank, left, right)], w
 
 
-def rank_steps(step, state, batches, mesh, rec, tag):
-    """Phase 26's driven run on one rank: the launch counts set to 0, the
-    steps (the recorder's marks each step: the peer publish before the
-    forward and backward pass, the combine after), the counts read."""
+def rank_steps(step, state, batches, mesh, rec, tag, profile_last=False):
+    """Phases 26 and 27's driven run on one rank: the launch counts set to
+    0, the steps (the recorder's marks each step: the peer publish before
+    the forward and backward pass, the combine after; each step's launches
+    and metrics), the counts read; ``profile_last``: the last step under
+    ``torch.profiler`` (its training kernels and roll bucket)."""
     import torch
     import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import comm
     from repro_torch.kernels import ops
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     torch.use_deterministic_algorithms(True)
-    losses, secs, order = [], [], []
-    for b in batches:
+    losses, secs, order, per_step, prof_rows = [], [], [], [], None
+    for t, b in enumerate(batches):
         b = {k: v.cuda() for k, v in b.items()}
         dist.barrier(group=mesh.control)
+        before = ops.launch_counts()
         t0 = time.perf_counter()
         with comm.recording() as log:
-            state, m = step(state, b)
+            if profile_last and t == len(batches) - 1:
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    state, m = step(state, b)
+                    settle()
+                prof_rows = device_rows(prof)
+            else:
+                state, m = step(state, b)
         losses.append(m["agent_losses"].tolist())
         rec.setdefault(f"{tag}_loss", []).append(float(m["loss"]))
         secs.append(time.perf_counter() - t0)
+        rec.setdefault(f"{tag}_metrics", []).append(
+            {k: float(m[k]) for k in ("loss", "consensus", "grad_norm")})
+        per_step.append({k: v - before[k] for k, v in
+                         ops.launch_counts().items() if v - before[k]})
         order.append([n for n, _ in sorted(log.marks, key=lambda t: t[1])])
     torch.use_deterministic_algorithms(False)
     rec[f"{tag}_launches"] = {k: v for k, v in ops.launch_counts().items()
                               if v}
+    rec[f"{tag}_step_launches"] = per_step
+    if prof_rows is not None:
+        rec[f"{tag}_traced"] = traced_launches(prof_rows)
+        rec[f"{tag}_traced"]["table_peer"] = sum(
+            n for _, n, key in prof_rows if "table_peer_kernel" in key)
+        rec[f"{tag}_roll_ms"] = bucket(prof_rows)["roll (gossip terms)"]
     rec[f"{tag}_step_ms"] = [round(t * 1e3, 2) for t in secs]
     rec[f"{tag}_peak_allocated_gib"] = torch.cuda.max_memory_allocated() / 2**30
     rec[f"{tag}_peak_reserved_gib"] = torch.cuda.max_memory_reserved() / 2**30
@@ -4240,8 +4302,8 @@ def table_checks(table, rank, world, mesh, rec):
         free()
 
 
-def peer_rank(rank: int, world: int, batches, held, want26, out_dir):
-    """Phases 25 and 26's rank (a spawned process; the one card for every
+def peer_rank(rank: int, world: int, batches, held, refs, out_dir):
+    """Phases 25–27's rank (a spawned process; the one card for every
     rank), one agent of the main path's model each.
 
     Phase 25: ring, fused kernels, ``PEER_STEPS`` steps of the multi-rank
@@ -4259,7 +4321,13 @@ def peer_rank(rank: int, world: int, batches, held, want26, out_dir):
     the table kernel on the late one; (c) the table kernel on the final
     payloads (:func:`table_checks`); (b) ``GROUP_STEPS`` grouped steps of
     ``RANK_GROUPS``.  (a) and (b) against the one-process runs' per-agent
-    losses and bus digests (``want26``).  Writes ``rank<r>.json``."""
+    losses and bus digests (``refs``).
+
+    Phase 27, after 26: the tree path (``packed_bus=False``), each of
+    ``TREE_RUNS`` for ``TREE_STEPS`` steps — the rank's leaves packed into
+    the peer transports' f32 payload — against the one-process tree runs'
+    per-agent losses, metrics and leaf digests (``refs``), rank 0's last
+    step of each profiled.  Writes ``rank<r>.json``."""
     import torch
     import torch.distributed as dist
     from torch.profiler import ProfilerActivity, profile
@@ -4410,19 +4478,46 @@ def peer_rank(rank: int, world: int, batches, held, want26, out_dir):
     torch.cuda.synchronize()
     dist.barrier(group=mesh.control)
     step.close()
-    for tag in ("overlap", "groups"):
+    del step
+    free()
+
+    # 27: the tree path across ranks, (a) EDM on the ring, (b) DSGT on
+    # round_robin over exp
+    t27 = time.time()
+    for tag, kw in TREE_RUNS.items():
+        trun = bus_run(agents_per_device=1, **kw)
+        step = build_train_step(model, trun, make_gossip_schedule(trun, world),
+                                use_fused_kernel=True, mesh=mesh)
+        state = init_state(model, trun, world, seed=0, mesh=mesh)
+        state = rank_steps(step, state, batches[:TREE_STEPS], mesh, rec,
+                           f"tree_{tag}", profile_last=rank == 0)
+        rec[f"tree_{tag}_waits"] = sum(getattr(t, "waits", 0)
+                                       for t in step.transports())
+        rec[f"tree_{tag}_epochs"] = [t.epoch for t in step.transports()]
+        for t in step.transports():
+            t.raise_on_timeout()
+        del state
+        free()
+        torch.cuda.synchronize()
+        dist.barrier(group=mesh.control)
+        step.close()
+        del step
+        free()
+    rec["tree_s"] = time.time() - t27
+    rec["tree_leaves"] = len(model.meta())
+    for tag in ("overlap", "groups", "tree_edm", "tree_dsgt"):
         rec[f"{tag}_equal"] = all(
-            rec[f"{tag}_digests"][k] == want26[tag]["digests"][k][rank]
-            for k in want26[tag]["digests"])
+            rec[f"{tag}_digests"][k] == refs[tag]["digests"][k][rank]
+            for k in refs[tag]["digests"])
     Path(out_dir, f"rank{rank}.json").write_text(json.dumps(rec))
     dist.destroy_process_group()
 
 
 def peer_phase():
-    """Phases 25 and 26: ``PEER_RANKS`` ranks on the one card, each one
-    agent of ``smollm_360m`` at full width and depth (bus ``(1, 3195392,
-    128)`` a rank), fused kernels, seq 128, per-agent batch 1, α 0.2, β
-    0.9, spawned once for both phases.
+    """Phases 25–27: ``PEER_RANKS`` ranks on the one card, each one agent
+    of ``smollm_360m`` at full width and depth (bus ``(1, 3195392, 128)``
+    a rank, or its 12 bf16 tree leaves), fused kernels, seq 128, per-agent
+    batch 1, α 0.2, β 0.9, spawned once for the three phases.
 
     Phase 25: ``PEER_STEPS`` steps of the multi-rank bus step on the ring;
     the gossip runs through the peer-pointer ring kernel (CUDA IPC).
@@ -4442,6 +4537,14 @@ def peer_phase():
     the table kernel bit-equal to its plain version on every rank's final
     payloads for each of ``TABLE_CASES`` (the late round's output finite
     where rank 0's late payload is not read); no flag wait timed out.
+    Phase 27: the tree path, (a) ``TREE_STEPS`` EDM steps on the ring,
+    (b) ``TREE_STEPS`` DSGT steps on ``round_robin`` over ``exp``.  Gates:
+    per-agent losses and the digests of every leaf of x and of every
+    optimizer slot bit-equal to one-process 4-agent fused eager tree runs;
+    consensus and gradient norm within rtol 1e-5 of them; launches a rank
+    a step (a) 12 EDM + 1 ring, (b) 2 ring at step 0 and 2 table at step
+    1; rank 0's profiled last step of each holds no roll; no flag wait
+    timed out.
     The pod mode and the blocked and split plans, and the bf16 / int8
     wires across ranks, are not run here (one card; the CPU tests hold
     them over gloo); the NCCL path has run nowhere."""
@@ -4464,16 +4567,25 @@ def peer_phase():
     orun = bus_run(overlap="delayed")
     plan = StragglerPlan.from_json(OVERLAP_LATE, max(
         len(r.terms) for r in make_gossip_schedule(orun, AGENTS).rounds))
-    want26 = {"overlap": one_process_run(model, orun, batches[:PEER_STEPS],
-                                         plan, digests=True),
-              "groups": one_process_run(
-                  model, bus_run(gossip_groups=RANK_GROUPS),
-                  batches[:GROUP_STEPS], digests=True)}
-    out = {"reference26_s": time.time() - t0,
-           "reference26": {k: {"step_ms": [round(t * 1e3, 2)
-                                           for t in v["seconds"]],
-                               "launches": v["launches"]}
-                           for k, v in want26.items()}}
+    refs = {"overlap": one_process_run(model, orun, batches[:PEER_STEPS],
+                                       plan, digests=True),
+            "groups": one_process_run(
+                model, bus_run(gossip_groups=RANK_GROUPS),
+                batches[:GROUP_STEPS], digests=True)}
+    out = {"reference26_s": time.time() - t0}
+    # phase 27's references: one-process 4-agent fused eager tree runs
+    t0 = time.time()
+    for tag, kw in TREE_RUNS.items():
+        refs[f"tree_{tag}"] = one_process_run(model, bus_run(**kw),
+                                              batches[:TREE_STEPS],
+                                              digests=True)
+    out["reference27_s"] = time.time() - t0
+    out["references"] = {k: {"step_ms": [round(t * 1e3, 2)
+                                         for t in v["seconds"]],
+                             "launches": v["launches"],
+                             "metrics": v["metrics"],
+                             "peak_allocated_gib": v["peak_allocated_gib"]}
+                         for k, v in refs.items()}
     t0 = time.time()
     refrun = one_process_run(model, bus_run(), batches[:PEER_STEPS])
     out.update(reference_s=time.time() - t0,
@@ -4485,7 +4597,7 @@ def peer_phase():
     PEER_STORE.mkdir(parents=True)
     held = [refrun.pop("x"), refrun.pop("psi")]
     t0 = time.time()
-    ctx = mp.spawn(peer_rank, args=(PEER_RANKS, batches, held, want26,
+    ctx = mp.spawn(peer_rank, args=(PEER_RANKS, batches, held, refs,
                                     str(PEER_STORE)),
                    nprocs=PEER_RANKS, join=False)
     handed = False
@@ -4522,10 +4634,10 @@ def peer_phase():
         check(r["shared"], f"{tag}: the ranks do not share the card")
         # phase 26
         for what in ("overlap", "groups"):
-            check(r[f"{what}_agent_losses"] == want26[what]["losses"],
+            check(r[f"{what}_agent_losses"] == refs[what]["losses"],
                   f"{tag}: {what} per-agent losses "
                   f"{r[f'{what}_agent_losses']} != the one-process run's "
-                  f"{want26[what]['losses']}")
+                  f"{refs[what]['losses']}")
             check(r[f"{what}_equal"], f"{tag}: {what} final buses differ "
                   f"from the one-process run's ({r[f'{what}_digests']})")
         check(r["overlap_launches"] == {"edm_update": PEER_STEPS,
@@ -4547,6 +4659,44 @@ def peer_phase():
                   f"(max |err| {c['max_abs_err']})")
         check(r["rank"] == 0 or r["table_cases"]["late"]["finite"],
               f"{tag}: the late round's output is not finite")
+        # phase 27: the tree path across ranks
+        L = r["tree_leaves"]
+        want_launches = {"edm": [{"edm_update": L, "ring_peer": 1}]
+                         * TREE_STEPS,
+                         "dsgt": [{"ring_peer": 2}, {"table_peer": 2}]}
+        for what in TREE_RUNS:
+            key, ref27 = f"tree_{what}", refs[f"tree_{what}"]
+            check(r[f"{key}_agent_losses"] == ref27["losses"],
+                  f"{tag}: tree {what} per-agent losses "
+                  f"{r[f'{key}_agent_losses']} != the one-process run's "
+                  f"{ref27['losses']}")
+            check(r[f"{key}_equal"], f"{tag}: tree {what} final leaves "
+                  "differ from the one-process run's")
+            for t, (got, want) in enumerate(zip(r[f"{key}_metrics"],
+                                                ref27["metrics"])):
+                for k in ("consensus", "grad_norm"):
+                    check(math.isclose(got[k], want[k], rel_tol=1e-5),
+                          f"{tag}: tree {what} step {t} {k} {got[k]} vs "
+                          f"the one-process run's {want[k]}")
+            check(r[f"{key}_step_launches"] == want_launches[what],
+                  f"{tag}: tree {what} launches a step "
+                  f"{r[f'{key}_step_launches']}, expected "
+                  f"{want_launches[what]}")
+        # the peer ring's and the peer table's epochs: (a) one mix a step,
+        # (b) two mixes (y and x) on each of its two rounds
+        check(r["tree_edm_epochs"] == [TREE_STEPS]
+              and r["tree_dsgt_epochs"] == [2, 2],
+              f"{tag}: tree transport epochs {r['tree_edm_epochs']}, "
+              f"{r['tree_dsgt_epochs']}")
+    for what in TREE_RUNS:
+        key = f"tree_{what}"
+        traced = {k: v for k, v in ranks[0][f"{key}_traced"].items() if v}
+        check(traced == ranks[0][f"{key}_step_launches"][-1],
+              f"peer rank 0's traced tree {what} step holds {traced}, its "
+              f"wrappers counted {ranks[0][f'{key}_step_launches'][-1]}")
+        check(ranks[0][f"{key}_roll_ms"] == 0,
+              f"peer rank 0's traced tree {what} step rolls: "
+              f"{ranks[0][f'{key}_roll_ms']} ms")
     tr = ranks[0]["traced"]
     check(tr["ring_peer"] == 1 and tr["edm_update"] == 1
           and tr["ring_combine"] == 0 and tr["gossip_axpy"] == 0
@@ -4557,7 +4707,7 @@ def peer_phase():
 
 
 def print_peer(rec, smi: str) -> None:
-    """Phases 25 and 26's lines."""
+    """Phases 25–27's lines."""
     for r in rec["ranks"]:
         print(f"[peer] rank {r['rank']} on {r['device']} (shared card "
               f"{r['shared']}), bus {r['bus']}: step ms {r['step_ms']}, "
@@ -4593,17 +4743,42 @@ def print_peer(rec, smi: str) -> None:
               f"{r['table_library_ms']:.3f}, bound {r['table_bound_ms']:.4f} "
               f"ms {r['table_bound_by']}) on the ring round; bit-equal "
               f"{cases}; {smi}", flush=True)
-    ref26 = rec["reference26"]
+    ref26 = rec["references"]
     print(f"[peer26] the one-process references ({rec['reference26_s']:.1f} "
           f"s): overlap step ms {ref26['overlap']['step_ms']} launches "
           f"{ref26['overlap']['launches']}; groups step ms "
           f"{ref26['groups']['step_ms']} launches "
-          f"{ref26['groups']['launches']}; phase 26 on the ranks "
+          f"{ref26['groups']['launches']}; phases 26–27 on the ranks "
           f"{rec['ranks_s'] - rec['ranks25_s']:.1f} s (the card's free "
           f"memory at its start {[round(r['card_free_gib_26'], 2) for r in rec['ranks']]}"
           f" GiB, the parent's reserve {rec['parent_reserved_gib_26']:.2f} "
           "GiB); the publish precedes each rank's forward and backward pass, "
           "the combine follows it", flush=True)
+    for r in rec["ranks"]:
+        for what in TREE_RUNS:
+            key = f"tree_{what}"
+            print(f"[peer27] rank {r['rank']} tree {what}: step ms "
+                  f"{r[f'{key}_step_ms']}, loss {r[f'{key}_loss']}, metrics "
+                  f"{r[f'{key}_metrics']}, launches a step "
+                  f"{r[f'{key}_step_launches']}, peak "
+                  f"{r[f'{key}_peak_allocated_gib']:.2f} / "
+                  f"{r[f'{key}_peak_reserved_gib']:.2f} GiB (the peer "
+                  f"payloads outside torch's count), flag waits "
+                  f"{r[f'{key}_waits']} (none timed out), bit-equal to the "
+                  f"one-process run {r[f'{key}_equal']}; {smi}", flush=True)
+    r0 = rec["ranks"][0]
+    for what in TREE_RUNS:
+        ref = rec["references"][f"tree_{what}"]
+        print(f"[peer27] tree {what}: the one-process 4-agent run step ms "
+              f"{ref['step_ms']} launches {ref['launches']} peak "
+              f"{ref['peak_allocated_gib']:.2f} GiB metrics {ref['metrics']};"
+              f" rank 0's profiled step traced "
+              f"{json.dumps({k: v for k, v in r0[f'tree_{what}_traced'].items() if v})}"
+              f", roll {r0[f'tree_{what}_roll_ms']} ms", flush=True)
+    print(f"[time] phase 27 took {statistics.median(r['tree_s'] for r in rec['ranks']):.1f}"
+          f" s in the ranks (median; per rank "
+          f"{[round(r['tree_s'], 1) for r in rec['ranks']]}), its "
+          f"one-process references {rec['reference27_s']:.1f} s", flush=True)
     print("[peer] not run on this card: the pod mode (row shards), the "
           "blocked and split permute plans and the bf16 / int8 wires across "
           "ranks (the CPU tests hold them over gloo against the JAX "
@@ -5701,6 +5876,11 @@ def main() -> None:
         "timing": TIMING + "; one rank timed at a time, the others idle"})
     for rec in kernels:
         name = rec["name"]
+        if name in ("edm_update", "ring_peer", "table_peer"):
+            # phase 27: the tree path across ranks, each rank's launches
+            rec["launches_phase27"] = {
+                what: [sum(s_.get(name, 0) for s_ in r[f"tree_{what}_step_launches"])
+                       for r in pr] for what in TREE_RUNS}
         if name in ("edm_update", "gossip_axpy", "gossip_axpy_q8",
                     "ring_combine"):
             # the grouped cell (phase 14): the eager first step of each

@@ -9,6 +9,10 @@ of them at a time, so that the f32 temporaries stay under ~1.5 GiB
 whatever the bus (an agent's block of Pixtral-12B's one-layer bus is
 6 GiB, and ``bus_consensus`` held three such temporaries).  A bus of at
 most ``_ROWS`` rows reduces as one range, as before.
+
+The ``*_ranks`` forms take a state spread over ranks (each rank its
+block of agents) and the sums that join them; they reduce leaf by leaf
+too, so no f32 copy of a whole tree is ever held.
 """
 from __future__ import annotations
 
@@ -20,7 +24,8 @@ from .mixing import tree_map
 
 __all__ = ["tree_sqnorm", "agent_mean", "consensus_distance",
            "bus_consensus", "bus_grad_norm", "bus_consensus_ranks",
-           "bus_grad_norm_ranks"]
+           "bus_grad_norm_ranks", "consensus_distance_ranks",
+           "tree_grad_norm_ranks"]
 
 
 def _leaves(tree):
@@ -93,3 +98,28 @@ def bus_grad_norm_ranks(g_bus: torch.Tensor, total_sum) -> torch.Tensor:
     sq = sum(_sq_sum(blk) for blk in _row_ranges(g_bus))
     return total_sum(torch.as_tensor(sq, dtype=torch.float32,
                                      device=g_bus.device)).sqrt()
+
+
+def consensus_distance_ranks(tree, n_agents: int, agent_sum,
+                             total_sum) -> torch.Tensor:
+    """:func:`consensus_distance` of a tree spread over ranks: ``tree`` is
+    this rank's ``(B, ...)`` block of every leaf; ``agent_sum(t)`` sums
+    ``t`` over the ranks that hold the other agents and ``total_sum(t)`` a
+    scalar over every rank.  Each leaf's agent mean is the f32 sum over
+    the agents divided by ``n_agents``, rounded once to the leaf's dtype
+    as ``leaf.mean(dim=0)`` rounds it, and the deviation is taken in that
+    dtype, so the value equals the one-process one up to the order of the
+    sums."""
+    total = None
+    for leaf in _leaves(tree):
+        mean = (agent_sum(leaf.float().sum(dim=0, keepdim=True))
+                / n_agents).to(leaf.dtype)
+        part = (leaf - mean).float().square().sum()
+        total = part if total is None else total + part
+    return total_sum(total)
+
+
+def tree_grad_norm_ranks(grads, total_sum) -> torch.Tensor:
+    """The global gradient norm of a tree spread over ranks: this rank's
+    :func:`tree_sqnorm`, summed over every rank (``total_sum``)."""
+    return total_sum(tree_sqnorm(grads)).sqrt()

@@ -21,8 +21,10 @@ every agent on one device (tests assert they agree):
   axis, blocked rolls of B > 1 agents a rank, row shards), the same
   combine kernels, so a multi-rank run is bit-equal to the one-process
   run; a flat ±1 ring on the card runs the peer-pointer ring kernel
-  (:mod:`repro_torch.kernels.ring_peer`).  :func:`mix_dense_sharded` is
-  the shard-resident dense oracle.
+  (:mod:`repro_torch.kernels.ring_peer`), any other round the peer table
+  kernel, a rank's tree packed into one f32 payload
+  (:class:`TreePayload`).  :func:`mix_dense_sharded` is the
+  shard-resident dense oracle.
 
 :func:`accumulate_f32` wraps a tree op so that sub-f32 leaves go up to
 f32 and come back once on the way out: the dense engine's bf16 path and
@@ -106,7 +108,7 @@ from .topology import ShiftTerm, Topology
 from .wire import WireCodec
 
 __all__ = ["TRANSPORTS", "mix_dense", "mix_shifts", "mix_ppermute",
-           "mix_ranks", "mix_dense_sharded",
+           "mix_ranks", "mix_dense_sharded", "TreePayload",
            "wire_terms", "round_tables", "make_mixer", "make_schedule_mixer",
            "make_overlap_mixer", "build_mixer", "rank_routes", "GroupPlan",
            "encode_rows",
@@ -572,14 +574,75 @@ def _make_permute_term(topo: Topology, mesh, names, sizes, split: bool,
     return lambda x, t: start(x, t).wait()
 
 
+# the leaf dtypes a tree payload carries: their upcast to f32 is exact, and
+# the combine kernels round their f32 sums to them as one cast does
+_TREE_DTYPES = (torch.float32, torch.bfloat16)
+
+
+class TreePayload:
+    """A rank's tree in the peer transports' ``(1, rows, 128)`` f32 payload
+    (one agent a rank): the leaves in sorted path order, each flattened
+    and upcast to f32 (exact for f32 and bf16 leaves) right after the
+    last, the tail of the last row zero.  :meth:`pack` writes a tree into
+    a payload buffer (the transport's own shared one), :meth:`unpack`
+    reads the combine's f32 result back into the tree's leaves, rounding
+    once to each leaf's dtype.  The combine kernels add the same terms in
+    the same order with the same f32 roundings whatever the element's
+    place, so one combine over the packed payload, then the rounding,
+    equals one ``gossip_axpy`` a leaf (f32 accumulation in term order,
+    one rounding to the leaf's dtype), bit for bit."""
+
+    def __init__(self, tree: Mapping[str, torch.Tensor]):
+        self.offsets: Dict[str, int] = {}
+        n = 0
+        for p in sorted(tree):
+            self.offsets[p] = n
+            n += tree[p].numel()
+        self.numel = n
+        self.shape = (1, max(1, -(-n // ring_dma.LANE)), ring_dma.LANE)
+
+    def pack(self, tree: Mapping[str, torch.Tensor],
+             dst: torch.Tensor) -> torch.Tensor:
+        flat = dst.view(-1)
+        for p, o in self.offsets.items():
+            leaf = tree[p]
+            flat[o:o + leaf.numel()].view(leaf.shape).copy_(leaf)
+        flat[self.numel:].zero_()
+        return dst
+
+    def unpack(self, src: torch.Tensor, like: Mapping[str, torch.Tensor]
+               ) -> Dict[str, torch.Tensor]:
+        flat = src.view(-1)
+        return {p: flat[self.offsets[p]:self.offsets[p] + v.numel()]
+                .view(v.shape).to(v.dtype) for p, v in like.items()}
+
+
+def _payload_unfit(x) -> str:
+    """Why ``x`` is no payload of the peer transports, or '': a ``(1, rows,
+    128)`` f32 bus, or a tree of one agent's f32 / bf16 leaves
+    (:class:`TreePayload`)."""
+    if isinstance(x, Mapping):
+        bad = sorted(p for p, v in x.items()
+                     if v.dtype not in _TREE_DTYPES or v.shape[:1] != (1,))
+        if x and not bad:
+            return ""
+        return (f"needs a tree of one agent's f32 / bf16 leaves, got "
+                f"{[(p, str(x[p].dtype), tuple(x[p].shape)) for p in bad[:3]]}")
+    if ring_dma.bus_payload(x, 1):
+        return ""
+    return (f"needs a (1, rows, 128) f32 payload, got "
+            f"{getattr(x, 'dtype', type(x).__name__)} "
+            f"{tuple(getattr(x, 'shape', ()))}")
+
+
 def _peer_unfit(topo: Topology, mesh, x, names, B: int, shard_axes,
                 wire: Optional[WireCodec]) -> str:
     """Why the peer-pointer ring cannot carry this rank's gossip, or '' —
     the reference's ``ring_dma_supported`` across devices: a flat ±1 ring,
     one agent per rank on one agent axis, every rank of it on this host
     (CUDA IPC opens no handle of another host), no row shards, no wire, an
-    unmasked round, a ``(1, rows, 128)`` f32 payload (``x`` None checks the
-    rest)."""
+    unmasked round, a ``(1, rows, 128)`` f32 payload or a tree of one
+    agent's f32 / bf16 leaves (``x`` None checks the rest)."""
     if is_masked(topo):
         return f"takes unmasked rings, got the masked round {topo.name}"
     if wire is not None:
@@ -595,11 +658,7 @@ def _peer_unfit(topo: Topology, mesh, x, names, B: int, shard_axes,
                 f"{sorted({mesh.hosts[r] for r in ranks})}")
     if shard_axes is not None:
         return "does not compose with row shards (shard_axes)"
-    if x is not None and not ring_dma.bus_payload(x, 1):
-        return (f"needs a (1, rows, 128) f32 payload, got "
-                f"{getattr(x, 'dtype', type(x).__name__)} "
-                f"{tuple(getattr(x, 'shape', ()))}")
-    return ""
+    return "" if x is None else _payload_unfit(x)
 
 
 def _exchange(mesh, ranks, handle: bytes):
@@ -620,16 +679,17 @@ class _PeerSlot:
     def __init__(self, mesh, names, B: int):
         self.mesh, self.names, self.B, self.ring = mesh, names, B, None
 
-    def get(self, like: torch.Tensor):
+    def get(self, shape, device) -> PeerRing:
+        shape = tuple(shape)
         if self.ring is None:
             ranks, _ = axes_group(self.mesh, self.names)
-            ring = PeerRing(tuple(like.shape), like.device,
-                            ranks.index(dist.get_rank()), len(ranks))
+            ring = PeerRing(shape, device, ranks.index(dist.get_rank()),
+                            len(ranks))
             ring.open(_exchange(self.mesh, ranks, ring.handle))
             self.ring = ring
-        elif self.ring.shape != tuple(like.shape):
+        elif self.ring.shape != shape:
             raise ValueError(f"the peer ring holds {self.ring.shape} "
-                             f"payloads, got {tuple(like.shape)}")
+                             f"payloads, got {shape}")
         return self.ring
 
     def close(self) -> None:
@@ -649,18 +709,19 @@ class _TableSlot:
     def __init__(self, mesh, names):
         self.mesh, self.names, self.table = mesh, names, None
 
-    def get(self, like: torch.Tensor) -> PeerTable:
+    def get(self, shape, device) -> PeerTable:
+        shape = tuple(shape)
         if self.table is None:
             ranks, _ = axes_group(self.mesh, self.names)
             sizes = tuple(self.mesh.axis_size(n) for n in self.names)
-            table = PeerTable(tuple(like.shape), like.device,
+            table = PeerTable(shape, device,
                               _flat_index(self.mesh, self.names, sizes),
                               len(ranks))
             table.open(_exchange(self.mesh, ranks, table.handle))
             self.table = table
-        elif self.table.shape != tuple(like.shape):
+        elif self.table.shape != shape:
             raise ValueError(f"the peer table holds {self.table.shape} "
-                             f"payloads, got {tuple(like.shape)}")
+                             f"payloads, got {shape}")
         return self.table
 
     def close(self) -> None:
@@ -677,8 +738,8 @@ def _table_unfit(mesh, x, names, B: int, shard_axes,
     """Why the peer table (:class:`repro_torch.kernels.table_peer.
     PeerTable`) cannot carry this rank's gossip, or '': one agent a rank,
     every rank of the agent axes on this host (at most 16), no row shards,
-    no wire, a ``(1, rows, 128)`` f32 payload (``x`` None checks the
-    rest).  Any round fits: a ±1 ring, an exponential hop, a masked
+    no wire, a ``(1, rows, 128)`` f32 payload or a tree of one agent's f32
+    / bf16 leaves (``x`` None checks the rest).  Any round fits: a ±1 ring, an exponential hop, a masked
     round, late slots."""
     if wire is not None:
         return f"takes f32 payloads, not the {wire.fmt} wire"
@@ -692,11 +753,7 @@ def _table_unfit(mesh, x, names, B: int, shard_axes,
     if not mesh.one_host(ranks):
         return (f"needs every rank of the agent axes on one host, got hosts "
                 f"{sorted({mesh.hosts[r] for r in ranks})}")
-    if x is not None and not ring_dma.bus_payload(x, 1):
-        return (f"needs a (1, rows, 128) f32 payload, got "
-                f"{getattr(x, 'dtype', type(x).__name__)} "
-                f"{tuple(getattr(x, 'shape', ()))}")
-    return ""
+    return "" if x is None else _payload_unfit(x)
 
 
 def _readers(src: np.ndarray, i: int) -> List[int]:
@@ -740,7 +797,10 @@ def mix_ranks(topo: Topology, mesh, x, *, agent_axes=None,
       any other round of one agent a rank on one host in f32 (an
       exponential hop, a masked round) fused under ``"auto"`` runs the
       peer table kernel (:class:`repro_torch.kernels.table_peer.
-      PeerTable`: this rank's column of the round's source table).  On the
+      PeerTable`: this rank's column of the round's source table).  A
+      tree goes through either as one payload (:class:`TreePayload`: its
+      leaves packed into the transport's shared buffer, one combine, each
+      leaf rounded back once), bit-equal to the per-leaf combines.  On the
       CPU those transports are the permutes plus the plain combine.  Ranks
       that share one card have no NCCL: any other gossip raises there."""
     _check_transport(transport)
@@ -762,20 +822,32 @@ def mix_ranks(topo: Topology, mesh, x, *, agent_axes=None,
     if transport == "ring_dma" and why:
         raise ValueError(f"transport='ring_dma' {why}")
     on_card = first.device.type == "cuda"
+    tree = TreePayload(x) if isinstance(x, Mapping) else None
+    shape = tree.shape if tree is not None else getattr(x, "shape", ())
     if on_card and not why and (transport == "ring_dma" or (
             transport == "auto" and use_fused_kernel)):
-        peer = (_peer or _PeerSlot(mesh, names, B)).get(x)
+        peer = (_peer or _PeerSlot(mesh, names, B)).get(shape, first.device)
         terms = [(t.shift, float(t.weight)) for t in topo.terms]
-        return peer.combine(terms, out=out, payload=x)
+        if tree is None:
+            return peer.combine(terms, out=out, payload=x)
+        buf = tree.pack(x, peer.payload_for_write())
+        return tree.unpack(peer.combine(terms, payload=buf), x)
     why_t = _table_unfit(mesh, x if wire is None else None, names, B,
                          shard_axes, wire)
     if on_card and not why_t and transport == "auto" and use_fused_kernel:
-        table = (_table or _TableSlot(mesh, names)).get(x)
+        table = (_table or _TableSlot(mesh, names)).get(shape, first.device)
         src, w = round_tables(topo)
         i = table.me
-        table.publish(x, _readers(src, i))
-        return table.combine([int(v) for v in src[:, i]],
-                             [float(v) for v in w[:, i]], out=out)
+        readers = _readers(src, i)
+        if tree is None:
+            table.publish(x, readers)
+        else:
+            tree.pack(x, table.slot_for_write(readers))
+            table.publish(None, readers)
+        res = table.combine([int(v) for v in src[:, i]],
+                            [float(v) for v in w[:, i]],
+                            out=out if tree is None else None)
+        return res if tree is None else tree.unpack(res, x)
     if on_card and mesh.shared:
         raise ValueError(
             f"ranks share one card here ({first.device}), so there is no "
@@ -964,7 +1036,7 @@ def make_schedule_mixer(sched: GossipSchedule, engine: str = "shifts", *,
         if _peer_unfit(topo, mesh, like, peer.names, peer.B, shard_axes,
                        _no_f32(wire)):
             return None
-        return peer.get(like).payload_for_write()
+        return peer.get(like.shape, like.device).payload_for_write()
 
     mix.payload_for_write = payload_for_write
     mix.peer = peer
@@ -1200,7 +1272,8 @@ def _rank_overlap_mixer(sched: GossipSchedule, K: int, selves, mesh,
             why = _table_unfit(mesh, x if wire is None else None, names, B,
                                shard_axes, wire)
             if not why and transport == "auto" and use_fused_kernel:
-                table.get(x).publish(x, _readers(tabs[r][0], i))
+                table.get(x.shape, x.device).publish(
+                    x, _readers(tabs[r][0], i))
                 coll.mark("peer publish")
                 return _Issued(r)
             if mesh.shared:

@@ -65,16 +65,20 @@ agents, each over a pod of S row shards (the shard-resident mode)::
       --gossip-engine ppermute --steps 2 --device cpu
 
 (``python -m torch.distributed.run`` is the same launcher; ``--overlap
-delayed`` with ``--straggler``, and ``--gossip-groups``, run so too.)
+delayed`` with ``--straggler``, and ``--gossip-groups``, run so too, and
+the tree path: ``--algorithm X`` (any of the nine) or ``--no-packed-bus``
+with one agent or a block of agents a rank, header ``+tree``.)
 gloo on the CPU, NCCL on cards; ranks that share one card (more ranks than
 cards) gossip only through the peer-pointer kernels (``--fused-kernel``,
-one agent a rank, f32): the ring kernel on a ±1 ring round, the peer table
+one agent a rank, an f32 bus or a tree of f32 / bf16 leaves packed into
+one f32 payload): the ring kernel on a ±1 ring round, the peer table
 kernel on any other round (an exponential hop, a masked or a late slot).
 Rank 0 prints; the header names the rank grid, says when ranks share a
 card, and which gossip the ranks take (``gossip=ring_peer``,
-``table_peer``, ``permutes``).  ``--ckpt`` gathers the state to rank 0, which
-writes the one-process file; ``--resume`` gives every rank its block of a
-file of either package.  The multi-rank step is eager.
+``table_peer``, ``permutes``).  ``--ckpt`` gathers the state (a bus or a
+tree state) to rank 0, which writes the one-process file; ``--resume``
+gives every rank its block of a file of either package.  The multi-rank
+step is eager.
 
 On a CUDA device the bus path runs as CUDA graphs
 (:func:`repro_torch.train.graphs.graph_train_step`: the first step of each

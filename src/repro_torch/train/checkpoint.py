@@ -6,10 +6,11 @@ format, so that a file written by either package loads in the other:
 * the **logical** tree, never the packed bus: an ``(A, rows, 128)`` bus
   leaf is unpacked to its parameter leaves on save and repacked on load
   (``layout=``), so bus and tree states read each other's files;
-* a multi-rank state (:func:`save_state_ranks`) is gathered to rank 0
-  and written as the one-process state would be, so a file does not say
-  how many ranks or row shards wrote it; :func:`load_state_ranks` gives
-  each rank its block of a file of either package;
+* a multi-rank state (:func:`save_state_ranks`; a bus or a tree state)
+  is gathered to rank 0 and written as the one-process state would be, so
+  a file does not say how many ranks or row shards wrote it;
+  :func:`load_state_ranks` gives each rank its block of a file of either
+  package;
 * keys ``<top>|<path>``: the ``|``-joined path of each leaf as
   ``jax.tree_util.tree_flatten_with_path`` prints it (``params|blocks|0|
   attn|wq``, ``opt|m|...``, ``step``).  The port's parameter dicts are
@@ -227,30 +228,49 @@ def load_state(path: str, like: Mapping[str, Any],
 # multi-rank states: gathered to rank 0, sliced per rank
 # ---------------------------------------------------------------------------
 
+def _gather(local: torch.Tensor, mesh) -> Optional[torch.Tensor]:
+    """Every grid rank's block of one tensor, on rank 0, joined along axis
+    0 in rank order on the host; None on the other ranks.  2-byte leaves
+    travel as their int16 bits (bf16 through any backend)."""
+    import torch.distributed as dist
+    blk = local.detach().cpu().contiguous()
+    wire = blk.view(torch.int16) if blk.element_size() == 2 else blk
+    parts = ([torch.empty_like(wire) for _ in range(mesh.size)]
+             if mesh.rank == 0 else None)
+    dist.gather(wire, parts, dst=0, group=mesh.control)
+    if parts is None:
+        return None
+    return torch.cat(parts, 0).view(blk.dtype)
+
+
 def _gather_bus(local: torch.Tensor, mesh, n_agents: int):
     """Every grid rank's block of one bus, on rank 0 (in rank order: the
     agents' blocks, each agent's row shards in order), as the ``(A, rows,
     128)`` bus on the host; None on the other ranks."""
-    import torch.distributed as dist
-    blk = local.detach().cpu().contiguous()
-    parts = ([torch.empty_like(blk) for _ in range(mesh.size)]
-             if mesh.rank == 0 else None)
-    dist.gather(blk, parts, dst=0, group=mesh.control)
-    if parts is None:
-        return None
-    return torch.cat(parts, 0).view(n_agents, -1, blk.shape[-1])
+    full = _gather(local, mesh)
+    return None if full is None else full.view(n_agents, -1, local.shape[-1])
 
 
-def save_state_ranks(path: str, state: Mapping[str, Any], layout: BusLayout,
-                     mesh, n_agents: int) -> None:
-    """Save a multi-rank bus state (each rank its block, as
-    :func:`repro_torch.train.init_state` ``mesh=`` makes it): every bus is
-    gathered to rank 0, which writes the logical npz of the one-process
-    state (:func:`save_state`; an overlap pipeline as ``pipeline|phi|…``,
-    its live payload gathered, and ``pipeline|parity``).  Collective over
-    the mesh's ranks."""
-    full = {"params": _gather_bus(state["params"], mesh, n_agents),
-            "opt": {k: _gather_bus(v, mesh, n_agents)
+def _gather_state(tree, mesh, n_agents: int, layout: Optional[BusLayout]):
+    """A bus, or every leaf of a tree, gathered to rank 0 (None elsewhere;
+    a tree's leaves are ``(B, *shape)`` agent blocks in rank order)."""
+    if layout is not None:
+        return _gather_bus(tree, mesh, n_agents)
+    return {p: _gather(v, mesh) for p, v in tree.items()}
+
+
+def save_state_ranks(path: str, state: Mapping[str, Any],
+                     layout: Optional[BusLayout], mesh, n_agents: int
+                     ) -> None:
+    """Save a multi-rank state (each rank its block, as
+    :func:`repro_torch.train.init_state` ``mesh=`` makes it): every bus,
+    or with ``layout=None`` every leaf of the tree state's parameters and
+    optimizer slots, is gathered to rank 0, which writes the logical npz
+    of the one-process state (:func:`save_state`; an overlap pipeline as
+    ``pipeline|phi|…``, its live payload gathered, and
+    ``pipeline|parity``).  Collective over the mesh's ranks."""
+    full = {"params": _gather_state(state["params"], mesh, n_agents, layout),
+            "opt": {k: _gather_state(v, mesh, n_agents, layout)
                     for k, v in state["opt"].items()},
             "step": int(state["step"])}
     pipe = state.get("pipeline")
@@ -263,15 +283,39 @@ def save_state_ranks(path: str, state: Mapping[str, Any], layout: BusLayout,
         save(path, full, layout=layout)
 
 
-def load_state_ranks(path: str, like: Mapping[str, Any], layout: BusLayout,
-                     mesh, n_agents: int, shard_axes: Optional[str] = None,
+def load_state_ranks(path: str, like: Mapping[str, Any],
+                     layout: Optional[BusLayout], mesh, n_agents: int,
+                     shard_axes: Optional[str] = None,
                      device=None) -> Dict[str, Any]:
     """This rank's block of a saved state (a file of either package, from
     any number of ranks or row shards: the file is logical), into the
     structure of ``like`` (this rank's state, on ``device`` or like's).
     A pipeline comes back as :func:`load_state` restores one: the live
-    payload's block in both slots, the stored parity."""
+    payload's block in both slots, the stored parity.  ``layout=None``
+    reads a tree state: agents ``[a0, a0 + B)`` of every leaf of the
+    parameters and of every optimizer slot."""
     a0, B, shard, S = rank_block(mesh, n_agents, shard_axes)
+    if layout is None:
+        dev = device if device is not None else _first_leaf(
+            like["params"]).device
+
+        def at_a(tree):     # the template at every agent, on no device
+            return tree_map(lambda l: torch.empty(
+                (n_agents,) + tuple(l.shape[1:]), dtype=l.dtype,
+                device="meta"), tree)
+
+        full = load_state(path, {"params": at_a(like["params"]),
+                                 "opt": {k: at_a(v)
+                                         for k, v in like["opt"].items()},
+                                 "step": 0}, device="cpu")
+
+        def block(tree):
+            return tree_map(lambda l: l[a0:a0 + B].contiguous().to(dev),
+                            tree)
+
+        return {"params": block(full["params"]),
+                "opt": {k: block(v) for k, v in full["opt"].items()},
+                "step": int(full["step"])}
     dev = device if device is not None else like["params"].device
     meta = lambda t: torch.empty((n_agents, layout.rows, LANE),  # noqa: E731
                                  dtype=t.dtype, device="meta")

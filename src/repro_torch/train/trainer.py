@@ -39,7 +39,8 @@ schedule and stateless wire over one bus, DESIGN §12).  Across ranks: the
 bus step with any schedule, churn, the EF wire and ``gossip_every``, the
 overlapped pipeline with straggler plans, and policy groups, one agent or
 a block of agents a rank, or ``agents="pod"`` with row shards; the tree
-path across ranks is listed in ROADMAP.md §1 item 5.
+path (every algorithm) with one agent or a block of agents a rank, any
+schedule, churn, ``gossip_every`` and the ``gossip_dtype`` cast.
 """
 from __future__ import annotations
 
@@ -54,7 +55,9 @@ from repro_torch.configs.base import RunConfig
 from repro_torch.core import bus as parambus
 from repro_torch.core.metrics import (bus_consensus, bus_consensus_ranks,
                                       bus_grad_norm, bus_grad_norm_ranks,
-                                      consensus_distance, tree_sqnorm)
+                                      consensus_distance,
+                                      consensus_distance_ranks,
+                                      tree_grad_norm_ranks, tree_sqnorm)
 from repro_torch.core.elastic import DropPlan, ElasticSchedule, StragglerPlan
 from repro_torch.core.mixing import (GroupPlan, accumulate_f32, build_mixer,
                                      make_group_mixer, tree_map)
@@ -147,11 +150,6 @@ class Features:
     groups: Tuple[parambus.GroupSpec, ...] = ()
 
 
-def _not_ported(what: str):
-    raise NotImplementedError(f"{what} is not ported to repro_torch yet "
-                              "(ROADMAP.md §1 item 5)")
-
-
 def _is_f32(gossip_dtype) -> bool:
     return gossip_dtype in ("float32", "", None)
 
@@ -164,8 +162,9 @@ def resolve_features(run: RunConfig) -> Features:
     ``overlap="delayed"`` (DESIGN §6) needs the bus (one in-flight
     buffer), ``gossip_every == 1`` (a payload in flight every step) and no
     ``gossip_dtype`` cast (the wire codec composes instead).  A wire other
-    than f32 needs the bus and excludes a ``gossip_dtype`` cast.  Raises
-    for every lever the port does not run yet."""
+    than f32 needs the bus and excludes a ``gossip_dtype`` cast; policy
+    groups need the bus and exclude the overlap, a run-level wire and the
+    cast.  Raises ``ValueError`` for every combination they rule out."""
     if run.packed_bus is not None:
         packed = bool(run.packed_bus)
         if packed and run.algorithm != "edm":
@@ -336,7 +335,8 @@ def init_state(model: Model, run: RunConfig, n_agents: int, *,
     With ``mesh`` (a :class:`~repro_torch.core.comm.GossipMesh`) the
     state is this rank's: its ``(B, rows, 128)`` agent block of each bus,
     or with ``shard_axes`` its ``(1, rows / S, 128)`` row block (S the
-    shard axis's size), on the mesh's device unless ``device`` says
+    shard axis's size), or on the tree its ``(B, *shape)`` block of every
+    leaf and optimizer slot, on the mesh's device unless ``device`` says
     otherwise — the blocks of the one-process state, bit for bit."""
     if mesh is not None:
         return _rank_state(model, run, n_agents, seed, params,
@@ -369,15 +369,23 @@ def init_state(model: Model, run: RunConfig, n_agents: int, *,
 
 def _rank_state(model: Model, run: RunConfig, n_agents: int, seed: int,
                 params, device, mesh, shard_axes) -> TrainState:
-    """This rank's block of :func:`init_state`'s bus state."""
+    """This rank's block of :func:`init_state`'s state: the bus's, or on
+    the tree the B agents' leaves and the algorithm's ``opt.init`` of them
+    (the reference's tree ``init_state``, restricted to the block)."""
     feats = resolve_features(run)
-    _check_rank_features(feats, run, mesh)
+    _check_rank_features(feats, run, mesh, shard_axes)
     dev = resolve_device(device)
     _, B, s, S = rank_block(mesh, n_agents, shard_axes)
-    layout = bus_layout_for(model, n_agents, feats.groups, S)
     if params is None:
         params = model.init(torch.Generator(device=dev).manual_seed(seed))
     params = {p: v.to(dev) for p, v in params.items()}
+    if not feats.packed_bus:
+        tree = {p: v.unsqueeze(0).repeat((B,) + (1,) * v.dim())
+                for p, v in params.items()}
+        opt = make_optimizer(run.algorithm, alpha=run.alpha, beta=run.beta,
+                             mix=lambda t: t)
+        return {"params": tree, "opt": opt.init(tree), "step": 0}
+    layout = bus_layout_for(model, n_agents, feats.groups, S)
     x = params_to_bus(layout, params, B)
     if S > 1:
         x = x[:, s * layout.shard_rows:(s + 1) * layout.shard_rows].clone()
@@ -390,11 +398,17 @@ def _rank_state(model: Model, run: RunConfig, n_agents: int, seed: int,
     return state
 
 
-def _check_rank_features(feats: Features, run: RunConfig, mesh) -> None:
-    """Raise for what the multi-rank step does not run (yet)."""
-    if not feats.packed_bus:
-        _not_ported("the tree path across ranks (packed_bus=False or an "
-                    "algorithm other than edm)")
+def _check_rank_features(feats: Features, run: RunConfig, mesh,
+                         shard_axes: Optional[str]) -> None:
+    """Raise for what the multi-rank step does not run: the tree's row
+    shards (the reference asserts that ``shard_axes`` composes with the
+    packed bus only), another engine than ppermute, a rank outside the
+    mesh."""
+    if not feats.packed_bus and (run.agents == "pod"
+                                 or shard_axes is not None):
+        raise ValueError("agents='pod' (shard_axes) composes with the packed "
+                         "bus only: the tree path splits agents over ranks, "
+                         "never an agent's rows")
     if run.gossip_engine != "ppermute":
         raise ValueError(f"gossip across ranks runs the ppermute engine, "
                          f"got gossip_engine={run.gossip_engine!r}")
@@ -615,17 +629,22 @@ def build_train_step(model: Model, run: RunConfig, topo,
     ``backward done`` marks bracket the pass); a straggler plan's late
     slots degrade to self-weight on every rank.  Policy groups run each
     group's schedule mixer across ranks on the rank's rows of the group.
+    The tree step across ranks takes its agents' rows of the batch, their
+    losses and gradients leaf by leaf, and runs the algorithm with the
+    multi-rank mixer on its ``(B, *shape)`` leaves (the reference's
+    ``mix_ppermute`` under a mesh, leaf by leaf; on the card the peer
+    transports carry the rank's leaves packed into one f32 payload); its
+    metrics are all-reduced the same way (the consensus leaf by leaf).
     The multi-rank step is eager (``train_step.static`` is None);
     ``train_step.transports()`` lists the peer transports its mixers made
-    and ``train_step.close()`` frees them (collective).  The tree path
-    across ranks raises ``NotImplementedError``.
+    and ``train_step.close()`` frees them (collective).
     """
     dev = resolve_device(device)
     feats = resolve_features(run)
     A = topo.n_agents
     a0, B, shard, S = 0, A, 0, 1
     if mesh is not None:
-        _check_rank_features(feats, run, mesh)
+        _check_rank_features(feats, run, mesh, shard_axes)
         if (run.agents == "pod") != (shard_axes is not None):
             raise ValueError("agents='pod' runs with shard_axes= (the mesh's "
                              "row-shard axis) and agents='data' without")
@@ -768,6 +787,10 @@ def build_train_step(model: Model, run: RunConfig, topo,
 
     def step_metrics(losses, new_x, grads) -> Dict:
         if mesh is None:
+            if not feats.packed_bus:
+                return {"loss": losses.mean(),
+                        "consensus": consensus_distance(new_x),
+                        "grad_norm": tree_sqnorm(grads).sqrt()}
             return {"loss": losses.mean(),
                     "consensus": bus_consensus(new_x),
                     "grad_norm": bus_grad_norm(grads)}
@@ -778,12 +801,17 @@ def build_train_step(model: Model, run: RunConfig, topo,
         def total(t):
             return coll.all_reduce(t, mesh.world_group, mesh.size)
 
-        return {"loss": agent_losses.mean(),
-                "consensus": bus_consensus_ranks(
-                    new_x, A, lambda t: coll.all_reduce(t, group, len(ranks)),
-                    total),
-                "grad_norm": bus_grad_norm_ranks(grads, total),
-                "agent_losses": agent_losses}
+        def agent_sum(t):
+            return coll.all_reduce(t, group, len(ranks))
+
+        if feats.packed_bus:
+            consensus = bus_consensus_ranks(new_x, A, agent_sum, total)
+            grad_norm = bus_grad_norm_ranks(grads, total)
+        else:
+            consensus = consensus_distance_ranks(new_x, A, agent_sum, total)
+            grad_norm = tree_grad_norm_ranks(grads, total)
+        return {"loss": agent_losses.mean(), "consensus": consensus,
+                "grad_norm": grad_norm, "agent_losses": agent_losses}
 
     def bus_step(x, opt_state, batch, step: int, out=None, lr_scale=None):
         """One bus step: ``(x', opt', metrics)``, x' written into ``out``
@@ -872,16 +900,16 @@ def build_train_step(model: Model, run: RunConfig, topo,
                                                batch, step)
             return {"params": new_x, "opt": new_opt, "step": step + 1}, \
                 metrics
-        losses, grads = tree_losses_and_grads(model, params, batch,
-                                              **remat)
+        # this rank's agents' rows of the batch across ranks
+        local = (batch if mesh is None
+                 else {k: v[a0:a0 + B] for k, v in batch.items()})
+        losses, grads = tree_losses_and_grads(model, params, local, **remat)
         if lr_sched is not None:
             grads = scale_grads(grads, step, lr_sched)
         with torch.no_grad():
             opt = tree_opt(gossip_round_step(step, every), gossips(step))
             new_x, new_opt = opt.step(params, grads, state["opt"])
-            metrics = {"loss": losses.mean(),
-                       "consensus": consensus_distance(new_x),
-                       "grad_norm": tree_sqnorm(grads).sqrt()}
+            metrics = step_metrics(losses, new_x, grads)
         return {"params": new_x, "opt": new_opt, "step": step + 1}, metrics
 
     train_step.static = (StaticBusStep(

@@ -150,14 +150,29 @@ def rank_slice(arr, a0: int, B: int, shard: int = 0, shards: int = 1):
 def rank_state_from_arrays(state: Mapping[str, Any], a0: int, B: int,
                            shard: int = 0, shards: int = 1,
                            device="cpu") -> Dict[str, Any]:
-    """A bus train state of numpy arrays (the JAX package's ``init_state``
-    or train step, at ``shards`` 1 or S) sliced to one rank's block
-    (:func:`rank_slice`: agents ``[a0, a0 + B)``, row shard ``shard``; an
-    overlap pipeline's slots each so) and carried as
+    """A train state of numpy arrays (the JAX package's ``init_state`` or
+    train step) sliced to one rank's block and carried as
     :func:`train_state_from_arrays` carries a whole state: the state a
-    multi-rank step of the port takes on that rank."""
+    multi-rank step of the port takes on that rank.  A bus state (at
+    ``shards`` 1 or S) gives :func:`rank_slice`'s block of each bus —
+    agents ``[a0, a0 + B)``, row shard ``shard`` — and an overlap
+    pipeline's slots each so; a tree state gives agents ``[a0, a0 + B)`` of
+    every leaf of the parameters and of every optimizer slot (a tree has
+    no row shards)."""
     if isinstance(state["params"], Mapping):
-        raise ValueError("a rank's block is taken of a bus state")
+        if shards != 1:
+            raise ValueError("a tree state is split by agents only: the row "
+                             "shards of agents='pod' hold a bus")
+
+        def block(tree):
+            flat: Dict[str, np.ndarray] = {}
+            _walk(tree, "", flat)
+            return {p: np.asarray(a)[a0:a0 + B] for p, a in flat.items()}
+
+        return train_state_from_arrays(
+            {"params": block(state["params"]),
+             "opt": {k: block(v) for k, v in state["opt"].items()},
+             "step": state["step"]}, device)
     out = {"params": rank_slice(np.asarray(state["params"]), a0, B, shard,
                                 shards),
            "opt": {k: rank_slice(np.asarray(v), a0, B, shard, shards)

@@ -1877,3 +1877,99 @@ def test_cuda_table_peer_flag_timeout_raises(cuda, tmp_path):
     recs = _table_peer_check(tmp_path, 2, timeout=2.0, timeout_case=True)
     assert recs[0]["ok"], recs[0]
     assert "waited more than 2 s" in recs[0]["raised"]
+
+
+# ---------------------------------------------------------------------------
+# a rank's tree through the peer transports (the tree path across ranks)
+# ---------------------------------------------------------------------------
+
+# a ragged bf16 tree: no leaf fills whole 128-wide rows
+TREE_SHAPES = {"a|w": (7, 33), "b|bias": (5,), "c|emb": (129, 3),
+               "d|norm": (1,)}
+
+
+def _agents_tree(device, seed):
+    """A 2-agent bf16 tree of :data:`TREE_SHAPES` with NaN and ±Inf in it."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    tree = {}
+    for p, shape in TREE_SHAPES.items():
+        v = torch.randn((2,) + shape, generator=gen, device=device)
+        flat = v.view(-1)
+        flat[0] = float("nan")
+        flat[-1] = float("inf") if len(tree) % 2 else float("-inf")
+        tree[p] = v.to(torch.bfloat16)
+    return tree
+
+
+def _same_tree(got, want):
+    return all(bool(((g.view(torch.int16) == w.view(torch.int16))
+                     | (torch.isnan(g) & torch.isnan(w))).all())
+               and g.dtype == w.dtype and g.shape == w.shape
+               for g, w in ((got[p], want[p]) for p in want))
+
+
+def _tree_peer_rank(rank, world, d):
+    """One rank of :func:`test_cuda_tree_peer_bit_equal_to_one_process`: its
+    agent's block of a bf16 tree mixed across the two ranks on the ring
+    (the peer ring) and on a masked round (the peer table), each over two
+    epochs, against the one-process per-leaf fused combine of the whole
+    tree (``gossip_axpy`` / ``table_combine`` a leaf)."""
+    import json
+    from pathlib import Path
+    import torch.distributed as dist
+    from repro_torch.core import ring
+    from repro_torch.core.elastic import DropPlan, ElasticSchedule
+    from repro_torch.core.mixing import (make_mixer, make_schedule_mixer,
+                                         mix_ppermute)
+    from repro_torch.core.schedule import StaticSchedule
+    from repro_torch.launch.mesh import init_distributed, make_gossip_mesh
+    dev = init_distributed("cuda", init_method=f"file://{d}/store",
+                           rank=rank, world_size=world, timeout_s=300)
+    mesh = make_gossip_mesh(world, agents_per_device=1, device=dev)
+    masked = ElasticSchedule(StaticSchedule(ring(world)), DropPlan.from_json(
+        {"n_agents": world, "epochs": [{"start": 0, "down": [1]}]}))
+    rec = {"rank": rank, "shared": mesh.shared, "ok": True, "launches": []}
+    for sched, one in ((StaticSchedule(ring(world)),
+                        lambda t: mix_ppermute(ring(world), t,
+                                               agents_per_device=world,
+                                               use_fused_kernel=True)),
+                       (masked, make_mixer(masked.round(0), "ppermute",
+                                           agents_per_device=world,
+                                           use_fused_kernel=True))):
+        mix = make_schedule_mixer(sched, "ppermute", use_fused_kernel=True,
+                                  mesh=mesh)
+        for epoch in range(2):
+            full = _agents_tree(dev, seed=11 + epoch)
+            mine = {p: v[rank:rank + 1].contiguous() for p, v in full.items()}
+            ops.reset_launch_counts()
+            got = mix(mine, step=0)
+            torch.cuda.synchronize()
+            rec["launches"].append({k: v for k, v in
+                                    ops.launch_counts().items() if v})
+            want = {p: v[rank:rank + 1] for p, v in one(full).items()}
+            rec["ok"] &= _same_tree(got, want)
+        torch.cuda.synchronize()
+        dist.barrier()
+        mix.close()
+    Path(d, f"rank{rank}.json").write_text(json.dumps(rec))
+    dist.destroy_process_group()
+
+
+@pytest.mark.requires_cuda
+def test_cuda_tree_peer_bit_equal_to_one_process(cuda, tmp_path):
+    """Two ranks on the card, one agent each: a ragged bf16 tree (NaN and
+    ±Inf in it) packed into one f32 payload goes through the peer ring on
+    the ring round and through the peer table on a masked round, one
+    launch a mix, and each rank's leaves come back bit-equal to its rows of
+    the one-process per-leaf fused combine."""
+    import json
+    import torch.multiprocessing as mp
+    from repro_torch.kernels import build
+    build.build_all()
+    mp.spawn(_tree_peer_rank, args=(2, str(tmp_path)), nprocs=2, join=True)
+    recs = [json.loads((tmp_path / f"rank{r}.json").read_text())
+            for r in range(2)]
+    for r in recs:
+        assert r["ok"] and r["shared"], r
+        assert r["launches"] == [{"ring_peer": 1}] * 2 + \
+            [{"table_peer": 1}] * 2, r

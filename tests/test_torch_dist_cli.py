@@ -1,6 +1,8 @@
 """The train CLI across ranks under ``torchrun --standalone`` on the CPU
 (gloo): ``--agents 4 --agents-per-device 1``, ``--agents pod --pods 2
---shards 2`` and ``--overlap delayed`` with a ``--straggler`` plan.  Each
+--shards 2``, ``--overlap delayed`` with a ``--straggler`` plan and the
+tree path (``--algorithm dsgt``, whose printed losses also equal the
+one-process run's).  Each
 run's ``--ckpt`` (gathered to rank 0; the overlap's with its pipeline)
 equals, array by array, the one-process CLI run's of the same agents,
 steps and tokens; a multi-rank ``--resume`` of the one-process file
@@ -25,6 +27,7 @@ BASE = ["--arch", "smollm_360m", "--smoke", "--gossip-engine", "ppermute",
 # the overlap run: ring slot 1 late at step 1 (K = 3: self, left, right)
 OVERLAP = ["--agents", "4", "--overlap", "delayed", "--straggler",
            '{"late": [[1, [1]]]}', "--steps", "2"]
+TREE = ["--agents", "4", "--algorithm", "dsgt"]
 
 
 def _torchrun(args, n=4):
@@ -57,6 +60,13 @@ def one_process(tmp_path_factory):
                       "--ckpt", str(d / "one4_resumed.npz")])
     tcli.main(BASE + OVERLAP + ["--agents-per-device", "4",
                                 "--ckpt", str(d / "one_overlap.npz")])
+    tree = tcli.main(BASE + TREE + ["--agents-per-device", "4", "--steps",
+                                    "2", "--ckpt", str(d / "one_tree.npz")])
+    (d / "one_tree_losses.txt").write_text(" ".join(
+        f"loss={m['loss']:.4f}" for m in tree["metrics"]))
+    tcli.main(BASE + TREE + ["--agents-per-device", "4", "--steps", "1",
+                             "--resume", str(d / "one_tree.npz"),
+                             "--ckpt", str(d / "one_tree_resumed.npz")])
     return d
 
 
@@ -92,6 +102,21 @@ def test_cli_overlap_with_straggler_four_ranks_equals_one_process(
     _same_files(d / "ranks_overlap.npz", d / "one_overlap.npz")
     with np.load(d / "ranks_overlap.npz") as f:
         assert int(f["pipeline|parity"]) == 0
+
+
+def test_cli_tree_path_four_ranks_equals_one_process(one_process):
+    d = one_process
+    out = _torchrun(TREE + ["--agents-per-device", "1", "--steps", "2",
+                            "--ckpt", str(d / "ranks_tree.npz")])
+    assert "alg=dsgt" in out and "+tree" in out and "gossip=permutes" in out
+    losses = " ".join(w for w in out.split() if w.startswith("loss="))
+    assert losses == (d / "one_tree_losses.txt").read_text()
+    _same_files(d / "ranks_tree.npz", d / "one_tree.npz")
+    out = _torchrun(TREE + ["--agents-per-device", "1", "--steps", "1",
+                            "--resume", str(d / "one_tree.npz"),
+                            "--ckpt", str(d / "ranks_tree_resumed.npz")])
+    assert "resumed <-" in out
+    _same_files(d / "ranks_tree_resumed.npz", d / "one_tree_resumed.npz")
 
 
 def test_cli_ranked_run_needs_torchrun():

@@ -156,15 +156,17 @@ def test_serve_cli_without_device_raises_without_gpu(no_gpu, flags):
 def test_unported_levers_raise():
     from repro_torch.core.comm import GossipMesh
     model = build_model(get_smoke_config("smollm_360m"))
-    # the tree path across ranks is not ported (a hand-built grid: the
-    # refusal comes before any collective)
+    # the tree across ranks splits agents, never an agent's rows: the tree
+    # with agents="pod" (shard_axes) is refused, as the reference asserts
+    # (a hand-built grid: the refusal comes before any collective)
     grid = GossipMesh((4,), ("data",), 4, 1, 1, 0, (0,), ((0, 1, 2, 3),),
                       (None,), None, None, torch.device("cpu"), "gloo",
                       False, ("h0",) * 4)
     run = RunConfig(gossip_engine="ppermute", agents_per_device=1,
-                    packed_bus=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_train_step(model, run, ring(4), device="cpu", mesh=grid)
+                    packed_bus=False, agents="pod")
+    with pytest.raises(ValueError, match="packed bus only"):
+        build_train_step(model, run, ring(4), device="cpu", mesh=grid,
+                         shard_axes="data")
     # pod agents and the overlapped pipeline over two devices are ported:
     # they run across ranks, so they need a mesh
     for kw in (dict(agents="pod"),
