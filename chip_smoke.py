@@ -307,10 +307,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    timed one rank at a time beside the plain version and one
    ``torch.matmul``, its bound; one ``ring_peer`` and one ``edm_update``
    launch a rank a step, rank 0's profiled step holding one of each and
-   no roll; no flag wait timed out.  The pod mode and the blocked and
-   split plans are not run on one card (the CPU tests hold them over
-   gloo); the NCCL path has run nowhere (gloo on the CPU runs the same
-   permute plan).
+   no roll; no flag wait timed out.  The split (pod × data) plan is not
+   run on one card (the CPU tests hold it over gloo); the NCCL path has
+   run nowhere (gloo on the CPU runs the same permute plan).
 26. the overlapped pipeline, the peer table and policy groups across
    ranks, in phase 25's ranks once it is done: (a) 3 steps of the delayed
    pipeline (``overlap="delayed"``) on the ring with the ring's slot 1
@@ -332,8 +331,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    exactly (a) 3 EDM + 2 ring + 1 table, (b) 4 EDM + 5 ring + 1 table (no
    gossip launch for the embeddings' rows); the recorder's marks put the
    publish before each step's forward and backward pass and the combine
-   after; no flag wait timed out.  The bf16 / int8 wires across ranks are
-   not run on one card (the CPU tests hold them over gloo).
+   after; no flag wait timed out.
 27. the tree path across ranks, in phase 25's ranks after 26: one agent
    of ``smollm_360m`` a rank at full width and depth (its 12 bf16 tree
    leaves), ``packed_bus=False``, fused kernels, eager, (a) 2 EDM steps on
@@ -348,11 +346,35 @@ Phases, in order; any failure raises and the script exits non-zero:
    (the sums run in another order); launches a rank a step exactly (a)
    12 ``edm_update`` + 1 ``ring_peer``, (b) 2 ``ring_peer`` at step 0 and
    2 ``table_peer`` at step 1, no ``edm_update``; rank 0's profiled last
-   step of each holds no roll; no flag wait timed out.  B > 1 a rank and
-   the wires across ranks are not run on one card (the CPU tests hold
-   them over gloo).
+   step of each holds no roll; no flag wait timed out.
+28. the wires, agent blocks and row shards across ranks, in phase 25's
+   ranks after 27, ``smollm_360m`` at full width and depth from seed 0,
+   fused kernels, eager (``WIRE_RUNS``): four ranks × one agent, bus
+   ``(1, 3195392, 128)`` a rank — (a) 3 ``wire="int8"`` EF steps on the
+   ring, (b) 2 ``wire="bf16"`` steps on ``round_robin`` over ``exp``, (c)
+   3 steps of the delayed int8 pipeline with ring slot 1 late at step 1,
+   (d) 2 steps (one even, one odd) of phase 14's policy groups; ranks 0–1
+   × two agents, bus ``(2, 3195392, 128)`` a rank, ranks 2–3 outside the
+   mesh — (e) 3 f32 steps on ring(4) with agent 3 down at step 2, then 2
+   int8 steps; two pods × two row shards, a rank's ``(1, 1597952, 128)``
+   rows — (f) 2 f32 steps on ring(2) through the peer ring, then 1 int8
+   step.  Every wire and block round goes through the peer table: the
+   bf16 and f32-block forms of ``csrc/table_peer.cu`` and the peer q8
+   kernel ``csrc/table_peer_q8.cu`` (the EF kernel, the overlap's encode
+   and a wired group's encode write the payload into the table's slot).
+   Gates, each against a one-process eager fused run of the same agents
+   and steps: per-agent losses bit-equal; digests of x, m, ψ, e (and the
+   pipeline's live slot) equal, a shard's of its rows; a rank's launches
+   a step exactly ``WIRE_LAUNCHES`` — the one-process step's with each
+   one-card combine replaced by one peer combine; rank 0's profiled last
+   step of each run holding what its counters say, no roll; no flag wait
+   timed out.  The q8, bf16 and f32-block forms bit-equal to their plain
+   versions on every rank's final payloads (rank 0's poisoned with NaN
+   and ±Inf; ring, exp, late and masked rounds), the first three timed
+   one rank at a time on the ring round beside the plain version, the
+   bound and (bf16, f32 blocks) one ``torch.matmul``.
 
-Phases run in the order 1–3, 3w, 3r, 3m, 3f, 25–27 (26 and 27 in 25's
+Phases run in the order 1–3, 3w, 3r, 3m, 3f, 25–28 (26–28 in 25's
 ranks),
 4–6, 4r, 6r, 4g, 4w–6w, 12, 13, 14, 4t–6t, 7–11, 15–24; a ``[time]``
 line before each gives the seconds since the start and those of the
@@ -363,6 +385,7 @@ the line before the last ``{"kernels": [...]}`` and the last
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
 import json
@@ -2496,7 +2519,9 @@ TRACED = (("edm_update", "edm_update_kernel"), ("edm_update_ef", "edm_ef_"),
           ("gossip_axpy_q8", "gossip_axpy_q8_kernel"),
           ("ring_combine", "ring_combine_kernel"),
           ("ring_peer", "ring_peer_kernel"),
-          ("table_combine", "table_combine_kernel"))
+          ("table_combine", "table_combine_kernel"),
+          ("table_peer", "table_peer_kernel"),
+          ("table_peer_q8", "table_peer_q8_kernel"))
 
 
 def traced_launches(rows):
@@ -2616,6 +2641,8 @@ BUCKETS = (("edm_update kernel", ("edm_update_kernel",)),
            ("ring_peer kernel", ("ring_peer_kernel",)),
            ("peer flags", ("flag_wait_kernel", "flag_signal_kernel")),
            ("table_combine kernel", ("table_combine_kernel",)),
+           ("table_peer kernels", ("table_peer_kernel",
+                                   "table_peer_q8_kernel")),
            ("paged_attention kernel", ("paged_decode_mma_kernel",
                                        "paged_decode_simt_kernel")),
            ("paged_prefill kernel", ("paged_prefill_kernel",
@@ -4075,6 +4102,53 @@ TREE_STEPS = 2
 TREE_RUNS = {"edm": dict(packed_bus=False),
              "dsgt": dict(algorithm="dsgt", packed_bus=False,
                           topology="exp", gossip_schedule="round_robin")}
+# phase 28: the wires, agent blocks and row shards across ranks.  A run:
+# its RunConfig over the main cell's, its steps, agents a rank (B), row
+# shards an agent (S), its churn plan and straggler plan.  Four ranks × one
+# agent: (a) the int8 wire on the ring, (b) the bf16 wire on round_robin
+# over exp, (c) the delayed pipeline on the int8 wire with ring slot 1 late
+# at step 1, (d) phase 14's policy groups (one even and one odd step);
+# ranks 0–1 × two agents, ranks 2–3 outside the mesh: (e) f32 on ring(4)
+# with agent 3 down at step 2, then the int8 wire; two pods × two row
+# shards: (f) f32 on ring(2), then the int8 wire
+WireRun = collections.namedtuple("WireRun", "kw steps B S churn late")
+BLOCK_CHURN = {"n_agents": AGENTS, "epochs": [{"start": 0, "down": []},
+                                              {"start": 2, "down": [3]}]}
+POD_AGENTS = 2
+WIRE_RUNS = {
+    "wire_int8": WireRun(dict(wire="int8"), 3, 1, 1, None, None),
+    "wire_bf16": WireRun(dict(wire="bf16", topology="exp",
+                              gossip_schedule="round_robin"), 2, 1, 1, None,
+                         None),
+    "wire_overlap": WireRun(dict(wire="int8", overlap="delayed"), 3, 1, 1,
+                            None, OVERLAP_LATE),
+    "wire_groups": WireRun(dict(gossip_groups=GROUP_POLICY), 2, 1, 1,
+                           None, None),
+    "block_f32": WireRun({}, 3, 2, 1, BLOCK_CHURN, None),
+    "block_int8": WireRun(dict(wire="int8"), 2, 2, 1, None, None),
+    "pod_f32": WireRun({}, 2, 1, 2, None, None),
+    "pod_int8": WireRun(dict(wire="int8"), 1, 1, 2, None, None)}
+# a rank's launches a step in each: every one-card combine of the
+# one-process run (ONE_CARD) replaced by exactly one peer combine
+ONE_CARD = ("gossip_axpy", "gossip_axpy_q8", "table_combine", "ring_combine")
+PEER_COMBINES = ("ring_peer", "table_peer", "table_peer_q8")
+WIRE_LAUNCHES = {
+    "wire_int8": [{"edm_update_ef": 1, "table_peer_q8": 1}] * 3,
+    "wire_bf16": [{"edm_update_ef": 1, "table_peer": 1}] * 2,
+    "wire_overlap": [{"edm_update": 1, "table_peer_q8": 1}] * 3,
+    "wire_groups": [{"edm_update": 1, "ring_peer": 1, "table_peer": 1},
+                    {"edm_update": 1, "ring_peer": 1, "table_peer": 1,
+                     "table_peer_q8": 1}],
+    "block_f32": [{"edm_update": 1, "table_peer": 1}] * 3,
+    "block_int8": [{"edm_update_ef": 1, "table_peer_q8": 1}] * 2,
+    "pod_f32": [{"edm_update": 1, "ring_peer": 1}] * 2,
+    "pod_int8": [{"edm_update_ef": 1, "table_peer_q8": 1}]}
+# the peer kernels' new forms, held bit-equal on the final payloads of a
+# run (every TABLE_CASES round) and, where timed, one rank at a time on
+# the ring round: run → form
+FORM_CHECKS = {"wire_int8": ("q8", True), "wire_bf16": ("bf16", True),
+               "block_f32": ("block", True), "block_int8": ("q8_block",
+                                                            False)}
 
 
 def bus_digest(t) -> list:
@@ -4100,30 +4174,34 @@ def bus_digest(t) -> list:
 
 
 def rank_bufs(state) -> dict:
-    """The buffers phases 26 and 27 compare: on the bus x, m, ψ and, under
-    the overlap, the pipeline's live slot; on the tree every leaf of x and
-    of every optimizer slot (``x|<path>``, ``<slot>|<path>``)."""
+    """The buffers phases 26–28 compare: on the bus x, m, ψ, the wire's
+    residual e and, under the overlap, the pipeline's live slot; on the
+    tree every leaf of x and of every optimizer slot (``x|<path>``,
+    ``<slot>|<path>``)."""
     if isinstance(state["params"], dict):
         out = {f"x|{p}": v for p, v in state["params"].items()}
         for slot, tree in state["opt"].items():
             out.update({f"{slot}|{p}": v for p, v in tree.items()})
         return out
-    out = {"x": state["params"], "m": state["opt"]["m"],
-           "psi": state["opt"]["psi"]}
+    out = {"x": state["params"], **{k: state["opt"][k] for k in (
+        "m", "psi", "e") if k in state["opt"]}}
     pipe = state.get("pipeline")
     if pipe is not None:
         out["phi"] = pipe["slot"][int(pipe["parity"])]
     return out
 
 
-def one_process_run(model, run, batches, plan=None, digests=False):
-    """A one-process 4-agent eager run of ``run`` on the card under
-    deterministic algorithms, the references of phases 25–27: the
-    per-step per-agent losses (read off the trainer's ``losses_and_grads``
-    or, on the tree, ``tree_losses_and_grads``), the metrics, the step
-    seconds, the launches, and the final buses (phase 25: x and ψ, kept on
-    the card for the ranks) or the per-agent digests of every buffer
-    (:func:`rank_bufs`)."""
+def one_process_run(model, run, batches, plan=None, digests=False,
+                    agents=AGENTS, churn=None, shard_rows=None):
+    """A one-process eager run of ``run`` over ``agents`` agents (4 by
+    default) on the card under deterministic algorithms, the references of
+    phases 25–28: the per-step per-agent losses (read off the trainer's
+    ``losses_and_grads`` or, on the tree, ``tree_losses_and_grads``), the
+    metrics, the step seconds, the launches (in all and a step), and the
+    final buses (phase 25: x and ψ, kept on the card for the ranks) or the
+    per-agent digests of every buffer (:func:`rank_bufs`; with
+    ``shard_rows`` one a row shard of each agent).  ``churn``: a drop plan
+    over the schedule."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.train import (build_train_step, init_state,
@@ -4139,11 +4217,12 @@ def one_process_run(model, run, batches, plan=None, digests=False):
             return losses, g
         return spy
 
-    state = init_state(model, run, AGENTS, seed=0, device="cuda")
-    step = build_train_step(model, run, make_gossip_schedule(run, AGENTS),
+    state = init_state(model, run, agents, seed=0, device="cuda")
+    step = build_train_step(model, run,
+                            make_gossip_schedule(run, agents, churn=churn),
                             use_fused_kernel=True, device="cuda",
                             straggler_plan=plan)
-    secs, metrics = [], []
+    secs, metrics, per_step = [], [], []
     trainer.losses_and_grads = spy_of(inner)
     trainer.tree_losses_and_grads = spy_of(tinner)
     ops.reset_launch_counts()
@@ -4151,21 +4230,30 @@ def one_process_run(model, run, batches, plan=None, digests=False):
     torch.use_deterministic_algorithms(True)
     try:
         for b in batches:
+            before = ops.launch_counts()
             t0 = time.perf_counter()
             state, m = step(state, {k: v.cuda() for k, v in b.items()})
             metrics.append({k: float(m[k]) for k in ("loss", "consensus",
                                                      "grad_norm")})
             secs.append(time.perf_counter() - t0)
+            per_step.append({k: v - before[k] for k, v in
+                             ops.launch_counts().items() if v - before[k]})
     finally:
         trainer.losses_and_grads = inner
         trainer.tree_losses_and_grads = tinner
         torch.use_deterministic_algorithms(False)
     out = {"losses": seen, "seconds": secs, "metrics": metrics,
            "peak_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
-           "launches": {k: v for k, v in ops.launch_counts().items() if v}}
+           "launches": {k: v for k, v in ops.launch_counts().items() if v},
+           "step_launches": per_step}
     if digests:
-        out["digests"] = {k: [bus_digest(v[a]) for a in range(AGENTS)]
-                          for k, v in rank_bufs(state).items()}
+        R = shard_rows
+        out["digests"] = {
+            k: [bus_digest(v[a]) if R is None else
+                [bus_digest(v[a, s * R:(s + 1) * R])
+                 for s in range(-(-v.shape[1] // R))]
+                for a in range(agents)]
+            for k, v in rank_bufs(state).items()}
     else:
         out["x"], out["psi"] = state["params"], state["opt"]["psi"]
     del state, step
@@ -4235,15 +4323,13 @@ def rank_steps(step, state, batches, mesh, rec, tag, profile_last=False):
     rec[f"{tag}_step_launches"] = per_step
     if prof_rows is not None:
         rec[f"{tag}_traced"] = traced_launches(prof_rows)
-        rec[f"{tag}_traced"]["table_peer"] = sum(
-            n for _, n, key in prof_rows if "table_peer_kernel" in key)
         rec[f"{tag}_roll_ms"] = bucket(prof_rows)["roll (gossip terms)"]
     rec[f"{tag}_step_ms"] = [round(t * 1e3, 2) for t in secs]
     rec[f"{tag}_peak_allocated_gib"] = torch.cuda.max_memory_allocated() / 2**30
     rec[f"{tag}_peak_reserved_gib"] = torch.cuda.max_memory_reserved() / 2**30
     rec[f"{tag}_agent_losses"] = losses
     rec[f"{tag}_marks"] = order
-    rec[f"{tag}_digests"] = {k: bus_digest(v)
+    rec[f"{tag}_digests"] = {k: [bus_digest(b) for b in v]
                              for k, v in rank_bufs(state).items()}
     return state
 
@@ -4302,9 +4388,254 @@ def table_checks(table, rank, world, mesh, rec):
         free()
 
 
+def wire_agents(tag: str) -> int:
+    """Agents of phase 28's run ``tag``."""
+    return POD_AGENTS if WIRE_RUNS[tag].S > 1 else AGENTS
+
+
+def wire_batches(tag: str, batches):
+    """Phase 28's run ``tag``'s global batches: the first agents' rows."""
+    A = wire_agents(tag)
+    return [{k: v[:A] for k, v in b.items()}
+            for b in batches[:WIRE_RUNS[tag].steps]]
+
+
+def wire_run_config(tag: str, ranks: bool):
+    """Phase 28's run ``tag``: across ranks (B agents a rank; a pod's
+    agents in row shards) or in one process (every agent on the card)."""
+    wr = WIRE_RUNS[tag]
+    A = wire_agents(tag)
+    return bus_run(global_batch=A, agents_per_device=wr.B if ranks else A,
+                   agents="pod" if ranks and wr.S > 1 else "data", **wr.kw)
+
+
+def wire_plan(tag: str, sched):
+    from repro_torch.core.elastic import StragglerPlan
+    late = WIRE_RUNS[tag].late
+    return None if late is None else StragglerPlan.from_json(
+        late, max(len(r.terms) for r in sched.rounds))
+
+
+def wire_references(model, batches) -> dict:
+    """Phase 28's references: each of ``WIRE_RUNS`` as one one-process
+    eager fused run of its agents (a pod's agents unsharded, its digests
+    taken a row shard at a time)."""
+    from repro_torch.train import bus_layout_for, make_gossip_schedule
+    refs = {}
+    for tag, wr in WIRE_RUNS.items():
+        A = wire_agents(tag)
+        run = wire_run_config(tag, ranks=False)
+        refs[tag] = one_process_run(
+            model, run, wire_batches(tag, batches),
+            wire_plan(tag, make_gossip_schedule(run, A, churn=wr.churn)),
+            digests=True, agents=A, churn=wr.churn,
+            shard_rows=(bus_layout_for(model, A, shards=wr.S).shard_rows
+                        if wr.S > 1 else None))
+    return refs
+
+
+def block_round(case, rank, n_ranks, B):
+    """Rank ``rank``'s ``(K, B)`` columns of a round over ``n_ranks`` × B
+    agents that phase 28 holds the peer kernels on: the ±1 ring, the
+    exponential graph, the ring with every term that reads rank 0's
+    agents from another rank late (it reads the agent itself) and the ring
+    with the last agent down (masked)."""
+    import numpy as np
+    from repro_torch.core import exp_graph, ring
+    from repro_torch.core.elastic import degrade_round
+    from repro_torch.core.mixing import round_tables
+    A = n_ranks * B
+    if case == "exp":
+        src, w = round_tables(exp_graph(A))
+    elif case == "masked":
+        src, w = round_tables(degrade_round(ring(A), [True] * (A - 1)
+                                            + [False]))
+    else:
+        src, w = round_tables(ring(A))
+        if case == "late":
+            own = np.tile(np.arange(A, dtype=src.dtype), (src.shape[0], 1))
+            src = np.where((src // B == 0) & (own // B != 0), own, src)
+    cols = slice(rank * B, (rank + 1) * B)
+    return src[:, cols], w[:, cols]
+
+
+def poison(payload) -> None:
+    """NaN with ±Inf among it over a payload (the int8 wire's: its
+    scales)."""
+    t = (payload[1] if isinstance(payload, tuple) else payload).view(-1)
+    t.fill_(float("nan"))
+    t[1::3] = float("inf")
+    t[2::3] = float("-inf")
+
+
+def peer_form_checks(table, mesh, rec, tag, timed):
+    """Phase 28's kernel checks on one rank: the peer table's kernel in the
+    table's form (the q8 kernel on the int8 wire, the table kernel on bf16
+    or on f32 blocks of B agents) on the ranks' final payloads (the run's
+    last epoch, static now; rank 0's poisoned first with NaN and ±Inf) for
+    each of ``TABLE_CASES`` (:func:`block_round`), bit-equal to its plain
+    version; a late round's output finite where rank 0's payload is not
+    read.  ``timed``: one rank at a time, the ring round timed beside the
+    plain version, the bound and (not the q8 form: no single call) one
+    ``torch.matmul(W, stack)`` on f32 copies of the blocks read."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import ops, ref
+    B, br = table.B, table.block_rows
+    rank, n_ranks = table.me, table.n
+    pays = table.views()
+    if rank == 0:
+        poison(pays[0])
+    torch.cuda.synchronize()
+
+    def clone(p):
+        return tuple(t.clone() for t in p) if isinstance(p, tuple) \
+            else p.clone()
+
+    def run(src, w, payloads, out=None):
+        if br is None:
+            return ops.table_peer(payloads, src, w, out=out)
+        qs, scales = zip(*payloads)
+        return ops.table_peer_q8(qs, scales, src, w, block_rows=br, out=out)
+
+    def plain(src, w, payloads):
+        if br is None:
+            return ref.table_peer_ref(payloads, src, w)
+        qs, scales = zip(*payloads)
+        return ref.table_peer_q8_ref(qs, scales, src, w, block_rows=br)
+
+    out_rec = rec.setdefault("forms", {})[tag] = {"cases": {}}
+    for r in range(n_ranks):
+        dist.barrier(group=mesh.control)
+        if r != rank:
+            continue
+        for case in TABLE_CASES:
+            src, w = block_round(case, rank, n_ranks, B)
+            reads = {int(g) // B for g in src.reshape(-1)}
+            copies = [clone(p) if j in reads else p
+                      for j, p in enumerate(pays)]
+            got = run(src, w, pays)
+            want = plain(src, w, copies)
+            equal, err = compare([got], [want])
+            out_rec["cases"][case] = {
+                "bit_equal": equal, "max_abs_err": err,
+                "finite": bool(torch.isfinite(got).all())}
+            del copies, got, want
+        if timed:
+            src, w = block_round("ring", rank, n_ranks, B)
+            blocks = sorted({int(g) for g in src.reshape(-1)})
+            data = pays[rank][0] if br else pays[rank]
+            n = data[0].numel()               # elements an agent block
+            read = len(blocks) * n * data.element_size()
+            if br:
+                read += len(blocks) * (n // (br * 128)) * 4
+            out_rec.update(
+                shape=list(data.shape), dtype=str(data.dtype).split(".")[-1],
+                blocks_read=len(blocks), bytes=read + 4 * B * n)
+            out_rec["bound_ms"], out_rec["bound_by"] = bound_ms(
+                out_rec["bytes"], (2 * src.shape[0] - (br is None)) * B * n)
+            out = torch.empty((B,) + tuple(data.shape[1:]),
+                              dtype=torch.float32, device=data.device)
+            out_rec["ms"] = time_ms(lambda: run(src, w, pays, out=out))
+            out_rec["plain_ms"] = time_ms(lambda: plain(src, w, pays))
+            out_rec["library_ms"] = None
+            if not br:
+                W = torch.zeros((B, len(blocks)), device=out.device)
+                for b in range(B):
+                    for k in range(src.shape[0]):
+                        W[b, blocks.index(int(src[k, b]))] += float(w[k, b])
+                stack = torch.stack([pays[g // B][g % B].float()
+                                     for g in blocks]).view(len(blocks), -1)
+                lib = torch.matmul(W, stack).view_as(out)
+                out_rec["library_max_abs_diff"] = float(
+                    (lib - out).nan_to_num_(0.0, 0.0, 0.0).abs_().max())
+                del lib
+                out_rec["library_ms"] = time_ms(lambda: torch.matmul(W,
+                                                                     stack))
+                del stack
+            del out
+        free()
+
+
+def wire_run(tag, model, batches, mesh, rank, rec):
+    """Phase 28's run ``tag`` on this rank of ``mesh``: the multi-rank
+    step of ``WIRE_RUNS[tag]`` from seed 0 over its steps
+    (:func:`rank_steps`, rank 0's last step profiled), its transports'
+    flag waits and epochs, its form's kernel checks on the final payloads
+    (``FORM_CHECKS``); the step closed.  Returns the run's seconds."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels.table_peer import PeerTable
+    from repro_torch.train import (build_train_step, init_state,
+                                   make_gossip_schedule)
+    t0 = time.time()
+    wr = WIRE_RUNS[tag]
+    A = wire_agents(tag)
+    run = wire_run_config(tag, ranks=True)
+    sched = make_gossip_schedule(run, A, churn=wr.churn)
+    sa = "data" if wr.S > 1 else None
+    step = build_train_step(model, run, sched, use_fused_kernel=True,
+                            mesh=mesh, shard_axes=sa,
+                            straggler_plan=wire_plan(tag, sched))
+    state = init_state(model, run, A, seed=0, mesh=mesh, shard_axes=sa)
+    rec[f"{tag}_bus"] = list(state["params"].shape)
+    state = rank_steps(step, state, wire_batches(tag, batches), mesh, rec,
+                       tag, profile_last=rank == 0)
+    transports = step.transports()
+    for t in transports:
+        t.raise_on_timeout()
+    rec[f"{tag}_waits"] = sum(getattr(t, "waits", 0) for t in transports)
+    rec[f"{tag}_epochs"] = [t.epoch for t in transports]
+    rec[f"{tag}_peer_gib"] = sum(
+        getattr(t, "_flag_off", 0) / 2**30 for t in transports)
+    del state
+    free()
+    if tag in FORM_CHECKS:
+        table = next(t for t in transports if isinstance(t, PeerTable))
+        peer_form_checks(table, mesh, rec, *FORM_CHECKS[tag])
+    torch.cuda.synchronize()
+    dist.barrier(group=mesh.control)
+    step.close()
+    del step
+    free()
+    return time.time() - t0
+
+
+def wire_ranks(rank, world, model, batches, refs, mesh, rec):
+    """Phase 28 on one rank (after 27): (a)–(d) on the four ranks one
+    agent each, (e) on ranks 0–1 two agents each, (f) on two pods of two
+    row shards; each run's per-agent losses and buffer digests held to
+    its reference (``refs``: a rank's agents' digests, a shard's of its
+    rows).  ``mesh``: phases 25–27's, one agent a rank."""
+    import torch.distributed as dist
+    from repro_torch.core.comm import rank_block
+    from repro_torch.launch.mesh import make_gossip_mesh
+    t28 = time.time()
+    meshes = {1: mesh, 2: make_gossip_mesh(world, agents_per_device=2),
+              "pod": make_gossip_mesh(POD_AGENTS, pods=POD_AGENTS,
+                                      shards=2)}
+    rec["wire_s"] = {}
+    for tag, wr in WIRE_RUNS.items():
+        mesh = meshes["pod" if wr.S > 1 else wr.B]
+        rec[f"{tag}_member"] = mesh.member
+        if mesh.member:
+            rec["wire_s"][tag] = wire_run(tag, model, batches, mesh, rank,
+                                          rec)
+            a0, B, s, _ = rank_block(mesh, wire_agents(tag),
+                                     "data" if wr.S > 1 else None)
+            want = refs[tag]["digests"]
+            rec[f"{tag}_equal"] = all(
+                rec[f"{tag}_digests"][k] == (
+                    [want[k][a0][s]] if wr.S > 1 else want[k][a0:a0 + B])
+                for k in want)
+        dist.barrier()
+    rec["p28_s"] = time.time() - t28
+
+
 def peer_rank(rank: int, world: int, batches, held, refs, out_dir):
-    """Phases 25–27's rank (a spawned process; the one card for every
-    rank), one agent of the main path's model each.
+    """Phases 25–28's rank (a spawned process; the one card for every
+    rank), one agent of the main path's model each (phase 28: also two
+    agents on ranks 0–1, and a pod's row shard).
 
     Phase 25: ring, fused kernels, ``PEER_STEPS`` steps of the multi-rank
     bus step — the peer-pointer ring kernel carries the gossip.  Its
@@ -4327,7 +4658,10 @@ def peer_rank(rank: int, world: int, batches, held, refs, out_dir):
     ``TREE_RUNS`` for ``TREE_STEPS`` steps — the rank's leaves packed into
     the peer transports' f32 payload — against the one-process tree runs'
     per-agent losses, metrics and leaf digests (``refs``), rank 0's last
-    step of each profiled.  Writes ``rank<r>.json``."""
+    step of each profiled.
+
+    Phase 28, after 27: ``WIRE_RUNS`` (:func:`wire_ranks`).  Writes
+    ``rank<r>.json``."""
     import torch
     import torch.distributed as dist
     from torch.profiler import ProfilerActivity, profile
@@ -4505,16 +4839,19 @@ def peer_rank(rank: int, world: int, batches, held, refs, out_dir):
         free()
     rec["tree_s"] = time.time() - t27
     rec["tree_leaves"] = len(model.meta())
+
+    # 28: the wires, agent blocks and row shards across ranks
+    wire_ranks(rank, world, model, batches, refs, mesh, rec)
     for tag in ("overlap", "groups", "tree_edm", "tree_dsgt"):
         rec[f"{tag}_equal"] = all(
-            rec[f"{tag}_digests"][k] == refs[tag]["digests"][k][rank]
+            rec[f"{tag}_digests"][k] == [refs[tag]["digests"][k][rank]]
             for k in refs[tag]["digests"])
     Path(out_dir, f"rank{rank}.json").write_text(json.dumps(rec))
     dist.destroy_process_group()
 
 
 def peer_phase():
-    """Phases 25–27: ``PEER_RANKS`` ranks on the one card, each one agent
+    """Phases 25–28: ``PEER_RANKS`` ranks on the one card, each one agent
     of ``smollm_360m`` at full width and depth (bus ``(1, 3195392, 128)``
     a rank, or its 12 bf16 tree leaves), fused kernels, seq 128, per-agent
     batch 1, α 0.2, β 0.9, spawned once for the three phases.
@@ -4545,9 +4882,10 @@ def peer_phase():
     a step (a) 12 EDM + 1 ring, (b) 2 ring at step 0 and 2 table at step
     1; rank 0's profiled last step of each holds no roll; no flag wait
     timed out.
-    The pod mode and the blocked and split plans, and the bf16 / int8
-    wires across ranks, are not run here (one card; the CPU tests hold
-    them over gloo); the NCCL path has run nowhere."""
+    Phase 28: ``WIRE_RUNS``, each against its one-process run
+    (:func:`wire_references`), gated by :func:`check_wire_ranks`.
+    The split plan is not run here (one card; the CPU tests hold it over
+    gloo); the NCCL path has run nowhere."""
     import shutil
     import torch
     import torch.multiprocessing as mp
@@ -4580,9 +4918,14 @@ def peer_phase():
                                               batches[:TREE_STEPS],
                                               digests=True)
     out["reference27_s"] = time.time() - t0
+    # phase 28's references: one-process runs of each WIRE_RUNS' agents
+    t0 = time.time()
+    refs.update(wire_references(model, batches))
+    out["reference28_s"] = time.time() - t0
     out["references"] = {k: {"step_ms": [round(t * 1e3, 2)
                                          for t in v["seconds"]],
                              "launches": v["launches"],
+                             "step_launches": v["step_launches"],
                              "metrics": v["metrics"],
                              "peak_allocated_gib": v["peak_allocated_gib"]}
                          for k, v in refs.items()}
@@ -4703,7 +5046,62 @@ def peer_phase():
           and ranks[0]["buckets"]["roll (gossip terms)"] == 0,
           f"peer rank 0's traced step: {tr}, roll bucket "
           f"{ranks[0]['buckets']['roll (gossip terms)']}")
+    check_wire_ranks(ranks, refs)
     return out
+
+
+def check_wire_ranks(ranks, refs) -> None:
+    """Phase 28's gates: every member rank of each run's per-agent losses
+    and digests equal to its one-process reference's; its launches a step
+    ``WIRE_LAUNCHES`` — the reference's step with each one-card combine
+    replaced by exactly one peer combine; rank 0's profiled last step
+    holding what its counters say, no roll; every form's kernel bit-equal
+    to its plain version on every round, a late round finite on the ranks
+    that do not read rank 0's poisoned payload.  (A flag wait that timed
+    out raised in the rank.)"""
+    for tag, wr in WIRE_RUNS.items():
+        ref28 = refs[tag]
+        members = [r for r in ranks if r[f"{tag}_member"]]
+        n = AGENTS // wr.B if wr.S == 1 else POD_AGENTS * wr.S
+        check(len(members) == n, f"{tag}: {len(members)} member ranks, "
+              f"expected {n}")
+        for r in members:
+            t = f"peer rank {r['rank']} {tag}"
+            check(r[f"{tag}_agent_losses"] == ref28["losses"],
+                  f"{t}: per-agent losses {r[f'{tag}_agent_losses']} != the "
+                  f"one-process run's {ref28['losses']}")
+            check(r[f"{tag}_equal"], f"{t}: final buffers differ from the "
+                  f"one-process run's ({r[f'{tag}_digests']})")
+            check(r[f"{tag}_step_launches"] == WIRE_LAUNCHES[tag],
+                  f"{t}: launches a step {r[f'{tag}_step_launches']}, "
+                  f"expected {WIRE_LAUNCHES[tag]}")
+            for got, want in zip(r[f"{tag}_step_launches"],
+                                 ref28["step_launches"]):
+                check({k: v for k, v in got.items()
+                       if k not in PEER_COMBINES}
+                      == {k: v for k, v in want.items() if k not in ONE_CARD}
+                      and sum(got.get(k, 0) for k in PEER_COMBINES)
+                      == sum(want.get(k, 0) for k in ONE_CARD),
+                      f"{t}: a step's launches {got} are not the one-process "
+                      f"step's {want} with each one-card combine replaced by "
+                      "one peer combine")
+        r0 = ranks[0]
+        traced = {k: v for k, v in r0[f"{tag}_traced"].items() if v}
+        check(traced == r0[f"{tag}_step_launches"][-1],
+              f"peer rank 0's traced {tag} step holds {traced}, its wrappers "
+              f"counted {r0[f'{tag}_step_launches'][-1]}")
+        check(r0[f"{tag}_roll_ms"] == 0,
+              f"peer rank 0's traced {tag} step rolls: "
+              f"{r0[f'{tag}_roll_ms']} ms")
+    for r in ranks:
+        for form, fr in r.get("forms", {}).items():
+            for case, c in fr["cases"].items():
+                check(c["bit_equal"], f"peer rank {r['rank']}: the {form} "
+                      f"peer kernel differs from its plain version on the "
+                      f"{case} round (max |err| {c['max_abs_err']})")
+            check(r["rank"] == 0 or fr["cases"]["late"]["finite"],
+                  f"peer rank {r['rank']}: the {form} late round's output is "
+                  "not finite")
 
 
 def print_peer(rec, smi: str) -> None:
@@ -4779,12 +5177,86 @@ def print_peer(rec, smi: str) -> None:
           f" s in the ranks (median; per rank "
           f"{[round(r['tree_s'], 1) for r in rec['ranks']]}), its "
           f"one-process references {rec['reference27_s']:.1f} s", flush=True)
-    print("[peer] not run on this card: the pod mode (row shards), the "
-          "blocked and split permute plans and the bf16 / int8 wires across "
-          "ranks (the CPU tests hold them over gloo against the JAX "
-          "package); NCCL: not run anywhere (one card: NCCL refuses two "
-          "ranks on it; gloo on the CPU runs the same permute plan)",
+    print_wire_ranks(rec, smi)
+    print("[peer] not run on this card: the split (pod × data) permute "
+          "plan (the CPU tests hold it over gloo against the JAX package); "
+          "NCCL: not run anywhere (one card: NCCL refuses two ranks on it; "
+          "gloo on the CPU runs the same permute plan)", flush=True)
+
+
+def print_wire_ranks(rec, smi: str) -> None:
+    """Phase 28's lines: each member rank's run, each form's kernel, the
+    one-process references and the phase's time."""
+    for r in rec["ranks"]:
+        for tag in WIRE_RUNS:
+            if not r[f"{tag}_member"]:
+                continue
+            print(f"[peer28] rank {r['rank']} {tag} bus {r[f'{tag}_bus']}: "
+                  f"step ms {r[f'{tag}_step_ms']}, loss {r[f'{tag}_loss']}, "
+                  f"launches a step {r[f'{tag}_step_launches']}, torch peak "
+                  f"{r[f'{tag}_peak_allocated_gib']:.2f} / "
+                  f"{r[f'{tag}_peak_reserved_gib']:.2f} GiB (peer buffers "
+                  f"{r[f'{tag}_peer_gib']:.2f} GiB outside it), flag waits "
+                  f"{r[f'{tag}_waits']} (none timed out), bit-equal to the "
+                  f"one-process run {r[f'{tag}_equal']}; {smi}", flush=True)
+        for form, fr in r.get("forms", {}).items():
+            cases = {k: v["bit_equal"] for k, v in fr["cases"].items()}
+            timed = "not timed"
+            if "ms" in fr:
+                lib = ("—" if fr["library_ms"] is None
+                       else f"{fr['library_ms']:.3f}")
+                timed = (f"{fr['ms']:.4f} ms on the ring round (plain "
+                         f"{fr['plain_ms']:.3f}, library {lib}, bound "
+                         f"{fr['bound_ms']:.4f} ms {fr['bound_by']}, "
+                         f"{fr['bound_ms'] / fr['ms']:.1%} of it; "
+                         f"{fr['dtype']} {fr['shape']}, {fr['blocks_read']} "
+                         f"blocks read, {fr['bytes'] / 1e9:.2f} GB)")
+            print(f"[peer28] rank {r['rank']} {form}: {timed}; bit-equal "
+                  f"{cases}; {smi}", flush=True)
+    for tag in WIRE_RUNS:
+        ref = rec["references"][tag]
+        print(f"[peer28] {tag}: the one-process run step ms {ref['step_ms']}"
+              f" launches a step {ref['step_launches']} peak "
+              f"{ref['peak_allocated_gib']:.2f} GiB", flush=True)
+    r0 = rec["ranks"][0]
+    print(f"[peer28] rank 0's profiled last steps: "
+          f"{ {t: {k: v for k, v in r0[f'{t}_traced'].items() if v} for t in WIRE_RUNS} }"
+          f", roll ms {[r0[f'{t}_roll_ms'] for t in WIRE_RUNS]}", flush=True)
+    print(f"[time] phase 28 took "
+          f"{statistics.median(r['p28_s'] for r in rec['ranks']):.1f} s in "
+          f"the ranks (median; per rank "
+          f"{[round(r['p28_s'], 1) for r in rec['ranks']]}; rank 0's runs "
+          f"{ {k: round(v, 1) for k, v in rec['ranks'][0]['wire_s'].items()} }"
+          f"), its one-process references {rec['reference28_s']:.1f} s",
           flush=True)
+
+
+def wire_launches(ranks, name: str) -> dict:
+    """Phase 28: each run's member ranks' launches of kernel ``name``."""
+    return {t: [r[f"{t}_launches"].get(name, 0) for r in ranks
+                if r[f"{t}_member"]] for t in WIRE_RUNS}
+
+
+def form_summary(ranks, form: str) -> dict:
+    """Phase 28: a peer kernel form's timing over the ranks (medians) and
+    its bit-equality on every round."""
+    recs = [r["forms"][form] for r in ranks if form in r.get("forms", {})]
+    libs = [f["library_ms"] for f in recs if f["library_ms"] is not None]
+    return {"ms": statistics.median(f["ms"] for f in recs),
+            "ms_per_rank": [f["ms"] for f in recs],
+            "plain_ms": statistics.median(f["plain_ms"] for f in recs),
+            "bound_ms": recs[0]["bound_ms"], "bound_by": recs[0]["bound_by"],
+            "library_ms": statistics.median(libs) if libs else None,
+            "library": ("torch.matmul(W (B, blocks), stack of the blocks "
+                        "read as f32 copies), cuBLAS, TF32 off" if libs
+                        else None),
+            "max_abs_err": max(c["max_abs_err"] for f in recs
+                               for c in f["cases"].values()),
+            "bit_equal": all(c["bit_equal"] for f in recs
+                             for c in f["cases"].values()),
+            "shape": recs[0]["shape"], "dtype": recs[0]["dtype"],
+            "blocks_read": recs[0]["blocks_read"],
+            "bytes": recs[0]["bytes"]}
 
 
 def print_fixed_batch(tag: str, arch: str, cli_args, rec, smi: str):
@@ -5038,12 +5510,13 @@ def main() -> None:
     print(f"[flash] the op at (a) and (b): launches {flash_counts}",
           flush=True)
 
-    clock("25")
-    # 25–26. multi-rank gossip: 4 ranks on the one card, the peer-pointer
+    clock("25-28")
+    # 25–28. multi-rank gossip: 4 ranks on the one card, the peer-pointer
     # ring (25); the delayed pipeline with a straggler, the peer table
-    # kernel and policy groups across ranks (26).  They run here, while
-    # this process holds next to nothing on the card: the four ranks and
-    # their peer buffers take most of it
+    # kernel and policy groups across ranks (26); the tree path (27); the
+    # wires, agent blocks and row shards (28).  They run here, while this
+    # process holds next to nothing on the card: the four ranks and their
+    # peer buffers take most of it
     peer = peer_phase()
     print_peer(peer, smi)
 
@@ -5873,9 +6346,36 @@ def main() -> None:
                          for c in r["table_cases"].values()),
         "cases": list(TABLE_CASES), "timed_case": "ring",
         "shape": pr[0]["bus"], "bytes": pr[0]["table_bytes"],
+        "timing": TIMING + "; one rank timed at a time, the others idle",
+        # phase 28: the bf16 wire's and the f32 agent blocks' forms
+        "forms": {f: form_summary(pr, f) for f in ("bf16", "block")}})
+    kernels.append({
+        "name": "table_peer_q8", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/table_peer_q8.cu",
+        "replaces": "src/repro/kernels/edm_update.py:239",
+        "launches": sum(n for v in wire_launches(pr, "table_peer_q8").values()
+                        for n in v),
+        "launches_of": "phase 28: the int8 runs of WIRE_RUNS (each member "
+                       "rank's count, summed)",
+        **form_summary(pr, "q8"),
+        "max_abs_err": max(c["max_abs_err"] for r in pr
+                           for f in ("q8", "q8_block")
+                           for c in r["forms"].get(f, {}).get(
+                               "cases", {}).values()),
+        "bit_equal": all(c["bit_equal"] for r in pr
+                         for f in ("q8", "q8_block")
+                         for c in r["forms"].get(f, {}).get(
+                             "cases", {}).values()),
+        "cases": list(TABLE_CASES), "timed_case": "ring",
         "timing": TIMING + "; one rank timed at a time, the others idle"})
     for rec in kernels:
         name = rec["name"]
+        counter = ("edm_update_ef" if name.startswith("edm_update_ef")
+                   else name)
+        if counter in ("edm_update", "edm_update_ef", "ring_peer",
+                       "table_peer", "table_peer_q8"):
+            # phase 28: each run's member ranks' launches
+            rec["launches_phase28"] = wire_launches(pr, counter)
         if name in ("edm_update", "ring_peer", "table_peer"):
             # phase 27: the tree path across ranks, each rank's launches
             rec["launches_phase27"] = {

@@ -20,10 +20,11 @@ every agent on one device (tests assert they agree):
   source → target pairs, hierarchical terms on the ``pod`` / ``data``
   axis, blocked rolls of B > 1 agents a rank, row shards), the same
   combine kernels, so a multi-rank run is bit-equal to the one-process
-  run; a flat ±1 ring on the card runs the peer-pointer ring kernel
-  (:mod:`repro_torch.kernels.ring_peer`), any other round the peer table
-  kernel, a rank's tree packed into one f32 payload
-  (:class:`TreePayload`).  :func:`mix_dense_sharded` is the
+  run; a flat ±1 ring of one f32 agent a rank on the card runs the
+  peer-pointer ring kernel (:mod:`repro_torch.kernels.ring_peer`), any
+  other round, wire (the int8 one through the peer q8 kernel), agent
+  block or row shard the peer table kernels, a rank's tree packed into
+  one f32 payload (:class:`TreePayload`).  :func:`mix_dense_sharded` is the
   shard-resident dense oracle.
 
 :func:`accumulate_f32` wraps a tree op so that sub-f32 leaves go up to
@@ -98,7 +99,7 @@ from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels import ring_dma
 from repro_torch.kernels.ring_peer import PeerRing
-from repro_torch.kernels.table_peer import MAX_SOURCES, PeerTable
+from repro_torch.kernels.table_peer import MAX_BLOCK, MAX_SOURCES, PeerTable
 
 from . import comm as coll
 from .comm import axes_group, gossip_agent_axes
@@ -617,22 +618,53 @@ class TreePayload:
                 .view(v.shape).to(v.dtype) for p, v in like.items()}
 
 
-def _payload_unfit(x) -> str:
-    """Why ``x`` is no payload of the peer transports, or '': a ``(1, rows,
-    128)`` f32 bus, or a tree of one agent's f32 / bf16 leaves
+def _payload_unfit(x, wire: Optional[WireCodec] = None, B: int = 1) -> str:
+    """Why ``x`` is no payload of the peer transports, or '': a ``(B,
+    rows, 128)`` f32 bus block, the bf16 wire's ``(B, rows, 128)`` payload,
+    the int8 wire's ``(q, scale)`` (``(B, rows, 128)`` int8, ``(B, rows //
+    block_rows)`` f32), or a tree of one agent's f32 / bf16 leaves
     (:class:`TreePayload`)."""
     if isinstance(x, Mapping):
         bad = sorted(p for p, v in x.items()
                      if v.dtype not in _TREE_DTYPES or v.shape[:1] != (1,))
-        if x and not bad:
+        if x and not bad and B == 1:
             return ""
         return (f"needs a tree of one agent's f32 / bf16 leaves, got "
-                f"{[(p, str(x[p].dtype), tuple(x[p].shape)) for p in bad[:3]]}")
-    if ring_dma.bus_payload(x, 1):
+                f"{[(p, str(x[p].dtype), tuple(x[p].shape)) for p in bad[:3]]}"
+                f" at {B} agents a rank")
+    want = torch.float32 if wire is None else wire.wire_dtype
+    leaves = (x,) if wire is None else wire.payload_leaves(x)
+    q = leaves[0]
+    ok = (isinstance(q, torch.Tensor) and q.dim() == 3
+          and q.shape[0] == B and q.shape[-1] == ring_dma.LANE
+          and q.dtype == want)
+    if ok and wire is not None and wire.fmt == "int8":
+        sc = leaves[1]
+        ok = (q.shape[1] % wire.block_rows == 0 and sc.dtype == torch.float32
+              and tuple(sc.shape) == (B, q.shape[1] // wire.block_rows))
+    if ok:
         return ""
-    return (f"needs a (1, rows, 128) f32 payload, got "
-            f"{getattr(x, 'dtype', type(x).__name__)} "
-            f"{tuple(getattr(x, 'shape', ()))}")
+    got = [(str(getattr(t, "dtype", type(t).__name__)),
+            tuple(getattr(t, "shape", ()))) for t in leaves]
+    scales = (" with its (B, rows // block_rows) f32 scales"
+              if want == torch.int8 else "")
+    return f"needs a ({B}, rows, 128) {want} payload{scales}, got {got}"
+
+
+def _like_spec(like: torch.Tensor, wire: Optional[WireCodec]) -> Tuple:
+    """The peer table's ``(shape, dtype, block_rows)`` for the payload of
+    the f32 bus block ``like`` (the wire's encode of it)."""
+    if wire is None:
+        return tuple(like.shape), torch.float32, None
+    return (tuple(like.shape), wire.wire_dtype,
+            wire.block_rows if wire.fmt == "int8" else None)
+
+
+def _payload_spec(x, wire: Optional[WireCodec]) -> Tuple:
+    """The peer table's ``(shape, dtype, block_rows)`` for payload ``x``."""
+    if isinstance(x, Mapping):
+        return TreePayload(x).shape, torch.float32, None
+    return _like_spec(x if wire is None else wire.payload_leaves(x)[0], wire)
 
 
 def _peer_unfit(topo: Topology, mesh, x, names, B: int, shard_axes,
@@ -640,9 +672,11 @@ def _peer_unfit(topo: Topology, mesh, x, names, B: int, shard_axes,
     """Why the peer-pointer ring cannot carry this rank's gossip, or '' —
     the reference's ``ring_dma_supported`` across devices: a flat ±1 ring,
     one agent per rank on one agent axis, every rank of it on this host
-    (CUDA IPC opens no handle of another host), no row shards, no wire, an
-    unmasked round, a ``(1, rows, 128)`` f32 payload or a tree of one
-    agent's f32 / bf16 leaves (``x`` None checks the rest)."""
+    (CUDA IPC opens no handle of another host), no wire, an unmasked
+    round, a ``(1, rows, 128)`` f32 payload (a row shard's rows with
+    ``shard_axes``: the ring is the ``pod``-axis slice through the rank)
+    or a tree of one agent's f32 / bf16 leaves (``x`` None checks the
+    rest)."""
     if is_masked(topo):
         return f"takes unmasked rings, got the masked round {topo.name}"
     if wire is not None:
@@ -656,8 +690,6 @@ def _peer_unfit(topo: Topology, mesh, x, names, B: int, shard_axes,
     if not mesh.one_host(ranks):
         return (f"needs every rank of the ring on one host, got hosts "
                 f"{sorted({mesh.hosts[r] for r in ranks})}")
-    if shard_axes is not None:
-        return "does not compose with row shards (shard_axes)"
     return "" if x is None else _payload_unfit(x)
 
 
@@ -704,24 +736,26 @@ class _PeerSlot:
 class _TableSlot:
     """The peer table a mixer's table rounds share (made at the first call,
     collectively, as :class:`_PeerSlot`; every rank of the agent axes maps
-    every other's payloads)."""
+    every other's payloads), for one payload spec ``(shape, dtype,
+    block_rows)`` (:func:`_payload_spec`)."""
 
     def __init__(self, mesh, names):
         self.mesh, self.names, self.table = mesh, names, None
 
-    def get(self, shape, device) -> PeerTable:
-        shape = tuple(shape)
+    def get(self, spec, device) -> PeerTable:
+        shape, dtype, block_rows = spec
+        spec = (tuple(shape), dtype, block_rows)
         if self.table is None:
             ranks, _ = axes_group(self.mesh, self.names)
             sizes = tuple(self.mesh.axis_size(n) for n in self.names)
-            table = PeerTable(shape, device,
+            table = PeerTable(spec[0], device,
                               _flat_index(self.mesh, self.names, sizes),
-                              len(ranks))
+                              len(ranks), dtype=dtype, block_rows=block_rows)
             table.open(_exchange(self.mesh, ranks, table.handle))
             self.table = table
-        elif self.table.shape != shape:
-            raise ValueError(f"the peer table holds {self.table.shape} "
-                             f"payloads, got {shape}")
+        elif self.table.spec != spec:
+            raise ValueError(f"the peer table holds {self.table.spec} "
+                             f"payloads, got {spec}")
         return self.table
 
     def close(self) -> None:
@@ -736,30 +770,35 @@ class _TableSlot:
 def _table_unfit(mesh, x, names, B: int, shard_axes,
                  wire: Optional[WireCodec]) -> str:
     """Why the peer table (:class:`repro_torch.kernels.table_peer.
-    PeerTable`) cannot carry this rank's gossip, or '': one agent a rank,
-    every rank of the agent axes on this host (at most 16), no row shards,
-    no wire, a ``(1, rows, 128)`` f32 payload or a tree of one agent's f32
-    / bf16 leaves (``x`` None checks the rest).  Any round fits: a ±1 ring, an exponential hop, a masked
-    round, late slots."""
-    if wire is not None:
-        return f"takes f32 payloads, not the {wire.fmt} wire"
-    if B != 1:
-        return f"needs one agent a rank, got {B}"
-    if shard_axes is not None:
-        return "does not compose with row shards (shard_axes)"
+    PeerTable`) cannot carry this rank's gossip, or '': at most
+    ``MAX_BLOCK`` agents a rank, every rank of the agent axes on this host
+    (at most 16), a payload of a spec the table takes — a ``(B, rows,
+    128)`` f32 block (a row shard's rows with ``shard_axes``), the bf16 or
+    int8 wire's payload of it, or a tree of one agent's f32 / bf16 leaves
+    (``x`` None checks the rest).  Any round fits: a ±1 ring, an
+    exponential hop, a time-varying schedule's round, a masked round, late
+    slots."""
+    if not 1 <= B <= MAX_BLOCK:
+        return f"takes 1..{MAX_BLOCK} agents a rank, got {B}"
     ranks, _ = axes_group(mesh, names)
     if len(ranks) > MAX_SOURCES:
         return f"maps at most {MAX_SOURCES} ranks, got {len(ranks)}"
     if not mesh.one_host(ranks):
         return (f"needs every rank of the agent axes on one host, got hosts "
                 f"{sorted({mesh.hosts[r] for r in ranks})}")
-    return "" if x is None else _payload_unfit(x)
+    return "" if x is None else _payload_unfit(x, _no_f32(wire), B)
 
 
-def _readers(src: np.ndarray, i: int) -> List[int]:
-    """The ranks whose column of the ``(K, n)`` source table reads rank
-    ``i`` (itself left out)."""
-    return [j for j in range(src.shape[1]) if j != i and (src[:, j] == i).any()]
+def _readers(src: np.ndarray, i: int, B: int = 1) -> List[int]:
+    """The ranks whose columns of the ``(K, A)`` source table (B agents a
+    rank) read an agent of rank ``i`` (itself left out)."""
+    return [j for j in range(src.shape[1] // B) if j != i
+            and (src[:, j * B:(j + 1) * B] // B == i).any()]
+
+
+def _rank_cols(src: np.ndarray, w: np.ndarray, i: int, B: int):
+    """Rank ``i``'s ``(K, B)`` columns of a round's source table."""
+    return src[:, i * B:(i + 1) * B], w[:, i * B:(i + 1) * B]
 
 
 def mix_ranks(topo: Topology, mesh, x, *, agent_axes=None,
@@ -791,18 +830,23 @@ def mix_ranks(topo: Topology, mesh, x, *, agent_axes=None,
       runs on it, keeping this rank's block (the reference's
       gather-and-index fallback).
     * ``transport``: on CUDA, a flat ±1 ring with one agent a rank and an
-      f32 payload, every rank of the ring on one host, runs the
+      f32 payload (a row shard's rows included: the ring is the
+      ``pod``-axis slice), every rank of the ring on one host, runs the
       peer-pointer ring kernel (:class:`repro_torch.kernels.ring_peer.
       PeerRing`) when forced (``"ring_dma"``) or fused under ``"auto"``;
-      any other round of one agent a rank on one host in f32 (an
-      exponential hop, a masked round) fused under ``"auto"`` runs the
-      peer table kernel (:class:`repro_torch.kernels.table_peer.
-      PeerTable`: this rank's column of the round's source table).  A
-      tree goes through either as one payload (:class:`TreePayload`: its
-      leaves packed into the transport's shared buffer, one combine, each
-      leaf rounded back once), bit-equal to the per-leaf combines.  On the
-      CPU those transports are the permutes plus the plain combine.  Ranks
-      that share one card have no NCCL: any other gossip raises there."""
+      any other gossip of ranks on one host fused under ``"auto"`` — an
+      exponential hop, a masked round, a bf16 or int8 wire payload (its
+      encoder writes it into the table's slot, :func:`make_schedule_mixer`'s
+      ``payload_for_write``; else one copy), an agent block of B > 1
+      (masked rounds included), a row shard — runs the peer table kernels
+      (:class:`repro_torch.kernels.table_peer.PeerTable`: this rank's
+      ``(K, B)`` columns of the round's source table; the q8 kernel on
+      the int8 wire).  A tree goes through either as one payload
+      (:class:`TreePayload`: its leaves packed into the transport's shared
+      buffer, one combine, each leaf rounded back once), bit-equal to the
+      per-leaf combines.  On the CPU those transports are the permutes
+      plus the plain combine.  Ranks that share one card have no NCCL:
+      any other gossip raises there."""
     _check_transport(transport)
     if agent_axes is None:
         agent_axes = gossip_agent_axes(mesh, sharded=shard_axes is not None)
@@ -832,20 +876,19 @@ def mix_ranks(topo: Topology, mesh, x, *, agent_axes=None,
             return peer.combine(terms, out=out, payload=x)
         buf = tree.pack(x, peer.payload_for_write())
         return tree.unpack(peer.combine(terms, payload=buf), x)
-    why_t = _table_unfit(mesh, x if wire is None else None, names, B,
-                         shard_axes, wire)
+    why_t = _table_unfit(mesh, x, names, B, shard_axes, wire)
     if on_card and not why_t and transport == "auto" and use_fused_kernel:
-        table = (_table or _TableSlot(mesh, names)).get(shape, first.device)
+        table = (_table or _TableSlot(mesh, names)).get(
+            _payload_spec(x, wire), first.device)
         src, w = round_tables(topo)
         i = table.me
-        readers = _readers(src, i)
+        readers = _readers(src, i, B)
         if tree is None:
             table.publish(x, readers)
         else:
             tree.pack(x, table.slot_for_write(readers))
             table.publish(None, readers)
-        res = table.combine([int(v) for v in src[:, i]],
-                            [float(v) for v in w[:, i]],
+        res = table.combine(*_rank_cols(src, w, i, B),
                             out=out if tree is None else None)
         return res if tree is None else tree.unpack(res, x)
     if on_card and mesh.shared:
@@ -998,12 +1041,14 @@ def make_schedule_mixer(sched: GossipSchedule, engine: str = "shifts", *,
     applies round ``sched.round_index(step)`` through the chosen engine.
     Every round has its own engine closure; the step is a Python int, so
     the round is picked in Python.  Across ranks (``mesh``) the ring rounds
-    share one peer ring, and ``mix.payload_for_write(step, like)`` gives
-    the buffer a step's payload should be written into (the peer ring's,
-    once its neighbours have read the last; None when that step's round
-    does not run the peer ring on this device); its other rounds on the
-    card share one peer table.  ``mix.transports()`` lists the peer
-    transports made so far, ``mix.close()`` frees them (collective)."""
+    share one peer ring and its other rounds on the card one peer table;
+    ``mix.payload_for_write(step, like)`` gives the buffer a step's
+    payload of the f32 bus block ``like`` should be written into, in the
+    wire's form (the peer ring's, or the peer table's next slot, once the
+    ranks that read its last payload are done; None when that step's
+    round runs neither on this device).  ``mix.transports()`` lists the
+    peer transports made so far, ``mix.close()`` frees them
+    (collective)."""
     peer = table = None
     if mesh is not None:
         if engine != "ppermute":
@@ -1033,10 +1078,16 @@ def make_schedule_mixer(sched: GossipSchedule, engine: str = "shifts", *,
                 or (transport == "auto" and use_fused_kernel)):
             return None
         topo = sched.rounds[int(sched.round_index(int(step)))]
-        if _peer_unfit(topo, mesh, like, peer.names, peer.B, shard_axes,
-                       _no_f32(wire)):
+        wire_ = _no_f32(wire)
+        if wire_ is None and not _peer_unfit(topo, mesh, like, peer.names,
+                                             peer.B, shard_axes, None):
+            return peer.get(like.shape, like.device).payload_for_write()
+        if transport != "auto" or _table_unfit(mesh, None, peer.names,
+                                               peer.B, shard_axes, wire_):
             return None
-        return peer.get(like.shape, like.device).payload_for_write()
+        tab = table.get(_like_spec(like, wire_), like.device)
+        src, _ = round_tables(topo)
+        return tab.slot_for_write(_readers(src, tab.me, peer.B))
 
     mix.payload_for_write = payload_for_write
     mix.peer = peer
@@ -1110,11 +1161,12 @@ def make_overlap_mixer(sched, engine: str = "ppermute", *,
       caller's backward pass runs while they travel; ``complete`` waits
       on them, swaps each late slot for the self payload and combines
       with this rank's weight column (``gossip_axpy`` or its q8 twin).
-      Ranks of one host on the card, f32, one agent a rank: ``issue``
-      publishes the payload into the peer table
+      Ranks of one host on the card: ``issue`` publishes the payload (f32,
+      or the wire's; B agents a rank) into the peer table
       (:class:`repro_torch.kernels.table_peer.PeerTable`, double
       buffered) and ``complete`` waits for its sources and runs the ring
-      kernel (a ±1 ring round with no late slot) or the table kernel.
+      kernel (one f32 agent a rank, a ±1 ring round with no late slot),
+      the q8 kernel (int8) or the table kernel.
     """
     wire = _no_f32(wire)
     _check_transport(transport)
@@ -1258,7 +1310,10 @@ def _rank_overlap_mixer(sched: GossipSchedule, K: int, selves, mesh,
     cols = [[float(v) for v in w[:, i * B]] for _, w in tabs]
     ring_terms = [[(int(t.shift), float(t.weight)) for t in r.terms]
                   + [(0, 0.0)] * (K - len(r.terms)) for r in sched.rounds]
-    ringed = [not is_masked(r) and ring_dma.ring_plan(r) is not None
+    # the ring kernel on the table's slots: one f32 agent a rank, an
+    # unmasked ±1 ring round (and, per step, no late slot)
+    ringed = [wire is None and B == 1 and not is_masked(r)
+              and ring_dma.ring_plan(r) is not None
               and K <= ring_dma.MAX_TERMS for r in sched.rounds]
     table = _TableSlot(mesh, names)
 
@@ -1269,11 +1324,10 @@ def _rank_overlap_mixer(sched: GossipSchedule, K: int, selves, mesh,
         r = round_of(step)
         first = x if wire is None else wire.payload_leaves(x)[0]
         if first.device.type == "cuda":
-            why = _table_unfit(mesh, x if wire is None else None, names, B,
-                               shard_axes, wire)
+            why = _table_unfit(mesh, x, names, B, shard_axes, wire)
             if not why and transport == "auto" and use_fused_kernel:
-                table.get(x.shape, x.device).publish(
-                    x, _readers(tabs[r][0], i))
+                table.get(_payload_spec(x, wire), first.device).publish(
+                    x, _readers(tabs[r][0], i, B))
                 coll.mark("peer publish")
                 return _Issued(r)
             if mesh.shared:
@@ -1299,12 +1353,13 @@ def _rank_overlap_mixer(sched: GossipSchedule, K: int, selves, mesh,
         late = _late_mask(late, K)
         no_late = late is None or not late.any()
         if payloads.pending is None:        # the peer table
-            src = tabs[r][0][:, i].copy()
-            if not no_late:
-                src[late] = i               # a late source is never read
+            src, w = _rank_cols(*tabs[r], i, B)
+            if not no_late:                 # a late source is never read
+                src = src.copy()
+                src[late] = np.arange(i * B, (i + 1) * B)
             coll.mark("peer combine")
             return table.table.combine(
-                [int(v) for v in src], cols[r], out=out,
+                src, w, out=out,
                 ring_terms=ring_terms[r] if ringed[r] and no_late else None)
         slots = [[p.wait() for p in comp] for comp in payloads.pending]
         if not no_late:
@@ -1321,6 +1376,18 @@ def _rank_overlap_mixer(sched: GossipSchedule, K: int, selves, mesh,
                                          block_rows=wire.block_rows, out=out)
         return _combine([wire.decode(p) for p in pays], cols[r], False)
 
+    def payload_for_write(step, like: torch.Tensor):
+        """The peer table slot step ``step``'s payload of the f32 block
+        ``like`` should be written (encoded) into, once its last readers
+        are done; None off the card's peer table."""
+        if like.device.type != "cuda" or transport != "auto" or \
+                not use_fused_kernel or _table_unfit(mesh, None, names, B,
+                                                     shard_axes, wire):
+            return None
+        tab = table.get(_like_spec(like, wire), like.device)
+        return tab.slot_for_write(_readers(tabs[round_of(step)][0], i, B))
+
+    issue.payload_for_write = payload_for_write
     complete.n_terms = K
     complete.self_index = selves
     complete.transports = lambda: [t for t in (table.table,) if t]
@@ -1334,24 +1401,29 @@ def rank_routes(sched: GossipSchedule, mesh, device, *,
                 overlap: bool = False) -> List[str]:
     """The gossip each round of ``sched`` takes across ranks on ``device``
     (transport ``"auto"``): ``"ring_peer"`` (the peer ring kernel),
-    ``"table_peer"`` (the peer table kernel) or ``"permutes"`` (gloo on
-    the CPU, NCCL across cards; ranks that share one card raise there).
-    Under ``overlap`` a ring round's ring kernel runs on the peer table's
-    slots, and a round with a late slot takes the table kernel."""
+    ``"table_peer"`` (the peer table kernel: f32 or the bf16 wire, any
+    agent block), ``"table_peer_q8"`` (the int8 wire's peer q8 kernel) or
+    ``"permutes"`` (gloo on the CPU, NCCL across cards; ranks that share
+    one card raise there).  Under ``overlap`` a ring round's ring kernel
+    runs on the peer table's slots, and a round with a late slot takes
+    the table kernel."""
     wire = _no_f32(wire)
     axes = gossip_agent_axes(mesh, sharded=shard_axes is not None)
+    table_route = ("table_peer_q8" if wire is not None and wire.fmt == "int8"
+                   else "table_peer")
     out = []
     for r in sched.rounds:
         names, _, _, B = _agent_axis_info(r, mesh, axes)
         table_ok = not _table_unfit(mesh, None, names, B, shard_axes, wire)
         if torch.device(device).type != "cuda" or not use_fused_kernel:
             out.append("permutes")
-        elif (table_ok and not is_masked(r) and ring_dma.ring_plan(r)
-              is not None) if overlap else not _peer_unfit(
-                  r, mesh, None, names, B, shard_axes, wire):
+        elif (table_ok and wire is None and B == 1 and not is_masked(r)
+              and ring_dma.ring_plan(r) is not None) if overlap \
+                else not _peer_unfit(r, mesh, None, names, B, shard_axes,
+                                     wire):
             out.append("ring_peer")
         else:
-            out.append("table_peer" if table_ok else "permutes")
+            out.append(table_route if table_ok else "permutes")
     return out
 
 
@@ -1405,19 +1477,21 @@ class GroupPlan:
     wire: Optional[WireCodec] = None
 
 
-def encode_rows(wire: WireCodec, seg: torch.Tensor):
+def encode_rows(wire: WireCodec, seg: torch.Tensor, out=None):
     """A group's stateless wire payload of its rows ``seg`` (an ``(A,
     rows, 128)`` view of the bus): the codec's encode (no residual).  bf16
     is one cast (the payload itself); int8 encodes one agent's block at a
     time into the payload's buffers, so that the codec's temporaries stay
     one block large (the scale tiles lie within a block, so the payload is
-    the whole group's encode)."""
+    the whole group's encode).  ``out``: the buffers to encode into (the
+    peer table's slot across ranks), else new ones."""
     if wire.fmt == "bf16":
-        return seg.to(torch.bfloat16)
+        return seg.to(torch.bfloat16) if out is None else out.copy_(seg)
     A, rows, _ = seg.shape
-    q = torch.empty(seg.shape, dtype=torch.int8, device=seg.device)
-    scale = torch.empty((A, rows // wire.block_rows), dtype=torch.float32,
-                        device=seg.device)
+    q, scale = out if out is not None else (
+        torch.empty(seg.shape, dtype=torch.int8, device=seg.device),
+        torch.empty((A, rows // wire.block_rows), dtype=torch.float32,
+                    device=seg.device))
     for a in range(A):
         qa, sa = wire.encode(seg[a])
         q[a].copy_(qa)
@@ -1446,7 +1520,9 @@ def make_group_mixer(plans, *, engine: str = "ppermute",
 
     A mixing group runs the unmodified engines (:func:`make_schedule_mixer`)
     on its rows — the view ``bus[:, r0:r1]``, or with a bf16 / int8 wire
-    that view's stateless payload (:func:`encode_rows`) — and they write
+    that view's stateless payload (:func:`encode_rows`; across ranks on
+    the card encoded straight into the group's own peer table slot) — and
+    they write
     its mix into ``out[:, r0:r1]`` (the ring, table and combine kernels
     read and write the rows in place; any other result is copied there).
     ``out`` (default: a new bus) may alias no byte of ``bus``; no step
@@ -1504,8 +1580,10 @@ def make_group_mixer(plans, *, engine: str = "ppermute",
             if inner is None or (k > 1 and step % k != k - 1):
                 dst.copy_(seg)
                 continue
-            payload = seg if wire is None else encode_rows(wire, seg)
-            res = inner(payload, step=step // k if k > 1 else step, out=dst)
+            at = step // k if k > 1 else step
+            payload = seg if wire is None else encode_rows(
+                wire, seg, inner.payload_for_write(at, seg))
+            res = inner(payload, step=at, out=dst)
             if res is not dst:
                 dst.copy_(res)
         return out

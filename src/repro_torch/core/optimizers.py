@@ -330,7 +330,8 @@ def make_edm_bus(alpha: float, beta: float, mix: Callable, *,
 
 def make_edm_bus_ef(alpha: float, beta: float, mix: Callable,
                     codec: WireCodec, *, use_fused_kernel: bool = False,
-                    error_feedback: bool = True) -> DecOptimizer:
+                    error_feedback: bool = True,
+                    payload_out: Optional[Callable] = None) -> DecOptimizer:
     """Bus-resident EDM with an error-feedback-compressed wire.  Per step::
 
         m'  = β m + (1-β) g
@@ -350,7 +351,9 @@ def make_edm_bus_ef(alpha: float, beta: float, mix: Callable,
 
     ``error_feedback=False`` drops the residual (``pay = encode(φ)``,
     ``e`` stays 0): the naive-quantization negative control, not a
-    production mode."""
+    production mode.  ``payload_out(x_bus)``, when given, returns the
+    buffers the fused kernel writes the payload into (a peer table's slot
+    across ranks: no copy before the gossip), or None."""
 
     def init(x_bus: torch.Tensor) -> State:
         return {"m": torch.zeros_like(x_bus), "psi": x_bus.clone(),
@@ -362,7 +365,8 @@ def make_edm_bus_ef(alpha: float, beta: float, mix: Callable,
             m_new, psi_new, payload, e_new = kops.edm_update_bus_ef(
                 x_bus, g_bus, m, psi, e, alpha=alpha, beta=beta,
                 fmt=codec.fmt, block_rows=codec.block_rows,
-                out=(m, psi, e))
+                out=(m, psi, e), payload_out=None if payload_out is None
+                else payload_out(x_bus))
         else:
             m_new, psi_new, phi = edm_update_ref(
                 x_bus, g_bus, m, psi, alpha=alpha, beta=beta,

@@ -48,12 +48,32 @@
 // Bound on an H100: device-memory bytes — each distinct source payload
 // read once and the output written once (4 B an element each), against
 // 2K − 1 flops an element.
+//
+// The block form (table_peer_block_launch): each rank holds B agents, a
+// (B, rows, 128) payload of f32 or bf16, and computes
+//
+//     out[b] = Σₖ w[k, b] · block[src[k, b]]      b = 0 … B−1
+//
+// with per-agent (K, B) tables whose entries are (rank, agent) blocks of
+// the round's ranks — csrc/table_combine.cu's per-agent table over peer
+// pointers, and with bf16 sources the bf16 wire's decode-combine
+// (csrc/gossip_axpy.cu's bf16 → f32 path: the widening is exact, the sum
+// f32).  One thread a column loads the column of every distinct source
+// block once into registers and writes every agent's output column from
+// them, so each source block is read once however many of the rank's
+// agents read it; the output is f32, agent b's block b · out_stride
+// elements in (a policy group's rows of a larger bus).  An f32 payload of
+// one agent takes the kernel above, unchanged.  Bound: each distinct
+// source block read once (4 or 2 B an element), B blocks written (4 B).
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int kMaxSrc = 16;
 constexpr int kMaxTerms = 16;
+constexpr int kMaxBlock = 8;   // agents a rank (the block form)
 constexpr int kThreads = 256;
 
 struct Sources {
@@ -134,6 +154,99 @@ cudaError_t launch_n(const Sources& s, int n_src, float4* out,
   return cudaGetLastError();
 }
 
+// The block form's sources (distinct (rank, agent) blocks) and tables:
+// term k of agent b reads block u[b][k] under weight w[b][k].
+struct BlockSources {
+  const void* p[kMaxSrc];
+};
+
+struct BlockTerms {
+  int u[kMaxBlock][kMaxTerms];
+  float w[kMaxBlock][kMaxTerms];
+};
+
+// Four consecutive elements (column j) of a source block, as f32 (exact).
+__device__ __forceinline__ float4 load4(const float* p, long long j) {
+  return __ldcs(reinterpret_cast<const float4*>(p) + j);
+}
+
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p, long long j) {
+  const uint2 t = __ldcs(reinterpret_cast<const uint2*>(p) + j);
+  const float2 a =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.x));
+  const float2 b =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+template <typename T, int N>
+__global__ void table_peer_kernel_blk(BlockSources srcs, int n_src,
+                                      float* __restrict__ out,
+                                      long long out_stride, BlockTerms terms,
+                                      int n_terms, int n_agents,
+                                      long long n4) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       j < n4; j += stride) {
+    float4 v[N];
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+      v[i] = i < n_src ? load4(static_cast<const T*>(srcs.p[i]), j)
+                       : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int b = 0; b < kMaxBlock; ++b) {
+      if (b < n_agents) {
+        float4 acc = scale4(terms.w[b][0], pick(v, terms.u[b][0]));
+#pragma unroll
+        for (int k = 1; k < kMaxTerms; ++k) {
+          if (k < n_terms)
+            acc = axpy4(acc, terms.w[b][k], pick(v, terms.u[b][k]));
+        }
+        __stcs(reinterpret_cast<float4*>(out + b * out_stride) + j, acc);
+      }
+    }
+  }
+}
+
+template <typename T, int N>
+cudaError_t launch_blk(const BlockSources& s, int n_src, float* out,
+                       long long out_stride, const BlockTerms& terms,
+                       int n_terms, int n_agents, long long n4,
+                       cudaStream_t stream) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, table_peer_kernel_blk<T, N>, kThreads, 0);
+  if (err != cudaSuccess) return err;
+  long long blocks = (n4 + kThreads - 1) / kThreads;
+  const long long cap = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  if (blocks > cap) blocks = cap;
+  table_peer_kernel_blk<T, N><<<(unsigned)blocks, kThreads, 0, stream>>>(
+      s, n_src, out, out_stride, terms, n_terms, n_agents, n4);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_blk_t(const BlockSources& s, int n_src, float* out,
+                         long long out_stride, const BlockTerms& terms,
+                         int n_terms, int n_agents, long long n4,
+                         cudaStream_t st) {
+  if (n_src <= 2)
+    return launch_blk<T, 2>(s, n_src, out, out_stride, terms, n_terms,
+                            n_agents, n4, st);
+  if (n_src <= 4)
+    return launch_blk<T, 4>(s, n_src, out, out_stride, terms, n_terms,
+                            n_agents, n4, st);
+  if (n_src <= 8)
+    return launch_blk<T, 8>(s, n_src, out, out_stride, terms, n_terms,
+                            n_agents, n4, st);
+  return launch_blk<T, 16>(s, n_src, out, out_stride, terms, n_terms,
+                           n_agents, n4, st);
+}
+
 __device__ __forceinline__ unsigned load_acquire(const unsigned* p) {
   unsigned v;
   asm volatile("ld.acquire.sys.global.u32 %0, [%1];" : "=r"(v) : "l"(p)
@@ -203,6 +316,46 @@ extern "C" int table_peer_launch(const void* const* srcs, int n_src,
   if (n_src <= 4) return (int)launch_n<4>(s, n_src, o, terms, n_terms, n4, st);
   if (n_src <= 8) return (int)launch_n<8>(s, n_src, o, terms, n_terms, n4, st);
   return (int)launch_n<16>(s, n_src, o, terms, n_terms, n4, st);
+}
+
+// The block form: srcs are n_src distinct (rank, agent) source blocks of
+// n elements each (f32 when dtype is 0, bf16 when 1; any may be a peer
+// pointer, none aliasing out); u / weights are n_agents × n_terms,
+// agent-major: term k of agent b reads srcs[u[b·n_terms + k]].  out: f32,
+// agent b's n elements from b · out_stride.  One f32 agent takes
+// table_peer_launch's kernel.  Launches on `stream`, returns
+// cudaGetLastError().
+extern "C" int table_peer_block_launch(const void* const* srcs, int n_src,
+                                       void* out, long long out_stride,
+                                       const int* u, const float* weights,
+                                       int n_terms, int n_agents,
+                                       long long n, int dtype, void* stream) {
+  if (n_src < 1 || n_src > kMaxSrc || n_terms < 1 || n_terms > kMaxTerms ||
+      n_agents < 1 || n_agents > kMaxBlock || n < 0 || n % 4 ||
+      (dtype != 0 && dtype != 1) ||
+      (n_agents > 1 && (out_stride < n || out_stride % 4)))
+    return (int)cudaErrorInvalidValue;
+  for (int i = 0; i < n_agents * n_terms; ++i)
+    if (u[i] < 0 || u[i] >= n_src) return (int)cudaErrorInvalidValue;
+  if (n == 0) return (int)cudaSuccess;
+  if (dtype == 0 && n_agents == 1)
+    return table_peer_launch(srcs, n_src, out, u, weights, n_terms, n / 4,
+                             stream);
+  BlockSources s = {};
+  for (int i = 0; i < n_src; ++i) s.p[i] = srcs[i];
+  BlockTerms terms = {};
+  for (int b = 0; b < n_agents; ++b)
+    for (int k = 0; k < n_terms; ++k) {
+      terms.u[b][k] = u[b * n_terms + k];
+      terms.w[b][k] = weights[b * n_terms + k];
+    }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* o = static_cast<float*>(out);
+  if (dtype == 0)
+    return (int)launch_blk_t<float>(s, n_src, o, out_stride, terms, n_terms,
+                                    n_agents, n / 4, st);
+  return (int)launch_blk_t<__nv_bfloat16>(s, n_src, o, out_stride, terms,
+                                          n_terms, n_agents, n / 4, st);
 }
 
 // Wait (one thread, on `stream`) until each of the n flags ≥ target; on a

@@ -29,12 +29,13 @@ from .paged_prefill import paged_prefill_flat
 from .ring_dma import ring_combine_flat, ring_operands
 from .ring_peer import peer_operands, ring_peer_flat
 from .table_combine import table_combine_flat, table_operands
-from .table_peer import table_peer_flat, table_peer_operands
+from .table_peer import (table_peer_flat, table_peer_operands,
+                         table_peer_q8_flat)
 
 __all__ = ["edm_update", "edm_update_tree", "edm_update_bus",
            "edm_update_bus_ef", "gossip_axpy", "gossip_axpy_wire",
            "ring_combine", "ring_peer", "table_combine", "table_combine_wire",
-           "table_peer",
+           "table_peer", "table_peer_q8",
            "flash_attention", "paged_attention",
            "paged_prefill_attention", "padded_size", "pack_leaf",
            "unpack_leaf", "launch_counts", "reset_launch_counts"]
@@ -146,7 +147,8 @@ def edm_update_bus(x, g, m, psi, *, alpha: float, beta: float,
 
 def edm_update_bus_ef(x, g, m, psi, e, *, alpha: float, beta: float,
                       fmt: str, block_rows: Optional[int] = None,
-                      out: Optional[Sequence[torch.Tensor]] = None):
+                      out: Optional[Sequence[torch.Tensor]] = None,
+                      payload_out=None):
     """Fused EDM update with error-feedback quantization over the whole
     ``(A, rows, 128)`` bus: ONE kernel launch on the card.
 
@@ -154,8 +156,10 @@ def edm_update_bus_ef(x, g, m, psi, e, *, alpha: float, beta: float,
     (:class:`repro_torch.core.wire.WireCodec`): a bf16 bus for
     ``fmt="bf16"``, ``(int8 bus, (A, rows // block_rows) f32 scales)``
     for ``fmt="int8"``.  ``out = (m_out, psi_out, e_out)`` receives m', ψ'
-    and e' where an entry is not None (each may alias its input).  f32 has
-    no quantize to fuse: it raises, as the JAX wrapper has no f32 case."""
+    and e' where an entry is not None (each may alias its input);
+    ``payload_out`` (a payload of the same form, contiguous: a peer
+    table's slot) receives the payload.  f32 has no quantize to fuse: it
+    raises, as the JAX wrapper has no f32 case."""
     if fmt not in ("bf16", "int8"):
         raise ValueError(f"edm_update_bus_ef takes fmt bf16 or int8, got "
                          f"{fmt!r}; the f32 wire is edm_update_bus")
@@ -165,12 +169,16 @@ def edm_update_bus_ef(x, g, m, psi, e, *, alpha: float, beta: float,
         raise ValueError(f"bus {tuple(x.shape)} is not (A, rows, {LANE}) "
                          f"with rows a multiple of block_rows={block_rows}")
     m_out, psi_out, e_out = out or (None,) * 3
+    q_out, s_out = ((None, None) if payload_out is None
+                    else tuple(payload_out) if fmt == "int8"
+                    else (payload_out, None))
     if not _on_card(x):
         outs = ref.edm_update_ef_ref(
             x, g, m, psi, e, alpha=alpha, beta=beta, fmt=fmt,
             block_rows=block_rows,
-            out=(m_out, psi_out, None) + ((None,) if fmt == "int8" else ())
-            + (e_out,))
+            out=(m_out, psi_out, q_out)
+            + ((None if s_out is None else s_out.view(-1),)
+               if fmt == "int8" else ()) + (e_out,))
     else:
         def flat(b):
             return None if b is None else _bus_flat(b, "edm_update_bus_ef")
@@ -178,8 +186,9 @@ def edm_update_bus_ef(x, g, m, psi, e, *, alpha: float, beta: float,
         outs = edm_update_ef_flat(
             flat(x), flat(g), flat(m), flat(psi), flat(e), alpha=alpha,
             beta=beta, fmt=fmt, block_rows=block_rows,
-            out=(flat(m_out), flat(psi_out), None)
-            + ((None,) if fmt == "int8" else ()) + (flat(e_out),))
+            out=(flat(m_out), flat(psi_out), flat(q_out))
+            + ((None if s_out is None else s_out.view(-1),)
+               if fmt == "int8" else ()) + (flat(e_out),))
     m2, psi2, q = (o.view(x.shape) for o in outs[:3])
     payload = (q, outs[3].view(A, rows // block_rows)) if fmt == "int8" \
         else q
@@ -256,19 +265,37 @@ def ring_peer(x_self: torch.Tensor, x_left: torch.Tensor,
     return ring_peer_flat(x_self, x_left, x_right, terms, n_ranks, out=out)
 
 
-def table_peer(payloads: Sequence[torch.Tensor], src: Sequence[int],
-               weights: Sequence[float], *,
+def table_peer(payloads: Sequence[torch.Tensor], src, weights, *,
                out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The multi-rank source-table combine ``Σₖ wₖ · payloads[srcₖ]`` over
-    the payloads of the ranks of one host (``payloads[j]`` rank j's, peer
-    views in place: :class:`repro_torch.kernels.table_peer.PeerTable`):
-    one kernel launch on the card, the plain combine on the CPU; only the
-    payloads the table names are read."""
-    distinct, _ = table_peer_operands(payloads, src, weights, out)
-    if not _on_card(payloads[distinct[0]]):
+    """The multi-rank source-table combine ``out[b] = Σₖ w[k, b] ·
+    block[src[k, b]]`` over the ``(B, rows, 128)`` f32 or bf16 payloads of
+    the ranks of one host (``payloads[j]`` rank j's, peer views in place:
+    :class:`repro_torch.kernels.table_peer.PeerTable`; ``src`` global agent
+    indices, ``(K,)`` ranks at one agent a rank), f32 out: one kernel
+    launch on the card, the plain combine on the CPU; only the blocks the
+    table names are read."""
+    blocks, _, _ = table_peer_operands(payloads, src, weights, out)
+    if not _on_card(payloads[blocks[0] // payloads[0].shape[0]]):
         val = ref.table_peer_ref(payloads, src, weights)
         return val if out is None else out.copy_(val)
     return table_peer_flat(payloads, src, weights, out=out)
+
+
+def table_peer_q8(qs: Sequence[torch.Tensor], scales: Sequence[torch.Tensor],
+                  src, weights, *, block_rows: int,
+                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The int8 wire's multi-rank dequantize-and-combine over the ranks'
+    ``(B, rows, 128)`` int8 payloads and ``(B, rows // block_rows)`` f32
+    scales (peer views in place), f32 out: one kernel launch on the card,
+    the plain version on the CPU."""
+    blocks, _, _ = table_peer_operands(qs, src, weights, out, scales=scales,
+                                       block_rows=block_rows)
+    if not _on_card(qs[blocks[0] // qs[0].shape[0]]):
+        val = ref.table_peer_q8_ref(qs, scales, src, weights,
+                                    block_rows=block_rows)
+        return val if out is None else out.copy_(val)
+    return table_peer_q8_flat(qs, scales, src, weights,
+                              block_rows=block_rows, out=out)
 
 
 def table_combine(x: torch.Tensor, src: torch.Tensor, w: torch.Tensor, *,
@@ -384,7 +411,8 @@ _COUNTED = {"edm_update": edm_update_flat, "gossip_axpy": gossip_axpy_flat,
             "ring_combine": ring_combine_flat,
             "ring_peer": ring_peer_flat,
             "table_combine": table_combine_flat,
-            "table_peer": table_peer_flat}
+            "table_peer": table_peer_flat,
+            "table_peer_q8": table_peer_q8_flat}
 
 
 def launch_counts() -> Dict[str, int]:

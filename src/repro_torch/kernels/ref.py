@@ -18,9 +18,12 @@ import torch
 from repro_torch.models.attention import (_gather_pages, paged_prefill_sdpa,
                                           sdpa_ref)
 
+from .table_peer import table_columns
+
 __all__ = ["edm_update_ref", "edm_update_ef_ref", "gossip_axpy_ref",
            "ring_combine_ref", "ring_peer_ref", "table_combine_ref",
-           "table_peer_ref", "gossip_axpy_q8_ref", "wire_coefs",
+           "table_peer_ref", "table_peer_q8_ref", "gossip_axpy_q8_ref",
+           "wire_coefs",
            "finite_absmax", "int8_scale_inv", "flash_attention_ref",
            "gather_pages", "paged_attention_ref",
            "paged_prefill_attention_ref"]
@@ -93,16 +96,47 @@ def ring_peer_ref(x_self: torch.Tensor, x_left: torch.Tensor,
     return gossip_axpy_ref(ops, [w for _, w in terms])
 
 
-def table_peer_ref(payloads: Sequence[torch.Tensor], src: Sequence[int],
-                   weights: Sequence[float]) -> torch.Tensor:
-    """The multi-rank source-table combine on given payloads: term k's
-    operand is ``payloads[src[k]]`` (rank ``src[k]``'s payload; a late or
-    masked-out slot names the rank itself), then :func:`gossip_axpy_ref`
-    over them in table order — what the multi-rank ppermute engine
-    computes from its permuted copies.  Only the payloads the table names
-    are read."""
-    return gossip_axpy_ref([payloads[int(s)] for s in src],
-                           [float(w) for w in weights])
+def table_peer_ref(payloads: Sequence[torch.Tensor], src,
+                   weights) -> torch.Tensor:
+    """The multi-rank source-table combine on given payloads, f32 out:
+    ``payloads[j]`` is rank j's ``(B, rows, 128)`` f32 or bf16 payload, and
+    agent b's term k reads block ``src[k][b]`` (global agent index rank ·
+    B + agent; ``(K,)`` ranks at one agent a rank: a late or masked-out
+    slot names the agent itself) — :func:`gossip_axpy_ref` over the
+    agent's blocks in table order with f32 accumulation, as the one-device
+    engines combine the permuted payloads (and decode the bf16 wire).
+    Only the blocks the table names are read."""
+    B = payloads[0].shape[0]
+    src, w = table_columns(src, weights, B)
+    out = torch.empty(payloads[0].shape, dtype=torch.float32,
+                      device=payloads[0].device)
+    for b in range(B):
+        out[b] = gossip_axpy_ref(
+            [payloads[int(g) // B][int(g) % B] for g in src[:, b]],
+            [float(v) for v in w[:, b]], out_dtype=torch.float32)
+    return out
+
+
+def table_peer_q8_ref(qs: Sequence[torch.Tensor],
+                      scales: Sequence[torch.Tensor], src, weights, *,
+                      block_rows: int) -> torch.Tensor:
+    """The int8 wire's multi-rank dequantize-and-combine on given
+    payloads: ``qs[j]`` / ``scales[j]`` rank j's ``(B, rows, 128)`` int8
+    data and ``(B, rows // block_rows)`` f32 scales; agent b's
+    coefficients are :func:`wire_coefs` of its column's weights and
+    source blocks' scales, combined by :func:`gossip_axpy_q8_ref` — the
+    one-device fused engines' ``gossip_axpy_wire`` / ``table_combine_wire``
+    on the permuted payloads."""
+    B = qs[0].shape[0]
+    src, w = table_columns(src, weights, B)
+    out = torch.empty(qs[0].shape, dtype=torch.float32, device=qs[0].device)
+    for b in range(B):
+        blocks = [(int(g) // B, int(g) % B) for g in src[:, b]]
+        coefs = wire_coefs([float(v) for v in w[:, b]],
+                           [scales[j][a] for j, a in blocks])
+        out[b] = gossip_axpy_q8_ref([qs[j][a] for j, a in blocks], coefs,
+                                    block_rows=block_rows)
+    return out
 
 
 def table_combine_ref(x: torch.Tensor, src, w,

@@ -520,15 +520,18 @@ class StaticBusStep:
 
 
 def _encode_ef_agents(codec: WireCodec, phi: torch.Tensor,
-                      e: torch.Tensor):
+                      e: torch.Tensor, out=None):
     """The overlap pipeline's issue-time error-feedback encode of ``c = φ +
     e`` (the reference's ``encode_ef(codec, φ + e)``), one agent's row
     block at a time so that the codec's temporaries stay one block large
     (the scale tiles lie within a block, so the values are the whole bus's).
     The residual ``c − decode(payload)`` is written over ``e``; returns the
-    payload, a bf16 bus or an int8 bus with its ``(A, n_tiles)`` scales."""
+    payload, a bf16 bus or an int8 bus with its ``(A, n_tiles)`` scales,
+    written into ``out`` when given (the peer table's slot across ranks)."""
     A, rows, lane = phi.shape
-    if codec.fmt == "bf16":
+    if out is not None:
+        q, scale = (out, None) if codec.fmt == "bf16" else out
+    elif codec.fmt == "bf16":
         q = torch.empty(phi.shape, dtype=torch.bfloat16, device=phi.device)
         scale = None
     else:
@@ -734,9 +737,12 @@ def build_train_step(model: Model, run: RunConfig, topo,
             return make_edm_bus(run.alpha, run.beta, step_mix,
                                 use_fused_kernel=use_fused_kernel,
                                 phi_out=phi_out)
-        return make_edm_bus_ef(run.alpha, run.beta,
-                               functools.partial(mix, step=g_step, out=out),
-                               codec, use_fused_kernel=use_fused_kernel)
+        return make_edm_bus_ef(
+            run.alpha, run.beta, functools.partial(mix, step=g_step, out=out),
+            codec, use_fused_kernel=use_fused_kernel,
+            # across ranks the EF kernel encodes into the peer table's slot
+            payload_out=None if mesh is None
+            else functools.partial(mix.payload_for_write, g_step))
 
     def tree_opt(g_step: int, gossip: bool) -> DecOptimizer:
         step_mix = (_cast_mixer(lambda t: mix(t, step=g_step),
@@ -834,8 +840,10 @@ def build_train_step(model: Model, run: RunConfig, topo,
         with torch.no_grad():
             # ISSUE: the live payload (with a wire its EF encode, residual
             # split off into e) — on one card nothing ships
-            payload = (phi if codec is None
-                       else _encode_ef_agents(codec, phi, opt_state["e"]))
+            slot = getattr(issue, "payload_for_write", None)
+            payload = (phi if codec is None else _encode_ef_agents(
+                codec, phi, opt_state["e"],
+                None if slot is None else slot(step, phi)))
             payloads = issue(payload, step)
         # COMPUTE: gradients at the pre-mix local iterate φ(t), while the
         # payloads travel (the recorder's marks bracket the pass)

@@ -1973,3 +1973,253 @@ def test_cuda_tree_peer_bit_equal_to_one_process(cuda, tmp_path):
         assert r["ok"] and r["shared"], r
         assert r["launches"] == [{"ring_peer": 1}] * 2 + \
             [{"table_peer": 1}] * 2, r
+
+
+# ---------------------------------------------------------------------------
+# the peer table's wire and block forms: bf16 and int8 payloads, B agents
+# a rank (kernel 4's multi-rank form, csrc/table_peer_q8.cu; kernel 2's
+# table form on bf16 and on (B, rows, 128) blocks)
+# ---------------------------------------------------------------------------
+
+WIRE_BR = 64            # the int8 scale tiles' rows
+WIRE_FORMS = (("f32", 2), ("bf16", 1), ("bf16", 2), ("int8", 1),
+              ("int8", 2))
+WIRE_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16,
+               "int8": torch.int8}
+
+
+def _wire_at(start, stop, agent, epoch, device, fmt, specials):
+    """Elements [start, stop) of global agent ``agent``'s payload data at
+    ``epoch``, a hash of (element, agent, epoch) as :func:`_peer_payload_at`
+    (NaN and ±Inf among the f32 and bf16 values when ``specials``; int8
+    values over [−127, 127])."""
+    if fmt != "int8":
+        return _peer_payload_at(start, stop, agent, epoch, device,
+                                specials).to(WIRE_DTYPES[fmt])
+    idx = torch.arange(start, stop, dtype=torch.int64, device=device)
+    return ((idx * 2654435761 + agent * 97 + epoch * 7919) % 255
+            - 127).to(torch.int8)
+
+
+def _scales_at(agent, epoch, n_tiles, device, specials):
+    """Global agent ``agent``'s int8 scales at ``epoch``: a hash in (0, 1];
+    NaN, +Inf and −Inf in the first tiles of agents 0, 1 and 2."""
+    t = torch.arange(n_tiles, dtype=torch.int64, device=device)
+    s = ((t * 40503 + agent * 131 + epoch * 17) % 997 + 1).to(
+        torch.float32) / 997.0
+    if specials and agent < 3:
+        s[min(agent, n_tiles - 1)] = (float("nan"), float("inf"),
+                                      float("-inf"))[agent]
+    return s
+
+
+def _wire_fill(pay, fmt, first, epoch, specials, poison=False,
+               chunk=1 << 28):
+    """Write agents ``first, first + 1, …``'s payloads at ``epoch`` into a
+    rank's slot (``(q, scale)`` for int8); ``poison``: NaN in every value
+    (the int8 wire: in every scale)."""
+    data = pay[0] if fmt == "int8" else pay
+    for b in range(data.shape[0]):
+        if poison and fmt != "int8":
+            data[b].fill_(float("nan"))
+            continue
+        flat = data[b].view(-1)
+        for s in range(0, flat.numel(), chunk):
+            e = min(s + chunk, flat.numel())
+            flat[s:e] = _wire_at(s, e, first + b, epoch, flat.device, fmt,
+                                 specials)
+    if fmt == "int8":
+        for b in range(data.shape[0]):
+            pay[1][b] = (torch.full_like(pay[1][b], float("nan")) if poison
+                         else _scales_at(first + b, epoch, pay[1].shape[1],
+                                         data.device, specials))
+
+
+def _wire_round(case, A, B):
+    """``(src, w)`` ``(K, A)`` tables of the rounds over A agents, B a rank:
+    the ±1 ring, an exponential graph, the ring with every term that reads
+    rank 0's agents from another rank late (it reads the agent itself:
+    rank 0's payload is poisoned that epoch) and the ring with agent A − 1
+    down."""
+    import numpy as np
+    from repro_torch.core import exp_graph, ring
+    from repro_torch.core.elastic import degrade_round
+    from repro_torch.core.mixing import round_tables
+    if case == "exp":
+        return round_tables(exp_graph(A))
+    if case == "masked":
+        return round_tables(degrade_round(ring(A), [True] * (A - 1)
+                                          + [False]))
+    src, w = round_tables(ring(A))
+    if case == "late":
+        own = np.tile(np.arange(A, dtype=src.dtype), (src.shape[0], 1))
+        src = np.where((src // B == 0) & (own // B != 0), own, src)
+    return src, w
+
+
+def _wire_rank(rank, world, forms, rows, cases, timeout, timeout_case, d):
+    """One rank of :func:`_wire_peer_check` (a spawned process): for each
+    ``(fmt, B)`` of ``forms`` a ``PeerTable`` of B agents' ``(B, rows,
+    128)`` payload in ``fmt``, handles exchanged over gloo, one epoch of
+    each of ``cases`` (publish, then combine), its output held bit for bit
+    (a NaN matching a NaN; past element 2³¹ the first and last 4096 rows)
+    against the one-device kernels on the whole round's payloads
+    (``table_combine_flat``, f32 out, and on bf16 ``gossip_axpy_flat`` over
+    the gathered terms of an unmasked round; the q8 kernel fed by
+    ``table_combine_wire``); in the ``late`` epoch rank 0's payload is
+    NaN and no other rank may read it.  ``timeout_case``: rank 1 never
+    publishes, rank 0's wait must time out and raise."""
+    import json
+    from pathlib import Path
+    import torch.distributed as dist
+    from repro_torch.kernels.table_peer import PeerTable
+    from repro_torch.launch.mesh import init_distributed
+    dev = init_distributed("cuda", init_method=f"file://{d}/store",
+                           rank=rank, world_size=world, timeout_s=300)
+    rec = {"rank": rank, "forms": {}}
+    for fmt, B in forms:
+        dtype = WIRE_DTYPES[fmt]
+        br = WIRE_BR if fmt == "int8" else None
+        table = PeerTable((B, rows, 128), dev, rank, world,
+                          timeout_s=timeout, dtype=dtype, block_rows=br)
+        handles = [None] * world
+        dist.all_gather_object(handles, table.handle)
+        table.open(handles)
+        r = {"ok": True, "finite": True}
+        specials = B * rows * 128 < (1 << 31)
+        A = world * B
+        if timeout_case:
+            if rank == 0:
+                src, w = _wire_round("ring", A, B)
+                _wire_fill(table.slot_for_write(range(world)), fmt, 0, 0,
+                           specials)
+                table.publish(None, range(world))
+                try:
+                    table.combine(src[:, :B], w[:, :B])
+                    r.update(ok=False, error="no timeout")
+                except RuntimeError as err:
+                    r["raised"] = str(err)
+                    r["ok"] = "waited more than" in str(err)
+        else:
+            out = torch.empty((B, rows, 128), device=dev)
+            spans = ([(0, rows)] if specials else
+                     [(0, PEER_EDGE_ROWS), (rows - PEER_EDGE_ROWS, rows)])
+            before = ops.launch_counts()
+            for epoch, case in enumerate(cases):
+                poisoned = case == "late" and rank == 0
+                _wire_fill(table.slot_for_write(range(world)), fmt,
+                           rank * B, epoch, specials, poison=poisoned)
+                table.publish(None, range(world))
+                src, w = _wire_round(case, A, B)
+                cols = slice(rank * B, (rank + 1) * B)
+                table.combine(src[:, cols], w[:, cols], out=out)
+                for r0, r1 in spans:
+                    s, e = r0 * 128, r1 * 128
+                    bad = case == "late"
+                    whole = torch.stack([
+                        torch.full((e - s,), float("nan"), device=dev
+                                   ).to(dtype) if bad and a < B
+                        and fmt != "int8"
+                        else _wire_at(s, e, a, epoch, dev, fmt, specials)
+                        for a in range(A)]).view(A, -1, 128)
+                    st = torch.from_numpy(src).to(dev)
+                    wt = torch.from_numpy(w).to(dev)
+                    if fmt == "int8":
+                        n_tiles = rows // br
+                        sc = torch.stack([
+                            torch.full((n_tiles,), float("nan"), device=dev)
+                            if bad and a < B else
+                            _scales_at(a, epoch, n_tiles, dev, specials)
+                            for a in range(A)])[:, r0 // br:r1 // br]
+                        want = ops.table_combine_wire(
+                            (whole, sc.contiguous()), st, wt, fmt="int8",
+                            block_rows=br)
+                    else:
+                        want = ops.table_combine(whole, st, wt,
+                                                 out_dtype=torch.float32)
+                        if fmt == "bf16" and case != "masked":
+                            alt = ops.gossip_axpy(
+                                [whole.index_select(0, st[k].long())
+                                 for k in range(st.shape[0])],
+                                [float(v) for v in w[:, 0]],
+                                out_dtype=torch.float32)
+                            r["ok"] &= _bits_equal(alt, want)
+                    got = out[:, r0:r1]
+                    r["ok"] &= _bits_equal(got, want[cols])
+                    if case == "late" and rank != 0:
+                        r["finite"] &= not bool(
+                            torch.isnan(got).all(-1).any())
+            name = "table_peer_q8" if fmt == "int8" else "table_peer"
+            after = ops.launch_counts()
+            r["launches"] = after[name] - before[name]
+            r["epochs"] = table.epoch
+        torch.cuda.synchronize()
+        dist.barrier()
+        table.close()
+        rec["forms"][f"{fmt}-B{B}"] = r
+    Path(d, f"rank{rank}.json").write_text(json.dumps(rec))
+    dist.destroy_process_group()
+
+
+def _bits_equal(got, want):
+    return bool(got.shape == want.shape and (
+        (got.view(torch.int32) == want.view(torch.int32))
+        | (torch.isnan(got) & torch.isnan(want))).all())
+
+
+def _wire_peer_check(tmp_path, ranks, forms=WIRE_FORMS, rows=2048,
+                     cases=TABLE_CASES, timeout=60.0, timeout_case=False):
+    """``ranks`` spawned processes on the card, one peer table a form: each
+    rank's record (:func:`_wire_rank`)."""
+    import json
+    import torch.multiprocessing as mp
+    from repro_torch.kernels import build
+    build.build_all()
+    mp.spawn(_wire_rank, args=(ranks, forms, rows, cases, timeout,
+                               timeout_case, str(tmp_path)),
+             nprocs=ranks, join=True)
+    return [json.loads((tmp_path / f"rank{r}.json").read_text())
+            for r in range(ranks)]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("ranks", [2, 4])
+def test_cuda_peer_wire_and_blocks_bit_equal_to_one_device(cuda, tmp_path,
+                                                           ranks):
+    """f32 blocks of 2 agents a rank, bf16 payloads of 1 and 2, int8
+    payloads of 1 and 2 (the q8 kernel): a ring, an exponential graph, a
+    late and a masked round, each rank's output bit-equal to the
+    one-device kernels' rows of its agents (NaN, ±Inf among the values
+    and the int8 scales); a late source's NaN payload is never read; one
+    launch a rank an epoch."""
+    recs = _wire_peer_check(tmp_path, ranks)
+    assert len(recs) == ranks
+    for rec in recs:
+        for form, r in rec["forms"].items():
+            assert r["ok"] and r["finite"], (rec["rank"], form, r)
+            assert r["epochs"] == r["launches"] == len(TABLE_CASES), r
+
+
+@pytest.mark.requires_cuda
+def test_cuda_peer_wire_and_blocks_past_element_2_31(cuda, tmp_path):
+    """Past element 2³¹ of a rank's payload: int8 at one agent of 2³¹ + 2¹⁸
+    elements, bf16 at two agents of 2³⁰ + 2¹⁷ each; the first and last
+    4096 rows of a ring and a masked round bit-equal to the one-device
+    kernels."""
+    for form, rows in ((("int8", 1),), 16779264), ((("bf16", 2),), 8390656):
+        recs = _wire_peer_check(tmp_path, 2, forms=form, rows=rows,
+                                cases=("ring", "masked"))
+        for rec in recs:
+            for name, r in rec["forms"].items():
+                assert r["ok"] and r["finite"], (name, r)
+                assert r["epochs"] == r["launches"] == 2, r
+
+
+@pytest.mark.requires_cuda
+def test_cuda_peer_wire_flag_timeout_raises(cuda, tmp_path):
+    """A rank that never publishes its int8 payload: a reader's bounded
+    wait times out and the q8 combine raises instead of hanging."""
+    recs = _wire_peer_check(tmp_path, 2, forms=(("int8", 1),), timeout=2.0,
+                            timeout_case=True)
+    assert recs[0]["forms"]["int8-B1"]["ok"], recs[0]
+    assert "waited more than 2 s" in recs[0]["forms"]["int8-B1"]["raised"]

@@ -158,4 +158,5 @@ def test_build_names_libraries_by_source_hash(tmp_path, monkeypatch):
     assert {p.stem for p in build.CSRC.glob("*.cu")} == {
         "edm_update", "edm_update_ef", "flash_attention", "gossip_axpy",
         "gossip_axpy_q8", "paged_attention", "paged_prefill",
-        "ring_combine", "ring_peer", "table_combine", "table_peer"}
+        "ring_combine", "ring_peer", "table_combine", "table_peer",
+        "table_peer_q8"}
