@@ -373,8 +373,29 @@ Phases, in order; any failure raises and the script exits non-zero:
    and ±Inf; ring, exp, late and masked rounds), the first three timed
    one rank at a time on the ring round beside the plain version, the
    bound and (bf16, f32 blocks) one ``torch.matmul``.
+29. the expert-parallel MoE across ranks, in phase 25's ranks after 28:
+   ``deepseek_moe_16b`` at full width on a ``(1, 4)`` ``("data",
+   "model")`` grid (``launch/mesh.py::make_moe_mesh``), each rank its
+   block of 16 of the 64 experts a layer from the rank-local init
+   (``models/transformer.py::init_lm_rank``, never the whole set), the
+   grid registered (``set_moe_mesh(mesh, "shard_map")``), served by the
+   continuous engine with the paged kernels, every request arriving at
+   once: (a) f32 with the depth cut 28 → 2, 4 requests (prompts 128–256,
+   8 new tokens) at capacity 8.0 and the config's 1.25, each rank's
+   tokens equal to the one-process engine's (its references made before
+   the spawn); (b) bf16 at full depth, 8 requests at context 1024
+   (prompts 256–512, chunks of 128, 16–32 new tokens), every rank's
+   tokens bit-equal to rank 0's.  Gates in both: each rank's paged
+   kernels launched once a layer a dispatch (the prefill once a layer a
+   mixed one), no other kernel, one sum over the model axis a MoE layer
+   call (``core/comm.py::psum``, staged through the host over gloo) and
+   no other collective.  Reported: each rank's init time and peak,
+   tokens/s, one mixed and one decode-only dispatch with the sums' time
+   apart, and (after phase 15, whose weights are the one-process init)
+   the share of (b)'s tokens equal to the one-process engine's on the
+   same requests and the first divergence.
 
-Phases run in the order 1–3, 3w, 3r, 3m, 3f, 25–28 (26–28 in 25's
+Phases run in the order 1–3, 3w, 3r, 3m, 3f, 25–29 (26–29 in 25's
 ranks),
 4–6, 4r, 6r, 4g, 4w–6w, 12, 13, 14, 4t–6t, 7–11, 15–24; a ``[time]``
 line before each gives the seconds since the start and those of the
@@ -1404,10 +1425,10 @@ def print_graph_profile(tag: str, median_ms: float, gprof) -> None:
 
 
 GRAPH_STEPS = 3
-# phase 4g runs the main model at full width with its depth cut 32 → 8:
-# graphed == eager holds layer by layer, and the cut keeps the whole
-# script inside its time (PR 21)
-GRAPH_LAYERS = 8
+# phase 4g runs the main model at full width with its depth cut 32 → 4
+# (first to 8, then to 4 to make room for phase 29): graphed == eager
+# holds layer by layer, and the cut keeps the whole script inside its time
+GRAPH_LAYERS = 4
 # (name, RunConfig fields): the ring (the ring kernel); round_robin on the
 # exp graph (a ring round and a rolled round: two graphs) under
 # warmup_cosine (the LR scale a device scalar written before each
@@ -3198,14 +3219,27 @@ def moe_serve_exactness():
 def moe_serve_phase():
     """Phase 15: deepseek_moe_16b at full width and depth through
     :func:`engine_serve_phase` (28 paged-attention launches a dispatch,
-    28 paged-prefill launches a mixed dispatch), then the smoke config's
+    28 paged-prefill launches a mixed dispatch) and phase 29 (b)'s
+    requests through the one-process engine, then the smoke config's
     exactness."""
-    rec = engine_serve_phase(MOE_ARCH, MOE_SERVE_ARGS, "MoE")
+    rec = engine_serve_phase(MOE_ARCH, MOE_SERVE_ARGS, "MoE",
+                             then=ep_one_process)
     rec["smoke"] = moe_serve_exactness()
     return rec
 
 
-def engine_serve_phase(arch: str, serve_args, tag: str):
+def ep_one_process(model, params) -> dict:
+    """Phase 29 (b)'s requests through the one-process engine on phase
+    15's weights (the whole expert set): the tokens the ranks' are
+    compared with."""
+    eng = ep_engine(model, params, EP_B)
+    t0 = time.perf_counter()
+    metrics = eng.run(ep_requests(EP_B, model.cfg.vocab_size))
+    return {"ep_b_tokens": ep_tokens(eng), "ep_b_metrics": metrics,
+            "ep_b_s": time.perf_counter() - t0}
+
+
+def engine_serve_phase(arch: str, serve_args, tag: str, then=None):
     """``arch`` at full width and depth in bf16, random weights from seed
     0: the serve CLI's continuous engine at the reference CLI's trace
     sizes, then the engine at context 1024 (16 slots, 32 requests, prompts
@@ -3213,7 +3247,8 @@ def engine_serve_phase(arch: str, serve_args, tag: str):
     each (n_layers paged-attention launches a dispatch, n_layers
     paged-prefill launches a mixed dispatch); init time and peak, logits
     of one prefill finite (after a frontend for a VLM), serving peak; one
-    mixed and one decode-only dispatch profiled."""
+    mixed and one decode-only dispatch profiled; then ``then(model,
+    params)``'s record, where given."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
@@ -3289,7 +3324,11 @@ def engine_serve_phase(arch: str, serve_args, tag: str):
     rec["pool_gb"] = sum(t.numel() * t.element_size() for pi in eng.pools
                          for t in pi.values()) / 1e9
     rec["dispatches"] = profile_dispatches(eng, vocab)
-    del eng, params, model
+    del eng
+    if then is not None:
+        free()
+        rec.update(then(model, params))
+    del params, model
     free()
     return rec
 
@@ -4632,10 +4671,205 @@ def wire_ranks(rank, world, model, batches, refs, mesh, rec):
     rec["p28_s"] = time.time() - t28
 
 
+# phase 29: deepseek_moe_16b expert-parallel over phase 25's four ranks
+# (models/moe.py::apply_moe_shard_map on a (1, 4) ("data", "model") grid:
+# 16 of the 64 experts a layer a rank, one sum over the model axis a MoE
+# layer call), served by the continuous engine with the paged kernels.
+# Every request arrives at once, so that every rank — and the one-process
+# engine it is held to — takes the same admissions.  (a) f32 with the
+# depth cut 28 → 2, 4 requests at capacity 8.0 (dropless) and the
+# config's 1.25, against the one-process engine's tokens; (b) bf16 at full
+# width and depth, 8 requests at context 1024
+EpServe = collections.namedtuple("EpServe", "n prompts new slots ctx seed")
+EP_F32_LAYERS, EP_F32_CFS = 2, (8.0, 1.25)
+EP_A = EpServe(4, (128, 256), (8,), 4, 512, 21)
+EP_B = EpServe(8, (256, 512), (16, 32), 8, CTX, 22)
+
+
+def ep_requests(spec: EpServe, vocab: int):
+    """``spec``'s requests, every arrival at 0."""
+    from repro_torch.serve import poisson_load
+    return [dataclasses.replace(r, arrival=0.0) for r in poisson_load(
+        spec.n, rate=1000.0, vocab=vocab, prompt_buckets=spec.prompts,
+        new_token_buckets=spec.new, prompt_dist="exact", seed=spec.seed)]
+
+
+def ep_engine(model, params, spec: EpServe):
+    """The continuous engine of phase 29 at ``spec``'s slots and context:
+    the paged kernels, chunks of 128, phase 8's token budget."""
+    from repro_torch.serve import ContinuousBatchingEngine, PagedCacheConfig
+    pcfg = PagedCacheConfig(page_size=PAGE,
+                            num_pages=1 + spec.slots * spec.ctx // PAGE,
+                            max_slots=spec.slots, max_context=spec.ctx)
+    return ContinuousBatchingEngine(model, params, pcfg, attn_impl="kernel",
+                                    prefill_chunk=CHUNK,
+                                    max_step_tokens=STEP_TOKENS,
+                                    device="cuda")
+
+
+def ep_f32_config(cf: float):
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(MOE_ARCH), n_layers=EP_F32_LAYERS,
+                               dtype="float32", capacity_factor=cf)
+
+
+def ep_tokens(eng) -> dict:
+    return {str(r): t.tolist() for r, t in sorted(eng.completed.items())}
+
+
+def ep_references() -> dict:
+    """Phase 29 (a)'s one-process references: the f32 2-layer model's
+    engine tokens on :data:`EP_A`'s requests at each capacity (the whole
+    expert set in one process, ``model.init`` from seed 0)."""
+    import torch
+    from repro_torch.models import build_model
+    out = {}
+    for cf in EP_F32_CFS:
+        model = build_model(ep_f32_config(cf))
+        params = model.init(torch.Generator(device="cuda").manual_seed(0))
+        eng = ep_engine(model, params, EP_A)
+        eng.run(ep_requests(EP_A, model.cfg.vocab_size))
+        out[str(cf)] = ep_tokens(eng)
+        del eng, params, model
+        free()
+    return out
+
+
+def ep_run(eng, reqs):
+    """Drive ``reqs`` through ``eng`` with the counts set to 0 just before
+    and read just after: (metrics, launches, the sums over the model axis,
+    any other collective)."""
+    from repro_torch.core import comm
+    from repro_torch.kernels import ops
+    ops.reset_launch_counts()
+    with comm.recording() as log:
+        metrics = eng.run(reqs)
+    counts = ops.launch_counts()
+    is_sum = [c.kind == "all-reduce" and c.tag == "moe" for c in log]
+    return metrics, counts, sum(is_sum), [c.kind for c, y in zip(log, is_sum)
+                                          if not y]
+
+
+def ep_dispatches(eng, vocab: int) -> dict:
+    """One mixed and one decode-only dispatch of the bf16 engine timed on
+    the host clock (each ending in a device sync), the sums over the model
+    axis timed apart inside it (a device sync before each, then the
+    host-staged all-reduce): the second dispatch of each kind after 8
+    requests of two chunks each are admitted."""
+    import numpy as np
+    import torch
+    from repro_torch.core import comm
+    from repro_torch.serve import Request
+    rng = np.random.default_rng(9)
+    eng.reset()
+    for i in range(EP_B.slots):
+        check(eng.try_admit(Request(rid=i, tokens=rng.integers(
+            0, vocab, (2 * CHUNK,)).astype(np.int32), max_new=8,
+            arrival=0.0)), "phase 29: a timed request was not admitted")
+    inner, spent = comm.all_reduce, []
+
+    def timed(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(*a, **k)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t0)
+        return out
+
+    seen, out = {"mixed": 0, "decode": 0}, {}
+    comm.all_reduce = timed
+    try:
+        while len(out) < 2:
+            kind = "mixed" if eng._filling else "decode"
+            seen[kind] += 1
+            spent.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.step()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            if seen[kind] == 2 and kind not in out:
+                out[kind] = {"ms": ms, "sums": len(spent),
+                             "sums_ms": sum(spent) * 1e3,
+                             "sums_share": sum(spent) * 1e3 / ms}
+    finally:
+        comm.all_reduce = inner
+    eng.reset()
+    return out
+
+
+def ep_ranks(rank, world, refs, rec):
+    """Phase 29 on one rank (after 28): the rank's block of experts from
+    the rank-local init (:func:`init_lm_rank`, never the whole set), the
+    grid registered, then (a) and (b) through the engine; each run's
+    tokens, launches, sums and metrics into ``rec``, (a)'s tokens against
+    the one-process engine's (``refs``)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_moe_mesh
+    from repro_torch.models import build_model, moe
+    from repro_torch.models.transformer import init_lm_rank
+    t29 = time.time()
+    free()
+    rec["card_free_gib_29"] = torch.cuda.mem_get_info()[0] / 2**30
+    mesh = make_moe_mesh(1, world)
+    moe.set_moe_mesh(mesh, "shard_map")
+    try:
+        for cf in EP_F32_CFS:
+            model = build_model(ep_f32_config(cf))
+            params = init_lm_rank(model.cfg, torch.Generator(
+                device="cuda").manual_seed(0), rank, world)
+            eng = ep_engine(model, params, EP_A)
+            metrics, counts, sums, other = ep_run(
+                eng, ep_requests(EP_A, model.cfg.vocab_size))
+            toks = ep_tokens(eng)
+            rec[f"ep_a_{cf}"] = {
+                "metrics": metrics, "counts": counts, "sums": sums,
+                "other": other, "equal": toks == refs[str(cf)],
+                "tokens": toks}
+            del eng, params, model
+            free()
+        dist.barrier(group=mesh.control)
+        cfg = get_config(MOE_ARCH)
+        model = build_model(cfg)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = init_lm_rank(cfg, torch.Generator(device="cuda").manual_seed(
+            0), rank, world)
+        torch.cuda.synchronize()
+        rec["ep_init_s"] = time.perf_counter() - t0
+        rec["ep_init_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        rec["ep_param_gb"] = sum(t.numel() * t.element_size()
+                                 for t in params.values()) / 1e9
+        rec["ep_experts"] = params["blocks|0|moe|w_gate"].shape[1]
+        eng = ep_engine(model, params, EP_B)
+        eng.run(ep_requests(EP_B._replace(n=1, new=(2,)),
+                            cfg.vocab_size))                  # warm-up
+        eng.reset()
+        torch.cuda.reset_peak_memory_stats()
+        metrics, counts, sums, other = ep_run(
+            eng, ep_requests(EP_B, cfg.vocab_size))
+        rec["ep_b"] = {"metrics": metrics, "counts": counts, "sums": sums,
+                       "other": other, "tokens": ep_tokens(eng),
+                       "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                       "pool_gb": sum(t.numel() * t.element_size()
+                                      for pi in eng.pools
+                                      for t in pi.values()) / 1e9}
+        rec["ep_b_dispatches"] = ep_dispatches(eng, cfg.vocab_size)
+        del eng, params, model
+        free()
+    finally:
+        moe.set_moe_mesh(None)
+    dist.barrier(group=mesh.control)
+    rec["p29_s"] = time.time() - t29
+
+
 def peer_rank(rank: int, world: int, batches, held, refs, out_dir):
-    """Phases 25–28's rank (a spawned process; the one card for every
+    """Phases 25–29's rank (a spawned process; the one card for every
     rank), one agent of the main path's model each (phase 28: also two
-    agents on ranks 0–1, and a pod's row shard).
+    agents on ranks 0–1, and a pod's row shard; phase 29: a block of
+    deepseek_moe_16b's experts).
 
     Phase 25: ring, fused kernels, ``PEER_STEPS`` steps of the multi-rank
     bus step — the peer-pointer ring kernel carries the gossip.  Its
@@ -4660,7 +4894,8 @@ def peer_rank(rank: int, world: int, batches, held, refs, out_dir):
     per-agent losses, metrics and leaf digests (``refs``), rank 0's last
     step of each profiled.
 
-    Phase 28, after 27: ``WIRE_RUNS`` (:func:`wire_ranks`).  Writes
+    Phase 28, after 27: ``WIRE_RUNS`` (:func:`wire_ranks`).  Phase 29,
+    after 28: the expert-parallel MoE served (:func:`ep_ranks`).  Writes
     ``rank<r>.json``."""
     import torch
     import torch.distributed as dist
@@ -4842,6 +5077,9 @@ def peer_rank(rank: int, world: int, batches, held, refs, out_dir):
 
     # 28: the wires, agent blocks and row shards across ranks
     wire_ranks(rank, world, model, batches, refs, mesh, rec)
+    # 29: deepseek_moe_16b expert-parallel across the ranks
+    del model
+    ep_ranks(rank, world, refs["ep"], rec)
     for tag in ("overlap", "groups", "tree_edm", "tree_dsgt"):
         rec[f"{tag}_equal"] = all(
             rec[f"{tag}_digests"][k] == [refs[tag]["digests"][k][rank]]
@@ -4851,10 +5089,10 @@ def peer_rank(rank: int, world: int, batches, held, refs, out_dir):
 
 
 def peer_phase():
-    """Phases 25–28: ``PEER_RANKS`` ranks on the one card, each one agent
+    """Phases 25–29: ``PEER_RANKS`` ranks on the one card, each one agent
     of ``smollm_360m`` at full width and depth (bus ``(1, 3195392, 128)``
     a rank, or its 12 bf16 tree leaves), fused kernels, seq 128, per-agent
-    batch 1, α 0.2, β 0.9, spawned once for the three phases.
+    batch 1, α 0.2, β 0.9, spawned once for the five phases.
 
     Phase 25: ``PEER_STEPS`` steps of the multi-rank bus step on the ring;
     the gossip runs through the peer-pointer ring kernel (CUDA IPC).
@@ -4884,6 +5122,9 @@ def peer_phase():
     timed out.
     Phase 28: ``WIRE_RUNS``, each against its one-process run
     (:func:`wire_references`), gated by :func:`check_wire_ranks`.
+    Phase 29: ``deepseek_moe_16b``'s experts split over the ranks, served
+    (:func:`ep_ranks`; (a)'s references :func:`ep_references`), gated by
+    :func:`check_ep_ranks`.
     The split plan is not run here (one card; the CPU tests hold it over
     gloo); the NCCL path has run nowhere."""
     import shutil
@@ -4929,6 +5170,10 @@ def peer_phase():
                              "metrics": v["metrics"],
                              "peak_allocated_gib": v["peak_allocated_gib"]}
                          for k, v in refs.items()}
+    # phase 29 (a)'s references: the one-process f32 engine's tokens
+    t0 = time.time()
+    refs["ep"] = ep_references()
+    out["reference29_s"] = time.time() - t0
     t0 = time.time()
     refrun = one_process_run(model, bus_run(), batches[:PEER_STEPS])
     out.update(reference_s=time.time() - t0,
@@ -5047,7 +5292,109 @@ def peer_phase():
           f"peer rank 0's traced step: {tr}, roll bucket "
           f"{ranks[0]['buckets']['roll (gossip terms)']}")
     check_wire_ranks(ranks, refs)
+    check_ep_ranks(ranks)
     return out
+
+
+def check_ep_ranks(ranks) -> None:
+    """Phase 29's gates: (a) every rank's f32 tokens equal to the
+    one-process engine's at both capacities; (b) every rank's bf16 tokens
+    equal to rank 0's, every request served its whole budget; in each run
+    the paged kernels launched once a layer a dispatch (the prefill once a
+    layer a mixed one), no other kernel, and one sum over the model axis
+    a MoE layer call (two calls a mixed dispatch) and no other
+    collective; each rank holding 16 of the 64 experts a layer."""
+    from repro_torch.configs import get_config
+    n_layers = get_config(MOE_ARCH).n_layers
+    want_b = ranks[0]["ep_b"]["tokens"]
+    for r in ranks:
+        tag = f"phase 29 rank {r['rank']}"
+        runs = [(f"(a) f32 capacity {cf}", r[f"ep_a_{cf}"], EP_F32_LAYERS,
+                 EP_A) for cf in EP_F32_CFS]
+        runs.append(("(b) bf16", r["ep_b"], n_layers, EP_B))
+        for what, run, L, spec in runs:
+            m = run["metrics"]
+            check_serve_counts(run["counts"], m, L, f"{tag} {what}")
+            check(run["sums"] == L * (m["steps"] + m["mixed_steps"]),
+                  f"{tag} {what}: {run['sums']} sums over the model axis in "
+                  f"{m['steps']} dispatches ({m['mixed_steps']} mixed) of "
+                  f"{L} MoE layers")
+            check(run["other"] == [], f"{tag} {what}: other collectives "
+                  f"{run['other']}")
+            check(m["requests"] == spec.n, f"{tag} {what}: {m['requests']} "
+                  f"of {spec.n} requests served")
+        for cf in EP_F32_CFS:
+            check(r[f"ep_a_{cf}"]["equal"], f"{tag} (a): the f32 tokens at "
+                  f"capacity {cf} differ from the one-process engine's: "
+                  f"{r[f'ep_a_{cf}']['tokens']}")
+        check(r["ep_b"]["tokens"] == want_b, f"{tag} (b): the bf16 tokens "
+              "differ from rank 0's")
+        check(r["ep_experts"] == get_config(MOE_ARCH).n_experts // len(ranks),
+              f"{tag}: {r['ep_experts']} experts a layer")
+        d = r["ep_b_dispatches"]
+        check(d["mixed"]["sums"] == 2 * n_layers
+              and d["decode"]["sums"] == n_layers,
+              f"{tag}: timed dispatches' sums {d}")
+
+
+def print_ep(rec, smi: str) -> None:
+    """Phase 29's lines."""
+    for r in rec["ranks"]:
+        a = {cf: r[f"ep_a_{cf}"] for cf in EP_F32_CFS}
+        print(f"[ep29] rank {r['rank']} (a) f32 {EP_F32_LAYERS} layers: "
+              + "; ".join(
+                  f"capacity {cf}: {v['metrics']['tokens']} tokens in "
+                  f"{v['metrics']['steps']} dispatches "
+                  f"({v['metrics']['mixed_steps']} mixed), launches "
+                  f"{ {k: n for k, n in v['counts'].items() if n} }, sums "
+                  f"{v['sums']}, equal to the one-process engine "
+                  f"{v['equal']}" for cf, v in a.items()), flush=True)
+        b, dd = r["ep_b"], r["ep_b_dispatches"]
+        m = b["metrics"]
+        print(f"[ep29] rank {r['rank']} (b) bf16 full depth, "
+              f"{r['ep_experts']} experts a layer: init {r['ep_init_s']:.2f} "
+              f"s, params {r['ep_param_gb']:.2f} GB, init peak "
+              f"{r['ep_init_peak_gib']:.2f} GiB, serving peak "
+              f"{b['peak_gib']:.2f} GiB (pools {b['pool_gb']:.2f} GB); "
+              f"{m['tokens']} tokens over {m['requests']} requests in "
+              f"{m['steps']} dispatches ({m['mixed_steps']} mixed), "
+              f"{m['tokens_per_s']} tokens/s, wall {m['wall_s']} s, TTFT "
+              f"p50 {m['ttft_p50_ms']} ms, per-token p50 {m['p50_ms']} / "
+              f"p99 {m['p99_ms']} ms; launches "
+              f"{ {k: n for k, n in b['counts'].items() if n} }, sums "
+              f"{b['sums']}; a mixed dispatch {dd['mixed']['ms']:.1f} ms of "
+              f"which {dd['mixed']['sums']} sums {dd['mixed']['sums_ms']:.1f}"
+              f" ms ({dd['mixed']['sums_share']:.1%}), a decode-only "
+              f"{dd['decode']['ms']:.1f} ms of which {dd['decode']['sums']} "
+              f"sums {dd['decode']['sums_ms']:.1f} ms "
+              f"({dd['decode']['sums_share']:.1%}); card free at the phase's "
+              f"start {r['card_free_gib_29']:.2f} GiB; {smi}", flush=True)
+    print(f"[time] phase 29 took "
+          f"{statistics.median(r['p29_s'] for r in rec['ranks']):.1f} s in "
+          f"the ranks (median; per rank "
+          f"{[round(r['p29_s'], 1) for r in rec['ranks']]}), its "
+          f"one-process references {rec['reference29_s']:.1f} s; every "
+          "rank's tokens equal (bf16: bit-equal to rank 0's)", flush=True)
+
+
+def ep_agreement(ranks_tokens: dict, one_tokens: dict) -> dict:
+    """Phase 29 (b)'s tokens against phase 15's one-process engine on the
+    same requests: the share of generated tokens equal position by
+    position, the requests equal whole, and the first divergence (request,
+    position).  Reported, not gated: the ranks' sum adds the experts'
+    partials in another order than the one-process combine."""
+    n = same = whole = 0
+    first = None
+    for rid in sorted(one_tokens, key=int):
+        got, want = ranks_tokens[rid], one_tokens[rid]
+        eq = [g == w for g, w in zip(got, want)]
+        n += len(want)
+        same += sum(eq)
+        whole += got == want
+        if first is None and got != want:
+            first = [int(rid), eq.index(False) if False in eq else len(eq)]
+    return {"equal_share": same / n, "requests_equal": whole,
+            "requests": len(one_tokens), "first_divergence": first}
 
 
 def check_wire_ranks(ranks, refs) -> None:
@@ -5178,6 +5525,7 @@ def print_peer(rec, smi: str) -> None:
           f"{[round(r['tree_s'], 1) for r in rec['ranks']]}), its "
           f"one-process references {rec['reference27_s']:.1f} s", flush=True)
     print_wire_ranks(rec, smi)
+    print_ep(rec, smi)
     print("[peer] not run on this card: the split (pod × data) permute "
           "plan (the CPU tests hold it over gloo against the JAX package); "
           "NCCL: not run anywhere (one card: NCCL refuses two ranks on it; "
@@ -5510,11 +5858,12 @@ def main() -> None:
     print(f"[flash] the op at (a) and (b): launches {flash_counts}",
           flush=True)
 
-    clock("25-28")
-    # 25–28. multi-rank gossip: 4 ranks on the one card, the peer-pointer
+    clock("25-29")
+    # 25–29. multi-rank: 4 ranks on the one card, the peer-pointer
     # ring (25); the delayed pipeline with a straggler, the peer table
     # kernel and policy groups across ranks (26); the tree path (27); the
-    # wires, agent blocks and row shards (28).  They run here, while this
+    # wires, agent blocks and row shards (28); the expert-parallel MoE
+    # served (29).  They run here, while this
     # process holds next to nothing on the card: the four ranks and their
     # peer buffers take most of it
     peer = peer_phase()
@@ -6014,6 +6363,18 @@ def main() -> None:
     # 15. deepseek_moe_16b served at full width and depth
     moe_serve = moe_serve_phase()
     print_engine("moe-serve", MOE_ARCH, moe_serve, smi)
+    agree = ep_agreement(peer["ranks"][0]["ep_b"]["tokens"],
+                         moe_serve["ep_b_tokens"])
+    peer["ep_b_agreement"] = agree
+    print(f"[ep29] (b) the four ranks' bf16 tokens against the one-process "
+          f"engine's on the same {agree['requests']} requests (phase 15's "
+          f"weights, {moe_serve['ep_b_s']:.1f} s, "
+          f"{moe_serve['ep_b_metrics']['tokens_per_s']} tokens/s): "
+          f"{agree['equal_share']:.1%} of the tokens equal, "
+          f"{agree['requests_equal']} requests whole, first divergence "
+          f"(request, position) {agree['first_divergence']} (reported, not "
+          "gated: the sum over the ranks adds the partials in another "
+          "order)", flush=True)
 
     clock("16")
     # 16. MoE training at full width, depth cut to one layer, 2 agents
@@ -6143,6 +6504,11 @@ def main() -> None:
             "launches_moe_ctx1024": moe_serve["counts"][name],
             "launches_vlm_cli": vlm_serve["cli_counts"][name],
             "launches_vlm_ctx1024": vlm_serve["counts"][name],
+            "launches_ep_f32_rank0": {
+                cf: peer["ranks"][0][f"ep_a_{cf}"]["counts"][name]
+                for cf in EP_F32_CFS},
+            "launches_ep_bf16_per_rank": [r["ep_b"]["counts"][name]
+                                          for r in peer["ranks"]],
             **{key: {k: serve_timed[f"{name}_{key}"].get(k) for k in (
                 "case", "shape", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "bytes", "flops", "host_ms", "bound_fraction",

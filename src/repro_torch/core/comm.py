@@ -18,6 +18,17 @@ trainer and the checkpoints share (the JAX package's counterpart is a
   pass and waits on them after it; ``ppermute`` is the two back to back);
   :func:`all_gather` — the tiled all-gather along one axis's ranks;
   :func:`all_reduce` — a sum over the grid's (or an axis's) ranks.
+* The differentiable forms the expert-parallel MoE layer
+  (:func:`repro_torch.models.moe.apply_moe_shard_map`) makes its
+  collectives with, each the counterpart of a ``shard_map`` primitive and
+  its transpose: :func:`psum` — the sum, whose gradient passes through
+  unchanged (the downstream value is the same on every rank of the
+  group); :func:`sum_grads` — the identity, whose gradient is summed over
+  the group (JAX's ``pbroadcast`` of a replicated operand into a
+  rank-varying computation); :func:`gather_rows` — the tiled all-gather,
+  whose gradient is this rank's rows; :func:`shard_rows` — this rank's
+  contiguous rows, whose gradient is all-gathered.  Their collectives
+  carry the tag ``moe``.
 
 Inside :func:`recording` each collective appends a :class:`Collective` —
 its kind (the HLO names: ``collective-permute``, ``all-gather``,
@@ -51,7 +62,7 @@ import torch.distributed as dist
 __all__ = ["GossipMesh", "gossip_agent_axes", "axes_group", "rank_block",
            "KINDS", "Collective", "Recording", "recording", "mark",
            "Pending", "ppermute_start", "ppermute", "all_gather",
-           "all_reduce"]
+           "all_reduce", "psum", "sum_grads", "gather_rows", "shard_rows"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -175,7 +186,8 @@ class Collective:
     ships its operand; an all-gather ``(g − 1) / g`` of its result; an
     all-reduce ``2 (g − 1) / g`` of its operand: the reference's factors),
     a tag naming its caller's purpose (``gossip``, ``forward``,
-    ``metrics``, ``checkpoint``), for a permute whether the operand came
+    ``metrics``, ``checkpoint``, ``moe``: the expert-parallel layer's sums
+    and gathers), for a permute whether the operand came
     out of an all-gather, and the record's ticks when it was made
     (``started``) and waited on (``waited``: the same tick for a
     collective that returns done)."""
@@ -355,3 +367,85 @@ def all_reduce(t: torch.Tensor, group, group_size: int,
     dist.all_reduce(buf, group=group)
     _record("all-reduce", buf, group_size, tag)
     return buf.to(t.device)
+
+
+# ---------------------------------------------------------------------------
+# differentiable forms (the expert-parallel MoE layer)
+# ---------------------------------------------------------------------------
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group, group_size, tag):
+        return all_reduce(t, group, group_size, tag)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None, None
+
+
+class _SumGrads(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group, group_size, tag):
+        ctx.args = (group, group_size, tag)
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, *ctx.args), None, None, None
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group, group_size, index, tag):
+        ctx.rows, ctx.index = t.shape[0], index
+        return all_gather(t, group, group_size, tag)
+
+    @staticmethod
+    def backward(ctx, g):
+        r0 = ctx.index * ctx.rows
+        return g[r0:r0 + ctx.rows], None, None, None, None
+
+
+class _ShardRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group, group_size, index, tag):
+        ctx.args = (group, group_size, tag)
+        rows = t.shape[0] // group_size
+        return t[index * rows:(index + 1) * rows]
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, *ctx.args), None, None, None, None
+
+
+def psum(t: torch.Tensor, group, group_size: int,
+         tag: str = "moe") -> torch.Tensor:
+    """``jax.lax.psum`` over ``group``'s ranks: the forward sum of
+    :func:`all_reduce`, and a gradient that passes through unchanged —
+    the result feeds a value that every rank of the group computes alike,
+    so each rank's cotangent is already the whole one."""
+    return _Psum.apply(t, group, group_size, tag)
+
+
+def sum_grads(t: torch.Tensor, group, group_size: int,
+              tag: str = "moe") -> torch.Tensor:
+    """The identity, whose gradient is summed over ``group``'s ranks: a
+    value the group holds alike, entering a computation that differs
+    from rank to rank (the transpose of JAX's ``pbroadcast``)."""
+    return _SumGrads.apply(t, group, group_size, tag)
+
+
+def gather_rows(t: torch.Tensor, group, group_size: int, index: int,
+                tag: str = "moe") -> torch.Tensor:
+    """The tiled all-gather of ``t``'s rows over ``group`` (this rank's
+    block at ``index``); the gradient is this rank's rows of the
+    cotangent, which every rank of the group holds alike."""
+    return _GatherRows.apply(t, group, group_size, index, tag)
+
+
+def shard_rows(t: torch.Tensor, group, group_size: int, index: int,
+               tag: str = "moe") -> torch.Tensor:
+    """Block ``index`` of ``group_size`` contiguous row blocks of ``t``
+    (which every rank of the group holds alike); the gradient is the
+    all-gather of the blocks' cotangents."""
+    return _ShardRows.apply(t, group, group_size, index, tag)

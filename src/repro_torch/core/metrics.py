@@ -10,6 +10,12 @@ whatever the bus (an agent's block of Pixtral-12B's one-layer bus is
 6 GiB, and ``bus_consensus`` held three such temporaries).  A bus of at
 most ``_ROWS`` rows reduces as one range, as before.
 
+:func:`grad_norm_at_mean`, :func:`heterogeneity_zeta2` (the paper's
+data-heterogeneity ζ²) and :func:`consensus_distance_from_dev` sum their
+agent-stacked trees one agent's block of a leaf at a time, as the bus
+metrics sum one agent's rows at a time (a leaf-sized f32 norm on the CPU
+drifted 5e-4 relative).
+
 The ``*_ranks`` forms take a state spread over ranks (each rank its
 block of agents) and the sums that join them; they reduce leaf by leaf
 too, so no f32 copy of a whole tree is ever held.
@@ -25,7 +31,8 @@ from .mixing import tree_map
 __all__ = ["tree_sqnorm", "agent_mean", "consensus_distance",
            "bus_consensus", "bus_grad_norm", "bus_consensus_ranks",
            "bus_grad_norm_ranks", "consensus_distance_ranks",
-           "tree_grad_norm_ranks"]
+           "tree_grad_norm_ranks", "grad_norm_at_mean",
+           "heterogeneity_zeta2", "consensus_distance_from_dev"]
 
 
 def _leaves(tree):
@@ -123,3 +130,34 @@ def tree_grad_norm_ranks(grads, total_sum) -> torch.Tensor:
     """The global gradient norm of a tree spread over ranks: this rank's
     :func:`tree_sqnorm`, summed over every rank (``total_sum``)."""
     return total_sum(tree_sqnorm(grads)).sqrt()
+
+
+def _agent_sqnorm(tree) -> torch.Tensor:
+    """Σ over leaves and over each leaf's leading agent axis of Σ
+    block², each agent's block squared and summed in f32."""
+    return sum(blk.float().square().sum() for leaf in _leaves(tree)
+               for blk in leaf)
+
+
+def grad_norm_at_mean(grad_fn, params) -> torch.Tensor:
+    """‖∇f(x̄)‖², where ``grad_fn`` maps one agent's tree (x̄: each leaf's
+    mean over its leading agent axis, which is dropped) to its gradient
+    tree."""
+    mean = tree_map(lambda leaf: leaf.mean(dim=0), params)
+    return tree_sqnorm(grad_fn(mean))
+
+
+def consensus_distance_from_dev(dev) -> torch.Tensor:
+    """‖dev‖²_F of an agent-stacked deviation tree (each leaf ``(A,
+    ...)``), in f32, one agent's block at a time."""
+    return _agent_sqnorm(dev)
+
+
+def heterogeneity_zeta2(per_agent_grads) -> torch.Tensor:
+    """ζ² = (1/n) Σ_i ‖∇f_i − ∇f‖², the per-agent gradients (each leaf
+    ``(n, ...)``) taken at one common point; ∇f is their agent mean, the
+    deviation taken in each leaf's dtype."""
+    n = _leaves(per_agent_grads)[0].shape[0]
+    dev = tree_map(lambda g: g - g.mean(dim=0, keepdim=True),
+                   per_agent_grads)
+    return consensus_distance_from_dev(dev) / n

@@ -24,6 +24,11 @@ this module re-exports as the reference's module has it).
   exchange their host names once over the control group
   (``GossipMesh.hosts``): the peer-pointer ring needs its ranks on one
   host.
+* :func:`make_moe_mesh` builds the ``("data", "model")`` rank grid of the
+  expert-parallel MoE layer (:func:`repro_torch.models.moe.set_moe_mesh`)
+  with the same per-axis groups; :func:`make_sim_mesh` is its 1 × 1 grid
+  in one process (no process group), as the reference's tests build a
+  ``(1, 1)`` mesh on one device.
 
 The TPU constants of the reference's module (``HW``,
 ``make_production_mesh``) have no counterpart here.
@@ -42,7 +47,8 @@ import torch.distributed as dist
 from repro_torch.core.comm import GossipMesh, gossip_agent_axes
 
 __all__ = ["GossipMesh", "init_distributed", "make_gossip_mesh",
-           "gossip_agent_axes", "rank_device", "shared_card"]
+           "make_moe_mesh", "make_sim_mesh", "gossip_agent_axes",
+           "rank_device", "shared_card"]
 
 _GROUPS: Dict[tuple, object] = {}
 _RANK_DEVICE: Dict[str, torch.device] = {}    # set by init_distributed
@@ -202,6 +208,16 @@ def make_gossip_mesh(n_agents: int, pods: int = 1,
         what = (f"{n_agents} pod-agents × {shards} shards" if shards > 1
                 else f"{B}-agent-per-device gossip")
         raise ValueError(f"need {n_dev} ranks for {what}, have {world}")
+    return _grid(shape, names, n_agents, B, shards, device)
+
+
+def _grid(shape, names, n_agents: int, B: int, shards: int,
+          device) -> GossipMesh:
+    """The :class:`GossipMesh` of the grid ``shape`` over the world's
+    first ranks: every slice's process group made (by every rank, in one
+    order; a gloo twin of each beside NCCL), this rank's coordinates,
+    slices and groups, the grid's host names."""
+    n_dev = math.prod(shape)
     backend = dist.get_backend()
     if device is None:
         device = _RANK_DEVICE.get("device", "cpu" if backend == "gloo"
@@ -228,3 +244,37 @@ def make_gossip_mesh(n_agents: int, pods: int = 1,
     return GossipMesh(shape, names, n_agents, B, shards, rank, coords,
                       slices, groups, world_group, control, dev, backend,
                       shared_card(dev), tuple(hosts))
+
+
+def make_moe_mesh(data: int = 1, model: Optional[int] = None,
+                  device=None) -> GossipMesh:
+    """The expert-parallel MoE layer's ``(data, model)`` rank grid, axes
+    ``("data", "model")``, row-major over the world's first ``data ·
+    model`` ranks (``model`` defaults to the world over ``data``): rank
+    ``r`` is data index ``r // model`` and model index ``r % model``, as
+    the reference's ``jax.make_mesh((data, model), ("data", "model"))``
+    lays out its devices.  Collective, as :func:`make_gossip_mesh`; the
+    grid carries no agents (``n_agents`` is its data extent).  Ranks
+    beyond the grid get a mesh with no coordinates."""
+    if not dist.is_initialized():
+        raise RuntimeError("make_moe_mesh needs the process group: call "
+                           "repro_torch.launch.mesh.init_distributed first")
+    world = dist.get_world_size()
+    if model is None:
+        model = world // max(data, 1)
+    if data < 1 or model < 1:
+        raise ValueError(f"a ({data}, {model}) grid has no ranks")
+    if data * model > world:
+        raise ValueError(f"need {data * model} ranks for a ({data}, "
+                         f"{model}) grid, have {world}")
+    return _grid((data, model), ("data", "model"), data, 1, 1, device)
+
+
+def make_sim_mesh() -> GossipMesh:
+    """The 1 × 1 ``("data", "model")`` grid in one process, with no
+    process group: :func:`repro_torch.models.moe.apply_moe_shard_map` on
+    it makes no collective, as the reference's layer on a ``(1, 1)`` mesh
+    of one device."""
+    return GossipMesh((1, 1), ("data", "model"), 1, 1, 1, 0, (0, 0),
+                      ((0,), (0,)), (None, None), None, None,
+                      torch.device("cpu"), "", False, ("",))

@@ -31,6 +31,30 @@ only, each request with ``n_frontend_tokens`` (1500) seeded frame
 embeddings for its encoder; it has no paged path, so
 ``--continuous-batching`` raises, as in the reference.
 
+``--moe-impl shard_map`` serves an MoE model expert-parallel across
+ranks (the reference's ``RunConfig.moe_impl`` / dry-run flag): it runs
+under torchrun only (without it, it raises), one process a rank on a
+``(1, world)`` ``("data", "model")`` grid
+(:func:`repro_torch.launch.mesh.make_moe_mesh`); each rank draws only its
+block of E / world experts a layer
+(:func:`repro_torch.models.transformer.init_lm_rank`, bit-equal to that
+block of the one-process init; with ``--ckpt`` it keeps its block of the
+file's experts), registers the grid
+(:func:`repro_torch.models.moe.set_moe_mesh`) and serves the same
+requests through the same engine, so each MoE layer call sums the ranks'
+partial outputs once (:func:`repro_torch.models.moe.apply_moe_shard_map`).
+The engine must take the same admissions on every rank, so the
+continuous trace arrives at once (every arrival at 0: a closed batch).
+Rank 0 prints; the metrics carry every rank's token digest
+(``rank_token_digests``).  ``gspmd`` (the default) serves in one process.
+Ranks sharing a card sum over gloo through the host; across cards NCCL
+(not run anywhere):
+
+  PYTHONPATH=src torchrun --standalone --nproc-per-node 2 \
+      -m repro_torch.launch.serve --arch deepseek_moe_16b --smoke \
+      --device cpu --moe-impl shard_map --continuous-batching \
+      --prefill-chunk 8 --max-step-tokens 16 --prompt-dist exact
+
 ``--ckpt`` loads a consensus export — the port's
 (``repro_torch.train.checkpoint.export_consensus``) or the reference's,
 an npz of the bare-path parameter tree — through
@@ -43,7 +67,9 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import hashlib
 import json
+import os
 import time
 from typing import Any, Dict, List, Optional
 
@@ -52,10 +78,11 @@ import torch
 
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.device import resolve_device
-from repro_torch.models import build_model
+from repro_torch.models import build_model, moe
+from repro_torch.models.transformer import init_lm_rank
 from repro_torch.serve import (ContinuousBatchingEngine, PagedCacheConfig,
                                greedy_generate, poisson_load)
-from repro_torch.weights import params_digest, params_from_npz
+from repro_torch.weights import expert_block, params_digest, params_from_npz
 
 __all__ = ["parser", "main"]
 
@@ -116,7 +143,42 @@ def parser() -> argparse.ArgumentParser:
                          "continuum)")
     ap.add_argument("--device", default=None,
                     help="cuda (default; raises without a GPU) or cpu")
+    ap.add_argument("--moe-impl", choices=moe.MOE_IMPLS, default="gspmd",
+                    help="MoE FFN: 'gspmd' = one process; 'shard_map' = "
+                         "expert-parallel across torchrun's ranks, each "
+                         "holding E / world experts a layer")
     return ap
+
+
+def _rank_grid(args, cfg):
+    """``--moe-impl shard_map``: join torchrun's process group and build
+    the ``(1, world)`` grid (None for ``gspmd``).  Raises outside
+    torchrun and for a model with no experts."""
+    if args.moe_impl != "shard_map":
+        return None
+    if "RANK" not in os.environ or "WORLD_SIZE" not in os.environ:
+        raise RuntimeError("--moe-impl shard_map serves one rank a "
+                           "process: run it under torchrun (e.g. torchrun "
+                           "--standalone --nproc-per-node 4 -m "
+                           "repro_torch.launch.serve ...)")
+    if not cfg.n_experts:
+        raise ValueError(f"--moe-impl shard_map needs an MoE model; "
+                         f"{cfg.name} has no experts")
+    from repro_torch.launch.mesh import init_distributed, make_moe_mesh
+    init_distributed(str(resolve_device(args.device)))
+    return make_moe_mesh(1)
+
+
+def _digest(obj) -> str:
+    return hashlib.sha256(json.dumps(obj).encode()).hexdigest()
+
+
+def _rank_digests(mesh, digest: str):
+    """Every rank's token digest, in rank order (over the control group)."""
+    import torch.distributed as dist
+    out = [None] * mesh.size
+    dist.all_gather_object(out, digest, group=mesh.control)
+    return out
 
 
 def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
@@ -124,20 +186,45 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     engine's :func:`~repro_torch.serve.scheduler.summarize` dict with
     ``--continuous-batching`` (plus ``params_sha256`` with ``--ckpt``),
     else ``{"tokens": (B, new_tokens) ids, "seconds": s,
-    "params_sha256": digest or None}``."""
+    "params_sha256": digest or None}``; both with ``token_digest`` (the
+    SHA-256 of the generated ids) and, under ``--moe-impl shard_map``,
+    ``rank_token_digests`` (every rank's, in rank order)."""
     args = parser().parse_args(argv)
-    device = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if args.n_layers:
         cfg = dataclasses.replace(cfg, n_layers=args.n_layers)
+    mesh = _rank_grid(args, cfg)
+    try:
+        return _serve(args, cfg, mesh)
+    finally:
+        if mesh is not None:
+            moe.set_moe_mesh(None)
+
+
+def _serve(args, cfg, mesh) -> Dict[str, Any]:
+    device = resolve_device(args.device) if mesh is None else mesh.device
+    say = print if mesh is None or mesh.rank == 0 else (lambda *a, **k: None)
     model = build_model(cfg, decode_window=args.window)
     digest = None
+    gen = torch.Generator(device=device).manual_seed(0)
     if args.ckpt:
         params = params_from_npz(args.ckpt, device=device)
         digest = params_digest(params)
-        print(f"loaded consensus params from {args.ckpt} (sha256 {digest})")
+        say(f"loaded consensus params from {args.ckpt} (sha256 {digest})")
+        if mesh is not None:
+            M, m = mesh.axis_size("model"), mesh.axis_index("model")
+            params = {k: v.clone() if v.shape != params[k].shape else v
+                      for k, v in expert_block(params, m, M).items()}
+    elif mesh is not None:
+        params = init_lm_rank(cfg, gen, mesh.axis_index("model"),
+                              mesh.axis_size("model"))
     else:
-        params = model.init(torch.Generator(device=device).manual_seed(0))
+        params = model.init(gen)
+    if mesh is not None:
+        moe.set_moe_mesh(mesh, "shard_map")
+        say(f"moe=shard_map grid={mesh.shape} experts/rank="
+            f"{cfg.n_experts // mesh.axis_size('model')} backend="
+            f"{mesh.backend}")
 
     if args.continuous_batching:
         ctx = args.window or MAX_PROMPT + MAX_NEW
@@ -154,19 +241,27 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
                             prompt_buckets=(MAX_PROMPT // 2, MAX_PROMPT),
                             new_token_buckets=(4, 8, 16, MAX_NEW),
                             prompt_dist=args.prompt_dist, seed=1)
+        if mesh is not None:
+            reqs = [dataclasses.replace(r, arrival=0.0) for r in reqs]
         metrics = eng.run(reqs)
         if digest is not None:
             metrics["params_sha256"] = digest
+        metrics["token_digest"] = _digest(
+            {str(r): t.tolist() for r, t in sorted(eng.completed.items())})
+        if mesh is not None:
+            metrics["rank_token_digests"] = _rank_digests(
+                mesh, metrics["token_digest"])
         pf = (f"chunked(C={args.prefill_chunk})"
               if args.prefill_chunk else "per-request")
-        print(f"arch={cfg.name} engine=continuous slots={args.max_slots} "
-              f"page={args.page_size} window={args.window or 'full'} "
-              f"attn={args.attn_impl} prefill={pf} "
-              f"compiles={metrics['compile_count']} device={device}")
-        print("serve metrics: " + json.dumps(metrics))
-        print(f"generated {metrics['tokens']} tokens over "
-              f"{metrics['requests']} requests "
-              f"({metrics['tokens_per_s']} tok/s)", flush=True)
+        say(f"arch={cfg.name} engine=continuous slots={args.max_slots} "
+            f"page={args.page_size} window={args.window or 'full'} "
+            f"attn={args.attn_impl} prefill={pf} "
+            f"compiles={metrics['compile_count']} device={device}"
+            + ("" if mesh is None else " arrivals=closed"))
+        say("serve metrics: " + json.dumps(metrics))
+        say(f"generated {metrics['tokens']} tokens over "
+            f"{metrics['requests']} requests "
+            f"({metrics['tokens_per_s']} tok/s)", flush=True)
         return metrics
 
     rng = np.random.default_rng(1)
@@ -185,14 +280,21 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     dt = time.perf_counter() - t0
     front = (f" frontend={cfg.n_frontend_tokens}" if "frontend" in batch
              else "")
-    print(f"arch={cfg.name} batch={args.batch} prompt={args.prompt_len}"
-          f"{front} window={args.window or 'full'} device={device}")
-    print(f"generated {args.new_tokens} tokens/request in {dt:.2f}s "
-          f"({args.batch * args.new_tokens / dt:.1f} tok/s)")
+    say(f"arch={cfg.name} batch={args.batch} prompt={args.prompt_len}"
+        f"{front} window={args.window or 'full'} device={device}")
+    say(f"generated {args.new_tokens} tokens/request in {dt:.2f}s "
+        f"({args.batch * args.new_tokens / dt:.1f} tok/s)")
     for i in range(min(args.batch, 4)):
-        print(f"  req{i}: {out[i].tolist()}")
-    return {"tokens": out, "seconds": dt, "params_sha256": digest}
+        say(f"  req{i}: {out[i].tolist()}")
+    res = {"tokens": out, "seconds": dt, "params_sha256": digest,
+           "token_digest": _digest(out.tolist())}
+    if mesh is not None:
+        res["rank_token_digests"] = _rank_digests(mesh, res["token_digest"])
+    return res
 
 
 if __name__ == "__main__":
     main()
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.destroy_process_group()

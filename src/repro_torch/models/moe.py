@@ -4,8 +4,18 @@ Top-k router with softmax-renormalised weights, capacity-limited sort
 dispatch (Switch / GShard: the ``T·k`` assignments sorted by expert id,
 ranked within each expert, those past capacity ``C`` dropped), three
 batched expert matmuls over ``(E, C, d)``, and the weighted combine; plus
-the optional shared experts (DeepSeekMoE).  The reference's multi-device
-``apply_moe_shard_map`` / ``set_moe_mesh`` are not ported (ROADMAP.md).
+the optional shared experts (DeepSeekMoE).
+
+Expert parallelism (the reference's ``set_moe_mesh`` /
+``apply_moe_shard_map``): on a ``("data", "model")`` rank grid
+(:func:`repro_torch.launch.mesh.make_moe_mesh`, or the one-process
+:func:`~repro_torch.launch.mesh.make_sim_mesh`) a rank holds the experts
+``[m·E/M, (m+1)·E/M)`` of its model index ``m``
+(:func:`repro_torch.weights.expert_block`,
+:func:`repro_torch.models.transformer.init_lm_rank`) and every other leaf
+whole; ``set_moe_mesh(mesh, "shard_map")`` makes :func:`apply_moe` run
+:func:`apply_moe_shard_map` on it.  A rank's expert block reaching
+:func:`apply_moe` with no such grid registered raises.
 
 The reference's orders are kept where they decide the result:
 
@@ -31,13 +41,30 @@ import torch.nn.functional as F
 
 from .layers import rms_norm, swiglu
 
-__all__ = ["EXPERT_LEAF_PATTERNS", "expert_group_spec", "dispatch_plan",
-           "apply_moe"]
+__all__ = ["EXPERT_LEAF_PATTERNS", "expert_group_spec", "expert_axis",
+           "dispatch_plan", "apply_moe", "apply_moe_shard_map",
+           "set_moe_mesh"]
 
 # path patterns of the per-expert weights (leading expert dim E).  The
 # router, the MoE layernorm and the shared experts gossip with the dense
 # group: "moe|w_gate" does NOT match "moe|shared|w_gate".
 EXPERT_LEAF_PATTERNS = ("moe|w_gate", "moe|w_up", "moe|w_down")
+
+
+def expert_axis(path: str):
+    """The expert axis of the leaf at ``path``: 1 for a model's stacked
+    expert leaf (``blocks|<pi>|moe|w_gate``: ``(n_blocks, E, ...)``), 0
+    for a bare MoE layer's (``w_gate``: ``(E, ...)``), None for any other
+    leaf (the router, the MoE norm and the shared experts:
+    ``moe|shared|w_gate`` is no expert leaf)."""
+    parts = path.split("|")
+    if parts[-1] not in ("w_gate", "w_up", "w_down"):
+        return None
+    if len(parts) == 1:
+        return 0
+    if parts[-2] != "moe":
+        return None
+    return 1 if parts[0].endswith("blocks") else 0
 
 
 def expert_group_spec(gossip_every: int = 0, wire: str = "f32",
@@ -49,6 +76,25 @@ def expert_group_spec(gossip_every: int = 0, wire: str = "f32",
     from repro_torch.core.bus import GroupSpec
     return GroupSpec("experts", EXPERT_LEAF_PATTERNS,
                      gossip_every=gossip_every, wire=wire, schedule=schedule)
+
+
+# the grid the MoE FFN runs on, and how (see set_moe_mesh)
+_MESH = {"mesh": None, "impl": "gspmd"}
+MOE_IMPLS = ("gspmd", "shard_map")
+
+
+def set_moe_mesh(mesh, impl: str = "gspmd") -> None:
+    """Register the rank grid the MoE FFN runs on.  ``impl="shard_map"``
+    makes :func:`apply_moe` run :func:`apply_moe_shard_map` on ``mesh``
+    (a ``("data", "model")``
+    :class:`~repro_torch.core.comm.GossipMesh`); ``"gspmd"`` only records
+    the mesh and changes nothing: in the reference it adds sharding
+    constraints for XLA's partitioner, which has no counterpart without a
+    compiler.  ``set_moe_mesh(None)`` clears the registration."""
+    if impl not in MOE_IMPLS:
+        raise ValueError(f"impl {impl!r} not in {MOE_IMPLS}")
+    _MESH["mesh"] = mesh
+    _MESH["impl"] = impl
 
 
 def _route(logits: torch.Tensor, k: int
@@ -101,6 +147,38 @@ def dispatch_plan(idx: torch.Tensor, E: int, C: int) -> Dict[str, torch.Tensor]:
             "filled": filled, "pos": pos}
 
 
+def _experts(flat, w, idx, wg, wu, wd, C: int) -> torch.Tensor:
+    """Capacity dispatch, the expert FFN and the weighted combine over the
+    experts of ``wg`` / ``wu`` / ``wd`` (``E_l`` of them): flat (T, d),
+    routing weights ``w`` and expert ids ``idx`` (T, k), where id ``E_l``
+    marks an assignment this rank does not serve (an expert of another
+    rank).  The unserved ones sort last and take no slot; the owned ones
+    are ranked among themselves, as in the reference's
+    ``_dispatch_compute_combine``.  Returns the (T, d) combine, each
+    token's served parts summed in ascending expert order."""
+    T, d = flat.shape
+    k = idx.shape[1]
+    E_l = wg.shape[0]
+    plan = dispatch_plan(idx, E_l + 1, C)
+    order = plan["order"]
+    keep = plan["keep"] & (idx.reshape(-1)[order] < E_l)
+    zero = torch.zeros((), dtype=flat.dtype, device=flat.device)
+    buf = torch.where(plan["filled"][:E_l, :, None], flat[plan["src"][:E_l]],
+                      zero)
+    g = F.silu(torch.bmm(buf, wg))
+    u = torch.bmm(buf, wu)
+    out_buf = torch.bmm(g * u, wd).reshape(E_l * C, d)
+
+    scale = (w.reshape(-1)[order] * keep).to(flat.dtype)
+    slot = plan["slot"].clamp(max=E_l * C - 1)
+    gathered = out_buf[slot] * scale[:, None]                   # sorted order
+    parts = gathered[plan["pos"]]                               # (T, k, d)
+    combined = parts[:, 0]
+    for j in range(1, k):
+        combined = combined + parts[:, j]
+    return combined
+
+
 def apply_moe(p: Dict, cfg, x: torch.Tensor, eps: float
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d) → (x + MoE(x), router_aux_coef · aux).
@@ -109,30 +187,97 @@ def apply_moe(p: Dict, cfg, x: torch.Tensor, eps: float
     ff), ``w_down`` (E, ff, d), and ``shared`` {``w_gate``, ``w_up``,
     ``w_down``} when the model has shared experts.  Every one of the
     ``B·S`` rows is routed, padding rows too, as in the reference: they
-    take capacity from the others."""
-    B, S, d = x.shape
+    take capacity from the others.  With a grid registered by
+    ``set_moe_mesh(mesh, "shard_map")`` this is
+    :func:`apply_moe_shard_map`; otherwise the expert leaves must hold all
+    E experts (a rank's block raises)."""
+    if _MESH["impl"] == "shard_map" and _MESH["mesh"] is not None:
+        return apply_moe_shard_map(p, cfg, x, eps, _MESH["mesh"])
     E, k = cfg.n_experts, cfg.experts_per_token
+    if p["w_gate"].shape[0] != E:
+        raise ValueError(
+            f"the expert leaves hold {p['w_gate'].shape[0]} of the config's "
+            f"{E} experts: a rank's block runs only on its grid — register "
+            "it with set_moe_mesh(mesh, 'shard_map')")
+    B, S, d = x.shape
     T = B * S
     C = max(8, int(cfg.capacity_factor * T * k / E))      # slots per expert
     h = rms_norm(x, p["ln"], eps)
     flat = h.reshape(T, d)
     w, idx, aux = _route(flat @ p["router"].to(flat.dtype), k)
-    plan = dispatch_plan(idx, E, C)
-
-    zero = torch.zeros((), dtype=flat.dtype, device=flat.device)
-    buf = torch.where(plan["filled"][..., None], flat[plan["src"]], zero)
-    g = F.silu(torch.bmm(buf, p["w_gate"]))
-    u = torch.bmm(buf, p["w_up"])
-    out_buf = torch.bmm(g * u, p["w_down"]).reshape(E * C, d)
-
-    scale = (w.reshape(-1)[plan["order"]] * plan["keep"]).to(flat.dtype)
-    gathered = out_buf[plan["slot"]] * scale[:, None]           # sorted order
-    parts = gathered[plan["pos"]]                               # (T, k, d)
-    combined = parts[:, 0]
-    for j in range(1, k):
-        combined = combined + parts[:, j]
-
+    combined = _experts(flat, w, idx, p["w_gate"], p["w_up"], p["w_down"], C)
     y = combined.reshape(B, S, d)
+    if "shared" in p:
+        sp = p["shared"]
+        y = y + swiglu(h, sp["w_gate"], sp["w_up"], sp["w_down"])
+    return x + y, cfg.router_aux_coef * aux
+
+
+def apply_moe_shard_map(p: Dict, cfg, x: torch.Tensor, eps: float, mesh
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The expert-parallel MoE FFN on a ``("data", "model")`` rank grid:
+    the reference's ``apply_moe_shard_map``, one process a rank.
+
+    ``p`` holds this rank's experts ``[m·E_l, (m+1)·E_l)`` (``E_l = E /
+    M`` for model index ``m`` of ``M``) and every other leaf whole; ``x``
+    is the caller's whole ``(B, S, d)`` on every rank.  With ``dp`` data
+    ranks and ``T = B·S`` rows, ``use_dp = dp > 1 and T % dp == 0``: the
+    rank routes the contiguous ``T / dp`` rows of its data index (else all
+    T), with the capacity ``C = max(8, int(cf · T_l · k / E))`` of those
+    ``T_l`` rows.  Routing runs on the replicated router; assignments to
+    another rank's experts go unserved here and ranks count among the
+    owned ones.  The rank's partial combine (its experts' parts in
+    ascending expert order) is summed over the model axis — one
+    activation-sized all-reduce — then, at ``use_dp``, aux is averaged
+    over the data axis and the rows are all-gathered back to the whole
+    ``(T, d)`` (the reference's GSPMD keeps them sharded instead).  The
+    shared experts run on the whole ``h`` after the sum.
+
+    The gradient is the reference's: a replicated leaf's gradient is the
+    whole one on every rank (the partial path's parts summed over the
+    model axis, the data axis's rows summed over it, the aux term counted
+    once), and the expert block's is its slice of the whole one.  On a
+    CUDA tensor the sums run on the group's backend, through the host
+    where ranks share a card over gloo."""
+    from repro_torch.core import comm   # (core imports the kernels, which
+    B, S, d = x.shape                   # import the models)
+    E, k = cfg.n_experts, cfg.experts_per_token
+    M, m = mesh.axis_size("model"), mesh.axis_index("model")
+    if E % M:
+        raise ValueError(f"{E} experts do not split over {M} model ranks")
+    E_l = E // M
+    if p["w_gate"].shape[0] != E_l:
+        raise ValueError(
+            f"the expert leaves hold {p['w_gate'].shape[0]} experts; model "
+            f"rank {m} of {M} holds its block of {E_l} "
+            "(repro_torch.weights.expert_block)")
+    dp = mesh.axis_size("data") if "data" in mesh.axis_names else 1
+    T = B * S
+    use_dp = dp > 1 and T % dp == 0
+    T_l = T // dp if use_dp else T
+    C = max(8, int(cfg.capacity_factor * T_l * k / E))
+    h = rms_norm(x, p["ln"], eps)
+    flat = h.reshape(T, d)
+    router, wg, wu, wd = p["router"], p["w_gate"], p["w_up"], p["w_down"]
+    if use_dp:
+        dg, di = mesh.group("data"), mesh.axis_index("data")
+        flat = comm.shard_rows(flat, dg, dp, di)
+        router, wg, wu, wd = (comm.sum_grads(t, dg, dp)
+                              for t in (router, wg, wu, wd))
+    w, idx, aux = _route(flat @ router.to(flat.dtype), k)
+    if M > 1:
+        mg = mesh.group("model")
+        flat, w = comm.sum_grads(flat, mg, M), comm.sum_grads(w, mg, M)
+    lo = m * E_l
+    own = (idx >= lo) & (idx < lo + E_l)
+    idx_local = torch.where(own, idx - lo, torch.full_like(idx, E_l))
+    out = _experts(flat, w, idx_local, wg, wu, wd, C)
+    if M > 1:
+        out = comm.psum(out, mg, M)
+    if use_dp:
+        aux = comm.psum(aux, dg, dp) / dp
+        out = comm.gather_rows(out, dg, dp, di)
+    y = out.reshape(B, S, d)
     if "shared" in p:
         sp = p["shared"]
         y = y + swiglu(h, sp["w_gate"], sp["w_up"], sp["w_down"])

@@ -43,11 +43,11 @@ from .attention import (apply_attn, apply_attn_paged,
                         apply_attn_paged_prefill, init_kv_cache)
 from .layers import apply_dense_ffn, init_leaf, rms_norm
 from .mamba import apply_mamba, init_ssm_cache, ssm_specs
-from .moe import apply_moe
+from .moe import apply_moe, expert_axis
 
 __all__ = ["param_specs", "param_meta", "meta_from_specs", "init_lm",
-           "init_from_specs", "lm_loss", "init_lm_cache", "lm_prefill",
-           "lm_decode_step", "lm_decode_step_paged",
+           "init_lm_rank", "init_from_specs", "lm_loss", "init_lm_cache",
+           "lm_prefill", "lm_decode_step", "lm_decode_step_paged",
            "lm_prefill_chunk_paged", "lm_serve_step_mixed"]
 
 # (shape, dtype, init): init is the truncated-normal fan-in (an int),
@@ -174,18 +174,46 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator
     return init_from_specs(param_specs(cfg), generator)
 
 
-def init_from_specs(specs: Dict[str, Spec], generator: torch.Generator
+def init_lm_rank(cfg: ModelConfig, generator: torch.Generator,
+                 index: int, count: int) -> Dict[str, torch.Tensor]:
+    """Model rank ``index`` of ``count``'s parameters for the
+    expert-parallel MoE layer: :func:`init_lm`'s draws, every leaf whole
+    but the MoE expert leaves, of which the rank keeps its block of
+    experts ``[index·E/count, (index+1)·E/count)``.  Bit-equal to
+    :func:`repro_torch.weights.expert_block` of :func:`init_lm`'s dict,
+    without ever holding the whole expert set: a stacked leaf is drawn
+    one layer slice at a time, so the peak is the rank's parameters plus
+    one layer's draw."""
+    E = cfg.n_experts
+    if not E or E % count:
+        raise ValueError(f"{E} experts do not split over {count} model "
+                         "ranks")
+    n = E // count
+    keep = {p: (index * n, (index + 1) * n) for p in param_specs(cfg)
+            if expert_axis(p) is not None}
+    return init_from_specs(param_specs(cfg), generator, keep)
+
+
+def init_from_specs(specs: Dict[str, Spec], generator: torch.Generator,
+                    keep: Dict[str, Tuple[int, int]] = None
                     ) -> Dict[str, torch.Tensor]:
     """Every leaf of ``specs`` drawn in sorted path order (see
     :func:`init_lm`); a stacked leaf — one whose first path component
-    ends in ``blocks`` — one leading-index slice at a time."""
+    ends in ``blocks`` — one leading-index slice at a time.  ``keep``
+    maps a stacked leaf's path to the ``[lo, hi)`` of its second axis that
+    is kept of each drawn slice (the draws, and so every later leaf's
+    bits, are the whole init's)."""
+    keep = keep or {}
     params = {}
     for path in sorted(specs):
         shape, dt, init = specs[path]
         if path.split("|", 1)[0].endswith("blocks"):
-            leaf = torch.empty(shape, dtype=dt, device=generator.device)
+            lo, hi = keep.get(path, (None, None))
+            kept = shape if path not in keep else (shape[0], hi - lo,
+                                                   *shape[2:])
+            leaf = torch.empty(kept, dtype=dt, device=generator.device)
             for b in range(shape[0]):
-                leaf[b] = init_leaf(shape[1:], dt, init, generator)
+                leaf[b] = init_leaf(shape[1:], dt, init, generator)[lo:hi]
             params[path] = leaf
         else:
             params[path] = init_leaf(shape, dt, init, generator)

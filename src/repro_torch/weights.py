@@ -23,6 +23,9 @@ memory, ``|V2`` from an npz); their bits are reinterpreted as
 (:func:`array_to_tensor`); :func:`tensor_to_array` is the way back, bf16
 as ``|V2`` bits, which is what the JAX package's npz files hold.
 :func:`params_to_bus` packs the dict straight into an A-agent bus.
+:func:`expert_block` cuts the MoE expert leaves of a parameter dict or
+numpy tree to one model rank's block of experts (the expert-parallel
+layer, :func:`repro_torch.models.moe.apply_moe_shard_map`).
 """
 from __future__ import annotations
 
@@ -33,11 +36,12 @@ import numpy as np
 import torch
 
 from repro_torch.core import bus as parambus
+from repro_torch.models.moe import expert_axis
 
 __all__ = ["array_to_tensor", "tensor_to_array", "params_from_tree",
            "params_from_npz", "params_digest", "params_to_bus",
            "train_state_from_arrays", "rank_slice",
-           "rank_state_from_arrays"]
+           "rank_state_from_arrays", "expert_block"]
 
 _SEP = "|"
 
@@ -185,3 +189,28 @@ def rank_state_from_arrays(state: Mapping[str, Any], a0: int, B: int,
                               for s in slot]),
             "parity": state["pipeline"]["parity"]}
     return train_state_from_arrays(out, device)
+
+
+def expert_block(params, index: int, count: int):
+    """``params`` with every MoE expert leaf cut to model rank ``index``
+    of ``count``'s block of experts, ``[index·E/count, (index+1)·E/count)``
+    along :func:`expert_axis`; every other leaf as it is.  ``params`` is a
+    ``{path: tensor or array}`` dict or a nested numpy tree (as
+    :func:`params_from_tree` takes it, e.g. ``jax.tree.map(np.asarray,
+    params)``), which comes back as a flat ``{path: array}`` dict.  The
+    blocks are views of the given leaves."""
+    flat: Dict[str, Any] = {}
+    _walk(params, "", flat)
+    out = {}
+    for path, leaf in flat.items():
+        ax = expert_axis(path)
+        if ax is not None:
+            E = leaf.shape[ax]
+            if E % count:
+                raise ValueError(f"{path}: {E} experts do not split over "
+                                 f"{count} model ranks")
+            n = E // count
+            sl = [slice(None)] * ax + [slice(index * n, (index + 1) * n)]
+            leaf = leaf[tuple(sl)]
+        out[path] = leaf
+    return out

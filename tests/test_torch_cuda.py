@@ -2223,3 +2223,144 @@ def test_cuda_peer_wire_flag_timeout_raises(cuda, tmp_path):
                             timeout_case=True)
     assert recs[0]["forms"]["int8-B1"]["ok"], recs[0]
     assert "waited more than 2 s" in recs[0]["forms"]["int8-B1"]["raised"]
+
+
+# ---------------------------------------------------------------------------
+# the expert-parallel MoE layer across ranks sharing the card
+# (models/moe.py::apply_moe_shard_map; its sum over the model axis is
+# staged through the host over gloo)
+# ---------------------------------------------------------------------------
+
+# deepseek_moe_16b's layer at full width: d 2048, E 64, k 6, ff 1408, 2
+# shared experts; T = 2 × 256 rows
+EP_X = (2, 256, 2048)
+EP_BF16 = dict(rtol=2e-2, atol=2e-2)
+
+
+def _ep_layer(dtype, device, seed=5):
+    """deepseek_moe_16b's MoE layer in ``dtype`` (the router f32), x and
+    the cotangent, drawn on the card from one seed (the same bits on every
+    rank)."""
+    from repro_torch.configs import get_config
+    cfg = get_config("deepseek_moe_16b")
+    d, E, ff = cfg.d_model, cfg.n_experts, cfg.d_ff
+    sff = cfg.n_shared_experts * ff
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def w(*shape, fan):
+        return (torch.randn(shape, generator=gen, device=device)
+                / fan ** 0.5).to(dtype)
+
+    p = {"ln": (0.1 * torch.randn(d, generator=gen, device=device)).to(dtype),
+         "router": torch.randn((d, E), generator=gen, device=device) / d ** 0.5,
+         "w_gate": w(E, d, ff, fan=d), "w_up": w(E, d, ff, fan=d),
+         "w_down": w(E, ff, d, fan=ff),
+         "shared": {"w_gate": w(d, sff, fan=d), "w_up": w(d, sff, fan=d),
+                    "w_down": w(sff, d, fan=sff)}}
+    x = torch.randn(EP_X, generator=gen, device=device).to(dtype)
+    ct = torch.randn(EP_X, generator=gen, device=device)
+    return cfg, p, x, ct
+
+
+def _ep_grads(p, x):
+    out = {"x": x.grad}
+    out.update({k: v.grad for k, v in p.items() if k != "shared"})
+    out.update({f"shared|{k}": v.grad for k, v in p["shared"].items()})
+    return out
+
+
+def _ep_rank(rank, world, d, device="cuda"):
+    """One rank of :func:`test_cuda_moe_shard_map_ranks`: its block of
+    experts; in f32 the layer's forward and gradient against the
+    one-process ``apply_moe`` (relative norms), in bf16 its output (bits
+    saved for the cross-rank check) against it."""
+    import json
+    from pathlib import Path
+    import torch.distributed as dist
+    from repro_torch.core import comm
+    from repro_torch.launch.mesh import init_distributed, make_moe_mesh
+    from repro_torch.models import moe
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = init_distributed(device, init_method=f"file://{d}/store",
+                           rank=rank, world_size=world, timeout_s=300)
+    mesh = make_moe_mesh(1, world)
+    rec = {"rank": rank, "shared": mesh.shared}
+    n = 64 // world
+
+    def rel(a, b):
+        a, b = a.detach().float(), b.detach().float()
+        return float((a - b).norm() / b.norm())
+
+    for dtype in (torch.float32, torch.bfloat16):
+        cfg, full, x, ct = _ep_layer(dtype, dev)
+        grad = dtype == torch.float32
+        block = {k: (v[rank * n:(rank + 1) * n].clone()
+                     if k in ("w_gate", "w_up", "w_down") else v)
+                 for k, v in full.items()}
+        leaves = [x, *full["shared"].values(), *(
+            v for k, v in full.items() if k != "shared"), *(
+            block[k] for k in ("w_gate", "w_up", "w_down"))]
+        for t in leaves:
+            t.requires_grad_(grad)
+        with torch.set_grad_enabled(grad):
+            want, aux_want = moe.apply_moe(full, cfg, x, cfg.norm_eps)
+            if grad:
+                ((want.float() * ct).sum() + aux_want).backward()
+                g_want = _ep_grads(full, x)
+                for t in leaves:
+                    t.grad = None
+            with comm.recording() as log:
+                got, aux = moe.apply_moe_shard_map(block, cfg, x,
+                                                   cfg.norm_eps, mesh)
+            if grad:
+                ((got.float() * ct).sum() + aux).backward()
+                g_got = _ep_grads(block, x)
+        tag = "f32" if grad else "bf16"
+        rec[f"{tag}_y_rel"] = rel(got, want)
+        rec[f"{tag}_aux_rel"] = abs(float(aux) - float(aux_want)) / abs(
+            float(aux_want))
+        rec[f"{tag}_sums"] = [[c.kind, list(c.shape), c.group_size]
+                              for c in log]
+        if grad:
+            rec["grad_rel"] = {
+                k: rel(g, g_want[k][rank * n:(rank + 1) * n]
+                       if k in ("w_gate", "w_up", "w_down") else g_want[k])
+                for k, g in g_got.items()}
+        else:
+            w32, g32 = want.float(), got.float()
+            rec["bf16_within"] = bool(
+                ((g32 - w32).abs() <= EP_BF16["atol"]
+                 + EP_BF16["rtol"] * w32.abs()).all())
+            torch.save(got.cpu(), f"{d}/bf16_rank{rank}.pt")
+        del full, block, x, ct, got, want
+        torch.cuda.empty_cache()
+    Path(d, f"rank{rank}.json").write_text(json.dumps(rec))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("ranks", [2, 4])
+def test_cuda_moe_shard_map_ranks(cuda, tmp_path, ranks):
+    """deepseek_moe_16b's MoE layer at full width (d 2048, E 64, k 6, ff
+    1408, 2 shared experts; T 512) over 2 and 4 ranks sharing the card,
+    each holding E / ranks experts: one all-reduce of (512, 2048) over the
+    model axis a call; in f32 the output, aux and every gradient leaf
+    within 1e-5 relative norm of the one-process ``apply_moe`` (the expert
+    block's against its slice); in bf16 every rank's output bit-equal to
+    rank 0's and within 2e-2 + 2e-2·|want| of the one-process layer."""
+    import json
+    import torch.multiprocessing as mp
+    mp.spawn(_ep_rank, args=(ranks, str(tmp_path)), nprocs=ranks, join=True)
+    recs = [json.loads((tmp_path / f"rank{r}.json").read_text())
+            for r in range(ranks)]
+    y0 = torch.load(tmp_path / "bf16_rank0.pt")
+    for r in recs:
+        assert r["shared"], r
+        assert r["f32_y_rel"] <= 1e-5 and r["f32_aux_rel"] <= 1e-5, r
+        assert all(v <= 1e-5 for v in r["grad_rel"].values()), r
+        assert r["bf16_within"] and r["bf16_aux_rel"] <= 1e-5, r
+        for tag in ("f32", "bf16"):
+            assert r[f"{tag}_sums"] == [["all-reduce", [512, 2048], ranks]]
+        y = torch.load(tmp_path / f"bf16_rank{r['rank']}.pt")
+        assert torch.equal(y.view(torch.int16), y0.view(torch.int16))

@@ -184,5 +184,42 @@ def test_unported_levers_raise():
         build_train_step(model, run, ring(4), device="cpu")
 
 
+def test_expert_parallel_code_imports_torch_only():
+    """The expert-parallel MoE layer and its caller (``models/moe.py``,
+    ``core/comm.py``, ``launch/mesh.py``, ``launch/serve.py``,
+    ``weights.py``, ``core/metrics.py``) import ``torch`` and the port
+    only: in a fresh interpreter their new entry points load with no
+    ``jax*`` or ``repro.*`` module, and their sources name none."""
+    names = {"repro_torch.models.moe": ("set_moe_mesh", "apply_moe_shard_map",
+                                        "expert_axis"),
+             "repro_torch.core.comm": ("psum", "sum_grads", "gather_rows",
+                                       "shard_rows"),
+             "repro_torch.launch.mesh": ("make_moe_mesh", "make_sim_mesh"),
+             "repro_torch.models.transformer": ("init_lm_rank",),
+             "repro_torch.weights": ("expert_block",),
+             "repro_torch.core.metrics": ("grad_norm_at_mean",
+                                          "heterogeneity_zeta2",
+                                          "consensus_distance_from_dev"),
+             "repro_torch.launch.serve": ("main",)}
+    code = (
+        "import importlib, sys\n"
+        f"for m, fns in {names!r}.items():\n"
+        "    mod = importlib.import_module(m)\n"
+        "    assert all(callable(getattr(mod, f)) for f in fns), m\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m.startswith('jaxlib') or m == 'repro' "
+        "or m.startswith('repro.'))\n"
+        "print('BAD', bad, 'TORCH', 'torch' in sys.modules)\n")
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "BAD [] TORCH True" in out.stdout, out.stdout
+    for m in names:
+        src = PKG.joinpath(*m.split(".")[1:]).with_suffix(".py")
+        assert not _FORBIDDEN.findall(src.read_text()), src
+
+
 def test_package_docstring_states_device_rule():
     assert "device=\"cpu\"" in repro_torch.__doc__
