@@ -333,8 +333,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    publish before each step's forward and backward pass and the combine
    after; no flag wait timed out.
 27. the tree path across ranks, in phase 25's ranks after 26: one agent
-   of ``smollm_360m`` a rank at full width and depth (its 12 bf16 tree
-   leaves), ``packed_bus=False``, fused kernels, eager, (a) 2 EDM steps on
+   of ``smollm_360m`` a rank at full width, the depth cut to
+   ``GRAPH_LAYERS`` (its 12 bf16 tree leaves; phase 30 runs the tree at
+   full depth), ``packed_bus=False``, fused kernels, eager, (a) 2 EDM steps on
    the ring: the rank's leaves packed into one f32 payload
    (``core/mixing.py::TreePayload``) through the peer ring; (b) 2 DSGT
    steps on ``round_robin`` over ``exp`` (two mixes a step, y and x): the
@@ -394,8 +395,25 @@ Phases, in order; any failure raises and the script exits non-zero:
    apart, and (after phase 15, whose weights are the one-process init)
    the share of (b)'s tokens equal to the one-process engine's on the
    same requests and the first divergence.
+30. the tree path with a block of agents a rank, in phase 25's ranks
+   after 29: ranks 0–1 × two agents of ``smollm_360m`` at full width and
+   depth (ranks 2–3 outside the mesh), ``packed_bus=False``, fused
+   kernels, eager, from seed 0 — (a) 3 EDM steps on ring(4) with agent 3
+   down at step 2 (a masked round), (b) 2 DSGT steps on ``round_robin``
+   over ``exp`` (two mixes a step, y and x).  Every round goes through
+   the peer table, the rank's 12 bf16 leaves of both agents packed into
+   one ``(2, rows, 128)`` f32 payload (``core/mixing.py::TreePayload``,
+   ``table_peer_kernel_blk``).  Gates, each against a one-process 4-agent
+   fused eager tree run of the same steps: per-agent losses and the
+   per-agent digests of every leaf of x and of every optimizer slot
+   equal; consensus and gradient norm within rtol 1e-5; launches a rank a
+   step exactly (a) 12 ``edm_update`` + 1 ``table_peer``, (b) 2
+   ``table_peer`` and no ``edm_update``; one table epoch a mix; no
+   permute and no gossip collective in the recorder; rank 0's profiled
+   last step of each holding what its counters say, no roll; no flag wait
+   timed out.  Reported: a rank's step ms, torch peak and peer-slot GiB.
 
-Phases run in the order 1–3, 3w, 3r, 3m, 3f, 25–29 (26–29 in 25's
+Phases run in the order 1–3, 3w, 3r, 3m, 3f, 25–30 (26–30 in 25's
 ranks),
 4–6, 4r, 6r, 4g, 4w–6w, 12, 13, 14, 4t–6t, 7–11, 15–24; a ``[time]``
 line before each gives the seconds since the start and those of the
@@ -4136,7 +4154,9 @@ RANK_GROUPS = json.dumps([
 TABLE_CASES = ("ring", "exp", "late", "masked")
 # phase 27: the tree path across ranks, (a) EDM on the ring, (b) DSGT on
 # round_robin over exp (its offset-1 round through the peer ring, its
-# offset-2 round through the peer table), TREE_STEPS steps each
+# offset-2 round through the peer table), TREE_STEPS steps each, at full
+# width with the depth cut to GRAPH_LAYERS (for the script's time: phase
+# 30 runs the tree at full depth)
 TREE_STEPS = 2
 TREE_RUNS = {"edm": dict(packed_bus=False),
              "dsgt": dict(algorithm="dsgt", packed_bus=False,
@@ -4188,6 +4208,26 @@ WIRE_LAUNCHES = {
 FORM_CHECKS = {"wire_int8": ("q8", True), "wire_bf16": ("bf16", True),
                "block_f32": ("block", True), "block_int8": ("q8_block",
                                                             False)}
+
+
+def cut_model():
+    """The main path's model at full width, the depth cut to
+    ``GRAPH_LAYERS``: phase 27's runs."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    return build_model(dataclasses.replace(get_config(ARCH),
+                                           n_layers=GRAPH_LAYERS))
+# phase 30: the tree path with B = 2 agents a rank on ranks 0–1 (ranks 2–3
+# outside the mesh), the rank's leaves of both agents packed into one (2,
+# rows, 128) f32 payload of the peer table: (a) EDM on ring(4) with agent 3
+# down at step 2 (BLOCK_CHURN: a masked round), (b) DSGT on round_robin over
+# exp (both offsets through the table).  A run: its RunConfig over the main
+# cell's, its steps, its churn plan
+TREE_BLOCK_B = 2
+TREE_BLOCK_RUNS = {
+    "edm": (dict(packed_bus=False), 3, BLOCK_CHURN),
+    "dsgt": (dict(algorithm="dsgt", packed_bus=False, topology="exp",
+                  gossip_schedule="round_robin"), 2, None)}
 
 
 def bus_digest(t) -> list:
@@ -4321,11 +4361,12 @@ def table_round(case, rank, world):
 
 
 def rank_steps(step, state, batches, mesh, rec, tag, profile_last=False):
-    """Phases 26 and 27's driven run on one rank: the launch counts set to
-    0, the steps (the recorder's marks each step: the peer publish before
-    the forward and backward pass, the combine after; each step's launches
-    and metrics), the counts read; ``profile_last``: the last step under
-    ``torch.profiler`` (its training kernels and roll bucket)."""
+    """Phases 26–28 and 30's driven run on one rank: the launch counts set
+    to 0, the steps (the recorder's marks each step: the peer publish
+    before the forward and backward pass, the combine after; each step's
+    launches, collectives by kind and purpose, and metrics), the counts
+    read; ``profile_last``: the last step under ``torch.profiler`` (its
+    training kernels and roll bucket)."""
     import torch
     import torch.distributed as dist
     from torch.profiler import ProfilerActivity, profile
@@ -4334,7 +4375,8 @@ def rank_steps(step, state, batches, mesh, rec, tag, profile_last=False):
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     torch.use_deterministic_algorithms(True)
-    losses, secs, order, per_step, prof_rows = [], [], [], [], None
+    losses, secs, order, per_step, collectives = [], [], [], [], []
+    prof_rows = None
     for t, b in enumerate(batches):
         b = {k: v.cuda() for k, v in b.items()}
         dist.barrier(group=mesh.control)
@@ -4356,6 +4398,8 @@ def rank_steps(step, state, batches, mesh, rec, tag, profile_last=False):
         per_step.append({k: v - before[k] for k, v in
                          ops.launch_counts().items() if v - before[k]})
         order.append([n for n, _ in sorted(log.marks, key=lambda t: t[1])])
+        collectives.append(dict(collections.Counter(
+            f"{c.kind} {c.tag}" for c in log)))
     torch.use_deterministic_algorithms(False)
     rec[f"{tag}_launches"] = {k: v for k, v in ops.launch_counts().items()
                               if v}
@@ -4368,6 +4412,7 @@ def rank_steps(step, state, batches, mesh, rec, tag, profile_last=False):
     rec[f"{tag}_peak_reserved_gib"] = torch.cuda.max_memory_reserved() / 2**30
     rec[f"{tag}_agent_losses"] = losses
     rec[f"{tag}_marks"] = order
+    rec[f"{tag}_collectives"] = collectives
     rec[f"{tag}_digests"] = {k: [bus_digest(b) for b in v]
                              for k, v in rank_bufs(state).items()}
     return state
@@ -4865,10 +4910,72 @@ def ep_ranks(rank, world, refs, rec):
     rec["p29_s"] = time.time() - t29
 
 
+def tree_block_ranks(rank, world, batches, refs, rec):
+    """Phase 30 on one rank (after 29): ``TREE_BLOCK_RUNS`` on ranks 0–1,
+    ``TREE_BLOCK_B`` agents of ``smollm_360m`` each at full width and depth
+    (ranks 2–3 outside the mesh), ``packed_bus=False``, fused kernels,
+    eager: the rank's 12 bf16 leaves of both agents go through the peer
+    table packed into one ``(2, rows, 128)`` f32 payload
+    (``core/mixing.py::TreePayload``).  Each run from seed 0
+    (:func:`rank_steps`, rank 0's last step profiled): its transports'
+    flag waits, epochs and slot GiB, its agents' leaf digests held to its
+    one-process reference (``refs``)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.core.comm import rank_block
+    from repro_torch.launch.mesh import make_gossip_mesh
+    from repro_torch.models import build_model
+    from repro_torch.train import (build_train_step, init_state,
+                                   make_gossip_schedule)
+    t30 = time.time()
+    free()
+    rec["held_gib_30"] = torch.cuda.memory_allocated() / 2**30
+    model = build_model(get_config(ARCH))
+    mesh = make_gossip_mesh(world, agents_per_device=TREE_BLOCK_B)
+    rec["tree_block_member"] = mesh.member
+    rec["tree_block_s"] = {}
+    if mesh.member:
+        a0, B, _, _ = rank_block(mesh, AGENTS, None)
+        for tag, (kw, steps, churn) in TREE_BLOCK_RUNS.items():
+            t0 = time.time()
+            key = f"tree_block_{tag}"
+            run = bus_run(agents_per_device=B, **kw)
+            step = build_train_step(
+                model, run, make_gossip_schedule(run, AGENTS, churn=churn),
+                use_fused_kernel=True, mesh=mesh)
+            state = init_state(model, run, AGENTS, seed=0, mesh=mesh)
+            rec[f"{key}_leaf"] = list(
+                next(iter(state["params"].values())).shape[:1])
+            state = rank_steps(step, state, batches[:steps], mesh, rec, key,
+                               profile_last=rank == 0)
+            transports = step.transports()
+            for t in transports:
+                t.raise_on_timeout()
+            rec[f"{key}_waits"] = sum(getattr(t, "waits", 0)
+                                      for t in transports)
+            rec[f"{key}_epochs"] = [t.epoch for t in transports]
+            rec[f"{key}_peer_gib"] = sum(
+                getattr(t, "_flag_off", 0) / 2**30 for t in transports)
+            want = refs[key]["digests"]
+            rec[f"{key}_equal"] = all(
+                rec[f"{key}_digests"][k] == want[k][a0:a0 + B] for k in want)
+            del state
+            free()
+            torch.cuda.synchronize()
+            dist.barrier(group=mesh.control)
+            step.close()
+            del step
+            free()
+            rec["tree_block_s"][tag] = time.time() - t0
+    dist.barrier()
+    rec["p30_s"] = time.time() - t30
+
+
 def peer_rank(rank: int, world: int, batches, held, refs, out_dir):
-    """Phases 25–29's rank (a spawned process; the one card for every
-    rank), one agent of the main path's model each (phase 28: also two
-    agents on ranks 0–1, and a pod's row shard; phase 29: a block of
+    """Phases 25–30's rank (a spawned process; the one card for every
+    rank), one agent of the main path's model each (phases 28 and 30: also
+    two agents on ranks 0–1; phase 28: a pod's row shard; phase 29: a block of
     deepseek_moe_16b's experts).
 
     Phase 25: ring, fused kernels, ``PEER_STEPS`` steps of the multi-rank
@@ -4888,14 +4995,15 @@ def peer_rank(rank: int, world: int, batches, held, refs, out_dir):
     ``RANK_GROUPS``.  (a) and (b) against the one-process runs' per-agent
     losses and bus digests (``refs``).
 
-    Phase 27, after 26: the tree path (``packed_bus=False``), each of
-    ``TREE_RUNS`` for ``TREE_STEPS`` steps — the rank's leaves packed into
-    the peer transports' f32 payload — against the one-process tree runs'
-    per-agent losses, metrics and leaf digests (``refs``), rank 0's last
-    step of each profiled.
+    Phase 27, after 26: the tree path (``packed_bus=False``) at
+    ``GRAPH_LAYERS``, each of ``TREE_RUNS`` for ``TREE_STEPS`` steps — the
+    rank's leaves packed into the peer transports' f32 payload — against
+    the one-process tree runs' per-agent losses, metrics and leaf digests
+    (``refs``), rank 0's last step of each profiled.
 
     Phase 28, after 27: ``WIRE_RUNS`` (:func:`wire_ranks`).  Phase 29,
-    after 28: the expert-parallel MoE served (:func:`ep_ranks`).  Writes
+    after 28: the expert-parallel MoE served (:func:`ep_ranks`).  Phase 30,
+    after 29: ``TREE_BLOCK_RUNS`` (:func:`tree_block_ranks`).  Writes
     ``rank<r>.json``."""
     import torch
     import torch.distributed as dist
@@ -5053,11 +5161,12 @@ def peer_rank(rank: int, world: int, batches, held, refs, out_dir):
     # 27: the tree path across ranks, (a) EDM on the ring, (b) DSGT on
     # round_robin over exp
     t27 = time.time()
+    cut = cut_model()
     for tag, kw in TREE_RUNS.items():
         trun = bus_run(agents_per_device=1, **kw)
-        step = build_train_step(model, trun, make_gossip_schedule(trun, world),
+        step = build_train_step(cut, trun, make_gossip_schedule(trun, world),
                                 use_fused_kernel=True, mesh=mesh)
-        state = init_state(model, trun, world, seed=0, mesh=mesh)
+        state = init_state(cut, trun, world, seed=0, mesh=mesh)
         state = rank_steps(step, state, batches[:TREE_STEPS], mesh, rec,
                            f"tree_{tag}", profile_last=rank == 0)
         rec[f"tree_{tag}_waits"] = sum(getattr(t, "waits", 0)
@@ -5074,12 +5183,15 @@ def peer_rank(rank: int, world: int, batches, held, refs, out_dir):
         free()
     rec["tree_s"] = time.time() - t27
     rec["tree_leaves"] = len(model.meta())
+    del cut
 
     # 28: the wires, agent blocks and row shards across ranks
     wire_ranks(rank, world, model, batches, refs, mesh, rec)
     # 29: deepseek_moe_16b expert-parallel across the ranks
     del model
     ep_ranks(rank, world, refs["ep"], rec)
+    # 30: the tree of two agents a rank through the peer table
+    tree_block_ranks(rank, world, batches, refs, rec)
     for tag in ("overlap", "groups", "tree_edm", "tree_dsgt"):
         rec[f"{tag}_equal"] = all(
             rec[f"{tag}_digests"][k] == [refs[tag]["digests"][k][rank]]
@@ -5089,10 +5201,10 @@ def peer_rank(rank: int, world: int, batches, held, refs, out_dir):
 
 
 def peer_phase():
-    """Phases 25–29: ``PEER_RANKS`` ranks on the one card, each one agent
+    """Phases 25–30: ``PEER_RANKS`` ranks on the one card, each one agent
     of ``smollm_360m`` at full width and depth (bus ``(1, 3195392, 128)``
     a rank, or its 12 bf16 tree leaves), fused kernels, seq 128, per-agent
-    batch 1, α 0.2, β 0.9, spawned once for the five phases.
+    batch 1, α 0.2, β 0.9, spawned once for the six phases.
 
     Phase 25: ``PEER_STEPS`` steps of the multi-rank bus step on the ring;
     the gossip runs through the peer-pointer ring kernel (CUDA IPC).
@@ -5112,7 +5224,8 @@ def peer_phase():
     the table kernel bit-equal to its plain version on every rank's final
     payloads for each of ``TABLE_CASES`` (the late round's output finite
     where rank 0's late payload is not read); no flag wait timed out.
-    Phase 27: the tree path, (a) ``TREE_STEPS`` EDM steps on the ring,
+    Phase 27: the tree path at ``GRAPH_LAYERS``, (a) ``TREE_STEPS`` EDM
+    steps on the ring,
     (b) ``TREE_STEPS`` DSGT steps on ``round_robin`` over ``exp``.  Gates:
     per-agent losses and the digests of every leaf of x and of every
     optimizer slot bit-equal to one-process 4-agent fused eager tree runs;
@@ -5125,6 +5238,9 @@ def peer_phase():
     Phase 29: ``deepseek_moe_16b``'s experts split over the ranks, served
     (:func:`ep_ranks`; (a)'s references :func:`ep_references`), gated by
     :func:`check_ep_ranks`.
+    Phase 30: ``TREE_BLOCK_RUNS`` on ranks 0–1 × ``TREE_BLOCK_B`` agents,
+    each against a one-process 4-agent tree run, gated by
+    :func:`check_tree_block_ranks`.
     The split plan is not run here (one card; the CPU tests hold it over
     gloo); the NCCL path has run nowhere."""
     import shutil
@@ -5152,17 +5268,26 @@ def peer_phase():
                 model, bus_run(gossip_groups=RANK_GROUPS),
                 batches[:GROUP_STEPS], digests=True)}
     out = {"reference26_s": time.time() - t0}
-    # phase 27's references: one-process 4-agent fused eager tree runs
+    # phase 27's references: one-process 4-agent fused eager tree runs at
+    # GRAPH_LAYERS
     t0 = time.time()
+    cut = cut_model()
     for tag, kw in TREE_RUNS.items():
-        refs[f"tree_{tag}"] = one_process_run(model, bus_run(**kw),
+        refs[f"tree_{tag}"] = one_process_run(cut, bus_run(**kw),
                                               batches[:TREE_STEPS],
                                               digests=True)
+    del cut
     out["reference27_s"] = time.time() - t0
     # phase 28's references: one-process runs of each WIRE_RUNS' agents
     t0 = time.time()
     refs.update(wire_references(model, batches))
     out["reference28_s"] = time.time() - t0
+    # phase 30's references: one-process 4-agent fused eager tree runs
+    t0 = time.time()
+    for tag, (kw, steps, churn) in TREE_BLOCK_RUNS.items():
+        refs[f"tree_block_{tag}"] = one_process_run(
+            model, bus_run(**kw), batches[:steps], digests=True, churn=churn)
+    out["reference30_s"] = time.time() - t0
     out["references"] = {k: {"step_ms": [round(t * 1e3, 2)
                                          for t in v["seconds"]],
                              "launches": v["launches"],
@@ -5293,6 +5418,7 @@ def peer_phase():
           f"{ranks[0]['buckets']['roll (gossip terms)']}")
     check_wire_ranks(ranks, refs)
     check_ep_ranks(ranks)
+    check_tree_block_ranks(ranks, refs)
     return out
 
 
@@ -5375,6 +5501,104 @@ def print_ep(rec, smi: str) -> None:
           f"{[round(r['p29_s'], 1) for r in rec['ranks']]}), its "
           f"one-process references {rec['reference29_s']:.1f} s; every "
           "rank's tokens equal (bf16: bit-equal to rank 0's)", flush=True)
+
+
+def check_tree_block_ranks(ranks, refs) -> None:
+    """Phase 30's gates: ranks 0–1 the mesh's members; for each of
+    ``TREE_BLOCK_RUNS`` every member's per-agent losses and its agents'
+    digests of every leaf of x and of every optimizer slot equal to the
+    one-process run's, consensus and gradient norm within rtol 1e-5 of it
+    (the cross-rank sums run in another order); launches a rank a step
+    exactly (a) L ``edm_update`` + 1 ``table_peer``, (b) 2 ``table_peer``
+    and no ``edm_update``; one table epoch a mix; no permute and no
+    gossip collective (the recorder); rank 0's profiled last step holding
+    what its counters say, no roll.  (A flag wait that timed out raised
+    in the rank.)"""
+    members = [r for r in ranks if r["tree_block_member"]]
+    check([r["rank"] for r in members]
+          == list(range(AGENTS // TREE_BLOCK_B)),
+          f"phase 30: member ranks {[r['rank'] for r in members]}")
+    for r in members:
+        L = r["tree_leaves"]
+        for what, (_, steps, _) in TREE_BLOCK_RUNS.items():
+            key, ref30 = f"tree_block_{what}", refs[f"tree_block_{what}"]
+            tag = f"phase 30 rank {r['rank']} {what}"
+            want_launches = ([{"edm_update": L, "table_peer": 1}] * steps
+                             if what == "edm" else [{"table_peer": 2}] * steps)
+            check(r[f"{key}_leaf"] == [TREE_BLOCK_B],
+                  f"{tag}: a leaf's agents {r[f'{key}_leaf']}")
+            check(r[f"{key}_agent_losses"] == ref30["losses"],
+                  f"{tag}: per-agent losses {r[f'{key}_agent_losses']} != "
+                  f"the one-process run's {ref30['losses']}")
+            check(r[f"{key}_equal"], f"{tag}: final leaves differ from the "
+                  "one-process run's")
+            for t, (got, want) in enumerate(zip(r[f"{key}_metrics"],
+                                                ref30["metrics"])):
+                for k in ("consensus", "grad_norm"):
+                    check(math.isclose(got[k], want[k], rel_tol=1e-5),
+                          f"{tag} step {t} {k} {got[k]} vs the one-process "
+                          f"run's {want[k]}")
+            check(r[f"{key}_step_launches"] == want_launches,
+                  f"{tag}: launches a step {r[f'{key}_step_launches']}, "
+                  f"expected {want_launches}")
+            mixes = sum(n.get("table_peer", 0) for n in want_launches)
+            check(r[f"{key}_epochs"] == [mixes],
+                  f"{tag}: table epochs {r[f'{key}_epochs']}, expected "
+                  f"[{mixes}]")
+            check(not any(k.startswith("collective-permute") or
+                          k.endswith(" gossip")
+                          for c in r[f"{key}_collectives"] for k in c),
+                  f"{tag}: the recorder holds gossip collectives "
+                  f"{r[f'{key}_collectives']}")
+    r0 = ranks[0]
+    for what in TREE_BLOCK_RUNS:
+        key = f"tree_block_{what}"
+        traced = {k: v for k, v in r0[f"{key}_traced"].items() if v}
+        check(traced == r0[f"{key}_step_launches"][-1],
+              f"phase 30 rank 0's traced {what} step holds {traced}, its "
+              f"wrappers counted {r0[f'{key}_step_launches'][-1]}")
+        check(r0[f"{key}_roll_ms"] == 0,
+              f"phase 30 rank 0's traced {what} step rolls: "
+              f"{r0[f'{key}_roll_ms']} ms")
+
+
+def print_tree_block(rec, smi: str) -> None:
+    """Phase 30's lines."""
+    for r in rec["ranks"]:
+        if not r["tree_block_member"]:
+            continue
+        for what in TREE_BLOCK_RUNS:
+            key = f"tree_block_{what}"
+            print(f"[peer30] rank {r['rank']} tree {what}, "
+                  f"{TREE_BLOCK_B} agents a rank: step ms "
+                  f"{r[f'{key}_step_ms']}, loss {r[f'{key}_loss']}, "
+                  f"metrics {r[f'{key}_metrics']}, launches a step "
+                  f"{r[f'{key}_step_launches']}, collectives a step "
+                  f"{r[f'{key}_collectives']}, torch peak "
+                  f"{r[f'{key}_peak_allocated_gib']:.2f} / "
+                  f"{r[f'{key}_peak_reserved_gib']:.2f} GiB (peer slots "
+                  f"{r[f'{key}_peer_gib']:.2f} GiB outside it), table "
+                  f"epochs {r[f'{key}_epochs']}, flag waits "
+                  f"{r[f'{key}_waits']} (none timed out), bit-equal to the "
+                  f"one-process run {r[f'{key}_equal']}; {smi}", flush=True)
+    for what in TREE_BLOCK_RUNS:
+        key = f"tree_block_{what}"
+        ref = rec["references"][key]
+        r0 = rec["ranks"][0]
+        print(f"[peer30] tree {what}: the one-process 4-agent run step ms "
+              f"{ref['step_ms']} launches {ref['launches']} peak "
+              f"{ref['peak_allocated_gib']:.2f} GiB metrics {ref['metrics']};"
+              f" rank 0's profiled last step traced "
+              f"{json.dumps({k: v for k, v in r0[f'{key}_traced'].items() if v})}"
+              f", roll {r0[f'{key}_roll_ms']} ms", flush=True)
+    print(f"[time] phase 30 took "
+          f"{statistics.median(r['p30_s'] for r in rec['ranks']):.1f} s in "
+          f"the ranks (median; per rank "
+          f"{[round(r['p30_s'], 1) for r in rec['ranks']]}; rank 0's runs "
+          f"{ {k: round(v, 1) for k, v in rec['ranks'][0]['tree_block_s'].items()} }"
+          f"; held at its start "
+          f"{[round(r['held_gib_30'], 2) for r in rec['ranks']]} GiB), its "
+          f"one-process references {rec['reference30_s']:.1f} s", flush=True)
 
 
 def ep_agreement(ranks_tokens: dict, one_tokens: dict) -> dict:
@@ -5526,6 +5750,7 @@ def print_peer(rec, smi: str) -> None:
           f"one-process references {rec['reference27_s']:.1f} s", flush=True)
     print_wire_ranks(rec, smi)
     print_ep(rec, smi)
+    print_tree_block(rec, smi)
     print("[peer] not run on this card: the split (pod × data) permute "
           "plan (the CPU tests hold it over gloo against the JAX package); "
           "NCCL: not run anywhere (one card: NCCL refuses two ranks on it; "
@@ -5858,12 +6083,13 @@ def main() -> None:
     print(f"[flash] the op at (a) and (b): launches {flash_counts}",
           flush=True)
 
-    clock("25-29")
-    # 25–29. multi-rank: 4 ranks on the one card, the peer-pointer
+    clock("25-30")
+    # 25–30. multi-rank: 4 ranks on the one card, the peer-pointer
     # ring (25); the delayed pipeline with a straggler, the peer table
     # kernel and policy groups across ranks (26); the tree path (27); the
     # wires, agent blocks and row shards (28); the expert-parallel MoE
-    # served (29).  They run here, while this
+    # served (29); the tree with two agents a rank (30).  They run here,
+    # while this
     # process holds next to nothing on the card: the four ranks and their
     # peer buffers take most of it
     peer = peer_phase()
@@ -6747,6 +6973,13 @@ def main() -> None:
             rec["launches_phase27"] = {
                 what: [sum(s_.get(name, 0) for s_ in r[f"tree_{what}_step_launches"])
                        for r in pr] for what in TREE_RUNS}
+        if name in ("edm_update", "table_peer"):
+            # phase 30: the tree with two agents a rank, each member
+            # rank's launches
+            rec["launches_phase30"] = {
+                what: [r[f"tree_block_{what}_launches"].get(name, 0)
+                       for r in pr if r["tree_block_member"]]
+                for what in TREE_BLOCK_RUNS}
         if name in ("edm_update", "gossip_axpy", "gossip_axpy_q8",
                     "ring_combine"):
             # the grouped cell (phase 14): the eager first step of each

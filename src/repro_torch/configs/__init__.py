@@ -13,12 +13,12 @@ causal decoder with cross attention), every architecture of
 ``repro.configs``.
 ``get_config(name)`` returns the full-size config, ``get_smoke_config(name)``
 the reduced same-family variant the CPU tests use (2 layers, d_model 256,
-vocab 512, f32).
+vocab 512, f32), ``all_configs()`` every full-size config by name.
 """
 from __future__ import annotations
 
 import importlib
-from typing import List
+from typing import Dict, List
 
 from .base import (  # noqa: F401
     ModelConfig, RunConfig, block_period, layer_kinds, reduced,
@@ -50,3 +50,7 @@ def get_config(name: str) -> ModelConfig:
 
 def get_smoke_config(name: str) -> ModelConfig:
     return reduced(get_config(name))
+
+
+def all_configs() -> Dict[str, ModelConfig]:
+    return {a: get_config(a) for a in ARCH_IDS}

@@ -5,14 +5,14 @@ decentralized optimizers (every algorithm of ``ALGORITHMS`` on trees, EDM
 on the bus) and the metrics."""
 from .topology import (ShiftTerm, Topology, disconnected, exp_graph,
                        fully_connected, hierarchical, matrix_lam, ring,
-                       torus2d)
+                       spectral_stats, torus2d)
 from .schedule import (SCHEDULES, AlternatingHierarchical, GossipSchedule,
                        RoundRobinExp, StaticSchedule, make_schedule,
                        group_wire_bytes_per_step, term_wire_rows,
                        wire_bytes_per_step)
 from .elastic import (DropPlan, ElasticSchedule, LivenessMask,
                       MaskedTopology, StragglerPlan, degrade_round)
-from .bus import BusGroup, GroupSpec, group_specs_from_json
+from .bus import BusGroup, GroupSpec, group_specs_from_json, layout_of
 from .wire import WIRE_FORMATS, WireCodec, encode_ef, make_codec
 from .mixing import (GroupPlan, accumulate_f32, build_mixer,
                      make_group_mixer, make_mixer,
@@ -26,11 +26,11 @@ from .metrics import (agent_mean, bus_consensus, bus_grad_norm,
 
 __all__ = ["ShiftTerm", "Topology", "disconnected", "exp_graph",
            "fully_connected", "hierarchical", "matrix_lam", "ring",
-           "torus2d", "SCHEDULES", "AlternatingHierarchical",
+           "spectral_stats", "torus2d", "SCHEDULES", "AlternatingHierarchical",
            "GossipSchedule", "RoundRobinExp", "StaticSchedule",
            "make_schedule", "term_wire_rows", "wire_bytes_per_step",
            "group_wire_bytes_per_step", "GroupSpec", "BusGroup",
-           "group_specs_from_json", "GroupPlan", "make_group_mixer",
+           "group_specs_from_json", "layout_of", "GroupPlan", "make_group_mixer",
            "DropPlan", "ElasticSchedule", "LivenessMask", "MaskedTopology",
            "StragglerPlan", "degrade_round",
            "WIRE_FORMATS", "WireCodec", "encode_ef", "make_codec",

@@ -41,9 +41,10 @@ from repro_torch.kernels.edm_update import BLOCK_ROWS, LANE
 
 __all__ = ["LANE", "BLOCK_ROWS", "LeafSlot", "GroupSpec", "BusGroup",
            "BusLayout", "padded_rows", "group_specs_from_json",
-           "leaf_paths", "make_layout", "pack_tree", "unpack_tree",
-           "pack_agent", "unpack_agent", "leaf_views", "make_pipeline",
-           "pipeline_payload", "pipeline_spare", "pipeline_advance"]
+           "leaf_paths", "make_layout", "layout_of", "pack_tree",
+           "unpack_tree", "pack_agent", "unpack_agent", "leaf_views",
+           "make_pipeline", "pipeline_payload", "pipeline_spare",
+           "pipeline_advance"]
 
 _SUBLANE = 8
 
@@ -281,6 +282,25 @@ def make_layout(tree: Mapping[str, torch.Tensor], *,
                        groups=tuple(resolved), shards=shards)
     _LAYOUT_CACHE[key] = layout
     return layout
+
+
+def layout_of(model, n_agents: int,
+              groups: Optional[Tuple[GroupSpec, ...]] = None,
+              shards: int = 1, *,
+              block_rows: Optional[int] = None) -> BusLayout:
+    """Layout for a :class:`~repro_torch.models.api.Model`'s parameter
+    tree with a leading agent axis of ``n_agents`` — shape-only (the
+    model's ``meta`` tensors), no allocation.  ``groups`` are the
+    policy-group specs (usually ``resolve_features(run).groups``; empty:
+    the ungrouped layout), ``shards`` the row shards of the shard-resident
+    mode (``agents="pod"``, DESIGN §7); the trainer's ``bus_layout_for``
+    is this function."""
+    lifted = {p: torch.empty((n_agents,) + tuple(t.shape), dtype=t.dtype,
+                             device="meta")
+              for p, t in model.meta().items()}
+    return make_layout(lifted, block_rows=block_rows,
+                       groups=tuple(groups) if groups else None,
+                       shards=shards)
 
 
 def _copy_in(layout: BusLayout, flat: torch.Tensor, tree, lead: tuple):

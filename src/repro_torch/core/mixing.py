@@ -23,9 +23,9 @@ every agent on one device (tests assert they agree):
   run; a flat ±1 ring of one f32 agent a rank on the card runs the
   peer-pointer ring kernel (:mod:`repro_torch.kernels.ring_peer`), any
   other round, wire (the int8 one through the peer q8 kernel), agent
-  block or row shard the peer table kernels, a rank's tree packed into
-  one f32 payload (:class:`TreePayload`).  :func:`mix_dense_sharded` is the
-  shard-resident dense oracle.
+  block or row shard the peer table kernels, a rank's tree (one agent or
+  a block) packed into one f32 payload (:class:`TreePayload`).
+  :func:`mix_dense_sharded` is the shard-resident dense oracle.
 
 :func:`accumulate_f32` wraps a tree op so that sub-f32 leaves go up to
 f32 and come back once on the way out: the dense engine's bf16 path and
@@ -581,40 +581,43 @@ _TREE_DTYPES = (torch.float32, torch.bfloat16)
 
 
 class TreePayload:
-    """A rank's tree in the peer transports' ``(1, rows, 128)`` f32 payload
-    (one agent a rank): the leaves in sorted path order, each flattened
-    and upcast to f32 (exact for f32 and bf16 leaves) right after the
-    last, the tail of the last row zero.  :meth:`pack` writes a tree into
-    a payload buffer (the transport's own shared one), :meth:`unpack`
-    reads the combine's f32 result back into the tree's leaves, rounding
-    once to each leaf's dtype.  The combine kernels add the same terms in
-    the same order with the same f32 roundings whatever the element's
-    place, so one combine over the packed payload, then the rounding,
-    equals one ``gossip_axpy`` a leaf (f32 accumulation in term order,
-    one rounding to the leaf's dtype), bit for bit."""
+    """A rank's tree in the peer transports' ``(B, rows, 128)`` f32 payload
+    (B agents a rank, every leaf ``(B, *shape)``): row block b holds agent
+    b's leaves in sorted path order, each flattened and upcast to f32
+    (exact for f32 and bf16 leaves) right after the last, the tail of the
+    block zero.  :meth:`pack` writes a tree into a payload buffer (the
+    transport's own shared one), :meth:`unpack` reads the combine's f32
+    result back into the tree's leaves, rounding once to each leaf's
+    dtype.  The combine kernels add the same terms in the same order with
+    the same f32 roundings whatever the element's place, so one combine
+    over the packed payload, then the rounding, equals one
+    ``gossip_axpy`` a leaf (one ``table_combine`` on a masked round: f32
+    accumulation in term order, one rounding to the leaf's dtype), bit for
+    bit."""
 
     def __init__(self, tree: Mapping[str, torch.Tensor]):
         self.offsets: Dict[str, int] = {}
         n = 0
         for p in sorted(tree):
             self.offsets[p] = n
-            n += tree[p].numel()
-        self.numel = n
-        self.shape = (1, max(1, -(-n // ring_dma.LANE)), ring_dma.LANE)
+            n += tree[p][0].numel()
+        self.numel = n              # one agent's elements
+        B = len(next(iter(tree.values())))
+        self.shape = (B, max(1, -(-n // ring_dma.LANE)), ring_dma.LANE)
 
     def pack(self, tree: Mapping[str, torch.Tensor],
              dst: torch.Tensor) -> torch.Tensor:
-        flat = dst.view(-1)
+        flat = dst.view(self.shape[0], -1)      # a row of it an agent
         for p, o in self.offsets.items():
             leaf = tree[p]
-            flat[o:o + leaf.numel()].view(leaf.shape).copy_(leaf)
-        flat[self.numel:].zero_()
+            flat[:, o:o + leaf[0].numel()].view(leaf.shape).copy_(leaf)
+        flat[:, self.numel:].zero_()
         return dst
 
     def unpack(self, src: torch.Tensor, like: Mapping[str, torch.Tensor]
                ) -> Dict[str, torch.Tensor]:
-        flat = src.view(-1)
-        return {p: flat[self.offsets[p]:self.offsets[p] + v.numel()]
+        flat = src.view(self.shape[0], -1)
+        return {p: flat[:, self.offsets[p]:self.offsets[p] + v[0].numel()]
                 .view(v.shape).to(v.dtype) for p, v in like.items()}
 
 
@@ -622,14 +625,15 @@ def _payload_unfit(x, wire: Optional[WireCodec] = None, B: int = 1) -> str:
     """Why ``x`` is no payload of the peer transports, or '': a ``(B,
     rows, 128)`` f32 bus block, the bf16 wire's ``(B, rows, 128)`` payload,
     the int8 wire's ``(q, scale)`` (``(B, rows, 128)`` int8, ``(B, rows //
-    block_rows)`` f32), or a tree of one agent's f32 / bf16 leaves
-    (:class:`TreePayload`)."""
+    block_rows)`` f32), or a tree of B ≤ ``MAX_BLOCK`` agents' f32 / bf16
+    leaves, each ``(B, ...)`` (:class:`TreePayload`)."""
     if isinstance(x, Mapping):
         bad = sorted(p for p, v in x.items()
-                     if v.dtype not in _TREE_DTYPES or v.shape[:1] != (1,))
-        if x and not bad and B == 1:
+                     if v.dtype not in _TREE_DTYPES or v.shape[:1] != (B,))
+        if x and not bad and 1 <= B <= MAX_BLOCK:
             return ""
-        return (f"needs a tree of one agent's f32 / bf16 leaves, got "
+        return (f"needs a tree of 1..{MAX_BLOCK} agents' f32 / bf16 leaves "
+                f"(B, ...), got "
                 f"{[(p, str(x[p].dtype), tuple(x[p].shape)) for p in bad[:3]]}"
                 f" at {B} agents a rank")
     want = torch.float32 if wire is None else wire.wire_dtype
@@ -774,7 +778,7 @@ def _table_unfit(mesh, x, names, B: int, shard_axes,
     ``MAX_BLOCK`` agents a rank, every rank of the agent axes on this host
     (at most 16), a payload of a spec the table takes — a ``(B, rows,
     128)`` f32 block (a row shard's rows with ``shard_axes``), the bf16 or
-    int8 wire's payload of it, or a tree of one agent's f32 / bf16 leaves
+    int8 wire's payload of it, or a tree of the B agents' f32 / bf16 leaves
     (``x`` None checks the rest).  Any round fits: a ±1 ring, an
     exponential hop, a time-varying schedule's round, a masked round, late
     slots."""
@@ -844,7 +848,8 @@ def mix_ranks(topo: Topology, mesh, x, *, agent_axes=None,
       the int8 wire).  A tree goes through either as one payload
       (:class:`TreePayload`: its leaves packed into the transport's shared
       buffer, one combine, each leaf rounded back once), bit-equal to the
-      per-leaf combines.  On the CPU those transports are the permutes
+      per-leaf combines; a tree of B > 1 agents a rank through the table,
+      a row block an agent.  On the CPU those transports are the permutes
       plus the plain combine.  Ranks that share one card have no NCCL:
       any other gossip raises there."""
     _check_transport(transport)

@@ -19,7 +19,8 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 __all__ = ["ShiftTerm", "Topology", "ring", "exp_graph", "torus2d",
-           "fully_connected", "hierarchical", "disconnected", "matrix_lam"]
+           "fully_connected", "hierarchical", "disconnected", "matrix_lam",
+           "spectral_stats"]
 
 
 def matrix_lam(W: np.ndarray) -> float:
@@ -98,6 +99,10 @@ class Topology:
         """Second largest |eigenvalue| — the paper's λ."""
         ev = np.sort(np.abs(self.eigenvalues()))
         return float(ev[-2]) if self.n_agents > 1 else 0.0
+
+    def spectral_gap(self) -> float:
+        """1 − λ: how far one mix contracts the disagreement."""
+        return 1.0 - self.lam()
 
     def min_eigenvalue(self) -> float:
         return float(self.eigenvalues().min())
@@ -209,3 +214,15 @@ def hierarchical(pods: int, per_pod: int, c: float = 0.5,
 def disconnected(n: int) -> Topology:
     """W = I — no communication (local SGD); for ablations."""
     return Topology("disconnected", n, (ShiftTerm("flat", 0, 1.0),))
+
+
+def spectral_stats(topo: Topology) -> dict:
+    """The round's spectrum in brief: name, agent count, λ, the spectral
+    gap 1 − λ and the least eigenvalue of W."""
+    return {
+        "name": topo.name,
+        "n": topo.n_agents,
+        "lambda": topo.lam(),
+        "gap": topo.spectral_gap(),
+        "min_eig": float(topo.eigenvalues().min()),
+    }

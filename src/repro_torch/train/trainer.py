@@ -274,18 +274,8 @@ def resolve_group_specs(run: RunConfig) -> Tuple[parambus.GroupSpec, ...]:
     return tuple(specs)
 
 
-def bus_layout_for(model: Model, n_agents: int,
-                   groups: Tuple[parambus.GroupSpec, ...] = (),
-                   shards: int = 1) -> parambus.BusLayout:
-    """Bus layout of ``model``'s parameters with a leading agent axis,
-    built from ``meta`` tensors (no allocation) and cached; ``groups``
-    are the policy-group specs (usually ``resolve_features(run).groups``;
-    empty: the ungrouped layout); ``shards`` the row shards of the
-    shard-resident mode (``agents="pod"``, DESIGN §7)."""
-    lifted = {p: torch.empty((n_agents,) + tuple(t.shape), dtype=t.dtype,
-                             device="meta")
-              for p, t in model.meta().items()}
-    return parambus.make_layout(lifted, groups=tuple(groups), shards=shards)
+# the reference's name in ``repro.train`` for the bus layout of a model
+bus_layout_for = parambus.layout_of
 
 
 def make_group_plans(run: RunConfig, layout: parambus.BusLayout,

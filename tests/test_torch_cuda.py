@@ -1888,12 +1888,12 @@ TREE_SHAPES = {"a|w": (7, 33), "b|bias": (5,), "c|emb": (129, 3),
                "d|norm": (1,)}
 
 
-def _agents_tree(device, seed):
-    """A 2-agent bf16 tree of :data:`TREE_SHAPES` with NaN and ±Inf in it."""
+def _agents_tree(device, seed, n=2):
+    """An n-agent bf16 tree of :data:`TREE_SHAPES` with NaN and ±Inf in it."""
     gen = torch.Generator(device=device).manual_seed(seed)
     tree = {}
     for p, shape in TREE_SHAPES.items():
-        v = torch.randn((2,) + shape, generator=gen, device=device)
+        v = torch.randn((n,) + shape, generator=gen, device=device)
         flat = v.view(-1)
         flat[0] = float("nan")
         flat[-1] = float("inf") if len(tree) % 2 else float("-inf")
@@ -1973,6 +1973,80 @@ def test_cuda_tree_peer_bit_equal_to_one_process(cuda, tmp_path):
         assert r["ok"] and r["shared"], r
         assert r["launches"] == [{"ring_peer": 1}] * 2 + \
             [{"table_peer": 1}] * 2, r
+
+
+def _tree_block_peer_rank(rank, world, d):
+    """One rank of :func:`test_cuda_tree_block_peer_bit_equal_to_one_process`:
+    its block of two agents of a bf16 tree mixed across the two ranks on
+    ring(4), on ``exp_graph(4)`` and on a masked round (agent 3 down), each
+    over two epochs through the peer table, against the one-process
+    per-leaf fused combine of the whole tree (``gossip_axpy`` /
+    ``table_combine`` a leaf)."""
+    import json
+    from pathlib import Path
+    import torch.distributed as dist
+    from repro_torch.core import exp_graph, ring
+    from repro_torch.core.elastic import DropPlan, ElasticSchedule
+    from repro_torch.core.mixing import (make_mixer, make_schedule_mixer,
+                                         mix_ppermute)
+    from repro_torch.core.schedule import StaticSchedule
+    from repro_torch.launch.mesh import init_distributed, make_gossip_mesh
+    B, A = 2, 2 * world
+    dev = init_distributed("cuda", init_method=f"file://{d}/store",
+                           rank=rank, world_size=world, timeout_s=300)
+    mesh = make_gossip_mesh(A, agents_per_device=B, device=dev)
+    masked = ElasticSchedule(StaticSchedule(ring(A)), DropPlan.from_json(
+        {"n_agents": A, "epochs": [{"start": 0, "down": [A - 1]}]}))
+
+    def one_of(topo):
+        return lambda t: mix_ppermute(topo, t, agents_per_device=A,
+                                      use_fused_kernel=True)
+
+    rec = {"rank": rank, "shared": mesh.shared, "ok": True, "launches": []}
+    for sched, one in ((StaticSchedule(ring(A)), one_of(ring(A))),
+                       (StaticSchedule(exp_graph(A)), one_of(exp_graph(A))),
+                       (masked, make_mixer(masked.round(0), "ppermute",
+                                           agents_per_device=A,
+                                           use_fused_kernel=True))):
+        mix = make_schedule_mixer(sched, "ppermute", use_fused_kernel=True,
+                                  mesh=mesh)
+        for epoch in range(2):
+            full = _agents_tree(dev, seed=21 + epoch, n=A)
+            mine = {p: v[rank * B:(rank + 1) * B].contiguous()
+                    for p, v in full.items()}
+            ops.reset_launch_counts()
+            got = mix(mine, step=0)
+            torch.cuda.synchronize()
+            rec["launches"].append({k: v for k, v in
+                                    ops.launch_counts().items() if v})
+            want = {p: v[rank * B:(rank + 1) * B]
+                    for p, v in one(full).items()}
+            rec["ok"] &= _same_tree(got, want)
+        torch.cuda.synchronize()
+        dist.barrier()
+        mix.close()
+    Path(d, f"rank{rank}.json").write_text(json.dumps(rec))
+    dist.destroy_process_group()
+
+
+@pytest.mark.requires_cuda
+def test_cuda_tree_block_peer_bit_equal_to_one_process(cuda, tmp_path):
+    """Two ranks on the card, two agents each: a ragged bf16 tree (NaN and
+    ±Inf in it) packed into one ``(2, rows, 128)`` f32 payload a rank goes
+    through the peer table on the ring, an exponential and a masked round,
+    one ``table_peer`` launch a mix, and each rank's leaves come back
+    bit-equal to its rows of the one-process per-leaf fused combine."""
+    import json
+    import torch.multiprocessing as mp
+    from repro_torch.kernels import build
+    build.build_all()
+    mp.spawn(_tree_block_peer_rank, args=(2, str(tmp_path)), nprocs=2,
+             join=True)
+    recs = [json.loads((tmp_path / f"rank{r}.json").read_text())
+            for r in range(2)]
+    for r in recs:
+        assert r["ok"] and r["shared"], r
+        assert r["launches"] == [{"table_peer": 1}] * 6, r
 
 
 # ---------------------------------------------------------------------------

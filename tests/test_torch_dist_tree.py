@@ -426,48 +426,111 @@ def test_saved_on_four_ranks_resumes_on_two_by_two(results):
         assert np.array_equal(got, _bits(want)), k
 
 
+def _card_mesh(ranks: int, B: int):
+    """A flat grid of ``ranks`` ranks on one host's card, seen from rank 0
+    (no process group: routing reads the grid only)."""
+    from repro_torch.core.comm import GossipMesh
+    return GossipMesh((ranks,), ("data",), ranks * B, B, 1, 0, (0,),
+                      (tuple(range(ranks)),), (None,), None, None,
+                      torch.device("cuda"), "gloo", True, ("h0",) * ranks)
+
+
+@pytest.mark.parametrize("B", [1, 2, 3])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_tree_payload_combine_bit_equal_to_per_leaf_combine(dtype):
+def test_tree_payload_combine_bit_equal_to_per_leaf_combine(dtype, B):
     """The packed route's arithmetic through the plain versions: a ragged
-    tree (NaN and ±Inf in it) packed into one f32 payload a rank, one ring
-    or table combine over the payloads, unpacked — bit-equal to
-    ``gossip_axpy`` a leaf on the rolled leaves, the one-process fused
-    combine; a tree of B > 1 agents is no peer payload."""
-    from repro_torch.core.mixing import TreePayload, _payload_unfit
+    tree (NaN and ±Inf in it) of B agents a rank packed into one ``(B,
+    rows, 128)`` f32 payload a rank (row block b agent b's leaves in path
+    order, the tail zero), one table combine over the payloads with the
+    rank's columns of a ring, an exponential and a masked round (and at B
+    = 1 the ring combine), unpacked — bit-equal to the one-process fused
+    combine a leaf (``gossip_axpy`` on the rolled leaves, ``table_combine``
+    on the masked round).  Routing on one card: B ≤ ``MAX_BLOCK`` is a
+    table payload and, past B = 1, no ring payload; ``MAX_BLOCK + 1``
+    agents and a leaf of another dtype are refused."""
+    from repro_torch.core import elastic, topology
+    from repro_torch.core.mixing import (TreePayload, _payload_unfit,
+                                         _peer_unfit, _rank_cols,
+                                         _table_unfit, mix_ppermute,
+                                         round_tables)
     from repro_torch.kernels import ref
+    from repro_torch.kernels.table_peer import MAX_BLOCK
+    R = A if B == 1 else 2                 # ranks
+    n = R * B                              # agents
     gen = torch.Generator().manual_seed(5)
     shapes = {"a|w": (7, 33), "b|bias": (5,), "c|emb": (129, 3)}
     full = {}
     for p, shape in shapes.items():
-        v = torch.randn((A,) + shape, generator=gen)
+        v = torch.randn((n,) + shape, generator=gen)
         v.view(-1)[::37] = float("nan")
         v.view(-1)[5::41] = float("inf")
         v.view(-1)[9::43] = float("-inf")
         full[p] = v.to(dtype)
-    mine = [{p: v[a:a + 1] for p, v in full.items()} for a in range(A)]
+    mine = [{p: v[j * B:(j + 1) * B] for p, v in full.items()}
+            for j in range(R)]
     packer = TreePayload(mine[0])
+    per_agent = sum(v[0].numel() for v in full.values())
+    assert packer.shape == (B, -(-per_agent // 128), 128)
     pays = [packer.pack(t, torch.full(packer.shape, float("nan")))
             for t in mine]
-    terms = [(0, 1 / 3), (1, 1 / 3), (-1, 1 / 3)]
-    src_w = [(0, 0.5), (2, 0.25), (0, 0.25)]    # a table column, slot order
-    for a in range(A):
-        assert _payload_unfit(mine[a]) == ""
-        got = packer.unpack(ref.ring_peer_ref(
-            pays[a], pays[(a - 1) % A], pays[(a + 1) % A], terms, A), mine[a])
-        got_t = packer.unpack(ref.table_peer_ref(
-            pays, [(a + s) % A for s, _ in src_w], [w for _, w in src_w]),
-            mine[a])
-        for p, v in full.items():
-            want = ref.gossip_axpy_ref(
-                [torch.roll(v, s, 0)[a:a + 1] for s, _ in terms],
-                [w for _, w in terms])
-            want_t = ref.gossip_axpy_ref(
-                [v[(a + s) % A][None] for s, _ in src_w],
-                [w for _, w in src_w])
-            for g, w in ((got[p], want), (got_t[p], want_t)):
-                assert g.dtype == dtype and g.shape == w.shape
-                assert torch.equal(_bits_t(g), _bits_t(w)), p
-    assert "one agent's" in _payload_unfit(full)
+    for j in range(R):                     # the layout, agent by agent
+        for b in range(B):
+            want = torch.zeros(packer.shape[1] * 128)
+            want[:per_agent] = torch.cat([mine[j][p][b].float().reshape(-1)
+                                          for p in sorted(mine[j])])
+            assert torch.equal(_bits_t(pays[j][b].reshape(-1)),
+                               _bits_t(want))
+    alive = np.ones(n, bool)
+    alive[-1] = False
+    rounds = {"ring": topology.ring(n), "exp": topology.exp_graph(n),
+              "masked": elastic.degrade_round(topology.ring(n), alive)}
+    for case, topo in rounds.items():
+        one = mix_ppermute(topo, full, agents_per_device=n,
+                           use_fused_kernel=True)
+        src, w = round_tables(topo)
+        for i in range(R):
+            got = packer.unpack(ref.table_peer_ref(
+                pays, *_rank_cols(src, w, i, B)), mine[i])
+            for p, v in one.items():
+                want = v[i * B:(i + 1) * B]
+                assert got[p].dtype == dtype and got[p].shape == want.shape
+                assert torch.equal(_bits_t(got[p]), _bits_t(want)), \
+                    (case, i, p)
+    if B == 1:      # the ring, and a table column reading one rank twice
+        terms = [(t.shift, float(t.weight)) for t in rounds["ring"].terms]
+        src_w = [(0, 0.5), (2, 0.25), (0, 0.25)]
+        one = mix_ppermute(rounds["ring"], full, agents_per_device=n,
+                           use_fused_kernel=True)
+        for a in range(R):
+            got = packer.unpack(ref.ring_peer_ref(
+                pays[a], pays[(a - 1) % R], pays[(a + 1) % R], terms, R),
+                mine[a])
+            got_t = packer.unpack(ref.table_peer_ref(
+                pays, [(a + s) % R for s, _ in src_w],
+                [w for _, w in src_w]), mine[a])
+            for p, v in one.items():
+                assert torch.equal(_bits_t(got[p]), _bits_t(v[a:a + 1])), p
+                want_t = ref.gossip_axpy_ref(
+                    [full[p][(a + s) % R][None] for s, _ in src_w],
+                    [w for _, w in src_w])
+                assert torch.equal(_bits_t(got_t[p]), _bits_t(want_t)), p
+    # routing: the table takes the block, the ring one agent a rank only
+    mesh = _card_mesh(R, B)
+    assert _payload_unfit(mine[0], None, B) == ""
+    assert _table_unfit(mesh, mine[0], ("data",), B, None, None) == ""
+    ring_why = _peer_unfit(rounds["ring"], mesh, mine[0], ("data",), B,
+                           None, None)
+    assert (ring_why == "") == (B == 1), ring_why
+    big = {p: torch.zeros((MAX_BLOCK + 1,) + s) for p, s in shapes.items()}
+    assert f"1..{MAX_BLOCK} agents'" in _payload_unfit(big, None,
+                                                       MAX_BLOCK + 1)
+    assert "agents a rank" in _table_unfit(_card_mesh(1, MAX_BLOCK + 1),
+                                           big, ("data",), MAX_BLOCK + 1,
+                                           None, None)
+    half = {**mine[0], "b|bias": mine[0]["b|bias"].to(torch.float16)}
+    assert "b|bias" in _payload_unfit(half, None, B)
+    assert "b|bias" in _table_unfit(mesh, half, ("data",), B, None, None)
+    assert "agents'" in _payload_unfit(mine[0], None, B + 1)
 
 
 def _bits_t(t: torch.Tensor) -> torch.Tensor:

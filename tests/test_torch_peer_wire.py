@@ -265,9 +265,10 @@ def test_rank_routes_send_wires_blocks_and_shards_to_the_peer_kernels():
 
 def test_table_and_ring_refusals():
     """What stays refused: more than 16 ranks, ranks on two hosts, more
-    than ``MAX_BLOCK`` agents a rank, a payload of no spec (a tree of two
-    agents, a bf16 payload under the int8 wire); the ring takes no wire
-    and no block."""
+    than ``MAX_BLOCK`` agents a rank, a payload of no spec (a tree whose
+    leaves are not the rank's B agents, a tree of int leaves, a bf16
+    payload under the int8 wire); the ring takes no wire and no block.  A
+    tree of the rank's B agents' f32 leaves is a table payload."""
     int8 = make_codec("int8", BR)
     big = _mesh((17,), ("data",), 17)
     assert "at most 16" in tmix._table_unfit(big, None, ("data",), 1, None,
@@ -281,8 +282,12 @@ def test_table_and_ring_refusals():
     assert "agents a rank" in tmix._table_unfit(
         flat, None, ("data",), MAX_BLOCK + 1, None, None)
     tree = {"w": torch.zeros(2, 3)}
-    assert "one agent's" in tmix._table_unfit(flat, tree, ("data",), 2,
-                                              None, None)
+    assert tmix._table_unfit(flat, tree, ("data",), 2, None, None) == ""
+    assert "agents'" in tmix._table_unfit(flat, tree, ("data",), 3, None,
+                                          None)
+    assert "agents'" in tmix._table_unfit(
+        flat, {"w": torch.zeros(2, 3, dtype=torch.int32)}, ("data",), 2,
+        None, None)
     bad = torch.zeros(1, ROWS, 128, dtype=torch.bfloat16)
     assert "int8" in tmix._table_unfit(flat, (bad, bad), ("data",), 1,
                                        None, int8)
