@@ -349,7 +349,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    2 ``table_peer`` at step 1, no ``edm_update``; rank 0's profiled last
    step of each holds no roll; no flag wait timed out.
 28. the wires, agent blocks and row shards across ranks, in phase 25's
-   ranks after 27, ``smollm_360m`` at full width and depth from seed 0,
+   ranks after 27, ``smollm_360m`` at full width from seed 0 — at full
+   depth the runs whose form is timed ((a), (b), the f32 blocks of (e)),
+   the others at ``GRAPH_LAYERS`` (``WIRE_FULL_DEPTH``) —,
    fused kernels, eager (``WIRE_RUNS``): four ranks × one agent, bus
    ``(1, 3195392, 128)`` a rank — (a) 3 ``wire="int8"`` EF steps on the
    ring, (b) 2 ``wire="bf16"`` steps on ``round_robin`` over ``exp``, (c)
@@ -384,17 +386,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    once: (a) f32 with the depth cut 28 → 2, 4 requests (prompts 128–256,
    8 new tokens) at capacity 8.0 and the config's 1.25, each rank's
    tokens equal to the one-process engine's (its references made before
-   the spawn); (b) bf16 at full depth, 8 requests at context 1024
-   (prompts 256–512, chunks of 128, 16–32 new tokens), every rank's
-   tokens bit-equal to rank 0's.  Gates in both: each rank's paged
+   the spawn); (b) bf16 at ``EP_B_LAYERS`` (4 of 28) layers, 8 requests at
+   context 1024 (prompts 256–512, chunks of 128, 16–32 new tokens), every
+   rank's tokens bit-equal to rank 0's.  Gates in both: each rank's paged
    kernels launched once a layer a dispatch (the prefill once a layer a
    mixed one), no other kernel, one sum over the model axis a MoE layer
-   call (``core/comm.py::psum``, staged through the host over gloo) and
-   no other collective.  Reported: each rank's init time and peak,
-   tokens/s, one mixed and one decode-only dispatch with the sums' time
-   apart, and (after phase 15, whose weights are the one-process init)
-   the share of (b)'s tokens equal to the one-process engine's on the
-   same requests and the first divergence.
+   call (``core/comm.py::psum``, staged through the host over gloo) and no
+   other collective.  Reported: each rank's init time and peak, tokens/s,
+   one mixed and one decode-only dispatch with the sums' time apart, and
+   the share of (b)'s tokens equal to the one-process engine's (the same
+   cut model, made before the spawn) on the same requests and the first
+   divergence.
 30. the tree path with a block of agents a rank, in phase 25's ranks
    after 29: ranks 0–1 × two agents of ``smollm_360m`` at full width and
    depth (ranks 2–3 outside the mesh), ``packed_bus=False``, fused
@@ -412,8 +414,32 @@ Phases, in order; any failure raises and the script exits non-zero:
    permute and no gossip collective in the recorder; rank 0's profiled
    last step of each holding what its counters say, no roll; no flag wait
    timed out.  Reported: a rank's step ms, torch peak and peer-slot GiB.
+31. tensor-parallel serving across ranks, in phase 25's ranks after 30:
+   ``qwen3_14b`` at full width on a ``(1, 4)`` ``("data", "model")`` grid
+   (the reference's ``serve_param_specs`` / ``paged_pool_specs`` layout,
+   ``build_model(cfg, mesh=grid)``): a rank holds 10 of the 40 query heads
+   and 2 of the 8 KV heads a layer (hd 128), 4352 of the 17408 FFN
+   columns and 37984 of the 151936 vocabulary rows from the rank-local
+   init (``init_lm_rank``, never the whole model), and its pools hold its
+   2 KV heads; the continuous engine with the paged kernels at K 2, G 5
+   serves 8 requests at context 1024 (prompts 256–768, chunks of 128,
+   16–32 new tokens), every request arriving at once: (a) f32 at 2 of 40
+   layers, each rank's engine tokens equal to the one-process engine's
+   and its ``greedy_generate`` tokens on 4 prompts of 256 equal to one
+   process's; (b) bf16 at ``TP_BF16_LAYERS`` (4 of 40) layers, every
+   rank's tokens bit-equal to rank 0's.  Gates in both: each rank's paged
+   kernels launched once a layer a dispatch (the prefill once a layer a
+   mixed one), no other kernel and no plain twin; 2L + 1 sums over the model
+   axis (``core/comm.py::psum``, staged through the host over gloo) and
+   one all-gather of the logits a forward (a mixed dispatch: two
+   forwards), no other collective.  The one-process references run in
+   the parent once the ranks have exited.  Reported: each rank's init
+   time and peak, pools GB, tokens/s against one process, one mixed and
+   one decode-only dispatch with the sums' time apart, the share of
+   (b)'s tokens equal to the one-process engine's and the first
+   divergence.
 
-Phases run in the order 1–3, 3w, 3r, 3m, 3f, 25–30 (26–30 in 25's
+Phases run in the order 1–3, 3w, 3r, 3m, 3f, 25–31 (26–31 in 25's
 ranks),
 4–6, 4r, 6r, 4g, 4w–6w, 12, 13, 14, 4t–6t, 7–11, 15–24; a ``[time]``
 line before each gives the seconds since the start and those of the
@@ -2454,11 +2480,18 @@ PREFILL_TIMED = (0, 640, CHUNK, CHUNK, 5, 3, 64, PAGE, CTX // PAGE, 80)
 PREFILL_TIMED_HD128 = (0, 640, CHUNK, CHUNK, 16, 1, 128, PAGE, CTX // PAGE,
                        80)
 PREFILL_TIMED_G4 = (0, 640, CHUNK, CHUNK, 8, 4, 128, PAGE, CTX // PAGE, 80)
+# a tensor-parallel rank of qwen3_14b over 4 ranks (phase 31): K 2, G 5
+# (timed: its longest-context chunk), and the split plan's few blocks at
+# a short history
+PREFILL_TIMED_TP = (0, 640, CHUNK, CHUNK, 2, 5, 128, PAGE, CTX // PAGE, 80)
 PREFILL_CASES += [(w, s, CHUNK, n, K, G, 128, PAGE, CTX // PAGE, 80)
                   for K, G in ((16, 1), (4, 16), (8, 4))
                   for w, s, n in ((0, 0, 128), (0, 640, 77),
                                   (256, 640, 128))] + [
-    (0, 640, CHUNK, CHUNK, 4, 16, 128, PAGE, CTX // PAGE, 80)]
+    (0, 640, CHUNK, CHUNK, 4, 16, 128, PAGE, CTX // PAGE, 80)] + [
+    (w, s, CHUNK, n, 2, 5, 128, PAGE, CTX // PAGE, 80)
+    for w, s, n in ((0, 0, 128), (0, 128, 128), (0, 640, 77),
+                    (256, 640, 128))]
 DECODE_CASES = [
     # tests/test_serve.py's ragged batch: idle slot 1, full slot 2
     dict(name="ragged", B=4, K=2, G=3, hd=16, page_size=8,
@@ -2483,24 +2516,31 @@ DECODE_CASES = [
     dict(name="pixtral_12b", B=SLOTS, K=8, G=4, hd=128,
          page_size=PAGE, kv_len=[1024, 0, 1, 17, 255, 256, 511, 640, 700,
                                  129, 33, 1000, 64, 900, 15, 384]),
+    # a tensor-parallel rank of qwen3_14b over 4 ranks (K 2, G 5; phase
+    # 31 serves them): phase 31's 8 slots, contexts up to 1024, 1 idle
+    dict(name="qwen3_14b_tp", B=8, K=2, G=5, hd=128, page_size=PAGE,
+         kv_len=[1024, 0, 256, 700, 1, 513, 129, 900]),
 ]
 # timed in bf16: smollm_360m's heads (phase 8), deepseek_moe_16b's (phase
-# 15) and pixtral_12b's (phase 19)
+# 15), pixtral_12b's (phase 19) and a qwen3_14b TP rank's (phase 31)
 DECODE_TIMED = {"smollm_360m": "paged_attention",
                 "deepseek_moe_16b": "paged_attention_hd128",
-                "pixtral_12b": "paged_attention_g4"}
+                "pixtral_12b": "paged_attention_g4",
+                "qwen3_14b_tp": "paged_attention_tp"}
 
 
 def serving_kernels():
     """Phase 7: every case in f32 and bf16; the full-width cases of
-    smollm_360m (hd 64), deepseek_moe_16b (hd 128, G 1) and pixtral_12b
-    (hd 128, G 4) timed in bf16 (the serving dtype)."""
+    smollm_360m (hd 64), deepseek_moe_16b (hd 128, G 1), pixtral_12b (hd
+    128, G 4) and a qwen3_14b tensor-parallel rank (hd 128, K 2, G 5)
+    timed in bf16 (the serving dtype)."""
     import torch
     recs = {"paged_attention": [], "paged_prefill": []}
     timed = {}
     prefill_timed = {PREFILL_TIMED: "paged_prefill",
                      PREFILL_TIMED_HD128: "paged_prefill_hd128",
-                     PREFILL_TIMED_G4: "paged_prefill_g4"}
+                     PREFILL_TIMED_G4: "paged_prefill_g4",
+                     PREFILL_TIMED_TP: "paged_prefill_tp"}
     for dtype in (torch.float32, torch.bfloat16):
         bf16 = dtype == torch.bfloat16
         for case in DECODE_CASES:
@@ -3237,27 +3277,14 @@ def moe_serve_exactness():
 def moe_serve_phase():
     """Phase 15: deepseek_moe_16b at full width and depth through
     :func:`engine_serve_phase` (28 paged-attention launches a dispatch,
-    28 paged-prefill launches a mixed dispatch) and phase 29 (b)'s
-    requests through the one-process engine, then the smoke config's
+    28 paged-prefill launches a mixed dispatch), then the smoke config's
     exactness."""
-    rec = engine_serve_phase(MOE_ARCH, MOE_SERVE_ARGS, "MoE",
-                             then=ep_one_process)
+    rec = engine_serve_phase(MOE_ARCH, MOE_SERVE_ARGS, "MoE")
     rec["smoke"] = moe_serve_exactness()
     return rec
 
 
-def ep_one_process(model, params) -> dict:
-    """Phase 29 (b)'s requests through the one-process engine on phase
-    15's weights (the whole expert set): the tokens the ranks' are
-    compared with."""
-    eng = ep_engine(model, params, EP_B)
-    t0 = time.perf_counter()
-    metrics = eng.run(ep_requests(EP_B, model.cfg.vocab_size))
-    return {"ep_b_tokens": ep_tokens(eng), "ep_b_metrics": metrics,
-            "ep_b_s": time.perf_counter() - t0}
-
-
-def engine_serve_phase(arch: str, serve_args, tag: str, then=None):
+def engine_serve_phase(arch: str, serve_args, tag: str):
     """``arch`` at full width and depth in bf16, random weights from seed
     0: the serve CLI's continuous engine at the reference CLI's trace
     sizes, then the engine at context 1024 (16 slots, 32 requests, prompts
@@ -3265,8 +3292,7 @@ def engine_serve_phase(arch: str, serve_args, tag: str, then=None):
     each (n_layers paged-attention launches a dispatch, n_layers
     paged-prefill launches a mixed dispatch); init time and peak, logits
     of one prefill finite (after a frontend for a VLM), serving peak; one
-    mixed and one decode-only dispatch profiled; then ``then(model,
-    params)``'s record, where given."""
+    mixed and one decode-only dispatch profiled."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
@@ -3342,11 +3368,7 @@ def engine_serve_phase(arch: str, serve_args, tag: str, then=None):
     rec["pool_gb"] = sum(t.numel() * t.element_size() for pi in eng.pools
                          for t in pi.values()) / 1e9
     rec["dispatches"] = profile_dispatches(eng, vocab)
-    del eng
-    if then is not None:
-        free()
-        rec.update(then(model, params))
-    del params, model
+    del eng, params, model
     free()
     return rec
 
@@ -4208,6 +4230,16 @@ WIRE_LAUNCHES = {
 FORM_CHECKS = {"wire_int8": ("q8", True), "wire_bf16": ("bf16", True),
                "block_f32": ("block", True), "block_int8": ("q8_block",
                                                             False)}
+# the runs whose form is timed keep full depth (their payloads are the
+# main path's); the others run at GRAPH_LAYERS (cut_model), for the
+# script's time (PERF.md §4)
+WIRE_FULL_DEPTH = tuple(t for t, (_, timed) in FORM_CHECKS.items() if timed)
+
+
+def wire_model(tag: str, model):
+    """Phase 28's model for run ``tag``: ``model`` (the main path's, full
+    depth) for a run whose form is timed, else :func:`cut_model`."""
+    return model if tag in WIRE_FULL_DEPTH else cut_model()
 
 
 def cut_model():
@@ -4509,11 +4541,12 @@ def wire_references(model, batches) -> dict:
     for tag, wr in WIRE_RUNS.items():
         A = wire_agents(tag)
         run = wire_run_config(tag, ranks=False)
+        m = wire_model(tag, model)
         refs[tag] = one_process_run(
-            model, run, wire_batches(tag, batches),
+            m, run, wire_batches(tag, batches),
             wire_plan(tag, make_gossip_schedule(run, A, churn=wr.churn)),
             digests=True, agents=A, churn=wr.churn,
-            shard_rows=(bus_layout_for(model, A, shards=wr.S).shard_rows
+            shard_rows=(bus_layout_for(m, A, shards=wr.S).shard_rows
                         if wr.S > 1 else None))
     return refs
 
@@ -4703,8 +4736,8 @@ def wire_ranks(rank, world, model, batches, refs, mesh, rec):
         mesh = meshes["pod" if wr.S > 1 else wr.B]
         rec[f"{tag}_member"] = mesh.member
         if mesh.member:
-            rec["wire_s"][tag] = wire_run(tag, model, batches, mesh, rank,
-                                          rec)
+            rec["wire_s"][tag] = wire_run(tag, wire_model(tag, model),
+                                          batches, mesh, rank, rec)
             a0, B, s, _ = rank_block(mesh, wire_agents(tag),
                                      "data" if wr.S > 1 else None)
             want = refs[tag]["digests"]
@@ -4724,9 +4757,11 @@ def wire_ranks(rank, world, model, batches, refs, mesh, rec):
 # engine it is held to — takes the same admissions.  (a) f32 with the
 # depth cut 28 → 2, 4 requests at capacity 8.0 (dropless) and the
 # config's 1.25, against the one-process engine's tokens; (b) bf16 at full
-# width and depth, 8 requests at context 1024
+# width, 8 requests at context 1024, its depth cut 28 → 4 (the script's
+# time, for phase 31: PERF.md §4)
 EpServe = collections.namedtuple("EpServe", "n prompts new slots ctx seed")
 EP_F32_LAYERS, EP_F32_CFS = 2, (8.0, 1.25)
+EP_B_LAYERS = 4
 EP_A = EpServe(4, (128, 256), (8,), 4, 512, 21)
 EP_B = EpServe(8, (256, 512), (16, 32), 8, CTX, 22)
 
@@ -4758,14 +4793,21 @@ def ep_f32_config(cf: float):
                                dtype="float32", capacity_factor=cf)
 
 
+def ep_b_config():
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(MOE_ARCH), n_layers=EP_B_LAYERS)
+
+
 def ep_tokens(eng) -> dict:
     return {str(r): t.tolist() for r, t in sorted(eng.completed.items())}
 
 
 def ep_references() -> dict:
-    """Phase 29 (a)'s one-process references: the f32 2-layer model's
-    engine tokens on :data:`EP_A`'s requests at each capacity (the whole
-    expert set in one process, ``model.init`` from seed 0)."""
+    """Phase 29's one-process references (the whole expert set in one
+    process, ``model.init`` from seed 0): (a) the f32 2-layer model's
+    engine tokens on :data:`EP_A`'s requests at each capacity; (b) the
+    bf16 ``EP_B_LAYERS``-layer model's engine tokens and metrics on
+    :data:`EP_B`'s requests, after a one-request warm-up."""
     import torch
     from repro_torch.models import build_model
     out = {}
@@ -4777,6 +4819,18 @@ def ep_references() -> dict:
         out[str(cf)] = ep_tokens(eng)
         del eng, params, model
         free()
+    model = build_model(ep_b_config())
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    eng = ep_engine(model, params, EP_B)
+    vocab = model.cfg.vocab_size
+    eng.run(ep_requests(EP_B._replace(n=1, new=(2,)), vocab))  # warm-up
+    eng.reset()
+    t0 = time.perf_counter()
+    metrics = eng.run(ep_requests(EP_B, vocab))
+    out["b"] = {"tokens": ep_tokens(eng), "metrics": metrics,
+                "s": time.perf_counter() - t0}
+    del eng, params, model
+    free()
     return out
 
 
@@ -4795,22 +4849,23 @@ def ep_run(eng, reqs):
                                           if not y]
 
 
-def ep_dispatches(eng, vocab: int) -> dict:
+def ep_dispatches(eng, vocab: int, slots: int = EP_B.slots,
+                  phase: str = "phase 29") -> dict:
     """One mixed and one decode-only dispatch of the bf16 engine timed on
     the host clock (each ending in a device sync), the sums over the model
     axis timed apart inside it (a device sync before each, then the
-    host-staged all-reduce): the second dispatch of each kind after 8
-    requests of two chunks each are admitted."""
+    host-staged all-reduce): the second dispatch of each kind after
+    ``slots`` requests of two chunks each are admitted."""
     import numpy as np
     import torch
     from repro_torch.core import comm
     from repro_torch.serve import Request
     rng = np.random.default_rng(9)
     eng.reset()
-    for i in range(EP_B.slots):
+    for i in range(slots):
         check(eng.try_admit(Request(rid=i, tokens=rng.integers(
             0, vocab, (2 * CHUNK,)).astype(np.int32), max_new=8,
-            arrival=0.0)), "phase 29: a timed request was not admitted")
+            arrival=0.0)), f"{phase}: a timed request was not admitted")
     inner, spent = comm.all_reduce, []
 
     def timed(*a, **k):
@@ -4876,7 +4931,7 @@ def ep_ranks(rank, world, refs, rec):
             del eng, params, model
             free()
         dist.barrier(group=mesh.control)
-        cfg = get_config(MOE_ARCH)
+        cfg = ep_b_config()
         model = build_model(cfg)
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -4908,6 +4963,311 @@ def ep_ranks(rank, world, refs, rec):
         moe.set_moe_mesh(None)
     dist.barrier(group=mesh.control)
     rec["p29_s"] = time.time() - t29
+
+
+# phase 31: qwen3_14b tensor-parallel over phase 25's four ranks (the
+# reference's serve_param_specs layout on a (1, 4) ("data", "model") grid,
+# build_model(cfg, mesh=grid)): a rank holds 10 of the 40 query heads and 2
+# of the 8 KV heads a layer, 4352 of the 17408 FFN columns and 37984 of the
+# 151936 vocabulary rows, drawn rank-locally (init_lm_rank), and serves
+# through the continuous engine with the paged kernels at K 2, G 5, hd
+# 128: 2L + 1 sums over the model axis and one gather of the logits a
+# decode-only dispatch, twice that a mixed one.  Every request arrives at
+# once.  (a) f32 with the depth cut 40 → 2: 8 requests at context 1024
+# (prompts 256–768, chunks of 128) and greedy_generate on 4 prompts, each
+# against the one-process run's tokens; (b) bf16 at TP_BF16_LAYERS layers
+# on the same 8 requests, every rank's tokens bit-equal to rank 0's.  (b)
+# is cut to 4 of the 40 layers for the script's time: each layer costs
+# ~3.6-4.2 s (2L + 1 host-staged sums a forward, ~8 ms each, and the
+# one-process reference), and 4 is the deepest multiple of 4 that keeps
+# the script under 1200 s, with at least 15 s to spare, on the slowest
+# host measured (at 20 layers it ran 1248.7 s there; PERF.md §4 has the
+# arithmetic); tools/tp_phase.py runs the phase alone at full depth
+TP_ARCH = "qwen3_14b"
+TP_F32_LAYERS = 2
+TP_BF16_LAYERS = 4
+TP_SERVE = EpServe(8, (256, 768), (16, 32), 8, CTX, 31)
+TP_GREEDY = (4, 256, 16)          # prompts, prompt length, new tokens
+TP_PLAIN = ("paged_attention_ref", "paged_prefill_attention_ref")
+
+
+def tp_config(dtype: str, n_layers: int):
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(TP_ARCH), n_layers=n_layers,
+                               dtype=dtype)
+
+
+def tp_collectives(log) -> dict:
+    """A record's collectives counted by tag and kind."""
+    out = {}
+    for c in log:
+        key = f"{c.tag} {c.kind}"
+        out[key] = out.get(key, 0) + 1
+    return out
+
+
+def tp_run(fn):
+    """``fn()`` with the launch counts set to 0 just before and read just
+    after, its collectives recorded and the plain attention twins
+    counted: (result, launches, collectives, plain calls)."""
+    from repro_torch.core import comm
+    from repro_torch.kernels import ops, ref
+    plain = {name: 0 for name in TP_PLAIN}
+    inner = {name: getattr(ref, name) for name in TP_PLAIN}
+
+    def counted(name):
+        def call(*a, **k):
+            plain[name] += 1
+            return inner[name](*a, **k)
+        return call
+
+    for name in TP_PLAIN:
+        setattr(ref, name, counted(name))
+    try:
+        ops.reset_launch_counts()
+        with comm.recording() as log:
+            out = fn()
+        counts = ops.launch_counts()
+    finally:
+        for name in TP_PLAIN:
+            setattr(ref, name, inner[name])
+    return out, counts, tp_collectives(log), sum(plain.values())
+
+
+def tp_prompts(vocab: int):
+    import numpy as np
+    import torch
+    n, S, _ = TP_GREEDY
+    rng = np.random.default_rng(32)
+    return torch.from_numpy(rng.integers(0, vocab, (n, S)).astype(
+        np.int32)).cuda()
+
+
+def tp_serve(model, params, greedy: bool) -> dict:
+    """Phase 31's runs of ``model`` (on the grid or whole): the engine on
+    :data:`TP_SERVE`'s requests (bf16: after a one-request warm-up) and,
+    with ``greedy``, ``greedy_generate`` on :data:`TP_GREEDY`'s prompts;
+    each run's tokens, metrics, launches, collectives and plain-twin
+    calls, the serving peak and the pools' GB."""
+    import torch
+    from repro_torch.serve import greedy_generate
+    vocab = model.cfg.vocab_size
+    eng = ep_engine(model, params, TP_SERVE)
+    if model.cfg.dtype == "bfloat16":
+        eng.run(ep_requests(TP_SERVE._replace(n=1, new=(2,)), vocab))
+        eng.reset()
+    torch.cuda.reset_peak_memory_stats()
+    metrics, counts, colls, plain = tp_run(
+        lambda: eng.run(ep_requests(TP_SERVE, vocab)))
+    out = {"engine": {"metrics": metrics, "counts": counts,
+                      "collectives": colls, "plain": plain,
+                      "tokens": ep_tokens(eng),
+                      "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                      "pool_gb": sum(t.numel() * t.element_size()
+                                     for pi in eng.pools
+                                     for t in pi.values()) / 1e9}}
+    if greedy:
+        toks, counts, colls, plain = tp_run(lambda: greedy_generate(
+            model, params, {"tokens": tp_prompts(vocab)}, TP_GREEDY[2]))
+        out["greedy"] = {"tokens": toks.cpu().tolist(), "counts": counts,
+                         "collectives": colls, "plain": plain}
+    out["eng"] = eng
+    return out
+
+
+def tp_ranks(rank, world, rec, bf16_layers: int = TP_BF16_LAYERS):
+    """Phase 31 on one rank (after 30): the rank's blocks from the
+    rank-local init (:func:`init_lm_rank`, never the whole model), the
+    model built on the ``(1, world)`` grid, then (a) and (b) at
+    ``bf16_layers`` (:func:`tp_serve`; the depth is kept in ``rec`` for
+    the gates and the lines); (b)'s init time and peak, and one mixed and
+    one decode-only dispatch timed with the sums apart."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_moe_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import init_lm_rank
+    t31 = time.time()
+    free()
+    rec["card_free_gib_31"] = torch.cuda.mem_get_info()[0] / 2**30
+    mesh = make_moe_mesh(1, world)
+    model = build_model(tp_config("float32", TP_F32_LAYERS), mesh=mesh)
+    params = init_lm_rank(model.cfg, torch.Generator(
+        device="cuda").manual_seed(0), rank, world)
+    a = tp_serve(model, params, greedy=True)
+    del a["eng"], params, model
+    rec["tp_a"] = a
+    free()
+    dist.barrier(group=mesh.control)
+    rec["tp_a_s"] = time.time() - t31
+    rec["tp_b_layers"] = bf16_layers
+    model = build_model(tp_config("bfloat16", bf16_layers), mesh=mesh)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_lm_rank(model.cfg, torch.Generator(
+        device="cuda").manual_seed(0), rank, world)
+    torch.cuda.synchronize()
+    rec["tp_init_s"] = time.perf_counter() - t0
+    rec["tp_init_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    rec["tp_param_gb"] = sum(t.numel() * t.element_size()
+                             for t in params.values()) / 1e9
+    hd = model.cfg.hd
+    rec["tp_heads"] = [params["blocks|0|attn|wq"].shape[-1] // hd,
+                       params["blocks|0|attn|wk"].shape[-1] // hd]
+    t0 = time.time()
+    b = tp_serve(model, params, greedy=False)
+    eng = b.pop("eng")
+    rec["tp_b"] = b
+    rec["tp_b_s"] = time.time() - t0
+    t0 = time.time()
+    rec["tp_b_dispatches"] = ep_dispatches(eng, model.cfg.vocab_size,
+                                           TP_SERVE.slots, "phase 31")
+    rec["tp_b_timing_s"] = time.time() - t0
+    del eng, params, model
+    free()
+    dist.barrier(group=mesh.control)
+    rec["p31_s"] = time.time() - t31
+
+
+def tp_references(bf16_layers: int) -> dict:
+    """Phase 31's one-process references, after the ranks have freed
+    their shards: the whole f32 2-layer model (``model.init`` from seed 0,
+    the stream the ranks drew their blocks from) through (a)'s runs, and
+    the whole bf16 model at ``bf16_layers`` through (b)'s."""
+    import torch
+    from repro_torch.models import build_model
+    out = {}
+    for tag, dtype, n_layers in (("a", "float32", TP_F32_LAYERS),
+                                 ("b", "bfloat16", bf16_layers)):
+        t0 = time.time()
+        model = build_model(tp_config(dtype, n_layers))
+        params = model.init(torch.Generator(device="cuda").manual_seed(0))
+        run = tp_serve(model, params, greedy=tag == "a")
+        del run["eng"], params, model
+        free()
+        out[tag] = run
+        out[f"{tag}_s"] = time.time() - t0
+    return out
+
+
+def check_tp_ranks(ranks, refs) -> None:
+    """Phase 31's gates: (a) every rank's f32 engine and greedy tokens
+    equal to the one-process runs'; (b) every rank's bf16 tokens equal to
+    rank 0's, every request served; in every run of a rank and of the
+    references the paged kernels launched once a layer a dispatch (the
+    prefill once a layer a mixed one), no other kernel and no plain twin;
+    a rank's collectives exactly 2L + 1 sums and one logits gather over
+    the model axis a forward (a mixed dispatch: two forwards) and no
+    other; each rank holding 10 / 2 heads a layer; the timed dispatches'
+    sums 2 (2L + 1) and 2L + 1."""
+    L_b = ranks[0]["tp_b_layers"]
+    runs = (("(a) f32", "tp_a", TP_F32_LAYERS), ("(b) bf16", "tp_b", L_b))
+    want_b = ranks[0]["tp_b"]["engine"]["tokens"]
+    for what, key, L in runs:
+        ref_run = refs[key[-1]]["engine"]
+        check_serve_counts(ref_run["counts"], ref_run["metrics"], L,
+                           f"phase 31 {what} one process")
+        check(ref_run["plain"] == 0, f"phase 31 {what} one process: "
+              f"{ref_run['plain']} plain attention calls")
+    for r in ranks:
+        tag = f"phase 31 rank {r['rank']}"
+        for what, key, L in runs:
+            run = r[key]["engine"]
+            m = run["metrics"]
+            check_serve_counts(run["counts"], m, L, f"{tag} {what}")
+            check(run["plain"] == 0, f"{tag} {what}: {run['plain']} plain "
+                  "attention calls")
+            n = m["steps"] + m["mixed_steps"]
+            check(run["collectives"] == {"tp all-reduce": (2 * L + 1) * n,
+                                         "tp all-gather": n},
+                  f"{tag} {what}: collectives {run['collectives']} in "
+                  f"{m['steps']} dispatches ({m['mixed_steps']} mixed) of "
+                  f"{L} layers")
+            check(m["requests"] == TP_SERVE.n, f"{tag} {what}: "
+                  f"{m['requests']} of {TP_SERVE.n} requests served")
+        a = r["tp_a"]
+        check(a["engine"]["tokens"] == refs["a"]["engine"]["tokens"],
+              f"{tag} (a): the f32 engine's tokens differ from the "
+              f"one-process engine's: {a['engine']['tokens']}")
+        g, n_new = a["greedy"], TP_GREEDY[2]
+        check(g["tokens"] == refs["a"]["greedy"]["tokens"],
+              f"{tag} (a): greedy_generate's f32 tokens differ from one "
+              f"process's: {g['tokens']}")
+        check(g["collectives"] == {
+            "tp all-reduce": (2 * TP_F32_LAYERS + 1) * n_new,
+            "tp all-gather": n_new} and g["plain"] == 0
+            and not any(g["counts"].values()),
+            f"{tag} (a): greedy_generate's collectives {g['collectives']}, "
+            f"launches {g['counts']}")
+        check(r["tp_b_layers"] == L_b, f"{tag} (b): {r['tp_b_layers']} "
+              f"layers, rank 0 {L_b}")
+        check(r["tp_b"]["engine"]["tokens"] == want_b,
+              f"{tag} (b): the bf16 tokens differ from rank 0's")
+        check(r["tp_heads"] == [10, 2], f"{tag}: {r['tp_heads']} query / KV "
+              "heads a layer")
+        d = r["tp_b_dispatches"]
+        s = 2 * L_b + 1
+        check(d["mixed"]["sums"] == 2 * s and d["decode"]["sums"] == s,
+              f"{tag}: timed dispatches' sums {d}")
+
+
+def print_tp(rec, smi: str) -> None:
+    """Phase 31's lines."""
+    refs = rec["tp_refs"]
+    rb = refs["b"]["engine"]["metrics"]
+    for r in rec["ranks"]:
+        a, b, dd = r["tp_a"], r["tp_b"]["engine"], r["tp_b_dispatches"]
+        ma, m = a["engine"]["metrics"], b["metrics"]
+        print(f"[tp31] rank {r['rank']} (a) f32 {TP_F32_LAYERS} layers: "
+              f"{ma['tokens']} tokens in {ma['steps']} dispatches "
+              f"({ma['mixed_steps']} mixed), launches "
+              f"{ {k: n for k, n in a['engine']['counts'].items() if n} }, "
+              f"collectives {a['engine']['collectives']}; greedy_generate "
+              f"{TP_GREEDY}: collectives {a['greedy']['collectives']}; "
+              "tokens equal to one process's", flush=True)
+        print(f"[tp31] rank {r['rank']} (b) bf16 {r['tp_b_layers']} layers, "
+              f"{r['tp_heads'][0]} / {r['tp_heads'][1]} heads a layer: init "
+              f"{r['tp_init_s']:.2f} s, params {r['tp_param_gb']:.2f} GB, "
+              f"init peak {r['tp_init_peak_gib']:.2f} GiB, serving peak "
+              f"{b['peak_gib']:.2f} GiB (pools {b['pool_gb']:.3f} GB); "
+              f"{m['tokens']} tokens over {m['requests']} requests in "
+              f"{m['steps']} dispatches ({m['mixed_steps']} mixed), "
+              f"{m['tokens_per_s']} tokens/s (one process "
+              f"{rb['tokens_per_s']}), wall {m['wall_s']} s, TTFT p50 "
+              f"{m['ttft_p50_ms']} ms, per-token p50 {m['p50_ms']} / p99 "
+              f"{m['p99_ms']} ms; launches "
+              f"{ {k: n for k, n in b['counts'].items() if n} }, collectives "
+              f"{b['collectives']}; a mixed dispatch {dd['mixed']['ms']:.1f} "
+              f"ms of which {dd['mixed']['sums']} sums "
+              f"{dd['mixed']['sums_ms']:.1f} ms "
+              f"({dd['mixed']['sums_share']:.1%}), a decode-only "
+              f"{dd['decode']['ms']:.1f} ms of which {dd['decode']['sums']} "
+              f"sums {dd['decode']['sums_ms']:.1f} ms "
+              f"({dd['decode']['sums_share']:.1%}); card free at the phase's "
+              f"start {r['card_free_gib_31']:.2f} GiB; {smi}", flush=True)
+    agree = ep_agreement(rec["ranks"][0]["tp_b"]["engine"]["tokens"],
+                         refs["b"]["engine"]["tokens"])
+    rec["tp_b_agreement"] = agree
+    print(f"[tp31] (b) the four ranks' bf16 tokens against the one-process "
+          f"engine's on the same {agree['requests']} requests "
+          f"({rb['tokens']} tokens in {rb['wall_s']} s, "
+          f"{rb['tokens_per_s']} tokens/s, serving peak "
+          f"{refs['b']['engine']['peak_gib']:.2f} GiB): "
+          f"{agree['equal_share']:.1%} of the tokens equal, "
+          f"{agree['requests_equal']} requests whole, first divergence "
+          f"(request, position) {agree['first_divergence']} (reported, not "
+          "gated: the sums over the ranks add the partials in another "
+          "order)", flush=True)
+    print(f"[time] phase 31 took "
+          f"{statistics.median(r['p31_s'] for r in rec['ranks']):.1f} s in "
+          f"the ranks (median; per rank "
+          f"{[round(r['p31_s'], 1) for r in rec['ranks']]}; rank 0's (a) "
+          f"{rec['ranks'][0]['tp_a_s']:.1f} s, (b)'s runs "
+          f"{rec['ranks'][0]['tp_b_s']:.1f} s and timed dispatches "
+          f"{rec['ranks'][0]['tp_b_timing_s']:.1f} s), its "
+          f"one-process references {refs['a_s'] + refs['b_s']:.1f} s "
+          f"((a) {refs['a_s']:.1f}, (b) {refs['b_s']:.1f}); every rank's "
+          "tokens equal (bf16: bit-equal to rank 0's)", flush=True)
 
 
 def tree_block_ranks(rank, world, batches, refs, rec):
@@ -4973,7 +5333,7 @@ def tree_block_ranks(rank, world, batches, refs, rec):
 
 
 def peer_rank(rank: int, world: int, batches, held, refs, out_dir):
-    """Phases 25–30's rank (a spawned process; the one card for every
+    """Phases 25–31's rank (a spawned process; the one card for every
     rank), one agent of the main path's model each (phases 28 and 30: also
     two agents on ranks 0–1; phase 28: a pod's row shard; phase 29: a block of
     deepseek_moe_16b's experts).
@@ -5003,8 +5363,9 @@ def peer_rank(rank: int, world: int, batches, held, refs, out_dir):
 
     Phase 28, after 27: ``WIRE_RUNS`` (:func:`wire_ranks`).  Phase 29,
     after 28: the expert-parallel MoE served (:func:`ep_ranks`).  Phase 30,
-    after 29: ``TREE_BLOCK_RUNS`` (:func:`tree_block_ranks`).  Writes
-    ``rank<r>.json``."""
+    after 29: ``TREE_BLOCK_RUNS`` (:func:`tree_block_ranks`).  Phase 31,
+    after 30: ``qwen3_14b`` tensor-parallel served (:func:`tp_ranks`).
+    Writes ``rank<r>.json``."""
     import torch
     import torch.distributed as dist
     from torch.profiler import ProfilerActivity, profile
@@ -5192,6 +5553,8 @@ def peer_rank(rank: int, world: int, batches, held, refs, out_dir):
     ep_ranks(rank, world, refs["ep"], rec)
     # 30: the tree of two agents a rank through the peer table
     tree_block_ranks(rank, world, batches, refs, rec)
+    # 31: qwen3_14b tensor-parallel across the ranks
+    tp_ranks(rank, world, rec)
     for tag in ("overlap", "groups", "tree_edm", "tree_dsgt"):
         rec[f"{tag}_equal"] = all(
             rec[f"{tag}_digests"][k] == [refs[tag]["digests"][k][rank]]
@@ -5201,10 +5564,10 @@ def peer_rank(rank: int, world: int, batches, held, refs, out_dir):
 
 
 def peer_phase():
-    """Phases 25–30: ``PEER_RANKS`` ranks on the one card, each one agent
+    """Phases 25–31: ``PEER_RANKS`` ranks on the one card, each one agent
     of ``smollm_360m`` at full width and depth (bus ``(1, 3195392, 128)``
     a rank, or its 12 bf16 tree leaves), fused kernels, seq 128, per-agent
-    batch 1, α 0.2, β 0.9, spawned once for the six phases.
+    batch 1, α 0.2, β 0.9, spawned once for the seven phases.
 
     Phase 25: ``PEER_STEPS`` steps of the multi-rank bus step on the ring;
     the gossip runs through the peer-pointer ring kernel (CUDA IPC).
@@ -5241,6 +5604,9 @@ def peer_phase():
     Phase 30: ``TREE_BLOCK_RUNS`` on ranks 0–1 × ``TREE_BLOCK_B`` agents,
     each against a one-process 4-agent tree run, gated by
     :func:`check_tree_block_ranks`.
+    Phase 31: ``qwen3_14b`` tensor-parallel over the ranks
+    (:func:`tp_ranks`), its one-process references made once the ranks
+    have exited (:func:`tp_references`), gated by :func:`check_tp_ranks`.
     The split plan is not run here (one card; the CPU tests hold it over
     gloo); the NCCL path has run nowhere."""
     import shutil
@@ -5295,9 +5661,11 @@ def peer_phase():
                              "metrics": v["metrics"],
                              "peak_allocated_gib": v["peak_allocated_gib"]}
                          for k, v in refs.items()}
-    # phase 29 (a)'s references: the one-process f32 engine's tokens
+    # phase 29's references: the one-process f32 engine's tokens, and (b)'s
+    # bf16 engine at the cut depth
     t0 = time.time()
     refs["ep"] = ep_references()
+    out["ep_b_one_process"] = refs["ep"]["b"]
     out["reference29_s"] = time.time() - t0
     t0 = time.time()
     refrun = one_process_run(model, bus_run(), batches[:PEER_STEPS])
@@ -5419,6 +5787,10 @@ def peer_phase():
     check_wire_ranks(ranks, refs)
     check_ep_ranks(ranks)
     check_tree_block_ranks(ranks, refs)
+    # phase 31's one-process references, now that the ranks' shards are
+    # freed (the whole bf16 model takes 29.5 GB)
+    out["tp_refs"] = tp_references(ranks[0]["tp_b_layers"])
+    check_tp_ranks(ranks, out["tp_refs"])
     return out
 
 
@@ -5431,7 +5803,7 @@ def check_ep_ranks(ranks) -> None:
     a MoE layer call (two calls a mixed dispatch) and no other
     collective; each rank holding 16 of the 64 experts a layer."""
     from repro_torch.configs import get_config
-    n_layers = get_config(MOE_ARCH).n_layers
+    n_layers = EP_B_LAYERS
     want_b = ranks[0]["ep_b"]["tokens"]
     for r in ranks:
         tag = f"phase 29 rank {r['rank']}"
@@ -5477,7 +5849,7 @@ def print_ep(rec, smi: str) -> None:
                   f"{v['equal']}" for cf, v in a.items()), flush=True)
         b, dd = r["ep_b"], r["ep_b_dispatches"]
         m = b["metrics"]
-        print(f"[ep29] rank {r['rank']} (b) bf16 full depth, "
+        print(f"[ep29] rank {r['rank']} (b) bf16 {EP_B_LAYERS} layers, "
               f"{r['ep_experts']} experts a layer: init {r['ep_init_s']:.2f} "
               f"s, params {r['ep_param_gb']:.2f} GB, init peak "
               f"{r['ep_init_peak_gib']:.2f} GiB, serving peak "
@@ -5495,6 +5867,17 @@ def print_ep(rec, smi: str) -> None:
               f"sums {dd['decode']['sums_ms']:.1f} ms "
               f"({dd['decode']['sums_share']:.1%}); card free at the phase's "
               f"start {r['card_free_gib_29']:.2f} GiB; {smi}", flush=True)
+    one = rec["ep_b_one_process"]
+    agree = ep_agreement(rec["ranks"][0]["ep_b"]["tokens"], one["tokens"])
+    rec["ep_b_agreement"] = agree
+    print(f"[ep29] (b) the four ranks' bf16 tokens against the one-process "
+          f"engine's on the same {agree['requests']} requests ({one['s']:.1f}"
+          f" s, {one['metrics']['tokens_per_s']} tokens/s): "
+          f"{agree['equal_share']:.1%} of the tokens equal, "
+          f"{agree['requests_equal']} requests whole, first divergence "
+          f"(request, position) {agree['first_divergence']} (reported, not "
+          "gated: the sum over the ranks adds the partials in another "
+          "order)", flush=True)
     print(f"[time] phase 29 took "
           f"{statistics.median(r['p29_s'] for r in rec['ranks']):.1f} s in "
           f"the ranks (median; per rank "
@@ -5602,11 +5985,12 @@ def print_tree_block(rec, smi: str) -> None:
 
 
 def ep_agreement(ranks_tokens: dict, one_tokens: dict) -> dict:
-    """Phase 29 (b)'s tokens against phase 15's one-process engine on the
-    same requests: the share of generated tokens equal position by
-    position, the requests equal whole, and the first divergence (request,
-    position).  Reported, not gated: the ranks' sum adds the experts'
-    partials in another order than the one-process combine."""
+    """A bf16 run's tokens across ranks (phase 29 (b), phase 31 (b))
+    against the one-process engine's on the same requests: the share of
+    generated tokens equal position by position, the requests equal
+    whole, and the first divergence (request, position).  Reported, not
+    gated: the ranks' sums add the partials in another order than the
+    one-process product."""
     n = same = whole = 0
     first = None
     for rid in sorted(one_tokens, key=int):
@@ -5751,6 +6135,7 @@ def print_peer(rec, smi: str) -> None:
     print_wire_ranks(rec, smi)
     print_ep(rec, smi)
     print_tree_block(rec, smi)
+    print_tp(rec, smi)
     print("[peer] not run on this card: the split (pod × data) permute "
           "plan (the CPU tests hold it over gloo against the JAX package); "
           "NCCL: not run anywhere (one card: NCCL refuses two ranks on it; "
@@ -6083,12 +6468,13 @@ def main() -> None:
     print(f"[flash] the op at (a) and (b): launches {flash_counts}",
           flush=True)
 
-    clock("25-30")
-    # 25–30. multi-rank: 4 ranks on the one card, the peer-pointer
+    clock("25-31")
+    # 25–31. multi-rank: 4 ranks on the one card, the peer-pointer
     # ring (25); the delayed pipeline with a straggler, the peer table
     # kernel and policy groups across ranks (26); the tree path (27); the
     # wires, agent blocks and row shards (28); the expert-parallel MoE
-    # served (29); the tree with two agents a rank (30).  They run here,
+    # served (29); the tree with two agents a rank (30); qwen3_14b
+    # tensor-parallel served (31).  They run here,
     # while this
     # process holds next to nothing on the card: the four ranks and their
     # peer buffers take most of it
@@ -6458,7 +6844,8 @@ def main() -> None:
           f"{dt['bound_fraction']:.1%} of it; clusters of {dt['n_split']} "
           f"blocks, {dt['split_keys']} keys a block; {smi}", flush=True)
     for key, what in (("paged_attention_hd128", "hd 128 G 1"),
-                      ("paged_attention_g4", "hd 128 G 4")):
+                      ("paged_attention_g4", "hd 128 G 4"),
+                      ("paged_attention_tp", "hd 128 K 2 G 5 (TP rank)")):
         dt = serve_timed[key]
         print(f"[serve-kernels] paged_attention {what} timed ({dt['dtype']}, "
               f"q {dt['shape']}, {dt['kv_rows']} KV rows): {dt['ms']:.5f} "
@@ -6467,7 +6854,8 @@ def main() -> None:
               f"({dt['bound_by']}), {dt['bound_fraction']:.1%} of it; "
               f"clusters of {dt['n_split']} blocks, {dt['split_keys']} keys "
               f"a block; {smi}", flush=True)
-    for key in ("paged_prefill", "paged_prefill_hd128", "paged_prefill_g4"):
+    for key in ("paged_prefill", "paged_prefill_hd128", "paged_prefill_g4",
+                "paged_prefill_tp"):
         pt = serve_timed[key]
         print(f"[serve-kernels] {key} timed ({pt['dtype']}, case "
               f"{pt['case']}): {pt['ms']:.5f} ms (host {pt['host_ms']:.4f} "
@@ -6589,18 +6977,6 @@ def main() -> None:
     # 15. deepseek_moe_16b served at full width and depth
     moe_serve = moe_serve_phase()
     print_engine("moe-serve", MOE_ARCH, moe_serve, smi)
-    agree = ep_agreement(peer["ranks"][0]["ep_b"]["tokens"],
-                         moe_serve["ep_b_tokens"])
-    peer["ep_b_agreement"] = agree
-    print(f"[ep29] (b) the four ranks' bf16 tokens against the one-process "
-          f"engine's on the same {agree['requests']} requests (phase 15's "
-          f"weights, {moe_serve['ep_b_s']:.1f} s, "
-          f"{moe_serve['ep_b_metrics']['tokens_per_s']} tokens/s): "
-          f"{agree['equal_share']:.1%} of the tokens equal, "
-          f"{agree['requests_equal']} requests whole, first divergence "
-          f"(request, position) {agree['first_divergence']} (reported, not "
-          "gated: the sum over the ranks adds the partials in another "
-          "order)", flush=True)
 
     clock("16")
     # 16. MoE training at full width, depth cut to one layer, 2 agents
@@ -6735,10 +7111,17 @@ def main() -> None:
                 for cf in EP_F32_CFS},
             "launches_ep_bf16_per_rank": [r["ep_b"]["counts"][name]
                                           for r in peer["ranks"]],
+            "launches_tp_f32_rank0": peer["ranks"][0]["tp_a"]["engine"][
+                "counts"][name],
+            "launches_tp_bf16_per_rank": [r["tp_b"]["engine"]["counts"][name]
+                                          for r in peer["ranks"]],
+            "launches_tp_of": "phase 31: each rank's engine run (f32 at "
+                              f"{TP_F32_LAYERS} layers, bf16 at "
+                              f"{peer['ranks'][0]['tp_b_layers']})",
             **{key: {k: serve_timed[f"{name}_{key}"].get(k) for k in (
                 "case", "shape", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "bytes", "flops", "host_ms", "bound_fraction",
-                "n_split", "split_keys")} for key in ("hd128", "g4")},
+                "n_split", "split_keys")} for key in ("hd128", "g4", "tp")},
             "bit_equal": True,
             "bit_equal_of": "the kernel's output on NaN-poisoned pools "
                             "against its output on the clean pools, every "

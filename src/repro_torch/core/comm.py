@@ -28,7 +28,9 @@ trainer and the checkpoints share (the JAX package's counterpart is a
   rank-varying computation); :func:`gather_rows` — the tiled all-gather,
   whose gradient is this rank's rows; :func:`shard_rows` — this rank's
   contiguous rows, whose gradient is all-gathered.  Their collectives
-  carry the tag ``moe``.
+  carry the tag ``moe``; the tensor-parallel forward
+  (:class:`repro_torch.core.sharding.TensorParallel`) sums with
+  :func:`psum` and gathers with :func:`all_gather` under the tag ``tp``.
 
 Inside :func:`recording` each collective appends a :class:`Collective` —
 its kind (the HLO names: ``collective-permute``, ``all-gather``,
@@ -187,7 +189,7 @@ class Collective:
     all-reduce ``2 (g − 1) / g`` of its operand: the reference's factors),
     a tag naming its caller's purpose (``gossip``, ``forward``,
     ``metrics``, ``checkpoint``, ``moe``: the expert-parallel layer's sums
-    and gathers), for a permute whether the operand came
+    and gathers, ``tp``: the tensor-parallel forward's), for a permute whether the operand came
     out of an all-gather, and the record's ticks when it was made
     (``started``) and waited on (``waited``: the same tick for a
     collective that returns done)."""
@@ -344,14 +346,14 @@ def ppermute(x: torch.Tensor, pairs: Sequence[Tuple[int, int]],
 
 
 def all_gather(x: torch.Tensor, group, group_size: int,
-               tag: str = "gossip") -> torch.Tensor:
-    """Tiled all-gather along dim 0 over ``group``'s ranks, in rank order
+               tag: str = "gossip", dim: int = 0) -> torch.Tensor:
+    """Tiled all-gather along ``dim`` over ``group``'s ranks, in rank order
     (a CUDA tensor on a gloo group through the host)."""
     x = x.contiguous()
     src = x.cpu() if _staged(x, group) else x
     parts = [torch.empty_like(src) for _ in range(group_size)]
     dist.all_gather(parts, src, group=group)
-    out = torch.cat(parts, 0).to(x.device)
+    out = torch.cat(parts, dim).to(x.device)
     _record("all-gather", out, group_size, tag)
     if _REC[0] is not None:
         _GATHERED.append(weakref.ref(out))

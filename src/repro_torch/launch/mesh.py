@@ -26,7 +26,8 @@ this module re-exports as the reference's module has it).
   host.
 * :func:`make_moe_mesh` builds the ``("data", "model")`` rank grid of the
   expert-parallel MoE layer (:func:`repro_torch.models.moe.set_moe_mesh`)
-  with the same per-axis groups; :func:`make_sim_mesh` is its 1 × 1 grid
+  and of tensor-parallel serving (``build_model(cfg, mesh=grid)``) with the
+  same per-axis groups; :func:`make_sim_mesh` is its 1 × 1 grid
   in one process (no process group), as the reference's tests build a
   ``(1, 1)`` mesh on one device.
 
@@ -253,9 +254,12 @@ def make_moe_mesh(data: int = 1, model: Optional[int] = None,
     model`` ranks (``model`` defaults to the world over ``data``): rank
     ``r`` is data index ``r // model`` and model index ``r % model``, as
     the reference's ``jax.make_mesh((data, model), ("data", "model"))``
-    lays out its devices.  Collective, as :func:`make_gossip_mesh`; the
-    grid carries no agents (``n_agents`` is its data extent).  Ranks
-    beyond the grid get a mesh with no coordinates."""
+    lays out its devices.  It is also the tensor-parallel serving grid: a
+    ``(1, M)`` grid holds one model replica split over its model axis
+    (``build_model(cfg, mesh=grid)``, :mod:`repro_torch.core.sharding`).
+    Collective, as :func:`make_gossip_mesh`; the grid carries no agents
+    (``n_agents`` is its data extent).  Ranks beyond the grid get a mesh
+    with no coordinates."""
     if not dist.is_initialized():
         raise RuntimeError("make_moe_mesh needs the process group: call "
                            "repro_torch.launch.mesh.init_distributed first")

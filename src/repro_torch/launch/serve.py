@@ -55,6 +55,27 @@ Ranks sharing a card sum over gloo through the host; across cards NCCL
       --device cpu --moe-impl shard_map --continuous-batching \
       --prefill-chunk 8 --max-step-tokens 16 --prompt-dist exact
 
+Under torchrun a dense model (``--arch qwen3_14b``, ``starcoder2_7b``,
+``qwen1_5_110b``, ``smollm_360m``) is served as the reference serves:
+one replica sharded tensor-parallel over the ``(1, world)`` ``("data",
+"model")`` grid (the reference's ``serve_param_specs`` /
+``paged_pool_specs`` layout, :mod:`repro_torch.core.sharding`).  Each rank
+draws its block of every split leaf (``init_lm_rank``: whole heads, ``ff
+/ world`` FFN columns, ``V / world`` vocabulary rows; with ``--ckpt`` its
+block of each entry of the file, cut on the host), builds the model on
+the grid (``build_model(cfg, mesh=grid)``) and serves the same closed
+trace through the same engine or ``greedy_generate``: each forward sums
+over the model axis once for the embedding and twice a layer, and
+gathers the logits once.  A head count that does not split over the
+world raises ``ValueError`` (``smollm_360m``'s 5 KV heads at 2 or 4
+ranks).  ``--moe-impl shard_map`` keeps the expert-parallel layout (its
+attention replicated); without torchrun the CLI serves in one process.
+
+  PYTHONPATH=src torchrun --standalone --nproc-per-node 4 \
+      -m repro_torch.launch.serve --arch qwen3_14b --smoke --device cpu \
+      --continuous-batching --prefill-chunk 8 --max-step-tokens 16 \
+      --prompt-dist exact --requests 4
+
 ``--ckpt`` loads a consensus export — the port's
 (``repro_torch.train.checkpoint.export_consensus``) or the reference's,
 an npz of the bare-path parameter tree — through
@@ -79,10 +100,11 @@ import torch
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.device import resolve_device
 from repro_torch.models import build_model, moe
-from repro_torch.models.transformer import init_lm_rank
+from repro_torch.models.transformer import init_lm_rank, lm_param_specs
 from repro_torch.serve import (ContinuousBatchingEngine, PagedCacheConfig,
                                greedy_generate, poisson_load)
-from repro_torch.weights import expert_block, params_digest, params_from_npz
+from repro_torch.weights import (expert_block, npz_params_digest,
+                                 params_digest, params_from_npz)
 
 __all__ = ["parser", "main"]
 
@@ -151,22 +173,29 @@ def parser() -> argparse.ArgumentParser:
 
 
 def _rank_grid(args, cfg):
-    """``--moe-impl shard_map``: join torchrun's process group and build
-    the ``(1, world)`` grid (None for ``gspmd``).  Raises outside
-    torchrun and for a model with no experts."""
-    if args.moe_impl != "shard_map":
-        return None
-    if "RANK" not in os.environ or "WORLD_SIZE" not in os.environ:
-        raise RuntimeError("--moe-impl shard_map serves one rank a "
-                           "process: run it under torchrun (e.g. torchrun "
-                           "--standalone --nproc-per-node 4 -m "
-                           "repro_torch.launch.serve ...)")
-    if not cfg.n_experts:
-        raise ValueError(f"--moe-impl shard_map needs an MoE model; "
-                         f"{cfg.name} has no experts")
+    """``(grid, layout)``: under ``--moe-impl shard_map`` the ``(1,
+    world)`` grid and ``"ep"`` (raises outside torchrun and for a model
+    with no experts); under torchrun a dense model's ``(1, world)`` grid
+    and ``"tp"``; else ``(None, None)``.  A grid joins torchrun's process
+    group."""
+    torchrun = "RANK" in os.environ and "WORLD_SIZE" in os.environ
+    if args.moe_impl == "shard_map":
+        if not torchrun:
+            raise RuntimeError("--moe-impl shard_map serves one rank a "
+                               "process: run it under torchrun (e.g. "
+                               "torchrun --standalone --nproc-per-node 4 -m "
+                               "repro_torch.launch.serve ...)")
+        if not cfg.n_experts:
+            raise ValueError(f"--moe-impl shard_map needs an MoE model; "
+                             f"{cfg.name} has no experts")
+        layout = "ep"
+    elif torchrun and cfg.family == "dense":
+        layout = "tp"
+    else:
+        return None, None
     from repro_torch.launch.mesh import init_distributed, make_moe_mesh
     init_distributed(str(resolve_device(args.device)))
-    return make_moe_mesh(1)
+    return make_moe_mesh(1), layout
 
 
 def _digest(obj) -> str:
@@ -187,44 +216,57 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     ``--continuous-batching`` (plus ``params_sha256`` with ``--ckpt``),
     else ``{"tokens": (B, new_tokens) ids, "seconds": s,
     "params_sha256": digest or None}``; both with ``token_digest`` (the
-    SHA-256 of the generated ids) and, under ``--moe-impl shard_map``,
-    ``rank_token_digests`` (every rank's, in rank order)."""
+    SHA-256 of the generated ids) and, on a rank grid (``--moe-impl
+    shard_map``, or a dense model under torchrun), ``rank_token_digests``
+    (every rank's, in rank order)."""
     args = parser().parse_args(argv)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if args.n_layers:
         cfg = dataclasses.replace(cfg, n_layers=args.n_layers)
-    mesh = _rank_grid(args, cfg)
+    mesh, layout = _rank_grid(args, cfg)
     try:
-        return _serve(args, cfg, mesh)
+        return _serve(args, cfg, mesh, layout)
     finally:
-        if mesh is not None:
+        if layout == "ep":
             moe.set_moe_mesh(None)
 
 
-def _serve(args, cfg, mesh) -> Dict[str, Any]:
+def _serve(args, cfg, mesh, layout) -> Dict[str, Any]:
     device = resolve_device(args.device) if mesh is None else mesh.device
     say = print if mesh is None or mesh.rank == 0 else (lambda *a, **k: None)
-    model = build_model(cfg, decode_window=args.window)
+    model = build_model(cfg, decode_window=args.window,
+                        mesh=mesh if layout == "tp" else None)
     digest = None
     gen = torch.Generator(device=device).manual_seed(0)
-    if args.ckpt:
+    m, M = ((mesh.axis_index("model"), mesh.axis_size("model"))
+            if mesh is not None else (0, 1))
+    if args.ckpt and layout == "tp":
+        digest = npz_params_digest(args.ckpt)
+        params = params_from_npz(args.ckpt, device=device,
+                                 block=(lm_param_specs(cfg), m, M))
+        say(f"loaded consensus params from {args.ckpt} (sha256 {digest}), "
+            f"model rank blocks of {M}")
+    elif args.ckpt:
         params = params_from_npz(args.ckpt, device=device)
         digest = params_digest(params)
         say(f"loaded consensus params from {args.ckpt} (sha256 {digest})")
         if mesh is not None:
-            M, m = mesh.axis_size("model"), mesh.axis_index("model")
             params = {k: v.clone() if v.shape != params[k].shape else v
                       for k, v in expert_block(params, m, M).items()}
     elif mesh is not None:
-        params = init_lm_rank(cfg, gen, mesh.axis_index("model"),
-                              mesh.axis_size("model"))
+        params = init_lm_rank(cfg, gen, m, M)
     else:
         params = model.init(gen)
-    if mesh is not None:
+    if layout == "ep":
         moe.set_moe_mesh(mesh, "shard_map")
         say(f"moe=shard_map grid={mesh.shape} experts/rank="
-            f"{cfg.n_experts // mesh.axis_size('model')} backend="
-            f"{mesh.backend}")
+            f"{cfg.n_experts // M} backend={mesh.backend}")
+    elif layout == "tp":
+        ff = cfg.dense_d_ff or cfg.d_ff
+        say(f"tp grid={mesh.shape} heads/rank={cfg.n_heads // M}/"
+            f"{model.kv_heads} ffn/rank={ff // M} vocab/rank="
+            f"{cfg.vocab_size // M} backend={mesh.backend}")
+    grid = "" if mesh is None else f" grid={mesh.shape}"
 
     if args.continuous_batching:
         ctx = args.window or MAX_PROMPT + MAX_NEW
@@ -256,7 +298,7 @@ def _serve(args, cfg, mesh) -> Dict[str, Any]:
         say(f"arch={cfg.name} engine=continuous slots={args.max_slots} "
             f"page={args.page_size} window={args.window or 'full'} "
             f"attn={args.attn_impl} prefill={pf} "
-            f"compiles={metrics['compile_count']} device={device}"
+            f"compiles={metrics['compile_count']} device={device}{grid}"
             + ("" if mesh is None else " arrivals=closed"))
         say("serve metrics: " + json.dumps(metrics))
         say(f"generated {metrics['tokens']} tokens over "
@@ -281,7 +323,7 @@ def _serve(args, cfg, mesh) -> Dict[str, Any]:
     front = (f" frontend={cfg.n_frontend_tokens}" if "frontend" in batch
              else "")
     say(f"arch={cfg.name} batch={args.batch} prompt={args.prompt_len}"
-        f"{front} window={args.window or 'full'} device={device}")
+        f"{front} window={args.window or 'full'} device={device}{grid}")
     say(f"generated {args.new_tokens} tokens/request in {dt:.2f}s "
         f"({args.batch * args.new_tokens / dt:.1f} tok/s)")
     for i in range(min(args.batch, 4)):
@@ -290,6 +332,7 @@ def _serve(args, cfg, mesh) -> Dict[str, Any]:
            "token_digest": _digest(out.tolist())}
     if mesh is not None:
         res["rank_token_digests"] = _rank_digests(mesh, res["token_digest"])
+        say(f"rank token digests: {res['rank_token_digests']}")
     return res
 
 

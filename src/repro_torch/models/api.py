@@ -19,6 +19,22 @@ Caches and pools are written in place (see
 attention as an argument: the kernels of
 :mod:`repro_torch.kernels.ops` or their plain versions in
 :mod:`repro_torch.kernels.ref`.
+
+``param_specs`` / ``cache_specs`` are the reference's: ``() →`` the
+tensor-parallel :class:`~repro_torch.core.sharding.PartitionSpec` of
+every parameter path / of the cache tree (the dense family; other
+families raise ``NotImplementedError``).  ``build_model(cfg, mesh=grid)``
+builds the model's serving entries on a ``("data", "model")`` rank grid
+(:func:`repro_torch.launch.mesh.make_moe_mesh`): the params and caches
+they take are the rank's blocks under those specs
+(:func:`repro_torch.core.sharding.shard_params`, or
+:func:`repro_torch.models.transformer.init_lm_rank`), and each forward
+sums over the model axis where the reference's GSPMD would
+(:class:`~repro_torch.core.sharding.TensorParallel`): the counterpart of
+the reference's ``serve_param_specs`` under ``jax.jit(in_shardings=…)``,
+fixed at build time.  ``kv_heads`` is the KV heads a rank holds (the
+config's on one rank, K/M on the grid): the caches' and the paged pools'
+width.
 """
 from __future__ import annotations
 
@@ -52,6 +68,9 @@ class Model:
     #  pt_row, chunk_start, chunk_len, attn_fn, prefill_attn_fn)
     # -> (decode logits, chunk logits, pools): the mixed serving step
     decode_step_mixed: Optional[Callable] = None
+    param_specs: Optional[Callable] = None   # () -> {path: PartitionSpec}
+    cache_specs: Optional[Callable] = None   # () -> cache tree of specs
+    kv_heads: Optional[int] = None   # a rank's KV heads (None: cfg's)
 
 
 def _build_encdec(cfg: ModelConfig, w: int) -> Model:
@@ -70,38 +89,55 @@ def _build_encdec(cfg: ModelConfig, w: int) -> Model:
     def init_cache(batch, length, device=None):
         return ed.init_encdec_cache(cfg, batch, length, device=device)
 
+    def no_tp():
+        return tf.lm_param_specs(cfg)      # raises NotImplementedError
+
     return Model(cfg, lambda generator: ed.init_encdec(cfg, generator), loss,
                  lambda: tf.meta_from_specs(ed.encdec_param_specs(cfg)),
-                 prefill, decode_step, init_cache, decode_window=w)
+                 prefill, decode_step, init_cache, decode_window=w,
+                 param_specs=no_tp, cache_specs=no_tp)
 
 
-def build_model(cfg: ModelConfig, decode_window: int = 0) -> Model:
+def build_model(cfg: ModelConfig, decode_window: int = 0,
+                mesh=None) -> Model:
+    """The model of ``cfg``; with ``mesh`` (a ``("data", "model")`` rank
+    grid) its serving entries split over the model axis (dense family
+    only; a head count that does not split whole raises ``ValueError``)."""
     w = decode_window
+    if mesh is not None:
+        from repro_torch.core.sharding import TensorParallel
+        tp = TensorParallel(mesh)
+        tf.check_tp_split(cfg, tp.size)
+    else:
+        tp = None
+    kv_heads = cfg.n_kv_heads // (1 if tp is None else tp.size)
     if cfg.family == "encdec":
         return _build_encdec(cfg, w)
     tf.param_specs(cfg)   # raises for a family this module does not run
 
     def prefill(params, batch):
         return tf.lm_prefill(cfg, params, batch["tokens"],
-                             frontend=batch.get("frontend"), window=w)
+                             frontend=batch.get("frontend"), window=w, tp=tp)
 
     def decode_step(params, caches, token, pos):
-        return tf.lm_decode_step(cfg, params, caches, token, pos, window=w)
+        return tf.lm_decode_step(cfg, params, caches, token, pos, window=w,
+                                 tp=tp)
 
     def init_cache(batch, length, device=None):
-        return tf.init_lm_cache(cfg, batch, length, device=device)
+        return tf.init_lm_cache(cfg, batch, length, device=device,
+                                n_kv_heads=kv_heads)
 
     def decode_step_paged(params, pools, token, positions, page_table,
                           kv_len, attn_fn):
         return tf.lm_decode_step_paged(cfg, params, pools, token, positions,
                                        page_table, kv_len, window=w,
-                                       attn_fn=attn_fn)
+                                       attn_fn=attn_fn, tp=tp)
 
     def prefill_chunk_paged(params, pools, tokens, pt_row, chunk_start,
                             chunk_len, attn_fn):
         return tf.lm_prefill_chunk_paged(cfg, params, pools, tokens, pt_row,
                                          chunk_start, chunk_len, window=w,
-                                         attn_fn=attn_fn)
+                                         attn_fn=attn_fn, tp=tp)
 
     def decode_step_mixed(params, pools, token, positions, page_table,
                           kv_len, chunk_tokens, pt_row, chunk_start,
@@ -110,9 +146,13 @@ def build_model(cfg: ModelConfig, decode_window: int = 0) -> Model:
                                       page_table, kv_len, chunk_tokens,
                                       pt_row, chunk_start, chunk_len,
                                       window=w, attn_fn=attn_fn,
-                                      prefill_attn_fn=prefill_attn_fn)
+                                      prefill_attn_fn=prefill_attn_fn, tp=tp)
 
     def loss(params, batch, remat=True, remat_policy="full"):
+        if tp is not None:
+            raise NotImplementedError(
+                "the train path under tensor parallelism is queued in "
+                "ROADMAP §1 (the TP slices): this model serves only")
         return tf.lm_loss(cfg, params, batch, remat=remat,
                           remat_policy=remat_policy)
 
@@ -123,4 +163,7 @@ def build_model(cfg: ModelConfig, decode_window: int = 0) -> Model:
                  prefill, decode_step, init_cache, decode_window=w,
                  decode_step_paged=decode_step_paged,
                  prefill_chunk_paged=prefill_chunk_paged,
-                 decode_step_mixed=decode_step_mixed)
+                 decode_step_mixed=decode_step_mixed,
+                 param_specs=lambda: tf.lm_param_specs(cfg),
+                 cache_specs=lambda: tf.lm_cache_specs(cfg),
+                 kv_heads=kv_heads)

@@ -166,9 +166,12 @@ def paged_prefill_sdpa(q, k_chunk, v_chunk, k_pool, v_pool, pt_row,
 
 def _qkv(p: Dict[str, torch.Tensor], cfg, x, positions):
     """Projections (plus the QKV bias, before the head reshape), the
-    per-head QK RMS norm, then RoPE — in the reference's order."""
+    per-head QK RMS norm, then RoPE — in the reference's order.  The head
+    counts are the weights': a tensor-parallel rank's ``wq`` / ``wk``
+    hold its whole query and KV heads only."""
     B, S, _ = x.shape
-    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    hd = cfg.hd
+    H, K = p["wq"].shape[-1] // hd, p["wk"].shape[-1] // hd
     q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
@@ -185,19 +188,35 @@ def _qkv(p: Dict[str, torch.Tensor], cfg, x, positions):
 
 
 def init_kv_cache(cfg, batch: int, length: int, *, dtype=None,
-                  device=None) -> Dict[str, torch.Tensor]:
-    K, hd = cfg.n_kv_heads, cfg.hd
+                  device=None, n_kv_heads: Optional[int] = None
+                  ) -> Dict[str, torch.Tensor]:
+    """Zero ``(batch, length, K, hd)`` k / v caches; ``n_kv_heads`` is a
+    tensor-parallel rank's K (default: the config's)."""
+    K, hd = n_kv_heads or cfg.n_kv_heads, cfg.hd
     dt = dtype or getattr(torch, cfg.dtype)
     return {"k": torch.zeros(batch, length, K, hd, dtype=dt, device=device),
             "v": torch.zeros(batch, length, K, hd, dtype=dt, device=device)}
 
 
+def _out(x, out, wo, reduce):
+    """``x + out @ wo``: the heads' output projected and added to the
+    residual.  Under tensor parallelism ``out`` holds the rank's heads and
+    ``wo`` their rows (row-parallel), and ``reduce`` sums the partial
+    product over the model axis before the residual, so x is counted
+    once."""
+    y = out.reshape(*out.shape[:-2], -1) @ wo
+    return x + (y if reduce is None else reduce(y))
+
+
 def apply_attn(p: Dict[str, torch.Tensor], cfg, x, positions, *,
                mode: str = "train", cache: Optional[Dict] = None,
                window: int = 0, cur_len=None,
-               xattn_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+               xattn_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+               reduce: Optional[Callable] = None):
     """Pre-norm causal (or sliding-window) self-attention with residual,
-    or the encoder-decoder's cross attention.
+    or the encoder-decoder's cross attention.  ``reduce`` is the
+    tensor-parallel sum of the row-parallel ``wo`` product (None: the
+    layer's weights are whole).
 
     mode:
       "train"   — returns y;
@@ -215,14 +234,14 @@ def apply_attn(p: Dict[str, torch.Tensor], cfg, x, positions, *,
     win = window or cfg.sliding_window
     B, S = h.shape[:2]
     if mode == "cross":
-        q = (h @ p["wq"]).reshape(B, S, cfg.n_heads, cfg.hd)
+        q = (h @ p["wq"]).reshape(B, S, -1, cfg.hd)
         k, v = xattn_kv
         out = sdpa_ref(q, k, v, causal=False)
-        return x + out.reshape(B, S, cfg.n_heads * cfg.hd) @ p["wo"], cache
+        return _out(x, out, p["wo"], reduce), cache
     if mode in ("train", "prefill"):
         q, k, v = _qkv(p, cfg, h, positions)
         out = sdpa_ref(q, k, v, causal=True, window=win)
-        y = x + out.reshape(B, S, cfg.n_heads * cfg.hd) @ p["wo"]
+        y = _out(x, out, p["wo"], reduce)
         if mode == "train":
             return y
         if win and k.shape[1] > win:
@@ -253,8 +272,7 @@ def apply_attn(p: Dict[str, torch.Tensor], cfg, x, positions, *,
     # attention over it, the not yet filled rows masked by kv_len
     n_valid = min(pos + 1, win) if ring else pos + 1
     out = sdpa_ref(q, cache["k"], cache["v"], causal=False, kv_len=n_valid)
-    y = x + out.reshape(B, 1, cfg.n_heads * cfg.hd) @ p["wo"]
-    return y, cache
+    return _out(x, out, p["wo"], reduce), cache
 
 
 AttnFn = Callable[..., torch.Tensor]
@@ -262,7 +280,8 @@ AttnFn = Callable[..., torch.Tensor]
 
 def apply_attn_paged(p: Dict[str, torch.Tensor], cfg, x, positions, *,
                      pools: Dict[str, torch.Tensor], page_table, kv_len,
-                     attn_fn: AttnFn, window: int = 0):
+                     attn_fn: AttnFn, window: int = 0,
+                     reduce: Optional[Callable] = None):
     """Paged decode attention sub-block: one token per slot, KV read and
     written through a page table.
 
@@ -276,7 +295,9 @@ def apply_attn_paged(p: Dict[str, torch.Tensor], cfg, x, positions, *,
     over by ``attn_fn(q (B, K, G, hd), k_pool, v_pool, page_table, kv_len,
     *, page_size) -> (B, K, G, hd)``: :func:`repro_torch.kernels.ops.
     paged_attention` (the kernel) or its plain version
-    :func:`repro_torch.kernels.ref.paged_attention_ref`.
+    :func:`repro_torch.kernels.ref.paged_attention_ref`.  K and G are the
+    weights' (a tensor-parallel rank's pools hold its KV heads only), and
+    ``reduce`` sums the ``wo`` partial over the model axis.
     Returns (y, pools)."""
     h = rms_norm(x, p["ln"], cfg.norm_eps)
     q, k_new, v_new = _qkv(p, cfg, h, positions)
@@ -292,17 +313,17 @@ def apply_attn_paged(p: Dict[str, torch.Tensor], cfg, x, positions, *,
     # slot's pages (allocator invariant)
     pools["k"].index_put_((phys, rin), k_new[:, 0])
     pools["v"].index_put_((phys, rin), v_new[:, 0])
-    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    H, K, hd = q.shape[2], k_new.shape[2], cfg.hd
     out = attn_fn(q.reshape(B, K, H // K, hd), pools["k"], pools["v"],
                   page_table, kv_len, page_size=page_size)
-    y = x + out.reshape(B, 1, H * hd) @ p["wo"]
-    return y, pools
+    return _out(x, out.reshape(B, 1, H, hd), p["wo"], reduce), pools
 
 
 def apply_attn_paged_prefill(p: Dict[str, torch.Tensor], cfg, x, *,
                              pools: Dict[str, torch.Tensor], pt_row,
                              chunk_start: int, chunk_len: int,
-                             attn_fn: AttnFn, window: int = 0):
+                             attn_fn: AttnFn, window: int = 0,
+                             reduce: Optional[Callable] = None):
     """Chunked-prefill attention sub-block: one C-token chunk of ONE slot's
     prompt attends over the slot's previously filled pages plus itself,
     then is written into the pages.
@@ -319,7 +340,8 @@ def apply_attn_paged_prefill(p: Dict[str, torch.Tensor], cfg, x, *,
     hd)`` is :func:`repro_torch.kernels.ops.paged_prefill_attention` (the
     kernel) or its plain version
     :func:`repro_torch.kernels.ref.paged_prefill_attention_ref`, which is
-    :func:`paged_prefill_sdpa`.  The write is in place.
+    :func:`paged_prefill_sdpa`.  The write is in place.  ``reduce`` is
+    the tensor-parallel sum, as in :func:`apply_attn_paged`.
     Returns (y (1, C, d), pools)."""
     h = rms_norm(x, p["ln"], cfg.norm_eps)
     C = x.shape[1]
@@ -342,5 +364,4 @@ def apply_attn_paged_prefill(p: Dict[str, torch.Tensor], cfg, x, *,
     rin = row % page_size
     pools["k"].index_put_((phys, rin), k_new[0])
     pools["v"].index_put_((phys, rin), v_new[0])
-    y = x + out.reshape(1, C, cfg.n_heads * cfg.hd) @ p["wo"]
-    return y, pools
+    return _out(x, out, p["wo"], reduce), pools

@@ -7,7 +7,7 @@ in the JAX tree.  Numerics follow the JAX package: RMSNorm scales by
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Callable, Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -75,10 +75,16 @@ def gelu_mlp(x, w_up, w_down):
 
 
 def apply_dense_ffn(p: Dict[str, torch.Tensor], x: torch.Tensor,
-                    eps: float) -> torch.Tensor:
+                    eps: float, reduce: Optional[Callable] = None
+                    ) -> torch.Tensor:
     """Pre-norm FFN with residual: SwiGLU when the layer has ``w_gate``,
-    else the ungated GELU MLP."""
+    else the ungated GELU MLP.  Under tensor parallelism ``w_gate`` /
+    ``w_up`` hold the rank's columns and ``w_down`` its rows, and
+    ``reduce`` sums the rank's partial product over the model axis BEFORE
+    the residual (``x + psum(partial)``: x is counted once)."""
     h = rms_norm(x, p["ln"], eps)
     if "w_gate" in p:
-        return x + swiglu(h, p["w_gate"], p["w_up"], p["w_down"])
-    return x + gelu_mlp(h, p["w_up"], p["w_down"])
+        y = swiglu(h, p["w_gate"], p["w_up"], p["w_down"])
+    else:
+        y = gelu_mlp(h, p["w_up"], p["w_down"])
+    return x + (y if reduce is None else reduce(y))

@@ -28,11 +28,17 @@ period positions of ``{"k", "v"}`` leaves with leading ``n_blocks``
 SSM position's cache is ``{"h", "conv"}``, the fixed-size decode state,
 so a hybrid model's caches are a tuple of both kinds; the paged entries
 cover attention mixers only, as the reference's.
+
+Tensor parallelism (the dense family): :func:`lm_param_specs` /
+:func:`lm_cache_specs` are the reference's partition specs, and the
+serving entries take ``tp`` (a
+:class:`repro_torch.core.sharding.TensorParallel`) to run on a rank's
+blocks (see the note above :func:`_reduce`).
 """
 from __future__ import annotations
 
 import functools
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import (checkpoint,
@@ -48,7 +54,8 @@ from .moe import apply_moe, expert_axis
 __all__ = ["param_specs", "param_meta", "meta_from_specs", "init_lm",
            "init_lm_rank", "init_from_specs", "lm_loss", "init_lm_cache",
            "lm_prefill", "lm_decode_step", "lm_decode_step_paged",
-           "lm_prefill_chunk_paged", "lm_serve_step_mixed"]
+           "lm_prefill_chunk_paged", "lm_serve_step_mixed",
+           "lm_param_specs", "lm_cache_specs", "check_tp_split"]
 
 # (shape, dtype, init): init is the truncated-normal fan-in (an int),
 # None for a zero-initialised leaf (norm weights, QKV biases), or a
@@ -161,6 +168,93 @@ def meta_from_specs(specs: Dict[str, Spec]) -> Dict[str, torch.Tensor]:
             for p, (s, dt, _) in specs.items()}
 
 
+# ---------------------------------------------------------------------------
+# tensor-parallel partition specs (the reference's lm_param_specs /
+# lm_cache_specs; see repro_torch.core.sharding)
+# ---------------------------------------------------------------------------
+
+_TP_QUEUE = ("tensor parallelism covers the dense family in this port; "
+             "the MoE (EP + TP), SSM, hybrid, VLM and encoder-decoder "
+             "layouts are queued in ROADMAP §1 (the TP slices)")
+
+
+def _check_tp_family(cfg: ModelConfig) -> None:
+    if cfg.family != "dense":
+        raise NotImplementedError(f"{cfg.name} ({cfg.family}): {_TP_QUEUE}")
+
+
+def _attn_partition(cfg: ModelConfig) -> Dict:
+    """The attention leaves' specs: heads column-wise for ``wq`` / ``wk`` /
+    ``wv`` and their biases, row-wise for ``wo``."""
+    from repro_torch.core.sharding import P
+    sp = {"ln": P(None), "wq": P(None, "model"), "wk": P(None, "model"),
+          "wv": P(None, "model"), "wo": P("model", None)}
+    if cfg.qkv_bias:
+        sp.update({"bq": P("model"), "bk": P("model"), "bv": P("model")})
+    if cfg.qk_norm:
+        sp.update({"q_norm": P(None), "k_norm": P(None)})
+    return sp
+
+
+def _ffn_partition(cfg: ModelConfig) -> Dict:
+    """The dense FFN's specs: ``w_gate`` / ``w_up`` column-wise, ``w_down``
+    row-wise."""
+    from repro_torch.core.sharding import P
+    sp = {"ln": P(None), "w_up": P(None, "model"), "w_down": P("model", None)}
+    if cfg.mlp_gated:
+        sp["w_gate"] = P(None, "model")
+    return sp
+
+
+def lm_param_specs(cfg: ModelConfig) -> Dict:
+    """``{path: PartitionSpec}`` of every parameter of a dense model, the
+    reference's ``lm_param_specs`` path by path: the embedding split over
+    the vocabulary, ``lm_head`` over its columns, the attention and FFN
+    leaves as :func:`_attn_partition` / :func:`_ffn_partition`, the
+    stacked leading dim ``None`` (the reference's ``_prepend(s, None)``).
+    Other families raise ``NotImplementedError``."""
+    from repro_torch.core.sharding import P
+    _check_tp_family(cfg)
+    kinds = _check_family(cfg)
+    specs = {"embed": P("model", None), "final_ln": P(None),
+             "lm_head": P(None, "model")}
+    for pi, _ in enumerate(kinds):
+        for sub, sp in (("attn", _attn_partition(cfg)),
+                        ("ffn", _ffn_partition(cfg))):
+            specs.update({f"blocks|{pi}|{sub}|{name}": P(None, *s)
+                          for name, s in sp.items()})
+    return specs
+
+
+def lm_cache_specs(cfg: ModelConfig) -> Tuple[Dict, ...]:
+    """The reference's ``lm_cache_specs``: a tuple over period positions
+    of ``{"k", "v"}`` specs of the stacked ``(n_blocks, B, S, K, hd)``
+    caches, the batch over ``data`` and the KV heads over ``model``.
+    Other families raise ``NotImplementedError``."""
+    from repro_torch.core.sharding import P
+    _check_tp_family(cfg)
+    one = P(None, "data", None, "model", None)
+    return tuple({"k": one, "v": one} for _ in _check_family(cfg))
+
+
+def check_tp_split(cfg: ModelConfig, count: int) -> None:
+    """Raise ``ValueError`` unless ``count`` model ranks can hold ``cfg``
+    in whole heads: rank r holds query heads ``[r·H/M, (r+1)·H/M)`` and KV
+    heads ``[r·K/M, (r+1)·K/M)`` (GQA's ``h // G`` pairing stays on the
+    rank), ``ff / M`` FFN columns and ``V / M`` vocabulary rows.  Other
+    families raise ``NotImplementedError``."""
+    _check_tp_family(cfg)
+    ff = cfg.dense_d_ff or cfg.d_ff
+    for what, n in (("KV heads", cfg.n_kv_heads), ("query heads",
+                    cfg.n_heads), ("FFN columns", ff),
+                    ("vocabulary rows", cfg.vocab_size)):
+        if n % count:
+            raise ValueError(
+                f"{cfg.name}: {n} {what} do not split whole over {count} "
+                "model ranks (a rank holds whole heads, so that each query "
+                "head's KV head is on the same rank)")
+
+
 def init_lm(cfg: ModelConfig, generator: torch.Generator
             ) -> Dict[str, torch.Tensor]:
     """Random parameters on ``generator.device``: truncated-normal fan-in
@@ -176,47 +270,71 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator
 
 def init_lm_rank(cfg: ModelConfig, generator: torch.Generator,
                  index: int, count: int) -> Dict[str, torch.Tensor]:
-    """Model rank ``index`` of ``count``'s parameters for the
-    expert-parallel MoE layer: :func:`init_lm`'s draws, every leaf whole
-    but the MoE expert leaves, of which the rank keeps its block of
-    experts ``[index·E/count, (index+1)·E/count)``.  Bit-equal to
-    :func:`repro_torch.weights.expert_block` of :func:`init_lm`'s dict,
-    without ever holding the whole expert set: a stacked leaf is drawn
+    """Model rank ``index`` of ``count``'s parameters: :func:`init_lm`'s
+    draws, of which the rank keeps its block.  An MoE model's rank keeps
+    every leaf whole but the expert leaves, of which it keeps experts
+    ``[index·E/count, (index+1)·E/count)`` (the expert-parallel layer;
+    bit-equal to :func:`repro_torch.weights.expert_block` of
+    :func:`init_lm`'s dict).  A dense model's rank keeps its block of every
+    leaf :func:`lm_param_specs` splits over ``model`` (tensor
+    parallelism; bit-equal to
+    :func:`repro_torch.core.sharding.shard_params` of :func:`init_lm`'s
+    dict).  Neither ever holds the whole model: a stacked leaf is drawn
     one layer slice at a time, so the peak is the rank's parameters plus
     one layer's draw."""
-    E = cfg.n_experts
-    if not E or E % count:
-        raise ValueError(f"{E} experts do not split over {count} model "
-                         "ranks")
-    n = E // count
-    keep = {p: (index * n, (index + 1) * n) for p in param_specs(cfg)
-            if expert_axis(p) is not None}
-    return init_from_specs(param_specs(cfg), generator, keep)
+    specs = param_specs(cfg)
+    if cfg.n_experts:
+        E = cfg.n_experts
+        if E % count:
+            raise ValueError(f"{E} experts do not split over {count} model "
+                             "ranks")
+        n = E // count
+        keep = {p: (1, index * n, (index + 1) * n) for p in specs
+                if expert_axis(p) is not None}
+        return init_from_specs(specs, generator, keep)
+    from repro_torch.core.sharding import block_bounds
+    check_tp_split(cfg, count)
+    keep = {}
+    for path, spec in lm_param_specs(cfg).items():
+        cut = block_bounds(specs[path][0], spec, {"model": (index, count)},
+                           path)
+        if cut:
+            (keep[path],) = cut         # one split dim a leaf
+    return init_from_specs(specs, generator, keep)
 
 
 def init_from_specs(specs: Dict[str, Spec], generator: torch.Generator,
-                    keep: Dict[str, Tuple[int, int]] = None
+                    keep: Dict[str, Tuple[int, int, int]] = None
                     ) -> Dict[str, torch.Tensor]:
     """Every leaf of ``specs`` drawn in sorted path order (see
     :func:`init_lm`); a stacked leaf — one whose first path component
     ends in ``blocks`` — one leading-index slice at a time.  ``keep``
-    maps a stacked leaf's path to the ``[lo, hi)`` of its second axis that
-    is kept of each drawn slice (the draws, and so every later leaf's
-    bits, are the whole init's)."""
+    maps a leaf's path to ``(axis, lo, hi)``: of each drawn leaf (a
+    stacked leaf: of each drawn slice) only ``[lo, hi)`` along ``axis``
+    of the whole leaf is kept (the draws, and so every later leaf's bits,
+    are the whole init's)."""
     keep = keep or {}
     params = {}
     for path in sorted(specs):
         shape, dt, init = specs[path]
+        axis, lo, hi = keep.get(path, (None, None, None))
+        kept = list(shape)
+        if axis is not None:
+            kept[axis] = hi - lo
         if path.split("|", 1)[0].endswith("blocks"):
-            lo, hi = keep.get(path, (None, None))
-            kept = shape if path not in keep else (shape[0], hi - lo,
-                                                   *shape[2:])
+            if axis == 0:
+                raise ValueError(f"{path}: the stacked dim is not split")
             leaf = torch.empty(kept, dtype=dt, device=generator.device)
             for b in range(shape[0]):
-                leaf[b] = init_leaf(shape[1:], dt, init, generator)[lo:hi]
+                one = init_leaf(shape[1:], dt, init, generator)
+                leaf[b] = one if axis is None else one.narrow(axis - 1, lo,
+                                                              hi - lo)
             params[path] = leaf
         else:
-            params[path] = init_leaf(shape, dt, init, generator)
+            leaf = init_leaf(shape, dt, init, generator)
+            if axis is not None:
+                leaf = leaf.narrow(axis, lo, hi - lo).clone()
+            params[path] = leaf
     return params
 
 
@@ -243,14 +361,15 @@ def _layers(cfg: ModelConfig, params: Dict[str, torch.Tensor]
     return layers
 
 
-def _ffn(cfg: ModelConfig, lp: Dict, x: torch.Tensor):
+def _ffn(cfg: ModelConfig, lp: Dict, x: torch.Tensor, tp=None):
     """The layer's FFN with residual: (x, the MoE layer's
     ``router_aux_coef · aux``, or None for a dense layer).  A Mamba layer
-    has no FFN: x passes through."""
+    has no FFN: x passes through.  ``tp``: see :func:`_reduce`."""
     if "moe" in lp:
         return apply_moe(lp["moe"], cfg, x, cfg.norm_eps)
     if "ffn" in lp:
-        return apply_dense_ffn(lp["ffn"], x, cfg.norm_eps), None
+        return apply_dense_ffn(lp["ffn"], x, cfg.norm_eps,
+                               reduce=_reduce(tp)), None
     return x, None
 
 
@@ -281,10 +400,10 @@ def _remat_context(remat_policy: str):
 
 
 def _embed_inputs(params: Dict[str, torch.Tensor], tokens: torch.Tensor,
-                  frontend) -> torch.Tensor:
+                  frontend, tp=None) -> torch.Tensor:
     """The token embeddings, after the frontend embeddings when given
     (cast to the embedding's dtype): ``(B, P + S, d)``."""
-    x = params["embed"][tokens.long()]
+    x = _embed(params, tokens, tp)
     if frontend is not None:
         x = torch.cat([frontend.to(x.dtype), x], dim=1)
     return x
@@ -334,8 +453,34 @@ def lm_loss(cfg: ModelConfig, params: Dict[str, torch.Tensor],
 # serving
 # ---------------------------------------------------------------------------
 
-def _logits(cfg: ModelConfig, params, x) -> torch.Tensor:
-    return rms_norm(x, params["final_ln"], cfg.norm_eps) @ params["lm_head"]
+# Tensor parallelism (the reference's serve_param_specs layout): the
+# serving entries below take ``tp``, a
+# :class:`repro_torch.core.sharding.TensorParallel` of the rank grid, with
+# the params sharded by ``shard_params(params, lm_param_specs(cfg), mesh)``
+# (or drawn so by :func:`init_lm_rank`) and the caches / pools holding the
+# rank's KV heads.  Per forward: one sum for the vocab-parallel embedding,
+# one after each layer's ``wo`` and one after its ``w_down`` (before the
+# residual), one all-gather of the vocab-parallel logits: a decode step
+# makes 2L + 1 sums and one gather, a mixed step twice that (its decode
+# rows and its chunk run separately).  ``tp=None``: the weights are whole.
+
+def _reduce(tp):
+    return None if tp is None else tp.psum
+
+
+def _embed(params, tokens, tp) -> torch.Tensor:
+    tokens = tokens.long()
+    if tp is None:
+        return params["embed"][tokens]
+    return tp.embed(params["embed"], tokens)
+
+
+def _logits(cfg: ModelConfig, params, x, tp=None) -> torch.Tensor:
+    """Logits ``(..., V)``: under ``tp`` the rank's ``V / M`` columns,
+    gathered over the model axis in rank order (greedy argmax sees the
+    one-process ties)."""
+    out = rms_norm(x, params["final_ln"], cfg.norm_eps) @ params["lm_head"]
+    return out if tp is None else tp.gather(out)
 
 
 def _stack_index(cfg: ModelConfig):
@@ -345,25 +490,29 @@ def _stack_index(cfg: ModelConfig):
 
 
 def init_lm_cache(cfg: ModelConfig, batch: int, length: int, *,
-                  device=None) -> Tuple[Dict[str, torch.Tensor], ...]:
+                  device=None, n_kv_heads: Optional[int] = None
+                  ) -> Tuple[Dict[str, torch.Tensor], ...]:
     """Zero caches, a tuple over period positions of stacked leaves:
-    ``(n_blocks, batch, length, K, hd)`` ``k`` / ``v`` for attention, and
-    for an SSM position the fixed-size state, ``h`` ``(n_blocks, batch,
-    d_inner, d_state)`` f32 and ``conv`` ``(n_blocks, batch, conv − 1,
-    d_inner)`` (``device="meta"`` gives the shapes without allocating)."""
+    ``(n_blocks, batch, length, K, hd)`` ``k`` / ``v`` for attention (K
+    ``n_kv_heads``, a tensor-parallel rank's: ``Model.kv_heads``; default
+    the config's), and for an SSM position the
+    fixed-size state, ``h`` ``(n_blocks, batch, d_inner, d_state)`` f32
+    and ``conv`` ``(n_blocks, batch, conv − 1, d_inner)``
+    (``device="meta"`` gives the shapes without allocating)."""
     kinds = _check_family(cfg)
     nb = cfg.n_layers // len(kinds)
     out = []
     for mixer, _ in kinds:
         one = (init_ssm_cache(cfg, batch, device=device) if mixer == "ssm"
-               else init_kv_cache(cfg, batch, length, device=device))
+               else init_kv_cache(cfg, batch, length, device=device,
+                                  n_kv_heads=n_kv_heads))
         out.append({k: v[None].expand(nb, *v.shape).contiguous()
                     for k, v in one.items()})
     return tuple(out)
 
 
 def lm_prefill(cfg: ModelConfig, params, tokens, *, frontend=None,
-               window: int = 0):
+               window: int = 0, tp=None):
     """Full-sequence forward returning (last-token logits (B, 1, V),
     caches); with ``window`` each KV cache holds the last ``window`` rows
     in ring order.  ``frontend`` embeddings ``(B, P, d)`` run before the
@@ -371,7 +520,7 @@ def lm_prefill(cfg: ModelConfig, params, tokens, *, frontend=None,
     from a zero state, as the reference's prefill does, and its cache is
     the final state."""
     _check_family(cfg)
-    x = _embed_inputs(params, tokens, frontend)
+    x = _embed_inputs(params, tokens, frontend, tp)
     B, S = x.shape[:2]
     positions = torch.arange(S, device=tokens.device).expand(B, S)
     per_layer = []
@@ -382,24 +531,25 @@ def lm_prefill(cfg: ModelConfig, params, tokens, *, frontend=None,
                 cache=init_ssm_cache(cfg, B, device=tokens.device))
         else:
             x, cache = apply_attn(lp["attn"], cfg, x, positions,
-                                  mode="prefill", window=window)
-        x, _ = _ffn(cfg, lp, x)
+                                  mode="prefill", window=window,
+                                  reduce=_reduce(tp))
+        x, _ = _ffn(cfg, lp, x, tp)
         per_layer.append(cache)
     period = block_period(cfg)
     caches = tuple(
         {name: torch.stack([c[name] for c in per_layer[pi::period]])
          for name in per_layer[pi]}
         for pi in range(period))
-    return _logits(cfg, params, x[:, -1:]), caches
+    return _logits(cfg, params, x[:, -1:], tp), caches
 
 
 def lm_decode_step(cfg: ModelConfig, params, caches, token, pos, *,
-                   window: int = 0):
+                   window: int = 0, tp=None):
     """One decode step.  token: (B, 1); pos: the absolute position, the
     same for every row.  The caches are written in place (an SSM layer's
     new state over its old).  Returns (logits (B, 1, V), caches)."""
     token = token.long()
-    x = params["embed"][token]
+    x = _embed(params, token, tp)
     B = token.shape[0]
     positions = torch.full((B, 1), int(pos), dtype=torch.long,
                            device=token.device)
@@ -412,9 +562,10 @@ def lm_decode_step(cfg: ModelConfig, params, caches, token, pos, *,
                 layer_cache[name].copy_(c)
         else:
             x, _ = apply_attn(lp["attn"], cfg, x, positions, mode="decode",
-                              cache=layer_cache, window=window)
-        x, _ = _ffn(cfg, lp, x)
-    return _logits(cfg, params, x), caches
+                              cache=layer_cache, window=window,
+                              reduce=_reduce(tp))
+        x, _ = _ffn(cfg, lp, x, tp)
+    return _logits(cfg, params, x, tp), caches
 
 
 def _layer_pools(pools, b: int, pi: int) -> Dict[str, torch.Tensor]:
@@ -423,7 +574,7 @@ def _layer_pools(pools, b: int, pi: int) -> Dict[str, torch.Tensor]:
 
 def lm_decode_step_paged(cfg: ModelConfig, params, pools, token, positions,
                          page_table, kv_len, *, attn_fn: Callable,
-                         window: int = 0):
+                         window: int = 0, tp=None):
     """One continuous-batching decode step over the whole slot batch.
     token: (B, 1); positions: (B,) each slot's absolute position (ragged);
     page_table: (B, n_pages); kv_len: (B,) valid KV rows (0 for idle
@@ -432,41 +583,41 @@ def lm_decode_step_paged(cfg: ModelConfig, params, pools, token, positions,
     its plain version).  The pools
     are written in place.  Returns (logits (B, 1, V), pools)."""
     _check_attn_only(cfg)
-    token = token.long()
-    x = params["embed"][token]
+    x = _embed(params, token, tp)
     pos2 = positions.reshape(token.shape[0], 1).long()
     for (_, b, pi), lp in zip(_stack_index(cfg), _layers(cfg, params)):
         x, _ = apply_attn_paged(lp["attn"], cfg, x, pos2,
                                 pools=_layer_pools(pools, b, pi),
                                 page_table=page_table, kv_len=kv_len,
-                                window=window, attn_fn=attn_fn)
-        x, _ = _ffn(cfg, lp, x)
-    return _logits(cfg, params, x), pools
+                                window=window, attn_fn=attn_fn,
+                                reduce=_reduce(tp))
+        x, _ = _ffn(cfg, lp, x, tp)
+    return _logits(cfg, params, x, tp), pools
 
 
 def lm_prefill_chunk_paged(cfg: ModelConfig, params, pools, tokens, pt_row,
                            chunk_start: int, chunk_len: int, *,
-                           attn_fn: Callable, window: int = 0):
+                           attn_fn: Callable, window: int = 0, tp=None):
     """One chunked-prefill step for ONE slot: a C-token chunk of its
     prompt (padded to C) attends to the slot's earlier pages and is
     written into them.  tokens: (1, C); pt_row: (n_pages,).  Returns
     (logits (1, C, V), pools); logits rows ≥ chunk_len are padding."""
     _check_attn_only(cfg)
-    x = params["embed"][tokens.long()]
+    x = _embed(params, tokens, tp)
     for (_, b, pi), lp in zip(_stack_index(cfg), _layers(cfg, params)):
         x, _ = apply_attn_paged_prefill(
             lp["attn"], cfg, x, pools=_layer_pools(pools, b, pi),
             pt_row=pt_row, chunk_start=chunk_start, chunk_len=chunk_len,
-            window=window, attn_fn=attn_fn)
-        x, _ = _ffn(cfg, lp, x)
-    return _logits(cfg, params, x), pools
+            window=window, attn_fn=attn_fn, reduce=_reduce(tp))
+        x, _ = _ffn(cfg, lp, x, tp)
+    return _logits(cfg, params, x, tp), pools
 
 
 def lm_serve_step_mixed(cfg: ModelConfig, params, pools, token, positions,
                         page_table, kv_len, chunk_tokens, pt_row,
                         chunk_start: int, chunk_len: int, *,
                         attn_fn: Callable, prefill_attn_fn: Callable,
-                        window: int = 0):
+                        window: int = 0, tp=None):
     """The mixed serving step: every live decode slot advances one token
     AND one prefill chunk of one slot runs, in one walk over the layers.
     Decode inputs are :func:`lm_decode_step_paged`'s (the engine masks
@@ -478,19 +629,20 @@ def lm_serve_step_mixed(cfg: ModelConfig, params, pools, token, positions,
     each call's capacity is its own.
     Returns (decode logits (B, 1, V), chunk logits (1, C, V), pools)."""
     _check_attn_only(cfg)
-    token = token.long()
-    xd = params["embed"][token]
-    xc = params["embed"][chunk_tokens.long()]
+    xd = _embed(params, token, tp)
+    xc = _embed(params, chunk_tokens, tp)
     pos2 = positions.reshape(token.shape[0], 1).long()
+    red = _reduce(tp)
     for (_, b, pi), lp in zip(_stack_index(cfg), _layers(cfg, params)):
         layer_pools = _layer_pools(pools, b, pi)
         xd, _ = apply_attn_paged(lp["attn"], cfg, xd, pos2, pools=layer_pools,
                                  page_table=page_table, kv_len=kv_len,
-                                 window=window, attn_fn=attn_fn)
+                                 window=window, attn_fn=attn_fn, reduce=red)
         xc, _ = apply_attn_paged_prefill(
             lp["attn"], cfg, xc, pools=layer_pools, pt_row=pt_row,
             chunk_start=chunk_start, chunk_len=chunk_len, window=window,
-            attn_fn=prefill_attn_fn)
-        xd, _ = _ffn(cfg, lp, xd)
-        xc, _ = _ffn(cfg, lp, xc)
-    return _logits(cfg, params, xd), _logits(cfg, params, xc), pools
+            attn_fn=prefill_attn_fn, reduce=red)
+        xd, _ = _ffn(cfg, lp, xd, tp)
+        xc, _ = _ffn(cfg, lp, xc, tp)
+    return (_logits(cfg, params, xd, tp), _logits(cfg, params, xc, tp),
+            pools)

@@ -1,7 +1,18 @@
 """Dense serving reference: prefill + batched greedy decode with KV caches,
 the counterpart of ``repro/serve/engine.py`` (``build_serve_step``,
-``grow_caches``, ``greedy_generate``).  The continuous-batching engine of
-:mod:`repro_torch.serve.scheduler` is held against this path.
+``grow_caches``, ``greedy_generate``, ``serve_param_specs``,
+``serve_cache_specs``, ``scale_specs_multipod``).  The
+continuous-batching engine of :mod:`repro_torch.serve.scheduler` is held
+against this path.
+
+Serving uses a single replica sharded tensor-parallel, as the
+reference's: ``serve_param_specs`` / ``serve_cache_specs`` give the
+:class:`~repro_torch.core.sharding.PartitionSpec` trees that
+:func:`repro_torch.core.sharding.shard_params` applies to a rank of a
+``(1, M)`` ``("data", "model")`` grid, and a model built on that grid
+(``build_model(cfg, mesh=grid)``) serves from the rank's blocks.  Its
+logits are gathered over the model axis, so every rank draws the same
+greedy tokens.
 """
 from __future__ import annotations
 
@@ -12,7 +23,8 @@ import torch.nn.functional as F
 
 from repro_torch.models.api import Model
 
-__all__ = ["build_serve_step", "grow_caches", "greedy_generate"]
+__all__ = ["build_serve_step", "grow_caches", "greedy_generate",
+           "serve_param_specs", "serve_cache_specs", "scale_specs_multipod"]
 
 
 def build_serve_step(model: Model) -> Callable:
@@ -26,6 +38,41 @@ def build_serve_step(model: Model) -> Callable:
         return nxt.to(torch.int32)[:, None], caches
 
     return serve_step
+
+
+def serve_param_specs(model: Model, *, fsdp: bool, multi_pod: bool):
+    """The tensor-parallel specs of the serving params:
+    ``model.param_specs()``.  ``fsdp=True`` (the reference's ZeRO-style 2-D
+    sharding of each weight's first unsharded dim over ``data``, gathered
+    on use) raises: it is queued in ROADMAP §1.  ``multi_pod`` names the
+    data axes ``("pod", "data")``; without fsdp no param spec names
+    them, so it changes nothing, as in the reference."""
+    if fsdp:
+        raise NotImplementedError(
+            "ZeRO-style serving (serve_param_specs(fsdp=True)) is a later "
+            "slice, queued in ROADMAP §1")
+    del multi_pod
+    return model.param_specs()
+
+
+def serve_cache_specs(model: Model, multi_pod: bool):
+    """The cache specs, every ``data`` entry as ``("pod", "data")`` with
+    ``multi_pod``."""
+    specs = model.cache_specs()
+    return scale_specs_multipod(specs) if multi_pod else specs
+
+
+def scale_specs_multipod(spec_tree):
+    """Map every ``"data"`` mesh-axis entry of a spec tree (dicts, tuples,
+    lists of :class:`~repro_torch.core.sharding.PartitionSpec`) to
+    ``("pod", "data")``."""
+    from repro_torch.core.sharding import PartitionSpec
+    if isinstance(spec_tree, PartitionSpec):
+        return PartitionSpec(*(("pod", "data") if e == "data" else e
+                               for e in spec_tree))
+    if isinstance(spec_tree, dict):
+        return {k: scale_specs_multipod(v) for k, v in spec_tree.items()}
+    return type(spec_tree)(scale_specs_multipod(v) for v in spec_tree)
 
 
 def grow_caches(model: Model, caches, batch_size: int, target_len: int):

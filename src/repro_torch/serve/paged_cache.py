@@ -18,11 +18,15 @@ Layout contract (as in the reference):
 The pools are torch tensors on the engine's device, shaped like the
 model's stacked cache tree, ``(n_blocks, num_pages, page_size, K, hd)`` per
 period position; the allocator is numpy, line for line the reference's.
+Under tensor parallelism a rank's pools hold its ``K / M`` KV heads
+(:func:`paged_pool_specs`: the heads over ``model``); the page gather is
+slot-local, so the pools need no collective, and every rank runs the same
+allocator on its own pools.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -30,7 +34,7 @@ import torch
 from repro_torch.configs.base import ModelConfig, block_period, layer_kinds
 
 __all__ = ["PagedCacheConfig", "PageAllocator", "init_paged_pools",
-           "paged_pool_shapes", "NULL_PAGE"]
+           "paged_pool_shapes", "paged_pool_specs", "NULL_PAGE"]
 
 NULL_PAGE = 0          # reserved physical page: write sink for idle slots
 _SUBLANE = 8           # token rows per page come in multiples of 8
@@ -76,27 +80,44 @@ class PagedCacheConfig:
         return -(-self.slot_context // self.page_size)
 
 
-def paged_pool_shapes(cfg: ModelConfig, pcfg: PagedCacheConfig
+def paged_pool_shapes(cfg: ModelConfig, pcfg: PagedCacheConfig,
+                      n_kv_heads: Optional[int] = None
                       ) -> Tuple[Tuple[Tuple[int, ...], torch.dtype], ...]:
     """(shape, dtype) of each period position's k and v pools, mirroring
-    the model's stacked cache tree.  Attention mixers only."""
+    the model's stacked cache tree, ``n_kv_heads`` KV heads a pool (a
+    tensor-parallel rank's; default the config's).  Attention mixers
+    only."""
     period = block_period(cfg)
     kinds = layer_kinds(cfg)[:period]
     n_blocks = cfg.n_layers // period
     if any(mixer != "attn" for mixer, _ in kinds):
         raise NotImplementedError("paged pools cover attention mixers only")
-    shape = (n_blocks, pcfg.num_pages, pcfg.page_size, cfg.n_kv_heads,
-             cfg.hd)
+    shape = (n_blocks, pcfg.num_pages, pcfg.page_size,
+             n_kv_heads or cfg.n_kv_heads, cfg.hd)
     return tuple((shape, getattr(torch, cfg.dtype)) for _ in kinds)
 
 
-def init_paged_pools(cfg: ModelConfig, pcfg: PagedCacheConfig, device
-                     ) -> Tuple[dict, ...]:
+def init_paged_pools(cfg: ModelConfig, pcfg: PagedCacheConfig, device,
+                     n_kv_heads: Optional[int] = None) -> Tuple[dict, ...]:
     """Zero-filled page pools on ``device``: a tuple over period positions
-    of ``{"k", "v"}``."""
+    of ``{"k", "v"}`` (``n_kv_heads``: see :func:`paged_pool_shapes`)."""
     return tuple({name: torch.zeros(shape, dtype=dt, device=device)
                   for name in ("k", "v")}
-                 for shape, dt in paged_pool_shapes(cfg, pcfg))
+                 for shape, dt in paged_pool_shapes(cfg, pcfg, n_kv_heads))
+
+
+def paged_pool_specs(cfg: ModelConfig):
+    """The reference's ``paged_pool_specs``: the pools' KV heads over
+    ``model``, pages unsplit (the page gather is slot-local, so the paged
+    decode step needs no collective for its pools), one ``{"k", "v"}``
+    a period position.  Other families than the dense raise
+    ``NotImplementedError``."""
+    from repro_torch.core.sharding import P
+    from repro_torch.models.transformer import lm_cache_specs
+    lm_cache_specs(cfg)            # the dense family only, as its caches
+    spec = {"k": P(None, None, None, "model", None),
+            "v": P(None, None, None, "model", None)}
+    return tuple(dict(spec) for _ in range(block_period(cfg)))
 
 
 class PageAllocator:

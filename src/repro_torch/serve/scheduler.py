@@ -183,6 +183,15 @@ class ContinuousBatchingEngine:
     ``device`` follows :func:`repro_torch.device.resolve_device`: ``None``
     means ``cuda`` and raises without a GPU; the CPU must be asked for.
     The page pools live there and are written in place.
+
+    A model built on a tensor-parallel grid (``build_model(cfg,
+    mesh=grid)``) is served with the rank's blocks of the params
+    (:func:`repro_torch.core.sharding.shard_params` or ``init_lm_rank``);
+    the pools hold the rank's ``K / M`` KV heads (the reference's
+    ``paged_pool_specs``).  Every rank runs this same host schedule and
+    allocator on its own pools, and the dispatches' logits are gathered
+    over the model axis, so every rank emits the same tokens; the ranks
+    must see the same requests at the same times (a closed batch).
     """
 
     def __init__(self, model: Model, params, pcfg: PagedCacheConfig, *,
@@ -212,7 +221,8 @@ class ContinuousBatchingEngine:
         self.device = resolve_device(device)
         self.model, self.pcfg = model, pcfg
         self.params = {k: v.to(self.device) for k, v in params.items()}
-        self.pools = init_paged_pools(model.cfg, pcfg, self.device)
+        self.pools = init_paged_pools(model.cfg, pcfg, self.device,
+                                      model.kv_heads)
         self.prefill_chunk = prefill_chunk
         self.max_step_tokens = max_step_tokens
         self.compile_count = 0

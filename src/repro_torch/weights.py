@@ -25,7 +25,11 @@ as ``|V2`` bits, which is what the JAX package's npz files hold.
 :func:`params_to_bus` packs the dict straight into an A-agent bus.
 :func:`expert_block` cuts the MoE expert leaves of a parameter dict or
 numpy tree to one model rank's block of experts (the expert-parallel
-layer, :func:`repro_torch.models.moe.apply_moe_shard_map`).
+layer, :func:`repro_torch.models.moe.apply_moe_shard_map`);
+:func:`tp_block` cuts every leaf to a tensor-parallel rank's block under
+partition specs (:func:`repro_torch.core.sharding.shard_params`' numpy
+form), and ``params_from_npz(..., block=(specs, index, count))`` so cuts
+each entry of a file on the host before it reaches the device.
 """
 from __future__ import annotations
 
@@ -39,9 +43,10 @@ from repro_torch.core import bus as parambus
 from repro_torch.models.moe import expert_axis
 
 __all__ = ["array_to_tensor", "tensor_to_array", "params_from_tree",
-           "params_from_npz", "params_digest", "params_to_bus",
+           "params_from_npz", "params_digest", "npz_params_digest",
+           "params_to_bus",
            "train_state_from_arrays", "rank_slice",
-           "rank_state_from_arrays", "expert_block"]
+           "rank_state_from_arrays", "expert_block", "tp_block"]
 
 _SEP = "|"
 
@@ -84,25 +89,65 @@ def params_from_tree(tree: Any, device="cpu") -> Dict[str, torch.Tensor]:
     return {p: array_to_tensor(a, device) for p, a in flat.items()}
 
 
-def params_from_npz(path: str, device="cpu") -> Dict[str, torch.Tensor]:
-    """Parameters from an npz of ``repro.train.checkpoint.save``: the
-    ``params|`` entries of a saved state, else every entry."""
-    with np.load(path) as data:
+class _NpzParams(Mapping):
+    """The parameters of an open npz by path, each entry read when it is
+    indexed."""
+
+    def __init__(self, data):
         keys = list(data.keys())
         prefix = "params" + _SEP
         if any(k.startswith(prefix) for k in keys):
-            return {k[len(prefix):]: array_to_tensor(data[k], device)
-                    for k in keys if k.startswith(prefix)}
-        return {k: array_to_tensor(data[k], device) for k in keys}
+            self.names = {k[len(prefix):]: k for k in keys
+                          if k.startswith(prefix)}
+        else:
+            self.names = {k: k for k in keys}
+        self.data = data
+
+    def __getitem__(self, name):
+        return self.data[self.names[name]]
+
+    def __iter__(self):
+        return iter(self.names)
+
+    def __len__(self):
+        return len(self.names)
 
 
-def params_digest(params: Mapping[str, torch.Tensor]) -> str:
+def npz_params_digest(path: str) -> str:
+    """:func:`params_digest` of an npz's parameters
+    (:func:`params_from_npz`'s), read one entry at a time."""
+    with np.load(path) as data:
+        return params_digest(_NpzParams(data))
+
+
+def params_from_npz(path: str, device="cpu", block=None
+                    ) -> Dict[str, torch.Tensor]:
+    """Parameters from an npz of ``repro.train.checkpoint.save``: the
+    ``params|`` entries of a saved state, else every entry.  ``block =
+    (specs, index, count)`` keeps model rank ``index`` of ``count``'s
+    block of each entry (:func:`tp_block`), cut on the host one entry at
+    a time, so a rank never holds the whole file."""
+    with np.load(path) as data:
+        entries = _NpzParams(data)
+        out = {}
+        for name in entries:
+            arr = entries[name]
+            if block is not None:
+                arr = tp_block({name: arr}, *block)[name]
+            out[name] = array_to_tensor(arr, device)
+        return out
+
+
+def params_digest(params: Mapping[str, Any]) -> str:
     """SHA-256 of a parameter dict: each path (sorted), dtype, shape and
     the leaf's bytes.  Equal digests mean equal bits, wherever the tensors
-    lie (they are read on the host)."""
+    lie (they are read on the host; numpy leaves as an npz holds them, bf16
+    as ``|V2``).  Leaves are read one at a time."""
     h = hashlib.sha256()
     for path in sorted(params):
-        arr = tensor_to_array(params[path])
+        leaf = params[path]
+        arr = (tensor_to_array(leaf) if isinstance(leaf, torch.Tensor)
+               else np.asarray(leaf))
         h.update(f"{path}|{arr.dtype.str}|{arr.shape}\n".encode())
         h.update(np.ascontiguousarray(arr).tobytes())
     return h.hexdigest()
@@ -214,3 +259,18 @@ def expert_block(params, index: int, count: int):
             leaf = leaf[tuple(sl)]
         out[path] = leaf
     return out
+
+
+def tp_block(params, specs, index: int, count: int):
+    """``params`` with every leaf cut to model rank ``index`` of
+    ``count``'s block under ``specs`` (``{path: PartitionSpec}``, e.g.
+    :func:`repro_torch.models.transformer.lm_param_specs`):
+    :func:`repro_torch.core.sharding.shard_params` at the coordinates
+    ``{"model": (index, count), "data": (0, 1)}``.  ``params`` is a
+    ``{path: tensor or array}`` dict or a nested numpy tree, which comes
+    back as a flat ``{path: array}`` dict."""
+    from repro_torch.core.sharding import shard_params
+    flat: Dict[str, Any] = {}
+    _walk(params, "", flat)
+    return shard_params(flat, specs, {"model": (index, count),
+                                      "data": (0, 1)})

@@ -312,6 +312,10 @@ DECODE_CASES = [
     dict(B=16, K=8, G=4, hd=128, page_size=16,
          kv_len=[1024, 0, 1, 17, 255, 256, 511, 640, 700, 129, 33, 1000,
                  64, 900, 15, 384]),
+    # a tensor-parallel rank of qwen3_14b over 4 ranks (K 2, G 5: f32 in
+    # the 8-row register bucket, bf16 5 of an m16 tile's rows), 8 slots
+    dict(B=8, K=2, G=5, hd=128, page_size=16,
+         kv_len=[1024, 0, 256, 700, 1, 513, 129, 900]),
 ]
 
 
@@ -417,7 +421,12 @@ PREFILL_CASES = [(w, s, C, n, 2, 2, 8, 4, 6, 16) for w, s, C, n in [
     (w, s, 128, n, K, G, 128, 16, 64, 80)
     for K, G in ((16, 1), (4, 16), (8, 4))
     for w, s, n in ((0, 0, 128), (0, 640, 128), (0, 640, 77),
-                    (256, 640, 128))]
+                    (256, 640, 128))] + [
+    # a tensor-parallel rank of qwen3_14b over 4 ranks: K 2, G 5 (640
+    # query rows a KV head), few blocks at a short history
+    (w, s, 128, n, 2, 5, 128, 16, 64, 80)
+    for w, s, n in ((0, 0, 128), (0, 128, 128), (0, 640, 128),
+                    (0, 640, 77), (0, 896, 128), (256, 640, 128))]
 # the edges of the bf16 kernel's tiles and splits: 100 earlier rows (not
 # a multiple of the 64-key tile or of a split), a 1-token chunk after 700
 # rows, a 256-row ring with the chunk past the window, a 96-row ring at
@@ -2438,3 +2447,146 @@ def test_cuda_moe_shard_map_ranks(cuda, tmp_path, ranks):
             assert r[f"{tag}_sums"] == [["all-reduce", [512, 2048], ranks]]
         y = torch.load(tmp_path / f"bf16_rank{r['rank']}.pt")
         assert torch.equal(y.view(torch.int16), y0.view(torch.int16))
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel serving across ranks sharing the card
+# (build_model(cfg, mesh=grid): the reference's serve_param_specs layout;
+# the sums over the model axis staged through the host over gloo)
+# ---------------------------------------------------------------------------
+
+# a small qwen3_14b variant whose rank, at 2 ranks, holds qwen3_14b's
+# per-rank heads at 4: K 2, G 5, hd 128
+TP_CFG = dict(n_layers=2, d_model=512, n_heads=20, n_kv_heads=4,
+              head_dim=128, d_ff=1024, vocab_size=1024)
+TP_RANKS = 2
+
+
+def _tp_serve(dtype, rank=None, world=1, mesh=None):
+    """The paged engine (the kernels) on a closed trace of 4 requests:
+    tokens and launch counts, whole in one process or the rank's block
+    of ``init_lm_rank`` on ``mesh``."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import init_lm_rank
+    from repro_torch.serve import (ContinuousBatchingEngine,
+                                   PagedCacheConfig, poisson_load)
+    cfg = dataclasses.replace(get_config("qwen3_14b"), **TP_CFG,
+                              dtype=dtype)
+    model = build_model(cfg, mesh=mesh)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = (model.init(gen) if mesh is None
+              else init_lm_rank(cfg, gen, rank, world))
+    pcfg = PagedCacheConfig(page_size=16, num_pages=1 + 4 * 256 // 16,
+                            max_slots=4, max_context=256)
+    eng = ContinuousBatchingEngine(model, params, pcfg, attn_impl="kernel",
+                                   prefill_chunk=64, max_step_tokens=128,
+                                   device="cuda")
+    reqs = poisson_load(4, rate=1000.0, vocab=cfg.vocab_size,
+                        prompt_buckets=(40, 150), new_token_buckets=(8, 16),
+                        prompt_dist="exact", seed=5)
+    ops.reset_launch_counts()
+    metrics = eng.run([dataclasses.replace(r, arrival=0.0) for r in reqs])
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    toks = {str(r): t.tolist() for r, t in sorted(eng.completed.items())}
+    return {"tokens": toks, "counts": counts, "steps": metrics["steps"],
+            "mixed_steps": metrics["mixed_steps"],
+            "local_heads": params["blocks|0|attn|wk"].shape[-1] // 128}
+
+
+def _tp_rank(rank, world, d):
+    import json
+    from pathlib import Path
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_distributed, make_moe_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    init_distributed("cuda", init_method=f"file://{d}/store", rank=rank,
+                     world_size=world, timeout_s=300)
+    mesh = make_moe_mesh(1, world)
+    rec = {"shared": mesh.shared}
+    for dtype in ("float32", "bfloat16"):
+        rec[dtype] = _tp_serve(dtype, rank, world, mesh)
+    Path(d, f"rank{rank}.json").write_text(json.dumps(rec))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+@pytest.mark.requires_cuda
+def test_cuda_tp_serve_ranks(cuda, tmp_path):
+    """A small qwen3_14b variant served by the paged engine on 2 ranks
+    sharing the card, each holding K 2, G 5 heads of hd 128 (qwen3_14b's
+    rank at 4): in f32 every rank's tokens equal the one-process engine's;
+    in bf16 every rank's tokens equal rank 0's; in both the kernels'
+    launches equal the one-process engine's (L a dispatch, L a mixed one)
+    and no plain twin runs."""
+    import json
+    import torch.multiprocessing as mp
+    torch.backends.cuda.matmul.allow_tf32 = False
+    one = {dt: _tp_serve(dt) for dt in ("float32", "bfloat16")}
+    mp.spawn(_tp_rank, args=(TP_RANKS, str(tmp_path)), nprocs=TP_RANKS,
+             join=True)
+    recs = [json.loads((tmp_path / f"rank{r}.json").read_text())
+            for r in range(TP_RANKS)]
+    L = TP_CFG["n_layers"]
+    for r in recs:
+        assert r["shared"]
+        assert r["float32"]["tokens"] == one["float32"]["tokens"]
+        assert r["bfloat16"]["tokens"] == recs[0]["bfloat16"]["tokens"]
+        for dt in ("float32", "bfloat16"):
+            got = r[dt]
+            assert got["counts"] == one[dt]["counts"]
+            assert got["counts"] == {
+                "paged_attention": L * got["steps"],
+                "paged_prefill": L * got["mixed_steps"]}
+            assert got["local_heads"] == 2
+
+
+def _cli_metrics(stdout):
+    import json
+    line = next(ln for ln in stdout.splitlines()
+                if ln.startswith("serve metrics: "))
+    return json.loads(line[len("serve metrics: "):])
+
+
+@pytest.mark.requires_cuda
+def test_cuda_serve_cli_tp_under_torchrun(cuda, tmp_path):
+    """The serve CLI's tensor-parallel path on the card, as a user runs it:
+    ``torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.serve
+    --continuous-batching --attn-impl kernel --ckpt ...`` on the smoke
+    ``qwen3_14b`` serves on the ``(1, 2)`` grid, each rank cutting its
+    block of the consensus file on load; rank 0 alone prints the summary,
+    with the file's digest and every rank's token digest equal to the
+    one-process CLI's on the card."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    from repro_torch.weights import tensor_to_array
+    root = Path(__file__).resolve().parent.parent
+    params = build_model(get_smoke_config("qwen3_14b")).init(
+        torch.Generator().manual_seed(3))
+    np.savez(tmp_path / "consensus.npz",
+             **{k: tensor_to_array(v) for k, v in params.items()})
+    cli = ["--arch", "qwen3_14b", "--smoke", "--continuous-batching",
+           "--attn-impl", "kernel", "--prefill-chunk", "8",
+           "--max-step-tokens", "16", "--prompt-dist", "exact",
+           "--requests", "4", "--ckpt", str(tmp_path / "consensus.npz")]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    one = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                          *cli], env=env, cwd=root, capture_output=True,
+                         text=True, timeout=600)
+    assert one.returncode == 0, one.stderr[-3000:]
+    ranks = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2", "-m", "repro_torch.launch.serve", *cli],
+        env=env, cwd=root, capture_output=True, text=True, timeout=600)
+    assert ranks.returncode == 0, ranks.stderr[-3000:]
+    assert "tp grid=(1, 2) heads/rank=2/2" in ranks.stdout
+    assert ranks.stdout.count("serve metrics: ") == 1
+    want, got = _cli_metrics(one.stdout), _cli_metrics(ranks.stdout)
+    assert got["rank_token_digests"] == [want["token_digest"]] * 2
+    assert got["params_sha256"] == want["params_sha256"]
+    assert got["requests"] == want["requests"] == 4
