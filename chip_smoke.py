@@ -196,12 +196,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    after every step — the replays and both comparisons at full width
    with the depth cut to 8 layers, as 4g and 13 (the CLI run at full
    depth).
-15. MoE serving: deepseek_moe_16b at full width and depth (28 layers, 64
-   experts of width 1408, top-6, 2 shared experts, vocab 102400, bf16,
-   16.88 B parameters from seed 0): the serve CLI at phase 8's trace
+15. MoE serving: deepseek_moe_16b at full width (64 experts of width
+   1408, top-6, 2 shared experts, vocab 102400, bf16, random weights from
+   seed 0), its depth cut 28 → ``MOE_SERVE_LAYERS`` (16; 9.82 B
+   parameters) for the script's time (PERF.md §4;
+   ``tools/tp_phase.py --arch deepseek_moe_16b`` serves all 28 in one
+   process as its reference): the serve CLI at phase 8's trace
    sizes, then the engine at context 1024 (16 slots, 32 requests, prompts
    256–768, chunks of 128), counts reset just before and read just after
-   each (28 paged-attention launches a dispatch, 28 paged-prefill
+   each (16 paged-attention launches a dispatch, 16 paged-prefill
    launches a mixed dispatch); init time and its peak, one prefill's
    logits finite, tokens/s, TTFT and per-token p50/p99, peak allocated
    and reserved; one mixed and one decode-only dispatch profiled (busy,
@@ -376,30 +379,37 @@ Phases, in order; any failure raises and the script exits non-zero:
    and ±Inf; ring, exp, late and masked rounds), the first three timed
    one rank at a time on the ring round beside the plain version, the
    bound and (bf16, f32 blocks) one ``torch.matmul``.
-29. the expert-parallel MoE across ranks, in phase 25's ranks after 28:
+29. the MoE across ranks, in phase 25's ranks after 28:
    ``deepseek_moe_16b`` at full width on a ``(1, 4)`` ``("data",
-   "model")`` grid (``launch/mesh.py::make_moe_mesh``), each rank its
-   block of 16 of the 64 experts a layer from the rank-local init
-   (``models/transformer.py::init_lm_rank``, never the whole set), the
-   grid registered (``set_moe_mesh(mesh, "shard_map")``), served by the
-   continuous engine with the paged kernels, every request arriving at
-   once: (a) f32 with the depth cut 28 → 2, 4 requests (prompts 128–256,
-   8 new tokens) at capacity 8.0 and the config's 1.25, each rank's
-   tokens equal to the one-process engine's (its references made before
-   the spawn); (b) bf16 at ``EP_B_LAYERS`` (4 of 28) layers, 8 requests at
-   context 1024 (prompts 256–512, chunks of 128, 16–32 new tokens), every
-   rank's tokens bit-equal to rank 0's.  Gates in both: each rank's paged
-   kernels launched once a layer a dispatch (the prefill once a layer a
-   mixed one), no other kernel, one sum over the model axis a MoE layer
-   call (``core/comm.py::psum``, staged through the host over gloo) and no
-   other collective.  Reported: each rank's init time and peak, tokens/s,
-   one mixed and one decode-only dispatch with the sums' time apart, and
-   the share of (b)'s tokens equal to the one-process engine's (the same
-   cut model, made before the spawn) on the same requests and the first
+   "model")`` grid (``launch/mesh.py::make_moe_mesh``), each rank 16 of
+   the 64 experts a layer from the rank-local init
+   (``models/transformer.py::init_lm_rank``, never the whole set), served
+   by the continuous engine with the paged kernels, every request
+   arriving at once: (a) the expert-parallel layout alone (every other
+   leaf whole, the grid registered by ``set_moe_mesh(mesh,
+   "shard_map")``), f32 with the depth cut 28 → 2, 4 requests (prompts
+   128–256, 8 new tokens) at capacity 8.0 and the config's 1.25, each
+   rank's tokens equal to the one-process engine's (its references made
+   before the spawn), one sum over the model axis a MoE layer call and
+   no other collective; (b) the reference's serving layout, EP + TP
+   (``lm_param_specs`` on the grid, ``build_model(cfg, mesh=grid)``: 4 of
+   16 heads, 704 of the 2816 shared-expert columns and 25600 of the
+   102400 vocabulary rows a rank besides its experts; attention at K 4,
+   G 1), bf16 at ``EP_B_LAYERS`` (4 of 28) layers, 8 requests at context
+   1024 (prompts 256–512, chunks of 128, 16–32 new tokens), every rank's
+   tokens bit-equal to rank 0's, 2L + 1 sums and one logits gather a
+   forward and no other collective, no plain twin.  Gates in both: each
+   rank's paged kernels launched once a layer a dispatch (the prefill
+   once a layer a mixed one), no other kernel.  Reported: each rank's
+   init time, peak and parameter GB, tokens/s against one process, one
+   mixed and one decode-only dispatch with the sums' time apart, and the
+   share of (b)'s tokens equal to the one-process engine's (the same cut
+   model, made before the spawn) on the same requests and the first
    divergence.
 30. the tree path with a block of agents a rank, in phase 25's ranks
-   after 29: ranks 0–1 × two agents of ``smollm_360m`` at full width and
-   depth (ranks 2–3 outside the mesh), ``packed_bus=False``, fused
+   after 29: ranks 0–1 × two agents of ``smollm_360m`` at full width,
+   the depth cut to ``GRAPH_LAYERS`` (4 of 32; PERF.md §4) (ranks 2–3
+   outside the mesh), ``packed_bus=False``, fused
    kernels, eager, from seed 0 — (a) 3 EDM steps on ring(4) with agent 3
    down at step 2 (a masked round), (b) 2 DSGT steps on ``round_robin``
    over ``exp`` (two mixes a step, y and x).  Every round goes through
@@ -438,8 +448,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    one decode-only dispatch with the sums' time apart, the share of
    (b)'s tokens equal to the one-process engine's and the first
    divergence.
+32. tensor-parallel SSM serving across ranks, in phase 25's ranks after
+   31: ``falcon_mamba_7b`` at full width (d 4096, ``d_inner`` 8192) on
+   the ``(1, 4)`` grid, a rank 2048 channels a layer (``in_proj``'s paired
+   x and z columns) and 16256 of the 65024 vocabulary rows from the
+   rank-local init, serving the fixed batch (``greedy_generate``'s steps)
+   of 4 prompts of 512 and 16 new tokens: (a) f32 at 2 of 64 layers,
+   every rank's tokens equal to one process's; (b) bf16 at
+   ``SSM_TP_BF16_LAYERS`` (4) layers, every rank's tokens bit-equal to
+   rank 0's.  Gates in both: 2L + 1 sums over the model axis (the
+   embedding, each layer's ``x_proj`` and ``out_proj``) and one logits
+   gather a forward, no other collective, no kernel launch (the scan is
+   plain PyTorch, as the reference's).  The references run in the parent
+   once the ranks have exited.  Reported: prefill ms, ms a token, sums a
+   forward, peak and parameter GB a rank, against one process; the share
+   of (b)'s tokens equal to one process's.
 
-Phases run in the order 1–3, 3w, 3r, 3m, 3f, 25–31 (26–31 in 25's
+Phases run in the order 1–3, 3w, 3r, 3m, 3f, 25–32 (26–32 in 25's
 ranks),
 4–6, 4r, 6r, 4g, 4w–6w, 12, 13, 14, 4t–6t, 7–11, 15–24; a ``[time]``
 line before each gives the seconds since the start and those of the
@@ -487,11 +512,15 @@ SERVE_ARGS = ["--arch", ARCH, "--continuous-batching", "--prefill-chunk",
               "--rate", "50", "--attn-impl", "kernel", "--device", "cuda"]
 PAGE, SLOTS, CTX, CHUNK, STEP_TOKENS = 16, 16, 1024, 128, 256
 
-# the MoE family: deepseek_moe_16b served at full width and depth (phase
-# 15), trained at full width with the depth cut to one layer on two agents
-# (phase 16)
+# the MoE family: deepseek_moe_16b served at full width, its depth cut 28 →
+# MOE_SERVE_LAYERS for the script's time (phase 15: PERF.md §4; the whole
+# 28 layers serve in one process in tools/tp_phase.py --arch
+# deepseek_moe_16b's reference), trained at full width with the depth cut
+# to one layer on two agents (phase 16)
 MOE_ARCH, MOE_TRAIN_LAYERS, MOE_AGENTS = "deepseek_moe_16b", 1, 2
-MOE_SERVE_ARGS = [MOE_ARCH if a == ARCH else a for a in SERVE_ARGS]
+MOE_SERVE_LAYERS = 16
+MOE_SERVE_ARGS = [MOE_ARCH if a == ARCH else a for a in SERVE_ARGS] + [
+    "--n-layers", str(MOE_SERVE_LAYERS)]
 
 # the SSM family: falcon_mamba_7b served at full width and depth (phase
 # 17: the serve CLI's fixed batch at phase 8's sizes — 8 requests, its
@@ -2484,12 +2513,17 @@ PREFILL_TIMED_G4 = (0, 640, CHUNK, CHUNK, 8, 4, 128, PAGE, CTX // PAGE, 80)
 # (timed: its longest-context chunk), and the split plan's few blocks at
 # a short history
 PREFILL_TIMED_TP = (0, 640, CHUNK, CHUNK, 2, 5, 128, PAGE, CTX // PAGE, 80)
+# a deepseek_moe_16b rank in the EP + TP layout over 4 ranks (phase 29
+# (b)): K 4, G 1 (timed: its longest-context chunk)
+PREFILL_TIMED_EP_TP = (0, 640, CHUNK, CHUNK, 4, 1, 128, PAGE, CTX // PAGE,
+                       80)
 PREFILL_CASES += [(w, s, CHUNK, n, K, G, 128, PAGE, CTX // PAGE, 80)
                   for K, G in ((16, 1), (4, 16), (8, 4))
                   for w, s, n in ((0, 0, 128), (0, 640, 77),
                                   (256, 640, 128))] + [
     (0, 640, CHUNK, CHUNK, 4, 16, 128, PAGE, CTX // PAGE, 80)] + [
-    (w, s, CHUNK, n, 2, 5, 128, PAGE, CTX // PAGE, 80)
+    (w, s, CHUNK, n, K, G, 128, PAGE, CTX // PAGE, 80)
+    for K, G in ((2, 5), (4, 1))
     for w, s, n in ((0, 0, 128), (0, 128, 128), (0, 640, 77),
                     (256, 640, 128))]
 DECODE_CASES = [
@@ -2520,27 +2554,35 @@ DECODE_CASES = [
     # 31 serves them): phase 31's 8 slots, contexts up to 1024, 1 idle
     dict(name="qwen3_14b_tp", B=8, K=2, G=5, hd=128, page_size=PAGE,
          kv_len=[1024, 0, 256, 700, 1, 513, 129, 900]),
+    # a deepseek_moe_16b rank in the EP + TP layout over 4 ranks (K 4, G
+    # 1; phase 29 (b) serves them): its 8 slots, contexts up to 1024
+    dict(name="deepseek_moe_16b_tp", B=8, K=4, G=1, hd=128,
+         page_size=PAGE, kv_len=[1024, 0, 256, 700, 1, 513, 129, 900]),
 ]
 # timed in bf16: smollm_360m's heads (phase 8), deepseek_moe_16b's (phase
-# 15), pixtral_12b's (phase 19) and a qwen3_14b TP rank's (phase 31)
+# 15), pixtral_12b's (phase 19), a qwen3_14b TP rank's (phase 31) and a
+# deepseek_moe_16b EP + TP rank's (phase 29 (b))
 DECODE_TIMED = {"smollm_360m": "paged_attention",
                 "deepseek_moe_16b": "paged_attention_hd128",
                 "pixtral_12b": "paged_attention_g4",
-                "qwen3_14b_tp": "paged_attention_tp"}
+                "qwen3_14b_tp": "paged_attention_tp",
+                "deepseek_moe_16b_tp": "paged_attention_ep_tp"}
 
 
 def serving_kernels():
     """Phase 7: every case in f32 and bf16; the full-width cases of
     smollm_360m (hd 64), deepseek_moe_16b (hd 128, G 1), pixtral_12b (hd
-    128, G 4) and a qwen3_14b tensor-parallel rank (hd 128, K 2, G 5)
-    timed in bf16 (the serving dtype)."""
+    128, G 4), a qwen3_14b tensor-parallel rank (hd 128, K 2, G 5) and a
+    deepseek_moe_16b EP + TP rank (hd 128, K 4, G 1) timed in bf16 (the
+    serving dtype)."""
     import torch
     recs = {"paged_attention": [], "paged_prefill": []}
     timed = {}
     prefill_timed = {PREFILL_TIMED: "paged_prefill",
                      PREFILL_TIMED_HD128: "paged_prefill_hd128",
                      PREFILL_TIMED_G4: "paged_prefill_g4",
-                     PREFILL_TIMED_TP: "paged_prefill_tp"}
+                     PREFILL_TIMED_TP: "paged_prefill_tp",
+                     PREFILL_TIMED_EP_TP: "paged_prefill_ep_tp"}
     for dtype in (torch.float32, torch.bfloat16):
         bf16 = dtype == torch.bfloat16
         for case in DECODE_CASES:
@@ -3220,7 +3262,7 @@ def handoff_phase(n_layers: int):
 
 
 # ---------------------------------------------------------------------------
-# phase 15: deepseek_moe_16b served at full width and depth
+# phase 15: deepseek_moe_16b served at full width, its depth cut
 # ---------------------------------------------------------------------------
 
 def moe_serve_exactness():
@@ -3275,17 +3317,19 @@ def moe_serve_exactness():
 
 
 def moe_serve_phase():
-    """Phase 15: deepseek_moe_16b at full width and depth through
-    :func:`engine_serve_phase` (28 paged-attention launches a dispatch,
-    28 paged-prefill launches a mixed dispatch), then the smoke config's
-    exactness."""
-    rec = engine_serve_phase(MOE_ARCH, MOE_SERVE_ARGS, "MoE")
+    """Phase 15: deepseek_moe_16b at full width and ``MOE_SERVE_LAYERS``
+    of its 28 layers through :func:`engine_serve_phase` (16
+    paged-attention launches a dispatch, 16 paged-prefill launches a
+    mixed dispatch), then the smoke config's exactness."""
+    rec = engine_serve_phase(MOE_ARCH, MOE_SERVE_ARGS, "MoE",
+                             MOE_SERVE_LAYERS)
     rec["smoke"] = moe_serve_exactness()
     return rec
 
 
-def engine_serve_phase(arch: str, serve_args, tag: str):
-    """``arch`` at full width and depth in bf16, random weights from seed
+def engine_serve_phase(arch: str, serve_args, tag: str, n_layers: int = 0):
+    """``arch`` at full width and depth (or ``n_layers``, as
+    ``serve_args``' ``--n-layers``) in bf16, random weights from seed
     0: the serve CLI's continuous engine at the reference CLI's trace
     sizes, then the engine at context 1024 (16 slots, 32 requests, prompts
     256–768, chunks of 128), counts reset just before and read just after
@@ -3301,8 +3345,10 @@ def engine_serve_phase(arch: str, serve_args, tag: str):
     from repro_torch.serve import (ContinuousBatchingEngine,
                                    PagedCacheConfig, poisson_load)
     cfg = get_config(arch)
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     n_layers = cfg.n_layers
-    rec = {}
+    rec = {"n_layers": n_layers}
     free()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
@@ -4253,8 +4299,10 @@ def cut_model():
 # outside the mesh), the rank's leaves of both agents packed into one (2,
 # rows, 128) f32 payload of the peer table: (a) EDM on ring(4) with agent 3
 # down at step 2 (BLOCK_CHURN: a masked round), (b) DSGT on round_robin over
-# exp (both offsets through the table).  A run: its RunConfig over the main
-# cell's, its steps, its churn plan
+# exp (both offsets through the table).  The model at full width, its depth
+# cut to GRAPH_LAYERS (cut_model) for the script's time, as phase 27's
+# (PERF.md §4).  A run: its RunConfig over the main cell's, its steps, its
+# churn plan
 TREE_BLOCK_B = 2
 TREE_BLOCK_RUNS = {
     "edm": (dict(packed_bus=False), 3, BLOCK_CHURN),
@@ -4749,16 +4797,21 @@ def wire_ranks(rank, world, model, batches, refs, mesh, rec):
     rec["p28_s"] = time.time() - t28
 
 
-# phase 29: deepseek_moe_16b expert-parallel over phase 25's four ranks
-# (models/moe.py::apply_moe_shard_map on a (1, 4) ("data", "model") grid:
-# 16 of the 64 experts a layer a rank, one sum over the model axis a MoE
-# layer call), served by the continuous engine with the paged kernels.
-# Every request arrives at once, so that every rank — and the one-process
-# engine it is held to — takes the same admissions.  (a) f32 with the
-# depth cut 28 → 2, 4 requests at capacity 8.0 (dropless) and the
-# config's 1.25, against the one-process engine's tokens; (b) bf16 at full
-# width, 8 requests at context 1024, its depth cut 28 → 4 (the script's
-# time, for phase 31: PERF.md §4)
+# phase 29: deepseek_moe_16b over phase 25's four ranks on a (1, 4)
+# ("data", "model") grid, 16 of the 64 experts a layer a rank
+# (models/moe.py::apply_moe_shard_map), served by the continuous engine
+# with the paged kernels.  Every request arrives at once, so that every
+# rank — and the one-process engine it is held to — takes the same
+# admissions.  (a) the expert-parallel layout alone (every other leaf
+# whole: set_moe_mesh(mesh, "shard_map"), one sum a MoE layer call), f32
+# with the depth cut 28 → 2, 4 requests at capacity 8.0 (dropless) and
+# the config's 1.25, against the one-process engine's tokens; (b) the
+# reference's serving layout (EP + TP: lm_param_specs on the grid,
+# build_model(cfg, mesh=grid) — attention 4 of 16 heads a rank, the
+# shared experts' columns split, the vocabulary split; 2L + 1 sums a
+# forward), bf16 at full width, 8 requests at context 1024, its depth cut
+# 28 → 4 (the script's time: PERF.md §4); tools/tp_phase.py --arch
+# deepseek_moe_16b runs (b) at all 28 layers
 EpServe = collections.namedtuple("EpServe", "n prompts new slots ctx seed")
 EP_F32_LAYERS, EP_F32_CFS = 2, (8.0, 1.25)
 EP_B_LAYERS = 4
@@ -4793,9 +4846,9 @@ def ep_f32_config(cf: float):
                                dtype="float32", capacity_factor=cf)
 
 
-def ep_b_config():
+def ep_b_config(n_layers: int = EP_B_LAYERS):
     from repro_torch.configs import get_config
-    return dataclasses.replace(get_config(MOE_ARCH), n_layers=EP_B_LAYERS)
+    return dataclasses.replace(get_config(MOE_ARCH), n_layers=n_layers)
 
 
 def ep_tokens(eng) -> dict:
@@ -4819,19 +4872,25 @@ def ep_references() -> dict:
         out[str(cf)] = ep_tokens(eng)
         del eng, params, model
         free()
-    model = build_model(ep_b_config())
-    params = model.init(torch.Generator(device="cuda").manual_seed(0))
-    eng = ep_engine(model, params, EP_B)
-    vocab = model.cfg.vocab_size
-    eng.run(ep_requests(EP_B._replace(n=1, new=(2,)), vocab))  # warm-up
-    eng.reset()
-    t0 = time.perf_counter()
-    metrics = eng.run(ep_requests(EP_B, vocab))
-    out["b"] = {"tokens": ep_tokens(eng), "metrics": metrics,
-                "s": time.perf_counter() - t0}
-    del eng, params, model
-    free()
+    out["b"] = ep_b_reference(EP_B_LAYERS)
     return out
+
+
+def ep_b_reference(n_layers: int) -> dict:
+    """Phase 29 (b)'s one-process reference: the whole bf16 model at
+    ``n_layers`` (``model.init`` from seed 0) through the engine on
+    :data:`EP_B`'s requests, after a one-request warm-up
+    (:func:`tp_serve`); ``s`` is the whole reference's seconds, init
+    included."""
+    import torch
+    from repro_torch.models import build_model
+    t0 = time.perf_counter()
+    model = build_model(ep_b_config(n_layers))
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    run = tp_serve(model, params, greedy=False, spec=EP_B)
+    del run["eng"], params, model
+    free()
+    return dict(run["engine"], s=time.perf_counter() - t0)
 
 
 def ep_run(eng, reqs):
@@ -4899,17 +4958,18 @@ def ep_dispatches(eng, vocab: int, slots: int = EP_B.slots,
 
 
 def ep_ranks(rank, world, refs, rec):
-    """Phase 29 on one rank (after 28): the rank's block of experts from
-    the rank-local init (:func:`init_lm_rank`, never the whole set), the
-    grid registered, then (a) and (b) through the engine; each run's
-    tokens, launches, sums and metrics into ``rec``, (a)'s tokens against
-    the one-process engine's (``refs``)."""
+    """Phase 29 on one rank (after 28): (a) the rank's block of experts
+    from the rank-local init (:func:`init_lm_rank` under the expert-only
+    layout, never the whole set), the grid registered, through the
+    engine, its tokens against the one-process engine's (``refs``); then
+    (b) (:func:`ep_b_ranks`).  Each run's tokens, launches, collectives
+    and metrics into ``rec``."""
     import torch
     import torch.distributed as dist
-    from repro_torch.configs import get_config
     from repro_torch.launch.mesh import make_moe_mesh
     from repro_torch.models import build_model, moe
-    from repro_torch.models.transformer import init_lm_rank
+    from repro_torch.models.transformer import (expert_param_specs,
+                                                init_lm_rank)
     t29 = time.time()
     free()
     rec["card_free_gib_29"] = torch.cuda.mem_get_info()[0] / 2**30
@@ -4919,7 +4979,8 @@ def ep_ranks(rank, world, refs, rec):
         for cf in EP_F32_CFS:
             model = build_model(ep_f32_config(cf))
             params = init_lm_rank(model.cfg, torch.Generator(
-                device="cuda").manual_seed(0), rank, world)
+                device="cuda").manual_seed(0), rank, world,
+                specs=expert_param_specs(model.meta()))
             eng = ep_engine(model, params, EP_A)
             metrics, counts, sums, other = ep_run(
                 eng, ep_requests(EP_A, model.cfg.vocab_size))
@@ -4930,39 +4991,53 @@ def ep_ranks(rank, world, refs, rec):
                 "tokens": toks}
             del eng, params, model
             free()
-        dist.barrier(group=mesh.control)
-        cfg = ep_b_config()
-        model = build_model(cfg)
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        params = init_lm_rank(cfg, torch.Generator(device="cuda").manual_seed(
-            0), rank, world)
-        torch.cuda.synchronize()
-        rec["ep_init_s"] = time.perf_counter() - t0
-        rec["ep_init_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
-        rec["ep_param_gb"] = sum(t.numel() * t.element_size()
-                                 for t in params.values()) / 1e9
-        rec["ep_experts"] = params["blocks|0|moe|w_gate"].shape[1]
-        eng = ep_engine(model, params, EP_B)
-        eng.run(ep_requests(EP_B._replace(n=1, new=(2,)),
-                            cfg.vocab_size))                  # warm-up
-        eng.reset()
-        torch.cuda.reset_peak_memory_stats()
-        metrics, counts, sums, other = ep_run(
-            eng, ep_requests(EP_B, cfg.vocab_size))
-        rec["ep_b"] = {"metrics": metrics, "counts": counts, "sums": sums,
-                       "other": other, "tokens": ep_tokens(eng),
-                       "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
-                       "pool_gb": sum(t.numel() * t.element_size()
-                                      for pi in eng.pools
-                                      for t in pi.values()) / 1e9}
-        rec["ep_b_dispatches"] = ep_dispatches(eng, cfg.vocab_size)
-        del eng, params, model
-        free()
     finally:
         moe.set_moe_mesh(None)
     dist.barrier(group=mesh.control)
+    rec["ep_a_s"] = time.time() - t29
+    ep_b_ranks(rank, world, rec)
     rec["p29_s"] = time.time() - t29
+
+
+def ep_b_ranks(rank, world, rec, b_layers: int = EP_B_LAYERS):
+    """Phase 29 (b) on one rank: the EP + TP serving layout at
+    ``b_layers`` (kept in ``rec``): the model built on the ``(1, world)``
+    grid, the rank's blocks from the rank-local init, through the engine
+    (:func:`tp_serve`), then one mixed and one decode-only dispatch timed
+    with the sums apart."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_moe_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import init_lm_rank
+    free()
+    rec.setdefault("card_free_gib_29", torch.cuda.mem_get_info()[0] / 2**30)
+    mesh = make_moe_mesh(1, world)
+    rec["ep_b_layers"] = b_layers
+    cfg = ep_b_config(b_layers)
+    model = build_model(cfg, mesh=mesh)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_lm_rank(cfg, torch.Generator(device="cuda").manual_seed(
+        0), rank, world)
+    torch.cuda.synchronize()
+    rec["ep_init_s"] = time.perf_counter() - t0
+    rec["ep_init_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    rec["ep_param_gb"] = sum(t.numel() * t.element_size()
+                             for t in params.values()) / 1e9
+    rec["ep_experts"] = params["blocks|0|moe|w_gate"].shape[1]
+    rec["ep_heads"] = [params["blocks|0|attn|wq"].shape[-1] // cfg.hd,
+                       params["blocks|0|attn|wk"].shape[-1] // cfg.hd]
+    rec["ep_shared_cols"] = params["blocks|0|moe|shared|w_up"].shape[-1]
+    t0 = time.time()
+    b = tp_serve(model, params, greedy=False, spec=EP_B)
+    eng = b.pop("eng")
+    rec["ep_b"] = b["engine"]
+    rec["ep_b_s"] = time.time() - t0
+    rec["ep_b_dispatches"] = ep_dispatches(eng, cfg.vocab_size)
+    del eng, params, model
+    free()
+    dist.barrier(group=mesh.control)
 
 
 # phase 31: qwen3_14b tensor-parallel over phase 25's four ranks (the
@@ -5043,22 +5118,24 @@ def tp_prompts(vocab: int):
         np.int32)).cuda()
 
 
-def tp_serve(model, params, greedy: bool) -> dict:
-    """Phase 31's runs of ``model`` (on the grid or whole): the engine on
-    :data:`TP_SERVE`'s requests (bf16: after a one-request warm-up) and,
-    with ``greedy``, ``greedy_generate`` on :data:`TP_GREEDY`'s prompts;
-    each run's tokens, metrics, launches, collectives and plain-twin
-    calls, the serving peak and the pools' GB."""
+def tp_serve(model, params, greedy: bool, spec: EpServe = TP_SERVE
+             ) -> dict:
+    """Phase 31's runs of ``model`` (on the grid or whole; phase 29 (b)'s
+    too, at ``spec`` :data:`EP_B`): the engine on ``spec``'s requests
+    (bf16: after a one-request warm-up) and, with ``greedy``,
+    ``greedy_generate`` on :data:`TP_GREEDY`'s prompts; each run's
+    tokens, metrics, launches, collectives and plain-twin calls, the
+    serving peak and the pools' GB."""
     import torch
     from repro_torch.serve import greedy_generate
     vocab = model.cfg.vocab_size
-    eng = ep_engine(model, params, TP_SERVE)
+    eng = ep_engine(model, params, spec)
     if model.cfg.dtype == "bfloat16":
-        eng.run(ep_requests(TP_SERVE._replace(n=1, new=(2,)), vocab))
+        eng.run(ep_requests(spec._replace(n=1, new=(2,)), vocab))
         eng.reset()
     torch.cuda.reset_peak_memory_stats()
     metrics, counts, colls, plain = tp_run(
-        lambda: eng.run(ep_requests(TP_SERVE, vocab)))
+        lambda: eng.run(ep_requests(spec, vocab)))
     out = {"engine": {"metrics": metrics, "counts": counts,
                       "collectives": colls, "plain": plain,
                       "tokens": ep_tokens(eng),
@@ -5270,10 +5347,213 @@ def print_tp(rec, smi: str) -> None:
           "tokens equal (bf16: bit-equal to rank 0's)", flush=True)
 
 
+# phase 32: falcon_mamba_7b tensor-parallel over phase 25's four ranks, in
+# the same spawn after phase 31 (the reference's lm_param_specs for the SSM
+# family on a (1, 4) ("data", "model") grid, build_model(cfg, mesh=grid)):
+# a rank holds 2048 of the 8192 channels a layer (in_proj's paired x and z
+# columns, conv, dt_proj, A_log, D, the rows of x_proj and out_proj) and
+# 16256 of the 65024 vocabulary rows, drawn rank-locally (init_lm_rank),
+# and serves the fixed batch (greedy_generate's steps: an SSM state is
+# fixed-size, not paged) of 4 prompts of 512 and 16 new tokens: 2L + 1
+# sums over the model axis (the embedding, each layer's x_proj and
+# out_proj) and one gather of the logits a forward.  No kernel runs on
+# this path: the scan is plain PyTorch, as in the reference (no Pallas
+# kernel there).  (a) f32 at 2 of 64 layers against the one-process run's
+# tokens; (b) bf16 at SSM_TP_BF16_LAYERS layers, every rank's tokens
+# bit-equal to rank 0's; tools/tp_phase.py --arch falcon_mamba_7b runs
+# (b) at all 64 layers
+SSM_TP_F32_LAYERS, SSM_TP_BF16_LAYERS = 2, 4
+SSM_TP_BATCH = (4, 512, 16)       # prompts, prompt length, new tokens
+
+
+def ssm_tp_config(dtype: str, n_layers: int):
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(SSM_ARCH), n_layers=n_layers,
+                               dtype=dtype)
+
+
+def ssm_generate(model, params) -> dict:
+    """``greedy_generate``'s steps on :data:`SSM_TP_BATCH`'s seeded
+    prompts (prefill, then one serve step a token), timed on the host
+    clock to a device sync, under :func:`tp_run`: tokens, prefill ms, ms a
+    token, launches, collectives, plain-twin calls and the peak."""
+    import numpy as np
+    import torch
+    from repro_torch.serve import build_serve_step, grow_caches
+    n, S, n_new = SSM_TP_BATCH
+    rng = np.random.default_rng(33)
+    tokens = torch.from_numpy(rng.integers(0, model.cfg.vocab_size, (
+        n, S)).astype(np.int32)).cuda()
+
+    def run():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = model.prefill(params, {"tokens": tokens})
+        tok = torch.argmax(logits[:, -1].float(), -1).to(torch.int32)[:, None]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        caches = grow_caches(model, caches, n, S + n_new)
+        step, out = build_serve_step(model), [tok]
+        for i in range(n_new - 1):
+            tok, caches = step(params, caches, tok, S + i)
+            out.append(tok)
+        toks = torch.cat(out, dim=1).cpu().tolist()
+        return toks, (t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3 / (
+            n_new - 1)
+
+    torch.cuda.reset_peak_memory_stats()
+    (toks, pre_ms, tok_ms), counts, colls, plain = tp_run(run)
+    return {"tokens": toks, "prefill_ms": pre_ms, "token_ms": tok_ms,
+            "counts": counts, "collectives": colls, "plain": plain,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def ssm_ranks(rank, world, rec, bf16_layers: int = SSM_TP_BF16_LAYERS):
+    """Phase 32 on one rank (after 31): (a) f32 at
+    :data:`SSM_TP_F32_LAYERS` and (b) bf16 at ``bf16_layers`` (kept in
+    ``rec``), each the model built on the ``(1, world)`` grid, the rank's
+    blocks from the rank-local init (:func:`init_lm_rank`), then
+    :func:`ssm_generate`; each run's init time, peak and params GB."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_moe_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import init_lm_rank
+    t32 = time.time()
+    free()
+    mesh = make_moe_mesh(1, world)
+    rec["ssm_b_layers"] = bf16_layers
+    for tag, dtype, n_layers in (("a", "float32", SSM_TP_F32_LAYERS),
+                                 ("b", "bfloat16", bf16_layers)):
+        t0 = time.time()
+        model = build_model(ssm_tp_config(dtype, n_layers), mesh=mesh)
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        params = init_lm_rank(model.cfg, torch.Generator(
+            device="cuda").manual_seed(0), rank, world)
+        torch.cuda.synchronize()
+        run = {"init_s": time.perf_counter() - t1,
+               "init_peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "param_gb": sum(t.numel() * t.element_size()
+                               for t in params.values()) / 1e9,
+               "channels": params["blocks|0|ssm|D"].shape[-1],
+               "in_proj_cols": params["blocks|0|ssm|in_proj"].shape[-1]}
+        run.update(ssm_generate(model, params))
+        del params, model
+        free()
+        dist.barrier(group=mesh.control)
+        run["s"] = time.time() - t0
+        rec[f"ssm_{tag}"] = run
+    rec["p32_s"] = time.time() - t32
+
+
+def ssm_references(bf16_layers: int) -> dict:
+    """Phase 32's one-process references, after the ranks have exited:
+    the whole model (``model.init`` from seed 0, the stream the ranks drew
+    their blocks from) through :func:`ssm_generate`, f32 at
+    :data:`SSM_TP_F32_LAYERS` and bf16 at ``bf16_layers``."""
+    import torch
+    from repro_torch.models import build_model
+    out = {}
+    for tag, dtype, n_layers in (("a", "float32", SSM_TP_F32_LAYERS),
+                                 ("b", "bfloat16", bf16_layers)):
+        t0 = time.time()
+        model = build_model(ssm_tp_config(dtype, n_layers))
+        params = model.init(torch.Generator(device="cuda").manual_seed(0))
+        out[tag] = ssm_generate(model, params)
+        del params, model
+        free()
+        out[f"{tag}_s"] = time.time() - t0
+    return out
+
+
+def check_ssm_ranks(ranks, refs) -> None:
+    """Phase 32's gates: (a) every rank's f32 tokens equal to the
+    one-process run's; (b) every rank's bf16 tokens equal to rank 0's; in
+    every run of a rank exactly 2L + 1 sums over the model axis and one
+    logits gather a forward (16 forwards: the prefill and 15 steps) and no
+    other collective, in every run (a rank's and the references') no
+    kernel launch and no plain twin; each rank holding 2048 of the 8192
+    channels a layer, ``in_proj`` its 4096 paired columns."""
+    from repro_torch.configs import get_config
+    cfg = get_config(SSM_ARCH)
+    M, n_new = len(ranks), SSM_TP_BATCH[2]
+    L_b = ranks[0]["ssm_b_layers"]
+    for tag in ("a", "b"):
+        ref = refs[tag]
+        check(not any(ref["counts"].values()) and ref["plain"] == 0
+              and ref["collectives"] == {},
+              f"phase 32 ({tag}) one process: launches {ref['counts']}, "
+              f"plain {ref['plain']}, collectives {ref['collectives']}")
+    for r in ranks:
+        who = f"phase 32 rank {r['rank']}"
+        for tag, L in (("a", SSM_TP_F32_LAYERS), ("b", L_b)):
+            run = r[f"ssm_{tag}"]
+            check(run["collectives"] == {"tp all-reduce": (2 * L + 1) * n_new,
+                                         "tp all-gather": n_new},
+                  f"{who} ({tag}): collectives {run['collectives']} in "
+                  f"{n_new} forwards of {L} layers")
+            check(not any(run["counts"].values()) and run["plain"] == 0,
+                  f"{who} ({tag}): launches {run['counts']}, plain "
+                  f"{run['plain']}")
+            check(run["channels"] == cfg.d_inner // M
+                  and run["in_proj_cols"] == 2 * cfg.d_inner // M,
+                  f"{who} ({tag}): {run['channels']} channels, in_proj "
+                  f"{run['in_proj_cols']} columns")
+        check(r["ssm_a"]["tokens"] == refs["a"]["tokens"],
+              f"{who} (a): the f32 tokens differ from one process's: "
+              f"{r['ssm_a']['tokens']} != {refs['a']['tokens']}")
+        check(r["ssm_b_layers"] == L_b and r["ssm_b"]["tokens"]
+              == ranks[0]["ssm_b"]["tokens"],
+              f"{who} (b): the bf16 tokens differ from rank 0's")
+
+
+def print_ssm(rec, smi: str) -> None:
+    """Phase 32's lines."""
+    refs = rec["ssm_refs"]
+    n, S, n_new = SSM_TP_BATCH
+    for r in rec["ranks"]:
+        for tag in ("a", "b"):
+            run = r[f"ssm_{tag}"]
+            L = SSM_TP_F32_LAYERS if tag == "a" else r["ssm_b_layers"]
+            one = refs[tag]
+            print(f"[ssm32] rank {r['rank']} ({tag}) "
+                  f"{'f32' if tag == 'a' else 'bf16'} {L} layers, "
+                  f"{run['channels']} channels a layer: init "
+                  f"{run['init_s']:.2f} s, params {run['param_gb']:.3f} GB, "
+                  f"init peak {run['init_peak_gib']:.2f} GiB, serving peak "
+                  f"{run['peak_gib']:.2f} GiB; {n} × {S} prompts, prefill "
+                  f"{run['prefill_ms']:.1f} ms (one process "
+                  f"{one['prefill_ms']:.1f}), {run['token_ms']:.2f} ms a "
+                  f"token (one process {one['token_ms']:.2f}) over "
+                  f"{n_new - 1} steps; collectives {run['collectives']} "
+                  f"({2 * L + 1} sums a forward); {smi}", flush=True)
+    agree = ep_agreement(
+        {str(i): t for i, t in enumerate(rec["ranks"][0]["ssm_b"]["tokens"])},
+        {str(i): t for i, t in enumerate(refs["b"]["tokens"])})
+    rec["ssm_b_agreement"] = agree
+    print(f"[ssm32] (b) the four ranks' bf16 tokens against one process's "
+          f"on the same {n} prompts (serving peak "
+          f"{refs['b']['peak_gib']:.2f} GiB): {agree['equal_share']:.1%} of "
+          f"the tokens equal, {agree['requests_equal']} rows whole, first "
+          f"divergence (row, position) {agree['first_divergence']} "
+          "(reported, not gated: the sums over the ranks add the partials "
+          "in another order); (a) f32 every rank's tokens equal to one "
+          "process's", flush=True)
+    print(f"[time] phase 32 took "
+          f"{statistics.median(r['p32_s'] for r in rec['ranks']):.1f} s in "
+          f"the ranks (median; per rank "
+          f"{[round(r['p32_s'], 1) for r in rec['ranks']]}; rank 0's (a) "
+          f"{rec['ranks'][0]['ssm_a']['s']:.1f} s, (b) "
+          f"{rec['ranks'][0]['ssm_b']['s']:.1f} s), its one-process "
+          f"references {refs['a_s'] + refs['b_s']:.1f} s", flush=True)
+
+
 def tree_block_ranks(rank, world, batches, refs, rec):
     """Phase 30 on one rank (after 29): ``TREE_BLOCK_RUNS`` on ranks 0–1,
-    ``TREE_BLOCK_B`` agents of ``smollm_360m`` each at full width and depth
-    (ranks 2–3 outside the mesh), ``packed_bus=False``, fused kernels,
+    ``TREE_BLOCK_B`` agents of ``smollm_360m`` each at full width, its
+    depth cut to ``GRAPH_LAYERS`` (:func:`cut_model`) (ranks 2–3 outside
+    the mesh), ``packed_bus=False``, fused kernels,
     eager: the rank's 12 bf16 leaves of both agents go through the peer
     table packed into one ``(2, rows, 128)`` f32 payload
     (``core/mixing.py::TreePayload``).  Each run from seed 0
@@ -5282,16 +5562,14 @@ def tree_block_ranks(rank, world, batches, refs, rec):
     one-process reference (``refs``)."""
     import torch
     import torch.distributed as dist
-    from repro_torch.configs import get_config
     from repro_torch.core.comm import rank_block
     from repro_torch.launch.mesh import make_gossip_mesh
-    from repro_torch.models import build_model
     from repro_torch.train import (build_train_step, init_state,
                                    make_gossip_schedule)
     t30 = time.time()
     free()
     rec["held_gib_30"] = torch.cuda.memory_allocated() / 2**30
-    model = build_model(get_config(ARCH))
+    model = cut_model()
     mesh = make_gossip_mesh(world, agents_per_device=TREE_BLOCK_B)
     rec["tree_block_member"] = mesh.member
     rec["tree_block_s"] = {}
@@ -5333,7 +5611,7 @@ def tree_block_ranks(rank, world, batches, refs, rec):
 
 
 def peer_rank(rank: int, world: int, batches, held, refs, out_dir):
-    """Phases 25–31's rank (a spawned process; the one card for every
+    """Phases 25–32's rank (a spawned process; the one card for every
     rank), one agent of the main path's model each (phases 28 and 30: also
     two agents on ranks 0–1; phase 28: a pod's row shard; phase 29: a block of
     deepseek_moe_16b's experts).
@@ -5365,7 +5643,8 @@ def peer_rank(rank: int, world: int, batches, held, refs, out_dir):
     after 28: the expert-parallel MoE served (:func:`ep_ranks`).  Phase 30,
     after 29: ``TREE_BLOCK_RUNS`` (:func:`tree_block_ranks`).  Phase 31,
     after 30: ``qwen3_14b`` tensor-parallel served (:func:`tp_ranks`).
-    Writes ``rank<r>.json``."""
+    Phase 32, after 31: ``falcon_mamba_7b`` tensor-parallel served
+    (:func:`ssm_ranks`).  Writes ``rank<r>.json``."""
     import torch
     import torch.distributed as dist
     from torch.profiler import ProfilerActivity, profile
@@ -5555,6 +5834,8 @@ def peer_rank(rank: int, world: int, batches, held, refs, out_dir):
     tree_block_ranks(rank, world, batches, refs, rec)
     # 31: qwen3_14b tensor-parallel across the ranks
     tp_ranks(rank, world, rec)
+    # 32: falcon_mamba_7b tensor-parallel across the ranks
+    ssm_ranks(rank, world, rec)
     for tag in ("overlap", "groups", "tree_edm", "tree_dsgt"):
         rec[f"{tag}_equal"] = all(
             rec[f"{tag}_digests"][k] == [refs[tag]["digests"][k][rank]]
@@ -5564,10 +5845,10 @@ def peer_rank(rank: int, world: int, batches, held, refs, out_dir):
 
 
 def peer_phase():
-    """Phases 25–31: ``PEER_RANKS`` ranks on the one card, each one agent
+    """Phases 25–32: ``PEER_RANKS`` ranks on the one card, each one agent
     of ``smollm_360m`` at full width and depth (bus ``(1, 3195392, 128)``
     a rank, or its 12 bf16 tree leaves), fused kernels, seq 128, per-agent
-    batch 1, α 0.2, β 0.9, spawned once for the seven phases.
+    batch 1, α 0.2, β 0.9, spawned once for the eight phases.
 
     Phase 25: ``PEER_STEPS`` steps of the multi-rank bus step on the ring;
     the gossip runs through the peer-pointer ring kernel (CUDA IPC).
@@ -5607,6 +5888,9 @@ def peer_phase():
     Phase 31: ``qwen3_14b`` tensor-parallel over the ranks
     (:func:`tp_ranks`), its one-process references made once the ranks
     have exited (:func:`tp_references`), gated by :func:`check_tp_ranks`.
+    Phase 32: ``falcon_mamba_7b`` tensor-parallel over the ranks
+    (:func:`ssm_ranks`), its references so (:func:`ssm_references`),
+    gated by :func:`check_ssm_ranks`.
     The split plan is not run here (one card; the CPU tests hold it over
     gloo); the NCCL path has run nowhere."""
     import shutil
@@ -5648,11 +5932,14 @@ def peer_phase():
     t0 = time.time()
     refs.update(wire_references(model, batches))
     out["reference28_s"] = time.time() - t0
-    # phase 30's references: one-process 4-agent fused eager tree runs
+    # phase 30's references: one-process 4-agent fused eager tree runs at
+    # GRAPH_LAYERS
     t0 = time.time()
+    cut = cut_model()
     for tag, (kw, steps, churn) in TREE_BLOCK_RUNS.items():
         refs[f"tree_block_{tag}"] = one_process_run(
-            model, bus_run(**kw), batches[:steps], digests=True, churn=churn)
+            cut, bus_run(**kw), batches[:steps], digests=True, churn=churn)
+    del cut
     out["reference30_s"] = time.time() - t0
     out["references"] = {k: {"step_ms": [round(t * 1e3, 2)
                                          for t in v["seconds"]],
@@ -5785,53 +6072,96 @@ def peer_phase():
           f"peer rank 0's traced step: {tr}, roll bucket "
           f"{ranks[0]['buckets']['roll (gossip terms)']}")
     check_wire_ranks(ranks, refs)
-    check_ep_ranks(ranks)
+    check_ep_ranks(ranks, refs["ep"]["b"])
     check_tree_block_ranks(ranks, refs)
     # phase 31's one-process references, now that the ranks' shards are
     # freed (the whole bf16 model takes 29.5 GB)
     out["tp_refs"] = tp_references(ranks[0]["tp_b_layers"])
     check_tp_ranks(ranks, out["tp_refs"])
+    # phase 32's, the same way
+    out["ssm_refs"] = ssm_references(ranks[0]["ssm_b_layers"])
+    check_ssm_ranks(ranks, out["ssm_refs"])
     return out
 
 
-def check_ep_ranks(ranks) -> None:
+def ep_b_sums(L: int) -> int:
+    """Phase 29 (b)'s sums over the model axis a forward: the embedding's,
+    and each layer's after ``wo`` and after its MoE layer (the routed and
+    shared partials in one)."""
+    return 2 * L + 1
+
+
+def check_ep_ranks(ranks, ref_b) -> None:
     """Phase 29's gates: (a) every rank's f32 tokens equal to the
-    one-process engine's at both capacities; (b) every rank's bf16 tokens
-    equal to rank 0's, every request served its whole budget; in each run
-    the paged kernels launched once a layer a dispatch (the prefill once a
-    layer a mixed one), no other kernel, and one sum over the model axis
+    one-process engine's at both capacities, one sum over the model axis
     a MoE layer call (two calls a mixed dispatch) and no other
-    collective; each rank holding 16 of the 64 experts a layer."""
-    from repro_torch.configs import get_config
-    n_layers = EP_B_LAYERS
-    want_b = ranks[0]["ep_b"]["tokens"]
+    collective; (b) every rank's bf16 tokens equal to rank 0's, 2L + 1
+    sums and one logits gather a forward (a mixed dispatch: two forwards)
+    and no other collective, no plain twin, the rank holding 16 of the 64
+    experts, 4 / 4 heads and 1/4 of the shared experts' columns a layer,
+    the timed dispatches' sums 2 (2L + 1) and 2L + 1; in each run (and in
+    ``ref_b``'s one-process engine) the paged kernels launched once a
+    layer a dispatch (the prefill once a layer a mixed one) and no other
+    kernel, every request served."""
     for r in ranks:
         tag = f"phase 29 rank {r['rank']}"
-        runs = [(f"(a) f32 capacity {cf}", r[f"ep_a_{cf}"], EP_F32_LAYERS,
-                 EP_A) for cf in EP_F32_CFS]
-        runs.append(("(b) bf16", r["ep_b"], n_layers, EP_B))
-        for what, run, L, spec in runs:
+        for cf in EP_F32_CFS:
+            what, run = f"(a) f32 capacity {cf}", r[f"ep_a_{cf}"]
             m = run["metrics"]
-            check_serve_counts(run["counts"], m, L, f"{tag} {what}")
-            check(run["sums"] == L * (m["steps"] + m["mixed_steps"]),
+            check_serve_counts(run["counts"], m, EP_F32_LAYERS,
+                               f"{tag} {what}")
+            check(run["sums"] == EP_F32_LAYERS * (m["steps"]
+                                                  + m["mixed_steps"]),
                   f"{tag} {what}: {run['sums']} sums over the model axis in "
                   f"{m['steps']} dispatches ({m['mixed_steps']} mixed) of "
-                  f"{L} MoE layers")
+                  f"{EP_F32_LAYERS} MoE layers")
             check(run["other"] == [], f"{tag} {what}: other collectives "
                   f"{run['other']}")
-            check(m["requests"] == spec.n, f"{tag} {what}: {m['requests']} "
-                  f"of {spec.n} requests served")
-        for cf in EP_F32_CFS:
-            check(r[f"ep_a_{cf}"]["equal"], f"{tag} (a): the f32 tokens at "
-                  f"capacity {cf} differ from the one-process engine's: "
-                  f"{r[f'ep_a_{cf}']['tokens']}")
-        check(r["ep_b"]["tokens"] == want_b, f"{tag} (b): the bf16 tokens "
-              "differ from rank 0's")
-        check(r["ep_experts"] == get_config(MOE_ARCH).n_experts // len(ranks),
-              f"{tag}: {r['ep_experts']} experts a layer")
+            check(m["requests"] == EP_A.n, f"{tag} {what}: {m['requests']} "
+                  f"of {EP_A.n} requests served")
+            check(run["equal"], f"{tag} (a): the f32 tokens at capacity {cf} "
+                  "differ from the one-process engine's: "
+                  f"{run['tokens']}")
+    check_ep_b_ranks(ranks, ref_b)
+
+
+def check_ep_b_ranks(ranks, ref_b) -> None:
+    """Phase 29 (b)'s gates (see :func:`check_ep_ranks`)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(MOE_ARCH)
+    n_layers = ranks[0]["ep_b_layers"]
+    want_b = ranks[0]["ep_b"]["tokens"]
+    check_serve_counts(ref_b["counts"], ref_b["metrics"], n_layers,
+                       "phase 29 (b) one process")
+    check(ref_b["plain"] == 0, f"phase 29 (b) one process: "
+          f"{ref_b['plain']} plain attention calls")
+    for r in ranks:
+        tag = f"phase 29 rank {r['rank']}"
+        b = r["ep_b"]
+        m = b["metrics"]
+        check_serve_counts(b["counts"], m, n_layers, f"{tag} (b) bf16")
+        check(b["plain"] == 0, f"{tag} (b): {b['plain']} plain attention "
+              "calls")
+        n = m["steps"] + m["mixed_steps"]
+        check(b["collectives"] == {"tp all-reduce": ep_b_sums(n_layers) * n,
+                                   "tp all-gather": n},
+              f"{tag} (b): collectives {b['collectives']} in {m['steps']} "
+              f"dispatches ({m['mixed_steps']} mixed) of {n_layers} layers")
+        check(m["requests"] == EP_B.n, f"{tag} (b): {m['requests']} of "
+              f"{EP_B.n} requests served")
+        check(r["ep_b_layers"] == n_layers, f"{tag} (b): "
+              f"{r['ep_b_layers']} layers, rank 0 {n_layers}")
+        check(b["tokens"] == want_b, f"{tag} (b): the bf16 tokens differ "
+              "from rank 0's")
+        M = len(ranks)
+        check(r["ep_experts"] == cfg.n_experts // M
+              and r["ep_heads"] == [cfg.n_heads // M, cfg.n_kv_heads // M]
+              and r["ep_shared_cols"] == cfg.n_shared_experts * cfg.d_ff // M,
+              f"{tag}: {r['ep_experts']} experts, {r['ep_heads']} heads, "
+              f"{r['ep_shared_cols']} shared-expert columns a layer")
         d = r["ep_b_dispatches"]
-        check(d["mixed"]["sums"] == 2 * n_layers
-              and d["decode"]["sums"] == n_layers,
+        s = ep_b_sums(n_layers)
+        check(d["mixed"]["sums"] == 2 * s and d["decode"]["sums"] == s,
               f"{tag}: timed dispatches' sums {d}")
 
 
@@ -5839,30 +6169,50 @@ def print_ep(rec, smi: str) -> None:
     """Phase 29's lines."""
     for r in rec["ranks"]:
         a = {cf: r[f"ep_a_{cf}"] for cf in EP_F32_CFS}
-        print(f"[ep29] rank {r['rank']} (a) f32 {EP_F32_LAYERS} layers: "
-              + "; ".join(
+        print(f"[ep29] rank {r['rank']} (a) EP-only f32 {EP_F32_LAYERS} "
+              "layers: " + "; ".join(
                   f"capacity {cf}: {v['metrics']['tokens']} tokens in "
                   f"{v['metrics']['steps']} dispatches "
                   f"({v['metrics']['mixed_steps']} mixed), launches "
                   f"{ {k: n for k, n in v['counts'].items() if n} }, sums "
                   f"{v['sums']}, equal to the one-process engine "
                   f"{v['equal']}" for cf, v in a.items()), flush=True)
+    print_ep_b(rec, smi)
+    r0 = rec["ranks"][0]
+    print(f"[time] phase 29 took "
+          f"{statistics.median(r['p29_s'] for r in rec['ranks']):.1f} s in "
+          f"the ranks (median; per rank "
+          f"{[round(r['p29_s'], 1) for r in rec['ranks']]}; rank 0's (a) "
+          f"{r0['ep_a_s']:.1f} s, (b)'s run {r0['ep_b_s']:.1f} s), its "
+          f"one-process references {rec['reference29_s']:.1f} s; every "
+          "rank's tokens equal (bf16: bit-equal to rank 0's)", flush=True)
+
+
+def print_ep_b(rec, smi: str) -> None:
+    """Phase 29 (b)'s lines: each rank's run, and its tokens against
+    ``rec["ep_b_one_process"]``'s."""
+    for r in rec["ranks"]:
         b, dd = r["ep_b"], r["ep_b_dispatches"]
         m = b["metrics"]
-        print(f"[ep29] rank {r['rank']} (b) bf16 {EP_B_LAYERS} layers, "
-              f"{r['ep_experts']} experts a layer: init {r['ep_init_s']:.2f} "
-              f"s, params {r['ep_param_gb']:.2f} GB, init peak "
+        L = r["ep_b_layers"]
+        print(f"[ep29] rank {r['rank']} (b) EP + TP bf16 {L} layers, "
+              f"{r['ep_experts']} experts, {r['ep_heads'][0]} / "
+              f"{r['ep_heads'][1]} heads, {r['ep_shared_cols']} shared-expert"
+              f" columns a layer: init {r['ep_init_s']:.2f} s, params "
+              f"{r['ep_param_gb']:.2f} GB, init peak "
               f"{r['ep_init_peak_gib']:.2f} GiB, serving peak "
-              f"{b['peak_gib']:.2f} GiB (pools {b['pool_gb']:.2f} GB); "
+              f"{b['peak_gib']:.2f} GiB (pools {b['pool_gb']:.3f} GB); "
               f"{m['tokens']} tokens over {m['requests']} requests in "
               f"{m['steps']} dispatches ({m['mixed_steps']} mixed), "
-              f"{m['tokens_per_s']} tokens/s, wall {m['wall_s']} s, TTFT "
-              f"p50 {m['ttft_p50_ms']} ms, per-token p50 {m['p50_ms']} / "
-              f"p99 {m['p99_ms']} ms; launches "
-              f"{ {k: n for k, n in b['counts'].items() if n} }, sums "
-              f"{b['sums']}; a mixed dispatch {dd['mixed']['ms']:.1f} ms of "
-              f"which {dd['mixed']['sums']} sums {dd['mixed']['sums_ms']:.1f}"
-              f" ms ({dd['mixed']['sums_share']:.1%}), a decode-only "
+              f"{m['tokens_per_s']} tokens/s (one process "
+              f"{rec['ep_b_one_process']['metrics']['tokens_per_s']}), wall "
+              f"{m['wall_s']} s, TTFT p50 {m['ttft_p50_ms']} ms, per-token "
+              f"p50 {m['p50_ms']} / p99 {m['p99_ms']} ms; launches "
+              f"{ {k: n for k, n in b['counts'].items() if n} }, collectives "
+              f"{b['collectives']} ({ep_b_sums(L)} sums a forward); a mixed "
+              f"dispatch {dd['mixed']['ms']:.1f} ms of which "
+              f"{dd['mixed']['sums']} sums {dd['mixed']['sums_ms']:.1f} ms "
+              f"({dd['mixed']['sums_share']:.1%}), a decode-only "
               f"{dd['decode']['ms']:.1f} ms of which {dd['decode']['sums']} "
               f"sums {dd['decode']['sums_ms']:.1f} ms "
               f"({dd['decode']['sums_share']:.1%}); card free at the phase's "
@@ -5872,18 +6222,13 @@ def print_ep(rec, smi: str) -> None:
     rec["ep_b_agreement"] = agree
     print(f"[ep29] (b) the four ranks' bf16 tokens against the one-process "
           f"engine's on the same {agree['requests']} requests ({one['s']:.1f}"
-          f" s, {one['metrics']['tokens_per_s']} tokens/s): "
+          f" s, {one['metrics']['tokens_per_s']} tokens/s, serving peak "
+          f"{one['peak_gib']:.2f} GiB): "
           f"{agree['equal_share']:.1%} of the tokens equal, "
           f"{agree['requests_equal']} requests whole, first divergence "
           f"(request, position) {agree['first_divergence']} (reported, not "
-          "gated: the sum over the ranks adds the partials in another "
+          "gated: the sums over the ranks add the partials in another "
           "order)", flush=True)
-    print(f"[time] phase 29 took "
-          f"{statistics.median(r['p29_s'] for r in rec['ranks']):.1f} s in "
-          f"the ranks (median; per rank "
-          f"{[round(r['p29_s'], 1) for r in rec['ranks']]}), its "
-          f"one-process references {rec['reference29_s']:.1f} s; every "
-          "rank's tokens equal (bf16: bit-equal to rank 0's)", flush=True)
 
 
 def check_tree_block_ranks(ranks, refs) -> None:
@@ -6136,6 +6481,7 @@ def print_peer(rec, smi: str) -> None:
     print_ep(rec, smi)
     print_tree_block(rec, smi)
     print_tp(rec, smi)
+    print_ssm(rec, smi)
     print("[peer] not run on this card: the split (pod × data) permute "
           "plan (the CPU tests hold it over gloo against the JAX package); "
           "NCCL: not run anywhere (one card: NCCL refuses two ranks on it; "
@@ -6246,7 +6592,8 @@ def print_fixed_batch(tag: str, arch: str, cli_args, rec, smi: str):
 
 def print_engine(tag: str, arch: str, rec, smi: str):
     """Phases 15 and 19's lines."""
-    print(f"[{tag}] {arch}: {rec['params'] / 1e9:.3f} B parameters, "
+    print(f"[{tag}] {arch} at {rec['n_layers']} layers: "
+          f"{rec['params'] / 1e9:.3f} B parameters, "
           f"{rec['param_gb']:.2f} GB; init {rec['init_s']:.1f} s, peak "
           f"during init {rec['init_peak_gib']:.2f} GiB; prefill logits "
           "finite", flush=True)
@@ -6468,15 +6815,14 @@ def main() -> None:
     print(f"[flash] the op at (a) and (b): launches {flash_counts}",
           flush=True)
 
-    clock("25-31")
-    # 25–31. multi-rank: 4 ranks on the one card, the peer-pointer
+    clock("25-32")
+    # 25–32. multi-rank: 4 ranks on the one card, the peer-pointer
     # ring (25); the delayed pipeline with a straggler, the peer table
     # kernel and policy groups across ranks (26); the tree path (27); the
-    # wires, agent blocks and row shards (28); the expert-parallel MoE
-    # served (29); the tree with two agents a rank (30); qwen3_14b
-    # tensor-parallel served (31).  They run here,
-    # while this
-    # process holds next to nothing on the card: the four ranks and their
+    # wires, agent blocks and row shards (28); the MoE served
+    # expert-parallel and in the EP + TP layout (29); the tree with two
+    # agents a rank (30); qwen3_14b (31) and falcon_mamba_7b (32)
+    # tensor-parallel served.  They run here, while this process holds next to nothing on the card: the four ranks and their
     # peer buffers take most of it
     peer = peer_phase()
     print_peer(peer, smi)
@@ -6845,7 +7191,9 @@ def main() -> None:
           f"blocks, {dt['split_keys']} keys a block; {smi}", flush=True)
     for key, what in (("paged_attention_hd128", "hd 128 G 1"),
                       ("paged_attention_g4", "hd 128 G 4"),
-                      ("paged_attention_tp", "hd 128 K 2 G 5 (TP rank)")):
+                      ("paged_attention_tp", "hd 128 K 2 G 5 (TP rank)"),
+                      ("paged_attention_ep_tp",
+                       "hd 128 K 4 G 1 (EP + TP rank)")):
         dt = serve_timed[key]
         print(f"[serve-kernels] paged_attention {what} timed ({dt['dtype']}, "
               f"q {dt['shape']}, {dt['kv_rows']} KV rows): {dt['ms']:.5f} "
@@ -6855,7 +7203,7 @@ def main() -> None:
               f"clusters of {dt['n_split']} blocks, {dt['split_keys']} keys "
               f"a block; {smi}", flush=True)
     for key in ("paged_prefill", "paged_prefill_hd128", "paged_prefill_g4",
-                "paged_prefill_tp"):
+                "paged_prefill_tp", "paged_prefill_ep_tp"):
         pt = serve_timed[key]
         print(f"[serve-kernels] {key} timed ({pt['dtype']}, case "
               f"{pt['case']}): {pt['ms']:.5f} ms (host {pt['host_ms']:.4f} "
@@ -7111,6 +7459,9 @@ def main() -> None:
                 for cf in EP_F32_CFS},
             "launches_ep_bf16_per_rank": [r["ep_b"]["counts"][name]
                                           for r in peer["ranks"]],
+            "launches_ep_of": "phase 29: rank 0's EP-only f32 runs at "
+                              f"{EP_F32_LAYERS} layers, each rank's EP + TP "
+                              f"bf16 run at {peer['ranks'][0]['ep_b_layers']}",
             "launches_tp_f32_rank0": peer["ranks"][0]["tp_a"]["engine"][
                 "counts"][name],
             "launches_tp_bf16_per_rank": [r["tp_b"]["engine"]["counts"][name]
@@ -7121,7 +7472,8 @@ def main() -> None:
             **{key: {k: serve_timed[f"{name}_{key}"].get(k) for k in (
                 "case", "shape", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "bytes", "flops", "host_ms", "bound_fraction",
-                "n_split", "split_keys")} for key in ("hd128", "g4", "tp")},
+                "n_split", "split_keys")} for key in ("hd128", "g4", "tp",
+                                                     "ep_tp")},
             "bit_equal": True,
             "bit_equal_of": "the kernel's output on NaN-poisoned pools "
                             "against its output on the clean pools, every "

@@ -10,8 +10,10 @@ counterpart of the reference's ``jax.sharding.PartitionSpec`` trees
 * :func:`block_bounds` — the one place the layout is computed: along
   each split dim the contiguous block ``[i·n/c, (i+1)·n/c)`` of the
   rank's flat index ``i`` of ``c`` on the named axes (row-major, as a
-  ``jax.sharding.Mesh`` lays out its devices).  A dim that does not
-  divide raises ``ValueError``.  :func:`leaf_block` cuts one leaf so,
+  ``jax.sharding.Mesh`` lays out its devices); under a spec of ``groups``
+  g > 1 that block of each of the dim's g equal parts (a *paired* cut).
+  A dim that does not divide raises ``ValueError``.  :func:`cut` takes
+  such a block of a tensor or an array, :func:`leaf_block` one leaf's,
   :func:`shard_params` every leaf of a flat ``{path: tensor or array}``
   dict (:func:`repro_torch.weights.tp_block` cuts a numpy tree or an npz
   with it), and ``init_lm_rank`` keeps its bounds of each draw;
@@ -31,6 +33,16 @@ reshard; the port splits on head boundaries only, so that a rank holds
 query heads ``[r·H/M, (r+1)·H/M)`` and KV heads ``[r·K/M, (r+1)·K/M)``
 and GQA's ``h // G`` pairing stays on the rank
 (:func:`repro_torch.models.transformer.check_tp_split`).
+
+Paired cuts: a Mamba block's ``in_proj`` is one ``(d, 2·d_inner)`` leaf
+whose columns are split in two, x and z.  The reference's ``P(None,
+"model")`` hands rank r the r-th contiguous block of all ``2·d_inner``
+columns, so that x and z channels do not pair on a rank, and GSPMD
+reshards; one process a rank cannot.  Its spec here is the same ``P``
+with ``groups=2``: rank r takes the r-th block of x's columns and the
+same block of z's, one ``(d, 2·d_inner/M)`` leaf.  ``groups`` takes no
+part in equality, so the spec trees compare equal to the reference's
+path by path.
 """
 from __future__ import annotations
 
@@ -38,23 +50,29 @@ from typing import Dict, Mapping, Tuple
 
 import torch
 
-__all__ = ["PartitionSpec", "P", "mesh_coords", "block_bounds", "leaf_block",
-           "shard_params", "gather_params", "TensorParallel"]
+__all__ = ["PartitionSpec", "P", "mesh_coords", "block_bounds", "cut",
+           "leaf_block", "shard_params", "gather_params", "TensorParallel"]
 
 
 class PartitionSpec(tuple):
     """A tensor's partition over mesh axes: one entry a dim, ``None`` or an
     axis name or a tuple of axis names; trailing dims it does not name are
-    replicated."""
+    replicated.  ``groups`` g > 1 makes each split dim's cut *paired*: the
+    rank's block of each of the dim's g equal parts (see the module's
+    note); it is not compared by ``==``."""
 
-    def __new__(cls, *entries):
-        return super().__new__(cls, entries)
+    def __new__(cls, *entries, groups: int = 1):
+        self = super().__new__(cls, entries)
+        self.groups = groups
+        return self
 
     def __getnewargs__(self):
         return tuple(self)
 
     def __repr__(self) -> str:
-        return f"P{tuple.__repr__(self)}"
+        if self.groups == 1:
+            return f"P{tuple.__repr__(self)}"
+        return f"P{tuple.__repr__(self)[:-1]}, groups={self.groups})"
 
 
 P = PartitionSpec
@@ -80,11 +98,13 @@ def _split(entry, coords, path: str) -> Tuple[int, int]:
 
 
 def block_bounds(shape, spec, coords, path: str = ""
-                 ) -> Tuple[Tuple[int, int, int], ...]:
-    """``(dim, lo, hi)`` of every dim of a leaf of ``shape`` that ``spec``
-    splits: the rank at ``coords`` (:func:`mesh_coords`, or ``{axis:
-    (index, count)}``) holds the contiguous block ``[lo, hi)`` there.  A
-    dim that does not divide raises ``ValueError``."""
+                 ) -> Tuple[Tuple[int, int, int, int], ...]:
+    """``(dim, lo, hi, groups)`` of every dim of a leaf of ``shape`` that
+    ``spec`` splits: the rank at ``coords`` (:func:`mesh_coords`, or
+    ``{axis: (index, count)}``) holds the contiguous block ``[lo, hi)``
+    there, or, at ``groups`` g > 1, ``[lo, hi)`` of each of the dim's g
+    equal parts (:func:`cut`).  A dim that does not divide raises
+    ``ValueError``."""
     if len(spec) > len(shape):
         raise ValueError(f"{path}: spec {spec} has more entries than the "
                          f"leaf's {len(shape)} dims")
@@ -95,19 +115,37 @@ def block_bounds(shape, spec, coords, path: str = ""
         index, count = _split(entry, coords, path)
         if count == 1:
             continue
-        if shape[dim] % count:
+        groups = spec.groups
+        if shape[dim] % (count * groups):
+            what = f"{groups} paired parts of " if groups > 1 else ""
             raise ValueError(f"{path}: dim {dim} of {tuple(shape)} does "
-                             f"not split over {count} ranks ({entry})")
-        n = shape[dim] // count
-        out.append((dim, index * n, (index + 1) * n))
+                             f"not split over {what}{count} ranks ({entry})")
+        n = shape[dim] // (count * groups)
+        out.append((dim, index * n, (index + 1) * n, groups))
     return tuple(out)
+
+
+def cut(leaf, dim: int, lo: int, hi: int, groups: int = 1):
+    """``[lo, hi)`` of ``leaf`` (a tensor or a numpy array) along ``dim``
+    (a view), or at ``groups`` g > 1 ``[lo, hi)`` of each of the dim's g
+    equal parts, concatenated in order (a copy)."""
+    n = leaf.shape[dim] // groups
+    parts = [leaf[(slice(None),) * dim + (slice(g * n + lo, g * n + hi),)]
+             for g in range(groups)]
+    if groups == 1:
+        return parts[0]
+    if isinstance(leaf, torch.Tensor):
+        return torch.cat(parts, dim=dim)
+    import numpy as np
+    return np.concatenate(parts, axis=dim)
 
 
 def leaf_block(leaf, spec, coords, path: str = ""):
     """The block of ``leaf`` (a tensor or a numpy array) that the rank at
-    ``coords`` holds under ``spec`` (:func:`block_bounds`): a view."""
-    for dim, lo, hi in block_bounds(leaf.shape, spec, coords, path):
-        leaf = leaf[(slice(None),) * dim + (slice(lo, hi),)]
+    ``coords`` holds under ``spec`` (:func:`block_bounds`): a view, or a
+    copy for a paired cut."""
+    for bounds in block_bounds(leaf.shape, spec, coords, path):
+        leaf = cut(leaf, *bounds)
     return leaf
 
 
@@ -142,7 +180,8 @@ def gather_params(shards: Mapping[str, torch.Tensor],
                   ) -> Dict[str, torch.Tensor]:
     """The inverse of :func:`shard_params` on the model axis: every leaf
     whole on every rank, each split dim all-gathered over the model
-    group in rank order (collective: every rank of the group calls it)."""
+    group in rank order, a paired cut's blocks put back in their parts
+    (collective: every rank of the group calls it)."""
     from repro_torch.core import comm
     _specs_for(shards, specs)
     M = mesh.axis_size("model")
@@ -155,8 +194,15 @@ def gather_params(shards: Mapping[str, torch.Tensor],
         if not split or M == 1:
             out[path] = leaf
             continue
-        out[path] = comm.all_gather(leaf, mesh.group("model"), M, tag="tp",
-                                    dim=split[0])
+        dim, groups = split[0], specs[path].groups
+        whole = comm.all_gather(leaf, mesh.group("model"), M, tag="tp",
+                                dim=dim)
+        if groups > 1:
+            # (M ranks, g parts, n) along dim → (g parts, M ranks, n)
+            n = leaf.shape[dim] // groups
+            whole = whole.unflatten(dim, (M, groups, n)).transpose(
+                dim, dim + 1).flatten(dim, dim + 2)
+        out[path] = whole
     return out
 
 

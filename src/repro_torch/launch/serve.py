@@ -31,50 +31,48 @@ only, each request with ``n_frontend_tokens`` (1500) seeded frame
 embeddings for its encoder; it has no paged path, so
 ``--continuous-batching`` raises, as in the reference.
 
-``--moe-impl shard_map`` serves an MoE model expert-parallel across
-ranks (the reference's ``RunConfig.moe_impl`` / dry-run flag): it runs
-under torchrun only (without it, it raises), one process a rank on a
-``(1, world)`` ``("data", "model")`` grid
-(:func:`repro_torch.launch.mesh.make_moe_mesh`); each rank draws only its
-block of E / world experts a layer
-(:func:`repro_torch.models.transformer.init_lm_rank`, bit-equal to that
-block of the one-process init; with ``--ckpt`` it keeps its block of the
-file's experts), registers the grid
-(:func:`repro_torch.models.moe.set_moe_mesh`) and serves the same
-requests through the same engine, so each MoE layer call sums the ranks'
-partial outputs once (:func:`repro_torch.models.moe.apply_moe_shard_map`).
-The engine must take the same admissions on every rank, so the
-continuous trace arrives at once (every arrival at 0: a closed batch).
-Rank 0 prints; the metrics carry every rank's token digest
-(``rank_token_digests``).  ``gspmd`` (the default) serves in one process.
-Ranks sharing a card sum over gloo through the host; across cards NCCL
-(not run anywhere):
+Under torchrun a decoder model is served as the reference serves: one
+replica sharded tensor-parallel over the ``(1, world)`` ``("data",
+"model")`` grid (:func:`repro_torch.launch.mesh.make_moe_mesh`; the
+reference's ``serve_param_specs`` / ``paged_pool_specs`` layout,
+:mod:`repro_torch.core.sharding`).  Each rank draws its block of every
+split leaf (``init_lm_rank``: whole heads, ``ff / world`` FFN columns,
+E / world experts and the shared experts' columns, ``d_inner / world``
+SSM channels, ``V / world`` vocabulary rows; with ``--ckpt`` its block of
+each entry of the file, cut on the host), builds the model on the grid
+(``build_model(cfg, mesh=grid)``) and serves the same requests through
+the same engine or ``greedy_generate``: each forward sums over the model
+axis once for the embedding and twice a layer (a Mamba layer: after
+``x_proj`` and ``out_proj``), and gathers the logits once.  The engine
+must take the same admissions on every rank, so the continuous trace
+arrives at once (every arrival at 0: a closed batch).  Rank 0 prints;
+the metrics carry every rank's token digest (``rank_token_digests``).
+A count that does not split over the world raises ``ValueError``
+(``smollm_360m``'s 5 KV heads at 2 or 4 ranks).  An SSM or hybrid model
+serves the fixed batch there too; the encoder-decoder family has no TP
+layout, and each torchrun process serves it whole.
 
-  PYTHONPATH=src torchrun --standalone --nproc-per-node 2 \
-      -m repro_torch.launch.serve --arch deepseek_moe_16b --smoke \
-      --device cpu --moe-impl shard_map --continuous-batching \
-      --prefill-chunk 8 --max-step-tokens 16 --prompt-dist exact
-
-Under torchrun a dense model (``--arch qwen3_14b``, ``starcoder2_7b``,
-``qwen1_5_110b``, ``smollm_360m``) is served as the reference serves:
-one replica sharded tensor-parallel over the ``(1, world)`` ``("data",
-"model")`` grid (the reference's ``serve_param_specs`` /
-``paged_pool_specs`` layout, :mod:`repro_torch.core.sharding`).  Each rank
-draws its block of every split leaf (``init_lm_rank``: whole heads, ``ff
-/ world`` FFN columns, ``V / world`` vocabulary rows; with ``--ckpt`` its
-block of each entry of the file, cut on the host), builds the model on
-the grid (``build_model(cfg, mesh=grid)``) and serves the same closed
-trace through the same engine or ``greedy_generate``: each forward sums
-over the model axis once for the embedding and twice a layer, and
-gathers the logits once.  A head count that does not split over the
-world raises ``ValueError`` (``smollm_360m``'s 5 KV heads at 2 or 4
-ranks).  ``--moe-impl shard_map`` keeps the expert-parallel layout (its
-attention replicated); without torchrun the CLI serves in one process.
+A model with experts (``deepseek_moe_16b``, ``qwen3_moe_235b_a22b``,
+``jamba_1_5_large_398b``) needs ``--moe-impl shard_map`` under torchrun
+(the reference's ``RunConfig.moe_impl`` / dry-run flag; without it, it
+raises): its MoE layers run expert-parallel on the same grid
+(:func:`repro_torch.models.moe.apply_moe_shard_map`), attention and the
+shared experts split as above, the rank's shared-expert partial summed
+with its routed one.  ``gspmd`` (the default) serves in one process;
+``shard_map`` outside torchrun raises.  Ranks sharing a card sum over
+gloo through the host; across cards NCCL (not run anywhere):
 
   PYTHONPATH=src torchrun --standalone --nproc-per-node 4 \
       -m repro_torch.launch.serve --arch qwen3_14b --smoke --device cpu \
       --continuous-batching --prefill-chunk 8 --max-step-tokens 16 \
       --prompt-dist exact --requests 4
+  PYTHONPATH=src torchrun --standalone --nproc-per-node 2 \
+      -m repro_torch.launch.serve --arch deepseek_moe_16b --smoke \
+      --device cpu --moe-impl shard_map --continuous-batching \
+      --prefill-chunk 8 --max-step-tokens 16 --prompt-dist exact
+  PYTHONPATH=src torchrun --standalone --nproc-per-node 2 \
+      -m repro_torch.launch.serve --arch falcon_mamba_7b --smoke \
+      --device cpu --batch 2 --prompt-len 8 --new-tokens 4
 
 ``--ckpt`` loads a consensus export — the port's
 (``repro_torch.train.checkpoint.export_consensus``) or the reference's,
@@ -99,12 +97,13 @@ import torch
 
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.device import resolve_device
+from repro_torch.configs.base import layer_kinds
 from repro_torch.models import build_model, moe
 from repro_torch.models.transformer import init_lm_rank, lm_param_specs
 from repro_torch.serve import (ContinuousBatchingEngine, PagedCacheConfig,
                                greedy_generate, poisson_load)
-from repro_torch.weights import (expert_block, npz_params_digest,
-                                 params_digest, params_from_npz)
+from repro_torch.weights import (npz_params_digest, params_digest,
+                                 params_from_npz)
 
 __all__ = ["parser", "main"]
 
@@ -168,16 +167,17 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--moe-impl", choices=moe.MOE_IMPLS, default="gspmd",
                     help="MoE FFN: 'gspmd' = one process; 'shard_map' = "
                          "expert-parallel across torchrun's ranks, each "
-                         "holding E / world experts a layer")
+                         "holding E / world experts a layer, in the "
+                         "tensor-parallel serving layout (needed for a "
+                         "model with experts under torchrun)")
     return ap
 
 
 def _rank_grid(args, cfg):
-    """``(grid, layout)``: under ``--moe-impl shard_map`` the ``(1,
-    world)`` grid and ``"ep"`` (raises outside torchrun and for a model
-    with no experts); under torchrun a dense model's ``(1, world)`` grid
-    and ``"tp"``; else ``(None, None)``.  A grid joins torchrun's process
-    group."""
+    """Under torchrun a decoder model's ``(1, world)`` grid (it joins
+    torchrun's process group), else None.  ``--moe-impl shard_map`` raises
+    outside torchrun and for a model with no experts; a model with
+    experts under torchrun raises without it."""
     torchrun = "RANK" in os.environ and "WORLD_SIZE" in os.environ
     if args.moe_impl == "shard_map":
         if not torchrun:
@@ -188,14 +188,35 @@ def _rank_grid(args, cfg):
         if not cfg.n_experts:
             raise ValueError(f"--moe-impl shard_map needs an MoE model; "
                              f"{cfg.name} has no experts")
-        layout = "ep"
-    elif torchrun and cfg.family == "dense":
-        layout = "tp"
-    else:
-        return None, None
+    elif torchrun and cfg.n_experts:
+        raise ValueError(f"{cfg.name} has experts: under torchrun it is "
+                         "served expert-parallel with --moe-impl shard_map "
+                         "(its gspmd form has no multi-rank counterpart)")
+    if not torchrun or cfg.family == "encdec":
+        return None
     from repro_torch.launch.mesh import init_distributed, make_moe_mesh
     init_distributed(str(resolve_device(args.device)))
-    return make_moe_mesh(1), layout
+    return make_moe_mesh(1)
+
+
+def _tp_line(cfg, model, mesh) -> str:
+    """The rank's share of each split the layout makes (a model with
+    experts: a ``moe=shard_map`` line first)."""
+    M = mesh.axis_size("model")
+    kinds = set(layer_kinds(cfg))
+    parts = [f"tp grid={mesh.shape}"]
+    if any(m == "attn" for m, _ in kinds):
+        parts.append(f"heads/rank={cfg.n_heads // M}/{model.kv_heads}")
+    if any(f == "dense" for _, f in kinds):
+        parts.append(f"ffn/rank={(cfg.dense_d_ff or cfg.d_ff) // M}")
+    if cfg.n_shared_experts:
+        parts.append(f"shared_ffn/rank={cfg.n_shared_experts * cfg.d_ff // M}")
+    if any(m == "ssm" for m, _ in kinds):
+        parts.append(f"d_inner/rank={model.ssm_channels}")
+    parts += [f"vocab/rank={cfg.vocab_size // M}", f"backend={mesh.backend}"]
+    moe_line = (f"moe=shard_map grid={mesh.shape} experts/rank="
+                f"{cfg.n_experts // M}\n" if cfg.n_experts else "")
+    return moe_line + " ".join(parts)
 
 
 def _digest(obj) -> str:
@@ -216,31 +237,25 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     ``--continuous-batching`` (plus ``params_sha256`` with ``--ckpt``),
     else ``{"tokens": (B, new_tokens) ids, "seconds": s,
     "params_sha256": digest or None}``; both with ``token_digest`` (the
-    SHA-256 of the generated ids) and, on a rank grid (``--moe-impl
-    shard_map``, or a dense model under torchrun), ``rank_token_digests``
-    (every rank's, in rank order)."""
+    SHA-256 of the generated ids) and, on a rank grid (a decoder model
+    under torchrun), ``rank_token_digests`` (every rank's, in rank
+    order)."""
     args = parser().parse_args(argv)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if args.n_layers:
         cfg = dataclasses.replace(cfg, n_layers=args.n_layers)
-    mesh, layout = _rank_grid(args, cfg)
-    try:
-        return _serve(args, cfg, mesh, layout)
-    finally:
-        if layout == "ep":
-            moe.set_moe_mesh(None)
+    return _serve(args, cfg, _rank_grid(args, cfg))
 
 
-def _serve(args, cfg, mesh, layout) -> Dict[str, Any]:
+def _serve(args, cfg, mesh) -> Dict[str, Any]:
     device = resolve_device(args.device) if mesh is None else mesh.device
     say = print if mesh is None or mesh.rank == 0 else (lambda *a, **k: None)
-    model = build_model(cfg, decode_window=args.window,
-                        mesh=mesh if layout == "tp" else None)
+    model = build_model(cfg, decode_window=args.window, mesh=mesh)
     digest = None
     gen = torch.Generator(device=device).manual_seed(0)
-    m, M = ((mesh.axis_index("model"), mesh.axis_size("model"))
-            if mesh is not None else (0, 1))
-    if args.ckpt and layout == "tp":
+    if mesh is not None:
+        m, M = mesh.axis_index("model"), mesh.axis_size("model")
+    if args.ckpt and mesh is not None:
         digest = npz_params_digest(args.ckpt)
         params = params_from_npz(args.ckpt, device=device,
                                  block=(lm_param_specs(cfg), m, M))
@@ -250,22 +265,12 @@ def _serve(args, cfg, mesh, layout) -> Dict[str, Any]:
         params = params_from_npz(args.ckpt, device=device)
         digest = params_digest(params)
         say(f"loaded consensus params from {args.ckpt} (sha256 {digest})")
-        if mesh is not None:
-            params = {k: v.clone() if v.shape != params[k].shape else v
-                      for k, v in expert_block(params, m, M).items()}
     elif mesh is not None:
         params = init_lm_rank(cfg, gen, m, M)
     else:
         params = model.init(gen)
-    if layout == "ep":
-        moe.set_moe_mesh(mesh, "shard_map")
-        say(f"moe=shard_map grid={mesh.shape} experts/rank="
-            f"{cfg.n_experts // M} backend={mesh.backend}")
-    elif layout == "tp":
-        ff = cfg.dense_d_ff or cfg.d_ff
-        say(f"tp grid={mesh.shape} heads/rank={cfg.n_heads // M}/"
-            f"{model.kv_heads} ffn/rank={ff // M} vocab/rank="
-            f"{cfg.vocab_size // M} backend={mesh.backend}")
+    if mesh is not None:
+        say(_tp_line(cfg, model, mesh))
     grid = "" if mesh is None else f" grid={mesh.shape}"
 
     if args.continuous_batching:

@@ -22,8 +22,9 @@ attention as an argument: the kernels of
 
 ``param_specs`` / ``cache_specs`` are the reference's: ``() →`` the
 tensor-parallel :class:`~repro_torch.core.sharding.PartitionSpec` of
-every parameter path / of the cache tree (the dense family; other
-families raise ``NotImplementedError``).  ``build_model(cfg, mesh=grid)``
+every parameter path / of the cache tree (every decoder family; the
+encoder-decoder family raises ``NotImplementedError``).
+``build_model(cfg, mesh=grid)``
 builds the model's serving entries on a ``("data", "model")`` rank grid
 (:func:`repro_torch.launch.mesh.make_moe_mesh`): the params and caches
 they take are the rank's blocks under those specs
@@ -34,7 +35,10 @@ sums over the model axis where the reference's GSPMD would
 the reference's ``serve_param_specs`` under ``jax.jit(in_shardings=…)``,
 fixed at build time.  ``kv_heads`` is the KV heads a rank holds (the
 config's on one rank, K/M on the grid): the caches' and the paged pools'
-width.
+width; ``ssm_channels`` the SSM channels (``d_inner``, or ``d_inner /
+M``): an SSM state's.  Under the grid an MoE layer runs expert-parallel
+(:func:`repro_torch.models.moe.apply_moe_shard_map`) and ``loss``
+raises: the train path under TP is queued.
 """
 from __future__ import annotations
 
@@ -71,6 +75,7 @@ class Model:
     param_specs: Optional[Callable] = None   # () -> {path: PartitionSpec}
     cache_specs: Optional[Callable] = None   # () -> cache tree of specs
     kv_heads: Optional[int] = None   # a rank's KV heads (None: cfg's)
+    ssm_channels: Optional[int] = None   # a rank's d_inner (None: cfg's)
 
 
 def _build_encdec(cfg: ModelConfig, w: int) -> Model:
@@ -101,18 +106,20 @@ def _build_encdec(cfg: ModelConfig, w: int) -> Model:
 def build_model(cfg: ModelConfig, decode_window: int = 0,
                 mesh=None) -> Model:
     """The model of ``cfg``; with ``mesh`` (a ``("data", "model")`` rank
-    grid) its serving entries split over the model axis (dense family
-    only; a head count that does not split whole raises ``ValueError``)."""
+    grid) its serving entries split over the model axis (every decoder
+    family; a count that does not split whole raises ``ValueError``, the
+    encoder-decoder family ``NotImplementedError``)."""
     w = decode_window
+    if cfg.family == "encdec" and mesh is None:
+        return _build_encdec(cfg, w)
     if mesh is not None:
         from repro_torch.core.sharding import TensorParallel
         tp = TensorParallel(mesh)
         tf.check_tp_split(cfg, tp.size)
     else:
         tp = None
-    kv_heads = cfg.n_kv_heads // (1 if tp is None else tp.size)
-    if cfg.family == "encdec":
-        return _build_encdec(cfg, w)
+    M = 1 if tp is None else tp.size
+    kv_heads, ssm_channels = cfg.n_kv_heads // M, cfg.d_inner // M
     tf.param_specs(cfg)   # raises for a family this module does not run
 
     def prefill(params, batch):
@@ -125,7 +132,7 @@ def build_model(cfg: ModelConfig, decode_window: int = 0,
 
     def init_cache(batch, length, device=None):
         return tf.init_lm_cache(cfg, batch, length, device=device,
-                                n_kv_heads=kv_heads)
+                                n_kv_heads=kv_heads, d_inner=ssm_channels)
 
     def decode_step_paged(params, pools, token, positions, page_table,
                           kv_len, attn_fn):
@@ -166,4 +173,4 @@ def build_model(cfg: ModelConfig, decode_window: int = 0,
                  decode_step_mixed=decode_step_mixed,
                  param_specs=lambda: tf.lm_param_specs(cfg),
                  cache_specs=lambda: tf.lm_cache_specs(cfg),
-                 kv_heads=kv_heads)
+                 kv_heads=kv_heads, ssm_channels=ssm_channels)

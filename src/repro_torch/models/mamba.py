@@ -15,10 +15,18 @@ captured in a CUDA graph.
 
 Decode is the one-step recurrence on a fixed-size state: ``h`` (B, d_inner,
 d_state) in f32 and the conv tail (B, conv − 1, d_inner).
+
+Tensor parallelism: a rank of the model axis holds ``d_inner / M``
+channels (``in_proj``'s paired columns of x and z, ``conv_w``,
+``dt_proj``, ``dt_bias``, ``A_log``, ``D``, the rows of ``x_proj`` and
+``out_proj``; :func:`repro_torch.models.transformer.lm_param_specs`) and
+their state.  The scan runs per channel and needs no collective;
+``reduce`` sums ``x_proj``'s and ``out_proj``'s row-parallel partials
+over the model axis: two sums a layer.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -88,14 +96,16 @@ def init_mamba(cfg, generator: torch.Generator) -> Dict[str, torch.Tensor]:
             for name, (shape, dt, init) in sorted(ssm_specs(cfg, 1).items())}
 
 
-def init_ssm_cache(cfg, batch: int, dtype=None, device=None
-                   ) -> Dict[str, torch.Tensor]:
+def init_ssm_cache(cfg, batch: int, dtype=None, device=None,
+                   d_inner: Optional[int] = None) -> Dict[str, torch.Tensor]:
     """Zero decode state of one layer: ``h`` (B, d_inner, d_state) f32 and
     the conv tail (B, conv − 1, d_inner) in ``dtype`` (f32 by default, as
-    the reference's)."""
-    return {"h": torch.zeros((batch, cfg.d_inner, cfg.ssm_state),
+    the reference's); ``d_inner`` the channels a tensor-parallel rank
+    holds (default the config's)."""
+    di = d_inner or cfg.d_inner
+    return {"h": torch.zeros((batch, di, cfg.ssm_state),
                              dtype=torch.float32, device=device),
-            "conv": torch.zeros((batch, cfg.ssm_conv - 1, cfg.d_inner),
+            "conv": torch.zeros((batch, cfg.ssm_conv - 1, di),
                                 dtype=dtype or torch.float32, device=device)}
 
 
@@ -204,10 +214,13 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
 
 def apply_mamba(p: Dict[str, torch.Tensor], cfg, x: torch.Tensor, *,
                 mode: str = "train", cache: Optional[Dict] = None,
-                chunk: int = 256) -> Tuple[torch.Tensor, Optional[Dict]]:
+                chunk: int = 256, reduce: Optional[Callable] = None
+                ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Mamba block with pre-norm and residual: ``mode="train"`` scans the
     whole sequence (the prefill passes a zero ``cache`` and gets the final
     state back), ``"decode"`` takes one step (S = 1) from ``cache``.
+    ``reduce`` sums a tensor-parallel rank's ``x_proj`` and ``out_proj``
+    partials over the model axis (see the module's note).
     Returns (y, new cache or None); the cache passed in is not written."""
     resid = x
     h = rms_norm(x, p["ln"], cfg.norm_eps)
@@ -216,7 +229,10 @@ def apply_mamba(p: Dict[str, torch.Tensor], cfg, x: torch.Tensor, *,
     conv_state = cache["conv"] if cache is not None else None
     xr, new_conv = _causal_conv(xr, p["conv_w"], p["conv_b"], conv_state)
     xr = F.silu(xr)
-    dt_r, Bc, Cc = (xr @ p["x_proj"]).split([r, s, s], dim=-1)
+    xp = xr @ p["x_proj"]
+    if reduce is not None:
+        xp = reduce(xp)
+    dt_r, Bc, Cc = xp.split([r, s, s], dim=-1)
     dt = _softplus(dt_r.float() @ p["dt_proj"] + p["dt_bias"])  # (B, S, di)
     A = -torch.exp(p["A_log"])                          # (di, s)
     a = torch.exp(dt[..., None] * A)                    # (B, S, di, s)
@@ -234,6 +250,8 @@ def apply_mamba(p: Dict[str, torch.Tensor], cfg, x: torch.Tensor, *,
     y = y + p["D"] * xr.float()
     y = y.to(h.dtype) * F.silu(z)
     out = y @ p["out_proj"]
+    if reduce is not None:
+        out = reduce(out)
     new_cache = None
     if cache is not None:
         # a copy: the conv tail is a view of the padded input

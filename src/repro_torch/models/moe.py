@@ -213,7 +213,8 @@ def apply_moe(p: Dict, cfg, x: torch.Tensor, eps: float
     return x + y, cfg.router_aux_coef * aux
 
 
-def apply_moe_shard_map(p: Dict, cfg, x: torch.Tensor, eps: float, mesh
+def apply_moe_shard_map(p: Dict, cfg, x: torch.Tensor, eps: float, mesh, *,
+                        tp: bool = False
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The expert-parallel MoE FFN on a ``("data", "model")`` rank grid:
     the reference's ``apply_moe_shard_map``, one process a rank.
@@ -232,6 +233,13 @@ def apply_moe_shard_map(p: Dict, cfg, x: torch.Tensor, eps: float, mesh
     over the data axis and the rows are all-gathered back to the whole
     ``(T, d)`` (the reference's GSPMD keeps them sharded instead).  The
     shared experts run on the whole ``h`` after the sum.
+
+    ``tp=True`` is the tensor-parallel serving layout
+    (:func:`repro_torch.models.transformer.lm_param_specs`): the shared
+    experts hold the rank's columns of ``w_gate`` / ``w_up`` and rows of
+    ``w_down``, and their partial is added to the routed partial before
+    the one sum, which is tagged ``tp``; the reference's GSPMD sums the
+    shared partial in an all-reduce of its own (ROADMAP §3).
 
     The gradient is the reference's: a replicated leaf's gradient is the
     whole one on every rank (the partial path's parts summed over the
@@ -272,13 +280,17 @@ def apply_moe_shard_map(p: Dict, cfg, x: torch.Tensor, eps: float, mesh
     own = (idx >= lo) & (idx < lo + E_l)
     idx_local = torch.where(own, idx - lo, torch.full_like(idx, E_l))
     out = _experts(flat, w, idx_local, wg, wu, wd, C)
+    shared = p.get("shared")
+    if tp and shared is not None:
+        out = out + swiglu(flat, shared["w_gate"], shared["w_up"],
+                           shared["w_down"])
+        shared = None
     if M > 1:
-        out = comm.psum(out, mg, M)
+        out = comm.psum(out, mg, M, tag="tp" if tp else "moe")
     if use_dp:
         aux = comm.psum(aux, dg, dp) / dp
         out = comm.gather_rows(out, dg, dp, di)
     y = out.reshape(B, S, d)
-    if "shared" in p:
-        sp = p["shared"]
-        y = y + swiglu(h, sp["w_gate"], sp["w_up"], sp["w_down"])
+    if shared is not None:
+        y = y + swiglu(h, shared["w_gate"], shared["w_up"], shared["w_down"])
     return x + y, cfg.router_aux_coef * aux

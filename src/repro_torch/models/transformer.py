@@ -29,7 +29,7 @@ SSM position's cache is ``{"h", "conv"}``, the fixed-size decode state,
 so a hybrid model's caches are a tuple of both kinds; the paged entries
 cover attention mixers only, as the reference's.
 
-Tensor parallelism (the dense family): :func:`lm_param_specs` /
+Tensor parallelism (every family here): :func:`lm_param_specs` /
 :func:`lm_cache_specs` are the reference's partition specs, and the
 serving entries take ``tp`` (a
 :class:`repro_torch.core.sharding.TensorParallel`) to run on a rank's
@@ -49,13 +49,14 @@ from .attention import (apply_attn, apply_attn_paged,
                         apply_attn_paged_prefill, init_kv_cache)
 from .layers import apply_dense_ffn, init_leaf, rms_norm
 from .mamba import apply_mamba, init_ssm_cache, ssm_specs
-from .moe import apply_moe, expert_axis
+from .moe import apply_moe, apply_moe_shard_map, expert_axis
 
 __all__ = ["param_specs", "param_meta", "meta_from_specs", "init_lm",
            "init_lm_rank", "init_from_specs", "lm_loss", "init_lm_cache",
            "lm_prefill", "lm_decode_step", "lm_decode_step_paged",
            "lm_prefill_chunk_paged", "lm_serve_step_mixed",
-           "lm_param_specs", "lm_cache_specs", "check_tp_split"]
+           "lm_param_specs", "expert_param_specs", "lm_cache_specs",
+           "check_tp_split"]
 
 # (shape, dtype, init): init is the truncated-normal fan-in (an int),
 # None for a zero-initialised leaf (norm weights, QKV biases), or a
@@ -173,14 +174,19 @@ def meta_from_specs(specs: Dict[str, Spec]) -> Dict[str, torch.Tensor]:
 # lm_cache_specs; see repro_torch.core.sharding)
 # ---------------------------------------------------------------------------
 
-_TP_QUEUE = ("tensor parallelism covers the dense family in this port; "
-             "the MoE (EP + TP), SSM, hybrid, VLM and encoder-decoder "
-             "layouts are queued in ROADMAP §1 (the TP slices)")
+_ENCDEC_TP = ("the encoder-decoder family's tensor-parallel layout "
+              "(encdec_param_specs) is queued in ROADMAP §1 item 8.2: "
+              "whisper_small's 51,865 vocabulary rows split over no M > 1 "
+              "in whole blocks, and an uneven vocabulary split is a slice of "
+              "its own")
 
 
-def _check_tp_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
-        raise NotImplementedError(f"{cfg.name} ({cfg.family}): {_TP_QUEUE}")
+def _check_tp_family(cfg: ModelConfig):
+    """The period's layer kinds of a family with a TP layout (every
+    decoder family); the encoder-decoder family raises."""
+    if cfg.family == "encdec":
+        raise NotImplementedError(f"{cfg.name} ({cfg.family}): {_ENCDEC_TP}")
+    return _check_family(cfg)
 
 
 def _attn_partition(cfg: ModelConfig) -> Dict:
@@ -196,63 +202,132 @@ def _attn_partition(cfg: ModelConfig) -> Dict:
     return sp
 
 
-def _ffn_partition(cfg: ModelConfig) -> Dict:
+def _ffn_partition(cfg: ModelConfig, gated: Optional[bool] = None) -> Dict:
     """The dense FFN's specs: ``w_gate`` / ``w_up`` column-wise, ``w_down``
-    row-wise."""
+    row-wise (``gated``: default the config's ``mlp_gated``)."""
     from repro_torch.core.sharding import P
     sp = {"ln": P(None), "w_up": P(None, "model"), "w_down": P("model", None)}
-    if cfg.mlp_gated:
+    if cfg.mlp_gated if gated is None else gated:
         sp["w_gate"] = P(None, "model")
     return sp
 
 
-def lm_param_specs(cfg: ModelConfig) -> Dict:
-    """``{path: PartitionSpec}`` of every parameter of a dense model, the
-    reference's ``lm_param_specs`` path by path: the embedding split over
-    the vocabulary, ``lm_head`` over its columns, the attention and FFN
-    leaves as :func:`_attn_partition` / :func:`_ffn_partition`, the
-    stacked leading dim ``None`` (the reference's ``_prepend(s, None)``).
-    Other families raise ``NotImplementedError``."""
+def _moe_partition(cfg: ModelConfig) -> Dict:
+    """The MoE FFN's specs: ``ln`` and the router replicated, the experts
+    over the model axis (expert parallelism), the shared experts as the
+    gated dense FFN's (columns of ``w_gate`` / ``w_up``, rows of
+    ``w_down``), with no norm of their own."""
     from repro_torch.core.sharding import P
-    _check_tp_family(cfg)
-    kinds = _check_family(cfg)
+    sp = {"ln": P(None), "router": P(None, None),
+          "w_gate": P("model", None, None), "w_up": P("model", None, None),
+          "w_down": P("model", None, None)}
+    if cfg.n_shared_experts:
+        shared = _ffn_partition(cfg, gated=True)
+        del shared["ln"]
+        sp.update({f"shared|{k}": v for k, v in shared.items()})
+    return sp
+
+
+def _ssm_partition(cfg: ModelConfig) -> Dict:
+    """The Mamba block's specs: ``in_proj``, ``conv_w`` and ``dt_proj``
+    over their ``d_inner`` columns, ``conv_b``, ``dt_bias`` and ``D`` by
+    entries, ``x_proj``, ``A_log`` and ``out_proj`` by rows — a rank's
+    channels.  ``in_proj``'s cut is paired (``groups=2``: the same
+    channels of x and of z; see :mod:`repro_torch.core.sharding`)."""
+    from repro_torch.core.sharding import P
+    return {"ln": P(None), "in_proj": P(None, "model", groups=2),
+            "conv_w": P(None, "model"), "conv_b": P("model"),
+            "x_proj": P("model", None), "dt_proj": P(None, "model"),
+            "dt_bias": P("model"), "A_log": P("model", None), "D": P("model"),
+            "out_proj": P("model", None)}
+
+
+def lm_param_specs(cfg: ModelConfig) -> Dict:
+    """``{path: PartitionSpec}`` of every parameter, the reference's
+    ``lm_param_specs`` path by path: the embedding split over the
+    vocabulary, ``lm_head`` over its columns, each layer's mixer and FFN
+    leaves as :func:`_attn_partition` / :func:`_ssm_partition` and
+    :func:`_ffn_partition` / :func:`_moe_partition`, the stacked leading
+    dim ``None`` (the reference's ``_prepend(s, None)``).  The
+    encoder-decoder family raises ``NotImplementedError``."""
+    from repro_torch.core.sharding import P
+    kinds = _check_tp_family(cfg)
     specs = {"embed": P("model", None), "final_ln": P(None),
              "lm_head": P(None, "model")}
-    for pi, _ in enumerate(kinds):
-        for sub, sp in (("attn", _attn_partition(cfg)),
-                        ("ffn", _ffn_partition(cfg))):
-            specs.update({f"blocks|{pi}|{sub}|{name}": P(None, *s)
+    for pi, (mixer, ffn) in enumerate(kinds):
+        subs = [("ssm", _ssm_partition(cfg)) if mixer == "ssm"
+                else ("attn", _attn_partition(cfg))]
+        if ffn == "moe":
+            subs.append(("moe", _moe_partition(cfg)))
+        elif ffn == "dense":
+            subs.append(("ffn", _ffn_partition(cfg)))
+        for sub, sp in subs:
+            specs.update({f"blocks|{pi}|{sub}|{name}": P(None, *s,
+                                                          groups=s.groups)
                           for name, s in sp.items()})
     return specs
 
 
-def lm_cache_specs(cfg: ModelConfig) -> Tuple[Dict, ...]:
-    """The reference's ``lm_cache_specs``: a tuple over period positions
-    of ``{"k", "v"}`` specs of the stacked ``(n_blocks, B, S, K, hd)``
-    caches, the batch over ``data`` and the KV heads over ``model``.
-    Other families raise ``NotImplementedError``."""
+def expert_param_specs(paths) -> Dict:
+    """The expert-parallel layout of ``paths``: each MoE expert leaf split
+    over the model axis along its expert dim (:func:`expert_axis`), every
+    other leaf whole — :func:`lm_param_specs`' expert entries alone (the
+    layout of :func:`~repro_torch.models.moe.set_moe_mesh`'s
+    ``"shard_map"`` path)."""
     from repro_torch.core.sharding import P
-    _check_tp_family(cfg)
+    out = {}
+    for path in paths:
+        ax = expert_axis(path)
+        out[path] = P() if ax is None else P(*([None] * ax), "model")
+    return out
+
+
+def lm_cache_specs(cfg: ModelConfig) -> Tuple[Dict, ...]:
+    """The reference's ``lm_cache_specs``: a tuple over period positions,
+    the batch over ``data`` and the model axis over an attention cache's
+    KV heads (``{"k", "v"}`` of ``(n_blocks, B, S, K, hd)``) or an SSM
+    state's channels (``{"h", "conv"}`` of ``(n_blocks, B, d_inner,
+    d_state)`` and ``(n_blocks, B, conv − 1, d_inner)``).  The
+    encoder-decoder family raises ``NotImplementedError``."""
+    from repro_torch.core.sharding import P
     one = P(None, "data", None, "model", None)
-    return tuple({"k": one, "v": one} for _ in _check_family(cfg))
+    return tuple({"h": P(None, "data", "model", None),
+                  "conv": P(None, "data", None, "model")} if mixer == "ssm"
+                 else {"k": one, "v": one}
+                 for mixer, _ in _check_tp_family(cfg))
 
 
 def check_tp_split(cfg: ModelConfig, count: int) -> None:
     """Raise ``ValueError`` unless ``count`` model ranks can hold ``cfg``
-    in whole heads: rank r holds query heads ``[r·H/M, (r+1)·H/M)`` and KV
-    heads ``[r·K/M, (r+1)·K/M)`` (GQA's ``h // G`` pairing stays on the
-    rank), ``ff / M`` FFN columns and ``V / M`` vocabulary rows.  Other
-    families raise ``NotImplementedError``."""
-    _check_tp_family(cfg)
-    ff = cfg.dense_d_ff or cfg.d_ff
-    for what, n in (("KV heads", cfg.n_kv_heads), ("query heads",
-                    cfg.n_heads), ("FFN columns", ff),
-                    ("vocabulary rows", cfg.vocab_size)):
+    whole blocks of what its layout splits: where it has attention
+    layers, whole heads (rank r holds query heads ``[r·H/M, (r+1)·H/M)``
+    and KV heads ``[r·K/M, (r+1)·K/M)``, so GQA's ``h // G`` pairing
+    stays on the rank); the dense FFN's columns; the experts and the
+    shared experts' ``n_shared · d_ff`` columns; the SSM's ``d_inner``
+    channels; the vocabulary rows.  The encoder-decoder family raises
+    ``NotImplementedError``."""
+    kinds = _check_tp_family(cfg)
+    mixers = {m for m, _ in kinds}
+    ffns = {f for _, f in kinds}
+    splits = [("vocabulary rows", cfg.vocab_size)]
+    if "attn" in mixers:
+        splits += [("KV heads", cfg.n_kv_heads),
+                   ("query heads", cfg.n_heads)]
+    if "dense" in ffns:
+        splits.append(("FFN columns", cfg.dense_d_ff or cfg.d_ff))
+    if "moe" in ffns:
+        splits.append(("experts", cfg.n_experts))
+        if cfg.n_shared_experts:
+            splits.append(("shared-expert columns",
+                           cfg.n_shared_experts * cfg.d_ff))
+    if "ssm" in mixers:
+        splits.append(("SSM channels (d_inner)", cfg.d_inner))
+    for what, n in splits:
         if n % count:
             raise ValueError(
                 f"{cfg.name}: {n} {what} do not split whole over {count} "
-                "model ranks (a rank holds whole heads, so that each query "
-                "head's KV head is on the same rank)")
+                "model ranks (a rank holds whole blocks: whole heads, so "
+                "that each query head's KV head is on the same rank)")
 
 
 def init_lm(cfg: ModelConfig, generator: torch.Generator
@@ -269,71 +344,69 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator
 
 
 def init_lm_rank(cfg: ModelConfig, generator: torch.Generator,
-                 index: int, count: int) -> Dict[str, torch.Tensor]:
+                 index: int, count: int, specs: Optional[Dict] = None
+                 ) -> Dict[str, torch.Tensor]:
     """Model rank ``index`` of ``count``'s parameters: :func:`init_lm`'s
-    draws, of which the rank keeps its block.  An MoE model's rank keeps
-    every leaf whole but the expert leaves, of which it keeps experts
-    ``[index·E/count, (index+1)·E/count)`` (the expert-parallel layer;
-    bit-equal to :func:`repro_torch.weights.expert_block` of
-    :func:`init_lm`'s dict).  A dense model's rank keeps its block of every
-    leaf :func:`lm_param_specs` splits over ``model`` (tensor
-    parallelism; bit-equal to
+    draws, of which the rank keeps its block of every leaf that ``specs``
+    (``{path: PartitionSpec}``; default :func:`lm_param_specs`, the
+    tensor-parallel layout) splits over ``model`` — bit-equal to
     :func:`repro_torch.core.sharding.shard_params` of :func:`init_lm`'s
-    dict).  Neither ever holds the whole model: a stacked leaf is drawn
-    one layer slice at a time, so the peak is the rank's parameters plus
-    one layer's draw."""
-    specs = param_specs(cfg)
-    if cfg.n_experts:
-        E = cfg.n_experts
-        if E % count:
-            raise ValueError(f"{E} experts do not split over {count} model "
-                             "ranks")
-        n = E // count
-        keep = {p: (1, index * n, (index + 1) * n) for p in specs
-                if expert_axis(p) is not None}
-        return init_from_specs(specs, generator, keep)
+    dict, a paired cut included.  The expert-parallel layout (every leaf
+    whole but the expert leaves) is ``specs=expert_param_specs(...)``
+    (bit-equal to :func:`repro_torch.weights.expert_block`).  The rank
+    never holds the whole model: a stacked leaf is drawn one layer slice
+    at a time, so the peak is the rank's parameters plus one layer's
+    draw."""
     from repro_torch.core.sharding import block_bounds
-    check_tp_split(cfg, count)
+    shapes = param_specs(cfg)
+    if specs is None:
+        check_tp_split(cfg, count)
+        specs = lm_param_specs(cfg)
     keep = {}
-    for path, spec in lm_param_specs(cfg).items():
-        cut = block_bounds(specs[path][0], spec, {"model": (index, count)},
-                           path)
-        if cut:
-            (keep[path],) = cut         # one split dim a leaf
-    return init_from_specs(specs, generator, keep)
+    for path, spec in specs.items():
+        bounds = block_bounds(shapes[path][0], spec,
+                              {"model": (index, count), "data": (0, 1)}, path)
+        if bounds:
+            (keep[path],) = bounds      # one split dim a leaf
+    return init_from_specs(shapes, generator, keep)
 
 
 def init_from_specs(specs: Dict[str, Spec], generator: torch.Generator,
-                    keep: Dict[str, Tuple[int, int, int]] = None
+                    keep: Dict[str, Tuple[int, int, int, int]] = None
                     ) -> Dict[str, torch.Tensor]:
     """Every leaf of ``specs`` drawn in sorted path order (see
     :func:`init_lm`); a stacked leaf — one whose first path component
     ends in ``blocks`` — one leading-index slice at a time.  ``keep``
-    maps a leaf's path to ``(axis, lo, hi)``: of each drawn leaf (a
-    stacked leaf: of each drawn slice) only ``[lo, hi)`` along ``axis``
+    maps a leaf's path to ``(axis, lo, hi, groups)``
+    (:func:`repro_torch.core.sharding.block_bounds`): of each drawn leaf
+    (a stacked leaf: of each drawn slice) only that block along ``axis``
     of the whole leaf is kept (the draws, and so every later leaf's bits,
     are the whole init's)."""
+    from repro_torch.core.sharding import cut
     keep = keep or {}
     params = {}
     for path in sorted(specs):
         shape, dt, init = specs[path]
-        axis, lo, hi = keep.get(path, (None, None, None))
+        axis, lo, hi, groups = keep.get(path, (None, 0, 0, 1))
         kept = list(shape)
         if axis is not None:
-            kept[axis] = hi - lo
+            kept[axis] = (hi - lo) * groups
         if path.split("|", 1)[0].endswith("blocks"):
             if axis == 0:
                 raise ValueError(f"{path}: the stacked dim is not split")
             leaf = torch.empty(kept, dtype=dt, device=generator.device)
             for b in range(shape[0]):
                 one = init_leaf(shape[1:], dt, init, generator)
-                leaf[b] = one if axis is None else one.narrow(axis - 1, lo,
-                                                              hi - lo)
+                leaf[b] = one if axis is None else cut(one, axis - 1, lo, hi,
+                                                       groups)
+                # freed before the next draw: two alive at once would
+                # double the peak (a Jamba MoE slice is 12.9 GB in f32)
+                del one
             params[path] = leaf
         else:
             leaf = init_leaf(shape, dt, init, generator)
             if axis is not None:
-                leaf = leaf.narrow(axis, lo, hi - lo).clone()
+                leaf = cut(leaf, axis, lo, hi, groups).clone()
             params[path] = leaf
     return params
 
@@ -364,8 +437,13 @@ def _layers(cfg: ModelConfig, params: Dict[str, torch.Tensor]
 def _ffn(cfg: ModelConfig, lp: Dict, x: torch.Tensor, tp=None):
     """The layer's FFN with residual: (x, the MoE layer's
     ``router_aux_coef · aux``, or None for a dense layer).  A Mamba layer
-    has no FFN: x passes through.  ``tp``: see :func:`_reduce`."""
+    has no FFN: x passes through.  ``tp``: see :func:`_reduce`; an MoE
+    layer runs expert-parallel on the same grid, its shared experts'
+    partial folded into the one sum."""
     if "moe" in lp:
+        if tp is not None:
+            return apply_moe_shard_map(lp["moe"], cfg, x, cfg.norm_eps,
+                                       tp.mesh, tp=True)
         return apply_moe(lp["moe"], cfg, x, cfg.norm_eps)
     if "ffn" in lp:
         return apply_dense_ffn(lp["ffn"], x, cfg.norm_eps,
@@ -458,11 +536,15 @@ def lm_loss(cfg: ModelConfig, params: Dict[str, torch.Tensor],
 # :class:`repro_torch.core.sharding.TensorParallel` of the rank grid, with
 # the params sharded by ``shard_params(params, lm_param_specs(cfg), mesh)``
 # (or drawn so by :func:`init_lm_rank`) and the caches / pools holding the
-# rank's KV heads.  Per forward: one sum for the vocab-parallel embedding,
-# one after each layer's ``wo`` and one after its ``w_down`` (before the
-# residual), one all-gather of the vocab-parallel logits: a decode step
-# makes 2L + 1 sums and one gather, a mixed step twice that (its decode
-# rows and its chunk run separately).  ``tp=None``: the weights are whole.
+# rank's KV heads or SSM channels.  Per forward: one sum for the
+# vocab-parallel embedding, two a layer — after the mixer (``wo``, or a
+# Mamba block's ``out_proj``) and after the FFN (``w_down``, or the MoE
+# layer's routed + shared partial), each before its residual; a Mamba
+# layer has no FFN and sums its ``x_proj`` product instead — and one
+# all-gather of the vocab-parallel logits: a decode step makes 2L + 1 sums
+# and one gather, a mixed step twice that (its decode rows and its chunk
+# run separately).  A VLM's frontend rows join after the embedding's sum.
+# ``tp=None``: the weights are whole.
 
 def _reduce(tp):
     return None if tp is None else tp.psum
@@ -490,20 +572,23 @@ def _stack_index(cfg: ModelConfig):
 
 
 def init_lm_cache(cfg: ModelConfig, batch: int, length: int, *,
-                  device=None, n_kv_heads: Optional[int] = None
+                  device=None, n_kv_heads: Optional[int] = None,
+                  d_inner: Optional[int] = None
                   ) -> Tuple[Dict[str, torch.Tensor], ...]:
     """Zero caches, a tuple over period positions of stacked leaves:
     ``(n_blocks, batch, length, K, hd)`` ``k`` / ``v`` for attention (K
     ``n_kv_heads``, a tensor-parallel rank's: ``Model.kv_heads``; default
     the config's), and for an SSM position the
     fixed-size state, ``h`` ``(n_blocks, batch, d_inner, d_state)`` f32
-    and ``conv`` ``(n_blocks, batch, conv − 1, d_inner)``
+    and ``conv`` ``(n_blocks, batch, conv − 1, d_inner)`` (``d_inner`` a
+    rank's channels: ``Model.ssm_channels``; default the config's)
     (``device="meta"`` gives the shapes without allocating)."""
     kinds = _check_family(cfg)
     nb = cfg.n_layers // len(kinds)
     out = []
     for mixer, _ in kinds:
-        one = (init_ssm_cache(cfg, batch, device=device) if mixer == "ssm"
+        one = (init_ssm_cache(cfg, batch, device=device, d_inner=d_inner)
+               if mixer == "ssm"
                else init_kv_cache(cfg, batch, length, device=device,
                                   n_kv_heads=n_kv_heads))
         out.append({k: v[None].expand(nb, *v.shape).contiguous()
@@ -527,8 +612,9 @@ def lm_prefill(cfg: ModelConfig, params, tokens, *, frontend=None,
     for lp in _layers(cfg, params):
         if "ssm" in lp:
             x, cache = apply_mamba(
-                lp["ssm"], cfg, x,
-                cache=init_ssm_cache(cfg, B, device=tokens.device))
+                lp["ssm"], cfg, x, reduce=_reduce(tp),
+                cache=init_ssm_cache(cfg, B, device=tokens.device,
+                                     d_inner=lp["ssm"]["D"].shape[-1]))
         else:
             x, cache = apply_attn(lp["attn"], cfg, x, positions,
                                   mode="prefill", window=window,
@@ -557,7 +643,7 @@ def lm_decode_step(cfg: ModelConfig, params, caches, token, pos, *,
         layer_cache = {name: c[b] for name, c in caches[pi].items()}
         if "ssm" in lp:
             x, new = apply_mamba(lp["ssm"], cfg, x, mode="decode",
-                                 cache=layer_cache)
+                                 cache=layer_cache, reduce=_reduce(tp))
             for name, c in new.items():
                 layer_cache[name].copy_(c)
         else:

@@ -69,7 +69,7 @@ def scale_specs_multipod(spec_tree):
     from repro_torch.core.sharding import PartitionSpec
     if isinstance(spec_tree, PartitionSpec):
         return PartitionSpec(*(("pod", "data") if e == "data" else e
-                               for e in spec_tree))
+                               for e in spec_tree), groups=spec_tree.groups)
     if isinstance(spec_tree, dict):
         return {k: scale_specs_multipod(v) for k, v in spec_tree.items()}
     return type(spec_tree)(scale_specs_multipod(v) for v in spec_tree)

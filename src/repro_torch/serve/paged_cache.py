@@ -110,11 +110,15 @@ def paged_pool_specs(cfg: ModelConfig):
     """The reference's ``paged_pool_specs``: the pools' KV heads over
     ``model``, pages unsplit (the page gather is slot-local, so the paged
     decode step needs no collective for its pools), one ``{"k", "v"}``
-    a period position.  Other families than the dense raise
+    a period position.  A family with SSM mixers (paged pools cover
+    attention only) or the encoder-decoder family raises
     ``NotImplementedError``."""
     from repro_torch.core.sharding import P
     from repro_torch.models.transformer import lm_cache_specs
-    lm_cache_specs(cfg)            # the dense family only, as its caches
+    if any("h" in c for c in lm_cache_specs(cfg)):
+        raise NotImplementedError(
+            f"{cfg.name}: paged pools cover attention mixers only (an SSM "
+            "layer's state is fixed-size: serve it through greedy_generate)")
     spec = {"k": P(None, None, None, "model", None),
             "v": P(None, None, None, "model", None)}
     return tuple(dict(spec) for _ in range(block_period(cfg)))

@@ -40,7 +40,6 @@ import numpy as np
 import torch
 
 from repro_torch.core import bus as parambus
-from repro_torch.models.moe import expert_axis
 
 __all__ = ["array_to_tensor", "tensor_to_array", "params_from_tree",
            "params_from_npz", "params_digest", "npz_params_digest",
@@ -239,26 +238,17 @@ def rank_state_from_arrays(state: Mapping[str, Any], a0: int, B: int,
 def expert_block(params, index: int, count: int):
     """``params`` with every MoE expert leaf cut to model rank ``index``
     of ``count``'s block of experts, ``[index·E/count, (index+1)·E/count)``
-    along :func:`expert_axis`; every other leaf as it is.  ``params`` is a
-    ``{path: tensor or array}`` dict or a nested numpy tree (as
-    :func:`params_from_tree` takes it, e.g. ``jax.tree.map(np.asarray,
-    params)``), which comes back as a flat ``{path: array}`` dict.  The
-    blocks are views of the given leaves."""
+    along its expert dim; every other leaf as it is: :func:`tp_block`
+    under the expert-parallel layout
+    (:func:`repro_torch.models.transformer.expert_param_specs`).
+    ``params`` is a ``{path: tensor or array}`` dict or a nested numpy
+    tree (as :func:`params_from_tree` takes it, e.g.
+    ``jax.tree.map(np.asarray, params)``), which comes back as a flat
+    ``{path: array}`` dict.  A cut leaf is a copy of its block."""
+    from repro_torch.models.transformer import expert_param_specs
     flat: Dict[str, Any] = {}
     _walk(params, "", flat)
-    out = {}
-    for path, leaf in flat.items():
-        ax = expert_axis(path)
-        if ax is not None:
-            E = leaf.shape[ax]
-            if E % count:
-                raise ValueError(f"{path}: {E} experts do not split over "
-                                 f"{count} model ranks")
-            n = E // count
-            sl = [slice(None)] * ax + [slice(index * n, (index + 1) * n)]
-            leaf = leaf[tuple(sl)]
-        out[path] = leaf
-    return out
+    return tp_block(flat, expert_param_specs(flat), index, count)
 
 
 def tp_block(params, specs, index: int, count: int):

@@ -316,6 +316,14 @@ DECODE_CASES = [
     # the 8-row register bucket, bf16 5 of an m16 tile's rows), 8 slots
     dict(B=8, K=2, G=5, hd=128, page_size=16,
          kv_len=[1024, 0, 256, 700, 1, 513, 129, 900]),
+    # tensor-parallel ranks over 4: deepseek_moe_16b's (K 4, G 1),
+    # pixtral_12b's (K 2, G 4) and jamba_1_5_large_398b's (K 2, G 8)
+    dict(B=8, K=4, G=1, hd=128, page_size=16,
+         kv_len=[1024, 0, 256, 700, 1, 513, 129, 900]),
+    dict(B=8, K=2, G=4, hd=128, page_size=16,
+         kv_len=[1024, 0, 256, 700, 1, 513, 129, 900]),
+    dict(B=8, K=2, G=8, hd=128, page_size=16,
+         kv_len=[1024, 0, 256, 700, 1, 513, 129, 900]),
 ]
 
 
@@ -426,7 +434,13 @@ PREFILL_CASES = [(w, s, C, n, 2, 2, 8, 4, 6, 16) for w, s, C, n in [
     # query rows a KV head), few blocks at a short history
     (w, s, 128, n, 2, 5, 128, 16, 64, 80)
     for w, s, n in ((0, 0, 128), (0, 128, 128), (0, 640, 128),
-                    (0, 640, 77), (0, 896, 128), (256, 640, 128))]
+                    (0, 640, 77), (0, 896, 128), (256, 640, 128))] + [
+    # tensor-parallel ranks over 4: deepseek_moe_16b's (K 4, G 1),
+    # pixtral_12b's (K 2, G 4) and jamba_1_5_large_398b's (K 2, G 8)
+    (w, s, 128, n, K, G, 128, 16, 64, 80)
+    for K, G in ((4, 1), (2, 4), (2, 8))
+    for w, s, n in ((0, 0, 128), (0, 640, 128), (0, 640, 77),
+                    (256, 640, 128))]
 # the edges of the bf16 kernel's tiles and splits: 100 earlier rows (not
 # a multiple of the 64-key tile or of a split), a 1-token chunk after 700
 # rows, a 256-row ring with the chunk past the window, a 96-row ring at
@@ -2512,17 +2526,181 @@ def _tp_rank(rank, world, d):
     dist.destroy_process_group()
 
 
+# 4-rank cases at full width, each (dtype, depth cut): pixtral_12b at 2
+# layers (K 2, G 4 a rank), a frontend batch and the paged engine;
+# jamba_1_5_large_398b with every kind of layer — f32 at 3 layers (its
+# attention layer moved to position 2, so that the f32 model fits the
+# card twice over: 51.7 GB) and bf16 at phase 21's 5 (48.1 GB)
+TP_FULL = {"pixtral_12b": [("float32", dict(n_layers=2))],
+           "jamba_1_5_large_398b": [
+               ("float32", dict(n_layers=3, attn_every=3, attn_offset=2)),
+               ("bfloat16", dict(n_layers=5))]}
+TP_FULL_BATCH = (2, 64, 8)      # prompts, prompt length, new tokens
+
+
+def _tp_full_config(arch, dtype, cut):
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch), dtype=dtype, **cut)
+
+
+def _tp_full_run(model, params):
+    """The fixed batch through ``greedy_generate`` (a VLM: with seeded
+    frontend embeddings) and, for a model of attention mixers only, the
+    paged engine (the kernels) on a closed trace of 4 requests: tokens
+    and launch counts."""
+    import dataclasses
+    from repro_torch.serve import (ContinuousBatchingEngine,
+                                   PagedCacheConfig, greedy_generate,
+                                   poisson_load)
+    cfg = model.cfg
+    n, S, n_new = TP_FULL_BATCH
+    rng = np.random.default_rng(6)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (n, S)).astype(np.int32)).cuda()}
+    if cfg.n_frontend_tokens:
+        gen = torch.Generator(device="cuda").manual_seed(2)
+        batch["frontend"] = torch.randn(
+            (n, cfg.n_frontend_tokens, cfg.d_model), generator=gen,
+            device="cuda").to(getattr(torch, cfg.dtype))
+    ops.reset_launch_counts()
+    out = {"greedy": greedy_generate(model, params, batch,
+                                     n_new).cpu().tolist(),
+           "greedy_counts": {k: v for k, v in ops.launch_counts().items()
+                             if v}}
+    if cfg.family != "vlm":
+        return out
+    pcfg = PagedCacheConfig(page_size=16, num_pages=1 + 4 * 256 // 16,
+                            max_slots=4, max_context=256)
+    eng = ContinuousBatchingEngine(model, params, pcfg, attn_impl="kernel",
+                                   prefill_chunk=64, max_step_tokens=128,
+                                   device="cuda")
+    reqs = poisson_load(4, rate=1000.0, vocab=cfg.vocab_size,
+                        prompt_buckets=(40, 150), new_token_buckets=(8, 16),
+                        prompt_dist="exact", seed=5)
+    ops.reset_launch_counts()
+    metrics = eng.run([dataclasses.replace(r, arrival=0.0) for r in reqs])
+    out.update(counts={k: v for k, v in ops.launch_counts().items() if v},
+               tokens={str(r): t.tolist()
+                       for r, t in sorted(eng.completed.items())},
+               steps=metrics["steps"], mixed_steps=metrics["mixed_steps"])
+    return out
+
+
+def _tp_full_rank(rank, world, arch, d):
+    """One rank of a full-width case: per (dtype, cut) the model on the
+    grid, the rank-local init one rank at a time (a Jamba MoE layer's
+    draw is a 12.9 GB f32 slice; expandable segments, so that the freed
+    draws leave no holes), then :func:`_tp_full_run`."""
+    import json
+    import os
+    from pathlib import Path
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_distributed, make_moe_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import init_lm_rank
+    torch.backends.cuda.matmul.allow_tf32 = False
+    init_distributed("cuda", init_method=f"file://{d}/store", rank=rank,
+                     world_size=world, timeout_s=900)
+    mesh = make_moe_mesh(1, world)
+    rec = {"shared": mesh.shared}
+    for dtype, cut in TP_FULL[arch]:
+        cfg = _tp_full_config(arch, dtype, cut)
+        model = build_model(cfg, mesh=mesh)
+        for r in range(world):
+            if r == rank:
+                params = init_lm_rank(cfg, torch.Generator(
+                    device="cuda").manual_seed(0), rank, world)
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+            dist.barrier()
+        run = _tp_full_run(model, params)
+        run["local"] = {k.split("|", 2)[-1]: list(v.shape)
+                        for k, v in params.items()
+                        if k.startswith("blocks|") and k.split("|")[1]
+                        in ("0", "1", "2")}
+        rec[dtype] = run
+        del params, model
+        torch.cuda.empty_cache()
+        dist.barrier()
+    Path(d, f"rank{rank}.json").write_text(json.dumps(rec))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _tp_full_one_process(arch):
+    """The one-process runs of each (dtype, cut) of ``arch`` (the whole
+    model from ``model.init``, seed 0), one at a time."""
+    from repro_torch.models import build_model
+    out = {}
+    for dtype, cut in TP_FULL[arch]:
+        model = build_model(_tp_full_config(arch, dtype, cut))
+        params = model.init(torch.Generator(device="cuda").manual_seed(0))
+        out[dtype] = _tp_full_run(model, params)
+        del params, model
+        torch.cuda.empty_cache()
+    return out
+
+
 @pytest.mark.requires_cuda
-def test_cuda_tp_serve_ranks(cuda, tmp_path):
-    """A small qwen3_14b variant served by the paged engine on 2 ranks
-    sharing the card, each holding K 2, G 5 heads of hd 128 (qwen3_14b's
-    rank at 4): in f32 every rank's tokens equal the one-process engine's;
-    in bf16 every rank's tokens equal rank 0's; in both the kernels'
-    launches equal the one-process engine's (L a dispatch, L a mixed one)
-    and no plain twin runs."""
+@pytest.mark.parametrize("case", ["qwen3_14b", "pixtral_12b",
+                                  "jamba_1_5_large_398b"])
+def test_cuda_tp_serve_ranks(cuda, tmp_path, case):
+    """``qwen3_14b``: a small variant served by the paged engine on 2
+    ranks sharing the card, each holding K 2, G 5 heads of hd 128
+    (qwen3_14b's rank at 4): in f32 every rank's tokens equal the
+    one-process engine's; in bf16 every rank's tokens equal rank 0's; in
+    both the kernels' launches equal the one-process engine's (L a
+    dispatch, L a mixed one) and no plain twin runs.  ``pixtral_12b`` and
+    ``jamba_1_5_large_398b`` at full width on 4 ranks (:data:`TP_FULL`):
+    in f32 every rank's ``greedy_generate`` tokens (Pixtral: with a
+    frontend batch) and Pixtral's paged-engine tokens (K 2, G 4 a rank)
+    equal one process's, the engine's launches the one-process engine's;
+    Jamba's bf16 tokens at 5 layers equal on every rank (the share equal
+    to one process's printed); each rank holds its share of the heads,
+    the FFN columns, the experts and the SSM channels."""
     import json
     import torch.multiprocessing as mp
     torch.backends.cuda.matmul.allow_tf32 = False
+    if case != "qwen3_14b":
+        from repro_torch.configs import get_config
+        one = _tp_full_one_process(case)
+        mp.spawn(_tp_full_rank, args=(4, case, str(tmp_path)), nprocs=4,
+                 join=True)
+        recs = [json.loads((tmp_path / f"rank{r}.json").read_text())
+                for r in range(4)]
+        cfg = get_config(case)
+        for r in recs:
+            assert r["shared"]
+            for dtype, cut in TP_FULL[case]:
+                got, want = r[dtype], one[dtype]
+                if dtype == "float32":
+                    assert got["greedy"] == want["greedy"], (case, dtype)
+                else:
+                    assert got["greedy"] == recs[0][dtype]["greedy"]
+                    same = np.mean(np.array(got["greedy"])
+                                   == np.array(want["greedy"]))
+                    print(f"{case} {dtype}: {same:.1%} of the tokens equal "
+                          "to one process's")
+                assert got["greedy_counts"] == want["greedy_counts"] == {}
+                if "tokens" in want:
+                    L = cut["n_layers"]
+                    assert got["tokens"] == want["tokens"]
+                    assert got["counts"] == want["counts"] == {
+                        "paged_attention": L * got["steps"],
+                        "paged_prefill": L * got["mixed_steps"]}
+                loc = got["local"]
+                for key, shape in loc.items():
+                    if key.endswith("attn|wk"):
+                        assert shape[-1] == cfg.n_kv_heads // 4 * cfg.hd
+                    if key.endswith("ssm|in_proj"):
+                        assert shape[-1] == 2 * cfg.d_inner // 4
+                    if key.endswith("moe|w_gate"):
+                        assert shape[1] == cfg.n_experts // 4
+                    if key.endswith("ffn|w_up"):
+                        assert shape[-1] == (cfg.dense_d_ff or cfg.d_ff) // 4
+        return
     one = {dt: _tp_serve(dt) for dt in ("float32", "bfloat16")}
     mp.spawn(_tp_rank, args=(TP_RANKS, str(tmp_path)), nprocs=TP_RANKS,
              join=True)

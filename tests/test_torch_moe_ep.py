@@ -45,7 +45,7 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import metrics as tmetrics
 from repro_torch.models import build_model, moe as tmoe
-from repro_torch.models.transformer import init_lm_rank
+from repro_torch.models.transformer import expert_param_specs, init_lm_rank
 from repro_torch.serve import ContinuousBatchingEngine, PagedCacheConfig
 from repro_torch.serve import poisson_load
 from repro_torch.weights import expert_block
@@ -129,7 +129,8 @@ def _engine_tokens(cf, params=None, block=None):
     model = build_model(cfg)
     gen = torch.Generator().manual_seed(0)
     params = (model.init(gen) if block is None
-              else init_lm_rank(cfg, gen, *block))
+              else init_lm_rank(cfg, gen, *block,
+                                specs=expert_param_specs(model.meta())))
     pcfg = PagedCacheConfig(page_size=8, num_pages=1 + 4 * 64 // 8,
                             max_slots=4, max_context=64)
     eng = ContinuousBatchingEngine(model, params, pcfg, attn_impl="ref",
@@ -472,7 +473,8 @@ def test_rank_init_bit_equal_to_slice_of_init(count):
     cfg = get_smoke_config(ARCH)
     full = build_model(cfg).init(torch.Generator().manual_seed(0))
     for m in range(count):
-        got = init_lm_rank(cfg, torch.Generator().manual_seed(0), m, count)
+        got = init_lm_rank(cfg, torch.Generator().manual_seed(0), m, count,
+                           specs=expert_param_specs(full))
         want = expert_block(full, m, count)
         assert sorted(got) == sorted(want)
         for k in got:
