@@ -198,13 +198,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    depth).
 15. MoE serving: deepseek_moe_16b at full width (64 experts of width
    1408, top-6, 2 shared experts, vocab 102400, bf16, random weights from
-   seed 0), its depth cut 28 → ``MOE_SERVE_LAYERS`` (16; 9.82 B
+   seed 0), its depth cut 28 → ``MOE_SERVE_LAYERS`` (12; 7.47 B
    parameters) for the script's time (PERF.md §4;
    ``tools/tp_phase.py --arch deepseek_moe_16b`` serves all 28 in one
    process as its reference): the serve CLI at phase 8's trace
    sizes, then the engine at context 1024 (16 slots, 32 requests, prompts
    256–768, chunks of 128), counts reset just before and read just after
-   each (16 paged-attention launches a dispatch, 16 paged-prefill
+   each (12 paged-attention launches a dispatch, 12 paged-prefill
    launches a mixed dispatch); init time and its peak, one prefill's
    logits finite, tokens/s, TTFT and per-token p50/p99, peak allocated
    and reserved; one mixed and one decode-only dispatch profiled (busy,
@@ -243,14 +243,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    share and peak; at x(0) the gradients with ``remat`` "full" and "dots"
    bit-equal to ``remat=False``, each one's peak; the EDM and ring
    kernels timed on this bus beside their bounds.
-19. VLM serving: pixtral_12b at full width and depth (40 layers, d 5120,
-   32 / 8 heads at hd 128 — G 4 —, d_ff 14336, vocab 131072, bf16,
-   12,247,782,400 parameters from seed 0): the serve CLI's fixed batch at
+19. VLM serving: pixtral_12b at full width (d 5120, 32 / 8 heads at hd
+   128 — G 4 —, d_ff 14336, vocab 131072, bf16, from seed 0), its depth
+   cut 40 → ``VLM_SERVE_LAYERS`` (32; 10,066,662,400 parameters) for the
+   script's time (PERF.md §4): the serve CLI's fixed batch at
    phase 8's sizes with 256 seeded frontend embeddings a request
    (``greedy_generate``: no kernel of the port), then as phase 15 the
    serve CLI's continuous engine and the engine at context 1024,
-   text-only as the reference's scheduler (40 paged-attention launches a
-   dispatch, 40 paged-prefill launches a mixed dispatch), one mixed and
+   text-only as the reference's scheduler (32 paged-attention launches a
+   dispatch, 32 paged-prefill launches a mixed dispatch), one mixed and
    one decode-only dispatch profiled; then at the smoke config in f32
    with G 4 (``n_kv_heads`` 1 under 4 heads) on the card: the kernel
    engine's tokens equal ``greedy_generate``'s, and ``greedy_generate``
@@ -463,8 +464,27 @@ Phases, in order; any failure raises and the script exits non-zero:
    once the ranks have exited.  Reported: prefill ms, ms a token, sums a
    forward, peak and parameter GB a rank, against one process; the share
    of (b)'s tokens equal to one process's.
+33. tensor-parallel training on the tree path across ranks, in phase
+   25's ranks after 32: ``qwen3_14b`` at full width in bf16 at
+   ``TP_TRAIN_LAYERS`` (1 of 40) layers on the ``(2, 2)`` ``("data",
+   "model")`` grid of the reference's ``state_specs`` (2 agents, one a
+   data rank, each split over two model ranks: 20 / 4 heads, 8704 FFN
+   columns, 75968 vocabulary rows a rank from the rank-local init), ring,
+   EDM, fused, seq 128: (a) each rank's step-0 loss and gradient blocks
+   within a stated bf16 tolerance of one process's whole-agent backward;
+   (b) ``TP_TRAIN_STEPS`` steps of ``build_train_step(mesh=grid)``, the
+   launch counts set to 0 before and read after: one ``edm_update`` a
+   leaf a step on the rank's blocks, each bit-equal (by digest) to the
+   plain twin on the same inputs, one ``ring_peer`` a step in each
+   column, 2L + 1 + 4L + 1 sums and one logits gather over the model
+   axis, no gossip collective; the replicated leaves bit-equal across a
+   column's model ranks after every step; every rank's losses and
+   metrics equal; then one step more without the twin check or the
+   synchronised collectives.  Reported: that step's ms a rank, the
+   instrumented steps' ms with the sums' and the metrics' host-staged
+   time apart, peak a rank.
 
-Phases run in the order 1–3, 3w, 3r, 3m, 3f, 25–32 (26–32 in 25's
+Phases run in the order 1–3, 3w, 3r, 3m, 3f, 25–33 (26–33 in 25's
 ranks),
 4–6, 4r, 6r, 4g, 4w–6w, 12, 13, 14, 4t–6t, 7–11, 15–24; a ``[time]``
 line before each gives the seconds since the start and those of the
@@ -518,7 +538,7 @@ PAGE, SLOTS, CTX, CHUNK, STEP_TOKENS = 16, 16, 1024, 128, 256
 # deepseek_moe_16b's reference), trained at full width with the depth cut
 # to one layer on two agents (phase 16)
 MOE_ARCH, MOE_TRAIN_LAYERS, MOE_AGENTS = "deepseek_moe_16b", 1, 2
-MOE_SERVE_LAYERS = 16
+MOE_SERVE_LAYERS = 12
 MOE_SERVE_ARGS = [MOE_ARCH if a == ARCH else a for a in SERVE_ARGS] + [
     "--n-layers", str(MOE_SERVE_LAYERS)]
 
@@ -533,15 +553,18 @@ SSM_SERVE_ARGS = ["--arch", SSM_ARCH, "--batch", "8", "--prompt-len", "32",
                   "--new-tokens", "32", "--device", "cuda"]
 SSM_BATCH, SSM_PROMPT, SSM_NEW = 4, 512, 64
 
-# the VLM family: pixtral_12b served at full width and depth (phase 19:
-# the serve CLI's fixed batch at phase 8's sizes with 256 frontend
-# embeddings a request, its continuous engine at phase 8's trace, then
-# the engine at context 1024, text-only), trained at full width with the
-# depth cut to one layer on two agents (phase 20)
-VLM_ARCH, VLM_PARAMS = "pixtral_12b", 12247782400
+# the VLM family: pixtral_12b served at full width, its depth cut 40 →
+# VLM_SERVE_LAYERS for the script's time (phase 19: PERF.md §4; the serve
+# CLI's fixed batch at phase 8's sizes with 256 frontend embeddings a
+# request, its continuous engine at phase 8's trace, then the engine at
+# context 1024, text-only), trained at full width with the depth cut to
+# one layer on two agents (phase 20)
+VLM_ARCH, VLM_SERVE_LAYERS, VLM_PARAMS = "pixtral_12b", 32, 10066662400
 VLM_TRAIN_LAYERS, VLM_AGENTS = 1, 2
-VLM_CLI_ARGS = ["--arch", VLM_ARCH] + SSM_SERVE_ARGS[2:]
-VLM_SERVE_ARGS = [VLM_ARCH if a == ARCH else a for a in SERVE_ARGS]
+VLM_CLI_ARGS = ["--arch", VLM_ARCH] + SSM_SERVE_ARGS[2:] + [
+    "--n-layers", str(VLM_SERVE_LAYERS)]
+VLM_SERVE_ARGS = [VLM_ARCH if a == ARCH else a for a in SERVE_ARGS] + [
+    "--n-layers", str(VLM_SERVE_LAYERS)]
 
 # the hybrid family: jamba_1_5_large_398b served at full width with its
 # depth cut 72 → 5, the smallest depth whose period holds (ssm, dense),
@@ -3318,9 +3341,9 @@ def moe_serve_exactness():
 
 def moe_serve_phase():
     """Phase 15: deepseek_moe_16b at full width and ``MOE_SERVE_LAYERS``
-    of its 28 layers through :func:`engine_serve_phase` (16
-    paged-attention launches a dispatch, 16 paged-prefill launches a
-    mixed dispatch), then the smoke config's exactness."""
+    of its 28 layers through :func:`engine_serve_phase` (one
+    paged-attention launch a layer a dispatch, one paged-prefill launch a
+    layer a mixed dispatch), then the smoke config's exactness."""
     rec = engine_serve_phase(MOE_ARCH, MOE_SERVE_ARGS, "MoE",
                              MOE_SERVE_LAYERS)
     rec["smoke"] = moe_serve_exactness()
@@ -3963,14 +3986,15 @@ def vlm_serve_exactness():
 
 
 def vlm_serve_phase():
-    """Phase 19: pixtral_12b at full width and depth in bf16, random
-    weights from seed 0: the serve CLI's fixed batch at phase 8's sizes
-    with ``n_frontend_tokens`` (256) frontend embeddings a request, counts
-    reset before and read after (``greedy_generate`` on dense caches: no
-    kernel of the port), then :func:`engine_serve_phase` — the engine,
-    text-only as the reference's scheduler, through the paged kernels at
-    hd 128 and G 4, 40 launches of each a mixed dispatch — then the smoke
-    config's exactness at G 4."""
+    """Phase 19: pixtral_12b at full width and ``VLM_SERVE_LAYERS`` of its
+    40 layers in bf16, random weights from seed 0: the serve CLI's fixed
+    batch at phase 8's sizes with ``n_frontend_tokens`` (256) frontend
+    embeddings a request, counts reset before and read after
+    (``greedy_generate`` on dense caches: no kernel of the port), then
+    :func:`engine_serve_phase` — the engine, text-only as the reference's
+    scheduler, through the paged kernels at hd 128 and G 4, one launch of
+    each a layer a mixed dispatch — then the smoke config's exactness at
+    G 4."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch import serve as serve_cli
@@ -3994,7 +4018,8 @@ def vlm_serve_phase():
     rec["fixed_cli_tokens_per_s"] = b * new / cli["seconds"]
     rec["fixed_cli_seconds"] = cli["seconds"]
     del cli
-    rec.update(engine_serve_phase(VLM_ARCH, VLM_SERVE_ARGS, "VLM"))
+    rec.update(engine_serve_phase(VLM_ARCH, VLM_SERVE_ARGS, "VLM",
+                                  VLM_SERVE_LAYERS))
     check(rec["params"] == VLM_PARAMS, f"{VLM_ARCH} has {rec['params']} "
           f"parameters, expected {VLM_PARAMS}")
     rec["smoke"] = vlm_serve_exactness()
@@ -5549,6 +5574,411 @@ def print_ssm(rec, smi: str) -> None:
           f"references {refs['a_s'] + refs['b_s']:.1f} s", flush=True)
 
 
+# phase 33: the tree train path under tensor parallelism over phase 25's
+# four ranks, in the same spawn after phase 32 (the reference's
+# state_specs layout on a (2, 2) ("data", "model") grid: agents over
+# data, each agent's leaves over model, build_train_step(mesh=grid)):
+# qwen3_14b at full width in bf16, A = 2 agents, one a data rank, each
+# split over two model ranks (20 / 4 heads, 8704 FFN columns and 75968
+# vocabulary rows a rank, drawn rank-locally under state_specs), ring,
+# EDM, fused, seq 128, batch 1.  (a) Step 0's loss and every gradient
+# block of each rank's agent against a one-process loss and backward of
+# the whole agent at the same weights (each rank draws them from the
+# seed the blocks came from); (b) TP_TRAIN_STEPS steps of the multi-rank
+# tree step: row 1 once a leaf a step on the rank's blocks, each launch's
+# outputs bit-equal (by digest) to the plain twin's on the same inputs,
+# row 8p once a step in each model column (two peer rings side by side,
+# each over its 2-rank data slice), the replicated leaves bit-equal
+# across a column's model ranks after every step, a column's two ranks
+# bit-equal in loss.  Depth: 1 of 40 layers, the deepest at which the
+# four ranks fit the card reliably here (a rank's EDM peak: x, m, ψ, the
+# f32 peer payload and one vocabulary leaf's four packed f32 copies; at
+# 2 layers ~18.3 GiB a rank left ~1.2 GiB of the card free after the
+# earlier phases in one run and ran out in another); tools/tp_phase.py
+# --train runs 2 layers alone.  The time rule (PERF.md §4) took the room
+# from phases 15 and 19
+TP_TRAIN_LAYERS = 1
+TP_TRAIN_STEPS = 3
+TP_TRAIN_AGENTS = 2
+# Step 0 against one process, bf16: a TP sum adds M = 2 partials, each
+# already rounded to bf16 (≤ 2⁻⁸ relative), and rounds once more, where
+# the one-process product rounds once — up to (M + 1)·2⁻⁸ ≈ 2⁻⁶.4 of the
+# summands' size a sum site.  The loss sees the forward's 2L + 1 sites
+# (here 5) through the logits: |Δloss| ≤ 2⁻⁷·|loss| (one bf16 ulp of the
+# loss's size); a gradient sees the forward's and the backward's sites
+# (4L + 1 sums and the enters' sums): each leaf's ‖Δg‖ ≤ 2⁻⁴·‖g‖ (a few
+# sites' worth, the rounding errors of independent sites adding in
+# norm).  A missing sum is an error of the gradient's own size (the
+# norms' gradients halved on each rank: ‖Δg‖ ≈ 0.7‖g‖).
+TP_TRAIN_LOSS_RTOL = 2 ** -7
+TP_TRAIN_GRAD_RTOL = 2 ** -4
+
+
+def tp_train_config(n_layers: int):
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(TP_ARCH), n_layers=n_layers)
+
+
+def tp_train_run():
+    return bus_run(global_batch=TP_TRAIN_AGENTS, agents_per_device=1,
+                   packed_bus=False)
+
+
+def tp_train_batches(vocab: int):
+    """``TP_TRAIN_STEPS`` global batches of ``(A, 1, SEQ)`` tokens, from a
+    seeded numpy stream (every rank draws the same)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(33)
+    return [{"tokens": torch.from_numpy(rng.integers(
+        0, vocab, (TP_TRAIN_AGENTS, 1, SEQ)).astype(np.int32)).cuda()}
+        for _ in range(TP_TRAIN_STEPS)]
+
+
+def digest_add(acc, t, start: int) -> None:
+    """Add the words of ``t`` (a chunk whose first element sits at
+    ``start`` of the whole) to ``acc``, a device int64 pair:
+    :func:`bus_digest`'s two sums, wrapping, with no host sync."""
+    import torch
+    w = t.reshape(-1).view(torch.int16 if t.element_size() == 2
+                           else torch.int32).to(torch.int64)
+    pos = torch.arange(start, start + w.numel(), dtype=torch.int64,
+                       device=w.device)
+    h = (pos * 2654435761) % (1 << 31) * 2 + 1
+    acc[0] += w.sum()
+    acc[1] += (w * h).sum()
+
+
+def edm_twin_spy():
+    """Wrap ``ops.edm_update_flat`` (row 1's wrapper) so that each launch's
+    ``(m', ψ', φ)`` is held to the plain twin's on the same inputs: the
+    twin runs first, ``2¹⁴`` rows at a time (the launch may write over
+    its inputs), and leaves digests (:func:`bus_digest`'s sums, taken
+    chunk by chunk on the card), which the launch's outputs must match.
+    Returns ``(stats, restore)``; the twin launches nothing, so the
+    counts are the path's."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    inner = ops.edm_update_flat
+    stats = {"checked": 0, "equal": 0}
+
+    def digests(outs, start, acc):
+        for a, t in zip(acc, outs):
+            digest_add(a, t, start)
+
+    def spy(x, g, m, psi, *, alpha, beta, out=None):
+        # small chunks: the launch's four packed f32 copies of a
+        # vocabulary leaf are alive meanwhile, on four ranks at once
+        want, got = (torch.zeros(3, 2, dtype=torch.int64, device=x.device)
+                     for _ in range(2))
+        rows = 1 << 14
+        for r0 in range(0, x.shape[0], rows):
+            sl = slice(r0, r0 + rows)
+            digests(ref.edm_update_ref(x[sl], g[sl], m[sl], psi[sl],
+                                       alpha=alpha, beta=beta),
+                    r0 * x.shape[1], want)
+        res = inner(x, g, m, psi, alpha=alpha, beta=beta, out=out)
+        for r0 in range(0, x.shape[0], rows):
+            digests([t[r0:r0 + rows] for t in res], r0 * x.shape[1], got)
+        stats["checked"] += 1
+        stats["equal"] += bool(torch.equal(got, want))
+        return res
+
+    ops.edm_update_flat = spy
+    return stats, lambda: setattr(ops, "edm_update_flat", inner)
+
+
+def timed_collectives():
+    """Wrap ``comm.all_reduce`` / ``comm.all_gather`` so that each call's
+    wall time (the device synchronised before and after: a host-staged
+    collective waits on the card anyway) adds to ``ms[f"{tag} {kind}"]``.
+    Returns ``(ms, restore)``."""
+    import torch
+    from repro_torch.core import comm
+    defaults = {"all_reduce": "metrics", "all_gather": "gossip"}
+    inner = {n: getattr(comm, n) for n in defaults}
+    ms = {}
+
+    def wrap(name):
+        def call(*a, **k):
+            tag = k.get("tag", a[3] if len(a) > 3 else defaults[name])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = inner[name](*a, **k)
+            torch.cuda.synchronize()
+            key = f"{tag} {name.replace('_', '-')}"
+            ms[key] = ms.get(key, 0.0) + (time.perf_counter() - t0) * 1e3
+            return out
+        return call
+
+    for name in defaults:
+        setattr(comm, name, wrap(name))
+    return ms, lambda: [setattr(comm, n, f) for n, f in inner.items()]
+
+
+def tp_train_grads(rank, world, mesh, model, run, batch, rec) -> None:
+    """Phase 33 (a) on one rank: its agent's step-0 loss and gradient
+    blocks on the grid against one process's whole-agent loss and
+    backward at the same weights (``init_lm`` from the seed the blocks
+    were drawn from: the blocks are its cut, :func:`init_lm_rank`); the
+    collectives of the TP loss."""
+    import torch
+    from repro_torch.core import comm
+    from repro_torch.core.comm import rank_block
+    from repro_torch.core.sharding import leaf_block, mesh_coords
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import init_lm_rank
+    from repro_torch.train import trainer
+    a0 = rank_block(mesh, TP_TRAIN_AGENTS)[0]
+    tokens = {"tokens": batch["tokens"][a0]}
+    tp_model = build_model(model.cfg, mesh=mesh)
+    specs = trainer._leaf_specs(model, run)
+    gen = torch.Generator(device="cuda")
+    blocks = init_lm_rank(model.cfg, gen.manual_seed(0),
+                          mesh.axis_index("model"), 2, specs=specs)
+    blocks = {k: v.requires_grad_() for k, v in blocks.items()}
+    with comm.recording() as log:
+        loss = tp_model.loss(blocks, tokens, remat=run.remat)
+        grads = torch.autograd.grad(loss, list(blocks.values()))
+    rec["tpt_grad_collectives"] = tp_collectives(log)
+    rec["tpt_loss0"] = float(loss.detach())
+    grads = dict(zip(blocks, grads))
+    del blocks, loss
+    whole = {k: v.requires_grad_() for k, v in model.init(
+        gen.manual_seed(0)).items()}
+    loss = model.loss(whole, tokens, remat=run.remat)
+    want = dict(zip(whole, torch.autograd.grad(loss, list(whole.values()))))
+    rec["tpt_loss0_one"] = float(loss.detach())
+    del whole, loss
+    coords = mesh_coords(mesh)
+    rel, err = {}, 0.0
+    for path, g in grads.items():
+        w = leaf_block(want.pop(path), specs[path], coords, path).float()
+        d = g.float() - w
+        rel[path] = float(d.norm() / w.norm().clamp_min(1e-30))
+        err = max(err, float(d.abs().max()))
+        del w, d
+    rec["tpt_grad_rel"], rec["tpt_grad_max_abs"] = rel, err
+    del grads, want
+    free()
+
+
+def tp_train_ranks(rank, world, rec, n_layers: int = TP_TRAIN_LAYERS
+                   ) -> None:
+    """Phase 33 on one rank (after 32): the ``(2, 2)`` grid, (a)
+    :func:`tp_train_grads`, then (b) ``TP_TRAIN_STEPS`` steps from
+    ``init_state(mesh=grid)`` (the rank's blocks, never the whole model)
+    with the launch counts set to 0 just before and read just after,
+    row 1's launches held to the plain twin (:func:`edm_twin_spy`), the
+    collectives counted and timed a step, the replicated leaves' digests
+    after each step (these steps' ms are instrumented); then one step
+    without the twin or the timed collectives (step ms), peak and the
+    transports' epochs."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import comm
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_gossip_mesh
+    from repro_torch.models import build_model
+    from repro_torch.train import (build_train_step, init_state,
+                                   make_gossip_schedule, trainer)
+    t33 = time.time()
+    free()
+    # new segments grow in place (the vocabulary leaves' packed f32
+    # copies come and go a leaf at a time; fixed segments left ~2.7 GiB
+    # a rank reserved but unusable, and four ranks ran out of memory)
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    rec["card_free_gib_33"] = torch.cuda.mem_get_info()[0] / 2**30
+    mesh = make_gossip_mesh(TP_TRAIN_AGENTS, agents_per_device=1, model=2)
+    rec["tpt_coords"] = list(mesh.coords)
+    rec["tpt_layers"] = n_layers
+    model = build_model(tp_train_config(n_layers))
+    run = tp_train_run()
+    batches = tp_train_batches(model.cfg.vocab_size)
+    t0 = time.time()
+    tp_train_grads(rank, world, mesh, model, run, batches[0], rec)
+    dist.barrier(group=mesh.control)
+    rec["tpt_a_s"] = time.time() - t0
+    t0 = time.time()
+    torch.cuda.reset_peak_memory_stats()
+    step = build_train_step(model, run, make_gossip_schedule(
+        run, TP_TRAIN_AGENTS), use_fused_kernel=True, mesh=mesh)
+    state = init_state(model, run, TP_TRAIN_AGENTS, seed=0, mesh=mesh)
+    rec["tpt_init_s"] = time.time() - t0
+    rec["tpt_param_gb"] = sum(v.numel() * v.element_size()
+                              for v in state["params"].values()) / 1e9
+    hd = model.cfg.hd
+    rec["tpt_heads"] = [state["params"]["blocks|0|attn|wq"].shape[-1] // hd,
+                        state["params"]["blocks|0|attn|wk"].shape[-1] // hd]
+    rec["tpt_leaves"] = len(state["params"])
+    replicated = [p for p, s in trainer._leaf_specs(model, run).items()
+                  if "model" not in s]
+    stats, restore_spy = edm_twin_spy()
+    ms, restore_ms = timed_collectives()
+    per_step = []
+    try:
+        ops.reset_launch_counts()
+        for b in batches:
+            dist.barrier(group=mesh.control)
+            ms.clear()
+            t1 = time.perf_counter()
+            with comm.recording() as log:
+                state, m = step(state, b)
+                torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t1) * 1e3
+            per_step.append({
+                "step_ms": step_ms, "collectives": tp_collectives(log),
+                "collective_ms": dict(ms),
+                "agent_losses": m["agent_losses"].tolist(),
+                "metrics": {k: float(m[k]) for k in ("loss", "consensus",
+                                                     "grad_norm")},
+                "replicated": {f"{slot}|{p}": bus_digest(tree[p])
+                               for slot, tree in (("x", state["params"]),
+                                                  *state["opt"].items())
+                               for p in replicated}})
+        rec["tpt_launches"] = {k: v for k, v in ops.launch_counts().items()
+                               if v}
+    finally:
+        restore_spy()
+        restore_ms()
+    rec["tpt_steps"] = per_step
+    rec["tpt_edm_checked"], rec["tpt_edm_equal"] = (stats["checked"],
+                                                    stats["equal"])
+    # one more step with neither the twin check nor the synchronising
+    # collectives: a step's own time
+    dist.barrier(group=mesh.control)
+    t1 = time.perf_counter()
+    state, m = step(state, batches[0])
+    torch.cuda.synchronize()
+    rec["tpt_step_ms"] = (time.perf_counter() - t1) * 1e3
+    rec["tpt_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    rec["tpt_peak_reserved_gib"] = torch.cuda.max_memory_reserved() / 2**30
+    for t in step.transports():
+        t.raise_on_timeout()
+    rec["tpt_epochs"] = [t.epoch for t in step.transports()]
+    rec["tpt_b_s"] = time.time() - t0
+    del state, m
+    free()
+    torch.cuda.synchronize()
+    dist.barrier(group=mesh.control)
+    step.close()
+    del step
+    free()
+    rec["p33_s"] = time.time() - t33
+
+
+def tp_train_sums(L: int) -> int:
+    """The TP loss's sums over the model axis a step at ``remat=False``:
+    the embedding's and two a layer forward; the backward's, of each
+    layer's two normed inputs and of ``q_norm`` / ``k_norm``, and of the
+    final normed input."""
+    return 1 + 2 * L + 4 * L + 1
+
+
+def check_tp_train_ranks(ranks) -> None:
+    """Phase 33's gates: (a) each rank's step-0 loss within
+    ``TP_TRAIN_LOSS_RTOL`` and every gradient block within
+    ``TP_TRAIN_GRAD_RTOL`` (norm-relative) of one process's whole-agent
+    backward; the loss's sums and gather as :func:`tp_train_sums` says;
+    (b) a rank's launches exactly one ``edm_update`` a leaf a step (each
+    bit-equal to the plain twin) and one ``ring_peer`` a step, nothing
+    else; its collectives a step the loss's sums and gather, no gossip
+    collective (the peer ring carries it); every rank the same per-agent
+    losses and metrics, finite; the replicated leaves' digests equal on
+    a column's two model ranks after every step; one ring epoch a step
+    (the uninstrumented step's too); 20 / 4 heads a rank."""
+    L = ranks[0]["tpt_layers"]
+    by_data = {}
+    for r in ranks:
+        tag = f"phase 33 rank {r['rank']}"
+        by_data.setdefault(r["tpt_coords"][0], []).append(r)
+        check(r["tpt_layers"] == L, f"{tag}: {r['tpt_layers']} layers")
+        rel = abs(r["tpt_loss0"] - r["tpt_loss0_one"])
+        check(rel <= TP_TRAIN_LOSS_RTOL * abs(r["tpt_loss0_one"]),
+              f"{tag} (a): step-0 loss {r['tpt_loss0']} against one "
+              f"process's {r['tpt_loss0_one']}")
+        worst = max(r["tpt_grad_rel"].items(), key=lambda kv: kv[1])
+        check(worst[1] <= TP_TRAIN_GRAD_RTOL, f"{tag} (a): gradient block "
+              f"{worst[0]} {worst[1]:.3e} of its norm off one process's")
+        check(r["tpt_grad_collectives"] == {
+            "tp all-reduce": tp_train_sums(L), "tp all-gather": 1},
+            f"{tag} (a): collectives {r['tpt_grad_collectives']}")
+        n_leaves = r["tpt_leaves"]
+        check(r["tpt_launches"] == {"edm_update": n_leaves * TP_TRAIN_STEPS,
+                                    "ring_peer": TP_TRAIN_STEPS},
+              f"{tag} (b): launches {r['tpt_launches']}")
+        check(r["tpt_edm_checked"] == n_leaves * TP_TRAIN_STEPS
+              and r["tpt_edm_equal"] == r["tpt_edm_checked"],
+              f"{tag} (b): {r['tpt_edm_equal']} of {r['tpt_edm_checked']} "
+              "edm_update launches bit-equal to the plain twin")
+        check(r["tpt_epochs"] == [TP_TRAIN_STEPS + 1],
+              f"{tag} (b): ring epochs {r['tpt_epochs']}")
+        check(r["tpt_heads"] == [20, 4], f"{tag}: {r['tpt_heads']} heads")
+        for t, s in enumerate(r["tpt_steps"]):
+            c = s["collectives"]
+            check(c.get("tp all-reduce") == tp_train_sums(L)
+                  and c.get("tp all-gather") == 1
+                  and not any(k.startswith("gossip") for k in c),
+                  f"{tag} (b) step {t}: collectives {c}")
+            check(all(math.isfinite(v) for v in s["metrics"].values()),
+                  f"{tag} (b) step {t}: metrics {s['metrics']}")
+            want = ranks[0]["tpt_steps"][t]
+            check(s["agent_losses"] == want["agent_losses"]
+                  and s["metrics"] == want["metrics"],
+                  f"{tag} (b) step {t}: losses / metrics {s} differ from "
+                  f"rank 0's")
+    for col in by_data.values():
+        check(len(col) == 2, f"phase 33: a data rank of {len(col)} ranks")
+        for t, (a, b) in enumerate(zip(col[0]["tpt_steps"],
+                                       col[1]["tpt_steps"])):
+            check(a["replicated"] == b["replicated"], f"phase 33 step {t}: "
+                  f"the replicated leaves differ between ranks "
+                  f"{col[0]['rank']} and {col[1]['rank']}")
+
+
+def print_tp_train(rec, smi: str) -> None:
+    """Phase 33's lines."""
+    for r in rec["ranks"]:
+        steps = r["tpt_steps"]
+        sums = [s["collective_ms"].get("tp all-reduce", 0.0)
+                + s["collective_ms"].get("tp all-gather", 0.0)
+                for s in steps]
+        metrics_ms = [s["collective_ms"].get("metrics all-reduce", 0.0)
+                      + s["collective_ms"].get("metrics all-gather", 0.0)
+                      for s in steps]
+        worst = max(r["tpt_grad_rel"].items(), key=lambda kv: kv[1])
+        print(f"[tp33] rank {r['rank']} grid {tuple(r['tpt_coords'])} of "
+              f"(2, 2), {r['tpt_layers']} layers bf16, "
+              f"{r['tpt_heads'][0]} / {r['tpt_heads'][1]} heads a layer, "
+              f"params {r['tpt_param_gb']:.2f} GB a rank: (a) step-0 loss "
+              f"{r['tpt_loss0']:.6f} (one process {r['tpt_loss0_one']:.6f}),"
+              f" worst gradient block {worst[0]} {worst[1]:.3e} of its "
+              f"norm (max |Δ| {r['tpt_grad_max_abs']:.3e}); (b) step ms "
+              f"{r['tpt_step_ms']:.1f} (uninstrumented); instrumented "
+              f"(the twin check, synchronised collectives) "
+              f"{[round(s['step_ms'], 1) for s in steps]}, of which the TP "
+              f"sums and gather {[round(v, 1) for v in sums]} ms "
+              f"({[f'{v / s['step_ms']:.1%}' for v, s in zip(sums, steps)]}"
+              f"; {steps[0]['collectives'].get('tp all-reduce')} sums and "
+              f"{steps[0]['collectives'].get('tp all-gather')} gather a "
+              f"step) and the metrics' host-staged reduces "
+              f"{[round(v, 1) for v in metrics_ms]} ms; losses "
+              f"{[s['agent_losses'] for s in steps]}; launches "
+              f"{r['tpt_launches']} ({r['tpt_edm_equal']} of "
+              f"{r['tpt_edm_checked']} edm_update bit-equal to the twin); "
+              f"peak {r['tpt_peak_gib']:.2f} GiB allocated, "
+              f"{r['tpt_peak_reserved_gib']:.2f} reserved; card free at the "
+              f"phase's start {r['card_free_gib_33']:.2f} GiB; {smi}",
+              flush=True)
+    print(f"[time] phase 33 took "
+          f"{statistics.median(r['p33_s'] for r in rec['ranks']):.1f} s in "
+          f"the ranks (median; per rank "
+          f"{[round(r['p33_s'], 1) for r in rec['ranks']]}; rank 0's (a) "
+          f"{rec['ranks'][0]['tpt_a_s']:.1f} s, init "
+          f"{rec['ranks'][0]['tpt_init_s']:.1f} s, (b) "
+          f"{rec['ranks'][0]['tpt_b_s']:.1f} s)", flush=True)
+
+
 def tree_block_ranks(rank, world, batches, refs, rec):
     """Phase 30 on one rank (after 29): ``TREE_BLOCK_RUNS`` on ranks 0–1,
     ``TREE_BLOCK_B`` agents of ``smollm_360m`` each at full width, its
@@ -5611,7 +6041,7 @@ def tree_block_ranks(rank, world, batches, refs, rec):
 
 
 def peer_rank(rank: int, world: int, batches, held, refs, out_dir):
-    """Phases 25–32's rank (a spawned process; the one card for every
+    """Phases 25–33's rank (a spawned process; the one card for every
     rank), one agent of the main path's model each (phases 28 and 30: also
     two agents on ranks 0–1; phase 28: a pod's row shard; phase 29: a block of
     deepseek_moe_16b's experts).
@@ -5644,7 +6074,9 @@ def peer_rank(rank: int, world: int, batches, held, refs, out_dir):
     after 29: ``TREE_BLOCK_RUNS`` (:func:`tree_block_ranks`).  Phase 31,
     after 30: ``qwen3_14b`` tensor-parallel served (:func:`tp_ranks`).
     Phase 32, after 31: ``falcon_mamba_7b`` tensor-parallel served
-    (:func:`ssm_ranks`).  Writes ``rank<r>.json``."""
+    (:func:`ssm_ranks`).  Phase 33, after 32: ``qwen3_14b`` trained
+    tensor-parallel on a ``(2, 2)`` grid (:func:`tp_train_ranks`).  Writes
+    ``rank<r>.json``."""
     import torch
     import torch.distributed as dist
     from torch.profiler import ProfilerActivity, profile
@@ -5836,6 +6268,8 @@ def peer_rank(rank: int, world: int, batches, held, refs, out_dir):
     tp_ranks(rank, world, rec)
     # 32: falcon_mamba_7b tensor-parallel across the ranks
     ssm_ranks(rank, world, rec)
+    # 33: qwen3_14b trained on the tree path, tensor-parallel on (2, 2)
+    tp_train_ranks(rank, world, rec)
     for tag in ("overlap", "groups", "tree_edm", "tree_dsgt"):
         rec[f"{tag}_equal"] = all(
             rec[f"{tag}_digests"][k] == [refs[tag]["digests"][k][rank]]
@@ -5845,10 +6279,10 @@ def peer_rank(rank: int, world: int, batches, held, refs, out_dir):
 
 
 def peer_phase():
-    """Phases 25–32: ``PEER_RANKS`` ranks on the one card, each one agent
+    """Phases 25–33: ``PEER_RANKS`` ranks on the one card, each one agent
     of ``smollm_360m`` at full width and depth (bus ``(1, 3195392, 128)``
     a rank, or its 12 bf16 tree leaves), fused kernels, seq 128, per-agent
-    batch 1, α 0.2, β 0.9, spawned once for the eight phases.
+    batch 1, α 0.2, β 0.9, spawned once for the nine phases.
 
     Phase 25: ``PEER_STEPS`` steps of the multi-rank bus step on the ring;
     the gossip runs through the peer-pointer ring kernel (CUDA IPC).
@@ -5891,6 +6325,10 @@ def peer_phase():
     Phase 32: ``falcon_mamba_7b`` tensor-parallel over the ranks
     (:func:`ssm_ranks`), its references so (:func:`ssm_references`),
     gated by :func:`check_ssm_ranks`.
+    Phase 33: ``qwen3_14b`` trained on the tree path tensor-parallel on a
+    ``(2, 2)`` grid (:func:`tp_train_ranks`; each rank's one-process
+    reference of step 0 in the rank), gated by
+    :func:`check_tp_train_ranks`.
     The split plan is not run here (one card; the CPU tests hold it over
     gloo); the NCCL path has run nowhere."""
     import shutil
@@ -6081,6 +6519,7 @@ def peer_phase():
     # phase 32's, the same way
     out["ssm_refs"] = ssm_references(ranks[0]["ssm_b_layers"])
     check_ssm_ranks(ranks, out["ssm_refs"])
+    check_tp_train_ranks(ranks)
     return out
 
 
@@ -6482,6 +6921,7 @@ def print_peer(rec, smi: str) -> None:
     print_tree_block(rec, smi)
     print_tp(rec, smi)
     print_ssm(rec, smi)
+    print_tp_train(rec, smi)
     print("[peer] not run on this card: the split (pod × data) permute "
           "plan (the CPU tests hold it over gloo against the JAX package); "
           "NCCL: not run anywhere (one card: NCCL refuses two ranks on it; "
@@ -6815,14 +7255,14 @@ def main() -> None:
     print(f"[flash] the op at (a) and (b): launches {flash_counts}",
           flush=True)
 
-    clock("25-32")
-    # 25–32. multi-rank: 4 ranks on the one card, the peer-pointer
+    clock("25-33")
+    # 25–33. multi-rank: 4 ranks on the one card, the peer-pointer
     # ring (25); the delayed pipeline with a straggler, the peer table
     # kernel and policy groups across ranks (26); the tree path (27); the
     # wires, agent blocks and row shards (28); the MoE served
     # expert-parallel and in the EP + TP layout (29); the tree with two
     # agents a rank (30); qwen3_14b (31) and falcon_mamba_7b (32)
-    # tensor-parallel served.  They run here, while this process holds next to nothing on the card: the four ranks and their
+    # tensor-parallel served; qwen3_14b trained tensor-parallel (33).  They run here, while this process holds next to nothing on the card: the four ranks and their
     # peer buffers take most of it
     peer = peer_phase()
     print_peer(peer, smi)
@@ -7708,6 +8148,11 @@ def main() -> None:
             rec["launches_phase27"] = {
                 what: [sum(s_.get(name, 0) for s_ in r[f"tree_{what}_step_launches"])
                        for r in pr] for what in TREE_RUNS}
+        if name in ("edm_update", "ring_peer", "table_peer"):
+            # phase 33: the tree under tensor parallelism on (2, 2), each
+            # rank's launches over its steps
+            rec["launches_phase33"] = [r["tpt_launches"].get(name, 0)
+                                       for r in pr]
         if name in ("edm_update", "table_peer"):
             # phase 30: the tree with two agents a rank, each member
             # rank's launches

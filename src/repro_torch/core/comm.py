@@ -26,11 +26,13 @@ trainer and the checkpoints share (the JAX package's counterpart is a
   group); :func:`sum_grads` — the identity, whose gradient is summed over
   the group (JAX's ``pbroadcast`` of a replicated operand into a
   rank-varying computation); :func:`gather_rows` — the tiled all-gather,
-  whose gradient is this rank's rows; :func:`shard_rows` — this rank's
-  contiguous rows, whose gradient is all-gathered.  Their collectives
-  carry the tag ``moe``; the tensor-parallel forward
-  (:class:`repro_torch.core.sharding.TensorParallel`) sums with
-  :func:`psum` and gathers with :func:`all_gather` under the tag ``tp``.
+  whose gradient is this rank's rows (:func:`gather_last`: the same along
+  the last dim); :func:`shard_rows` — this rank's contiguous rows, whose
+  gradient is all-gathered.  Their collectives carry the tag ``moe``; the
+  tensor-parallel forward and its backward
+  (:class:`repro_torch.core.sharding.TensorParallel`) sum with
+  :func:`psum` and :func:`sum_grads` and gather with :func:`gather_last`
+  under the tag ``tp``.
 
 Inside :func:`recording` each collective appends a :class:`Collective` —
 its kind (the HLO names: ``collective-permute``, ``all-gather``,
@@ -64,7 +66,8 @@ import torch.distributed as dist
 __all__ = ["GossipMesh", "gossip_agent_axes", "axes_group", "rank_block",
            "KINDS", "Collective", "Recording", "recording", "mark",
            "Pending", "ppermute_start", "ppermute", "all_gather",
-           "all_reduce", "psum", "sum_grads", "gather_rows", "shard_rows"]
+           "all_reduce", "psum", "sum_grads", "gather_rows", "gather_last",
+           "shard_rows"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -372,7 +375,7 @@ def all_reduce(t: torch.Tensor, group, group_size: int,
 
 
 # ---------------------------------------------------------------------------
-# differentiable forms (the expert-parallel MoE layer)
+# differentiable forms (the expert-parallel MoE layer, the TP loss)
 # ---------------------------------------------------------------------------
 
 class _Psum(torch.autograd.Function):
@@ -396,16 +399,16 @@ class _SumGrads(torch.autograd.Function):
         return all_reduce(g, *ctx.args), None, None, None
 
 
-class _GatherRows(torch.autograd.Function):
+class _Gather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, t, group, group_size, index, tag):
-        ctx.rows, ctx.index = t.shape[0], index
-        return all_gather(t, group, group_size, tag)
+    def forward(ctx, t, group, group_size, index, tag, dim):
+        ctx.n, ctx.index, ctx.dim = t.shape[dim], index, dim
+        return all_gather(t, group, group_size, tag, dim=dim)
 
     @staticmethod
     def backward(ctx, g):
-        r0 = ctx.index * ctx.rows
-        return g[r0:r0 + ctx.rows], None, None, None, None
+        r0 = ctx.index * ctx.n
+        return (g.narrow(ctx.dim, r0, ctx.n), None, None, None, None, None)
 
 
 class _ShardRows(torch.autograd.Function):
@@ -442,7 +445,17 @@ def gather_rows(t: torch.Tensor, group, group_size: int, index: int,
     """The tiled all-gather of ``t``'s rows over ``group`` (this rank's
     block at ``index``); the gradient is this rank's rows of the
     cotangent, which every rank of the group holds alike."""
-    return _GatherRows.apply(t, group, group_size, index, tag)
+    return _Gather.apply(t, group, group_size, index, tag, 0)
+
+
+def gather_last(t: torch.Tensor, group, group_size: int, index: int,
+                tag: str = "tp") -> torch.Tensor:
+    """:func:`gather_rows` along ``t``'s last dim: the tiled all-gather of
+    the ranks' column blocks in rank order (this rank's at ``index``),
+    whose gradient is this rank's columns of the cotangent — every rank
+    of the group holds the whole cotangent of the same loss, so no sum is
+    needed (the vocab-parallel logits of the tensor-parallel loss)."""
+    return _Gather.apply(t, group, group_size, index, tag, t.dim() - 1)
 
 
 def shard_rows(t: torch.Tensor, group, group_size: int, index: int,

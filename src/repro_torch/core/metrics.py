@@ -107,8 +107,15 @@ def bus_grad_norm_ranks(g_bus: torch.Tensor, total_sum) -> torch.Tensor:
                                      device=g_bus.device)).sqrt()
 
 
+def _kept(tree, skip):
+    """``tree``'s leaves but those whose path is in ``skip``."""
+    if not skip:
+        return _leaves(tree)
+    return [v for p, v in tree.items() if p not in skip]
+
+
 def consensus_distance_ranks(tree, n_agents: int, agent_sum,
-                             total_sum) -> torch.Tensor:
+                             total_sum, skip=()) -> torch.Tensor:
     """:func:`consensus_distance` of a tree spread over ranks: ``tree`` is
     this rank's ``(B, ...)`` block of every leaf; ``agent_sum(t)`` sums
     ``t`` over the ranks that hold the other agents and ``total_sum(t)`` a
@@ -116,20 +123,30 @@ def consensus_distance_ranks(tree, n_agents: int, agent_sum,
     the agents divided by ``n_agents``, rounded once to the leaf's dtype
     as ``leaf.mean(dim=0)`` rounds it, and the deviation is taken in that
     dtype, so the value equals the one-process one up to the order of the
-    sums."""
+    sums.  The paths in ``skip`` are left out on this rank (a leaf that
+    every model rank holds whole counts on one of them only; the ranks
+    that ``agent_sum`` joins skip alike)."""
     total = None
-    for leaf in _leaves(tree):
+    for leaf in _kept(tree, skip):
         mean = (agent_sum(leaf.float().sum(dim=0, keepdim=True))
                 / n_agents).to(leaf.dtype)
         part = (leaf - mean).float().square().sum()
         total = part if total is None else total + part
+    if total is None:
+        total = torch.zeros((), dtype=torch.float32,
+                            device=_leaves(tree)[0].device)
     return total_sum(total)
 
 
-def tree_grad_norm_ranks(grads, total_sum) -> torch.Tensor:
+def tree_grad_norm_ranks(grads, total_sum, skip=()) -> torch.Tensor:
     """The global gradient norm of a tree spread over ranks: this rank's
-    :func:`tree_sqnorm`, summed over every rank (``total_sum``)."""
-    return total_sum(tree_sqnorm(grads)).sqrt()
+    :func:`tree_sqnorm` (but the paths in ``skip``), summed over every
+    rank (``total_sum``)."""
+    kept = _kept(grads, skip)
+    sq = (sum(leaf.float().square().sum() for leaf in kept) if kept
+          else torch.zeros((), dtype=torch.float32,
+                           device=_leaves(grads)[0].device))
+    return total_sum(sq).sqrt()
 
 
 def _agent_sqnorm(tree) -> torch.Tensor:

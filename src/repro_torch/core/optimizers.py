@@ -103,7 +103,8 @@ def _lincomb(*pairs):
 # ---------------------------------------------------------------------------
 
 def make_edm(alpha: float, beta: float, mix: Mixer,
-             use_fused_kernel: bool = False) -> DecOptimizer:
+             use_fused_kernel: bool = False,
+             consume: bool = False) -> DecOptimizer:
     """Exact-Diffusion with Momentum (paper Algorithm 1), per agent::
 
         m   ← β m + (1-β) g
@@ -116,7 +117,11 @@ def make_edm(alpha: float, beta: float, mix: Mixer,
     ``use_fused_kernel=True`` runs the chain through
     :func:`repro_torch.kernels.ops.edm_update_tree`: one EDM kernel
     launch per leaf on the card, the same pack and plain chain on the
-    CPU."""
+    CPU; with ``consume=True`` too the step consumes its inputs, as the
+    bus step does (:func:`repro_torch.kernels.ops.edm_update_tree_`: m',
+    ψ' and φ written over m, ψ and x leaf by leaf, each gradient leaf
+    dropped from ``grads`` once used), so that a full-width tree holds
+    each leaf once."""
 
     def init(params) -> State:
         return {"m": _zeros_like(params), "psi": tree_map(torch.clone,
@@ -124,9 +129,10 @@ def make_edm(alpha: float, beta: float, mix: Mixer,
 
     def step(params, grads, state: State):
         if use_fused_kernel:
-            m_new, phi, psi_new = kops.edm_update_tree(
-                params, grads, state["m"], state["psi"], alpha=alpha,
-                beta=beta)
+            update = (kops.edm_update_tree_ if consume
+                      else kops.edm_update_tree)
+            m_new, phi, psi_new = update(params, grads, state["m"],
+                                         state["psi"], alpha=alpha, beta=beta)
         else:
             m_new = _lincomb((beta, state["m"]), ((1.0 - beta), grads))
             psi_new = _lincomb((1.0, params), (-alpha, m_new))

@@ -24,9 +24,12 @@ counterpart of the reference's ``jax.sharding.PartitionSpec`` trees
   forward uses it: the sum over the model axis of a row-parallel
   product's partials (``wo``, ``w_down``), the vocab-parallel embedding
   lookup (the rank's rows, zeros for the rest, one sum) and the
-  all-gather of the vocab-parallel logits.  Its collectives are
-  :func:`repro_torch.core.comm.psum` and
-  :func:`~repro_torch.core.comm.all_gather`, tagged ``tp``.
+  all-gather of the vocab-parallel logits; for training, the sum of a
+  replicated value's gradient where it enters the rank's blocks
+  (:meth:`TensorParallel.enter`).  Its collectives are
+  :func:`repro_torch.core.comm.psum`, :func:`~repro_torch.core.comm.
+  sum_grads` and :func:`~repro_torch.core.comm.gather_last`, tagged
+  ``tp``, each differentiable.
 
 Whole heads: the reference's GSPMD may split ``wq``'s columns anywhere and
 reshard; the port splits on head boundaries only, so that a rank holds
@@ -234,12 +237,28 @@ class TensorParallel:
 
     def gather(self, t: torch.Tensor) -> torch.Tensor:
         """The ranks' blocks of ``t`` along its last dim, in rank order
-        (one all-gather)."""
+        (one all-gather); its gradient is this rank's block of the
+        cotangent (:func:`repro_torch.core.comm.gather_last`)."""
         if self.size == 1:
             return t
         from repro_torch.core import comm
-        return comm.all_gather(t, self.mesh.group("model"), self.size,
-                               tag="tp", dim=t.dim() - 1)
+        return comm.gather_last(t, self.mesh.group("model"), self.size,
+                                self.index, tag="tp")
+
+    def enter(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` as it is, its gradient summed over the model axis (one
+        all-reduce in the backward pass, :func:`repro_torch.core.comm.
+        sum_grads`): a value that every rank holds alike entering a
+        computation on the rank's own blocks — a column-parallel
+        product's normed input (each rank's cotangent holds its columns'
+        part only; summed after ``rms_norm``, so that the norm's weight
+        and the residual get the whole), or a replicated weight that acts
+        on the rank's heads only (``q_norm`` / ``k_norm``)."""
+        if self.size == 1:
+            return t
+        from repro_torch.core import comm
+        return comm.sum_grads(t, self.mesh.group("model"), self.size,
+                              tag="tp")
 
     def embed(self, table: torch.Tensor, tokens: torch.Tensor
               ) -> torch.Tensor:

@@ -65,7 +65,8 @@ def edm_update_flat(x, g, m, psi, *, alpha: float, beta: float,
     """Fused EDM update on the card.  Inputs: ``(rows, 128)`` f32 CUDA
     tensors, contiguous.  Returns ``(m', ψ', φ)``, written into ``out`` =
     ``(m_out, psi_out, phi_out)`` where an entry is not None; ``m_out``
-    may be ``m`` and ``psi_out`` may be ``psi`` (in place).  Bit-equal to
+    may be ``m``, ``psi_out`` ``psi`` and ``phi_out`` ``x`` (in place: a
+    thread reads an element's inputs before it writes them).  Bit-equal to
     :func:`repro_torch.kernels.ref.edm_update_ref` (no FMA contraction)."""
     if x.dim() != 2 or x.shape[1] != LANE:
         raise ValueError(f"edm_update_flat takes (rows, {LANE}), got "

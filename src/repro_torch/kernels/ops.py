@@ -32,8 +32,9 @@ from .table_combine import table_combine_flat, table_operands
 from .table_peer import (table_peer_flat, table_peer_operands,
                          table_peer_q8_flat)
 
-__all__ = ["edm_update", "edm_update_tree", "edm_update_bus",
-           "edm_update_bus_ef", "gossip_axpy", "gossip_axpy_wire",
+__all__ = ["edm_update", "edm_update_tree", "edm_update_tree_",
+           "edm_update_bus", "edm_update_bus_ef", "gossip_axpy",
+           "gossip_axpy_wire",
            "ring_combine", "ring_peer", "table_combine", "table_combine_wire",
            "table_peer", "table_peer_q8",
            "flash_attention", "paged_attention",
@@ -121,6 +122,31 @@ def edm_update_tree(params: Mapping[str, torch.Tensor],
         m_new[p], psi_new[p], phi[p] = edm_update(
             params[p], grads[p], m[p], psi[p], alpha=alpha, beta=beta)
     return m_new, phi, psi_new
+
+
+def edm_update_tree_(params: Dict[str, torch.Tensor],
+                     grads: Dict[str, torch.Tensor],
+                     m: Dict[str, torch.Tensor],
+                     psi: Dict[str, torch.Tensor], *, alpha: float,
+                     beta: float):
+    """:func:`edm_update_tree` consuming its inputs, leaf by leaf: m' is
+    written over ``m``'s leaf, ψ' over ``psi``'s and φ over ``params``'
+    (x is dead once φ exists; the launch writes φ over x's packed copy,
+    each element's x read before its φ), and the leaf's gradient is
+    dropped from ``grads`` once used, so that no leaf is held twice: four
+    packed f32 copies of one leaf are the only extra memory.  Returns
+    ``(m, params, psi)`` themselves, the optimizer's order."""
+    for p in list(params):
+        xp, gp, mp, pp = (pack_leaf(t) for t in (params[p], grads.pop(p),
+                                                 m[p], psi[p]))
+        update = (edm_update_flat if _on_card(params[p])
+                  else ref.edm_update_ref)
+        update(xp, gp, mp, pp, alpha=alpha, beta=beta, out=(mp, pp, xp))
+        del gp
+        for dst, src in ((m[p], mp), (psi[p], pp), (params[p], xp)):
+            dst.copy_(src.reshape(-1)[:dst.numel()].view(dst.shape))
+        del xp, mp, pp
+    return m, params, psi
 
 
 def edm_update_bus(x, g, m, psi, *, alpha: float, beta: float,

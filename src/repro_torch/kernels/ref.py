@@ -38,7 +38,8 @@ def edm_update_ref(x, g, m, psi, *, alpha: float, beta: float,
     double rounded once to f32, as in the JAX kernel.  ``out`` =
     ``(m_out, psi_out, phi_out)`` receives the results where an entry is
     not None (``m_out`` may be ``m`` and ``psi_out`` may be ``psi``: all
-    three are computed first; ``phi_out`` may alias no input).  The chain
+    three are computed first; ``phi_out`` may be ``x``, whose last read
+    is the elementwise sum that writes it, and no other input).  The chain
     accumulates in place where that changes no rounding (a sum's operands
     commute exactly), so a bus-sized call holds few temporaries."""
     m_new = beta * m

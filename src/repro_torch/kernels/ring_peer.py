@@ -173,6 +173,10 @@ class PeerRing:
         handle = ctypes.create_string_buffer(lib.ring_peer_handle_bytes())
         ptr = ctypes.c_void_p()
         with torch.cuda.device(self.device):
+            # cudaMalloc, outside torch's caching allocator: hand it the
+            # blocks torch holds cached but unused (a full-width step's
+            # freed temporaries) first
+            torch.cuda.empty_cache()
             raise_on(lib.ring_peer_alloc(payload_bytes + FLAG_BYTES,
                                          ctypes.byref(ptr), handle),
                      "ring_peer allocation")

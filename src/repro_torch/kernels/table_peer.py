@@ -346,6 +346,10 @@ class PeerTable:
         handle = ctypes.create_string_buffer(lib.table_peer_handle_bytes())
         ptr = ctypes.c_void_p()
         with torch.cuda.device(self.device):
+            # cudaMalloc, outside torch's caching allocator: hand it the
+            # blocks torch holds cached but unused (a full-width step's
+            # freed temporaries) first
+            torch.cuda.empty_cache()
             raise_on(lib.table_peer_alloc(self._flag_off + FLAG_BYTES,
                                           ctypes.byref(ptr), handle),
                      "table_peer allocation")

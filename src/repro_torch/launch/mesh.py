@@ -166,7 +166,7 @@ def _all_slices(shape):
 
 def make_gossip_mesh(n_agents: int, pods: int = 1,
                      agents_per_device: int = 1, shards: int = 1,
-                     device=None) -> GossipMesh:
+                     device=None, model: int = 1) -> GossipMesh:
     """Rank grid carrying the agent grid, as the reference's
     ``make_gossip_mesh``: one agent per rank (default) gives ``(pods,
     n_agents // pods)`` with axes ``('pod', 'data')`` when ``pods > 1``,
@@ -175,9 +175,14 @@ def make_gossip_mesh(n_agents: int, pods: int = 1,
     B`` ranks.  Shard-resident mode (``shards > 1``): an ``(n_agents,
     shards)`` grid with axes ``('pod', 'data')`` where 'pod' is the agent
     axis and 'data' the row-shard axis (pods must equal n_agents; B = 1).
-    Built over the first ranks of the world; raises when the world is too
-    small.  ``device`` defaults to the one :func:`init_distributed` chose
-    (else ``cpu`` under gloo, ``cuda`` under NCCL)."""
+    ``model`` M > 1 adds a model axis for tensor parallelism: the ``(A /
+    B, M)`` grid with axes ``('data', 'model')`` (the reference's
+    ``jax.make_mesh((D, M), ("data", "model"))`` of its ``state_specs``
+    layout), rank ``r`` data index ``r // M`` and model index ``r % M``
+    (one pod; not with ``shards``).  Built over the first ranks of the
+    world; raises when the world is too small.  ``device`` defaults to
+    the one :func:`init_distributed` chose (else ``cpu`` under gloo,
+    ``cuda`` under NCCL)."""
     B = agents_per_device
     if B < 1 or n_agents % B:
         raise ValueError(f"agents_per_device={B} must divide n_agents="
@@ -190,6 +195,11 @@ def make_gossip_mesh(n_agents: int, pods: int = 1,
         raise RuntimeError("make_gossip_mesh needs the process group: call "
                            "repro_torch.launch.mesh.init_distributed first")
     world = dist.get_world_size()
+    if model < 1:
+        raise ValueError(f"model must be >= 1, got {model}")
+    if model > 1 and (shards > 1 or pods > 1):
+        raise ValueError("a model axis composes with one pod of agents over "
+                         "'data' (agents='data'): not with pods or shards")
     if shards > 1:
         if B != 1:
             raise ValueError("shard-resident gossip needs one agent per "
@@ -200,14 +210,17 @@ def make_gossip_mesh(n_agents: int, pods: int = 1,
         shape, names = (n_agents, shards), ("pod", "data")
     else:
         n_dev = n_agents // B
-        if B == 1 and pods > 1:
+        if model > 1:
+            shape, names = (n_dev, model), ("data", "model")
+        elif B == 1 and pods > 1:
             shape, names = (pods, n_dev // pods), ("pod", "data")
         else:
             shape, names = (n_dev,), ("data",)
     n_dev = math.prod(shape)
     if world < n_dev:
         what = (f"{n_agents} pod-agents × {shards} shards" if shards > 1
-                else f"{B}-agent-per-device gossip")
+                else f"{B}-agent-per-device gossip"
+                + (f" × {model} model ranks" if model > 1 else ""))
         raise ValueError(f"need {n_dev} ranks for {what}, have {world}")
     return _grid(shape, names, n_agents, B, shards, device)
 

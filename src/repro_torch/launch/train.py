@@ -64,6 +64,24 @@ agents, each over a pod of S row shards (the shard-resident mode)::
       --arch smollm_360m --smoke --agents pod --pods 2 --shards 2 \
       --gossip-engine ppermute --steps 2 --device cpu
 
+A world larger than the agent ranks (``--agents`` / ``--agents-per-device``)
+splits each agent over the rest: ``M = world / agent ranks`` model ranks
+a data rank, the ``(A / B, M)`` ``("data", "model")`` grid of the
+reference's ``state_specs`` (tensor parallelism: each rank holds its
+block of its agents' leaves, the loss and backward run over ``model``,
+the gossip over the rank's ``data`` slice; the dense family, on the tree:
+``--packed-bus`` off unless given; header ``tp=model:M rank_block:
+...``)::
+
+  torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \
+      --arch qwen3_14b --smoke --agents 2 --gossip-engine ppermute \
+      --fused-kernel --steps 2 --device cpu
+
+A world that the agent ranks do not divide raises, and so does a config
+whose heads, FFN columns or vocabulary do not split whole over M
+(``smollm_360m``'s 5 KV heads at M = 2); ``--ckpt`` / ``--resume`` under
+TP are queued.
+
 (``python -m torch.distributed.run`` is the same launcher; ``--overlap
 delayed`` with ``--straggler``, and ``--gossip-groups``, run so too, and
 the tree path: ``--algorithm X`` (any of the nine) or ``--no-packed-bus``
@@ -117,7 +135,7 @@ from repro_torch.train import (build_train_step, bus_layout_for, checkpoint,
                                resolve_features)
 from repro_torch.train.graphs import graph_train_step
 
-__all__ = ["parser", "main"]
+__all__ = ["parser", "model_ranks", "main"]
 
 
 def parser() -> argparse.ArgumentParser:
@@ -163,6 +181,26 @@ def parser() -> argparse.ArgumentParser:
     return ap
 
 
+def model_ranks(world: int, n_agents: int, agents_per_device: int) -> int:
+    """The model axis M of the train CLI's rank grid: the ranks past the
+    agents' ``n_agents / agents_per_device`` split each agent's leaves
+    (the ``(A / B, M)`` ``("data", "model")`` grid), 1 when the world is
+    no larger.  A world that the agent ranks do not divide raises."""
+    if agents_per_device < 1 or n_agents % agents_per_device:
+        raise ValueError(f"--agents-per-device {agents_per_device} must "
+                         f"divide --agents {n_agents}")
+    agent_ranks = n_agents // agents_per_device
+    if world <= agent_ranks:
+        return 1
+    if world % agent_ranks:
+        raise ValueError(
+            f"{world} ranks do not split over {agent_ranks} agent ranks "
+            f"(--agents {n_agents} / --agents-per-device "
+            f"{agents_per_device}): the model axis is the world over the "
+            "agent ranks")
+    return world // agent_ranks
+
+
 def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
     """Parse ``argv``, train, print one line per logged step, and return
     ``{"state", "metrics", "step_seconds", "run", "wire_bytes", "epochs",
@@ -183,6 +221,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
     ranked = pod or (args.gossip_engine == "ppermute"
                      and args.agents_per_device < n_agents)
     mesh = shard_axes = None
+    tp_ranks = 1
     say = print
     owned = False
     if ranked:
@@ -196,12 +235,18 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
                              "path (set --gossip-engine ppermute)")
         owned = not dist.is_initialized()
         device = init_distributed(args.device or "cuda")
-        shards = (args.shards or max(dist.get_world_size() // n_agents, 1)
-                  if pod else 1)
+        world = dist.get_world_size()
+        shards = (args.shards or max(world // n_agents, 1) if pod else 1)
+        if not pod:
+            tp_ranks = model_ranks(world, n_agents, args.agents_per_device)
+        if tp_ranks > 1 and (args.ckpt or args.resume):
+            raise ValueError("--ckpt / --resume under tensor parallelism are "
+                             "queued (ROADMAP §1 item 8.5): a rank holds its "
+                             "blocks only")
         mesh = make_gossip_mesh(
             n_agents, pods=n_agents if pod else args.pods,
             agents_per_device=1 if pod else args.agents_per_device,
-            shards=shards, device=device)
+            shards=shards, device=device, model=tp_ranks)
         shard_axes = "data" if pod else None
         if not mesh.member:
             raise ValueError(f"rank {mesh.rank} is outside the {mesh.shape} "
@@ -212,9 +257,14 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
         device = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     model = build_model(cfg)
+    overrides = run_config_overrides(args)
+    if tp_ranks > 1 and overrides.get("packed_bus") is None:
+        # the TP train path is the tree's (state_specs): the bus is whole
+        # on every model rank
+        overrides["packed_bus"] = False
     run = RunConfig(global_batch=n_agents * args.per_agent_batch,
                     seq_len=args.seq, agents="pod" if pod else "data",
-                    remat=False, **run_config_overrides(args))
+                    remat=False, **overrides)
     feats = resolve_features(run)
     sched = make_gossip_schedule(run, n_agents,
                                  pods=1 if pod else args.pods,
@@ -295,6 +345,15 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
                     f"shards={mesh.shards} backend={mesh.backend}"
                     + (f" (ranks share {device})" if mesh.shared else "")
                     + f" gossip={'+'.join(routes)}")
+        if tp_ranks > 1:
+            ff = cfg.dense_d_ff or cfg.d_ff
+            grid_str += (f" tp=model:{tp_ranks} rank_block: heads "
+                         f"{cfg.n_heads // tp_ranks}/"
+                         f"{cfg.n_kv_heads // tp_ranks} (query/KV) of "
+                         f"{cfg.n_heads}/{cfg.n_kv_heads}, FFN columns "
+                         f"{ff // tp_ranks} of {ff}, vocabulary rows "
+                         f"{cfg.vocab_size // tp_ranks} of "
+                         f"{cfg.vocab_size}")
     # --topology only feeds the static schedule; don't print it otherwise
     topo_str = (f"topo={args.topology} " if args.gossip_schedule == "static"
                 else "")

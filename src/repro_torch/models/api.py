@@ -37,8 +37,11 @@ fixed at build time.  ``kv_heads`` is the KV heads a rank holds (the
 config's on one rank, K/M on the grid): the caches' and the paged pools'
 width; ``ssm_channels`` the SSM channels (``d_inner``, or ``d_inner /
 M``): an SSM state's.  Under the grid an MoE layer runs expert-parallel
-(:func:`repro_torch.models.moe.apply_moe_shard_map`) and ``loss``
-raises: the train path under TP is queued.
+(:func:`repro_torch.models.moe.apply_moe_shard_map`).  ``loss`` under
+the grid is a dense model's tensor-parallel loss (its gradient is the
+rank's block of the whole gradient: :func:`repro_torch.models.
+transformer.lm_loss`); for the other families it raises
+``NotImplementedError``, their TP training queued.
 """
 from __future__ import annotations
 
@@ -156,12 +159,8 @@ def build_model(cfg: ModelConfig, decode_window: int = 0,
                                       prefill_attn_fn=prefill_attn_fn, tp=tp)
 
     def loss(params, batch, remat=True, remat_policy="full"):
-        if tp is not None:
-            raise NotImplementedError(
-                "the train path under tensor parallelism is queued in "
-                "ROADMAP §1 (the TP slices): this model serves only")
         return tf.lm_loss(cfg, params, batch, remat=remat,
-                          remat_policy=remat_policy)
+                          remat_policy=remat_policy, tp=tp)
 
     return Model(cfg,
                  lambda generator: tf.init_lm(cfg, generator),

@@ -212,11 +212,16 @@ def apply_attn(p: Dict[str, torch.Tensor], cfg, x, positions, *,
                mode: str = "train", cache: Optional[Dict] = None,
                window: int = 0, cur_len=None,
                xattn_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-               reduce: Optional[Callable] = None):
+               reduce: Optional[Callable] = None,
+               enter: Optional[Callable] = None):
     """Pre-norm causal (or sliding-window) self-attention with residual,
     or the encoder-decoder's cross attention.  ``reduce`` is the
     tensor-parallel sum of the row-parallel ``wo`` product (None: the
-    layer's weights are whole).
+    layer's weights are whole); ``enter`` the identity whose gradient is
+    summed over the model axis, applied to the normed input of the
+    rank's ``wq`` / ``wk`` / ``wv`` columns (after the norm, so that
+    ``ln`` and x get the whole gradient) and to ``q_norm`` / ``k_norm``,
+    which are whole on every rank but act on its heads only.
 
     mode:
       "train"   — returns y;
@@ -231,6 +236,11 @@ def apply_attn(p: Dict[str, torch.Tensor], cfg, x, positions, *,
                   reference's; returns ``(y, cache)``, ``cache`` untouched.
     """
     h = rms_norm(x, p["ln"], cfg.norm_eps)
+    if enter is not None:
+        h = enter(h)
+        if "q_norm" in p:
+            p = {**p, "q_norm": enter(p["q_norm"]),
+                 "k_norm": enter(p["k_norm"])}
     win = window or cfg.sliding_window
     B, S = h.shape[:2]
     if mode == "cross":

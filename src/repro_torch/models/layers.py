@@ -75,14 +75,19 @@ def gelu_mlp(x, w_up, w_down):
 
 
 def apply_dense_ffn(p: Dict[str, torch.Tensor], x: torch.Tensor,
-                    eps: float, reduce: Optional[Callable] = None
-                    ) -> torch.Tensor:
+                    eps: float, reduce: Optional[Callable] = None,
+                    enter: Optional[Callable] = None) -> torch.Tensor:
     """Pre-norm FFN with residual: SwiGLU when the layer has ``w_gate``,
     else the ungated GELU MLP.  Under tensor parallelism ``w_gate`` /
     ``w_up`` hold the rank's columns and ``w_down`` its rows, and
     ``reduce`` sums the rank's partial product over the model axis BEFORE
-    the residual (``x + psum(partial)``: x is counted once)."""
+    the residual (``x + psum(partial)``: x is counted once); ``enter``
+    (the identity whose gradient is summed over the model axis) takes the
+    normed input into the rank's columns, after the norm, so that ``ln``
+    and x get the whole gradient."""
     h = rms_norm(x, p["ln"], eps)
+    if enter is not None:
+        h = enter(h)
     if "w_gate" in p:
         y = swiglu(h, p["w_gate"], p["w_up"], p["w_down"])
     else:

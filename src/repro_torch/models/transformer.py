@@ -56,7 +56,7 @@ __all__ = ["param_specs", "param_meta", "meta_from_specs", "init_lm",
            "lm_prefill", "lm_decode_step", "lm_decode_step_paged",
            "lm_prefill_chunk_paged", "lm_serve_step_mixed",
            "lm_param_specs", "expert_param_specs", "lm_cache_specs",
-           "check_tp_split"]
+           "check_tp_split", "check_tp_train"]
 
 # (shape, dtype, init): init is the truncated-normal fan-in (an int),
 # None for a zero-initialised leaf (norm weights, QKV biases), or a
@@ -434,12 +434,14 @@ def _layers(cfg: ModelConfig, params: Dict[str, torch.Tensor]
     return layers
 
 
-def _ffn(cfg: ModelConfig, lp: Dict, x: torch.Tensor, tp=None):
+def _ffn(cfg: ModelConfig, lp: Dict, x: torch.Tensor, tp=None,
+         enter=None):
     """The layer's FFN with residual: (x, the MoE layer's
     ``router_aux_coef · aux``, or None for a dense layer).  A Mamba layer
     has no FFN: x passes through.  ``tp``: see :func:`_reduce`; an MoE
     layer runs expert-parallel on the same grid, its shared experts'
-    partial folded into the one sum."""
+    partial folded into the one sum.  ``enter``: the training forward's
+    :meth:`~repro_torch.core.sharding.TensorParallel.enter`."""
     if "moe" in lp:
         if tp is not None:
             return apply_moe_shard_map(lp["moe"], cfg, x, cfg.norm_eps,
@@ -447,18 +449,21 @@ def _ffn(cfg: ModelConfig, lp: Dict, x: torch.Tensor, tp=None):
         return apply_moe(lp["moe"], cfg, x, cfg.norm_eps)
     if "ffn" in lp:
         return apply_dense_ffn(lp["ffn"], x, cfg.norm_eps,
-                               reduce=_reduce(tp)), None
+                               reduce=_reduce(tp), enter=enter), None
     return x, None
 
 
 def _train_layer(cfg: ModelConfig, lp: Dict, x: torch.Tensor,
-                 positions: torch.Tensor):
-    """One layer of the training forward: (x, the MoE aux loss or None)."""
+                 positions: torch.Tensor, tp=None):
+    """One layer of the training forward: (x, the MoE aux loss or None).
+    ``tp``: a dense layer on the rank's blocks (see :func:`lm_loss`)."""
     if "ssm" in lp:
         x, _ = apply_mamba(lp["ssm"], cfg, x)
-    else:
-        x = apply_attn(lp["attn"], cfg, x, positions)
-    return _ffn(cfg, lp, x)
+        return _ffn(cfg, lp, x)
+    enter = None if tp is None else tp.enter
+    x = apply_attn(lp["attn"], cfg, x, positions, reduce=_reduce(tp),
+                   enter=enter)
+    return _ffn(cfg, lp, x, tp, enter)
 
 
 # "dots" keeps what jax.checkpoint_policies.dots_saveable keeps: the
@@ -487,9 +492,25 @@ def _embed_inputs(params: Dict[str, torch.Tensor], tokens: torch.Tensor,
     return x
 
 
+_TP_TRAIN = ("the train path under tensor parallelism runs the dense "
+             "family; TP training of the {family} family is queued in "
+             "ROADMAP §1 item 8.6")
+
+
+def check_tp_train(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` unless ``cfg``'s loss runs under
+    tensor parallelism: the dense family (QKV bias, QK norm, the GELU
+    MLP); the MoE, SSM, hybrid and VLM families' TP losses are queued,
+    the encoder-decoder family has no TP layout."""
+    _check_tp_family(cfg)
+    if cfg.family != "dense":
+        raise NotImplementedError(f"{cfg.name}: "
+                                  + _TP_TRAIN.format(family=cfg.family))
+
+
 def lm_loss(cfg: ModelConfig, params: Dict[str, torch.Tensor],
             batch: Dict[str, torch.Tensor], *, remat: bool = True,
-            remat_policy: str = "full") -> torch.Tensor:
+            remat_policy: str = "full", tp=None) -> torch.Tensor:
     """Next-token cross entropy of one agent, plus the MoE layers'
     load-balance losses.  batch: {tokens (B, S), [frontend (B, P, d)]};
     the loss predicts tokens[1:] from the prefix (the frontend positions
@@ -497,27 +518,47 @@ def lm_loss(cfg: ModelConfig, params: Dict[str, torch.Tensor],
     ``remat`` recomputes each layer in the backward pass
     (``torch.utils.checkpoint``): ``remat_policy="full"`` keeps only the
     layer's input, ``"dots"`` also its matmul outputs.  The gradients are
-    those of ``remat=False``."""
+    those of ``remat=False``.
+
+    ``tp`` (a :class:`~repro_torch.core.sharding.TensorParallel`, the
+    dense family only: :func:`check_tp_train`): ``params`` are the
+    rank's blocks under :func:`lm_param_specs` and the forward is the
+    serving one's — the vocab-parallel embedding's sum, each layer's
+    ``wo`` and ``w_down`` partials summed before the residual — with the
+    backward's sums where the reference's GSPMD puts them: each
+    column-parallel product's normed input (``wq`` / ``wk`` / ``wv``,
+    ``w_gate`` / ``w_up``, ``lm_head``) and ``q_norm`` / ``k_norm`` go
+    through :meth:`~repro_torch.core.sharding.TensorParallel.enter`, and
+    the logits' ``(B, S, V / M)`` blocks through the differentiable
+    gather, so that the loss is the whole one on every rank and each
+    rank's gradient is its block of the whole gradient (a replicated
+    leaf's whole, alike on every rank).  The recompute of ``remat``
+    repeats a layer's forward sums, in one order on every rank."""
     _check_family(cfg)
+    if tp is not None:
+        check_tp_train(cfg)
     ctx = _remat_context(remat_policy)
     tokens = batch["tokens"].long()
     fe = batch.get("frontend")
-    x = _embed_inputs(params, tokens, fe)
+    x = _embed_inputs(params, tokens, fe, tp)
     B, S = x.shape[:2]
     positions = torch.arange(S, device=tokens.device).expand(B, S)
     aux = None
     for lp in _layers(cfg, params):
         if remat:
             kw = {} if ctx is None else {"context_fn": ctx}
-            x, a = checkpoint(_train_layer, cfg, lp, x, positions,
+            x, a = checkpoint(_train_layer, cfg, lp, x, positions, tp,
                               use_reentrant=False, preserve_rng_state=False,
                               **kw)
         else:
-            x, a = _train_layer(cfg, lp, x, positions)
+            x, a = _train_layer(cfg, lp, x, positions, tp)
         if a is not None:
             aux = a if aux is None else aux + a
     h = rms_norm(x, params["final_ln"], cfg.norm_eps)
-    logits = (h @ params["lm_head"]).float()
+    if tp is None:
+        logits = (h @ params["lm_head"]).float()
+    else:
+        logits = tp.gather(tp.enter(h) @ params["lm_head"]).float()
     n_front = 0 if fe is None else fe.shape[1]
     pred = logits[:, n_front:-1]
     tgt = tokens[:, 1:]

@@ -40,7 +40,11 @@ bus step with any schedule, churn, the EF wire and ``gossip_every``, the
 overlapped pipeline with straggler plans, and policy groups, one agent or
 a block of agents a rank, or ``agents="pod"`` with row shards; the tree
 path (every algorithm) with one agent or a block of agents a rank, any
-schedule, churn, ``gossip_every`` and the ``gossip_dtype`` cast.
+schedule, churn, ``gossip_every`` and the ``gossip_dtype`` cast.  Under
+tensor parallelism (a ``("data", "model")`` rank grid, the reference's
+``state_specs`` layout: :func:`state_specs`, :func:`prepend_agent_axis`,
+:func:`batch_spec_tree`): the tree path of the dense family, agents over
+``data`` and every leaf of an agent split over ``model``.
 """
 from __future__ import annotations
 
@@ -73,7 +77,10 @@ from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import edm_update_ref
 from repro_torch.core import comm as coll
 from repro_torch.core.comm import axes_group, gossip_agent_axes, rank_block
-from repro_torch.models.api import Model
+from repro_torch.core.sharding import P, shard_params
+from repro_torch.models.api import Model, build_model
+from repro_torch.models.transformer import (check_tp_split, check_tp_train,
+                                            init_lm_rank)
 from repro_torch.models.mamba import ssm_state_group_spec
 from repro_torch.models.moe import expert_group_spec
 from repro_torch.optim import scale_grads, warmup_cosine
@@ -83,7 +90,8 @@ __all__ = ["Features", "StaticBusStep", "resolve_features",
            "resolve_group_specs", "make_topology", "make_gossip_schedule",
            "gossip_round_step", "bus_layout_for", "make_group_plans",
            "init_state", "losses_and_grads", "tree_losses_and_grads",
-           "build_train_step"]
+           "build_train_step", "prepend_agent_axis", "state_specs",
+           "batch_spec_tree"]
 
 TrainState = Dict[str, object]
 
@@ -309,6 +317,102 @@ def make_group_plans(run: RunConfig, layout: parambus.BusLayout,
     return plans
 
 
+# ---------------------------------------------------------------------------
+# sharding specs (the reference's state_specs / batch_spec_tree)
+# ---------------------------------------------------------------------------
+
+def prepend_agent_axis(spec: P, agent_axis, fsdp_axis: Optional[str] = None
+                       ) -> P:
+    """The ``(A, *shape)`` leaf spec of a leaf spec: the agent axis over
+    ``agent_axis``, and with ``fsdp_axis`` (``agents="pod"``) the first
+    unsharded weight dim over it — a stacked block leaf's leading layer
+    dim (entry 0 ``None`` of a longer spec) is skipped, as the
+    reference's (sharding the stack would be layer parallelism).  A
+    paired cut keeps its ``groups``."""
+    entries = list(spec)
+    if fsdp_axis is not None:
+        start = 1 if (len(entries) > 1 and entries[0] is None) else 0
+        for i in range(start, len(entries)):
+            if entries[i] is None:
+                entries[i] = fsdp_axis
+                break
+    return P(agent_axis, *entries, groups=spec.groups)
+
+
+def state_specs(model: Model, run: RunConfig, multi_pod: bool) -> Dict:
+    """The train state's partition specs under the run's agent
+    granularity, the reference's ``state_specs``: on the packed bus one
+    spec for every bus (``P(("pod", "data") or "data")`` with
+    ``agents="data"``, the bus rows over ``data`` with ``agents="pod"``;
+    the EF residual and the overlap pipeline's slots beside them); on the
+    tree every leaf's :meth:`Model.param_specs` entry behind the agent
+    axis (:func:`prepend_agent_axis`; ``agents="pod"``: the first free
+    weight dim over ``data``), and every optimizer slot of
+    ``run.algorithm`` as the parameters.  The step is replicated.  The
+    encoder-decoder family's tree raises ``NotImplementedError`` (its
+    param specs do).  The multi-rank step cuts a rank's tree state by
+    these specs on a ``("data", "model")`` grid (:func:`init_state`
+    ``mesh=``)."""
+    feats = resolve_features(run)
+    if feats.packed_bus:
+        if run.agents == "pod":
+            spec = P("pod" if multi_pod else None, "data")
+        else:
+            spec = P(("pod", "data") if multi_pod else "data")
+        opt_specs = {"m": spec, "psi": spec}
+        if feats.wire != "f32":
+            opt_specs["e"] = spec
+        specs = {"params": spec, "opt": opt_specs, "step": P()}
+        if feats.overlap:
+            specs["pipeline"] = {"slot": P(None, *spec), "parity": P()}
+        return specs
+    base = model.param_specs()
+    if run.agents == "data":
+        agent_axis, fsdp = ("pod", "data") if multi_pod else "data", None
+    elif run.agents == "pod":
+        agent_axis, fsdp = "pod" if multi_pod else None, "data"
+    else:
+        raise ValueError(run.agents)
+    pspecs = {p: prepend_agent_axis(s, agent_axis, fsdp)
+              for p, s in base.items()}
+    slots = {"edm": ("m", "psi"), "edm_ef": ("m", "psi", "e"),
+             "ed": ("m", "psi"), "dsgd": (), "dmsgd": ("m",),
+             "dsgt": ("y", "g_prev"), "dsgt_hb": ("y", "g_prev", "m"),
+             "decentlam": ("m",), "qg": ("m",)}[run.algorithm]
+    return {"params": pspecs, "opt": {k: pspecs for k in slots},
+            "step": P()}
+
+
+def batch_spec_tree(model: Model, run: RunConfig, multi_pod: bool
+                    ) -> Dict[str, P]:
+    """The ``(A, b, ...)`` batch's specs, the reference's: the agent axis
+    as the state's, with ``agents="pod"`` the per-agent batch over
+    ``data``; a VLM's or an encoder-decoder model's ``frontend`` beside
+    the tokens."""
+    if run.agents == "data":
+        agent_axis, inner = ("pod", "data") if multi_pod else "data", None
+    else:
+        agent_axis, inner = "pod" if multi_pod else None, "data"
+    specs = {"tokens": P(agent_axis, inner, None)}
+    if model.cfg.family in ("vlm", "encdec"):
+        specs["frontend"] = P(agent_axis, inner, None, None)
+    return specs
+
+
+def _leaf_specs(model: Model, run: RunConfig) -> Dict[str, P]:
+    """One agent's leaf specs of the tree state: :func:`state_specs`'
+    parameter specs with the agent entry taken off."""
+    return {p: P(*s[1:], groups=s.groups)
+            for p, s in state_specs(model, run, False)["params"].items()}
+
+
+def _model_axis(mesh) -> int:
+    """The model axis's size of a rank grid (0: the grid has none)."""
+    if mesh is None or "model" not in mesh.axis_names:
+        return 0
+    return mesh.axis_size("model")
+
+
 def init_state(model: Model, run: RunConfig, n_agents: int, *,
                seed: int = 0, params: Optional[Dict[str, torch.Tensor]] = None,
                device=None, mesh=None,
@@ -327,7 +431,11 @@ def init_state(model: Model, run: RunConfig, n_agents: int, *,
     or with ``shard_axes`` its ``(1, rows / S, 128)`` row block (S the
     shard axis's size), or on the tree its ``(B, *shape)`` block of every
     leaf and optimizer slot, on the mesh's device unless ``device`` says
-    otherwise — the blocks of the one-process state, bit for bit."""
+    otherwise — the blocks of the one-process state, bit for bit.  On a
+    ``("data", "model")`` grid (tensor parallelism) each of those leaves
+    is the rank's block under :func:`state_specs` (``init_lm_rank``'s
+    draws, or ``shard_params`` of ``params``): a rank never holds the
+    whole model."""
     if mesh is not None:
         return _rank_state(model, run, n_agents, seed, params,
                            device if device is not None else mesh.device,
@@ -363,10 +471,17 @@ def _rank_state(model: Model, run: RunConfig, n_agents: int, seed: int,
     the tree the B agents' leaves and the algorithm's ``opt.init`` of them
     (the reference's tree ``init_state``, restricted to the block)."""
     feats = resolve_features(run)
-    _check_rank_features(feats, run, mesh, shard_axes)
+    _check_rank_features(feats, run, mesh, shard_axes, model)
     dev = resolve_device(device)
     _, B, s, S = rank_block(mesh, n_agents, shard_axes)
-    if params is None:
+    M = _model_axis(mesh)
+    if M and params is None:
+        params = init_lm_rank(
+            model.cfg, torch.Generator(device=dev).manual_seed(seed),
+            mesh.axis_index("model"), M, specs=_leaf_specs(model, run))
+    elif M:
+        params = shard_params(params, _leaf_specs(model, run), mesh)
+    elif params is None:
         params = model.init(torch.Generator(device=dev).manual_seed(seed))
     params = {p: v.to(dev) for p, v in params.items()}
     if not feats.packed_bus:
@@ -389,11 +504,40 @@ def _rank_state(model: Model, run: RunConfig, n_agents: int, seed: int,
 
 
 def _check_rank_features(feats: Features, run: RunConfig, mesh,
-                         shard_axes: Optional[str]) -> None:
+                         shard_axes: Optional[str], model: Model) -> None:
     """Raise for what the multi-rank step does not run: the tree's row
     shards (the reference asserts that ``shard_axes`` composes with the
     packed bus only), another engine than ppermute, a rank outside the
-    mesh."""
+    mesh.  On a grid with a model axis (tensor parallelism: the tree,
+    agents over ``data``, every leaf over ``model``) also
+    ``agents="pod"`` (its per-layer FSDP, ``set_fsdp_constraint``, is
+    queued), the packed bus and what rides on it — the overlap, the
+    wires, policy groups (the reference's bus spec ``P(agent_axis)``
+    holds the whole bus on every model rank, and its tree step lowers
+    none of them) — a family whose TP loss is queued
+    (``NotImplementedError``) and a config whose heads, FFN columns or
+    vocabulary do not split whole over the axis."""
+    M = _model_axis(mesh)
+    if M:
+        if run.agents == "pod":
+            raise ValueError(
+                "agents='pod' does not compose with a model axis: its "
+                "per-layer FSDP over 'data' (the reference's "
+                "set_fsdp_constraint) is queued in ROADMAP §1 item 8.7; "
+                "tensor parallelism runs agents='data'")
+        if feats.packed_bus:
+            rides = [what for what, on in (
+                ("overlap='delayed'", feats.overlap),
+                (f"wire={feats.wire!r}", feats.wire != "f32"),
+                ("gossip_groups", bool(feats.groups))) if on]
+            raise ValueError(
+                f"the packed bus{' with ' + ', '.join(rides) if rides else ''}"
+                " does not compose with a model axis: tensor parallelism "
+                "splits each agent's tree leaves over 'model' (run "
+                "packed_bus=False, the tree; the bus and what rides on it "
+                "are whole on every model rank in the reference)")
+        check_tp_train(model.cfg)
+        check_tp_split(model.cfg, M)
     if not feats.packed_bus and (run.agents == "pod"
                                  or shard_axes is not None):
         raise ValueError("agents='pod' (shard_axes) composes with the packed "
@@ -630,14 +774,39 @@ def build_train_step(model: Model, run: RunConfig, topo,
     metrics are all-reduced the same way (the consensus leaf by leaf).
     The multi-rank step is eager (``train_step.static`` is None);
     ``train_step.transports()`` lists the peer transports its mixers made
-    and ``train_step.close()`` frees them (collective).
+    and ``train_step.close()`` frees them (collective).  The fused tree EDM
+    across ranks consumes its input state, as the bus step does (m', ψ'
+    and φ written over the state's m, ψ and x leaf by leaf, each gradient
+    leaf dropped once used; the gradient norm is taken first): once such
+    a step returns, the state passed in is invalid and only the returned
+    one holds the run.
+
+    On a grid with a ``"model"`` axis of M ranks (tensor parallelism:
+    :func:`repro_torch.launch.mesh.make_gossip_mesh` ``model=M``, the
+    reference's ``build_train_step`` jitted with ``in_shardings`` from
+    :func:`state_specs` / :func:`batch_spec_tree`) the state is the tree's
+    (:func:`init_state` ``mesh=``: each leaf the rank's block of its B
+    agents' leaves), each agent's loss and backward run tensor-parallel
+    over ``model`` (``build_model(cfg, mesh=grid)``'s loss: the dense
+    family), the algorithm runs on the rank's blocks, and the gossip goes
+    over the rank's ``data`` slice, each model column gossiping its own
+    blocks (on the card through the peer transports, one pair a column).
+    The metrics sum a split leaf's blocks over the grid and count a
+    leaf that every model rank holds whole once (model index 0's).
+    ``_check_rank_features`` raises for what does not compose with a
+    model axis (the packed bus and what rides on it, ``agents="pod"``, a
+    family whose TP loss is queued, a config that does not split).
     """
     dev = resolve_device(device)
     feats = resolve_features(run)
     A = topo.n_agents
     a0, B, shard, S = 0, A, 0, 1
+    M = _model_axis(mesh)
     if mesh is not None:
-        _check_rank_features(feats, run, mesh, shard_axes)
+        _check_rank_features(feats, run, mesh, shard_axes, model)
+        if M:
+            # the loss on the rank's blocks, tensor-parallel over 'model'
+            model = build_model(model.cfg, model.decode_window, mesh=mesh)
         if (run.agents == "pod") != (shard_axes is not None):
             raise ValueError("agents='pod' runs with shard_axes= (the mesh's "
                              "row-shard axis) and agents='data' without")
@@ -651,6 +820,11 @@ def build_train_step(model: Model, run: RunConfig, topo,
     layout = (bus_layout_for(model, A, groups=feats.groups, shards=S)
               if feats.packed_bus else None)
     grouped = layout is not None and layout.is_grouped
+    # the leaves a rank leaves out of the grid's metric sums: those whole
+    # on every model rank, but on model index 0
+    replicated = frozenset(
+        p for p, sp in _leaf_specs(model, run).items() if "model" not in sp
+    ) if M and mesh.axis_index("model") else frozenset()
     codec = (make_codec(feats.wire, layout.block_rows)
              if feats.wire != "f32" else None)
     if straggler_plan is not None and not feats.overlap:
@@ -681,7 +855,11 @@ def build_train_step(model: Model, run: RunConfig, topo,
     else:
         mix = build_mixer(topo, mode="schedule", **mix_kw)
     every = run.gossip_every
-    kw = (dict(use_fused_kernel=use_fused_kernel)
+    # across ranks the fused tree EDM consumes its inputs, as the bus step
+    # does (a leaf held once: four full-width TP ranks' EDM fit one card)
+    consume = (mesh is not None and use_fused_kernel
+               and run.algorithm == "edm")
+    kw = (dict(use_fused_kernel=use_fused_kernel, consume=consume)
           if run.algorithm == "edm" else {})
     # each agent's loss recomputes its layers in the backward pass as the
     # run asks, as the reference's agent_loss does
@@ -781,7 +959,7 @@ def build_train_step(model: Model, run: RunConfig, topo,
         rows = layout.shard_rows
         return losses, g[:, shard * rows:(shard + 1) * rows].clone()
 
-    def step_metrics(losses, new_x, grads) -> Dict:
+    def step_metrics(losses, new_x, grads, grad_norm=None) -> Dict:
         if mesh is None:
             if not feats.packed_bus:
                 return {"loss": losses.mean(),
@@ -804,8 +982,13 @@ def build_train_step(model: Model, run: RunConfig, topo,
             consensus = bus_consensus_ranks(new_x, A, agent_sum, total)
             grad_norm = bus_grad_norm_ranks(grads, total)
         else:
-            consensus = consensus_distance_ranks(new_x, A, agent_sum, total)
-            grad_norm = tree_grad_norm_ranks(grads, total)
+            # on a model axis a split leaf's blocks sum over the grid, a
+            # replicated leaf counts once: model index 0's
+            consensus = consensus_distance_ranks(new_x, A, agent_sum, total,
+                                                 skip=replicated)
+            if grad_norm is None:
+                grad_norm = tree_grad_norm_ranks(grads, total,
+                                                 skip=replicated)
         return {"loss": agent_losses.mean(), "consensus": consensus,
                 "grad_norm": grad_norm, "agent_losses": agent_losses}
 
@@ -905,9 +1088,13 @@ def build_train_step(model: Model, run: RunConfig, topo,
         if lr_sched is not None:
             grads = scale_grads(grads, step, lr_sched)
         with torch.no_grad():
+            # the step consumes the gradients: their norm first
+            g_norm = (tree_grad_norm_ranks(grads, lambda t: coll.all_reduce(
+                t, mesh.world_group, mesh.size), skip=replicated)
+                if consume else None)
             opt = tree_opt(gossip_round_step(step, every), gossips(step))
             new_x, new_opt = opt.step(params, grads, state["opt"])
-            metrics = step_metrics(losses, new_x, grads)
+            metrics = step_metrics(losses, new_x, grads, g_norm)
         return {"params": new_x, "opt": new_opt, "step": step + 1}, metrics
 
     train_step.static = (StaticBusStep(

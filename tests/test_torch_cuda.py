@@ -2768,3 +2768,119 @@ def test_cuda_serve_cli_tp_under_torchrun(cuda, tmp_path):
     assert got["rank_token_digests"] == [want["token_digest"]] * 2
     assert got["params_sha256"] == want["params_sha256"]
     assert got["requests"] == want["requests"] == 4
+
+
+# ---------------------------------------------------------------------------
+# the tree train path under tensor parallelism: a (2, 2) ("data", "model")
+# grid of four ranks on the card, two peer transports side by side (one a
+# model column, each over its 2-rank data slice)
+# ---------------------------------------------------------------------------
+
+TP_TRAIN_SHAPE = dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
+                      head_dim=16, d_ff=128, vocab_size=256)
+
+
+def _tp_train_rank(rank, world, d):
+    """One rank of :func:`test_cuda_tp_train_ranks`: for B = 1 (A = 2,
+    ring(2): the peer ring) and B = 2 (A = 4, ring(4): the peer table),
+    2 steps of the fused TP tree step on the card, every ``edm_update``
+    launch on the rank's blocks held to the plain twin on copies of its
+    inputs; then the step's mixer on the card (the peer transport of the
+    rank's column) against the same mixer on the CPU over gloo (the
+    permutes and the combine kernels' plain twins, which CPU tensors
+    take) on the rank's final x."""
+    import dataclasses
+    import json
+    from pathlib import Path
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.core.mixing import build_mixer
+    from repro_torch.launch.mesh import init_distributed, make_gossip_mesh
+    from repro_torch.models import build_model
+    from repro_torch.train import (build_train_step, init_state,
+                                   make_gossip_schedule)
+    dev = init_distributed("cuda", init_method=f"file://{d}/store",
+                           rank=rank, world_size=world, timeout_s=300)
+    model = build_model(dataclasses.replace(get_config("qwen3_14b"),
+                                            **TP_TRAIN_SHAPE))
+    inner = ops.edm_update_flat
+    rec = {"rank": rank, "ok": True, "runs": {}}
+
+    def spy(x, g, m, psi, *, alpha, beta, out=None):
+        want = ref.edm_update_ref(x.clone(), g, m.clone(), psi.clone(),
+                                  alpha=alpha, beta=beta)
+        got = inner(x, g, m, psi, alpha=alpha, beta=beta, out=out)
+        rec["ok"] &= all(torch.equal(a.view(torch.int32), b.view(
+            torch.int32)) for a, b in zip(got, want))
+        return got
+
+    for B in (1, 2):
+        A = 2 * B
+        grid = make_gossip_mesh(A, agents_per_device=B, model=2, device=dev)
+        host = make_gossip_mesh(A, agents_per_device=B, model=2,
+                                device="cpu")
+        run = RunConfig(global_batch=A, seq_len=16, algorithm="edm",
+                        alpha=0.2, beta=0.9, gossip_engine="ppermute",
+                        packed_bus=False, agents_per_device=B, remat=False)
+        sched = make_gossip_schedule(run, A)
+        step = build_train_step(model, run, sched, use_fused_kernel=True,
+                                mesh=grid)
+        state = init_state(model, run, A, seed=0, mesh=grid)
+        gen = torch.Generator().manual_seed(9)
+        ops.reset_launch_counts()
+        ops.edm_update_flat = spy
+        try:
+            for _ in range(2):
+                tokens = torch.randint(0, 256, (A, 1, 16), generator=gen)
+                state, m = step(state, {"tokens": tokens.to(dev)})
+            torch.cuda.synchronize()
+        finally:
+            ops.edm_update_flat = inner
+        r = {"launches": {k: v for k, v in ops.launch_counts().items()
+                          if v},
+             "leaves": len(state["params"]),
+             "losses": m["agent_losses"].tolist()}
+        card = build_mixer(sched, mode="schedule", engine="ppermute",
+                           use_fused_kernel=True, mesh=grid)
+        plain = build_mixer(sched, mode="schedule", engine="ppermute",
+                            use_fused_kernel=True, mesh=host)
+        x = state["params"]
+        got = card(x, step=0)
+        want = plain({p: v.cpu() for p, v in x.items()}, step=0)
+        r["mix_equal"] = all(torch.equal(got[p].cpu().view(torch.int16),
+                                         want[p].view(torch.int16))
+                             for p in x)
+        torch.cuda.synchronize()
+        dist.barrier()
+        card.close()
+        step.close()
+        rec["runs"][B] = r
+    Path(d, f"rank{rank}.json").write_text(json.dumps(rec))
+    dist.destroy_process_group()
+
+
+@pytest.mark.requires_cuda
+def test_cuda_tp_train_ranks(cuda, tmp_path):
+    """Four ranks on the card as a ``(2, 2)`` grid train a small bf16
+    dense model on the tree path tensor-parallel: one ``edm_update``
+    launch a leaf a step on each rank's blocks, each bit-equal to the
+    plain twin; one ``ring_peer`` launch a step (B = 1) or one
+    ``table_peer`` (B = 2) in each model column; every rank the same
+    per-agent losses; and each column's peer transport on the card gives
+    the bits of the same mix over gloo on the CPU."""
+    import json
+    import torch.multiprocessing as mp
+    from repro_torch.kernels import build
+    build.build_all()
+    mp.spawn(_tp_train_rank, args=(4, str(tmp_path)), nprocs=4, join=True)
+    recs = [json.loads((tmp_path / f"rank{r}.json").read_text())
+            for r in range(4)]
+    for r in recs:
+        assert r["ok"], r
+        for B, run in r["runs"].items():
+            combine = "ring_peer" if B == "1" else "table_peer"
+            assert run["launches"] == {"edm_update": 2 * run["leaves"],
+                                       combine: 2}, (B, run)
+            assert run["mix_equal"], (B, run)
+            assert run["losses"] == recs[0]["runs"][B]["losses"]

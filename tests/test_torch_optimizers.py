@@ -181,6 +181,22 @@ def test_fused_tree_update_keeps_leaf_dtypes_and_order():
     assert torch.equal(m3, m2["b"]) and torch.equal(phi3, phi["b"])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_consuming_tree_update_equals_copying_form(dtype):
+    """``edm_update_tree_`` writes the copying form's (m', φ, ψ') over its
+    own m, x and ψ leaves, returns those dicts and empties ``grads``."""
+    rng = np.random.default_rng(4)
+    x, g, m, psi = (_to_torch(_tree(rng), dtype) for _ in range(4))
+    want = ops.edm_update_tree(x, g, m, psi, alpha=0.1, beta=0.8)
+    ids = [{k: v.data_ptr() for k, v in t.items()} for t in (m, x, psi)]
+    got = ops.edm_update_tree_(x, g, m, psi, alpha=0.1, beta=0.8)
+    assert got[0] is m and got[1] is x and got[2] is psi and not g
+    for tree, w, ptrs in zip(got, want, ids):
+        for k, v in tree.items():
+            assert v.data_ptr() == ptrs[k] and v.dtype == dtype
+            assert torch.equal(v, w[k])
+
+
 def test_keyword_rules_match_reference():
     """``repro/core/optimizers.py``'s rules: dsgd, dsgt and ed take no β;
     the baselines swallow extra keywords; edm takes ``use_fused_kernel``

@@ -470,9 +470,13 @@ def test_split_that_does_not_fit_raises():
 
 
 def test_loss_under_tp_raises():
+    """Under the grid the loss of a family whose TP training is queued
+    raises (a dense model's TP loss runs since the train path under TP:
+    ``tests/test_torch_tp_train.py``)."""
     model = build_model(small_config("qwen3_14b"), mesh=_grid_stub(0, 2))
+    moe = build_model(get_config("deepseek_moe_16b"), mesh=_grid_stub(0, 2))
     with pytest.raises(NotImplementedError, match="train path"):
-        model.loss({}, {})
+        moe.loss({}, {"tokens": torch.zeros(1, 4, dtype=torch.long)})
     assert model.init_cache(2, 8, device="meta")[0]["k"].shape == (
         2, 2, 8, 2, 32)
 
